@@ -6,20 +6,28 @@ Phases (any failure exits non-zero before the result line):
 
 1. the card's name and power limit;
 2. build the CUDA kernels from ``presto_tpu_torch/csrc`` (all ``nvcc``
-   runs at once, while the TPC-H lineitem table is generated on the
-   host) and print each ``-Xptxas -v`` summary;
-3. hold each kernel (K1 expr_eval, K2 packed_group_agg at 1, 12, 16
-   and 16384 slots, K3 packed_fold_finalize) against its plain PyTorch
-   version on the card, on the first lineitem split, with exact
-   equality, and time both with CUDA events;
-4. load SF10 lineitem onto the card (``MemoryConnector``) and run
-   TPC-H Q6, then Q1, through ``QueryRunner.execute``; every kernel
-   launch counter is set to 0 just before each query and read just
-   after it, and the run fails unless each kernel launched in each
-   query; the rows must equal the same queries run by the port on the
-   CPU over the same generated data;
-5. print per-query wall time and lineitem rows/s, a ``kernels`` JSON
-   line, the card line, and last the result line
+   runs at once, while the TPC-H tables lineitem, orders, customer and
+   part are generated on the host at SF10) and print each
+   ``-Xptxas -v`` summary;
+3. hold each kernel against its plain PyTorch version on the card,
+   with exact equality, and time both with CUDA events: K1 expr_eval
+   (Q6's filter, Q1's sum_charge argument, Q14's CASE/LIKE argument and
+   its long-decimal/double projection, Q3's varchar filter), K2
+   packed_group_agg at 1, 12, 16 and 16384 slots, K3
+   packed_fold_finalize, K4 join_build (Q14's and Q3's unique builds,
+   and a build whose primary key holds a duplicate, which breaks the
+   promise and goes down the sorted branch), K5 join_probe (Q14's and
+   Q3's probe of the first lineitem split), K6 sorted_group_agg (Q3's
+   partial over that probe output, and its merge of every split's
+   partials) and K7 topn (Q3's top 10 over its groups);
+4. run TPC-H Q6, Q1, Q14 and Q3 through ``QueryRunner.execute`` over a
+   ``MemoryConnector`` on the card; every kernel launch counter is set
+   to 0 just before each query and read just after it, and the run
+   fails unless each query launched the kernels of its path; the rows
+   must equal the same queries run by the port on the CPU over the
+   same generated data, exactly (Q14's double included);
+5. print per-query wall time, lineitem rows/s and a trace summary, a
+   ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the ``presto_tpu`` package.
@@ -40,8 +48,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SF = 10.0  # TPC-H scale factor: ~60M lineitem rows, ~4.2 GB on the card
 SPLIT_ROWS = 1 << 23  # rows per lineitem split, as bench.py uses on an accelerator
 REPS = 3  # timed repetitions per query after the counted run
-LINEITEM_COLUMNS = ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
-                    "l_discount", "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"]
+# the columns bench.py loads
+TABLES = {
+    "lineitem": ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice", "l_discount",
+                 "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+    "customer": ["c_custkey", "c_mktsegment"],
+    "part": ["p_partkey", "p_type"],
+}
 Q6 = """
 select sum(l_extendedprice * l_discount) as revenue
 from lineitem
@@ -66,11 +80,49 @@ where l_shipdate <= date '1998-12-01' - interval '90' day
 group by l_returnflag, l_linestatus
 order by l_returnflag, l_linestatus
 """
+Q14 = """
+select 100.00 * sum(case when p_type like 'PROMO%'
+        then l_extendedprice * (1 - l_discount) else 0 end)
+    / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
+from lineitem, part
+where l_partkey = p_partkey
+    and l_shipdate >= date '1995-09-01'
+    and l_shipdate < date '1995-09-01' + interval '1' month
+"""
+Q3 = """
+select
+    l_orderkey,
+    sum(l_extendedprice * (1 - l_discount)) as revenue,
+    o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING'
+    and c_custkey = o_custkey
+    and l_orderkey = o_orderkey
+    and o_orderdate < date '1995-03-15'
+    and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+"""
+QUERIES = {"q6": Q6, "q1": Q1, "q14": Q14, "q3": Q3}
+# the kernels each query's path must launch
+REQUIRED = {
+    "q6": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
+    "q1": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
+    "q14": ("expr_eval", "packed_group_agg", "packed_fold_finalize", "join_build",
+            "join_probe"),
+    "q3": ("expr_eval", "packed_fold_finalize", "join_build", "join_probe",
+           "sorted_group_agg", "topn"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
     "packed_group_agg": "presto_tpu/ops/aggregate.py:1863",
     "packed_fold_finalize": "presto_tpu/ops/aggregate.py:870",
+    "join_build": "presto_tpu/ops/join.py:160",
+    "join_probe": "presto_tpu/ops/join.py:298",
+    "sorted_group_agg": "presto_tpu/ops/aggregate.py:1776",
+    "topn": "presto_tpu/ops/sort.py:121",
 }
 
 
@@ -107,6 +159,46 @@ def nbytes(*ts) -> int:
         if t is not None:
             seen[(t.data_ptr(), t.numel())] = t.numel() * t.element_size()
     return sum(seen.values())
+
+
+def sector_bytes(t, rows) -> int:
+    """Bytes of the distinct 32-byte sectors of ``t`` that reading its
+    rows ``rows`` touches (the least a gather of them must move)."""
+    if rows.numel() == 0:
+        return 0
+    row_bytes = t.stride(0) * t.element_size()
+    first = rows * row_bytes // 32
+    last = ((rows + 1) * row_bytes - 1) // 32
+    return 32 * int(torch.unique(torch.cat([first, last])).numel())
+
+
+def group_sum_library_ms(keys, row_mask, states) -> float:
+    """Device ms of one ``index_add_`` that adds every state column of
+    ``states`` (K6's inputs) into its group, by a group id computed
+    beforehand over the live rows (dead rows dropped beforehand, as K6
+    sorts them past its last group): the library call nearest to K6's
+    work past the sort."""
+    from presto_tpu_torch.kernels import keys as pk
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+
+    n = row_mask.shape[0]
+    key, _ = pk.pack_plain(keys, n, row_mask.device)
+    _, gid = torch.unique(key[row_mask], return_inverse=True)
+    cols = []
+    for kind, data, valid in states:
+        if kind == k6.S_ONE:
+            cols.append(row_mask.to(torch.int64))
+        elif kind == k6.S_VALID:
+            cols.append(valid.to(torch.int64))
+        elif kind == k6.S_SUM:
+            cols.append(torch.where(valid, data.to(torch.int64), 0))
+        else:
+            limbs = k6._limbs(kind, data)
+            cols.append(torch.where(valid[:, None], limbs, torch.zeros_like(limbs)))
+    vals = torch.cat([c.reshape(n, -1) for c in cols], 1)[row_mask].contiguous()
+    table = torch.zeros((int(gid.max()) + 1, vals.shape[1]), dtype=torch.int64,
+                        device=row_mask.device)
+    return cuda_ms(lambda: table.index_add_(0, gid, vals), 10)
 
 
 def same(a, b, what: str) -> int:
@@ -155,11 +247,6 @@ def check_kernels(report: KernelReport, runner, mem) -> None:
         _finalize_kind, _slice_state_cols, kernel_inputs,
     )
     from presto_tpu_torch.planner.plan import AggregationNode, FilterNode
-
-    def find(node, cls):
-        while not isinstance(node, cls):
-            node = node.sources[0]
-        return node
 
     page = mem.page_for_split("lineitem", 0)
     n = page.capacity
@@ -210,12 +297,22 @@ def check_kernels(report: KernelReport, runner, mem) -> None:
         in_bytes = nbytes(page.row_mask, *[t for k in keys for t in k[:2]],
                           *[t for a in args for t in a[1:]])
         library = None
-        if label == "q6_global":
-            # one PyTorch call over the same limbs: the global sum alone
+        if label in ("q6_global", "q1_packed"):
+            # one PyTorch call over the same limbs: the global sum alone,
+            # or Q1's sum_charge limbs added per precomputed group
             from presto_tpu_torch.ops import decimal128 as d128
 
-            limbs = d128.to_sum_limbs(d128.from_int64(args[0][1]))
-            library = cuda_ms(lambda: torch.sum(limbs, dim=0), 10)
+            limbs = d128.to_sum_limbs(d128.from_int64(args[0 if label == "q6_global"
+                                                           else 3][1]))
+            if label == "q6_global":
+                library = cuda_ms(lambda: torch.sum(limbs, dim=0), 10)
+            else:
+                gid = torch.zeros(n, dtype=torch.int64, device=page.device)
+                for kd, kv, klo, kc in keys:
+                    gid = gid * kc + torch.where(kv, kd.to(torch.int64) - klo + 1, 0)
+                gid = torch.where(page.row_mask, gid, g)
+                table = torch.zeros((g + 1, 4), dtype=torch.int64, device=page.device)
+                library = cuda_ms(lambda: table.index_add_(0, gid, limbs), 10)
         name = "packed_group_agg" if label == "q1_packed" else f"packed_group_agg@{label}"
         out_bytes = nbytes(*[t for st in got[0] for t in st], got[1])
         report.add(name, "cuda", "presto_tpu_torch/csrc/packed_group_agg.cu", err, ms, plain,
@@ -262,9 +359,205 @@ def check_kernels(report: KernelReport, runner, mem) -> None:
                "presto_tpu_torch/csrc/packed_fold_finalize.cu", fin_err, ms, plain, fin_bytes)
 
 
+def find(node, cls):
+    """The first ``cls`` node on the left spine under ``node``."""
+    while not isinstance(node, cls):
+        node = node.sources[0]
+    return node
+
+
+def first_split(ex, node):
+    """The page the streaming chain of ``node`` produces from its first
+    split, as the executor runs it."""
+    page = next(ex._source_pages(ex._chain_leaf(node)))
+    return ex._build_stage(node)(page)
+
+
+def check_join_kernels(report: KernelReport, runner) -> None:
+    """Phase 3, the joins' slice: K1's new opcodes, K4, K5, K6 and K7
+    against their plain versions at Q14's and Q3's shapes."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import join_build as k4
+    from presto_tpu_torch.kernels import join_probe as k5
+    from presto_tpu_torch.kernels import keys as pk
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.kernels import topn as k7
+    from presto_tpu_torch.ops.aggregate import merge_aggregate, merge_inputs, sorted_inputs
+    from presto_tpu_torch.ops.join import _direct_budget, key_columns, packed_domain_size
+    from presto_tpu_torch.ops.sort import topn_keys
+    from presto_tpu_torch.page import concat_pages_device
+    from presto_tpu_torch.planner.plan import AggregationNode, JoinNode, ProjectNode, TopNNode
+
+    ex = runner.executor
+    q14, q3 = runner.plan(Q14), runner.plan(Q3)
+    joins = {"q14": find(q14, JoinNode), "q3": find(q3, JoinNode)}
+    src = "presto_tpu_torch/csrc/"
+
+    def k1_row(name, expr, page, filt=False):
+        prog, cols = ExprCompiler.for_page(page).lower(expr)
+        ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
+        n = page.capacity
+        mask = page.row_mask if filt else None
+        err = same(k1.expr_eval(prog, ins, n, row_mask=mask),
+                   k1.expr_eval_plain(prog, ins, n, row_mask=mask), name)
+        ms = cuda_ms(lambda: k1.expr_eval(prog, ins, n, row_mask=mask), 20)
+        plain = cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n, row_mask=mask), 5)
+        out = n if filt else n * (1 + (8 if prog.out_kind >= k1.KIND_I64 else 4))
+        report.add(name, "cuda", src + "expr_eval.cu", err, ms, plain,
+                   nbytes(*[t for c in ins for t in c], mask) + out)
+
+    # K4, unique-direct: Q14's build over part, Q3's over orders x customer
+    builds = {}
+    for label, join in joins.items():
+        page = ex.build_side(join)
+        keys = key_columns(page, join.right_keys, join.key_domains)
+        prod = packed_domain_size(join.key_domains)
+        if not (join.unique_build and prod <= _direct_budget(page)):
+            raise AssertionError(f"{label}: the build does not take the unique branch")
+        got = k4.join_build_unique(keys, page.row_mask, prod)
+        want = k4.join_build_unique_plain(keys, page.row_mask, prod)
+        err = same(got, want, f"join_build {label}")
+        if not bool(got[3]):
+            raise AssertionError(f"{label}: unique build reports a collision")
+        ms = cuda_ms(lambda: k4.join_build_unique(keys, page.row_mask, prod), 5)
+        plain = cuda_ms(lambda: k4.join_build_unique_plain(keys, page.row_mask, prod), 2)
+        report.add("join_build" if label == "q3" else f"join_build@{label}", "cuda",
+                   src + "join_build.cu", err, ms, plain,
+                   nbytes(page.row_mask, *[t for k in keys for t in k[:2]]) +
+                   nbytes(*got[:3]) + 1)
+        builds[label] = ex._materialize_build(join)
+        log(f"{label} build: {page.capacity} rows, {int(page.row_mask.sum())} live, "
+            f"domain {prod}")
+
+    # K4 on a broken promise: part's keys with one duplicate; the unique
+    # branch reports it, the sorted branch (with its starts table) rebuilds
+    page = ex.build_side(joins["q14"])
+    (d, v, lo, card), = key_columns(page, joins["q14"].right_keys, joins["q14"].key_domains)
+    d = d.clone()
+    d[1] = d[0]
+    keys = [(d, v, lo, card)]
+    prod = packed_domain_size(joins["q14"].key_domains)
+    got = k4.join_build_unique(keys, page.row_mask, prod)
+    want = k4.join_build_unique_plain(keys, page.row_mask, prod)
+    same((got[0], got[2], got[3]), (want[0], want[2], want[3]), "join_build collision")
+    if bool(got[3]):
+        raise AssertionError("join_build: a duplicate key went undetected")
+    got = k4.join_build_sorted(keys, page.row_mask, prod)
+    err = same(got, k4.join_build_sorted_plain(keys, page.row_mask, prod),
+               "join_build sorted")
+    ms = cuda_ms(lambda: k4.join_build_sorted(keys, page.row_mask, prod), 5)
+    plain = cuda_ms(lambda: k4.join_build_sorted_plain(keys, page.row_mask, prod), 2)
+    # one PyTorch call beside it: the starts table by torch.searchsorted
+    # over the sorted keys (the part of the branch past torch.sort)
+    slots = torch.arange(prod + 1, dtype=torch.int64, device=page.device)
+    library = cuda_ms(lambda: torch.searchsorted(got[0], slots), 5)
+    report.add("join_build@sorted_collision", "cuda", src + "join_build.cu", err, ms, plain,
+               nbytes(page.row_mask, d, v) + nbytes(*got), library)
+
+    # K5: the probe of the first lineitem split; K1 on Q14's arguments
+    probes = {}
+    for label, join in joins.items():
+        build = builds[label]
+        probe = first_split(ex, join.left)
+        keys = key_columns(probe, join.left_keys, join.key_domains)
+        cols = [(b.data, b.valid) for b in build.page.blocks]
+        args = (keys, probe.row_mask, build.sorted_keys, build.perm, build.starts, cols)
+        got = k5.join_probe(*args)
+        err = same(got, k5.join_probe_plain(*args), f"join_probe {label}")
+        ms = cuda_ms(lambda: k5.join_probe(*args), 10)
+        plain = cuda_ms(lambda: k5.join_probe_plain(*args), 3)
+        # one PyTorch call beside it: one build column gathered through
+        # a precomputed row index
+        n = probe.capacity
+        key, ok = pk.pack_plain(keys, n, probe.device)
+        kk = torch.clamp(key, 0, build.starts.shape[0] - 2)
+        row = build.perm[build.starts[kk].to(torch.int64)].to(torch.int64)
+        col = build.page.blocks[0].data
+        library = cuda_ms(lambda: torch.index_select(col, 0, row), 10)
+        # bytes this probe must move: its keys and mask read once, its
+        # outputs written once, and the distinct 32-byte sectors its
+        # live rows read in starts (starts[k] and starts[k + 1]) and its
+        # matched rows read in perm and in each build column's data and
+        # valid
+        live_rows = probe.row_mask & ok
+        live = int(live_rows.sum())
+        matched = int(got[1].sum())
+        out_bytes = nbytes(*[t for o in got[0] for t in o], got[1])
+        live_k = kk[live_rows]
+        pos = build.starts[kk[got[1]]].to(torch.int64)
+        brow = build.perm[pos].to(torch.int64)
+        touched = (sector_bytes(build.starts, torch.cat([live_k, live_k + 1]))
+                   + sector_bytes(build.perm, pos)
+                   + sum(sector_bytes(t, brow) for c in cols for t in c))
+        report.add("join_probe" if label == "q3" else f"join_probe@{label}", "cuda",
+                   src + "join_probe.cu", err, ms, plain,
+                   nbytes(probe.row_mask, *[t for k in keys for t in k[:2]]) + out_bytes
+                   + touched, library)
+        from presto_tpu_torch.page import Block, Page
+
+        probes[label] = Page(tuple(probe.blocks) + tuple(
+            Block(dd, vv, b.type, b.dictionary)
+            for (dd, vv), b in zip(got[0], build.page.blocks)), got[1])
+        log(f"{label} probe of split 0: {n} rows, {live} live, "
+            f"{int(got[1].sum())} matched")
+    agg14 = find(q14, AggregationNode)
+    k1_row("expr_eval@q14_case_like", agg14.aggs[0].arg, probes["q14"])
+    out14 = ex._run_aggregation(agg14)
+    k1_row("expr_eval@q14_promo_div", find(q14, ProjectNode).projections[0], out14)
+    cust = first_split(ex, find(joins["q3"].right, JoinNode).right.source)
+    k1_row("expr_eval@q3_mktsegment", find(joins["q3"].right, JoinNode).right.predicate,
+           cust, filt=True)
+
+    # K6: Q3's partial over the probe output, then the merge of every
+    # split's partials; K7: Q3's top 10 over the merged groups
+    agg3 = find(q3, AggregationNode)
+    page = probes["q3"]
+    keys, states, _ = sorted_inputs(page, agg3.group_exprs, agg3.aggs, agg3.key_domains)
+    got = k6.sorted_group_agg(keys, page.row_mask, states)
+    err = same(got[:2], k6.sorted_group_agg_plain(keys, page.row_mask, states)[:2],
+               "sorted_group_agg partial")
+    ms = cuda_ms(lambda: k6.sorted_group_agg(keys, page.row_mask, states), 5)
+    plain = cuda_ms(lambda: k6.sorted_group_agg_plain(keys, page.row_mask, states), 2)
+    library = group_sum_library_ms(keys, page.row_mask, states)
+    in_bytes = nbytes(page.row_mask, *[t for k in keys for t in k[:2]],
+                      *[t for _, dd, vv in states for t in (dd, vv)])
+    report.add("sorted_group_agg", "cuda", src + "sorted_group_agg.cu", err, ms, plain,
+               in_bytes + nbytes(*[t for o in got[0] for t in o], *got[1]), library)
+    log(f"q3 partial of split 0: {got[2]} groups")
+    parts = list(ex._pages(ex.partial_node(agg3)))
+    cat = concat_pages_device(parts)
+    nk = len(agg3.group_exprs)
+    keys, states, _ = merge_inputs(cat, nk, agg3.aggs, agg3.key_domains)
+    got = k6.sorted_group_agg(keys, cat.row_mask, states)
+    err = same(got[:2], k6.sorted_group_agg_plain(keys, cat.row_mask, states)[:2],
+               "sorted_group_agg merge")
+    ms = cuda_ms(lambda: k6.sorted_group_agg(keys, cat.row_mask, states), 5)
+    plain = cuda_ms(lambda: k6.sorted_group_agg_plain(keys, cat.row_mask, states), 2)
+    library = group_sum_library_ms(keys, cat.row_mask, states)
+    in_bytes = nbytes(cat.row_mask, *[t for k in keys for t in k[:2]],
+                      *[t for _, dd, vv in states for t in (dd, vv)])
+    report.add("sorted_group_agg@merge", "cuda", src + "sorted_group_agg.cu", err, ms,
+               plain, in_bytes + nbytes(*[t for o in got[0] for t in o], *got[1]), library)
+    log(f"q3 merge: {cat.capacity} partial rows from {len(parts)} splits, {got[2]} groups")
+    groups = merge_aggregate(cat, nk, agg3.aggs, agg3.max_groups,
+                             key_domains=agg3.key_domains)
+    top = find(q3, TopNNode)
+    keys = topn_keys(groups, top.sort_exprs, top.ascending, top.nulls_first)
+    got = k7.topn(keys, groups.row_mask, top.count)
+    err = same(got, k7.topn_plain(keys, groups.row_mask, top.count), "topn")
+    ms = cuda_ms(lambda: k7.topn(keys, groups.row_mask, top.count), 20)
+    plain = cuda_ms(lambda: k7.topn_plain(keys, groups.row_mask, top.count), 5)
+    report.add("topn", "cuda", src + "topn.cu", err, ms, plain,
+               nbytes(groups.row_mask, *[t for k in keys for t in k[:2]]) + 4 * top.count + 4)
+    log(f"q3 top {top.count} of {groups.capacity} groups")
+    ex._builds.clear()
+
+
 def profile_query(runner, sql: str) -> str:
     """One traced run of ``sql``: device-busy share of its wall time
     and the device time of its heaviest kernels (torch.profiler)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -274,6 +567,8 @@ def profile_query(runner, sql: str) -> str:
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # an operator's row repeats the device time of its kernels
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -288,10 +583,14 @@ def profile_query(runner, sql: str) -> str:
 
 
 def counters():
-    from presto_tpu_torch.kernels import expr_eval, packed_fold_finalize, packed_group_agg
+    from presto_tpu_torch.kernels import (
+        expr_eval, join_build, join_probe, packed_fold_finalize, packed_group_agg,
+        sorted_group_agg, topn,
+    )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
-            "packed_fold_finalize": packed_fold_finalize}
+            "packed_fold_finalize": packed_fold_finalize, "join_build": join_build,
+            "join_probe": join_probe, "sorted_group_agg": sorted_group_agg, "topn": topn}
 
 
 def main() -> int:
@@ -322,8 +621,9 @@ def main() -> int:
     build_thread = threading.Thread(target=do_build)
     build_thread.start()
     host = MemoryConnector(device="cpu")
-    host.load_from(Tpch(sf=SF, split_rows=SPLIT_ROWS), "lineitem",
-                   columns=LINEITEM_COLUMNS)
+    tpch = Tpch(sf=SF, split_rows=SPLIT_ROWS)
+    for table, columns in TABLES.items():
+        host.load_from(tpch, table, columns=columns)
     gen_s = time.perf_counter() - t0
     build_thread.join()
     if build_err:
@@ -332,15 +632,17 @@ def main() -> int:
     for kname in build.KERNELS:
         log(f"--- ptxas {kname}\n{build.ptxas_report.get(kname, '(cached build)').strip()}")
     lineitem_rows = host.row_count("lineitem")
-    log(f"lineitem sf={SF}: {lineitem_rows} rows in {host.num_splits('lineitem')} "
-        f"splits, generated in {gen_s:.1f} s; kernels built by {build_s:.1f} s")
+    log(f"sf={SF}: " + ", ".join(f"{t} {host.row_count(t)} rows in {host.num_splits(t)} "
+                                 f"splits" for t in TABLES)
+        + f"; generated in {gen_s:.1f} s; kernels built by {build_s:.1f} s")
 
     mem = MemoryConnector(device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mem.load_from(host, "lineitem")
+    for table in TABLES:
+        mem.load_from(host, table)
     torch.cuda.synchronize()
-    log(f"lineitem on the card in {time.perf_counter() - t0:.1f} s, "
+    log(f"tables on the card in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     catalog = Catalog()
     catalog.register("tpch", mem)
@@ -348,14 +650,16 @@ def main() -> int:
 
     report = KernelReport()
     check_kernels(report, runner, mem)
+    check_join_kernels(report, runner)
     torch.cuda.synchronize()
+    log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s")
 
     # phase 4: the main path, each query counted on its own
-    for sql in (Q6, Q1):
+    for sql in QUERIES.values():
         runner.execute(sql)  # plans and warms the allocator
     torch.cuda.synchronize()
     results, wall, launches = {}, {}, {}
-    for label, sql in (("q6", Q6), ("q1", Q1)):
+    for label, sql in QUERIES.items():
         for mod in counters().values():
             mod.launches = 0
         t0 = time.perf_counter()
@@ -363,20 +667,20 @@ def main() -> int:
         wall[label] = [time.perf_counter() - t0]
         launches[label] = {k: mod.launches for k, mod in counters().items()}
         log(f"{label} launches: {launches[label]}")
-        missing = [k for k, v in launches[label].items() if v == 0]
+        missing = [k for k in REQUIRED[label] if launches[label][k] == 0]
         if missing:
-            raise AssertionError(f"{label}: kernels not launched: {missing}")
+            raise AssertionError(f"{label}: kernels of its path not launched: {missing}")
     for row in report.rows.values():
         kname = row["name"].split("@")[0]
         row["launches_by_query"] = {q: launches[q][kname] for q in launches}
         row["launches"] = sum(row["launches_by_query"].values())
-    for label, sql in (("q6", Q6), ("q1", Q1)):
+    for label, sql in QUERIES.items():
         for _ in range(REPS):
             t0 = time.perf_counter()
             runner.execute(sql)
             wall[label].append(time.perf_counter() - t0)
 
-    for label, sql in (("q6", Q6), ("q1", Q1)):
+    for label, sql in QUERIES.items():
         log(f"{label} trace: {profile_query(runner, sql)}")
 
     # the same queries on the CPU over the same generated pages
@@ -384,7 +688,7 @@ def main() -> int:
     cpu_catalog.register("tpch", host)
     cpu_runner = QueryRunner(cpu_catalog, device="cpu")
     t0 = time.perf_counter()
-    for label, sql in (("q6", Q6), ("q1", Q1)):
+    for label, sql in QUERIES.items():
         ref = cpu_runner.execute(sql)
         if ref.rows != results[label].rows:
             raise AssertionError(f"{label}: card rows {results[label].rows} != "
@@ -392,7 +696,7 @@ def main() -> int:
         if not results[label].rows:
             raise AssertionError(f"{label}: no rows")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s on the CPU)")
-    for label in ("q6", "q1"):
+    for label in QUERIES:
         med = statistics.median(wall[label])
         log(f"{label}: {results[label].rows}")
         log(f"{label}: wall {med * 1e3:.2f} ms median of {len(wall[label])} "

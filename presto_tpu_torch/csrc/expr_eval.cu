@@ -2,9 +2,12 @@
 //
 // Replaces: presto_tpu/expr/compile.py ExprCompiler.compile (the
 // arithmetic, comparison, BETWEEN and AND/OR/NOT subset, with
-// _rescale_guard and the _ovf_add/_ovf_sub/_ovf_mul rules) and
-// presto_tpu/ops/filter_project.py filter_page/project_page, which XLA
-// fused into one program per chain.
+// _rescale_guard and the _ovf_add/_ovf_sub/_ovf_mul rules; LIKE and
+// varchar comparisons against a literal through a dictionary table,
+// _compile_like/_compile_string_cmp; CASE/IF, _compile_case; double
+// arithmetic over decimals with decimal128.mul_long_short and
+// to_double, _compile_arith) and presto_tpu/ops/filter_project.py
+// filter_page/project_page, which XLA fused into one program per chain.
 //
 // Bound on the H100: memory.  Each row reads its input columns' data
 // and validity (and the row mask for a filter) once and writes one
@@ -19,7 +22,14 @@
 // fixed-depth per-thread stack of (int64 value, valid) pairs.  One
 // build serves every query; no per-expression code generation.  A
 // filter skips rows that are already dead and writes only the new row
-// mask.  Simple first: the stack lives in local memory and loads are
+// mask.  A string predicate is one LUT opcode: the row's dictionary
+// code indexes a host-built boolean table.  The interpreter is
+// instantiated twice: the narrow one (every TPC-H filter and argument)
+// keeps the int64 stack; the wide one, picked only for programs with a
+// long-decimal or double lane, adds a second limb per stack slot, so
+// the narrow programs pay nothing for it.  Double arithmetic uses the
+// _rn intrinsics, so the card rounds as the plain twin does, bit for
+// bit.  Simple first: the stack lives in local memory and loads are
 // not vectorised.
 
 #include "common.cuh"
@@ -28,13 +38,15 @@
 #define K1_MAX_CONSTS 32
 #define K1_MAX_COLS 16
 #define K1_MAX_STACK 16
+#define K1_MAX_LUTS 4
 
 // opcodes: keep in step with kernels/expr_eval.py
 enum {
   OP_LOAD, OP_LIT, OP_NULL, OP_ADD, OP_SUB, OP_MUL, OP_SCALE_CHK, OP_SCALE,
-  OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_BETWEEN, OP_AND, OP_OR, OP_NOT
+  OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_BETWEEN, OP_AND, OP_OR, OP_NOT,
+  OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV
 };
-enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2 };
+enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
 
 struct K1Prog {
   int n_ins;
@@ -44,7 +56,44 @@ struct K1Prog {
   const void* col_data[K1_MAX_COLS];
   const uint8_t* col_valid[K1_MAX_COLS];
   int col_kind[K1_MAX_COLS];
+  const uint8_t* lut[K1_MAX_LUTS];
+  i64 lut_len[K1_MAX_LUTS];
 };
+
+// decimal128 limbs (ops/decimal128.py): value = hi * 10^18 + lo,
+// 0 <= lo < 10^18.  Every step wraps as the reference's int64 lanes do.
+__device__ __forceinline__ void d128_normalize(i64 hi, i64 lo, i64* oh, i64* ol) {
+  const i64 carry = fdiv(lo, B18);
+  *ol = wsub(lo, wmul(carry, B18));
+  *oh = wadd(hi, carry);
+}
+
+// decimal128.mul_int64: schoolbook over base-10^9 halves
+__device__ __forceinline__ void d128_mul_int64(i64 a, i64 b, i64* oh, i64* ol) {
+  const i64 a1 = fdiv(a, B9), a0 = fmod_(a, B9);
+  const i64 b1 = fdiv(b, B9), b0 = fmod_(b, B9);
+  const i64 cross = wadd(wmul(a1, b0), wmul(a0, b1));
+  const i64 c_hi = fdiv(cross, B9);
+  const i64 c_lo = wsub(cross, wmul(c_hi, B9));
+  d128_normalize(wadd(wmul(a1, b1), c_hi), wadd(wmul(c_lo, B9), wmul(a0, b0)), oh, ol);
+}
+
+// decimal128.mul_long_short: (hi*B + lo)*k = (hi*k)*B + lo*k
+__device__ __forceinline__ void d128_mul_long_short(i64 ah, i64 al, i64 k, i64* oh,
+                                                    i64* ol) {
+  i64 lh, ll;
+  d128_mul_int64(al, k, &lh, &ll);
+  d128_normalize(wadd(wmul(ah, k), lh), ll, oh, ol);
+}
+
+__device__ __forceinline__ double pow10d(int k) {
+  double p = 1.0;
+  for (int i = 0; i < k; ++i) p = __dmul_rn(p, 10.0);  // exact up to 10^22
+  return p;
+}
+
+__device__ __forceinline__ i64 d2bits(double x) { return __double_as_longlong(x); }
+__device__ __forceinline__ double bits2d(i64 x) { return __longlong_as_double(x); }
 
 __device__ __forceinline__ void logic3(bool is_and, i64 ad, bool av, i64 bd, bool bv,
                                        i64* d, bool* v) {
@@ -60,8 +109,12 @@ __device__ __forceinline__ void logic3(bool is_and, i64 ad, bool av, i64 bd, boo
   }
 }
 
+// WIDE adds the second limb (sl) of a long-decimal lane; a double
+// lane keeps its bits in sd.
+template <bool WIDE>
 __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d, bool* out_v) {
   i64 sd[K1_MAX_STACK];
+  i64 sl[WIDE ? K1_MAX_STACK : 1];
   bool sv[K1_MAX_STACK];
   int sp = 0;
   for (int pc = 0; pc < p.n_ins; ++pc) {
@@ -91,6 +144,21 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
       }
       case OP_SCALE: sd[sp - 1] = wmul(sd[sp - 1], p.consts[arg]); break;
       case OP_NOT: sd[sp - 1] = sd[sp - 1] == 0; break;
+      case OP_LUT: {
+        i64 c = sd[sp - 1];
+        c = c < 0 ? 0 : (c >= p.lut_len[arg] ? p.lut_len[arg] - 1 : c);
+        sd[sp - 1] = p.lut[arg][c] != 0;
+        break;
+      }
+      case OP_SEL: {  // cond then else -> cond ? then : else
+        const bool take = sd[sp - 3] != 0 && sv[sp - 3];
+        const int src = take ? sp - 2 : sp - 1;
+        sd[sp - 3] = sd[src];
+        sv[sp - 3] = sv[src];
+        if constexpr (WIDE) sl[sp - 3] = sl[src];
+        sp -= 2;
+        break;
+      }
       case OP_BETWEEN: {
         const i64 hd = sd[sp - 1], ld = sd[sp - 2], xd = sd[sp - 3];
         const bool hv = sv[sp - 1], lv = sv[sp - 2], xv = sv[sp - 3];
@@ -98,6 +166,22 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         logic3(true, xd >= ld, xv && lv, xd <= hd, xv && hv, &sd[sp - 1], &sv[sp - 1]);
         break;
       }
+      case OP_LOAD_LONG:
+      case OP_L2D:
+        if constexpr (WIDE) {
+          if (op == OP_LOAD_LONG) {
+            const i64* d = (const i64*)p.col_data[arg];
+            sd[sp] = d[2 * row];
+            sl[sp] = d[2 * row + 1];
+            sv[sp] = p.col_valid[arg][row] != 0;
+            ++sp;
+          } else {  // decimal128.to_double
+            const double x = __dadd_rn(__dmul_rn(__ll2double_rn(sd[sp - 1]), 1e18),
+                                       __ll2double_rn(sl[sp - 1]));
+            sd[sp - 1] = d2bits(arg ? __ddiv_rn(x, pow10d(arg)) : x);
+          }
+        }
+        break;
       default: {
         const i64 b = sd[sp - 1], a = sd[sp - 2];
         const bool bv = sv[sp - 1], av = sv[sp - 2];
@@ -116,6 +200,24 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
             v = v && !(wide > (__int128)I64_MAX || wide < (__int128)I64_MIN);
             break;
           }
+          case OP_MUL_LS:
+          case OP_DDIV:
+            if constexpr (WIDE) {
+              if (op == OP_MUL_LS) {  // arg 0: a is long, b short; 1: the reverse
+                i64 h, l;
+                if (arg == 0) d128_mul_long_short(a, sl[sp - 1], b, &h, &l);
+                else d128_mul_long_short(b, sl[sp], a, &h, &l);
+                d = h;
+                sl[sp - 1] = l;
+              } else {  // a zero divisor gives NULL
+                const double x = bits2d(a), y = bits2d(b);
+                d = d2bits(__ddiv_rn(x, y == 0.0 ? 1.0 : y));
+                v = v && y != 0.0;
+              }
+            } else {
+              d = 0;
+            }
+            break;
           case OP_EQ: d = a == b; break;
           case OP_NE: d = a != b; break;
           case OP_LT: d = a < b; break;
@@ -132,6 +234,7 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
   *out_v = sv[0];
 }
 
+template <bool WIDE>
 __global__ void k1_kernel(const K1Prog p, i64 n, const uint8_t* __restrict__ row_mask,
                           void* __restrict__ out_data, int out_kind,
                           uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_mask) {
@@ -143,12 +246,12 @@ __global__ void k1_kernel(const K1Prog p, i64 n, const uint8_t* __restrict__ row
     }
     i64 d;
     bool v;
-    run_program(p, i, &d, &v);
+    run_program<WIDE>(p, i, &d, &v);
     if (out_mask != nullptr) {
       out_mask[i] = (d != 0) && v;
       continue;
     }
-    if (out_kind == KIND_I64) ((i64*)out_data)[i] = d;
+    if (out_kind == KIND_I64 || out_kind == KIND_F64) ((i64*)out_data)[i] = d;
     else if (out_kind == KIND_I32) ((int*)out_data)[i] = (int)d;
     else ((uint8_t*)out_data)[i] = d != 0;
     out_valid[i] = v;
@@ -161,10 +264,12 @@ __global__ void k1_kernel(const K1Prog p, i64 n, const uint8_t* __restrict__ row
 extern "C" int k1_expr_eval(const int* ops, const int* args, int n_ins,
                             const i64* consts, int n_consts,
                             const i64* col_data, const i64* col_valid, const int* col_kind,
-                            int n_cols, i64 n, const void* row_mask,
+                            int n_cols, const i64* luts, const i64* lut_len, int n_luts,
+                            int wide, i64 n, const void* row_mask,
                             void* out_data, int out_kind, void* out_valid, void* out_mask,
                             void* stream) {
-  if (n_ins > K1_MAX_INS || n_consts > K1_MAX_CONSTS || n_cols > K1_MAX_COLS)
+  if (n_ins > K1_MAX_INS || n_consts > K1_MAX_CONSTS || n_cols > K1_MAX_COLS ||
+      n_luts > K1_MAX_LUTS)
     return (int)cudaErrorInvalidValue;
   K1Prog p;
   p.n_ins = n_ins;
@@ -175,11 +280,21 @@ extern "C" int k1_expr_eval(const int* ops, const int* args, int n_ins,
     p.col_valid[i] = (const uint8_t*)col_valid[i];
     p.col_kind[i] = col_kind[i];
   }
+  for (int i = 0; i < n_luts; ++i) {
+    p.lut[i] = (const uint8_t*)luts[i];
+    p.lut_len[i] = lut_len[i];
+  }
   if (n > 0) {
     const int threads = 256;
-    k1_kernel<<<grid_for(n, threads, 8), threads, 0, (cudaStream_t)stream>>>(
-        p, n, (const uint8_t*)row_mask, out_data, out_kind, (uint8_t*)out_valid,
-        (uint8_t*)out_mask);
+    const int grid = grid_for(n, threads, 8);
+    if (wide)
+      k1_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+          p, n, (const uint8_t*)row_mask, out_data, out_kind, (uint8_t*)out_valid,
+          (uint8_t*)out_mask);
+    else
+      k1_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+          p, n, (const uint8_t*)row_mask, out_data, out_kind, (uint8_t*)out_valid,
+          (uint8_t*)out_mask);
   }
   return (int)cudaGetLastError();
 }

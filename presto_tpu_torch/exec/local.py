@@ -1,17 +1,24 @@
 """Single-process pipeline executor.
 
 Counterpart of ``presto_tpu/exec/local.py``.  Every streaming chain of
-a plan (scan -> filter -> project -> partial aggregation) runs as one
-function per split, as the reference fuses it; here each stage is a
-kernel launch on the runner's device (K1 for filters, projections and
-aggregate arguments, K2 for the partial states).  Pipeline breakers
-materialize: the aggregation folds per-split partial tables slot by
-slot and finalizes them (K3), the sort orders the result.
+a plan (scan -> filter -> project -> join probe -> partial aggregation)
+runs as one function per split, as the reference fuses it; here each
+stage is a kernel launch on the runner's device (K1 for filters,
+projections and aggregate arguments, K5 for the probe of a unique-build
+inner join, K2 or K6 for the partial states).  Pipeline breakers
+materialize: a join's build side is built once (K4; a broken
+uniqueness promise rebuilds it down the sorted branch), the
+aggregation folds per-split packed partial tables slot by slot (K3) or
+merges the sort-path partials once (K6) and finalizes (K3), the sort
+orders the result and top-N picks its rows (K7).
 
-Ported: table scans, filters, projections, ORDER BY, and global or
-packed-direct (small exact key domain) aggregation.  Other plan nodes
-raise :class:`NotPorted`.  PyTorch runs eagerly, so there are no
-compiled-program caches and no capacity buckets.
+Ported: table scans, filters, projections, inner joins with a unique
+build, ORDER BY, top-N, and global, packed-direct or sort-path
+aggregation over exact keys.  Other plan nodes and join kinds raise
+:class:`NotPorted`.  PyTorch runs eagerly, so there are no
+compiled-program caches and no capacity buckets: the sort path sizes
+its outputs from the group count it finds, so a partial never drops a
+group and no capacity retry is needed.
 """
 
 from __future__ import annotations
@@ -24,19 +31,23 @@ from typing import Dict, Iterator, List, Optional
 from presto_tpu_torch import NotPorted, resolve_device
 from presto_tpu_torch.catalog import Catalog
 from presto_tpu_torch.ops.aggregate import (
-    combine_packed_states, finalize_packed, grouped_aggregate, packed_direct_layout,
+    combine_packed_states, finalize_packed, grouped_aggregate, merge_aggregate,
+    packed_direct_layout,
 )
 from presto_tpu_torch.ops.filter_project import filter_page, project_page
-from presto_tpu_torch.ops.sort import sort_page
-from presto_tpu_torch.page import Page, concat_pages_device
+from presto_tpu_torch.ops.join import JoinBuild, build_join, probe_join
+from presto_tpu_torch.ops.sort import sort_page, topn_page
+from presto_tpu_torch.page import Page, concat_pages_device, pad_page_to
 from presto_tpu_torch.planner.plan import (
     AggregationNode,
     FilterNode,
+    JoinNode,
     OutputNode,
     PlanNode,
     ProjectNode,
     SortNode,
     TableScanNode,
+    TopNNode,
 )
 from presto_tpu_torch.types import Type
 
@@ -81,6 +92,20 @@ class QueryStats:
         return None if e is None else int(e["rows"])
 
 
+def _check_streaming_join(node: JoinNode) -> None:
+    """The port streams one join form, the row-aligned probe of an inner
+    join whose build keys the planner promises unique; every other join
+    raises :class:`NotPorted` (the reference also streams semi/anti/mark
+    probes and expands the rest)."""
+    if node.use_index:
+        raise NotPorted("index join")
+    if node.kind != "inner" or not node.unique_build:
+        raise NotPorted(f"{node.kind} join" + ("" if node.unique_build
+                                                else " with a non-unique build"))
+    if node.null_safe_keys or node.null_aware:
+        raise NotPorted("null-safe or null-aware join keys")
+
+
 class LocalRunner:
     """Executes a plan tree against registered connectors on ``device``
     (default ``cuda``; see :func:`presto_tpu_torch.resolve_device`)."""
@@ -90,6 +115,8 @@ class LocalRunner:
         self.device = resolve_device(device)
         self.stats: Optional[QueryStats] = None
         self._partial_nodes: Dict[PlanNode, AggregationNode] = {}
+        # join builds of the running query, by join node
+        self._builds: Dict[PlanNode, JoinBuild] = {}
 
     # ------------------------------------------------------------------
     def run(self, plan: PlanNode) -> MaterializedResult:
@@ -98,7 +125,10 @@ class LocalRunner:
                                   rows=rows)
 
     def run_to_page(self, plan: PlanNode) -> Page:
-        pages = list(self._pages(plan))
+        try:
+            pages = list(self._pages(plan))
+        finally:
+            self._builds.clear()  # a build lives for one query
         if not pages:
             return Page.empty(plan.output_types, 1, self.device)
         return concat_pages_device(pages)
@@ -129,10 +159,14 @@ class LocalRunner:
             yield sort_page(src, list(node.sort_exprs), list(node.ascending),
                             node.nulls_first)
             return
+        if isinstance(node, TopNNode):
+            yield self._run_topn(node)
+            return
         if isinstance(node, AggregationNode) and node.step in ("single", "final"):
             yield self._run_aggregation(node)
             return
-        if isinstance(node, (TableScanNode, FilterNode, ProjectNode, AggregationNode)):
+        if isinstance(node, (TableScanNode, FilterNode, ProjectNode, AggregationNode,
+                             JoinNode)):
             yield from self._chain_pages(node)
             return
         raise NotPorted(f"plan node {type(node).__name__}")
@@ -150,6 +184,8 @@ class LocalRunner:
             return self._chain_leaf(node.source)
         if isinstance(node, AggregationNode) and node.step == "partial":
             return self._chain_leaf(node.source)
+        if isinstance(node, JoinNode):
+            return self._chain_leaf(node.left)  # the probe side streams
         return node
 
     def _build_stage(self, node: PlanNode):
@@ -171,6 +207,13 @@ class LocalRunner:
             kd = node.key_domains
             return lambda p: grouped_aggregate(inner(p), group_exprs, aggs, mg,
                                                key_domains=kd, mode="partial")
+        if isinstance(node, JoinNode):
+            _check_streaming_join(node)
+            inner = self._build_stage(node.left)
+            build = self._materialize_build(node)
+            left_keys = list(node.left_keys)
+            kd = node.key_domains
+            return lambda p: probe_join(build, inner(p), left_keys, key_domains=kd)
         return lambda p: p
 
     def _source_pages(self, node: PlanNode) -> Iterator[Page]:
@@ -201,6 +244,48 @@ class LocalRunner:
             yield Page(tuple(page.blocks[i] for i in idx), page.row_mask).to(self.device)
 
     # ------------------------------------------------------------------
+    # joins and top-N
+    # ------------------------------------------------------------------
+    def _materialize_build(self, node: JoinNode) -> JoinBuild:
+        """The build of ``node``, once per query: its build side padded
+        as the reference pads it (its direct budget reads the
+        capacity), built unique-direct when the planner promises unique
+        keys, and rebuilt down the sorted branch when that promise
+        fails."""
+        build = self._builds.get(node)
+        if build is None:
+            page = self.build_side(node)
+            right_keys = list(node.right_keys)
+            kd = node.key_domains
+            build = build_join(page, right_keys, key_domains=kd, unique=node.unique_build)
+            if build.unique_ok is not None and not bool(build.unique_ok):
+                # the uniqueness promise failed at runtime: rebuild sorted
+                build = build_join(page, right_keys, key_domains=kd, unique=False)
+            self._builds[node] = build
+        return build
+
+    def build_side(self, node: JoinNode) -> Page:
+        """The build side's pages, concatenated and padded to a
+        power-of-two capacity."""
+        pages = list(self._pages(node.right))
+        page = concat_pages_device(pages) if pages else Page.empty(
+            node.right.output_types, 1, self.device)
+        return pad_page_to(page, 1 << max(0, page.capacity - 1).bit_length())
+
+    def _run_topn(self, node: TopNNode) -> Page:
+        """Fold: keep the ``count`` best rows; each input page is ranked
+        together with the accumulator (K7) and cut to ``count`` rows."""
+        n = node.count
+        acc: Optional[Page] = None
+        for p in self._pages(node.source):
+            cand = p if acc is None else concat_pages_device([acc, p])
+            acc = topn_page(cand, list(node.sort_exprs), list(node.ascending), n,
+                            node.nulls_first)
+        if acc is None:
+            return Page.empty(node.output_types, max(n, 1), self.device)
+        return acc
+
+    # ------------------------------------------------------------------
     # aggregation
     # ------------------------------------------------------------------
     def _max_groups(self, node: AggregationNode) -> int:
@@ -213,19 +298,9 @@ class LocalRunner:
                 return prod
         return node.max_groups
 
-    def _run_aggregation(self, node: AggregationNode) -> Page:
-        """Breaker: fold per-split packed partial tables slot by slot
-        (one group for a global aggregation), then finalize."""
-        if node.step == "final":
-            raise NotPorted("final aggregation over exchanged partial states")
-        if node.presorted:
-            raise NotPorted("streaming (presorted) aggregation")
-        mg = self._max_groups(node)
-        num_keys = len(node.group_exprs)
-        aggs = list(node.aggs)
-        if node.group_exprs and not packed_direct_layout(node.group_exprs,
-                                                         node.key_domains, mg):
-            raise NotPorted("sort-path aggregation (keys without a small exact domain)")
+    def partial_node(self, node: AggregationNode) -> AggregationNode:
+        """The per-split partial step this runner injects under a
+        single-step aggregation."""
         partial = self._partial_nodes.get(node)
         if partial is None:
             partial = AggregationNode(
@@ -234,6 +309,28 @@ class LocalRunner:
                 agg_names=node.agg_names, step="partial",
                 max_groups=node.max_groups, presorted=node.presorted)
             self._partial_nodes[node] = partial
+        return partial
+
+    def _run_aggregation(self, node: AggregationNode) -> Page:
+        """Breaker: fold per-split packed partial tables slot by slot
+        (one group for a global aggregation), or merge the sort path's
+        per-split partials once; then finalize."""
+        if node.step == "final":
+            raise NotPorted("final aggregation over exchanged partial states")
+        if node.presorted:
+            raise NotPorted("streaming (presorted) aggregation")
+        mg = self._max_groups(node)
+        num_keys = len(node.group_exprs)
+        aggs = list(node.aggs)
+        sort_path = bool(node.group_exprs) and not packed_direct_layout(
+            node.group_exprs, node.key_domains, mg)
+        partial = self.partial_node(node)
+        if sort_path:
+            parts = list(self._pages(partial))
+            if not parts:
+                return Page.empty(node.output_types, 1, self.device)
+            return merge_aggregate(concat_pages_device(parts), num_keys, aggs, mg,
+                                   key_domains=node.key_domains, mode="single")
         acc: Optional[Page] = None
         for p in self._pages(partial):
             acc = p if acc is None else combine_packed_states(acc, p, num_keys, aggs)

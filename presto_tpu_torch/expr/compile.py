@@ -5,11 +5,14 @@ builds a closure of jnp ops that XLA fuses, the port lowers an
 expression on the host to a postfix :class:`Program` that the
 ``expr_eval`` kernel (K1) interprets, one thread per row.  Literal
 sub-trees, and the decimal rescale of a literal operand, fold on the
-host.  The lowering covers what TPC-H Q1 and Q6 bind: int32/int64/bool
-columns, literals, ``add``/``sub``/``mul`` with the reference's
-overflow-to-NULL rule, decimal rescale with its overflow guard,
-comparisons, BETWEEN and three-valued AND/OR/NOT.  Anything else
-raises :class:`NotPorted`.
+host.  The lowering covers what TPC-H Q1, Q6, Q14 and Q3 bind:
+int32/int64/bool columns, literals, ``add``/``sub``/``mul`` with the
+reference's overflow-to-NULL rule, decimal rescale with its overflow
+guard, comparisons, BETWEEN, three-valued AND/OR/NOT, LIKE and varchar
+comparisons against a literal (one boolean table over the column's
+dictionary), CASE/IF, long x short decimal products, and the double
+division of two long decimals (a zero divisor gives NULL).  Anything
+else raises :class:`NotPorted`.
 
 ``expr_dictionary`` is the torch-free type-level helper the planner
 uses to derive a projection's dictionary.
@@ -17,7 +20,10 @@ uses to derive a projection's dictionary.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+import operator
+from collections import OrderedDict
+import re
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,19 +74,82 @@ def _storage_kind(t: Type) -> int:
     return kind
 
 
+# stack lanes of a value: an int64 lane, a double, or long-decimal limbs
+SHORT, DOUBLE, LONG = "short", "double", "long"
+
+
+def _lane(t: Type) -> str:
+    if t.is_long_decimal and t.value_shape == (2,):
+        return LONG
+    if t.name == "double":
+        return DOUBLE
+    _storage_kind(t)
+    return SHORT
+
+
+def _out_kind(t: Type) -> int:
+    lane = _lane(t)
+    if lane == DOUBLE:
+        return k1.KIND_F64
+    if lane == LONG:
+        raise NotPorted(f"expressions producing {t}")
+    return _storage_kind(t)
+
+
 def _scale(t: Type) -> int:
     return (t.scale or 0) if t.is_decimal else 0
+
+
+def _like_to_regex(pattern: str) -> "re.Pattern":
+    """SQL LIKE as a regex: % = any run, _ = any single character."""
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+# (id(dictionary), predicate key) -> (dictionary, table), least
+# recently used first: one table per dictionary and predicate, shared
+# by every program using it; the dictionary is kept so its id stays
+# unique while the entry lives
+_LUT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+LUT_CACHE_SIZE = 256
+
+
+def dictionary_lut(d: Dictionary, key: tuple, predicate) -> k1.Lut:
+    """``predicate`` over every value of ``d``, indexable by code."""
+    ck = (id(d), key)
+    hit = _LUT_CACHE.get(ck)
+    if hit is None:
+        hit = _LUT_CACHE[ck] = (d, k1.Lut(predicate(v) for v in d.values))
+        if len(_LUT_CACHE) > LUT_CACHE_SIZE:
+            _LUT_CACHE.popitem(last=False)
+    else:
+        _LUT_CACHE.move_to_end(ck)
+    return hit[1]
+
+
+_STRING_CMP = {"eq": operator.eq, "ne": operator.ne, "lt": operator.lt,
+               "le": operator.le, "gt": operator.gt, "ge": operator.ge}
+_SWAPPED = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
 
 
 class _Lowering:
     """Builds one postfix program; ``columns`` lists the page column
     behind each LOAD slot."""
 
-    def __init__(self):
+    def __init__(self, dictionaries: Sequence[Optional[Dictionary]] = ()):
+        self.dictionaries = list(dictionaries)
         self.ops: List[int] = []
         self.args: List[int] = []
         self.consts: List[int] = []
         self.columns: List[int] = []
+        self.luts: List[k1.Lut] = []
 
     def _push(self, op: int, arg: int = 0) -> None:
         self.ops.append(op)
@@ -107,26 +176,38 @@ class _Lowering:
         else:
             self._push(k1.NULL)
 
+    def _load(self, index: int, op: int) -> None:
+        if index not in self.columns:
+            self.columns.append(index)
+        self._push(op, self.columns.index(index))
+
     def emit(self, e: Expr) -> bool:
         """Push ``e``; True when it is constant (no column read)."""
         if isinstance(e, ColumnRef):
-            _storage_kind(e.type)
-            if e.index not in self.columns:
-                self.columns.append(e.index)
-            self._push(k1.LOAD, self.columns.index(e.index))
+            lane = _lane(e.type)
+            if lane == DOUBLE:
+                raise NotPorted("expressions over double columns")
+            self._load(e.index, k1.LOAD_LONG if lane == LONG else k1.LOAD)
             return False
         if isinstance(e, Literal):
+            if _lane(e.type) != SHORT:
+                raise NotPorted(f"{e.type} literals")
             if e.value is None:
                 self._push(k1.NULL)
                 return True
-            _storage_kind(e.type)
             self._push(k1.LIT, self._const(int(e.value)))
             return True
         if not isinstance(e, Call):
             raise NotPorted(f"expression node {type(e).__name__}")
         start = len(self.ops)
         fn = e.fn
-        if fn in ("and", "or") and len(e.args) == 2:
+        if fn == "like":
+            return self._emit_like(e)
+        if fn in _STRING_CMP and any(a.type.is_string for a in e.args):
+            return self._emit_string_cmp(e)
+        if fn in ("case", "if"):
+            const = self._emit_case(e)
+        elif fn in ("and", "or") and len(e.args) == 2:
             const = self.emit(e.args[0]) & self.emit(e.args[1])
             self._push(k1.AND if fn == "and" else k1.OR)
         elif fn == "not":
@@ -151,13 +232,88 @@ class _Lowering:
                 return self.emit(Call(type=BOOLEAN, fn="and", args=(
                     Call(type=BOOLEAN, fn="ge", args=(x, lo)),
                     Call(type=BOOLEAN, fn="le", args=(x, hi)))))
-        elif fn in ("add", "sub", "mul"):
+        elif fn in ("add", "sub", "mul", "div"):
             const = self._emit_arith(e)
         else:
             raise NotPorted(f"expression {fn}")
         if const:
             self._fold(start)
         return const
+
+    # -- strings: one table over the dictionary ----------------------------
+    def _emit_lut(self, col: Expr, key: tuple, predicate) -> bool:
+        """Push ``predicate(value)`` of a dictionary column: its int32
+        code indexes a boolean table (clipped as the reference clips),
+        and the column's valid bit stays."""
+        if not isinstance(col, ColumnRef):
+            raise NotPorted(f"string predicate over {col}")
+        d = expr_dictionary(col, self.dictionaries)
+        if d is None:
+            raise NotPorted(f"string column {col} without a dictionary")
+        table = dictionary_lut(d, key, predicate)
+        if table not in self.luts:
+            self.luts.append(table)
+        self._load(col.index, k1.LOAD)
+        self._push(k1.LUT, next(i for i, t in enumerate(self.luts) if t is table))
+        return False
+
+    def _emit_like(self, e: Call) -> bool:
+        col, pat = e.args
+        if not isinstance(pat, Literal) or pat.value is None:
+            raise NotPorted("LIKE with a non-literal pattern")
+        rx = _like_to_regex(pat.value)
+        return self._emit_lut(col, ("like", pat.value), lambda v: rx.match(v) is not None)
+
+    def _emit_string_cmp(self, e: Call) -> bool:
+        lhs, rhs = e.args
+        op = e.fn
+        if isinstance(rhs, Literal):
+            col, s = lhs, rhs.value
+        elif isinstance(lhs, Literal):
+            col, s = rhs, lhs.value
+            op = _SWAPPED.get(op, op)
+        else:
+            raise NotPorted("comparison of two string columns")
+        cmp = _STRING_CMP[op]
+        return self._emit_lut(col, (op, s), lambda v: cmp(v, s))
+
+    # -- CASE / IF ----------------------------------------------------------
+    def _emit_case(self, e: Call) -> bool:
+        """``case(w1, t1, ..., else)`` / ``if(c, t, f)``: nested selects
+        from the last branch out, so the first true condition wins (the
+        reference's ``taken`` rule); NULL conditions are not taken."""
+        args = e.args
+        out_t = e.type
+        if _lane(out_t) != SHORT:
+            raise NotPorted(f"CASE producing {out_t}")
+        const = True
+        pairs = (len(args) - 1) // 2
+        for i in range(pairs):
+            const &= self.emit(args[2 * i])
+            const &= self._emit_coerced(args[2 * i + 1], out_t)
+        const &= self._emit_coerced(args[-1], out_t)
+        for _ in range(pairs):
+            self._push(k1.SEL)
+        return const
+
+    def _emit_coerced(self, e: Expr, to_t: Type) -> bool:
+        """Push ``e`` in ``to_t``'s representation (the reference's
+        ``_coerce`` for the integer lanes: up-scaling wraps)."""
+        if e.type == to_t or (_lane(e.type) == SHORT and not to_t.is_decimal
+                              and not e.type.is_decimal and to_t.name == "bigint"):
+            return self.emit(e)
+        if not (to_t.is_decimal and _lane(e.type) == SHORT):
+            raise NotPorted(f"coercion of {e.type} to {to_t}")
+        return self._emit_scaled(e, to_t.scale or 0, check=False)
+
+    # -- double lanes ---------------------------------------------------------
+    def _emit_double(self, e: Expr) -> None:
+        """Push a long decimal as a double (the reference's
+        ``_to_double``)."""
+        if _lane(e.type) != LONG:
+            raise NotPorted(f"{e.type} to double")
+        self.emit(e)
+        self._push(k1.L2D, _scale(e.type))
 
     def _align_scale(self, ta: Type, tb: Type) -> int:
         """Common scale of a comparison pair (the reference's
@@ -185,7 +341,24 @@ class _Lowering:
     def _emit_arith(self, e: Call) -> bool:
         a, b = e.args
         tr = e.type
-        if tr.is_decimal and not tr.is_long_decimal:
+        if tr.name == "double":
+            if e.fn != "div":
+                raise NotPorted(f"double {e.fn}")
+            self._emit_double(a)
+            self._emit_double(b)
+            self._push(k1.DDIV)
+            return False
+        lanes = (_lane(a.type), _lane(b.type))
+        if tr.is_long_decimal:
+            if e.fn != "mul" or sorted(lanes) != [LONG, SHORT]:
+                raise NotPorted(f"{e.fn} of {a.type} and {b.type} producing {tr}")
+            self.emit(a)
+            self.emit(b)
+            self._push(k1.MUL_LS, 0 if lanes[0] == LONG else 1)
+            return False
+        if lanes != (SHORT, SHORT) or e.fn == "div":
+            raise NotPorted(f"{e.fn} producing {tr}")
+        if tr.is_decimal:
             if e.fn == "mul":  # scale sa + sb == tr.scale, no rescale
                 const = self.emit(a) & self.emit(b)
             else:
@@ -212,9 +385,10 @@ class _Lowering:
                     consts.append(v)
                 args[i] = consts.index(v)
         prog = k1.Program(tuple(self.ops), tuple(args), tuple(consts),
-                          len(self.columns), out_kind)
+                          len(self.columns), out_kind, tuple(self.luts))
         if (len(prog.ops) > k1.MAX_INS or len(prog.consts) > k1.MAX_CONSTS
-                or prog.n_cols > k1.MAX_COLS or prog.depth > k1.MAX_STACK):
+                or prog.n_cols > k1.MAX_COLS or prog.depth > k1.MAX_STACK
+                or len(prog.luts) > k1.MAX_LUTS):
             raise NotPorted(f"expression larger than the kernel's program limits: {prog}")
         return prog
 
@@ -234,17 +408,16 @@ class ExprCompiler:
 
     def lower(self, expr: Expr) -> Tuple[k1.Program, List[int]]:
         """The K1 program of ``expr`` and the page columns it loads."""
-        lw = _Lowering()
+        lw = _Lowering(self.dictionaries)
         lw.emit(expr)
-        return lw.program(_storage_kind(expr.type)), lw.columns
+        return lw.program(_out_kind(expr.type)), lw.columns
 
     def compile(self, expr: Expr) -> CompiledExpr:
         if isinstance(expr, ColumnRef):
             i = expr.index
             return lambda page: (page.blocks[i].data, page.blocks[i].valid)
         prog, columns = self.lower(expr)
-        dtype = {k1.KIND_BOOL: torch.bool, k1.KIND_I32: torch.int32,
-                 k1.KIND_I64: torch.int64}[prog.out_kind]
+        dtype = k1._DTYPE_OF[prog.out_kind]
         if prog.n_cols == 0:  # folded to one literal or NULL
             value = prog.consts[prog.args[0]] if prog.ops[0] == k1.LIT else 0
             is_valid = prog.ops[0] == k1.LIT

@@ -20,7 +20,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "presto_tpu_torch"
-KERNELS = ("expr_eval", "packed_group_agg", "packed_fold_finalize")
+KERNELS = ("expr_eval", "packed_group_agg", "packed_fold_finalize", "join_build",
+           "join_probe", "sorted_group_agg", "topn")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 COMPILE_FLAGS = ARCH + ["-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 LINK_FLAGS = ARCH + ["-shared", "-Xcompiler", "-fPIC"]
@@ -46,8 +47,8 @@ def _digest(*parts: bytes) -> str:
 
 def _object(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
-    return BUILD_DIR / f"{name}-{_digest(src, common, ' '.join(COMPILE_FLAGS).encode())}.o"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    return BUILD_DIR / f"{name}-{_digest(src, headers, ' '.join(COMPILE_FLAGS).encode())}.o"
 
 
 def _library_path() -> Path:

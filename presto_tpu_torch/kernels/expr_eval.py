@@ -1,13 +1,23 @@
 """K1 ``expr_eval``: one kernel that interprets a lowered expression.
 
 ``expr/compile.py`` lowers an expression tree on the host into a short
-postfix :class:`Program` over a stack of ``(int64 value, bool valid)``
-pairs.  :func:`expr_eval` runs it: on a CUDA tensor it launches
+postfix :class:`Program` over a stack of ``(value, valid)`` pairs.
+:func:`expr_eval` runs it: on a CUDA tensor it launches
 ``csrc/expr_eval.cu`` (one thread per row), on a CPU tensor it runs
 :func:`expr_eval_plain`, which evaluates the same program with
 whole-tensor torch ops.  Both follow the reference's rules
-(``presto_tpu/expr/compile.py``): SQL three-valued logic, and an int64
-add/sub/mul or decimal up-scale that wraps turns its lane NULL.
+(``presto_tpu/expr/compile.py``): SQL three-valued logic, an int64
+add/sub/mul or decimal up-scale that wraps turns its lane NULL, a
+string predicate reads a boolean table over the column's dictionary,
+CASE takes the first true branch, and a double division by zero is
+NULL.
+
+A stack value is an int64 lane (integers, dates, booleans, short
+decimals, dictionary codes), a double, or a long decimal (two
+base-10^18 limbs).  A program that holds a long or double lane is
+"wide" and runs on a second instantiation of the interpreter whose
+stack slots carry the second limb; every other program keeps the
+narrow int64 stack.
 """
 
 from __future__ import annotations
@@ -19,25 +29,35 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from presto_tpu_torch.kernels import build
+from presto_tpu_torch.ops import decimal128 as d128
 
 # opcodes: keep in step with csrc/expr_eval.cu
 LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
-    BETWEEN, AND, OR, NOT = range(18)
+    BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV = range(24)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
-            "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not")
+            "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
+            "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv")
 # stack effect of each opcode (pushes minus pops)
-STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0)
+STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
+                0, -2, 1, -1, 0, -1)
+# opcodes whose argument is printed: a column slot, a constant index,
+# a table slot, the long operand's side (MUL_LS) or a decimal scale
+_ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D)
+# opcodes only the wide interpreter runs
+WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV))
 
 # fixed limits of the kernel's by-value program (csrc/expr_eval.cu)
 MAX_INS = 64
 MAX_CONSTS = 32
 MAX_COLS = 16
 MAX_STACK = 16
+MAX_LUTS = 4
 
 # storage kinds of loaded columns and of the output
-KIND_BOOL, KIND_I32, KIND_I64 = 0, 1, 2
+KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128 = range(5)
 _KIND_OF = {torch.bool: KIND_BOOL, torch.int32: KIND_I32, torch.int64: KIND_I64}
-_DTYPE_OF = {KIND_BOOL: torch.bool, KIND_I32: torch.int32, KIND_I64: torch.int64}
+_DTYPE_OF = {KIND_BOOL: torch.bool, KIND_I32: torch.int32, KIND_I64: torch.int64,
+             KIND_F64: torch.float64}
 
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
@@ -45,18 +65,45 @@ _I64_MIN = -(1 << 63)
 launches = 0
 
 
+class Lut:
+    """LUT's operand: a boolean table indexed by a dictionary's codes,
+    with its copy on each device it has been read on."""
+
+    __slots__ = ("values", "_copies")
+
+    def __init__(self, values: Sequence[bool]):
+        self.values = tuple(bool(v) for v in values)
+        self._copies: dict = {}
+
+    def on(self, device) -> torch.Tensor:
+        t = self._copies.get(str(device))
+        if t is None:
+            t = self._copies[str(device)] = torch.tensor(self.values, dtype=torch.bool,
+                                                         device=device)
+        return t
+
+
 @dataclasses.dataclass(frozen=True)
 class Program:
     """A lowered expression: ``ops``/``args`` in postfix order, the
-    int64 constant pool, and the output storage kind.  ``args`` of a
-    LOAD is a column slot (index into the columns handed to
-    :func:`expr_eval`); of LIT, SCALE_CHK and SCALE a constant index."""
+    int64 constant pool, the boolean tables of LUT, and the output
+    storage kind.  ``args`` of a LOAD or LOAD_LONG is a column slot
+    (index into the columns handed to :func:`expr_eval`); of LIT,
+    SCALE_CHK and SCALE a constant index; of LUT a table slot; of
+    MUL_LS 0 when the long operand is below the short one on the stack,
+    1 when above; of L2D the operand's decimal scale.  ``luts`` holds
+    the tables of LUT."""
 
     ops: Tuple[int, ...]
     args: Tuple[int, ...]
     consts: Tuple[int, ...]
     n_cols: int
     out_kind: int
+    luts: Tuple[Lut, ...] = ()
+
+    @property
+    def wide(self) -> bool:
+        return any(op in WIDE_OPS for op in self.ops)
 
     @property
     def depth(self) -> int:
@@ -67,7 +114,7 @@ class Program:
         return best
 
     def __repr__(self) -> str:
-        body = " ".join(f"{OP_NAMES[o]}({a})" if o in (LOAD, LIT, SCALE_CHK, SCALE)
+        body = " ".join(f"{OP_NAMES[o]}({a})" if o in _ARG_OPS
                         else OP_NAMES[o] for o, a in zip(self.ops, self.args))
         return f"Program[{body}; consts={list(self.consts)}]"
 
@@ -87,7 +134,8 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
                     n: int, row_mask: Optional[torch.Tensor] = None):
     """Plain torch evaluation of ``prog`` over ``n`` rows.  Returns
     ``(data, valid)``, or with ``row_mask`` the filtered row mask
-    ``row_mask & data & valid``."""
+    ``row_mask & data & valid``.  Stack values are ``(n,)`` int64,
+    ``(n,)`` float64 or ``(n, 2)`` int64 limbs."""
     dev = row_mask.device if row_mask is not None else (
         cols[0][0].device if cols else torch.device("cpu"))
     stack = []
@@ -95,6 +143,8 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         if op == LOAD:
             d, v = cols[arg]
             stack.append((d.to(torch.int64), v))
+        elif op == LOAD_LONG:
+            stack.append(cols[arg])
         elif op == LIT:
             stack.append((torch.full((n,), prog.consts[arg], dtype=torch.int64, device=dev),
                           torch.ones(n, dtype=torch.bool, device=dev)))
@@ -111,6 +161,19 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == NOT:
             d, v = stack.pop()
             stack.append(((d == 0).to(torch.int64), v))
+        elif op == LUT:
+            d, v = stack.pop()
+            table = prog.luts[arg].on(d.device)
+            code = torch.clamp(d, 0, table.shape[0] - 1)
+            stack.append((table[code].to(torch.int64), v))
+        elif op == SEL:
+            (ed, ev), (td, tv), (cd, cv) = stack.pop(), stack.pop(), stack.pop()
+            cond = (cd != 0) & cv
+            wide_cond = cond[:, None] if td.dim() > 1 else cond
+            stack.append((torch.where(wide_cond, td, ed), torch.where(cond, tv, ev)))
+        elif op == L2D:
+            d, v = stack.pop()
+            stack.append((d128.to_double(d, arg), v))
         elif op == BETWEEN:
             (hd, hv), (ld, lv), (xd, xv) = stack.pop(), stack.pop(), stack.pop()
             stack.append(_logic(AND, (xd >= ld).to(torch.int64), xv & lv,
@@ -130,6 +193,12 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
             elif op == MUL:
                 d = ad * bd
                 v = v & ~_ovf_mul(ad, bd, d)
+            elif op == MUL_LS:
+                d = d128.mul_long_short(ad, bd) if arg == 0 else d128.mul_long_short(bd, ad)
+            elif op == DDIV:
+                zero = bd == 0
+                d = ad / torch.where(zero, torch.ones_like(bd), bd)
+                v = v & ~zero
             else:
                 d = {EQ: ad == bd, NE: ad != bd, LT: ad < bd, LE: ad <= bd,
                      GT: ad > bd, GE: ad >= bd}[op].to(torch.int64)
@@ -167,16 +236,28 @@ def _launch(prog, cols, n, row_mask, tensors):
     global launches
     build.require_cuda(tensors, "expr_eval")
     if (len(prog.ops) > MAX_INS or len(prog.consts) > MAX_CONSTS
-            or len(cols) > MAX_COLS or prog.depth > MAX_STACK):
+            or len(cols) > MAX_COLS or prog.depth > MAX_STACK or len(prog.luts) > MAX_LUTS):
         raise ValueError(f"expr_eval: program exceeds the kernel's limits: {prog}")
+    if prog.out_kind not in _DTYPE_OF or (prog.out_kind == KIND_F64 and not prog.wide):
+        raise ValueError(f"expr_eval: output kind {prog.out_kind}")
+    long_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_LONG}
     kinds = []
-    for d, v in cols:
-        if d.dim() != 1 or d.shape[0] < n or v.shape[0] < n or v.dtype != torch.bool:
-            raise ValueError("expr_eval: columns must be 1-D with bool validity")
-        if d.dtype not in _KIND_OF:
+    for slot, (d, v) in enumerate(cols):
+        tail = (2,) if slot in long_slots else ()
+        if d.dim() != 1 + len(tail) or d.shape[0] < n or tuple(d.shape[1:]) != tail \
+                or v.dim() != 1 or v.shape[0] < n or v.dtype != torch.bool:
+            raise ValueError("expr_eval: columns must be 1-D, or (n, 2) limbs, with "
+                             "bool validity")
+        if slot in long_slots:
+            if d.dtype != torch.int64:
+                raise ValueError(f"expr_eval: long-decimal column dtype {d.dtype}")
+            kinds.append(KIND_D128)
+        elif d.dtype not in _KIND_OF:
             raise ValueError(f"expr_eval: column dtype {d.dtype}")
-        kinds.append(_KIND_OF[d.dtype])
+        else:
+            kinds.append(_KIND_OF[d.dtype])
     dev = tensors[0].device
+    luts = [t.on(dev) for t in prog.luts]
     if row_mask is not None:
         if row_mask.dtype != torch.bool or row_mask.shape[0] != n:
             raise ValueError("expr_eval: row_mask must be bool (n,)")
@@ -192,6 +273,7 @@ def _launch(prog, cols, n, row_mask, tensors):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
@@ -201,8 +283,11 @@ def _launch(prog, cols, n, row_mask, tensors):
     c_data = build.ptrs(d.data_ptr() for d, _ in cols)
     c_valid = build.ptrs(v.data_ptr() for _, v in cols)
     c_kinds = build.ints(kinds)
+    c_luts = build.ptrs(t.data_ptr() for t in luts)
+    c_lut_len = build.ptrs(t.shape[0] for t in luts)
     err = fn(c_ops, c_args, len(prog.ops), c_consts, len(prog.consts),
              c_data, c_valid, c_kinds, len(cols),
+             c_luts, c_lut_len, len(luts), int(prog.wide),
              n, row_mask.data_ptr() if row_mask is not None else None,
              out_data.data_ptr() if out_data is not None else None, prog.out_kind,
              out_valid.data_ptr() if out_valid is not None else None,

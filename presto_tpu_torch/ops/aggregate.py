@@ -1,14 +1,17 @@
-"""Grouped aggregation: the global and packed-direct paths.
+"""Grouped aggregation: the global, packed-direct and sort paths.
 
 Counterpart of ``presto_tpu/ops/aggregate.py``.  The type-level helpers
 (``state_types``, ``output_type``, ``_sum_type``, ``_agg_dict``) are
-copies the binder and planner use.  The device work runs on two
+copies the binder and planner use.  The device work runs on three
 kernels: K2 ``packed_group_agg`` computes the partial states of a page
 (global, or grouped by an exact packed key whose domain product fits
-``DIRECT_GROUP_LIMIT``), and K3 ``packed_fold_finalize`` folds two
-partial tables slot by slot and finalizes the result.  Sort-path
-grouping, min/max, variance, DISTINCT and FILTER are not ported and
-raise :class:`NotPorted`.
+``DIRECT_GROUP_LIMIT``); K3 ``packed_fold_finalize`` folds two partial
+tables slot by slot and finalizes states; K6 ``sorted_group_agg``
+groups by an exact packed key too large for a direct table (the sort
+path) and merges partial states (``merge_aggregate``).  The sort path
+emits every group it sees, in packed-key order, whatever ``max_groups``
+says.  Hashed keys, min/max, variance, DISTINCT and FILTER are not
+ported and raise :class:`NotPorted`.
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ import torch
 
 from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler, expr_dictionary
-from presto_tpu_torch.expr.ir import AggCall, Expr
+from presto_tpu_torch.expr.ir import AggCall, ColumnRef, Expr
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
+from presto_tpu_torch.kernels import sorted_group_agg as k6
 from presto_tpu_torch.page import Block, Page, _torch_dtype
 from presto_tpu_torch.types import BIGINT, DOUBLE, VARCHAR, DecimalType, Type
 
@@ -387,12 +391,14 @@ def grouped_aggregate(
     mode: str = "single",
 ) -> Page:
     """Aggregate ``page`` by ``group_exprs``: the reference's global
-    branch (no keys: one group) and packed-direct branch (group id ==
-    packed key, output capacity ``max_groups``).  mode='single' emits
-    finalized values, 'partial' the state columns."""
+    branch (no keys: one group), packed-direct branch (group id ==
+    packed key, output capacity ``max_groups``) and sort path (one row
+    per group the page holds, in packed-key order, however many
+    ``max_groups`` expects).  mode='single' emits finalized values,
+    'partial' the state columns."""
     _check_ported(aggs, mode)
     if group_exprs and not packed_direct_layout(group_exprs, key_domains, max_groups):
-        raise NotPorted("sort-path grouping (keys without a small exact domain)")
+        return _sorted_aggregate(page, group_exprs, aggs, key_domains, mode)
     keys, args = kernel_inputs(page, group_exprs, aggs, key_domains)
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
     n = page.capacity
@@ -430,6 +436,118 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
         d, v = c.compile(e)(page)
         keys.append((d, v, lo, hi - lo + 2))
     return keys, args
+
+
+def _exact_domains(key_domains, n_keys: int):
+    from presto_tpu_torch.ops.join import packed_domain_size
+
+    if key_domains is None or len(key_domains) != n_keys \
+            or packed_domain_size(key_domains) is None:
+        raise NotPorted("grouping keys without exact packed domains (hashed keys)")
+
+
+def _states_out(groups: int, key_blocks, state_cols, per_agg, aggs, mode, agg_dicts,
+                device) -> Page:
+    """The page of a sort-path grouping: ``per_agg`` slices the flat
+    K6 state columns back into each aggregate's ``[sum, count]`` or
+    ``[count]``."""
+    states, pos = [], 0
+    for k in per_agg:
+        states.append(state_cols[pos:pos + k])
+        pos += k
+    mask = torch.ones(groups, dtype=torch.bool, device=device)
+    return _emit(key_blocks, states, aggs, mask, mode, agg_dicts)
+
+
+def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
+    """The K6 inputs of a sort-path grouping: packed-key columns, the
+    flat state list, and how many states each aggregate has."""
+    _exact_domains(key_domains, len(group_exprs))
+    keys, args = kernel_inputs(page, group_exprs, aggs, key_domains)
+    states, per_agg = [], []
+    for kind, data, valid in args:
+        if kind == k2.COUNT_STAR:
+            states.append((k6.S_ONE, None, None))
+        elif kind == k2.COUNT:
+            states.append((k6.S_VALID, None, valid))
+        else:
+            states.append((k6.S_SUM if kind == k2.SUM_SHORT else k6.S_LIMBS_SHORT,
+                           data, valid))
+            states.append((k6.S_VALID, None, valid))
+        per_agg.append(1 if kind in (k2.COUNT_STAR, k2.COUNT) else 2)
+    return keys, states, per_agg
+
+
+def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode) -> Page:
+    """The reference's sort path over K6: every group the page holds,
+    in packed-key order."""
+    keys, states, per_agg = sorted_inputs(page, group_exprs, aggs, key_domains)
+    key_out, cols, groups = k6.sorted_group_agg(keys, page.row_mask, states)
+    if groups == 0:
+        return _empty_groups(group_exprs, aggs, mode, page.device)
+    agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
+    key_blocks = [Block(d, v, e.type, dic) for (d, v), e, dic in
+                  zip(key_out, group_exprs, expr_key_dicts(page, group_exprs))]
+    return _states_out(groups, key_blocks, cols, per_agg, aggs, mode, agg_dicts,
+                       page.device)
+
+
+def _empty_groups(group_exprs, aggs, mode, device) -> Page:
+    types = [e.type for e in group_exprs]
+    for a in aggs:
+        types += state_types(a) if mode == "partial" else [output_type(a)]
+    return Page.empty(types, 1, device)
+
+
+def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
+    """The K6 inputs of merging partial states: packed-key columns,
+    the flat state list (the reference's ``_merge_states`` for count,
+    sum and avg: counts and sums add over live rows, a long sum only
+    where its count is positive), and states per aggregate."""
+    if num_keys == 0:
+        raise NotPorted("merging global partial states")
+    _exact_domains(key_domains, num_keys)
+    key_blocks = partial.blocks[:num_keys]
+    if any(b.dictionary is not None and _collation_lists(b.dictionary)[3]
+           for b in key_blocks):
+        raise NotPorted("grouping over a dictionary with duplicate values")
+    keys = [(b.data, b.valid, int(lo), int(hi - lo + 2))
+            for b, (lo, hi) in zip(key_blocks, key_domains)]
+    live = partial.row_mask
+    states, per_agg = [], []
+    for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):
+        if agg.fn in ("count", "count_star"):
+            states.append((k6.S_SUM, cols[0].data, live))
+        elif cols[0].type.is_long_decimal:
+            states.append((k6.S_LIMBS_LONG, cols[0].data, cols[1].data > 0))
+            states.append((k6.S_SUM, cols[1].data, live))
+        else:
+            states.append((k6.S_SUM, cols[0].data, live))
+            states.append((k6.S_SUM, cols[1].data, live))
+        per_agg.append(len(cols))
+    return keys, states, per_agg
+
+
+def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_groups: int,
+                    key_domains: Optional[Sequence[Optional[Tuple[int, int]]]] = None,
+                    mode: str = "single") -> Page:
+    """Final aggregation over a page of partial states (group keys in
+    the first ``num_keys`` blocks, then state columns in
+    ``state_types`` order), on K6.  Every group is emitted, in
+    packed-key order."""
+    _check_ported(aggs, mode)
+    keys, states, per_agg = merge_inputs(partial, num_keys, aggs, key_domains)
+    key_out, cols, groups = k6.sorted_group_agg(keys, partial.row_mask, states)
+    key_blocks_in = partial.blocks[:num_keys]
+    if groups == 0:
+        return _empty_groups([ColumnRef(type=b.type, index=i)
+                              for i, b in enumerate(key_blocks_in)], aggs, mode,
+                             partial.device)
+    agg_dicts = [c[0].dictionary for c in _slice_state_cols(partial, num_keys, aggs)]
+    key_blocks = [Block(d, v, b.type, b.dictionary)
+                  for (d, v), b in zip(key_out, key_blocks_in)]
+    return _states_out(groups, key_blocks, cols, per_agg, aggs, mode, agg_dicts,
+                       partial.device)
 
 
 def _unpack_key_blocks(cards, domains, group_exprs, key_dicts, prod, capacity,

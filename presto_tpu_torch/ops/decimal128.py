@@ -1,4 +1,4 @@
-"""Long-decimal limb arithmetic, the subset TPC-H Q1 and Q6 use.
+"""Long-decimal limb arithmetic, the subset TPC-H Q1, Q6, Q14 and Q3 use.
 
 Counterpart of ``presto_tpu/ops/decimal128.py``.  A decimal(p <= 36)
 value is two base-10^18 int64 limbs, ``value = hi * 10^18 + lo`` with
@@ -57,6 +57,10 @@ def normalize(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo], dim=-1)
 
 
+def split(d: torch.Tensor):
+    return d[..., 0], d[..., 1]
+
+
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_width(a, 2)
     return normalize(a[..., 0] + b[..., 0], a[..., 1] + b[..., 1])
@@ -70,6 +74,48 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 def from_int64(x: torch.Tensor) -> torch.Tensor:
     """Short (int64) value -> two limbs."""
     return normalize(torch.zeros_like(x), x)
+
+
+def _fdiv(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def mul_int64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full product of two int64 scaled values (|a|, |b| < 10^18) ->
+    limbs: schoolbook over base-10^9 halves, every partial < 10^18."""
+    a1, a0 = _fdiv(a, _B9), torch.remainder(a, _B9)
+    b1, b0 = _fdiv(b, _B9), torch.remainder(b, _B9)
+    cross = a1 * b0 + a0 * b1
+    c_hi = _fdiv(cross, _B9)
+    c_lo = cross - c_hi * _B9
+    return normalize(a1 * b1 + c_hi, c_lo * _B9 + a0 * b0)
+
+
+def mul_long_short(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Long limbs x int64 scaled value: ``(hi*B + lo)*k = (hi*k)*B +
+    lo*k``, ``lo*k`` through the full int64 multiplier.  Exact whenever
+    the result fits p <= 36."""
+    _check_width(a, 2)
+    ah, al = split(a)
+    lh, ll = split(mul_int64(al, k))
+    return normalize(ah * k + lh, ll)
+
+
+def to_double(a: torch.Tensor, scale: int) -> torch.Tensor:
+    """``(hi * 10^18 + lo) / 10^scale`` in float64, one rounding per
+    operation (the CUDA interpreter uses the same _rn operations)."""
+    _check_width(a, 2)
+    ah, al = split(a)
+    return div_exact(ah.to(torch.float64) * float(BASE) + al.to(torch.float64),
+                     10.0 ** scale)
+
+
+def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device: PyTorch divides a
+    CUDA tensor by a Python number as a multiplication by its
+    reciprocal, which can differ in the last bit, so the divisor goes
+    in as a tensor."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
 def to_sum_limbs(a: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""ORDER BY over Pages.
+"""ORDER BY and top-N over Pages.
 
 Counterpart of ``presto_tpu/ops/sort.py``: a multi-key ORDER BY is a
 series of stable argsorts from the least-significant key up, each key
 in two passes (values, then a null-rank pass), dead rows last.  Like
 the reference, which leaves its argsorts to XLA's sort, this uses
-``torch.sort``; TPC-H Q1 sorts at most a few dozen rows.  Dictionary
-VARCHAR keys order by collation rank, not by code.
+``torch.sort``; TPC-H Q1 sorts at most a few dozen rows.  Top-N
+(``topn_page``) does not sort: K7 ``topn`` picks the first ``n`` rows
+under the same order.  Dictionary VARCHAR keys order by collation
+rank, not by code.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler
 from presto_tpu_torch.expr.ir import ColumnRef, Expr
+from presto_tpu_torch.kernels import topn as k7
 from presto_tpu_torch.page import Block, Page
 
 
@@ -88,3 +91,29 @@ def gather_page(page: Page, perm: torch.Tensor,
 def sort_page(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
               nulls_first: Optional[Sequence[bool]] = None) -> Page:
     return gather_page(page, sort_perm(page, sort_exprs, ascending, nulls_first))
+
+
+def topn_keys(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
+              nulls_first: Optional[Sequence[bool]] = None) -> List[k7.SortKey]:
+    """The K7 sort keys of a page: each key's values (dictionary codes
+    as collation ranks), valid bits and direction."""
+    c = ExprCompiler.for_page(page)
+    if nulls_first is None:
+        nulls_first = [False] * len(sort_exprs)
+    keys = []
+    for e, asc, nf in zip(sort_exprs, ascending, nulls_first):
+        if e.type.is_raw_string or e.type.name in ("double", "real"):
+            raise NotPorted(f"top-n over {e.type} keys")
+        d, v = c.compile(e)(page)
+        keys.append((_dict_rank(page, e, d), v, bool(asc), bool(nf)))
+    return keys
+
+
+def topn_page(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool], n: int,
+              nulls_first: Optional[Sequence[bool]] = None) -> Page:
+    """The first ``n`` live rows of ``page`` in ORDER BY order, as a page
+    of capacity ``n`` (rows past the live count dead)."""
+    ids, count = k7.topn(topn_keys(page, sort_exprs, ascending, nulls_first),
+                         page.row_mask, n)
+    live = torch.arange(n, device=page.device) < count
+    return gather_page(page, ids.to(torch.int64), live)

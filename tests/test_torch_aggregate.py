@@ -1,7 +1,8 @@
-"""K2 and K3 plain versions (presto_tpu_torch.ops.aggregate) against
-the reference's grouped_aggregate, combine_packed_states and
-finalize_packed: the same numpy pages give the same partial states and
-final values, exactly (integer and decimal arithmetic)."""
+"""K2, K3 and K6 plain versions (presto_tpu_torch.ops.aggregate) against
+the reference's grouped_aggregate, combine_packed_states,
+finalize_packed and merge_aggregate: the same numpy pages give the same
+partial states and final values, exactly (integer and decimal
+arithmetic)."""
 
 import numpy as np
 import pytest
@@ -146,8 +147,97 @@ def test_unported_aggregates_raise(fn):
 
 
 def test_sort_path_grouping_raises():
+    """Keys without a known domain take the reference's hash branch,
+    which the port does not carry yet (the exact sort path it does)."""
     _, port_page, _, port_aggs = _both(8)
     key = [port_ir.ColumnRef(type=port_type("bigint"), index=5)]
     with pytest.raises(NotPorted):
         port_agg.grouped_aggregate(port_page, key, port_aggs, 1 << 16,
                                    key_domains=[None], mode="partial")
+
+
+# -- the sort path (K6) ------------------------------------------------------
+
+# Q3's shape: a wide bigint key, a date and a tiny bigint, with NULL
+# keys; the domain product (2001 * 13 * 4) is far past DIRECT_GROUP_LIMIT
+SORT_DOMAINS = [(0, 1999), (9000, 9010), (0, 2)]
+
+
+def _sort_keys(ir, parse_type):
+    return [ir.ColumnRef(type=parse_type("bigint"), index=6),
+            ir.ColumnRef(type=parse_type("date"), index=7),
+            ir.ColumnRef(type=parse_type("bigint"), index=8)]
+
+
+def _sort_page(seed: int, huge: bool) -> RefPage:
+    rng = np.random.default_rng(seed)
+    base = _page(seed, huge=huge)
+    n = base.capacity
+    extra = [(rng.integers(0, 2000, n) // 3, "bigint"),
+             (rng.integers(9000, 9011, n).astype(np.int32), "date"),
+             (rng.integers(0, 3, n), "bigint")]
+    blocks = list(base.blocks)
+    for data, t in extra:
+        valid = rng.random(n) >= 0.05
+        blocks.append(RefBlock(jnp.asarray(data), jnp.asarray(valid), ref_type(t)))
+    return RefPage(tuple(blocks), base.row_mask)
+
+
+def _live_rows_equal(port, ref):
+    """Pages agree under the Page contract: the same live rows in the
+    same order (decimals as Decimal, NULLs as None)."""
+    assert [str(b.type) for b in port.blocks] == [str(b.type) for b in ref.blocks]
+    assert port.to_pylist() == ref.to_pylist()
+    assert len(port.to_pylist()) > 100
+
+
+@pytest.mark.parametrize("mode", ["partial", "single"])
+@pytest.mark.parametrize("huge", [False, True])
+def test_sort_path_aggregate(mode, huge):
+    """Groups in packed-key order; ``huge`` makes the decimal(18,4)
+    sums wrap int64 many times over, so only the limb sums are exact."""
+    ref_page = _sort_page(9, huge)
+    ref_aggs, port_aggs = _aggs(ref_ir, ref_type, ref_agg), _aggs(port_ir, port_type, port_agg)
+    ref = ref_agg.grouped_aggregate(ref_page, _sort_keys(ref_ir, ref_type), ref_aggs, 4096,
+                                    key_domains=SORT_DOMAINS, mode=mode)
+    got = port_agg.grouped_aggregate(to_port(ref_page), _sort_keys(port_ir, port_type),
+                                     port_aggs, 4096, key_domains=SORT_DOMAINS, mode=mode)
+    _live_rows_equal(got, ref)
+
+
+def test_sort_path_partial_emits_groups_past_max_groups():
+    """The reference truncates a partial to ``max_groups`` and retries
+    larger; the port sizes its output from the groups it finds, so a
+    small ``max_groups`` still gives every group."""
+    ref_page = _sort_page(10, False)
+    ref_aggs, port_aggs = _aggs(ref_ir, ref_type, ref_agg), _aggs(port_ir, port_type, port_agg)
+    ref = ref_agg.grouped_aggregate(ref_page, _sort_keys(ref_ir, ref_type), ref_aggs, 4096,
+                                    key_domains=SORT_DOMAINS, mode="partial")
+    got = port_agg.grouped_aggregate(to_port(ref_page), _sort_keys(port_ir, port_type),
+                                     port_aggs, 64, key_domains=SORT_DOMAINS, mode="partial")
+    assert got.capacity > 64
+    _live_rows_equal(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["partial", "single"])
+@pytest.mark.parametrize("huge", [False, True])
+def test_merge_aggregate(mode, huge):
+    """Two splits' sort-path partials concatenated and merged."""
+    from presto_tpu.exec.local import concat_pages_device as ref_concat
+    from presto_tpu_torch.page import concat_pages_device as port_concat
+
+    ref_aggs, port_aggs = _aggs(ref_ir, ref_type, ref_agg), _aggs(port_ir, port_type, port_agg)
+    ref_parts, port_parts = [], []
+    for seed in (11, 12):
+        ref_page = _sort_page(seed, huge)
+        ref_parts.append(ref_agg.grouped_aggregate(
+            ref_page, _sort_keys(ref_ir, ref_type), ref_aggs, 4096,
+            key_domains=SORT_DOMAINS, mode="partial"))
+        port_parts.append(port_agg.grouped_aggregate(
+            to_port(ref_page), _sort_keys(port_ir, port_type), port_aggs, 4096,
+            key_domains=SORT_DOMAINS, mode="partial"))
+    ref = ref_agg.merge_aggregate(ref_concat(ref_parts), 3, ref_aggs, 8192,
+                                  key_domains=SORT_DOMAINS, mode=mode)
+    got = port_agg.merge_aggregate(port_concat(port_parts), 3, port_aggs, 8192,
+                                   key_domains=SORT_DOMAINS, mode=mode)
+    _live_rows_equal(got, ref)

@@ -1,7 +1,9 @@
 """K1's lowering and plain evaluator (presto_tpu_torch.expr.compile)
 against the reference's ExprCompiler.compile: the same expression over
 the same numpy inputs gives the same valid mask everywhere and the same
-data wherever valid.  All integer arithmetic, so equality is exact."""
+data wherever valid.  Integer and decimal arithmetic is exact; doubles
+agree to a relative 1e-12 (XLA may round the reference's fused
+operations in another order)."""
 
 import numpy as np
 import pytest
@@ -9,7 +11,7 @@ import jax.numpy as jnp
 
 from presto_tpu import expr as ref_ir
 from presto_tpu.expr import compile as ref_compile
-from presto_tpu.page import Block as RefBlock, Page as RefPage
+from presto_tpu.page import Block as RefBlock, Dictionary as RefDictionary, Page as RefPage
 from presto_tpu.testing import LocalQueryRunner as RefRunner
 from presto_tpu.types import parse_type as ref_type
 from presto_tpu_torch import NotPorted
@@ -176,3 +178,146 @@ def test_unported_expressions_raise(spec):
     page = to_port(_synthetic_page(0, 16))
     with pytest.raises(NotPorted):
         port_compile.ExprCompiler.for_page(page).compile(_build(spec, port_ir, port_type))
+
+
+# -- strings, CASE and the wide (long-decimal / double) lanes ------------------
+
+WIDE_COLUMNS = [("s", "varchar"), ("d0", "decimal(12,2)"), ("l0", "decimal(36,4)"),
+                ("l1", "decimal(36,4)"), ("b0", "bigint"), ("f", "boolean"),
+                ("g", "boolean")]
+WORDS = ["PROMO BRUSHED TIN", "STANDARD BRASS", "PROMO PLATED", "ABC", "AXC", "BUILDING",
+         "promo lower"]
+
+
+def _wide_page(seed: int, n: int = 4096) -> RefPage:
+    rng = np.random.default_rng(seed)
+    cols = []
+    for name, t in WIDE_COLUMNS:
+        if t == "varchar":
+            data = rng.integers(0, len(WORDS), n).astype(np.int32)
+        elif t == "boolean":
+            data = rng.random(n) < 0.5
+        elif t == "decimal(36,4)":
+            hi = rng.integers(-10 ** 6, 10 ** 6, n)
+            hi[rng.random(n) < 0.1] = 0
+            lo = rng.integers(0, 10 ** 18, n)
+            lo[(hi == 0) & (rng.random(n) < 0.5)] = 0  # zero divisors
+            data = np.stack([hi, lo], 1)
+        elif name == "d0":
+            data = rng.integers(-10 ** 9, 10 ** 9, n)
+        else:
+            data = rng.integers(-10 ** 12, 10 ** 12, n)
+        cols.append(RefBlock(jnp.asarray(data), jnp.ones(n, jnp.bool_), ref_type(t),
+                             RefDictionary(WORDS) if t == "varchar" else None))
+    page = RefPage(tuple(cols), jnp.ones(n, jnp.bool_))
+    return with_nulls_and_dead_rows(page, rng, null_rate=0.15, dead_rate=0.1)
+
+
+def _wide(spec, ir, parse_type):
+    if spec[0] == "col":
+        idx = [c for c, _ in WIDE_COLUMNS].index(spec[1])
+        return ir.ColumnRef(type=parse_type(WIDE_COLUMNS[idx][1]), index=idx)
+    if spec[0] == "lit":
+        return ir.Literal(type=parse_type(spec[2]), value=spec[1])
+    _, fn, t, *args = spec
+    return ir.Call(type=parse_type(t), fn=fn,
+                   args=tuple(_wide(a, ir, parse_type) for a in args))
+
+
+REVENUE = F("mul", "decimal(18,4)", C("d0"), F("sub", "decimal(13,2)", L(1, "bigint"),
+                                               C("d0")))
+WIDE_SPECS = {
+    "like_prefix": F("like", "boolean", C("s"), L("PROMO%", "varchar")),
+    "like_suffix": F("like", "boolean", C("s"), L("%BRASS", "varchar")),
+    "like_underscore": F("like", "boolean", C("s"), L("A_C", "varchar")),
+    "varchar_eq": F("eq", "boolean", C("s"), L("BUILDING", "varchar")),
+    "varchar_ne": F("ne", "boolean", C("s"), L("BUILDING", "varchar")),
+    "varchar_eq_absent": F("eq", "boolean", C("s"), L("NOPE", "varchar")),
+    "varchar_lt_literal_left": F("lt", "boolean", L("B", "varchar"), C("s")),
+    "not_like_and": F("and", "boolean", F("not", "boolean",
+                                          F("like", "boolean", C("s"), L("%TIN", "varchar"))),
+                      C("f")),
+    # Q14's argument: CASE WHEN like THEN revenue ELSE 0 (bigint -> decimal(18,4))
+    "case_like_else_zero": F("case", "decimal(18,4)",
+                             F("like", "boolean", C("s"), L("PROMO%", "varchar")),
+                             REVENUE, L(0, "bigint")),
+    # NULL conditions are not taken; the first true branch wins
+    "case_null_conditions": F("case", "decimal(18,2)", C("f"), C("d0"), C("g"),
+                              L(7, "decimal(18,2)"), F("like", "boolean", C("s"),
+                                                       L("A%", "varchar")),
+                              L(-1, "bigint"), L(None, "decimal(18,2)")),
+    "if_bigint": F("if", "bigint", C("f"), C("b0"), L(3, "bigint")),
+    # Q14's projection: 100.00 * long / long as double, zero divisor -> NULL
+    "promo_div": F("div", "double", F("mul", "decimal(36,6)", L(10000, "decimal(18,2)"),
+                                      C("l0")), C("l1")),
+    "long_times_short_div": F("div", "double", F("mul", "decimal(36,6)", C("l0"), C("d0")),
+                              C("l1")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_SPECS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_string_case_and_wide_parity(name, seed):
+    ref_page = _wide_page(seed)
+    port_page = to_port(ref_page)
+    ref_e = _wide(WIDE_SPECS[name], ref_ir, ref_type)
+    port_e = _wide(WIDE_SPECS[name], port_ir, port_type)
+    rd, rv = ref_compile.ExprCompiler.for_page(ref_page).compile(ref_e)(ref_page)
+    pd, pv = port_compile.ExprCompiler.for_page(port_page).compile(port_e)(port_page)
+    rd, rv, pd, pv = np.asarray(rd), np.asarray(rv), pd.numpy(), pv.numpy()
+    np.testing.assert_array_equal(pv, rv, err_msg=f"{name} valid")
+    assert rv.any() and (~rv).any()
+    if ref_e.type.name == "double":
+        np.testing.assert_allclose(pd[rv], rd[rv], rtol=1e-12, atol=0)
+    else:
+        np.testing.assert_array_equal(pd[rv], rd[rv], err_msg=f"{name} data")
+    if ref_e.type.name == "boolean":
+        want = ref_compile.compile_filter(ref_e, ref_page)(ref_page)
+        mask = port_compile.compile_filter(port_e, port_page)(port_page)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want))
+
+
+def test_wide_programs_take_the_wide_interpreter():
+    """Only programs with a long-decimal or double lane are wide: Q6's
+    and Q1's programs keep the narrow int64 stack."""
+    from presto_tpu_torch.kernels import expr_eval as k1
+
+    page = to_port(_wide_page(0, 16))
+    c = port_compile.ExprCompiler.for_page(page)
+    prog, _ = c.lower(_wide(WIDE_SPECS["promo_div"], port_ir, port_type))
+    assert prog.wide and prog.out_kind == k1.KIND_F64
+    for name in ("case_like_else_zero", "like_prefix", "varchar_eq"):
+        prog, _ = c.lower(_wide(WIDE_SPECS[name], port_ir, port_type))
+        assert not prog.wide and k1.LUT in prog.ops
+    for spec in SPECS.values():
+        prog, _ = port_compile.ExprCompiler.for_page(to_port(_synthetic_page(0, 16))).lower(
+            _build(spec, port_ir, port_type))
+        assert not prog.wide
+
+
+def test_dictionary_tables_are_shared_and_bounded():
+    """One table per (dictionary, predicate), reused by every program;
+    the cache keeps at most LUT_CACHE_SIZE of them, dropping the least
+    recently used."""
+    from presto_tpu_torch.page import Dictionary
+
+    d = Dictionary(["PROMO BRUSHED", "STANDARD POLISHED"])
+    first = port_compile.dictionary_lut(d, ("like", "PROMO%"), lambda v: v.startswith("PROMO"))
+    assert first.values == (True, False)
+    assert port_compile.dictionary_lut(d, ("like", "PROMO%"), None) is first
+    for i in range(port_compile.LUT_CACHE_SIZE + 10):
+        port_compile.dictionary_lut(Dictionary([str(i)]), ("eq", "0"), lambda v: v == "0")
+    assert len(port_compile._LUT_CACHE) == port_compile.LUT_CACHE_SIZE
+    assert port_compile.dictionary_lut(d, ("like", "PROMO%"),
+                                       lambda v: v.startswith("PROMO")) is not first
+    assert first.on("cpu") is first.on("cpu")
+
+
+@pytest.mark.parametrize("q", [14, 3])
+def test_join_query_expressions_bind_alike(q):
+    """Q14's and Q3's predicates and aggregate arguments bind to the
+    same expressions in both packages."""
+    ref_exprs = _plan_exprs(RefRunner(sf=0.01).plan(QUERIES[q]))
+    port_exprs = _plan_exprs(PortRunner(sf=0.01, device="cpu").plan(QUERIES[q]))
+    assert [repr(e) for e in port_exprs] == [repr(e) for e in ref_exprs]
+    assert port_exprs

@@ -1,6 +1,6 @@
 """presto_tpu_torch's CUDA kernels against their plain PyTorch versions
-on the card, and the Q6/Q1 slice on the card against the port's own CPU
-run.  Marked ``gpu``: each test skips without a CUDA device.  This file
+on the card, and the Q6/Q1/Q14/Q3 slice on the card against the port's
+own CPU run.  Marked ``gpu``: each test skips without a CUDA device.  This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is absent:
 
@@ -14,9 +14,13 @@ import torch
 from presto_tpu_torch.expr import ir
 from presto_tpu_torch.expr.compile import ExprCompiler
 from presto_tpu_torch.kernels import expr_eval as k1
+from presto_tpu_torch.kernels import join_build as k4
+from presto_tpu_torch.kernels import join_probe as k5
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
-from presto_tpu_torch.page import Block, Page
+from presto_tpu_torch.kernels import sorted_group_agg as k6
+from presto_tpu_torch.kernels import topn as k7
+from presto_tpu_torch.page import Block, Dictionary, Page
 from presto_tpu_torch.types import parse_type
 from tpch_queries import QUERIES
 
@@ -162,6 +166,141 @@ def test_packed_fold_finalize_kernel_matches_plain():
         assert torch.equal(gd, wd) and torch.equal(gv, wv)
 
 
+def _wide_page(n: int, seed: int, device) -> Page:
+    """Dictionary codes, short and long decimals (with zeros and
+    negatives), NULLs and dead rows."""
+    rng = np.random.default_rng(seed)
+    words = ["PROMO BRUSHED", "STANDARD TIN", "PROMO PLATED", "ECONOMY", "BUILDING"]
+    long_a = np.stack([rng.integers(-10 ** 6, 10 ** 6, n),
+                       rng.integers(0, 10 ** 18, n)], 1)
+    long_b = long_a.copy()
+    long_b[rng.random(n) < 0.2] = 0  # zero divisors
+    cols = [(rng.integers(0, len(words), n).astype(np.int32), "varchar"),
+            (rng.integers(-10 ** 12, 10 ** 12, n), "decimal(18,2)"),
+            (long_a, "decimal(36,4)"), (long_b, "decimal(36,4)"),
+            (rng.random(n) < 0.5, "boolean")]
+    blocks = [Block(torch.from_numpy(d).to(device),
+                    torch.from_numpy(rng.random(n) >= 0.15).to(device), parse_type(t),
+                    Dictionary(words) if t == "varchar" else None) for d, t in cols]
+    return Page(tuple(blocks), torch.from_numpy(rng.random(n) >= 0.1).to(device))
+
+
+WIDE_EXPRS = [
+    _call("like", "boolean", _col(0, "varchar"), _lit("PROMO%", "varchar")),
+    _call("ne", "boolean", _col(0, "varchar"), _lit("BUILDING", "varchar")),
+    _call("case", "decimal(18,2)",
+          _call("like", "boolean", _col(0, "varchar"), _lit("%TIN", "varchar")),
+          _col(1, "decimal(18,2)"), _col(4, "boolean"), _lit(7, "decimal(18,2)"),
+          _lit(0, "bigint")),
+    _call("div", "double", _call("mul", "decimal(36,6)", _lit(10000, "decimal(18,2)"),
+                                 _col(2, "decimal(36,4)")), _col(3, "decimal(36,4)")),
+]
+
+
+@pytest.mark.parametrize("i", range(len(WIDE_EXPRS)))
+def test_expr_eval_new_opcodes_match_plain(i):
+    dev = _cuda()
+    page = _wide_page(1 << 20, i, dev)
+    prog, cols = ExprCompiler.for_page(page).lower(WIDE_EXPRS[i])
+    ins = [(page.blocks[c].data, page.blocks[c].valid) for c in cols]
+    got = k1.expr_eval(prog, ins, page.capacity)
+    want = k1.expr_eval_plain(prog, ins, page.capacity)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][want[1]], want[0][want[1]])  # doubles bit for bit
+
+
+def _join_keys(n: int, seed: int, device, domain: int, dup: bool):
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(domain)[:n] + 1  # unique, in [1, domain]
+    if dup:
+        keys[n // 2] = keys[0]
+    valid = rng.random(n) >= 0.05
+    mask = rng.random(n) >= 0.05
+    return ((torch.from_numpy(keys).to(device), torch.from_numpy(valid).to(device), 1,
+             domain + 1), torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_join_build_kernel_matches_plain(dup):
+    dev = _cuda()
+    key, mask = _join_keys(1 << 18, 3, dev, 1 << 20, dup)
+    prod = (1 << 20) + 2
+    got = k4.join_build_unique([key], mask, prod)
+    want = k4.join_build_unique_plain([key], mask, prod)
+    torch.cuda.synchronize()
+    assert bool(got[3]) == (not dup) == bool(want[3])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    if not dup:  # a collision leaves which row wins a slot open
+        assert torch.equal(got[1], want[1])
+    for domain in (prod, None):
+        g = k4.join_build_sorted([key], mask, domain)
+        w = k4.join_build_sorted_plain([key], mask, domain)
+        torch.cuda.synchronize()
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+        assert (g[2] is None and w[2] is None) or torch.equal(g[2], w[2])
+
+
+@pytest.mark.parametrize("direct", [True, False])
+def test_join_probe_kernel_matches_plain(direct):
+    dev = _cuda()
+    bkey, bmask = _join_keys(1 << 16, 4, dev, 1 << 18, False)
+    prod = (1 << 18) + 2
+    sk, perm, starts = k4.join_build_sorted_plain([bkey], bmask, prod if direct else None)
+    rng = np.random.default_rng(5)
+    n = 1 << 20
+    pkey = (torch.from_numpy(rng.integers(-2, (1 << 18) + 3, n)).to(dev),
+            torch.from_numpy(rng.random(n) >= 0.05).to(dev), 1, prod)
+    pmask = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
+    build_cols = [(bkey[0], bkey[1]),
+                  (torch.from_numpy(rng.integers(0, 9, (1 << 16, 2))).to(dev), bmask),
+                  (torch.from_numpy(rng.integers(0, 9, 1 << 16).astype(np.int32)).to(dev),
+                   bmask), (bmask, bkey[1])]
+    got = k5.join_probe([pkey], pmask, sk, perm, starts, build_cols)
+    want = k5.join_probe_plain([pkey], pmask, sk, perm, starts, build_cols)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and int(got[1].sum()) > 0
+    for (gd, gv), (wd, wv) in zip(got[0], want[0]):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+def test_sorted_group_agg_kernel_matches_plain():
+    dev = _cuda()
+    page = _page(1 << 20, 7, dev)
+    b = page.blocks
+    keys = [(torch.remainder(b[2].data, 50000), b[2].valid, 0, 50001),
+            (b[4].data, b[4].valid, 8000, 3002)]
+    states = [(k6.S_ONE, None, None), (k6.S_VALID, None, b[0].valid),
+              (k6.S_SUM, b[3].data, b[3].valid), (k6.S_LIMBS_SHORT, b[1].data, b[1].valid),
+              (k6.S_LIMBS_LONG, torch.stack([b[2].data, torch.remainder(b[3].data, 10 ** 18)],
+                                            1), b[0].valid)]
+    got = k6.sorted_group_agg(keys, page.row_mask, states)
+    want = k6.sorted_group_agg_plain(keys, page.row_mask, states)
+    torch.cuda.synchronize()
+    assert got[2] == want[2] > 1000
+    for x, y in zip(got[0] + got[1], want[0] + want[1]):
+        if isinstance(x, tuple):
+            assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+        else:
+            assert torch.equal(x, y)
+
+
+def test_topn_kernel_matches_plain():
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    n = 1 << 20
+    limbs = torch.from_numpy(np.stack([rng.integers(-3, 3, n), rng.integers(0, 4, n)], 1))
+    keys = [(limbs.to(dev), torch.from_numpy(rng.random(n) >= 0.01).to(dev), False, True),
+            (torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)).to(dev),
+             torch.from_numpy(rng.random(n) >= 0.3).to(dev), True, False)]
+    mask = torch.from_numpy(rng.random(n) >= 0.2).to(dev)
+    for k in (1, 10, 32):
+        got = k7.topn(keys, mask, k)
+        want = k7.topn_plain(keys, mask, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
 def test_q6_q1_on_the_card_equal_the_cpu_run():
     _cuda()
     from presto_tpu_torch.testing import LocalQueryRunner
@@ -173,6 +312,20 @@ def test_q6_q1_on_the_card_equal_the_cpu_run():
     for q in (6, 1):
         assert gpu.execute(QUERIES[q]).rows == cpu.execute(QUERIES[q]).rows
     assert k1.launches > 0 and k2.launches > 0 and k3.launches > 0
+
+
+def test_q14_q3_on_the_card_equal_the_cpu_run():
+    _cuda()
+    from presto_tpu_torch.testing import LocalQueryRunner
+
+    gpu = LocalQueryRunner(sf=0.01, device="cuda")
+    cpu = LocalQueryRunner(sf=0.01, device="cpu")
+    mods = (k1, k3, k4, k5, k6, k7)
+    for mod in mods:
+        mod.launches = 0
+    for q in (14, 3):
+        assert gpu.execute(QUERIES[q]).rows == cpu.execute(QUERIES[q]).rows
+    assert all(mod.launches > 0 for mod in mods)
 
 
 @pytest.mark.parametrize("q", [6, 1])
