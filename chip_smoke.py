@@ -6,21 +6,27 @@ Phases (any failure exits non-zero before the result line):
 
 1. the card's name and power limit;
 2. build the CUDA kernels from ``presto_tpu_torch/csrc`` (all ``nvcc``
-   runs at once, while the TPC-H tables lineitem, orders, customer and
-   part are generated on the host at SF10) and print each
-   ``-Xptxas -v`` summary;
+   runs at once, while the TPC-H tables lineitem, orders, customer,
+   part, partsupp, supplier, nation and region are generated on the
+   host at SF10) and print each ``-Xptxas -v`` summary;
 3. hold each kernel against its plain PyTorch version on the card,
    with exact equality, and time both with CUDA events: K1 expr_eval
    (Q6's filter, Q1's sum_charge argument, Q14's CASE/LIKE argument and
-   its long-decimal/double projection, Q3's varchar filter), K2
-   packed_group_agg at 1, 12, 16 and 16384 slots, K3
-   packed_fold_finalize, K4 join_build (Q14's and Q3's unique builds,
-   and a build whose primary key holds a duplicate, which breaks the
-   promise and goes down the sorted branch), K5 join_probe (Q14's and
-   Q3's probe of the first lineitem split), K6 sorted_group_agg (Q3's
-   partial over that probe output, and its merge of every split's
-   partials) and K7 topn (Q3's top 10 over its groups);
-4. run TPC-H Q6, Q1, Q14 and Q3 through ``QueryRunner.execute`` over a
+   its long-decimal/double projection, Q3's varchar filter, and the IN
+   filters of Q12, Q16 and Q19), K2 packed_group_agg at 1, 12, 16 and
+   16384 slots, K3 packed_fold_finalize, K4 join_build (Q14's and Q3's
+   unique builds, a build whose primary key holds a duplicate, which
+   breaks the promise and goes down the sorted branch, and the sorted
+   builds of Q4 and Q5), K5 join_probe (Q14's and Q3's inner probes of
+   the first lineitem split, Q4's semi and mark probes, Q16's
+   null-aware anti probe, a left probe against Q14's build), K6
+   sorted_group_agg (Q3's partial over that probe output, and its merge
+   of every split's partials), K7 topn (Q3's top 10), K8 join_expand
+   (Q13's left probe, the same as a FULL join with its matched mask,
+   Q5's inner probe) and K9 hash_keys (Q10's seven keys over its first
+   split and over its merge, Q13's c_count);
+4. run TPC-H Q6, Q1, Q14, Q3, Q4, Q5, Q10, Q12, Q13, Q16, Q19 and Q20
+   (``tests/tpch_queries.py``) through ``QueryRunner.execute`` over a
    ``MemoryConnector`` on the card; every kernel launch counter is set
    to 0 just before each query and read just after it, and the run
    fails unless each query launched the kernels of its path; the rows
@@ -35,7 +41,9 @@ Imports nothing of JAX and nothing of the ``presto_tpu`` package.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -45,67 +53,41 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-SF = 10.0  # TPC-H scale factor: ~60M lineitem rows, ~4.2 GB on the card
+SF = 10.0  # TPC-H scale factor: ~60M lineitem rows
 SPLIT_ROWS = 1 << 23  # rows per lineitem split, as bench.py uses on an accelerator
 REPS = 3  # timed repetitions per query after the counted run
-# the columns bench.py loads
+# the columns the twelve queries read
 TABLES = {
-    "lineitem": ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice", "l_discount",
-                 "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"],
-    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
-    "customer": ["c_custkey", "c_mktsegment"],
-    "part": ["p_partkey", "p_type"],
+    "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity", "l_extendedprice",
+                 "l_discount", "l_tax", "l_returnflag", "l_linestatus", "l_shipdate",
+                 "l_commitdate", "l_receiptdate", "l_shipinstruct", "l_shipmode"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
+               "o_shippriority", "o_comment"],
+    "customer": ["c_custkey", "c_name", "c_address", "c_nationkey", "c_phone", "c_acctbal",
+                 "c_mktsegment", "c_comment"],
+    "part": ["p_partkey", "p_name", "p_brand", "p_type", "p_size", "p_container"],
+    "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty"],
+    "supplier": ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_comment"],
+    "nation": ["n_nationkey", "n_name", "n_regionkey"],
+    "region": ["r_regionkey", "r_name"],
 }
-Q6 = """
-select sum(l_extendedprice * l_discount) as revenue
-from lineitem
-where l_shipdate >= date '1994-01-01'
-    and l_shipdate < date '1994-01-01' + interval '1' year
-    and l_discount between 0.06 - 0.01 and 0.06 + 0.01
-    and l_quantity < 24
-"""
-Q1 = """
-select
-    l_returnflag, l_linestatus,
-    sum(l_quantity) as sum_qty,
-    sum(l_extendedprice) as sum_base_price,
-    sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
-    sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
-    avg(l_quantity) as avg_qty,
-    avg(l_extendedprice) as avg_price,
-    avg(l_discount) as avg_disc,
-    count(*) as count_order
-from lineitem
-where l_shipdate <= date '1998-12-01' - interval '90' day
-group by l_returnflag, l_linestatus
-order by l_returnflag, l_linestatus
-"""
-Q14 = """
-select 100.00 * sum(case when p_type like 'PROMO%'
-        then l_extendedprice * (1 - l_discount) else 0 end)
-    / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
-from lineitem, part
-where l_partkey = p_partkey
-    and l_shipdate >= date '1995-09-01'
-    and l_shipdate < date '1995-09-01' + interval '1' month
-"""
-Q3 = """
-select
-    l_orderkey,
-    sum(l_extendedprice * (1 - l_discount)) as revenue,
-    o_orderdate, o_shippriority
-from customer, orders, lineitem
-where c_mktsegment = 'BUILDING'
-    and c_custkey = o_custkey
-    and l_orderkey = o_orderkey
-    and o_orderdate < date '1995-03-15'
-    and l_shipdate > date '1995-03-15'
-group by l_orderkey, o_orderdate, o_shippriority
-order by revenue desc, o_orderdate
-limit 10
-"""
-QUERIES = {"q6": Q6, "q1": Q1, "q14": Q14, "q3": Q3}
-# the kernels each query's path must launch
+
+
+def _tpch_queries() -> dict:
+    """The TPC-H query texts the tests use (``tests/tpch_queries.py``)."""
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "tpch_queries.py"
+    spec = importlib.util.spec_from_file_location("tpch_queries", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.QUERIES
+
+
+SQL = _tpch_queries()
+Q6, Q1, Q14, Q3 = SQL[6], SQL[1], SQL[14], SQL[3]
+QUERIES = {f"q{q}": SQL[q] for q in (6, 1, 14, 3, 4, 5, 10, 12, 13, 16, 19, 20)}
+# the kernels each query's path must launch; "join_probe:<kind>" counts
+# K5 launches of one kind, "expr_eval:in" K1 launches of programs that
+# test IN
 REQUIRED = {
     "q6": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
     "q1": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
@@ -113,6 +95,20 @@ REQUIRED = {
             "join_probe"),
     "q3": ("expr_eval", "packed_fold_finalize", "join_build", "join_probe",
            "sorted_group_agg", "topn"),
+    "q4": ("expr_eval", "join_build", "join_probe:semi", "packed_group_agg",
+           "packed_fold_finalize"),
+    "q5": ("expr_eval", "join_build", "join_probe", "join_expand", "packed_group_agg",
+           "packed_fold_finalize"),
+    "q10": ("expr_eval", "join_build", "join_probe", "sorted_group_agg", "hash_keys",
+            "topn"),
+    "q12": ("expr_eval", "expr_eval:in", "join_build", "join_probe", "packed_group_agg",
+            "packed_fold_finalize"),
+    "q13": ("expr_eval", "join_build", "join_expand", "sorted_group_agg", "hash_keys"),
+    "q16": ("expr_eval", "expr_eval:in", "join_build", "join_probe:anti_null_aware",
+            "sorted_group_agg"),
+    "q19": ("expr_eval", "expr_eval:in", "join_build", "join_probe", "packed_group_agg",
+            "packed_fold_finalize"),
+    "q20": ("expr_eval", "join_build", "join_probe:semi", "sorted_group_agg"),
 }
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
@@ -123,6 +119,8 @@ REPLACES = {
     "join_probe": "presto_tpu/ops/join.py:298",
     "sorted_group_agg": "presto_tpu/ops/aggregate.py:1776",
     "topn": "presto_tpu/ops/sort.py:121",
+    "join_expand": "presto_tpu/ops/join.py:376",
+    "hash_keys": "presto_tpu/ops/aggregate.py:1686",
 }
 
 
@@ -373,11 +371,33 @@ def first_split(ex, node):
     return ex._build_stage(node)(page)
 
 
+def k1_row(report: KernelReport, name: str, expr, page, filt: bool = False,
+           library=None, key: bool = False):
+    """K1 against its plain version on ``expr`` over ``page`` (as a
+    filter with ``filt``, as a key's CANON program with ``key``);
+    ``library`` times one PyTorch call beside it."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.kernels import expr_eval as k1
+
+    c = ExprCompiler.for_page(page)
+    prog, cols = c.lower_key(expr) if key else c.lower(expr)
+    ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
+    n = page.capacity
+    mask = page.row_mask if filt else None
+    err = same(k1.expr_eval(prog, ins, n, row_mask=mask),
+               k1.expr_eval_plain(prog, ins, n, row_mask=mask), name)
+    ms = cuda_ms(lambda: k1.expr_eval(prog, ins, n, row_mask=mask), 20)
+    plain = cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n, row_mask=mask), 5)
+    out = n if filt else n * (1 + (8 if prog.out_kind >= k1.KIND_I64 else 4))
+    report.add(name, "cuda", "presto_tpu_torch/csrc/expr_eval.cu", err, ms, plain,
+               nbytes(*[t for c in ins for t in c], mask) + out,
+               library(prog, ins) if library is not None else None)
+    log(f"{name}: {len(prog.ops)} instructions, {len(prog.luts)} tables")
+
+
 def check_join_kernels(report: KernelReport, runner) -> None:
     """Phase 3, the joins' slice: K1's new opcodes, K4, K5, K6 and K7
     against their plain versions at Q14's and Q3's shapes."""
-    from presto_tpu_torch.expr.compile import ExprCompiler
-    from presto_tpu_torch.kernels import expr_eval as k1
     from presto_tpu_torch.kernels import join_build as k4
     from presto_tpu_torch.kernels import join_probe as k5
     from presto_tpu_torch.kernels import keys as pk
@@ -393,19 +413,6 @@ def check_join_kernels(report: KernelReport, runner) -> None:
     q14, q3 = runner.plan(Q14), runner.plan(Q3)
     joins = {"q14": find(q14, JoinNode), "q3": find(q3, JoinNode)}
     src = "presto_tpu_torch/csrc/"
-
-    def k1_row(name, expr, page, filt=False):
-        prog, cols = ExprCompiler.for_page(page).lower(expr)
-        ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
-        n = page.capacity
-        mask = page.row_mask if filt else None
-        err = same(k1.expr_eval(prog, ins, n, row_mask=mask),
-                   k1.expr_eval_plain(prog, ins, n, row_mask=mask), name)
-        ms = cuda_ms(lambda: k1.expr_eval(prog, ins, n, row_mask=mask), 20)
-        plain = cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n, row_mask=mask), 5)
-        out = n if filt else n * (1 + (8 if prog.out_kind >= k1.KIND_I64 else 4))
-        report.add(name, "cuda", src + "expr_eval.cu", err, ms, plain,
-                   nbytes(*[t for c in ins for t in c], mask) + out)
 
     # K4, unique-direct: Q14's build over part, Q3's over orders x customer
     builds = {}
@@ -502,11 +509,11 @@ def check_join_kernels(report: KernelReport, runner) -> None:
         log(f"{label} probe of split 0: {n} rows, {live} live, "
             f"{int(got[1].sum())} matched")
     agg14 = find(q14, AggregationNode)
-    k1_row("expr_eval@q14_case_like", agg14.aggs[0].arg, probes["q14"])
+    k1_row(report, "expr_eval@q14_case_like", agg14.aggs[0].arg, probes["q14"])
     out14 = ex._run_aggregation(agg14)
-    k1_row("expr_eval@q14_promo_div", find(q14, ProjectNode).projections[0], out14)
+    k1_row(report, "expr_eval@q14_promo_div", find(q14, ProjectNode).projections[0], out14)
     cust = first_split(ex, find(joins["q3"].right, JoinNode).right.source)
-    k1_row("expr_eval@q3_mktsegment", find(joins["q3"].right, JoinNode).right.predicate,
+    k1_row(report, "expr_eval@q3_mktsegment", find(joins["q3"].right, JoinNode).right.predicate,
            cust, filt=True)
 
     # K6: Q3's partial over the probe output, then the merge of every
@@ -554,6 +561,255 @@ def check_join_kernels(report: KernelReport, runner) -> None:
     ex._builds.clear()
 
 
+def find_all(node, cls) -> list:
+    """Every ``cls`` node under ``node``, preorder, left first."""
+    out, stack = [], [node]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, cls):
+            out.append(n)
+        stack.extend(reversed(n.sources))
+    return out
+
+
+def in_library(prog, ins):
+    """One ``torch.isin`` of the column the program's first IN tests
+    against its literals (or the codes its IN table accepts)."""
+    from presto_tpu_torch.kernels import expr_eval as k1
+
+    for i, (op, arg) in enumerate(zip(prog.ops, prog.args)):
+        if op == k1.IN or (op == k1.LUT and prog.luts[arg].kind == "in"):
+            col = ins[prog.args[i - 1]][0]
+            if op == k1.IN:
+                first = arg & ((1 << k1.IN_COUNT_SHIFT) - 1)
+                vals = prog.consts[first:first + (arg >> k1.IN_COUNT_SHIFT)]
+            else:
+                vals = [c for c, hit in enumerate(prog.luts[arg].values) if hit]
+            lits = torch.tensor(vals, dtype=col.dtype, device=col.device)
+            return cuda_ms(lambda: torch.isin(col, lits), 20)
+    raise AssertionError(f"no IN in {prog}")
+
+
+def canon_library(prog, ins):
+    """One indexing of the CANON table by the column's codes."""
+    table = prog.luts[0].on(ins[0][0].device)
+    codes = ins[0][0]
+    return cuda_ms(lambda: table[codes], 20)
+
+
+def lookup_bytes(build, key, live) -> int:
+    """Bytes of the distinct sectors the live rows' lookups touch in the
+    build's starts table (starts[k], starts[k + 1]), or, without one, of
+    the sorted keys at their lower bounds."""
+    if build.starts is not None:
+        kk = torch.clamp(key[live], 0, build.starts.shape[0] - 2)
+        return sector_bytes(build.starts, torch.cat([kk, kk + 1]))
+    pos = torch.clamp(torch.searchsorted(build.sorted_keys, key[live]), 0,
+                      build.sorted_keys.shape[0] - 1)
+    return sector_bytes(build.sorted_keys, pos)
+
+
+def check_slice_kernels(report: KernelReport, runner) -> None:
+    """Phase 3, the third slice: K1's IN, K4's sorted branch at full size,
+    K5's left, semi, anti and mark kinds, K8 and K9, against their plain
+    versions at the shapes of Q4, Q5, Q10, Q12, Q13, Q14, Q16 and Q19."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import join_build as k4
+    from presto_tpu_torch.kernels import join_expand as k8
+    from presto_tpu_torch.kernels import join_probe as k5
+    from presto_tpu_torch.kernels import keys as pk
+    from presto_tpu_torch.ops.aggregate import merge_inputs
+    from presto_tpu_torch.ops.join import _direct_budget, key_columns, packed_domain_size
+    from presto_tpu_torch.page import concat_pages_device
+    from presto_tpu_torch.planner.plan import AggregationNode, FilterNode, JoinNode
+
+    ex = runner.executor
+    src = "presto_tpu_torch/csrc/"
+    plans = {q: runner.plan(QUERIES[q]) for q in ("q4", "q5", "q10", "q12", "q13", "q14",
+                                                  "q16", "q19")}
+
+    def tests_in(prog):
+        return k1.IN in prog.ops or any(t.kind == "in" for t in prog.luts)
+
+    # K1: the largest filter with IN of Q12, Q16 and Q19
+    for label in ("q12", "q16", "q19"):
+        best = None
+        for f in find_all(plans[label], FilterNode):
+            page = first_split(ex, f.source)
+            prog, _ = ExprCompiler.for_page(page).lower(f.predicate)
+            if tests_in(prog) and (best is None or len(prog.ops) > best[0]):
+                best = (len(prog.ops), f, page)
+        _, f, page = best
+        k1_row(report, f"expr_eval@{label}_in", f.predicate, page, filt=True,
+               library=in_library)
+        ex._builds.clear()
+
+    # K4's sorted branch at full size: Q4's build (lineitem filtered,
+    # keyed by l_orderkey) and Q5's (the four-way join, keyed by
+    # (o_custkey, s_nationkey))
+    joins = {"q4": find(plans["q4"], JoinNode), "q5": find(plans["q5"], JoinNode)}
+    for label, join in joins.items():
+        if join.unique_build:
+            raise AssertionError(f"{label}: expected a non-unique build")
+        page = ex.build_side(join)
+        keys = key_columns(page, join.right_keys, join.key_domains)
+        prod = packed_domain_size(join.key_domains)
+        dom = prod if prod is not None and prod <= _direct_budget(page) else None
+        got = k4.join_build_sorted(keys, page.row_mask, dom)
+        err = same(got, k4.join_build_sorted_plain(keys, page.row_mask, dom),
+                   f"join_build {label} sorted")
+        ms = cuda_ms(lambda: k4.join_build_sorted(keys, page.row_mask, dom), 3)
+        plain = cuda_ms(lambda: k4.join_build_sorted_plain(keys, page.row_mask, dom), 1)
+        library = None
+        if dom is not None:
+            slots = torch.arange(dom + 1, dtype=torch.int64, device=page.device)
+            library = cuda_ms(lambda: torch.searchsorted(got[0], slots), 3)
+        report.add(f"join_build@{label}_sorted", "cuda", src + "join_build.cu", err, ms, plain,
+                   nbytes(page.row_mask, *[t for k in keys for t in k[:2]]) + nbytes(*got),
+                   library)
+        log(f"{label} sorted build: {page.capacity} rows, {int(page.row_mask.sum())} live, "
+            f"domain {dom}, {len(page.blocks)} columns; peak device memory so far "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        ex._builds.clear()
+
+    # K5's new kinds: Q4's semi (and mark, null-aware, over the same
+    # build), Q16's null-aware anti, a left probe against Q14's build
+    j16 = next(j for j in find_all(plans["q16"], JoinNode) if j.kind == "anti")
+    j14 = find(plans["q14"], JoinNode)
+    cases = [("q4_semi", joins["q4"], k5.SEMI, joins["q4"].null_aware),
+             ("q4_mark", joins["q4"], k5.MARK, True),
+             ("q16_anti_null_aware", j16, k5.ANTI, j16.null_aware),
+             ("q14_left", j14, k5.LEFT, False)]
+    for label, join, kind, null_aware in cases:
+        build = ex._materialize_build(join)
+        probe = first_split(ex, join.left)
+        keys = key_columns(probe, join.left_keys, join.key_domains)
+        cols = [(b.data, b.valid) for b in build.page.blocks] if kind == k5.LEFT else []
+        args = (keys, probe.row_mask, build.sorted_keys, build.perm, build.starts, cols, kind,
+                False, null_aware, build.flags)
+        got = k5.join_probe(*args)
+        err = same(got, k5.join_probe_plain(*args), f"join_probe {label}")
+        ms = cuda_ms(lambda: k5.join_probe(*args), 10)
+        plain = cuda_ms(lambda: k5.join_probe_plain(*args), 3)
+        n = probe.capacity
+        key, ok = pk.pack_plain(keys, n, probe.device)
+        live = probe.row_mask & ok
+        out_bytes = nbytes(got[1], *[t for o in got[0] for t in o])
+        bound = (nbytes(probe.row_mask, *[t for k in keys for t in k[:2]]) + out_bytes
+                 + lookup_bytes(build, key, live))
+        if kind == k5.LEFT:
+            # one build column gathered through a precomputed row index
+            kk = torch.clamp(key, 0, build.starts.shape[0] - 2)
+            row = build.perm[build.starts[kk].to(torch.int64)].to(torch.int64)
+            col = build.page.blocks[0].data
+            library = cuda_ms(lambda: torch.index_select(col, 0, row), 10)
+            matched = live & (build.starts[kk + 1] > build.starts[kk])
+            brow = row[matched]
+            bound += sector_bytes(build.perm, build.starts[kk[matched]].to(torch.int64)) + \
+                sum(sector_bytes(t, brow) for c in cols for t in c)
+        else:
+            # presence of each probe key among the build's keys
+            bkeys = build.sorted_keys[build.sorted_keys != pk.I64_MAX]
+            pkeys = torch.where(live, key, torch.full_like(key, -1))
+            library = cuda_ms(lambda: torch.isin(pkeys, bkeys), 10)
+        report.add(f"join_probe@{label}", "cuda", src + "join_probe.cu", err, ms, plain, bound,
+                   library)
+        log(f"{label}: probe of {n} rows, {int(live.sum())} live keys, "
+            f"{int(got[1].sum())} output rows; build {build.page.capacity} rows")
+        ex._builds.clear()
+
+    # K8: Q13's left probe of customer against the filtered orders (and
+    # the same as a FULL join, with its matched mask), Q5's inner probe
+    j13 = next(j for j in find_all(plans["q13"], JoinNode) if j.kind == "left")
+    cases = [("join_expand", j13, True, False), ("join_expand@q13_full", j13, True, True),
+             ("join_expand@q5_inner", joins["q5"], False, False)]
+    for name, join, left, full in cases:
+        build = ex._materialize_build(join)
+        probe = first_split(ex, join.left)
+        keys = key_columns(probe, join.left_keys, join.key_domains)
+        probe_cols = [(b.data, b.valid) for b in probe.blocks]
+        build_cols = [(b.data, b.valid) for b in build.page.blocks]
+        cap = build.page.capacity
+
+        def run(fn, matched=None):
+            return fn(keys, probe.row_mask, build.sorted_keys, build.perm, build.starts,
+                      probe_cols, build_cols, left, False, matched)
+
+        masks = [torch.zeros(cap, dtype=torch.bool, device=probe.device) if full else None
+                 for _ in range(2)]
+        got, want = run(k8.join_expand, masks[0]), run(k8.join_expand_plain, masks[1])
+        if got[2] != want[2]:
+            raise AssertionError(f"{name}: totals {got[2]} vs {want[2]}")
+        err = same((got[0], got[1]) + ((masks[0],) if full else ()),
+                   (want[0], want[1]) + ((masks[1],) if full else ()), name)
+        ms = cuda_ms(lambda: run(k8.join_expand, masks[0]), 5)
+        plain = cuda_ms(lambda: run(k8.join_expand_plain, masks[1]), 2)
+        # bytes: the probe's keys, mask and columns read once, the
+        # sectors its lookups touch in starts, in perm and in each build
+        # column at the matched rows, every output written once
+        n = probe.capacity
+        key, ok = pk.pack_plain(keys, n, probe.device)
+        live = probe.row_mask & ok
+        kk = torch.clamp(key, 0, build.starts.shape[0] - 2)
+        in_dom = live & (key >= 0) & (key < build.starts.shape[0] - 1)
+        lo = build.starts[kk].to(torch.int64)
+        m = torch.where(in_dom, build.starts[kk + 1].to(torch.int64) - lo,
+                        torch.zeros_like(lo))
+        counts = torch.where(probe.row_mask & (m == 0), torch.ones_like(m), m) if left \
+            else torch.where(probe.row_mask, m, torch.zeros_like(m))
+        first = torch.cumsum(m, 0) - m
+        pos = torch.repeat_interleave(lo, m) + torch.arange(int(m.sum()), device=lo.device) \
+            - torch.repeat_interleave(first, m)
+        rows = build.perm[pos].to(torch.int64)
+        bound = (nbytes(probe.row_mask, *[t for k in keys for t in k[:2]],
+                        *[t for c in probe_cols for t in c])
+                 + lookup_bytes(build, key, live) + sector_bytes(build.perm, pos)
+                 + sum(sector_bytes(t, rows) for c in build_cols for t in c)
+                 + nbytes(*[t for c in got[0] + got[1] for t in c]) + (cap if full else 0))
+        # the expansion index alone: one repeat_interleave of the counts
+        library = cuda_ms(lambda: torch.repeat_interleave(counts), 5)
+        report.add(name, "cuda", src + "join_expand.cu", err, ms, plain, bound, library)
+        log(f"{name}: {n} probe rows, {int(live.sum())} live keys -> {got[2]} output rows; "
+            f"build {cap} rows, {len(build_cols)} columns")
+        ex._builds.clear()
+
+    # K9: Q10's seven keys over its first split and over the merge of
+    # its partials, Q13's c_count over the 1.5M inner groups
+    agg10 = find(plans["q10"], AggregationNode)
+    agg13 = find(plans["q13"], AggregationNode)
+    page10 = first_split(ex, agg10.source)
+    parts = concat_pages_device(list(ex._pages(ex.partial_node(agg10))))
+    page13 = first_split(ex, agg13.source)
+    inputs = [("hash_keys", key_columns(page10, agg10.group_exprs, agg10.key_domains),
+               page10.row_mask),
+              ("hash_keys@q10_merge", merge_inputs(parts, len(agg10.group_exprs), agg10.aggs,
+                                                   agg10.key_domains)[0], parts.row_mask),
+              ("hash_keys@q13", key_columns(page13, agg13.group_exprs, agg13.key_domains),
+               page13.row_mask)]
+    # K1's CANON on Q10's key columns whose dictionary repeats a value
+    # (their codes feed K9 above, so K9's rows alone cannot see a wrong
+    # code)
+    c10 = ExprCompiler.for_page(page10)
+    canon = [(e, n) for e, n in zip(agg10.group_exprs, agg10.group_names)
+             if c10.lower_key(e) is not None]
+    if not canon:
+        raise AssertionError("q10: no group key over a dictionary that repeats a value")
+    for e, n in canon:
+        k1_row(report, f"expr_eval@q10_canon_{n}", e, page10, library=canon_library, key=True)
+    for name, keys, mask in inputs:
+        if not pk.hashed(keys):
+            raise AssertionError(f"{name}: the keys have an exact domain")
+        got = pk.hash_keys(keys, mask)
+        err = same(got, pk.masked_plain(keys, mask, False)[0], name)
+        ms = cuda_ms(lambda: pk.hash_keys(keys, mask), 20)
+        plain = cuda_ms(lambda: pk.masked_plain(keys, mask, False), 5)
+        report.add(name, "cuda", src + "keys.cu", err, ms, plain,
+                   nbytes(mask, *[t for k in keys for t in k[:2]]) + 8 * mask.shape[0])
+        log(f"{name}: {len(keys)} keys over {mask.shape[0]} rows, {int(mask.sum())} live")
+    ex._builds.clear()
+
+
 def profile_query(runner, sql: str) -> str:
     """One traced run of ``sql``: device-busy share of its wall time
     and the device time of its heaviest kernels (torch.profiler)."""
@@ -584,13 +840,31 @@ def profile_query(runner, sql: str) -> str:
 
 def counters():
     from presto_tpu_torch.kernels import (
-        expr_eval, join_build, join_probe, packed_fold_finalize, packed_group_agg,
-        sorted_group_agg, topn,
+        expr_eval, join_build, join_expand, join_probe, keys, packed_fold_finalize,
+        packed_group_agg, sorted_group_agg, topn,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
             "packed_fold_finalize": packed_fold_finalize, "join_build": join_build,
-            "join_probe": join_probe, "sorted_group_agg": sorted_group_agg, "topn": topn}
+            "join_probe": join_probe, "sorted_group_agg": sorted_group_agg, "topn": topn,
+            "join_expand": join_expand, "hash_keys": keys}
+
+
+def reset_counts() -> None:
+    mods = counters()
+    for mod in mods.values():
+        mod.launches = 0
+    mods["join_probe"].kind_launches.clear()
+    mods["expr_eval"].in_launches = 0
+
+
+def read_counts() -> dict:
+    mods = counters()
+    out = {k: mod.launches for k, mod in mods.items()}
+    for kind, n in mods["join_probe"].kind_launches.items():
+        out[f"join_probe:{kind}"] = n
+    out["expr_eval:in"] = mods["expr_eval"].in_launches
+    return out
 
 
 def main() -> int:
@@ -644,6 +918,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"tables on the card in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
     catalog = Catalog()
     catalog.register("tpch", mem)
     runner = QueryRunner(catalog, device="cuda")
@@ -651,6 +926,7 @@ def main() -> int:
     report = KernelReport()
     check_kernels(report, runner, mem)
     check_join_kernels(report, runner)
+    check_slice_kernels(report, runner)
     torch.cuda.synchronize()
     log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s")
 
@@ -660,19 +936,18 @@ def main() -> int:
     torch.cuda.synchronize()
     results, wall, launches = {}, {}, {}
     for label, sql in QUERIES.items():
-        for mod in counters().values():
-            mod.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         results[label] = runner.execute(sql)
         wall[label] = [time.perf_counter() - t0]
-        launches[label] = {k: mod.launches for k, mod in counters().items()}
+        launches[label] = read_counts()
         log(f"{label} launches: {launches[label]}")
-        missing = [k for k in REQUIRED[label] if launches[label][k] == 0]
+        missing = [k for k in REQUIRED[label] if launches[label].get(k, 0) == 0]
         if missing:
             raise AssertionError(f"{label}: kernels of its path not launched: {missing}")
     for row in report.rows.values():
         kname = row["name"].split("@")[0]
-        row["launches_by_query"] = {q: launches[q][kname] for q in launches}
+        row["launches_by_query"] = {q: launches[q].get(kname, 0) for q in launches}
         row["launches"] = sum(row["launches_by_query"].values())
     for label, sql in QUERIES.items():
         for _ in range(REPS):
@@ -696,13 +971,18 @@ def main() -> int:
         if not results[label].rows:
             raise AssertionError(f"{label}: no rows")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s on the CPU)")
-    for label in QUERIES:
+    from presto_tpu_torch.planner.plan import TableScanNode
+
+    for label, sql in QUERIES.items():
         med = statistics.median(wall[label])
+        scans = {n.handle.table for n in find_all(runner.plan(sql), TableScanNode)}
+        rate = (f", {lineitem_rows / med / 1e6:.1f} M lineitem rows/s"
+                if "lineitem" in scans else "")
         log(f"{label}: {results[label].rows}")
         log(f"{label}: wall {med * 1e3:.2f} ms median of {len(wall[label])} "
-            f"({', '.join(f'{w * 1e3:.2f}' for w in wall[label])}), "
-            f"{lineitem_rows / med / 1e6:.1f} M lineitem rows/s")
-    log(f"total {time.perf_counter() - t_all:.1f} s")
+            f"({', '.join(f'{w * 1e3:.2f}' for w in wall[label])}){rate}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(report.rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

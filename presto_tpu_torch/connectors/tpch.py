@@ -166,34 +166,38 @@ def _make_comment_vocab(n: int, seed: int) -> List[str]:
 
 class PatternDictionary(Dictionary):
     """Dictionary whose values are computed lazily from the code by a
-    formatting function (e.g. ``Customer#%09d``). Avoids materializing
-    millions of per-row-unique strings; devices see only the code."""
+    formatting function ``fmt_many`` (codes array -> strings, e.g.
+    ``Customer#%09d``). Avoids materializing millions of per-row-unique
+    strings; devices see only the code. Walking every value (a LIKE
+    table, a duplicate check) formats one run of codes per call, so it
+    costs one vectorized hash per run, not one per code."""
 
-    __slots__ = ("fmt", "size")
+    __slots__ = ("fmt_many", "size")
 
-    def __init__(self, fmt, size: int):
-        self.fmt = fmt  # callable code -> str
+    def __init__(self, fmt_many, size: int):
+        self.fmt_many = fmt_many  # callable codes array -> list of str
         self.size = size
-        self.values = _LazyValues(fmt, size)  # type: ignore[assignment]
+        self.values = _LazyValues(self)  # type: ignore[assignment]
         self._index = None
 
+    def fmt(self, i: int) -> str:
+        return self.fmt_many(np.asarray([i]))[0]
+
     def code_of(self, s: str) -> int:  # pragma: no cover - rarely used
-        for i in range(self.size):
-            if self.fmt(i) == s:
+        for i, v in enumerate(self.values):
+            if v == s:
                 return i
         return -1
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         flat = codes.ravel()
         out = np.empty(flat.shape, dtype=object)
-        for j, c in enumerate(flat):
-            out[j] = self.fmt(int(c)) if 0 <= c < self.size else None
+        ok = (flat >= 0) & (flat < self.size)
+        out[ok] = self.fmt_many(flat[ok]) if ok.any() else []
         return out.reshape(codes.shape)
 
     def lut(self, predicate) -> np.ndarray:
-        return np.asarray(
-            [bool(predicate(self.fmt(i))) for i in range(self.size)], dtype=np.bool_
-        )
+        return np.asarray([bool(predicate(v)) for v in self.values], dtype=np.bool_)
 
     def __len__(self) -> int:
         return self.size
@@ -202,29 +206,42 @@ class PatternDictionary(Dictionary):
         return f"PatternDictionary({self.size} values)"
 
 
+_FMT_RUN = 1 << 16  # codes formatted per fmt_many call
+
+
 class _LazyValues:
-    def __init__(self, fmt, size):
-        self._fmt, self._size = fmt, size
+    def __init__(self, d: PatternDictionary):
+        self._d = d
 
     def __getitem__(self, i):
-        return self._fmt(i)
+        return self._d.fmt(i)
 
     def __len__(self):
-        return self._size
+        return self._d.size
 
     def __iter__(self):
-        return (self._fmt(i) for i in range(self._size))
+        n, many = self._d.size, self._d.fmt_many
+        return (v for lo in range(0, n, _FMT_RUN)
+                for v in many(np.arange(lo, min(lo + _FMT_RUN, n))))
 
 
-def _phone_fmt(nation_of_code):
-    def fmt(code: int) -> str:
-        nk = nation_of_code(code)
-        h = int(_hash_u64(77, np.asarray([code]))[0])
-        return (
-            f"{10 + nk}-{100 + h % 900}-{100 + (h >> 10) % 900}-{1000 + (h >> 20) % 9000}"
-        )
+def _numbered(prefix: str):
+    """``prefix#%09d`` of each code plus one, over an array of codes."""
+    return lambda codes: [f"{prefix}#{i + 1:09d}" for i in codes.tolist()]
 
-    return fmt
+
+def _phone_many(nation_seed: int):
+    """Phone numbers of an array of codes: the nation (drawn as the
+    table's ``*_nationkey`` column draws it) and three hashed groups."""
+    def many(codes: np.ndarray) -> List[str]:
+        nk = _uniform_int(nation_seed, codes, 0, 24)
+        h = _hash_u64(77, codes)
+        parts = (100 + h % np.uint64(900), 100 + (h >> np.uint64(10)) % np.uint64(900),
+                 1000 + (h >> np.uint64(20)) % np.uint64(9000))
+        return [f"{10 + n}-{a}-{b}-{c}"
+                for n, a, b, c in zip(nk.tolist(), *(x.tolist() for x in parts))]
+
+    return many
 
 
 # ---------------------------------------------------------------------------
@@ -338,26 +355,24 @@ class Tpch:
         elif key == "p_name":
             d = self._part_name_dict()
         elif key == "c_name":
-            d = PatternDictionary(lambda i: f"Customer#{i + 1:09d}", self.n_customers)
+            d = PatternDictionary(_numbered("Customer"), self.n_customers)
         elif key == "s_name":
-            d = PatternDictionary(lambda i: f"Supplier#{i + 1:09d}", self.n_suppliers)
+            d = PatternDictionary(_numbered("Supplier"), self.n_suppliers)
         elif key == "o_clerk":
             n_clerks = max(int(1000 * self.sf), 1)
-            d = PatternDictionary(lambda i: f"Clerk#{i + 1:09d}", n_clerks)
+            d = PatternDictionary(_numbered("Clerk"), n_clerks)
         elif key == "c_phone":
-            d = PatternDictionary(
-                _phone_fmt(lambda c: int(_uniform_int(_seed("customer", "c_nationkey"), np.asarray([c]), 0, 24)[0])),
-                self.n_customers,
-            )
+            d = PatternDictionary(_phone_many(_seed("customer", "c_nationkey")),
+                                  self.n_customers)
         elif key == "s_phone":
-            d = PatternDictionary(
-                _phone_fmt(lambda c: int(_uniform_int(_seed("supplier", "s_nationkey"), np.asarray([c]), 0, 24)[0])),
-                self.n_suppliers,
-            )
+            d = PatternDictionary(_phone_many(_seed("supplier", "s_nationkey")),
+                                  self.n_suppliers)
         elif key == "c_address":
-            d = PatternDictionary(lambda i: _address(i, 101), self.n_customers)
+            d = PatternDictionary(lambda codes: _address_many(codes, 101),
+                                  self.n_customers)
         elif key == "s_address":
-            d = PatternDictionary(lambda i: _address(i, 102), self.n_suppliers)
+            d = PatternDictionary(lambda codes: _address_many(codes, 102),
+                                  self.n_suppliers)
         elif key.endswith("_comment"):
             d = self._comment_vocab
         else:
@@ -368,13 +383,12 @@ class Tpch:
     def _part_name_dict(self) -> Dictionary:
         # 5 color words per part name (spec: P_NAME from 92-word list);
         # lazy: at SF100 there are 20M parts.
-        def fmt(i: int) -> str:
-            ia = np.asarray([i])
-            return " ".join(
-                COLORS[int(_hash_u64(300 + j, ia)[0] % len(COLORS))] for j in range(5)
-            )
+        def many(codes: np.ndarray) -> List[str]:
+            words = [(_hash_u64(300 + j, codes) % np.uint64(len(COLORS))).tolist()
+                     for j in range(5)]
+            return [" ".join(COLORS[w] for w in ws) for ws in zip(*words)]
 
-        return PatternDictionary(fmt, self.n_parts)
+        return PatternDictionary(many, self.n_parts)
 
     # -- split layout -------------------------------------------------------
     def row_count(self, table: str) -> int:
@@ -733,13 +747,20 @@ class Tpch:
         return doms.get(column)
 
 
-def _address(i: int, salt: int) -> str:
-    h = int(_hash_u64(salt, np.asarray([i]))[0])
-    chars = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 ,"
-    n = 10 + h % 25
-    out = []
-    x = h
-    for _ in range(n):
-        x = (x * 6364136223846793005 + 1442695040888963407) & 0xFFFFFFFFFFFFFFFF
-        out.append(chars[(x >> 33) % len(chars)])
-    return "".join(out)
+_ADDRESS_CHARS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 ,"
+
+
+def _address_many(codes: np.ndarray, salt: int) -> List[str]:
+    """Addresses of an array of codes: 10-34 characters drawn by a
+    64-bit LCG seeded from the code's hash, one numpy pass per
+    character position."""
+    h = _hash_u64(salt, codes)
+    lengths = (10 + h % np.uint64(25)).tolist()
+    chars = np.frombuffer(_ADDRESS_CHARS.encode(), dtype=np.uint8)
+    out = np.empty((len(codes), 34), dtype=np.uint8)
+    x = h.copy()
+    with np.errstate(over="ignore"):
+        for j in range(34):
+            x = x * np.uint64(6364136223846793005) + np.uint64(1442695040888963407)
+            out[:, j] = chars[(x >> np.uint64(33)) % np.uint64(len(chars))]
+    return [row[:k].tobytes().decode() for row, k in zip(out, lengths)]

@@ -4,7 +4,8 @@
 // arithmetic, comparison, BETWEEN and AND/OR/NOT subset, with
 // _rescale_guard and the _ovf_add/_ovf_sub/_ovf_mul rules; LIKE and
 // varchar comparisons against a literal through a dictionary table,
-// _compile_like/_compile_string_cmp; CASE/IF, _compile_case; double
+// _compile_like/_compile_string_cmp; IN over literals, _compile_in;
+// CASE/IF, _compile_case; double
 // arithmetic over decimals with decimal128.mul_long_short and
 // to_double, _compile_arith) and presto_tpu/ops/filter_project.py
 // filter_page/project_page, which XLA fused into one program per chain.
@@ -22,8 +23,13 @@
 // fixed-depth per-thread stack of (int64 value, valid) pairs.  One
 // build serves every query; no per-expression code generation.  A
 // filter skips rows that are already dead and writes only the new row
-// mask.  A string predicate is one LUT opcode: the row's dictionary
-// code indexes a host-built boolean table.  The interpreter is
+// mask.  A string predicate (LIKE, a comparison or IN against
+// literals) is one LUT opcode: the row's dictionary code indexes a
+// host-built boolean table; CANON maps a code to its value's
+// representative code through an int32 table (key columns whose
+// dictionary repeats a value).  IN over numbers compares the raw
+// value with each literal of a run in the constant pool (no scale
+// alignment, as the reference).  The interpreter is
 // instantiated twice: the narrow one (every TPC-H filter and argument)
 // keeps the int64 stack; the wide one, picked only for programs with a
 // long-decimal or double lane, adds a second limb per stack slot, so
@@ -34,17 +40,18 @@
 
 #include "common.cuh"
 
-#define K1_MAX_INS 64
-#define K1_MAX_CONSTS 32
+#define K1_MAX_INS 128
+#define K1_MAX_CONSTS 64
 #define K1_MAX_COLS 16
 #define K1_MAX_STACK 16
-#define K1_MAX_LUTS 4
+#define K1_MAX_LUTS 8
+#define K1_IN_COUNT_SHIFT 8
 
 // opcodes: keep in step with kernels/expr_eval.py
 enum {
   OP_LOAD, OP_LIT, OP_NULL, OP_ADD, OP_SUB, OP_MUL, OP_SCALE_CHK, OP_SCALE,
   OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_BETWEEN, OP_AND, OP_OR, OP_NOT,
-  OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV
+  OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV, OP_IN, OP_CANON
 };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
 
@@ -56,7 +63,7 @@ struct K1Prog {
   const void* col_data[K1_MAX_COLS];
   const uint8_t* col_valid[K1_MAX_COLS];
   int col_kind[K1_MAX_COLS];
-  const uint8_t* lut[K1_MAX_LUTS];
+  const void* lut[K1_MAX_LUTS];  // uint8 (LUT) or int32 (CANON) entries
   i64 lut_len[K1_MAX_LUTS];
 };
 
@@ -144,10 +151,21 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
       }
       case OP_SCALE: sd[sp - 1] = wmul(sd[sp - 1], p.consts[arg]); break;
       case OP_NOT: sd[sp - 1] = sd[sp - 1] == 0; break;
-      case OP_LUT: {
+      case OP_LUT:
+      case OP_CANON: {
         i64 c = sd[sp - 1];
         c = c < 0 ? 0 : (c >= p.lut_len[arg] ? p.lut_len[arg] - 1 : c);
-        sd[sp - 1] = p.lut[arg][c] != 0;
+        if (op == OP_LUT) sd[sp - 1] = ((const uint8_t*)p.lut[arg])[c] != 0;
+        else sd[sp - 1] = ((const int*)p.lut[arg])[c];
+        break;
+      }
+      case OP_IN: {
+        const int first = arg & ((1 << K1_IN_COUNT_SHIFT) - 1);
+        const int count = arg >> K1_IN_COUNT_SHIFT;
+        const i64 x = sd[sp - 1];
+        bool hit = false;
+        for (int j = 0; j < count; ++j) hit = hit || x == p.consts[first + j];
+        sd[sp - 1] = hit;
         break;
       }
       case OP_SEL: {  // cond then else -> cond ? then : else
@@ -281,7 +299,7 @@ extern "C" int k1_expr_eval(const int* ops, const int* args, int n_ins,
     p.col_kind[i] = col_kind[i];
   }
   for (int i = 0; i < n_luts; ++i) {
-    p.lut[i] = (const uint8_t*)luts[i];
+    p.lut[i] = (const void*)luts[i];
     p.lut_len[i] = lut_len[i];
   }
   if (n > 0) {

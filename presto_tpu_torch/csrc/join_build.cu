@@ -12,8 +12,10 @@
 // rows of ~16.8M) into a ~60M-slot table: the table's ~240 MB,
 // touched four times, dominate (~0.3 ms at 3.35 TB/s).
 //
-// Design: (1) one thread per row packs the key (keys.cuh), writes it
-// to scratch, and counts it into its slot with an int32 atomicAdd;
+// Design: (1) keys.cu packs each row's key into scratch (and sets the
+// build's has-NULL-key and nonempty flags, read by K5's null-aware
+// kinds); one thread per row counts it into its slot with an int32
+// atomicAdd;
 // (2) one thread per slot turns the count into present = min(count, 1)
 // and flags a count > 1 (the broken uniqueness promise, reported as
 // unique_ok = false so the caller rebuilds down the sorted branch);
@@ -22,7 +24,10 @@
 // its key and row id to its rank.  The sorted branch sorts the
 // sentinel-masked keys with torch.sort outside this file, and
 // k4_join_starts writes its starts table: one thread per domain slot,
-// a binary search (lower bound) over the sorted keys.  Simple first:
+// a binary search (lower bound) over the sorted keys.  Hashed keys
+// (K9) have no domain and take the sorted branch without a starts
+// table.  TPC-H Q4's sorted build at SF10 sorts 2^26 keys (~38M live)
+// and writes a 60M-slot starts table.  Simple first:
 // the count pass serialises on a hot slot only when keys repeat,
 // which the unique branch by definition does not expect.
 
@@ -86,16 +91,7 @@ static __global__ void k4_starts(const i64* __restrict__ sorted_keys, i64 n, i64
   }
 }
 
-// The masked packed key of each of n build rows: I64_MAX where the
-// row is dead or a key is NULL.
-extern "C" int k4_join_pack(i64 n, const void* row_mask, int n_keys, const i64* key_data,
-                            const i64* key_valid, const int* key_kind, const i64* key_lo,
-                            const i64* key_card, void* keys, void* stream) {
-  return pk_launch_pack(n, row_mask, true, n_keys, key_data, key_valid, key_kind, key_lo,
-                        key_card, keys, stream);
-}
-
-// Unique-direct build over packed keys `keys` (k4_join_pack's output)
+// Unique-direct build over packed keys `keys` (keys.cu's output)
 // into a domain of prod slots.  counts: prod ints of scratch;
 // starts: prod + 1 ints; partials: scan_tiles(prod) + 1 ints;
 // sorted_keys/perm: n each; collision: one int, 1 when a slot holds

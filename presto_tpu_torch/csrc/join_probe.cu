@@ -1,61 +1,57 @@
-// K5 join_probe: the row-aligned probe of an inner join with a
-// unique (or first-match) build.
+// K5 join_probe: the row-aligned probe of a join: inner and left
+// against a unique (or first-match) build, and the presence tests
+// semi, anti and mark against any build.
 //
 // Replaces: presto_tpu/ops/join.py _probe_keys, _lookup_first and
-// probe_join (kind inner), which XLA fused into the probe chain.
+// probe_join (every kind, with null_safe and null_aware), which XLA
+// fused into the probe chain.
 //
 // Bound on the H100: memory.  Each probe row reads its key columns and
 // row mask once and writes the new row mask; a live row then touches
-// two 32-byte sectors for the lookup (starts[k], starts[k+1]; perm)
-// and one sector per gathered build column, and writes each gathered
-// value once.  For TPC-H Q14 and Q3 at SF10 that is ~10-20 B per probe
-// row plus ~100 B per matched row, per 2^23-row lineitem split.
+// two 32-byte sectors for the lookup (starts[k], starts[k+1]), and for
+// inner and left one sector of perm and one per gathered build column,
+// writing each gathered value once.  For TPC-H Q14 and Q3 at SF10 that
+// is ~10-20 B per probe row plus ~100 B per matched row, per 2^23-row
+// lineitem split; Q4's semi probe of orders reads ~20 B per row and
+// its lookups in a 240 MB starts table.
 //
 // Design: one fused kernel, one thread per probe row (grid-stride):
-// pack the key exactly (keys.cuh); dead rows and NULL keys take a
-// sentinel that never matches; read starts[k] and starts[k+1] of the
-// direct table (or, without one, binary-search the sorted keys); write
-// the match into the row mask; gather each build output column's data
-// and valid bit through perm.  An unmatched row's gathered data is 0.
-// Simple first: gathers are per element, not vectorised, and the build
-// table is not staged in shared memory.
+// pack the key (keys.cuh: exact, or hashed when the key has no domain);
+// dead rows and, unless null_safe, NULL keys take a sentinel that never
+// matches; read starts[k] and starts[k+1] of the direct table (or,
+// without one, binary-search the sorted keys).  Inner writes the match
+// into the row mask and gathers each build output column's data and
+// valid bit through perm (an unmatched row's data is 0); left keeps the
+// row mask and gathers the same way; semi and anti only filter the row
+// mask, and mark writes the match as a BOOLEAN column, so none of the
+// three reads perm or a build column.  null_aware (IN / NOT IN) reads
+// the build's two flags (a NULL key, nonempty) from device memory, so
+// no host read is needed: an unmatched live row is UNKNOWN when its
+// key is NULL against a nonempty build or the build holds a NULL key;
+// UNKNOWN filters as FALSE and shows as a NULL mark.  Simple first:
+// gathers are per element, not vectorised, and the build table is not
+// staged in shared memory.
 
+#include "gather.cuh"
 #include "keys.cuh"
 
-#define K5_MAX_COLS 32
-
-struct K5Cols {
-  int n;
-  const uint8_t* src[K5_MAX_COLS];
-  const uint8_t* src_valid[K5_MAX_COLS];
-  uint8_t* dst[K5_MAX_COLS];
-  uint8_t* dst_valid[K5_MAX_COLS];
-  int width[K5_MAX_COLS];  // bytes per element: 1, 4, 8 or 16
-};
-
-__device__ __forceinline__ void copy_elem(const uint8_t* src, uint8_t* dst, int width,
-                                          i64 from, i64 to, bool keep) {
-  switch (width) {
-    case 1: dst[to] = keep ? src[from] : 0; break;
-    case 4: ((int*)dst)[to] = keep ? ((const int*)src)[from] : 0; break;
-    case 8: ((i64*)dst)[to] = keep ? ((const i64*)src)[from] : 0; break;
-    default:
-      ((i64*)dst)[2 * to] = keep ? ((const i64*)src)[2 * from] : 0;
-      ((i64*)dst)[2 * to + 1] = keep ? ((const i64*)src)[2 * from + 1] : 0;
-  }
-}
+// join kinds: keep in step with kernels/join_probe.py
+enum { K5_INNER = 0, K5_LEFT = 1, K5_SEMI = 2, K5_ANTI = 3, K5_MARK = 4 };
 
 static __global__ void k5_probe(PackDesc k, i64 n, const uint8_t* __restrict__ row_mask,
                                 const int* __restrict__ starts, i64 domain,
                                 const i64* __restrict__ sorted_keys, i64 build_cap,
-                                const int* __restrict__ perm, K5Cols cols,
-                                uint8_t* __restrict__ out_mask) {
+                                const int* __restrict__ perm, GatherCols cols, int kind,
+                                bool null_safe, bool null_aware, const int* __restrict__ flags,
+                                uint8_t* __restrict__ out_mask, uint8_t* __restrict__ mark_data,
+                                uint8_t* __restrict__ mark_valid) {
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const bool live = row_mask[i] != 0;
     bool ok;
     i64 key = pack_key(k, i, &ok);
-    if (!(live && ok)) key = I64_MAX - 1;  // distinct from the build's sentinel
+    const bool key_ok = live && (ok || null_safe);
+    if (!key_ok) key = I64_MAX - 1;  // distinct from the build's sentinel
     i64 pos;
     bool found;
     if (starts != nullptr) {
@@ -64,52 +60,58 @@ static __global__ void k5_probe(PackDesc k, i64 n, const uint8_t* __restrict__ r
       found = hi > lo && key >= 0 && key < domain;
       pos = lo;
     } else {
-      i64 lo = 0, hi = build_cap;  // lower bound of key in the sorted keys
-      while (lo < hi) {
-        const i64 mid = (lo + hi) >> 1;
-        if (sorted_keys[mid] < key) lo = mid + 1;
-        else hi = mid;
-      }
+      const i64 lo = keys_lower_bound(sorted_keys, build_cap, key);
       pos = lo < build_cap ? lo : build_cap - 1;
       found = sorted_keys[pos] == key;
     }
-    pos = pos < 0 ? 0 : (pos >= build_cap ? build_cap - 1 : pos);
     const bool match = found && live;
-    out_mask[i] = match;
-    const i64 row = match ? perm[pos] : 0;
-    for (int c = 0; c < cols.n; ++c) {
-      copy_elem(cols.src[c], cols.dst[c], cols.width[c], row, i, match);
-      cols.dst_valid[c][i] = match && cols.src_valid[c][row] != 0;
+    if (kind == K5_INNER || kind == K5_LEFT) {
+      pos = pos < 0 ? 0 : (pos >= build_cap ? build_cap - 1 : pos);
+      out_mask[i] = kind == K5_INNER ? match : live;
+      gather_row(cols, 0, cols.n, match ? perm[pos] : 0, i, match);
+      continue;
+    }
+    const bool unknown = null_aware && !match && flags[1] != 0 && (!key_ok || flags[0] != 0);
+    if (kind == K5_SEMI) {
+      out_mask[i] = match;
+    } else if (kind == K5_ANTI) {
+      out_mask[i] = live && !match && !unknown;
+    } else {  // K5_MARK
+      out_mask[i] = live;
+      mark_data[i] = match;
+      mark_valid[i] = !unknown;
     }
   }
 }
 
 // Probes n rows.  starts (domain + 1 ints) may be null: then the
-// sorted keys are binary-searched.  Each of the n_cols build output
-// columns gathers into dst/dst_valid (n elements of width bytes).
+// sorted keys are binary-searched.  Inner and left gather each of the
+// n_cols build output columns into dst/dst_valid (n elements of width
+// bytes); mark writes mark_data/mark_valid (n bytes each).  flags (two
+// ints: the build has a NULL key, the build is nonempty) is read only
+// when null_aware.
 extern "C" int k5_join_probe(i64 n, const void* row_mask, int n_keys, const i64* key_data,
                              const i64* key_valid, const int* key_kind, const i64* key_lo,
                              const i64* key_card, const void* starts, i64 domain,
                              const void* sorted_keys, i64 build_cap, const void* perm,
                              int n_cols, const i64* src, const i64* src_valid,
                              const i64* dst, const i64* dst_valid, const int* width,
-                             void* out_mask, void* stream) {
+                             int kind, int null_safe, int null_aware, const void* flags,
+                             void* out_mask, void* mark_data, void* mark_valid,
+                             void* stream) {
   PackDesc k;
+  GatherCols cols;
   if (fill_pack_desc(&k, n_keys, key_data, key_valid, key_kind, key_lo, key_card) ||
-      n_cols > K5_MAX_COLS || build_cap < 1)
+      fill_gather_cols(&cols, n_cols, src, src_valid, dst, dst_valid, width) ||
+      build_cap < 1 || kind < K5_INNER || kind > K5_MARK ||
+      (kind > K5_LEFT && n_cols != 0) || (kind == K5_MARK && mark_data == nullptr) ||
+      (null_aware && flags == nullptr))
     return (int)cudaErrorInvalidValue;
-  K5Cols cols;
-  cols.n = n_cols;
-  for (int c = 0; c < n_cols; ++c) {
-    cols.src[c] = (const uint8_t*)src[c];
-    cols.src_valid[c] = (const uint8_t*)src_valid[c];
-    cols.dst[c] = (uint8_t*)dst[c];
-    cols.dst_valid[c] = (uint8_t*)dst_valid[c];
-    cols.width[c] = width[c];
-  }
   if (n > 0)
     k5_probe<<<grid_for(n, 256, 8), 256, 0, (cudaStream_t)stream>>>(
         k, n, (const uint8_t*)row_mask, (const int*)starts, domain,
-        (const i64*)sorted_keys, build_cap, (const int*)perm, cols, (uint8_t*)out_mask);
+        (const i64*)sorted_keys, build_cap, (const int*)perm, cols, kind, null_safe != 0,
+        null_aware != 0, (const int*)flags, (uint8_t*)out_mask, (uint8_t*)mark_data,
+        (uint8_t*)mark_valid);
   return (int)cudaGetLastError();
 }

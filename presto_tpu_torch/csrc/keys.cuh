@@ -1,9 +1,16 @@
-// Exact packed keys (presto_tpu/ops/aggregate.py pack_or_hash_keys,
-// exact branch), shared by the join build and probe (K4, K5) and the
-// sorted-group aggregation (K6): each key column's code is
-// value - lo + 1, NULL is code 0, and the key is the mixed-radix
-// number of the codes, in wrapping int64 arithmetic as the reference
-// computes it.
+// Group and join keys (presto_tpu/ops/aggregate.py pack_or_hash_keys
+// and _mix64), shared by the join build and probes (K4, K5, K8) and
+// the sorted-group aggregation (K6).
+//
+// Exact branch: each key column's code is value - lo + 1, NULL is code
+// 0, and the key is the mixed-radix number of the codes, in wrapping
+// int64 arithmetic as the reference computes it.
+//
+// Hash branch (no exact domain; every column's card is 0): from h = 0,
+// per column lane = valid ? value : 0 and
+// h = mix(h ^ mix(lane + 0x9E37 * valid)), splitmix64's finalizer in
+// unsigned 64-bit arithmetic; the key is h's low 63 bits, bit for bit
+// the reference's.  A dictionary column hashes its int32 codes.
 #pragma once
 
 #include "common.cuh"
@@ -13,6 +20,7 @@ enum { PK_BOOL = 0, PK_I32 = 1, PK_I64 = 2 };
 
 struct PackDesc {
   int n;
+  int hashed;  // 1: the hash branch
   const void* data[PK_MAX_KEYS];
   const uint8_t* valid[PK_MAX_KEYS];
   int kind[PK_MAX_KEYS];
@@ -26,8 +34,8 @@ __device__ __forceinline__ i64 pk_load(const void* p, int kind, i64 i) {
   return ((const uint8_t*)p)[i] != 0;
 }
 
-// The packed key of row i; *all_valid says whether no key is NULL.
-__device__ __forceinline__ i64 pack_key(const PackDesc& k, i64 i, bool* all_valid) {
+// The exact packed key of row i; *all_valid says whether no key is NULL.
+__device__ __forceinline__ i64 exact_key(const PackDesc& k, i64 i, bool* all_valid) {
   i64 key = 0;
   bool ok = true;
   for (int c = 0; c < k.n; ++c) {
@@ -40,24 +48,38 @@ __device__ __forceinline__ i64 pack_key(const PackDesc& k, i64 i, bool* all_vali
   return key;
 }
 
-// The masked packed key of each of n rows: I64_MAX where the row is
-// dead, and where a key is NULL if null_as_sentinel (a join key that
-// matches nothing; a grouping key keeps NULL as code 0).
-static __global__ void pk_pack_masked(PackDesc k, i64 n, const uint8_t* __restrict__ row_mask,
-                                      bool null_as_sentinel, i64* __restrict__ keys) {
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    bool ok;
-    const i64 key = pack_key(k, i, &ok);
-    keys[i] = (row_mask[i] && (ok || !null_as_sentinel)) ? key : I64_MAX;
-  }
+__device__ __forceinline__ u64 mix64(u64 x) {
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  return x ^ (x >> 31);
 }
 
+// The hashed key of row i (63 bits, never negative).
+__device__ __forceinline__ i64 hash_key(const PackDesc& k, i64 i, bool* all_valid) {
+  u64 h = 0;
+  bool ok = true;
+  for (int c = 0; c < k.n; ++c) {
+    const bool v = k.valid[c][i] != 0;
+    const u64 lane = v ? (u64)pk_load(k.data[c], k.kind[c], i) : 0ull;
+    h = mix64(h ^ mix64(lane + 0x9E37ull * (u64)v));
+    ok = ok && v;
+  }
+  *all_valid = ok;
+  return (i64)(h & 0x7FFFFFFFFFFFFFFFull);
+}
+
+__device__ __forceinline__ i64 pack_key(const PackDesc& k, i64 i, bool* all_valid) {
+  return k.hashed ? hash_key(k, i, all_valid) : exact_key(k, i, all_valid);
+}
+
+// card[c] == 0 for every column selects the hash branch.
 static inline int fill_pack_desc(PackDesc* d, int n, const i64* data, const i64* valid,
                                  const int* kind, const i64* lo, const i64* card) {
-  if (n > PK_MAX_KEYS) return 1;
+  if (n < 1 || n > PK_MAX_KEYS) return 1;
   d->n = n;
+  d->hashed = card[0] == 0;
   for (int c = 0; c < n; ++c) {
+    if ((card[c] == 0) != (d->hashed != 0)) return 1;
     d->data[c] = (const void*)data[c];
     d->valid[c] = (const uint8_t*)valid[c];
     d->kind[c] = kind[c];
@@ -65,18 +87,4 @@ static inline int fill_pack_desc(PackDesc* d, int n, const i64* data, const i64*
     d->card[c] = card[c];
   }
   return 0;
-}
-
-// Launch pk_pack_masked on `stream`; a C entry point's whole body.
-static inline int pk_launch_pack(i64 n, const void* row_mask, bool null_as_sentinel,
-                                 int n_keys, const i64* key_data, const i64* key_valid,
-                                 const int* key_kind, const i64* key_lo, const i64* key_card,
-                                 void* keys, void* stream) {
-  PackDesc k;
-  if (fill_pack_desc(&k, n_keys, key_data, key_valid, key_kind, key_lo, key_card))
-    return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    pk_pack_masked<<<grid_for(n, 256, 8), 256, 0, (cudaStream_t)stream>>>(
-        k, n, (const uint8_t*)row_mask, null_as_sentinel, (i64*)keys);
-  return (int)cudaGetLastError();
 }

@@ -14,9 +14,8 @@
 // keys written once.  TPC-H Q3 at SF10 groups each ~2^23-row lineitem
 // split's probe output (~10^5 live rows) and then merges the partials.
 //
-// Design: keys.cuh's pk_pack_masked writes the masked packed key (NULL
-// keys group together as code 0, dead rows take a sentinel that sorts
-// last).  After the sort, k6_heads flags each run's first position and
+// Design: keys.cu writes the masked key, exact or hashed (K9) (NULL
+// keys group together, dead rows take a sentinel that sorts last).  After the sort, k6_heads flags each run's first position and
 // the exclusive scan of scan.cuh numbers the groups in packed-key
 // order, the reference's group order; the host reads the group count
 // once and sizes the outputs from it (count, allocate, write), so a
@@ -170,14 +169,6 @@ static __global__ void k6_finish(const K6Desc d, i64 groups, const i64* __restri
       d.out[s][2 * g + 1] = lo;
     }
   }
-}
-
-// The masked packed key of each of n rows (I64_MAX where dead).
-extern "C" int k6_pack_keys(i64 n, const void* row_mask, int n_keys, const i64* key_data,
-                            const i64* key_valid, const int* key_kind, const i64* key_lo,
-                            const i64* key_card, void* keys, void* stream) {
-  return pk_launch_pack(n, row_mask, false, n_keys, key_data, key_valid, key_kind, key_lo,
-                        key_card, keys, stream);
 }
 
 // scan (n + 1 ints): the exclusive count of run heads before each

@@ -4,21 +4,23 @@ Counterpart of ``presto_tpu/exec/local.py``.  Every streaming chain of
 a plan (scan -> filter -> project -> join probe -> partial aggregation)
 runs as one function per split, as the reference fuses it; here each
 stage is a kernel launch on the runner's device (K1 for filters,
-projections and aggregate arguments, K5 for the probe of a unique-build
-inner join, K2 or K6 for the partial states).  Pipeline breakers
-materialize: a join's build side is built once (K4; a broken
-uniqueness promise rebuilds it down the sorted branch), the
-aggregation folds per-split packed partial tables slot by slot (K3) or
-merges the sort-path partials once (K6) and finalizes (K3), the sort
-orders the result and top-N picks its rows (K7).
+projections and aggregate arguments, K5 for a row-aligned join probe,
+K2 or K6 for the partial states).  Pipeline breakers materialize: a
+join's build side is built once (K4; a broken uniqueness promise
+rebuilds it down the sorted branch), a many-to-many join expands each
+probe page (K8) and, for FULL OUTER, emits the unmatched build rows
+last, the aggregation folds per-split packed partial tables slot by
+slot (K3) or merges the sort-path partials once (K6) and finalizes
+(K3), the sort orders the result and top-N picks its rows (K7).
 
-Ported: table scans, filters, projections, inner joins with a unique
-build, ORDER BY, top-N, and global, packed-direct or sort-path
-aggregation over exact keys.  Other plan nodes and join kinds raise
+Ported: table scans, filters, projections, every join kind (inner,
+left, full, semi, anti, mark; null-safe and null-aware keys) except
+index joins, ORDER BY, top-N, and global, packed-direct or sort-path
+aggregation over exact or hashed keys.  Other plan nodes raise
 :class:`NotPorted`.  PyTorch runs eagerly, so there are no
-compiled-program caches and no capacity buckets: the sort path sizes
-its outputs from the group count it finds, so a partial never drops a
-group and no capacity retry is needed.
+compiled-program caches and no capacity buckets: the sort path and the
+expanding probe size their outputs from the count they find, so
+nothing is dropped and no capacity retry is needed.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
+import torch
+
 from presto_tpu_torch import NotPorted, resolve_device
 from presto_tpu_torch.catalog import Catalog
 from presto_tpu_torch.ops.aggregate import (
@@ -35,7 +39,9 @@ from presto_tpu_torch.ops.aggregate import (
     packed_direct_layout,
 )
 from presto_tpu_torch.ops.filter_project import filter_page, project_page
-from presto_tpu_torch.ops.join import JoinBuild, build_join, probe_join
+from presto_tpu_torch.ops.join import (
+    JoinBuild, build_join, outer_build_tail, probe_expand, probe_join,
+)
 from presto_tpu_torch.ops.sort import sort_page, topn_page
 from presto_tpu_torch.page import Page, concat_pages_device, pad_page_to
 from presto_tpu_torch.planner.plan import (
@@ -92,18 +98,14 @@ class QueryStats:
         return None if e is None else int(e["rows"])
 
 
-def _check_streaming_join(node: JoinNode) -> None:
-    """The port streams one join form, the row-aligned probe of an inner
-    join whose build keys the planner promises unique; every other join
-    raises :class:`NotPorted` (the reference also streams semi/anti/mark
-    probes and expands the rest)."""
-    if node.use_index:
-        raise NotPorted("index join")
-    if node.kind != "inner" or not node.unique_build:
-        raise NotPorted(f"{node.kind} join" + ("" if node.unique_build
-                                                else " with a non-unique build"))
-    if node.null_safe_keys or node.null_aware:
-        raise NotPorted("null-safe or null-aware join keys")
+def _is_streaming_join(node: JoinNode) -> bool:
+    """True when the probe is row-aligned (K5, fused in a chain):
+    semi/anti/mark (presence tests) or unique-key builds.  FULL joins
+    always expand: the unmatched-build tail needs cross-page state.
+    Index joins (not ported) never fuse."""
+    if node.kind == "full" or node.use_index:
+        return False
+    return node.kind in ("semi", "anti", "mark") or node.unique_build
 
 
 class LocalRunner:
@@ -165,6 +167,11 @@ class LocalRunner:
         if isinstance(node, AggregationNode) and node.step in ("single", "final"):
             yield self._run_aggregation(node)
             return
+        if isinstance(node, JoinNode) and node.use_index:
+            raise NotPorted("index join")
+        if isinstance(node, JoinNode) and not _is_streaming_join(node):
+            yield from self._expanding_join_pages(node)
+            return
         if isinstance(node, (TableScanNode, FilterNode, ProjectNode, AggregationNode,
                              JoinNode)):
             yield from self._chain_pages(node)
@@ -184,7 +191,7 @@ class LocalRunner:
             return self._chain_leaf(node.source)
         if isinstance(node, AggregationNode) and node.step == "partial":
             return self._chain_leaf(node.source)
-        if isinstance(node, JoinNode):
+        if isinstance(node, JoinNode) and _is_streaming_join(node):
             return self._chain_leaf(node.left)  # the probe side streams
         return node
 
@@ -207,13 +214,18 @@ class LocalRunner:
             kd = node.key_domains
             return lambda p: grouped_aggregate(inner(p), group_exprs, aggs, mg,
                                                key_domains=kd, mode="partial")
-        if isinstance(node, JoinNode):
-            _check_streaming_join(node)
+        if isinstance(node, JoinNode) and _is_streaming_join(node):
             inner = self._build_stage(node.left)
             build = self._materialize_build(node)
             left_keys = list(node.left_keys)
             kd = node.key_domains
-            return lambda p: probe_join(build, inner(p), left_keys, key_domains=kd)
+            kind, ns = node.kind, node.null_safe_keys
+            # null_aware means IN / NOT IN; on a join that gathers build
+            # columns it means nothing, and the reference's executor
+            # drops it there, as here (probe_join refuses it)
+            na = node.null_aware and kind in ("semi", "anti", "mark")
+            return lambda p: probe_join(build, inner(p), left_keys, key_domains=kd, kind=kind,
+                                        null_safe=ns, null_aware=na)
         return lambda p: p
 
     def _source_pages(self, node: PlanNode) -> Iterator[Page]:
@@ -257,10 +269,13 @@ class LocalRunner:
             page = self.build_side(node)
             right_keys = list(node.right_keys)
             kd = node.key_domains
-            build = build_join(page, right_keys, key_domains=kd, unique=node.unique_build)
+            ns = node.null_safe_keys
+            build = build_join(page, right_keys, key_domains=kd, null_safe=ns,
+                               unique=node.unique_build)
             if build.unique_ok is not None and not bool(build.unique_ok):
                 # the uniqueness promise failed at runtime: rebuild sorted
-                build = build_join(page, right_keys, key_domains=kd, unique=False)
+                build = build_join(page, right_keys, key_domains=kd, null_safe=ns,
+                                   unique=False)
             self._builds[node] = build
         return build
 
@@ -271,6 +286,30 @@ class LocalRunner:
         page = concat_pages_device(pages) if pages else Page.empty(
             node.right.output_types, 1, self.device)
         return pad_page_to(page, 1 << max(0, page.capacity - 1).bit_length())
+
+    def _expanding_join_pages(self, node: JoinNode) -> Iterator[Page]:
+        """Many-to-many probe of every probe page (K8), each output page
+        sized from its match count; a FULL join ORs the build rows its
+        matches touched across pages and ends with the unmatched build
+        rows, NULL-extended on the probe side."""
+        build = self._materialize_build(node)
+        is_full = node.kind == "full"
+        kind = "left" if is_full else node.kind
+        left_keys = list(node.left_keys)
+        kd = node.key_domains
+        matched = None
+        for p in self._pages(node.left):
+            res = probe_expand(build, p, left_keys, key_domains=kd, kind=kind,
+                               return_matched=is_full, null_safe=node.null_safe_keys)
+            yield res[0]
+            if is_full:
+                matched = res[2] if matched is None else matched | res[2]
+        if is_full:
+            if matched is None:
+                matched = torch.zeros(build.page.capacity, dtype=torch.bool,
+                                      device=self.device)
+            yield outer_build_tail(build, matched,
+                                   [(c.type, c.dictionary) for c in node.left.channels])
 
     def _run_topn(self, node: TopNNode) -> Page:
         """Fold: keep the ``count`` best rows; each input page is ranked

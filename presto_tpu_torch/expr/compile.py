@@ -8,11 +8,14 @@ sub-trees, and the decimal rescale of a literal operand, fold on the
 host.  The lowering covers what TPC-H Q1, Q6, Q14 and Q3 bind:
 int32/int64/bool columns, literals, ``add``/``sub``/``mul`` with the
 reference's overflow-to-NULL rule, decimal rescale with its overflow
-guard, comparisons, BETWEEN, three-valued AND/OR/NOT, LIKE and varchar
-comparisons against a literal (one boolean table over the column's
-dictionary), CASE/IF, long x short decimal products, and the double
-division of two long decimals (a zero divisor gives NULL).  Anything
-else raises :class:`NotPorted`.
+guard, comparisons, BETWEEN, three-valued AND/OR/NOT, LIKE, IN and
+varchar comparisons against literals (one boolean table over the
+column's dictionary), IN over integer-lane literals, CASE/IF, long x
+short decimal products, and the double division of two long decimals
+(a zero divisor gives NULL).  ``ExprCompiler.compile_key`` also maps a
+key column's codes to their value's representative code where the
+dictionary repeats a value (the reference's ``canonicalize_codes``).
+Anything else raises :class:`NotPorted`.
 
 ``expr_dictionary`` is the torch-free type-level helper the planner
 uses to derive a projection's dictionary.
@@ -20,10 +23,11 @@ uses to derive a projection's dictionary.
 
 from __future__ import annotations
 
+import itertools
 import operator
 from collections import OrderedDict
 import re
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,16 +125,31 @@ _LUT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 LUT_CACHE_SIZE = 256
 
 
-def dictionary_lut(d: Dictionary, key: tuple, predicate) -> k1.Lut:
+def dictionary_lut(d: Dictionary, key: tuple, predicate,
+                   dtype: torch.dtype = torch.bool) -> k1.Lut:
     """``predicate`` over every value of ``d``, indexable by code."""
     ck = (id(d), key)
     hit = _LUT_CACHE.get(ck)
     if hit is None:
-        hit = _LUT_CACHE[ck] = (d, k1.Lut(predicate(v) for v in d.values))
+        hit = _LUT_CACHE[ck] = (d, k1.Lut((predicate(v) for v in d.values), dtype,
+                                          str(key[0])))
         if len(_LUT_CACHE) > LUT_CACHE_SIZE:
             _LUT_CACHE.popitem(last=False)
     else:
         _LUT_CACHE.move_to_end(ck)
+    return hit[1]
+
+
+# id(dictionary) -> (dictionary, whether a value repeats)
+_DUPLICATES: dict = {}
+
+
+def has_duplicates(d: Dictionary) -> bool:
+    """Whether ``d`` holds a value under two codes (cached per
+    dictionary, as the reference's ``_dict_has_duplicates``)."""
+    hit = _DUPLICATES.get(id(d))
+    if hit is None:
+        hit = _DUPLICATES[id(d)] = (d, len(set(d.values)) < len(d.values))
     return hit[1]
 
 
@@ -205,7 +224,11 @@ class _Lowering:
             return self._emit_like(e)
         if fn in _STRING_CMP and any(a.type.is_string for a in e.args):
             return self._emit_string_cmp(e)
-        if fn in ("case", "if"):
+        if fn == "in" and e.args[0].type.is_string:
+            return self._emit_string_in(e)
+        if fn == "in":
+            const = self._emit_in(e)
+        elif fn in ("case", "if"):
             const = self._emit_case(e)
         elif fn in ("and", "or") and len(e.args) == 2:
             const = self.emit(e.args[0]) & self.emit(e.args[1])
@@ -276,6 +299,40 @@ class _Lowering:
             raise NotPorted("comparison of two string columns")
         cmp = _STRING_CMP[op]
         return self._emit_lut(col, (op, s), lambda v: cmp(v, s))
+
+    def _emit_string_in(self, e: Call) -> bool:
+        col, values = e.args[0], e.args[1:]
+        if col.type.is_raw_string:
+            raise NotPorted("IN over raw strings")
+        if not all(isinstance(v, Literal) for v in values):
+            raise NotPorted("IN with a non-literal value")
+        wanted = frozenset(v.value for v in values)
+        return self._emit_lut(col, ("in", tuple(sorted(wanted, key=repr))),
+                              lambda s: s in wanted)
+
+    def _emit_in(self, e: Call) -> bool:
+        """``x IN (literals)`` over an integer lane: the raw value against
+        each literal's value, no scale alignment (as the reference); the
+        result keeps x's valid bit.  The literals take a run of the
+        constant pool."""
+        col, values = e.args[0], e.args[1:]
+        if _lane(col.type) != SHORT:
+            raise NotPorted(f"IN over {col.type}")
+        lits = []
+        for v in values:
+            if not isinstance(v, Literal) or isinstance(v.value, bool) \
+                    or not isinstance(v.value, (int, np.integer)):
+                raise NotPorted("IN with a value that is not an integer literal")
+            lits.append(int(v.value))
+        if not lits or len(lits) >= 1 << (31 - k1.IN_COUNT_SHIFT):
+            raise NotPorted(f"IN over {len(lits)} literals")
+        const = self.emit(col)
+        first = len(self.consts)
+        if first >= 1 << k1.IN_COUNT_SHIFT:
+            raise NotPorted("IN past the constant pool's reach")
+        self.consts.extend(lits)
+        self._push(k1.IN, first | len(lits) << k1.IN_COUNT_SHIFT)
+        return const
 
     # -- CASE / IF ----------------------------------------------------------
     def _emit_case(self, e: Call) -> bool:
@@ -375,7 +432,8 @@ class _Lowering:
         return const
 
     def program(self, out_kind: int) -> k1.Program:
-        # keep only the constants that folding left in use
+        # keep only the constants that folding left in use; each IN
+        # keeps its literals as one run
         consts: List[int] = []
         args = list(self.args)
         for i, op in enumerate(self.ops):
@@ -384,6 +442,11 @@ class _Lowering:
                 if v not in consts:
                     consts.append(v)
                 args[i] = consts.index(v)
+            elif op == k1.IN:
+                first, count = args[i] & ((1 << k1.IN_COUNT_SHIFT) - 1), \
+                    args[i] >> k1.IN_COUNT_SHIFT
+                args[i] = len(consts) | count << k1.IN_COUNT_SHIFT
+                consts.extend(self.consts[first:first + count])
         prog = k1.Program(tuple(self.ops), tuple(args), tuple(consts),
                           len(self.columns), out_kind, tuple(self.luts))
         if (len(prog.ops) > k1.MAX_INS or len(prog.consts) > k1.MAX_CONSTS
@@ -411,6 +474,38 @@ class ExprCompiler:
         lw = _Lowering(self.dictionaries)
         lw.emit(expr)
         return lw.program(_out_kind(expr.type)), lw.columns
+
+    def compile_key(self, expr: Expr) -> CompiledExpr:
+        """``expr`` as a group or join key: where its dictionary repeats a
+        value, each code becomes the smallest code of the same value
+        (the reference's ``canonicalize_codes``, by K1's CANON), so keys
+        follow value equality; else :meth:`compile`."""
+        low = self.lower_key(expr)
+        if low is None:
+            return self.compile(expr)
+        prog, (i,) = low
+        return lambda page: k1.expr_eval(prog, [(page.blocks[i].data, page.blocks[i].valid)],
+                                         page.capacity)
+
+    def lower_key(self, expr: Expr) -> Optional[Tuple[k1.Program, List[int]]]:
+        """K1's CANON program of a key column whose dictionary repeats a
+        value, and the column it reads; None for any other key."""
+        d = expr_dictionary(expr, self.dictionaries) if expr.type.is_string else None
+        if d is None or not has_duplicates(d):
+            return None
+        if not isinstance(expr, ColumnRef):
+            raise NotPorted(f"key over a string expression {expr}")
+        # the table is built walking the values in code order, so the
+        # first code seen for a value is its smallest code
+        first: dict = {}
+        codes = itertools.count()
+        lw = _Lowering(self.dictionaries)
+        lw._load(expr.index, k1.LOAD)
+        lw.luts.append(dictionary_lut(d, ("canon",),
+                                      lambda v: first.setdefault(v, next(codes)),
+                                      torch.int32))
+        lw._push(k1.CANON, 0)
+        return lw.program(k1.KIND_I32), [expr.index]
 
     def compile(self, expr: Expr) -> CompiledExpr:
         if isinstance(expr, ColumnRef):

@@ -9,8 +9,11 @@ whole-tensor torch ops.  Both follow the reference's rules
 (``presto_tpu/expr/compile.py``): SQL three-valued logic, an int64
 add/sub/mul or decimal up-scale that wraps turns its lane NULL, a
 string predicate reads a boolean table over the column's dictionary,
-CASE takes the first true branch, and a double division by zero is
-NULL.
+``x IN (literals)`` compares the raw value with each literal, CASE takes
+the first true branch, and a double division by zero is NULL.  CANON
+maps a dictionary code to the representative code of its value (the
+reference's ``canonicalize_codes``, for key columns whose dictionary
+repeats a value).
 
 A stack value is an int64 lane (integers, dates, booleans, short
 decimals, dictionary codes), a double, or a long decimal (two
@@ -33,25 +36,27 @@ from presto_tpu_torch.ops import decimal128 as d128
 
 # opcodes: keep in step with csrc/expr_eval.cu
 LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
-    BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV = range(24)
+    BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV, IN, CANON = range(26)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
-            "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv")
+            "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
-                0, -2, 1, -1, 0, -1)
+                0, -2, 1, -1, 0, -1, 0, 0)
 # opcodes whose argument is printed: a column slot, a constant index,
-# a table slot, the long operand's side (MUL_LS) or a decimal scale
-_ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D)
+# a table slot, the long operand's side (MUL_LS), a decimal scale, or
+# IN's literal run (first constant | count << IN_COUNT_SHIFT)
+_ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON)
+IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
 WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV))
 
 # fixed limits of the kernel's by-value program (csrc/expr_eval.cu)
-MAX_INS = 64
-MAX_CONSTS = 32
+MAX_INS = 128
+MAX_CONSTS = 64
 MAX_COLS = 16
 MAX_STACK = 16
-MAX_LUTS = 4
+MAX_LUTS = 8
 
 # storage kinds of loaded columns and of the output
 KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128 = range(5)
@@ -63,22 +68,28 @@ _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
 
 launches = 0
+#: launches of programs that test ``IN`` (the IN opcode, or a table
+#: built for IN over a dictionary)
+in_launches = 0
 
 
 class Lut:
-    """LUT's operand: a boolean table indexed by a dictionary's codes,
-    with its copy on each device it has been read on."""
+    """The operand of LUT (a boolean table) or CANON (an int32 table),
+    indexed by a dictionary's codes, with its copy on each device it
+    has been read on."""
 
-    __slots__ = ("values", "_copies")
+    __slots__ = ("values", "dtype", "kind", "_copies")
 
-    def __init__(self, values: Sequence[bool]):
-        self.values = tuple(bool(v) for v in values)
+    def __init__(self, values: Sequence, dtype: torch.dtype = torch.bool, kind: str = ""):
+        self.dtype = dtype
+        self.kind = kind  # what the table tests ("like", "in", "canon", a comparison)
+        self.values = tuple(bool(v) if dtype == torch.bool else int(v) for v in values)
         self._copies: dict = {}
 
     def on(self, device) -> torch.Tensor:
         t = self._copies.get(str(device))
         if t is None:
-            t = self._copies[str(device)] = torch.tensor(self.values, dtype=torch.bool,
+            t = self._copies[str(device)] = torch.tensor(self.values, dtype=self.dtype,
                                                          device=device)
         return t
 
@@ -89,10 +100,12 @@ class Program:
     int64 constant pool, the boolean tables of LUT, and the output
     storage kind.  ``args`` of a LOAD or LOAD_LONG is a column slot
     (index into the columns handed to :func:`expr_eval`); of LIT,
-    SCALE_CHK and SCALE a constant index; of LUT a table slot; of
-    MUL_LS 0 when the long operand is below the short one on the stack,
-    1 when above; of L2D the operand's decimal scale.  ``luts`` holds
-    the tables of LUT."""
+    SCALE_CHK and SCALE a constant index; of LUT and CANON a table
+    slot; of MUL_LS 0 when the long operand is below the short one on
+    the stack, 1 when above; of L2D the operand's decimal scale; of IN
+    the first of its literals in the constant pool, plus their count
+    shifted by ``IN_COUNT_SHIFT``.  ``luts`` holds the tables of LUT
+    (bool) and CANON (int32)."""
 
     ops: Tuple[int, ...]
     args: Tuple[int, ...]
@@ -161,7 +174,14 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == NOT:
             d, v = stack.pop()
             stack.append(((d == 0).to(torch.int64), v))
-        elif op == LUT:
+        elif op == IN:
+            d, v = stack.pop()
+            first, count = arg & ((1 << IN_COUNT_SHIFT) - 1), arg >> IN_COUNT_SHIFT
+            hit = torch.zeros_like(v)
+            for c in prog.consts[first:first + count]:
+                hit = hit | (d == c)
+            stack.append((hit.to(torch.int64), v))
+        elif op in (LUT, CANON):
             d, v = stack.pop()
             table = prog.luts[arg].on(d.device)
             code = torch.clamp(d, 0, table.shape[0] - 1)
@@ -233,13 +253,20 @@ def expr_eval(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 
 
 def _launch(prog, cols, n, row_mask, tensors):
-    global launches
+    global launches, in_launches
     build.require_cuda(tensors, "expr_eval")
     if (len(prog.ops) > MAX_INS or len(prog.consts) > MAX_CONSTS
             or len(cols) > MAX_COLS or prog.depth > MAX_STACK or len(prog.luts) > MAX_LUTS):
         raise ValueError(f"expr_eval: program exceeds the kernel's limits: {prog}")
     if prog.out_kind not in _DTYPE_OF or (prog.out_kind == KIND_F64 and not prog.wide):
         raise ValueError(f"expr_eval: output kind {prog.out_kind}")
+    for op, arg in zip(prog.ops, prog.args):
+        if op in (LUT, CANON) and prog.luts[arg].dtype != (torch.bool if op == LUT
+                                                           else torch.int32):
+            raise ValueError(f"expr_eval: table {arg} has the wrong type for {OP_NAMES[op]}")
+        if op == IN and (arg & ((1 << IN_COUNT_SHIFT) - 1)) + (arg >> IN_COUNT_SHIFT) \
+                > len(prog.consts):
+            raise ValueError("expr_eval: IN literals past the constant pool")
     long_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_LONG}
     kinds = []
     for slot, (d, v) in enumerate(cols):
@@ -295,6 +322,8 @@ def _launch(prog, cols, n, row_mask, tensors):
              build.stream_of(tensors[0]))
     build.check(err, "expr_eval")
     launches += 1
+    if IN in prog.ops or any(t.kind == "in" for t in prog.luts):
+        in_launches += 1
     if out_mask is not None:
         return out_mask
     return out_data, out_valid

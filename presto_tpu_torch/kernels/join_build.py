@@ -1,4 +1,4 @@
-"""K4 ``join_build``: the build side of a join over exact packed keys.
+"""K4 ``join_build``: the build side of a join.
 
 :func:`join_build_unique` is the reference's sort-free unique-direct
 branch (``presto_tpu/ops/join.py`` ``build_join``): live keys counted
@@ -7,8 +7,11 @@ and row ids scattered to their ranks, and ``unique_ok`` False when a
 slot holds two live rows.  :func:`join_build_sorted` is the sorted
 branch: ``torch.sort`` of the sentinel-masked keys (as the reference
 leaves the sort to XLA) and, with a domain, the CSR ``starts`` table
-written by a kernel.  CUDA tensors launch ``csrc/join_build.cu``; CPU
-tensors run the plain versions.
+written by a kernel.  Both branches also return the build's flags
+(a live row has a NULL key; any row is live), which the null-aware
+probes read.  Hashed keys (K9) take the sorted branch without a
+``starts`` table.  CUDA tensors launch ``csrc/join_build.cu`` (and the
+key pack of ``csrc/keys.cu``); CPU tensors run the plain versions.
 """
 
 from __future__ import annotations
@@ -26,17 +29,13 @@ SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
 launches = 0
 
 
-def _masked_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor) -> torch.Tensor:
-    key, ok = pk.pack_plain(keys, row_mask.shape[0], row_mask.device)
-    return torch.where(row_mask & ok, key, torch.full_like(key, pk.I64_MAX))
-
-
-def join_build_unique_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor, prod: int):
-    """``(sorted_keys, perm, starts, unique_ok)`` of the unique-direct
-    branch; the plain version."""
+def join_build_unique_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor, prod: int,
+                            null_safe: bool = False):
+    """``(sorted_keys, perm, starts, unique_ok, flags)`` of the
+    unique-direct branch; the plain version."""
     cap = row_mask.shape[0]
     dev = row_mask.device
-    key = _masked_plain(keys, row_mask)
+    key, flags = pk.masked_plain(keys, row_mask, not null_safe)
     live = key != pk.I64_MAX
     key_c = torch.clamp(key, 0, prod - 1)
     slot = torch.where(live, key_c, torch.full_like(key_c, prod))
@@ -52,31 +51,36 @@ def join_build_unique_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor, prod
     perm = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
     perm[tgt] = torch.arange(cap, dtype=torch.int32, device=dev)
     unique_ok = ~torch.any(counts[:prod] > 1)
-    return sorted_keys[:cap], perm[:cap], starts, unique_ok
+    return sorted_keys[:cap], perm[:cap], starts, unique_ok, flags
 
 
 def join_build_sorted_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
-                            domain: Optional[int]):
-    """``(sorted_keys, perm, starts or None)`` of the sorted branch;
-    the plain version."""
-    sorted_keys, order = torch.sort(_masked_plain(keys, row_mask), stable=True)
+                            domain: Optional[int], null_safe: bool = False):
+    """``(sorted_keys, perm, starts or None, flags)`` of the sorted
+    branch; the plain version."""
+    key, flags = pk.masked_plain(keys, row_mask, not null_safe)
+    sorted_keys, order = torch.sort(key, stable=True)
     starts = None
     if domain is not None:
         q = torch.arange(domain + 1, dtype=torch.int64, device=row_mask.device)
         starts = torch.searchsorted(sorted_keys, q).to(torch.int32)
-    return sorted_keys, order.to(torch.int32), starts
+    return sorted_keys, order.to(torch.int32), starts, flags
 
 
-def join_build_unique(keys: Sequence[pk.Key], row_mask: torch.Tensor, prod: int):
+def join_build_unique(keys: Sequence[pk.Key], row_mask: torch.Tensor, prod: int,
+                      null_safe: bool = False):
     """The unique-direct build over ``prod`` key slots: ``(sorted_keys,
-    perm, starts, unique_ok)``, ``unique_ok`` a device bool scalar.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    perm, starts, unique_ok, flags)``, ``unique_ok`` a device bool
+    scalar, ``flags`` the build's int32 (has a NULL key, nonempty).
+    ``null_safe`` keeps rows with NULL keys (code 0).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
     if not row_mask.is_cuda:
-        return join_build_unique_plain(keys, row_mask, prod)
+        return join_build_unique_plain(keys, row_mask, prod, null_safe)
     global launches
     n = _check(keys, row_mask, prod)
     dev = row_mask.device
-    masked = pk.pack("k4_join_pack", keys, row_mask, "join_build")
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    masked = pk.pack(keys, row_mask, not null_safe, "join_build", flags)
     counts = torch.empty(prod, dtype=torch.int32, device=dev)
     starts = torch.empty(prod + 1, dtype=torch.int32, device=dev)
     partials = torch.empty(-(-prod // SCAN_TILE) + 1, dtype=torch.int32, device=dev)
@@ -92,21 +96,22 @@ def join_build_unique(keys: Sequence[pk.Key], row_mask: torch.Tensor, prod: int)
              collision.data_ptr(), build.stream_of(row_mask))
     build.check(err, "join_build")
     launches += 1
-    return sorted_keys, perm, starts, collision[0] == 0
+    return sorted_keys, perm, starts, collision[0] == 0, flags
 
 
 def join_build_sorted(keys: Sequence[pk.Key], row_mask: torch.Tensor,
-                      domain: Optional[int]):
-    """The sorted build: ``(sorted_keys, perm, starts or None)``, with
-    the CSR ``starts`` table over ``domain`` slots when one is given.
-    CPU tensors take the plain version; CUDA tensors launch the
-    kernels around ``torch.sort``."""
+                      domain: Optional[int], null_safe: bool = False):
+    """The sorted build: ``(sorted_keys, perm, starts or None, flags)``,
+    with the CSR ``starts`` table over ``domain`` slots when one is
+    given (never for hashed keys).  CPU tensors take the plain version;
+    CUDA tensors launch the kernels around ``torch.sort``."""
     if not row_mask.is_cuda:
-        return join_build_sorted_plain(keys, row_mask, domain)
+        return join_build_sorted_plain(keys, row_mask, domain, null_safe)
     global launches
     n = _check(keys, row_mask, domain or 1)
-    sorted_keys, order = torch.sort(pk.pack("k4_join_pack", keys, row_mask, "join_build"),
-                                    stable=True)
+    flags = torch.empty(2, dtype=torch.int32, device=row_mask.device)
+    sorted_keys, order = torch.sort(pk.pack(keys, row_mask, not null_safe, "join_build",
+                                            flags), stable=True)
     starts = None
     if domain is not None:
         starts = torch.empty(domain + 1, dtype=torch.int32, device=row_mask.device)
@@ -118,7 +123,7 @@ def join_build_sorted(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                  build.stream_of(row_mask))
         build.check(err, "join_build")
     launches += 1
-    return sorted_keys, order.to(torch.int32), starts
+    return sorted_keys, order.to(torch.int32), starts, flags
 
 
 def _check(keys, row_mask, prod) -> int:

@@ -1,9 +1,10 @@
 """K6 ``sorted_group_agg``: grouped states over sorted packed keys.
 
-:func:`sorted_group_agg` packs the group keys exactly (NULL keys as
-code 0, dead rows as a sentinel that sorts last), sorts them with
+:func:`sorted_group_agg` packs the group keys exactly, or hashes them
+(K9) when they have no exact domain (NULL keys group together, dead
+rows take a sentinel that sorts last), sorts them with
 ``torch.sort(stable=True)`` (the reference leaves its argsort to XLA),
-numbers the runs of equal keys in packed-key order, and sums each
+numbers the runs of equal keys in key order, and sums each
 group's states exactly; the reference's ``_sorted_group_ids``,
 ``_SortCtx.sum`` and the sort path of ``grouped_aggregate`` /
 ``merge_aggregate`` (``presto_tpu/ops/aggregate.py``).  It returns
@@ -119,8 +120,7 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     stream = build.stream_of(row_mask)
     lib = build.library()
 
-    sk, order = torch.sort(pk.pack("k6_pack_keys", keys, row_mask, "sorted_group_agg"),
-                           stable=True)
+    sk, order = torch.sort(pk.pack(keys, row_mask, False, "sorted_group_agg"), stable=True)
 
     scan = torch.empty(n + 1, dtype=torch.int32, device=dev)
     partials = torch.empty(-(-n // SCAN_TILE) + 1, dtype=torch.int32, device=dev)

@@ -7,11 +7,14 @@ kernels: K2 ``packed_group_agg`` computes the partial states of a page
 (global, or grouped by an exact packed key whose domain product fits
 ``DIRECT_GROUP_LIMIT``); K3 ``packed_fold_finalize`` folds two partial
 tables slot by slot and finalizes states; K6 ``sorted_group_agg``
-groups by an exact packed key too large for a direct table (the sort
-path) and merges partial states (``merge_aggregate``).  The sort path
-emits every group it sees, in packed-key order, whatever ``max_groups``
-says.  Hashed keys, min/max, variance, DISTINCT and FILTER are not
-ported and raise :class:`NotPorted`.
+groups by an exact packed key too large for a direct table, or by a
+key hashed by K9 when a key column has no exact domain (the sort
+path), and merges partial states (``merge_aggregate``, which hashes
+the partials' key columns again, so equal groups from different splits
+meet).  The sort path emits every group it sees, in key order (packed
+or hashed, as the reference's), whatever ``max_groups`` says.
+min/max, variance, DISTINCT and FILTER are not ported and raise
+:class:`NotPorted`.
 """
 
 from __future__ import annotations
@@ -293,15 +296,15 @@ def packed_direct_layout(group_exprs, key_domains, max_groups: int) -> bool:
 # host tables
 # ---------------------------------------------------------------------------
 
-# id(dict) -> (dict, rank list, inv list, has duplicate values); host
-# lists, turned into tensors on the device that asks
+# id(dict) -> (dict, rank list, inv list); host lists, turned into
+# tensors on the device that asks
 _COLLATION_CACHE: dict = {}
 
 
 def _collation_lists(d):
     cached = _COLLATION_CACHE.get(id(d))
     if cached is None:
-        values = d.values
+        values = list(d.values)
         order = sorted(range(len(values)), key=lambda i: values[i])
         rank = [0] * len(values)
         inv = [0] * len(values)
@@ -313,7 +316,7 @@ def _collation_lists(d):
                 prev = values[i]
                 inv[r] = i
             rank[i] = r
-        cached = (d, rank, inv, len(set(values)) < len(values))
+        cached = (d, rank, inv)
         _COLLATION_CACHE[id(d)] = cached
     return cached
 
@@ -321,7 +324,7 @@ def _collation_lists(d):
 def _collation_luts(d, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(code -> collation rank, rank -> representative code) LUTs: codes
     are assignment-ordered, so string order goes through ranks."""
-    _, rank, inv, _ = _collation_lists(d)
+    _, rank, inv = _collation_lists(d)
     return (torch.tensor(rank, dtype=torch.int32, device=device),
             torch.tensor(inv, dtype=torch.int32, device=device))
 
@@ -393,7 +396,7 @@ def grouped_aggregate(
     """Aggregate ``page`` by ``group_exprs``: the reference's global
     branch (no keys: one group), packed-direct branch (group id ==
     packed key, output capacity ``max_groups``) and sort path (one row
-    per group the page holds, in packed-key order, however many
+    per group the page holds, in key order, however many
     ``max_groups`` expects).  mode='single' emits finalized values,
     'partial' the state columns."""
     _check_ported(aggs, mode)
@@ -428,22 +431,9 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
         else:
             d, v = c.compile(agg.arg)(page)
             args.append((kind, d, v))
-    if any(d is not None and _collation_lists(d)[3]
-           for d in expr_key_dicts(page, group_exprs)):
-        raise NotPorted("grouping over a dictionary with duplicate values")
-    keys = []
-    for e, (lo, hi) in zip(group_exprs, key_domains or ()):
-        d, v = c.compile(e)(page)
-        keys.append((d, v, lo, hi - lo + 2))
-    return keys, args
+    from presto_tpu_torch.ops.join import key_columns
 
-
-def _exact_domains(key_domains, n_keys: int):
-    from presto_tpu_torch.ops.join import packed_domain_size
-
-    if key_domains is None or len(key_domains) != n_keys \
-            or packed_domain_size(key_domains) is None:
-        raise NotPorted("grouping keys without exact packed domains (hashed keys)")
+    return key_columns(page, group_exprs, key_domains), args
 
 
 def _states_out(groups: int, key_blocks, state_cols, per_agg, aggs, mode, agg_dicts,
@@ -460,9 +450,9 @@ def _states_out(groups: int, key_blocks, state_cols, per_agg, aggs, mode, agg_di
 
 
 def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
-    """The K6 inputs of a sort-path grouping: packed-key columns, the
-    flat state list, and how many states each aggregate has."""
-    _exact_domains(key_domains, len(group_exprs))
+    """The K6 inputs of a sort-path grouping: key columns (exact, or
+    hashed without exact domains), the flat state list, and how many
+    states each aggregate has."""
     keys, args = kernel_inputs(page, group_exprs, aggs, key_domains)
     states, per_agg = [], []
     for kind, data, valid in args:
@@ -504,15 +494,13 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     the flat state list (the reference's ``_merge_states`` for count,
     sum and avg: counts and sums add over live rows, a long sum only
     where its count is positive), and states per aggregate."""
+    from presto_tpu_torch.ops.join import key_tuples
+
     if num_keys == 0:
         raise NotPorted("merging global partial states")
-    _exact_domains(key_domains, num_keys)
-    key_blocks = partial.blocks[:num_keys]
-    if any(b.dictionary is not None and _collation_lists(b.dictionary)[3]
-           for b in key_blocks):
-        raise NotPorted("grouping over a dictionary with duplicate values")
-    keys = [(b.data, b.valid, int(lo), int(hi - lo + 2))
-            for b, (lo, hi) in zip(key_blocks, key_domains)]
+    key_blocks = partial.blocks[:num_keys]  # codes already canonical
+    keys = key_tuples([(b.data, b.valid) for b in key_blocks],
+                      [b.type for b in key_blocks], key_domains)
     live = partial.row_mask
     states, per_agg = [], []
     for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):

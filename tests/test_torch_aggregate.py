@@ -147,13 +147,77 @@ def test_unported_aggregates_raise(fn):
 
 
 def test_sort_path_grouping_raises():
-    """Keys without a known domain take the reference's hash branch,
-    which the port does not carry yet (the exact sort path it does)."""
-    _, port_page, _, port_aggs = _both(8)
+    """Once NotPorted: a key without a known domain takes the
+    reference's hash branch (K9) into the sort path; the groups come out
+    in hash order, equal to the reference's."""
+    ref_page, port_page, ref_aggs, port_aggs = _both(8)
+    ref_key = [ref_ir.ColumnRef(type=ref_type("bigint"), index=5)]
     key = [port_ir.ColumnRef(type=port_type("bigint"), index=5)]
-    with pytest.raises(NotPorted):
-        port_agg.grouped_aggregate(port_page, key, port_aggs, 1 << 16,
-                                   key_domains=[None], mode="partial")
+    ref = ref_agg.grouped_aggregate(ref_page, ref_key, ref_aggs, 1 << 16,
+                                    key_domains=[None], mode="partial")
+    got = port_agg.grouped_aggregate(port_page, key, port_aggs, 1 << 16,
+                                     key_domains=[None], mode="partial")
+    _live_rows_equal(got, ref)
+
+
+def test_hashed_keys_equal_pack_or_hash_keys():
+    """K9's plain version, position by position, against the
+    reference's hash branch: int64, int32 dictionary codes, dates and
+    booleans, with NULLs; and its masking (dead rows, NULL keys)."""
+    import torch
+
+    from presto_tpu_torch.kernels import keys as pk
+
+    rng = np.random.default_rng(30)
+    n = 4000
+    cols = [rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64),
+            rng.integers(0, 4096, n).astype(np.int32),
+            rng.integers(8000, 11000, n).astype(np.int32), rng.random(n) < 0.5]
+    valids = [rng.random(n) >= 0.1 for _ in cols]
+    mask = rng.random(n) >= 0.2
+    want, exact = ref_agg.pack_or_hash_keys([jnp.asarray(c) for c in cols],
+                                            [jnp.asarray(v) for v in valids], [None] * 4)
+    assert not exact
+    keys = [(torch.from_numpy(c), torch.from_numpy(v), 0, 0) for c, v in zip(cols, valids)]
+    got, ok = pk.pack_plain(keys, n, "cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() >= 0).all()
+    for sentinel in (False, True):
+        masked = pk.hash_keys(keys, torch.from_numpy(mask), null_as_sentinel=sentinel).numpy()
+        keep = mask & (ok.numpy() if sentinel else True)
+        np.testing.assert_array_equal(masked[keep], np.asarray(want)[keep])
+        assert (masked[~keep] == pk.I64_MAX).all()
+
+
+DUP_WORDS = ["b", "a", "b", "c", "a"]  # a dictionary that repeats values
+
+
+@pytest.mark.parametrize("mode", ["partial", "single"])
+def test_hashed_grouping_over_repeated_dictionary_values(mode):
+    """Two codes of one value group together (canonical codes, as the
+    reference's canonicalize_codes), in hash order with a bigint key
+    past the exact domain."""
+    rng = np.random.default_rng(31)
+    base = _page(31)
+    n = base.capacity
+    dup = RefBlock(jnp.asarray(rng.integers(0, len(DUP_WORDS), n).astype(np.int32)),
+                   jnp.asarray(rng.random(n) >= 0.05), ref_type("varchar"),
+                   RefDictionary(DUP_WORDS))
+    ref_page = RefPage(base.blocks + (dup,), base.row_mask)
+    ref_keys = [ref_ir.ColumnRef(type=ref_type("varchar"), index=6),
+                ref_ir.ColumnRef(type=ref_type("bigint"), index=5)]
+    keys = [port_ir.ColumnRef(type=port_type("varchar"), index=6),
+            port_ir.ColumnRef(type=port_type("bigint"), index=5)]
+    kd = [(0, 4), None]
+    ref_aggs, port_aggs = _aggs(ref_ir, ref_type, ref_agg), _aggs(port_ir, port_type, port_agg)
+    ref = ref_agg.grouped_aggregate(ref_page, ref_keys, ref_aggs, 4096, key_domains=kd,
+                                    mode=mode)
+    got = port_agg.grouped_aggregate(to_port(ref_page), keys, port_aggs, 4096,
+                                     key_domains=kd, mode=mode)
+    _live_rows_equal(got, ref)
+    live = np.asarray(ref.row_mask)
+    np.testing.assert_array_equal(got.blocks[0].data.numpy(),
+                                  np.asarray(ref.blocks[0].data)[live])  # canonical codes
 
 
 # -- the sort path (K6) ------------------------------------------------------
@@ -223,21 +287,54 @@ def test_sort_path_partial_emits_groups_past_max_groups():
 @pytest.mark.parametrize("huge", [False, True])
 def test_merge_aggregate(mode, huge):
     """Two splits' sort-path partials concatenated and merged."""
+    _merge(mode, huge, hashed=False)
+
+
+@pytest.mark.parametrize("mode", ["partial", "single"])
+@pytest.mark.parametrize("huge", [False, True])
+def test_hashed_merge_aggregate(mode, huge):
+    """As test_merge_aggregate with the first key without a domain: the
+    partials and the merge hash (K9), the merge hashing the partials'
+    key columns again, so equal groups from the two splits meet."""
+    _merge(mode, huge, hashed=True)
+
+
+def _merge(mode, huge, hashed):
     from presto_tpu.exec.local import concat_pages_device as ref_concat
     from presto_tpu_torch.page import concat_pages_device as port_concat
 
     ref_aggs, port_aggs = _aggs(ref_ir, ref_type, ref_agg), _aggs(port_ir, port_type, port_agg)
+    kd = [None] + SORT_DOMAINS[1:] if hashed else SORT_DOMAINS
     ref_parts, port_parts = [], []
     for seed in (11, 12):
         ref_page = _sort_page(seed, huge)
         ref_parts.append(ref_agg.grouped_aggregate(
             ref_page, _sort_keys(ref_ir, ref_type), ref_aggs, 4096,
-            key_domains=SORT_DOMAINS, mode="partial"))
+            key_domains=kd, mode="partial"))
         port_parts.append(port_agg.grouped_aggregate(
             to_port(ref_page), _sort_keys(port_ir, port_type), port_aggs, 4096,
-            key_domains=SORT_DOMAINS, mode="partial"))
+            key_domains=kd, mode="partial"))
     ref = ref_agg.merge_aggregate(ref_concat(ref_parts), 3, ref_aggs, 8192,
-                                  key_domains=SORT_DOMAINS, mode=mode)
+                                  key_domains=kd, mode=mode)
     got = port_agg.merge_aggregate(port_concat(port_parts), 3, port_aggs, 8192,
-                                   key_domains=SORT_DOMAINS, mode=mode)
+                                   key_domains=kd, mode=mode)
     _live_rows_equal(got, ref)
+
+
+@pytest.mark.parametrize("t, error", [("double", NotPorted), ("decimal(36,4)", ValueError)])
+def test_hashed_key_types_outside_the_port(t, error):
+    """A double key would hash truncated to int64 in the reference:
+    not ported. A long-decimal key raises in both packages."""
+    import torch
+
+    from presto_tpu_torch.page import Block, Page
+
+    n = 64
+    data = torch.zeros((n, 2), dtype=torch.int64) if t.startswith("decimal") else \
+        torch.linspace(0, 1, n, dtype=torch.float64)
+    page = Page((Block(data, torch.ones(n, dtype=torch.bool), port_type(t)),),
+                torch.ones(n, dtype=torch.bool))
+    aggs = _aggs(port_ir, port_type, port_agg, [("count_star", None)])
+    with pytest.raises(error):
+        port_agg.grouped_aggregate(page, [port_ir.ColumnRef(type=port_type(t), index=0)],
+                                   aggs, 1 << 16, key_domains=[None], mode="partial")

@@ -321,3 +321,137 @@ def test_join_query_expressions_bind_alike(q):
     port_exprs = _plan_exprs(PortRunner(sf=0.01, device="cpu").plan(QUERIES[q]))
     assert [repr(e) for e in port_exprs] == [repr(e) for e in ref_exprs]
     assert port_exprs
+
+
+# -- IN (K1's IN opcode and dictionary tables) ---------------------------------
+
+IN_COLUMNS = [("b", "bigint"), ("d", "decimal(12,2)"), ("s", "varchar"), ("k", "integer")]
+IN_WORDS = ["MAIL", "SHIP", "AIR", "AIR REG", "MAIL", "TRUCK"]  # MAIL twice
+
+
+def _in_page(seed: int, n: int = 4096) -> RefPage:
+    rng = np.random.default_rng(seed)
+    data = [rng.integers(-3, 20, n), rng.integers(0, 400, n),
+            rng.integers(0, len(IN_WORDS), n).astype(np.int32),
+            rng.integers(0, 60, n).astype(np.int32)]
+    cols = [RefBlock(jnp.asarray(x), jnp.ones(n, jnp.bool_), ref_type(t),
+                     RefDictionary(IN_WORDS) if t == "varchar" else None)
+            for x, (_, t) in zip(data, IN_COLUMNS)]
+    page = RefPage(tuple(cols), jnp.ones(n, jnp.bool_))
+    return with_nulls_and_dead_rows(page, rng, null_rate=0.15, dead_rate=0.1)
+
+
+def _in_expr(spec, ir, parse_type):
+    if spec[0] == "col":
+        idx = [c for c, _ in IN_COLUMNS].index(spec[1])
+        return ir.ColumnRef(type=parse_type(IN_COLUMNS[idx][1]), index=idx)
+    if spec[0] == "lit":
+        return ir.Literal(type=parse_type(spec[2]), value=spec[1])
+    _, fn, t, *args = spec
+    return ir.Call(type=parse_type(t), fn=fn,
+                   args=tuple(_in_expr(a, ir, parse_type) for a in args))
+
+
+IN_SPECS = {
+    "bigint": F("in", "boolean", C("b"), L(3, "bigint"), L(7, "bigint"), L(-1, "bigint"),
+                L(11, "bigint")),
+    "integer_q16": F("in", "boolean", C("k"), *[L(v, "bigint")
+                                                for v in (49, 14, 23, 45, 19, 3, 36, 9)]),
+    # raw data against each literal's value, no scale alignment
+    "short_decimal": F("in", "boolean", C("d"), L(150, "decimal(12,2)"),
+                       L(7, "decimal(12,2)"), L(399, "decimal(12,2)")),
+    "short_decimal_bigint_literal": F("in", "boolean", C("d"), L(5, "bigint")),
+    "varchar": F("in", "boolean", C("s"), L("MAIL", "varchar"), L("AIR REG", "varchar"),
+                 L("NOPE", "varchar")),
+    "not_in_varchar": F("not", "boolean", F("in", "boolean", C("s"), L("SHIP", "varchar"))),
+    "in_and_in": F("and", "boolean", F("in", "boolean", C("b"), L(1, "bigint"), L(2, "bigint")),
+                   F("in", "boolean", C("s"), L("TRUCK", "varchar"), L("AIR", "varchar"))),
+    "folded_literal_in": F("or", "boolean", F("in", "boolean", L(4, "bigint"), L(3, "bigint"),
+                                              L(5, "bigint")),
+                           F("eq", "boolean", C("b"), L(0, "bigint"))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(IN_SPECS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_in_parity(name, seed):
+    ref_page = _in_page(seed)
+    port_page = to_port(ref_page)
+    ref_e = _in_expr(IN_SPECS[name], ref_ir, ref_type)
+    port_e = _in_expr(IN_SPECS[name], port_ir, port_type)
+    ref = ref_compile.ExprCompiler.for_page(ref_page).compile(ref_e)(ref_page)
+    got = port_compile.ExprCompiler.for_page(port_page).compile(port_e)(port_page)
+    assert_same_lanes(ref, got, name)
+    d, v = got
+    assert (d & v).any() and (~d & v).any()
+    want = ref_compile.compile_filter(ref_e, ref_page)(ref_page)
+    mask = port_compile.compile_filter(port_e, port_page)(port_page)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(want))
+
+
+def test_in_lowers_to_one_opcode_over_a_literal_run():
+    from presto_tpu_torch.kernels import expr_eval as k1
+
+    page = to_port(_in_page(0, 16))
+    c = port_compile.ExprCompiler.for_page(page)
+    prog, _ = c.lower(_in_expr(IN_SPECS["in_and_in"], port_ir, port_type))
+    assert prog.ops == (k1.LOAD, k1.IN, k1.LOAD, k1.LUT, k1.AND)
+    first, count = prog.args[1] & 255, prog.args[1] >> k1.IN_COUNT_SHIFT
+    assert prog.consts[first:first + count] == (1, 2)
+    prog, _ = c.lower(_in_expr(IN_SPECS["folded_literal_in"], port_ir, port_type))
+    assert k1.IN not in prog.ops  # 4 IN (3, 5) folded on the host
+    with pytest.raises(NotPorted):
+        c.lower(_in_expr(F("in", "boolean", C("b"), C("k")), port_ir, port_type))
+
+
+@pytest.mark.parametrize("q", [12, 16, 19])
+def test_slice_filters_fit_the_kernel(q):
+    """The filters of Q12, Q16 and Q19 bind as the reference's and lower
+    within K1's limits; Q19's post-join predicate (three ORed branches
+    with six dictionary tables) is the largest."""
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.planner.plan import FilterNode
+
+    ref_exprs = _plan_exprs(RefRunner(sf=0.01).plan(QUERIES[q]))
+    plan = PortRunner(sf=0.01, device="cpu").plan(QUERIES[q])
+    assert [repr(e) for e in _plan_exprs(plan)] == [repr(e) for e in ref_exprs]
+    stack, sizes = [plan], []
+    while stack:
+        node = stack.pop()
+        if isinstance(node, FilterNode):
+            chans = node.source.channels
+            prog, _ = port_compile.ExprCompiler(
+                [ch.type for ch in chans], [ch.dictionary for ch in chans]).lower(
+                node.predicate)
+            sizes.append((len(prog.ops), len(prog.luts)))
+        stack.extend(node.sources)
+    assert sizes and all(n <= k1.MAX_INS and luts <= k1.MAX_LUTS for n, luts in sizes)
+    if q == 19:
+        assert max(sizes) == (56, 6)
+
+
+@pytest.mark.parametrize("words", [["MAIL", "SHIP", "AIR", "MAIL", "AIR REG", "SHIP"],
+                                   ["MAIL", "SHIP", "AIR"]])
+def test_key_canon_codes_equal_reference(words):
+    """A key over a dictionary that repeats a value runs K1's CANON
+    program; its codes equal the reference's canonicalize_codes at
+    every valid position.  A dictionary without repeats needs none."""
+    from presto_tpu.ops.aggregate import canonicalize_codes
+
+    rng = np.random.default_rng(31)
+    n = 4096
+    codes = rng.integers(0, len(words), n).astype(np.int32)
+    ref_page = RefPage((RefBlock(jnp.asarray(codes), jnp.ones(n, jnp.bool_), ref_type("varchar"),
+                                 RefDictionary(words)),), jnp.ones(n, jnp.bool_))
+    ref_page = with_nulls_and_dead_rows(ref_page, rng, null_rate=0.1, dead_rate=0.1)
+    ref_block = ref_page.blocks[0]
+    want = np.asarray(canonicalize_codes([ref_block.data], [ref_block.dictionary])[0])
+    page = to_port(ref_page)
+    c = port_compile.ExprCompiler.for_page(page)
+    key = port_ir.ColumnRef(type=port_type("varchar"), index=0)
+    assert (c.lower_key(key) is None) == (len(set(words)) == len(words))
+    data, valid = c.compile_key(key)(page)
+    live = np.asarray(ref_block.valid)
+    np.testing.assert_array_equal(valid.numpy(), live)
+    np.testing.assert_array_equal(data.numpy()[live], want[live])
+    assert len(set(data.numpy()[live].tolist())) == len(set(words))

@@ -1,6 +1,6 @@
 """presto_tpu_torch's CUDA kernels against their plain PyTorch versions
-on the card, and the Q6/Q1/Q14/Q3 slice on the card against the port's
-own CPU run.  Marked ``gpu``: each test skips without a CUDA device.  This file
+on the card, and the ported TPC-H queries on the card against the
+port's own CPU run.  Marked ``gpu``: each test skips without a CUDA device.  This file
 imports neither JAX nor the reference package, so it also runs where
 JAX is absent:
 
@@ -15,7 +15,9 @@ from presto_tpu_torch.expr import ir
 from presto_tpu_torch.expr.compile import ExprCompiler
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.kernels import join_build as k4
+from presto_tpu_torch.kernels import join_expand as k8
 from presto_tpu_torch.kernels import join_probe as k5
+from presto_tpu_torch.kernels import keys as pk
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
@@ -231,6 +233,7 @@ def test_join_build_kernel_matches_plain(dup):
     torch.cuda.synchronize()
     assert bool(got[3]) == (not dup) == bool(want[3])
     assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[4], want[4]) and got[4].tolist() == [1, 1]  # NULL key, live
     if not dup:  # a collision leaves which row wins a slot open
         assert torch.equal(got[1], want[1])
     for domain in (prod, None):
@@ -239,6 +242,7 @@ def test_join_build_kernel_matches_plain(dup):
         torch.cuda.synchronize()
         assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
         assert (g[2] is None and w[2] is None) or torch.equal(g[2], w[2])
+        assert torch.equal(g[3], w[3])
 
 
 @pytest.mark.parametrize("direct", [True, False])
@@ -246,7 +250,7 @@ def test_join_probe_kernel_matches_plain(direct):
     dev = _cuda()
     bkey, bmask = _join_keys(1 << 16, 4, dev, 1 << 18, False)
     prod = (1 << 18) + 2
-    sk, perm, starts = k4.join_build_sorted_plain([bkey], bmask, prod if direct else None)
+    sk, perm, starts, _ = k4.join_build_sorted_plain([bkey], bmask, prod if direct else None)
     rng = np.random.default_rng(5)
     n = 1 << 20
     pkey = (torch.from_numpy(rng.integers(-2, (1 << 18) + 3, n)).to(dev),
@@ -346,3 +350,145 @@ def test_cpu_runner_over_a_card_connector_equals_the_cpu_run(q):
     # every split the CPU runner reads is copied off the card first
     assert (runner("cuda", "cpu").execute(QUERIES[q]).rows
             == runner("cpu", "cpu").execute(QUERIES[q]).rows)
+
+
+def _skewed_build(dev, n=1 << 16, domain=1 << 12, seed=10):
+    """Build keys with repeats and one hot key (7) on a quarter of the
+    rows, NULL keys and dead rows."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, domain + 1, n)
+    keys[rng.random(n) < 0.25] = 7
+    valid = rng.random(n) >= 0.05
+    mask = rng.random(n) >= 0.05
+    return (torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev)), \
+        torch.from_numpy(mask).to(dev)
+
+
+def _probe_keys(dev, n, domain, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-2, domain + 3, n)
+    keys[rng.random(n) < 0.001] = 7
+    return (torch.from_numpy(keys).to(dev), torch.from_numpy(rng.random(n) >= 0.05).to(dev)), \
+        torch.from_numpy(rng.random(n) >= 0.05).to(dev)
+
+
+def _keys_for(col, mode, domain):
+    if mode == "hashed":
+        return [(col[0], col[1], 0, 0)]
+    return [(col[0], col[1], 1, domain + 1)]
+
+
+@pytest.mark.parametrize("mode", ["direct", "search", "hashed"])
+@pytest.mark.parametrize("null_aware", [False, True])
+@pytest.mark.parametrize("kind", [k5.LEFT, k5.SEMI, k5.ANTI, k5.MARK])
+def test_join_probe_kinds_kernel_matches_plain(kind, null_aware, mode):
+    dev = _cuda()
+    domain = 1 << 12
+    bcol, bmask = _skewed_build(dev, domain=domain)
+    bkeys = _keys_for(bcol, mode, domain)
+    sk, perm, starts, flags = k4.join_build_sorted(bkeys, bmask,
+                                                   domain + 2 if mode == "direct" else None)
+    pcol, pmask = _probe_keys(dev, 1 << 20, domain, 11)
+    pkeys = _keys_for(pcol, mode, domain)
+    cols = [(bcol[0], bcol[1]), (bmask, bcol[1])] if kind == k5.LEFT else []
+    args = (pkeys, pmask, sk, perm, starts, cols, kind, False, null_aware, flags)
+    got = k5.join_probe(*args)
+    want = k5.join_probe_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    # the build holds a NULL key: NOT IN keeps no row
+    assert (int(got[1].sum()) == 0) == (kind == k5.ANTI and null_aware)
+    for (gd, gv), (wd, wv) in zip(got[0], want[0]):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("mode", ["direct", "search", "hashed"])
+@pytest.mark.parametrize("kind", ["inner", "left", "full"])
+def test_join_expand_kernel_matches_plain(kind, mode):
+    dev = _cuda()
+    domain = 1 << 12
+    bcol, bmask = _skewed_build(dev, domain=domain)
+    bkeys = _keys_for(bcol, mode, domain)
+    sk, perm, starts, _ = k4.join_build_sorted(bkeys, bmask,
+                                               domain + 2 if mode == "direct" else None)
+    pcol, pmask = _probe_keys(dev, 1 << 16, domain, 12)
+    pkeys = _keys_for(pcol, mode, domain)
+    rng = np.random.default_rng(13)
+    probe_cols = [pcol, (torch.from_numpy(rng.integers(0, 9, (1 << 16, 2))).to(dev), pmask)]
+    build_cols = [bcol, (torch.from_numpy(rng.integers(0, 9, 1 << 16).astype(np.int32))
+                         .to(dev), bmask), (bmask, bcol[1])]
+    outs = []
+    for fn in (k8.join_expand, k8.join_expand_plain):
+        matched = torch.zeros(1 << 16, dtype=torch.bool, device=dev) if kind == "full" else None
+        outs.append(fn(pkeys, pmask, sk, perm, starts, probe_cols, build_cols,
+                       kind != "inner", False, matched) + (matched,))
+    torch.cuda.synchronize()
+    (gp, gb, gt, gm), (wp, wb, wt, wm) = outs
+    assert gt == wt > 4 * (1 << 16)  # the hot key expands past the probe's size
+    for (gd, gv), (wd, wv) in zip(gp + gb, wp + wb):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+    assert (gm is None and wm is None) or (torch.equal(gm, wm) and bool(gm.any()))
+
+
+def test_hash_keys_kernel_matches_plain():
+    dev = _cuda()
+    page = _page(1 << 20, 14, dev)
+    b = page.blocks
+    keys = [(b[2].data, b[2].valid, 0, 0), (b[4].data, b[4].valid, 0, 0),
+            (b[5].data, b[5].valid, 0, 0)]
+    for sentinel in (False, True):
+        pk.launches = 0
+        got = pk.hash_keys(keys, page.row_mask, sentinel)
+        want = pk.masked_plain(keys, page.row_mask, sentinel)[0]
+        torch.cuda.synchronize()
+        assert pk.launches == 1 and torch.equal(got, want)
+
+
+def test_expr_eval_in_and_canon_match_plain():
+    dev = _cuda()
+    page = _page(1 << 20, 15, dev)
+    rng = np.random.default_rng(15)
+    words = ["MAIL", "SHIP", "AIR", "MAIL", "AIR REG"]
+    codes = torch.from_numpy(rng.integers(0, len(words), 1 << 20).astype(np.int32)).to(dev)
+    blocks = page.blocks + (Block(codes, page.blocks[0].valid, parse_type("varchar"),
+                                  Dictionary(words)),)
+    page = Page(blocks, page.row_mask)
+    c = ExprCompiler.for_page(page)
+    exprs = [_call("in", "boolean", _col(4, "date"), *[_lit(v, "date") for v in
+                                                       range(8000, 11000, 97)]),
+             _call("in", "boolean", _col(6, "varchar"), _lit("MAIL", "varchar"),
+                   _lit("AIR REG", "varchar"))]
+    for e in exprs:
+        prog, cols = c.lower(e)
+        ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
+        for mask in (None, page.row_mask):
+            got = k1.expr_eval(prog, ins, 1 << 20, row_mask=mask)
+            want = k1.expr_eval_plain(prog, ins, 1 << 20, row_mask=mask)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)) if mask is None \
+                else torch.equal(got, want)
+    prog, cols = c.lower_key(_col(6, "varchar"))
+    ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
+    k1.launches = 0
+    canon = c.compile_key(_col(6, "varchar"))(page)
+    want = k1.expr_eval_plain(prog, ins, 1 << 20)
+    torch.cuda.synchronize()
+    assert k1.launches == 1
+    assert torch.equal(canon[0], want[0]) and torch.equal(canon[1], want[1])
+    assert set(canon[0].unique().tolist()) == {0, 1, 2, 4}  # the second MAIL maps to 0
+
+
+def test_join_slice_on_the_card_equals_the_cpu_run():
+    """TPC-H Q4, Q5, Q10, Q12, Q13, Q16, Q19 and Q20 at sf 0.01 on the
+    card, with K5's new kinds, K8 and K9 launched."""
+    _cuda()
+    from presto_tpu_torch.testing import LocalQueryRunner
+
+    gpu = LocalQueryRunner(sf=0.01, device="cuda")
+    cpu = LocalQueryRunner(sf=0.01, device="cpu")
+    for mod in (k5, k8, pk):
+        mod.launches = 0
+    for q in (4, 5, 10, 12, 13, 16, 19, 20):
+        got = gpu.execute(QUERIES[q]).rows
+        assert got == cpu.execute(QUERIES[q]).rows and got
+    assert k5.launches > 0 and k8.launches > 0 and pk.launches > 0

@@ -151,21 +151,138 @@ def test_null_keys_and_dead_rows_never_match():
     assert set(probe.blocks[0].data.numpy()[live].tolist()) <= built
 
 
+def _same_page(port, ref):
+    """Pages agree under the Page contract, however few rows are live."""
+    np.testing.assert_array_equal(port.row_mask.numpy(), np.asarray(ref.row_mask))
+    assert [str(b.type) for b in port.blocks] == [str(b.type) for b in ref.blocks]
+    assert port.to_pylist() == ref.to_pylist()
+
+
+def _build_case(seed: int, case: str) -> RefPage:
+    """A build with repeated keys: ``nulls`` keeps its NULL keys, ``no_nulls``
+    has none, ``empty`` has no live row."""
+    page = _build_page(seed, 3000, dup=True)
+    k = page.blocks[0]
+    if case == "no_nulls":
+        page = RefPage((RefBlock(k.data, jnp.ones_like(k.valid), k.type),) + page.blocks[1:],
+                       page.row_mask)
+    elif case == "empty":
+        page = RefPage(page.blocks, jnp.zeros_like(page.row_mask))
+    else:
+        assert not bool(np.asarray(k.valid)[np.asarray(page.row_mask)].all())
+    return page
+
+
 @pytest.mark.parametrize("kind", ["left", "semi", "anti"])
-def test_other_join_kinds_raise(kind):
-    port_b = port_join.build_join(to_port(_build_page(8, 100, dup=False)),
-                                  _key(port_ir, port_type), KD, unique=True)
-    with pytest.raises(NotPorted):
-        port_join.probe_join(port_b, to_port(_probe_page(9, 100)),
-                             _key(port_ir, port_type), KD, kind=kind)
+def test_other_join_kinds_raise(direct_table, kind):
+    """Once NotPorted, now each kind equals the reference's probe_join
+    on a sorted build with repeated keys (left takes the first match in
+    row order, as the stable sorts place it)."""
+    ref_page = _build_page(8, 3000, dup=True)
+    ref_b = ref_join.build_join(ref_page, _key(ref_ir, ref_type), KD)
+    port_b = port_join.build_join(to_port(ref_page), _key(port_ir, port_type), KD)
+    ref_probe = _probe_page(9)
+    ref_out = ref_join.probe_join(ref_b, ref_probe, _key(ref_ir, ref_type), KD, kind=kind)
+    port_out = port_join.probe_join(port_b, to_port(ref_probe), _key(port_ir, port_type), KD,
+                                    kind=kind)
+    _same_output(port_out, ref_out)
+
+
+@pytest.mark.parametrize("case", ["nulls", "no_nulls", "empty"])
+@pytest.mark.parametrize("null_aware", [False, True])
+@pytest.mark.parametrize("kind", ["left", "semi", "anti", "mark"])
+def test_probe_kinds_three_valued(direct_table, kind, null_aware, case):
+    """K5's filtering and outer kinds with NULL probe keys, against a
+    build that holds a NULL key, one that holds none, and an empty one;
+    null_aware gives IN / NOT IN their UNKNOWN.  A null-aware left join
+    raises: the reference drops the flag there, the port refuses it."""
+    ref_page = _build_case(20, case)
+    ref_b = ref_join.build_join(ref_page, _key(ref_ir, ref_type), KD)
+    port_b = port_join.build_join(to_port(ref_page), _key(port_ir, port_type), KD)
+    assert port_b.flags.tolist() == [int(ref_b.has_null_key), int(ref_b.nonempty)] == \
+        [int(case == "nulls"), int(case != "empty")]
+    ref_probe = _probe_page(21)
+    if kind == "left" and null_aware:
+        with pytest.raises(ValueError, match="null_aware"):
+            port_join.probe_join(port_b, to_port(ref_probe), _key(port_ir, port_type), KD,
+                                 kind=kind, null_aware=True)
+        return
+    ref_out = ref_join.probe_join(ref_b, ref_probe, _key(ref_ir, ref_type), KD, kind=kind,
+                                  null_aware=null_aware)
+    port_out = port_join.probe_join(port_b, to_port(ref_probe), _key(port_ir, port_type), KD,
+                                    kind=kind, null_aware=null_aware)
+    _same_page(port_out, ref_out)
+    if kind == "mark":  # the mark's NULLs (UNKNOWN) are compared bit for bit
+        np.testing.assert_array_equal(port_out.blocks[-1].valid.numpy(),
+                                      np.asarray(ref_out.blocks[-1].valid))
+
+
+def test_null_aware_refused_on_inner_join(direct_table):
+    """null_aware belongs to IN / NOT IN (semi, anti, mark); asked of a
+    join that gathers build columns it raises rather than being dropped
+    (the reference drops it)."""
+    port_b = port_join.build_join(to_port(_build_page(24, 300, dup=False)),
+                                  _key(port_ir, port_type), KD)
+    with pytest.raises(ValueError, match="null_aware"):
+        port_join.probe_join(port_b, to_port(_probe_page(25, 100)), _key(port_ir, port_type),
+                             KD, kind="inner", null_aware=True)
+
+
+@pytest.mark.parametrize("kind", ["inner", "semi", "anti"])
+def test_null_safe_build_and_probe(direct_table, kind):
+    """IS NOT DISTINCT FROM keys: NULL build keys stay live and match
+    NULL probe keys."""
+    ref_page = _build_page(22, 3000, dup=False)
+    ref_b = ref_join.build_join(ref_page, _key(ref_ir, ref_type), KD, null_safe=True)
+    port_b = port_join.build_join(to_port(ref_page), _key(port_ir, port_type), KD,
+                                  null_safe=True)
+    np.testing.assert_array_equal(port_b.starts.numpy(), np.asarray(ref_b.starts))
+    _live_prefix(ref_b, port_b)
+    ref_probe = _probe_page(23)
+    ref_out = ref_join.probe_join(ref_b, ref_probe, _key(ref_ir, ref_type), KD, kind=kind,
+                                  null_safe=True)
+    port_out = port_join.probe_join(port_b, to_port(ref_probe), _key(port_ir, port_type), KD,
+                                    kind=kind, null_safe=True)
+    _same_output(port_out, ref_out)
+    probe_nulls = ~to_port(ref_probe).blocks[0].valid.numpy()
+    if kind == "inner":
+        assert (port_out.row_mask.numpy() & probe_nulls).any()  # NULL met NULL
 
 
 def test_hashed_keys_and_expanding_probe_raise():
-    page = to_port(_build_page(10, 100, dup=False))
+    """Once NotPorted: keys without a domain now hash (K9) into a
+    sorted build without a starts table, probed by binary search, and
+    the expanding probe (K8) runs; both equal the reference.  Raw-string
+    keys still raise."""
+    ref_page = _build_page(10, 3000, dup=True)
+    ref_b = ref_join.build_join(ref_page, _key(ref_ir, ref_type), [None])
+    port_b = port_join.build_join(to_port(ref_page), _key(port_ir, port_type), [None])
+    assert port_b.starts is None and ref_b.starts is None
+    _live_prefix(ref_b, port_b)
+    ref_probe = _probe_page(11)
+    port_probe = to_port(ref_probe)
+    _same_output(port_join.probe_join(port_b, port_probe, _key(port_ir, port_type), [None]),
+                 ref_join.probe_join(ref_b, ref_probe, _key(ref_ir, ref_type), [None]))
+    ref_out, ref_total = ref_join.probe_expand(ref_b, ref_probe, _key(ref_ir, ref_type),
+                                               8192, [None])
+    port_out, port_total = port_join.probe_expand(port_b, port_probe,
+                                                  _key(port_ir, port_type), [None])
+    assert port_total == int(ref_total) > 100
+    assert port_out.to_pylist() == ref_out.to_pylist()
+    import torch
+    from presto_tpu_torch.page import Block, Page
+    from presto_tpu_torch.types import VarcharType
+
+    raw = VarcharType(8, raw=True)
+    n = 64
+    raw_page = Page((Block(torch.randint(97, 123, (n, 8), dtype=torch.uint8),
+                           torch.ones(n, dtype=torch.bool), raw),),
+                    torch.ones(n, dtype=torch.bool))
+    raw_key = [port_ir.ColumnRef(type=raw, index=0)]
     with pytest.raises(NotPorted):
-        port_join.build_join(page, _key(port_ir, port_type), [None])
+        port_join.build_join(raw_page, raw_key, [None])
     with pytest.raises(NotPorted):
-        port_join.probe_expand()
+        port_join.probe_join(port_b, raw_page, raw_key, [None])
 
 
 def test_direct_budget_and_domain_size_match_reference():

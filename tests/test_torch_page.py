@@ -51,3 +51,20 @@ def test_executor_glue_matches_reference():
     assert port_page.slice_page(pa, n).to_pylist() == ref_local.slice_page(a, n).to_pylist()
     np.testing.assert_array_equal(port_page._extent_live(pa.row_mask).numpy(),
                                   np.asarray(ref_local._extent_live(a.row_mask)))
+
+
+@pytest.mark.parametrize("key", ["c_phone", "s_phone", "c_address", "s_address", "p_name",
+                                 "c_name", "s_name", "o_clerk"])
+def test_lazy_dictionary_values_equal_reference(key):
+    """The generator's per-row-unique dictionaries format runs of codes
+    at once, whether walked whole, decoded or indexed; every value
+    equals the reference's."""
+    from presto_tpu.connectors.tpch import Tpch as RefTpch
+    from presto_tpu_torch.connectors.tpch import Tpch
+
+    port, ref = Tpch(sf=0.01)._dict(key), RefTpch(sf=0.01)._dict(key)
+    assert len(port) == len(ref) >= 10
+    assert list(port.values) == [ref.values[i] for i in range(len(ref))]
+    codes = np.asarray([[3, -1], [len(ref) - 1, len(ref)]], dtype=np.int32)
+    assert port.decode(codes).tolist() == ref.decode(codes).tolist()
+    assert port.values[5] == ref.values[5]

@@ -1,6 +1,7 @@
-"""The port's slice end to end: TPC-H Q6, Q1, Q14 and Q3 from SQL to
-rows on the CPU, equal to the JAX reference row for row, and no silent
-paths out of the slice."""
+"""The port's first two slices end to end: TPC-H Q6, Q1, Q14 and Q3
+from SQL to rows on the CPU, equal to the JAX reference row for row,
+and no silent paths out of the ported slices (the third slice's
+queries are in test_torch_tpch_joins.py)."""
 
 import ast
 import pathlib
@@ -58,26 +59,38 @@ def test_memory_connector_path_and_stats(runners):
 
 
 def test_query_outside_the_slice_raises(runners):
-    with pytest.raises(NotPorted):  # Q13: LEFT OUTER JOIN, an expanding probe
-        runners[1].execute(QUERIES[13])
+    with pytest.raises(NotPorted):  # Q2: min(), an aggregate of the next slice
+        runners[1].execute(QUERIES[2])
 
 
 @pytest.mark.parametrize("flag", ["null_safe_keys", "null_aware", "use_index"])
 def test_join_forms_outside_the_slice_raise(runners, flag):
-    """Q14's join with null-safe keys (INTERSECT/EXCEPT), null-aware keys
-    (NOT IN) or an index lookup is refused by the executor before any
-    build runs."""
+    """Q14's join with null-safe keys (INTERSECT/EXCEPT) or null-aware
+    keys (NOT IN), once refused, now runs and equals the reference
+    running the same join; an index lookup is still refused by the
+    executor before any build runs."""
     import dataclasses
 
+    from presto_tpu.planner.plan import JoinNode as RefJoinNode
     from presto_tpu_torch.planner.plan import JoinNode
 
-    port = runners[1]
+    ref, port = runners
     node = port.plan(QUERIES[14])
     while not isinstance(node, JoinNode):
         node = node.sources[0]
     assert port.execute(QUERIES[14]).rows  # the join as planned runs
-    with pytest.raises(NotPorted):
-        port.executor.run_to_page(dataclasses.replace(node, **{flag: True}))
+    changed = dataclasses.replace(node, **{flag: True})
+    if flag == "use_index":
+        with pytest.raises(NotPorted):
+            port.executor.run_to_page(changed)
+        return
+    ref_node = ref.plan(QUERIES[14])
+    while not isinstance(ref_node, RefJoinNode):
+        ref_node = ref_node.sources[0]
+    want = ref.executor.run_to_page(dataclasses.replace(ref_node, **{flag: True}))
+    got = port.executor.run_to_page(changed).to_pylist()
+    assert got == want.to_pylist()
+    assert len(got) > 100
 
 
 def test_non_query_statement_raises(runners):
