@@ -24,14 +24,22 @@ Phases (any failure exits non-zero before the result line):
    of every split's partials), K7 topn (Q3's top 10), K8 join_expand
    (Q13's left probe, the same as a FULL join with its matched mask,
    Q5's inner probe) and K9 hash_keys (Q10's seven keys over its first
-   split and over its merge, Q13's c_count);
-4. run TPC-H Q6, Q1, Q14, Q3, Q4, Q5, Q10, Q12, Q13, Q16, Q19 and Q20
-   (``tests/tpch_queries.py``) through ``QueryRunner.execute`` over a
-   ``MemoryConnector`` on the card; every kernel launch counter is set
-   to 0 just before each query and read just after it, and the run
-   fails unless each query launched the kernels of its path; the rows
-   must equal the same queries run by the port on the CPU over the
-   same generated data, exactly (Q14's double included);
+   split and over its merge, Q13's c_count); and the fourth slice's
+   opcodes, states and modes: K1's date part (Q7's year), short decimal
+   to double (Q17), long comparisons (Q11, Q15) and null test (Q21),
+   K6's min/max over Q21's first lineitem split and over its merge,
+   K2's long max and K3's fold and finalize of it (Q15), K6's presorted
+   mode (Q18's first lineitem split) and K7 at n = 100 (Q18);
+4. run all 22 TPC-H queries (``tests/tpch_queries.py``) through
+   ``QueryRunner.execute``, each over a ``MemoryConnector`` that holds
+   only the columns its SQL names (the tensors on the card are shared,
+   not copied); every kernel launch counter is set to 0 just before
+   each query and read just after it, and the run fails unless each
+   query launched the kernels of its path; the rows must equal the same
+   queries run by the port on the CPU over the same generated data,
+   exactly (doubles included); where Q11 or Q22 has no row at this
+   scale, its variant (Q11 with the spec's FRACTION of 0.0001 / SF, Q22
+   without its anti join) runs and is checked too;
 5. print per-query wall time, lineitem rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -56,18 +64,22 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SF = 10.0  # TPC-H scale factor: ~60M lineitem rows
 SPLIT_ROWS = 1 << 23  # rows per lineitem split, as bench.py uses on an accelerator
 REPS = 3  # timed repetitions per query after the counted run
-# the columns the twelve queries read
+# the columns the 22 queries read; lineitem's l_linenumber keeps its
+# declared order (l_orderkey, l_linenumber), which a connector keeps
+# only with both columns and Q18's streaming aggregation reads
 TABLES = {
-    "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity", "l_extendedprice",
-                 "l_discount", "l_tax", "l_returnflag", "l_linestatus", "l_shipdate",
-                 "l_commitdate", "l_receiptdate", "l_shipinstruct", "l_shipmode"],
-    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
-               "o_shippriority", "o_comment"],
+    "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
+                 "l_extendedprice", "l_discount", "l_tax", "l_returnflag", "l_linestatus",
+                 "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipinstruct",
+                 "l_shipmode"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice", "o_orderdate",
+               "o_orderpriority", "o_shippriority", "o_comment"],
     "customer": ["c_custkey", "c_name", "c_address", "c_nationkey", "c_phone", "c_acctbal",
                  "c_mktsegment", "c_comment"],
-    "part": ["p_partkey", "p_name", "p_brand", "p_type", "p_size", "p_container"],
-    "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty"],
-    "supplier": ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_comment"],
+    "part": ["p_partkey", "p_name", "p_mfgr", "p_brand", "p_type", "p_size", "p_container"],
+    "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty", "ps_supplycost"],
+    "supplier": ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_phone", "s_acctbal",
+                 "s_comment"],
     "nation": ["n_nationkey", "n_name", "n_regionkey"],
     "region": ["r_regionkey", "r_name"],
 }
@@ -84,10 +96,30 @@ def _tpch_queries() -> dict:
 
 SQL = _tpch_queries()
 Q6, Q1, Q14, Q3 = SQL[6], SQL[1], SQL[14], SQL[3]
-QUERIES = {f"q{q}": SQL[q] for q in (6, 1, 14, 3, 4, 5, 10, 12, 13, 16, 19, 20)}
+QUERIES = {f"q{q}": SQL[q] for q in (6, 1, 14, 3, 4, 5, 10, 12, 13, 16, 19, 20,
+                                      2, 7, 8, 9, 11, 15, 17, 18, 21, 22)}
+
+
+def empty_variants() -> dict:
+    """What runs where a query finds no row at ``SF``: Q11 with the
+    spec's FRACTION of 0.0001 / SF (the SQL's 0.0001 is SF 1's), Q22
+    without its anti join (the generator gives nearly every customer an
+    order)."""
+    fraction = f"{0.0001 / SF:.12f}".rstrip("0")
+    variants = {"q11": SQL[11].replace("* 0.0001", f"* {fraction}"),
+                "q22": SQL[22].replace(
+                    "and not exists (\n            select * from orders where o_custkey "
+                    "= c_custkey\n        )", "")}
+    for label, sql in variants.items():
+        if sql == QUERIES[label] and SF != 1:
+            raise AssertionError(f"{label}: the variant's text was not found")
+    return variants
 # the kernels each query's path must launch; "join_probe:<kind>" counts
 # K5 launches of one kind, "expr_eval:in" K1 launches of programs that
-# test IN
+# test IN, "expr_eval:<op>" those of programs holding a fourth-slice
+# opcode, "<kernel>:minmax" launches with a min/max state,
+# "sorted_group_agg:presorted" K6's presorted mode, "topn:n>32" K7
+# launches past 32 rows
 REQUIRED = {
     "q6": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
     "q1": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
@@ -109,6 +141,22 @@ REQUIRED = {
     "q19": ("expr_eval", "expr_eval:in", "join_build", "join_probe", "packed_group_agg",
             "packed_fold_finalize"),
     "q20": ("expr_eval", "join_build", "join_probe:semi", "sorted_group_agg"),
+    "q2": ("expr_eval", "join_build", "join_probe", "sorted_group_agg:minmax", "topn:n>32"),
+    "q7": ("expr_eval:year", "join_build", "join_probe", "sorted_group_agg", "hash_keys"),
+    "q8": ("expr_eval:year", "join_build", "join_probe", "sorted_group_agg"),
+    "q9": ("expr_eval:year", "join_build", "join_probe", "sorted_group_agg"),
+    "q11": ("expr_eval:lcmp", "join_build", "join_probe", "packed_group_agg",
+            "sorted_group_agg"),
+    "q15": ("expr_eval:lcmp", "join_build", "join_probe", "packed_group_agg:minmax",
+            "packed_fold_finalize", "sorted_group_agg"),
+    "q17": ("expr_eval:s2d", "join_build", "join_probe", "packed_group_agg",
+            "sorted_group_agg"),
+    "q18": ("expr_eval", "join_build", "join_probe:semi", "sorted_group_agg:presorted",
+            "hash_keys", "topn:n>32"),
+    "q21": ("expr_eval:not_null", "join_build", "join_probe", "sorted_group_agg:minmax",
+            "topn:n>32"),
+    "q22": ("expr_eval", "expr_eval:in", "join_build", "join_probe:anti", "packed_group_agg",
+            "sorted_group_agg"),
 }
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
@@ -219,9 +267,14 @@ def same(a, b, what: str) -> int:
 class KernelReport:
     def __init__(self):
         self.rows = {}
+        # row name -> the launch count it reports, where a row stands
+        # for one kind of launch (a K1 opcode, a K6 mode, ...)
+        self.counters = {}
 
     def add(self, name, route, source, max_abs_err, ms, plain_ms, bound_bytes,
-            library_ms=None):
+            library_ms=None, counter=None):
+        if counter is not None:
+            self.counters[name] = counter
         bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
         self.rows[name] = {
             "name": name, "route": route, "source": source, "replaces": REPLACES[
@@ -372,7 +425,7 @@ def first_split(ex, node):
 
 
 def k1_row(report: KernelReport, name: str, expr, page, filt: bool = False,
-           library=None, key: bool = False):
+           library=None, key: bool = False, counter=None):
     """K1 against its plain version on ``expr`` over ``page`` (as a
     filter with ``filt``, as a key's CANON program with ``key``);
     ``library`` times one PyTorch call beside it."""
@@ -388,20 +441,20 @@ def k1_row(report: KernelReport, name: str, expr, page, filt: bool = False,
                k1.expr_eval_plain(prog, ins, n, row_mask=mask), name)
     ms = cuda_ms(lambda: k1.expr_eval(prog, ins, n, row_mask=mask), 20)
     plain = cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n, row_mask=mask), 5)
-    out = n if filt else n * (1 + (8 if prog.out_kind >= k1.KIND_I64 else 4))
+    width = {k1.KIND_BOOL: 1, k1.KIND_I32: 4, k1.KIND_D128: 16}.get(prog.out_kind, 8)
+    out = n if filt else n * (1 + width)
     report.add(name, "cuda", "presto_tpu_torch/csrc/expr_eval.cu", err, ms, plain,
                nbytes(*[t for c in ins for t in c], mask) + out,
-               library(prog, ins) if library is not None else None)
+               library(prog, ins) if library is not None else None, counter)
     log(f"{name}: {len(prog.ops)} instructions, {len(prog.luts)} tables")
 
 
-def check_join_kernels(report: KernelReport, runner) -> None:
+def check_join_kernels(report: KernelReport, runners) -> None:
     """Phase 3, the joins' slice: K1's new opcodes, K4, K5, K6 and K7
     against their plain versions at Q14's and Q3's shapes."""
     from presto_tpu_torch.kernels import join_build as k4
     from presto_tpu_torch.kernels import join_probe as k5
     from presto_tpu_torch.kernels import keys as pk
-    from presto_tpu_torch.kernels import sorted_group_agg as k6
     from presto_tpu_torch.kernels import topn as k7
     from presto_tpu_torch.ops.aggregate import merge_aggregate, merge_inputs, sorted_inputs
     from presto_tpu_torch.ops.join import _direct_budget, key_columns, packed_domain_size
@@ -409,14 +462,15 @@ def check_join_kernels(report: KernelReport, runner) -> None:
     from presto_tpu_torch.page import concat_pages_device
     from presto_tpu_torch.planner.plan import AggregationNode, JoinNode, ProjectNode, TopNNode
 
-    ex = runner.executor
-    q14, q3 = runner.plan(Q14), runner.plan(Q3)
+    exs = {"q14": runners["q14"].executor, "q3": runners["q3"].executor}
+    q14, q3 = runners["q14"].plan(Q14), runners["q3"].plan(Q3)
     joins = {"q14": find(q14, JoinNode), "q3": find(q3, JoinNode)}
     src = "presto_tpu_torch/csrc/"
 
     # K4, unique-direct: Q14's build over part, Q3's over orders x customer
     builds = {}
     for label, join in joins.items():
+        ex = exs[label]
         page = ex.build_side(join)
         keys = key_columns(page, join.right_keys, join.key_domains)
         prod = packed_domain_size(join.key_domains)
@@ -439,6 +493,7 @@ def check_join_kernels(report: KernelReport, runner) -> None:
 
     # K4 on a broken promise: part's keys with one duplicate; the unique
     # branch reports it, the sorted branch (with its starts table) rebuilds
+    ex = exs["q14"]
     page = ex.build_side(joins["q14"])
     (d, v, lo, card), = key_columns(page, joins["q14"].right_keys, joins["q14"].key_domains)
     d = d.clone()
@@ -466,6 +521,7 @@ def check_join_kernels(report: KernelReport, runner) -> None:
     probes = {}
     for label, join in joins.items():
         build = builds[label]
+        ex = exs[label]
         probe = first_split(ex, join.left)
         keys = key_columns(probe, join.left_keys, join.key_domains)
         cols = [(b.data, b.valid) for b in build.page.blocks]
@@ -510,8 +566,9 @@ def check_join_kernels(report: KernelReport, runner) -> None:
             f"{int(got[1].sum())} matched")
     agg14 = find(q14, AggregationNode)
     k1_row(report, "expr_eval@q14_case_like", agg14.aggs[0].arg, probes["q14"])
-    out14 = ex._run_aggregation(agg14)
+    out14 = exs["q14"]._run_aggregation(agg14)
     k1_row(report, "expr_eval@q14_promo_div", find(q14, ProjectNode).projections[0], out14)
+    ex = exs["q3"]
     cust = first_split(ex, find(joins["q3"].right, JoinNode).right.source)
     k1_row(report, "expr_eval@q3_mktsegment", find(joins["q3"].right, JoinNode).right.predicate,
            cust, filt=True)
@@ -521,32 +578,16 @@ def check_join_kernels(report: KernelReport, runner) -> None:
     agg3 = find(q3, AggregationNode)
     page = probes["q3"]
     keys, states, _ = sorted_inputs(page, agg3.group_exprs, agg3.aggs, agg3.key_domains)
-    got = k6.sorted_group_agg(keys, page.row_mask, states)
-    err = same(got[:2], k6.sorted_group_agg_plain(keys, page.row_mask, states)[:2],
-               "sorted_group_agg partial")
-    ms = cuda_ms(lambda: k6.sorted_group_agg(keys, page.row_mask, states), 5)
-    plain = cuda_ms(lambda: k6.sorted_group_agg_plain(keys, page.row_mask, states), 2)
-    library = group_sum_library_ms(keys, page.row_mask, states)
-    in_bytes = nbytes(page.row_mask, *[t for k in keys for t in k[:2]],
-                      *[t for _, dd, vv in states for t in (dd, vv)])
-    report.add("sorted_group_agg", "cuda", src + "sorted_group_agg.cu", err, ms, plain,
-               in_bytes + nbytes(*[t for o in got[0] for t in o], *got[1]), library)
-    log(f"q3 partial of split 0: {got[2]} groups")
+    groups = k6_row(report, "sorted_group_agg", keys, page.row_mask, states,
+                    library=group_sum_library_ms(keys, page.row_mask, states))
+    log(f"q3 partial of split 0: {groups} groups")
     parts = list(ex._pages(ex.partial_node(agg3)))
     cat = concat_pages_device(parts)
     nk = len(agg3.group_exprs)
     keys, states, _ = merge_inputs(cat, nk, agg3.aggs, agg3.key_domains)
-    got = k6.sorted_group_agg(keys, cat.row_mask, states)
-    err = same(got[:2], k6.sorted_group_agg_plain(keys, cat.row_mask, states)[:2],
-               "sorted_group_agg merge")
-    ms = cuda_ms(lambda: k6.sorted_group_agg(keys, cat.row_mask, states), 5)
-    plain = cuda_ms(lambda: k6.sorted_group_agg_plain(keys, cat.row_mask, states), 2)
-    library = group_sum_library_ms(keys, cat.row_mask, states)
-    in_bytes = nbytes(cat.row_mask, *[t for k in keys for t in k[:2]],
-                      *[t for _, dd, vv in states for t in (dd, vv)])
-    report.add("sorted_group_agg@merge", "cuda", src + "sorted_group_agg.cu", err, ms,
-               plain, in_bytes + nbytes(*[t for o in got[0] for t in o], *got[1]), library)
-    log(f"q3 merge: {cat.capacity} partial rows from {len(parts)} splits, {got[2]} groups")
+    groups = k6_row(report, "sorted_group_agg@merge", keys, cat.row_mask, states,
+                    library=group_sum_library_ms(keys, cat.row_mask, states))
+    log(f"q3 merge: {cat.capacity} partial rows from {len(parts)} splits, {groups} groups")
     groups = merge_aggregate(cat, nk, agg3.aggs, agg3.max_groups,
                              key_domains=agg3.key_domains)
     top = find(q3, TopNNode)
@@ -558,7 +599,8 @@ def check_join_kernels(report: KernelReport, runner) -> None:
     report.add("topn", "cuda", src + "topn.cu", err, ms, plain,
                nbytes(groups.row_mask, *[t for k in keys for t in k[:2]]) + 4 * top.count + 4)
     log(f"q3 top {top.count} of {groups.capacity} groups")
-    ex._builds.clear()
+    for ex in exs.values():
+        ex._builds.clear()
 
 
 def find_all(node, cls) -> list:
@@ -609,7 +651,7 @@ def lookup_bytes(build, key, live) -> int:
     return sector_bytes(build.sorted_keys, pos)
 
 
-def check_slice_kernels(report: KernelReport, runner) -> None:
+def check_slice_kernels(report: KernelReport, runners) -> None:
     """Phase 3, the third slice: K1's IN, K4's sorted branch at full size,
     K5's left, semi, anti and mark kinds, K8 and K9, against their plain
     versions at the shapes of Q4, Q5, Q10, Q12, Q13, Q14, Q16 and Q19."""
@@ -624,16 +666,17 @@ def check_slice_kernels(report: KernelReport, runner) -> None:
     from presto_tpu_torch.page import concat_pages_device
     from presto_tpu_torch.planner.plan import AggregationNode, FilterNode, JoinNode
 
-    ex = runner.executor
     src = "presto_tpu_torch/csrc/"
-    plans = {q: runner.plan(QUERIES[q]) for q in ("q4", "q5", "q10", "q12", "q13", "q14",
-                                                  "q16", "q19")}
+    plans = {q: runners[q].plan(QUERIES[q]) for q in ("q4", "q5", "q10", "q12", "q13", "q14",
+                                                      "q16", "q19")}
+    exs = {q: runners[q].executor for q in plans}
 
     def tests_in(prog):
         return k1.IN in prog.ops or any(t.kind == "in" for t in prog.luts)
 
     # K1: the largest filter with IN of Q12, Q16 and Q19
     for label in ("q12", "q16", "q19"):
+        ex = exs[label]
         best = None
         for f in find_all(plans[label], FilterNode):
             page = first_split(ex, f.source)
@@ -650,6 +693,7 @@ def check_slice_kernels(report: KernelReport, runner) -> None:
     # (o_custkey, s_nationkey))
     joins = {"q4": find(plans["q4"], JoinNode), "q5": find(plans["q5"], JoinNode)}
     for label, join in joins.items():
+        ex = exs[label]
         if join.unique_build:
             raise AssertionError(f"{label}: expected a non-unique build")
         page = ex.build_side(join)
@@ -682,6 +726,7 @@ def check_slice_kernels(report: KernelReport, runner) -> None:
              ("q16_anti_null_aware", j16, k5.ANTI, j16.null_aware),
              ("q14_left", j14, k5.LEFT, False)]
     for label, join, kind, null_aware in cases:
+        ex = exs[label.split("_")[0]]
         build = ex._materialize_build(join)
         probe = first_split(ex, join.left)
         keys = key_columns(probe, join.left_keys, join.key_domains)
@@ -722,9 +767,11 @@ def check_slice_kernels(report: KernelReport, runner) -> None:
     # K8: Q13's left probe of customer against the filtered orders (and
     # the same as a FULL join, with its matched mask), Q5's inner probe
     j13 = next(j for j in find_all(plans["q13"], JoinNode) if j.kind == "left")
-    cases = [("join_expand", j13, True, False), ("join_expand@q13_full", j13, True, True),
-             ("join_expand@q5_inner", joins["q5"], False, False)]
-    for name, join, left, full in cases:
+    cases = [("join_expand", "q13", j13, True, False),
+             ("join_expand@q13_full", "q13", j13, True, True),
+             ("join_expand@q5_inner", "q5", joins["q5"], False, False)]
+    for name, label, join, left, full in cases:
+        ex = exs[label]
         build = ex._materialize_build(join)
         probe = first_split(ex, join.left)
         keys = key_columns(probe, join.left_keys, join.key_domains)
@@ -778,9 +825,10 @@ def check_slice_kernels(report: KernelReport, runner) -> None:
     # its partials, Q13's c_count over the 1.5M inner groups
     agg10 = find(plans["q10"], AggregationNode)
     agg13 = find(plans["q13"], AggregationNode)
-    page10 = first_split(ex, agg10.source)
-    parts = concat_pages_device(list(ex._pages(ex.partial_node(agg10))))
-    page13 = first_split(ex, agg13.source)
+    ex10, ex13 = exs["q10"], exs["q13"]
+    page10 = first_split(ex10, agg10.source)
+    parts = concat_pages_device(list(ex10._pages(ex10.partial_node(agg10))))
+    page13 = first_split(ex13, agg13.source)
     inputs = [("hash_keys", key_columns(page10, agg10.group_exprs, agg10.key_domains),
                page10.row_mask),
               ("hash_keys@q10_merge", merge_inputs(parts, len(agg10.group_exprs), agg10.aggs,
@@ -807,6 +855,201 @@ def check_slice_kernels(report: KernelReport, runner) -> None:
         report.add(name, "cuda", src + "keys.cu", err, ms, plain,
                    nbytes(mask, *[t for k in keys for t in k[:2]]) + 8 * mask.shape[0])
         log(f"{name}: {len(keys)} keys over {mask.shape[0]} rows, {int(mask.sum())} live")
+    for ex in exs.values():
+        ex._builds.clear()
+
+
+def calls_in(e) -> list:
+    """Every Call under expression ``e``."""
+    from presto_tpu_torch.expr.ir import Call
+
+    out, stack = [], [e]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, Call):
+            out.append(x)
+            stack.extend(x.args)
+    return out
+
+
+def find_call(plan, test):
+    """``(node, expr)``: the first filter predicate, projection or
+    aggregate argument under ``plan`` (preorder) holding a call that
+    ``test`` accepts."""
+    from presto_tpu_torch.planner.plan import AggregationNode, FilterNode, ProjectNode
+
+    for node in find_all(plan, (FilterNode, ProjectNode, AggregationNode)):
+        if isinstance(node, FilterNode):
+            exprs = [node.predicate]
+        elif isinstance(node, ProjectNode):
+            exprs = list(node.projections)
+        else:
+            exprs = [a.arg for a in node.aggs if a.arg is not None]
+        for e in exprs:
+            if any(test(c) for c in calls_in(e)):
+                return node, e
+    raise AssertionError("no such call in the plan")
+
+
+def minmax_library_ms(keys, row_mask, states) -> float:
+    """Device ms of one ``scatter_reduce_`` that takes the least of the
+    first min/max state's values per group, by a group id computed
+    beforehand over its valid live rows."""
+    from presto_tpu_torch.kernels import keys as pk
+
+    n = row_mask.shape[0]
+    key, _ = pk.pack_plain(keys, n, row_mask.device)
+    _, data, valid = states[0]
+    ok = row_mask & valid
+    _, gid = torch.unique(key[ok], return_inverse=True)
+    vals = data[ok].to(torch.int64)
+    table = torch.zeros(int(gid.max()) + 1, dtype=torch.int64, device=row_mask.device)
+    return cuda_ms(lambda: table.scatter_reduce_(0, gid, vals, "amin"), 10)
+
+
+def k6_row(report, name, keys, mask, states, presorted=False, library=None,
+           counter=None) -> int:
+    """K6 against its plain version; returns the group count."""
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+
+    got = k6.sorted_group_agg(keys, mask, states, presorted)
+    err = same(got[:2], k6.sorted_group_agg_plain(keys, mask, states, presorted)[:2], name)
+    ms = cuda_ms(lambda: k6.sorted_group_agg(keys, mask, states, presorted), 5)
+    plain = cuda_ms(lambda: k6.sorted_group_agg_plain(keys, mask, states, presorted), 2)
+    in_bytes = nbytes(mask, *[t for k in keys for t in k[:2]],
+                      *[t for _, dd, vv in states for t in (dd, vv)])
+    report.add(name, "cuda", "presto_tpu_torch/csrc/sorted_group_agg.cu", err, ms, plain,
+               in_bytes + nbytes(*[t for o in got[0] for t in o], *got[1]), library, counter)
+    return got[2]
+
+
+def check_aggregation_kernels(report: KernelReport, runners) -> None:
+    """Phase 3, the fourth slice: K1's DATEPART, S2D, long comparisons
+    and NOTNULL; min/max in K2, K3 and K6; K6's presorted mode; K7 at
+    n = 100; each against its plain version at the shapes of Q7, Q11,
+    Q15, Q17, Q18 and Q21."""
+    from presto_tpu_torch.expr.compile import _lane, LONG
+    from presto_tpu_torch.kernels import keys as pk
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+    from presto_tpu_torch.kernels import packed_group_agg as k2
+    from presto_tpu_torch.kernels import topn as k7
+    from presto_tpu_torch.ops.aggregate import (
+        _finalize_kind, kernel_inputs, merge_inputs, sorted_inputs,
+    )
+    from presto_tpu_torch.ops.sort import topn_keys
+    from presto_tpu_torch.page import concat_pages_device
+    from presto_tpu_torch.planner.plan import AggregationNode, TopNNode
+
+    src = "presto_tpu_torch/csrc/"
+    plans = {q: runners[q].plan(QUERIES[q]) for q in ("q7", "q11", "q15", "q17", "q18",
+                                                      "q21")}
+    exs = {q: runners[q].executor for q in plans}
+
+    def long_cmp(c):
+        return c.fn in ("eq", "ne", "lt", "le", "gt", "ge") and not c.args[0].type.is_string \
+            and LONG in (_lane(c.args[0].type), _lane(c.args[1].type))
+
+    # K1: each new opcode at the place its query runs it
+    cases = [("q7", "year", lambda c: c.fn == "year"),
+             ("q17", "s2d", lambda c: c.fn == "div" and c.type.name == "double"),
+             ("q11", "lcmp", long_cmp), ("q15", "lcmp", long_cmp),
+             ("q21", "not_null", lambda c: c.fn == "not_null")]
+    for label, op, test in cases:
+        node, e = find_call(plans[label], test)
+        ex = exs[label]
+        page = first_split(ex, node.source)
+        name = f"expr_eval@{label}_{op}"
+        k1_row(report, name, e, page, filt=type(node).__name__ == "FilterNode",
+               counter=f"expr_eval:{op}")
+        log(f"{name}: {type(node).__name__} over {page.capacity} rows, "
+            f"{int(page.row_mask.sum())} live")
+        ex._builds.clear()
+
+    # K6's min/max: Q21's grouping of all lineitem by l_orderkey, over
+    # its first split and over the merge of every split's partials
+    ex = exs["q21"]
+    agg21 = next(a for a in find_all(plans["q21"], AggregationNode)
+                 if {c.fn for c in a.aggs} == {"min", "max"})
+    page = first_split(ex, agg21.source)
+    keys, states, _ = sorted_inputs(page, agg21.group_exprs, agg21.aggs, agg21.key_domains)
+    groups = k6_row(report, "sorted_group_agg@q21_minmax", keys, page.row_mask, states,
+                    library=minmax_library_ms(keys, page.row_mask, states),
+                    counter="sorted_group_agg:minmax")
+    log(f"q21 min/max partial of split 0: {page.capacity} rows, {groups} groups")
+    parts = concat_pages_device(list(ex._pages(ex.partial_node(agg21))))
+    keys, states, _ = merge_inputs(parts, len(agg21.group_exprs), agg21.aggs,
+                                   agg21.key_domains)
+    groups = k6_row(report, "sorted_group_agg@q21_minmax_merge", keys, parts.row_mask,
+                    states, library=minmax_library_ms(keys, parts.row_mask, states),
+                    counter="sorted_group_agg:minmax")
+    log(f"q21 min/max merge: {parts.capacity} partial rows, {groups} groups")
+    ex._builds.clear()
+
+    # K6's presorted mode: Q18's grouping of lineitem by l_orderkey over
+    # its first split; beside it, torch.unique_consecutive of the live
+    # rows' packed keys (the run ids alone)
+    ex = exs["q18"]
+    agg18 = next(a for a in find_all(plans["q18"], AggregationNode) if a.presorted)
+    page = first_split(ex, agg18.source)
+    keys, states, _ = sorted_inputs(page, agg18.group_exprs, agg18.aggs, agg18.key_domains)
+    live_keys = pk.pack_plain(keys, page.capacity, page.device)[0][page.row_mask]
+    library = cuda_ms(lambda: torch.unique_consecutive(live_keys, return_inverse=True), 10)
+    groups = k6_row(report, "sorted_group_agg@q18_presorted", keys, page.row_mask, states,
+                    presorted=True, library=library, counter="sorted_group_agg:presorted")
+    log(f"q18 presorted partial of split 0: {page.capacity} rows, {groups} groups")
+
+    # K7 at n = 100: Q18's top 100 over its grouped rows
+    outer = find(plans["q18"], TopNNode)
+    groups_page = ex._run_aggregation(outer.source)
+    keys = topn_keys(groups_page, outer.sort_exprs, outer.ascending, outer.nulls_first)
+    got = k7.topn(keys, groups_page.row_mask, outer.count)
+    err = same(got, k7.topn_plain(keys, groups_page.row_mask, outer.count), "topn n=100")
+    ms = cuda_ms(lambda: k7.topn(keys, groups_page.row_mask, outer.count), 20)
+    plain = cuda_ms(lambda: k7.topn_plain(keys, groups_page.row_mask, outer.count), 5)
+    report.add("topn@q18_n100", "cuda", src + "topn.cu", err, ms, plain,
+               nbytes(groups_page.row_mask, *[t for k in keys for t in k[:2]])
+               + 4 * outer.count + 4, counter="topn:n>32")
+    log(f"q18 top {outer.count} of {groups_page.capacity} rows "
+        f"({int(groups_page.row_mask.sum())} live)")
+    ex._builds.clear()
+
+    # K2's long max and K3's fold and finalize of it: Q15's global max
+    # over the revenue of every supplier (the page halved for the fold)
+    ex = exs["q15"]
+    agg15 = next(a for a in find_all(plans["q15"], AggregationNode) if not a.group_exprs)
+    page = first_split(ex, agg15.source)
+    n = page.capacity
+    _, args = kernel_inputs(page, [], agg15.aggs, None)
+    got = k2.packed_group_agg(n, page.row_mask, [], args, 1)
+    err = same(got, k2.packed_group_agg_plain(n, page.row_mask, [], args, 1),
+               "packed_group_agg q15 max")
+    ms = cuda_ms(lambda: k2.packed_group_agg(n, page.row_mask, [], args, 1), 20)
+    plain = cuda_ms(lambda: k2.packed_group_agg_plain(n, page.row_mask, [], args, 1), 5)
+    report.add("packed_group_agg@q15_long_max", "cuda", src + "packed_group_agg.cu", err, ms,
+               plain, nbytes(page.row_mask, *[t for a in args for t in a[1:]])
+               + nbytes(*[t for st in got[0] for t in st], got[1]),
+               counter="packed_group_agg:minmax")
+    log(f"q15 global max over {n} rows ({int(page.row_mask.sum())} live)")
+    half = torch.arange(n, device=page.device) < n // 2
+    sides = [k2.packed_group_agg(n, page.row_mask & h, [], args, 1) for h in (half, ~half)]
+    kinds = [k3.COL_MAX_D128, k3.COL_I64]
+    ca, cb = ([(k, t, sd[1]) for k, t in zip(kinds, sd[0][0])] for sd in sides)
+    fold = k3.packed_fold(ca, cb, sides[0][1], sides[1][1])
+    err = same(fold, k3.packed_fold_plain(ca, cb, sides[0][1], sides[1][1]),
+               "packed_fold_finalize q15 max fold")
+    ms = cuda_ms(lambda: k3.packed_fold(ca, cb, sides[0][1], sides[1][1]), 100)
+    plain = cuda_ms(lambda: k3.packed_fold_plain(ca, cb, sides[0][1], sides[1][1]), 20)
+    report.add("packed_fold_finalize@q15_max_fold", "cuda", src + "packed_fold_finalize.cu",
+               err, ms, plain, nbytes(*[t for c in ca + cb for t in c[1:]],
+                                      *[t for o in fold[0] for t in o], fold[1]))
+    items = [(_finalize_kind(agg15.aggs[0]), got[0][0][0], got[0][0][1])]
+    err = same(k3.packed_finalize(items, got[1]), k3.packed_finalize_plain(items, got[1]),
+               "packed_fold_finalize q15 max finalize")
+    ms = cuda_ms(lambda: k3.packed_finalize(items, got[1]), 100)
+    plain = cuda_ms(lambda: k3.packed_finalize_plain(items, got[1]), 20)
+    report.add("packed_fold_finalize@q15_max_finalize", "cuda",
+               src + "packed_fold_finalize.cu", err, ms, plain,
+               nbytes(got[0][0][0], got[0][0][1], got[1]) + 2 * 16 + 1)
     ex._builds.clear()
 
 
@@ -850,12 +1093,22 @@ def counters():
             "join_expand": join_expand, "hash_keys": keys}
 
 
+# counters of one kind of launch: (kernel, attribute, name in the counts)
+SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
+              ("packed_group_agg", "minmax_launches", "packed_group_agg:minmax"),
+              ("sorted_group_agg", "minmax_launches", "sorted_group_agg:minmax"),
+              ("sorted_group_agg", "presorted_launches", "sorted_group_agg:presorted"),
+              ("topn", "wide_launches", "topn:n>32"))
+
+
 def reset_counts() -> None:
     mods = counters()
     for mod in mods.values():
         mod.launches = 0
     mods["join_probe"].kind_launches.clear()
-    mods["expr_eval"].in_launches = 0
+    mods["expr_eval"].op_launches.clear()
+    for kernel, attr, _ in SUB_COUNTS:
+        setattr(mods[kernel], attr, 0)
 
 
 def read_counts() -> dict:
@@ -863,8 +1116,41 @@ def read_counts() -> dict:
     out = {k: mod.launches for k, mod in mods.items()}
     for kind, n in mods["join_probe"].kind_launches.items():
         out[f"join_probe:{kind}"] = n
-    out["expr_eval:in"] = mods["expr_eval"].in_launches
+    for op, n in mods["expr_eval"].op_launches.items():
+        out[f"expr_eval:{op}"] = n
+    for kernel, attr, name in SUB_COUNTS:
+        out[name] = getattr(mods[kernel], attr)
     return out
+
+
+def streamed_tables(plan) -> set:
+    """The tables a presorted (streaming) aggregation of ``plan`` scans."""
+    from presto_tpu_torch.planner.plan import AggregationNode, TableScanNode
+
+    return {scan.handle.table for agg in find_all(plan, AggregationNode) if agg.presorted
+            for scan in find_all(agg, TableScanNode)}
+
+
+def query_catalog(conn, sql: str, ordered=()):
+    """A catalog over ``conn``'s tables pruned to the columns ``sql``
+    names (TPC-H's column names are unique words), plus the declared
+    sort order's columns of the ``ordered`` tables (those a streaming
+    aggregation reads): a MemoryConnector on ``conn``'s device whose
+    pages share ``conn``'s tensors."""
+    import re
+
+    from presto_tpu_torch.catalog import Catalog
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+
+    pruned = MemoryConnector(device=conn.device)
+    for table, columns in TABLES.items():
+        named = [c for c in columns if re.search(rf"\b{c}\b", sql)
+                 or (table in ordered and c in conn.sort_order(table))]
+        if named:
+            pruned.load_from(conn, table, columns=named)
+    catalog = Catalog()
+    catalog.register("tpch", pruned)
+    return catalog
 
 
 def main() -> int:
@@ -922,23 +1208,30 @@ def main() -> int:
     catalog = Catalog()
     catalog.register("tpch", mem)
     runner = QueryRunner(catalog, device="cuda")
+    # each query over the columns it names, on the same tensors
+    ordered = {label: streamed_tables(runner.plan(sql)) for label, sql in QUERIES.items()}
+    runners = {label: QueryRunner(query_catalog(mem, sql, ordered[label]), device="cuda")
+               for label, sql in QUERIES.items()}
+    variants = empty_variants()
 
     report = KernelReport()
     check_kernels(report, runner, mem)
-    check_join_kernels(report, runner)
-    check_slice_kernels(report, runner)
+    check_join_kernels(report, runners)
+    check_slice_kernels(report, runners)
+    check_aggregation_kernels(report, runners)
     torch.cuda.synchronize()
-    log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s")
+    log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # phase 4: the main path, each query counted on its own
-    for sql in QUERIES.values():
-        runner.execute(sql)  # plans and warms the allocator
+    for label, sql in QUERIES.items():
+        runners[label].execute(sql)  # plans and warms the allocator
     torch.cuda.synchronize()
     results, wall, launches = {}, {}, {}
     for label, sql in QUERIES.items():
         reset_counts()
         t0 = time.perf_counter()
-        results[label] = runner.execute(sql)
+        results[label] = runners[label].execute(sql)
         wall[label] = [time.perf_counter() - t0]
         launches[label] = read_counts()
         log(f"{label} launches: {launches[label]}")
@@ -946,36 +1239,46 @@ def main() -> int:
         if missing:
             raise AssertionError(f"{label}: kernels of its path not launched: {missing}")
     for row in report.rows.values():
-        kname = row["name"].split("@")[0]
+        kname = report.counters.get(row["name"], row["name"].split("@")[0])
         row["launches_by_query"] = {q: launches[q].get(kname, 0) for q in launches}
         row["launches"] = sum(row["launches_by_query"].values())
     for label, sql in QUERIES.items():
         for _ in range(REPS):
             t0 = time.perf_counter()
-            runner.execute(sql)
+            runners[label].execute(sql)
             wall[label].append(time.perf_counter() - t0)
 
     for label, sql in QUERIES.items():
-        log(f"{label} trace: {profile_query(runner, sql)}")
+        log(f"{label} trace: {profile_query(runners[label], sql)}")
 
-    # the same queries on the CPU over the same generated pages
-    cpu_catalog = Catalog()
-    cpu_catalog.register("tpch", host)
-    cpu_runner = QueryRunner(cpu_catalog, device="cpu")
+    # the same queries on the CPU over the same generated pages (each
+    # over its columns); a query's variant too where it finds no row
+    checks, may_be_empty = dict(QUERIES), set()
+    for label, sql in variants.items():
+        if not results[label].rows:
+            may_be_empty.add(label)
+            checks[f"{label}_variant"] = sql
+            results[f"{label}_variant"] = QueryRunner(
+                query_catalog(mem, sql), device="cuda").execute(sql)
+            log(f"{label} has no row at this scale: its variant runs too")
     t0 = time.perf_counter()
-    for label, sql in QUERIES.items():
-        ref = cpu_runner.execute(sql)
+    for label, sql in checks.items():
+        t1 = time.perf_counter()
+        ref = QueryRunner(query_catalog(host, sql, ordered.get(label, ())),
+                          device="cpu").execute(sql)
         if ref.rows != results[label].rows:
             raise AssertionError(f"{label}: card rows {results[label].rows} != "
                                  f"CPU rows {ref.rows}")
-        if not results[label].rows:
+        if not results[label].rows and label not in may_be_empty:
             raise AssertionError(f"{label}: no rows")
+        log(f"{label}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s on the CPU)")
     from presto_tpu_torch.planner.plan import TableScanNode
 
     for label, sql in QUERIES.items():
         med = statistics.median(wall[label])
-        scans = {n.handle.table for n in find_all(runner.plan(sql), TableScanNode)}
+        scans = {n.handle.table for n in find_all(runners[label].plan(sql), TableScanNode)}
         rate = (f", {lineitem_rows / med / 1e6:.1f} M lineitem rows/s"
                 if "lineitem" in scans else "")
         log(f"{label}: {results[label].rows}")

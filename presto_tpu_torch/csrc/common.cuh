@@ -28,6 +28,26 @@ __device__ __forceinline__ i64 fmod_(i64 a, i64 b) { return a - fdiv(a, b) * b; 
 #define B18 1000000000000000000LL
 #define B9 1000000000LL
 
+// How a raw accumulator slot combines values: summed (from 0), or the
+// least or greatest value (from the int64 extreme that no value
+// passes), by 64-bit atomics in shared or device memory.
+enum { SLOT_ADD = 0, SLOT_MIN = 1, SLOT_MAX = 2 };
+
+__device__ __forceinline__ i64 slot_identity(int kind) {
+  return kind == SLOT_MIN ? I64_MAX : kind == SLOT_MAX ? I64_MIN : 0;
+}
+
+__device__ __forceinline__ void slot_combine(u64* p, i64 v, int kind) {
+  if (kind == SLOT_MIN) atomicMin((long long*)p, (long long)v);
+  else if (kind == SLOT_MAX) atomicMax((long long*)p, (long long)v);
+  else if (v != 0) atomicAdd(p, (u64)v);  // adding zero changes nothing
+}
+
+// An int64 extreme stored into an int32 state: the int32 identity.
+__device__ __forceinline__ int narrow_extreme(i64 v) {
+  return v == I64_MAX ? 0x7fffffff : v == I64_MIN ? (int)0x80000000 : (int)v;
+}
+
 // Grid size for a grid-stride loop over n items: enough blocks to
 // fill every SM several times, never more than the items need.
 static inline int grid_for(i64 n, int threads, int per_sm) {

@@ -7,7 +7,11 @@
 // _compile_like/_compile_string_cmp; IN over literals, _compile_in;
 // CASE/IF, _compile_case; double
 // arithmetic over decimals with decimal128.mul_long_short and
-// to_double, _compile_arith) and presto_tpu/ops/filter_project.py
+// to_double, _compile_arith; the date parts year/month/day/quarter of
+// _compile_datepart with _civil_from_days; a short decimal to double,
+// _to_double; comparisons with a long-decimal operand, run_lcmp of
+// _compile_cmp with decimal128.rescale and compare; is_null and
+// not_null) and presto_tpu/ops/filter_project.py
 // filter_page/project_page, which XLA fused into one program per chain.
 //
 // Bound on the H100: memory.  Each row reads its input columns' data
@@ -35,8 +39,14 @@
 // long-decimal or double lane, adds a second limb per stack slot, so
 // the narrow programs pay nothing for it.  Double arithmetic uses the
 // _rn intrinsics, so the card rounds as the plain twin does, bit for
-// bit.  Simple first: the stack lives in local memory and loads are
-// not vectorised.
+// bit (S2D divides by 10^scale; it never multiplies by a reciprocal).
+// DATEPART runs the civil-calendar walk with floor division (fdiv), as
+// jnp's // does, so days before 1970 come out right; C++'s / would
+// truncate toward zero.  A long comparison brings both sides to two
+// limbs at the common scale (S2L, LSCALE in steps of at most 10^9 that
+// wrap as the reference's rescale does) and compares the high limb,
+// then the low one.  Simple first: the stack lives in local memory and
+// loads are not vectorised.
 
 #include "common.cuh"
 
@@ -51,7 +61,8 @@
 enum {
   OP_LOAD, OP_LIT, OP_NULL, OP_ADD, OP_SUB, OP_MUL, OP_SCALE_CHK, OP_SCALE,
   OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_BETWEEN, OP_AND, OP_OR, OP_NOT,
-  OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV, OP_IN, OP_CANON
+  OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV, OP_IN, OP_CANON,
+  OP_DATEPART, OP_S2D, OP_S2L, OP_LSCALE, OP_LCMP, OP_NOTNULL
 };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
 
@@ -93,6 +104,27 @@ __device__ __forceinline__ void d128_mul_long_short(i64 ah, i64 al, i64 k, i64* 
   d128_normalize(wadd(wmul(ah, k), lh), ll, oh, ol);
 }
 
+// decimal128.mul_small: lo in base-10^9 halves, every product wraps
+__device__ __forceinline__ void d128_mul_small(i64 ah, i64 al, i64 k, i64* oh, i64* ol) {
+  const i64 l1 = fdiv(al, B9), l0 = fmod_(al, B9);
+  const i64 p0 = wmul(l0, k), p1 = wmul(l1, k);
+  const i64 c1 = fdiv(p1, B9);
+  d128_normalize(wadd(wmul(ah, k), c1), wadd(wmul(wsub(p1, wmul(c1, B9)), B9), p0), oh, ol);
+}
+
+// _civil_from_days: epoch days -> year, month, day (floor division)
+__device__ __forceinline__ void civil_from_days(i64 z, i64* y, i64* m, i64* d) {
+  z += 719468;
+  const i64 era = fdiv(z >= 0 ? z : z - 146096, 146097);
+  const i64 doe = z - era * 146097;
+  const i64 yoe = fdiv(doe - fdiv(doe, 1460) + fdiv(doe, 36524) - fdiv(doe, 146096), 365);
+  const i64 doy = doe - (365 * yoe + fdiv(yoe, 4) - fdiv(yoe, 100));
+  const i64 mp = fdiv(5 * doy + 2, 153);
+  *d = doy - fdiv(153 * mp + 2, 5) + 1;
+  *m = mp < 10 ? mp + 3 : mp - 9;
+  *y = yoe + era * 400 + (*m <= 2 ? 1 : 0);
+}
+
 __device__ __forceinline__ double pow10d(int k) {
   double p = 1.0;
   for (int i = 0; i < k; ++i) p = __dmul_rn(p, 10.0);  // exact up to 10^22
@@ -119,7 +151,8 @@ __device__ __forceinline__ void logic3(bool is_and, i64 ad, bool av, i64 bd, boo
 // WIDE adds the second limb (sl) of a long-decimal lane; a double
 // lane keeps its bits in sd.
 template <bool WIDE>
-__device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d, bool* out_v) {
+__device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d, i64* out_l,
+                                            bool* out_v) {
   i64 sd[K1_MAX_STACK];
   i64 sl[WIDE ? K1_MAX_STACK : 1];
   bool sv[K1_MAX_STACK];
@@ -159,6 +192,16 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         else sd[sp - 1] = ((const int*)p.lut[arg])[c];
         break;
       }
+      case OP_DATEPART: {  // arg: 0 year, 1 month, 2 day, 3 quarter
+        i64 y, m, d;
+        civil_from_days(sd[sp - 1], &y, &m, &d);
+        sd[sp - 1] = arg == 0 ? y : arg == 1 ? m : arg == 2 ? d : fdiv(m - 1, 3) + 1;
+        break;
+      }
+      case OP_NOTNULL:  // arg: 0 not_null, 1 is_null; never NULL itself
+        sd[sp - 1] = arg ? !sv[sp - 1] : sv[sp - 1];
+        sv[sp - 1] = true;
+        break;
       case OP_IN: {
         const int first = arg & ((1 << K1_IN_COUNT_SHIFT) - 1);
         const int count = arg >> K1_IN_COUNT_SHIFT;
@@ -184,6 +227,33 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         logic3(true, xd >= ld, xv && lv, xd <= hd, xv && hv, &sd[sp - 1], &sv[sp - 1]);
         break;
       }
+      case OP_S2D:
+        if constexpr (WIDE)
+          sd[sp - 1] = d2bits(__ddiv_rn(__ll2double_rn(sd[sp - 1]), pow10d(arg)));
+        break;
+      case OP_S2L:  // decimal128.from_int64
+        if constexpr (WIDE) d128_normalize(0, sd[sp - 1], &sd[sp - 1], &sl[sp - 1]);
+        break;
+      case OP_LSCALE:  // decimal128.rescale up by 10^arg, steps of <= 10^9
+        if constexpr (WIDE) {
+          for (int k = arg; k > 0; k -= 9) {
+            i64 f = 1;
+            for (int j = 0; j < (k < 9 ? k : 9); ++j) f *= 10;
+            d128_mul_small(sd[sp - 1], sl[sp - 1], f, &sd[sp - 1], &sl[sp - 1]);
+          }
+        }
+        break;
+      case OP_LCMP:  // arg: 0 eq, 1 ne, 2 lt, 3 le, 4 gt, 5 ge
+        if constexpr (WIDE) {
+          const i64 ah = sd[sp - 2], al = sl[sp - 2], bh = sd[sp - 1], bl = sl[sp - 1];
+          const bool lt = ah < bh || (ah == bh && al < bl);
+          const bool eq = ah == bh && al == bl;
+          const bool r[6] = {eq, !eq, lt, lt || eq, !(lt || eq), !lt};
+          sv[sp - 2] = sv[sp - 2] && sv[sp - 1];
+          sd[sp - 2] = r[arg];
+          --sp;
+        }
+        break;
       case OP_LOAD_LONG:
       case OP_L2D:
         if constexpr (WIDE) {
@@ -249,6 +319,7 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
     }
   }
   *out_d = sd[0];
+  if constexpr (WIDE) *out_l = sl[0];
   *out_v = sv[0];
 }
 
@@ -262,14 +333,17 @@ __global__ void k1_kernel(const K1Prog p, i64 n, const uint8_t* __restrict__ row
       out_mask[i] = 0;  // a dead row stays dead: no need to evaluate
       continue;
     }
-    i64 d;
+    i64 d, l = 0;
     bool v;
-    run_program<WIDE>(p, i, &d, &v);
+    run_program<WIDE>(p, i, &d, &l, &v);
     if (out_mask != nullptr) {
       out_mask[i] = (d != 0) && v;
       continue;
     }
-    if (out_kind == KIND_I64 || out_kind == KIND_F64) ((i64*)out_data)[i] = d;
+    if (out_kind == KIND_D128) {  // a long decimal's two limbs
+      ((i64*)out_data)[2 * i] = d;
+      ((i64*)out_data)[2 * i + 1] = l;
+    } else if (out_kind == KIND_I64 || out_kind == KIND_F64) ((i64*)out_data)[i] = d;
     else if (out_kind == KIND_I32) ((int*)out_data)[i] = (int)d;
     else ((uint8_t*)out_data)[i] = d != 0;
     out_valid[i] = v;

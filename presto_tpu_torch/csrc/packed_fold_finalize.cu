@@ -3,8 +3,8 @@
 //
 // Replaces: presto_tpu/ops/aggregate.py combine_packed_states,
 // finalize_packed, and the parts of _finalize and _avg_decimal128
-// that count/sum/avg take (ops/decimal128.py add/normalize for the
-// limb states).
+// that count/sum/avg/min/max take (ops/decimal128.py add/normalize for
+// the limb states).
 //
 // Bound on the H100: launch latency.  A packed table has one slot per
 // group (TPC-H Q1: 12, Q6: 1); the bytes are a few hundred and the
@@ -14,7 +14,10 @@
 // Design: one thread per group slot walks the table's columns.  The
 // fold adds counts and int64 sums with two's-complement wrap (as the
 // reference's int64 lanes do) and limb sums with a carry
-// normalisation.  The finalize computes avg with HALF_UP rounding: a
+// normalisation; a min/max state takes the lesser or greater of the two
+// slots (a long decimal limb by limb, high limb first; an empty slot
+// holds the identity, so it never wins).  A min/max finalizes as its
+// state value, NULL where its count is 0.  The finalize computes avg with HALF_UP rounding: a
 // short decimal in int64 exactly as the reference's overflow-free
 // form; a limb decimal through one exact __int128 division, which
 // equals the reference's base-10^6 long division.  Empty groups and
@@ -27,10 +30,11 @@
 
 enum { MODE_FOLD = 0, MODE_FINALIZE = 1 };
 // fold column kinds: keep in step with kernels/packed_fold_finalize.py
-enum { COL_I64 = 0, COL_D128 = 1 };
+enum { COL_I64 = 0, COL_D128 = 1, COL_MIN_I64 = 2, COL_MAX_I64 = 3, COL_MIN_I32 = 4,
+       COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7 };
 // finalize kinds
 enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
-       FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5 };
+       FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6 };
 
 struct K3Desc {
   int n_items;
@@ -77,10 +81,24 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
   if (mode == MODE_FOLD) {
     mask_out[g] = mask_a[g] | mask_b[g];
     for (int c = 0; c < d.n_items; ++c) {
-      if (d.kind[c] == COL_D128) {
+      const int kind = d.kind[c];
+      if (kind == COL_D128) {
         const i64* a = d.in0[c] + 2 * g;
         const i64* b = d.in1[c] + 2 * g;
         normalize(wadd(a[0], b[0]), a[1] + b[1], d.out0[c] + 2 * g);
+      } else if (kind == COL_MIN_D128 || kind == COL_MAX_D128) {
+        const i64* a = d.in0[c] + 2 * g;
+        const i64* b = d.in1[c] + 2 * g;
+        const bool a_less = a[0] < b[0] || (a[0] == b[0] && a[1] < b[1]);
+        const i64* w = (kind == COL_MIN_D128) == a_less ? a : b;
+        d.out0[c][2 * g] = w[0];
+        d.out0[c][2 * g + 1] = w[1];
+      } else if (kind == COL_MIN_I32 || kind == COL_MAX_I32) {
+        const int a = ((const int*)d.in0[c])[g], b = ((const int*)d.in1[c])[g];
+        ((int*)d.out0[c])[g] = kind == COL_MIN_I32 ? min(a, b) : max(a, b);
+      } else if (kind == COL_MIN_I64 || kind == COL_MAX_I64) {
+        const i64 a = d.in0[c][g], b = d.in1[c][g];
+        d.out0[c][g] = kind == COL_MIN_I64 ? (a < b ? a : b) : (a > b ? a : b);
       } else {
         d.out0[c][g] = wadd(d.in0[c][g], d.in1[c][g]);
       }
@@ -100,7 +118,8 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
     d.out1[c][g] = live && cnt > 0;
     const i64 n = cnt > 1 ? cnt : 1;
     switch (kind) {
-      case FIN_SUM: d.out0[c][g] = d.in0[c][g]; break;
+      case FIN_SUM: d.out0[c][g] = d.in0[c][g]; break;  // also a min/max
+      case FIN_VALUE_I32: ((int*)d.out0[c])[g] = ((const int*)d.in0[c])[g]; break;
       case FIN_SUM_D128:
         d.out0[c][2 * g] = d.in0[c][2 * g];
         d.out0[c][2 * g + 1] = d.in0[c][2 * g + 1];

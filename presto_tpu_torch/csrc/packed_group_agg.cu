@@ -5,7 +5,8 @@
 // (exact mixed-radix branch), grouped_aggregate's global and
 // packed-direct branches with _partial_states/_seg_sum, and the
 // decimal128 limb sums (ops/decimal128.py from_int64, to_sum_limbs,
-// from_sum_limbs) that XLA lowered to segment sums.
+// from_sum_limbs) that XLA lowered to segment sums, and the min/max
+// states (_seg_min/_seg_max, and _minmax_long for long decimals).
 //
 // Bound on the H100: memory.  Each row's key codes, argument values,
 // their validity and the row mask are read once; the state table is a
@@ -23,6 +24,15 @@
 // kernel adds straight into the global table.  A second small kernel
 // turns the raw table into the reference's partial-state columns
 // (limbs normalised to two base-10^18 limbs, the `present` flags).
+// min/max keep the extreme in a slot that starts at the int64 extreme
+// no value passes and combines by 64-bit atomicMin/atomicMax, beside
+// a count of non-null rows; an empty group keeps the identity, as the
+// reference's segment_min/segment_max leave it (narrowed to int32's
+// for an int32 state).  A long decimal is ordered limb by limb, high
+// limb first (canonical limbs order as their values do), so it takes
+// the reference's phased walk: a first launch reduces the high limb,
+// a second one reduces the low limb over the rows whose high limb
+// ties the group's final one.
 // Simple first: contended shared atomics on a few groups (TPC-H Q1)
 // are the known cost; warp-private tables are a later step.
 
@@ -30,11 +40,26 @@
 
 #define K2_MAX_KEYS 8
 #define K2_MAX_AGGS 32
+#define K2_MAX_SLOTS (1 + 5 * K2_MAX_AGGS)
 #define K2_SHARED_LIMIT (48 * 1024)
 
 // aggregate kinds: keep in step with kernels/packed_group_agg.py
-enum { AGG_COUNT_STAR = 0, AGG_COUNT = 1, AGG_SUM_SHORT = 2, AGG_SUM_LONG = 3 };
-enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2 };
+enum { AGG_COUNT_STAR = 0, AGG_COUNT = 1, AGG_SUM_SHORT = 2, AGG_SUM_LONG = 3,
+       AGG_MIN_SHORT = 4, AGG_MAX_SHORT = 5, AGG_MIN_LONG = 6, AGG_MAX_LONG = 7 };
+enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3 };
+
+__host__ __device__ __forceinline__ int agg_width(int kind) {
+  switch (kind) {
+    case AGG_SUM_LONG: return 5;
+    case AGG_MIN_LONG: case AGG_MAX_LONG: return 3;
+    case AGG_SUM_SHORT: case AGG_MIN_SHORT: case AGG_MAX_SHORT: return 2;
+    default: return 1;
+  }
+}
+
+__host__ __device__ __forceinline__ bool is_long_extreme(int kind) {
+  return kind == AGG_MIN_LONG || kind == AGG_MAX_LONG;
+}
 
 struct K2Desc {
   int n_keys;
@@ -50,8 +75,9 @@ struct K2Desc {
   const uint8_t* arg_valid[K2_MAX_AGGS];
   int arg_kind[K2_MAX_AGGS];
   i64* out0[K2_MAX_AGGS];  // count, or sum ((G,) or (G, 2) limbs)
-  i64* out1[K2_MAX_AGGS];  // count of a sum
+  i64* out1[K2_MAX_AGGS];  // count of a sum or a min/max
   int raw_width;           // raw slots per group; slot 0 counts live rows
+  uint8_t slot_kind[K2_MAX_SLOTS];  // SLOT_ADD, SLOT_MIN or SLOT_MAX
 };
 
 __device__ __forceinline__ i64 load_int(const void* p, int kind, i64 i) {
@@ -64,8 +90,11 @@ __device__ __forceinline__ void add_slot(u64* tab, i64 v) {
   if (v != 0) atomicAdd(tab, (u64)v);  // adding zero changes nothing
 }
 
+// phase 0: every state but the low limb of a long min/max; phase 1
+// (tab is the device table): that low limb, over the rows whose high
+// limb equals the group's reduced one
 __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_groups,
-                                               u64* tab) {
+                                               u64* tab, int phase) {
   i64 key = 0;
   for (int k = 0; k < d.n_keys; ++k) {
     const i64 code = d.key_valid[k][i]
@@ -74,6 +103,16 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
   }
   if (key < 0 || key >= n_groups) return;  // out-of-domain ids are dropped
   u64* base = tab + key * d.raw_width;
+  if (phase == 1) {
+    for (int a = 0; a < d.n_aggs; ++a) {
+      const int kind = d.agg_kind[a];
+      if (!is_long_extreme(kind) || !d.arg_valid[a][i]) continue;
+      const i64* x = (const i64*)d.arg_data[a] + 2 * i;
+      u64* s = base + d.agg_slot[a];
+      if (x[0] == (i64)*s) slot_combine(s + 1, x[1], kind == AGG_MIN_LONG ? SLOT_MIN : SLOT_MAX);
+    }
+    return;
+  }
   atomicAdd(base, 1ull);
   for (int a = 0; a < d.n_aggs; ++a) {
     u64* s = base + d.agg_slot[a];
@@ -81,7 +120,18 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
     if (kind == AGG_COUNT_STAR) { atomicAdd(s, 1ull); continue; }
     if (!d.arg_valid[a][i]) continue;
     if (kind == AGG_COUNT) { atomicAdd(s, 1ull); continue; }
+    if (is_long_extreme(kind)) {  // the high limb; phase 1 takes the low one
+      slot_combine(s, ((const i64*)d.arg_data[a])[2 * i],
+                   kind == AGG_MIN_LONG ? SLOT_MIN : SLOT_MAX);
+      atomicAdd(s + 2, 1ull);
+      continue;
+    }
     const i64 x = load_int(d.arg_data[a], d.arg_kind[a], i);
+    if (kind == AGG_MIN_SHORT || kind == AGG_MAX_SHORT) {
+      slot_combine(s, x, kind == AGG_MIN_SHORT ? SLOT_MIN : SLOT_MAX);
+      atomicAdd(s + 1, 1ull);
+      continue;
+    }
     if (kind == AGG_SUM_SHORT) {
       add_slot(s, x);
       atomicAdd(s + 1, 1ull);
@@ -98,24 +148,32 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
   }
 }
 
+__global__ void k2_init(const K2Desc d, i64 slots, i64* __restrict__ raw) {
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 j = (i64)blockIdx.x * blockDim.x + threadIdx.x; j < slots; j += stride)
+    raw[j] = slot_identity(d.slot_kind[j % d.raw_width]);
+}
+
 __global__ void k2_accumulate(const K2Desc d, i64 n, const uint8_t* __restrict__ row_mask,
-                              i64 n_groups, u64* __restrict__ raw, int use_shared) {
+                              i64 n_groups, u64* __restrict__ raw, int use_shared, int phase) {
   extern __shared__ u64 smem[];
   const i64 slots = n_groups * d.raw_width;
   u64* tab = raw;
   if (use_shared) {
-    for (i64 j = threadIdx.x; j < slots; j += blockDim.x) smem[j] = 0;
+    for (i64 j = threadIdx.x; j < slots; j += blockDim.x)
+      smem[j] = (u64)slot_identity(d.slot_kind[j % d.raw_width]);
     __syncthreads();
     tab = smem;
   }
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (row_mask[i]) accumulate_row(d, i, n_groups, tab);
+    if (row_mask[i]) accumulate_row(d, i, n_groups, tab, phase);
   }
   if (use_shared) {
     __syncthreads();
     for (i64 j = threadIdx.x; j < slots; j += blockDim.x) {
-      if (smem[j] != 0) atomicAdd(raw + j, smem[j]);
+      const int kind = d.slot_kind[j % d.raw_width];
+      if ((i64)smem[j] != slot_identity(kind)) slot_combine(raw + j, (i64)smem[j], kind);
     }
   }
 }
@@ -131,6 +189,16 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
     switch (d.agg_kind[a]) {
       case AGG_COUNT_STAR: case AGG_COUNT: d.out0[a][g] = s[0]; break;
       case AGG_SUM_SHORT: d.out0[a][g] = s[0]; d.out1[a][g] = s[1]; break;
+      case AGG_MIN_SHORT: case AGG_MAX_SHORT:
+        if (d.arg_kind[a] == KIND_I32) ((int*)d.out0[a])[g] = narrow_extreme(s[0]);
+        else d.out0[a][g] = s[0];
+        d.out1[a][g] = s[1];
+        break;
+      case AGG_MIN_LONG: case AGG_MAX_LONG:
+        d.out0[a][2 * g] = s[0];
+        d.out0[a][2 * g + 1] = s[1];
+        d.out1[a][g] = s[2];
+        break;
       default: {  // AGG_SUM_LONG: from_sum_limbs, then normalize
         i64 h1 = s[0], h0 = s[1], l1 = s[2], l0 = s[3];
         i64 c = fdiv(l0, B9);
@@ -155,9 +223,10 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
   }
 }
 
-// raw: zeroed int64 scratch of n_groups * raw_width.  out0/out1: the
-// output columns per aggregate (out1 only for sums).  present: (G,)
-// bool.  Returns cudaGetLastError() after the launches.
+// raw: int64 scratch of n_groups * raw_width.  out0/out1: the output
+// columns per aggregate (out1 only for sums and min/max; out0 of a
+// min/max has the argument's storage).  present: (G,) bool.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
                                    int n_keys, const i64* key_data, const i64* key_valid,
                                    const int* key_kind, const i64* key_lo, const i64* key_card,
@@ -179,10 +248,19 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   }
   d.n_aggs = n_aggs;
   int slot = 1;
+  bool phased = false;
+  d.slot_kind[0] = SLOT_ADD;
   for (int a = 0; a < n_aggs; ++a) {
-    d.agg_kind[a] = agg_kind[a];
+    const int kind = agg_kind[a];
+    if (kind < AGG_COUNT_STAR || kind > AGG_MAX_LONG) return (int)cudaErrorInvalidValue;
+    d.agg_kind[a] = kind;
     d.agg_slot[a] = slot;
-    slot += agg_kind[a] == AGG_SUM_LONG ? 5 : agg_kind[a] == AGG_SUM_SHORT ? 2 : 1;
+    for (int j = 0; j < agg_width(kind); ++j) d.slot_kind[slot + j] = SLOT_ADD;
+    if (kind == AGG_MIN_SHORT || kind == AGG_MIN_LONG) d.slot_kind[slot] = SLOT_MIN;
+    if (kind == AGG_MAX_SHORT || kind == AGG_MAX_LONG) d.slot_kind[slot] = SLOT_MAX;
+    if (is_long_extreme(kind)) d.slot_kind[slot + 1] = d.slot_kind[slot];
+    phased = phased || is_long_extreme(kind);
+    slot += agg_width(kind);
     d.arg_data[a] = (const void*)arg_data[a];
     d.arg_valid[a] = (const uint8_t*)arg_valid[a];
     d.arg_kind[a] = arg_kind[a];
@@ -195,9 +273,14 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   const int threads = 256;
   const i64 smem = n_groups * (i64)raw_width * 8;
   const int use_shared = smem <= K2_SHARED_LIMIT;
+  k2_init<<<grid_for(n_groups * raw_width, threads, 4), threads, 0, s>>>(
+      d, n_groups * raw_width, (i64*)raw);
   if (n > 0) {
     k2_accumulate<<<grid_for(n, threads, 4), threads, use_shared ? (size_t)smem : 0, s>>>(
-        d, n, (const uint8_t*)row_mask, n_groups, (u64*)raw, use_shared);
+        d, n, (const uint8_t*)row_mask, n_groups, (u64*)raw, use_shared, 0);
+    if (phased)
+      k2_accumulate<<<grid_for(n, threads, 4), threads, 0, s>>>(
+          d, n, (const uint8_t*)row_mask, n_groups, (u64*)raw, 0, 1);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }

@@ -16,17 +16,20 @@
 // last) and the value's lanes (a long decimal's two limbs, high limb
 // first; descending keys reverse the comparison); then the row
 // position, which is how the stable sorts break ties.  Each thread
-// keeps its n best rows sorted in a local list (insertion); a block
-// merges its threads' lists pairwise in shared memory (log2 steps) and
-// writes its n best; a second launch of one block merges the blocks'
-// lists the same way.  n is at most K7_MAX_N (kernels/topn.py raises
-// NotPorted above it).
+// keeps its n best rows sorted in a list of row ids in shared memory
+// (insertion); a block merges its threads' lists pairwise in shared
+// memory (log2 steps) and writes its n best; a second launch of one
+// block merges the blocks' lists the same way.  n is at most K7_MAX_N
+// = 100 (TPC-H's LIMIT 100; kernels/topn.py raises NotPorted above
+// it): 64 threads a block keep 64 lists of 100 int32 row ids, 25 KB,
+// inside the 48 KB of static shared memory (128 threads would need
+// 51 KB).  A merge step's output list lives in local memory.
 
 #include "common.cuh"
 
-#define K7_MAX_N 32
+#define K7_MAX_N 100
 #define K7_MAX_KEYS 8
-#define K7_THREADS 128
+#define K7_THREADS 64
 
 enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3 };
 

@@ -15,9 +15,10 @@ slot (K3) or merges the sort-path partials once (K6) and finalizes
 
 Ported: table scans, filters, projections, every join kind (inner,
 left, full, semi, anti, mark; null-safe and null-aware keys) except
-index joins, ORDER BY, top-N, and global, packed-direct or sort-path
-aggregation over exact or hashed keys.  Other plan nodes raise
-:class:`NotPorted`.  PyTorch runs eagerly, so there are no
+index joins, the cross join with a one-row relation (a scalar
+subquery, broadcast on the device), ORDER BY, top-N, and global,
+packed-direct, sort-path or streaming (presorted) aggregation over
+exact or hashed keys.  Other plan nodes raise :class:`NotPorted`.  PyTorch runs eagerly, so there are no
 compiled-program caches and no capacity buckets: the sort path and the
 expanding probe size their outputs from the count they find, so
 nothing is dropped and no capacity retry is needed.
@@ -43,9 +44,10 @@ from presto_tpu_torch.ops.join import (
     JoinBuild, build_join, outer_build_tail, probe_expand, probe_join,
 )
 from presto_tpu_torch.ops.sort import sort_page, topn_page
-from presto_tpu_torch.page import Page, concat_pages_device, pad_page_to
+from presto_tpu_torch.page import Page, concat_pages_device, cross_append_single, pad_page_to
 from presto_tpu_torch.planner.plan import (
     AggregationNode,
+    CrossSingleNode,
     FilterNode,
     JoinNode,
     OutputNode,
@@ -173,7 +175,7 @@ class LocalRunner:
             yield from self._expanding_join_pages(node)
             return
         if isinstance(node, (TableScanNode, FilterNode, ProjectNode, AggregationNode,
-                             JoinNode)):
+                             JoinNode, CrossSingleNode)):
             yield from self._chain_pages(node)
             return
         raise NotPorted(f"plan node {type(node).__name__}")
@@ -193,6 +195,8 @@ class LocalRunner:
             return self._chain_leaf(node.source)
         if isinstance(node, JoinNode) and _is_streaming_join(node):
             return self._chain_leaf(node.left)  # the probe side streams
+        if isinstance(node, CrossSingleNode):
+            return self._chain_leaf(node.left)
         return node
 
     def _build_stage(self, node: PlanNode):
@@ -212,8 +216,10 @@ class LocalRunner:
             aggs = list(node.aggs)
             mg = self._max_groups(node)
             kd = node.key_domains
+            presorted = node.presorted
             return lambda p: grouped_aggregate(inner(p), group_exprs, aggs, mg,
-                                               key_domains=kd, mode="partial")
+                                               key_domains=kd, mode="partial",
+                                               presorted=presorted)
         if isinstance(node, JoinNode) and _is_streaming_join(node):
             inner = self._build_stage(node.left)
             build = self._materialize_build(node)
@@ -226,6 +232,10 @@ class LocalRunner:
             na = node.null_aware and kind in ("semi", "anti", "mark")
             return lambda p: probe_join(build, inner(p), left_keys, key_domains=kd, kind=kind,
                                         null_safe=ns, null_aware=na)
+        if isinstance(node, CrossSingleNode):
+            inner = self._build_stage(node.left)
+            single = self._single_row(node)
+            return lambda p: cross_append_single(inner(p), single)
         return lambda p: p
 
     def _source_pages(self, node: PlanNode) -> Iterator[Page]:
@@ -278,6 +288,15 @@ class LocalRunner:
                                    unique=False)
             self._builds[node] = build
         return build
+
+    def _single_row(self, node: CrossSingleNode) -> Page:
+        """The one-row side of ``node``, once per query, on the device."""
+        page = self._builds.get(node)
+        if page is None:
+            pages = list(self._pages(node.right))
+            page = self._builds[node] = concat_pages_device(pages) if pages else Page.empty(
+                node.right.output_types, 1, self.device)
+        return page
 
     def build_side(self, node: JoinNode) -> Page:
         """The build side's pages, concatenated and padded to a
@@ -356,13 +375,14 @@ class LocalRunner:
         per-split partials once; then finalize."""
         if node.step == "final":
             raise NotPorted("final aggregation over exchanged partial states")
-        if node.presorted:
-            raise NotPorted("streaming (presorted) aggregation")
         mg = self._max_groups(node)
         num_keys = len(node.group_exprs)
         aggs = list(node.aggs)
-        sort_path = bool(node.group_exprs) and not packed_direct_layout(
-            node.group_exprs, node.key_domains, mg)
+        # presorted partials stream (K6's presorted mode, in page order),
+        # so a group cut by a split boundary comes out of two splits and
+        # meets itself in the merge, as the sort path's partials do
+        sort_path = bool(node.group_exprs) and (node.presorted or not packed_direct_layout(
+            node.group_exprs, node.key_domains, mg))
         partial = self.partial_node(node)
         if sort_path:
             parts = list(self._pages(partial))

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import NotPorted
+from presto_tpu_torch.expr.host_fns import STRING_TRANSFORM_FNS, _string_transform
 from presto_tpu_torch.expr.ir import Call, ColumnRef, Expr, Literal
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.page import Dictionary, Page
@@ -43,13 +44,48 @@ CompiledExpr = Callable[[Page], Tuple[torch.Tensor, torch.Tensor]]
 # string-literal singleton dictionaries: value -> Dictionary (kept so
 # repeated plans share the identity-hashed dictionary)
 _LITERAL_DICTS: dict = {}
+# (id(inner dictionary),) + transform key -> (inner dictionary, derived
+# dictionary, per-code "the transform gave NULL" flags); the inner
+# dictionary is kept so its id stays unique while the entry lives
+_DERIVED_DICTS: dict = {}
+
+
+def _transform_column(e: Call) -> Optional[Expr]:
+    """The single non-literal argument of a string transform."""
+    cols = [a for a in e.args if not isinstance(a, Literal)]
+    return cols[0] if len(cols) == 1 else None
+
+
+def _derived_entry(e: Call, dictionaries) -> Optional[tuple]:
+    """The derived-dictionary entry of a string transform over a
+    dictionary column: the transform runs once per dictionary value on
+    the host (a lazy dictionary is walked one run of codes at a time),
+    codes stay as they are."""
+    col = _transform_column(e)
+    tf = _string_transform(e)
+    if col is None or tf is None or not col.type.is_string or col.type.is_raw_string:
+        return None
+    inner = expr_dictionary(col, dictionaries)
+    if inner is None:
+        return None
+    f, tkey = tf
+    key = (id(inner),) + tkey
+    if key not in _DERIVED_DICTS:
+        values = [f(v) for v in inner.values]
+        nulls = [v is None for v in values]
+        _DERIVED_DICTS[key] = (inner, Dictionary(["" if v is None else v for v in values]),
+                               nulls)
+    return _DERIVED_DICTS[key]
 
 
 def expr_dictionary(e: Expr, dictionaries: Sequence[Optional[Dictionary]]
                     ) -> Optional[Dictionary]:
     """Dictionary provenance of a string-typed expression: bare columns
-    keep theirs, a string literal gets a singleton dictionary.  Derived
-    dictionaries of string transforms are not ported."""
+    keep theirs, a string literal gets a singleton dictionary, a string
+    transform (``STRING_TRANSFORM_FNS``) of a dictionary column derives
+    a dictionary of the transformed values (the reference's
+    ``expr_dictionary``; NULL results become "" there, and validity
+    says NULL)."""
     if isinstance(e, ColumnRef):
         return dictionaries[e.index]
     if isinstance(e, Literal) and e.value is not None:
@@ -58,6 +94,9 @@ def expr_dictionary(e: Expr, dictionaries: Sequence[Optional[Dictionary]]
         return _LITERAL_DICTS[e.value]
     if isinstance(e, Call) and e.fn == "cast_char":
         return expr_dictionary(e.args[0], dictionaries)
+    if isinstance(e, Call) and e.fn in STRING_TRANSFORM_FNS:
+        entry = _derived_entry(e, dictionaries)
+        return None if entry is None else entry[1]
     if isinstance(e, Call):
         raise NotPorted(f"dictionary of string expression {e.fn}")
     return None
@@ -92,11 +131,13 @@ def _lane(t: Type) -> str:
 
 
 def _out_kind(t: Type) -> int:
+    if t.is_string and not t.is_raw_string:
+        return k1.KIND_I32  # dictionary codes
     lane = _lane(t)
     if lane == DOUBLE:
         return k1.KIND_F64
     if lane == LONG:
-        raise NotPorted(f"expressions producing {t}")
+        return k1.KIND_D128
     return _storage_kind(t)
 
 
@@ -153,6 +194,15 @@ def has_duplicates(d: Dictionary) -> bool:
     return hit[1]
 
 
+# id(derived dictionary) -> (dictionary, K1 table of "the transform
+# gave a value" per code)
+_NOT_NULL_LUTS: dict = {}
+
+# DATEPART's selector and LCMP's comparison: the argument is the
+# index here
+DATE_PARTS = ("year", "month", "day", "quarter")
+LCMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
+
 _STRING_CMP = {"eq": operator.eq, "ne": operator.ne, "lt": operator.lt,
                "le": operator.le, "gt": operator.gt, "ge": operator.ge}
 _SWAPPED = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
@@ -203,6 +253,9 @@ class _Lowering:
     def emit(self, e: Expr) -> bool:
         """Push ``e``; True when it is constant (no column read)."""
         if isinstance(e, ColumnRef):
+            if e.type.is_string and not e.type.is_raw_string:
+                self._load(e.index, k1.LOAD)  # dictionary codes
+                return False
             lane = _lane(e.type)
             if lane == DOUBLE:
                 raise NotPorted("expressions over double columns")
@@ -220,6 +273,8 @@ class _Lowering:
             raise NotPorted(f"expression node {type(e).__name__}")
         start = len(self.ops)
         fn = e.fn
+        if fn in STRING_TRANSFORM_FNS:
+            return self._emit_transform(e)
         if fn == "like":
             return self._emit_like(e)
         if fn in _STRING_CMP and any(a.type.is_string for a in e.args):
@@ -236,6 +291,9 @@ class _Lowering:
         elif fn == "not":
             const = self.emit(e.args[0])
             self._push(k1.NOT)
+        elif fn in ("eq", "ne", "lt", "le", "gt", "ge") and LONG in (_lane(e.args[0].type),
+                                                                  _lane(e.args[1].type)):
+            const = self._emit_long_cmp(e)
         elif fn in ("eq", "ne", "lt", "le", "gt", "ge"):
             a, b = e.args
             s = self._align_scale(a.type, b.type)
@@ -257,6 +315,15 @@ class _Lowering:
                     Call(type=BOOLEAN, fn="le", args=(x, hi)))))
         elif fn in ("add", "sub", "mul", "div"):
             const = self._emit_arith(e)
+        elif fn in DATE_PARTS:
+            (x,) = e.args
+            if x.type.name != "date":
+                raise NotPorted(f"{fn} of {x.type}")
+            const = self.emit(x)
+            self._push(k1.DATEPART, DATE_PARTS.index(fn))
+        elif fn in ("is_null", "not_null"):
+            const = self.emit(e.args[0])
+            self._push(k1.NOTNULL, int(fn == "is_null"))
         else:
             raise NotPorted(f"expression {fn}")
         if const:
@@ -268,16 +335,43 @@ class _Lowering:
         """Push ``predicate(value)`` of a dictionary column: its int32
         code indexes a boolean table (clipped as the reference clips),
         and the column's valid bit stays."""
-        if not isinstance(col, ColumnRef):
+        if not isinstance(col, ColumnRef) and not (isinstance(col, Call)
+                                                   and col.fn in STRING_TRANSFORM_FNS):
             raise NotPorted(f"string predicate over {col}")
         d = expr_dictionary(col, self.dictionaries)
         if d is None:
             raise NotPorted(f"string column {col} without a dictionary")
-        table = dictionary_lut(d, key, predicate)
+        self.emit(col)
+        self._push_lut(dictionary_lut(d, key, predicate))
+        return False
+
+    def _push_lut(self, table: k1.Lut, op: int = k1.LUT) -> None:
         if table not in self.luts:
             self.luts.append(table)
-        self._load(col.index, k1.LOAD)
-        self._push(k1.LUT, next(i for i, t in enumerate(self.luts) if t is table))
+        self._push(op, next(i for i, t in enumerate(self.luts) if t is table))
+
+    def _emit_transform(self, e: Call) -> bool:
+        """A string transform of a dictionary column: the codes pass
+        through unchanged (the derived dictionary holds the new values);
+        where the transform gives NULL for some value, a table over the
+        codes clears the valid bit (``code`` if ``table[code]`` else
+        NULL), the reference's null LUT."""
+        entry = _derived_entry(e, self.dictionaries)
+        if entry is None:
+            raise NotPorted(f"string transform {e.fn} of {e.args}")
+        col = _transform_column(e)
+        _, derived, nulls = entry
+        if not any(nulls):
+            return self.emit(col)
+        self.emit(col)
+        hit = _NOT_NULL_LUTS.get(id(derived))
+        if hit is None:
+            hit = _NOT_NULL_LUTS[id(derived)] = (derived, k1.Lut([not n for n in nulls],
+                                                                 torch.bool, "not_null"))
+        self._push_lut(hit[1])
+        self.emit(col)
+        self._push(k1.NULL)
+        self._push(k1.SEL)
         return False
 
     def _emit_like(self, e: Call) -> bool:
@@ -365,12 +459,36 @@ class _Lowering:
 
     # -- double lanes ---------------------------------------------------------
     def _emit_double(self, e: Expr) -> None:
-        """Push a long decimal as a double (the reference's
-        ``_to_double``)."""
-        if _lane(e.type) != LONG:
-            raise NotPorted(f"{e.type} to double")
+        """Push a decimal or integer as a double (the reference's
+        ``_to_double``: limbs through L2D, an int64 lane through S2D,
+        each divided by 10^scale)."""
+        lane = _lane(e.type)
+        if lane == DOUBLE:
+            raise NotPorted("expressions over double columns")
         self.emit(e)
-        self._push(k1.L2D, _scale(e.type))
+        self._push(k1.L2D if lane == LONG else k1.S2D, _scale(e.type))
+
+    def _emit_long_cmp(self, e: Call) -> bool:
+        """A comparison with a long-decimal operand (the reference's
+        ``run_lcmp``): each side goes to two limbs at the common scale
+        (a short side through S2L, an up-scale through LSCALE, which
+        wraps as ``decimal128.rescale`` does), then LCMP compares limb
+        by limb."""
+        a, b = e.args
+        if DOUBLE in (_lane(a.type), _lane(b.type)):
+            raise NotPorted(f"comparison of {a.type} and {b.type}")
+        if {a.type.name, b.type.name} & {"date", "timestamp"}:
+            raise NotPorted(f"comparison of {a.type} and {b.type}")
+        s = max(_scale(a.type), _scale(b.type))
+        const = True
+        for x in (a, b):
+            const &= self.emit(x)
+            if _lane(x.type) == SHORT:
+                self._push(k1.S2L)
+            if s > _scale(x.type):
+                self._push(k1.LSCALE, s - _scale(x.type))
+        self._push(k1.LCMP, LCMP_OPS.index(e.fn))
+        return const
 
     def _align_scale(self, ta: Type, tb: Type) -> int:
         """Common scale of a comparison pair (the reference's
@@ -483,9 +601,9 @@ class ExprCompiler:
         low = self.lower_key(expr)
         if low is None:
             return self.compile(expr)
-        prog, (i,) = low
-        return lambda page: k1.expr_eval(prog, [(page.blocks[i].data, page.blocks[i].valid)],
-                                         page.capacity)
+        prog, columns = low
+        return lambda page: k1.expr_eval(
+            prog, [(page.blocks[i].data, page.blocks[i].valid) for i in columns], page.capacity)
 
     def lower_key(self, expr: Expr) -> Optional[Tuple[k1.Program, List[int]]]:
         """K1's CANON program of a key column whose dictionary repeats a
@@ -493,34 +611,29 @@ class ExprCompiler:
         d = expr_dictionary(expr, self.dictionaries) if expr.type.is_string else None
         if d is None or not has_duplicates(d):
             return None
-        if not isinstance(expr, ColumnRef):
-            raise NotPorted(f"key over a string expression {expr}")
         # the table is built walking the values in code order, so the
         # first code seen for a value is its smallest code
         first: dict = {}
         codes = itertools.count()
         lw = _Lowering(self.dictionaries)
-        lw._load(expr.index, k1.LOAD)
-        lw.luts.append(dictionary_lut(d, ("canon",),
-                                      lambda v: first.setdefault(v, next(codes)),
-                                      torch.int32))
-        lw._push(k1.CANON, 0)
-        return lw.program(k1.KIND_I32), [expr.index]
+        lw.emit(expr)
+        lw._push_lut(dictionary_lut(d, ("canon",),
+                                    lambda v: first.setdefault(v, next(codes)),
+                                    torch.int32), k1.CANON)
+        return lw.program(k1.KIND_I32), list(lw.columns)
 
     def compile(self, expr: Expr) -> CompiledExpr:
         if isinstance(expr, ColumnRef):
             i = expr.index
             return lambda page: (page.blocks[i].data, page.blocks[i].valid)
         prog, columns = self.lower(expr)
-        dtype = k1._DTYPE_OF[prog.out_kind]
-        if prog.n_cols == 0:  # folded to one literal or NULL
-            value = prog.consts[prog.args[0]] if prog.ops[0] == k1.LIT else 0
-            is_valid = prog.ops[0] == k1.LIT
+        if prog.n_cols == 0:  # a constant: its value, computed once on the host
+            d, v = k1.expr_eval_plain(prog, [], 1)
 
             def run_const(page):
                 n = page.capacity
-                return (torch.full((n,), value, dtype=dtype, device=page.device),
-                        torch.full((n,), is_valid, dtype=torch.bool, device=page.device))
+                return (d.to(page.device).expand((n,) + tuple(d.shape[1:])).contiguous(),
+                        v.to(page.device).expand(n).contiguous())
 
             return run_const
 

@@ -13,7 +13,12 @@ string predicate reads a boolean table over the column's dictionary,
 the first true branch, and a double division by zero is NULL.  CANON
 maps a dictionary code to the representative code of its value (the
 reference's ``canonicalize_codes``, for key columns whose dictionary
-repeats a value).
+repeats a value).  DATEPART takes the year, month, day or quarter of
+a date (``_civil_from_days``, floor division throughout); S2D turns an
+int64 lane into a double divided by 10^scale; S2L and LSCALE bring a
+short or long decimal to two limbs at a larger scale (wrapping as
+``decimal128.rescale`` does) and LCMP compares two limb pairs;
+NOTNULL is IS NULL / IS NOT NULL, never NULL itself.
 
 A stack value is an int64 lane (integers, dates, booleans, short
 decimals, dictionary codes), a double, or a long decimal (two
@@ -36,20 +41,26 @@ from presto_tpu_torch.ops import decimal128 as d128
 
 # opcodes: keep in step with csrc/expr_eval.cu
 LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
-    BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV, IN, CANON = range(26)
+    BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV, IN, CANON, \
+    DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL = range(32)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
-            "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon")
+            "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon",
+            "datepart", "s2d", "s2l", "lscale", "lcmp", "notnull")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
-                0, -2, 1, -1, 0, -1, 0, 0)
+                0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0)
 # opcodes whose argument is printed: a column slot, a constant index,
-# a table slot, the long operand's side (MUL_LS), a decimal scale, or
-# IN's literal run (first constant | count << IN_COUNT_SHIFT)
-_ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON)
+# a table slot, the long operand's side (MUL_LS), a decimal scale
+# (L2D, S2D), IN's literal run (first constant | count <<
+# IN_COUNT_SHIFT), the date part (DATEPART: year, month, day,
+# quarter), the digits of an up-scale (LSCALE), the comparison (LCMP:
+# eq, ne, lt, le, gt, ge) or the test (NOTNULL: 0 not_null, 1 is_null)
+_ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON,
+            DATEPART, S2D, LSCALE, LCMP, NOTNULL)
 IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
-WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV))
+WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP))
 
 # fixed limits of the kernel's by-value program (csrc/expr_eval.cu)
 MAX_INS = 128
@@ -71,6 +82,9 @@ launches = 0
 #: launches of programs that test ``IN`` (the IN opcode, or a table
 #: built for IN over a dictionary)
 in_launches = 0
+#: launches of programs holding each of these opcodes, by name
+op_launches: dict = {}
+COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null"}
 
 
 class Lut:
@@ -143,6 +157,32 @@ def _ovf_mul(a, b, r):
     return torch.where(special, (a == -1) & (b == _I64_MIN), ~exact)
 
 
+def _fdiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def civil_from_days(z: torch.Tensor):
+    """Epoch days -> (year, month, day) with floor division throughout
+    (the reference's ``_civil_from_days``, Howard Hinnant's
+    algorithm)."""
+    z = z + 719468
+    era = _fdiv(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524) - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    return torch.where(m <= 2, y + 1, y), m, d
+
+
+def date_part(days: torch.Tensor, part: int) -> torch.Tensor:
+    """DATEPART's plain form: year, month, day or quarter (0-3)."""
+    y, m, d = civil_from_days(days)
+    return (y, m, d, _fdiv(m - 1, 3) + 1)[part]
+
+
 def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                     n: int, row_mask: Optional[torch.Tensor] = None):
     """Plain torch evaluation of ``prog`` over ``n`` rows.  Returns
@@ -194,6 +234,26 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == L2D:
             d, v = stack.pop()
             stack.append((d128.to_double(d, arg), v))
+        elif op == S2D:  # a division by a tensor: no reciprocal multiply
+            d, v = stack.pop()
+            stack.append((d128.div_exact(d.to(torch.float64), 10.0 ** arg), v))
+        elif op == S2L:
+            d, v = stack.pop()
+            stack.append((d128.from_int64(d), v))
+        elif op == LSCALE:
+            d, v = stack.pop()
+            stack.append((d128.upscale(d, arg), v))
+        elif op == DATEPART:
+            d, v = stack.pop()
+            stack.append((date_part(d, arg), v))
+        elif op == NOTNULL:
+            _, v = stack.pop()
+            stack.append(((~v if arg else v).to(torch.int64), torch.ones_like(v)))
+        elif op == LCMP:
+            (bd, bv), (ad, av) = stack.pop(), stack.pop()
+            lt, eq = d128.compare(ad, bd)
+            d = (eq, ~eq, lt, lt | eq, ~(lt | eq), ~lt)[arg]
+            stack.append((d.to(torch.int64), av & bv))
         elif op == BETWEEN:
             (hd, hv), (ld, lv), (xd, xv) = stack.pop(), stack.pop(), stack.pop()
             stack.append(_logic(AND, (xd >= ld).to(torch.int64), xv & lv,
@@ -228,6 +288,8 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         return row_mask & (d != 0) & v
     if prog.out_kind == KIND_BOOL:
         return d != 0, v
+    if prog.out_kind == KIND_D128:
+        return d, v
     return d.to(_DTYPE_OF[prog.out_kind]), v
 
 
@@ -258,7 +320,8 @@ def _launch(prog, cols, n, row_mask, tensors):
     if (len(prog.ops) > MAX_INS or len(prog.consts) > MAX_CONSTS
             or len(cols) > MAX_COLS or prog.depth > MAX_STACK or len(prog.luts) > MAX_LUTS):
         raise ValueError(f"expr_eval: program exceeds the kernel's limits: {prog}")
-    if prog.out_kind not in _DTYPE_OF or (prog.out_kind == KIND_F64 and not prog.wide):
+    if prog.out_kind not in _DTYPE_OF and prog.out_kind != KIND_D128 or (
+            prog.out_kind in (KIND_F64, KIND_D128) and not prog.wide):
         raise ValueError(f"expr_eval: output kind {prog.out_kind}")
     for op, arg in zip(prog.ops, prog.args):
         if op in (LUT, CANON) and prog.luts[arg].dtype != (torch.bool if op == LUT
@@ -291,7 +354,9 @@ def _launch(prog, cols, n, row_mask, tensors):
         out_data, out_valid = None, None
         out_mask = torch.empty(n, dtype=torch.bool, device=dev)
     else:
-        out_data = torch.empty(n, dtype=_DTYPE_OF[prog.out_kind], device=dev)
+        out_data = torch.empty((n, 2), dtype=torch.int64, device=dev) \
+            if prog.out_kind == KIND_D128 else torch.empty(n, dtype=_DTYPE_OF[prog.out_kind],
+                                                           device=dev)
         out_valid = torch.empty(n, dtype=torch.bool, device=dev)
         out_mask = None
     lib = build.library()
@@ -324,6 +389,8 @@ def _launch(prog, cols, n, row_mask, tensors):
     launches += 1
     if IN in prog.ops or any(t.kind == "in" for t in prog.luts):
         in_launches += 1
+    for op in set(prog.ops) & COUNTED_OPS.keys():
+        op_launches[COUNTED_OPS[op]] = op_launches.get(COUNTED_OPS[op], 0) + 1
     if out_mask is not None:
         return out_mask
     return out_data, out_valid

@@ -3,7 +3,7 @@
 :func:`packed_fold` combines two packed partial tables slot by slot
 (the reference's ``combine_packed_states``); :func:`packed_finalize`
 turns a folded table into output columns (``finalize_packed`` with the
-count/sum/avg parts of ``_finalize`` and ``_avg_decimal128``).  Both
+count/sum/avg/min/max parts of ``_finalize`` and ``_avg_decimal128``).  Both
 launch the one kernel of ``csrc/packed_fold_finalize.cu`` on CUDA
 tensors and share its launch count; CPU tensors take the plain
 versions.
@@ -20,10 +20,18 @@ from presto_tpu_torch.kernels import build
 from presto_tpu_torch.ops import decimal128 as d128
 
 MODE_FOLD, MODE_FINALIZE = 0, 1
-# fold column kinds: keep in step with csrc/packed_fold_finalize.cu
-COL_I64, COL_D128 = 0, 1
-# finalize kinds
-FIN_COUNT, FIN_SUM, FIN_SUM_D128, FIN_AVG_SHORT, FIN_AVG_D128, FIN_AVG_D128_NARROW = range(6)
+# fold column kinds: keep in step with csrc/packed_fold_finalize.cu.
+# COL_I64 / COL_D128 add; the MIN / MAX kinds keep the lesser or
+# greater slot (int64, int32 or two limbs)
+COL_I64, COL_D128, COL_MIN_I64, COL_MAX_I64, COL_MIN_I32, COL_MAX_I32, COL_MIN_D128, \
+    COL_MAX_D128 = range(8)
+_COL_MIN = (COL_MIN_I64, COL_MIN_I32, COL_MIN_D128)
+_COL_WIDE = (COL_D128, COL_MIN_D128, COL_MAX_D128)
+_COL_I32 = (COL_MIN_I32, COL_MAX_I32)
+# finalize kinds; a min/max finalizes as FIN_SUM (int64), FIN_SUM_D128
+# (limbs) or FIN_VALUE_I32 (int32): its value, NULL where its count is 0
+FIN_COUNT, FIN_SUM, FIN_SUM_D128, FIN_AVG_SHORT, FIN_AVG_D128, FIN_AVG_D128_NARROW, \
+    FIN_VALUE_I32 = range(7)
 MAX_ITEMS = 64
 
 launches = 0
@@ -36,7 +44,15 @@ Column = Tuple[int, torch.Tensor, torch.Tensor]  # (kind, data, valid)
 def packed_fold_plain(a: Sequence[Column], b: Sequence[Column], mask_a, mask_b):
     out = []
     for (kind, da, va), (_, db, vb) in zip(a, b):
-        data = d128.add(da, db) if kind == COL_D128 else da + db
+        if kind == COL_D128:
+            data = d128.add(da, db)
+        elif kind in (COL_MIN_D128, COL_MAX_D128):
+            a_less, _ = d128.compare(da, db)
+            data = torch.where((a_less == (kind == COL_MIN_D128))[:, None], da, db)
+        elif kind == COL_I64:
+            data = da + db
+        else:
+            data = torch.minimum(da, db) if kind in _COL_MIN else torch.maximum(da, db)
         out.append((data, va | vb))
     return out, mask_a | mask_b
 
@@ -76,7 +92,7 @@ def packed_finalize_plain(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]
             continue
         valid = (cnt > 0) & mask
         n = torch.clamp(cnt, min=1)
-        if kind in (FIN_SUM, FIN_SUM_D128):
+        if kind in (FIN_SUM, FIN_SUM_D128, FIN_VALUE_I32):
             data = s.clone()
         elif kind == FIN_AVG_SHORT:
             av = torch.abs(s)
@@ -103,12 +119,13 @@ def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
     tensors = [mask_a, mask_b]
     outs = []
     for (kind, da, va), (kb, db, vb) in zip(a, b):
-        shape = (g, 2) if kind == COL_D128 else (g,)
+        shape = (g, 2) if kind in _COL_WIDE else (g,)
+        dtype = torch.int32 if kind in _COL_I32 else torch.int64
         if kb != kind or da.shape != shape or db.shape != shape \
-                or da.dtype != torch.int64 or db.dtype != torch.int64:
+                or da.dtype != dtype or db.dtype != dtype:
             raise ValueError("packed_fold: mismatched state columns")
         tensors += [da, db, va, vb]
-        outs.append((torch.empty(shape, dtype=torch.int64, device=da.device),
+        outs.append((torch.empty(shape, dtype=dtype, device=da.device),
                      torch.empty(g, dtype=torch.bool, device=da.device)))
     mask_out = torch.empty(g, dtype=torch.bool, device=mask_a.device)
     _launch(MODE_FOLD, g, [c[0] for c in a], [c[1] for c in a], [c[1] for c in b],
@@ -127,12 +144,13 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
     outs = []
     for kind, s, cnt in items:
         wide_in = kind in (FIN_SUM_D128, FIN_AVG_D128, FIN_AVG_D128_NARROW)
+        dtype = torch.int32 if kind == FIN_VALUE_I32 else torch.int64
         if s.shape != ((g, 2) if wide_in else (g,)) or cnt.shape != (g,) \
-                or s.dtype != torch.int64 or cnt.dtype != torch.int64:
+                or s.dtype != dtype or cnt.dtype != torch.int64:
             raise ValueError("packed_finalize: mismatched state columns")
         tensors += [s, cnt]
         wide_out = kind in (FIN_SUM_D128, FIN_AVG_D128)
-        outs.append((torch.empty((g, 2) if wide_out else (g,), dtype=torch.int64,
+        outs.append((torch.empty((g, 2) if wide_out else (g,), dtype=dtype,
                                  device=mask.device),
                      torch.empty(g, dtype=torch.bool, device=mask.device)))
     _launch(MODE_FINALIZE, g, [k for k, _, _ in items], [s for _, s, _ in items],

@@ -19,13 +19,15 @@ import torch
 from presto_tpu_torch import NotPorted
 from presto_tpu_torch.kernels import build
 
-MAX_N = 32  # csrc/topn.cu K7_MAX_N
+MAX_N = 100  # csrc/topn.cu K7_MAX_N
 MAX_KEYS = 8
-THREADS = 128  # csrc/topn.cu K7_THREADS
+THREADS = 64  # csrc/topn.cu K7_THREADS
 _KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
 KIND_D128 = 3
 
 launches = 0
+#: launches with n above 32
+wide_launches = 0
 
 # (data (n,) integers or (n, 2) int64 limbs, valid, ascending, nulls_first)
 SortKey = Tuple[torch.Tensor, torch.Tensor, bool, bool]
@@ -69,7 +71,7 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
         raise NotPorted(f"top-n with n = {n} > {MAX_N}")
     if not row_mask.is_cuda:
         return topn_plain(keys, row_mask, n)
-    global launches
+    global launches, wide_launches
     rows = row_mask.shape[0]
     if row_mask.dtype != torch.bool or row_mask.dim() != 1 or rows >= (1 << 31):
         raise ValueError("topn: row_mask must be (rows,) bool")
@@ -107,4 +109,5 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
              build.stream_of(row_mask))
     build.check(err, "topn")
     launches += 1
+    wide_launches += int(n > 32)
     return ids, count

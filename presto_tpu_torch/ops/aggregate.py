@@ -12,8 +12,11 @@ key hashed by K9 when a key column has no exact domain (the sort
 path), and merges partial states (``merge_aggregate``, which hashes
 the partials' key columns again, so equal groups from different splits
 meet).  The sort path emits every group it sees, in key order (packed
-or hashed, as the reference's), whatever ``max_groups`` says.
-min/max, variance, DISTINCT and FILTER are not ported and raise
+or hashed, as the reference's), whatever ``max_groups`` says; a
+presorted (streaming) grouping runs K6 in page order with no sort and
+emits groups in first-appearance order.  count, sum, avg, min and max
+(over int32/int64 lanes and long decimals) are ported; min/max over
+doubles and varchar, variance, DISTINCT and FILTER raise
 :class:`NotPorted`.
 """
 
@@ -297,8 +300,10 @@ def packed_direct_layout(group_exprs, key_domains, max_groups: int) -> bool:
 # ---------------------------------------------------------------------------
 
 # id(dict) -> (dict, rank list, inv list); host lists, turned into
-# tensors on the device that asks
+# tensors on the device that asks (kept per device in _COLLATION_LUTS)
 _COLLATION_CACHE: dict = {}
+# (id(dict), device) -> (dict, rank tensor, inv tensor)
+_COLLATION_LUTS: dict = {}
 
 
 def _collation_lists(d):
@@ -323,10 +328,16 @@ def _collation_lists(d):
 
 def _collation_luts(d, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(code -> collation rank, rank -> representative code) LUTs: codes
-    are assignment-ordered, so string order goes through ranks."""
-    _, rank, inv = _collation_lists(d)
-    return (torch.tensor(rank, dtype=torch.int32, device=device),
-            torch.tensor(inv, dtype=torch.int32, device=device))
+    are assignment-ordered, so string order goes through ranks.  Built
+    once per dictionary and device (a derived dictionary can hold
+    millions of values)."""
+    key = (id(d), str(device))
+    hit = _COLLATION_LUTS.get(key)
+    if hit is None:
+        _, rank, inv = _collation_lists(d)
+        hit = _COLLATION_LUTS[key] = (d, torch.tensor(rank, dtype=torch.int32, device=device),
+                                      torch.tensor(inv, dtype=torch.int32, device=device))
+    return hit[1], hit[2]
 
 
 def expr_key_dicts(page: Page, exprs) -> list:
@@ -353,6 +364,14 @@ def _state_kind(agg: AggCall) -> int:
         if t.is_long_decimal or t.value_shape != () or st.name in ("double", "real"):
             raise NotPorted(f"{agg.fn} over {t}")
         return k2.SUM_LONG if st.is_long_decimal else k2.SUM_SHORT
+    if agg.fn in ("min", "max"):
+        t = agg.arg.type
+        if t.is_long_decimal and t.value_shape == (2,):
+            return k2.MIN_LONG if agg.fn == "min" else k2.MAX_LONG
+        if t.is_string or t.value_shape != () or t.name in ("double", "real", "boolean") \
+                or np.dtype(t.np_dtype) not in (np.dtype(np.int32), np.dtype(np.int64)):
+            raise NotPorted(f"{agg.fn} over {t}")
+        return k2.MIN_SHORT if agg.fn == "min" else k2.MAX_SHORT
     raise NotPorted(f"aggregate {agg.fn}")
 
 
@@ -360,6 +379,11 @@ def _finalize_kind(agg: AggCall) -> int:
     """K3 finalize kind of an aggregate (after :func:`_state_kind`)."""
     if agg.fn in ("count", "count_star"):
         return k3.FIN_COUNT
+    if agg.fn in ("min", "max"):  # the state's value, NULL where its count is 0
+        t = agg.arg.type
+        if t.is_long_decimal:
+            return k3.FIN_SUM_D128
+        return k3.FIN_VALUE_I32 if np.dtype(t.np_dtype) == np.dtype(np.int32) else k3.FIN_SUM
     st = _sum_type(agg.arg.type)
     t = output_type(agg)
     if agg.fn == "sum":
@@ -392,16 +416,20 @@ def grouped_aggregate(
     max_groups: int,
     key_domains: Optional[Sequence[Optional[Tuple[int, int]]]] = None,
     mode: str = "single",
+    presorted: bool = False,
 ) -> Page:
     """Aggregate ``page`` by ``group_exprs``: the reference's global
-    branch (no keys: one group), packed-direct branch (group id ==
-    packed key, output capacity ``max_groups``) and sort path (one row
-    per group the page holds, in key order, however many
-    ``max_groups`` expects).  mode='single' emits finalized values,
-    'partial' the state columns."""
+    branch (no keys: one group), streaming branch (``presorted``: equal
+    keys arrive together; one row per run of equal keys, in page
+    order), packed-direct branch (group id == packed key, output
+    capacity ``max_groups``) and sort path (one row per group the page
+    holds, in key order, however many ``max_groups`` expects).
+    mode='single' emits finalized values, 'partial' the state
+    columns."""
     _check_ported(aggs, mode)
-    if group_exprs and not packed_direct_layout(group_exprs, key_domains, max_groups):
-        return _sorted_aggregate(page, group_exprs, aggs, key_domains, mode)
+    if group_exprs and (presorted or not packed_direct_layout(group_exprs, key_domains,
+                                                              max_groups)):
+        return _sorted_aggregate(page, group_exprs, aggs, key_domains, mode, presorted)
     keys, args = kernel_inputs(page, group_exprs, aggs, key_domains)
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
     n = page.capacity
@@ -460,6 +488,9 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
             states.append((k6.S_ONE, None, None))
         elif kind == k2.COUNT:
             states.append((k6.S_VALID, None, valid))
+        elif kind in k2.EXTREMES:
+            states.append((_K6_EXTREME[kind], data, valid))
+            states.append((k6.S_VALID, None, valid))
         else:
             states.append((k6.S_SUM if kind == k2.SUM_SHORT else k6.S_LIMBS_SHORT,
                            data, valid))
@@ -468,13 +499,20 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
     return keys, states, per_agg
 
 
-def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode) -> Page:
+_K6_EXTREME = {k2.MIN_SHORT: k6.S_MIN, k2.MAX_SHORT: k6.S_MAX, k2.MIN_LONG: k6.S_MIN_LONG,
+               k2.MAX_LONG: k6.S_MAX_LONG}
+
+
+def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode,
+                      presorted: bool = False) -> Page:
     """The reference's sort path over K6: every group the page holds,
-    in packed-key order."""
+    in packed-key order; or its streaming branch (``presorted``), in
+    page order."""
     keys, states, per_agg = sorted_inputs(page, group_exprs, aggs, key_domains)
-    key_out, cols, groups = k6.sorted_group_agg(keys, page.row_mask, states)
+    key_out, cols, groups = k6.sorted_group_agg(keys, page.row_mask, states, presorted)
     if groups == 0:
-        return _empty_groups(group_exprs, aggs, mode, page.device)
+        return _empty_groups(group_exprs, aggs, mode, page.device,
+                             expr_key_dicts(page, group_exprs))
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
     key_blocks = [Block(d, v, e.type, dic) for (d, v), e, dic in
                   zip(key_out, group_exprs, expr_key_dicts(page, group_exprs))]
@@ -482,18 +520,24 @@ def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode) -> Page:
                        page.device)
 
 
-def _empty_groups(group_exprs, aggs, mode, device) -> Page:
+def _empty_groups(group_exprs, aggs, mode, device, key_dicts) -> Page:
+    """A page of no group that keeps the key columns' dictionaries, so
+    a concatenation of partials whose first split had no live row
+    still decodes its keys."""
     types = [e.type for e in group_exprs]
     for a in aggs:
         types += state_types(a) if mode == "partial" else [output_type(a)]
-    return Page.empty(types, 1, device)
+    page = Page.empty(types, 1, device)
+    blocks = [Block(b.data, b.valid, b.type, d) for b, d in zip(page.blocks, key_dicts)]
+    return Page(tuple(blocks) + page.blocks[len(blocks):], page.row_mask)
 
 
 def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     """The K6 inputs of merging partial states: packed-key columns,
     the flat state list (the reference's ``_merge_states`` for count,
-    sum and avg: counts and sums add over live rows, a long sum only
-    where its count is positive), and states per aggregate."""
+    sum, avg, min and max: counts and sums add over live rows, a long
+    sum only where its count is positive, a min/max reduces the states
+    whose count is positive), and states per aggregate."""
     from presto_tpu_torch.ops.join import key_tuples
 
     if num_keys == 0:
@@ -506,6 +550,9 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):
         if agg.fn in ("count", "count_star"):
             states.append((k6.S_SUM, cols[0].data, live))
+        elif agg.fn in ("min", "max"):
+            states.append((_K6_EXTREME[_state_kind(agg)], cols[0].data, cols[1].data > 0))
+            states.append((k6.S_SUM, cols[1].data, live))
         elif cols[0].type.is_long_decimal:
             states.append((k6.S_LIMBS_LONG, cols[0].data, cols[1].data > 0))
             states.append((k6.S_SUM, cols[1].data, live))
@@ -530,7 +577,7 @@ def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_g
     if groups == 0:
         return _empty_groups([ColumnRef(type=b.type, index=i)
                               for i, b in enumerate(key_blocks_in)], aggs, mode,
-                             partial.device)
+                             partial.device, [b.dictionary for b in key_blocks_in])
     agg_dicts = [c[0].dictionary for c in _slice_state_cols(partial, num_keys, aggs)]
     key_blocks = [Block(d, v, b.type, b.dictionary)
                   for (d, v), b in zip(key_out, key_blocks_in)]
@@ -590,17 +637,28 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
     _check_ported(aggs, "partial")
     sa = [blk for cols in _slice_state_cols(a, num_keys, aggs) for blk in cols]
     sb = [blk for cols in _slice_state_cols(b, num_keys, aggs) for blk in cols]
+    kinds = []
+    for agg in aggs:
+        for j, t in enumerate(state_types(agg)):
+            if agg.fn in ("min", "max") and j == 0:
+                wide = "d128" if t.is_long_decimal else (
+                    "i32" if np.dtype(t.np_dtype) == np.dtype(np.int32) else "i64")
+                kinds.append(_K3_EXTREME[agg.fn, wide])
+            else:
+                kinds.append(k3.COL_D128 if t.is_long_decimal else k3.COL_I64)
 
-    def col(blk):
-        kind = k3.COL_D128 if blk.type.is_long_decimal else k3.COL_I64
-        return kind, blk.data, blk.valid
-
-    outs, mask = k3.packed_fold([col(x) for x in sa], [col(x) for x in sb],
+    outs, mask = k3.packed_fold([(k, x.data, x.valid) for k, x in zip(kinds, sa)],
+                                [(k, x.data, x.valid) for k, x in zip(kinds, sb)],
                                 a.row_mask, b.row_mask)
     blocks = list(a.blocks[:num_keys])
     for blk, (data, valid) in zip(sa, outs):
         blocks.append(Block(data, valid, blk.type, blk.dictionary))
     return Page(tuple(blocks), mask)
+
+
+_K3_EXTREME = {("min", "i64"): k3.COL_MIN_I64, ("max", "i64"): k3.COL_MAX_I64,
+               ("min", "i32"): k3.COL_MIN_I32, ("max", "i32"): k3.COL_MAX_I32,
+               ("min", "d128"): k3.COL_MIN_D128, ("max", "d128"): k3.COL_MAX_D128}
 
 
 def finalize_packed(acc: Page, num_keys: int, aggs: Sequence[AggCall]) -> Page:

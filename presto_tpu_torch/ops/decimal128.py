@@ -101,6 +101,36 @@ def mul_long_short(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return normalize(ah * k + lh, ll)
 
 
+def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Limbs times a small int64 (|k| <= ~4*10^9, a power of ten of an
+    up-scale): ``lo`` splits into base-10^9 halves so every partial
+    product fits int64; ``hi * k`` wraps as the reference's does."""
+    _check_width(a, 2)
+    ah, al = split(a)
+    l1, l0 = _fdiv(al, _B9), torch.remainder(al, _B9)
+    p0, p1 = l0 * k, l1 * k
+    c1 = _fdiv(p1, _B9)
+    return normalize(ah * k + c1, (p1 - c1 * _B9) * _B9 + p0)
+
+
+def upscale(a: torch.Tensor, k: int) -> torch.Tensor:
+    """``a * 10^k`` in steps of at most 10^9 (the reference's
+    ``rescale`` up; a result past 36 digits wraps, as there)."""
+    while k > 0:
+        step = min(k, 9)
+        a = mul_small(a, 10 ** step)
+        k -= step
+    return a
+
+
+def compare(a: torch.Tensor, b: torch.Tensor):
+    """``(lt, eq)`` of two limb columns: canonical limbs (high limb
+    first, low limb in [0, 10^18)) order as their values do."""
+    _check_width(a, 2)
+    lt = (a[..., 0] < b[..., 0]) | ((a[..., 0] == b[..., 0]) & (a[..., 1] < b[..., 1]))
+    return lt, (a[..., 0] == b[..., 0]) & (a[..., 1] == b[..., 1])
+
+
 def to_double(a: torch.Tensor, scale: int) -> torch.Tensor:
     """``(hi * 10^18 + lo) / 10^scale`` in float64, one rounding per
     operation (the CUDA interpreter uses the same _rn operations)."""

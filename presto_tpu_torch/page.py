@@ -41,10 +41,13 @@ class Dictionary:
         return self._index.get(s, -1)
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
-        arr = np.asarray(self.values, dtype=object)
+        """The values of ``codes`` (None out of range), looked up one
+        code at a time: a result decodes a few rows against
+        dictionaries of up to millions of values."""
+        values = self.values
         out = np.empty(codes.shape, dtype=object)
-        in_range = (codes >= 0) & (codes < len(self.values))
-        out[in_range] = arr[codes[in_range]]
+        in_range = (codes >= 0) & (codes < len(values))
+        out[in_range] = [values[c] for c in codes[in_range].tolist()]
         out[~in_range] = None
         return out
 
@@ -306,6 +309,24 @@ def page_from_numpy(columns: Sequence[np.ndarray],
 
 
 # -- executor glue (presto_tpu/exec/local.py), plain torch ---------------------
+
+def cross_append_single(q: Page, r: Page) -> Page:
+    """Append a one-row relation's columns to every row of ``q`` (the
+    reference's ``cross_append_single``, EnforceSingleRow + a
+    nested-loop join's one-row case).  ``r``'s row is its first live
+    row, found on the device (no host read of its value); each of its
+    blocks broadcasts to ``q``'s capacity, valid where the value is
+    valid and the row is live (a relation with no live row gives
+    NULLs)."""
+    first = torch.argmax(r.row_mask.to(torch.int8)).reshape(1)
+    live = r.row_mask[first]
+    blocks = list(q.blocks)
+    for b in r.blocks:
+        data = b.data[first].expand((q.capacity,) + tuple(b.data.shape[1:])).contiguous()
+        valid = (b.valid[first] & live).expand(q.capacity).contiguous()
+        blocks.append(Block(data, valid, b.type, b.dictionary))
+    return Page(tuple(blocks), q.row_mask)
+
 
 def concat_pages_device(pages: Sequence[Page]) -> Page:
     """Concatenate pages column-wise on device (capacities may differ)."""

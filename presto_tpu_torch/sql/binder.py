@@ -4088,7 +4088,10 @@ class Binder:
         dictionary LUTs — with literal arguments there is no dictionary
         to transform, so the value computes at bind time (the
         reference's constant folding in ExpressionInterpreter.java)."""
-        raise NotPorted(f"scalar function {fn}")
+        from presto_tpu_torch.expr.host_fns import (
+            STRING_TRANSFORM_FNS, _json_path_lookup, _levenshtein, _string_transform,
+            iso_date_days, mysql_datetime_micros, xxh64_signed,
+        )
 
         def lit_val(a):
             return a.value if isinstance(a, Literal) else None
@@ -4127,8 +4130,6 @@ class Binder:
         if v0 is None:
             return None
         if fn == "json_size":
-            raise NotPorted("json_path literal folding")
-
             found, got = _json_path_lookup(v0, args[1].value)
             if not found:
                 return Literal(type=BIGINT, value=None)

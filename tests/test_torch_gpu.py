@@ -492,3 +492,166 @@ def test_join_slice_on_the_card_equals_the_cpu_run():
         got = gpu.execute(QUERIES[q]).rows
         assert got == cpu.execute(QUERIES[q]).rows and got
     assert k5.launches > 0 and k8.launches > 0 and pk.launches > 0
+
+
+def _minmax_page(n: int, seed: int, device) -> Page:
+    """Dates around 1970 (and 29 February), short decimals, long
+    decimals whose high limbs tie often, bigint keys; NULLs and dead
+    rows."""
+    rng = np.random.default_rng(seed)
+    days = rng.integers(-800, 20000, n)
+    days[rng.random(n) < 0.1] = 11016  # 2000-02-29
+    long_v = np.stack([rng.integers(-3, 3, n), rng.integers(0, 10 ** 18, n)], 1)
+    cols = [(days.astype(np.int32), "date"),
+            (rng.integers(-10 ** 9, 10 ** 9, n), "decimal(12,2)"),
+            (long_v, "decimal(36,4)"),
+            (np.stack([rng.integers(-3, 3, n), rng.integers(0, 10 ** 18, n)], 1),
+             "decimal(36,2)"),
+            (rng.integers(0, 40, n), "bigint")]
+    blocks = [Block(torch.from_numpy(d).to(device),
+                    torch.from_numpy(rng.random(n) >= 0.1).to(device), parse_type(t))
+              for d, t in cols]
+    return Page(tuple(blocks), torch.from_numpy(rng.random(n) >= 0.1).to(device))
+
+
+SLICE4_EXPRS = [
+    _call("year", "bigint", _col(0, "date")),
+    _call("month", "bigint", _col(0, "date")),
+    _call("day", "bigint", _col(0, "date")),
+    _call("quarter", "bigint", _col(0, "date")),
+    _call("div", "double", _col(1, "decimal(12,2)"), _col(4, "bigint")),
+    _call("gt", "boolean", _col(3, "decimal(36,2)"), _col(2, "decimal(36,4)")),
+    _call("le", "boolean", _col(2, "decimal(36,4)"), _col(1, "decimal(12,2)")),
+    _call("eq", "boolean", _col(2, "decimal(36,4)"), _col(2, "decimal(36,4)")),
+    _call("not_null", "boolean", _col(2, "decimal(36,4)")),
+    _call("is_null", "boolean", _col(4, "bigint")),
+    _call("mul", "decimal(36,6)", _col(3, "decimal(36,2)"), _lit(3, "decimal(5,4)")),
+]
+
+
+@pytest.mark.parametrize("i", range(len(SLICE4_EXPRS)))
+def test_expr_eval_fourth_slice_opcodes_match_plain(i):
+    """DATEPART, S2D, S2L/LSCALE/LCMP, NOTNULL and a long output."""
+    dev = _cuda()
+    page = _minmax_page(1 << 20, 40 + i, dev)
+    prog, cols = ExprCompiler.for_page(page).lower(SLICE4_EXPRS[i])
+    ins = [(page.blocks[c].data, page.blocks[c].valid) for c in cols]
+    got = k1.expr_eval(prog, ins, page.capacity)
+    want = k1.expr_eval_plain(prog, ins, page.capacity)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][want[1]], want[0][want[1]])  # doubles bit for bit
+
+
+def _minmax_args(page):
+    b = page.blocks
+    return [(k2.MIN_SHORT, b[0].data, b[0].valid), (k2.MAX_SHORT, b[0].data, b[0].valid),
+            (k2.MIN_SHORT, b[1].data, b[1].valid), (k2.MAX_SHORT, b[1].data, b[1].valid),
+            (k2.MIN_LONG, b[2].data, b[2].valid), (k2.MAX_LONG, b[2].data, b[2].valid),
+            (k2.COUNT_STAR, None, None)]
+
+
+@pytest.mark.parametrize("slots", [1, 40, 16384])
+def test_packed_group_agg_minmax_matches_plain(slots):
+    """min/max states on the global, shared-memory and global-atomics
+    paths; some groups see only NULLs."""
+    dev = _cuda()
+    page = _minmax_page(1 << 20, slots, dev)
+    b = page.blocks
+    keys = [] if slots == 1 else [(torch.remainder(b[4].data * 977, slots - 1), b[4].valid,
+                                   0, slots)]
+    args = _minmax_args(page)
+    got = k2.packed_group_agg(page.capacity, page.row_mask, keys, args, slots)
+    want = k2.packed_group_agg_plain(page.capacity, page.row_mask, keys, args, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[0], want[0]):
+        for x, y in zip(g, w):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    # fold two partial tables and finalize, every min/max kind
+    other = k2.packed_group_agg(page.capacity, ~page.row_mask, keys, args, slots)
+    kinds = [k3.COL_MIN_I32, k3.COL_I64, k3.COL_MAX_I32, k3.COL_I64, k3.COL_MIN_I64,
+             k3.COL_I64, k3.COL_MAX_I64, k3.COL_I64, k3.COL_MIN_D128, k3.COL_I64,
+             k3.COL_MAX_D128, k3.COL_I64, k3.COL_I64]
+
+    def cols(states, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for s in states for t in s])]
+
+    a, c = cols(*got), cols(*other)
+    fold = k3.packed_fold(a, c, got[1], other[1])
+    fold_want = k3.packed_fold_plain(a, c, got[1], other[1])
+    torch.cuda.synchronize()
+    for x, y in zip(fold[0], fold_want[0]):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+    f = [d for d, _ in fold[0]]
+    items = [(k3.FIN_VALUE_I32, f[0], f[1]), (k3.FIN_VALUE_I32, f[2], f[3]),
+             (k3.FIN_SUM, f[4], f[5]), (k3.FIN_SUM, f[6], f[7]),
+             (k3.FIN_SUM_D128, f[8], f[9]), (k3.FIN_SUM_D128, f[10], f[11])]
+    for (gd, gv), (wd, wv) in zip(k3.packed_finalize(items, fold[1]),
+                                  k3.packed_finalize_plain(items, fold[1])):
+        assert torch.equal(gv, wv) and torch.equal(gd[wv], wd[wv])
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_sorted_group_agg_minmax_matches_plain(presorted):
+    """K6's min/max states (sort path and presorted mode, whose keys
+    come in runs with dead rows between equal keys)."""
+    dev = _cuda()
+    page = _minmax_page(1 << 20, 50, dev)
+    b = page.blocks
+    key = torch.arange(1 << 20, device=dev) // 7 if presorted else \
+        torch.remainder(b[1].data, 50000)
+    keys = [(key, torch.ones_like(b[4].valid), 0, 0 if presorted else 50001)]
+    states = [(k6.S_MIN, b[0].data, b[0].valid), (k6.S_MAX, b[0].data, b[0].valid),
+              (k6.S_MIN, b[4].data, b[4].valid), (k6.S_MAX, b[4].data, b[4].valid),
+              (k6.S_MIN_LONG, b[2].data, b[2].valid), (k6.S_MAX_LONG, b[2].data, b[2].valid),
+              (k6.S_ONE, None, None), (k6.S_SUM, b[4].data, b[4].valid)]
+    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted)
+    want = k6.sorted_group_agg_plain(keys, page.row_mask, states, presorted)
+    torch.cuda.synchronize()
+    assert got[2] == want[2] > 1000
+    for x, y in zip(got[0] + got[1], want[0] + want[1]):
+        if isinstance(x, tuple):
+            assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+        else:
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_topn_up_to_100_matches_plain():
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    n = 1 << 20
+    limbs = torch.from_numpy(np.stack([rng.integers(-3, 3, n), rng.integers(0, 4, n)], 1))
+    keys = [(limbs.to(dev), torch.from_numpy(rng.random(n) >= 0.01).to(dev), False, True),
+            (torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)).to(dev),
+             torch.from_numpy(rng.random(n) >= 0.3).to(dev), True, False)]
+    mask = torch.from_numpy(rng.random(n) >= 0.2).to(dev)
+    for k in (33, 64, 100):
+        got = k7.topn(keys, mask, k)
+        want = k7.topn_plain(keys, mask, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    few = torch.zeros_like(mask)
+    few[::50000] = True  # fewer live rows than n
+    got, want = k7.topn(keys, few, 100), k7.topn_plain(keys, few, 100)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_aggregation_slice_on_the_card_equals_the_cpu_run():
+    """TPC-H Q2, Q7, Q8, Q9, Q11, Q15, Q17, Q18, Q21 and Q22 at sf 0.01
+    on the card, with K1's new opcodes, the min/max states, K6's
+    presorted mode and K7 at n = 100 launched."""
+    _cuda()
+    from presto_tpu_torch.testing import LocalQueryRunner
+
+    gpu = LocalQueryRunner(sf=0.01, device="cuda")
+    cpu = LocalQueryRunner(sf=0.01, device="cpu")
+    k1.op_launches.clear()
+    for mod in (k2, k6):
+        mod.minmax_launches = 0
+    k6.presorted_launches = k7.wide_launches = 0
+    for q in (2, 7, 8, 9, 11, 15, 17, 18, 21, 22):
+        assert gpu.execute(QUERIES[q]).rows == cpu.execute(QUERIES[q]).rows
+    assert set(k1.op_launches) == {"year", "s2d", "lcmp", "not_null"}
+    assert k2.minmax_launches > 0 and k6.minmax_launches > 0
+    assert k6.presorted_launches > 0 and k7.wide_launches > 0

@@ -81,9 +81,11 @@ def test_join_forms_outside_tpch_equal_reference(runners, sql):
 
 def test_memory_connector_with_the_smoke_run_tables(runners):
     """chip_smoke.py's shape: the eight TPC-H tables, pruned to the
-    columns its twelve queries read, loaded into a MemoryConnector with
-    their domains and primary keys; every query's rows equal the
-    generator-backed runner's."""
+    columns its 22 queries read, loaded into a MemoryConnector with
+    their domains, primary keys and sort orders; every query's rows,
+    over those tables and over its own catalog of the columns its SQL
+    names (``query_catalog``), equal the generator-backed runner's, and
+    Q18 keeps its streaming aggregation there."""
     import importlib.util
     import pathlib
 
@@ -106,6 +108,13 @@ def test_memory_connector_with_the_smoke_run_tables(runners):
     catalog = Catalog()
     catalog.register("tpch", mem)
     runner = QueryRunner(catalog, device="cpu")
-    assert len(smoke.QUERIES) == 12
+    assert len(smoke.QUERIES) == 22
     for label, sql in smoke.QUERIES.items():
-        assert runner.execute(sql).rows == runners[1].execute(sql).rows, label
+        want = runners[1].execute(sql).rows
+        assert runner.execute(sql).rows == want, label
+        ordered = smoke.streamed_tables(runner.plan(sql))
+        assert (label == "q18") == bool(ordered), label
+        own = QueryRunner(smoke.query_catalog(mem, sql, ordered), device="cpu")
+        assert own.execute(sql).rows == want, label
+        if label == "q18":
+            assert smoke.streamed_tables(own.plan(sql)) == {"lineitem"}
