@@ -6,9 +6,12 @@ Phases (any failure exits non-zero before the result line):
 
 1. the card's name and power limit;
 2. build the CUDA kernels from ``presto_tpu_torch/csrc`` (all ``nvcc``
-   runs at once, while the TPC-H tables lineitem, orders, customer,
-   part, partsupp, supplier, nation and region are generated on the
-   host at SF10) and print each ``-Xptxas -v`` summary;
+   runs at once, while the host generates the TPC-H tables lineitem,
+   orders, customer, part, partsupp, supplier, nation and region at
+   SF10 and again at SF 1, and the TPC-DS tables the slice's queries
+   read at SF10: store_sales 28.8M rows, catalog_sales 14.4M, web_sales
+   7.2M, customer_demographics 1.9M, ...) and print each ``-Xptxas -v``
+   summary;
 3. hold each kernel against its plain PyTorch version on the card,
    with exact equality, and time both with CUDA events: K1 expr_eval
    (Q6's filter, Q1's sum_charge argument, Q14's CASE/LIKE argument and
@@ -24,23 +27,32 @@ Phases (any failure exits non-zero before the result line):
    of every split's partials), K7 topn (Q3's top 10), K8 join_expand
    (Q13's left probe, the same as a FULL join with its matched mask,
    Q5's inner probe) and K9 hash_keys (Q10's seven keys over its first
-   split and over its merge, Q13's c_count); and the fourth slice's
+   split and over its merge, Q13's c_count); the fourth slice's
    opcodes, states and modes: K1's date part (Q7's year), short decimal
    to double (Q17), long comparisons (Q11, Q15) and null test (Q21),
    K6's min/max over Q21's first lineitem split and over its merge,
    K2's long max and K3's fold and finalize of it (Q15), K6's presorted
-   mode (Q18's first lineitem split) and K7 at n = 100 (Q18);
-4. run all 22 TPC-H queries (``tests/tpch_queries.py``) through
-   ``QueryRunner.execute``, each over a ``MemoryConnector`` that holds
-   only the columns its SQL names (the tensors on the card are shared,
-   not copied); every kernel launch counter is set to 0 just before
-   each query and read just after it, and the run fails unless each
-   query launched the kernels of its path; the rows must equal the same
-   queries run by the port on the CPU over the same generated data,
-   exactly (doubles included); where Q11 or Q22 has no row at this
-   scale, its variant (Q11 with the spec's FRACTION of 0.0001 / SF, Q22
-   without its anti join) runs and is checked too;
-5. print per-query wall time, lineitem rows/s and a trace summary, a
+   mode (Q18's first lineitem split) and K7 at n = 100 (Q18); and the
+   fifth slice's: K10 window_eval over a whole 2^23-row store_sales
+   split (partition by ss_item_sk, order by ss_net_profit: rank,
+   row_number, a ROWS-frame sum and avg) and over the real window input
+   of each windowed TPC-DS query, K1's double opcodes where q53, q63,
+   q89, q47 and q57 run them, K7's double key (q89's top 100) and K3's
+   avg of an integer as a double (q7's finalize);
+4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10, then
+   (TPC-H's tables freed) TPC-DS q3, q7, q12, q20, q98, q53, q63, q89,
+   q44, q47, q57, q51 and q13 (``tests/tpcds_queries.py``) at SF10,
+   through ``QueryRunner.execute``, each over a ``MemoryConnector``
+   that holds only the columns its SQL names (the tensors on the card
+   are shared, not copied); every kernel launch counter is set to 0 just
+   before each query and read just after it, and the run fails unless
+   each query launched the kernels of its path;
+5. check rows against the same queries run by the port on the CPU over
+   the same generated data, exactly (doubles included): TPC-DS at SF10
+   (the rows of phase 4), TPC-H at SF 1 (the card runs the 22 queries
+   again over the SF 1 tables; Q22, which finds no row there, also
+   without its anti join);
+6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -49,6 +61,7 @@ Imports nothing of JAX and nothing of the ``presto_tpu`` package.
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import pathlib
@@ -64,6 +77,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SF = 10.0  # TPC-H scale factor: ~60M lineitem rows
 SPLIT_ROWS = 1 << 23  # rows per lineitem split, as bench.py uses on an accelerator
 REPS = 3  # timed repetitions per query after the counted run
+# the TPC-H rows are checked against the CPU at this scale (the card runs
+# the 22 queries again over these tables), so that the TPC-DS path's CPU
+# check fits the run's time
+TPCH_CHECK_SF = 1.0
+DS_SF = 10.0  # TPC-DS: store_sales 28.8M rows, catalog_sales 14.4M, web_sales 7.2M
+DS_SPLIT_ROWS = 1 << 23
 # the columns the 22 queries read; lineitem's l_linenumber keeps its
 # declared order (l_orderkey, l_linenumber), which a connector keeps
 # only with both columns and Q18's streaming aggregation reads
@@ -85,10 +104,11 @@ TABLES = {
 }
 
 
-def _tpch_queries() -> dict:
-    """The TPC-H query texts the tests use (``tests/tpch_queries.py``)."""
-    path = pathlib.Path(__file__).resolve().parent / "tests" / "tpch_queries.py"
-    spec = importlib.util.spec_from_file_location("tpch_queries", path)
+def _tpch_queries(module: str = "tpch_queries") -> dict:
+    """The query texts the tests use (``tests/tpch_queries.py``, or
+    ``tests/tpcds_queries.py``)."""
+    path = pathlib.Path(__file__).resolve().parent / "tests" / f"{module}.py"
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.QUERIES
@@ -98,20 +118,27 @@ SQL = _tpch_queries()
 Q6, Q1, Q14, Q3 = SQL[6], SQL[1], SQL[14], SQL[3]
 QUERIES = {f"q{q}": SQL[q] for q in (6, 1, 14, 3, 4, 5, 10, 12, 13, 16, 19, 20,
                                       2, 7, 8, 9, 11, 15, 17, 18, 21, 22)}
+DS_SQL = _tpch_queries("tpcds_queries")
+# the fifth slice: the bench's q3 and q7, the windowed queries, and q13
+# (nine dictionary tables in one predicate)
+DS_QUERIES = {f"ds_q{q}": DS_SQL[q] for q in (3, 7, 12, 20, 98, 53, 63, 89, 44, 47, 57, 51,
+                                              13)}
+DS_WINDOWED = ("ds_q12", "ds_q20", "ds_q98", "ds_q53", "ds_q63", "ds_q89", "ds_q44",
+               "ds_q47", "ds_q57", "ds_q51")
 
 
-def empty_variants() -> dict:
-    """What runs where a query finds no row at ``SF``: Q11 with the
+def empty_variants(sf: float) -> dict:
+    """What runs where a query finds no row at ``sf``: Q11 with the
     spec's FRACTION of 0.0001 / SF (the SQL's 0.0001 is SF 1's), Q22
     without its anti join (the generator gives nearly every customer an
     order)."""
-    fraction = f"{0.0001 / SF:.12f}".rstrip("0")
+    fraction = f"{0.0001 / sf:.12f}".rstrip("0")
     variants = {"q11": SQL[11].replace("* 0.0001", f"* {fraction}"),
                 "q22": SQL[22].replace(
                     "and not exists (\n            select * from orders where o_custkey "
                     "= c_custkey\n        )", "")}
     for label, sql in variants.items():
-        if sql == QUERIES[label] and SF != 1:
+        if sql == QUERIES[label] and sf != 1:
             raise AssertionError(f"{label}: the variant's text was not found")
     return variants
 # the kernels each query's path must launch; "join_probe:<kind>" counts
@@ -158,6 +185,34 @@ REQUIRED = {
     "q22": ("expr_eval", "expr_eval:in", "join_build", "join_probe:anti", "packed_group_agg",
             "sorted_group_agg"),
 }
+# "window_eval" is K10; "expr_eval:double" K1 launches of programs that
+# hold a double opcode (each opcode also by its own name);
+# "packed_fold_finalize:avg_double" K3 finalizes with an integer's avg
+# as a double; "topn:double" K7 launches with a double key
+_DOUBLE_FILTER = ("expr_eval:double", "expr_eval:load_f64", "expr_eval:dsub",
+                  "expr_eval:dabs", "expr_eval:dcmp")
+DS_REQUIRED = {
+    "ds_q3": ("expr_eval", "join_build", "join_probe", "sorted_group_agg",
+              "packed_fold_finalize", "topn"),
+    "ds_q7": ("expr_eval", "join_build", "join_probe", "sorted_group_agg",
+              "packed_fold_finalize:avg_double", "topn"),
+    "ds_q12": ("expr_eval:s2d", "join_build", "join_probe", "sorted_group_agg",
+               "window_eval"),
+    "ds_q20": ("expr_eval:s2d", "join_build", "join_probe", "sorted_group_agg",
+               "window_eval", "topn"),
+    "ds_q98": ("expr_eval:s2d", "join_build", "join_probe", "sorted_group_agg",
+               "window_eval"),
+    "ds_q53": ("join_build", "join_probe", "window_eval") + _DOUBLE_FILTER,
+    "ds_q63": ("join_build", "join_probe", "window_eval", "topn:double") + _DOUBLE_FILTER,
+    "ds_q89": ("join_build", "join_probe", "window_eval", "topn:double") + _DOUBLE_FILTER,
+    "ds_q44": ("expr_eval", "join_build", "sorted_group_agg", "window_eval"),
+    "ds_q47": ("join_build", "join_probe", "join_expand", "window_eval", "topn")
+    + _DOUBLE_FILTER,
+    "ds_q57": ("join_build", "join_probe", "join_expand", "window_eval", "topn")
+    + _DOUBLE_FILTER,
+    "ds_q51": ("join_build", "join_probe", "join_expand", "sorted_group_agg", "window_eval"),
+    "ds_q13": ("expr_eval", "join_build", "join_probe", "packed_fold_finalize:avg_double"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -169,6 +224,7 @@ REPLACES = {
     "topn": "presto_tpu/ops/sort.py:121",
     "join_expand": "presto_tpu/ops/join.py:376",
     "hash_keys": "presto_tpu/ops/aggregate.py:1686",
+    "window_eval": "presto_tpu/ops/window.py:106",
 }
 
 
@@ -1053,6 +1109,156 @@ def check_aggregation_kernels(report: KernelReport, runners) -> None:
     ex._builds.clear()
 
 
+def same_bits(a, b, what: str) -> int:
+    """:func:`same` with doubles compared by their bits (NaN and -0.0
+    included)."""
+    def bits(x):
+        if isinstance(x, torch.Tensor):
+            return x.view(torch.int64) if x.dtype == torch.float64 else x
+        return [bits(y) for y in x]
+
+    return same(bits(a), bits(b), what)
+
+
+def k10_row(report: KernelReport, name: str, inputs) -> None:
+    """K10 against its plain version on ``inputs`` (``window_inputs``:
+    the permutation, row mask, partition key, order keys, functions and
+    arguments); bound: each input read once, each output written once."""
+    from presto_tpu_torch.kernels import window_eval as k10
+
+    got = k10.window_eval(*inputs)
+    err = same_bits(got, k10.window_eval_plain(*inputs), name)
+    ms = cuda_ms(lambda: k10.window_eval(*inputs), 5)
+    plain = cuda_ms(lambda: k10.window_eval_plain(*inputs), 2)
+    perm, mask, pkey, order, funcs, args = inputs
+    in_bytes = nbytes(perm, mask, pkey, *[t for c in order for t in c],
+                      *[t for a in args if a is not None for t in a])
+    report.add(name, "cuda", "presto_tpu_torch/csrc/window_eval.cu", err, ms, plain,
+               in_bytes + nbytes(*[t for o in got for t in o]))
+    log(f"{name}: {perm.shape[0]} rows, {int(mask.sum())} live, "
+        f"{len(funcs)} functions ({', '.join(k10.KIND_NAMES[f.kind] for f in funcs)})")
+
+
+def source_page(ex, node):
+    """The page a breaker's source gives (its pages concatenated)."""
+    from presto_tpu_torch.page import concat_pages_device
+
+    try:
+        return concat_pages_device(list(ex._pages(node)))
+    finally:
+        ex._builds.clear()
+
+
+def check_window_kernels(report: KernelReport, ds_runners, ds_mem) -> None:
+    """Phase 3, the fifth slice: K10 over one whole store_sales split
+    (partition by ss_item_sk, order by ss_net_profit: rank, row_number,
+    and a ROWS-frame sum and avg) and over the real window input of each
+    windowed query; K1's double opcodes where each query runs them; K7's
+    double key (q89's top 100); K3's double avg (q7's finalize)."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.expr.ir import ColumnRef
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+    from presto_tpu_torch.kernels import topn as k7
+    from presto_tpu_torch.ops.aggregate import _finalize_kind, _slice_state_cols, merge_aggregate
+    from presto_tpu_torch.ops.sort import topn_keys
+    from presto_tpu_torch.ops.window import WindowFunc, window_inputs
+    from presto_tpu_torch.planner.plan import (
+        AggregationNode, FilterNode, ProjectNode, TopNNode, WindowNode,
+    )
+
+    page = ds_mem.page_for_split("store_sales", 0)
+    names = [c for c, _ in ds_mem.schema("store_sales")]
+    types = dict(ds_mem.schema("store_sales"))
+    item, profit = (ColumnRef(type=types[c], index=names.index(c))
+                    for c in ("ss_item_sk", "ss_net_profit"))
+    rows = ("rows", -2, 0)
+    funcs = [WindowFunc("rank"), WindowFunc("row_number"),
+             WindowFunc("sum", profit, frame=rows), WindowFunc("avg", profit, frame=rows)]
+    k10_row(report, "window_eval", window_inputs(
+        page, [item], [profit], [True], funcs,
+        [ds_mem.column_domain("store_sales", "ss_item_sk")]))
+    for label in DS_WINDOWED:
+        ex = ds_runners[label].executor
+        plan = ds_runners[label].plan(DS_QUERIES[label])
+        seen = []  # a CTE read twice repeats its window nodes: each spec once
+        for node in find_all(plan, WindowNode):
+            spec = (repr(node.partition_exprs), repr(node.order_exprs), repr(node.funcs),
+                    repr(node.source))
+            if spec in seen:
+                continue
+            seen.append(spec)
+            src = source_page(ex, node.source)
+            j = len(seen) - 1
+            k10_row(report, f"window_eval@{label}" + (f"_{j}" if j else ""), window_inputs(
+                src, list(node.partition_exprs), list(node.order_exprs), list(node.ascending),
+                list(node.funcs), node.partition_domains))
+
+    # K1: the first filter or projection of each query that runs a
+    # double opcode, over the page its node sees
+    for label in DS_QUERIES:
+        ex = ds_runners[label].executor
+        plan = ds_runners[label].plan(DS_QUERIES[label])
+        for node in find_all(plan, (FilterNode, ProjectNode)):
+            exprs = [node.predicate] if isinstance(node, FilterNode) else list(node.projections)
+            exprs = [e for e in exprs if any(
+                x.type.name == "double" for c in calls_in(e) for x in (c,) + tuple(c.args))]
+            hit = None
+            if exprs:
+                page = first_split(ex, node.source)
+                ex._builds.clear()
+                for e in exprs:
+                    prog, _ = ExprCompiler.for_page(page).lower(e)
+                    if k1.DOUBLE_OPS & set(prog.ops):
+                        hit = (e, page)
+                        break
+            if hit is not None:
+                k1_row(report, f"expr_eval@{label}_double", hit[0], hit[1],
+                       filt=isinstance(node, FilterNode), counter="expr_eval:double")
+                break
+
+    # K7 over q89's double key: its top 100 of every grouped row
+    label = "ds_q89"
+    ex = ds_runners[label].executor
+    top = find_all(ds_runners[label].plan(DS_QUERIES[label]), TopNNode)[0]
+    page = source_page(ex, top.source)
+    keys = topn_keys(page, top.sort_exprs, top.ascending, top.nulls_first)
+    if not any(d.dtype == torch.float64 for d, _, _, _ in keys):
+        raise AssertionError(f"{label}: its top-n has no double key")
+    n = top.count
+    err = same(k7.topn(keys, page.row_mask, n), k7.topn_plain(keys, page.row_mask, n),
+               f"topn {label}")
+    ms = cuda_ms(lambda: k7.topn(keys, page.row_mask, n), 20)
+    plain = cuda_ms(lambda: k7.topn_plain(keys, page.row_mask, n), 5)
+    report.add(f"topn@{label}_double", "cuda", "presto_tpu_torch/csrc/topn.cu", err, ms, plain,
+               nbytes(page.row_mask, *[t for d, v, _, _ in keys for t in (d, v)]) + 4 * n + 4,
+               counter="topn:double")
+    log(f"{label} top {n} of {page.capacity} rows ({int(page.row_mask.sum())} live)")
+
+    # K3: q7's finalize of its merged states (avg of an integer -> double)
+    label = "ds_q7"
+    ex = ds_runners[label].executor
+    agg = [a for a in find_all(ds_runners[label].plan(DS_QUERIES[label]), AggregationNode)
+           if a.step == "single"][0]
+    cat = source_page(ex, ex.partial_node(agg))
+    nk = len(agg.group_exprs)
+    merged = merge_aggregate(cat, nk, list(agg.aggs), agg.max_groups,
+                             key_domains=agg.key_domains, mode="partial")
+    items = [(_finalize_kind(a), cols[0].data, cols[-1].data)
+             for a, cols in zip(agg.aggs, _slice_state_cols(merged, nk, agg.aggs))]
+    if not any(k == k3.FIN_AVG_DOUBLE for k, _, _ in items):
+        raise AssertionError(f"{label}: no avg finalizes to a double")
+    got = k3.packed_finalize(items, merged.row_mask)
+    err = same_bits(got, k3.packed_finalize_plain(items, merged.row_mask), f"finalize {label}")
+    ms = cuda_ms(lambda: k3.packed_finalize(items, merged.row_mask), 50)
+    plain = cuda_ms(lambda: k3.packed_finalize_plain(items, merged.row_mask), 10)
+    report.add(f"packed_fold_finalize@{label}_avg_double", "cuda",
+               "presto_tpu_torch/csrc/packed_fold_finalize.cu", err, ms, plain,
+               nbytes(merged.row_mask, *[t for _, a, b in items for t in (a, b)],
+                      *[t for o in got for t in o]), counter="packed_fold_finalize:avg_double")
+    log(f"{label} finalize: {merged.capacity} groups")
+
+
 def profile_query(runner, sql: str) -> str:
     """One traced run of ``sql``: device-busy share of its wall time
     and the device time of its heaviest kernels (torch.profiler)."""
@@ -1084,13 +1290,13 @@ def profile_query(runner, sql: str) -> str:
 def counters():
     from presto_tpu_torch.kernels import (
         expr_eval, join_build, join_expand, join_probe, keys, packed_fold_finalize,
-        packed_group_agg, sorted_group_agg, topn,
+        packed_group_agg, sorted_group_agg, topn, window_eval,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
             "packed_fold_finalize": packed_fold_finalize, "join_build": join_build,
             "join_probe": join_probe, "sorted_group_agg": sorted_group_agg, "topn": topn,
-            "join_expand": join_expand, "hash_keys": keys}
+            "join_expand": join_expand, "hash_keys": keys, "window_eval": window_eval}
 
 
 # counters of one kind of launch: (kernel, attribute, name in the counts)
@@ -1098,7 +1304,10 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("packed_group_agg", "minmax_launches", "packed_group_agg:minmax"),
               ("sorted_group_agg", "minmax_launches", "sorted_group_agg:minmax"),
               ("sorted_group_agg", "presorted_launches", "sorted_group_agg:presorted"),
-              ("topn", "wide_launches", "topn:n>32"))
+              ("topn", "wide_launches", "topn:n>32"),
+              ("expr_eval", "double_launches", "expr_eval:double"),
+              ("topn", "double_launches", "topn:double"),
+              ("packed_fold_finalize", "double_avg_launches", "packed_fold_finalize:avg_double"))
 
 
 def reset_counts() -> None:
@@ -1131,26 +1340,68 @@ def streamed_tables(plan) -> set:
             for scan in find_all(agg, TableScanNode)}
 
 
-def query_catalog(conn, sql: str, ordered=()):
+def query_catalog(conn, sql: str, ordered=(), tables=None, name: str = "tpch"):
     """A catalog over ``conn``'s tables pruned to the columns ``sql``
-    names (TPC-H's column names are unique words), plus the declared
-    sort order's columns of the ``ordered`` tables (those a streaming
-    aggregation reads): a MemoryConnector on ``conn``'s device whose
-    pages share ``conn``'s tensors."""
+    names (TPC-H's and TPC-DS's column names are unique words), plus
+    the declared sort order's columns of the ``ordered`` tables (those a
+    streaming aggregation reads): a MemoryConnector on ``conn``'s device
+    whose pages share ``conn``'s tensors."""
     import re
 
     from presto_tpu_torch.catalog import Catalog
     from presto_tpu_torch.connectors.memory import MemoryConnector
 
     pruned = MemoryConnector(device=conn.device)
-    for table, columns in TABLES.items():
+    for table, columns in (TABLES if tables is None else tables).items():
         named = [c for c in columns if re.search(rf"\b{c}\b", sql)
                  or (table in ordered and c in conn.sort_order(table))]
         if named:
             pruned.load_from(conn, table, columns=named)
     catalog = Catalog()
-    catalog.register("tpch", pruned)
+    catalog.register(name, pruned)
     return catalog
+
+
+def ds_tables() -> dict:
+    """The TPC-DS tables the slice's queries read, each with the columns
+    any of them names."""
+    import re
+
+    from presto_tpu_torch.connectors.tpcds import SCHEMAS
+
+    out = {}
+    for table, schema in SCHEMAS.items():
+        if any(re.search(rf"\b{table}\b", sql) for sql in DS_QUERIES.values()):
+            out[table] = [c for c, _ in schema
+                          if any(re.search(rf"\b{c}\b", sql) for sql in DS_QUERIES.values())]
+    return out
+
+
+def run_counted(runners, queries, required, launches, results, wall) -> None:
+    """Each query once with every launch counter set to 0 just before
+    it and read just after; fails unless it launched its path's kernels."""
+    for label, sql in queries.items():
+        runners[label].execute(sql)  # plans and warms the allocator
+    torch.cuda.synchronize()
+    for label, sql in queries.items():
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results[label] = runners[label].execute(sql)
+        wall[label] = [time.perf_counter() - t0]
+        launches[label] = read_counts()
+        log(f"{label} launches: {launches[label]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        missing = [k for k in required[label] if launches[label].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels of its path not launched: {missing}")
+
+
+def check_rows(label, got, ref, may_be_empty=False) -> None:
+    if ref.rows != got.rows:
+        raise AssertionError(f"{label}: card rows {got.rows} != CPU rows {ref.rows}")
+    if not got.rows and not may_be_empty:
+        raise AssertionError(f"{label}: no rows")
 
 
 def main() -> int:
@@ -1159,6 +1410,7 @@ def main() -> int:
         return 2
     from presto_tpu_torch.catalog import Catalog
     from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.connectors.tpcds import Tpcds
     from presto_tpu_torch.connectors.tpch import Tpch
     from presto_tpu_torch.kernels import build
     from presto_tpu_torch.runner import QueryRunner
@@ -1180,10 +1432,15 @@ def main() -> int:
     t0 = time.perf_counter()
     build_thread = threading.Thread(target=do_build)
     build_thread.start()
-    host = MemoryConnector(device="cpu")
-    tpch = Tpch(sf=SF, split_rows=SPLIT_ROWS)
-    for table, columns in TABLES.items():
-        host.load_from(tpch, table, columns=columns)
+    host, host_check, host_ds = (MemoryConnector(device="cpu") for _ in range(3))
+    for conn, sf in ((host, SF), (host_check, TPCH_CHECK_SF)):
+        tpch = Tpch(sf=sf, split_rows=SPLIT_ROWS)
+        for table, columns in TABLES.items():
+            conn.load_from(tpch, table, columns=columns)
+    ds_cols = ds_tables()
+    tpcds = Tpcds(sf=DS_SF, split_rows=DS_SPLIT_ROWS)
+    for table, columns in ds_cols.items():
+        host_ds.load_from(tpcds, table, columns=columns)
     gen_s = time.perf_counter() - t0
     build_thread.join()
     if build_err:
@@ -1193,14 +1450,18 @@ def main() -> int:
         log(f"--- ptxas {kname}\n{build.ptxas_report.get(kname, '(cached build)').strip()}")
     lineitem_rows = host.row_count("lineitem")
     log(f"sf={SF}: " + ", ".join(f"{t} {host.row_count(t)} rows in {host.num_splits(t)} "
-                                 f"splits" for t in TABLES)
+                                 f"splits" for t in TABLES))
+    log(f"TPC-DS sf={DS_SF}: " + ", ".join(
+        f"{t} {host_ds.row_count(t)} rows in {host_ds.num_splits(t)} splits" for t in ds_cols)
         + f"; generated in {gen_s:.1f} s; kernels built by {build_s:.1f} s")
 
-    mem = MemoryConnector(device="cuda")
+    mem, mem_check, mem_ds = (MemoryConnector(device="cuda") for _ in range(3))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for table in TABLES:
-        mem.load_from(host, table)
+    for conn, src, tables in ((mem, host, TABLES), (mem_check, host_check, TABLES),
+                              (mem_ds, host_ds, ds_cols)):
+        for table in tables:
+            conn.load_from(src, table)
     torch.cuda.synchronize()
     log(f"tables on the card in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -1212,75 +1473,82 @@ def main() -> int:
     ordered = {label: streamed_tables(runner.plan(sql)) for label, sql in QUERIES.items()}
     runners = {label: QueryRunner(query_catalog(mem, sql, ordered[label]), device="cuda")
                for label, sql in QUERIES.items()}
-    variants = empty_variants()
+    ds_runners = {label: QueryRunner(query_catalog(mem_ds, sql, tables=ds_cols, name="tpcds"),
+                                     device="cuda") for label, sql in DS_QUERIES.items()}
 
     report = KernelReport()
     check_kernels(report, runner, mem)
     check_join_kernels(report, runners)
     check_slice_kernels(report, runners)
     check_aggregation_kernels(report, runners)
+    check_window_kernels(report, ds_runners, mem_ds)
     torch.cuda.synchronize()
     log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # phase 4: the main path, each query counted on its own
-    for label, sql in QUERIES.items():
-        runners[label].execute(sql)  # plans and warms the allocator
-    torch.cuda.synchronize()
-    results, wall, launches = {}, {}, {}
-    for label, sql in QUERIES.items():
-        reset_counts()
-        t0 = time.perf_counter()
-        results[label] = runners[label].execute(sql)
-        wall[label] = [time.perf_counter() - t0]
-        launches[label] = read_counts()
-        log(f"{label} launches: {launches[label]}")
-        missing = [k for k in REQUIRED[label] if launches[label].get(k, 0) == 0]
-        if missing:
-            raise AssertionError(f"{label}: kernels of its path not launched: {missing}")
+    # phase 4: the main path, each query counted on its own, then timed
+    # and traced; TPC-H's SF10 tables leave the card before TPC-DS runs
+    from presto_tpu_torch.planner.plan import TableScanNode
+
+    results, wall, launches, scans = {}, {}, {}, {}
+
+    def drive(rs, queries, required):
+        run_counted(rs, queries, required, launches, results, wall)
+        for label, sql in queries.items():
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                rs[label].execute(sql)
+                wall[label].append(time.perf_counter() - t0)
+        for label, sql in queries.items():
+            log(f"{label} trace: {profile_query(rs[label], sql)}")
+            scans[label] = {n.handle.table for n in find_all(rs[label].plan(sql),
+                                                               TableScanNode)}
+
+    drive(runners, QUERIES, REQUIRED)
+    del runner, runners, catalog, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    drive(ds_runners, DS_QUERIES, DS_REQUIRED)
     for row in report.rows.values():
         kname = report.counters.get(row["name"], row["name"].split("@")[0])
         row["launches_by_query"] = {q: launches[q].get(kname, 0) for q in launches}
         row["launches"] = sum(row["launches_by_query"].values())
-    for label, sql in QUERIES.items():
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            runners[label].execute(sql)
-            wall[label].append(time.perf_counter() - t0)
 
-    for label, sql in QUERIES.items():
-        log(f"{label} trace: {profile_query(runners[label], sql)}")
-
-    # the same queries on the CPU over the same generated pages (each
-    # over its columns); a query's variant too where it finds no row
-    checks, may_be_empty = dict(QUERIES), set()
-    for label, sql in variants.items():
-        if not results[label].rows:
-            may_be_empty.add(label)
-            checks[f"{label}_variant"] = sql
-            results[f"{label}_variant"] = QueryRunner(
-                query_catalog(mem, sql), device="cuda").execute(sql)
-            log(f"{label} has no row at this scale: its variant runs too")
+    # the rows against the port's CPU run over the same generated pages
+    # (each query over its columns): TPC-H at TPCH_CHECK_SF, where the
+    # card runs the 22 queries again (and a query's variant where it
+    # finds no row); TPC-DS at DS_SF, the rows of the counted run
     t0 = time.perf_counter()
-    for label, sql in checks.items():
+    variants = empty_variants(TPCH_CHECK_SF)
+    cat_check = Catalog()
+    cat_check.register("tpch", mem_check)
+    ordered_check = {label: streamed_tables(QueryRunner(cat_check, device="cuda").plan(sql))
+                     for label, sql in QUERIES.items()}
+    checks = {}  # label -> (sql, ordered tables, may find no row)
+    for label, sql in QUERIES.items():
+        checks[label] = (sql, ordered_check[label], label in variants)
+        if variants.get(label, sql) != sql:
+            checks[f"{label}_variant"] = (variants[label], (), False)
+    for label, (sql, ordr, may_be_empty) in checks.items():
         t1 = time.perf_counter()
-        ref = QueryRunner(query_catalog(host, sql, ordered.get(label, ())),
+        got = QueryRunner(query_catalog(mem_check, sql, ordr), device="cuda").execute(sql)
+        ref = QueryRunner(query_catalog(host_check, sql, ordr), device="cpu").execute(sql)
+        check_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref, may_be_empty)
+        log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s)")
+    for label, sql in DS_QUERIES.items():
+        t1 = time.perf_counter()
+        ref = QueryRunner(query_catalog(host_ds, sql, tables=ds_cols, name="tpcds"),
                           device="cpu").execute(sql)
-        if ref.rows != results[label].rows:
-            raise AssertionError(f"{label}: card rows {results[label].rows} != "
-                                 f"CPU rows {ref.rows}")
-        if not results[label].rows and label not in may_be_empty:
-            raise AssertionError(f"{label}: no rows")
+        check_rows(label, results[label], ref)
         log(f"{label}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
-    log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s on the CPU)")
-    from presto_tpu_torch.planner.plan import TableScanNode
-
-    for label, sql in QUERIES.items():
+    log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
+    for label in list(QUERIES) + list(DS_QUERIES):
         med = statistics.median(wall[label])
-        scans = {n.handle.table for n in find_all(runners[label].plan(sql), TableScanNode)}
-        rate = (f", {lineitem_rows / med / 1e6:.1f} M lineitem rows/s"
-                if "lineitem" in scans else "")
+        fact, rows = ("lineitem", lineitem_rows) if label in QUERIES else (
+            "store_sales", host_ds.row_count("store_sales"))
+        rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         log(f"{label}: {results[label].rows}")
         log(f"{label}: wall {med * 1e3:.2f} ms median of {len(wall[label])} "
             f"({', '.join(f'{w * 1e3:.2f}' for w in wall[label])}){rate}")

@@ -11,7 +11,9 @@
 // _compile_datepart with _civil_from_days; a short decimal to double,
 // _to_double; comparisons with a long-decimal operand, run_lcmp of
 // _compile_cmp with decimal128.rescale and compare; is_null and
-// not_null) and presto_tpu/ops/filter_project.py
+// not_null; double columns, literals, + - * / negation and abs, and
+// comparisons in double space, _align_pair's double branch; integer
+// negation and abs with _ovf_neg) and presto_tpu/ops/filter_project.py
 // filter_page/project_page, which XLA fused into one program per chain.
 //
 // Bound on the H100: memory.  Each row reads its input columns' data
@@ -54,7 +56,7 @@
 #define K1_MAX_CONSTS 64
 #define K1_MAX_COLS 16
 #define K1_MAX_STACK 16
-#define K1_MAX_LUTS 8
+#define K1_MAX_LUTS 16
 #define K1_IN_COUNT_SHIFT 8
 
 // opcodes: keep in step with kernels/expr_eval.py
@@ -62,7 +64,8 @@ enum {
   OP_LOAD, OP_LIT, OP_NULL, OP_ADD, OP_SUB, OP_MUL, OP_SCALE_CHK, OP_SCALE,
   OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_BETWEEN, OP_AND, OP_OR, OP_NOT,
   OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV, OP_IN, OP_CANON,
-  OP_DATEPART, OP_S2D, OP_S2L, OP_LSCALE, OP_LCMP, OP_NOTNULL
+  OP_DATEPART, OP_S2D, OP_S2L, OP_LSCALE, OP_LCMP, OP_NOTNULL, OP_LOAD_F64, OP_DLIT,
+  OP_DADD, OP_DSUB, OP_DMUL, OP_DNEG, OP_DABS, OP_DCMP, OP_NEG, OP_ABS
 };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
 
@@ -198,6 +201,13 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         sd[sp - 1] = arg == 0 ? y : arg == 1 ? m : arg == 2 ? d : fdiv(m - 1, 3) + 1;
         break;
       }
+      case OP_NEG:
+      case OP_ABS: {  // arg 1: an int32 lane, whose least value has no negation
+        const i64 x = sd[sp - 1];
+        sv[sp - 1] = sv[sp - 1] && x != (arg ? -2147483648LL : I64_MIN);
+        sd[sp - 1] = op == OP_NEG || x < 0 ? wneg(x) : x;
+        break;
+      }
       case OP_NOTNULL:  // arg: 0 not_null, 1 is_null; never NULL itself
         sd[sp - 1] = arg ? !sv[sp - 1] : sv[sp - 1];
         sv[sp - 1] = true;
@@ -254,6 +264,20 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
           --sp;
         }
         break;
+      case OP_LOAD_F64:  // a double column's bits
+      case OP_DLIT:      // a double constant's bits
+        if constexpr (WIDE) {
+          sd[sp] = op == OP_DLIT ? p.consts[arg] : ((const i64*)p.col_data[arg])[row];
+          sv[sp] = op == OP_DLIT || p.col_valid[arg][row] != 0;
+          ++sp;
+        }
+        break;
+      case OP_DNEG:  // the sign bit flips, as -x does
+        if constexpr (WIDE) sd[sp - 1] = d2bits(-bits2d(sd[sp - 1]));
+        break;
+      case OP_DABS:
+        if constexpr (WIDE) sd[sp - 1] = d2bits(fabs(bits2d(sd[sp - 1])));
+        break;
       case OP_LOAD_LONG:
       case OP_L2D:
         if constexpr (WIDE) {
@@ -288,6 +312,23 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
             v = v && !(wide > (__int128)I64_MAX || wide < (__int128)I64_MIN);
             break;
           }
+          case OP_DADD:
+          case OP_DSUB:
+          case OP_DMUL:
+          case OP_DCMP:
+            if constexpr (WIDE) {
+              const double x = bits2d(a), y = bits2d(b);
+              if (op == OP_DCMP) {  // arg: 0 eq, 1 ne, 2 lt, 3 le, 4 gt, 5 ge
+                const bool r[6] = {x == y, x != y, x < y, x <= y, x > y, x >= y};
+                d = r[arg];
+              } else {
+                d = d2bits(op == OP_DADD ? __dadd_rn(x, y)
+                           : op == OP_DSUB ? __dsub_rn(x, y) : __dmul_rn(x, y));
+              }
+            } else {
+              d = 0;
+            }
+            break;
           case OP_MUL_LS:
           case OP_DDIV:
             if constexpr (WIDE) {

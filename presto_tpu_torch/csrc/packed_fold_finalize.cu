@@ -20,7 +20,9 @@
 // state value, NULL where its count is 0.  The finalize computes avg with HALF_UP rounding: a
 // short decimal in int64 exactly as the reference's overflow-free
 // form; a limb decimal through one exact __int128 division, which
-// equals the reference's base-10^6 long division.  Empty groups and
+// equals the reference's base-10^6 long division; an integer's avg as
+// a double, float64(sum) / float64(count) by __ddiv_rn, so it rounds as
+// the plain twin's division of two tensors.  Empty groups and
 // zero counts come out NULL.  Written in CUDA rather than Triton for
 // __int128 and to keep one build.
 
@@ -34,7 +36,7 @@ enum { COL_I64 = 0, COL_D128 = 1, COL_MIN_I64 = 2, COL_MAX_I64 = 3, COL_MIN_I32 
        COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7 };
 // finalize kinds
 enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
-       FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6 };
+       FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6, FIN_AVG_DOUBLE = 7 };
 
 struct K3Desc {
   int n_items;
@@ -133,6 +135,9 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
         break;
       }
       case FIN_AVG_D128: split128(avg128(d.in0[c] + 2 * g, n), d.out0[c] + 2 * g); break;
+      case FIN_AVG_DOUBLE:  // float64(sum) / float64(max(count, 1)), a true division
+        ((double*)d.out0[c])[g] = __ddiv_rn(__ll2double_rn(d.in0[c][g]), __ll2double_rn(n));
+        break;
       default: {  // FIN_AVG_D128_NARROW: the mean of a widened short sum
         i64 q[2];
         split128(avg128(d.in0[c] + 2 * g, n), q);

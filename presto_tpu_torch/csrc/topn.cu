@@ -14,7 +14,8 @@
 // Design: rows compare under one total order, the reference's: dead
 // rows never qualify; then key by key, the null rank (NULLs first or
 // last) and the value's lanes (a long decimal's two limbs, high limb
-// first; descending keys reverse the comparison); then the row
+// first; descending keys reverse the comparison; a double compares
+// by an int64 key that reproduces XLA's float order); then the row
 // position, which is how the stable sorts break ties.  Each thread
 // keeps its n best rows sorted in a list of row ids in shared memory
 // (insertion); a block merges its threads' lists pairwise in shared
@@ -31,7 +32,7 @@
 #define K7_MAX_KEYS 8
 #define K7_THREADS 64
 
-enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3 };
+enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3, TK_F64 = 4 };
 
 struct K7Keys {
   int n_keys;
@@ -42,11 +43,23 @@ struct K7Keys {
   int nulls_first[K7_MAX_KEYS];
 };
 
+// a double key as an int64 in ascending order (kernels/topn.py
+// double_sort_key): negated when descending, -0.0 as 0.0, every NaN
+// last, the bits of a negative double flipped below zero
+__device__ __forceinline__ i64 double_key(double x, bool asc) {
+  if (!asc) x = -x;
+  if (x != x) return I64_MAX;
+  if (x == 0.0) return 0;
+  const i64 b = __double_as_longlong(x);
+  return b < 0 ? b ^ I64_MAX : b;
+}
+
 __device__ __forceinline__ i64 lane(const K7Keys& k, int c, int j, i64 row) {
   switch (k.kind[c]) {
     case TK_BOOL: return ((const uint8_t*)k.data[c])[row] != 0;
     case TK_I32: return ((const int*)k.data[c])[row];
     case TK_I64: return ((const i64*)k.data[c])[row];
+    case TK_F64: return double_key(((const double*)k.data[c])[row], k.asc[c] != 0);
     default: return ((const i64*)k.data[c])[2 * row + j];
   }
 }
@@ -61,7 +74,8 @@ __device__ __forceinline__ bool before(const K7Keys& k, i64 a, i64 b) {
     const int lanes = k.kind[c] == TK_D128 ? 2 : 1;
     for (int j = 0; j < lanes; ++j) {
       const i64 xa = lane(k, c, j, a), xb = lane(k, c, j, b);
-      if (xa != xb) return k.asc[c] ? xa < xb : xa > xb;
+      // a double's key is already in ascending order
+      if (xa != xb) return k.asc[c] || k.kind[c] == TK_F64 ? xa < xb : xa > xb;
     }
   }
   return a < b;

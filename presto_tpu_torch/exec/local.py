@@ -11,12 +11,15 @@ rebuilds it down the sorted branch), a many-to-many join expands each
 probe page (K8) and, for FULL OUTER, emits the unmatched build rows
 last, the aggregation folds per-split packed partial tables slot by
 slot (K3) or merges the sort-path partials once (K6) and finalizes
-(K3), the sort orders the result and top-N picks its rows (K7).
+(K3), a window node sorts its input as one page and evaluates its
+functions (K10), the sort orders the result and top-N picks its rows
+(K7).
 
 Ported: table scans, filters, projections, every join kind (inner,
 left, full, semi, anti, mark; null-safe and null-aware keys) except
 index joins, the cross join with a one-row relation (a scalar
-subquery, broadcast on the device), ORDER BY, top-N, and global,
+subquery, broadcast on the device), window functions (one page, K10),
+ORDER BY, top-N, and global,
 packed-direct, sort-path or streaming (presorted) aggregation over
 exact or hashed keys.  Other plan nodes raise :class:`NotPorted`.  PyTorch runs eagerly, so there are no
 compiled-program caches and no capacity buckets: the sort path and the
@@ -44,6 +47,7 @@ from presto_tpu_torch.ops.join import (
     JoinBuild, build_join, outer_build_tail, probe_expand, probe_join,
 )
 from presto_tpu_torch.ops.sort import sort_page, topn_page
+from presto_tpu_torch.ops.window import window_page
 from presto_tpu_torch.page import Page, concat_pages_device, cross_append_single, pad_page_to
 from presto_tpu_torch.planner.plan import (
     AggregationNode,
@@ -56,6 +60,7 @@ from presto_tpu_torch.planner.plan import (
     SortNode,
     TableScanNode,
     TopNNode,
+    WindowNode,
 )
 from presto_tpu_torch.types import Type
 
@@ -168,6 +173,16 @@ class LocalRunner:
             return
         if isinstance(node, AggregationNode) and node.step in ("single", "final"):
             yield self._run_aggregation(node)
+            return
+        if isinstance(node, WindowNode):
+            # breaker: the source as one page, then the window functions
+            # over it (sort, then K10)
+            pages = list(self._pages(node.source))
+            src = concat_pages_device(pages) if pages else Page.empty(
+                node.source.output_types, 1, self.device)
+            yield window_page(src, list(node.partition_exprs), list(node.order_exprs),
+                              list(node.ascending), list(node.funcs),
+                              partition_domains=node.partition_domains)
             return
         if isinstance(node, JoinNode) and node.use_index:
             raise NotPorted("index join")

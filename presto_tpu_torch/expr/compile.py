@@ -11,10 +11,13 @@ reference's overflow-to-NULL rule, decimal rescale with its overflow
 guard, comparisons, BETWEEN, three-valued AND/OR/NOT, LIKE, IN and
 varchar comparisons against literals (one boolean table over the
 column's dictionary), IN over integer-lane literals, CASE/IF, long x
-short decimal products, and the double division of two long decimals
-(a zero divisor gives NULL).  ``ExprCompiler.compile_key`` also maps a
-key column's codes to their value's representative code where the
-dictionary repeats a value (the reference's ``canonicalize_codes``).
+short decimal products, double columns and literals, double ``+ - *
+/`` (a zero divisor gives NULL), negation and ``abs`` (over doubles and
+integer lanes), ``cast_double`` of a number, and comparisons with a
+double operand, which compare both sides as doubles (``_to_double``).
+``ExprCompiler.compile_key`` also maps a key column's codes to their
+value's representative code where the dictionary repeats a value (the
+reference's ``canonicalize_codes``).
 Anything else raises :class:`NotPorted`.
 
 ``expr_dictionary`` is the torch-free type-level helper the planner
@@ -234,16 +237,18 @@ class _Lowering:
     def _fold(self, start: int) -> None:
         """Replace the constant instructions from ``start`` by their
         value, computed by the plain evaluator on one row."""
-        if len(self.ops) - start == 1 and self.ops[start] in (k1.LIT, k1.NULL):
+        if len(self.ops) - start == 1 and self.ops[start] in (k1.LIT, k1.DLIT, k1.NULL):
             return
         prog = k1.Program(tuple(self.ops[start:]), tuple(self.args[start:]),
                           tuple(self.consts), 0, k1.KIND_I64)
         d, v = k1.expr_eval_plain(prog, [], 1)
         del self.ops[start:], self.args[start:]
-        if bool(v[0]):
-            self._push(k1.LIT, self._const(int(d[0])))
-        else:
+        if not bool(v[0]):
             self._push(k1.NULL)
+        elif d.is_floating_point():
+            self._push(k1.DLIT, self._const(k1.double_bits(float(d[0]))))
+        else:
+            self._push(k1.LIT, self._const(int(d[0])))
 
     def _load(self, index: int, op: int) -> None:
         if index not in self.columns:
@@ -257,16 +262,17 @@ class _Lowering:
                 self._load(e.index, k1.LOAD)  # dictionary codes
                 return False
             lane = _lane(e.type)
-            if lane == DOUBLE:
-                raise NotPorted("expressions over double columns")
-            self._load(e.index, k1.LOAD_LONG if lane == LONG else k1.LOAD)
+            self._load(e.index, {LONG: k1.LOAD_LONG, DOUBLE: k1.LOAD_F64}.get(lane, k1.LOAD))
             return False
         if isinstance(e, Literal):
-            if _lane(e.type) != SHORT:
-                raise NotPorted(f"{e.type} literals")
             if e.value is None:
                 self._push(k1.NULL)
                 return True
+            if _lane(e.type) == DOUBLE:
+                self._push(k1.DLIT, self._const(k1.double_bits(e.value)))
+                return True
+            if _lane(e.type) != SHORT:
+                raise NotPorted(f"{e.type} literals")
             self._push(k1.LIT, self._const(int(e.value)))
             return True
         if not isinstance(e, Call):
@@ -291,6 +297,10 @@ class _Lowering:
         elif fn == "not":
             const = self.emit(e.args[0])
             self._push(k1.NOT)
+        elif fn in LCMP_OPS and DOUBLE in (_lane(e.args[0].type), _lane(e.args[1].type)):
+            # the reference's _align_pair: both sides as doubles
+            const = self._emit_double(e.args[0]) & self._emit_double(e.args[1])
+            self._push(k1.DCMP, LCMP_OPS.index(fn))
         elif fn in ("eq", "ne", "lt", "le", "gt", "ge") and LONG in (_lane(e.args[0].type),
                                                                   _lane(e.args[1].type)):
             const = self._emit_long_cmp(e)
@@ -301,8 +311,9 @@ class _Lowering:
             self._push(getattr(k1, fn.upper()))
         elif fn == "between":
             x, lo, hi = e.args
-            s = self._align_scale(x.type, lo.type)
-            if s == self._align_scale(x.type, hi.type):
+            double = DOUBLE in (_lane(x.type), _lane(lo.type), _lane(hi.type))
+            s = None if double else self._align_scale(x.type, lo.type)
+            if not double and s == self._align_scale(x.type, hi.type):
                 const = (self._emit_scaled(x, s, check=False)
                          & self._emit_scaled(lo, s, check=False)
                          & self._emit_scaled(hi, s, check=False))
@@ -315,6 +326,10 @@ class _Lowering:
                     Call(type=BOOLEAN, fn="le", args=(x, hi)))))
         elif fn in ("add", "sub", "mul", "div"):
             const = self._emit_arith(e)
+        elif fn in ("neg", "abs") and len(e.args) == 1:
+            const = self._emit_sign(e)
+        elif fn == "cast_double" and not e.args[0].type.is_string:
+            const = self._emit_double(e.args[0])  # _to_double
         elif fn in DATE_PARTS:
             (x,) = e.args
             if x.type.name != "date":
@@ -435,7 +450,7 @@ class _Lowering:
         reference's ``taken`` rule); NULL conditions are not taken."""
         args = e.args
         out_t = e.type
-        if _lane(out_t) != SHORT:
+        if _lane(out_t) == LONG:
             raise NotPorted(f"CASE producing {out_t}")
         const = True
         pairs = (len(args) - 1) // 2
@@ -453,20 +468,42 @@ class _Lowering:
         if e.type == to_t or (_lane(e.type) == SHORT and not to_t.is_decimal
                               and not e.type.is_decimal and to_t.name == "bigint"):
             return self.emit(e)
+        if _lane(to_t) == DOUBLE:
+            return self._emit_double(e)
         if not (to_t.is_decimal and _lane(e.type) == SHORT):
             raise NotPorted(f"coercion of {e.type} to {to_t}")
         return self._emit_scaled(e, to_t.scale or 0, check=False)
 
     # -- double lanes ---------------------------------------------------------
-    def _emit_double(self, e: Expr) -> None:
-        """Push a decimal or integer as a double (the reference's
-        ``_to_double``: limbs through L2D, an int64 lane through S2D,
+    def _emit_double(self, e: Expr) -> bool:
+        """Push ``e`` as a double (the reference's ``_to_double``: a
+        double as it is, limbs through L2D, an int64 lane through S2D,
         each divided by 10^scale)."""
         lane = _lane(e.type)
         if lane == DOUBLE:
-            raise NotPorted("expressions over double columns")
-        self.emit(e)
+            return self.emit(e)
+        start = len(self.ops)
+        const = self.emit(e)
         self._push(k1.L2D if lane == LONG else k1.S2D, _scale(e.type))
+        if const:
+            self._fold(start)
+        return const
+
+    def _emit_sign(self, e: Call) -> bool:
+        """``neg`` / ``abs``: a double's sign (DNEG, DABS), or an integer
+        lane's, NULL where the lane's least value has no negation (the
+        reference's ``_ovf_neg``, at int32 width for an int32 lane)."""
+        (x,) = e.args
+        lane = _lane(x.type)
+        if lane == LONG:
+            raise NotPorted(f"{e.fn} of {x.type}")
+        const = self.emit(x)
+        if lane == DOUBLE:
+            self._push(k1.DNEG if e.fn == "neg" else k1.DABS)
+        else:
+            narrow = _storage_kind(x.type) == k1.KIND_I32
+            self._push(k1.NEG if e.fn == "neg" else k1.ABS, int(narrow))
+        return const
 
     def _emit_long_cmp(self, e: Call) -> bool:
         """A comparison with a long-decimal operand (the reference's
@@ -517,12 +554,9 @@ class _Lowering:
         a, b = e.args
         tr = e.type
         if tr.name == "double":
-            if e.fn != "div":
-                raise NotPorted(f"double {e.fn}")
-            self._emit_double(a)
-            self._emit_double(b)
-            self._push(k1.DDIV)
-            return False
+            const = self._emit_double(a) & self._emit_double(b)
+            self._push({"add": k1.DADD, "sub": k1.DSUB, "mul": k1.DMUL, "div": k1.DDIV}[e.fn])
+            return const
         lanes = (_lane(a.type), _lane(b.type))
         if tr.is_long_decimal:
             if e.fn != "mul" or sorted(lanes) != [LONG, SHORT]:
@@ -555,7 +589,7 @@ class _Lowering:
         consts: List[int] = []
         args = list(self.args)
         for i, op in enumerate(self.ops):
-            if op in (k1.LIT, k1.SCALE_CHK, k1.SCALE):
+            if op in (k1.LIT, k1.SCALE_CHK, k1.SCALE, k1.DLIT):
                 v = self.consts[args[i]]
                 if v not in consts:
                     consts.append(v)

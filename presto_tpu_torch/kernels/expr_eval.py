@@ -18,7 +18,12 @@ a date (``_civil_from_days``, floor division throughout); S2D turns an
 int64 lane into a double divided by 10^scale; S2L and LSCALE bring a
 short or long decimal to two limbs at a larger scale (wrapping as
 ``decimal128.rescale`` does) and LCMP compares two limb pairs;
-NOTNULL is IS NULL / IS NOT NULL, never NULL itself.
+NOTNULL is IS NULL / IS NOT NULL, never NULL itself.  LOAD_F64 and
+DLIT push a double column or constant (its bits); DADD, DSUB, DMUL,
+DNEG and DABS compute in double with the card's round-to-nearest
+intrinsics; DCMP compares two doubles (NaN compares false, except
+``ne``); NEG and ABS negate an integer lane, NULL where its width's
+least value has no negation (the reference's ``_ovf_neg``).
 
 A stack value is an int64 lane (integers, dates, booleans, short
 decimals, dictionary codes), a double, or a long decimal (two
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import struct
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -42,32 +48,39 @@ from presto_tpu_torch.ops import decimal128 as d128
 # opcodes: keep in step with csrc/expr_eval.cu
 LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
     BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV, IN, CANON, \
-    DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL = range(32)
+    DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DADD, DSUB, DMUL, \
+    DNEG, DABS, DCMP, NEG, ABS = range(42)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
             "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon",
-            "datepart", "s2d", "s2l", "lscale", "lcmp", "notnull")
+            "datepart", "s2d", "s2l", "lscale", "lcmp", "notnull", "load_f64", "dlit",
+            "dadd", "dsub", "dmul", "dneg", "dabs", "dcmp", "neg", "abs")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
-                0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0)
+                0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0, 1, 1, -1, -1, -1,
+                0, 0, -1, 0, 0)
 # opcodes whose argument is printed: a column slot, a constant index,
 # a table slot, the long operand's side (MUL_LS), a decimal scale
 # (L2D, S2D), IN's literal run (first constant | count <<
 # IN_COUNT_SHIFT), the date part (DATEPART: year, month, day,
 # quarter), the digits of an up-scale (LSCALE), the comparison (LCMP:
-# eq, ne, lt, le, gt, ge) or the test (NOTNULL: 0 not_null, 1 is_null)
+# eq, ne, lt, le, gt, ge; DCMP the same), the test (NOTNULL: 0 not_null,
+# 1 is_null), a double constant's bits (DLIT: a constant index) or the
+# integer lane's width (NEG, ABS: 1 for int32, whose least value has no
+# negation there, 0 for int64)
 _ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON,
-            DATEPART, S2D, LSCALE, LCMP, NOTNULL)
+            DATEPART, S2D, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DCMP, NEG, ABS)
 IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
-WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP))
+DOUBLE_OPS = frozenset((LOAD_F64, DLIT, DADD, DSUB, DMUL, DNEG, DABS, DCMP))
+WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP)) | DOUBLE_OPS
 
 # fixed limits of the kernel's by-value program (csrc/expr_eval.cu)
 MAX_INS = 128
 MAX_CONSTS = 64
 MAX_COLS = 16
 MAX_STACK = 16
-MAX_LUTS = 8
+MAX_LUTS = 16
 
 # storage kinds of loaded columns and of the output
 KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128 = range(5)
@@ -84,7 +97,23 @@ launches = 0
 in_launches = 0
 #: launches of programs holding each of these opcodes, by name
 op_launches: dict = {}
-COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null"}
+#: launches of programs holding any double opcode of DOUBLE_OPS
+double_launches = 0
+COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null",
+               LOAD_F64: "load_f64", DLIT: "dlit", DADD: "dadd", DSUB: "dsub",
+               DMUL: "dmul", DNEG: "dneg", DABS: "dabs", DCMP: "dcmp", NEG: "neg",
+               ABS: "abs"}
+
+_I32_MIN = -(1 << 31)
+
+
+def double_bits(x: float) -> int:
+    """The IEEE-754 bits of a double as a signed int64 (DLIT's constant)."""
+    return struct.unpack("<q", struct.pack("<d", float(x)))[0]
+
+
+def bits_double(b: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", int(b)))[0]
 
 
 class Lut:
@@ -196,8 +225,19 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         if op == LOAD:
             d, v = cols[arg]
             stack.append((d.to(torch.int64), v))
-        elif op == LOAD_LONG:
+        elif op in (LOAD_LONG, LOAD_F64):
             stack.append(cols[arg])
+        elif op == DLIT:
+            stack.append((torch.full((n,), bits_double(prog.consts[arg]), dtype=torch.float64,
+                                     device=dev),
+                          torch.ones(n, dtype=torch.bool, device=dev)))
+        elif op in (DNEG, DABS):
+            d, v = stack.pop()
+            stack.append((-d if op == DNEG else torch.abs(d), v))
+        elif op in (NEG, ABS):  # the least value of the lane's width has no negation: NULL
+            d, v = stack.pop()
+            v = v & (d != (_I32_MIN if arg else _I64_MIN))
+            stack.append((-d if op == NEG else torch.abs(d), v))
         elif op == LIT:
             stack.append((torch.full((n,), prog.consts[arg], dtype=torch.int64, device=dev),
                           torch.ones(n, dtype=torch.bool, device=dev)))
@@ -279,6 +319,11 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
                 zero = bd == 0
                 d = ad / torch.where(zero, torch.ones_like(bd), bd)
                 v = v & ~zero
+            elif op in (DADD, DSUB, DMUL):
+                d = ad + bd if op == DADD else ad - bd if op == DSUB else ad * bd
+            elif op == DCMP:
+                d = (ad == bd, ad != bd, ad < bd, ad <= bd, ad > bd, ad >= bd)[arg].to(
+                    torch.int64)
             else:
                 d = {EQ: ad == bd, NE: ad != bd, LT: ad < bd, LE: ad <= bd,
                      GT: ad > bd, GE: ad >= bd}[op].to(torch.int64)
@@ -288,7 +333,7 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         return row_mask & (d != 0) & v
     if prog.out_kind == KIND_BOOL:
         return d != 0, v
-    if prog.out_kind == KIND_D128:
+    if prog.out_kind == KIND_D128 or d.is_floating_point():
         return d, v
     return d.to(_DTYPE_OF[prog.out_kind]), v
 
@@ -315,7 +360,7 @@ def expr_eval(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 
 
 def _launch(prog, cols, n, row_mask, tensors):
-    global launches, in_launches
+    global launches, in_launches, double_launches
     build.require_cuda(tensors, "expr_eval")
     if (len(prog.ops) > MAX_INS or len(prog.consts) > MAX_CONSTS
             or len(cols) > MAX_COLS or prog.depth > MAX_STACK or len(prog.luts) > MAX_LUTS):
@@ -331,6 +376,7 @@ def _launch(prog, cols, n, row_mask, tensors):
                 > len(prog.consts):
             raise ValueError("expr_eval: IN literals past the constant pool")
     long_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_LONG}
+    f64_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_F64}
     kinds = []
     for slot, (d, v) in enumerate(cols):
         tail = (2,) if slot in long_slots else ()
@@ -342,6 +388,10 @@ def _launch(prog, cols, n, row_mask, tensors):
             if d.dtype != torch.int64:
                 raise ValueError(f"expr_eval: long-decimal column dtype {d.dtype}")
             kinds.append(KIND_D128)
+        elif slot in f64_slots:
+            if d.dtype != torch.float64:
+                raise ValueError(f"expr_eval: double column dtype {d.dtype}")
+            kinds.append(KIND_F64)
         elif d.dtype not in _KIND_OF:
             raise ValueError(f"expr_eval: column dtype {d.dtype}")
         else:
@@ -389,6 +439,7 @@ def _launch(prog, cols, n, row_mask, tensors):
     launches += 1
     if IN in prog.ops or any(t.kind == "in" for t in prog.luts):
         in_launches += 1
+    double_launches += int(bool(DOUBLE_OPS & set(prog.ops)))
     for op in set(prog.ops) & COUNTED_OPS.keys():
         op_launches[COUNTED_OPS[op]] = op_launches.get(COUNTED_OPS[op], 0) + 1
     if out_mask is not None:

@@ -3,7 +3,8 @@
 :func:`packed_fold` combines two packed partial tables slot by slot
 (the reference's ``combine_packed_states``); :func:`packed_finalize`
 turns a folded table into output columns (``finalize_packed`` with the
-count/sum/avg/min/max parts of ``_finalize`` and ``_avg_decimal128``).  Both
+count/sum/avg/min/max parts of ``_finalize`` and ``_avg_decimal128``;
+an integer's avg as a double, ``float64(sum) / float64(count)``).  Both
 launch the one kernel of ``csrc/packed_fold_finalize.cu`` on CUDA
 tensors and share its launch count; CPU tensors take the plain
 versions.
@@ -31,10 +32,12 @@ _COL_I32 = (COL_MIN_I32, COL_MAX_I32)
 # finalize kinds; a min/max finalizes as FIN_SUM (int64), FIN_SUM_D128
 # (limbs) or FIN_VALUE_I32 (int32): its value, NULL where its count is 0
 FIN_COUNT, FIN_SUM, FIN_SUM_D128, FIN_AVG_SHORT, FIN_AVG_D128, FIN_AVG_D128_NARROW, \
-    FIN_VALUE_I32 = range(7)
+    FIN_VALUE_I32, FIN_AVG_DOUBLE = range(8)
 MAX_ITEMS = 64
 
 launches = 0
+#: finalize launches with an avg producing a double
+double_avg_launches = 0
 
 Column = Tuple[int, torch.Tensor, torch.Tensor]  # (kind, data, valid)
 
@@ -94,6 +97,8 @@ def packed_finalize_plain(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]
         n = torch.clamp(cnt, min=1)
         if kind in (FIN_SUM, FIN_SUM_D128, FIN_VALUE_I32):
             data = s.clone()
+        elif kind == FIN_AVG_DOUBLE:  # tensor by tensor: a true division on every device
+            data = s.to(torch.float64) / n.to(torch.float64)
         elif kind == FIN_AVG_SHORT:
             av = torch.abs(s)
             sign = torch.where(s < 0, -1, 1)
@@ -150,11 +155,14 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
             raise ValueError("packed_finalize: mismatched state columns")
         tensors += [s, cnt]
         wide_out = kind in (FIN_SUM_D128, FIN_AVG_D128)
-        outs.append((torch.empty((g, 2) if wide_out else (g,), dtype=dtype,
+        out_dtype = torch.float64 if kind == FIN_AVG_DOUBLE else dtype
+        outs.append((torch.empty((g, 2) if wide_out else (g,), dtype=out_dtype,
                                  device=mask.device),
                      torch.empty(g, dtype=torch.bool, device=mask.device)))
     _launch(MODE_FINALIZE, g, [k for k, _, _ in items], [s for _, s, _ in items],
             [c for _, _, c in items], None, None, outs, mask, None, None, tensors)
+    global double_avg_launches
+    double_avg_launches += int(any(k == FIN_AVG_DOUBLE for k, _, _ in items))
     return outs
 
 

@@ -4,9 +4,10 @@
 reference's order (``presto_tpu/ops/sort.py`` ``sort_perm``): key by
 key, the NULL rank then the value (a long decimal limb by limb, high
 limb first; a descending key reversed), then the row position, which
-is how the reference's stable sorts break ties.  Dead rows never
-qualify.  CUDA tensors launch ``csrc/topn.cu``; CPU tensors run
-:func:`topn_plain`, which composes the reference's stable argsorts.
+is how the reference's stable sorts break ties; a double orders by
+:func:`double_sort_key`.  Dead rows never qualify.  CUDA tensors
+launch ``csrc/topn.cu``; CPU tensors run :func:`topn_plain`, which
+composes the reference's stable argsorts.
 """
 
 from __future__ import annotations
@@ -22,14 +23,18 @@ from presto_tpu_torch.kernels import build
 MAX_N = 100  # csrc/topn.cu K7_MAX_N
 MAX_KEYS = 8
 THREADS = 64  # csrc/topn.cu K7_THREADS
-_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
+_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 4}
 KIND_D128 = 3
+_I64_MAX = (1 << 63) - 1
 
 launches = 0
 #: launches with n above 32
 wide_launches = 0
+#: launches with a double key
+double_launches = 0
 
-# (data (n,) integers or (n, 2) int64 limbs, valid, ascending, nulls_first)
+# (data (n,) integers or doubles or (n, 2) int64 limbs, valid, ascending,
+# nulls_first)
 SortKey = Tuple[torch.Tensor, torch.Tensor, bool, bool]
 
 
@@ -37,6 +42,20 @@ def _value_key(data: torch.Tensor, ascending: bool) -> torch.Tensor:
     if data.dtype == torch.bool:
         data = data.to(torch.int32)
     return data if ascending else torch.bitwise_not(data)
+
+
+def double_sort_key(data: torch.Tensor, ascending: bool) -> torch.Tensor:
+    """An int64 whose ascending order is the reference's order of a
+    double key: it negates a descending key, and XLA's sort then orders
+    floats with -0.0 equal to 0.0 and every NaN after +inf (so NaN stays
+    last either way), ties kept in place by the stable passes.  The
+    bits of a negative double flip below zero; the kernel computes the
+    same key from each double it reads."""
+    x = data if ascending else -data
+    bits = x.contiguous().view(torch.int64)
+    bits = torch.where(x == 0, torch.zeros_like(bits), bits)
+    bits = torch.where(torch.isnan(x), torch.full_like(bits, _I64_MAX), bits)
+    return torch.where(bits < 0, bits ^ _I64_MAX, bits)
 
 
 def _stable_pass(perm: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
@@ -50,7 +69,8 @@ def topn_plain(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     for data, valid, asc, nf in list(keys)[::-1]:
         lanes = [data[:, j] for j in range(data.shape[1])] if data.dim() > 1 else [data]
         for lane in lanes[::-1]:
-            perm = _stable_pass(perm, _value_key(lane, asc))
+            perm = _stable_pass(perm, double_sort_key(lane, asc) if lane.is_floating_point()
+                                else _value_key(lane, asc))
         perm = _stable_pass(perm, (~valid if not nf else valid).to(torch.int32))
     perm = _stable_pass(perm, (~row_mask).to(torch.int32))
     count = torch.clamp(row_mask.sum(dtype=torch.int32), max=n)
@@ -71,7 +91,7 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
         raise NotPorted(f"top-n with n = {n} > {MAX_N}")
     if not row_mask.is_cuda:
         return topn_plain(keys, row_mask, n)
-    global launches, wide_launches
+    global launches, wide_launches, double_launches
     rows = row_mask.shape[0]
     if row_mask.dtype != torch.bool or row_mask.dim() != 1 or rows >= (1 << 31):
         raise ValueError("topn: row_mask must be (rows,) bool")
@@ -85,7 +105,8 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
         elif data.dim() == 1 and data.shape == (rows,) and data.dtype in _KINDS:
             kinds.append(_KINDS[data.dtype])
         else:
-            raise ValueError("topn: keys must be (rows,) integers or (rows, 2) int64 limbs")
+            raise ValueError("topn: keys must be (rows,) integers or doubles, or (rows, 2) "
+                             "int64 limbs")
         if valid.dtype != torch.bool or valid.shape != (rows,):
             raise ValueError("topn: key validity must be (rows,) bool")
         tensors += [data, valid]
@@ -110,4 +131,5 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     build.check(err, "topn")
     launches += 1
     wide_launches += int(n > 32)
+    double_launches += int(_KINDS[torch.float64] in kinds)
     return ids, count

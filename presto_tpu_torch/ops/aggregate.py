@@ -15,8 +15,9 @@ meet).  The sort path emits every group it sees, in key order (packed
 or hashed, as the reference's), whatever ``max_groups`` says; a
 presorted (streaming) grouping runs K6 in page order with no sort and
 emits groups in first-appearance order.  count, sum, avg, min and max
-(over int32/int64 lanes and long decimals) are ported; min/max over
-doubles and varchar, variance, DISTINCT and FILTER raise
+(over int32/int64 lanes and long decimals) are ported, avg of an
+integer producing a double (K3's finalize); sum and avg over doubles,
+min/max over doubles and varchar, variance, DISTINCT and FILTER raise
 :class:`NotPorted`.
 """
 
@@ -394,6 +395,8 @@ def _finalize_kind(agg: AggCall) -> int:
         return k3.FIN_AVG_D128 if t.is_long_decimal else k3.FIN_AVG_D128_NARROW
     if t.is_decimal or t.name.startswith("interval"):
         return k3.FIN_AVG_SHORT
+    if t.name == "double" and st.name == "bigint":  # an integer's mean
+        return k3.FIN_AVG_DOUBLE
     raise NotPorted(f"avg producing {t}")
 
 

@@ -7,7 +7,7 @@ the reference, which leaves its argsorts to XLA's sort, this uses
 ``torch.sort``; TPC-H Q1 sorts at most a few dozen rows.  Top-N
 (``topn_page``) does not sort: K7 ``topn`` picks the first ``n`` rows
 under the same order.  Dictionary VARCHAR keys order by collation
-rank, not by code.
+rank, not by code; double keys by :func:`double_sort_key`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler
 from presto_tpu_torch.expr.ir import ColumnRef, Expr
 from presto_tpu_torch.kernels import topn as k7
+from presto_tpu_torch.kernels.topn import double_sort_key
 from presto_tpu_torch.page import Block, Page
 
 
@@ -39,13 +40,10 @@ def _dict_rank(page: Page, e: Expr, d: torch.Tensor) -> torch.Tensor:
 
 
 def _value_key(data: torch.Tensor, ascending: bool) -> torch.Tensor:
-    """Exact sortable form of one key: integers stay integral; a
-    descending integer key is its bitwise complement, a descending
-    float key its negation."""
+    """Exact sortable form of one integer key: a descending key is its
+    bitwise complement (doubles take :func:`double_sort_key`)."""
     if data.dtype == torch.bool:
         data = data.to(torch.int32)
-    if data.is_floating_point():
-        return data if ascending else -data
     return data if ascending else torch.bitwise_not(data)
 
 
@@ -71,6 +69,8 @@ def sort_perm(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
             # stable passes from the last limb to the first
             for j in range(d.shape[-1] - 1, -1, -1):
                 perm = _stable_pass(perm, _value_key(d[:, j], asc))
+        elif d.is_floating_point():
+            perm = _stable_pass(perm, double_sort_key(d, asc))
         else:
             perm = _stable_pass(perm, _value_key(d, asc))
         null_rank = (~v if not nf else v).to(torch.int32)
@@ -102,7 +102,7 @@ def topn_keys(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
         nulls_first = [False] * len(sort_exprs)
     keys = []
     for e, asc, nf in zip(sort_exprs, ascending, nulls_first):
-        if e.type.is_raw_string or e.type.name in ("double", "real"):
+        if e.type.is_raw_string or e.type.name == "real":
             raise NotPorted(f"top-n over {e.type} keys")
         d, v = c.compile(e)(page)
         keys.append((_dict_rank(page, e, d), v, bool(asc), bool(nf)))

@@ -3786,7 +3786,7 @@ class Binder:
         return call("case", *args)
 
     def _register_window(self, e: ast.WindowExpr, scope: Scope, agg) -> ColumnRef:
-        raise NotPorted("window functions")
+        from presto_tpu_torch.ops.window import WindowFunc
 
         if e in self._win_slots:
             slot = self._win_slots[e]

@@ -1,4 +1,5 @@
-"""Test harness: an in-process runner over the TPC-H generator.
+"""Test harness: an in-process runner over the TPC-H generator, and a
+TPC-DS catalog.
 
 Counterpart of ``presto_tpu/testing.py`` (``tpch_catalog`` and
 ``LocalQueryRunner``).  Generated splits are host pages; the runner
@@ -20,6 +21,19 @@ def tpch_catalog(sf: float = 0.01, split_rows: int = 1 << 14,
     catalog = Catalog()
     catalog.register("tpch", Tpch(sf=sf, split_rows=split_rows,
                                   aligned_buckets=aligned_buckets))
+    return catalog
+
+
+def tpcds_catalog(sf: float = 0.01, split_rows: int = 1 << 14,
+                  cd_rows: Optional[int] = None, inv_rows: Optional[int] = None) -> Catalog:
+    """The TPC-DS generator as catalog ``tpcds``; ``cd_rows`` and
+    ``inv_rows`` cut customer_demographics and inventory (both
+    independent of the scale factor) as the reference's tests do."""
+    from presto_tpu_torch.connectors.tpcds import Tpcds
+
+    catalog = Catalog()
+    catalog.register("tpcds", Tpcds(sf=sf, split_rows=split_rows, cd_rows=cd_rows,
+                                    inv_rows=inv_rows))
     return catalog
 
 

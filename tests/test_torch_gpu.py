@@ -22,6 +22,7 @@ from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
 from presto_tpu_torch.kernels import topn as k7
+from presto_tpu_torch.kernels import window_eval as k10
 from presto_tpu_torch.page import Block, Dictionary, Page
 from presto_tpu_torch.types import parse_type
 from tpch_queries import QUERIES
@@ -652,6 +653,168 @@ def test_aggregation_slice_on_the_card_equals_the_cpu_run():
     k6.presorted_launches = k7.wide_launches = 0
     for q in (2, 7, 8, 9, 11, 15, 17, 18, 21, 22):
         assert gpu.execute(QUERIES[q]).rows == cpu.execute(QUERIES[q]).rows
-    assert set(k1.op_launches) == {"year", "s2d", "lcmp", "not_null"}
+    # Q17's 7.0 folds to a double constant (DLIT) on the host
+    assert set(k1.op_launches) == {"year", "s2d", "lcmp", "not_null", "dlit"}
     assert k2.minmax_launches > 0 and k6.minmax_launches > 0
     assert k6.presorted_launches > 0 and k7.wide_launches > 0
+
+
+# -- the fifth slice: double lanes, the double avg, double keys, K10 ------------
+
+def _double_page(n: int, seed: int, device) -> Page:
+    """Doubles with zeros of both signs, NaN and ties; a short and a
+    long decimal; int32 and int64 lanes holding their least values."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 50.0, n)
+    for v, rate in ((0.0, 0.05), (-0.0, 0.05), (np.nan, 0.03), (1.25, 0.2)):
+        x[rng.random(n) < rate] = v
+    i32 = rng.integers(-1000, 1000, n).astype(np.int32)
+    i32[rng.random(n) < 0.02] = np.iinfo(np.int32).min
+    i64 = rng.integers(-10 ** 12, 10 ** 12, n)
+    i64[rng.random(n) < 0.02] = np.iinfo(np.int64).min
+    cols = [(x, "double"), (rng.normal(0.0, 50.0, n), "double"),
+            (rng.integers(-10 ** 6, 10 ** 6, n), "decimal(12,2)"),
+            (np.stack([rng.integers(-3, 3, n), rng.integers(0, 10 ** 18, n)], 1),
+             "decimal(36,4)"), (i64, "bigint"), (i32, "integer"),
+            (rng.integers(0, 5000, n), "bigint")]
+    blocks = [Block(torch.from_numpy(d).to(device),
+                    torch.from_numpy(rng.random(n) >= 0.1).to(device), parse_type(t))
+              for d, t in cols]
+    return Page(tuple(blocks), torch.from_numpy(rng.random(n) >= 0.1).to(device))
+
+
+DOUBLE_EXPRS = [
+    _call("add", "double", _col(0, "double"), _col(1, "double")),
+    _call("sub", "double", _col(2, "decimal(12,2)"), _col(0, "double")),
+    _call("mul", "double", _col(5, "integer"), _col(1, "double")),
+    _call("div", "double", _col(3, "decimal(36,4)"), _col(0, "double")),
+    _call("neg", "double", _col(0, "double")),
+    _call("abs", "double", _call("sub", "double", _col(2, "decimal(12,2)"), _col(0, "double"))),
+    _call("abs", "integer", _col(5, "integer")),
+    _call("neg", "bigint", _col(4, "bigint")),
+    _call("mul", "double", _col(0, "double"), _lit(0.1, "double")),
+    _call("lt", "boolean", _col(0, "double"), _col(1, "double")),
+    _call("ge", "boolean", _col(2, "decimal(12,2)"), _col(0, "double")),
+    _call("eq", "boolean", _col(3, "decimal(36,4)"), _col(0, "double")),
+    _call("case", "double", _call("gt", "boolean", _col(1, "double"), _lit(0, "integer")),
+          _call("div", "double", _col(0, "double"), _col(1, "double")), _lit(None, "double")),
+]
+
+
+@pytest.mark.parametrize("i", range(len(DOUBLE_EXPRS)))
+def test_expr_eval_double_opcodes_match_plain(i):
+    """LOAD_F64, DLIT, DADD/DSUB/DMUL, DNEG/DABS, DCMP, NEG/ABS and CASE
+    producing a double, bit for bit."""
+    dev = _cuda()
+    page = _double_page(1 << 20, 60 + i, dev)
+    prog, cols = ExprCompiler.for_page(page).lower(DOUBLE_EXPRS[i])
+    ins = [(page.blocks[c].data, page.blocks[c].valid) for c in cols]
+    got = k1.expr_eval(prog, ins, page.capacity)
+    want = k1.expr_eval_plain(prog, ins, page.capacity)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    g, w = got[0][want[1]], want[0][want[1]]
+    if w.dtype == torch.float64:
+        g, w = g.view(torch.int64), w.view(torch.int64)
+    assert torch.equal(g, w)
+
+
+def test_packed_finalize_avg_double_matches_plain():
+    dev = _cuda()
+    rng = np.random.default_rng(70)
+    g = 1 << 16
+    s = torch.from_numpy(rng.integers(-10 ** 15, 10 ** 15, g)).to(dev)
+    cnt = torch.from_numpy(rng.integers(0, 10 ** 6, g)).to(dev)
+    mask = torch.from_numpy(rng.random(g) >= 0.1).to(dev)
+    items = [(k3.FIN_AVG_DOUBLE, s, cnt), (k3.FIN_COUNT, cnt, cnt)]
+    got, want = k3.packed_finalize(items, mask), k3.packed_finalize_plain(items, mask)
+    torch.cuda.synchronize()
+    for (gd, gv), (wd, wv) in zip(got, want):
+        assert torch.equal(gv, wv)
+        assert torch.equal(gd[wv].view(torch.int64), wd[wv].view(torch.int64))
+
+
+def test_topn_double_keys_match_plain():
+    """-0.0 ties 0.0, NaN last either way, ties by position."""
+    dev = _cuda()
+    page = _double_page(1 << 20, 71, dev)
+    b = page.blocks
+    for asc in (True, False):
+        keys = [(b[0].data, b[0].valid, asc, not asc), (b[6].data, b[6].valid, True, False)]
+        for n in (10, 100):
+            got, want = k7.topn(keys, page.row_mask, n), k7.topn_plain(keys, page.row_mask, n)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+WINDOW_FUNCS = (
+    [k10.Func(k) for k in (k10.ROW_NUMBER, k10.RANK, k10.DENSE_RANK, k10.PERCENT_RANK,
+                           k10.CUME_DIST)]
+    + [k10.Func(k10.NTILE, offset=5)]
+    + [k10.Func(k, offset=o, ignore_nulls=ign) for k in (k10.LEAD, k10.LAG) for o in (0, 2)
+       for ign in (False, True)]
+    + [k10.Func(k, fr, st, en, offset=2, ignore_nulls=ign)
+       for k in (k10.FIRST_VALUE, k10.LAST_VALUE, k10.NTH_VALUE)
+       for fr, st, en in ((k10.FRAME_PEERS, None, None), (k10.FRAME_ROWS, -3, 1))
+       for ign in (False, True)]
+    + [k10.Func(k, fr, st, en, scale=sc)
+       for k, sc in ((k10.COUNT, None), (k10.COUNT_STAR, None), (k10.SUM, None),
+                     (k10.AVG, 2))
+       for fr, st, en in ((k10.FRAME_PEERS, None, None), (k10.FRAME_WHOLE, None, None),
+                          (k10.FRAME_ROWS, None, 0), (k10.FRAME_ROWS, -5, 2),
+                          (k10.FRAME_ROWS, 2, 1))]
+    + [k10.Func(k, fr, None, en) for k in (k10.MIN, k10.MAX)
+       for fr, en in ((k10.FRAME_PEERS, None), (k10.FRAME_ROWS, 0), (k10.FRAME_ROWS, -1))]
+)
+
+
+def _window_case(n, seed, dev, parts):
+    page = _double_page(n, seed, dev)
+    b = page.blocks
+    perm = torch.argsort(torch.remainder(b[6].data, parts), stable=True)
+    perm = perm[torch.argsort((~page.row_mask)[perm].to(torch.int32), stable=True)]
+    pkey = torch.remainder(b[6].data, parts)
+    order = [(b[5].data, b[5].valid), (b[0].data, b[0].valid)]
+    return page, perm, pkey, order
+
+
+@pytest.mark.parametrize("arg", [0, 2, 5])
+@pytest.mark.parametrize("n,parts", [(1, 1), (17, 3), (1 << 20, 977), (1 << 20, 1)])
+def test_window_eval_kernel_matches_plain(n, parts, arg):
+    """Every kind and frame over a double, a short decimal and an int32
+    argument; one row, a few rows, many partitions and one partition
+    of 2^20 rows (the double sums' three levels of runs)."""
+    dev = _cuda()
+    page, perm, pkey, order = _window_case(n, 72 + arg, dev, parts)
+    a = (page.blocks[arg].data, page.blocks[arg].valid)
+    funcs = list(WINDOW_FUNCS)
+    args = [None if f.kind in k10._RANKS or f.kind == k10.COUNT_STAR else a for f in funcs]
+    got = k10.window_eval(perm, page.row_mask, pkey, order, funcs, args)
+    want = k10.window_eval_plain(perm, page.row_mask, pkey, order, funcs, args)
+    torch.cuda.synchronize()
+    for f, (gd, gv), (wd, wv) in zip(funcs, got, want):
+        assert torch.equal(gv, wv), f
+        g, w = gd[wv], wd[wv]
+        if w.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        assert torch.equal(g, w), f
+
+
+def test_tpcds_slice_on_the_card_equals_the_cpu_run():
+    """The fifth slice's TPC-DS queries at sf 0.01 on the card, with K10,
+    K1's double opcodes, K3's double avg and K7's double keys launched."""
+    _cuda()
+    from presto_tpu_torch.runner import QueryRunner
+    from presto_tpu_torch.testing import tpcds_catalog
+    from tpcds_queries import QUERIES as DS
+
+    args = dict(sf=0.01, split_rows=16384, cd_rows=2 * 5 * 7 * 20, inv_rows=60000)
+    gpu = QueryRunner(tpcds_catalog(**args), device="cuda")
+    cpu = QueryRunner(tpcds_catalog(**args), device="cpu")
+    k1.op_launches.clear()
+    k10.launches = k3.double_avg_launches = k7.double_launches = 0
+    for q in (3, 7, 12, 20, 98, 53, 63, 89, 44, 47, 57, 51, 13):
+        got, want = gpu.execute(DS[q]).rows, cpu.execute(DS[q]).rows
+        assert got == want, q
+    assert k10.launches > 0 and k3.double_avg_launches > 0 and k7.double_launches > 0
+    assert {"load_f64", "dcmp", "dsub", "dabs"} <= set(k1.op_launches)

@@ -47,3 +47,60 @@ def assert_same_lanes(ref, port, what=""):
     pd, pv = port[0].cpu().numpy(), port[1].cpu().numpy()
     np.testing.assert_array_equal(pv, rv, err_msg=f"{what} valid")
     np.testing.assert_array_equal(pd[rv], rd[rv], err_msg=f"{what} data")
+
+
+# -- TPC-DS through the port and through the reference ----------------------
+
+# the reference's TPC-DS test data (tests/test_tpcds_queries.py):
+# customer_demographics and inventory cut, both independent of sf
+TPCDS_ARGS = dict(sf=0.01, split_rows=16384, cd_rows=2 * 5 * 7 * 20, inv_rows=60000)
+
+
+class TpcdsPair:
+    """The reference's ``QueryRunner`` and the port's (on the CPU) over
+    the same generated TPC-DS data.  Every ``CLEAR_EVERY`` reference
+    queries the reference's compiled-program caches are dropped, as
+    ``tests/test_tpcds_queries.py`` does, so that one process never
+    holds the executables of a whole corpus."""
+
+    CLEAR_EVERY = 10
+
+    def __init__(self):
+        from presto_tpu.catalog import Catalog
+        from presto_tpu.connectors.tpcds import Tpcds
+        from presto_tpu.runner import QueryRunner
+        from presto_tpu_torch.runner import QueryRunner as PortRunner
+        from presto_tpu_torch.testing import tpcds_catalog
+
+        catalog = Catalog()
+        catalog.register("tpcds", Tpcds(**TPCDS_ARGS))
+        self.ref = QueryRunner(catalog)
+        self.port = PortRunner(tpcds_catalog(**TPCDS_ARGS), device="cpu")
+        self._since_clear = 0
+
+    def reference(self, sql: str):
+        self._since_clear += 1
+        if self._since_clear >= self.CLEAR_EVERY:
+            import jax
+
+            self._since_clear = 0
+            ex = self.ref.executor
+            ex._chain_cache.clear()
+            ex._fold_cache.clear()
+            ex._builds.clear()
+            self.ref._plans.clear()
+            jax.clear_caches()
+        return self.ref.execute(sql)
+
+    def check(self, sql: str):
+        """The port's rows equal the reference's (ordered when the query
+        ends in ORDER BY); returns them."""
+        from oracle import assert_rows_match
+
+        want = self.reference(sql)
+        got = self.port.execute(sql)
+        assert got.names == want.names
+        assert [str(t) for t in got.types] == [str(t) for t in want.types]
+        tail = sql.lower().rsplit(")", 1)[-1]
+        assert_rows_match(got.rows, want.rows, ordered="order by" in tail)
+        return got.rows
