@@ -125,6 +125,20 @@ DS_QUERIES = {f"ds_q{q}": DS_SQL[q] for q in (3, 7, 12, 20, 98, 53, 63, 89, 44, 
                                               13)}
 DS_WINDOWED = ("ds_q12", "ds_q20", "ds_q98", "ds_q53", "ds_q63", "ds_q89", "ds_q44",
                "ds_q47", "ds_q57", "ds_q51")
+# the sixth slice: UNION, ROLLUP, string CASE and column comparisons,
+# coalesce/floor/round, long add/sub, sum0 and collapsed sums,
+# variance, double sums and double keys
+DS2_QUERIES = {f"ds_q{q}": DS_SQL[q] for q in (2, 4, 11, 33, 49, 54, 56, 60, 66, 71, 74, 75,
+                                               76, 5, 14, 18, 22, 27, 67, 77, 80, 6, 8, 19,
+                                               46, 68, 36, 70, 86, 16, 28, 95, 17, 39, 40, 78,
+                                               23)}
+# the sixth slice's rows are checked at this scale: the card runs its
+# queries again over these tables and the CPU runs them once
+DS_CHECK_SF = 1.0
+# queries that may find no row at DS_CHECK_SF: q76 picks the sales
+# whose store, web page or ship address key is NULL, which this
+# generator never writes (no row at any scale)
+DS2_EMPTY_AT_CHECK = ("ds_q76",)
 
 
 def empty_variants(sf: float) -> dict:
@@ -213,6 +227,41 @@ DS_REQUIRED = {
     "ds_q51": ("join_build", "join_probe", "join_expand", "sorted_group_agg", "window_eval"),
     "ds_q13": ("expr_eval", "join_build", "join_probe", "packed_fold_finalize:avg_double"),
 }
+# "a|b" is met when either counter is non-zero (a grouping takes K2 or
+# K6 by its key domains at this scale).  The new kinds by name: K1's
+# opcodes and tables (coalesce, floor, round, ladd, remap, string_eq),
+# the variance states and double sums of K2/K6 and K6's variance merge,
+# K3's sum0, collapsed sums, variance finalizes and Chan fold, K9 over
+# a double key
+_GROUPED = "packed_group_agg|sorted_group_agg"
+_VAR = ("sorted_group_agg:variance", "sorted_group_agg:variance_merge",
+        "packed_fold_finalize:variance")
+_BASE = ("expr_eval", "join_build", _GROUPED, "packed_fold_finalize")
+DS2_REQUIRED = {
+    "ds_q2": ("join_build", _GROUPED, "packed_fold_finalize", "topn"),
+    **{f"ds_q{q}": _BASE + ("topn",) for q in (33, 56, 60, 66, 71, 5, 14, 77, 80)},
+    "ds_q23": _BASE,
+    "ds_q4": _BASE + ("topn", "sorted_group_agg:double_sum"),
+    "ds_q11": _BASE + ("topn",),
+    "ds_q74": _BASE + ("topn",),
+    "ds_q49": _BASE + ("topn", "window_eval", "expr_eval:coalesce", "hash_keys:double"),
+    "ds_q54": _BASE + ("topn", "expr_eval:floor", "hash_keys:double"),
+    "ds_q75": _BASE + ("topn", "expr_eval:coalesce", "expr_eval:ladd"),
+    "ds_q76": ("expr_eval", "join_build", _GROUPED, "topn"),
+    **{f"ds_q{q}": _BASE for q in (18, 22, 27)},
+    "ds_q67": _BASE + ("topn", "window_eval", "expr_eval:coalesce"),
+    "ds_q77": _BASE + ("topn", "expr_eval:coalesce"),
+    "ds_q80": _BASE + ("topn", "expr_eval:coalesce"),
+    **{f"ds_q{q}": _BASE + ("expr_eval:string_eq",) for q in (6, 8, 19, 46, 68)},
+    **{f"ds_q{q}": _BASE + ("topn", "window_eval", "expr_eval:remap") for q in (36, 70, 86)},
+    "ds_q16": _BASE + ("packed_fold_finalize:collapse",),
+    "ds_q28": _BASE + ("packed_fold_finalize:sum0", "packed_fold_finalize:collapse"),
+    "ds_q95": _BASE + ("packed_fold_finalize:collapse",),
+    "ds_q17": _BASE + ("topn",) + _VAR,
+    "ds_q39": _BASE + _VAR,
+    "ds_q40": _BASE + ("topn", "expr_eval:coalesce"),
+    "ds_q78": _BASE + ("topn", "expr_eval:coalesce", "expr_eval:round"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -294,11 +343,15 @@ def group_sum_library_ms(keys, row_mask, states) -> float:
             cols.append(valid.to(torch.int64))
         elif kind == k6.S_SUM:
             cols.append(torch.where(valid, data.to(torch.int64), 0))
+        elif kind == k6.S_DSUM:
+            cols.append(torch.where(valid, data, 0.0))
         else:
             limbs = k6._limbs(kind, data)
             cols.append(torch.where(valid[:, None], limbs, torch.zeros_like(limbs)))
-    vals = torch.cat([c.reshape(n, -1) for c in cols], 1)[row_mask].contiguous()
-    table = torch.zeros((int(gid.max()) + 1, vals.shape[1]), dtype=torch.int64,
+    # a double sum adds its counts as doubles too (exact below 2^53)
+    dtype = torch.float64 if any(c.is_floating_point() for c in cols) else torch.int64
+    vals = torch.cat([c.reshape(n, -1).to(dtype) for c in cols], 1)[row_mask].contiguous()
+    table = torch.zeros((int(gid.max()) + 1, vals.shape[1]), dtype=dtype,
                         device=row_mask.device)
     return cuda_ms(lambda: table.index_add_(0, gid, vals), 10)
 
@@ -693,6 +746,19 @@ def canon_library(prog, ins):
     table = prog.luts[0].on(ins[0][0].device)
     codes = ins[0][0]
     return cuda_ms(lambda: table[codes], 20)
+
+
+def remap_library(prog, ins):
+    """One indexing of the program's first remap table by the codes of
+    the column it reads."""
+    from presto_tpu_torch.kernels import expr_eval as k1
+
+    for i, (op, arg) in enumerate(zip(prog.ops, prog.args)):
+        if op == k1.CANON and prog.luts[arg].kind == "remap":
+            table = prog.luts[arg].on(ins[0][0].device)
+            codes = ins[prog.args[i - 1]][0]
+            return cuda_ms(lambda: table[codes], 20)
+    raise AssertionError(f"no remap table in {prog}")
 
 
 def lookup_bytes(build, key, live) -> int:
@@ -1259,6 +1325,222 @@ def check_window_kernels(report: KernelReport, ds_runners, ds_mem) -> None:
     log(f"{label} finalize: {merged.capacity} groups")
 
 
+def fold_row(report, name, ca, cb, ma, mb, counter) -> list:
+    """K3's fold of two packed state tables against its plain version;
+    returns the folded columns and mask."""
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+
+    got = k3.packed_fold(ca, cb, ma, mb)
+    err = same_bits(got, k3.packed_fold_plain(ca, cb, ma, mb), name)
+    ms = cuda_ms(lambda: k3.packed_fold(ca, cb, ma, mb), 50)
+    plain = cuda_ms(lambda: k3.packed_fold_plain(ca, cb, ma, mb), 10)
+    report.add(name, "cuda", "presto_tpu_torch/csrc/packed_fold_finalize.cu", err, ms, plain,
+               nbytes(*[t for c in ca + cb for t in c[1:]], ma, mb,
+                      *[t for o in got[0] for t in o], got[1]), counter=counter)
+    return got
+
+
+def finalize_row(report, name, items, mask, counter) -> None:
+    """K3's finalize of ``items`` against its plain version."""
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+
+    got = k3.packed_finalize(items, mask)
+    err = same_bits(got, k3.packed_finalize_plain(items, mask), name)
+    ms = cuda_ms(lambda: k3.packed_finalize(items, mask), 50)
+    plain = cuda_ms(lambda: k3.packed_finalize_plain(items, mask), 10)
+    report.add(name, "cuda", "presto_tpu_torch/csrc/packed_fold_finalize.cu", err, ms, plain,
+               nbytes(mask, *[t for _, a, b in items for t in (a, b)],
+                      *[t for o in got for t in o]), counter=counter)
+
+
+def state_tensors(states) -> list:
+    """Every tensor of K6 states (a variance merge's data is a tuple)."""
+    out = []
+    for _, data, valid in states:
+        out += list(data) if isinstance(data, tuple) else [data]
+        out.append(valid)
+    return out
+
+
+def k6_bits_row(report, name, keys, mask, states, counter, library=None) -> int:
+    """:func:`k6_row` with doubles compared by their bits."""
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+
+    got = k6.sorted_group_agg(keys, mask, states)
+    err = same_bits(got[:2], k6.sorted_group_agg_plain(keys, mask, states)[:2], name)
+    ms = cuda_ms(lambda: k6.sorted_group_agg(keys, mask, states), 5)
+    plain = cuda_ms(lambda: k6.sorted_group_agg_plain(keys, mask, states), 2)
+    in_bytes = nbytes(mask, *[t for k in keys for t in k[:2]], *state_tensors(states))
+    report.add(name, "cuda", "presto_tpu_torch/csrc/sorted_group_agg.cu", err, ms, plain,
+               in_bytes + nbytes(*[t for o in got[0] for t in o], *got[1]), library, counter)
+    return got[2]
+
+
+def check_sixth_slice_kernels(report: KernelReport, ds2_runners, ds_mem) -> None:
+    """Phase 3, the sixth slice, each against its plain version, doubles
+    by their bits: K1's coalesce, floor, round, cast_decimal (over a
+    whole store_sales split), its string-CASE remap (q36), string-column
+    comparison (q68), coalesce (q40) and long subtraction (q75) over the
+    real inputs of those queries; K6's variance partial over a whole
+    store_sales split grouped by ss_item_sk, its merge of two splits'
+    partials and its double sum; K2's variance over one slot (the global
+    aggregate), K3's Chan fold of two splits' global tables and its
+    variance finalize; K3's sum0 and collapsed-sum finalizes of
+    q28's partial states; K9 over a double key."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Literal
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import keys as pk
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+    from presto_tpu_torch.kernels import packed_group_agg as k2
+    from presto_tpu_torch.ops.aggregate import (
+        _finalize_kind, _slice_state_cols, grouped_aggregate, kernel_inputs, merge_inputs,
+        sorted_inputs,
+    )
+    from presto_tpu_torch.page import concat_pages_device
+    from presto_tpu_torch.planner.plan import AggregationNode, WindowNode
+    from presto_tpu_torch.types import DOUBLE, parse_type
+
+    pages = [ds_mem.page_for_split("store_sales", i) for i in (0, 1)]
+    names = [c for c, _ in ds_mem.schema("store_sales")]
+    types = dict(ds_mem.schema("store_sales"))
+
+    def col(c):
+        return ColumnRef(type=types[c], index=names.index(c))
+
+    def call(fn, t, *args):
+        return Call(type=parse_type(t) if isinstance(t, str) else t, fn=fn, args=tuple(args))
+
+    # K1 over a whole split
+    page = pages[0]
+    whole = {
+        "coalesce": (call("coalesce", types["ss_ext_discount_amt"], col("ss_ext_discount_amt"),
+                          col("ss_ext_sales_price")),
+                     lambda prog, ins: cuda_ms(lambda: torch.where(ins[0][1], ins[0][0],
+                                                                   ins[1][0]), 20)),
+        "floor": (call("floor", "decimal(7,0)", col("ss_sales_price")),
+                  lambda prog, ins: cuda_ms(lambda: torch.div(ins[0][0], 100,
+                                                              rounding_mode="floor"), 20)),
+        "round": (call("round", types["ss_net_paid"], col("ss_net_paid"),
+                       Literal(type=parse_type("integer"), value=1)), None),
+        "cast_decimal": (call("cast_decimal", "decimal(12,2)",
+                              call("div", DOUBLE, call("cast_double", DOUBLE,
+                                                       col("ss_net_profit")),
+                                   Literal(type=DOUBLE, value=3.0))), None),
+    }
+    for label, (expr, library) in whole.items():
+        k1_row(report, f"expr_eval@{label}", expr, page, library=library,
+               counter=f"expr_eval:{label}")
+    # K1 where the slice's queries run their string and long opcodes
+    real = {"string_eq": ("ds_q68", lambda c: c.fn in ("eq", "ne") and all(
+                a.type.is_string and not isinstance(a, Literal) for a in c.args)),
+            "coalesce_q40": ("ds_q40", lambda c: c.fn == "coalesce"),
+            "ladd": ("ds_q75", lambda c: c.fn in ("add", "sub") and c.type.is_long_decimal)}
+    for label, (q, test) in real.items():
+        ex = ds2_runners[q].executor
+        node, expr = find_call(ds2_runners[q].plan(DS2_QUERIES[q]), test)
+        src = first_split(ex, node.source)
+        ex._builds.clear()
+        k1_row(report, f"expr_eval@{label}", expr, src,
+               filt=type(node).__name__ == "FilterNode",
+               counter="expr_eval:" + label.split("_q")[0])
+    # q36's string CASE partitions its window: K1 over the window's input
+    label = "ds_q36"
+    ex = ds2_runners[label].executor
+    win = find_all(ds2_runners[label].plan(DS2_QUERIES[label]), WindowNode)[0]
+    expr = [e for e in win.partition_exprs
+            if any(c.fn == "case" and c.type.is_string for c in calls_in(e))][0]
+    k1_row(report, "expr_eval@remap", expr, source_page(ex, win.source),
+           library=remap_library, counter="expr_eval:remap")
+
+    # K6: the variance partial of ss_quantity by ss_item_sk over a whole
+    # split, the merge of two splits' partials, a double sum
+    item, qty = col("ss_item_sk"), col("ss_quantity")
+    dom = [ds_mem.column_domain("store_sales", "ss_item_sk")]
+    stddev = AggCall(fn="stddev_samp", arg=qty, type=DOUBLE)
+    keys, states, _ = sorted_inputs(page, [item], [stddev], dom)
+    groups = k6_bits_row(report, "sorted_group_agg@variance", keys, page.row_mask, states,
+                         "sorted_group_agg:variance")
+    log(f"K6 variance: {groups} groups of {page.capacity} rows")
+    parts = [grouped_aggregate(p, [item], [stddev], 1 << 20, key_domains=[None],
+                               mode="partial") for p in pages]
+    cat = concat_pages_device(parts)
+    keys, states, _ = merge_inputs(cat, 1, [stddev], [None])
+    k6_bits_row(report, "sorted_group_agg@variance_merge", keys, cat.row_mask, states,
+                "sorted_group_agg:variance_merge")
+    total = AggCall(fn="sum", arg=call("cast_double", DOUBLE, col("ss_net_paid")), type=DOUBLE)
+    keys, states, _ = sorted_inputs(page, [item], [total], dom)
+    k6_bits_row(report, "sorted_group_agg@double_sum", keys, page.row_mask, states,
+                "sorted_group_agg:double_sum",
+                library=group_sum_library_ms(keys, page.row_mask, states))
+
+    # K2's variance over one slot (the global aggregate: a keyed double
+    # state takes K6); K3's Chan fold of two splits' global tables and
+    # the variance finalize
+    aggs = [stddev, AggCall(fn="var_pop", arg=col("ss_net_paid"), type=DOUBLE)]
+    ks, args = kernel_inputs(page, [], aggs, None)
+    n = page.capacity
+    got = k2.packed_group_agg(n, page.row_mask, ks, args, 1)
+    err = same_bits(got, k2.packed_group_agg_plain(n, page.row_mask, ks, args, 1),
+                    "packed_group_agg variance_global")
+    ms = cuda_ms(lambda: k2.packed_group_agg(n, page.row_mask, ks, args, 1), 10)
+    plain = cuda_ms(lambda: k2.packed_group_agg_plain(n, page.row_mask, ks, args, 1), 2)
+    # one PyTorch call: the sample variance and mean of the valid rows
+    x = args[0][1][args[0][2] & page.row_mask]
+    library = cuda_ms(lambda: torch.var_mean(x), 10)
+    report.add("packed_group_agg@variance_global", "cuda",
+               "presto_tpu_torch/csrc/packed_group_agg.cu", err, ms, plain,
+               nbytes(page.row_mask, *[t for a in args for t in a[1:]])
+               + nbytes(*[t for st in got[0] for t in st], got[1]), library,
+               "packed_group_agg:variance")
+    parts = [grouped_aggregate(p, [], aggs, 1, mode="partial") for p in pages]
+    kinds = [k3.COL_F64, k3.COL_VAR_M2, k3.COL_I64] * 2
+
+    def cols_of(part):
+        return [(k, b.data, b.valid) for k, b in zip(
+            kinds, [b for c in _slice_state_cols(part, 0, aggs) for b in c])]
+
+    fold, mask = fold_row(report, "packed_fold_finalize@chan", cols_of(parts[0]),
+                          cols_of(parts[1]), parts[0].row_mask, parts[1].row_mask,
+                          "packed_fold_finalize:chan")
+    items = [(_finalize_kind(a), fold[3 * i + 1][0], fold[3 * i + 2][0])
+             for i, a in enumerate(aggs)]
+    finalize_row(report, "packed_fold_finalize@variance", items, mask,
+                 "packed_fold_finalize:variance")
+
+    # K3: q28's sum0 and collapsed sums over its partial states
+    label = "ds_q28"
+    ex = ds2_runners[label].executor
+    agg = [a for a in find_all(ds2_runners[label].plan(DS2_QUERIES[label]), AggregationNode)
+           if a.step == "single" and any(x.fn == "sum0" for x in a.aggs)][0]
+    cat = source_page(ex, ex.partial_node(agg))
+    nk = len(agg.group_exprs)
+    items = [(_finalize_kind(a), cols[0].data, cols[-1].data)
+             for a, cols in zip(agg.aggs, _slice_state_cols(cat, nk, agg.aggs))]
+    kinds = {k for k, _, _ in items}
+    if not kinds & {k3.FIN_SUM0, k3.FIN_SUM0_D128, k3.FIN_SUM0_COLLAPSE} or not kinds & {
+            k3.FIN_SUM_COLLAPSE, k3.FIN_SUM0_COLLAPSE}:
+        raise AssertionError(f"{label}: no sum0 or collapsed sum to finalize")
+    finalize_row(report, "packed_fold_finalize@sum0", items, cat.row_mask,
+                 "packed_fold_finalize:sum0")
+    log(f"{label} finalize: {cat.capacity} partial rows, kinds {sorted(kinds)}")
+
+    # K9 over a double key (q49 and q54 group by one)
+    prog, cols = ExprCompiler.for_page(page).lower(call("cast_double", DOUBLE,
+                                                        col("ss_sales_price")))
+    dbl = k1.expr_eval(prog, [(page.blocks[i].data, page.blocks[i].valid) for i in cols],
+                       page.capacity)
+    hkeys = [(dbl[0], dbl[1], 0, 0), (page.blocks[names.index("ss_store_sk")].data,
+                                      page.blocks[names.index("ss_store_sk")].valid, 0, 0)]
+    err = same(pk.hash_keys(hkeys, page.row_mask), pk.masked_plain(hkeys, page.row_mask,
+                                                                   False)[0], "hash_keys double")
+    ms = cuda_ms(lambda: pk.hash_keys(hkeys, page.row_mask), 20)
+    plain = cuda_ms(lambda: pk.masked_plain(hkeys, page.row_mask, False), 5)
+    report.add("hash_keys@double", "cuda", "presto_tpu_torch/csrc/keys.cu", err, ms, plain,
+               nbytes(page.row_mask, *[t for k in hkeys for t in k[:2]]) + 8 * page.capacity,
+               counter="hash_keys:double")
+
+
 def profile_query(runner, sql: str) -> str:
     """One traced run of ``sql``: device-busy share of its wall time
     and the device time of its heaviest kernels (torch.profiler)."""
@@ -1307,7 +1589,17 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("topn", "wide_launches", "topn:n>32"),
               ("expr_eval", "double_launches", "expr_eval:double"),
               ("topn", "double_launches", "topn:double"),
-              ("packed_fold_finalize", "double_avg_launches", "packed_fold_finalize:avg_double"))
+              ("packed_fold_finalize", "double_avg_launches", "packed_fold_finalize:avg_double"),
+              ("packed_group_agg", "variance_launches", "packed_group_agg:variance"),
+              ("packed_group_agg", "double_sum_launches", "packed_group_agg:double_sum"),
+              ("sorted_group_agg", "variance_launches", "sorted_group_agg:variance"),
+              ("sorted_group_agg", "variance_merge_launches", "sorted_group_agg:variance_merge"),
+              ("sorted_group_agg", "double_sum_launches", "sorted_group_agg:double_sum"),
+              ("packed_fold_finalize", "chan_fold_launches", "packed_fold_finalize:chan"),
+              ("packed_fold_finalize", "sum0_launches", "packed_fold_finalize:sum0"),
+              ("packed_fold_finalize", "collapse_launches", "packed_fold_finalize:collapse"),
+              ("packed_fold_finalize", "variance_launches", "packed_fold_finalize:variance"),
+              ("hash_keys", "double_launches", "hash_keys:double"))
 
 
 def reset_counts() -> None:
@@ -1362,18 +1654,19 @@ def query_catalog(conn, sql: str, ordered=(), tables=None, name: str = "tpch"):
     return catalog
 
 
-def ds_tables() -> dict:
-    """The TPC-DS tables the slice's queries read, each with the columns
-    any of them names."""
+def ds_tables(queries=None) -> dict:
+    """The TPC-DS tables ``queries`` (default: both slices') read, each
+    with the columns any of them names."""
     import re
 
     from presto_tpu_torch.connectors.tpcds import SCHEMAS
 
+    sqls = list((queries if queries is not None else {**DS_QUERIES, **DS2_QUERIES}).values())
     out = {}
     for table, schema in SCHEMAS.items():
-        if any(re.search(rf"\b{table}\b", sql) for sql in DS_QUERIES.values()):
+        if any(re.search(rf"\b{table}\b", sql) for sql in sqls):
             out[table] = [c for c, _ in schema
-                          if any(re.search(rf"\b{c}\b", sql) for sql in DS_QUERIES.values())]
+                          if any(re.search(rf"\b{c}\b", sql) for sql in sqls)]
     return out
 
 
@@ -1392,7 +1685,8 @@ def run_counted(runners, queries, required, launches, results, wall) -> None:
         launches[label] = read_counts()
         log(f"{label} launches: {launches[label]}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        missing = [k for k in required[label] if launches[label].get(k, 0) == 0]
+        missing = [k for k in required[label]
+                   if not any(launches[label].get(a, 0) for a in k.split("|"))]
         if missing:
             raise AssertionError(f"{label}: kernels of its path not launched: {missing}")
 
@@ -1441,6 +1735,13 @@ def main() -> int:
     tpcds = Tpcds(sf=DS_SF, split_rows=DS_SPLIT_ROWS)
     for table, columns in ds_cols.items():
         host_ds.load_from(tpcds, table, columns=columns)
+    # the sixth slice's tables again at DS_CHECK_SF, for its row check
+    host_ds_check = MemoryConnector(device="cpu")
+    ds2_cols = ds_tables(DS2_QUERIES)
+    tpcds_check = Tpcds(sf=DS_CHECK_SF, split_rows=DS_SPLIT_ROWS)
+    for table, columns in ds2_cols.items():
+        host_ds_check.load_from(tpcds_check, table, columns=columns)
+    del tpch, tpcds, tpcds_check  # the generators: only their tables stay
     gen_s = time.perf_counter() - t0
     build_thread.join()
     if build_err:
@@ -1453,13 +1754,16 @@ def main() -> int:
                                  f"splits" for t in TABLES))
     log(f"TPC-DS sf={DS_SF}: " + ", ".join(
         f"{t} {host_ds.row_count(t)} rows in {host_ds.num_splits(t)} splits" for t in ds_cols)
+        + f"; TPC-DS sf={DS_CHECK_SF} (the sixth slice's check): " + ", ".join(
+        f"{t} {host_ds_check.row_count(t)} rows" for t in ds2_cols)
         + f"; generated in {gen_s:.1f} s; kernels built by {build_s:.1f} s")
 
-    mem, mem_check, mem_ds = (MemoryConnector(device="cuda") for _ in range(3))
+    mem, mem_check, mem_ds, mem_ds_check = (MemoryConnector(device="cuda") for _ in range(4))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for conn, src, tables in ((mem, host, TABLES), (mem_check, host_check, TABLES),
-                              (mem_ds, host_ds, ds_cols)):
+                              (mem_ds, host_ds, ds_cols),
+                              (mem_ds_check, host_ds_check, ds2_cols)):
         for table in tables:
             conn.load_from(src, table)
     torch.cuda.synchronize()
@@ -1475,6 +1779,8 @@ def main() -> int:
                for label, sql in QUERIES.items()}
     ds_runners = {label: QueryRunner(query_catalog(mem_ds, sql, tables=ds_cols, name="tpcds"),
                                      device="cuda") for label, sql in DS_QUERIES.items()}
+    ds2_runners = {label: QueryRunner(query_catalog(mem_ds, sql, tables=ds_cols, name="tpcds"),
+                                      device="cuda") for label, sql in DS2_QUERIES.items()}
 
     report = KernelReport()
     check_kernels(report, runner, mem)
@@ -1482,6 +1788,7 @@ def main() -> int:
     check_slice_kernels(report, runners)
     check_aggregation_kernels(report, runners)
     check_window_kernels(report, ds_runners, mem_ds)
+    check_sixth_slice_kernels(report, ds2_runners, mem_ds)
     torch.cuda.synchronize()
     log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1509,6 +1816,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     drive(ds_runners, DS_QUERIES, DS_REQUIRED)
+    drive(ds2_runners, DS2_QUERIES, DS2_REQUIRED)
     for row in report.rows.values():
         kname = report.counters.get(row["name"], row["name"].split("@")[0])
         row["launches_by_query"] = {q: launches[q].get(kname, 0) for q in launches}
@@ -1536,6 +1844,24 @@ def main() -> int:
         check_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref, may_be_empty)
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
+    # the host's tables leave as their checks end: the CPU runs of the
+    # TPC-DS checks need the room (q47's at SF10 most)
+    del host, host_check, mem_check, cat_check
+    gc.collect()
+    # the sixth slice at DS_CHECK_SF: the card runs its queries again
+    # over those tables, the CPU once
+    for label, sql in DS2_QUERIES.items():
+        t1 = time.perf_counter()
+        got = QueryRunner(query_catalog(mem_ds_check, sql, tables=ds2_cols, name="tpcds"),
+                          device="cuda").execute(sql)
+        ref = QueryRunner(query_catalog(host_ds_check, sql, tables=ds2_cols, name="tpcds"),
+                          device="cpu").execute(sql)
+        check_rows(f"{label} at sf={DS_CHECK_SF}", got, ref, label in DS2_EMPTY_AT_CHECK)
+        log(f"{label} at sf={DS_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s)")
+    del host_ds_check, mem_ds_check
+    gc.collect()
+    torch.cuda.empty_cache()
     for label, sql in DS_QUERIES.items():
         t1 = time.perf_counter()
         ref = QueryRunner(query_catalog(host_ds, sql, tables=ds_cols, name="tpcds"),
@@ -1544,12 +1870,13 @@ def main() -> int:
         log(f"{label}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
-    for label in list(QUERIES) + list(DS_QUERIES):
+    for label in list(QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES else (
             "store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
-        log(f"{label}: {results[label].rows}")
+        shown = results[label].rows
+        log(f"{label}: {len(shown)} rows: {shown[:5]}{' ...' if len(shown) > 5 else ''}")
         log(f"{label}: wall {med * 1e3:.2f} ms median of {len(wall[label])} "
             f"({', '.join(f'{w * 1e3:.2f}' for w in wall[label])}){rate}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "

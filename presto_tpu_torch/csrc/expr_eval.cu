@@ -49,6 +49,22 @@
 // wrap as the reference's rescale does) and compares the high limb,
 // then the low one.  Simple first: the stack lives in local memory and
 // loads are not vectorised.
+//
+// Added for TPC-DS: COAL keeps the first valid of two operands
+// (coalesce, left to right, after each operand is coerced to the
+// output type); a string CASE / IF / coalesce remaps each branch's
+// codes into the merged dictionary with CANON's int32 table, and a
+// comparison of two string columns maps both sides to shared value
+// ids with two such tables, then compares integers.  SFLOOR is a
+// scaled-int floor division by 10^k (a ceiling adds 10^k - 1 first;
+// also a decimal down-scale), SROUND rounds a decimal half away from
+// zero over 10^drop, DFLOOR floors or ceils a double, DROUND rounds a
+// double half away from zero at 10^digits (floor(x + 0.5) / ceil(x -
+// 0.5), then / 10^digits), D2S is cast_decimal from a double,
+// round(d * 10^scale) half to even by __double2ll_rn (jnp.round's
+// rule, never round()'s), D2L the same split into limbs through
+// floor(scaled / 10^18), and LADD adds or subtracts two long decimals
+// (decimal128.add/sub).
 
 #include "common.cuh"
 
@@ -65,7 +81,8 @@ enum {
   OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_BETWEEN, OP_AND, OP_OR, OP_NOT,
   OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV, OP_IN, OP_CANON,
   OP_DATEPART, OP_S2D, OP_S2L, OP_LSCALE, OP_LCMP, OP_NOTNULL, OP_LOAD_F64, OP_DLIT,
-  OP_DADD, OP_DSUB, OP_DMUL, OP_DNEG, OP_DABS, OP_DCMP, OP_NEG, OP_ABS
+  OP_DADD, OP_DSUB, OP_DMUL, OP_DNEG, OP_DABS, OP_DCMP, OP_NEG, OP_ABS, OP_COAL,
+  OP_SFLOOR, OP_SROUND, OP_DFLOOR, OP_DROUND, OP_D2S, OP_D2L, OP_LADD
 };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
 
@@ -208,6 +225,44 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         sd[sp - 1] = op == OP_NEG || x < 0 ? wneg(x) : x;
         break;
       }
+      case OP_SFLOOR: {  // arg: divisor's constant index * 2 + (1 for a ceiling)
+        const i64 c = p.consts[arg >> 1];
+        const i64 x = (arg & 1) ? wadd(sd[sp - 1], c - 1) : sd[sp - 1];
+        sd[sp - 1] = fdiv(x, c);
+        break;
+      }
+      case OP_SROUND: {  // half away from zero over 10^drop (wrapping as jnp)
+        const i64 q = p.consts[arg], half = q / 2;
+        const i64 x = sd[sp - 1];
+        sd[sp - 1] = x >= 0 ? fdiv(wadd(x, half), q) : wneg(fdiv(wadd(wneg(x), half), q));
+        break;
+      }
+      case OP_DFLOOR:  // arg: 0 floor, 1 ceil
+        if constexpr (WIDE) {
+          const double x = bits2d(sd[sp - 1]);
+          sd[sp - 1] = d2bits(arg ? ceil(x) : floor(x));
+        }
+        break;
+      case OP_DROUND:  // half away from zero at 10^digits (the constant's bits)
+        if constexpr (WIDE) {
+          const double m = bits2d(p.consts[arg]);
+          const double x = __dmul_rn(bits2d(sd[sp - 1]), m);
+          const double r = x >= 0 ? floor(__dadd_rn(x, 0.5)) : ceil(__dsub_rn(x, 0.5));
+          sd[sp - 1] = d2bits(__ddiv_rn(r, m));
+        }
+        break;
+      case OP_D2S:  // round(d * 10^scale) half to even, to int64
+        if constexpr (WIDE)
+          sd[sp - 1] = __double2ll_rn(__dmul_rn(bits2d(sd[sp - 1]), bits2d(p.consts[arg])));
+        break;
+      case OP_D2L:  // the same scaled value, split into two limbs
+        if constexpr (WIDE) {
+          const double scaled = rint(__dmul_rn(bits2d(sd[sp - 1]), bits2d(p.consts[arg])));
+          const double hi = floor(__ddiv_rn(scaled, 1e18));
+          const double lo = __dsub_rn(scaled, __dmul_rn(hi, 1e18));
+          d128_normalize(__double2ll_rz(hi), __double2ll_rz(lo), &sd[sp - 1], &sl[sp - 1]);
+        }
+        break;
       case OP_NOTNULL:  // arg: 0 not_null, 1 is_null; never NULL itself
         sd[sp - 1] = arg ? !sv[sp - 1] : sv[sp - 1];
         sv[sp - 1] = true;
@@ -303,6 +358,24 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         switch (op) {
           case OP_AND: case OP_OR:
             logic3(op == OP_AND, a, av, b, bv, &d, &v);
+            break;
+          case OP_COAL: {  // the first valid operand
+            const bool take = !av && bv;
+            d = take ? b : a;
+            v = av || bv;
+            if constexpr (WIDE) sl[sp - 1] = take ? sl[sp] : sl[sp - 1];
+            break;
+          }
+          case OP_LADD:  // arg 0: a + b, 1: a - b, two long decimals
+            if constexpr (WIDE) {
+              i64 h, l;
+              if (arg) d128_normalize(wsub(a, b), wsub(sl[sp - 1], sl[sp]), &h, &l);
+              else d128_normalize(wadd(a, b), wadd(sl[sp - 1], sl[sp]), &h, &l);
+              d = h;
+              sl[sp - 1] = l;
+            } else {
+              d = 0;
+            }
             break;
           case OP_ADD: d = wadd(a, b); v = v && !(((a ^ d) & (b ^ d)) < 0); break;
           case OP_SUB: d = wsub(a, b); v = v && !(((a ^ b) & (a ^ d)) < 0); break;

@@ -15,8 +15,8 @@
 
 #include "common.cuh"
 
-#define PK_MAX_KEYS 8
-enum { PK_BOOL = 0, PK_I32 = 1, PK_I64 = 2 };
+#define PK_MAX_KEYS 16
+enum { PK_BOOL = 0, PK_I32 = 1, PK_I64 = 2, PK_F64 = 3 };
 
 struct PackDesc {
   int n;
@@ -31,6 +31,7 @@ struct PackDesc {
 __device__ __forceinline__ i64 pk_load(const void* p, int kind, i64 i) {
   if (kind == PK_I64) return ((const i64*)p)[i];
   if (kind == PK_I32) return ((const int*)p)[i];
+  if (kind == PK_F64) return __double2ll_rz(((const double*)p)[i]);  // a hashed double key
   return ((const uint8_t*)p)[i] != 0;
 }
 

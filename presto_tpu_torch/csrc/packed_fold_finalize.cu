@@ -23,7 +23,14 @@
 // equals the reference's base-10^6 long division; an integer's avg as
 // a double, float64(sum) / float64(count) by __ddiv_rn, so it rounds as
 // the plain twin's division of two tensors.  Empty groups and
-// zero counts come out NULL.  Written in CUDA rather than Triton for
+// zero counts come out NULL.  sum0 (the outer half of the
+// mixed-DISTINCT rewrite) is never NULL; a long sum collapsed to a
+// short decimal is hi * 10^18 + lo in wrapping int64.  Double sums fold
+// by __dadd_rn; a variance state's m2 folds by Chan's pairwise update
+// (its s and count are the columns either side of it), and finalizes
+// as pop = max(m2 / n, 0), a sample's pop * n / max(n - 1, 1) valid
+// where n > 1, and sqrt for stddev, each an _rn intrinsic in the
+// reference's order.  Written in CUDA rather than Triton for
 // __int128 and to keep one build.
 
 #include "common.cuh"
@@ -33,10 +40,30 @@
 enum { MODE_FOLD = 0, MODE_FINALIZE = 1 };
 // fold column kinds: keep in step with kernels/packed_fold_finalize.py
 enum { COL_I64 = 0, COL_D128 = 1, COL_MIN_I64 = 2, COL_MAX_I64 = 3, COL_MIN_I32 = 4,
-       COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7 };
+       COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7, COL_F64 = 8, COL_VAR_M2 = 9 };
 // finalize kinds
 enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
-       FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6, FIN_AVG_DOUBLE = 7 };
+       FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6, FIN_AVG_DOUBLE = 7,
+       FIN_SUM0 = 8, FIN_SUM0_D128 = 9, FIN_SUM_COLLAPSE = 10, FIN_SUM0_COLLAPSE = 11,
+       FIN_SUM_F64 = 12, FIN_AVG_F64 = 13, FIN_VAR_POP = 14, FIN_VAR_SAMP = 15,
+       FIN_STDDEV_POP = 16, FIN_STDDEV_SAMP = 17 };
+
+__device__ __forceinline__ double f64_at(const i64* p, i64 g) { return ((const double*)p)[g]; }
+
+// Chan's pairwise update of two variance states' m2
+__device__ __forceinline__ double chan_m2(double s_a, double m2a, i64 n_a, double s_b,
+                                          double m2b, i64 n_b) {
+  if (n_a == 0) return m2b;
+  if (n_b == 0) return m2a;
+  const double naf = __ll2double_rn(n_a), nbf = __ll2double_rn(n_b);
+  const double sum_n = __dadd_rn(naf, nbf);
+  const double nf = sum_n > 1.0 ? sum_n : 1.0;
+  const double mean_a = __ddiv_rn(s_a, naf > 1.0 ? naf : 1.0);
+  const double mean_b = __ddiv_rn(s_b, nbf > 1.0 ? nbf : 1.0);
+  const double delta = __dsub_rn(mean_b, mean_a);
+  const double t = __ddiv_rn(__dmul_rn(__dmul_rn(__dmul_rn(delta, delta), naf), nbf), nf);
+  return __dadd_rn(__dadd_rn(m2a, m2b), t);
+}
 
 struct K3Desc {
   int n_items;
@@ -98,6 +125,12 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
       } else if (kind == COL_MIN_I32 || kind == COL_MAX_I32) {
         const int a = ((const int*)d.in0[c])[g], b = ((const int*)d.in1[c])[g];
         ((int*)d.out0[c])[g] = kind == COL_MIN_I32 ? min(a, b) : max(a, b);
+      } else if (kind == COL_F64) {
+        ((double*)d.out0[c])[g] = __dadd_rn(f64_at(d.in0[c], g), f64_at(d.in1[c], g));
+      } else if (kind == COL_VAR_M2) {  // s in column c - 1, the count in c + 1
+        ((double*)d.out0[c])[g] = chan_m2(f64_at(d.in0[c - 1], g), f64_at(d.in0[c], g),
+                                          d.in0[c + 1][g], f64_at(d.in1[c - 1], g),
+                                          f64_at(d.in1[c], g), d.in1[c + 1][g]);
       } else if (kind == COL_MIN_I64 || kind == COL_MAX_I64) {
         const i64 a = d.in0[c][g], b = d.in1[c][g];
         d.out0[c][g] = kind == COL_MIN_I64 ? (a < b ? a : b) : (a > b ? a : b);
@@ -117,12 +150,42 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
       continue;
     }
     const i64 cnt = d.in1[c][g];
-    d.out1[c][g] = live && cnt > 0;
+    const bool sum0 = kind == FIN_SUM0 || kind == FIN_SUM0_D128 || kind == FIN_SUM0_COLLAPSE;
+    const bool sample = kind == FIN_VAR_SAMP || kind == FIN_STDDEV_SAMP;
+    d.out1[c][g] = live && (sum0 || cnt > (sample ? 1 : 0));
     const i64 n = cnt > 1 ? cnt : 1;
     switch (kind) {
-      case FIN_SUM: d.out0[c][g] = d.in0[c][g]; break;  // also a min/max
+      case FIN_SUM:  // also a min/max
+      case FIN_SUM0:
+      case FIN_SUM_F64:  // a double's bits
+        d.out0[c][g] = d.in0[c][g];
+        break;
+      case FIN_SUM_COLLAPSE:
+      case FIN_SUM0_COLLAPSE:
+        d.out0[c][g] = wadd(wmul(d.in0[c][2 * g], B18), d.in0[c][2 * g + 1]);
+        break;
+      case FIN_AVG_F64:
+        ((double*)d.out0[c])[g] = __ddiv_rn(f64_at(d.in0[c], g), __ll2double_rn(n));
+        break;
+      case FIN_VAR_POP:
+      case FIN_VAR_SAMP:
+      case FIN_STDDEV_POP:
+      case FIN_STDDEV_SAMP: {  // in0: m2
+        const double nf = __ll2double_rn(n);
+        const double q = __ddiv_rn(f64_at(d.in0[c], g), nf);
+        const double pop = (q > 0.0 || q != q) ? q : 0.0;  // max(q, 0), NaN stays
+        double var = pop;
+        if (sample) {
+          const double nm1 = __dsub_rn(nf, 1.0);
+          var = __ddiv_rn(__dmul_rn(pop, nf), nm1 > 1.0 ? nm1 : 1.0);
+        }
+        if (kind == FIN_STDDEV_POP || kind == FIN_STDDEV_SAMP) var = __dsqrt_rn(var);
+        ((double*)d.out0[c])[g] = var;
+        break;
+      }
       case FIN_VALUE_I32: ((int*)d.out0[c])[g] = ((const int*)d.in0[c])[g]; break;
       case FIN_SUM_D128:
+      case FIN_SUM0_D128:
         d.out0[c][2 * g] = d.in0[c][2 * g];
         d.out0[c][2 * g + 1] = d.in0[c][2 * g + 1];
         break;

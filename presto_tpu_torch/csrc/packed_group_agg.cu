@@ -33,24 +33,46 @@
 // the reference's phased walk: a first launch reduces the high limb,
 // a second one reduces the low limb over the rows whose high limb
 // ties the group's final one.
+//
+// Double states (a double sum, and the variance state (s, m2, cnt) of
+// _partial_states' two-pass form) never use double atomics: their
+// order would change from run to run.  They add in one fixed order,
+// the same as the plain twin's (chunk_sums_plain): the rows split into
+// chunks of K2_DSUM_CHUNK; one block per chunk stages its rows' slots
+// and values in shared memory, and one thread per slot adds its rows in
+// row order from 0.0; the chunk partials then add pairwise, one launch
+// per level (chunk 2i + chunk 2i + 1, ping-pong between two scratch
+// halves, an odd last chunk passing up).  Variance runs that twice:
+// s, then mu = s / max(cnt, 1), then m2 = sum of (x - mu)^2.  Every
+// double operation is an _rn intrinsic, so nothing contracts into an
+// FMA and the card rounds as the twin does.  At most
+// K2_DOUBLE_SLOT_LIMIT slot: the global aggregate's (the executor sends
+// keyed double states to K6).
 // Simple first: contended shared atomics on a few groups (TPC-H Q1)
 // are the known cost; warp-private tables are a later step.
 
 #include "common.cuh"
 
-#define K2_MAX_KEYS 8
+#define K2_MAX_KEYS 16
 #define K2_MAX_AGGS 32
 #define K2_MAX_SLOTS (1 + 5 * K2_MAX_AGGS)
 #define K2_SHARED_LIMIT (48 * 1024)
+#define K2_DSUM_CHUNK 256
+#define K2_DOUBLE_SLOT_LIMIT 1
 
 // aggregate kinds: keep in step with kernels/packed_group_agg.py
 enum { AGG_COUNT_STAR = 0, AGG_COUNT = 1, AGG_SUM_SHORT = 2, AGG_SUM_LONG = 3,
-       AGG_MIN_SHORT = 4, AGG_MAX_SHORT = 5, AGG_MIN_LONG = 6, AGG_MAX_LONG = 7 };
-enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3 };
+       AGG_MIN_SHORT = 4, AGG_MAX_SHORT = 5, AGG_MIN_LONG = 6, AGG_MAX_LONG = 7,
+       AGG_SUM_LONG_ARG = 8, AGG_SUM_DOUBLE = 9, AGG_VARIANCE = 10 };
+enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3, KIND_F64 = 4 };
+
+__host__ __device__ __forceinline__ bool is_double_agg(int kind) {
+  return kind == AGG_SUM_DOUBLE || kind == AGG_VARIANCE;
+}
 
 __host__ __device__ __forceinline__ int agg_width(int kind) {
   switch (kind) {
-    case AGG_SUM_LONG: return 5;
+    case AGG_SUM_LONG: case AGG_SUM_LONG_ARG: return 5;
     case AGG_MIN_LONG: case AGG_MAX_LONG: return 3;
     case AGG_SUM_SHORT: case AGG_MIN_SHORT: case AGG_MAX_SHORT: return 2;
     default: return 1;
@@ -74,8 +96,9 @@ struct K2Desc {
   const void* arg_data[K2_MAX_AGGS];
   const uint8_t* arg_valid[K2_MAX_AGGS];
   int arg_kind[K2_MAX_AGGS];
-  i64* out0[K2_MAX_AGGS];  // count, or sum ((G,) or (G, 2) limbs)
-  i64* out1[K2_MAX_AGGS];  // count of a sum or a min/max
+  i64* out0[K2_MAX_AGGS];  // count, or sum ((G,) or (G, 2) limbs, or doubles)
+  i64* out1[K2_MAX_AGGS];  // count of a sum or a min/max; m2 of a variance
+  i64* out2[K2_MAX_AGGS];  // count of a variance
   int raw_width;           // raw slots per group; slot 0 counts live rows
   uint8_t slot_kind[K2_MAX_SLOTS];  // SLOT_ADD, SLOT_MIN or SLOT_MAX
 };
@@ -90,17 +113,23 @@ __device__ __forceinline__ void add_slot(u64* tab, i64 v) {
   if (v != 0) atomicAdd(tab, (u64)v);  // adding zero changes nothing
 }
 
-// phase 0: every state but the low limb of a long min/max; phase 1
-// (tab is the device table): that low limb, over the rows whose high
-// limb equals the group's reduced one
-__device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_groups,
-                                               u64* tab, int phase) {
+// the packed gid of row i: the mixed-radix number of its key codes
+__device__ __forceinline__ i64 row_key(const K2Desc& d, i64 i) {
   i64 key = 0;
   for (int k = 0; k < d.n_keys; ++k) {
     const i64 code = d.key_valid[k][i]
         ? load_int(d.key_data[k], d.key_kind[k], i) - d.key_lo[k] + 1 : 0;
     key = key * d.key_card[k] + code;
   }
+  return key;
+}
+
+// phase 0: every state but the low limb of a long min/max; phase 1
+// (tab is the device table): that low limb, over the rows whose high
+// limb equals the group's reduced one
+__device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_groups,
+                                               u64* tab, int phase) {
+  const i64 key = row_key(d, i);
   if (key < 0 || key >= n_groups) return;  // out-of-domain ids are dropped
   u64* base = tab + key * d.raw_width;
   if (phase == 1) {
@@ -119,11 +148,20 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
     const int kind = d.agg_kind[a];
     if (kind == AGG_COUNT_STAR) { atomicAdd(s, 1ull); continue; }
     if (!d.arg_valid[a][i]) continue;
-    if (kind == AGG_COUNT) { atomicAdd(s, 1ull); continue; }
+    if (kind == AGG_COUNT || is_double_agg(kind)) { atomicAdd(s, 1ull); continue; }
     if (is_long_extreme(kind)) {  // the high limb; phase 1 takes the low one
       slot_combine(s, ((const i64*)d.arg_data[a])[2 * i],
                    kind == AGG_MIN_LONG ? SLOT_MIN : SLOT_MAX);
       atomicAdd(s + 2, 1ull);
+      continue;
+    }
+    if (kind == AGG_SUM_LONG_ARG) {  // to_sum_limbs of the argument's limbs
+      const i64* x = (const i64*)d.arg_data[a] + 2 * i;
+      add_slot(s, fdiv(x[0], B9));
+      add_slot(s + 1, fmod_(x[0], B9));
+      add_slot(s + 2, fdiv(x[1], B9));
+      add_slot(s + 3, fmod_(x[1], B9));
+      atomicAdd(s + 4, 1ull);
       continue;
     }
     const i64 x = load_int(d.arg_data[a], d.arg_kind[a], i);
@@ -188,6 +226,8 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
     const i64* s = r + d.agg_slot[a];
     switch (d.agg_kind[a]) {
       case AGG_COUNT_STAR: case AGG_COUNT: d.out0[a][g] = s[0]; break;
+      case AGG_SUM_DOUBLE: d.out1[a][g] = s[0]; break;  // the sum comes later
+      case AGG_VARIANCE: d.out2[a][g] = s[0]; break;
       case AGG_SUM_SHORT: d.out0[a][g] = s[0]; d.out1[a][g] = s[1]; break;
       case AGG_MIN_SHORT: case AGG_MAX_SHORT:
         if (d.arg_kind[a] == KIND_I32) ((int*)d.out0[a])[g] = narrow_extreme(s[0]);
@@ -199,7 +239,7 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
         d.out0[a][2 * g + 1] = s[1];
         d.out1[a][g] = s[2];
         break;
-      default: {  // AGG_SUM_LONG: from_sum_limbs, then normalize
+      default: {  // AGG_SUM_LONG(_ARG): from_sum_limbs, then normalize
         i64 h1 = s[0], h0 = s[1], l1 = s[2], l0 = s[3];
         i64 c = fdiv(l0, B9);
         l0 -= c * B9;
@@ -223,6 +263,92 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
   }
 }
 
+// One block per chunk of K2_DSUM_CHUNK rows: the chunk's partial sum
+// per slot, each slot's rows in row order from 0.0.  With mu set, a
+// row adds (x - mu[slot])^2 in place of x (variance's second pass).
+__global__ void k2_dsum_chunks(const K2Desc d, int a, i64 n,
+                               const uint8_t* __restrict__ row_mask, i64 n_groups,
+                               const double* __restrict__ mu, double* __restrict__ part) {
+  __shared__ int sg[K2_DSUM_CHUNK];
+  __shared__ double sx[K2_DSUM_CHUNK];
+  const i64 base = (i64)blockIdx.x * K2_DSUM_CHUNK;
+  for (int j = threadIdx.x; j < K2_DSUM_CHUNK; j += blockDim.x) {
+    const i64 i = base + j;
+    int g = -1;
+    double x = 0.0;
+    if (i < n && row_mask[i] && d.arg_valid[a][i]) {
+      const i64 key = row_key(d, i);
+      if (key >= 0 && key < n_groups) {
+        g = (int)key;
+        x = ((const double*)d.arg_data[a])[i];
+        if (mu != nullptr) {
+          const double dx = __dsub_rn(x, mu[g]);
+          x = __dmul_rn(dx, dx);
+        }
+      }
+    }
+    sg[j] = g;
+    sx[j] = x;
+  }
+  __syncthreads();
+  for (i64 g = threadIdx.x; g < n_groups; g += blockDim.x) {
+    double acc = 0.0;
+    for (int j = 0; j < K2_DSUM_CHUNK; ++j)
+      if (sg[j] == g) acc = __dadd_rn(acc, sx[j]);
+    part[(i64)blockIdx.x * n_groups + g] = acc;
+  }
+}
+
+// One level of the pairwise sum over chunk rows: dst row i = src row
+// 2i + src row 2i + 1 (an odd last row passes up).
+__global__ void k2_dsum_level(const double* __restrict__ src, i64 rows, i64 n_groups,
+                              double* __restrict__ dst) {
+  const i64 half = (rows + 1) / 2;
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x; t < half * n_groups; t += stride) {
+    const i64 i = t / n_groups, g = t % n_groups;
+    const double l = src[2 * i * n_groups + g];
+    dst[t] = 2 * i + 1 < rows ? __dadd_rn(l, src[(2 * i + 1) * n_groups + g]) : l;
+  }
+}
+
+// The pairwise total into out; with cnt set, mu = total / max(cnt, 1)
+// into mu_out as well.
+__global__ void k2_dsum_out(const double* __restrict__ total, i64 n_groups,
+                            double* __restrict__ out, const i64* __restrict__ cnt,
+                            double* __restrict__ mu_out) {
+  const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n_groups) return;
+  out[g] = total[g];
+  if (cnt != nullptr)
+    mu_out[g] = __ddiv_rn(total[g], __ll2double_rn(cnt[g] > 1 ? cnt[g] : 1));
+}
+
+// The fixed-order per-slot sum of aggregate a (mu: see k2_dsum_chunks)
+// into out; scratch holds chunks * n_groups + (chunks + 1) / 2 *
+// n_groups doubles.
+static void k2_double_pass(const K2Desc& d, int a, i64 n, const uint8_t* row_mask,
+                           i64 n_groups, const double* mu, double* scratch, double* out,
+                           const i64* cnt, double* mu_out, cudaStream_t s) {
+  i64 rows = n > 0 ? (n + K2_DSUM_CHUNK - 1) / K2_DSUM_CHUNK : 1;
+  double* a_buf = scratch;
+  double* b_buf = scratch + rows * n_groups;
+  if (n > 0)
+    k2_dsum_chunks<<<(unsigned)rows, 128, 0, s>>>(d, a, n, row_mask, n_groups, mu, a_buf);
+  else
+    cudaMemsetAsync(a_buf, 0, n_groups * sizeof(double), s);
+  while (rows > 1) {
+    const i64 half = (rows + 1) / 2;
+    k2_dsum_level<<<grid_for(half * n_groups, 256, 4), 256, 0, s>>>(a_buf, rows, n_groups,
+                                                                     b_buf);
+    double* t = a_buf;
+    a_buf = b_buf;
+    b_buf = t;
+    rows = half;
+  }
+  k2_dsum_out<<<(int)((n_groups + 127) / 128), 128, 0, s>>>(a_buf, n_groups, out, cnt, mu_out);
+}
+
 // raw: int64 scratch of n_groups * raw_width.  out0/out1: the output
 // columns per aggregate (out1 only for sums and min/max; out0 of a
 // min/max has the argument's storage).  present: (G,) bool.  Returns
@@ -233,8 +359,8 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
                                    int n_aggs, const int* agg_kind, const i64* arg_data,
                                    const i64* arg_valid, const int* arg_kind,
                                    i64 n_groups, int raw_width, void* raw,
-                                   const i64* out0, const i64* out1, void* present,
-                                   void* stream) {
+                                   const i64* out0, const i64* out1, const i64* out2,
+                                   void* present, void* scratch, void* stream) {
   if (n_keys > K2_MAX_KEYS || n_aggs > K2_MAX_AGGS || n_groups < 1)
     return (int)cudaErrorInvalidValue;
   K2Desc d;
@@ -252,7 +378,9 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   d.slot_kind[0] = SLOT_ADD;
   for (int a = 0; a < n_aggs; ++a) {
     const int kind = agg_kind[a];
-    if (kind < AGG_COUNT_STAR || kind > AGG_MAX_LONG) return (int)cudaErrorInvalidValue;
+    if (kind < AGG_COUNT_STAR || kind > AGG_VARIANCE) return (int)cudaErrorInvalidValue;
+    if (is_double_agg(kind) && n_groups > K2_DOUBLE_SLOT_LIMIT)
+      return (int)cudaErrorInvalidValue;
     d.agg_kind[a] = kind;
     d.agg_slot[a] = slot;
     for (int j = 0; j < agg_width(kind); ++j) d.slot_kind[slot + j] = SLOT_ADD;
@@ -266,6 +394,7 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
     d.arg_kind[a] = arg_kind[a];
     d.out0[a] = (i64*)out0[a];
     d.out1[a] = (i64*)out1[a];
+    d.out2[a] = (i64*)out2[a];
   }
   if (slot != raw_width) return (int)cudaErrorInvalidValue;
   d.raw_width = raw_width;
@@ -286,5 +415,16 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   }
   k2_finish<<<(int)((n_groups + threads - 1) / threads), threads, 0, s>>>(
       d, n_groups, (const i64*)raw, (uint8_t*)present);
+  for (int a = 0; a < n_aggs; ++a) {
+    if (!is_double_agg(d.agg_kind[a])) continue;
+    const bool var = d.agg_kind[a] == AGG_VARIANCE;
+    double* sum = (double*)d.out0[a];
+    double* m2 = (double*)d.out1[a];  // holds mu until the second pass ends
+    k2_double_pass(d, a, n, (const uint8_t*)row_mask, n_groups, nullptr, (double*)scratch,
+                   sum, var ? d.out2[a] : nullptr, var ? m2 : nullptr, s);
+    if (var)
+      k2_double_pass(d, a, n, (const uint8_t*)row_mask, n_groups, m2, (double*)scratch, m2,
+                     nullptr, nullptr, s);
+  }
   return (int)cudaGetLastError();
 }

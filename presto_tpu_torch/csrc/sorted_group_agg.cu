@@ -39,6 +39,18 @@
 // high limb ties the group's.  An empty state keeps the identity (an
 // int32 state the int32 one).
 //
+// Double states (a double sum; the variance state (s, m2, cnt) of
+// _partial_states' two passes; its merge, _merge_states' Chan form
+// M2 = sum of m2_i + c_i (mu_i - mu)^2) take no atomics: a double
+// atomicAdd's order changes from run to run.  Each group's sorted run
+// splits into chunks of K6_DSUM_CHUNK positions; k6_dchunks gives each
+// chunk one thread that adds its values in sorted order from 0.0, and
+// k6_dtree one thread per group that adds its chunk partials pairwise
+// in place (stride 1, 2, 4, ...: the twin's level-by-level order).
+// The counts come from integer states of the same launch.  Every double
+// operation is an _rn intrinsic, so nothing contracts into an FMA and
+// the card rounds as the plain twin (run_sums_plain) does, bit for bit.
+//
 // Presorted mode (streaming aggregation, equal keys arrive together):
 // no sort.  k6_presorted_order numbers the live rows by an exclusive
 // scan of their live flags and writes each live row's key and position
@@ -51,13 +63,14 @@
 #include "keys.cuh"
 #include "scan.cuh"
 
-#define K6_MAX_STATES 16
+#define K6_MAX_STATES 32
 #define K6_MAX_SLOTS 64
 #define K6_CHUNK 16
+#define K6_DSUM_CHUNK 256
 
 // state kinds: keep in step with kernels/sorted_group_agg.py
 enum { S_ONE = 0, S_VALID = 1, S_SUM = 2, S_LIMBS_SHORT = 3, S_LIMBS_LONG = 4, S_MIN = 5,
-       S_MAX = 6, S_MIN_LONG = 7, S_MAX_LONG = 8 };
+       S_MAX = 6, S_MIN_LONG = 7, S_MAX_LONG = 8, S_DSUM = 9, S_VAR = 10, S_VAR_MERGE = 11 };
 
 __host__ __device__ __forceinline__ int state_width(int kind) {
   return (kind == S_LIMBS_SHORT || kind == S_LIMBS_LONG) ? 4
@@ -337,5 +350,128 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
     k6_accumulate<<<grid_for(chunks, 256, 8), 256, 0, st>>>(
         d, (const i64*)sorted_keys, (const i64*)order, n, (const int*)scan, (u64*)raw, 1);
   k6_finish<<<grid_for(groups, 256, 8), 256, 0, st>>>(d, groups, (const i64*)raw);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// double states
+// ---------------------------------------------------------------------------
+
+// starts[g]: the sorted position of group g's first row; starts[groups]:
+// the number of live rows
+static __global__ void k6_run_starts(const i64* __restrict__ sk, i64 n,
+                                     const int* __restrict__ scan, i64 groups,
+                                     i64* __restrict__ starts) {
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    if (sk[i] == I64_MAX) continue;
+    if (is_head(sk, i)) starts[scan[i]] = i;
+    if (i == n - 1 || sk[i + 1] == I64_MAX) starts[groups] = i + 1;
+  }
+}
+
+// base[g]: the number of chunks of group g (base[groups]: 0), to be
+// scanned into each group's first chunk
+static __global__ void k6_run_chunks(const i64* __restrict__ starts, i64 groups,
+                                     int* __restrict__ base) {
+  const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < groups) base[g] = (int)((starts[g + 1] - starts[g] + K6_DSUM_CHUNK - 1) / K6_DSUM_CHUNK);
+  else if (g == groups) base[g] = 0;
+}
+
+static __global__ void k6_chunk_groups(const int* __restrict__ base, i64 groups,
+                                       int* __restrict__ chunk_group) {
+  const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= groups) return;
+  for (int c = base[g]; c < base[g + 1]; ++c) chunk_group[c] = (int)g;
+}
+
+// One thread per chunk: the chunk's values in sorted order from 0.0.
+// pass 0 adds x (a merge: s_i); pass 1 adds (x - mu)^2 (a merge:
+// m2_i + c_i (mu_i - mu)^2, mu_i = s_i / max(c_i, 1)).
+static __global__ void k6_dchunks(const i64* __restrict__ order, const i64* __restrict__ starts,
+                                  const int* __restrict__ base,
+                                  const int* __restrict__ chunk_group, i64 groups, int kind,
+                                  int pass, const double* __restrict__ x,
+                                  const uint8_t* __restrict__ valid,
+                                  const double* __restrict__ m2_in,
+                                  const i64* __restrict__ c_in, const double* __restrict__ mu,
+                                  double* __restrict__ part) {
+  const i64 chunks = base[groups];
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x; t < chunks; t += stride) {
+    const int g = chunk_group[t];
+    const i64 p0 = starts[g] + (t - base[g]) * K6_DSUM_CHUNK;
+    const i64 p1 = p0 + K6_DSUM_CHUNK < starts[g + 1] ? p0 + K6_DSUM_CHUNK : starts[g + 1];
+    double acc = 0.0;
+    for (i64 p = p0; p < p1; ++p) {
+      const i64 row = order[p];
+      if (!valid[row]) continue;
+      double v = x[row];
+      if (pass == 1 && kind == S_VAR_MERGE) {
+        const i64 c = c_in[row];
+        const double cf = __ll2double_rn(c);
+        const double mu_i = __ddiv_rn(v, cf > 1.0 ? cf : 1.0);
+        const double dev = c > 0 ? __dsub_rn(mu_i, mu[g]) : 0.0;
+        v = __dadd_rn(m2_in[row], __dmul_rn(__dmul_rn(cf, dev), dev));
+      } else if (pass == 1) {
+        const double dx = __dsub_rn(v, mu[g]);
+        v = __dmul_rn(dx, dx);
+      }
+      acc = __dadd_rn(acc, v);
+    }
+    part[t] = acc;
+  }
+}
+
+// One thread per group: its chunk partials pairwise in place, the sum
+// into out; with cnt set, mu = sum / max(cnt, 1) into mu_out.
+static __global__ void k6_dtree(const int* __restrict__ base, i64 groups,
+                                double* __restrict__ part, double* __restrict__ out,
+                                const i64* __restrict__ cnt, double* __restrict__ mu_out) {
+  const i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= groups) return;
+  double* p = part + base[g];
+  const int m = base[g + 1] - base[g];
+  for (int w = 1; w < m; w *= 2)
+    for (int k = 0; k + w < m; k += 2 * w) p[k] = __dadd_rn(p[k], p[k + w]);
+  out[g] = p[0];
+  if (cnt != nullptr) mu_out[g] = __ddiv_rn(p[0], __ll2double_rn(cnt[g] > 1 ? cnt[g] : 1));
+}
+
+// A double state over the sorted run of each of `groups` groups: kind
+// S_DSUM writes out_s; S_VAR and S_VAR_MERGE write out_s and out_m2
+// (out_m2 holds mu between the passes), with cnt the group counts of
+// their integer state.  x: the double argument (a merge: s_i), m2_in
+// and c_in a merge's m2_i and c_i.  Scratch: starts groups + 1 int64,
+// base groups + 1 ints, partials scan_tiles(groups + 1) + 1 ints,
+// chunk_group and part `bound` (>= the chunk count) ints and doubles.
+extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n,
+                               const void* scan, i64 groups, int kind, const void* x,
+                               const void* valid, const void* m2_in, const void* c_in,
+                               const void* cnt, void* out_s, void* out_m2, void* starts,
+                               void* base, void* partials, void* chunk_group, void* part,
+                               i64 bound, void* stream) {
+  if (kind < S_DSUM || kind > S_VAR_MERGE) return (int)cudaErrorInvalidValue;
+  if (groups == 0) return (int)cudaGetLastError();
+  if ((n + K6_DSUM_CHUNK - 1) / K6_DSUM_CHUNK + groups > bound) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  k6_run_starts<<<grid_for(n, 256, 8), 256, 0, st>>>((const i64*)sorted_keys, n,
+                                                     (const int*)scan, groups, (i64*)starts);
+  k6_run_chunks<<<(int)((groups + 256) / 256), 256, 0, st>>>((const i64*)starts, groups,
+                                                             (int*)base);
+  scan_exclusive_inplace((int*)base, groups + 1, (int*)partials, st);
+  k6_chunk_groups<<<(int)((groups + 255) / 256), 256, 0, st>>>((const int*)base, groups,
+                                                               (int*)chunk_group);
+  const bool var = kind != S_DSUM;
+  for (int pass = 0; pass < (var ? 2 : 1); ++pass) {
+    k6_dchunks<<<grid_for(bound, 128, 8), 128, 0, st>>>(
+        (const i64*)order, (const i64*)starts, (const int*)base, (const int*)chunk_group,
+        groups, kind, pass, (const double*)x, (const uint8_t*)valid, (const double*)m2_in,
+        (const i64*)c_in, pass ? (const double*)out_m2 : nullptr, (double*)part);
+    k6_dtree<<<(int)((groups + 127) / 128), 128, 0, st>>>(
+        (const int*)base, groups, (double*)part, pass ? (double*)out_m2 : (double*)out_s,
+        var && pass == 0 ? (const i64*)cnt : nullptr, (double*)out_m2);
+  }
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,7 @@
 #include "common.cuh"
 
 #define K7_MAX_N 100
-#define K7_MAX_KEYS 8
+#define K7_MAX_KEYS 16
 #define K7_THREADS 64
 
 enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3, TK_F64 = 4 };

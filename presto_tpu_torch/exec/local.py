@@ -19,9 +19,12 @@ Ported: table scans, filters, projections, every join kind (inner,
 left, full, semi, anti, mark; null-safe and null-aware keys) except
 index joins, the cross join with a one-row relation (a scalar
 subquery, broadcast on the device), window functions (one page, K10),
-ORDER BY, top-N, and global,
-packed-direct, sort-path or streaming (presorted) aggregation over
-exact or hashed keys.  Other plan nodes raise :class:`NotPorted`.  PyTorch runs eagerly, so there are no
+ORDER BY, top-N, LIMIT (a running count of live rows), VALUES, a
+precomputed page, UNION ALL (each leg's pages with their dictionary
+codes moved into the union's merged dictionaries), GroupId (each page
+once per grouping set, streamed), and global, packed-direct, sort-path
+or streaming (presorted) aggregation over exact or hashed keys.  Other
+plan nodes raise :class:`NotPorted`.  PyTorch runs eagerly, so there are no
 compiled-program caches and no capacity buckets: the sort path and the
 expanding probe size their outputs from the count they find, so
 nothing is dropped and no capacity retry is needed.
@@ -39,27 +42,34 @@ import torch
 from presto_tpu_torch import NotPorted, resolve_device
 from presto_tpu_torch.catalog import Catalog
 from presto_tpu_torch.ops.aggregate import (
-    combine_packed_states, finalize_packed, grouped_aggregate, merge_aggregate,
-    packed_direct_layout,
+    combine_packed_states, finalize_packed, grouped_aggregate, merge_aggregate, takes_sort_path,
 )
 from presto_tpu_torch.ops.filter_project import filter_page, project_page
 from presto_tpu_torch.ops.join import (
     JoinBuild, build_join, outer_build_tail, probe_expand, probe_join,
 )
-from presto_tpu_torch.ops.sort import sort_page, topn_page
+from presto_tpu_torch.expr.compile import ExprCompiler
+from presto_tpu_torch.ops.sort import limit_page, sort_page, topn_page
 from presto_tpu_torch.ops.window import window_page
-from presto_tpu_torch.page import Page, concat_pages_device, cross_append_single, pad_page_to
+from presto_tpu_torch.page import (
+    Block, Page, concat_pages_device, cross_append_single, pad_page_to, remap_union_leg_page,
+)
 from presto_tpu_torch.planner.plan import (
     AggregationNode,
     CrossSingleNode,
     FilterNode,
+    GroupIdNode,
     JoinNode,
+    LimitNode,
     OutputNode,
     PlanNode,
+    PrecomputedNode,
     ProjectNode,
     SortNode,
     TableScanNode,
     TopNNode,
+    UnionNode,
+    ValuesNode,
     WindowNode,
 )
 from presto_tpu_torch.types import Type
@@ -78,6 +88,21 @@ class MaterializedResult:
 
     def __iter__(self):
         return iter(self.rows)
+
+
+def _values_columns(node: ValuesNode):
+    """(columns, types, valids) of a VALUES node's literal rows."""
+    import numpy as np
+
+    cols, valids = [], []
+    for i, t in enumerate(node.types):
+        raw = [r[i] for r in node.rows]
+        valids.append(np.asarray([v is not None for v in raw], np.bool_))
+        if t.is_long_decimal:
+            cols.append(raw)  # limbs: unscaled values may pass int64
+        else:
+            cols.append(np.asarray([0 if v is None else v for v in raw], dtype=t.np_dtype))
+    return cols, node.types, valids
 
 
 class QueryStats:
@@ -170,6 +195,32 @@ class LocalRunner:
             return
         if isinstance(node, TopNNode):
             yield self._run_topn(node)
+            return
+        if isinstance(node, LimitNode):
+            remaining = node.count
+            for p in self._pages(node.source):
+                if remaining <= 0:
+                    return
+                p = limit_page(p, remaining)
+                remaining -= int(p.num_rows())
+                yield p
+            return
+        if isinstance(node, ValuesNode):
+            yield Page.from_arrays(*_values_columns(node), dictionaries=node.dictionaries,
+                                   device=self.device)
+            return
+        if isinstance(node, PrecomputedNode):
+            yield node.page.to(self.device)
+            return
+        if isinstance(node, UnionNode):
+            # each leg's pages, its dictionary codes moved into the
+            # union's merged dictionaries and its blocks retyped
+            for src, offs in zip(node.inputs, node.code_offsets):
+                for p in self._pages(src):
+                    yield remap_union_leg_page(p, offs, node.channels)
+            return
+        if isinstance(node, GroupIdNode):
+            yield from self._groupid_pages(node)
             return
         if isinstance(node, AggregationNode) and node.step in ("single", "final"):
             yield self._run_aggregation(node)
@@ -279,6 +330,27 @@ class LocalRunner:
                 continue  # split statistics prove no row matches
             page = conn.page_for_split(node.handle.table, split)
             yield Page(tuple(page.blocks[i] for i in idx), page.row_mask).to(self.device)
+
+    def _groupid_pages(self, node: GroupIdNode) -> Iterator[Page]:
+        """Each source page once per grouping set, streamed: the source
+        blocks, the key columns (K1 where they are expressions) with
+        the set's inactive keys NULL, and a constant ``$group_id``."""
+        key_exprs = list(node.key_exprs)
+        nsrc = len(node.source.channels)
+        key_chans = node.channels[nsrc:nsrc + len(key_exprs)]
+        gid_type = node.channels[-1].type
+        for p in self._pages(node.source):
+            comp = ExprCompiler.for_page(p)
+            keys = [comp.compile(e)(p) for e in key_exprs]
+            ones = torch.ones(p.capacity, dtype=torch.bool, device=p.device)
+            for gid, mask in enumerate(node.set_masks):
+                blocks = list(p.blocks)
+                for (d, v), live, e, ch in zip(keys, mask, key_exprs, key_chans):
+                    blocks.append(Block(d, v if live else torch.zeros_like(v), e.type,
+                                        ch.dictionary))
+                blocks.append(Block(torch.full((p.capacity,), gid, dtype=torch.int64,
+                                               device=p.device), ones, gid_type))
+                yield Page(tuple(blocks), p.row_mask)
 
     # ------------------------------------------------------------------
     # joins and top-N
@@ -396,8 +468,8 @@ class LocalRunner:
         # presorted partials stream (K6's presorted mode, in page order),
         # so a group cut by a split boundary comes out of two splits and
         # meets itself in the merge, as the sort path's partials do
-        sort_path = bool(node.group_exprs) and (node.presorted or not packed_direct_layout(
-            node.group_exprs, node.key_domains, mg))
+        sort_path = takes_sort_path(node.group_exprs, node.key_domains, mg, aggs,
+                                    node.presorted)
         partial = self.partial_node(node)
         if sort_path:
             parts = list(self._pages(partial))

@@ -14,7 +14,15 @@ column's dictionary), IN over integer-lane literals, CASE/IF, long x
 short decimal products, double columns and literals, double ``+ - *
 /`` (a zero divisor gives NULL), negation and ``abs`` (over doubles and
 integer lanes), ``cast_double`` of a number, and comparisons with a
-double operand, which compare both sides as doubles (``_to_double``).
+double operand, which compare both sides as doubles (``_to_double``);
+for TPC-DS, ``coalesce`` (each operand coerced to the output type, the
+first valid kept), ``floor``/``ceil`` and ``round`` over decimals and
+doubles, ``cast_decimal`` (from a double half to even, else
+``_coerce``, down-scaling by floor division), long-decimal ``+``/``-``,
+a string literal (code 0 of its singleton dictionary), string-valued
+CASE / IF / coalesce over the merged dictionary of their branches (each
+branch's codes remapped by an int32 table), and ``=``/``<>`` of two
+string columns through a shared value-id space.
 ``ExprCompiler.compile_key`` also maps a key column's codes to their
 value's representative code where the dictionary repeats a value (the
 reference's ``canonicalize_codes``).
@@ -49,7 +57,9 @@ CompiledExpr = Callable[[Page], Tuple[torch.Tensor, torch.Tensor]]
 _LITERAL_DICTS: dict = {}
 # (id(inner dictionary),) + transform key -> (inner dictionary, derived
 # dictionary, per-code "the transform gave NULL" flags); the inner
-# dictionary is kept so its id stays unique while the entry lives
+# dictionary is kept so its id stays unique while the entry lives; and
+# ("$case", branch keys...) -> (branch dictionaries, merged dictionary,
+# value -> merged code) for a string-valued case/if/coalesce
 _DERIVED_DICTS: dict = {}
 
 
@@ -100,9 +110,58 @@ def expr_dictionary(e: Expr, dictionaries: Sequence[Optional[Dictionary]]
     if isinstance(e, Call) and e.fn in STRING_TRANSFORM_FNS:
         entry = _derived_entry(e, dictionaries)
         return None if entry is None else entry[1]
+    if isinstance(e, Call) and e.fn in ("case", "if", "coalesce"):
+        return merged_string_dictionary(e, dictionaries)
     if isinstance(e, Call):
         raise NotPorted(f"dictionary of string expression {e.fn}")
     return None
+
+
+def _string_case_branches(e: Call) -> List[Expr]:
+    """The value-producing operands of a case/if/coalesce."""
+    if e.fn == "case":
+        return list(e.args[1::2]) + [e.args[-1]]
+    if e.fn == "if":
+        return [e.args[1], e.args[2]]
+    return list(e.args)
+
+
+def _merged_entry(e: Call, dictionaries) -> Optional[tuple]:
+    """``(branch dictionaries, merged dictionary, value -> merged code)``
+    of a string-valued case/if/coalesce, built once per set of branch
+    dictionaries (they are pinned: the key holds their ids)."""
+    parts, key_parts = [], []
+    for b in _string_case_branches(e):
+        if isinstance(b, Literal):
+            parts.append(("lit", b.value))
+            key_parts.append(("L", b.value))
+        else:
+            d = expr_dictionary(b, dictionaries)
+            if d is None:
+                return None
+            parts.append(("dict", d))
+            key_parts.append(("D", id(d)))
+    key = ("$case",) + tuple(key_parts)
+    if key not in _DERIVED_DICTS:
+        values: list = []
+        seen: dict = {}
+        for kind, v in parts:
+            for val in ([v] if kind == "lit" else v.values):
+                if val is not None and val not in seen:
+                    seen[val] = len(values)
+                    values.append(val)
+        pins = tuple(v for kind, v in parts if kind == "dict")
+        _DERIVED_DICTS[key] = (pins, Dictionary(values if values else [""]), seen)
+    return _DERIVED_DICTS[key]
+
+
+def merged_string_dictionary(e: Call, dictionaries) -> Optional[Dictionary]:
+    """The union dictionary of a string-valued case/if/coalesce (the
+    reference's ``merged_string_dictionary``): every branch's values,
+    first occurrence first, each value once; one object per set of
+    branch dictionaries, so the planner and the compiler share it."""
+    entry = _merged_entry(e, dictionaries)
+    return None if entry is None else entry[1]
 
 
 _KIND_OF_NP = {np.dtype(np.bool_): k1.KIND_BOOL, np.dtype(np.int32): k1.KIND_I32,
@@ -184,6 +243,27 @@ def dictionary_lut(d: Dictionary, key: tuple, predicate,
     return hit[1]
 
 
+def value_id_tables(a: Dictionary, b: Dictionary) -> Tuple[k1.Lut, k1.Lut]:
+    """int32 tables taking ``a``'s and ``b``'s codes to one value-id
+    space (equal values, equal ids): ids in order of first appearance
+    over the pair's values, the pair ordered by identity so that either
+    order of the arguments shares the tables, and both pinned in the
+    tables' key."""
+    pair = tuple(sorted((a, b), key=id))
+    canon: dict = {}
+
+    def value_id(v):
+        if not canon:  # walked only when a table is built
+            for d in pair:
+                for x in d.values:
+                    canon.setdefault(x, len(canon))
+        return canon[v]
+
+    key = ("string_eq",) + pair
+    return (dictionary_lut(a, key, value_id, torch.int32),
+            dictionary_lut(b, key, value_id, torch.int32))
+
+
 # id(dictionary) -> (dictionary, whether a value repeats)
 _DUPLICATES: dict = {}
 
@@ -242,6 +322,8 @@ class _Lowering:
         prog = k1.Program(tuple(self.ops[start:]), tuple(self.args[start:]),
                           tuple(self.consts), 0, k1.KIND_I64)
         d, v = k1.expr_eval_plain(prog, [], 1)
+        if d.dim() > 1:
+            return  # a long decimal stays as its instructions
         del self.ops[start:], self.args[start:]
         if not bool(v[0]):
             self._push(k1.NULL)
@@ -268,6 +350,10 @@ class _Lowering:
             if e.value is None:
                 self._push(k1.NULL)
                 return True
+            if e.type.is_string and not e.type.is_raw_string:
+                # code 0 of the literal's singleton dictionary
+                self._push(k1.LIT, self._const(0))
+                return True
             if _lane(e.type) == DOUBLE:
                 self._push(k1.DLIT, self._const(k1.double_bits(e.value)))
                 return True
@@ -287,10 +373,20 @@ class _Lowering:
             return self._emit_string_cmp(e)
         if fn == "in" and e.args[0].type.is_string:
             return self._emit_string_in(e)
+        if fn in ("case", "if", "coalesce") and e.type.is_string:
+            return self._emit_string_case(e)
         if fn == "in":
             const = self._emit_in(e)
         elif fn in ("case", "if"):
             const = self._emit_case(e)
+        elif fn == "coalesce":
+            const = self._emit_coalesce(e)
+        elif fn in ("floor", "ceil", "ceiling") and len(e.args) == 1:
+            const = self._emit_floor(e)
+        elif fn == "round":
+            const = self._emit_round(e)
+        elif fn == "cast_decimal":
+            const = self._emit_cast_decimal(e)
         elif fn in ("and", "or") and len(e.args) == 2:
             const = self.emit(e.args[0]) & self.emit(e.args[1])
             self._push(k1.AND if fn == "and" else k1.OR)
@@ -405,9 +501,73 @@ class _Lowering:
             col, s = rhs, lhs.value
             op = _SWAPPED.get(op, op)
         else:
-            raise NotPorted("comparison of two string columns")
+            return self._emit_string_col_cmp(e)
         cmp = _STRING_CMP[op]
         return self._emit_lut(col, (op, s), lambda v: cmp(v, s))
+
+    def _emit_string_col_cmp(self, e: Call) -> bool:
+        """``a = b`` / ``a <> b`` of two dictionary string columns (the
+        reference's canonical-value-id comparison): each side's codes go
+        through its own int32 table (CANON) into one value-id space
+        shared by both dictionaries, then the ids compare as integers;
+        NULL where either side is.  An ordered comparison stays
+        unported, as the reference refuses it."""
+        lhs, rhs = e.args
+        if e.fn not in ("eq", "ne"):
+            raise NotPorted(f"ordered comparison ({e.fn}) of two string columns")
+        if lhs.type.is_raw_string or rhs.type.is_raw_string:
+            raise NotPorted("comparison of raw strings")
+        da, db = expr_dictionary(lhs, self.dictionaries), expr_dictionary(rhs, self.dictionaries)
+        if da is None or db is None:
+            raise NotPorted("comparison of two string columns without dictionaries")
+        ta, tb = value_id_tables(da, db)
+        for x, t in ((lhs, ta), (rhs, tb)):
+            self.emit(x)
+            self._push_lut(t, k1.CANON)
+        self._push(k1.EQ if e.fn == "eq" else k1.NE)
+        return False
+
+    def _emit_string_case(self, e: Call) -> bool:
+        """A string-valued CASE / IF / coalesce over the merged
+        dictionary of its branches (the reference's
+        ``_compile_string_case``): a literal branch pushes its merged
+        code, any other branch remaps its codes through an int32 table
+        (CANON), then the branches select as a numeric CASE does (SEL)
+        or take the first valid one (COAL)."""
+        entry = _merged_entry(e, self.dictionaries)
+        if entry is None:
+            raise NotPorted("string case branch without a dictionary")
+        _, merged, index = entry
+        const = True
+
+        def branch(b: Expr) -> bool:
+            if isinstance(b, Literal):
+                if b.value is None:
+                    self._push(k1.NULL)
+                else:
+                    self._push(k1.LIT, self._const(index.get(b.value, 0)))
+                return True
+            d = expr_dictionary(b, self.dictionaries)
+            self.emit(b)
+            self._push_lut(dictionary_lut(d, ("remap", id(merged)),
+                                          lambda v: index.get(v, 0), torch.int32), k1.CANON)
+            return False
+
+        args = e.args
+        if e.fn == "coalesce":
+            const &= branch(args[0])
+            for b in args[1:]:
+                const &= branch(b)
+                self._push(k1.COAL)
+            return const
+        pairs = (len(args) - 1) // 2  # if(c, t, f) is case(c, t, f)
+        for i in range(pairs):
+            const &= self.emit(args[2 * i])
+            const &= branch(args[2 * i + 1])
+        const &= branch(args[-1])
+        for _ in range(pairs):
+            self._push(k1.SEL)
+        return const
 
     def _emit_string_in(self, e: Call) -> bool:
         col, values = e.args[0], e.args[1:]
@@ -462,6 +622,72 @@ class _Lowering:
             self._push(k1.SEL)
         return const
 
+    def _emit_coalesce(self, e: Call) -> bool:
+        """``coalesce(a, b, ...)``: each operand in the output type
+        (``_coerce``), then COAL keeps the first valid one, left to
+        right (the reference's ``run_coalesce``)."""
+        const = self._emit_coerced(e.args[0], e.type)
+        for x in e.args[1:]:
+            const &= self._emit_coerced(x, e.type)
+            self._push(k1.COAL)
+        return const
+
+    def _emit_floor(self, e: Call) -> bool:
+        """floor / ceil: a scaled-int floor division by 10^scale on a
+        decimal (a ceiling adds 10^scale - 1 first), floor/ceil on a
+        double, the value itself on an integer."""
+        (x,) = e.args
+        up = e.fn != "floor"
+        lane = _lane(x.type)
+        if lane == LONG:
+            raise NotPorted(f"{e.fn} of {x.type}")
+        const = self.emit(x)
+        if lane == DOUBLE:
+            self._push(k1.DFLOOR, int(up))
+        elif x.type.is_decimal:
+            self._push(k1.SFLOOR, self._const(10 ** _scale(x.type)) * 2 + int(up))
+        return const
+
+    def _emit_round(self, e: Call) -> bool:
+        """round(x[, digits]): half away from zero; a decimal drops
+        ``scale - digits`` digits (SROUND), a double rounds at
+        10^digits (DROUND); an integer stays."""
+        x = e.args[0]
+        digits = 0
+        if len(e.args) > 1:
+            if not isinstance(e.args[1], Literal) or e.args[1].value is None:
+                raise NotPorted("round with non-literal digits")
+            digits = int(e.args[1].value)
+        lane = _lane(x.type)
+        if lane == LONG:
+            raise NotPorted(f"round of {x.type}")
+        const = self.emit(x)
+        if lane == DOUBLE:
+            self._push(k1.DROUND, self._const(k1.double_bits(10.0 ** digits)))
+        elif x.type.is_decimal:
+            drop = _scale(x.type) - min(digits, _scale(x.type))
+            if drop > 0:
+                self._push(k1.SROUND, self._const(10 ** drop))
+        return const
+
+    def _emit_cast_decimal(self, e: Call) -> bool:
+        """cast to decimal: from a double, round(d * 10^scale) half to
+        even (D2S; D2L splits it into limbs for a long decimal), else
+        the reference's ``_coerce``."""
+        x = e.args[0]
+        to_t = e.type
+        if x.type.name != "double":
+            return self._emit_coerced(x, to_t)
+        const = self.emit(x)
+        m = self._const(k1.double_bits(10.0 ** _scale(to_t)))
+        if _lane(to_t) == LONG:
+            if (to_t.precision or 0) > 36:
+                raise NotPorted(f"cast to {to_t}")
+            self._push(k1.D2L, m)
+        else:
+            self._push(k1.D2S, m)
+        return const
+
     def _emit_coerced(self, e: Expr, to_t: Type) -> bool:
         """Push ``e`` in ``to_t``'s representation (the reference's
         ``_coerce`` for the integer lanes: up-scaling wraps)."""
@@ -470,8 +696,25 @@ class _Lowering:
             return self.emit(e)
         if _lane(to_t) == DOUBLE:
             return self._emit_double(e)
+        if _lane(to_t) == LONG and _lane(e.type) in (SHORT, LONG) \
+                and (to_t.precision or 0) <= 36:
+            # _to_long_limbs: two limbs, up-scaled (wrapping) to to_t's scale
+            k = _scale(to_t) - _scale(e.type)
+            if k < 0:
+                raise NotPorted(f"coercion of {e.type} to {to_t}")
+            const = self.emit(e)
+            if _lane(e.type) == SHORT:
+                self._push(k1.S2L)
+            if k:
+                self._push(k1.LSCALE, k)
+            return const
         if not (to_t.is_decimal and _lane(e.type) == SHORT):
             raise NotPorted(f"coercion of {e.type} to {to_t}")
+        k = _scale(to_t) - _scale(e.type)
+        if k < 0:  # _rescale down: floor division
+            const = self.emit(e)
+            self._push(k1.SFLOOR, self._const(10 ** -k) * 2)
+            return const
         return self._emit_scaled(e, to_t.scale or 0, check=False)
 
     # -- double lanes ---------------------------------------------------------
@@ -558,6 +801,12 @@ class _Lowering:
             self._push({"add": k1.DADD, "sub": k1.DSUB, "mul": k1.DMUL, "div": k1.DDIV}[e.fn])
             return const
         lanes = (_lane(a.type), _lane(b.type))
+        if tr.is_long_decimal and e.fn in ("add", "sub") and DOUBLE not in lanes \
+                and (tr.precision or 0) <= 36:
+            # both sides as limbs at the result's scale, then decimal128.add/sub
+            const = self._emit_coerced(a, tr) & self._emit_coerced(b, tr)
+            self._push(k1.LADD, int(e.fn == "sub"))
+            return const
         if tr.is_long_decimal:
             if e.fn != "mul" or sorted(lanes) != [LONG, SHORT]:
                 raise NotPorted(f"{e.fn} of {a.type} and {b.type} producing {tr}")
@@ -589,11 +838,13 @@ class _Lowering:
         consts: List[int] = []
         args = list(self.args)
         for i, op in enumerate(self.ops):
-            if op in (k1.LIT, k1.SCALE_CHK, k1.SCALE, k1.DLIT):
-                v = self.consts[args[i]]
+            if op in k1.CONST_ARG_OPS or op == k1.SFLOOR:
+                idx = args[i] >> 1 if op == k1.SFLOOR else args[i]
+                v = self.consts[idx]
                 if v not in consts:
                     consts.append(v)
-                args[i] = consts.index(v)
+                args[i] = consts.index(v) * 2 + (args[i] & 1) if op == k1.SFLOOR \
+                    else consts.index(v)
             elif op == k1.IN:
                 first, count = args[i] & ((1 << k1.IN_COUNT_SHIFT) - 1), \
                     args[i] >> k1.IN_COUNT_SHIFT

@@ -23,7 +23,13 @@ DLIT push a double column or constant (its bits); DADD, DSUB, DMUL,
 DNEG and DABS compute in double with the card's round-to-nearest
 intrinsics; DCMP compares two doubles (NaN compares false, except
 ``ne``); NEG and ABS negate an integer lane, NULL where its width's
-least value has no negation (the reference's ``_ovf_neg``).
+least value has no negation (the reference's ``_ovf_neg``).  COAL keeps
+the first valid of two operands; SFLOOR floor-divides by 10^k (a
+ceiling adds 10^k - 1 first); SROUND rounds a decimal half away from
+zero; DFLOOR and DROUND floor/ceil and round a double (half away from
+zero at 10^digits); D2S and D2L cast a double to a short or long
+decimal (``round(d * 10^scale)``, half to even as ``jnp.round``);
+LADD adds or subtracts two long decimals.
 
 A stack value is an int64 lane (integers, dates, booleans, short
 decimals, dictionary codes), a double, or a long decimal (two
@@ -49,16 +55,17 @@ from presto_tpu_torch.ops import decimal128 as d128
 LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
     BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV, IN, CANON, \
     DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DADD, DSUB, DMUL, \
-    DNEG, DABS, DCMP, NEG, ABS = range(42)
+    DNEG, DABS, DCMP, NEG, ABS, COAL, SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD = range(50)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
             "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon",
             "datepart", "s2d", "s2l", "lscale", "lcmp", "notnull", "load_f64", "dlit",
-            "dadd", "dsub", "dmul", "dneg", "dabs", "dcmp", "neg", "abs")
+            "dadd", "dsub", "dmul", "dneg", "dabs", "dcmp", "neg", "abs", "coalesce",
+            "sfloor", "sround", "dfloor", "dround", "d2s", "d2l", "ladd")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
                 0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0, 1, 1, -1, -1, -1,
-                0, 0, -1, 0, 0)
+                0, 0, -1, 0, 0, -1, 0, 0, 0, 0, 0, 0, -1)
 # opcodes whose argument is printed: a column slot, a constant index,
 # a table slot, the long operand's side (MUL_LS), a decimal scale
 # (L2D, S2D), IN's literal run (first constant | count <<
@@ -67,13 +74,22 @@ STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0
 # eq, ne, lt, le, gt, ge; DCMP the same), the test (NOTNULL: 0 not_null,
 # 1 is_null), a double constant's bits (DLIT: a constant index) or the
 # integer lane's width (NEG, ABS: 1 for int32, whose least value has no
-# negation there, 0 for int64)
+# negation there, 0 for int64), a divisor's constant index times two
+# plus 1 for a ceiling (SFLOOR), a divisor's constant index (SROUND),
+# 0 floor or 1 ceil (DFLOOR), or the constant index of a double
+# multiplier's bits (DROUND: 10^digits; D2S, D2L: 10^scale), or 0 add
+# and 1 subtract (LADD, two long decimals at one scale)
 _ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON,
-            DATEPART, S2D, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DCMP, NEG, ABS)
+            DATEPART, S2D, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DCMP, NEG, ABS,
+            SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD)
+# opcodes whose argument holds a constant index (SFLOOR: times two)
+CONST_ARG_OPS = (LIT, SCALE_CHK, SCALE, DLIT, SROUND, DROUND, D2S, D2L)
 IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
-DOUBLE_OPS = frozenset((LOAD_F64, DLIT, DADD, DSUB, DMUL, DNEG, DABS, DCMP))
-WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP)) | DOUBLE_OPS
+DOUBLE_OPS = frozenset((LOAD_F64, DLIT, DADD, DSUB, DMUL, DNEG, DABS, DCMP, DFLOOR,
+                        DROUND, D2S, D2L))
+WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP, D2L,
+                      LADD)) | DOUBLE_OPS
 
 # fixed limits of the kernel's by-value program (csrc/expr_eval.cu)
 MAX_INS = 128
@@ -102,7 +118,13 @@ double_launches = 0
 COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null",
                LOAD_F64: "load_f64", DLIT: "dlit", DADD: "dadd", DSUB: "dsub",
                DMUL: "dmul", DNEG: "dneg", DABS: "dabs", DCMP: "dcmp", NEG: "neg",
-               ABS: "abs"}
+               ABS: "abs", COAL: "coalesce", SFLOOR: "floor", DFLOOR: "floor",
+               SROUND: "round", DROUND: "round", D2S: "cast_decimal", D2L: "cast_decimal",
+               LADD: "ladd"}
+#: table kinds counted by name: a string CASE/IF/coalesce's branch
+#: codes remapped into the merged dictionary, and the two sides of a
+#: string-column comparison mapped to shared value ids
+COUNTED_TABLES = ("remap", "string_eq")
 
 _I32_MIN = -(1 << 31)
 
@@ -234,6 +256,36 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op in (DNEG, DABS):
             d, v = stack.pop()
             stack.append((-d if op == DNEG else torch.abs(d), v))
+        elif op == DFLOOR:
+            d, v = stack.pop()
+            stack.append((torch.ceil(d) if arg else torch.floor(d), v))
+        elif op == DROUND:  # half away from zero at 10^digits, as the reference
+            d, v = stack.pop()
+            m = torch.full_like(d, bits_double(prog.consts[arg]))
+            x = d * m
+            r = torch.where(x >= 0, torch.floor(x + 0.5), torch.ceil(x - 0.5))
+            stack.append((r / m, v))
+        elif op == D2S:  # round(d * 10^scale), half to even (jnp.round)
+            d, v = stack.pop()
+            m = torch.full_like(d, bits_double(prog.consts[arg]))
+            stack.append((torch.round(d * m).to(torch.int64), v))
+        elif op == D2L:  # the same, split into limbs through floor(scaled / BASE)
+            d, v = stack.pop()
+            m = torch.full_like(d, bits_double(prog.consts[arg]))
+            scaled = torch.round(d * m)
+            base = torch.full_like(d, float(d128.BASE))
+            hi = torch.floor(scaled / base)
+            lo = scaled - hi * base
+            stack.append((d128.normalize(hi.to(torch.int64), lo.to(torch.int64)), v))
+        elif op == SFLOOR:  # floor division by 10^k (a ceiling adds 10^k - 1 first)
+            d, v = stack.pop()
+            c = prog.consts[arg >> 1]
+            stack.append((_fdiv(d + (c - 1) if arg & 1 else d, c), v))
+        elif op == SROUND:  # half away from zero over 10^drop
+            d, v = stack.pop()
+            p = prog.consts[arg]
+            half = p // 2
+            stack.append((torch.where(d >= 0, _fdiv(d + half, p), -_fdiv(-d + half, p)), v))
         elif op in (NEG, ABS):  # the least value of the lane's width has no negation: NULL
             d, v = stack.pop()
             v = v & (d != (_I32_MIN if arg else _I64_MIN))
@@ -303,6 +355,11 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
             if op in (AND, OR):
                 stack.append(_logic(op, ad, av, bd, bv))
                 continue
+            if op == COAL:  # the first valid operand
+                take = ~av & bv
+                wide_take = take[:, None] if ad.dim() > 1 else take
+                stack.append((torch.where(wide_take, bd, ad), av | bv))
+                continue
             v = av & bv
             if op == ADD:
                 d = ad + bd
@@ -315,6 +372,8 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
                 v = v & ~_ovf_mul(ad, bd, d)
             elif op == MUL_LS:
                 d = d128.mul_long_short(ad, bd) if arg == 0 else d128.mul_long_short(bd, ad)
+            elif op == LADD:
+                d = d128.sub(ad, bd) if arg else d128.add(ad, bd)
             elif op == DDIV:
                 zero = bd == 0
                 d = ad / torch.where(zero, torch.ones_like(bd), bd)
@@ -439,6 +498,8 @@ def _launch(prog, cols, n, row_mask, tensors):
     launches += 1
     if IN in prog.ops or any(t.kind == "in" for t in prog.luts):
         in_launches += 1
+    for kind in {t.kind for t in prog.luts} & set(COUNTED_TABLES):
+        op_launches[kind] = op_launches.get(kind, 0) + 1
     double_launches += int(bool(DOUBLE_OPS & set(prog.ops)))
     for op in set(prog.ops) & COUNTED_OPS.keys():
         op_launches[COUNTED_OPS[op]] = op_launches.get(COUNTED_OPS[op], 0) + 1

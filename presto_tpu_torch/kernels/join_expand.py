@@ -26,7 +26,7 @@ import torch
 from presto_tpu_torch.kernels import build
 from presto_tpu_torch.kernels import keys as pk
 
-MAX_COLS = 64  # probe and build columns together: csrc/gather.cuh GATHER_MAX_COLS
+MAX_COLS = 64  # columns gathered by one launch: csrc/gather.cuh GATHER_MAX_COLS
 SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
 MAX_OUTPUT_ROWS = (1 << 31) - 1  # int32 offsets
 
@@ -129,8 +129,6 @@ def join_expand(keys: Sequence[pk.Key], row_mask: torch.Tensor, sorted_keys: tor
         raise ValueError("join_expand: starts must be int32")
     if matched is not None and (matched.dtype != torch.bool or matched.shape != (cap,)):
         raise ValueError("join_expand: matched must be (build capacity,) bool")
-    if len(probe_cols) + len(build_cols) > MAX_COLS:
-        raise ValueError(f"join_expand: more than {MAX_COLS} probe and build columns")
     widths = _widths(probe_cols, n, "probe") + _widths(build_cols, cap, "build")
     tensors = [row_mask, sorted_keys, perm] + pk.check(keys, n, "join_expand") + \
         [t for c in list(probe_cols) + list(build_cols) for t in c]
@@ -168,11 +166,17 @@ def join_expand(keys: Sequence[pk.Key], row_mask: torch.Tensor, sorted_keys: tor
         [ctypes.c_void_p] * 7
     srcs = list(probe_cols) + list(build_cols)
     dsts = probe_out + build_out
-    err = fn(n, offsets.data_ptr(), lo.data_ptr(), m.data_ptr(), total, perm.data_ptr(), cap,
-             len(srcs), len(probe_cols), build.ptrs(d.data_ptr() for d, _ in srcs),
-             build.ptrs(v.data_ptr() for _, v in srcs), build.ptrs(d.data_ptr() for d, _ in dsts),
-             build.ptrs(v.data_ptr() for _, v in dsts), build.ints(widths),
-             matched.data_ptr() if matched is not None else None, stream)
-    build.check(err, "join_expand")
-    launches += 1
+    # at most MAX_COLS columns a launch: a wider output takes one launch
+    # per run of columns over the same offsets (probe columns first)
+    for c0 in range(0, max(len(srcs), 1), MAX_COLS):
+        cs, ds = srcs[c0:c0 + MAX_COLS], dsts[c0:c0 + MAX_COLS]
+        n_probe = min(max(len(probe_cols) - c0, 0), len(cs))
+        err = fn(n, offsets.data_ptr(), lo.data_ptr(), m.data_ptr(), total, perm.data_ptr(),
+                 cap, len(cs), n_probe, build.ptrs(d.data_ptr() for d, _ in cs),
+                 build.ptrs(v.data_ptr() for _, v in cs),
+                 build.ptrs(d.data_ptr() for d, _ in ds),
+                 build.ptrs(v.data_ptr() for _, v in ds), build.ints(widths[c0:c0 + MAX_COLS]),
+                 matched.data_ptr() if matched is not None and c0 == 0 else None, stream)
+        build.check(err, "join_expand")
+        launches += 1  # one per expand launch (one per run of MAX_COLS columns)
     return probe_out, build_out, total

@@ -25,7 +25,7 @@ import torch
 from presto_tpu_torch.kernels import build
 from presto_tpu_torch.kernels import keys as pk
 
-MAX_COLS = 64  # csrc/gather.cuh GATHER_MAX_COLS
+MAX_COLS = 64  # columns gathered by one launch: csrc/gather.cuh GATHER_MAX_COLS
 # join kinds: keep in step with csrc/join_probe.cu
 INNER, LEFT, SEMI, ANTI, MARK = range(5)
 KINDS = {"inner": INNER, "left": LEFT, "semi": SEMI, "anti": ANTI, "mark": MARK}
@@ -110,8 +110,6 @@ def join_probe(keys: Sequence[pk.Key], row_mask: torch.Tensor, sorted_keys: torc
         raise ValueError("join_probe: build keys int64 (cap,), perm int32 (cap,)")
     if starts is not None and (starts.dtype != torch.int32 or starts.dim() != 1):
         raise ValueError("join_probe: starts must be int32")
-    if len(build_cols) > MAX_COLS:
-        raise ValueError("join_probe: too many build columns")
     tensors = [row_mask, sorted_keys, perm] + pk.check(keys, n, "join_probe")
     if starts is not None:
         tensors.append(starts)
@@ -146,21 +144,26 @@ def join_probe(keys: Sequence[pk.Key], row_mask: torch.Tensor, sorted_keys: torc
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]
-    err = fn(n, row_mask.data_ptr(), *pk.c_args(keys),
-             starts.data_ptr() if starts is not None else None,
-             starts.shape[0] - 1 if starts is not None else 0,
-             sorted_keys.data_ptr(), cap, perm.data_ptr(), len(build_cols),
-             build.ptrs(d.data_ptr() for d, _ in build_cols),
-             build.ptrs(v.data_ptr() for _, v in build_cols),
-             build.ptrs(d.data_ptr() for d, _ in outs),
-             build.ptrs(v.data_ptr() for _, v in outs),
-             build.ints(widths), kind, int(null_safe), int(null_aware),
-             flags.data_ptr() if null_aware else None, match.data_ptr(),
-             mark[0].data_ptr() if mark else None, mark[1].data_ptr() if mark else None,
-             build.stream_of(row_mask))
-    build.check(err, "join_probe")
-    launches += 1
+    # the kernel gathers at most MAX_COLS columns a launch: a wider
+    # build takes one launch per run of columns (each probes again and
+    # writes the same match flags)
     names = [KIND_NAMES[kind]] + ([KIND_NAMES[kind] + "_null_aware"] if null_aware else [])
-    for name in names:
-        kind_launches[name] = kind_launches.get(name, 0) + 1
+    for c0 in range(0, max(len(build_cols), 1), MAX_COLS):
+        cols, dsts = build_cols[c0:c0 + MAX_COLS], outs[c0:c0 + MAX_COLS]
+        err = fn(n, row_mask.data_ptr(), *pk.c_args(keys),
+                 starts.data_ptr() if starts is not None else None,
+                 starts.shape[0] - 1 if starts is not None else 0,
+                 sorted_keys.data_ptr(), cap, perm.data_ptr(), len(cols),
+                 build.ptrs(d.data_ptr() for d, _ in cols),
+                 build.ptrs(v.data_ptr() for _, v in cols),
+                 build.ptrs(d.data_ptr() for d, _ in dsts),
+                 build.ptrs(v.data_ptr() for _, v in dsts),
+                 build.ints(widths[c0:c0 + MAX_COLS]), kind, int(null_safe), int(null_aware),
+                 flags.data_ptr() if null_aware else None, match.data_ptr(),
+                 mark[0].data_ptr() if mark else None, mark[1].data_ptr() if mark else None,
+                 build.stream_of(row_mask))
+        build.check(err, "join_probe")
+        launches += 1  # one per launch: a build past MAX_COLS columns probes once per run
+        for name in names:
+            kind_launches[name] = kind_launches.get(name, 0) + 1
     return (outs if mark is None else [mark]), match

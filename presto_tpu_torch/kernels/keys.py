@@ -6,7 +6,9 @@ versions and as the C descriptor of ``csrc/keys.cuh``.
 
 A key column is ``(data, valid, lo, card)``: ``card = hi - lo + 2`` in
 the exact branch (code 0 is NULL), or ``card = 0`` for every column of
-a key without an exact domain, which hashes."""
+a key without an exact domain, which hashes.  A double key hashes its
+value truncated to int64, as the reference's ``d.astype(jnp.int64)``
+does (so two doubles with one integer part share a hash lane)."""
 
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ import torch
 
 from presto_tpu_torch.kernels import build
 
-MAX_KEYS = 8
+MAX_KEYS = 16
 I64_MAX = (1 << 63) - 1
-_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
+_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 3}
 
 # splitmix64's finalizer constants and the NULL-flag weight, as signed
 # int64 (the plain version multiplies in wrapping int64)
@@ -31,8 +33,10 @@ _NULL_WEIGHT = 0x9E37
 # NULL), or 0 when the key hashes
 Key = Tuple[torch.Tensor, torch.Tensor, int, int]
 
-#: K9 launches (the hash branch's pack kernel)
+#: K9 launches (the hash branch's pack kernel), and those hashing a
+#: double key column
 launches = 0
+double_launches = 0
 
 
 def hashed(keys: Sequence[Key]) -> bool:
@@ -54,6 +58,8 @@ def _mix64(x: torch.Tensor) -> torch.Tensor:
 
 def pack_plain(keys: Sequence[Key], n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int64 key, every key column valid) per row, exact or hashed."""
+    if len(keys) > MAX_KEYS:  # the kernels' limit, held on every device
+        raise ValueError(f"keys: more than {MAX_KEYS} key columns")
     ok = torch.ones(n, dtype=torch.bool, device=device)
     key = torch.zeros(n, dtype=torch.int64, device=device)
     if hashed(keys):
@@ -86,9 +92,11 @@ def check(keys: Sequence[Key], n: int, what: str) -> list:
     if len({card == 0 for _, _, _, card in keys}) != 1:
         raise ValueError(f"{what}: a key is either exact or hashed in every column")
     tensors = []
-    for data, valid, _, _ in keys:
-        if data.dim() != 1 or data.shape[0] != n or data.dtype not in _KINDS:
-            raise ValueError(f"{what}: key columns must be (n,) int32/int64/bool")
+    for data, valid, _, card in keys:
+        if data.dim() != 1 or data.shape[0] != n or data.dtype not in _KINDS \
+                or (data.dtype == torch.float64 and card != 0):
+            raise ValueError(f"{what}: key columns must be (n,) int32/int64/bool "
+                             "(float64 only when hashed)")
         if valid.dtype != torch.bool or valid.shape != (n,):
             raise ValueError(f"{what}: key validity must be (n,) bool")
         tensors += [data, valid]
@@ -118,7 +126,7 @@ def pack(keys: Sequence[Key], row_mask: torch.Tensor, null_as_sentinel: bool, wh
     keeps NULL).  Exact keys take the pack kernel, hashed keys K9.
     ``flags`` (two int32) receives the build's has-NULL-key and nonempty
     bits."""
-    global launches
+    global launches, double_launches
     n = row_mask.shape[0]
     build.require_cuda([row_mask] + check(keys, n, what), what)
     out = torch.empty(n, dtype=torch.int64, device=row_mask.device)
@@ -132,6 +140,7 @@ def pack(keys: Sequence[Key], row_mask: torch.Tensor, null_as_sentinel: bool, wh
     build.check(err, what)
     if is_hashed:
         launches += 1
+        double_launches += int(any(d.dtype == torch.float64 for d, _, _, _ in keys))
     return out
 
 

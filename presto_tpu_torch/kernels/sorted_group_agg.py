@@ -13,6 +13,15 @@ the outputs from it) with each group's first row's key values.  CUDA
 tensors launch ``csrc/sorted_group_agg.cu``; CPU tensors run
 :func:`sorted_group_agg_plain`.
 
+Double states never add by atomics: S_DSUM (a double sum), S_VAR (the
+variance state ``(s, m2, cnt)`` of a double argument, two passes) and
+S_VAR_MERGE (partial variance states merged, Chan's form generalised
+to k partials) add each group's values in one fixed order, the same on
+the card and in the twin (:func:`run_sums_plain`): the group's run of
+sorted positions splits into chunks of ``DSUM_CHUNK``, each chunk adds
+its values in sorted order from 0.0, and the chunk partials add
+pairwise, level by level.
+
 ``presorted=True`` is the streaming aggregation (the reference's
 ``_presorted_group_ids``): equal keys arrive together, so there is no
 sort; the live rows keep their page order, a run of equal keys among
@@ -38,11 +47,17 @@ from presto_tpu_torch.ops import decimal128 as d128
 # valid int32/int64 value (in its own dtype), MIN_LONG / MAX_LONG the
 # least or greatest (n, 2) limbs; an empty state holds the identity.
 S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG, \
-    S_MAX_LONG = range(9)
+    S_MAX_LONG, S_DSUM, S_VAR, S_VAR_MERGE = range(12)
+# S_DSUM sums a valid double (one output); S_VAR takes a double and
+# gives (s, m2, cnt); S_VAR_MERGE takes the partial states ``(s, m2,
+# cnt)`` as its data (its validity: the live partial rows) and gives
+# the merged (s, m2, cnt)
+DOUBLE_STATES = (S_DSUM, S_VAR, S_VAR_MERGE)
+DSUM_CHUNK = 256  # csrc/sorted_group_agg.cu K6_DSUM_CHUNK
 _LIMBS = (S_LIMBS_SHORT, S_LIMBS_LONG)
 _PAIRS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG)  # (G, 2) outputs
 _EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG)
-MAX_STATES = 16
+MAX_STATES = 32  # csrc/sorted_group_agg.cu K6_MAX_STATES
 MAX_SLOTS = 64  # csrc/sorted_group_agg.cu K6_MAX_SLOTS
 _WIDTH = {S_LIMBS_SHORT: 4, S_LIMBS_LONG: 4, S_MIN_LONG: 2, S_MAX_LONG: 2}
 SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
@@ -52,6 +67,10 @@ launches = 0
 #: launches in presorted mode, and launches with a min/max state
 presorted_launches = 0
 minmax_launches = 0
+#: launches with a variance state (partial), a variance merge, a double sum
+variance_launches = 0
+variance_merge_launches = 0
+double_sum_launches = 0
 
 # (kind, data or None, valid or None)
 State = Tuple[int, Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -63,10 +82,74 @@ def _limbs(kind: int, data: torch.Tensor) -> torch.Tensor:
     return d128.to_sum_limbs(data)
 
 
+def run_sums_plain(v: torch.Tensor, gid: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-group double sums of ``v`` over sorted positions (``gid``
+    non-decreasing, every group present) in the kernel's fixed order:
+    chunks of ``DSUM_CHUNK`` consecutive positions of a group's run
+    add in order from 0.0, then each group's chunk partials add
+    pairwise, level by level (an odd last partial passes up)."""
+    dev = v.device
+    if groups == 0:
+        return torch.zeros(0, dtype=torch.float64, device=dev)
+    counts = torch.bincount(gid, minlength=groups)
+    starts = torch.cumsum(counts, 0) - counts
+    r = torch.arange(v.shape[0], device=dev) - starts[gid]
+    nch = (counts + DSUM_CHUNK - 1) // DSUM_CHUNK
+    base = torch.cumsum(nch, 0) - nch
+    cidx = base[gid] + r // DSUM_CHUNK
+    j = r % DSUM_CHUNK
+    part = torch.zeros(int(nch.sum()), dtype=torch.float64, device=dev)
+    for jj in range(min(DSUM_CHUNK, int(counts.max()))):
+        sel = j == jj
+        part[cidx[sel]] = part[cidx[sel]] + v[sel]
+    while int(nch.max()) > 1:
+        half = (nch + 1) // 2
+        hbase = torch.cumsum(half, 0) - half
+        g = torch.repeat_interleave(torch.arange(groups, device=dev), half)
+        i = torch.arange(g.shape[0], device=dev) - hbase[g]
+        left = base[g] + 2 * i
+        pair = 2 * i + 1 < nch[g]
+        part = torch.where(pair, part[left] + part[torch.where(pair, left + 1, left)],
+                           part[left])
+        nch, base = half, hbase
+    return part
+
+
+def _double_states_plain(kind, data, valid, rows, gid, groups):
+    """The outputs of a double state (see ``DOUBLE_STATES``) over the
+    sorted live ``rows`` with group ids ``gid``."""
+    ok = valid[rows]
+    zero = torch.zeros(rows.shape[0], dtype=torch.float64, device=rows.device)
+
+    def count(vals):
+        acc = torch.zeros(groups, dtype=torch.int64, device=rows.device)
+        return acc.index_add_(0, gid, vals)
+
+    if kind == S_VAR_MERGE:
+        s_i, m2_i, c_i = (t[rows] for t in data)
+        s = run_sums_plain(torch.where(ok, s_i, zero), gid, groups)
+        cnt = count(torch.where(ok, c_i, torch.zeros_like(c_i)))
+        mu = s / torch.clamp(cnt, min=1).to(torch.float64)
+        cf = c_i.to(torch.float64)
+        mu_i = s_i / torch.clamp(cf, min=1.0)
+        dev = torch.where(c_i > 0, mu_i - mu[gid], zero)
+        m2 = run_sums_plain(torch.where(ok, m2_i + cf * dev * dev, zero), gid, groups)
+        return [s, m2, cnt]
+    x = torch.where(ok, data[rows], zero)
+    s = run_sums_plain(x, gid, groups)
+    if kind == S_DSUM:
+        return [s]
+    cnt = count(ok.to(torch.int64))
+    mu = s / torch.clamp(cnt, min=1).to(torch.float64)
+    dx = torch.where(ok, x - mu[gid], zero)
+    return [s, run_sums_plain(dx * dx, gid, groups), cnt]
+
+
 def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                            states: Sequence[State], presorted: bool = False):
     """``(key columns [(data, valid)...], state columns, groups)``; the
-    plain version."""
+    plain version.  A state gives one column, S_VAR and S_VAR_MERGE
+    three."""
     n = row_mask.shape[0]
     key, _ = pk.pack_plain(keys, n, row_mask.device)
     masked = torch.where(row_mask, key, torch.full_like(key, pk.I64_MAX))
@@ -85,6 +168,9 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     key_out = [(d[rep], v[rep]) for d, v, _, _ in keys]
     outs = []
     for kind, data, valid in states:
+        if kind in DOUBLE_STATES:
+            outs.extend(_double_states_plain(kind, data, valid, rows, gid, groups))
+            continue
         if kind in _EXTREMES:
             outs.append(_extreme_plain(kind, data, valid, rows, gid, groups))
             continue
@@ -127,16 +213,50 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     order, runs of equal keys).  CPU tensors take the plain version;
     CUDA tensors launch the kernels around ``torch.sort`` (presorted:
     around K6's page-order pass)."""
+    # the kernel's limit, held on every device (a variance state counts
+    # its rows in an integer state of its own)
+    if sum(k != S_DSUM for k, _, _ in states) > MAX_STATES:
+        raise ValueError("sorted_group_agg: too many states")
     if not row_mask.is_cuda:
         return sorted_group_agg_plain(keys, row_mask, states, presorted)
-    global launches, presorted_launches, minmax_launches
+    global launches, presorted_launches, minmax_launches, variance_launches, \
+        variance_merge_launches, double_sum_launches
     n = row_mask.shape[0]
     if row_mask.dtype != torch.bool or row_mask.dim() != 1 or n >= (1 << 31) - 1:
         raise ValueError("sorted_group_agg: row_mask must be (n,) bool, n < 2^31")
-    if len(states) > MAX_STATES:
+    # the double states' counts run as integer states: S_VAR counts its
+    # valid rows, S_VAR_MERGE adds its partials' counts
+    int_states: List[State] = []
+    plan = []  # per state: (kind, data, valid, index of its integer state)
+    for kind, data, valid in states:
+        if kind in DOUBLE_STATES:
+            if valid is None or valid.dtype != torch.bool or valid.shape != (n,):
+                raise ValueError("sorted_group_agg: state validity must be (n,) bool")
+            cols = data if kind == S_VAR_MERGE else (data,)
+            if len(cols) != (3 if kind == S_VAR_MERGE else 1) or any(
+                    c.shape != (n,) for c in cols) \
+                    or [c.dtype for c in cols[:2]] != [torch.float64] * min(len(cols), 2) \
+                    or (kind == S_VAR_MERGE and cols[2].dtype != torch.int64):
+                raise ValueError("sorted_group_agg: double state data must be (n,) float64 "
+                                 "(a merge: s, m2 float64 and cnt int64)")
+            idx = None
+            if kind == S_VAR:
+                idx = len(int_states)
+                int_states.append((S_VALID, None, valid))
+            elif kind == S_VAR_MERGE:
+                idx = len(int_states)
+                int_states.append((S_SUM, cols[2], valid))
+            plan.append((kind, data, valid, idx))
+        else:
+            plan.append((None, None, None, len(int_states)))
+            int_states.append((kind, data, valid))
+    if len(int_states) > MAX_STATES:
         raise ValueError("sorted_group_agg: too many states")
     tensors = [row_mask] + pk.check(keys, n, "sorted_group_agg")
-    for kind, data, valid in states:
+    for kind, data, _, _ in plan:
+        if kind is not None:
+            tensors += list(data) if kind == S_VAR_MERGE else [data]
+    for kind, data, valid in int_states:
         if not S_ONE <= kind <= S_MAX_LONG:
             raise ValueError(f"sorted_group_agg: state kind {kind}")
         if kind != S_ONE:
@@ -152,6 +272,7 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
             if data is None or data.shape != (n, 2) or data.dtype != torch.int64:
                 raise ValueError("sorted_group_agg: long state data must be (n, 2) int64")
             tensors.append(data)
+    states = int_states
     if sum(_WIDTH.get(k, 1) for k, _, _ in states) > MAX_SLOTS:
         raise ValueError("sorted_group_agg: too many state slots")
     build.require_cuda(tensors, "sorted_group_agg")
@@ -208,7 +329,51 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
              build.ptrs(o.data_ptr() for o in outs),
              build.ints(int(o.dtype == torch.int32) for o in outs), raw.data_ptr(), stream)
     build.check(err, "sorted_group_agg")
+    outs = _double_states(plan, outs, sk, order, n, scan, groups, lib, stream)
     launches += 1
     presorted_launches += int(presorted)
     minmax_launches += int(any(k in _EXTREMES for k, _, _ in states))
+    kinds = {k for k, _, _, _ in plan}
+    variance_launches += int(S_VAR in kinds)
+    variance_merge_launches += int(S_VAR_MERGE in kinds)
+    double_sum_launches += int(S_DSUM in kinds)
     return key_out, outs, groups
+
+
+def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
+    """The state columns in ``plan``'s order: each integer state's
+    output, and each double state's fixed-order sums (K6's double
+    pass), its counts from its integer state."""
+    dev = sk.device
+    outs = []
+    if any(k is not None for k, _, _, _ in plan):
+        bound = -(-n // DSUM_CHUNK) + groups + 1
+        starts = torch.empty(groups + 1, dtype=torch.int64, device=dev)
+        base = torch.empty(groups + 1, dtype=torch.int32, device=dev)
+        partials = torch.empty(-(-(groups + 1) // SCAN_TILE) + 1, dtype=torch.int32,
+                               device=dev)
+        chunk_group = torch.empty(bound, dtype=torch.int32, device=dev)
+        part = torch.empty(bound, dtype=torch.float64, device=dev)
+        fn = lib.k6_double_state
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 12 + \
+            [ctypes.c_longlong, ctypes.c_void_p]
+    for kind, data, valid, idx in plan:
+        if kind is None:
+            outs.append(int_outs[idx])
+            continue
+        s = torch.empty(groups, dtype=torch.float64, device=dev)
+        m2 = torch.empty(groups, dtype=torch.float64, device=dev)
+        cnt = int_outs[idx] if idx is not None else None
+        cols = data if kind == S_VAR_MERGE else (data, None, None)
+        err = fn(sk.data_ptr(), order.data_ptr(), n, scan.data_ptr(), groups, kind,
+                 cols[0].data_ptr(), valid.data_ptr(),
+                 cols[1].data_ptr() if cols[1] is not None else None,
+                 cols[2].data_ptr() if cols[2] is not None else None,
+                 cnt.data_ptr() if cnt is not None else None,
+                 s.data_ptr(), m2.data_ptr(), starts.data_ptr(), base.data_ptr(),
+                 partials.data_ptr(), chunk_group.data_ptr(), part.data_ptr(), bound, stream)
+        build.check(err, "sorted_group_agg")
+        outs.extend([s] if kind == S_DSUM else [s, m2, cnt])
+    return outs

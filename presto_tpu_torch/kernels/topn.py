@@ -21,7 +21,7 @@ from presto_tpu_torch import NotPorted
 from presto_tpu_torch.kernels import build
 
 MAX_N = 100  # csrc/topn.cu K7_MAX_N
-MAX_KEYS = 8
+MAX_KEYS = 16
 THREADS = 64  # csrc/topn.cu K7_THREADS
 _KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 4}
 KIND_D128 = 3
@@ -89,6 +89,8 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     ``n`` above :data:`MAX_N` raises :class:`NotPorted`."""
     if n > MAX_N:
         raise NotPorted(f"top-n with n = {n} > {MAX_N}")
+    if len(keys) > MAX_KEYS:  # the kernel's limit, held on every device
+        raise ValueError(f"topn: more than {MAX_KEYS} keys")
     if not row_mask.is_cuda:
         return topn_plain(keys, row_mask, n)
     global launches, wide_launches, double_launches

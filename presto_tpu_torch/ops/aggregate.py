@@ -14,11 +14,17 @@ the partials' key columns again, so equal groups from different splits
 meet).  The sort path emits every group it sees, in key order (packed
 or hashed, as the reference's), whatever ``max_groups`` says; a
 presorted (streaming) grouping runs K6 in page order with no sort and
-emits groups in first-appearance order.  count, sum, avg, min and max
-(over int32/int64 lanes and long decimals) are ported, avg of an
-integer producing a double (K3's finalize); sum and avg over doubles,
-min/max over doubles and varchar, variance, DISTINCT and FILTER raise
-:class:`NotPorted`.
+emits groups in first-appearance order.  count, sum, sum0, avg, min and
+max (over int32/int64 lanes and long decimals) are ported, avg of an
+integer producing a double (K3's finalize), sum and avg over doubles,
+a long sum collapsed to a short decimal (the outer half of the
+mixed-DISTINCT rewrite), and the variance family (stddev, stddev_samp,
+stddev_pop, variance, var_samp, var_pop) over the state ``(s, m2,
+cnt)``.  Double states add in one fixed order, the same on the card
+and on the CPU (see K2's and K6's twins); K2 adds them only for the
+global aggregate, and a keyed grouping with a double state takes the
+sort path (``takes_sort_path``).  min/max over doubles and varchar,
+DISTINCT and FILTER raise :class:`NotPorted`.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 
 from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler, expr_dictionary
-from presto_tpu_torch.expr.ir import AggCall, ColumnRef, Expr
+from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
@@ -276,10 +282,16 @@ def _agg_dict(agg: AggCall, dictionaries) -> Optional[object]:
 
 
 
+def _has_double_state(aggs) -> bool:
+    return any(a.fn in VARIANCE_FNS or (a.fn in ("sum", "sum0", "avg") and a.arg is not None
+                                        and _sum_type(a.arg.type).name == "double")
+               for a in aggs)
+
+
 def packed_direct_layout(group_exprs, key_domains, max_groups: int) -> bool:
-    """THE packed-direct branch predicate (grouped_aggregate's own
-    condition, exported so runners never hand-mirror it): exact scalar
-    key domains whose product fits the direct-address budget.  Raw
+    """The packed-direct layout's key condition (part of
+    :func:`takes_sort_path`): exact scalar key domains whose product
+    fits the direct-address budget.  Raw
     byte-matrix and multi-dim keys pack inexactly (pack_or_hash_keys
     returns exact=False for them), so they are excluded here too."""
     if not group_exprs or not key_domains \
@@ -294,6 +306,17 @@ def packed_direct_layout(group_exprs, key_domains, max_groups: int) -> bool:
     for lo, hi in key_domains:
         prod *= hi - lo + 2
     return prod <= min(max_groups, DIRECT_GROUP_LIMIT)
+
+
+def takes_sort_path(group_exprs, key_domains, max_groups: int, aggs,
+                    presorted: bool = False) -> bool:
+    """Whether a grouping runs on the sort path (K6) rather than in K2's
+    packed-direct slots: presorted input, keys past the packed-direct
+    layout, or a double state (sum, avg or variance of a double), which
+    K2 adds only for the global aggregate, so that every keyed double
+    sum has one order, K6's."""
+    return bool(group_exprs) and (presorted or _has_double_state(aggs) or not
+                                  packed_direct_layout(group_exprs, key_domains, max_groups))
 
 
 # ---------------------------------------------------------------------------
@@ -359,12 +382,22 @@ def _state_kind(agg: AggCall) -> int:
         return k2.COUNT_STAR
     if agg.fn == "count":
         return k2.COUNT
-    if agg.fn in ("sum", "avg"):
+    if agg.fn in ("sum", "sum0", "avg"):
         t = agg.arg.type
         st = _sum_type(t)
+        if t.name == "double":
+            return k2.SUM_DOUBLE
+        if t.is_long_decimal and t.value_shape == (2,):
+            return k2.SUM_LONG_ARG
         if t.is_long_decimal or t.value_shape != () or st.name in ("double", "real"):
             raise NotPorted(f"{agg.fn} over {t}")
         return k2.SUM_LONG if st.is_long_decimal else k2.SUM_SHORT
+    if agg.fn in VARIANCE_FNS:
+        t = agg.arg.type
+        if t.value_shape != () and not (t.is_long_decimal and t.value_shape == (2,)) \
+                or t.is_string or t.name in ("real", "boolean"):
+            raise NotPorted(f"{agg.fn} over {t}")
+        return k2.VARIANCE
     if agg.fn in ("min", "max"):
         t = agg.arg.type
         if t.is_long_decimal and t.value_shape == (2,):
@@ -385,12 +418,24 @@ def _finalize_kind(agg: AggCall) -> int:
         if t.is_long_decimal:
             return k3.FIN_SUM_D128
         return k3.FIN_VALUE_I32 if np.dtype(t.np_dtype) == np.dtype(np.int32) else k3.FIN_SUM
+    if agg.fn in VARIANCE_FNS:
+        return _VARIANCE_FIN[agg.fn]
     st = _sum_type(agg.arg.type)
     t = output_type(agg)
-    if agg.fn == "sum":
+    if agg.fn in ("sum", "sum0"):
+        zero = agg.fn == "sum0"
+        if st.name == "double":
+            if zero:
+                raise NotPorted("sum0 over double")
+            return k3.FIN_SUM_F64
         if st.is_long_decimal and agg.type.is_decimal and not agg.type.is_long_decimal:
-            raise NotPorted("sum collapsed to a short decimal (sum0 rewrite)")
-        return k3.FIN_SUM_D128 if st.is_long_decimal else k3.FIN_SUM
+            # the outer half of a decomposed sum: limbs back to one int64
+            return k3.FIN_SUM0_COLLAPSE if zero else k3.FIN_SUM_COLLAPSE
+        if st.is_long_decimal:
+            return k3.FIN_SUM0_D128 if zero else k3.FIN_SUM_D128
+        return k3.FIN_SUM0 if zero else k3.FIN_SUM
+    if st.name == "double":
+        return k3.FIN_AVG_F64
     if t.is_decimal and st.is_long_decimal:
         return k3.FIN_AVG_D128 if t.is_long_decimal else k3.FIN_AVG_D128_NARROW
     if t.is_decimal or t.name.startswith("interval"):
@@ -398,6 +443,11 @@ def _finalize_kind(agg: AggCall) -> int:
     if t.name == "double" and st.name == "bigint":  # an integer's mean
         return k3.FIN_AVG_DOUBLE
     raise NotPorted(f"avg producing {t}")
+
+
+_VARIANCE_FIN = {"stddev": k3.FIN_STDDEV_SAMP, "stddev_samp": k3.FIN_STDDEV_SAMP,
+                 "stddev_pop": k3.FIN_STDDEV_POP, "variance": k3.FIN_VAR_SAMP,
+                 "var_samp": k3.FIN_VAR_SAMP, "var_pop": k3.FIN_VAR_POP}
 
 
 def _check_ported(aggs: Sequence[AggCall], mode: str) -> List[int]:
@@ -430,8 +480,7 @@ def grouped_aggregate(
     mode='single' emits finalized values, 'partial' the state
     columns."""
     _check_ported(aggs, mode)
-    if group_exprs and (presorted or not packed_direct_layout(group_exprs, key_domains,
-                                                              max_groups)):
+    if takes_sort_path(group_exprs, key_domains, max_groups, aggs, presorted):
         return _sorted_aggregate(page, group_exprs, aggs, key_domains, mode, presorted)
     keys, args = kernel_inputs(page, group_exprs, aggs, key_domains)
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
@@ -460,7 +509,10 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
         if kind == k2.COUNT_STAR:
             args.append((kind, None, None))
         else:
-            d, v = c.compile(agg.arg)(page)
+            arg = agg.arg
+            if kind == k2.VARIANCE and arg.type.name != "double":
+                arg = Call(type=DOUBLE, fn="cast_double", args=(arg,))  # _to_double
+            d, v = c.compile(arg)(page)
             args.append((kind, d, v))
     from presto_tpu_torch.ops.join import key_columns
 
@@ -494,14 +546,18 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
         elif kind in k2.EXTREMES:
             states.append((_K6_EXTREME[kind], data, valid))
             states.append((k6.S_VALID, None, valid))
+        elif kind == k2.VARIANCE:  # (s, m2, cnt)
+            states.append((k6.S_VAR, data, valid))
         else:
-            states.append((k6.S_SUM if kind == k2.SUM_SHORT else k6.S_LIMBS_SHORT,
-                           data, valid))
+            states.append((_K6_SUM[kind], data, valid))
             states.append((k6.S_VALID, None, valid))
-        per_agg.append(1 if kind in (k2.COUNT_STAR, k2.COUNT) else 2)
+        per_agg.append(1 if kind in (k2.COUNT_STAR, k2.COUNT) else
+                       3 if kind == k2.VARIANCE else 2)
     return keys, states, per_agg
 
 
+_K6_SUM = {k2.SUM_SHORT: k6.S_SUM, k2.SUM_LONG: k6.S_LIMBS_SHORT,
+           k2.SUM_LONG_ARG: k6.S_LIMBS_LONG, k2.SUM_DOUBLE: k6.S_DSUM}
 _K6_EXTREME = {k2.MIN_SHORT: k6.S_MIN, k2.MAX_SHORT: k6.S_MAX, k2.MIN_LONG: k6.S_MIN_LONG,
                k2.MAX_LONG: k6.S_MAX_LONG}
 
@@ -538,9 +594,10 @@ def _empty_groups(group_exprs, aggs, mode, device, key_dicts) -> Page:
 def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     """The K6 inputs of merging partial states: packed-key columns,
     the flat state list (the reference's ``_merge_states`` for count,
-    sum, avg, min and max: counts and sums add over live rows, a long
-    sum only where its count is positive, a min/max reduces the states
-    whose count is positive), and states per aggregate."""
+    sum, avg, min, max and the variance family: counts and sums add over
+    live rows, a long sum only where its count is positive, a min/max
+    reduces the states whose count is positive, variance states merge
+    by Chan's form), and states per aggregate."""
     from presto_tpu_torch.ops.join import key_tuples
 
     if num_keys == 0:
@@ -555,6 +612,11 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
             states.append((k6.S_SUM, cols[0].data, live))
         elif agg.fn in ("min", "max"):
             states.append((_K6_EXTREME[_state_kind(agg)], cols[0].data, cols[1].data > 0))
+            states.append((k6.S_SUM, cols[1].data, live))
+        elif agg.fn in VARIANCE_FNS:  # Chan's form over k partials
+            states.append((k6.S_VAR_MERGE, tuple(c.data for c in cols), live))
+        elif cols[0].type.name == "double":
+            states.append((k6.S_DSUM, cols[0].data, live))
             states.append((k6.S_SUM, cols[1].data, live))
         elif cols[0].type.is_long_decimal:
             states.append((k6.S_LIMBS_LONG, cols[0].data, cols[1].data > 0))
@@ -628,10 +690,13 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
     items = []
     for agg, cols in zip(aggs, states):
         kind = _finalize_kind(agg)
-        items.append((kind, cols[0], cols[-1]))
+        # a variance finalizes from (m2, cnt); every other from (state, cnt)
+        items.append((kind, cols[1] if kind in k3.VARIANCE_KINDS else cols[0], cols[-1]))
     out = k3.packed_finalize(items, mask)
-    return [Block(d, v, output_type(agg), adict)
-            for (d, v), agg, adict in zip(out, aggs, agg_dicts)]
+    # a collapsed long sum keeps the plan's short type, as the reference
+    return [Block(d, v, agg.type if kind in (k3.FIN_SUM_COLLAPSE, k3.FIN_SUM0_COLLAPSE)
+                  else output_type(agg), adict)
+            for (d, v), agg, adict, (kind, _, _) in zip(out, aggs, agg_dicts, items)]
 
 
 def combine_packed_states(a: Page, b: Page, num_keys: int,
@@ -643,7 +708,11 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
     kinds = []
     for agg in aggs:
         for j, t in enumerate(state_types(agg)):
-            if agg.fn in ("min", "max") and j == 0:
+            if agg.fn in VARIANCE_FNS:
+                kinds.append((k3.COL_F64, k3.COL_VAR_M2, k3.COL_I64)[j])
+            elif t.name == "double":
+                kinds.append(k3.COL_F64)
+            elif agg.fn in ("min", "max") and j == 0:
                 wide = "d128" if t.is_long_decimal else (
                     "i32" if np.dtype(t.np_dtype) == np.dtype(np.int32) else "i64")
                 kinds.append(_K3_EXTREME[agg.fn, wide])

@@ -66,6 +66,11 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return normalize(a[..., 0] + b[..., 0], a[..., 1] + b[..., 1])
 
 
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _check_width(a, 2)
+    return normalize(a[..., 0] - b[..., 0], a[..., 1] - b[..., 1])
+
+
 def neg(a: torch.Tensor) -> torch.Tensor:
     _check_width(a, 2)
     return normalize(-a[..., 0], -a[..., 1])

@@ -36,6 +36,7 @@ DIRECT_DOMAIN_MAX = 1 << 26
 DIRECT_DOMAIN_PER_ROW = 64
 
 _KEY_DTYPES = (torch.bool, torch.int32, torch.int64)
+_HASHED_KEY_DTYPES = _KEY_DTYPES + (torch.float64,)
 
 
 def _direct_budget(page: Page) -> int:
@@ -94,7 +95,7 @@ def key_tuples(cols: Sequence[Tuple[torch.Tensor, torch.Tensor]], types: Sequenc
     out = []
     for i, ((d, v), t) in enumerate(zip(cols, types)):
         check_key_type(t)
-        if d.dtype not in _KEY_DTYPES:
+        if d.dtype not in (_KEY_DTYPES if exact else _HASHED_KEY_DTYPES):
             raise NotPorted(f"keys of type {t}")
         if exact:
             lo, hi = key_domains[i]

@@ -117,3 +117,10 @@ def topn_page(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
                          page.row_mask, n)
     live = torch.arange(n, device=page.device) < count
     return gather_page(page, ids.to(torch.int64), live)
+
+
+def limit_page(page: Page, n: int) -> Page:
+    """The first ``n`` live rows in page order (the reference's
+    ``limit_page``): a running count of live rows and a mask."""
+    seen = torch.cumsum(page.row_mask.to(torch.int32), 0)
+    return Page(page.blocks, page.row_mask & (seen <= n))

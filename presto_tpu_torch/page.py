@@ -328,6 +328,18 @@ def cross_append_single(q: Page, r: Page) -> Page:
     return Page(tuple(blocks), q.row_mask)
 
 
+def remap_union_leg_page(page: Page, offs: Sequence[int], channels) -> Page:
+    """One UNION ALL leg's page in the union's terms (the reference's
+    ``remap_union_leg_page``): each varchar column's codes move by the
+    leg's offset into the merged dictionary, and every block takes the
+    union channel's type and dictionary."""
+    blocks = []
+    for b, off, ch in zip(page.blocks, offs, channels):
+        data = b.data + off if off else b.data
+        blocks.append(Block(data, b.valid, ch.type, ch.dictionary))
+    return Page(tuple(blocks), page.row_mask)
+
+
 def concat_pages_device(pages: Sequence[Page]) -> Page:
     """Concatenate pages column-wise on device (capacities may differ)."""
     if len(pages) == 1:

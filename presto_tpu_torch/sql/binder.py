@@ -2099,8 +2099,8 @@ class Binder:
         expressed with existing segmented-scan machinery — no sketch
         state to merge. Entries are replaced in place so already-bound
         output references stay valid."""
-        raise NotPorted("window functions")
         from presto_tpu_torch.planner.plan import WindowNode
+        from presto_tpu_torch.ops.window import WindowFunc
 
         win_cache: Dict[tuple, tuple] = {}  # (x, w) -> channel refs
         for j, a in enumerate(list(agg_ctx.aggs)):
@@ -2116,8 +2116,8 @@ class Binder:
                 # x) reaches p * total weight — exact weighted rank
                 # selection via a running-sum window (one window pass
                 # per distinct (x, w) spec, shared by ARRAY fractions)
-                raise NotPorted("window functions")
                 from presto_tpu_torch.planner.plan import WindowNode
+                from presto_tpu_torch.ops.window import WindowFunc
 
                 if cache_key in win_cache:
                     cw, tw = win_cache[cache_key]
@@ -2279,8 +2279,8 @@ class Binder:
         (NumericHistogramAggregation's role: per-bin centroids and
         weights; fixed-width bins over the group's span instead of the
         reference's streaming Ben-Haim/Tom-Tov merges)."""
-        raise NotPorted("window functions")
         from presto_tpu_torch.planner.plan import WindowNode
+        from presto_tpu_torch.ops.window import WindowFunc
         from presto_tpu_torch.ops.aggregate import output_type as _agg_out
 
         if not all(a.fn == "numeric_histogram" for a in agg_ctx.aggs):
@@ -3873,6 +3873,7 @@ class Binder:
         windows by identical (partition, order) spec; returns the node
         and the sentinel-slot -> real-channel mapping."""
         from presto_tpu_torch.planner.plan import WindowNode
+        from presto_tpu_torch.ops.window import WindowFunc
 
         specs: List[Tuple[tuple, List[int]]] = []  # (spec key, slots)
         for slot, (e, wf, p_irs, o_irs, asc) in enumerate(self._windows):

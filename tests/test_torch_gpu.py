@@ -418,6 +418,8 @@ def test_join_expand_kernel_matches_plain(kind, mode):
     probe_cols = [pcol, (torch.from_numpy(rng.integers(0, 9, (1 << 16, 2))).to(dev), pmask)]
     build_cols = [bcol, (torch.from_numpy(rng.integers(0, 9, 1 << 16).astype(np.int32))
                          .to(dev), bmask), (bmask, bcol[1])]
+    wide_build = build_cols + build_cols[1:11]  # 71 columns: two runs of K5
+    k8.launches = k5.launches = 0
     outs = []
     for fn in (k8.join_expand, k8.join_expand_plain):
         matched = torch.zeros(1 << 16, dtype=torch.bool, device=dev) if kind == "full" else None
@@ -818,3 +820,257 @@ def test_tpcds_slice_on_the_card_equals_the_cpu_run():
         assert got == want, q
     assert k10.launches > 0 and k3.double_avg_launches > 0 and k7.double_launches > 0
     assert {"load_f64", "dcmp", "dsub", "dabs"} <= set(k1.op_launches)
+
+
+# -- the sixth slice: coalesce, floor/round/cast_decimal, string CASE and
+# column comparisons, long add/sub; double sums and variance in K2/K6/K3;
+# sum0 and collapsed sums; hashed double keys --------------------------------
+
+WORDS_A = ["red", "green", "blue", "grey", "red", "cyan"]
+WORDS_B = ["blue", "pink", "red", "white", "black"]
+
+
+def _slice6_page(n: int, seed: int, device) -> Page:
+    """Doubles on exact halves and normal ones, a short decimal with
+    ties, two long decimals, int32/int64 lanes, two dictionary strings
+    (one repeating a value) and a group key."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-10 ** 6, 10 ** 6, n)
+    tie = rng.random(n) < 0.3
+    q[tie] = rng.integers(-1000, 1000, tie.sum()) * 100 + 50
+    cols = [(rng.integers(-4000, 4000, n) / 8.0, "double", None),
+            (rng.normal(0.0, 50.0, n), "double", None),
+            (q, "decimal(12,2)", None),
+            (np.stack([rng.integers(-3, 3, n), rng.integers(0, 10 ** 18, n)], 1),
+             "decimal(36,4)", None),
+            (np.stack([rng.integers(-3, 3, n), rng.integers(0, 10 ** 18, n)], 1),
+             "decimal(36,4)", None),
+            (rng.integers(-1000, 1000, n).astype(np.int32), "integer", None),
+            (rng.integers(-10 ** 12, 10 ** 12, n), "bigint", None),
+            (rng.integers(0, len(WORDS_A), n).astype(np.int32), "varchar", Dictionary(WORDS_A)),
+            (rng.integers(0, len(WORDS_B), n).astype(np.int32), "varchar", Dictionary(WORDS_B)),
+            (rng.integers(0, 5000, n), "bigint", None),
+            (rng.integers(-10 ** 15, 10 ** 15, n), "decimal(18,2)", None)]
+    blocks = [Block(torch.from_numpy(d).to(device),
+                    torch.from_numpy(rng.random(n) >= 0.1).to(device), parse_type(t), dic)
+              for d, t, dic in cols]
+    return Page(tuple(blocks), torch.from_numpy(rng.random(n) >= 0.1).to(device))
+
+
+_POS = _call("gt", "boolean", _col(5, "integer"), _lit(0, "integer"))
+SLICE6_EXPRS = [
+    _call("coalesce", "bigint", _col(5, "integer"), _col(6, "bigint")),
+    _call("coalesce", "double", _col(2, "decimal(12,2)"), _col(0, "double"), _lit(1.5, "double")),
+    _call("coalesce", "decimal(36,4)", _col(3, "decimal(36,4)"), _col(2, "decimal(12,2)")),
+    _call("floor", "decimal(12,0)", _col(2, "decimal(12,2)")),
+    _call("ceil", "decimal(12,0)", _col(2, "decimal(12,2)")),
+    _call("floor", "double", _col(1, "double")),
+    _call("ceil", "double", _col(1, "double")),
+    _call("round", "decimal(12,0)", _col(2, "decimal(12,2)")),
+    _call("round", "decimal(12,2)", _col(2, "decimal(12,2)"), _lit(1, "integer")),
+    _call("round", "double", _col(0, "double")),
+    _call("round", "double", _col(1, "double"), _lit(2, "integer")),
+    _call("cast_decimal", "decimal(12,2)", _call("div", "double", _col(0, "double"),
+                                                 _lit(8.0, "double"))),
+    _call("cast_decimal", "decimal(36,4)", _call("mul", "double", _col(1, "double"),
+                                                 _lit(1e6, "double"))),
+    _call("cast_decimal", "decimal(12,1)", _col(2, "decimal(12,2)")),
+    _call("add", "decimal(36,4)", _col(3, "decimal(36,4)"), _col(4, "decimal(36,4)")),
+    _call("sub", "decimal(36,4)", _col(3, "decimal(36,4)"), _col(2, "decimal(12,2)")),
+    _call("case", "varchar", _POS, _col(7, "varchar"), _col(8, "varchar")),
+    _call("if", "varchar", _POS, _col(7, "varchar"), _lit("none", "varchar")),
+    _call("coalesce", "varchar", _col(7, "varchar"), _col(8, "varchar"), _lit("?", "varchar")),
+    _call("eq", "boolean", _col(7, "varchar"), _col(8, "varchar")),
+    _call("ne", "boolean", _col(8, "varchar"), _col(7, "varchar")),
+]
+
+
+def _same_lanes(got, want):
+    assert torch.equal(got[1], want[1])
+    g, w = got[0][want[1]], want[0][want[1]]
+    if w.dtype == torch.float64:
+        g, w = g.view(torch.int64), w.view(torch.int64)
+    assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("i", range(len(SLICE6_EXPRS)))
+def test_expr_eval_sixth_slice_opcodes_match_plain(i):
+    """COAL, SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, the remap
+    and value-id tables (CANON), bit for bit; with ties on both sides
+    of zero for the roundings."""
+    dev = _cuda()
+    page = _slice6_page(1 << 20, 90 + i, dev)
+    prog, cols = ExprCompiler.for_page(page).lower(SLICE6_EXPRS[i])
+    ins = [(page.blocks[c].data, page.blocks[c].valid) for c in cols]
+    got = k1.expr_eval(prog, ins, page.capacity)
+    want = k1.expr_eval_plain(prog, ins, page.capacity)
+    torch.cuda.synchronize()
+    _same_lanes(got, want)
+
+
+def _slice6_args(page):
+    b = page.blocks
+    return [(k2.SUM_DOUBLE, b[1].data, b[1].valid), (k2.VARIANCE, b[0].data, b[0].valid),
+            (k2.VARIANCE, b[1].data, b[1].valid), (k2.SUM_LONG_ARG, b[3].data, b[3].valid),
+            (k2.SUM_SHORT, b[6].data, b[6].valid), (k2.COUNT_STAR, None, None)]
+
+
+def test_packed_group_agg_double_states_match_plain():
+    """K2's double sum and variance states of the global aggregate (its
+    one slot; fixed order: chunks of 256 rows, then pairwise) and a
+    long-argument sum, bit for bit; then K3's fold (double add, Chan's
+    m2) and every new finalize kind."""
+    dev = _cuda()
+    slots = 1
+    page = _slice6_page(1 << 20, 120 + slots, dev)
+    keys = []
+    args = _slice6_args(page)
+    got = k2.packed_group_agg(page.capacity, page.row_mask, keys, args, slots)
+    want = k2.packed_group_agg_plain(page.capacity, page.row_mask, keys, args, slots)
+    other = k2.packed_group_agg(page.capacity, ~page.row_mask, keys, args, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[0], want[0]):
+        for x, y in zip(g, w):
+            assert x.dtype == y.dtype and torch.equal(x.view(torch.int64) if x.is_floating_point()
+                                                      else x, y.view(torch.int64)
+                                                      if y.is_floating_point() else y)
+    kinds = [k3.COL_F64, k3.COL_I64, k3.COL_F64, k3.COL_VAR_M2, k3.COL_I64, k3.COL_F64,
+             k3.COL_VAR_M2, k3.COL_I64, k3.COL_D128, k3.COL_I64, k3.COL_I64, k3.COL_I64,
+             k3.COL_I64]
+
+    def cols(states, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for s in states for t in s])]
+
+    a, c = cols(*got), cols(*other)
+    fold = k3.packed_fold(a, c, got[1], other[1])
+    fold_want = k3.packed_fold_plain(a, c, got[1], other[1])
+    torch.cuda.synchronize()
+    for x, y in zip(fold[0], fold_want[0]):
+        assert torch.equal(x[1], y[1])
+        assert torch.equal(x[0].view(torch.int64) if x[0].is_floating_point() else x[0],
+                           y[0].view(torch.int64) if y[0].is_floating_point() else y[0])
+    f = [d for d, _ in fold[0]]
+    items = [(k3.FIN_SUM_F64, f[0], f[1]), (k3.FIN_AVG_F64, f[0], f[1]),
+             (k3.FIN_VAR_POP, f[3], f[4]), (k3.FIN_VAR_SAMP, f[3], f[4]),
+             (k3.FIN_STDDEV_POP, f[6], f[7]), (k3.FIN_STDDEV_SAMP, f[6], f[7]),
+             (k3.FIN_SUM0_D128, f[8], f[9]), (k3.FIN_SUM_COLLAPSE, f[8], f[9]),
+             (k3.FIN_SUM0_COLLAPSE, f[8], f[9]), (k3.FIN_SUM0, f[10], f[11])]
+    for got_f, want_f in zip(k3.packed_finalize(items, fold[1]),
+                             k3.packed_finalize_plain(items, fold[1])):
+        _same_lanes(got_f, want_f)
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_sorted_group_agg_double_states_match_plain(presorted):
+    """K6's double sum, variance partial and variance merge (runs of up
+    to ~2,000 rows, so groups span several chunks), bit for bit."""
+    dev = _cuda()
+    page = _slice6_page(1 << 20, 140 + presorted, dev)
+    b = page.blocks
+    key = torch.arange(1 << 20, device=dev) // 2000 if presorted else \
+        torch.remainder(b[9].data, 500)
+    keys = [(key, torch.ones_like(b[9].valid), 0, 0 if presorted else 501)]
+    states = [(k6.S_DSUM, b[1].data, b[1].valid), (k6.S_VALID, None, b[1].valid),
+              (k6.S_VAR, b[0].data, b[0].valid), (k6.S_VAR, b[1].data, b[1].valid),
+              (k6.S_LIMBS_LONG, b[3].data, b[3].valid), (k6.S_ONE, None, None)]
+    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted)
+    want = k6.sorted_group_agg_plain(keys, page.row_mask, states, presorted)
+    torch.cuda.synchronize()
+    assert got[2] == want[2] > 100
+
+    def bits(t):
+        return t.view(torch.int64) if t.is_floating_point() else t
+
+    for x, y in zip(got[1], want[1]):
+        assert x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+    # merge the variance partials (s, m2, cnt) of two halves of the rows
+    half = torch.arange(1 << 20, device=dev) < (1 << 19)
+    parts = [k6.sorted_group_agg_plain(keys, page.row_mask & h, states[2:3], presorted)
+             for h in (half, ~half)]
+    mkey = torch.cat([p[0][0][0] for p in parts])
+    mkeys = [(mkey, torch.ones_like(mkey, dtype=torch.bool), 0, 0 if presorted else 501)]
+    live = torch.ones(mkey.shape[0], dtype=torch.bool, device=dev)
+    cols = tuple(torch.cat([p[1][j] for p in parts]) for j in range(3))
+    merge = [(k6.S_VAR_MERGE, cols, live)]
+    got = k6.sorted_group_agg(mkeys, live, merge)
+    want = k6.sorted_group_agg_plain(mkeys, live, merge)
+    torch.cuda.synchronize()
+    assert got[2] == want[2]
+    for x, y in zip(got[1], want[1]):
+        assert torch.equal(bits(x), bits(y))
+
+
+def test_hash_keys_double_match_plain():
+    """A double key hashes its value truncated to int64 (K9)."""
+    dev = _cuda()
+    page = _slice6_page(1 << 20, 150, dev)
+    b = page.blocks
+    keys = [(b[1].data, b[1].valid, 0, 0), (b[9].data, b[9].valid, 0, 0)]
+    got = pk.hash_keys(keys, page.row_mask)
+    want = pk.masked_plain(keys, page.row_mask, False)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+SLICE6_DS = (2, 4, 11, 33, 49, 54, 56, 60, 66, 71, 74, 75, 76, 5, 14, 18, 22, 27, 67, 77,
+             80, 6, 8, 19, 46, 68, 36, 70, 86, 16, 28, 95, 17, 39, 40, 78, 23)
+
+
+def test_sixth_slice_on_the_card_equals_the_cpu_run():
+    """The sixth slice's 37 TPC-DS queries at sf 0.01 on the card, equal
+    to the CPU run (doubles bit for bit), with the new kinds launched."""
+    _cuda()
+    from presto_tpu_torch.runner import QueryRunner
+    from presto_tpu_torch.testing import tpcds_catalog
+    from tpcds_queries import QUERIES as DS
+
+    args = dict(sf=0.01, split_rows=16384, cd_rows=2 * 5 * 7 * 20, inv_rows=60000)
+    gpu = QueryRunner(tpcds_catalog(**args), device="cuda")
+    cpu = QueryRunner(tpcds_catalog(**args), device="cpu")
+    k1.op_launches.clear()
+    k6.variance_launches = k6.variance_merge_launches = k3.sum0_launches = 0
+    for q in SLICE6_DS:
+        got, want = gpu.execute(DS[q]).rows, cpu.execute(DS[q]).rows
+        assert got == want, q
+    assert k6.variance_launches > 0 and k3.sum0_launches > 0
+    # cast_decimal is absent: these queries cast only literals, folded on the host
+    assert {"coalesce", "remap", "string_eq", "floor", "round", "ladd"} <= set(k1.op_launches)
+
+
+@pytest.mark.parametrize("kind", ["inner", "full"])
+def test_join_kernels_gather_past_64_columns(kind):
+    """K8 and K5 gather a join of more than 64 columns in runs of 64,
+    one launch (and one count) per run (TPC-DS joins over every column
+    of their tables do)."""
+    dev = _cuda()
+    domain = 1 << 12
+    bcol, bmask = _skewed_build(dev, domain=domain)
+    bkeys = _keys_for(bcol, "search", domain)
+    sk, perm, starts, _ = k4.join_build_sorted(bkeys, bmask, None)
+    pcol, pmask = _probe_keys(dev, 1 << 14, domain, 12)
+    pkeys = _keys_for(pcol, "search", domain)
+    rng = np.random.default_rng(31)
+    probe_cols = [pcol] + [(torch.from_numpy(rng.integers(0, 9, 1 << 14)).to(dev), pmask)
+                           for _ in range(40)]
+    build_cols = [bcol] + [(torch.from_numpy(rng.integers(0, 9, 1 << 16).astype(np.int32))
+                            .to(dev), bmask) for _ in range(60)]
+    wide_build = build_cols + build_cols[1:11]  # 71 columns: two runs of K5
+    k8.launches = k5.launches = 0
+    outs = []
+    for fn in (k8.join_expand, k8.join_expand_plain):
+        matched = torch.zeros(1 << 16, dtype=torch.bool, device=dev) if kind == "full" else None
+        outs.append(fn(pkeys, pmask, sk, perm, starts, probe_cols, build_cols,
+                       kind != "inner", False, matched) + (matched,))
+    got = k5.join_probe(pkeys, pmask, sk, perm, starts, wide_build, k5.LEFT)
+    want = k5.join_probe_plain(pkeys, pmask, sk, perm, starts, wide_build, k5.LEFT)
+    torch.cuda.synchronize()
+    assert k8.launches == 2 and k5.launches == 2  # 102 output columns; 71 build columns
+    (gp, gb, gt, gm), (wp, wb, wt, wm) = outs
+    assert gt == wt > 0
+    for (gd, gv), (wd, wv) in zip(gp + gb, wp + wb):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+    assert (gm is None and wm is None) or torch.equal(gm, wm)
+    assert torch.equal(got[1], want[1])
+    for (gd, gv), (wd, wv) in zip(got[0], want[0]):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)

@@ -11,8 +11,8 @@ over``, ``abs(decimal - double) / double``; q89 a double top-100), q44
 (``rank()`` and ``avg`` over two specs, the windowed CTE self-joined),
 q51 (running sums in a ROWS frame under a FULL OUTER join); q13, whose
 predicate reads nine dictionary tables; and the other queries that
-double lanes and the double ``avg`` unblock.  Every query still outside
-the port is held to raise :class:`NotPorted` by name.  The 42 queries
+double lanes and the double ``avg`` unblock.  What the port still
+lacks is held to raise :class:`NotPorted` by name.  The 42 queries
 the port ran before this slice are in ``test_torch_tpcds_corpus.py``.
 """
 
@@ -27,17 +27,19 @@ SLICE = [3, 7, 12, 20, 98, 53, 63, 89, 44, 47, 57, 51]
 # the double avg (q26, q35, q85), K1's table limit (q13)
 ALSO = [13, 21, 26, 31, 35, 58, 73, 83, 85]
 
-# what still stops each remaining query (ROADMAP queue A)
+# every one of the 99 queries now runs (the sixth slice's 37 are in
+# test_torch_tpcds_{union,groupid,strings,aggs}.py); what the port still
+# lacks raises NotPorted by name
 NOT_PORTED = {
-    **{q: "plan node UnionNode" for q in (2, 4, 11, 33, 49, 54, 56, 60, 66, 71, 74, 75, 76)},
-    **{q: "plan node GroupIdNode" for q in (5, 14, 18, 22, 27, 67, 77, 80)},
-    **{q: "comparison of two string columns" for q in (6, 8, 19, 46, 68)},
-    **{q: "dictionary of string expression case" for q in (36, 70, 86)},
-    **{q: "sum collapsed to a short decimal (sum0 rewrite)" for q in (16, 95)},
-    **{q: "aggregate stddev_samp" for q in (17, 39)},
-    **{q: "expression coalesce" for q in (40, 78)},
-    23: "plan node LimitNode",
-    28: "aggregate sum0",
+    "ordered_string_column_comparison": (
+        "select count(*) from customer where c_first_name < c_last_name",
+        "ordered comparison (lt) of two string columns"),
+    "min_over_double": ("select min(ss_quantity * 1.5e0) from store_sales", "min over double"),
+    "max_over_varchar": ("select max(s_state) from store", "max over varchar"),
+    "pushed_down_limit_scan": ("select ss_item_sk from store_sales limit 3",
+                               "TABLESAMPLE and pushed-down LIMIT scans"),
+    "cast_bigint": ("select cast(ss_sales_price as bigint) c from store_sales "
+                    "where ss_quantity > 3", "expression cast_bigint"),
 }
 
 
@@ -53,6 +55,7 @@ def test_query_equals_reference(pair, q):
 
 @pytest.mark.parametrize("q", sorted(NOT_PORTED))
 def test_query_outside_the_port_raises(pair, q):
+    sql, what = NOT_PORTED[q]
     with pytest.raises(NotPorted) as e:
-        pair.port.execute(QUERIES[q])
-    assert e.value.what == NOT_PORTED[q]
+        pair.port.execute(sql)
+    assert e.value.what == what
