@@ -38,20 +38,33 @@ Phases (any failure exits non-zero before the result line):
    row_number, a ROWS-frame sum and avg) and over the real window input
    of each windowed TPC-DS query, K1's double opcodes where q53, q63,
    q89, q47 and q57 run them, K7's double key (q89's top 100) and K3's
-   avg of an integer as a double (q7's finalize);
-4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10, then
-   (TPC-H's tables freed) TPC-DS q3, q7, q12, q20, q98, q53, q63, q89,
-   q44, q47, q57, q51 and q13 (``tests/tpcds_queries.py``) at SF10,
-   through ``QueryRunner.execute``, each over a ``MemoryConnector``
-   that holds only the columns its SQL names (the tensors on the card
-   are shared, not copied); every kernel launch counter is set to 0 just
-   before each query and read just after it, and the run fails unless
-   each query launched the kernels of its path;
+   avg of an integer as a double (q7's finalize); the sixth slice's
+   opcodes and states; and the seventh slice's K11 spill_partition over
+   a whole lineitem split (packed l_orderkey) and a whole store_sales
+   split (hashed customer and item keys) at 8 and 64 buckets, its
+   column gather, the copies of the gathered buffer to pinned host
+   memory and back, and K4's null_flags;
+4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
+   spill phase over the same tables (``tests/test_spill.py``'s
+   aggregation, join and FULL OUTER join, and TPC-H Q18, each
+   unconstrained and then under a pool at 0.6x its largest reservation
+   at a spill site: K11 must launch, bytes must spill, and the rows
+   must equal the unconstrained run's); then (TPC-H's tables freed)
+   all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
+   which runs at sf 0.1 (at SF10 its expansion does not fit one card),
+   through ``QueryRunner.execute`` under the default memory pool, each
+   over a ``MemoryConnector`` that holds only the columns its SQL names
+   (the tensors on the card are shared, not copied); every kernel
+   launch counter is set to 0 just before each query and read just
+   after it, and the run fails unless each query launched the kernels
+   of its path; each query's pool peak is printed beside the card's;
 5. check rows against the same queries run by the port on the CPU over
-   the same generated data, exactly (doubles included): TPC-DS at SF10
-   (the rows of phase 4), TPC-H at SF 1 (the card runs the 22 queries
-   again over the SF 1 tables; Q22, which finds no row there, also
-   without its anti join);
+   the same generated data, exactly (doubles included): the fifth slice's 13
+   TPC-DS queries and q29 at SF10 (the rows of phase 4), TPC-H at
+   SF 1 (the card runs the 22 queries again over the SF 1 tables; Q22,
+   which finds no row there, also without its anti join), the other
+   TPC-DS queries at SF 1 (run again there on the card), q72 at sf
+   0.01;
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -139,6 +152,53 @@ DS_CHECK_SF = 1.0
 # whose store, web page or ship address key is NULL, which this
 # generator never writes (no row at any scale)
 DS2_EMPTY_AT_CHECK = ("ds_q76",)
+
+
+# the seventh slice: the 49 TPC-DS queries that ran only on the CPU
+# before (tests/test_torch_tpcds_corpus.py BEFORE without q3, and
+# tests/test_torch_tpcds.py ALSO without q13), their rows checked at
+# DS_CHECK_SF as the sixth slice's are
+DS3_QUERIES = {f"ds_q{q}": DS_SQL[q] for q in (1, 9, 10, 15, 24, 25, 29, 30, 32, 34, 37, 38,
+                                               41, 42, 43, 45, 48, 50, 52, 55, 59, 61, 62,
+                                               64, 65, 69, 72, 79, 81, 82, 84, 87, 88, 90,
+                                               91, 92, 93, 94, 96, 97, 99, 21, 26, 31, 35,
+                                               58, 73, 83, 85)}
+# q29 finds no row at DS_CHECK_SF (22 at DS_SF): its rows are checked at
+# DS_SF, the counted run's against the CPU's; q85 finds no row at any
+# scale this generator was run at (sf 0.01 to 10), in both packages
+DS3_CHECK_AT_DS_SF = ("ds_q29",)
+DS3_EMPTY_AT_CHECK = ("ds_q85",)
+# queries that do not fit one card at DS_SF: (scale on the card, scale
+# of the row check).  q72 joins catalog_sales to inventory on the item
+# key alone (inventory has 23.49M rows at every scale), so its
+# expansion grows with catalog_sales: it ran out of the card's memory
+# at sf 0.2 and above and peaked at 53.33 GiB at sf 0.1; its CPU run
+# takes ~190 s at sf 0.1 and ~20 s at 0.01
+DS3_SCALE = {"ds_q72": (0.1, 0.01)}
+
+
+def _spill_sql() -> dict:
+    """AGG_SQL, JOIN_SQL and FULL_SQL of ``tests/test_spill.py``, read
+    without importing it (it imports the JAX package)."""
+    import ast
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "test_spill.py"
+    tree = ast.parse(path.read_text())
+    return {t.id: ast.literal_eval(node.value) for node in tree.body
+            if isinstance(node, ast.Assign) for t in node.targets
+            if isinstance(t, ast.Name) and t.id.endswith("_SQL")}
+
+
+# the spill phase at SF10: each query unconstrained, then under a pool
+# at SPILL_FRACTION of its largest reservation at a spill site (a join
+# build or an aggregation accumulator)
+_SPILL = _spill_sql()
+SPILL_QUERIES = {"spill_agg": _SPILL["AGG_SQL"], "spill_join": _SPILL["JOIN_SQL"],
+                 "spill_full": _SPILL["FULL_SQL"], "spill_q18": SQL[18]}
+SPILL_SITES = {"spill_agg": ("agg_accumulator@",), "spill_join": ("join_build@",),
+               "spill_full": ("join_build@",),
+               "spill_q18": ("join_build@", "agg_accumulator@")}
+SPILL_FRACTION = 0.6
 
 
 def empty_variants(sf: float) -> dict:
@@ -274,6 +334,9 @@ REPLACES = {
     "join_expand": "presto_tpu/ops/join.py:376",
     "hash_keys": "presto_tpu/ops/aggregate.py:1686",
     "window_eval": "presto_tpu/ops/window.py:106",
+    "spill_partition": "presto_tpu/exec/spill.py:65",
+    "spill_partition@gather": "presto_tpu/exec/spill.py:90",
+    "join_build@null_flags": "presto_tpu/ops/join.py:237",
 }
 
 
@@ -386,8 +449,8 @@ class KernelReport:
             self.counters[name] = counter
         bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
         self.rows[name] = {
-            "name": name, "route": route, "source": source, "replaces": REPLACES[
-                name.split("@")[0]],
+            "name": name, "route": route, "source": source,
+            "replaces": REPLACES.get(name, REPLACES[name.split("@")[0]]),
             "launches": 0, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
         }
@@ -1541,6 +1604,208 @@ def check_sixth_slice_kernels(report: KernelReport, ds2_runners, ds_mem) -> None
                counter="hash_keys:double")
 
 
+def check_spill_kernels(report: KernelReport, mem, ds_mem) -> None:
+    """Phase 3, the seventh slice, each exactly against its plain
+    version: K11 over a whole lineitem split keyed by l_orderkey (packed
+    over its domain) and over a whole store_sales split keyed by
+    (ss_customer_sk, ss_item_sk) (hashed), at 8 and 64 buckets: bucket
+    ids, permutation and counts; its gather of the spill phase's
+    aggregation columns; the copy of the gathered buffer to pinned host
+    memory and back (ms, GB/s); K4's null_flags over the store_sales
+    split's two key valids."""
+    from presto_tpu_torch.exec.spill import HostPage
+    from presto_tpu_torch.kernels import join_build as k4
+    from presto_tpu_torch.kernels import spill_partition as k11
+
+    li = mem.page_for_split("lineitem", 0)
+    li_names = [c for c, _ in mem.schema("lineitem")]
+    okey = li.blocks[li_names.index("l_orderkey")]
+    lo, hi = mem.column_domain("lineitem", "l_orderkey")
+    ss = ds_mem.page_for_split("store_sales", 0)
+    ss_names = [c for c, _ in ds_mem.schema("store_sales")]
+    cust, item = (ss.blocks[ss_names.index(c)] for c in ("ss_customer_sk", "ss_item_sk"))
+    cases = {"lineitem": ([(okey.data, okey.valid, lo, hi - lo + 2)], li),
+             "store_sales": ([(cust.data, cust.valid, 0, 0), (item.data, item.valid, 0, 0)],
+                             ss)}
+    for label, (keys, page) in cases.items():
+        mask = page.row_mask
+        for num in (8, 64):
+            got = k11.spill_partition(keys, mask, num)
+            want = k11.spill_partition_plain(keys, mask, num)
+            total = int(want[2].sum())
+            err = max(same(got[0], want[0], f"spill_partition {label} bucket ids"),
+                      same(got[1][:total], want[1][:total], f"spill_partition {label} perm"),
+                      same(got[2], want[2], f"spill_partition {label} counts"))
+            ms = cuda_ms(lambda: k11.spill_partition(keys, mask, num), 20)
+            plain = cuda_ms(lambda: k11.spill_partition_plain(keys, mask, num), 3)
+            bids = got[0]
+            # one PyTorch call each for the grouping and the counts: a
+            # stable sort of the bucket ids (dead rows, -1, sort first)
+            library = cuda_ms(lambda: (torch.sort(bids, stable=True),
+                                       torch.bincount(bids + 1, minlength=num + 1)), 20)
+            name = "spill_partition" if (label, num) == ("lineitem", 8) else \
+                f"spill_partition@{label}_k{num}"
+            report.add(name, "cuda", "presto_tpu_torch/csrc/spill_partition.cu", err, ms,
+                       plain, nbytes(mask, *[t for k in keys for t in k[:2]], got[0], got[2])
+                       + 4 * total, library, "spill_partition")
+            log(f"spill_partition {label} k={num}: {total} live rows of {mask.shape[0]}, "
+                f"largest bucket {int(want[2].max())}")
+
+    # the gather of the spill phase's aggregation columns through the
+    # lineitem partition, and the copies of the gathered buffer
+    keys, page = cases["lineitem"]
+    _, perm, counts = k11.spill_partition(keys, page.row_mask, 8)  # the runners' default
+    total = int(counts.sum())
+    cols = [(page.blocks[li_names.index(c)].data, page.blocks[li_names.index(c)].valid)
+            for c in ("l_orderkey", "l_quantity", "l_extendedprice")]
+    buf = k11.gather_columns(cols, perm, total)
+    err = same(buf, k11.gather_columns_plain(cols, perm, total), "spill_partition gather")
+    ms = cuda_ms(lambda: k11.gather_columns(cols, perm, total), 20)
+    plain = cuda_ms(lambda: k11.gather_columns_plain(cols, perm, total), 3)
+    gather_bytes = buf.numel() + 4 * total + sum(
+        sector_bytes(t, perm[:total].to(torch.int64)) for c in cols for t in c)
+    report.add("spill_partition@gather", "cuda", "presto_tpu_torch/csrc/spill_partition.cu",
+               err, ms, plain, gather_bytes, None, "spill_partition:gather")
+    host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=buf.is_cuda)
+    d2h = cuda_ms(lambda: host.copy_(buf, non_blocking=True), 10)
+    hp = HostPage([(host[:8 * total].view(torch.int64), host[8 * total:9 * total]
+                    .view(torch.bool), None, None)], torch.ones(total, dtype=torch.bool))
+    h2d = cuda_ms(lambda: hp.rehydrate(buf.device), 10)
+    log(f"spill copies ({total} rows): device to pinned host {buf.numel()} B in {d2h:.4f} ms "
+        f"({buf.numel() / d2h / 1e6:.2f} GB/s); rehydrate of one column "
+        f"{9 * total} B in {h2d:.4f} ms ({9 * total / h2d / 1e6:.2f} GB/s)")
+
+    # K4's null_flags over the store_sales split's key valids
+    valids = [cust.valid, item.valid]
+    mask = ss.row_mask
+    got = k4.null_flags(valids, mask)
+    err = same(got, k4.null_flags_plain(valids, mask), "null_flags")
+    ms = cuda_ms(lambda: k4.null_flags(valids, mask), 20)
+    plain = cuda_ms(lambda: k4.null_flags_plain(valids, mask), 5)
+    bad = mask & ~(cust.valid & item.valid)
+    library = cuda_ms(lambda: torch.any(bad), 20)
+    report.add("join_build@null_flags", "cuda", "presto_tpu_torch/csrc/join_build.cu", err, ms,
+               plain, nbytes(mask, *valids) + 8, library, "join_build:null_flags")
+    log(f"null_flags store_sales split: {got.tolist()}")
+
+
+def peek_pool(limit: int):
+    """A memory pool that also remembers the size of every reservation,
+    by tag (``.peek``)."""
+    from presto_tpu_torch.memory import MemoryPool
+
+    class PeekPool(MemoryPool):
+        def reserve(self, tag, nbytes, enforce=True):
+            self.peek[tag] = nbytes
+            super().reserve(tag, nbytes, enforce=enforce)
+
+    pool = PeekPool(limit)
+    pool.peek = {}
+    return pool
+
+
+def canonical_rows(page) -> list:
+    """The live rows of a device page as int64 columns (each value's
+    bits, 0 where NULL, then its valid bit), sorted by every column: a
+    multiset of rows to compare exactly on the device."""
+    live = page.row_mask.nonzero().flatten()
+    cols = []
+    for b in page.blocks:
+        d, v = b.data[live], b.valid[live]
+        if d.dtype == torch.float64:
+            d = d.view(torch.int64)
+        for x in (d.unbind(1) if d.dim() == 2 else (d,)):
+            cols.append(torch.where(v, x.to(torch.int64), 0))
+        cols.append(v.to(torch.int64))
+    order = torch.arange(live.numel(), device=page.device)
+    for c in reversed(cols):
+        order = order[torch.sort(c[order], stable=True)[1]]
+    return [c[order] for c in cols]
+
+
+def run_spill_phase(mem, launches, spill_wall) -> None:
+    """The spill phase at SF10: each of SPILL_QUERIES over the TPC-H
+    tables on the card, twice unconstrained under a pool that records
+    every reservation, then twice under a pool at SPILL_FRACTION of its
+    largest reservation at a spill site (the first of those runs
+    counted); the run fails unless K11 launched, bytes were spilled,
+    and the spilled rows equal the unconstrained run's exactly (rows
+    compared as sorted multisets on the card)."""
+    from presto_tpu_torch.runner import QueryRunner
+
+    cat0 = QueryRunner(query_catalog(mem, SQL[18]), device="cuda", memory_pool=False)
+    for label, sql in SPILL_QUERIES.items():
+        ordered = streamed_tables(cat0.plan(sql)) if label == "spill_q18" else ()
+        catalog = query_catalog(mem, sql, ordered)
+        peek = peek_pool(1 << 62)
+        free = QueryRunner(catalog, device="cuda", memory_pool=peek)
+        plan = free.plan(sql)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = free.executor.run_to_page(plan)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        want_rows = canonical_rows(want)
+        del want
+        site, site_bytes = max(((t, n) for t, n in peek.peek.items()
+                                if any(s in t for s in SPILL_SITES[label])), key=lambda e: e[1])
+        pool = peek_pool(int(SPILL_FRACTION * site_bytes))
+        spilled = QueryRunner(catalog, device="cuda", memory_pool=pool)
+        plan = spilled.plan(sql)
+        spill_walls = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            if i == 0:
+                reset_counts()
+            t0 = time.perf_counter()
+            got = spilled.executor.run_to_page(plan)
+            torch.cuda.synchronize()
+            spill_walls.append(time.perf_counter() - t0)
+            if i == 0:
+                launches[label] = read_counts()
+                spill = spilled.executor.last_spill
+        got_rows = canonical_rows(got)
+        del got
+        if launches[label]["spill_partition"] == 0 or spill.bytes == 0:
+            raise AssertionError(f"{label}: nothing spilled ({launches[label]}, {spill})")
+        if len(got_rows) != len(want_rows) or not all(
+                torch.equal(a, b) for a, b in zip(got_rows, want_rows)):
+            raise AssertionError(f"{label}: spilled rows differ from the unconstrained run's")
+        spill_wall[label] = (walls, spill_walls)
+        parts = sorted({t.split("/", 1)[1].split("@")[0] for t in pool.peek
+                        if "partition" in t})
+        log(f"{label}: {want_rows[0].numel()} rows equal unspilled; wall "
+            f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms unconstrained (pool peak "
+            f"{peek.peak / 2**30:.3f} GiB; largest spill site {site.split('/', 1)[1]} "
+            f"{site_bytes / 2**30:.3f} GiB), {', '.join(f'{w * 1e3:.2f}' for w in spill_walls)}"
+            f" ms spilled under a {pool.limit / 2**30:.3f} GiB pool (peak "
+            f"{pool.peak / 2**30:.3f} GiB); spilled {spill.bytes / 2**30:.3f} GiB in "
+            f"{spill.buckets} host buckets; K11 launches {launches[label]['spill_partition']}, "
+            f"gathers {launches[label]['spill_partition:gather']}; partitioned sites {parts}; "
+            f"demoted joins {len(spilled.executor._force_expanding)}")
+        del want_rows, got_rows, free, spilled, peek, pool
+        gc.collect()
+
+
+def plan_required(plan) -> tuple:
+    """The kernels a TPC-DS plan's shape must launch: K4 for a join,
+    K2 or K6 for a grouping, K10 for a window, K7 for a top-N."""
+    from presto_tpu_torch.planner.plan import AggregationNode, JoinNode, TopNNode, WindowNode
+
+    req = []
+    if find_all(plan, JoinNode):
+        req.append("join_build")
+    if any(a.group_exprs for a in find_all(plan, AggregationNode)):
+        req.append("packed_group_agg|sorted_group_agg")
+    if find_all(plan, WindowNode):
+        req.append("window_eval")
+    if find_all(plan, TopNNode):
+        req.append("topn")
+    return tuple(req)
+
+
 def profile_query(runner, sql: str) -> str:
     """One traced run of ``sql``: device-busy share of its wall time
     and the device time of its heaviest kernels (torch.profiler)."""
@@ -1572,13 +1837,14 @@ def profile_query(runner, sql: str) -> str:
 def counters():
     from presto_tpu_torch.kernels import (
         expr_eval, join_build, join_expand, join_probe, keys, packed_fold_finalize,
-        packed_group_agg, sorted_group_agg, topn, window_eval,
+        packed_group_agg, sorted_group_agg, spill_partition, topn, window_eval,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
             "packed_fold_finalize": packed_fold_finalize, "join_build": join_build,
             "join_probe": join_probe, "sorted_group_agg": sorted_group_agg, "topn": topn,
-            "join_expand": join_expand, "hash_keys": keys, "window_eval": window_eval}
+            "join_expand": join_expand, "hash_keys": keys, "window_eval": window_eval,
+            "spill_partition": spill_partition}
 
 
 # counters of one kind of launch: (kernel, attribute, name in the counts)
@@ -1599,7 +1865,9 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("packed_fold_finalize", "sum0_launches", "packed_fold_finalize:sum0"),
               ("packed_fold_finalize", "collapse_launches", "packed_fold_finalize:collapse"),
               ("packed_fold_finalize", "variance_launches", "packed_fold_finalize:variance"),
-              ("hash_keys", "double_launches", "hash_keys:double"))
+              ("hash_keys", "double_launches", "hash_keys:double"),
+              ("spill_partition", "gather_launches", "spill_partition:gather"),
+              ("join_build", "null_flags_launches", "join_build:null_flags"))
 
 
 def reset_counts() -> None:
@@ -1655,13 +1923,14 @@ def query_catalog(conn, sql: str, ordered=(), tables=None, name: str = "tpch"):
 
 
 def ds_tables(queries=None) -> dict:
-    """The TPC-DS tables ``queries`` (default: both slices') read, each
+    """The TPC-DS tables ``queries`` (default: every slice's) read, each
     with the columns any of them names."""
     import re
 
     from presto_tpu_torch.connectors.tpcds import SCHEMAS
 
-    sqls = list((queries if queries is not None else {**DS_QUERIES, **DS2_QUERIES}).values())
+    sqls = list((queries if queries is not None
+                 else {**DS_QUERIES, **DS2_QUERIES, **DS3_QUERIES}).values())
     out = {}
     for table, schema in SCHEMAS.items():
         if any(re.search(rf"\b{table}\b", sql) for sql in sqls):
@@ -1684,7 +1953,8 @@ def run_counted(runners, queries, required, launches, results, wall) -> None:
         wall[label] = [time.perf_counter() - t0]
         launches[label] = read_counts()
         log(f"{label} launches: {launches[label]}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, pool peak "
+            f"{runners[label].executor.last_peak_bytes / 2**30:.2f} GiB")
         missing = [k for k in required[label]
                    if not any(launches[label].get(a, 0) for a in k.split("|"))]
         if missing:
@@ -1735,9 +2005,10 @@ def main() -> int:
     tpcds = Tpcds(sf=DS_SF, split_rows=DS_SPLIT_ROWS)
     for table, columns in ds_cols.items():
         host_ds.load_from(tpcds, table, columns=columns)
-    # the sixth slice's tables again at DS_CHECK_SF, for its row check
+    # the sixth and seventh slices' tables again at DS_CHECK_SF, for
+    # their row check
     host_ds_check = MemoryConnector(device="cpu")
-    ds2_cols = ds_tables(DS2_QUERIES)
+    ds2_cols = ds_tables({**DS2_QUERIES, **DS3_QUERIES})
     tpcds_check = Tpcds(sf=DS_CHECK_SF, split_rows=DS_SPLIT_ROWS)
     for table, columns in ds2_cols.items():
         host_ds_check.load_from(tpcds_check, table, columns=columns)
@@ -1754,7 +2025,7 @@ def main() -> int:
                                  f"splits" for t in TABLES))
     log(f"TPC-DS sf={DS_SF}: " + ", ".join(
         f"{t} {host_ds.row_count(t)} rows in {host_ds.num_splits(t)} splits" for t in ds_cols)
-        + f"; TPC-DS sf={DS_CHECK_SF} (the sixth slice's check): " + ", ".join(
+        + f"; TPC-DS sf={DS_CHECK_SF} (the sixth and seventh slices' check): " + ", ".join(
         f"{t} {host_ds_check.row_count(t)} rows" for t in ds2_cols)
         + f"; generated in {gen_s:.1f} s; kernels built by {build_s:.1f} s")
 
@@ -1781,6 +2052,11 @@ def main() -> int:
                                      device="cuda") for label, sql in DS_QUERIES.items()}
     ds2_runners = {label: QueryRunner(query_catalog(mem_ds, sql, tables=ds_cols, name="tpcds"),
                                       device="cuda") for label, sql in DS2_QUERIES.items()}
+    ds3_runners = {label: QueryRunner(query_catalog(mem_ds, sql, tables=ds_cols, name="tpcds"),
+                                      device="cuda") for label, sql in DS3_QUERIES.items()
+                   if label not in DS3_SCALE}
+    ds3_required = {label: plan_required(r.plan(DS3_QUERIES[label]))
+                    for label, r in ds3_runners.items()}
 
     report = KernelReport()
     check_kernels(report, runner, mem)
@@ -1789,6 +2065,7 @@ def main() -> int:
     check_aggregation_kernels(report, runners)
     check_window_kernels(report, ds_runners, mem_ds)
     check_sixth_slice_kernels(report, ds2_runners, mem_ds)
+    check_spill_kernels(report, mem, mem_ds)
     torch.cuda.synchronize()
     log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1797,26 +2074,60 @@ def main() -> int:
     # and traced; TPC-H's SF10 tables leave the card before TPC-DS runs
     from presto_tpu_torch.planner.plan import TableScanNode
 
-    results, wall, launches, scans = {}, {}, {}, {}
+    results, wall, launches, scans, spill_wall = {}, {}, {}, {}, {}
 
-    def drive(rs, queries, required):
+    def drive(rs, queries, required, reps=REPS, trace=True):
         run_counted(rs, queries, required, launches, results, wall)
         for label, sql in queries.items():
-            for _ in range(REPS):
+            for _ in range(reps):
                 t0 = time.perf_counter()
                 rs[label].execute(sql)
                 wall[label].append(time.perf_counter() - t0)
         for label, sql in queries.items():
-            log(f"{label} trace: {profile_query(rs[label], sql)}")
+            if trace:
+                log(f"{label} trace: {profile_query(rs[label], sql)}")
             scans[label] = {n.handle.table for n in find_all(rs[label].plan(sql),
                                                                TableScanNode)}
 
     drive(runners, QUERIES, REQUIRED)
+    # the spill phase over the same SF10 tables, before they leave
+    run_spill_phase(mem, launches, spill_wall)
+    log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
     del runner, runners, catalog, mem
     gc.collect()
     torch.cuda.empty_cache()
     drive(ds_runners, DS_QUERIES, DS_REQUIRED)
     drive(ds2_runners, DS2_QUERIES, DS2_REQUIRED)
+    # the seventh slice's 49: counted and timed once more, untraced
+    drive(ds3_runners, {k: v for k, v in DS3_QUERIES.items() if k not in DS3_SCALE},
+          ds3_required, reps=1, trace=False)
+    # the queries cut in scale, with the SF10 tables off the card: each
+    # at its scale, then its check scale's tables stay for the row check
+    del ds_runners, ds2_runners, ds3_runners, mem_ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    scaled_checks = {}
+    for label, (sf, check_sf) in DS3_SCALE.items():
+        sql = DS3_QUERIES[label]
+        cols = ds_tables({label: sql})
+        conns = {}
+        for scale in (sf, check_sf):
+            h, m = MemoryConnector(device="cpu"), MemoryConnector(device="cuda")
+            gen = Tpcds(sf=scale, split_rows=DS_SPLIT_ROWS)
+            for table, columns in cols.items():
+                h.load_from(gen, table, columns=columns)
+                m.load_from(h, table)
+            conns[scale] = (h, m)
+        rs = {label: QueryRunner(query_catalog(conns[sf][1], sql, tables=cols, name="tpcds"),
+                                 device="cuda")}
+        drive(rs, {label: sql}, {label: plan_required(rs[label].plan(sql))}, reps=1,
+              trace=False)
+        log(f"{label} ran at sf={sf} (does not fit the card at sf={DS_SF}); its rows are "
+            f"checked at sf={check_sf}")
+        scaled_checks[label] = (sql, cols, conns[check_sf])
+        del rs, conns
+        gc.collect()
+        torch.cuda.empty_cache()
     for row in report.rows.values():
         kname = report.counters.get(row["name"], row["name"].split("@")[0])
         row["launches_by_query"] = {q: launches[q].get(kname, 0) for q in launches}
@@ -1848,21 +2159,35 @@ def main() -> int:
     # TPC-DS checks need the room (q47's at SF10 most)
     del host, host_check, mem_check, cat_check
     gc.collect()
-    # the sixth slice at DS_CHECK_SF: the card runs its queries again
-    # over those tables, the CPU once
-    for label, sql in DS2_QUERIES.items():
+    # the sixth and seventh slices at DS_CHECK_SF: the card runs their
+    # queries again over those tables, the CPU once
+    for label, sql in {**DS2_QUERIES, **DS3_QUERIES}.items():
+        if label in DS3_SCALE or label in DS3_CHECK_AT_DS_SF:
+            continue
         t1 = time.perf_counter()
         got = QueryRunner(query_catalog(mem_ds_check, sql, tables=ds2_cols, name="tpcds"),
                           device="cuda").execute(sql)
         ref = QueryRunner(query_catalog(host_ds_check, sql, tables=ds2_cols, name="tpcds"),
                           device="cpu").execute(sql)
-        check_rows(f"{label} at sf={DS_CHECK_SF}", got, ref, label in DS2_EMPTY_AT_CHECK)
+        check_rows(f"{label} at sf={DS_CHECK_SF}", got, ref,
+                   label in DS2_EMPTY_AT_CHECK + DS3_EMPTY_AT_CHECK)
         log(f"{label} at sf={DS_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
     del host_ds_check, mem_ds_check
+    for label, (sql, cols, (h, m)) in scaled_checks.items():
+        t1 = time.perf_counter()
+        check_sf = DS3_SCALE[label][1]
+        got = QueryRunner(query_catalog(m, sql, tables=cols, name="tpcds"),
+                          device="cuda").execute(sql)
+        ref = QueryRunner(query_catalog(h, sql, tables=cols, name="tpcds"),
+                          device="cpu").execute(sql)
+        check_rows(f"{label} at sf={check_sf}", got, ref)
+        log(f"{label} at sf={check_sf}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s)")
+    del scaled_checks
     gc.collect()
     torch.cuda.empty_cache()
-    for label, sql in DS_QUERIES.items():
+    for label, sql in {**DS_QUERIES, **{q: DS3_QUERIES[q] for q in DS3_CHECK_AT_DS_SF}}.items():
         t1 = time.perf_counter()
         ref = QueryRunner(query_catalog(host_ds, sql, tables=ds_cols, name="tpcds"),
                           device="cpu").execute(sql)
@@ -1870,7 +2195,7 @@ def main() -> int:
         log(f"{label}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
-    for label in list(QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES):
+    for label in list(QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES else (
             "store_sales", host_ds.row_count("store_sales"))

@@ -3,7 +3,10 @@
 //
 // Replaces: presto_tpu/ops/join.py build_join (its unique-direct
 // branch, and the CSR `starts` table of its sorted branch, which the
-// reference computes with jnp.searchsorted over the key domain).
+// reference computes with jnp.searchsorted over the key domain), and
+// build_null_flags, the three-valued IN flags of a spilled build
+// partition (k4_null_flags, one pass over the key valids and row mask:
+// bound by those bytes).
 //
 // Bound on the H100: memory.  The unique branch reads each build row's
 // key columns and row mask once, and writes, scans and reads a
@@ -89,6 +92,49 @@ static __global__ void k4_starts(const i64* __restrict__ sorted_keys, i64 n, i64
     }
     starts[q] = (int)lo;
   }
+}
+
+// build_null_flags: flags[0] |= a live row has a NULL key, flags[1] |=
+// a row is live, over the key columns' valids (K1's outputs for
+// expression keys).  One thread per row; __syncthreads_or reduces the
+// block and one thread ORs the result into the flags.
+struct NullFlagValids {
+  int n;
+  const uint8_t* valid[PK_MAX_KEYS];
+};
+
+static __global__ void k4_null_flags_pass(NullFlagValids v, i64 n,
+                                     const uint8_t* __restrict__ row_mask,
+                                     int* __restrict__ flags) {
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  int saw_null = 0, saw_live = 0;
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    if (row_mask[i] == 0) continue;
+    saw_live = 1;
+    for (int c = 0; c < v.n; ++c) saw_null |= v.valid[c][i] == 0;
+  }
+  saw_null = __syncthreads_or(saw_null);
+  saw_live = __syncthreads_or(saw_live);
+  if (threadIdx.x == 0) {
+    if (saw_null) atomicOr(&flags[0], 1);
+    if (saw_live) atomicOr(&flags[1], 1);
+  }
+}
+
+// (has a NULL key, nonempty) of n rows into flags (2 ints), from
+// n_keys (1..PK_MAX_KEYS) key validity arrays.
+extern "C" int k4_null_flags(i64 n, const void* row_mask, int n_keys, const i64* valid,
+                             void* flags, void* stream) {
+  if (n_keys < 1 || n_keys > PK_MAX_KEYS) return (int)cudaErrorInvalidValue;
+  NullFlagValids v;
+  v.n = n_keys;
+  for (int c = 0; c < n_keys; ++c) v.valid[c] = (const uint8_t*)valid[c];
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(flags, 0, 2 * sizeof(int), s);
+  if (n > 0)
+    k4_null_flags_pass<<<grid_for(n, 256, 8), 256, 0, s>>>(v, n, (const uint8_t*)row_mask,
+                                                           (int*)flags);
+  return (int)cudaGetLastError();
 }
 
 // Unique-direct build over packed keys `keys` (keys.cu's output)

@@ -28,25 +28,42 @@ plan nodes raise :class:`NotPorted`.  PyTorch runs eagerly, so there are no
 compiled-program caches and no capacity buckets: the sort path and the
 expanding probe size their outputs from the count they find, so
 nothing is dropped and no capacity retry is needed.
+
+Memory: every query runs under the runner's pool (``memory.py``),
+which charges join builds, aggregation accumulators, sort inputs and,
+softly, scan pages, with the reference's tags, and frees them at query
+end.  A join build past the pool falls back to the partitioned join
+(both sides split into host buckets by K11, each partition joined on
+its own); a streaming join whose build trips it is demoted out of its
+chain into that path; an aggregation accumulator past it re-runs
+partitioned (the source rows split by K11, each bucket aggregated
+alone).  The pool is the only spill trigger: the reference's capacity
+trigger (``GroupCapacityExceeded`` past ``SPILL_GROUP_THRESHOLD``) has
+no counterpart, since the port sizes its outputs from a count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
+import uuid
 from typing import Dict, Iterator, List, Optional
 
 import torch
 
 from presto_tpu_torch import NotPorted, resolve_device
 from presto_tpu_torch.catalog import Catalog
+from presto_tpu_torch.exec.spill import HostPage, SpillCounter, make_bucket_fn, partition_to_host
+from presto_tpu_torch.expr.ir import ColumnRef
+from presto_tpu_torch.memory import ExceededMemoryLimitError, QueryMemoryContext, page_bytes
 from presto_tpu_torch.ops.aggregate import (
     combine_packed_states, finalize_packed, grouped_aggregate, merge_aggregate, takes_sort_path,
 )
 from presto_tpu_torch.ops.filter_project import filter_page, project_page
 from presto_tpu_torch.ops.join import (
-    JoinBuild, build_join, outer_build_tail, probe_expand, probe_join,
+    JoinBuild, build_join, build_null_flags, outer_build_tail, probe_expand, probe_join,
 )
 from presto_tpu_torch.expr.compile import ExprCompiler
 from presto_tpu_torch.ops.sort import limit_page, sort_page, topn_page
@@ -142,15 +159,30 @@ def _is_streaming_join(node: JoinNode) -> bool:
 
 class LocalRunner:
     """Executes a plan tree against registered connectors on ``device``
-    (default ``cuda``; see :func:`presto_tpu_torch.resolve_device`)."""
+    (default ``cuda``; see :func:`presto_tpu_torch.resolve_device`),
+    charging its device intermediates against ``memory_pool`` (None: no
+    accounting) and spilling through ``spill_partitions`` host buckets
+    where they exceed it."""
 
-    def __init__(self, catalog: Catalog, device=None):
+    def __init__(self, catalog: Catalog, device=None, memory_pool=None,
+                 spill_partitions: int = 8):
         self.catalog = catalog
         self.device = resolve_device(device)
+        self.memory_pool = memory_pool
+        self.spill_partitions = spill_partitions
         self.stats: Optional[QueryStats] = None
         self._partial_nodes: Dict[PlanNode, AggregationNode] = {}
         # join builds of the running query, by join node
         self._builds: Dict[PlanNode, JoinBuild] = {}
+        # streaming joins demoted to the partitioned path (their build
+        # tripped the pool); kept with the plan, as the reference keeps them
+        self._force_expanding: set = set()
+        self._mem: Optional[QueryMemoryContext] = None
+        self._spilled = SpillCounter()
+        #: the last query's peak reserved bytes, per-site peaks and spill
+        self.last_peak_bytes = 0
+        self.last_site_peaks: Dict[str, int] = {}
+        self.last_spill = SpillCounter()
 
     # ------------------------------------------------------------------
     def run(self, plan: PlanNode) -> MaterializedResult:
@@ -158,14 +190,46 @@ class LocalRunner:
         return MaterializedResult(names=plan.output_names, types=plan.output_types,
                                   rows=rows)
 
-    def run_to_page(self, plan: PlanNode) -> Page:
+    @contextlib.contextmanager
+    def _query_mem(self):
+        """One query's memory context over the pool: every reservation
+        is tagged ``"{query id}/{site}#{seq}"`` and released at the end."""
+        self._spilled = SpillCounter()
+        if self.memory_pool is not None:
+            self._mem = QueryMemoryContext(self.memory_pool, uuid.uuid4().hex[:8])
         try:
-            pages = list(self._pages(plan))
+            yield
         finally:
-            self._builds.clear()  # a build lives for one query
-        if not pages:
-            return Page.empty(plan.output_types, 1, self.device)
-        return concat_pages_device(pages)
+            self.last_spill = self._spilled
+            if self._mem is not None:
+                self.last_peak_bytes = self._mem.peak
+                self.last_site_peaks = dict(self._mem.site_peak)
+                self._mem.release_all()
+                self._mem = None
+
+    def run_to_page(self, plan: PlanNode) -> Page:
+        with self._query_mem():
+            try:
+                pages = list(self._pages(plan))
+            finally:
+                self._builds.clear()  # a build lives for one query
+            if not pages:
+                return Page.empty(plan.output_types, 1, self.device)
+            return concat_pages_device(pages)
+
+    def _account(self, what: str, page: Page, node: Optional[PlanNode] = None) -> Optional[str]:
+        """Charge a materialized device intermediate against the pool
+        (held to query end unless its tag is freed); ``node`` tags it
+        (``what@id``) so a spill fallback can tell its own node's
+        failure from another's."""
+        if self._mem is None:
+            return None
+        if node is not None:
+            what = f"{what}@{id(node)}"
+        return self._mem.reserve(what, page_bytes(page))
+
+    def _streaming(self, node: JoinNode) -> bool:
+        return _is_streaming_join(node) and node not in self._force_expanding
 
     def _pages(self, node: PlanNode) -> Iterator[Page]:
         if self.stats is None:
@@ -190,6 +254,7 @@ class LocalRunner:
             pages = list(self._pages(node.source))
             src = concat_pages_device(pages) if pages else Page.empty(
                 node.output_types, 1, self.device)
+            self._account("sort_input", src)
             yield sort_page(src, list(node.sort_exprs), list(node.ascending),
                             node.nulls_first)
             return
@@ -237,7 +302,7 @@ class LocalRunner:
             return
         if isinstance(node, JoinNode) and node.use_index:
             raise NotPorted("index join")
-        if isinstance(node, JoinNode) and not _is_streaming_join(node):
+        if isinstance(node, JoinNode) and not self._streaming(node):
             yield from self._expanding_join_pages(node)
             return
         if isinstance(node, (TableScanNode, FilterNode, ProjectNode, AggregationNode,
@@ -250,16 +315,49 @@ class LocalRunner:
     # streaming chains
     # ------------------------------------------------------------------
     def _chain_pages(self, node: PlanNode) -> Iterator[Page]:
-        stage = self._build_stage(node)
+        try:
+            stage = self._build_stage(node)
+        except ExceededMemoryLimitError as e:
+            victim = next((j for j in self._chain_joins(node)
+                           if f"join_build@{id(j)}#" in e.tag), None)
+            if victim is None:
+                raise
+            # demote the oversized build's join out of the chain; it
+            # re-plans through the partitioned (spilled) join
+            self._force_expanding.add(victim)
+            yield from self._pages_impl(node)
+            return
+        mem = self._mem
         for page in self._source_pages(self._chain_leaf(node)):
-            yield stage(page)
+            # soft: an in-flight split cannot spill; the split size
+            # bounds it, not the pool
+            tag = mem.reserve("scan_page", page_bytes(page), enforce=False) \
+                if mem is not None else None
+            try:
+                yield stage(page)
+            finally:
+                if tag is not None:
+                    mem.free(tag)  # also when LIMIT closes the chain early
+
+    def _chain_joins(self, node: PlanNode) -> List[JoinNode]:
+        """The streaming joins fused into the chain of ``node``."""
+        out: List[JoinNode] = []
+        while True:
+            if isinstance(node, JoinNode) and self._streaming(node):
+                out.append(node)
+                node = node.left
+            elif isinstance(node, (FilterNode, ProjectNode, CrossSingleNode)) or (
+                    isinstance(node, AggregationNode) and node.step == "partial"):
+                node = node.sources[0]
+            else:
+                return out
 
     def _chain_leaf(self, node: PlanNode) -> PlanNode:
         if isinstance(node, (FilterNode, ProjectNode)):
             return self._chain_leaf(node.source)
         if isinstance(node, AggregationNode) and node.step == "partial":
             return self._chain_leaf(node.source)
-        if isinstance(node, JoinNode) and _is_streaming_join(node):
+        if isinstance(node, JoinNode) and self._streaming(node):
             return self._chain_leaf(node.left)  # the probe side streams
         if isinstance(node, CrossSingleNode):
             return self._chain_leaf(node.left)
@@ -286,7 +384,7 @@ class LocalRunner:
             return lambda p: grouped_aggregate(inner(p), group_exprs, aggs, mg,
                                                key_domains=kd, mode="partial",
                                                presorted=presorted)
-        if isinstance(node, JoinNode) and _is_streaming_join(node):
+        if isinstance(node, JoinNode) and self._streaming(node):
             inner = self._build_stage(node.left)
             build = self._materialize_build(node)
             left_keys = list(node.left_keys)
@@ -373,6 +471,7 @@ class LocalRunner:
                 # the uniqueness promise failed at runtime: rebuild sorted
                 build = build_join(page, right_keys, key_domains=kd, null_safe=ns,
                                    unique=False)
+            self._account("join_build", build.page, node)
             self._builds[node] = build
         return build
 
@@ -397,8 +496,18 @@ class LocalRunner:
         """Many-to-many probe of every probe page (K8), each output page
         sized from its match count; a FULL join ORs the build rows its
         matches touched across pages and ends with the unmatched build
-        rows, NULL-extended on the probe side."""
-        build = self._materialize_build(node)
+        rows, NULL-extended on the probe side.  A build past the pool
+        falls back to the partitioned join."""
+        if node in self._force_expanding:
+            yield from self._partitioned_join_pages(node)
+            return
+        try:
+            build = self._materialize_build(node)
+        except ExceededMemoryLimitError as e:
+            if f"join_build@{id(node)}#" not in e.tag:
+                raise
+            yield from self._partitioned_join_pages(node)
+            return
         is_full = node.kind == "full"
         kind = "left" if is_full else node.kind
         left_keys = list(node.left_keys)
@@ -416,6 +525,88 @@ class LocalRunner:
                                       device=self.device)
             yield outer_build_tail(build, matched,
                                    [(c.type, c.dictionary) for c in node.left.channels])
+
+    def _spill(self, pages: Iterator[Page], key_exprs, key_domains) -> List[List[HostPage]]:
+        """Every page of ``pages`` split by key into the runner's host
+        buckets (K11)."""
+        num = self.spill_partitions
+        bucket_fn = make_bucket_fn(key_exprs, key_domains, num)
+        buckets: List[List[HostPage]] = [[] for _ in range(num)]
+        for p in pages:
+            for k, hp in enumerate(partition_to_host(p, bucket_fn(p), num, self._spilled)):
+                if hp is not None:
+                    buckets[k].append(hp)
+        return buckets
+
+    def _global_null_flags(self, bbuckets: List[List[HostPage]], right_keys) -> torch.Tensor:
+        """The build's three-valued IN flags over every partition: host
+        side from the spilled valids when every key is a column, else
+        ``build_null_flags`` (K4) over each rehydrated bucket page."""
+        has_null = torch.zeros((), dtype=torch.bool, device=self.device)
+        nonempty = torch.zeros((), dtype=torch.bool, device=self.device)
+        plain = all(isinstance(k, ColumnRef) for k in right_keys)
+        for hp in (hp for bucket in bbuckets for hp in bucket):
+            if plain:
+                all_valid = torch.ones(hp.mask.shape[0], dtype=torch.bool)
+                for k in right_keys:
+                    all_valid &= hp.columns[k.index][1]
+                has_null = has_null | bool(torch.any(hp.mask & ~all_valid))
+                nonempty = nonempty | bool(torch.any(hp.mask))
+            else:
+                h, ne = build_null_flags(hp.rehydrate(self.device), right_keys)
+                has_null = has_null | h
+                nonempty = nonempty | ne
+        return torch.stack([has_null, nonempty]).to(torch.int32)
+
+    def _partitioned_join_pages(self, node: JoinNode) -> Iterator[Page]:
+        """Spilled join: both sides split by join key into host buckets
+        (K11), then each partition joins on its own on the device, so
+        the build state is bounded by the largest partition.  semi, anti
+        and mark probe through K5 against the partition's build with the
+        GLOBAL three-valued flags; the other kinds expand (K8), a FULL
+        join with its unmatched tail per partition."""
+        kd = node.key_domains
+        left_keys, right_keys = list(node.left_keys), list(node.right_keys)
+        is_full = node.kind == "full"
+        kind = "left" if is_full else node.kind
+        ns = node.null_safe_keys
+        bbuckets = self._spill(self._pages(node.right), right_keys, kd)
+        pbuckets = self._spill(self._pages(node.left), left_keys, kd)
+        presence = kind in ("semi", "anti", "mark")
+        na = node.null_aware and presence
+        flags = self._global_null_flags(bbuckets, right_keys) if na else None
+        probe_spec = [(c.type, c.dictionary) for c in node.left.channels]
+        for k in range(self.spill_partitions):
+            if not pbuckets[k] and not (is_full and bbuckets[k]):
+                continue
+            bpage = concat_pages_device([hp.rehydrate(self.device) for hp in bbuckets[k]]) \
+                if bbuckets[k] else Page.empty(node.right.output_types, 1, self.device)
+            build = build_join(bpage, right_keys, key_domains=kd, null_safe=ns)
+            if na:
+                build = dataclasses.replace(build, flags=flags)
+            tag = self._mem.reserve(f"join_build_partition@{id(node)}", page_bytes(build.page)) \
+                if self._mem is not None else None
+            try:
+                matched = None
+                for hp in pbuckets[k]:
+                    p = hp.rehydrate(self.device)
+                    if presence:
+                        yield probe_join(build, p, left_keys, key_domains=kd, kind=kind,
+                                         null_safe=ns, null_aware=na)
+                        continue
+                    res = probe_expand(build, p, left_keys, key_domains=kd, kind=kind,
+                                       return_matched=is_full, null_safe=ns)
+                    yield res[0]
+                    if is_full:
+                        matched = res[2] if matched is None else matched | res[2]
+                if is_full:
+                    if matched is None:
+                        matched = torch.zeros(build.page.capacity, dtype=torch.bool,
+                                              device=self.device)
+                    yield outer_build_tail(build, matched, probe_spec)
+            finally:
+                if tag is not None:
+                    self._mem.free(tag)  # the partition is done; its build leaves
 
     def _run_topn(self, node: TopNNode) -> Page:
         """Fold: keep the ``count`` best rows; each input page is ranked
@@ -459,9 +650,55 @@ class LocalRunner:
     def _run_aggregation(self, node: AggregationNode) -> Page:
         """Breaker: fold per-split packed partial tables slot by slot
         (one group for a global aggregation), or merge the sort path's
-        per-split partials once; then finalize."""
+        per-split partials once; then finalize.  An accumulator past the
+        pool re-runs partitioned."""
         if node.step == "final":
             raise NotPorted("final aggregation over exchanged partial states")
+        try:
+            return self._aggregate(node, self._pages(self.partial_node(node)))
+        except ExceededMemoryLimitError as e:
+            if f"agg_accumulator@{id(node)}#" not in e.tag:
+                raise
+        return self._run_aggregation_spilled(node)
+
+    def _run_aggregation_spilled(self, node: AggregationNode) -> Page:
+        """Partitioned aggregation: the source rows split by group key
+        into host buckets (K11), each bucket aggregated to completion on
+        the device on its own (partials, fold or merge, finalize; not
+        charged: spill state must not trip the pool it relieves), and
+        the bucket outputs concatenated.  A group's rows share a bucket
+        and keep their order, so a presorted source stays presorted."""
+        buckets = self._spill(self._pages(node.source), list(node.group_exprs),
+                              node.key_domains)
+        mg = self._max_groups(node)
+        outs = []
+        for bucket in buckets:
+            if bucket:
+                parts = (grouped_aggregate(hp.rehydrate(self.device), list(node.group_exprs),
+                                           list(node.aggs), mg, key_domains=node.key_domains,
+                                           mode="partial", presorted=node.presorted)
+                         for hp in bucket)
+                outs.append(self._aggregate(node, parts, account=False))
+        if not outs:
+            return self._aggregate(node, iter(()), account=False)
+        return concat_pages_device(outs)
+
+    def _aggregate(self, node: AggregationNode, partials: Iterator[Page],
+                   account: bool = True) -> Page:
+        """The fold (or merge) and finalize of ``node`` over its partial
+        pages, the accumulator charged as ``agg_accumulator@id`` when
+        ``account``, from its first page until the output exists (then
+        the accumulator is dropped, and its reservation with it)."""
+        tags: List[str] = []
+        try:
+            return self._fold_and_finalize(node, partials, tags if account else None)
+        finally:
+            for tag in tags:
+                if tag is not None:
+                    self._mem.free(tag)
+
+    def _fold_and_finalize(self, node: AggregationNode, partials: Iterator[Page],
+                           tags: Optional[List[str]]) -> Page:
         mg = self._max_groups(node)
         num_keys = len(node.group_exprs)
         aggs = list(node.aggs)
@@ -470,16 +707,23 @@ class LocalRunner:
         # meets itself in the merge, as the sort path's partials do
         sort_path = takes_sort_path(node.group_exprs, node.key_domains, mg, aggs,
                                     node.presorted)
-        partial = self.partial_node(node)
         if sort_path:
-            parts = list(self._pages(partial))
+            parts = list(partials)
             if not parts:
                 return Page.empty(node.output_types, 1, self.device)
-            return merge_aggregate(concat_pages_device(parts), num_keys, aggs, mg,
+            merged_in = concat_pages_device(parts)
+            if tags is not None:
+                tags.append(self._account("agg_accumulator", merged_in, node))
+            return merge_aggregate(merged_in, num_keys, aggs, mg,
                                    key_domains=node.key_domains, mode="single")
         acc: Optional[Page] = None
-        for p in self._pages(partial):
-            acc = p if acc is None else combine_packed_states(acc, p, num_keys, aggs)
+        for p in partials:
+            if acc is None:
+                acc = p
+                if tags is not None:
+                    tags.append(self._account("agg_accumulator", acc, node))
+            else:
+                acc = combine_packed_states(acc, p, num_keys, aggs)
         if acc is None:
             if node.group_exprs:
                 return Page.empty(node.output_types, max(mg, 1), self.device)

@@ -10,8 +10,10 @@ leaves the sort to XLA) and, with a domain, the CSR ``starts`` table
 written by a kernel.  Both branches also return the build's flags
 (a live row has a NULL key; any row is live), which the null-aware
 probes read.  Hashed keys (K9) take the sorted branch without a
-``starts`` table.  CUDA tensors launch ``csrc/join_build.cu`` (and the
-key pack of ``csrc/keys.cu``); CPU tensors run the plain versions.
+``starts`` table.  :func:`null_flags` computes those flags alone, for
+the partitioned join's global flags (the reference's
+``build_null_flags``).  CUDA tensors launch ``csrc/join_build.cu`` (and
+the key pack of ``csrc/keys.cu``); CPU tensors run the plain versions.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from presto_tpu_torch.kernels import keys as pk
 SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
 
 launches = 0
+#: launches of the ``null_flags`` entry (``build_null_flags``)
+null_flags_launches = 0
 
 
 def join_build_unique_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor, prod: int,
@@ -124,6 +128,42 @@ def join_build_sorted(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         build.check(err, "join_build")
     launches += 1
     return sorted_keys, order.to(torch.int32), starts, flags
+
+
+def null_flags_plain(valids: Sequence[torch.Tensor], row_mask: torch.Tensor) -> torch.Tensor:
+    """int32 (has a NULL key, nonempty) of a page; the plain version."""
+    all_valid = valids[0]
+    for v in valids[1:]:
+        all_valid = all_valid & v
+    return torch.stack([torch.any(row_mask & ~all_valid),
+                        torch.any(row_mask)]).to(torch.int32)
+
+
+def null_flags(valids: Sequence[torch.Tensor], row_mask: torch.Tensor) -> torch.Tensor:
+    """The build-side flags of three-valued IN / NOT IN without building
+    the index: int32 (2,) on the page's device, [a live row has a NULL
+    key, a row is live], from the key columns' valids.  CPU tensors take
+    the plain version; CUDA tensors launch ``k4_null_flags``."""
+    if not valids or len(valids) > pk.MAX_KEYS:
+        raise ValueError(f"null_flags: 1 to {pk.MAX_KEYS} key columns")
+    n = row_mask.shape[0]
+    if row_mask.dtype != torch.bool or row_mask.dim() != 1 or any(
+            v.dtype != torch.bool or v.shape != (n,) for v in valids):
+        raise ValueError("null_flags: row mask and valids must be (n,) bool")
+    if not row_mask.is_cuda:
+        return null_flags_plain(valids, row_mask)
+    global null_flags_launches
+    build.require_cuda([row_mask, *valids], "null_flags")
+    flags = torch.empty(2, dtype=torch.int32, device=row_mask.device)
+    fn = build.library().k4_null_flags
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    err = fn(n, row_mask.data_ptr(), len(valids), build.ptrs(v.data_ptr() for v in valids),
+             flags.data_ptr(), build.stream_of(row_mask))
+    build.check(err, "null_flags")
+    null_flags_launches += 1
+    return flags
 
 
 def _check(keys, row_mask, prod) -> int:

@@ -7,7 +7,8 @@ table when the planner promises distinct keys and the domain fits the
 direct budget, else the sorted build with, on an accelerator as here,
 the CSR ``starts`` table over the domain (never for hashed keys); both
 run on K4 ``join_build``, which also sets the build's NULL-key and
-nonempty flags for three-valued IN / NOT IN.  The row-aligned probe
+nonempty flags for three-valued IN / NOT IN (:func:`build_null_flags`
+computes them alone, through K4's ``null_flags`` entry).  The row-aligned probe
 (inner and left against a unique build; semi, anti and mark against
 any) runs on K5 ``join_probe``, the expanding probe (inner, left and
 FULL against repeated keys) on K8 ``join_expand``.  The executor's
@@ -141,6 +142,19 @@ def build_join(
     sk, perm, starts, flags = k4.join_build_sorted(keys, page.row_mask,
                                                    prod if in_budget else None, null_safe)
     return JoinBuild(sk, perm, page, flags, starts)
+
+
+def build_null_flags(page: Page, key_exprs: Sequence[Expr]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(has_null_key, nonempty)`` of a build-side page without building
+    its index, as device bool scalars: the partitioned join ORs them
+    over every partition into the GLOBAL three-valued IN flags (a NULL
+    build key in one partition makes every unmatched probe UNKNOWN).
+    The key valids come from K1 where the keys are expressions; the
+    flags from K4's ``null_flags`` entry."""
+    c = ExprCompiler.for_page(page)
+    valids = [c.compile(e)(page)[1] for e in key_exprs]
+    flags = k4.null_flags(valids, page.row_mask)
+    return flags[0] != 0, flags[1] != 0
 
 
 def _columns(page: Page):

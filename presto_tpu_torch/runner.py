@@ -21,13 +21,22 @@ from presto_tpu_torch.sql.parser import parse_statement
 
 class QueryRunner:
     """Runs SQL over ``catalog`` on ``device`` (default ``cuda``; see
-    :func:`presto_tpu_torch.resolve_device`)."""
+    :func:`presto_tpu_torch.resolve_device`).  Memory accounting is
+    always on: ``memory_pool=None`` takes the process's default pool
+    (:func:`presto_tpu_torch.memory.default_memory_pool`), ``False``
+    turns accounting off."""
 
-    def __init__(self, catalog: Catalog, session: Optional[Session] = None, device=None):
+    def __init__(self, catalog: Catalog, session: Optional[Session] = None, device=None,
+                 memory_pool=None):
         self.catalog = catalog
         self.session = session or Session()
         self.binder = Binder(catalog, session=self.session)
-        self.executor = LocalRunner(catalog, device=device)
+        if memory_pool is None:
+            from presto_tpu_torch.memory import default_memory_pool
+
+            memory_pool = default_memory_pool()
+        self.memory_pool = memory_pool or None
+        self.executor = LocalRunner(catalog, device=device, memory_pool=self.memory_pool)
         # repeated executions of one SQL text reuse its plan
         self._plans: Dict[str, object] = {}
 

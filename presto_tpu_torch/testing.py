@@ -39,7 +39,8 @@ def tpcds_catalog(sf: float = 0.01, split_rows: int = 1 << 14,
 
 class LocalQueryRunner(QueryRunner):
     """SQL in, rows out, fully in-process over the TPC-H generator, on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``); ``memory_pool`` as
+    :class:`QueryRunner` takes it."""
 
     def __init__(self, sf: float = 0.01, catalog: Optional[Catalog] = None,
                  device=None, **kw):

@@ -1074,3 +1074,94 @@ def test_join_kernels_gather_past_64_columns(kind):
     assert torch.equal(got[1], want[1])
     for (gd, gv), (wd, wv) in zip(got[0], want[0]):
         assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+# -- the seventh slice: K11 spill_partition, K4's null_flags, spill ---------
+
+@pytest.mark.parametrize("num_buckets", [1, 13, 64, 256])
+@pytest.mark.parametrize("hashed", [False, True])
+def test_spill_partition_kernel_matches_plain(hashed, num_buckets):
+    """K11's bucket ids, permutation (each bucket in row order) and
+    counts equal the twin's, with NULL keys and dead rows; then its
+    gather equals the plain gather."""
+    from presto_tpu_torch.kernels import spill_partition as k11
+
+    dev = _cuda()
+    page = _page((1 << 20) + 77, 171, dev)
+    b = page.blocks
+    if hashed:
+        keys = [(b[2].data, b[2].valid, 0, 0), (b[4].data, b[4].valid, 0, 0)]
+    else:
+        keys = [(b[4].data, b[4].valid, 8000, 3002)]  # dates in [8000, 11000)
+    got = k11.spill_partition(keys, page.row_mask, num_buckets)
+    want = k11.spill_partition_plain(keys, page.row_mask, num_buckets)
+    torch.cuda.synchronize()
+    total = int(want[2].sum())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[1][:total], want[1][:total])
+    cols = [(x.data, x.valid) for x in b]
+    assert torch.equal(k11.gather_columns(cols, got[1], total),
+                       k11.gather_columns_plain(cols, want[1], total))
+
+
+def test_null_flags_kernel_matches_plain():
+    dev = _cuda()
+    page = _page((1 << 20) + 5, 172, dev)
+    valids = [page.blocks[2].valid, page.blocks[3].valid]
+    all_ok = torch.ones_like(valids[0])
+    dead = torch.zeros_like(page.row_mask)
+    for vs, mask in ((valids, page.row_mask), ([all_ok], page.row_mask), (valids, dead)):
+        got = k4.null_flags(vs, mask)
+        want = k4.null_flags_plain(vs, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_spilled_queries_on_the_card_equal_the_cpu_run():
+    """The reference's spill queries (tests/test_spill.py) at sf 0.004
+    on the card under a pool at 0.6x their spill site, equal to the
+    unconstrained CPU run, with K11 launched."""
+    _cuda()
+    from presto_tpu_torch.exec.local import LocalRunner
+    from presto_tpu_torch.kernels import spill_partition as k11
+    from presto_tpu_torch.memory import MemoryPool
+    from presto_tpu_torch.sql.binder import Binder
+    from presto_tpu_torch.testing import tpch_catalog
+
+    class PeekPool(MemoryPool):
+        def __init__(self, limit):
+            super().__init__(limit)
+            self.peek = {}
+
+        def reserve(self, tag, nbytes, enforce=True):
+            self.peek[tag] = nbytes
+            super().reserve(tag, nbytes, enforce=enforce)
+
+    catalog = tpch_catalog(sf=0.004, split_rows=1 << 12)
+    for sql, site in ((SPILL_SQL["AGG_SQL"], "agg_accumulator@"),
+                      (SPILL_SQL["JOIN_SQL"], "join_build@"),
+                      (SPILL_SQL["FULL_SQL"], "join_build@")):
+        want = LocalRunner(catalog, device="cpu").run(Binder(catalog).plan(sql)).rows
+        peek = PeekPool(1 << 40)
+        LocalRunner(catalog, device="cuda", memory_pool=peek).run(Binder(catalog).plan(sql))
+        limit = int(0.6 * max(n for t, n in peek.peek.items() if site in t))
+        k11.launches = 0
+        runner = LocalRunner(catalog, device="cuda", memory_pool=MemoryPool(limit))
+        got = runner.run(Binder(catalog).plan(sql)).rows
+        assert sorted(got, key=repr) == sorted(want, key=repr)
+        assert k11.launches > 0 and runner.last_spill.bytes > 0
+
+
+def _spill_sql():
+    """AGG_SQL, JOIN_SQL and FULL_SQL of tests/test_spill.py, read
+    without importing it (it imports the reference package)."""
+    import ast
+    import pathlib
+
+    tree = ast.parse((pathlib.Path(__file__).parent / "test_spill.py").read_text())
+    return {t.id: ast.literal_eval(node.value) for node in tree.body
+            if isinstance(node, ast.Assign) for t in node.targets
+            if isinstance(t, ast.Name) and t.id.endswith("_SQL")}
+
+
+SPILL_SQL = _spill_sql()

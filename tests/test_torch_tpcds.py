@@ -14,6 +14,10 @@ predicate reads nine dictionary tables; and the other queries that
 double lanes and the double ``avg`` unblock.  What the port still
 lacks is held to raise :class:`NotPorted` by name.  The 42 queries
 the port ran before this slice are in ``test_torch_tpcds_corpus.py``.
+
+On the card (``chip_smoke.py``): the slice's twelve and q13 since the
+fifth slice (``DS_QUERIES``); the rest of ``ALSO`` (q21, q26, q31, q35,
+q58, q73, q83, q85) since the seventh (``DS3_QUERIES``).
 """
 
 import pytest

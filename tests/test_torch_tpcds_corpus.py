@@ -1,7 +1,11 @@
 """The TPC-DS queries the port answered before its window functions and
 double lanes, end to end on the CPU, equal to the JAX reference row for
 row over the same generated data (``test_torch_tpcds.py`` holds the
-fifth slice's queries and the ones still outside the port)."""
+fifth slice's queries and the ones still outside the port).
+
+On the card: q3 since the fifth slice; every other query here since the
+seventh (``chip_smoke.py`` ``DS3_QUERIES``: at SF10, q72 at a cut
+scale, rows checked against the CPU at SF 1)."""
 
 import pytest
 
