@@ -43,13 +43,21 @@ Phases (any failure exits non-zero before the result line):
    a whole lineitem split (packed l_orderkey) and a whole store_sales
    split (hashed customer and item keys) at 8 and 64 buckets, its
    column gather, the copies of the gathered buffer to pinned host
-   memory and back, and K4's null_flags;
+   memory and back, and K4's null_flags; and the eighth slice's over
+   whole lineitem splits: each new K1 opcode family (exact, or within 2
+   ulp for ln and power, the gap printed as ``max_ulp``), K2's and K6's
+   double, boolean and varchar-rank min/max, bool counts, bitwise folds
+   and HLL sums, and K3's fold and finalize of them;
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
    unconstrained and then under a pool at 0.6x its largest reservation
    at a spill site: K11 must launch, bytes must spill, and the rows
-   must equal the unconstrained run's); then (TPC-H's tables freed)
+   must equal the unconstrained run's); the functions phase over the
+   same tables (``FN_QUERIES``: approx_distinct, min/max over doubles,
+   varchar and booleans with the bool and bitwise aggregates, count_if,
+   the math family, date parts and casts, bitwise scalars, LIMIT 10,
+   TABLESAMPLE BERNOULLI and SYSTEM); then (TPC-H's tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -64,7 +72,8 @@ Phases (any failure exits non-zero before the result line):
    SF 1 (the card runs the 22 queries again over the SF 1 tables; Q22,
    which finds no row there, also without its anti join), the other
    TPC-DS queries at SF 1 (run again there on the card), q72 at sf
-   0.01;
+   0.01; the functions phase at SF 1, exact but for the doubles a
+   transcendental produced (``FN_APPROX``: a relative 1e-12);
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -175,6 +184,49 @@ DS3_EMPTY_AT_CHECK = ("ds_q85",)
 # at sf 0.2 and above and peaked at 53.33 GiB at sf 0.1; its CPU run
 # takes ~190 s at sf 0.1 and ~20 s at 0.01
 DS3_SCALE = {"ds_q72": (0.1, 0.01)}
+# the eighth slice, the function surface at SF10 over the resident TPC-H
+# tables (run before they leave the card; rows checked at
+# TPCH_CHECK_SF): approx_distinct, min/max over doubles, varchar and
+# booleans with the bool and bitwise aggregates, count_if beside
+# unfiltered aggregates, the math family, date parts and casts,
+# bitwise scalars, and the LIMIT and TABLESAMPLE scans
+FN_QUERIES = {
+    "fn_approx_distinct": "select approx_distinct(l_partkey) from lineitem",
+    "fn_approx_distinct_grouped": "select l_returnflag, l_linestatus, approx_distinct("
+                                  "l_orderkey) from lineitem group by l_returnflag, l_linestatus",
+    "fn_minmax": "select l_shipmode, min(l_extendedprice / l_quantity), max(l_extendedprice / "
+                 "l_quantity), min(l_shipinstruct), max(l_shipinstruct), min(l_returnflag = 'R'), "
+                 "max(l_linestatus = 'F'), bool_and(l_quantity > 1), bool_or(l_quantity > 49), "
+                 "bitwise_and_agg(l_orderkey), bitwise_or_agg(l_partkey) from lineitem "
+                 "group by l_shipmode",
+    "fn_minmax_by_supplier": "select l_suppkey, min(l_extendedprice / l_quantity), "
+                             "max(l_extendedprice / l_quantity), bool_and(l_quantity > 1), "
+                             "bitwise_or_agg(l_partkey) from lineitem group by l_suppkey",
+    "fn_count_if": "select count_if(l_quantity > 25), count(*), sum(l_quantity) from lineitem",
+    "fn_count_if_grouped": "select l_returnflag, count_if(l_quantity > 25), count(*), "
+                           "sum(l_quantity) from lineitem group by l_returnflag",
+    "fn_math": "select sum(sqrt(l_extendedprice)), sum(ln(l_extendedprice)), "
+               "sum(power(l_quantity, 2)), sum(greatest(l_discount, l_tax)), "
+               "sum(sign(l_quantity - 25)), count(nullif(l_linenumber, 1)), "
+               "sum(width_bucket(l_extendedprice, 0, 100000, 20)), sum(mod(l_orderkey, 7)) "
+               "from lineitem",
+    "fn_dates": "select day_of_week(l_shipdate), count(*), max(last_day_of_month(l_shipdate)), "
+                "sum(day_of_year(l_shipdate)), min(week(l_receiptdate)), "
+                "sum(cast(l_extendedprice as bigint)) from lineitem "
+                "group by day_of_week(l_shipdate)",
+    "fn_bits": "select l_linestatus, sum(bit_count(l_orderkey, 64)), "
+               "sum(bitwise_shift_left(l_partkey, 3, 64)), sum(bitwise_xor(l_orderkey, "
+               "l_partkey)), bitwise_or_agg(bitwise_shift_right(l_orderkey, 2, 64)) "
+               "from lineitem group by l_linestatus",
+    "fn_limit": "select l_orderkey, l_partkey, l_quantity from lineitem limit 10",
+    "fn_bernoulli": "select count(*), sum(l_quantity) from lineitem tablesample bernoulli (10)",
+    "fn_system": "select count(*), sum(l_extendedprice) from lineitem tablesample system (50)",
+}
+# the columns of a query's rows that a transcendental produced (ln,
+# power): the card's libdevice and the CPU's torch kernels may round
+# them apart, so they agree within a relative 1e-12; every other value
+# is exact
+FN_APPROX = {"fn_math": (1, 2)}
 
 
 def _spill_sql() -> dict:
@@ -322,6 +374,32 @@ DS2_REQUIRED = {
     "ds_q40": _BASE + ("topn", "expr_eval:coalesce"),
     "ds_q78": _BASE + ("topn", "expr_eval:coalesce", "expr_eval:round"),
 }
+# the eighth slice's kernels by path; "<kernel>:<kind>" counts the
+# launches holding a new opcode family (K1) or state kind (K2, K3, K6),
+# "expr_eval:collation" K1's varchar collation-rank tables; a LIMIT scan
+# launches no kernel
+FN_REQUIRED = {
+    "fn_approx_distinct": ("expr_eval:hll", "sorted_group_agg", "packed_group_agg:hll",
+                           "packed_fold_finalize:hll"),
+    "fn_approx_distinct_grouped": ("expr_eval:hll", "sorted_group_agg:hll",
+                                   "packed_fold_finalize:hll"),
+    "fn_minmax": ("expr_eval:collation", "packed_group_agg:min_double", "packed_group_agg:bool",
+                  "packed_group_agg:min_bool", "packed_group_agg:bitwise",
+                  "packed_fold_finalize:min_double", "packed_fold_finalize:bool",
+                  "packed_fold_finalize:bitwise"),
+    "fn_count_if": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
+    "fn_count_if_grouped": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
+    "fn_minmax_by_supplier": ("sorted_group_agg:min_double", "sorted_group_agg:bitwise",
+                              "packed_fold_finalize:bool"),
+    "fn_math": ("expr_eval:dun", "expr_eval:dbin", "expr_eval:gl", "expr_eval:nullif",
+                "expr_eval:wbucket", "expr_eval:imod", "packed_group_agg:double_sum",
+                "packed_fold_finalize"),
+    "fn_dates": ("expr_eval:year", "expr_eval:castbi", "hash_keys", "sorted_group_agg"),
+    "fn_bits": ("expr_eval:bitw", "packed_group_agg:bitwise", "packed_fold_finalize:bitwise"),
+    "fn_limit": (),
+    "fn_bernoulli": ("packed_group_agg", "packed_fold_finalize"),
+    "fn_system": ("packed_group_agg", "packed_fold_finalize"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -337,6 +415,24 @@ REPLACES = {
     "spill_partition": "presto_tpu/exec/spill.py:65",
     "spill_partition@gather": "presto_tpu/exec/spill.py:90",
     "join_build@null_flags": "presto_tpu/ops/join.py:237",
+    "expr_eval@dun_sqrt": "presto_tpu/expr/compile.py:2356",
+    "expr_eval@dun_ln": "presto_tpu/expr/compile.py:2356",
+    "expr_eval@dbin_power": "presto_tpu/expr/compile.py:2356",
+    "expr_eval@bitw": "presto_tpu/expr/compile.py:2480",
+    "expr_eval@gl": "presto_tpu/expr/compile.py:2528",
+    "expr_eval@nullif": "presto_tpu/expr/compile.py:1249",
+    "expr_eval@castbi": "presto_tpu/expr/compile.py:1090",
+    "expr_eval@hll": "presto_tpu/expr/compile.py:1583",
+    "expr_eval@datepart": "presto_tpu/expr/compile.py:3102",
+    "expr_eval@wbucket": "presto_tpu/expr/compile.py:2395",
+    "expr_eval@imod": "presto_tpu/expr/compile.py:886",
+    "packed_group_agg@min_double": "presto_tpu/ops/aggregate.py:454",
+    "packed_group_agg@bool_bitwise": "presto_tpu/ops/aggregate.py:361",
+    "packed_group_agg@hll": "presto_tpu/ops/aggregate.py:569",
+    "sorted_group_agg@min_double": "presto_tpu/ops/aggregate.py:454",
+    "sorted_group_agg@hll": "presto_tpu/ops/aggregate.py:1171",
+    "packed_fold_finalize@functions": "presto_tpu/ops/aggregate.py:870",
+    "packed_fold_finalize@functions_finalize": "presto_tpu/ops/aggregate.py:1562",
 }
 
 
@@ -1789,6 +1885,224 @@ def run_spill_phase(mem, launches, spill_wall) -> None:
         gc.collect()
 
 
+def ulp_gap(got, want) -> int:
+    """The largest distance in units in the last place between two
+    double tensors (NaN against NaN: 0)."""
+    from presto_tpu_torch.kernels.expr_eval import double_key
+
+    if got.numel() == 0:
+        return 0
+    gap = (double_key(got) - double_key(want)).abs()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return int(torch.where(both_nan, torch.zeros_like(gap), gap).max())
+
+
+def check_function_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the eighth slice, over whole 2^23-row lineitem splits:
+    each new K1 opcode family against its twin (exact, or within 2 ulp
+    for a transcendental, the gap printed), K2's new states (double,
+    boolean and varchar-rank min/max, bool counts, bitwise folds by
+    l_shipmode; HLL's sum in the global slot), K6's (double min/max and
+    bitwise folds by l_partkey, HLL's sum by bucket) and K3's fold and
+    finalize of them (the HLL estimate), doubles by their bits."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.expr.ir import Call, ColumnRef, Literal
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+    from presto_tpu_torch.kernels import packed_group_agg as k2
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.ops.aggregate import rank_luts
+    from presto_tpu_torch.page import Block, Page
+    from presto_tpu_torch.types import BIGINT, BOOLEAN, DOUBLE, parse_type
+
+    names = [c for c, _ in mem.schema("lineitem")]
+    types = dict(mem.schema("lineitem"))
+
+    def col(c):
+        return ColumnRef(type=types[c], index=names.index(c))
+
+    def call(fn, t, *args):
+        return Call(type=parse_type(t) if isinstance(t, str) else t, fn=fn, args=tuple(args))
+
+    def lit(v, t):
+        return Literal(type=parse_type(t) if isinstance(t, str) else t, value=v)
+
+    def lane(page, expr):
+        return ExprCompiler.for_page(page).compile(expr)(page)
+
+    def with_doubles(page):
+        """The split with two double columns (K1's casts of the price
+        and of price / quantity) after its own."""
+        xd = lane(page, call("cast_double", DOUBLE, col("l_extendedprice")))
+        yd = lane(page, call("div", DOUBLE, col("l_extendedprice"), col("l_quantity")))
+        return Page(page.blocks + (Block(xd[0], xd[1], DOUBLE), Block(yd[0], yd[1], DOUBLE)),
+                    page.row_mask)
+
+    pages = [with_doubles(mem.page_for_split("lineitem", i)) for i in (0, 1)]
+    page = pages[0]
+    n = page.capacity
+    xd = ColumnRef(type=DOUBLE, index=len(names))
+    yd = ColumnRef(type=DOUBLE, index=len(names) + 1)
+    xt, yt = page.blocks[len(names)].data, page.blocks[len(names) + 1].data
+    okey, pkey = page.blocks[names.index("l_orderkey")].data, \
+        page.blocks[names.index("l_partkey")].data
+    # name: (expression, transcendental, library call, counter)
+    rows = {
+        "dun_sqrt": (call("sqrt", DOUBLE, xd), False, lambda: torch.sqrt(xt), "dun"),
+        "dun_ln": (call("ln", DOUBLE, xd), True, lambda: torch.log(xt), "dun"),
+        "dbin_power": (call("power", DOUBLE, yd, lit(1.5, "double")), True,
+                       lambda: torch.pow(yt, 1.5), "dbin"),
+        "bitw": (call("bitwise_xor", BIGINT, col("l_orderkey"), col("l_partkey")), False,
+                 lambda: torch.bitwise_xor(okey, pkey), "bitw"),
+        "gl": (call("greatest", DOUBLE, xd, yd), False, lambda: torch.maximum(xt, yt), "gl"),
+        "nullif": (call("nullif", types["l_linenumber"], col("l_linenumber"),
+                        lit(1, "integer")), False, None, "nullif"),
+        "castbi": (call("cast_bigint", BIGINT, col("l_extendedprice")), False, None, "castbi"),
+        "hll": (call("hll_rho", BIGINT, col("l_partkey")), False, None, "hll"),
+        "datepart": (call("last_day_of_month", "date", col("l_shipdate")), False, None, "year"),
+        "wbucket": (call("width_bucket", BIGINT, yd, lit(0.0, "double"),
+                         lit(100000.0, "double"), lit(20, "bigint")), False, None, "wbucket"),
+        "imod": (call("mod", BIGINT, col("l_orderkey"), lit(7, "bigint")), False,
+                 lambda: torch.fmod(okey, 7), "imod"),
+    }
+    for label, (expr, transcendental, library, counter) in rows.items():
+        name = f"expr_eval@{label}"
+        prog, cols = ExprCompiler.for_page(page).lower(expr)
+        ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
+        got, want = k1.expr_eval(prog, ins, n), k1.expr_eval_plain(prog, ins, n)
+        gap = 0
+        if transcendental:
+            same(got[1], want[1], f"{name} valid")
+            gap = ulp_gap(got[0][want[1]], want[0][want[1]])
+            if gap > 2:
+                raise AssertionError(f"{name}: kernel and plain version {gap} ulp apart")
+        else:
+            same_bits(got, want, name)
+        ms = cuda_ms(lambda: k1.expr_eval(prog, ins, n), 20)
+        plain = cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n), 3)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/expr_eval.cu", gap, ms, plain,
+                   nbytes(*[t for c in ins for t in c]) + nbytes(*got),
+                   cuda_ms(library, 20) if library is not None else None,
+                   f"expr_eval:{counter}")
+        report.rows[name]["max_ulp"] = gap
+        log(f"{name}: {len(prog.ops)} instructions, {gap} ulp")
+
+    # the K2/K6 inputs: the doubles, a boolean lane, the varchar ranks of
+    # l_shipinstruct (K1's collation table), HLL's rho of l_partkey
+    def inputs(pg):
+        b = pg.blocks
+        ship = b[names.index("l_shipinstruct")]
+        rank = ExprCompiler.run_program(k1.Program(
+            (k1.LOAD, k1.CANON), (0, 0), (), 1, k1.KIND_I32,
+            (rank_luts(ship.dictionary)[0],)), [names.index("l_shipinstruct")])(pg)
+        flag = lane(pg, call("gt", BOOLEAN, col("l_quantity"), lit(2500, "decimal(12,2)")))
+        rho = lane(pg, call("hll_rho", BIGINT, col("l_partkey")))
+        ok, pk_ = b[names.index("l_orderkey")], b[names.index("l_partkey")]
+        x = b[len(names)]
+        return x, flag, rank, rho, ok, pk_
+
+    mode_col = page.blocks[names.index("l_shipmode")]
+    mode_keys = [(mode_col.data, mode_col.valid, 0, len(mode_col.dictionary.values) + 1)]
+    x, flag, rank, rho, ok, pk_ = inputs(page)
+    k2_rows = {
+        "min_double": (mode_keys, [(k2.MIN_DOUBLE, x.data, x.valid),
+                                   (k2.MAX_DOUBLE, x.data, x.valid)], mode_keys[0][3],
+                       "packed_group_agg:min_double"),
+        "bool_bitwise": (mode_keys, [(k2.BOOL_COUNT, flag[0], flag[1]),
+                                     (k2.BIT_AND, ok.data, ok.valid),
+                                     (k2.BIT_OR, pk_.data, pk_.valid),
+                                     (k2.MIN_SHORT, flag[0], flag[1]),
+                                     (k2.MAX_SHORT, rank[0], rank[1])], mode_keys[0][3],
+                         "packed_group_agg:bitwise"),
+        "hll": ([], [(k2.HLL_SUM, rho[0], rho[1])], 1, "packed_group_agg:hll"),
+    }
+    gid = torch.where(page.row_mask & x.valid, mode_col.data.to(torch.int64),
+                      mode_keys[0][3])
+    for label, (keys, args, g, counter) in k2_rows.items():
+        name = f"packed_group_agg@{label}"
+        got = k2.packed_group_agg(n, page.row_mask, keys, args, g)
+        err = same_bits(got, k2.packed_group_agg_plain(n, page.row_mask, keys, args, g), name)
+        ms = cuda_ms(lambda: k2.packed_group_agg(n, page.row_mask, keys, args, g), 10)
+        plain = cuda_ms(lambda: k2.packed_group_agg_plain(n, page.row_mask, keys, args, g), 2)
+        library = None
+        if label == "min_double":  # the least double per group, by a precomputed gid
+            table = torch.full((g + 1,), float("inf"), dtype=torch.float64, device=page.device)
+            library = cuda_ms(lambda: table.scatter_reduce_(0, gid, x.data, "amin"), 10)
+        in_bytes = nbytes(page.row_mask, *[t for k in keys for t in k[:2]],
+                          *[t for a in args for t in a[1:]])
+        report.add(name, "cuda", "presto_tpu_torch/csrc/packed_group_agg.cu", err, ms, plain,
+                   in_bytes + nbytes(*[t for st in got[0] for t in st], got[1]), library,
+                   counter)
+
+    # K6: by l_partkey (its exact domain), and HLL's sum by the buckets
+    # of approx_distinct's inner level over l_orderkey
+    dom = mem.column_domain("lineitem", "l_partkey")
+    part_keys = [(pk_.data, pk_.valid, dom[0], dom[1] - dom[0] + 2)]
+    states = [(k6.S_MIN_F64, x.data, x.valid), (k6.S_MAX_F64, x.data, x.valid),
+              (k6.S_BAND, ok.data, ok.valid), (k6.S_BOR, ok.data, ok.valid),
+              (k6.S_MIN, flag[0], flag[1]), (k6.S_SUM, flag[0], flag[1]),
+              (k6.S_VALID, None, x.valid)]
+
+    def double_min_library():
+        n_ok = page.row_mask & x.valid
+        _, g6 = torch.unique(pk_.data[n_ok], return_inverse=True)
+        vals = x.data[n_ok]
+        table = torch.full((int(g6.max()) + 1,), float("inf"), dtype=torch.float64,
+                           device=page.device)
+        return cuda_ms(lambda: table.scatter_reduce_(0, g6, vals, "amin"), 10)
+
+    groups = k6_bits_row(report, "sorted_group_agg@min_double", part_keys, page.row_mask,
+                         states, "sorted_group_agg:min_double", double_min_library())
+    log(f"K6 double and boolean min/max, bool counts, bitwise folds: {groups} groups of "
+        f"{n} rows")
+    bucket = lane(page, call("hll_bucket", BIGINT, col("l_orderkey")))
+    hll_keys = [(bucket[0], bucket[1], 0, 0)]
+    groups = k6_bits_row(report, "sorted_group_agg@hll", hll_keys, page.row_mask,
+                         [(k6.S_HLL, rho[0], rho[1]), (k6.S_VALID, None, rho[1])],
+                         "sorted_group_agg:hll")
+    log(f"K6 HLL sum: {groups} buckets")
+
+    # K3: the two splits' global tables of the new states, folded and
+    # finalized
+    tables = []
+    for pg in pages:
+        x2, flag2, _, rho2, ok2, _ = inputs(pg)
+        args = [(k2.MIN_DOUBLE, x2.data, x2.valid), (k2.MAX_DOUBLE, x2.data, x2.valid),
+                (k2.BOOL_COUNT, flag2[0], flag2[1]), (k2.MIN_SHORT, flag2[0], flag2[1]),
+                (k2.BIT_AND, ok2.data, ok2.valid), (k2.HLL_SUM, rho2[0], rho2[1])]
+        tables.append(k2.packed_group_agg(pg.capacity, pg.row_mask, [], args, 1))
+    kinds = [k3.COL_MIN_F64, k3.COL_I64, k3.COL_MAX_F64, k3.COL_I64, k3.COL_I64, k3.COL_I64,
+             k3.COL_MIN_BOOL, k3.COL_I64, k3.COL_BAND, k3.COL_I64, k3.COL_F64, k3.COL_I64]
+
+    def cols_of(states, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for s in states for t in s])]
+
+    ca, cb = cols_of(*tables[0]), cols_of(*tables[1])
+    fold = fold_row(report, "packed_fold_finalize@functions", ca, cb, tables[0][1],
+                    tables[1][1], "packed_fold_finalize:min_double")
+    f = [d for d, _ in fold[0]]
+    finalize_row(report, "packed_fold_finalize@functions_finalize",
+                 [(k3.FIN_SUM_F64, f[0], f[1]), (k3.FIN_BOOL_AND, f[4], f[5]),
+                  (k3.FIN_BOOL_OR, f[4], f[5]), (k3.FIN_VALUE_BOOL, f[6], f[7]),
+                  (k3.FIN_SUM, f[8], f[9]), (k3.FIN_HLL, f[10], f[11])], fold[1],
+                 "packed_fold_finalize:hll")
+
+
+def check_fn_rows(label, got, ref) -> None:
+    """The function queries' rows: exact, but the FN_APPROX columns
+    (a transcendental's doubles) within a relative 1e-12."""
+    import math
+
+    approx = FN_APPROX.get(label, ())
+    if len(got.rows) != len(ref.rows) or not ref.rows:
+        raise AssertionError(f"{label}: {len(got.rows)} card rows, {len(ref.rows)} CPU rows")
+    for g, r in zip(got.rows, ref.rows):
+        for j, (a, b) in enumerate(zip(g, r)):
+            ok = math.isclose(a, b, rel_tol=1e-12, abs_tol=0) if j in approx else a == b
+            if not ok:
+                raise AssertionError(f"{label}: card row {g} != CPU row {r}")
+
+
 def plan_required(plan) -> tuple:
     """The kernels a TPC-DS plan's shape must launch: K4 for a join,
     K2 or K6 for a grouping, K10 for a window, K7 for a top-N."""
@@ -1870,12 +2184,18 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("join_build", "null_flags_launches", "join_build:null_flags"))
 
 
+# kernels that count their launches by kind in a dict, by its attribute
+KIND_DICTS = (("join_probe", "kind_launches"), ("expr_eval", "op_launches"),
+              ("packed_group_agg", "kind_launches"), ("sorted_group_agg", "kind_launches"),
+              ("packed_fold_finalize", "kind_launches"))
+
+
 def reset_counts() -> None:
     mods = counters()
     for mod in mods.values():
         mod.launches = 0
-    mods["join_probe"].kind_launches.clear()
-    mods["expr_eval"].op_launches.clear()
+    for kernel, attr in KIND_DICTS:
+        getattr(mods[kernel], attr).clear()
     for kernel, attr, _ in SUB_COUNTS:
         setattr(mods[kernel], attr, 0)
 
@@ -1883,10 +2203,9 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     mods = counters()
     out = {k: mod.launches for k, mod in mods.items()}
-    for kind, n in mods["join_probe"].kind_launches.items():
-        out[f"join_probe:{kind}"] = n
-    for op, n in mods["expr_eval"].op_launches.items():
-        out[f"expr_eval:{op}"] = n
+    for kernel, attr in KIND_DICTS:
+        for kind, n in getattr(mods[kernel], attr).items():
+            out[f"{kernel}:{kind}"] = n
     for kernel, attr, name in SUB_COUNTS:
         out[name] = getattr(mods[kernel], attr)
     return out
@@ -2066,6 +2385,7 @@ def main() -> int:
     check_window_kernels(report, ds_runners, mem_ds)
     check_sixth_slice_kernels(report, ds2_runners, mem_ds)
     check_spill_kernels(report, mem, mem_ds)
+    check_function_kernels(report, mem)
     torch.cuda.synchronize()
     log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2090,6 +2410,12 @@ def main() -> int:
                                                                TableScanNode)}
 
     drive(runners, QUERIES, REQUIRED)
+    # the functions phase over the same SF10 tables
+    fn_runners = {label: QueryRunner(query_catalog(mem, sql), device="cuda")
+                  for label, sql in FN_QUERIES.items()}
+    drive(fn_runners, FN_QUERIES, FN_REQUIRED, reps=2, trace=False)
+    del fn_runners
+    log(f"functions phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -2155,6 +2481,13 @@ def main() -> int:
         check_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref, may_be_empty)
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
+    for label, sql in FN_QUERIES.items():
+        t1 = time.perf_counter()
+        got = QueryRunner(query_catalog(mem_check, sql), device="cuda").execute(sql)
+        ref = QueryRunner(query_catalog(host_check, sql), device="cpu").execute(sql)
+        check_fn_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref)
+        log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s)")
     # the host's tables leave as their checks end: the CPU runs of the
     # TPC-DS checks need the room (q47's at SF10 most)
     del host, host_check, mem_check, cat_check
@@ -2195,9 +2528,11 @@ def main() -> int:
         log(f"{label}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
-    for label in list(QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
+    for label in list(QUERIES) + list(FN_QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) \
+            + list(DS3_QUERIES):
         med = statistics.median(wall[label])
-        fact, rows = ("lineitem", lineitem_rows) if label in QUERIES else (
+        fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
+            else (
             "store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows

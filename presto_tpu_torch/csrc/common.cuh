@@ -28,19 +28,60 @@ __device__ __forceinline__ i64 fmod_(i64 a, i64 b) { return a - fdiv(a, b) * b; 
 #define B18 1000000000000000000LL
 #define B9 1000000000LL
 
-// How a raw accumulator slot combines values: summed (from 0), or the
+// How a raw accumulator slot combines values: summed (from 0), the
 // least or greatest value (from the int64 extreme that no value
-// passes), by 64-bit atomics in shared or device memory.
-enum { SLOT_ADD = 0, SLOT_MIN = 1, SLOT_MAX = 2 };
+// passes), or the bitwise and / or (from all ones / zero), by 64-bit
+// atomics in shared or device memory.
+enum { SLOT_ADD = 0, SLOT_MIN = 1, SLOT_MAX = 2, SLOT_AND = 3, SLOT_OR = 4 };
 
 __device__ __forceinline__ i64 slot_identity(int kind) {
-  return kind == SLOT_MIN ? I64_MAX : kind == SLOT_MAX ? I64_MIN : 0;
+  return kind == SLOT_MIN ? I64_MAX : kind == SLOT_MAX ? I64_MIN : kind == SLOT_AND ? -1 : 0;
 }
 
 __device__ __forceinline__ void slot_combine(u64* p, i64 v, int kind) {
   if (kind == SLOT_MIN) atomicMin((long long*)p, (long long)v);
   else if (kind == SLOT_MAX) atomicMax((long long*)p, (long long)v);
+  else if (kind == SLOT_AND) atomicAnd((unsigned long long*)p, (unsigned long long)v);
+  else if (kind == SLOT_OR) atomicOr((unsigned long long*)p, (unsigned long long)v);
   else if (v != 0) atomicAdd(p, (u64)v);  // adding zero changes nothing
+}
+
+// The same combine, local to a thread.
+__device__ __forceinline__ i64 slot_fold(i64 acc, i64 v, int kind) {
+  switch (kind) {
+    case SLOT_MIN: return v < acc ? v : acc;
+    case SLOT_MAX: return v > acc ? v : acc;
+    case SLOT_AND: return acc & v;
+    case SLOT_OR: return acc | v;
+    default: return wadd(acc, v);
+  }
+}
+
+// Double min/max as int64 min/max: an order key that ranks the
+// doubles as the reference's segment_min/segment_max do (-0.0 below
+// 0.0), NaN moved past every number on the side where it wins (both
+// propagate NaN), and back.  The key is its own inverse.
+#define CANONICAL_NAN 0x7ff8000000000000LL
+__device__ __forceinline__ i64 double_order_key(i64 bits) {
+  return bits ^ ((bits >> 63) & I64_MAX);
+}
+__device__ __forceinline__ i64 minmax_key(i64 bits, bool is_min) {
+  const double x = __longlong_as_double(bits);
+  if (isnan(x)) return double_order_key(is_min ? (CANONICAL_NAN | I64_MIN) : CANONICAL_NAN);
+  return double_order_key(bits);
+}
+// a key back to a double's bits: an empty state (the slot identity)
+// gives +inf (min) or -inf (max), as an empty segment does
+__device__ __forceinline__ i64 minmax_value(i64 key, bool is_min) {
+  if (key == (is_min ? I64_MAX : I64_MIN))
+    return is_min ? 0x7ff0000000000000LL : (i64)0xfff0000000000000ULL;
+  const i64 bits = double_order_key(key);
+  return isnan(__longlong_as_double(bits)) ? CANONICAL_NAN : bits;
+}
+
+// HLL's per-row weight 2^-rho (rho in 1..64), exact: the double's bits
+__device__ __forceinline__ double hll_weight(i64 rho) {
+  return __longlong_as_double((1023 - rho) << 52);
 }
 
 // An int64 extreme stored into an int32 state: the int32 identity.

@@ -65,6 +65,25 @@
 // rule, never round()'s), D2L the same split into limbs through
 // floor(scaled / 10^18), and LADD adds or subtracts two long decimals
 // (decimal128.add/sub).
+//
+// The function surface (the rest of _compile_math :2356 with
+// width_bucket :2395, _compile_bitwise :2480, greatest/least :2528,
+// nullif :1249, cast_bigint :1090, _compile_hll :1583 with
+// _hll_from_hash :758 and _mix_u64 :776, the double mod of
+// _compile_arith :3013 and _trunc_mod/_trunc_div :886, and the date
+// parts of _compile_datepart :3102): a handful of family opcodes whose
+// argument picks the function, so the switch grows by nine cases, not
+// by thirty.  DUN computes a function of one double (libdevice's for
+// the transcendental ones; sqrt, degrees and radians by _rn
+// intrinsics, so they stay exact), DBIN power, atan2 or jnp.mod's
+// floored fmod; BITW works on the low `bits` bits as an unsigned
+// field and shifts by the count & 63 (C++ leaves a shift of 64 or more
+// undefined); GL keeps NaN and orders -0.0 below 0.0 through an int64
+// order key, as jnp.maximum does; CASTBI converts as XLA does (toward
+// zero, saturating, NaN to 0); HLL mixes the lane's 64 bits by
+// splitmix64 and takes the top P bits or __clzll of the rest plus one;
+// the date parts keep floor division (fdiv, fmod_) for days before
+// 1970.  An opcode past the table is refused at launch.
 
 #include "common.cuh"
 
@@ -82,8 +101,19 @@ enum {
   OP_LUT, OP_SEL, OP_LOAD_LONG, OP_MUL_LS, OP_L2D, OP_DDIV, OP_IN, OP_CANON,
   OP_DATEPART, OP_S2D, OP_S2L, OP_LSCALE, OP_LCMP, OP_NOTNULL, OP_LOAD_F64, OP_DLIT,
   OP_DADD, OP_DSUB, OP_DMUL, OP_DNEG, OP_DABS, OP_DCMP, OP_NEG, OP_ABS, OP_COAL,
-  OP_SFLOOR, OP_SROUND, OP_DFLOOR, OP_DROUND, OP_D2S, OP_D2L, OP_LADD
+  OP_SFLOOR, OP_SROUND, OP_DFLOOR, OP_DROUND, OP_D2S, OP_D2L, OP_LADD,
+  OP_DUN, OP_DBIN, OP_BITW, OP_GL, OP_NULLIF, OP_CASTBI, OP_HLL, OP_WBUCKET, OP_IMOD,
+  OP_COUNT
 };
+// DUN's functions (kernels/expr_eval.py DUN_FNS), DBIN's (DBIN_FNS),
+// BITW's operations (BITW_OPS), GL's lanes and CASTBI's sources
+enum { DUN_SQRT, DUN_CBRT, DUN_EXP, DUN_LN, DUN_LOG2, DUN_LOG10, DUN_SIN, DUN_COS, DUN_TAN,
+       DUN_ASIN, DUN_ACOS, DUN_ATAN, DUN_SINH, DUN_COSH, DUN_TANH, DUN_DEGREES, DUN_RADIANS,
+       DUN_TRUNCATE, DUN_SIGN, DUN_IS_NAN, DUN_IS_FINITE, DUN_IS_INFINITE };
+enum { DBIN_POWER, DBIN_ATAN2, DBIN_MOD };
+enum { BW_AND, BW_OR, BW_XOR, BW_SHL, BW_SHR, BW_COUNT };
+enum { GL_INT, GL_DOUBLE, GL_LONG };
+enum { CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
 
 struct K1Prog {
@@ -143,6 +173,55 @@ __device__ __forceinline__ void civil_from_days(i64 z, i64* y, i64* m, i64* d) {
   *d = doy - fdiv(153 * mp + 2, 5) + 1;
   *m = mp < 10 ? mp + 3 : mp - 9;
   *y = yoe + era * 400 + (*m <= 2 ? 1 : 0);
+}
+
+// _days_from_civil: (year, month, day) -> epoch days (floor division)
+__device__ __forceinline__ i64 days_from_civil(i64 y, i64 m, i64 d) {
+  y -= m <= 2 ? 1 : 0;
+  const i64 era = fdiv(y >= 0 ? y : y - 399, 400);
+  const i64 yoe = y - era * 400;
+  const i64 mp = m > 2 ? m - 3 : m + 9;
+  const i64 doy = fdiv(153 * mp + 2, 5) + d - 1;
+  const i64 doe = yoe * 365 + fdiv(yoe, 4) - fdiv(yoe, 100) + doy;
+  return era * 146097 + doe - 719468;
+}
+
+// DATEPART: year, month, day, quarter, ISO day_of_week, day_of_year,
+// ISO week and year_of_week (the Thursday's year), last_day_of_month
+__device__ __forceinline__ i64 date_part(i64 days, int part) {
+  i64 y, m, d;
+  civil_from_days(days, &y, &m, &d);
+  switch (part) {
+    case 0: return y;
+    case 1: return m;
+    case 2: return d;
+    case 3: return fdiv(m - 1, 3) + 1;
+    case 4: return fmod_(days + 3, 7) + 1;
+    case 5: return days - days_from_civil(y, 1, 1) + 1;
+    case 6:
+    case 7: {
+      const i64 th = days - fmod_(days + 3, 7) + 3;
+      i64 yt, mt, dt;
+      civil_from_days(th, &yt, &mt, &dt);
+      return part == 7 ? yt : fdiv(th - days_from_civil(yt, 1, 1), 7) + 1;
+    }
+    default: return days_from_civil(m == 12 ? y + 1 : y, m == 12 ? 1 : m + 1, 1) - 1;
+  }
+}
+
+// XLA's double -> int64: toward zero, saturating, NaN to 0
+__device__ __forceinline__ i64 double_to_i64(double x) {
+  if (isnan(x)) return 0;
+  if (x >= 9223372036854775808.0) return I64_MAX;
+  if (x < -9223372036854775808.0) return I64_MIN;
+  return __double2ll_rz(x);
+}
+
+// splitmix64's finalizer (the reference's _mix_u64)
+__device__ __forceinline__ u64 mix_u64(u64 x) {
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  return x ^ (x >> 31);
 }
 
 __device__ __forceinline__ double pow10d(int k) {
@@ -212,12 +291,9 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         else sd[sp - 1] = ((const int*)p.lut[arg])[c];
         break;
       }
-      case OP_DATEPART: {  // arg: 0 year, 1 month, 2 day, 3 quarter
-        i64 y, m, d;
-        civil_from_days(sd[sp - 1], &y, &m, &d);
-        sd[sp - 1] = arg == 0 ? y : arg == 1 ? m : arg == 2 ? d : fdiv(m - 1, 3) + 1;
+      case OP_DATEPART:  // arg: the part (date_part)
+        sd[sp - 1] = date_part(sd[sp - 1], arg);
         break;
-      }
       case OP_NEG:
       case OP_ABS: {  // arg 1: an int32 lane, whose least value has no negation
         const i64 x = sd[sp - 1];
@@ -261,6 +337,74 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
           const double hi = floor(__ddiv_rn(scaled, 1e18));
           const double lo = __dsub_rn(scaled, __dmul_rn(hi, 1e18));
           d128_normalize(__double2ll_rz(hi), __double2ll_rz(lo), &sd[sp - 1], &sl[sp - 1]);
+        }
+        break;
+      case OP_DUN:  // a function of one double (DUN_*); sign and the tests give ints
+        if constexpr (WIDE) {
+          const double x = bits2d(sd[sp - 1]);
+          double r = 0.0;
+          switch (arg) {
+            case DUN_SQRT: r = __dsqrt_rn(x); break;
+            case DUN_CBRT: r = cbrt(x); break;
+            case DUN_EXP: r = exp(x); break;
+            case DUN_LN: r = log(x); break;
+            case DUN_LOG2: r = log2(x); break;
+            case DUN_LOG10: r = log10(x); break;
+            case DUN_SIN: r = sin(x); break;
+            case DUN_COS: r = cos(x); break;
+            case DUN_TAN: r = tan(x); break;
+            case DUN_ASIN: r = asin(x); break;
+            case DUN_ACOS: r = acos(x); break;
+            case DUN_ATAN: r = atan(x); break;
+            case DUN_SINH: r = sinh(x); break;
+            case DUN_COSH: r = cosh(x); break;
+            case DUN_TANH: r = tanh(x); break;
+            case DUN_DEGREES: r = __dmul_rn(x, 180.0 / 3.141592653589793); break;
+            case DUN_RADIANS: r = __dmul_rn(x, 3.141592653589793 / 180.0); break;
+            case DUN_TRUNCATE: r = trunc(x); break;
+            default: break;
+          }
+          if (arg >= DUN_SIGN) {
+            sd[sp - 1] = arg == DUN_SIGN ? (x > 0.0) - (x < 0.0)
+                : arg == DUN_IS_NAN ? (i64)isnan(x)
+                : arg == DUN_IS_FINITE ? (i64)isfinite(x) : (i64)isinf(x);
+          } else {
+            sd[sp - 1] = d2bits(r);
+          }
+        }
+        break;
+      case OP_CASTBI: {  // arg: source (CAST_FROM_*) | decimal scale << 2
+        const int scale = arg >> 2;
+        i64 p10 = 1;
+        for (int j = 0; j < scale; ++j) p10 *= 10;
+        if ((arg & 3) == CAST_FROM_DOUBLE) {
+          if constexpr (WIDE) sd[sp - 1] = double_to_i64(bits2d(sd[sp - 1]));
+        } else if ((arg & 3) == CAST_FROM_LONG) {  // floor at the scale, narrowed (wraps)
+          if constexpr (WIDE) sd[sp - 1] = wadd(wmul(sd[sp - 1], B18 / p10), fdiv(sl[sp - 1], p10));
+        } else if (scale > 0) {  // HALF_UP: the floor plus the remainder's vote
+          const i64 x = sd[sp - 1], q = fdiv(x, p10), r = x - q * p10;
+          sd[sp - 1] = q + (x >= 0 ? 2 * r >= p10 : 2 * r > p10);
+        }
+        break;
+      }
+      case OP_HLL: {  // arg: 0 bucket, 1 rho | P << 1, over the lane's 64 bits
+        const int P = arg >> 1;
+        const u64 h = mix_u64((u64)sd[sp - 1]);
+        sd[sp - 1] = (arg & 1) ? (i64)__clzll((long long)((h << P) | (1ull << (P - 1)))) + 1
+                               : (i64)(h >> (64 - P));
+        break;
+      }
+      case OP_WBUCKET:  // x lo hi n -> the reference's width_bucket
+        if constexpr (WIDE) {
+          const double x = bits2d(sd[sp - 4]), lo = bits2d(sd[sp - 3]), hi = bits2d(sd[sp - 2]);
+          const i64 nb = sd[sp - 1];
+          const double frac = __ddiv_rn(__dsub_rn(x, lo), hi == lo ? 1.0 : __dsub_rn(hi, lo));
+          i64 b = wadd(double_to_i64(floor(__dmul_rn(frac, __ll2double_rn(nb)))), 1);
+          b = b < 0 ? 0 : b;
+          b = b > wadd(nb, 1) ? wadd(nb, 1) : b;
+          sv[sp - 4] = sv[sp - 4] && sv[sp - 3] && sv[sp - 2] && sv[sp - 1];
+          sd[sp - 4] = b;
+          sp -= 3;
         }
         break;
       case OP_NOTNULL:  // arg: 0 not_null, 1 is_null; never NULL itself
@@ -359,6 +503,10 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
           case OP_AND: case OP_OR:
             logic3(op == OP_AND, a, av, b, bv, &d, &v);
             break;
+          case OP_NULLIF:  // b: a = b; a, NULL where that is true
+            d = a;
+            v = av && !(b != 0 && bv);
+            break;
           case OP_COAL: {  // the first valid operand
             const bool take = !av && bv;
             d = take ? b : a;
@@ -420,6 +568,75 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
               d = 0;
             }
             break;
+          case OP_DBIN:  // arg: power, atan2, or jnp.mod's floored remainder
+            if constexpr (WIDE) {
+              const double x = bits2d(a), y = bits2d(b);
+              double r;
+              if (arg == DBIN_POWER) r = pow(x, y);
+              else if (arg == DBIN_ATAN2) r = atan2(x, y);
+              else {
+                const double ys = y == 0.0 ? 1.0 : y;
+                r = fmod(x, ys);
+                if (r != 0.0 && ((r < 0.0) != (ys < 0.0))) r = __dadd_rn(r, ys);
+                v = v && y != 0.0;
+              }
+              d = d2bits(r);
+            } else {
+              d = 0;
+            }
+            break;
+          case OP_BITW: {  // arg: op | bits << 4; shifts by b & 63 on the low bits
+            const int bits = arg >> 4;
+            const u64 mask = bits >= 64 ? ~0ull : (1ull << bits) - 1;
+            const u64 ua = (u64)a & mask;
+            const int sh = (int)(b & 63);
+            switch (arg & 15) {
+              case BW_AND: d = a & b; break;
+              case BW_OR: d = a | b; break;
+              case BW_XOR: d = a ^ b; break;
+              case BW_SHL: d = (i64)((ua << sh) & mask); break;
+              case BW_SHR: d = (i64)((ua >> sh) & mask); break;
+              default: d = __popcll((long long)ua); break;
+            }
+            break;
+          }
+          case OP_GL: {  // arg: 1 greatest / 0 least | lane << 1; NULL if either is
+            const bool gt = arg & 1;
+            const int lane = arg >> 1;
+            if (lane == GL_INT) {
+              d = gt ? (a > b ? a : b) : (a < b ? a : b);
+            } else if constexpr (WIDE) {
+              if (lane == GL_DOUBLE) {  // NaN wins; -0.0 below 0.0 (jnp.maximum's order)
+                const double x = bits2d(a), y = bits2d(b);
+                const i64 ka = double_order_key(a), kb = double_order_key(b);
+                d = isnan(x) || isnan(y) ? CANONICAL_NAN
+                    : (gt ? ka >= kb : ka <= kb) ? a : b;
+              } else {  // GL_LONG: limb by limb, high limb first
+                const i64 al = sl[sp - 1], bl = sl[sp];
+                const bool a_less = a < b || (a == b && al < bl);
+                const bool take_a = a_less != gt;
+                d = take_a ? a : b;
+                sl[sp - 1] = take_a ? al : bl;
+              }
+            } else {
+              d = 0;
+            }
+            break;
+          }
+          case OP_IMOD: {  // arg: 0 mod, 1 div; truncating, NULL on a zero divisor
+            const i64 bs = b == 0 ? 1 : b;
+            const i64 aa = a < 0 ? wneg(a) : a, ab = bs < 0 ? wneg(bs) : bs;
+            if (arg) {
+              const i64 q = fdiv(aa, ab);
+              d = (a < 0) != (bs < 0) ? wneg(q) : q;
+              v = v && b != 0 && !(a == I64_MIN && b == -1);
+            } else {
+              const i64 r = fmod_(aa, ab);
+              d = a < 0 ? wneg(r) : r;
+              v = v && b != 0;
+            }
+            break;
+          }
           case OP_EQ: d = a == b; break;
           case OP_NE: d = a != b; break;
           case OP_LT: d = a < b; break;
@@ -479,7 +696,11 @@ extern "C" int k1_expr_eval(const int* ops, const int* args, int n_ins,
     return (int)cudaErrorInvalidValue;
   K1Prog p;
   p.n_ins = n_ins;
-  for (int i = 0; i < n_ins; ++i) { p.op[i] = ops[i]; p.arg[i] = args[i]; }
+  for (int i = 0; i < n_ins; ++i) {
+    if (ops[i] < 0 || ops[i] >= OP_COUNT) return (int)cudaErrorInvalidValue;
+    p.op[i] = ops[i];
+    p.arg[i] = args[i];
+  }
   for (int i = 0; i < n_consts; ++i) p.consts[i] = consts[i];
   for (int i = 0; i < n_cols; ++i) {
     p.col_data[i] = (const void*)col_data[i];

@@ -4,7 +4,10 @@
 // Replaces: presto_tpu/ops/aggregate.py combine_packed_states,
 // finalize_packed, and the parts of _finalize and _avg_decimal128
 // that count/sum/avg/min/max take (ops/decimal128.py add/normalize for
-// the limb states).
+// the limb states); the function surface's fold (combine_packed_states
+// :896-:900 for the bitwise folds, min/max over doubles and booleans)
+// and finalize (_finalize :1427 min/max, :1473 bool_and/bool_or/every,
+// :1500 the bitwise folds, :1562 the HLL estimate).
 //
 // Bound on the H100: launch latency.  A packed table has one slot per
 // group (TPC-H Q1: 12, Q6: 1); the bytes are a few hundred and the
@@ -32,6 +35,13 @@
 // where n > 1, and sqrt for stddev, each an _rn intrinsic in the
 // reference's order.  Written in CUDA rather than Triton for
 // __int128 and to keep one build.
+//
+// The function surface: a double min/max folds by its order key
+// (common.cuh: -0.0 below 0.0, NaN winning), a boolean's by and / or,
+// bitwise_and_agg / bitwise_or_agg by & / |, bool_and / bool_or and
+// hll_merge's counts and sums add; finalize gives a boolean min/max as
+// it is, bool_and as (trues == count) and bool_or as (trues > 0), NULL
+// without a row, and hll_merge's estimate (never NULL).
 
 #include "common.cuh"
 
@@ -40,13 +50,30 @@
 enum { MODE_FOLD = 0, MODE_FINALIZE = 1 };
 // fold column kinds: keep in step with kernels/packed_fold_finalize.py
 enum { COL_I64 = 0, COL_D128 = 1, COL_MIN_I64 = 2, COL_MAX_I64 = 3, COL_MIN_I32 = 4,
-       COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7, COL_F64 = 8, COL_VAR_M2 = 9 };
+       COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7, COL_F64 = 8, COL_VAR_M2 = 9,
+       COL_MIN_F64 = 10, COL_MAX_F64 = 11, COL_MIN_BOOL = 12, COL_MAX_BOOL = 13,
+       COL_BAND = 14, COL_BOR = 15, COL_LAST = COL_BOR };
 // finalize kinds
 enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
        FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6, FIN_AVG_DOUBLE = 7,
        FIN_SUM0 = 8, FIN_SUM0_D128 = 9, FIN_SUM_COLLAPSE = 10, FIN_SUM0_COLLAPSE = 11,
        FIN_SUM_F64 = 12, FIN_AVG_F64 = 13, FIN_VAR_POP = 14, FIN_VAR_SAMP = 15,
-       FIN_STDDEV_POP = 16, FIN_STDDEV_SAMP = 17 };
+       FIN_STDDEV_POP = 16, FIN_STDDEV_SAMP = 17, FIN_VALUE_BOOL = 18, FIN_BOOL_AND = 19,
+       FIN_BOOL_OR = 20, FIN_HLL = 21, FIN_LAST = FIN_HLL };
+
+// The HLL estimator of hll_merge (the reference's _finalize, m = 4096
+// buckets): linear counting below 2.5 m while a bucket is empty, else
+// the raw estimate; rounded half to even (jnp.round).
+#define K3_HLL_M 4096.0
+__device__ __forceinline__ i64 hll_estimate(double s, i64 present) {
+  const double m = K3_HLL_M;
+  const double alpha = 0.7213 / (1.0 + 1.079 / K3_HLL_M);
+  const double zeros = __dsub_rn(m, __ll2double_rn(present));
+  const double s_full = __dadd_rn(s, zeros);
+  const double raw = __ddiv_rn(__dmul_rn(__dmul_rn(alpha, m), m), s_full > 1e-12 ? s_full : 1e-12);
+  const double lc = __dmul_rn(m, log(__ddiv_rn(m, zeros > 1.0 ? zeros : 1.0)));
+  return __double2ll_rn((raw <= __dmul_rn(2.5, m) && zeros > 0.0) ? lc : raw);
+}
 
 __device__ __forceinline__ double f64_at(const i64* p, i64 g) { return ((const double*)p)[g]; }
 
@@ -134,6 +161,16 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
       } else if (kind == COL_MIN_I64 || kind == COL_MAX_I64) {
         const i64 a = d.in0[c][g], b = d.in1[c][g];
         d.out0[c][g] = kind == COL_MIN_I64 ? (a < b ? a : b) : (a > b ? a : b);
+      } else if (kind == COL_MIN_F64 || kind == COL_MAX_F64) {  // by the order key
+        const bool is_min = kind == COL_MIN_F64;
+        const i64 ka = minmax_key(d.in0[c][g], is_min), kb = minmax_key(d.in1[c][g], is_min);
+        d.out0[c][g] = minmax_value(is_min ? (ka < kb ? ka : kb) : (ka > kb ? ka : kb), is_min);
+      } else if (kind == COL_MIN_BOOL || kind == COL_MAX_BOOL) {
+        const uint8_t a = ((const uint8_t*)d.in0[c])[g], b = ((const uint8_t*)d.in1[c])[g];
+        ((uint8_t*)d.out0[c])[g] = kind == COL_MIN_BOOL ? (a && b) : (a || b);
+      } else if (kind == COL_BAND || kind == COL_BOR) {
+        const i64 a = d.in0[c][g], b = d.in1[c][g];
+        d.out0[c][g] = kind == COL_BAND ? (a & b) : (a | b);
       } else {
         d.out0[c][g] = wadd(d.in0[c][g], d.in1[c][g]);
       }
@@ -152,7 +189,7 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
     const i64 cnt = d.in1[c][g];
     const bool sum0 = kind == FIN_SUM0 || kind == FIN_SUM0_D128 || kind == FIN_SUM0_COLLAPSE;
     const bool sample = kind == FIN_VAR_SAMP || kind == FIN_STDDEV_SAMP;
-    d.out1[c][g] = live && (sum0 || cnt > (sample ? 1 : 0));
+    d.out1[c][g] = live && (sum0 || kind == FIN_HLL || cnt > (sample ? 1 : 0));
     const i64 n = cnt > 1 ? cnt : 1;
     switch (kind) {
       case FIN_SUM:  // also a min/max
@@ -184,6 +221,16 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
         break;
       }
       case FIN_VALUE_I32: ((int*)d.out0[c])[g] = ((const int*)d.in0[c])[g]; break;
+      case FIN_VALUE_BOOL:
+        ((uint8_t*)d.out0[c])[g] = ((const uint8_t*)d.in0[c])[g];
+        break;
+      case FIN_BOOL_AND:  // (count of true, count)
+      case FIN_BOOL_OR:
+        ((uint8_t*)d.out0[c])[g] = kind == FIN_BOOL_OR ? d.in0[c][g] > 0 : d.in0[c][g] == cnt;
+        break;
+      case FIN_HLL:  // (sum of 2^-rho, present buckets)
+        d.out0[c][g] = hll_estimate(f64_at(d.in0[c], g), cnt);
+        break;
       case FIN_SUM_D128:
       case FIN_SUM0_D128:
         d.out0[c][2 * g] = d.in0[c][2 * g];
@@ -224,6 +271,8 @@ extern "C" int k3_packed_fold_finalize(int mode, i64 n_groups, int n_items, cons
   K3Desc d;
   d.n_items = n_items;
   for (int c = 0; c < n_items; ++c) {
+    if (kind[c] < 0 || kind[c] > (mode == MODE_FOLD ? COL_LAST : FIN_LAST))
+      return (int)cudaErrorInvalidValue;
     d.kind[c] = kind[c];
     d.in0[c] = (const i64*)in0[c];
     d.in1[c] = (const i64*)in1[c];

@@ -6,7 +6,10 @@
 // packed-direct branches with _partial_states/_seg_sum, and the
 // decimal128 limb sums (ops/decimal128.py from_int64, to_sum_limbs,
 // from_sum_limbs) that XLA lowered to segment sums, and the min/max
-// states (_seg_min/_seg_max, and _minmax_long for long decimals).
+// states (_seg_min/_seg_max, and _minmax_long for long decimals); and
+// the function surface's partial states (_partial_states :454 min/max
+// over doubles, booleans and varchar ranks, :492 the bitwise folds of
+// _seg_assoc :361, :498 bool_and/bool_or/every, :569 hll_merge).
 //
 // Bound on the H100: memory.  Each row's key codes, argument values,
 // their validity and the row mask are read once; the state table is a
@@ -50,6 +53,18 @@
 // keyed double states to K6).
 // Simple first: contended shared atomics on a few groups (TPC-H Q1)
 // are the known cost; warp-private tables are a later step.
+//
+// The function surface: a double's min/max runs as an int64 min/max
+// of an order key (common.cuh minmax_key: -0.0 below 0.0, NaN moved
+// to win, as the reference's segment reductions propagate it), turned
+// back into the double at the end (an empty state: +inf or -inf); a
+// boolean's min/max reads 0/1 and stores the fold's neutral value in
+// an empty state; bool_and / bool_or / every add their true rows;
+// bitwise_and_agg / bitwise_or_agg fold by 64-bit atomicAnd / atomicOr
+// (the reference's _seg_assoc, an associative scan); hll_merge adds
+// 2^-rho per row (exact, from the double's bits) in the fixed double
+// order.  An aggregate's FILTER reaches the kernel as its argument's
+// validity lane, which K1 computes.
 
 #include "common.cuh"
 
@@ -63,18 +78,22 @@
 // aggregate kinds: keep in step with kernels/packed_group_agg.py
 enum { AGG_COUNT_STAR = 0, AGG_COUNT = 1, AGG_SUM_SHORT = 2, AGG_SUM_LONG = 3,
        AGG_MIN_SHORT = 4, AGG_MAX_SHORT = 5, AGG_MIN_LONG = 6, AGG_MAX_LONG = 7,
-       AGG_SUM_LONG_ARG = 8, AGG_SUM_DOUBLE = 9, AGG_VARIANCE = 10 };
+       AGG_SUM_LONG_ARG = 8, AGG_SUM_DOUBLE = 9, AGG_VARIANCE = 10, AGG_MIN_DOUBLE = 11,
+       AGG_MAX_DOUBLE = 12, AGG_BOOL_COUNT = 13, AGG_BIT_AND = 14, AGG_BIT_OR = 15,
+       AGG_HLL_SUM = 16 };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3, KIND_F64 = 4 };
 
+// the states that add doubles in the fixed order (their slot counts)
 __host__ __device__ __forceinline__ bool is_double_agg(int kind) {
-  return kind == AGG_SUM_DOUBLE || kind == AGG_VARIANCE;
+  return kind == AGG_SUM_DOUBLE || kind == AGG_VARIANCE || kind == AGG_HLL_SUM;
 }
 
 __host__ __device__ __forceinline__ int agg_width(int kind) {
   switch (kind) {
     case AGG_SUM_LONG: case AGG_SUM_LONG_ARG: return 5;
     case AGG_MIN_LONG: case AGG_MAX_LONG: return 3;
-    case AGG_SUM_SHORT: case AGG_MIN_SHORT: case AGG_MAX_SHORT: return 2;
+    case AGG_SUM_SHORT: case AGG_MIN_SHORT: case AGG_MAX_SHORT: case AGG_MIN_DOUBLE:
+    case AGG_MAX_DOUBLE: case AGG_BOOL_COUNT: case AGG_BIT_AND: case AGG_BIT_OR: return 2;
     default: return 1;
   }
 }
@@ -100,7 +119,7 @@ struct K2Desc {
   i64* out1[K2_MAX_AGGS];  // count of a sum or a min/max; m2 of a variance
   i64* out2[K2_MAX_AGGS];  // count of a variance
   int raw_width;           // raw slots per group; slot 0 counts live rows
-  uint8_t slot_kind[K2_MAX_SLOTS];  // SLOT_ADD, SLOT_MIN or SLOT_MAX
+  uint8_t slot_kind[K2_MAX_SLOTS];  // SLOT_ADD, SLOT_MIN, SLOT_MAX, SLOT_AND or SLOT_OR
 };
 
 __device__ __forceinline__ i64 load_int(const void* p, int kind, i64 i) {
@@ -164,7 +183,20 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
       atomicAdd(s + 4, 1ull);
       continue;
     }
+    if (kind == AGG_MIN_DOUBLE || kind == AGG_MAX_DOUBLE) {  // by the order key
+      const bool is_min = kind == AGG_MIN_DOUBLE;
+      slot_combine(s, minmax_key(((const i64*)d.arg_data[a])[i], is_min),
+                   is_min ? SLOT_MIN : SLOT_MAX);
+      atomicAdd(s + 1, 1ull);
+      continue;
+    }
     const i64 x = load_int(d.arg_data[a], d.arg_kind[a], i);
+    if (kind == AGG_BOOL_COUNT || kind == AGG_BIT_AND || kind == AGG_BIT_OR) {
+      if (kind == AGG_BOOL_COUNT) add_slot(s, x != 0);
+      else slot_combine(s, x, kind == AGG_BIT_AND ? SLOT_AND : SLOT_OR);
+      atomicAdd(s + 1, 1ull);
+      continue;
+    }
     if (kind == AGG_MIN_SHORT || kind == AGG_MAX_SHORT) {
       slot_combine(s, x, kind == AGG_MIN_SHORT ? SLOT_MIN : SLOT_MAX);
       atomicAdd(s + 1, 1ull);
@@ -226,11 +258,21 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
     const i64* s = r + d.agg_slot[a];
     switch (d.agg_kind[a]) {
       case AGG_COUNT_STAR: case AGG_COUNT: d.out0[a][g] = s[0]; break;
-      case AGG_SUM_DOUBLE: d.out1[a][g] = s[0]; break;  // the sum comes later
+      case AGG_SUM_DOUBLE: case AGG_HLL_SUM: d.out1[a][g] = s[0]; break;  // sums later
+      case AGG_MIN_DOUBLE: case AGG_MAX_DOUBLE:
+        d.out0[a][g] = minmax_value(s[0], d.agg_kind[a] == AGG_MIN_DOUBLE);
+        d.out1[a][g] = s[1];
+        break;
+      case AGG_BOOL_COUNT: case AGG_BIT_AND: case AGG_BIT_OR:
+        d.out0[a][g] = s[0];
+        d.out1[a][g] = s[1];
+        break;
       case AGG_VARIANCE: d.out2[a][g] = s[0]; break;
       case AGG_SUM_SHORT: d.out0[a][g] = s[0]; d.out1[a][g] = s[1]; break;
       case AGG_MIN_SHORT: case AGG_MAX_SHORT:
         if (d.arg_kind[a] == KIND_I32) ((int*)d.out0[a])[g] = narrow_extreme(s[0]);
+        else if (d.arg_kind[a] == KIND_BOOL)  // an empty state: the fold's neutral value
+          ((uint8_t*)d.out0[a])[g] = s[0] == I64_MIN ? 0 : s[0] != 0;
         else d.out0[a][g] = s[0];
         d.out1[a][g] = s[1];
         break;
@@ -280,7 +322,8 @@ __global__ void k2_dsum_chunks(const K2Desc d, int a, i64 n,
       const i64 key = row_key(d, i);
       if (key >= 0 && key < n_groups) {
         g = (int)key;
-        x = ((const double*)d.arg_data[a])[i];
+        x = d.agg_kind[a] == AGG_HLL_SUM ? hll_weight(load_int(d.arg_data[a], d.arg_kind[a], i))
+                                         : ((const double*)d.arg_data[a])[i];
         if (mu != nullptr) {
           const double dx = __dsub_rn(x, mu[g]);
           x = __dmul_rn(dx, dx);
@@ -378,14 +421,18 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   d.slot_kind[0] = SLOT_ADD;
   for (int a = 0; a < n_aggs; ++a) {
     const int kind = agg_kind[a];
-    if (kind < AGG_COUNT_STAR || kind > AGG_VARIANCE) return (int)cudaErrorInvalidValue;
+    if (kind < AGG_COUNT_STAR || kind > AGG_HLL_SUM) return (int)cudaErrorInvalidValue;
     if (is_double_agg(kind) && n_groups > K2_DOUBLE_SLOT_LIMIT)
       return (int)cudaErrorInvalidValue;
     d.agg_kind[a] = kind;
     d.agg_slot[a] = slot;
     for (int j = 0; j < agg_width(kind); ++j) d.slot_kind[slot + j] = SLOT_ADD;
-    if (kind == AGG_MIN_SHORT || kind == AGG_MIN_LONG) d.slot_kind[slot] = SLOT_MIN;
-    if (kind == AGG_MAX_SHORT || kind == AGG_MAX_LONG) d.slot_kind[slot] = SLOT_MAX;
+    if (kind == AGG_MIN_SHORT || kind == AGG_MIN_LONG || kind == AGG_MIN_DOUBLE)
+      d.slot_kind[slot] = SLOT_MIN;
+    if (kind == AGG_MAX_SHORT || kind == AGG_MAX_LONG || kind == AGG_MAX_DOUBLE)
+      d.slot_kind[slot] = SLOT_MAX;
+    if (kind == AGG_BIT_AND) d.slot_kind[slot] = SLOT_AND;
+    if (kind == AGG_BIT_OR) d.slot_kind[slot] = SLOT_OR;
     if (is_long_extreme(kind)) d.slot_kind[slot + 1] = d.slot_kind[slot];
     phased = phased || is_long_extreme(kind);
     slot += agg_width(kind);

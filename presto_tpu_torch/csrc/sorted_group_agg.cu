@@ -6,7 +6,9 @@
 // merge_aggregate with _merge_states (count, sum, avg, min and max
 // states; _seg_min/_seg_max, _minmax_long), which XLA ran as a gather
 // + cumsum + boundary difference over the sort's permutation; and
-// _presorted_group_ids, grouped_aggregate's streaming branch.
+// _presorted_group_ids, grouped_aggregate's streaming branch; and the
+// function surface's states and their merge (_partial_states :454,
+// :492, :498, :569; _merge_states :1136, :1144, :1171).
 //
 // Bound on the H100: memory.  Past the sort (torch.sort, as the
 // reference leaves its argsort to XLA), the sorted keys and the sort
@@ -59,6 +61,15 @@
 // run's head is a live row whose key differs from the previous live
 // row's (the reference's forward fill across dead rows) and groups
 // come out in first-appearance order.
+//
+// The function surface: a double's min/max reduces an int64 order key
+// (common.cuh minmax_key: -0.0 below 0.0, NaN moved to win, as the
+// reference's segment reductions propagate it) and turns it back at the
+// end; a boolean's min/max reads 0/1 and stores the fold's neutral
+// value in an empty state; bitwise_and_agg / bitwise_or_agg fold by and
+// / or (slot_fold locally, atomicAnd / atomicOr on a flush; the
+// reference's _seg_assoc); hll_merge's sum of 2^-rho (S_HLL) takes the
+// double states' fixed order, each weight exact from its bits.
 
 #include "keys.cuh"
 #include "scan.cuh"
@@ -70,7 +81,14 @@
 
 // state kinds: keep in step with kernels/sorted_group_agg.py
 enum { S_ONE = 0, S_VALID = 1, S_SUM = 2, S_LIMBS_SHORT = 3, S_LIMBS_LONG = 4, S_MIN = 5,
-       S_MAX = 6, S_MIN_LONG = 7, S_MAX_LONG = 8, S_DSUM = 9, S_VAR = 10, S_VAR_MERGE = 11 };
+       S_MAX = 6, S_MIN_LONG = 7, S_MAX_LONG = 8, S_DSUM = 9, S_VAR = 10, S_VAR_MERGE = 11,
+       S_MIN_F64 = 12, S_MAX_F64 = 13, S_BAND = 14, S_BOR = 15, S_HLL = 16 };
+// how k6_finish stores a state (kernels/sorted_group_agg.py _OUT_KINDS)
+enum { OUT_I64 = 0, OUT_I32 = 1, OUT_BOOL = 2 };
+
+__host__ __device__ __forceinline__ bool is_int_state(int kind) {
+  return (kind >= S_ONE && kind <= S_MAX_LONG) || (kind >= S_MIN_F64 && kind <= S_BOR);
+}
 
 __host__ __device__ __forceinline__ int state_width(int kind) {
   return (kind == S_LIMBS_SHORT || kind == S_LIMBS_LONG) ? 4
@@ -90,10 +108,10 @@ struct K6Desc {
   const void* data[K6_MAX_STATES];
   int data_kind[K6_MAX_STATES];
   const uint8_t* valid[K6_MAX_STATES];
-  i64* out[K6_MAX_STATES];  // (G,) or (G, 2) limbs; int32 where out_i32
-  int out_i32[K6_MAX_STATES];
+  i64* out[K6_MAX_STATES];  // (G,) or (G, 2) limbs; int32 or bool by out_kind
+  int out_kind[K6_MAX_STATES];
   int raw_width;
-  uint8_t slot_kind[K6_MAX_SLOTS];  // SLOT_ADD, SLOT_MIN or SLOT_MAX
+  uint8_t slot_kind[K6_MAX_SLOTS];  // SLOT_ADD, SLOT_MIN, SLOT_MAX, SLOT_AND or SLOT_OR
 };
 
 __device__ __forceinline__ void copy_key(const uint8_t* src, uint8_t* dst, int width,
@@ -135,9 +153,13 @@ __device__ __forceinline__ void add_row(const K6Desc& d, i64 row, i64* acc, int 
       a[0] = wadd(a[0], pk_load(d.data[s], d.data_kind[s], row));
       continue;
     }
-    if (kind == S_MIN || kind == S_MAX) {
-      const i64 x = pk_load(d.data[s], d.data_kind[s], row);
-      a[0] = kind == S_MIN ? (x < a[0] ? x : a[0]) : (x > a[0] ? x : a[0]);
+    if (kind == S_MIN || kind == S_MAX || kind == S_BAND || kind == S_BOR) {
+      a[0] = slot_fold(a[0], pk_load(d.data[s], d.data_kind[s], row), d.slot_kind[d.slot[s]]);
+      continue;
+    }
+    if (kind == S_MIN_F64 || kind == S_MAX_F64) {  // by the order key (common.cuh)
+      a[0] = slot_fold(a[0], minmax_key(((const i64*)d.data[s])[row], kind == S_MIN_F64),
+                       d.slot_kind[d.slot[s]]);
       continue;
     }
     if (long_extreme) {  // the high limb; phase 1 takes the low one
@@ -219,8 +241,16 @@ static __global__ void k6_finish(const K6Desc d, i64 groups, const i64* __restri
         d.out[s][2 * g + 1] = v[1];
         continue;
       }
-      if (d.out_i32[s]) {
+      if (d.kind[s] == S_MIN_F64 || d.kind[s] == S_MAX_F64) {
+        d.out[s][g] = minmax_value(v[0], d.kind[s] == S_MIN_F64);
+        continue;
+      }
+      if (d.out_kind[s] == OUT_I32) {
         ((int*)d.out[s])[g] = narrow_extreme(v[0]);
+        continue;
+      }
+      if (d.out_kind[s] == OUT_BOOL) {  // an empty state: the fold's neutral value
+        ((uint8_t*)d.out[s])[g] = v[0] == I64_MIN ? 0 : v[0] != 0;
         continue;
       }
       if (d.kind[s] != S_LIMBS_SHORT && d.kind[s] != S_LIMBS_LONG) {
@@ -307,7 +337,7 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
                                const i64* key_valid, const i64* key_dst,
                                const i64* key_dst_valid, const int* key_width, int n_states,
                                const int* kind, const i64* data, const int* data_kind,
-                               const i64* valid, const i64* out, const int* out_i32,
+                               const i64* valid, const i64* out, const int* out_kind,
                                void* raw, void* stream) {
   if (n_keys > PK_MAX_KEYS || n_states > K6_MAX_STATES) return (int)cudaErrorInvalidValue;
   K6Desc d;
@@ -323,13 +353,15 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
   int w = 0;
   bool phased = false;
   for (int s = 0; s < n_states; ++s) {
-    if (kind[s] < S_ONE || kind[s] > S_MAX_LONG) return (int)cudaErrorInvalidValue;
+    if (!is_int_state(kind[s])) return (int)cudaErrorInvalidValue;
     const int width = state_width(kind[s]);
     if (w + width > K6_MAX_SLOTS) return (int)cudaErrorInvalidValue;
     d.kind[s] = kind[s];
     d.slot[s] = w;
-    const int sk_kind = (kind[s] == S_MIN || kind[s] == S_MIN_LONG) ? SLOT_MIN
-        : (kind[s] == S_MAX || kind[s] == S_MAX_LONG) ? SLOT_MAX : SLOT_ADD;
+    const int sk_kind = (kind[s] == S_MIN || kind[s] == S_MIN_LONG || kind[s] == S_MIN_F64)
+        ? SLOT_MIN
+        : (kind[s] == S_MAX || kind[s] == S_MAX_LONG || kind[s] == S_MAX_F64) ? SLOT_MAX
+        : kind[s] == S_BAND ? SLOT_AND : kind[s] == S_BOR ? SLOT_OR : SLOT_ADD;
     for (int j = 0; j < width; ++j) d.slot_kind[w + j] = sk_kind;
     phased = phased || kind[s] == S_MIN_LONG || kind[s] == S_MAX_LONG;
     w += width;
@@ -337,7 +369,7 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
     d.data_kind[s] = data_kind[s];
     d.valid[s] = (const uint8_t*)valid[s];
     d.out[s] = (i64*)out[s];
-    d.out_i32[s] = out_i32[s];
+    d.out_kind[s] = out_kind[s];
   }
   d.raw_width = w;
   cudaStream_t st = (cudaStream_t)stream;
@@ -407,7 +439,7 @@ static __global__ void k6_dchunks(const i64* __restrict__ order, const i64* __re
     for (i64 p = p0; p < p1; ++p) {
       const i64 row = order[p];
       if (!valid[row]) continue;
-      double v = x[row];
+      double v = kind == S_HLL ? hll_weight(((const i64*)x)[row]) : x[row];
       if (pass == 1 && kind == S_VAR_MERGE) {
         const i64 c = c_in[row];
         const double cf = __ll2double_rn(c);
@@ -452,7 +484,7 @@ extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n
                                const void* cnt, void* out_s, void* out_m2, void* starts,
                                void* base, void* partials, void* chunk_group, void* part,
                                i64 bound, void* stream) {
-  if (kind < S_DSUM || kind > S_VAR_MERGE) return (int)cudaErrorInvalidValue;
+  if ((kind < S_DSUM || kind > S_VAR_MERGE) && kind != S_HLL) return (int)cudaErrorInvalidValue;
   if (groups == 0) return (int)cudaGetLastError();
   if ((n + K6_DSUM_CHUNK - 1) / K6_DSUM_CHUNK + groups > bound) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -463,7 +495,7 @@ extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n
   scan_exclusive_inplace((int*)base, groups + 1, (int*)partials, st);
   k6_chunk_groups<<<(int)((groups + 255) / 256), 256, 0, st>>>((const int*)base, groups,
                                                                (int*)chunk_group);
-  const bool var = kind != S_DSUM;
+  const bool var = kind == S_VAR || kind == S_VAR_MERGE;
   for (int pass = 0; pass < (var ? 2 : 1); ++pass) {
     k6_dchunks<<<grid_for(bound, 128, 8), 128, 0, st>>>(
         (const i64*)order, (const i64*)starts, (const int*)base, (const int*)chunk_group,

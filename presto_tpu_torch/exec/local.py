@@ -19,7 +19,10 @@ Ported: table scans, filters, projections, every join kind (inner,
 left, full, semi, anti, mark; null-safe and null-aware keys) except
 index joins, the cross join with a one-row relation (a scalar
 subquery, broadcast on the device), window functions (one page, K10),
-ORDER BY, top-N, LIMIT (a running count of live rows), VALUES, a
+ORDER BY, top-N, LIMIT (a running count of live rows; pushed into a
+scan, it stops reading splits once enough live rows came), TABLESAMPLE
+SYSTEM (whole splits by a split hash) and BERNOULLI (a per-row hash
+mask on the device), VALUES, a
 precomputed page, UNION ALL (each leg's pages with their dictionary
 codes moved into the union's merged dictionaries), GroupId (each page
 once per grouping set, streamed), and global, packed-direct, sort-path
@@ -120,6 +123,30 @@ def _values_columns(node: ValuesNode):
         else:
             cols.append(np.asarray([0 if v is None else v for v in raw], dtype=t.np_dtype))
     return cols, node.types, valids
+
+
+def system_sample_drops(split: int, percent: float) -> bool:
+    """TABLESAMPLE SYSTEM(p): whether a whole split is left out, by the
+    reference's deterministic split hash (mixed so split 0 is not a
+    fixed point)."""
+    h = (((split + 1) * 2654435761) ^ 0x9E3779B9) % 10_000
+    return h >= percent * 100
+
+
+_U32 = 0xFFFFFFFF
+
+
+def bernoulli_keep(capacity: int, split: int, percent: float, device) -> torch.Tensor:
+    """TABLESAMPLE BERNOULLI(p): the reference's per-(split, row) hash
+    mask, each row kept with probability p%, computed on the device.
+    Its uint32 arithmetic runs in int64, masked to 32 bits after each
+    step (a product of two 32-bit values wraps past 2^63, but its low
+    32 bits are right)."""
+    r = torch.arange(capacity, dtype=torch.int64, device=device)
+    h = (r + ((split * 0x9E3779B1) & _U32)) & _U32
+    h = ((h ^ (h >> 15)) * 0x85EBCA6B) & _U32
+    h = ((h ^ (h >> 13)) * 0xC2B2AE35) & _U32
+    return torch.remainder(h, 10_000) < int(percent * 100)
 
 
 class QueryStats:
@@ -406,8 +433,6 @@ class LocalRunner:
         if not isinstance(node, TableScanNode):
             yield from self._pages(node)
             return
-        if node.sample is not None or node.limit is not None:
-            raise NotPorted("TABLESAMPLE and pushed-down LIMIT scans")
         conn = self.catalog.connector(node.handle.connector_name)
         idx = list(node.columns)
         if node.splits is not None:
@@ -422,12 +447,25 @@ class LocalRunner:
             td = TupleDomain.from_constraints(node.constraints)
             if td.is_none:
                 return  # provably empty scan
+        sample = node.sample
+        produced = 0
         for split in splits:
+            if node.limit is not None and produced >= node.limit:
+                break  # pushed-down LIMIT satisfied: the rest is not read
+            if sample is not None and sample[0] == "system" \
+                    and system_sample_drops(split, sample[1]):
+                continue
             if td is not None and not td.overlaps_split_stats(
                     conn.split_stats(node.handle.table, split)):
                 continue  # split statistics prove no row matches
             page = conn.page_for_split(node.handle.table, split)
-            yield Page(tuple(page.blocks[i] for i in idx), page.row_mask).to(self.device)
+            page = Page(tuple(page.blocks[i] for i in idx), page.row_mask).to(self.device)
+            if sample is not None and sample[0] == "bernoulli":
+                page = Page(page.blocks, page.row_mask & bernoulli_keep(
+                    page.capacity, split, sample[1], page.device))
+            if node.limit is not None:
+                produced += int(page.row_mask.sum())  # counted on the host, per split
+            yield page
 
     def _groupid_pages(self, node: GroupIdNode) -> Iterator[Page]:
         """Each source page once per grouping set, streamed: the source

@@ -22,7 +22,15 @@ doubles, ``cast_decimal`` (from a double half to even, else
 a string literal (code 0 of its singleton dictionary), string-valued
 CASE / IF / coalesce over the merged dictionary of their branches (each
 branch's codes remapped by an int32 table), and ``=``/``<>`` of two
-string columns through a shared value-id space.
+string columns through a shared value-id space; and the function
+surface: the double math family (sqrt ... truncate, sign, the NaN and
+infinity tests, power, atan2, width_bucket), ``mod`` (floored over
+doubles as jnp.mod, truncating over integers and decimals) and integer
+``div``, the bitwise functions, ``greatest``/``least``, ``nullif``,
+``cast_bigint``, ``hll_bucket``/``hll_rho`` and the date parts
+day_of_week, day_of_year, week, year_of_week and last_day_of_month
+(K1's family opcodes).  Timestamps, string functions and containers
+raise by name.
 ``ExprCompiler.compile_key`` also maps a key column's codes to their
 value's representative code where the dictionary repeats a value (the
 reference's ``canonicalize_codes``).
@@ -283,8 +291,15 @@ _NOT_NULL_LUTS: dict = {}
 
 # DATEPART's selector and LCMP's comparison: the argument is the
 # index here
-DATE_PARTS = ("year", "month", "day", "quarter")
+DATE_PARTS = ("year", "month", "day", "quarter", "day_of_week", "day_of_year", "week",
+              "year_of_week", "last_day_of_month")
 LCMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
+
+_BITWISE_FNS = ("bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
+                "bitwise_shift_left", "bitwise_shift_right", "bit_count")
+# register-index width of approx_distinct's sketch (the reference's
+# ExprCompiler.HLL_P: m = 4096 buckets)
+HLL_P = 12
 
 _STRING_CMP = {"eq": operator.eq, "ne": operator.ne, "lt": operator.lt,
                "le": operator.le, "gt": operator.gt, "ge": operator.ge}
@@ -435,10 +450,165 @@ class _Lowering:
         elif fn in ("is_null", "not_null"):
             const = self.emit(e.args[0])
             self._push(k1.NOTNULL, int(fn == "is_null"))
+        elif fn in k1.DUN_FNS:
+            const = self._emit_dun(e)
+        elif fn in ("power", "pow", "atan2"):
+            const = self._emit_double(e.args[0]) & self._emit_double(e.args[1])
+            self._push(k1.DBIN, k1.DBIN_FNS.index("atan2" if fn == "atan2" else "power"))
+        elif fn == "mod":
+            const = self._emit_arith(e)
+        elif fn in _BITWISE_FNS:
+            const = self._emit_bitwise(e)
+        elif fn in ("greatest", "least"):
+            const = self._emit_greatest_least(e)
+        elif fn == "nullif":
+            const = self._emit_nullif(e)
+        elif fn == "cast_bigint":
+            const = self._emit_cast_bigint(e)
+        elif fn in ("hll_bucket", "hll_rho"):
+            const = self._emit_hll(e)
+        elif fn == "width_bucket":
+            const = self._emit_width_bucket(e)
         else:
             raise NotPorted(f"expression {fn}")
         if const:
             self._fold(start)
+        return const
+
+    # -- the function surface: K1's family opcodes --------------------------
+    def _emit_dun(self, e: Call) -> bool:
+        """A function of one double (DUN): the argument as a double
+        (``_to_double``), then the function by index; ``sign`` and the
+        NaN / infinity tests give an integer lane."""
+        (x,) = e.args
+        if _lane(x.type) == LONG:
+            raise NotPorted(f"{e.fn} of {x.type}")
+        const = self._emit_double(x)
+        self._push(k1.DUN, k1.DUN_FNS.index(e.fn))
+        return const
+
+    def _emit_bitwise(self, e: Call) -> bool:
+        """The reference's ``_compile_bitwise`` over int64 lanes (BITW):
+        and/or/xor; ``bitwise_not`` as xor with -1; a shift or
+        ``bit_count`` takes a literal ``bits`` in [2, 64] and works on
+        the value's low ``bits`` bits as an unsigned field (the bits
+        literal stands as bit_count's second operand, which it
+        ignores)."""
+        fn = e.fn
+        args = list(e.args)
+        for a in args:
+            if _lane(a.type) != SHORT or a.type.is_decimal:
+                raise NotPorted(f"{fn} over {a.type}")
+        bits = 64
+        if fn in ("bitwise_shift_left", "bitwise_shift_right", "bit_count"):
+            blit = args.pop()
+            if not isinstance(blit, Literal) or blit.value is None \
+                    or not 2 <= int(blit.value) <= 64:
+                raise NotPorted(f"{fn} with bits {blit}")
+            bits = int(blit.value)
+        op = {"bitwise_and": "and", "bitwise_or": "or", "bitwise_xor": "xor",
+              "bitwise_not": "xor", "bitwise_shift_left": "shift_left",
+              "bitwise_shift_right": "shift_right", "bit_count": "bit_count"}[fn]
+        const = self.emit(args[0])
+        if fn == "bitwise_not":
+            self._push(k1.LIT, self._const(-1))
+        elif fn == "bit_count":
+            self._push(k1.LIT, self._const(bits))
+        else:
+            const &= self.emit(args[1])
+        self._push(k1.BITW, k1.BITW_OPS.index(op) | bits << 4)
+        return const
+
+    def _emit_greatest_least(self, e: Call) -> bool:
+        """greatest / least: every operand in the output type
+        (``_coerce``), folded left to right by GL; NULL if any operand
+        is (Presto).  Doubles propagate NaN and order -0.0 below 0.0, as
+        jnp.maximum / jnp.minimum do."""
+        out_t = e.type
+        if out_t.is_string:
+            raise NotPorted(f"{e.fn} over {out_t}")
+        lane = _lane(out_t)
+        if lane == LONG and (out_t.precision or 0) > 36:
+            raise NotPorted(f"{e.fn} over {out_t}")
+        gl = {SHORT: k1.GL_INT, DOUBLE: k1.GL_DOUBLE, LONG: k1.GL_LONG}[lane]
+        const = self._emit_coerced(e.args[0], out_t)
+        for x in e.args[1:]:
+            const &= self._emit_coerced(x, out_t)
+            self._push(k1.GL, int(e.fn == "greatest") | gl << 1)
+        return const
+
+    def _emit_nullif(self, e: Call) -> bool:
+        """nullif(a, b): ``a``, NULL where ``a = b`` is true, the pair
+        compared as the reference's ``_align_pair`` aligns it (the
+        comparison's own lowering)."""
+        from presto_tpu_torch.types import BOOLEAN
+
+        a, b = e.args
+        if a.type.is_string or b.type.is_string:
+            raise NotPorted("nullif over varchar")
+        const = self.emit(a)
+        const &= self.emit(Call(type=BOOLEAN, fn="eq", args=(a, b)))
+        self._push(k1.NULLIF)
+        return const
+
+    def _emit_cast_bigint(self, e: Call) -> bool:
+        """cast to bigint: a double toward zero (XLA's saturating
+        conversion, NaN to 0), a short decimal HALF_UP at its scale (the
+        reference's DecimalCasts rule), a long decimal's floor at its
+        scale, an integer lane as it is."""
+        (x,) = e.args
+        if x.type.is_string:
+            raise NotPorted(f"cast_bigint of {x.type}")
+        lane = _lane(x.type)
+        const = self.emit(x)
+        if lane == DOUBLE:
+            self._push(k1.CASTBI, k1.CAST_FROM_DOUBLE)
+        elif lane == LONG:
+            if _scale(x.type) > 18:
+                raise NotPorted(f"cast_bigint of {x.type}")
+            self._push(k1.CASTBI, k1.CAST_FROM_LONG | _scale(x.type) << 2)
+        elif _scale(x.type):
+            self._push(k1.CASTBI, k1.CAST_FROM_SHORT | _scale(x.type) << 2)
+        return const
+
+    def _emit_hll(self, e: Call) -> bool:
+        """hll_bucket / hll_rho (HLL): splitmix64 of the value's lane, an
+        integer as it is, a double's bits, a dictionary string's value
+        id (codes of one value share it, the reference's canonical
+        table), then the bucket (top P bits) or rho."""
+        col = e.args[0]
+        p = HLL_P
+        if len(e.args) > 1:
+            if not isinstance(e.args[1], Literal) or e.args[1].value is None:
+                raise NotPorted(f"{e.fn} with a non-literal width")
+            p = int(e.args[1].value)
+        t = col.type
+        if t.is_raw_string or (not t.is_string and _lane(t) == LONG):
+            raise NotPorted(f"{e.fn} over {t}")
+        if t.is_string:
+            d = expr_dictionary(col, self.dictionaries)
+            if d is None:
+                raise NotPorted(f"{e.fn} over a string without a dictionary")
+            canon: dict = {}
+            self.emit(col)
+            self._push_lut(dictionary_lut(d, ("hll_value",),
+                                          lambda v: canon.setdefault(v, len(canon)),
+                                          torch.int32), k1.CANON)
+            const = False
+        else:
+            const = self.emit(col)
+        self._push(k1.HLL, int(e.fn == "hll_rho") | p << 1)
+        return const
+
+    def _emit_width_bucket(self, e: Call) -> bool:
+        """width_bucket(x, lo, hi, n) (WBUCKET): x, lo and hi as
+        doubles, n as an integer lane."""
+        x, lo, hi, n = e.args
+        if _lane(n.type) != SHORT or n.type.is_decimal:
+            raise NotPorted(f"width_bucket with {n.type} buckets")
+        const = self._emit_double(x) & self._emit_double(lo) & self._emit_double(hi)
+        const &= self.emit(n)
+        self._push(k1.WBUCKET)
         return const
 
     # -- strings: one table over the dictionary ----------------------------
@@ -798,7 +968,11 @@ class _Lowering:
         tr = e.type
         if tr.name == "double":
             const = self._emit_double(a) & self._emit_double(b)
-            self._push({"add": k1.DADD, "sub": k1.DSUB, "mul": k1.DMUL, "div": k1.DDIV}[e.fn])
+            if e.fn == "mod":  # jnp.mod: floored (the reference's fault, ROADMAP C)
+                self._push(k1.DBIN, k1.DBIN_FNS.index("mod"))
+            else:
+                self._push({"add": k1.DADD, "sub": k1.DSUB, "mul": k1.DMUL,
+                            "div": k1.DDIV}[e.fn])
             return const
         lanes = (_lane(a.type), _lane(b.type))
         if tr.is_long_decimal and e.fn in ("add", "sub") and DOUBLE not in lanes \
@@ -814,7 +988,7 @@ class _Lowering:
             self.emit(b)
             self._push(k1.MUL_LS, 0 if lanes[0] == LONG else 1)
             return False
-        if lanes != (SHORT, SHORT) or e.fn == "div":
+        if lanes != (SHORT, SHORT) or (e.fn == "div" and tr.is_decimal):
             raise NotPorted(f"{e.fn} producing {tr}")
         if tr.is_decimal:
             if e.fn == "mul":  # scale sa + sb == tr.scale, no rescale
@@ -829,7 +1003,10 @@ class _Lowering:
             const = self.emit(a) & self.emit(b)
         else:
             raise NotPorted(f"{e.fn} producing {tr}")
-        self._push({"add": k1.ADD, "sub": k1.SUB, "mul": k1.MUL}[e.fn])
+        if e.fn in ("mod", "div"):  # _trunc_mod / _trunc_div, NULL on a zero divisor
+            self._push(k1.IMOD, int(e.fn == "div"))
+        else:
+            self._push({"add": k1.ADD, "sub": k1.SUB, "mul": k1.MUL}[e.fn])
         return const
 
     def program(self, out_kind: int) -> k1.Program:
@@ -912,6 +1089,13 @@ class ExprCompiler:
             i = expr.index
             return lambda page: (page.blocks[i].data, page.blocks[i].valid)
         prog, columns = self.lower(expr)
+        return self.run_program(prog, columns)
+
+    @staticmethod
+    def run_program(prog: k1.Program, columns: List[int]) -> CompiledExpr:
+        """``page -> (data, valid)`` of a lowered program over the page
+        columns it loads: one K1 launch, or a constant's value computed
+        once on the host and expanded on the page's device."""
         if prog.n_cols == 0:  # a constant: its value, computed once on the host
             d, v = k1.expr_eval_plain(prog, [], 1)
 

@@ -64,6 +64,30 @@ def _mysql_to_strftime(fmt: str, for_parse: bool = False) -> str:
     return "".join(out)
 
 
+_INT_RX = re.compile(r"^[+-]?\d+$")
+_FLOAT_RX = re.compile(r"^[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?$")
+_I64_LO, _I64_HI = -(1 << 63), (1 << 63) - 1
+
+
+def parse_number_strict(v, to_double: bool):
+    """varchar -> number with the reference's accepted syntax only (no
+    python extras like '1_0' or padding) and int64 range enforcement;
+    None for anything else (a copy of the reference's
+    ``parse_number_strict``, which the binder's literal fold uses)."""
+    if not isinstance(v, str):
+        return None
+    if to_double:
+        if _FLOAT_RX.match(v):
+            return float(v)
+        if v in ("Infinity", "-Infinity", "+Infinity", "NaN"):
+            return float(v.replace("Infinity", "inf"))
+        return None
+    if not _INT_RX.match(v):
+        return None
+    n = int(v)
+    return n if _I64_LO <= n <= _I64_HI else None
+
+
 def mysql_datetime_micros(v: str, fmt: str):
     """date_parse's conversion, shared by the bind-time literal fold
     and the column LUT so they cannot diverge.  None on parse failure

@@ -31,12 +31,29 @@ zero at 10^digits); D2S and D2L cast a double to a short or long
 decimal (``round(d * 10^scale)``, half to even as ``jnp.round``);
 LADD adds or subtracts two long decimals.
 
+The function surface (eighth slice) comes as a few family opcodes
+whose argument picks the function: DUN, a function of one double
+(``DUN_FNS``: sqrt, cbrt, exp, ln, log2, log10, the trigonometric and
+hyperbolic functions, degrees, radians, truncate, and sign and the
+NaN/infinity tests, which give an integer lane); DBIN, of two doubles
+(power, atan2, and ``mod``, floored as ``jnp.mod``, NULL on a zero
+divisor); BITW, and/or/xor, a shift (by the count & 63, Java's rule)
+or a bit count of the low ``bits`` bits; GL, greatest/least over an
+integer, double (NaN wins, -0.0 below 0.0) or long lane; NULLIF (its
+operand and the pair's equality); CASTBI, cast to bigint from a double
+(toward zero, saturating, NaN to 0: XLA's conversion), a short decimal
+(HALF_UP) or a long one (floor); HLL, splitmix64 of the lane's 64 bits
+and the HLL bucket or rho; WBUCKET, width_bucket; IMOD, SQL's
+truncating int64 mod or div.  DATEPART also gives day_of_week,
+day_of_year, ISO week, year_of_week and last_day_of_month.
+
 A stack value is an int64 lane (integers, dates, booleans, short
 decimals, dictionary codes), a double, or a long decimal (two
 base-10^18 limbs).  A program that holds a long or double lane is
 "wide" and runs on a second instantiation of the interpreter whose
 stack slots carry the second limb; every other program keeps the
-narrow int64 stack.
+narrow int64 stack.  A CUDA tensor meeting an opcode the kernel lacks
+raises (the C entry refuses it); nothing falls back.
 """
 
 from __future__ import annotations
@@ -55,22 +72,26 @@ from presto_tpu_torch.ops import decimal128 as d128
 LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
     BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV, IN, CANON, \
     DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DADD, DSUB, DMUL, \
-    DNEG, DABS, DCMP, NEG, ABS, COAL, SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD = range(50)
+    DNEG, DABS, DCMP, NEG, ABS, COAL, SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, \
+    DUN, DBIN, BITW, GL, NULLIF, CASTBI, HLL, WBUCKET, IMOD = range(59)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
             "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon",
             "datepart", "s2d", "s2l", "lscale", "lcmp", "notnull", "load_f64", "dlit",
             "dadd", "dsub", "dmul", "dneg", "dabs", "dcmp", "neg", "abs", "coalesce",
-            "sfloor", "sround", "dfloor", "dround", "d2s", "d2l", "ladd")
+            "sfloor", "sround", "dfloor", "dround", "d2s", "d2l", "ladd",
+            "dun", "dbin", "bitw", "gl", "nullif", "castbi", "hll", "wbucket", "imod")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
                 0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0, 1, 1, -1, -1, -1,
-                0, 0, -1, 0, 0, -1, 0, 0, 0, 0, 0, 0, -1)
+                0, 0, -1, 0, 0, -1, 0, 0, 0, 0, 0, 0, -1,
+                0, -1, -1, -1, -1, 0, 0, -3, -1)
 # opcodes whose argument is printed: a column slot, a constant index,
 # a table slot, the long operand's side (MUL_LS), a decimal scale
 # (L2D, S2D), IN's literal run (first constant | count <<
 # IN_COUNT_SHIFT), the date part (DATEPART: year, month, day,
-# quarter), the digits of an up-scale (LSCALE), the comparison (LCMP:
+# quarter, day_of_week, day_of_year, week, year_of_week,
+# last_day_of_month), the digits of an up-scale (LSCALE), the comparison (LCMP:
 # eq, ne, lt, le, gt, ge; DCMP the same), the test (NOTNULL: 0 not_null,
 # 1 is_null), a double constant's bits (DLIT: a constant index) or the
 # integer lane's width (NEG, ABS: 1 for int32, whose least value has no
@@ -78,16 +99,23 @@ STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0
 # plus 1 for a ceiling (SFLOOR), a divisor's constant index (SROUND),
 # 0 floor or 1 ceil (DFLOOR), or the constant index of a double
 # multiplier's bits (DROUND: 10^digits; D2S, D2L: 10^scale), or 0 add
-# and 1 subtract (LADD, two long decimals at one scale)
+# and 1 subtract (LADD, two long decimals at one scale); the function
+# of a family opcode: DUN's (DUN_FNS), DBIN's (DBIN_FNS), BITW's
+# operation (BITW_OPS) plus its width ``bits << 4`` (64: none), GL's
+# 0 least or 1 greatest plus its lane ``<< 1`` (GL_INT, GL_DOUBLE,
+# GL_LONG), CASTBI's source (CAST_FROM_DOUBLE, CAST_FROM_SHORT,
+# CAST_FROM_LONG) plus its decimal scale ``<< 2``, HLL's 0 bucket or 1
+# rho plus its register-index width ``P << 1``, IMOD's 0 mod or 1 div
 _ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON,
             DATEPART, S2D, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DCMP, NEG, ABS,
-            SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD)
+            SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, DUN, DBIN, BITW, GL, CASTBI,
+            HLL, IMOD)
 # opcodes whose argument holds a constant index (SFLOOR: times two)
 CONST_ARG_OPS = (LIT, SCALE_CHK, SCALE, DLIT, SROUND, DROUND, D2S, D2L)
 IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
 DOUBLE_OPS = frozenset((LOAD_F64, DLIT, DADD, DSUB, DMUL, DNEG, DABS, DCMP, DFLOOR,
-                        DROUND, D2S, D2L))
+                        DROUND, D2S, D2L, DUN, DBIN, WBUCKET))
 WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP, D2L,
                       LADD)) | DOUBLE_OPS
 
@@ -97,6 +125,25 @@ MAX_CONSTS = 64
 MAX_COLS = 16
 MAX_STACK = 16
 MAX_LUTS = 16
+
+# DUN's functions of one double, by argument: the transcendental ones
+# (TRANSCENDENTAL: libdevice on the card, torch's CPU kernels in the
+# twin, XLA's in the reference, so they agree within a few ulp), the
+# correctly rounded or exact ones, and those giving an integer lane
+# (sign) or a boolean (the tests)
+DUN_FNS = ("sqrt", "cbrt", "exp", "ln", "log2", "log10", "sin", "cos", "tan", "asin",
+           "acos", "atan", "sinh", "cosh", "tanh", "degrees", "radians", "truncate",
+           "sign", "is_nan", "is_finite", "is_infinite")
+DUN_INT = frozenset(DUN_FNS.index(f) for f in ("sign", "is_nan", "is_finite", "is_infinite"))
+TRANSCENDENTAL = frozenset(DUN_FNS.index(f) for f in (
+    "cbrt", "exp", "ln", "log2", "log10", "sin", "cos", "tan", "asin", "acos", "atan",
+    "sinh", "cosh", "tanh"))
+# DBIN's functions of two doubles: power and atan2 (transcendental) and
+# the floor ``mod`` of jnp.mod (NULL on a zero divisor)
+DBIN_FNS = ("power", "atan2", "mod")
+BITW_OPS = ("and", "or", "xor", "shift_left", "shift_right", "bit_count")
+GL_INT, GL_DOUBLE, GL_LONG = 0, 1, 2
+CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG = 0, 1, 2
 
 # storage kinds of loaded columns and of the output
 KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128 = range(5)
@@ -120,11 +167,14 @@ COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null",
                DMUL: "dmul", DNEG: "dneg", DABS: "dabs", DCMP: "dcmp", NEG: "neg",
                ABS: "abs", COAL: "coalesce", SFLOOR: "floor", DFLOOR: "floor",
                SROUND: "round", DROUND: "round", D2S: "cast_decimal", D2L: "cast_decimal",
-               LADD: "ladd"}
+               LADD: "ladd", DUN: "dun", DBIN: "dbin", BITW: "bitw", GL: "gl",
+               NULLIF: "nullif", CASTBI: "castbi", HLL: "hll", WBUCKET: "wbucket",
+               IMOD: "imod"}
 #: table kinds counted by name: a string CASE/IF/coalesce's branch
-#: codes remapped into the merged dictionary, and the two sides of a
-#: string-column comparison mapped to shared value ids
-COUNTED_TABLES = ("remap", "string_eq")
+#: codes remapped into the merged dictionary, the two sides of a
+#: string-column comparison mapped to shared value ids, and a varchar
+#: min/max's collation ranks (or their codes back)
+COUNTED_TABLES = ("remap", "string_eq", "collation")
 
 _I32_MIN = -(1 << 31)
 
@@ -228,10 +278,234 @@ def civil_from_days(z: torch.Tensor):
     return torch.where(m <= 2, y + 1, y), m, d
 
 
+def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """(year, month, day) -> epoch days, the inverse of
+    :func:`civil_from_days` (the reference's ``_days_from_civil``)."""
+    y = y - (m <= 2).to(y.dtype)
+    era = _fdiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
 def date_part(days: torch.Tensor, part: int) -> torch.Tensor:
-    """DATEPART's plain form: year, month, day or quarter (0-3)."""
+    """DATEPART's plain form (``DATE_PARTS`` of ``expr/compile.py``):
+    year, month, day, quarter, ISO day_of_week (Monday 1), day_of_year,
+    ISO week and year_of_week (the week holding the date's Thursday
+    belongs to that Thursday's year), last_day_of_month (epoch days)."""
     y, m, d = civil_from_days(days)
-    return (y, m, d, _fdiv(m - 1, 3) + 1)[part]
+    one = torch.ones_like(m)
+    if part < 4:
+        return (y, m, d, _fdiv(m - 1, 3) + 1)[part]
+    if part == 4:
+        return torch.remainder(days + 3, 7) + 1
+    if part == 5:
+        return days - days_from_civil(y, one, one) + 1
+    if part in (6, 7):
+        th = days - torch.remainder(days + 3, 7) + 3
+        y_th = civil_from_days(th)[0]
+        return _fdiv(th - days_from_civil(y_th, one, one), 7) + 1 if part == 6 else y_th
+    dec = m == 12
+    return days_from_civil(torch.where(dec, y + 1, y), torch.where(dec, one, m + 1), one) - 1
+
+
+def lsr(x: torch.Tensor, s) -> torch.Tensor:
+    """Logical right shift of int64 lanes by ``s`` (an int or a tensor
+    in 0..63): torch has no unsigned 64-bit type, so the sign bits the
+    arithmetic shift brings in are masked off."""
+    if isinstance(s, int):
+        return x if s == 0 else (x >> s) & ((1 << (64 - s)) - 1)
+    s1 = torch.where(s == 0, torch.ones_like(s), s)
+    return torch.where(s == 0, x, (x >> s1) & ((torch.ones_like(s1) << (64 - s1)) - 1))
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 lane (SWAR, wrapping multiplies)."""
+    x = x - (lsr(x, 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + (lsr(x, 2) & 0x3333333333333333)
+    x = (x + lsr(x, 4)) & 0x0F0F0F0F0F0F0F0F
+    return lsr(x * 0x0101010101010101, 56)
+
+
+def _s64(u: int) -> int:
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def mix_u64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer over int64 lanes read as uint64 (the
+    reference's ``_mix_u64``); int64 multiplies wrap as uint64's do."""
+    x = (x ^ lsr(x, 30)) * _s64(0xBF58476D1CE4E5B9)
+    x = (x ^ lsr(x, 27)) * _s64(0x94D049BB133111EB)
+    return x ^ lsr(x, 31)
+
+
+def hll_from_lane(lane: torch.Tensor, rho: bool, p: int) -> torch.Tensor:
+    """HLL's bucket (the hash's top ``p`` bits) or rho (the leading
+    zeros of the rest, a sentinel bit capping them, plus one) of int64
+    lanes (the reference's ``_hll_from_hash`` over ``_mix_u64``)."""
+    h = mix_u64(lane)
+    if not rho:
+        return lsr(h, 64 - p)
+    x = (h << p) | (1 << (p - 1))
+    clz = torch.zeros_like(x)
+    for shift in (32, 16, 8, 4, 2, 1):
+        empty = lsr(x, 64 - shift) == 0
+        clz = clz + torch.where(empty, shift, 0)
+        x = torch.where(empty, x << shift, x)
+    return clz + 1
+
+
+_TWO63 = 9223372036854775808.0
+
+
+def double_to_int64(x: torch.Tensor) -> torch.Tensor:
+    """XLA's conversion of a double to int64: toward zero, saturating
+    past the int64 range, NaN to 0 (torch's own is undefined there)."""
+    big, small, nan = x >= _TWO63, x < -_TWO63, torch.isnan(x)
+    safe = torch.where(big | small | nan, torch.zeros_like(x), x).to(torch.int64)
+    return torch.where(big, _I64_MAX, torch.where(small, _I64_MIN, safe))
+
+
+def double_key(x: torch.Tensor) -> torch.Tensor:
+    """An int64 that orders as the doubles do, -0.0 below 0.0 (the
+    reference's min/max order); NaN takes no fixed place here."""
+    b = x.view(torch.int64) if x.dtype == torch.float64 else x
+    return b ^ ((b >> 63) & _I64_MAX)
+
+
+def _nan_where(x, y, pick_x):
+    """``pick_x ? x : y``, NaN where either is NaN (jnp.maximum's rule)."""
+    nan = torch.isnan(x) | torch.isnan(y)
+    return torch.where(nan, torch.full_like(x, float("nan")), torch.where(pick_x, x, y))
+
+
+def cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Cube root: torch has none, so a power guess refined by one
+    Newton step (the guess is good to ~1e-14, the step to the last
+    bit), on the magnitude scaled by an exact power of two into a range
+    where the cube neither overflows nor turns subnormal; zeros,
+    infinities and NaN pass through."""
+    a = torch.abs(x)
+    ok = torch.isfinite(a) & (a > 0)
+    tiny, big = a < 2.0 ** -900, a > 2.0 ** 900
+    one = torch.ones_like(a)
+    a2 = torch.where(ok, a, one) * torch.where(tiny, 2.0 ** 960,
+                                               torch.where(big, 2.0 ** -960, one))
+    y0 = torch.pow(a2, 1.0 / 3.0)
+    y = y0 - (y0 * y0 * y0 - a2) / (3.0 * y0 * y0)
+    y = y * torch.where(tiny, 2.0 ** -320, torch.where(big, 2.0 ** 320, one))
+    return torch.copysign(torch.where(ok, y, a), x)
+
+
+def dun_plain(fn: int, x: torch.Tensor) -> torch.Tensor:
+    """DUN's plain form over a double tensor."""
+    name = DUN_FNS[fn]
+    if name == "sqrt":  # correctly rounded, as the card's __dsqrt_rn (numpy's on the CPU)
+        if x.is_cuda:
+            return torch.sqrt(x)
+        import numpy as np
+
+        with np.errstate(invalid="ignore"):
+            return torch.from_numpy(np.sqrt(x.numpy()))
+    if name == "cbrt":
+        return cbrt(x)
+    if name == "degrees":  # jnp.degrees: one multiply by the constant
+        return x * (180.0 / 3.141592653589793)
+    if name == "radians":
+        return x * (3.141592653589793 / 180.0)
+    if name == "sign":  # jnp.sign, then XLA's int conversion (NaN -> 0)
+        return (x > 0).to(torch.int64) - (x < 0).to(torch.int64)
+    if name == "is_nan":
+        return torch.isnan(x).to(torch.int64)
+    if name == "is_finite":
+        return torch.isfinite(x).to(torch.int64)
+    if name == "is_infinite":
+        return torch.isinf(x).to(torch.int64)
+    return {"exp": torch.exp, "ln": torch.log, "log2": torch.log2, "log10": torch.log10,
+            "sin": torch.sin, "cos": torch.cos, "tan": torch.tan, "asin": torch.asin,
+            "acos": torch.acos, "atan": torch.atan, "sinh": torch.sinh, "cosh": torch.cosh,
+            "tanh": torch.tanh, "truncate": torch.trunc}[name](x)
+
+
+def dbin_plain(fn: int, a: torch.Tensor, b: torch.Tensor):
+    """DBIN's plain form: ``(value, nonzero divisor)``."""
+    if DBIN_FNS[fn] == "power":
+        return torch.pow(a, b), None
+    if DBIN_FNS[fn] == "atan2":
+        return torch.atan2(a, b), None
+    zero = b == 0  # jnp.mod: fmod, moved to the divisor's sign
+    bs = torch.where(zero, torch.ones_like(b), b)
+    r = torch.fmod(a, bs)
+    return torch.where((r != 0) & ((r < 0) != (bs < 0)), r + bs, r), ~zero
+
+
+def bitw_plain(arg: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """BITW's plain form: and/or/xor of two int64 lanes, or a shift
+    (by ``b & 63``, Java's rule) or bit count of ``a``'s low ``bits``
+    bits as an unsigned field, masked back to ``bits``."""
+    op, bits = BITW_OPS[arg & 15], arg >> 4
+    if op in ("and", "or", "xor"):
+        return {"and": a & b, "or": a | b, "xor": a ^ b}[op]
+    mask = (1 << bits) - 1 if bits < 64 else -1
+    ua = a & mask
+    if op == "bit_count":
+        return popcount(ua)
+    s = b & 63
+    out = ua << s if op == "shift_left" else lsr(ua, s)
+    return out & mask
+
+
+def greatest_least(take_max: bool, lane: int, a, b):
+    """GL's plain form over two operands of one lane; NULL handling is
+    the caller's (NULL if either is)."""
+    if lane == GL_LONG:
+        a_less, _ = d128.compare(a, b)
+        return torch.where((a_less != take_max)[:, None], a, b)
+    if lane == GL_DOUBLE:
+        ka, kb = double_key(a), double_key(b)
+        return _nan_where(a, b, ka >= kb if take_max else ka <= kb)
+    return torch.maximum(a, b) if take_max else torch.minimum(a, b)
+
+
+def cast_bigint_plain(arg: int, d: torch.Tensor) -> torch.Tensor:
+    """CASTBI's plain form: a double toward zero (XLA's saturating
+    conversion), a short decimal HALF_UP at its scale, a long decimal's
+    floor at its scale (``decimal128.rescale`` down, then narrowed to
+    int64, wrapping)."""
+    src, scale = arg & 3, arg >> 2
+    if src == CAST_FROM_DOUBLE:
+        return double_to_int64(d)
+    p = 10 ** scale
+    if src == CAST_FROM_LONG:
+        return d[:, 0] * (d128.BASE // p) + _fdiv(d[:, 1], p)
+    if scale == 0:
+        return d
+    q = _fdiv(d, p)
+    r = d - q * p
+    return q + torch.where(d >= 0, 2 * r >= p, 2 * r > p).to(torch.int64)
+
+
+def imod_plain(is_div: bool, a: torch.Tensor, b: torch.Tensor):
+    """IMOD's plain form: SQL's truncating int64 mod (the dividend's
+    sign) or div (toward zero): ``(value, valid)`` with NULL on a zero
+    divisor and, for div, on INT64_MIN / -1."""
+    bs = torch.where(b == 0, torch.ones_like(b), b)
+    aa, ab = torch.abs(a), torch.abs(bs)
+    if is_div:
+        q = torch.div(aa, ab, rounding_mode="floor")
+        return torch.where((a < 0) ^ (bs < 0), -q, q), (b != 0) & ~((a == _I64_MIN) & (b == -1))
+    r = torch.remainder(aa, ab)
+    return torch.where(a < 0, -r, r), b != 0
+
+
+def width_bucket_plain(x, lo, hi, n):
+    """WBUCKET's plain form (the reference's ``width_bucket``)."""
+    one = torch.ones_like(x)
+    frac = (x - lo) / torch.where(hi == lo, one, hi - lo)
+    b = double_to_int64(torch.floor(frac * n.to(torch.float64))) + 1
+    return torch.minimum(torch.maximum(b, torch.zeros_like(b)), n + 1)
 
 
 def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -338,6 +612,20 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == DATEPART:
             d, v = stack.pop()
             stack.append((date_part(d, arg), v))
+        elif op == DUN:
+            d, v = stack.pop()
+            stack.append((dun_plain(arg, d), v))
+        elif op == CASTBI:
+            d, v = stack.pop()
+            stack.append((cast_bigint_plain(arg, d), v))
+        elif op == HLL:  # a double hashes its bits
+            d, v = stack.pop()
+            lane = d.view(torch.int64) if d.is_floating_point() else d
+            stack.append((hll_from_lane(lane, bool(arg & 1), arg >> 1), v))
+        elif op == WBUCKET:
+            (nd, nv), (hd, hv), (ld, lv), (xd, xv) = (stack.pop(), stack.pop(), stack.pop(),
+                                                       stack.pop())
+            stack.append((width_bucket_plain(xd, ld, hd, nd), xv & lv & hv & nv))
         elif op == NOTNULL:
             _, v = stack.pop()
             stack.append(((~v if arg else v).to(torch.int64), torch.ones_like(v)))
@@ -354,6 +642,9 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
             (bd, bv), (ad, av) = stack.pop(), stack.pop()
             if op in (AND, OR):
                 stack.append(_logic(op, ad, av, bd, bv))
+                continue
+            if op == NULLIF:  # b: a = b, which NULLs a where it is true
+                stack.append((ad, av & ~((bd != 0) & bv)))
                 continue
             if op == COAL:  # the first valid operand
                 take = ~av & bv
@@ -380,6 +671,17 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
                 v = v & ~zero
             elif op in (DADD, DSUB, DMUL):
                 d = ad + bd if op == DADD else ad - bd if op == DSUB else ad * bd
+            elif op == DBIN:
+                d, ok = dbin_plain(arg, ad, bd)
+                if ok is not None:
+                    v = v & ok
+            elif op == BITW:
+                d = bitw_plain(arg, ad, bd)
+            elif op == GL:
+                d = greatest_least(bool(arg & 1), arg >> 1, ad, bd)
+            elif op == IMOD:
+                d, ok = imod_plain(bool(arg), ad, bd)
+                v = v & ok
             elif op == DCMP:
                 d = (ad == bd, ad != bd, ad < bd, ad <= bd, ad > bd, ad >= bd)[arg].to(
                     torch.int64)

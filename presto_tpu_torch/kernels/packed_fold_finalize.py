@@ -28,7 +28,11 @@ MODE_FOLD, MODE_FINALIZE = 0, 1
 # COL_I64 / COL_D128 add; the MIN / MAX kinds keep the lesser or
 # greater slot (int64, int32 or two limbs)
 COL_I64, COL_D128, COL_MIN_I64, COL_MAX_I64, COL_MIN_I32, COL_MAX_I32, COL_MIN_D128, \
-    COL_MAX_D128, COL_F64, COL_VAR_M2 = range(10)
+    COL_MAX_D128, COL_F64, COL_VAR_M2, COL_MIN_F64, COL_MAX_F64, COL_MIN_BOOL, COL_MAX_BOOL, \
+    COL_BAND, COL_BOR = range(16)
+# COL_MIN_F64 / COL_MAX_F64 keep the lesser or greater double (-0.0
+# below 0.0, NaN winning); the BOOL kinds and / or two booleans; BAND /
+# BOR and / or two bitwise folds
 # COL_F64 adds doubles; COL_VAR_M2 is a variance state's m2 column,
 # merged by Chan's pairwise update from its own column, the s column
 # just before it and the count column just after it (the state's
@@ -41,7 +45,13 @@ _COL_I32 = (COL_MIN_I32, COL_MAX_I32)
 FIN_COUNT, FIN_SUM, FIN_SUM_D128, FIN_AVG_SHORT, FIN_AVG_D128, FIN_AVG_D128_NARROW, \
     FIN_VALUE_I32, FIN_AVG_DOUBLE, FIN_SUM0, FIN_SUM0_D128, FIN_SUM_COLLAPSE, \
     FIN_SUM0_COLLAPSE, FIN_SUM_F64, FIN_AVG_F64, FIN_VAR_POP, FIN_VAR_SAMP, \
-    FIN_STDDEV_POP, FIN_STDDEV_SAMP = range(18)
+    FIN_STDDEV_POP, FIN_STDDEV_SAMP, FIN_VALUE_BOOL, FIN_BOOL_AND, FIN_BOOL_OR, \
+    FIN_HLL = range(22)
+# FIN_VALUE_BOOL: a boolean min/max; FIN_BOOL_AND / FIN_BOOL_OR take
+# (count of true, count); FIN_HLL (sum of 2^-rho, present buckets): the
+# HLL estimate of m = HLL_M buckets, never NULL
+HLL_M = 4096
+_BOOL_OUT = (FIN_VALUE_BOOL, FIN_BOOL_AND, FIN_BOOL_OR)
 # FIN_SUM0 / FIN_SUM0_D128: a sum that is 0, never NULL, on an empty
 # group; the COLLAPSE kinds narrow a two-limb sum to hi * 10^18 + lo in
 # int64 (wrapping); FIN_SUM_F64 / FIN_AVG_F64 take a double sum; the
@@ -50,8 +60,8 @@ _WIDE_IN = (FIN_SUM_D128, FIN_AVG_D128, FIN_AVG_D128_NARROW, FIN_SUM0_D128,
             FIN_SUM_COLLAPSE, FIN_SUM0_COLLAPSE)
 _WIDE_OUT = (FIN_SUM_D128, FIN_AVG_D128, FIN_SUM0_D128)
 _F64_IN = (FIN_SUM_F64, FIN_AVG_F64, FIN_VAR_POP, FIN_VAR_SAMP, FIN_STDDEV_POP,
-           FIN_STDDEV_SAMP)
-_F64_OUT = _F64_IN + (FIN_AVG_DOUBLE,)
+           FIN_STDDEV_SAMP, FIN_HLL)
+_F64_OUT = tuple(k for k in _F64_IN if k != FIN_HLL) + (FIN_AVG_DOUBLE,)
 VARIANCE_KINDS = (FIN_VAR_POP, FIN_VAR_SAMP, FIN_STDDEV_POP, FIN_STDDEV_SAMP)
 MAX_ITEMS = 64
 
@@ -61,6 +71,14 @@ double_avg_launches = 0
 #: launches by new kind: folds with a Chan update, finalizes with a
 #: sum0, a collapsed long sum, a variance
 chan_fold_launches = 0
+#: launches holding the eighth slice's kinds, by name ("min_double",
+#: "bool", "bitwise", "hll")
+kind_launches: dict = {}
+_KIND_NAMES = {COL_MIN_F64: "min_double", COL_MAX_F64: "min_double",
+               COL_MIN_BOOL: "bool", COL_MAX_BOOL: "bool", COL_BAND: "bitwise",
+               COL_BOR: "bitwise"}
+_FIN_NAMES = {FIN_VALUE_BOOL: "bool", FIN_BOOL_AND: "bool", FIN_BOOL_OR: "bool",
+              FIN_HLL: "hll"}
 sum0_launches = 0
 collapse_launches = 0
 variance_launches = 0
@@ -104,6 +122,17 @@ def packed_fold_plain(a: Sequence[Column], b: Sequence[Column], mask_a, mask_b):
             data = torch.where((a_less == (kind == COL_MIN_D128))[:, None], da, db)
         elif kind in (COL_I64, COL_F64):
             data = da + db
+        elif kind in (COL_MIN_F64, COL_MAX_F64):
+            from presto_tpu_torch.kernels.packed_group_agg import minmax_key, minmax_value
+
+            is_min = kind == COL_MIN_F64
+            ka, kb = minmax_key(da, is_min), minmax_key(db, is_min)
+            data = minmax_value(torch.minimum(ka, kb) if is_min else torch.maximum(ka, kb),
+                                is_min)
+        elif kind in (COL_MIN_BOOL, COL_BAND):
+            data = da & db
+        elif kind in (COL_MAX_BOOL, COL_BOR):
+            data = da | db
         else:
             data = torch.minimum(da, db) if kind in _COL_MIN else torch.maximum(da, db)
         out.append((data, va | vb))
@@ -145,6 +174,12 @@ def packed_finalize_plain(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]
             continue
         valid = (cnt > 0) & mask
         n = torch.clamp(cnt, min=1)
+        if kind == FIN_HLL:
+            out.append((hll_estimate(s, cnt), mask.clone()))
+            continue
+        if kind in (FIN_BOOL_AND, FIN_BOOL_OR):
+            out.append((s == cnt if kind == FIN_BOOL_AND else s > 0, valid))
+            continue
         if kind in (FIN_SUM0, FIN_SUM0_D128, FIN_SUM0_COLLAPSE):
             valid = mask.clone()
         if kind in (FIN_SUM_COLLAPSE, FIN_SUM0_COLLAPSE):
@@ -165,7 +200,7 @@ def packed_finalize_plain(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]
         elif kind == FIN_AVG_F64:
             data = s / n.to(torch.float64)
         elif kind in (FIN_SUM, FIN_SUM_D128, FIN_VALUE_I32, FIN_SUM0, FIN_SUM0_D128,
-                      FIN_SUM_F64):
+                      FIN_SUM_F64, FIN_VALUE_BOOL):
             data = s.clone()
         elif kind == FIN_AVG_DOUBLE:  # tensor by tensor: a true division on every device
             data = s.to(torch.float64) / n.to(torch.float64)
@@ -183,6 +218,23 @@ def packed_finalize_plain(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]
     return out
 
 
+def hll_estimate(s: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
+    """hll_merge's estimator over (sum of 2^-rho, present buckets): the
+    raw HLL estimate, or linear counting below 2.5 m while a bucket is
+    empty; rounded half to even (the reference's ``_finalize``).  Each
+    step multiplies or divides two tensors, as the kernel's _rn
+    intrinsics do."""
+    m = float(HLL_M)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    mt = torch.full_like(s, m)
+    zeros = mt - present.to(torch.float64)
+    s_full = s + zeros
+    raw = (torch.full_like(s, alpha) * mt) * mt / torch.clamp(s_full, min=1e-12)
+    lc = mt * torch.log(mt / torch.clamp(zeros, min=1.0))
+    est = torch.where((raw <= 2.5 * m) & (zeros > 0), lc, raw)
+    return torch.round(est).to(torch.int64)
+
+
 # -- dispatch ------------------------------------------------------------------
 
 def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
@@ -194,9 +246,12 @@ def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
     tensors = [mask_a, mask_b]
     outs = []
     for c, ((kind, da, va), (kb, db, vb)) in enumerate(zip(a, b)):
+        if not COL_I64 <= kind <= COL_BOR:
+            raise ValueError(f"packed_fold: column kind {kind}")
         shape = (g, 2) if kind in _COL_WIDE else (g,)
         dtype = torch.int32 if kind in _COL_I32 else torch.float64 \
-            if kind in (COL_F64, COL_VAR_M2) else torch.int64
+            if kind in (COL_F64, COL_VAR_M2, COL_MIN_F64, COL_MAX_F64) else torch.bool \
+            if kind in (COL_MIN_BOOL, COL_MAX_BOOL) else torch.int64
         if kind == COL_VAR_M2 and not (0 < c < len(a) - 1 and a[c - 1][0] == COL_F64
                                        and a[c + 1][0] == COL_I64):
             raise ValueError("packed_fold: a variance m2 column needs its s and count "
@@ -212,7 +267,13 @@ def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
             [c[2] for c in a], [c[2] for c in b], outs, mask_a, mask_b, mask_out, tensors)
     global chan_fold_launches
     chan_fold_launches += int(any(c[0] == COL_VAR_M2 for c in a))
+    _count_kinds(_KIND_NAMES, [c[0] for c in a])
     return outs, mask_out
+
+
+def _count_kinds(names, kinds) -> None:
+    for name in {names[k] for k in kinds if k in names}:
+        kind_launches[name] = kind_launches.get(name, 0) + 1
 
 
 def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
@@ -225,18 +286,19 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
     tensors = [mask]
     outs = []
     for kind, s, cnt in items:
-        if not FIN_COUNT <= kind <= FIN_STDDEV_SAMP:
+        if not FIN_COUNT <= kind <= FIN_HLL:
             raise ValueError(f"packed_finalize: kind {kind}")
         wide_in = kind in _WIDE_IN
         dtype = torch.int32 if kind == FIN_VALUE_I32 else torch.float64 \
-            if kind in _F64_IN else torch.int64
+            if kind in _F64_IN else torch.bool if kind == FIN_VALUE_BOOL else torch.int64
         if s.shape != ((g, 2) if wide_in else (g,)) or cnt.shape != (g,) \
                 or s.dtype != dtype or cnt.dtype != torch.int64:
             raise ValueError("packed_finalize: mismatched state columns")
         tensors += [s, cnt]
         wide_out = kind in _WIDE_OUT
         out_dtype = torch.float64 if kind in _F64_OUT else \
-            torch.int32 if kind == FIN_VALUE_I32 else torch.int64
+            torch.int32 if kind == FIN_VALUE_I32 else torch.bool if kind in _BOOL_OUT \
+            else torch.int64
         outs.append((torch.empty((g, 2) if wide_out else (g,), dtype=out_dtype,
                                  device=mask.device),
                      torch.empty(g, dtype=torch.bool, device=mask.device)))
@@ -248,6 +310,7 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
     sum0_launches += int(bool(kinds & {FIN_SUM0, FIN_SUM0_D128, FIN_SUM0_COLLAPSE}))
     collapse_launches += int(bool(kinds & {FIN_SUM_COLLAPSE, FIN_SUM0_COLLAPSE}))
     variance_launches += int(bool(kinds & set(VARIANCE_KINDS)))
+    _count_kinds(_FIN_NAMES, kinds)
     return outs
 
 

@@ -7,7 +7,10 @@ one int64, long sums as two normalised base-10^18 limbs, the least or
 greatest value of a short (int32/int64) or long (two-limb) argument
 beside its count of non-null rows, a double sum beside its count
 (SUM_DOUBLE), or the variance state ``(s, m2, cnt)`` of a double
-argument (VARIANCE), plus the ``present`` flag of each slot.  Double
+argument (VARIANCE), a double's, a boolean's or a varchar rank's
+least or greatest value, bool_and / bool_or's count of true,
+bitwise_and_agg / bitwise_or_agg's fold and hll_merge's sum of 2^-rho
+(each beside its count), plus the ``present`` flag of each slot.  Double
 sums add in one fixed order, the same on the card and here
 (:func:`chunk_sums_plain`), so the card's states equal the twin's bit
 for bit.  On a CUDA tensor it launches
@@ -27,12 +30,23 @@ from presto_tpu_torch.ops import decimal128 as d128
 
 # aggregate kinds: keep in step with csrc/packed_group_agg.cu
 COUNT_STAR, COUNT, SUM_SHORT, SUM_LONG, MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, \
-    SUM_LONG_ARG, SUM_DOUBLE, VARIANCE = range(11)
+    SUM_LONG_ARG, SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE, BOOL_COUNT, BIT_AND, BIT_OR, \
+    HLL_SUM = range(17)
+# MIN_DOUBLE / MAX_DOUBLE: a double's extreme (-0.0 below 0.0, NaN
+# winning both, as the reference's segment_min/segment_max); BOOL_COUNT:
+# bool_and / bool_or / every's (count of true, count); BIT_AND / BIT_OR:
+# bitwise_and_agg / bitwise_or_agg's (fold, count); HLL_SUM: hll_merge's
+# (sum of 2^-rho, count of present buckets), a double state
 RAW_WIDTH = {COUNT_STAR: 1, COUNT: 1, SUM_SHORT: 2, SUM_LONG: 5, MIN_SHORT: 2, MAX_SHORT: 2,
-             MIN_LONG: 3, MAX_LONG: 3, SUM_LONG_ARG: 5, SUM_DOUBLE: 1, VARIANCE: 1}
-EXTREMES = (MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG)
+             MIN_LONG: 3, MAX_LONG: 3, SUM_LONG_ARG: 5, SUM_DOUBLE: 1, VARIANCE: 1,
+             MIN_DOUBLE: 2, MAX_DOUBLE: 2, BOOL_COUNT: 2, BIT_AND: 2, BIT_OR: 2, HLL_SUM: 1}
+EXTREMES = (MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, MIN_DOUBLE, MAX_DOUBLE)
 LONG_ARG = (MIN_LONG, MAX_LONG, SUM_LONG_ARG)  # kinds whose argument is (n, 2) limbs
-DOUBLE_ARG = (SUM_DOUBLE, VARIANCE)  # kinds whose argument is a double
+DOUBLE_ARG = (SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE)  # a double argument
+# states that add doubles in the fixed order (one slot at most here)
+DOUBLE_STATES = (SUM_DOUBLE, VARIANCE, HLL_SUM)
+KIND_NAMES = {MIN_DOUBLE: "min_double", MAX_DOUBLE: "max_double", BOOL_COUNT: "bool",
+              BIT_AND: "bitwise", BIT_OR: "bitwise", HLL_SUM: "hll"}
 # the slots a double state may have here: one, the global aggregate's
 # (ops/aggregate.takes_sort_path sends keyed double states to K6, so
 # every keyed double sum has one order, K6's)
@@ -50,6 +64,9 @@ minmax_launches = 0
 #: launches with a variance state, and with a double sum
 variance_launches = 0
 double_sum_launches = 0
+#: launches by the eighth slice's kinds (KIND_NAMES) and min/max over
+#: booleans ("min_bool")
+kind_launches: dict = {}
 
 # key: (data, valid, lo, card); agg: (kind, data or None, valid or None)
 Key = Tuple[torch.Tensor, torch.Tensor, int, int]
@@ -86,12 +103,63 @@ def seg_extreme_long(limbs: torch.Tensor, slot: torch.Tensor, n_slots: int, is_m
 
 def narrow(ext: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """An int64 extreme state in the argument's storage (the int64
-    identities become the narrower type's)."""
+    identities become the narrower type's; a boolean's become the
+    neutral value of its fold: true for min, false for max)."""
     if dtype == torch.int64:
         return ext
+    if dtype == torch.bool:
+        return torch.where(ext == torch.iinfo(torch.int64).min, False, ext != 0)
     big, small = torch.iinfo(torch.int64), torch.iinfo(dtype)
     out = torch.where(ext == big.max, small.max, torch.where(ext == big.min, small.min, ext))
     return out.to(dtype)
+
+
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+_NAN = 0x7FF8000000000000  # the canonical NaN's bits
+
+
+def minmax_key(x: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """A double's min/max order key (csrc/common.cuh ``minmax_key``):
+    -0.0 below 0.0, NaN past every number on the side where it wins."""
+    from presto_tpu_torch.kernels.expr_eval import double_key
+
+    nan_key = (_NAN | _I64_MIN) ^ _I64_MAX if is_min else _NAN
+    return torch.where(torch.isnan(x), nan_key, double_key(x))
+
+
+def minmax_value(key: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """A min/max key back to its double: the identity (an empty state)
+    to +inf (min) or -inf (max), any NaN to the canonical one."""
+    from presto_tpu_torch.kernels.expr_eval import double_key
+
+    x = double_key(key).view(torch.float64)
+    empty = key == (_I64_MAX if is_min else _I64_MIN)
+    x = torch.where(empty, float("inf") if is_min else float("-inf"), x)
+    return torch.where(torch.isnan(x), float("nan"), x)
+
+
+def hll_weight(rho: torch.Tensor) -> torch.Tensor:
+    """2^-rho, exact (the double's bits; the reference's exp2 may miss
+    the last bit)."""
+    return ((1023 - rho.to(torch.int64)) << 52).view(torch.float64)
+
+
+def seg_bitwise(vals: torch.Tensor, slot: torch.Tensor, n_slots: int, is_and: bool):
+    """Per-slot bitwise and (or) of int64 ``vals``; an empty slot holds
+    all ones (zero); rows with ``slot == n_slots`` are dropped.  Bit by
+    bit: a bit survives an and where every row has it, an or where
+    one does."""
+    dev = vals.device
+    rows = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
+    rows.index_add_(0, slot, torch.ones_like(vals))
+    out = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
+    for b in range(64):
+        bit = (vals >> b) & 1
+        cnt = torch.zeros(n_slots + 1, dtype=torch.int64, device=dev)
+        cnt.index_add_(0, slot, bit)
+        on = cnt == rows if is_and else cnt > 0
+        out = out | (on.to(torch.int64) << b)
+    return out[:n_slots]
 
 
 def chunk_sums_plain(vals: torch.Tensor, slot: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -154,6 +222,22 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
         cnt = seg(nonnull.to(torch.int64))
         if kind == COUNT:
             states.append([cnt])
+        elif kind in (MIN_DOUBLE, MAX_DOUBLE):
+            is_min = kind == MIN_DOUBLE
+            nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
+            ext = seg_extreme(minmax_key(data, is_min), nn_slot, n_groups, is_min)
+            states.append([minmax_value(ext, is_min), cnt])
+        elif kind == BOOL_COUNT:
+            states.append([seg((nonnull & (data != 0)).to(torch.int64)), cnt])
+        elif kind in (BIT_AND, BIT_OR):
+            nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
+            states.append([seg_bitwise(data.to(torch.int64), nn_slot, n_groups,
+                                       kind == BIT_AND), cnt])
+        elif kind == HLL_SUM:
+            nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
+            x = torch.where(nonnull, hll_weight(data), torch.zeros(n, dtype=torch.float64,
+                                                                   device=dev))
+            states.append([chunk_sums_plain(x, nn_slot, n_groups), cnt])
         elif kind in EXTREMES:
             is_min = kind in (MIN_SHORT, MIN_LONG)
             nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
@@ -192,7 +276,7 @@ def packed_group_agg(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
     grouped by the packed ``keys`` into ``n_groups`` slots (no keys: one
     global group).  CPU tensors take the plain version; CUDA tensors
     launch the kernel."""
-    if any(k in DOUBLE_ARG for k, _, _ in aggs) and n_groups > DOUBLE_SLOT_LIMIT:
+    if any(k in DOUBLE_STATES for k, _, _ in aggs) and n_groups > DOUBLE_SLOT_LIMIT:
         raise ValueError(f"packed_group_agg: double states over {n_groups} slots")
     if not row_mask.is_cuda:
         return packed_group_agg_plain(n, row_mask, keys, aggs, n_groups)
@@ -227,10 +311,8 @@ def _launch(n, row_mask, keys, aggs, n_groups):
             raise ValueError(f"packed_group_agg: aggregate kind {kind}")
         if kind != COUNT_STAR:
             _check_col(data, valid, n, "argument", kind in LONG_ARG, kind in DOUBLE_ARG)
-            if kind in EXTREMES and data.dtype == torch.bool:
-                raise ValueError("packed_group_agg: min/max over booleans")
             tensors += [data, valid]
-    doubles = any(k in DOUBLE_ARG for k, _, _ in aggs)
+    doubles = any(k in DOUBLE_STATES for k, _, _ in aggs)
     build.require_cuda(tensors, "packed_group_agg")
     dev = row_mask.device
     raw_width = 1 + sum(RAW_WIDTH[k] for k, _, _ in aggs)
@@ -245,8 +327,10 @@ def _launch(n, row_mask, keys, aggs, n_groups):
             states.append([torch.empty(n_groups, dtype=data.dtype, device=dev), cnt])
         elif kind in (SUM_LONG, MIN_LONG, MAX_LONG, SUM_LONG_ARG):
             states.append([torch.empty((n_groups, 2), dtype=torch.int64, device=dev), cnt])
-        elif kind == SUM_DOUBLE:
+        elif kind in (SUM_DOUBLE, MIN_DOUBLE, MAX_DOUBLE, HLL_SUM):
             states.append([torch.empty(n_groups, dtype=torch.float64, device=dev), cnt])
+        elif kind in (BOOL_COUNT, BIT_AND, BIT_OR):
+            states.append([torch.empty(n_groups, dtype=torch.int64, device=dev), cnt])
         elif kind == VARIANCE:
             states.append([torch.empty(n_groups, dtype=torch.float64, device=dev),
                            torch.empty(n_groups, dtype=torch.float64, device=dev), cnt])
@@ -269,6 +353,9 @@ def _launch(n, row_mask, keys, aggs, n_groups):
     c_arg_kind = build.ints((KIND_D128 if k in LONG_ARG else KIND_F64 if k in DOUBLE_ARG
                              else _KINDS[d.dtype]) if d is not None else 0
                             for k, d, _ in aggs)
+    names = {KIND_NAMES[k] for k, _, _ in aggs if k in KIND_NAMES}
+    names |= {"min_bool" for k, d, _ in aggs if k in (MIN_SHORT, MAX_SHORT)
+              and d.dtype == torch.bool}
     c_out0 = build.ptrs(s[0].data_ptr() for s in states)
     c_out1 = build.ptrs(s[1].data_ptr() if len(s) > 1 else null for s in states)
     c_out2 = build.ptrs(s[2].data_ptr() if len(s) > 2 else null for s in states)
@@ -293,4 +380,6 @@ def _launch(n, row_mask, keys, aggs, n_groups):
         minmax_launches += 1
     variance_launches += int(any(k == VARIANCE for k, _, _ in aggs))
     double_sum_launches += int(any(k == SUM_DOUBLE for k, _, _ in aggs))
+    for name in names:
+        kind_launches[name] = kind_launches.get(name, 0) + 1
     return states, present

@@ -47,21 +47,34 @@ from presto_tpu_torch.ops import decimal128 as d128
 # valid int32/int64 value (in its own dtype), MIN_LONG / MAX_LONG the
 # least or greatest (n, 2) limbs; an empty state holds the identity.
 S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG, \
-    S_MAX_LONG, S_DSUM, S_VAR, S_VAR_MERGE = range(12)
+    S_MAX_LONG, S_DSUM, S_VAR, S_VAR_MERGE, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR, \
+    S_HLL = range(17)
+# S_MIN / S_MAX also take booleans (an empty state: the fold's neutral
+# value); S_MIN_F64 / S_MAX_F64 keep a double's extreme (-0.0 below 0.0,
+# NaN winning, as the reference's segment reductions); S_BAND / S_BOR
+# fold int64 values by and / or (an empty state: all ones / zero);
+# S_HLL adds 2^-rho of a valid int64 rho, a double state
 # S_DSUM sums a valid double (one output); S_VAR takes a double and
 # gives (s, m2, cnt); S_VAR_MERGE takes the partial states ``(s, m2,
 # cnt)`` as its data (its validity: the live partial rows) and gives
 # the merged (s, m2, cnt)
-DOUBLE_STATES = (S_DSUM, S_VAR, S_VAR_MERGE)
+DOUBLE_STATES = (S_DSUM, S_VAR, S_VAR_MERGE, S_HLL)
 DSUM_CHUNK = 256  # csrc/sorted_group_agg.cu K6_DSUM_CHUNK
 _LIMBS = (S_LIMBS_SHORT, S_LIMBS_LONG)
 _PAIRS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG)  # (G, 2) outputs
-_EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG)
+_EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG, S_MIN_F64, S_MAX_F64)
+_INT_STATES = (S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG,
+               S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR)
+KIND_NAMES = {S_MIN_F64: "min_double", S_MAX_F64: "min_double", S_BAND: "bitwise",
+              S_BOR: "bitwise", S_HLL: "hll"}
 MAX_STATES = 32  # csrc/sorted_group_agg.cu K6_MAX_STATES
 MAX_SLOTS = 64  # csrc/sorted_group_agg.cu K6_MAX_SLOTS
 _WIDTH = {S_LIMBS_SHORT: 4, S_LIMBS_LONG: 4, S_MIN_LONG: 2, S_MAX_LONG: 2}
 SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
 _DATA_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
+# how k6_finish stores a state (csrc/sorted_group_agg.cu): int64, int32
+# (narrowing the identities) or a boolean (an identity: the neutral value)
+_OUT_KINDS = {torch.int32: 1, torch.bool: 2}
 
 launches = 0
 #: launches in presorted mode, and launches with a min/max state
@@ -71,6 +84,9 @@ minmax_launches = 0
 variance_launches = 0
 variance_merge_launches = 0
 double_sum_launches = 0
+#: launches by the eighth slice's kinds (KIND_NAMES), and min/max over
+#: booleans ("min_bool")
+kind_launches: dict = {}
 
 # (kind, data or None, valid or None)
 State = Tuple[int, Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -135,6 +151,10 @@ def _double_states_plain(kind, data, valid, rows, gid, groups):
         dev = torch.where(c_i > 0, mu_i - mu[gid], zero)
         m2 = run_sums_plain(torch.where(ok, m2_i + cf * dev * dev, zero), gid, groups)
         return [s, m2, cnt]
+    if kind == S_HLL:
+        from presto_tpu_torch.kernels.packed_group_agg import hll_weight
+
+        return [run_sums_plain(torch.where(ok, hll_weight(data[rows]), zero), gid, groups)]
     x = torch.where(ok, data[rows], zero)
     s = run_sums_plain(x, gid, groups)
     if kind == S_DSUM:
@@ -174,6 +194,12 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         if kind in _EXTREMES:
             outs.append(_extreme_plain(kind, data, valid, rows, gid, groups))
             continue
+        if kind in (S_BAND, S_BOR):
+            from presto_tpu_torch.kernels.packed_group_agg import seg_bitwise
+
+            slot = torch.where(valid[rows], gid, torch.full_like(gid, groups))
+            outs.append(seg_bitwise(data[rows].to(torch.int64), slot, groups, kind == S_BAND))
+            continue
         if kind == S_ONE:
             vals = torch.ones(rows.shape[0], dtype=torch.int64, device=row_mask.device)
         else:
@@ -195,11 +221,16 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
 
 
 def _extreme_plain(kind, data, valid, rows, gid, groups):
-    from presto_tpu_torch.kernels.packed_group_agg import narrow, seg_extreme, seg_extreme_long
+    from presto_tpu_torch.kernels.packed_group_agg import (
+        minmax_key, minmax_value, narrow, seg_extreme, seg_extreme_long,
+    )
 
     ok = valid[rows]
     slot = torch.where(ok, gid, torch.full_like(gid, groups))
-    is_min = kind in (S_MIN, S_MIN_LONG)
+    is_min = kind in (S_MIN, S_MIN_LONG, S_MIN_F64)
+    if kind in (S_MIN_F64, S_MAX_F64):
+        return minmax_value(seg_extreme(minmax_key(data[rows], is_min), slot, groups, is_min),
+                            is_min)
     if kind in (S_MIN_LONG, S_MAX_LONG):
         return seg_extreme_long(data[rows], slot, groups, is_min)
     return narrow(seg_extreme(data[rows].to(torch.int64), slot, groups, is_min), data.dtype)
@@ -233,12 +264,12 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
             if valid is None or valid.dtype != torch.bool or valid.shape != (n,):
                 raise ValueError("sorted_group_agg: state validity must be (n,) bool")
             cols = data if kind == S_VAR_MERGE else (data,)
+            want = [torch.int64] if kind == S_HLL else \
+                [torch.float64] * min(len(cols), 2) + [torch.int64] * (len(cols) == 3)
             if len(cols) != (3 if kind == S_VAR_MERGE else 1) or any(
-                    c.shape != (n,) for c in cols) \
-                    or [c.dtype for c in cols[:2]] != [torch.float64] * min(len(cols), 2) \
-                    or (kind == S_VAR_MERGE and cols[2].dtype != torch.int64):
+                    c.shape != (n,) for c in cols) or [c.dtype for c in cols] != want:
                 raise ValueError("sorted_group_agg: double state data must be (n,) float64 "
-                                 "(a merge: s, m2 float64 and cnt int64)")
+                                 "(a merge: s, m2 float64 and cnt int64; S_HLL: int64 rho)")
             idx = None
             if kind == S_VAR:
                 idx = len(int_states)
@@ -257,16 +288,19 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         if kind is not None:
             tensors += list(data) if kind == S_VAR_MERGE else [data]
     for kind, data, valid in int_states:
-        if not S_ONE <= kind <= S_MAX_LONG:
+        if kind not in _INT_STATES:
             raise ValueError(f"sorted_group_agg: state kind {kind}")
         if kind != S_ONE:
             if valid is None or valid.dtype != torch.bool or valid.shape != (n,):
                 raise ValueError("sorted_group_agg: state validity must be (n,) bool")
             tensors.append(valid)
-        if kind in (S_SUM, S_LIMBS_SHORT, S_MIN, S_MAX):
-            if data is None or data.shape != (n,) or data.dtype not in _DATA_KINDS \
-                    or (kind in _EXTREMES and data.dtype == torch.bool):
+        if kind in (S_SUM, S_LIMBS_SHORT, S_MIN, S_MAX, S_BAND, S_BOR):
+            if data is None or data.shape != (n,) or data.dtype not in _DATA_KINDS:
                 raise ValueError("sorted_group_agg: state data must be (n,) integers")
+            tensors.append(data)
+        if kind in (S_MIN_F64, S_MAX_F64):
+            if data is None or data.shape != (n,) or data.dtype != torch.float64:
+                raise ValueError("sorted_group_agg: double min/max data must be (n,) float64")
             tensors.append(data)
         if kind in (S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG):
             if data is None or data.shape != (n, 2) or data.dtype != torch.int64:
@@ -305,7 +339,8 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         (torch.empty(groups, dtype=d.dtype, device=dev),
          torch.empty(groups, dtype=torch.bool, device=dev)) for d, _, _, _ in keys]
     outs = [torch.empty((groups, 2) if kind in _PAIRS else (groups,),
-                        dtype=data.dtype if kind in (S_MIN, S_MAX) else torch.int64, device=dev)
+                        dtype=data.dtype if kind in (S_MIN, S_MAX, S_MIN_F64, S_MAX_F64)
+                        else torch.int64, device=dev)
             for kind, data, _ in states]
     width = sum(_WIDTH.get(kind, 1) for kind, _, _ in states)
     raw = torch.empty(max(groups * width, 1), dtype=torch.int64, device=dev)
@@ -327,7 +362,7 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                         for _, d, _ in states),
              build.ptrs(v.data_ptr() if v is not None else null for _, _, v in states),
              build.ptrs(o.data_ptr() for o in outs),
-             build.ints(int(o.dtype == torch.int32) for o in outs), raw.data_ptr(), stream)
+             build.ints(_OUT_KINDS.get(o.dtype, 0) for o in outs), raw.data_ptr(), stream)
     build.check(err, "sorted_group_agg")
     outs = _double_states(plan, outs, sk, order, n, scan, groups, lib, stream)
     launches += 1
@@ -337,6 +372,11 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     variance_launches += int(S_VAR in kinds)
     variance_merge_launches += int(S_VAR_MERGE in kinds)
     double_sum_launches += int(S_DSUM in kinds)
+    names = {KIND_NAMES[k] for k in kinds | {k for k, _, _ in states} if k in KIND_NAMES}
+    names |= {"min_bool" for k, d, _ in states if k in (S_MIN, S_MAX)
+              and d.dtype == torch.bool}
+    for name in names:
+        kind_launches[name] = kind_launches.get(name, 0) + 1
     return key_out, outs, groups
 
 
@@ -375,5 +415,5 @@ def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
                  s.data_ptr(), m2.data_ptr(), starts.data_ptr(), base.data_ptr(),
                  partials.data_ptr(), chunk_group.data_ptr(), part.data_ptr(), bound, stream)
         build.check(err, "sorted_group_agg")
-        outs.extend([s] if kind == S_DSUM else [s, m2, cnt])
+        outs.extend([s] if kind in (S_DSUM, S_HLL) else [s, m2, cnt])
     return outs

@@ -23,8 +23,17 @@ stddev_pop, variance, var_samp, var_pop) over the state ``(s, m2,
 cnt)``.  Double states add in one fixed order, the same on the card
 and on the CPU (see K2's and K6's twins); K2 adds them only for the
 global aggregate, and a keyed grouping with a double state takes the
-sort path (``takes_sort_path``).  min/max over doubles and varchar,
-DISTINCT and FILTER raise :class:`NotPorted`.
+sort path (``takes_sort_path``).  The eighth slice adds min/max (and
+``arbitrary``, which the binder maps to max) over doubles (an order key:
+-0.0 below 0.0, NaN winning), booleans and dictionary varchar (over the
+argument dictionary's collation ranks, mapped back to a code of that
+dictionary at finalize by K1's CANON), bool_and / bool_or / every,
+bitwise_and_agg / bitwise_or_agg, and hll_merge (approx_distinct's outer
+level, a double state like a double sum); and an aggregate's FILTER
+(``count_if``): K1 evaluates the filter beside the argument into one
+lane, the argument NULL where the filter is not true, so the kernels'
+per-aggregate validity lane is the selection lane.  DISTINCT aggregates
+(which the binder rewrites) raise :class:`NotPorted`.
 """
 
 from __future__ import annotations
@@ -35,8 +44,10 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import NotPorted
-from presto_tpu_torch.expr.compile import ExprCompiler, expr_dictionary
+from presto_tpu_torch.expr.compile import ExprCompiler, _Lowering, _lane, _out_kind, \
+    expr_dictionary
 from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr
+from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
@@ -283,8 +294,9 @@ def _agg_dict(agg: AggCall, dictionaries) -> Optional[object]:
 
 
 def _has_double_state(aggs) -> bool:
-    return any(a.fn in VARIANCE_FNS or (a.fn in ("sum", "sum0", "avg") and a.arg is not None
-                                        and _sum_type(a.arg.type).name == "double")
+    return any(a.fn in VARIANCE_FNS or a.fn == "hll_merge"
+               or (a.fn in ("sum", "sum0", "avg") and a.arg is not None
+                   and _sum_type(a.arg.type).name == "double")
                for a in aggs)
 
 
@@ -323,11 +335,9 @@ def takes_sort_path(group_exprs, key_domains, max_groups: int, aggs,
 # host tables
 # ---------------------------------------------------------------------------
 
-# id(dict) -> (dict, rank list, inv list); host lists, turned into
-# tensors on the device that asks (kept per device in _COLLATION_LUTS)
+# id(dict) -> (dict, rank list, inv list); host lists, turned into K1
+# tables (each with its copy per device) by rank_luts
 _COLLATION_CACHE: dict = {}
-# (id(dict), device) -> (dict, rank tensor, inv tensor)
-_COLLATION_LUTS: dict = {}
 
 
 def _collation_lists(d):
@@ -350,18 +360,30 @@ def _collation_lists(d):
     return cached
 
 
+# id(dict) -> (dict, rank Lut, inv Lut): K1's CANON tables of a
+# dictionary's collation (code -> rank, rank -> representative code)
+_RANK_LUTS: dict = {}
+
+
+def rank_luts(d) -> Tuple[k1.Lut, k1.Lut]:
+    """K1 tables of ``d``'s collation: code -> rank (min/max over varchar
+    reduce ranks, the reference's ``rank_lut``) and rank -> a code of
+    that value (the finalize's ``inv_lut``)."""
+    hit = _RANK_LUTS.get(id(d))
+    if hit is None:
+        _, rank, inv = _collation_lists(d)
+        hit = _RANK_LUTS[id(d)] = (d, k1.Lut(rank, torch.int32, "collation"),
+                                   k1.Lut(inv, torch.int32, "collation"))
+    return hit[1], hit[2]
+
+
 def _collation_luts(d, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(code -> collation rank, rank -> representative code) LUTs: codes
     are assignment-ordered, so string order goes through ranks.  Built
     once per dictionary and device (a derived dictionary can hold
     millions of values)."""
-    key = (id(d), str(device))
-    hit = _COLLATION_LUTS.get(key)
-    if hit is None:
-        _, rank, inv = _collation_lists(d)
-        hit = _COLLATION_LUTS[key] = (d, torch.tensor(rank, dtype=torch.int32, device=device),
-                                      torch.tensor(inv, dtype=torch.int32, device=device))
-    return hit[1], hit[2]
+    rank, inv = rank_luts(d)
+    return rank.on(device), inv.on(device)
 
 
 def expr_key_dicts(page: Page, exprs) -> list:
@@ -375,11 +397,14 @@ def expr_key_dicts(page: Page, exprs) -> list:
 # ---------------------------------------------------------------------------
 
 def _state_kind(agg: AggCall) -> int:
-    """K2 kind of an aggregate's partial state."""
-    if agg.distinct or agg.filter is not None:
-        raise NotPorted("DISTINCT and FILTER aggregates")
+    """K2 kind of an aggregate's partial state.  A filtered count_star
+    counts the rows its filter selects (COUNT over the filter lane)."""
+    if agg.distinct:
+        raise NotPorted("DISTINCT aggregates")
+    if agg.filter is not None and agg.arg is not None and _lane(agg.arg.type) == "long":
+        raise NotPorted(f"FILTER over {agg.arg.type}")
     if agg.fn == "count_star":
-        return k2.COUNT_STAR
+        return k2.COUNT_STAR if agg.filter is None else k2.COUNT
     if agg.fn == "count":
         return k2.COUNT
     if agg.fn in ("sum", "sum0", "avg"):
@@ -400,12 +425,25 @@ def _state_kind(agg: AggCall) -> int:
         return k2.VARIANCE
     if agg.fn in ("min", "max"):
         t = agg.arg.type
+        is_min = agg.fn == "min"
         if t.is_long_decimal and t.value_shape == (2,):
-            return k2.MIN_LONG if agg.fn == "min" else k2.MAX_LONG
-        if t.is_string or t.value_shape != () or t.name in ("double", "real", "boolean") \
-                or np.dtype(t.np_dtype) not in (np.dtype(np.int32), np.dtype(np.int64)):
+            return k2.MIN_LONG if is_min else k2.MAX_LONG
+        if t.name == "double":
+            return k2.MIN_DOUBLE if is_min else k2.MAX_DOUBLE
+        if t.is_raw_string or t.value_shape != () or t.name == "real" or not (
+                t.is_string or t.name == "boolean"
+                or np.dtype(t.np_dtype) in (np.dtype(np.int32), np.dtype(np.int64))):
             raise NotPorted(f"{agg.fn} over {t}")
-        return k2.MIN_SHORT if agg.fn == "min" else k2.MAX_SHORT
+        return k2.MIN_SHORT if is_min else k2.MAX_SHORT  # varchar: over collation ranks
+    if agg.fn in ("bool_and", "bool_or", "every"):
+        return k2.BOOL_COUNT
+    if agg.fn in BITWISE_FNS:
+        t = agg.arg.type
+        if t.is_decimal or t.value_shape != () or t.is_string or t.name in ("double", "real"):
+            raise NotPorted(f"{agg.fn} over {t}")
+        return k2.BIT_AND if agg.fn == "bitwise_and_agg" else k2.BIT_OR
+    if agg.fn == "hll_merge":
+        return k2.HLL_SUM
     raise NotPorted(f"aggregate {agg.fn}")
 
 
@@ -417,7 +455,21 @@ def _finalize_kind(agg: AggCall) -> int:
         t = agg.arg.type
         if t.is_long_decimal:
             return k3.FIN_SUM_D128
+        if t.name == "double":
+            return k3.FIN_SUM_F64
+        if t.name == "boolean":
+            return k3.FIN_VALUE_BOOL
+        if t.is_string:  # collation ranks (int32), mapped back to codes in _finalize
+            return k3.FIN_VALUE_I32
         return k3.FIN_VALUE_I32 if np.dtype(t.np_dtype) == np.dtype(np.int32) else k3.FIN_SUM
+    if agg.fn in ("bool_and", "every"):
+        return k3.FIN_BOOL_AND
+    if agg.fn == "bool_or":
+        return k3.FIN_BOOL_OR
+    if agg.fn in BITWISE_FNS:  # the fold, NULL where no row was valid
+        return k3.FIN_SUM
+    if agg.fn == "hll_merge":
+        return k3.FIN_HLL
     if agg.fn in VARIANCE_FNS:
         return _VARIANCE_FIN[agg.fn]
     st = _sum_type(agg.arg.type)
@@ -503,20 +555,55 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
     card)`` and aggregate arguments ``(kind, data, valid)``, evaluated
     by K1 where they are expressions."""
     c = ExprCompiler.for_page(page)
+    dicts = [b.dictionary for b in page.blocks]
     args = []
     for agg in aggs:
         kind = _state_kind(agg)
         if kind == k2.COUNT_STAR:
             args.append((kind, None, None))
-        else:
-            arg = agg.arg
-            if kind == k2.VARIANCE and arg.type.name != "double":
-                arg = Call(type=DOUBLE, fn="cast_double", args=(arg,))  # _to_double
+            continue
+        arg = agg.arg
+        if kind == k2.VARIANCE and arg.type.name != "double":
+            arg = Call(type=DOUBLE, fn="cast_double", args=(arg,))  # _to_double
+        rank = None
+        if agg.fn in ("min", "max") and arg.type.is_string:
+            adict = _agg_dict(agg, dicts)
+            if adict is None:
+                raise NotPorted(f"{agg.fn} over a string without a dictionary")
+            rank = rank_luts(adict)[0]
+        if agg.filter is None and rank is None:
             d, v = c.compile(arg)(page)
-            args.append((kind, d, v))
+        else:
+            d, v = _argument_lane(c, arg, agg.filter, rank)(page)
+        args.append((kind, d, v))
     from presto_tpu_torch.ops.join import key_columns
 
     return key_columns(page, group_exprs, key_domains), args
+
+
+def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
+                   rank: Optional[k1.Lut]):
+    """One K1 program for an aggregate's argument lane: the argument (or
+    a constant true for a filtered count_star), through the collation's
+    rank table for a varchar min/max, and NULL where the filter is not
+    true (``if(filter, arg, NULL)``: the reference's ``rowsel & valid``),
+    so the kernels' validity lane carries the selection."""
+    lw = _Lowering(c.dictionaries)
+    if filt is not None:
+        lw.emit(filt)
+    if arg is None:
+        lw._push(k1.LIT, lw._const(1))
+        out = k1.KIND_BOOL
+    else:
+        lw.emit(arg)
+        out = _out_kind(arg.type)
+    if rank is not None:
+        lw._push_lut(rank, k1.CANON)
+        out = k1.KIND_I32
+    if filt is not None:
+        lw._push(k1.NULL)
+        lw._push(k1.SEL)
+    return ExprCompiler.run_program(lw.program(out), list(lw.columns))
 
 
 def _states_out(groups: int, key_blocks, state_cols, per_agg, aggs, mode, agg_dicts,
@@ -543,8 +630,8 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
             states.append((k6.S_ONE, None, None))
         elif kind == k2.COUNT:
             states.append((k6.S_VALID, None, valid))
-        elif kind in k2.EXTREMES:
-            states.append((_K6_EXTREME[kind], data, valid))
+        elif kind in _K6_STATE:
+            states.append((_K6_STATE[kind], data, valid))
             states.append((k6.S_VALID, None, valid))
         elif kind == k2.VARIANCE:  # (s, m2, cnt)
             states.append((k6.S_VAR, data, valid))
@@ -559,7 +646,12 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
 _K6_SUM = {k2.SUM_SHORT: k6.S_SUM, k2.SUM_LONG: k6.S_LIMBS_SHORT,
            k2.SUM_LONG_ARG: k6.S_LIMBS_LONG, k2.SUM_DOUBLE: k6.S_DSUM}
 _K6_EXTREME = {k2.MIN_SHORT: k6.S_MIN, k2.MAX_SHORT: k6.S_MAX, k2.MIN_LONG: k6.S_MIN_LONG,
-               k2.MAX_LONG: k6.S_MAX_LONG}
+               k2.MAX_LONG: k6.S_MAX_LONG, k2.MIN_DOUBLE: k6.S_MIN_F64,
+               k2.MAX_DOUBLE: k6.S_MAX_F64}
+# the other (value, count) states: bool_and/bool_or's count of true rows
+# (a sum of the boolean), the bitwise folds, hll_merge's sum of 2^-rho
+_K6_STATE = {**_K6_EXTREME, k2.BOOL_COUNT: k6.S_SUM, k2.BIT_AND: k6.S_BAND,
+             k2.BIT_OR: k6.S_BOR, k2.HLL_SUM: k6.S_HLL}
 
 
 def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode,
@@ -610,8 +702,8 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):
         if agg.fn in ("count", "count_star"):
             states.append((k6.S_SUM, cols[0].data, live))
-        elif agg.fn in ("min", "max"):
-            states.append((_K6_EXTREME[_state_kind(agg)], cols[0].data, cols[1].data > 0))
+        elif agg.fn in ("min", "max") or agg.fn in BITWISE_FNS:
+            states.append((_K6_STATE[_state_kind(agg)], cols[0].data, cols[1].data > 0))
             states.append((k6.S_SUM, cols[1].data, live))
         elif agg.fn in VARIANCE_FNS:  # Chan's form over k partials
             states.append((k6.S_VAR_MERGE, tuple(c.data for c in cols), live))
@@ -693,6 +785,14 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
         # a variance finalizes from (m2, cnt); every other from (state, cnt)
         items.append((kind, cols[1] if kind in k3.VARIANCE_KINDS else cols[0], cols[-1]))
     out = k3.packed_finalize(items, mask)
+    for i, (agg, adict) in enumerate(zip(aggs, agg_dicts)):
+        if agg.fn in ("min", "max") and agg.arg.type.is_string:
+            if adict is None:
+                raise NotPorted(f"{agg.fn} over a string without a dictionary")
+            d, v = out[i]  # collation ranks back to a code of the value (K1's CANON)
+            prog = k1.Program((k1.LOAD, k1.CANON), (0, 0), (), 1, k1.KIND_I32,
+                              (rank_luts(adict)[1],))
+            out[i] = (k1.expr_eval(prog, [(d, v)], d.shape[0])[0], v)
     # a collapsed long sum keeps the plan's short type, as the reference
     return [Block(d, v, agg.type if kind in (k3.FIN_SUM_COLLAPSE, k3.FIN_SUM0_COLLAPSE)
                   else output_type(agg), adict)
@@ -710,12 +810,15 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
         for j, t in enumerate(state_types(agg)):
             if agg.fn in VARIANCE_FNS:
                 kinds.append((k3.COL_F64, k3.COL_VAR_M2, k3.COL_I64)[j])
+            elif agg.fn in ("min", "max") and j == 0:
+                wide = "d128" if t.is_long_decimal else "f64" if t.name == "double" else \
+                    "bool" if t.name == "boolean" else \
+                    "i32" if np.dtype(t.np_dtype) == np.dtype(np.int32) else "i64"
+                kinds.append(_K3_EXTREME[agg.fn, wide])
+            elif agg.fn in BITWISE_FNS and j == 0:
+                kinds.append(k3.COL_BAND if agg.fn == "bitwise_and_agg" else k3.COL_BOR)
             elif t.name == "double":
                 kinds.append(k3.COL_F64)
-            elif agg.fn in ("min", "max") and j == 0:
-                wide = "d128" if t.is_long_decimal else (
-                    "i32" if np.dtype(t.np_dtype) == np.dtype(np.int32) else "i64")
-                kinds.append(_K3_EXTREME[agg.fn, wide])
             else:
                 kinds.append(k3.COL_D128 if t.is_long_decimal else k3.COL_I64)
 
@@ -730,7 +833,9 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
 
 _K3_EXTREME = {("min", "i64"): k3.COL_MIN_I64, ("max", "i64"): k3.COL_MAX_I64,
                ("min", "i32"): k3.COL_MIN_I32, ("max", "i32"): k3.COL_MAX_I32,
-               ("min", "d128"): k3.COL_MIN_D128, ("max", "d128"): k3.COL_MAX_D128}
+               ("min", "d128"): k3.COL_MIN_D128, ("max", "d128"): k3.COL_MAX_D128,
+               ("min", "f64"): k3.COL_MIN_F64, ("max", "f64"): k3.COL_MAX_F64,
+               ("min", "bool"): k3.COL_MIN_BOOL, ("max", "bool"): k3.COL_MAX_BOOL}
 
 
 def finalize_packed(acc: Page, num_keys: int, aggs: Sequence[AggCall]) -> Page:

@@ -3067,7 +3067,7 @@ class Binder:
                 # unparseable / out-of-int64-range -> NULL (deviation:
                 # the reference raises; the column form's dictionary
                 # LUT uses the same strict parser)
-                raise NotPorted("CAST of a VARCHAR literal to a number")
+                from presto_tpu_torch.expr.host_fns import parse_number_strict
 
                 return Literal(
                     type=DOUBLE if tn.startswith("double") else BIGINT,

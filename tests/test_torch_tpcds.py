@@ -38,12 +38,16 @@ NOT_PORTED = {
     "ordered_string_column_comparison": (
         "select count(*) from customer where c_first_name < c_last_name",
         "ordered comparison (lt) of two string columns"),
-    "min_over_double": ("select min(ss_quantity * 1.5e0) from store_sales", "min over double"),
-    "max_over_varchar": ("select max(s_state) from store", "max over varchar"),
-    "pushed_down_limit_scan": ("select ss_item_sk from store_sales limit 3",
-                               "TABLESAMPLE and pushed-down LIMIT scans"),
-    "cast_bigint": ("select cast(ss_sales_price as bigint) c from store_sales "
-                    "where ss_quantity > 3", "expression cast_bigint"),
+}
+# pinned as NotPorted until the eighth slice ported them (min/max over
+# doubles and varchar, the pushed-down LIMIT scan, cast_bigint); now
+# equal to the reference
+FORMER_PINS = {
+    "min_over_double": "select min(ss_quantity * 1.5e0) from store_sales",
+    "max_over_varchar": "select max(s_state) from store",
+    "pushed_down_limit_scan": "select ss_item_sk from store_sales limit 3",
+    "cast_bigint": "select cast(ss_sales_price as bigint) c from store_sales "
+                   "where ss_quantity > 3",
 }
 
 
@@ -55,6 +59,11 @@ def pair():
 @pytest.mark.parametrize("q", SLICE + ALSO)
 def test_query_equals_reference(pair, q):
     pair.check(QUERIES[q])
+
+
+@pytest.mark.parametrize("q", sorted(FORMER_PINS))
+def test_former_pin_equals_reference(pair, q):
+    assert pair.check(FORMER_PINS[q])
 
 
 @pytest.mark.parametrize("q", sorted(NOT_PORTED))
