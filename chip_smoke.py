@@ -47,7 +47,13 @@ Phases (any failure exits non-zero before the result line):
    whole lineitem splits: each new K1 opcode family (exact, or within 2
    ulp for ln and power, the gap printed as ``max_ulp``), K2's and K6's
    double, boolean and varchar-rank min/max, bool counts, bitwise folds
-   and HLL sums, and K3's fold and finalize of them;
+   and HLL sums, and K3's fold and finalize of them; and the ninth
+   slice's (``check_tail_kernels``): K1's VLUT, DVLUT (over customer's
+   split), TSPART, DTRUNC, DTADD, DTDIFF, CASTTS, UNIXT, DFMT and
+   checksum's hash, K2's checksum, moments, covariance sums and
+   min_by / max_by, K6's moments, covariance sums and min_by / max_by by
+   l_suppkey and their merges, K3's fold and finalizes of them (exact,
+   skewness within 2 ulp: pow);
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
@@ -57,7 +63,12 @@ Phases (any failure exits non-zero before the result line):
    same tables (``FN_QUERIES``: approx_distinct, min/max over doubles,
    varchar and booleans with the bool and bitwise aggregates, count_if,
    the math family, date parts and casts, bitwise scalars, LIMIT 10,
-   TABLESAMPLE BERNOULLI and SYSTEM); then (TPC-H's tables freed)
+   TABLESAMPLE BERNOULLI and SYSTEM); the dates and aggregate tail
+   phase over the same tables (``DT_QUERIES``: date_trunc, date_diff,
+   date_add, timestamp arithmetic and to_unixtime, a date_format group
+   key, string value tables and casts, min_by / max_by, skewness,
+   kurtosis, the covariance family and checksum by l_shipmode, by
+   l_suppkey, globally and by two flags); then (TPC-H's tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -72,8 +83,9 @@ Phases (any failure exits non-zero before the result line):
    SF 1 (the card runs the 22 queries again over the SF 1 tables; Q22,
    which finds no row there, also without its anti join), the other
    TPC-DS queries at SF 1 (run again there on the card), q72 at sf
-   0.01; the functions phase at SF 1, exact but for the doubles a
-   transcendental produced (``FN_APPROX``: a relative 1e-12);
+   0.01; the functions and the dates and aggregate tail phases at SF 1,
+   exact but for skewness's doubles (``FN_APPROX``: its pow, a relative
+   1e-12);
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -222,11 +234,59 @@ FN_QUERIES = {
     "fn_bernoulli": "select count(*), sum(l_quantity) from lineitem tablesample bernoulli (10)",
     "fn_system": "select count(*), sum(l_extendedprice) from lineitem tablesample system (50)",
 }
-# the columns of a query's rows that a transcendental produced (ln,
-# power): the card's libdevice and the CPU's torch kernels may round
-# them apart, so they agree within a relative 1e-12; every other value
-# is exact
-FN_APPROX = {"fn_math": (1, 2)}
+# the ninth slice, timestamps and date arithmetic, string functions over
+# dictionaries and the coupled and statistical aggregates, at SF10 over
+# the same resident tables (rows checked at TPCH_CHECK_SF with
+# check_fn_rows): a dashboard's monthly rollup, a shipping-delay
+# report, timestamp arithmetic, a date_format group key, string value
+# tables and casts, and the aggregate tail by a small key (the sort
+# path: its double states), by l_suppkey (100k groups and their merge),
+# globally (K2's slot, K3's fold) and by two flags (K2's packed slots)
+DT_QUERIES = {
+    "dt_trunc_month": "select date_trunc('month', l_shipdate), count(*), sum(l_extendedprice) "
+                      "from lineitem group by date_trunc('month', l_shipdate)",
+    "dt_diff": "select l_shipmode, sum(date_diff('day', l_shipdate, l_receiptdate)), "
+               "max(date_diff('month', l_commitdate, l_receiptdate)), "
+               "min(date_add('month', 1, l_shipdate)) from lineitem group by l_shipmode",
+    "dt_timestamp": "select date_trunc('week', cast(l_shipdate as timestamp) + interval '90' "
+                    "minute), count(*), max(to_unixtime(cast(l_receiptdate as timestamp))), "
+                    "sum(minute(cast(l_shipdate as timestamp) + interval '90' minute)) "
+                    "from lineitem where cast(l_shipdate as timestamp) + interval '90' minute "
+                    "> timestamp '1995-06-01 12:00:00' group by date_trunc('week', "
+                    "cast(l_shipdate as timestamp) + interval '90' minute)",
+    "dt_format": "select date_format(o_orderdate, '%Y-%m'), count(*), sum(o_totalprice) "
+                 "from orders group by 1",
+    "str_lut": "select length(p_name), count(*) from part where strpos(p_name, 'green') > 0 "
+               "or starts_with(p_type, 'PROMO') group by length(p_name)",
+    "str_cast": "select cast(substr(c_phone, 1, 2) as bigint), "
+                "sum(cast(substr(c_phone, 1, 2) as bigint)), "
+                "max(cast(substr(c_phone, 4, 3) as double)) from customer "
+                "where regexp_like(c_name, '9$') group by cast(substr(c_phone, 1, 2) as bigint)",
+    "agg_tail_mode": "select l_shipmode, min_by(l_orderkey, l_extendedprice), "
+                     "max_by(l_partkey, l_discount), skewness(l_quantity), "
+                     "kurtosis(l_extendedprice), covar_samp(l_extendedprice, l_quantity), "
+                     "corr(l_extendedprice, l_discount), regr_slope(l_extendedprice, l_quantity), "
+                     "checksum(l_orderkey) from lineitem group by l_shipmode",
+    "agg_tail_supplier": "select l_suppkey, min_by(l_orderkey, l_extendedprice), "
+                         "max_by(l_partkey, l_discount), skewness(l_quantity), "
+                         "kurtosis(l_extendedprice), covar_samp(l_extendedprice, l_quantity), "
+                         "corr(l_extendedprice, l_discount), "
+                         "regr_slope(l_extendedprice, l_quantity), checksum(l_orderkey) "
+                         "from lineitem group by l_suppkey",
+    "agg_tail_global": "select min_by(l_orderkey, l_extendedprice), max_by(l_partkey, "
+                       "l_discount), skewness(l_quantity), kurtosis(l_extendedprice), "
+                       "covar_samp(l_extendedprice, l_quantity), corr(l_extendedprice, "
+                       "l_discount), regr_intercept(l_extendedprice, l_quantity), "
+                       "checksum(l_orderkey), covar_pop(l_extendedprice, l_quantity) "
+                       "from lineitem",
+    "agg_tail_flags": "select l_returnflag, l_linestatus, min_by(l_orderkey, l_extendedprice), "
+                      "max_by(l_shipdate, l_receiptdate), checksum(l_partkey) from lineitem "
+                      "group by l_returnflag, l_linestatus",
+}
+# skewness's power(m2, 1.5) is libdevice's pow on the card and torch's
+# on the CPU, which may round apart: that column of a query's rows
+# within a relative 1e-12, every other value exact
+FN_APPROX = {"agg_tail_mode": (3,), "agg_tail_supplier": (3,), "agg_tail_global": (2,)}
 
 
 def _spill_sql() -> dict:
@@ -400,6 +460,29 @@ FN_REQUIRED = {
     "fn_bernoulli": ("packed_group_agg", "packed_fold_finalize"),
     "fn_system": ("packed_group_agg", "packed_fold_finalize"),
 }
+# the ninth slice's kernels by path, by opcode and state kind
+_TAIL_SORTED = ("expr_eval:mix64", "sorted_group_agg:moments", "sorted_group_agg:min_by",
+                "sorted_group_agg:double_sum", "sorted_group_agg:moments_merge",
+                "packed_fold_finalize:moments", "packed_fold_finalize:covariance")
+DT_REQUIRED = {
+    "dt_trunc_month": ("expr_eval:dtrunc", _GROUPED, "packed_fold_finalize"),
+    "dt_diff": ("expr_eval:dtdiff", "expr_eval:dtadd", "packed_group_agg",
+                "packed_fold_finalize"),
+    "dt_timestamp": ("expr_eval:castts", "expr_eval:dtadd", "expr_eval:dtrunc",
+                     "expr_eval:unixt", "expr_eval:tspart", _GROUPED),
+    "dt_format": ("expr_eval:dfmt", "sorted_group_agg"),
+    "str_lut": ("expr_eval:vlut", _GROUPED),
+    "str_cast": ("expr_eval:vlut", "expr_eval:dvlut", "sorted_group_agg"),
+    "agg_tail_mode": _TAIL_SORTED,
+    "agg_tail_supplier": _TAIL_SORTED,
+    "agg_tail_global": ("expr_eval:mix64", "packed_group_agg:checksum",
+                        "packed_group_agg:moments", "packed_group_agg:min_by",
+                        "packed_group_agg:double_sum", "packed_fold_finalize:moments_fold",
+                        "packed_fold_finalize:min_by_fold", "packed_fold_finalize:moments",
+                        "packed_fold_finalize:covariance"),
+    "agg_tail_flags": ("expr_eval:mix64", "packed_group_agg:checksum", "packed_group_agg:min_by",
+                       "packed_fold_finalize:min_by_fold"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -433,6 +516,27 @@ REPLACES = {
     "sorted_group_agg@hll": "presto_tpu/ops/aggregate.py:1171",
     "packed_fold_finalize@functions": "presto_tpu/ops/aggregate.py:870",
     "packed_fold_finalize@functions_finalize": "presto_tpu/ops/aggregate.py:1562",
+    "expr_eval@vlut": "presto_tpu/expr/compile.py:1279",
+    "expr_eval@dvlut": "presto_tpu/expr/compile.py:1418",
+    "expr_eval@tspart": "presto_tpu/expr/compile.py:3102",
+    "expr_eval@dtrunc": "presto_tpu/expr/compile.py:3231",
+    "expr_eval@dtadd": "presto_tpu/expr/compile.py:3267",
+    "expr_eval@dtdiff": "presto_tpu/expr/compile.py:3297",
+    "expr_eval@castts": "presto_tpu/expr/compile.py:3158",
+    "expr_eval@unixt": "presto_tpu/expr/compile.py:3158",
+    "expr_eval@dfmt": "presto_tpu/expr/compile.py:1556",
+    "expr_eval@mix64": "presto_tpu/ops/aggregate.py:518",
+    "packed_group_agg@checksum": "presto_tpu/ops/aggregate.py:518",
+    "packed_group_agg@moments": "presto_tpu/ops/aggregate.py:480",
+    "packed_group_agg@covariance": "presto_tpu/ops/aggregate.py:502",
+    "packed_group_agg@min_by": "presto_tpu/ops/aggregate.py:536",
+    "sorted_group_agg@moments": "presto_tpu/ops/aggregate.py:480",
+    "sorted_group_agg@moments_merge": "presto_tpu/ops/aggregate.py:1118",
+    "sorted_group_agg@covariance": "presto_tpu/ops/aggregate.py:502",
+    "sorted_group_agg@min_by": "presto_tpu/ops/aggregate.py:536",
+    "sorted_group_agg@min_by_merge": "presto_tpu/ops/aggregate.py:1151",
+    "packed_fold_finalize@tail_fold": "presto_tpu/ops/aggregate.py:870",
+    "packed_fold_finalize@tail_finalize": "presto_tpu/ops/aggregate.py:1447",
 }
 
 
@@ -2088,12 +2192,280 @@ def check_function_kernels(report: KernelReport, mem) -> None:
                  "packed_fold_finalize:hll")
 
 
-def check_fn_rows(label, got, ref) -> None:
+def check_tail_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the ninth slice, over whole 2^23-row lineitem splits
+    (the varchar casts over customer's split, str_cast's table): each
+    new K1 opcode against its twin, exact; K2's checksum, moments and
+    covariance sums (the global slot) and min_by (by l_shipmode); K6's
+    moments, covariance sums and min_by by l_suppkey and their merge
+    over two splits' partials; K3's fold of two splits' global tables
+    and its finalizes (skewness within 2 ulp: pow), doubles by their
+    bits."""
+    from presto_tpu_torch.expr.compile import ExprCompiler, value_tables
+    from presto_tpu_torch.expr.ir import Call, ColumnRef, Literal
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+    from presto_tpu_torch.kernels import packed_group_agg as k2
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.ops.aggregate import CHECKSUM_NULL
+    from presto_tpu_torch.page import Block, Page
+    from presto_tpu_torch.types import BIGINT, DOUBLE, TIMESTAMP, parse_type
+
+    def call(fn, t, *args):
+        return Call(type=parse_type(t) if isinstance(t, str) else t, fn=fn, args=tuple(args))
+
+    def lit(v, t):
+        return Literal(type=parse_type(t) if isinstance(t, str) else t, value=v)
+
+    def k1_check(name, page, expr, library, counter):
+        n = page.capacity
+        prog, cols = ExprCompiler.for_page(page).lower(expr)
+        ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
+        got, want = k1.expr_eval(prog, ins, n), k1.expr_eval_plain(prog, ins, n)
+        err = same_bits(got, want, name)
+        ms = cuda_ms(lambda: k1.expr_eval(prog, ins, n), 20)
+        plain = cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n), 3)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/expr_eval.cu", err, ms, plain,
+                   nbytes(*[t for c in ins for t in c]) + nbytes(*got),
+                   cuda_ms(library, 20) if library is not None else None,
+                   f"expr_eval:{counter}")
+        log(f"{name}: {' '.join(k1.OP_NAMES[o] for o in prog.ops)}, "
+            f"{int(got[1].sum())} valid of {n}")
+        return got
+
+    names = [c for c, _ in mem.schema("lineitem")]
+    types = dict(mem.schema("lineitem"))
+
+    def col(c):
+        return ColumnRef(type=types[c], index=names.index(c))
+
+    def lane(page, expr):
+        return ExprCompiler.for_page(page).compile(expr)(page)
+
+    # each split with a timestamp (l_shipdate's midnight plus l_orderkey
+    # x 1000003 microseconds) and l_extendedprice, l_quantity and
+    # l_discount as doubles after its own columns
+    ts_expr = call("ts_add_micros", TIMESTAMP, call("cast_timestamp", TIMESTAMP,
+                                                     col("l_shipdate")),
+                   call("mul", BIGINT, col("l_orderkey"), lit(1000003, "bigint")))
+
+    def extended(page):
+        extra = [lane(page, ts_expr)] + [lane(page, call("cast_double", DOUBLE, col(c)))
+                                          for c in ("l_extendedprice", "l_quantity",
+                                                    "l_discount")]
+        return Page(page.blocks + tuple(Block(d, v, t) for (d, v), t in
+                                        zip(extra, (TIMESTAMP, DOUBLE, DOUBLE, DOUBLE))),
+                    page.row_mask)
+
+    pages = [extended(mem.page_for_split("lineitem", i)) for i in (0, 1)]
+    page = pages[0]
+    n = page.capacity
+    w = len(names)
+    ts = ColumnRef(type=TIMESTAMP, index=w)
+    ts_t = page.blocks[w].data
+    price, qty, disc = (page.blocks[w + j] for j in (1, 2, 3))
+    hour, day = 3_600_000_000, 86_400_000_000
+    ship = page.blocks[names.index("l_shipinstruct")]
+    lengths = value_tables(ship.dictionary, ("length",), len, torch.int64)[0].on(page.device)
+    codes = ship.data.to(torch.int64).clamp(0, lengths.shape[0] - 1)
+    rows = {
+        "vlut": (call("length", BIGINT, col("l_shipinstruct")), lambda: lengths[codes], "vlut"),
+        "tspart": (call("hour", BIGINT, ts), None, "tspart"),
+        "dtrunc": (call("date_trunc", TIMESTAMP, lit("hour", "varchar"), ts),
+                   lambda: torch.div(ts_t, hour, rounding_mode="floor") * hour, "dtrunc"),
+        "dtadd": (call("date_add", TIMESTAMP, lit("month", "varchar"), col("l_linenumber"), ts),
+                  None, "dtadd"),
+        "dtdiff": (call("date_diff", BIGINT, lit("month", "varchar"), col("l_commitdate"),
+                        col("l_receiptdate")), None, "dtdiff"),
+        "castts": (call("cast_date", "date", ts),
+                   lambda: torch.div(ts_t, day, rounding_mode="floor"), "castts"),
+        "unixt": (call("to_unixtime", DOUBLE, ts), None, "unixt"),
+        "dfmt": (call("date_format", "varchar", col("l_shipdate"), lit("%Y-%m", "varchar")),
+                 None, "dfmt"),
+    }
+    for label, (expr, library, counter) in rows.items():
+        k1_check(f"expr_eval@{label}", page, expr, library, counter)
+    # checksum's per-row hash: splitmix64 of the lane, NULL's constant
+    prog = k1.Program((k1.LOAD, k1.HLL, k1.LIT, k1.COAL), (0, 0, 0, 0), (CHECKSUM_NULL,), 1,
+                      k1.KIND_I64)
+    okey = page.blocks[names.index("l_orderkey")]
+    ins = [(okey.data, okey.valid)]
+    got = k1.expr_eval(prog, ins, n)
+    err = same(got, k1.expr_eval_plain(prog, ins, n), "expr_eval@mix64")
+    report.add("expr_eval@mix64", "cuda", "presto_tpu_torch/csrc/expr_eval.cu", err,
+               cuda_ms(lambda: k1.expr_eval(prog, ins, n), 20),
+               cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n), 3),
+               nbytes(okey.data, okey.valid, *got), None, "expr_eval:mix64")
+    # the varchar casts over customer's split (str_cast's)
+    cust = mem.page_for_split("customer", 0)
+    cnames = [c for c, _ in mem.schema("customer")]
+    phone = ColumnRef(type=dict(mem.schema("customer"))["c_phone"],
+                      index=cnames.index("c_phone"))
+    k1_check("expr_eval@dvlut", cust,
+             call("cast_double", DOUBLE, call("substr", "varchar", phone, lit(4, "bigint"),
+                                              lit(3, "bigint"))), None, "dvlut")
+
+    # K2: the global slot's checksum, moments and covariance sums, and
+    # min_by / max_by by l_shipmode (packed)
+    hash_lane = got
+    def cov_lanes(pg):
+        """covar(l_quantity, l_extendedprice)'s five K1 lanes: x, y,
+        x*y, x*x and y*y where both are valid."""
+        pr_, qt_ = (ColumnRef(type=DOUBLE, index=w + j) for j in (1, 2))
+        return [lane(pg, e) for e in (
+            call("if", DOUBLE, call("not_null", "boolean", pr_), qt_, lit(None, "double")),
+            call("if", DOUBLE, call("not_null", "boolean", qt_), pr_, lit(None, "double")),
+            call("mul", DOUBLE, qt_, pr_), call("mul", DOUBLE, qt_, qt_),
+            call("mul", DOUBLE, pr_, pr_))]
+
+    cov = cov_lanes(page)
+    mode_col = page.blocks[names.index("l_shipmode")]
+    mode_keys = [(mode_col.data, mode_col.valid, 0, len(mode_col.dictionary.values) + 1)]
+    pkey = page.blocks[names.index("l_partkey")]
+    by_args = [(k2.BY_X, okey.data, okey.valid), (k2.BY_Y_MIN, price.data, price.valid),
+               (k2.BY_X, pkey.data, pkey.valid), (k2.BY_Y_MAX, disc.data, disc.valid)]
+    gid = torch.where(page.row_mask & price.valid, mode_col.data.to(torch.int64),
+                      mode_keys[0][3])
+
+    def min_by_library():
+        """scatter_reduce_ amin of y by a precomputed gid, then a
+        gather of the extreme back to the rows (min_by's first phase)."""
+        table = torch.full((mode_keys[0][3] + 1,), float("inf"), dtype=torch.float64,
+                           device=page.device)
+        return table.scatter_reduce_(0, gid, price.data, "amin")[gid]
+
+    def cov_library():
+        ok = page.row_mask & qty.valid & price.valid
+        both = torch.stack([price.data[ok], qty.data[ok]])
+        return cuda_ms(lambda: torch.cov(both), 10)
+
+    k2_rows = {
+        "checksum": ([], [(k2.CHECKSUM, hash_lane[0], hash_lane[1])], 1, None,
+                     "packed_group_agg:checksum"),
+        "moments": ([], [(k2.MOMENTS, qty.data, qty.valid)], 1, None,
+                    "packed_group_agg:moments"),
+        "covariance": ([], [(k2.SUM_DOUBLE, d, v) for d, v in cov], 1, cov_library(),
+                       "packed_group_agg:double_sum"),
+        "min_by": (mode_keys, by_args, mode_keys[0][3], cuda_ms(min_by_library, 10),
+                   "packed_group_agg:min_by"),
+    }
+    for label, (keys, args, g, library, counter) in k2_rows.items():
+        name = f"packed_group_agg@{label}"
+        got2 = k2.packed_group_agg(n, page.row_mask, keys, args, g)
+        err = same_bits(got2, k2.packed_group_agg_plain(n, page.row_mask, keys, args, g), name)
+        ms = cuda_ms(lambda: k2.packed_group_agg(n, page.row_mask, keys, args, g), 10)
+        plain = cuda_ms(lambda: k2.packed_group_agg_plain(n, page.row_mask, keys, args, g), 2)
+        in_bytes = nbytes(page.row_mask, *[t for k in keys for t in k[:2]],
+                          *[t for a in args for t in a[1:]])
+        report.add(name, "cuda", "presto_tpu_torch/csrc/packed_group_agg.cu", err, ms, plain,
+                   in_bytes + nbytes(*[t for st in got2[0] for t in st], got2[1]), library,
+                   counter)
+
+    # K6 by l_suppkey: the partials of two splits, then their merge
+    supp = [pg.blocks[names.index("l_suppkey")] for pg in pages]
+    dom = mem.column_domain("lineitem", "l_suppkey")
+
+    def supp_keys(i):
+        return [(supp[i].data, supp[i].valid, dom[0], dom[1] - dom[0] + 2)]
+
+    def tail_states(pg):
+        b = pg.blocks
+        ok_, pk_ = b[names.index("l_orderkey")], b[names.index("l_partkey")]
+        pr, qt, dc = b[w + 1], b[w + 2], b[w + 3]
+        return [(k6.S_MOM, qt.data, qt.valid),
+                (k6.S_BY_X, ok_.data, ok_.valid), (k6.S_BY_XV, None, ok_.valid),
+                (k6.S_BY_Y_MIN, pr.data, pr.valid), (k6.S_VALID, None, pr.valid),
+                (k6.S_BY_X, pk_.data, pk_.valid), (k6.S_BY_XV, None, pk_.valid),
+                (k6.S_BY_Y_MAX, dc.data, dc.valid), (k6.S_VALID, None, dc.valid)]
+
+    states = tail_states(page)
+    groups = k6_bits_row(report, "sorted_group_agg@moments", supp_keys(0), page.row_mask,
+                         states[:1], "sorted_group_agg:moments")
+    k6_bits_row(report, "sorted_group_agg@min_by", supp_keys(0), page.row_mask, states[1:],
+                "sorted_group_agg:min_by")
+    k6_bits_row(report, "sorted_group_agg@covariance", supp_keys(0), page.row_mask,
+                [(k6.S_DSUM, d, v) for d, v in cov] + [(k6.S_VALID, None, cov[0][1])],
+                "sorted_group_agg:double_sum", group_sum_library_ms(
+                    supp_keys(0), page.row_mask,
+                    [(k6.S_DSUM, d, v) for d, v in cov] + [(k6.S_VALID, None, cov[0][1])]))
+    log(f"K6 moments, min_by / max_by, covariance sums: {groups} groups of {n} rows")
+    parts = [k6.sorted_group_agg(supp_keys(i), pg.row_mask, tail_states(pg))
+             for i, pg in enumerate(pages)]
+    # the partials of both splits as one page of rows: keys, the
+    # moments (s, m2, m3, m4, cnt) and the two coupled states (x, flag,
+    # y, count)
+    cat = [torch.cat([p[0][0][0] for p in parts]), torch.cat([p[0][0][1] for p in parts])]
+    st = [torch.cat([p[1][j] for p in parts]) for j in range(len(parts[0][1]))]
+    live = torch.ones(cat[0].shape[0], dtype=torch.bool, device=page.device)
+    merge_keys = [(cat[0], cat[1], dom[0], dom[1] - dom[0] + 2)]
+    mom = tuple(st[:5])
+    groups = k6_bits_row(report, "sorted_group_agg@moments_merge", merge_keys, live,
+                         [(k6.S_MOM_MERGE, mom, live)], "sorted_group_agg:moments_merge")
+    by_merge = []
+    for x, flag, y, cnt, kind in ((st[5], st[6], st[7], st[8], k6.S_BY_Y_MIN),
+                                  (st[9], st[10], st[11], st[12], k6.S_BY_Y_MAX)):
+        by_merge += [(k6.S_BY_X, x, flag > 0), (k6.S_BY_XV, None, flag > 0),
+                     (kind, y, cnt > 0), (k6.S_SUM, cnt, live)]
+    k6_bits_row(report, "sorted_group_agg@min_by_merge", merge_keys, live, by_merge,
+                "sorted_group_agg:min_by")
+    log(f"K6 merges of {cat[0].shape[0]} partial rows: {groups} groups")
+
+    # K3: the two splits' global tables (checksum, moments, min_by and
+    # max_by, the covariance sums) folded, then finalized
+    tables = []
+    for pg in pages:
+        b = pg.blocks
+        ok_, pk_ = b[names.index("l_orderkey")], b[names.index("l_partkey")]
+        pr, qt, dc = b[w + 1], b[w + 2], b[w + 3]
+        hsh = k1.expr_eval(prog, [(ok_.data, ok_.valid)], pg.capacity)
+        args = [(k2.CHECKSUM, hsh[0], hsh[1]), (k2.MOMENTS, qt.data, qt.valid),
+                (k2.BY_X, ok_.data, ok_.valid), (k2.BY_Y_MIN, pr.data, pr.valid),
+                (k2.BY_X, pk_.data, pk_.valid), (k2.BY_Y_MAX, dc.data, dc.valid)]
+        args += [(k2.SUM_DOUBLE, d, v) for d, v in cov_lanes(pg)]
+        tables.append(k2.packed_group_agg(pg.capacity, pg.row_mask, [], args, 1))
+    kinds = [k3.COL_I64, k3.COL_F64, k3.COL_MOM_M2, k3.COL_MOM_M3, k3.COL_MOM_M4, k3.COL_I64,
+             k3.COL_BY_X, k3.COL_BY_XV, k3.COL_BY_Y_MIN, k3.COL_I64,
+             k3.COL_BY_X, k3.COL_BY_XV, k3.COL_BY_Y_MAX, k3.COL_I64] + [k3.COL_F64, k3.COL_I64] * 5
+
+    def cols_of(states_, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for s_ in states_ for t in s_])]
+
+    ca, cb = cols_of(*tables[0]), cols_of(*tables[1])
+    fold = fold_row(report, "packed_fold_finalize@tail_fold", ca, cb, tables[0][1],
+                    tables[1][1], "packed_fold_finalize:moments_fold")
+    f = [d for d, _ in fold[0]]
+    mom3 = torch.stack(f[2:5], dim=1)
+    sums5 = torch.stack(f[14:24:2], dim=1)  # sx, sy, sxy, sxx, syy
+    items = [(k3.FIN_COUNT, f[0], f[0]), (k3.FIN_SKEWNESS, mom3, f[5]),
+             (k3.FIN_KURTOSIS, mom3, f[5]), (k3.FIN_SUM, f[6], f[7]), (k3.FIN_SUM, f[10], f[11]),
+             (k3.FIN_COVAR_POP, sums5, f[15]), (k3.FIN_COVAR_SAMP, sums5, f[15]),
+             (k3.FIN_CORR, sums5, f[15]), (k3.FIN_REGR_SLOPE, sums5, f[15]),
+             (k3.FIN_REGR_INTERCEPT, sums5, f[15])]
+    name = "packed_fold_finalize@tail_finalize"
+    got3 = k3.packed_finalize(items, fold[1])
+    want3 = k3.packed_finalize_plain(items, fold[1])
+    same(got3[1], want3[1], f"{name} skewness valid")
+    gap = ulp_gap(got3[1][0], want3[1][0])
+    if gap > 2:
+        raise AssertionError(f"{name}: skewness {gap} ulp from its plain version")
+    err = same_bits(got3[:1] + got3[2:], want3[:1] + want3[2:], name)
+    report.add(name, "cuda", "presto_tpu_torch/csrc/packed_fold_finalize.cu", err,
+               cuda_ms(lambda: k3.packed_finalize(items, fold[1]), 50),
+               cuda_ms(lambda: k3.packed_finalize_plain(items, fold[1]), 10),
+               nbytes(fold[1], *[t for _, a, b in items for t in (a, b)],
+                      *[t for o in got3 for t in o]), counter="packed_fold_finalize:moments")
+    report.rows[name]["max_ulp"] = gap
+    log(f"{name}: skewness {gap} ulp from its plain version")
+
+
+def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
-    (a transcendental's doubles) within a relative 1e-12."""
+    (a transcendental's doubles) within a relative 1e-12; ``where``
+    names the scale in the messages."""
     import math
 
     approx = FN_APPROX.get(label, ())
+    label += where
     if len(got.rows) != len(ref.rows) or not ref.rows:
         raise AssertionError(f"{label}: {len(got.rows)} card rows, {len(ref.rows)} CPU rows")
     for g, r in zip(got.rows, ref.rows):
@@ -2386,6 +2758,7 @@ def main() -> int:
     check_sixth_slice_kernels(report, ds2_runners, mem_ds)
     check_spill_kernels(report, mem, mem_ds)
     check_function_kernels(report, mem)
+    check_tail_kernels(report, mem)
     torch.cuda.synchronize()
     log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2416,6 +2789,12 @@ def main() -> int:
     drive(fn_runners, FN_QUERIES, FN_REQUIRED, reps=2, trace=False)
     del fn_runners
     log(f"functions phase done at {time.perf_counter() - t_all:.1f} s")
+    # the dates, string tables and aggregate tail over the same tables
+    dt_runners = {label: QueryRunner(query_catalog(mem, sql), device="cuda")
+                  for label, sql in DT_QUERIES.items()}
+    drive(dt_runners, DT_QUERIES, DT_REQUIRED, reps=2, trace=False)
+    del dt_runners
+    log(f"dates and aggregate tail phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -2481,11 +2860,11 @@ def main() -> int:
         check_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref, may_be_empty)
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
-    for label, sql in FN_QUERIES.items():
+    for label, sql in {**FN_QUERIES, **DT_QUERIES}.items():
         t1 = time.perf_counter()
         got = QueryRunner(query_catalog(mem_check, sql), device="cuda").execute(sql)
         ref = QueryRunner(query_catalog(host_check, sql), device="cpu").execute(sql)
-        check_fn_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref)
+        check_fn_rows(label, got, ref, f" at sf={TPCH_CHECK_SF}")
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
     # the host's tables leave as their checks end: the CPU runs of the
@@ -2528,11 +2907,11 @@ def main() -> int:
         log(f"{label}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
-    for label in list(QUERIES) + list(FN_QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) \
-            + list(DS3_QUERIES):
+    for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(DS_QUERIES) \
+            + list(DS2_QUERIES) + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
-            else (
+            or label in DT_QUERIES else (
             "store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows

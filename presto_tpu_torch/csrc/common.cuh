@@ -84,6 +84,23 @@ __device__ __forceinline__ double hll_weight(i64 rho) {
   return __longlong_as_double((1023 - rho) << 52);
 }
 
+// One partial's terms of a merged central-moment state (s, m2, m3, m4,
+// c): its moments shifted by d = mu_i - mu, mu_i = s / max(c, 1) (d = 0
+// for an empty partial), in the reference's association
+// (kernels/packed_group_agg.py moment_terms).  K6's merge sums them per
+// group; K3's fold adds the two sides'.
+__device__ __forceinline__ void moment_terms(double s, double m2, double m3, double m4, i64 c,
+                                             double mu, double* t) {
+  const double cf = __ll2double_rn(c);
+  const double dd = c > 0 ? __dsub_rn(__ddiv_rn(s, cf > 1.0 ? cf : 1.0), mu) : 0.0;
+  const double d2 = __dmul_rn(dd, dd), cd2 = __dmul_rn(cf, d2);
+  t[0] = __dadd_rn(m2, cd2);
+  t[1] = __dadd_rn(__dadd_rn(m3, __dmul_rn(__dmul_rn(3.0, m2), dd)), __dmul_rn(cd2, dd));
+  t[2] = __dadd_rn(__dadd_rn(__dadd_rn(m4, __dmul_rn(__dmul_rn(4.0, m3), dd)),
+                             __dmul_rn(__dmul_rn(6.0, m2), d2)),
+                   __dmul_rn(cd2, d2));
+}
+
 // An int64 extreme stored into an int32 state: the int32 identity.
 __device__ __forceinline__ int narrow_extreme(i64 v) {
   return v == I64_MAX ? 0x7fffffff : v == I64_MIN ? (int)0x80000000 : (int)v;

@@ -84,6 +84,29 @@
 // splitmix64 and takes the top P bits or __clzll of the rest plus one;
 // the date parts keep floor division (fdiv, fmod_) for days before
 // 1970.  An opcode past the table is refused at launch.
+//
+// Timestamps and the dictionary tables (_compile_datepart :3102's
+// timestamp branch, _compile_datetime :3158 with _datetime_trunc :3231,
+// _datetime_add :3267, _datetime_diff :3297 and _add_months :3530,
+// _compile_date_format :1556, _compile_string_lut_fn :1279,
+// _compile_string_number_cast :1418 and _compile_binary_hash :1496):
+// a timestamp is an int64 lane of epoch microseconds.  VLUT reads an
+// int64 value table over the row's clipped dictionary code (length,
+// strpos, codepoint, levenshtein_distance, date_parse, crc32, CAST of a
+// varchar column to bigint, ...; the tables are built on the host once
+// per dictionary), DVLUT a double table (CAST to double), each with an
+// optional not-null table whose entry clears the valid bit.  TSPART
+// takes a date part or the time of day of microseconds, DTRUNC
+// truncates, DTADD adds a fixed span (wrapping) or calendar months
+// (the day of the month clamped to the new month's length), DTDIFF
+// counts spans (truncating toward zero) or calendar-field months,
+// CASTTS moves between days and microseconds, UNIXT converts to or
+// from epoch seconds in double (a true division, __ddiv_rn), DFMT
+// takes a date's code in the date_format dictionary (NULL outside its
+// span).  All of them divide by floor division (fdiv), as the
+// reference's jnp // does, so 1969 comes out right; date_diff's spans
+// truncate as its _trunc_div does.  HLL with P = 0 pushes the whole
+// splitmix64 hash (checksum's per-row hash).
 
 #include "common.cuh"
 
@@ -103,6 +126,7 @@ enum {
   OP_DADD, OP_DSUB, OP_DMUL, OP_DNEG, OP_DABS, OP_DCMP, OP_NEG, OP_ABS, OP_COAL,
   OP_SFLOOR, OP_SROUND, OP_DFLOOR, OP_DROUND, OP_D2S, OP_D2L, OP_LADD,
   OP_DUN, OP_DBIN, OP_BITW, OP_GL, OP_NULLIF, OP_CASTBI, OP_HLL, OP_WBUCKET, OP_IMOD,
+  OP_VLUT, OP_DVLUT, OP_TSPART, OP_DTRUNC, OP_DTADD, OP_DTDIFF, OP_CASTTS, OP_UNIXT, OP_DFMT,
   OP_COUNT
 };
 // DUN's functions (kernels/expr_eval.py DUN_FNS), DBIN's (DBIN_FNS),
@@ -115,6 +139,16 @@ enum { BW_AND, BW_OR, BW_XOR, BW_SHL, BW_SHR, BW_COUNT };
 enum { GL_INT, GL_DOUBLE, GL_LONG };
 enum { CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
+// DT_UNITS (kernels/expr_eval.py): the first seven are fixed spans
+enum { U_MICRO, U_MILLI, U_SECOND, U_MINUTE, U_HOUR, U_DAY, U_WEEK, U_MONTH, U_QUARTER,
+       U_YEAR };
+enum { UNIXT_TS, UNIXT_DATE, UNIXT_FROM };
+#define MICROS_PER_DAY 86400000000LL
+#define DATE_FMT_BASE (-25567LL)
+#define DATE_FMT_SPAN 73049LL
+#define DT_TS 16
+#define DT_A_DATE 16
+#define DT_B_DATE 32
 
 struct K1Prog {
   int n_ins;
@@ -205,8 +239,109 @@ __device__ __forceinline__ i64 date_part(i64 days, int part) {
       civil_from_days(th, &yt, &mt, &dt);
       return part == 7 ? yt : fdiv(th - days_from_civil(yt, 1, 1), 7) + 1;
     }
-    default: return days_from_civil(m == 12 ? y + 1 : y, m == 12 ? 1 : m + 1, 1) - 1;
+    case 8: return days_from_civil(m == 12 ? y + 1 : y, m == 12 ? 1 : m + 1, 1) - 1;
+    default: return 0;  // the time of day of a date
   }
+}
+
+__device__ __forceinline__ i64 unit_micros(int u) {
+  switch (u) {
+    case U_MICRO: return 1;
+    case U_MILLI: return 1000;
+    case U_SECOND: return 1000000;
+    case U_MINUTE: return 60000000LL;
+    case U_HOUR: return 3600000000LL;
+    case U_DAY: return MICROS_PER_DAY;
+    default: return 7 * MICROS_PER_DAY;
+  }
+}
+
+__device__ __forceinline__ i64 narrow32(i64 x) { return (i64)(int)x; }
+
+// TSPART: a date part (DATEPART's 0..8) or the time of day (9 hour,
+// 10 minute, 11 second, 12 millisecond) of epoch microseconds
+__device__ __forceinline__ i64 ts_part(i64 micros, int part) {
+  const i64 days = fdiv(micros, MICROS_PER_DAY);
+  const i64 tod = micros - days * MICROS_PER_DAY;
+  switch (part) {
+    case 9: return fdiv(tod, 3600000000LL);
+    case 10: return fmod_(fdiv(tod, 60000000LL), 60);
+    case 11: return fmod_(fdiv(tod, 1000000), 60);
+    case 12: return fmod_(fdiv(tod, 1000), 1000);
+    default: return date_part(days, part);
+  }
+}
+
+// _add_months: days shifted by n calendar months, the day clamped
+__device__ __forceinline__ i64 add_months(i64 days, i64 n) {
+  i64 y, m, d;
+  civil_from_days(days, &y, &m, &d);
+  const i64 months = wadd(wadd(wmul(y, 12), m - 1), n);
+  const i64 y2 = fdiv(months, 12);
+  const i64 m2 = months - y2 * 12 + 1;
+  const bool leap = fmod_(y2, 4) == 0 && (fmod_(y2, 100) != 0 || fmod_(y2, 400) == 0);
+  const int len[12] = {31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31};
+  const i64 mlen = len[m2 - 1] + (m2 == 2 && leap ? 1 : 0);
+  return days_from_civil(y2, m2, d < mlen ? d : mlen);
+}
+
+__device__ __forceinline__ i64 unit_months(int u, i64 n) {
+  return wmul(n, u == U_YEAR ? 12 : u == U_QUARTER ? 3 : 1);
+}
+
+// DTRUNC: arg = unit | DT_TS for a timestamp
+__device__ __forceinline__ i64 dt_trunc(i64 x, int arg) {
+  const int u = arg & 15;
+  const bool ts = arg & DT_TS;
+  if (u <= U_DAY) {
+    if (!ts) return x;
+    const i64 step = unit_micros(u);
+    return wmul(fdiv(x, step), step);
+  }
+  const i64 days = ts ? fdiv(x, MICROS_PER_DAY) : x;
+  i64 y, m, d;
+  civil_from_days(days, &y, &m, &d);
+  i64 out;
+  if (u == U_WEEK) out = days - fmod_(days + 3, 7);
+  else if (u == U_MONTH) out = days_from_civil(y, m, 1);
+  else if (u == U_QUARTER) out = days_from_civil(y, fdiv(m - 1, 3) * 3 + 1, 1);
+  else out = days_from_civil(y, 1, 1);
+  return ts ? wmul(out, MICROS_PER_DAY) : narrow32(out);
+}
+
+// DTADD: x plus n units (arg = unit | DT_TS for a timestamp)
+__device__ __forceinline__ i64 dt_add(i64 x, i64 n, int arg) {
+  const int u = arg & 15;
+  if (arg & DT_TS) {
+    if (u <= U_WEEK) return wadd(x, wmul(n, unit_micros(u)));
+    const i64 days = fdiv(x, MICROS_PER_DAY);
+    const i64 tod = x - days * MICROS_PER_DAY;
+    return wadd(wmul(add_months(days, unit_months(u, n)), MICROS_PER_DAY), tod);
+  }
+  if (u == U_DAY) return narrow32(wadd(x, n));
+  if (u == U_WEEK) return narrow32(wadd(x, wmul(7, n)));
+  return narrow32(add_months(x, unit_months(u, n)));
+}
+
+// SQL's division toward zero by a positive constant (_trunc_div)
+__device__ __forceinline__ i64 trunc_div(i64 a, i64 b) {
+  const i64 q = fdiv(a < 0 ? wneg(a) : a, b);
+  return a < 0 ? wneg(q) : q;
+}
+
+// DTDIFF: b - a in units (arg = unit | DT_A_DATE | DT_B_DATE)
+__device__ __forceinline__ i64 dt_diff(i64 a, i64 b, int arg) {
+  const int u = arg & 15;
+  const i64 m1 = (arg & DT_A_DATE) ? wmul(a, MICROS_PER_DAY) : a;
+  const i64 m2 = (arg & DT_B_DATE) ? wmul(b, MICROS_PER_DAY) : b;
+  if (u <= U_WEEK) return trunc_div(wsub(m2, m1), unit_micros(u));
+  i64 y1, mo1, d1, y2, mo2, d2;
+  civil_from_days(fdiv(m1, MICROS_PER_DAY), &y1, &mo1, &d1);
+  civil_from_days(fdiv(m2, MICROS_PER_DAY), &y2, &mo2, &d2);
+  const i64 months = wsub(wadd(wmul(y2, 12), mo2), wadd(wmul(y1, 12), mo1));
+  if (u == U_MONTH) return months;
+  if (u == U_QUARTER) return trunc_div(months, 3);
+  return wsub(y2, y1);
 }
 
 // XLA's double -> int64: toward zero, saturating, NaN to 0
@@ -294,6 +429,39 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
       case OP_DATEPART:  // arg: the part (date_part)
         sd[sp - 1] = date_part(sd[sp - 1], arg);
         break;
+      case OP_VLUT:
+      case OP_DVLUT: {  // arg: value table | (not-null table + 1) << 8; 8-byte entries
+        const int t = arg & 255, nn = arg >> 8;
+        i64 c = sd[sp - 1];
+        c = c < 0 ? 0 : (c >= p.lut_len[t] ? p.lut_len[t] - 1 : c);
+        if (nn) sv[sp - 1] = sv[sp - 1] && ((const uint8_t*)p.lut[nn - 1])[c] != 0;
+        sd[sp - 1] = ((const i64*)p.lut[t])[c];
+        break;
+      }
+      case OP_TSPART: sd[sp - 1] = ts_part(sd[sp - 1], arg); break;
+      case OP_DTRUNC: sd[sp - 1] = dt_trunc(sd[sp - 1], arg); break;
+      case OP_CASTTS:  // arg 0: days to microseconds, 1: microseconds to days
+        sd[sp - 1] = arg ? narrow32(fdiv(sd[sp - 1], MICROS_PER_DAY))
+                         : wmul(sd[sp - 1], MICROS_PER_DAY);
+        break;
+      case OP_UNIXT:  // to_unixtime of micros or days, or from_unixtime of a double
+        if constexpr (WIDE) {
+          if (arg == UNIXT_FROM) {
+            sd[sp - 1] = double_to_i64(__dmul_rn(bits2d(sd[sp - 1]), 1e6));
+          } else {
+            double x = __ll2double_rn(sd[sp - 1]);
+            if (arg == UNIXT_DATE) x = __dmul_rn(x, (double)MICROS_PER_DAY);
+            sd[sp - 1] = d2bits(__ddiv_rn(x, 1e6));
+          }
+        }
+        break;
+      case OP_DFMT: {  // arg 1: a timestamp; the day's code, NULL outside the span
+        const i64 days = arg ? fdiv(sd[sp - 1], MICROS_PER_DAY) : sd[sp - 1];
+        const i64 code = days - DATE_FMT_BASE;
+        sv[sp - 1] = sv[sp - 1] && code >= 0 && code < DATE_FMT_SPAN;
+        sd[sp - 1] = code < 0 ? 0 : (code >= DATE_FMT_SPAN ? DATE_FMT_SPAN - 1 : code);
+        break;
+      }
       case OP_NEG:
       case OP_ABS: {  // arg 1: an int32 lane, whose least value has no negation
         const i64 x = sd[sp - 1];
@@ -387,11 +555,12 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         }
         break;
       }
-      case OP_HLL: {  // arg: 0 bucket, 1 rho | P << 1, over the lane's 64 bits
+      case OP_HLL: {  // arg: 0 bucket, 1 rho | P << 1, over the lane's 64 bits; P 0: the hash
         const int P = arg >> 1;
         const u64 h = mix_u64((u64)sd[sp - 1]);
-        sd[sp - 1] = (arg & 1) ? (i64)__clzll((long long)((h << P) | (1ull << (P - 1)))) + 1
-                               : (i64)(h >> (64 - P));
+        sd[sp - 1] = P == 0 ? (i64)h
+            : (arg & 1) ? (i64)__clzll((long long)((h << P) | (1ull << (P - 1)))) + 1
+                        : (i64)(h >> (64 - P));
         break;
       }
       case OP_WBUCKET:  // x lo hi n -> the reference's width_bucket
@@ -637,6 +806,8 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
             }
             break;
           }
+          case OP_DTADD: d = dt_add(a, b, arg); break;  // a: the date or timestamp, b: n
+          case OP_DTDIFF: d = dt_diff(a, b, arg); break;
           case OP_EQ: d = a == b; break;
           case OP_NE: d = a != b; break;
           case OP_LT: d = a < b; break;

@@ -42,6 +42,20 @@
 // hll_merge's counts and sums add; finalize gives a boolean min/max as
 // it is, bool_and as (trues == count) and bool_or as (trues > 0), NULL
 // without a row, and hll_merge's estimate (never NULL).
+//
+// The coupled and statistical aggregates: the reference's
+// combine_packed_states has no branch for them (they fall into its
+// variance form, which cannot unpack their states), so the fold here is
+// the port's own: the central moments by the merge's shift form
+// (common.cuh moment_terms, as K6's S_MOM_MERGE), min_by / max_by
+// by the extreme of the y that have rows and the greatest x (by its
+// order key) among the sides whose y equals it with a valid x, checksum
+// and the covariance sums by adding.  Finalize (_finalize :1447
+// covariance, :1470 checksum, :1480 moments): skewness sqrt(n) M3 /
+// M2^1.5 (pow, libdevice's) and the unbiased excess kurtosis, the
+// covariance family from its five sums, each an _rn intrinsic in the
+// reference's order, maxima that keep NaN as jnp.maximum does; their
+// inputs come stacked, (G, 3) and (G, 5).
 
 #include "common.cuh"
 
@@ -52,14 +66,20 @@ enum { MODE_FOLD = 0, MODE_FINALIZE = 1 };
 enum { COL_I64 = 0, COL_D128 = 1, COL_MIN_I64 = 2, COL_MAX_I64 = 3, COL_MIN_I32 = 4,
        COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7, COL_F64 = 8, COL_VAR_M2 = 9,
        COL_MIN_F64 = 10, COL_MAX_F64 = 11, COL_MIN_BOOL = 12, COL_MAX_BOOL = 13,
-       COL_BAND = 14, COL_BOR = 15, COL_LAST = COL_BOR };
+       COL_BAND = 14, COL_BOR = 15, COL_MOM_M2 = 16, COL_MOM_M3 = 17, COL_MOM_M4 = 18,
+       COL_BY_X = 19, COL_BY_XV = 20, COL_BY_Y_MIN = 21, COL_BY_Y_MAX = 22,
+       COL_LAST = COL_BY_Y_MAX };
+// a column's storage (kernels/packed_fold_finalize.py _ELEM)
+enum { ELEM_I64 = 0, ELEM_I32 = 1, ELEM_F64 = 2, ELEM_BOOL = 3 };
 // finalize kinds
 enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
        FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6, FIN_AVG_DOUBLE = 7,
        FIN_SUM0 = 8, FIN_SUM0_D128 = 9, FIN_SUM_COLLAPSE = 10, FIN_SUM0_COLLAPSE = 11,
        FIN_SUM_F64 = 12, FIN_AVG_F64 = 13, FIN_VAR_POP = 14, FIN_VAR_SAMP = 15,
        FIN_STDDEV_POP = 16, FIN_STDDEV_SAMP = 17, FIN_VALUE_BOOL = 18, FIN_BOOL_AND = 19,
-       FIN_BOOL_OR = 20, FIN_HLL = 21, FIN_LAST = FIN_HLL };
+       FIN_BOOL_OR = 20, FIN_HLL = 21, FIN_SKEWNESS = 22, FIN_KURTOSIS = 23,
+       FIN_COVAR_POP = 24, FIN_COVAR_SAMP = 25, FIN_CORR = 26, FIN_REGR_SLOPE = 27,
+       FIN_REGR_INTERCEPT = 28, FIN_LAST = FIN_REGR_INTERCEPT };
 
 // The HLL estimator of hll_merge (the reference's _finalize, m = 4096
 // buckets): linear counting below 2.5 m while a bucket is empty, else
@@ -95,6 +115,7 @@ __device__ __forceinline__ double chan_m2(double s_a, double m2a, i64 n_a, doubl
 struct K3Desc {
   int n_items;
   int kind[K3_MAX_ITEMS];
+  int elem[K3_MAX_ITEMS];
   const i64* in0[K3_MAX_ITEMS];
   const i64* in1[K3_MAX_ITEMS];
   const uint8_t* in2[K3_MAX_ITEMS];
@@ -102,6 +123,67 @@ struct K3Desc {
   i64* out0[K3_MAX_ITEMS];
   uint8_t* out1[K3_MAX_ITEMS];
 };
+
+// two central-moment states folded: moment_terms of each side about
+// the folded mean, added (kernels/packed_fold_finalize.py moments_fold);
+// f is the state's s column, k 0..2 picks m2, m3 or m4
+__device__ __forceinline__ double moments_fold(const K3Desc& d, int f, int k, i64 g) {
+  const i64 na = d.in0[f + 4][g], nb = d.in1[f + 4][g];
+  const double sa = f64_at(d.in0[f], g), sb = f64_at(d.in1[f], g);
+  const double n = __ll2double_rn(na + nb);
+  const double mu = __ddiv_rn(__dadd_rn(sa, sb), n > 1.0 ? n : 1.0);
+  double ta[3], tb[3];
+  moment_terms(sa, f64_at(d.in0[f + 1], g), f64_at(d.in0[f + 2], g), f64_at(d.in0[f + 3], g),
+               na, mu, ta);
+  moment_terms(sb, f64_at(d.in1[f + 1], g), f64_at(d.in1[f + 2], g), f64_at(d.in1[f + 3], g),
+               nb, mu, tb);
+  return __dadd_rn(ta[k], tb[k]);
+}
+
+// min_by / max_by: a value of storage `elem` at g as its order key
+// (is_min: a y of min_by; an x takes the max side) and back
+__device__ __forceinline__ i64 by_load(const i64* p, int elem, i64 g) {
+  if (elem == ELEM_I32) return ((const int*)p)[g];
+  if (elem == ELEM_BOOL) return ((const uint8_t*)p)[g] != 0;
+  return p[g];
+}
+__device__ __forceinline__ i64 by_key(const i64* p, int elem, i64 g, bool is_min) {
+  const i64 v = by_load(p, elem, g);
+  return elem == ELEM_F64 ? minmax_key(v, is_min) : v;
+}
+__device__ __forceinline__ void by_store(i64* p, int elem, i64 g, i64 key, bool is_min) {
+  if (elem == ELEM_F64) p[g] = minmax_value(key, is_min);
+  else if (elem == ELEM_I32) ((int*)p)[g] = narrow_extreme(key);
+  else if (elem == ELEM_BOOL) ((uint8_t*)p)[g] = key == I64_MIN ? 0 : key != 0;
+  else p[g] = key;
+}
+// equal as values (a double NaN equals nothing)
+__device__ __forceinline__ bool by_equal(i64 a, i64 b, int elem) {
+  return elem == ELEM_F64 ? __longlong_as_double(a) == __longlong_as_double(b) : a == b;
+}
+
+// The fold of one min_by / max_by state (x, flag, y, cnt at column c):
+// out column `part` (0 x, 1 flag, 2 y)
+__device__ __forceinline__ void by_fold(const K3Desc& d, int c, int part, i64 g) {
+  const int ex = d.elem[c], ey = d.elem[c + 2];
+  const bool y_min = d.kind[c + 2] == COL_BY_Y_MIN;
+  const i64 ca = d.in0[c + 3][g], cb = d.in1[c + 3][g];
+  const i64 ident = y_min ? I64_MAX : I64_MIN;
+  const i64 ka = ca > 0 ? by_key(d.in0[c + 2], ey, g, y_min) : ident;
+  const i64 kb = cb > 0 ? by_key(d.in1[c + 2], ey, g, y_min) : ident;
+  const i64 k = y_min ? (ka < kb ? ka : kb) : (ka > kb ? ka : kb);
+  if (part == 2) { by_store(d.out0[c + 2], ey, g, k, y_min); return; }
+  const i64 y = ey == ELEM_F64 ? minmax_value(k, y_min) : k;
+  const bool ta = ca > 0 && d.in0[c + 1][g] > 0 && by_equal(by_load(d.in0[c + 2], ey, g), y, ey);
+  const bool tb = cb > 0 && d.in1[c + 1][g] > 0 && by_equal(by_load(d.in1[c + 2], ey, g), y, ey);
+  if (part == 1) { d.out0[c + 1][g] = ta || tb; return; }
+  const i64 xa = ta ? by_key(d.in0[c], ex, g, false) : I64_MIN;
+  const i64 xb = tb ? by_key(d.in1[c], ex, g, false) : I64_MIN;
+  by_store(d.out0[c], ex, g, xa > xb ? xa : xb, false);
+}
+
+// max(x, 0.0) that keeps a NaN (jnp.maximum)
+__device__ __forceinline__ double nan_max0(double x) { return (x > 0.0 || x != x) ? x : 0.0; }
 
 __device__ __forceinline__ void normalize(i64 hi, i64 lo, i64* out) {
   const i64 carry = fdiv(lo, B18);
@@ -154,6 +236,15 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
         ((int*)d.out0[c])[g] = kind == COL_MIN_I32 ? min(a, b) : max(a, b);
       } else if (kind == COL_F64) {
         ((double*)d.out0[c])[g] = __dadd_rn(f64_at(d.in0[c], g), f64_at(d.in1[c], g));
+      } else if (kind == COL_MOM_M2 || kind == COL_MOM_M3 || kind == COL_MOM_M4) {
+        const int k = kind - COL_MOM_M2;
+        ((double*)d.out0[c])[g] = moments_fold(d, c - 1 - k, k, g);  // s in column c - 1 - k
+      } else if (kind == COL_BY_X) {
+        by_fold(d, c, 0, g);
+      } else if (kind == COL_BY_XV) {
+        by_fold(d, c - 1, 1, g);
+      } else if (kind == COL_BY_Y_MIN || kind == COL_BY_Y_MAX) {
+        by_fold(d, c - 2, 2, g);
       } else if (kind == COL_VAR_M2) {  // s in column c - 1, the count in c + 1
         ((double*)d.out0[c])[g] = chan_m2(f64_at(d.in0[c - 1], g), f64_at(d.in0[c], g),
                                           d.in0[c + 1][g], f64_at(d.in1[c - 1], g),
@@ -231,6 +322,60 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
       case FIN_HLL:  // (sum of 2^-rho, present buckets)
         d.out0[c][g] = hll_estimate(f64_at(d.in0[c], g), cnt);
         break;
+      case FIN_SKEWNESS:
+      case FIN_KURTOSIS: {  // in0: (m2, m3, m4) per group
+        const double* m = (const double*)d.in0[c] + 3 * g;
+        const double nf = __ll2double_rn(n);
+        const double safe = m[0] == 0.0 ? 1.0 : m[0];
+        double v;
+        if (kind == FIN_SKEWNESS) {
+          v = __ddiv_rn(__dmul_rn(__dsqrt_rn(nf), m[1]), pow(safe, 1.5));
+        } else {
+          const double d1 = __dsub_rn(nf, 1.0);
+          const double e2 = __dsub_rn(nf, 2.0), e3 = __dsub_rn(nf, 3.0);
+          const double d2 = e2 > 1.0 ? e2 : 1.0, d3 = e3 > 1.0 ? e3 : 1.0;
+          const double dd = __dmul_rn(d2, d3);
+          const double a = __dmul_rn(__ddiv_rn(__dmul_rn(__dmul_rn(nf, __dadd_rn(nf, 1.0)), d1),
+                                               dd),
+                                     __ddiv_rn(m[2], __dmul_rn(safe, safe)));
+          v = __dsub_rn(a, __ddiv_rn(__dmul_rn(__dmul_rn(3.0, d1), d1), dd));
+        }
+        ((double*)d.out0[c])[g] = v;
+        d.out1[c][g] = live && cnt >= (kind == FIN_SKEWNESS ? 3 : 4) && m[0] > 0.0;
+        break;
+      }
+      case FIN_COVAR_POP:
+      case FIN_COVAR_SAMP:
+      case FIN_CORR:
+      case FIN_REGR_SLOPE:
+      case FIN_REGR_INTERCEPT: {  // in0: (sx, sy, sxy, sxx, syy) per group
+        const double* m = (const double*)d.in0[c] + 5 * g;
+        const double nf = __ll2double_rn(n);
+        const double mx = __ddiv_rn(m[0], nf), my = __ddiv_rn(m[1], nf);
+        const double cov = __dsub_rn(__ddiv_rn(m[2], nf), __dmul_rn(mx, my));
+        const double varx = nan_max0(__dsub_rn(__ddiv_rn(m[3], nf), __dmul_rn(mx, mx)));
+        const double vary = nan_max0(__dsub_rn(__ddiv_rn(m[4], nf), __dmul_rn(my, my)));
+        double v;
+        bool ok = cnt > 1;
+        if (kind == FIN_COVAR_POP) {
+          v = cov;
+          ok = cnt > 0;
+        } else if (kind == FIN_COVAR_SAMP) {
+          const double nm1 = __dsub_rn(nf, 1.0);
+          v = __ddiv_rn(__dmul_rn(cov, nf), nm1 > 1.0 ? nm1 : 1.0);
+        } else if (kind == FIN_CORR) {
+          const double denom = __dsqrt_rn(__dmul_rn(varx, vary));
+          v = __ddiv_rn(cov, denom == 0.0 ? 1.0 : denom);
+          ok = ok && denom > 0.0;
+        } else {
+          const double slope = __ddiv_rn(cov, varx == 0.0 ? 1.0 : varx);
+          v = kind == FIN_REGR_SLOPE ? slope : __dsub_rn(my, __dmul_rn(slope, mx));
+          ok = ok && varx > 0.0;
+        }
+        ((double*)d.out0[c])[g] = v;
+        d.out1[c][g] = live && ok;
+        break;
+      }
       case FIN_SUM_D128:
       case FIN_SUM0_D128:
         d.out0[c][2 * g] = d.in0[c][2 * g];
@@ -258,14 +403,15 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
 }
 
 // mode MODE_FOLD: item c is a state column (in0/in1 the two data
-// columns, in2/in3 their validity; out0/out1 the result), mask_out =
-// mask_a | mask_b.  mode MODE_FINALIZE: item c is an aggregate (in0
+// columns, in2/in3 their validity; out0/out1 the result; elem its
+// storage), mask_out = mask_a | mask_b; a moments or min_by state's
+// columns come in their state's order.  mode MODE_FINALIZE: item c is an aggregate (in0
 // the count or sum, in1 the count; out0/out1 data and validity) of the
 // table whose row mask is mask_a.  Returns cudaGetLastError().
 extern "C" int k3_packed_fold_finalize(int mode, i64 n_groups, int n_items, const int* kind,
                                        const i64* in0, const i64* in1, const i64* in2,
                                        const i64* in3, const i64* out0, const i64* out1,
-                                       const void* mask_a, const void* mask_b,
+                                       const int* elem, const void* mask_a, const void* mask_b,
                                        void* mask_out, void* stream) {
   if (n_items > K3_MAX_ITEMS || n_groups < 1) return (int)cudaErrorInvalidValue;
   K3Desc d;
@@ -273,7 +419,17 @@ extern "C" int k3_packed_fold_finalize(int mode, i64 n_groups, int n_items, cons
   for (int c = 0; c < n_items; ++c) {
     if (kind[c] < 0 || kind[c] > (mode == MODE_FOLD ? COL_LAST : FIN_LAST))
       return (int)cudaErrorInvalidValue;
+    // a moments or min_by state's columns stay within the table
+    if (mode == MODE_FOLD && ((kind[c] >= COL_MOM_M2 && kind[c] <= COL_MOM_M4 &&
+                               (c < 1 + kind[c] - COL_MOM_M2 ||
+                                c + 3 - (kind[c] - COL_MOM_M2) >= n_items)) ||
+                              (kind[c] >= COL_BY_X && kind[c] <= COL_BY_Y_MAX &&
+                               (c < (kind[c] >= COL_BY_Y_MIN ? 2 : kind[c] - COL_BY_X) ||
+                                c + 3 - (kind[c] >= COL_BY_Y_MIN ? 2 : kind[c] - COL_BY_X) >=
+                                    n_items))))
+      return (int)cudaErrorInvalidValue;
     d.kind[c] = kind[c];
+    d.elem[c] = elem[c];
     d.in0[c] = (const i64*)in0[c];
     d.in1[c] = (const i64*)in1[c];
     d.in2[c] = (const uint8_t*)in2[c];

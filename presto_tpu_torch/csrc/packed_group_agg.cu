@@ -65,6 +65,20 @@
 // 2^-rho per row (exact, from the double's bits) in the fixed double
 // order.  An aggregate's FILTER reaches the kernel as its argument's
 // validity lane, which K1 computes.
+//
+// The coupled and statistical aggregates (_partial_states :480
+// moments, :518 checksum, :536 min_by/max_by): checksum adds K1's
+// per-row splitmix64 hashes by a wrapping 64-bit atomicAdd (a NULL row
+// already carries the reference's constant, a dead row adds nothing);
+// the central moments (s, m2, m3, m4, cnt) take four fixed-order double
+// passes, s, then the sums of dx*dx, dx*dx*dx and dx*dx*dx*dx with
+// dx = x - s / max(cnt, 1), each in the reference's association;
+// min_by / max_by come as two entries, BY_X and the BY_Y right after
+// it: the first launch reduces y's order key (a double's minmax_key,
+// else the integer or collation rank) with its count, a second launch
+// takes, over the rows whose y equals the group's extreme (compared as
+// values, so a NaN extreme ties nothing, as the reference's ==), the
+// greatest x by its order key and counts them.
 
 #include "common.cuh"
 
@@ -74,18 +88,25 @@
 #define K2_SHARED_LIMIT (48 * 1024)
 #define K2_DSUM_CHUNK 256
 #define K2_DOUBLE_SLOT_LIMIT 1
+#define K2_OUTS 5
 
 // aggregate kinds: keep in step with kernels/packed_group_agg.py
 enum { AGG_COUNT_STAR = 0, AGG_COUNT = 1, AGG_SUM_SHORT = 2, AGG_SUM_LONG = 3,
        AGG_MIN_SHORT = 4, AGG_MAX_SHORT = 5, AGG_MIN_LONG = 6, AGG_MAX_LONG = 7,
        AGG_SUM_LONG_ARG = 8, AGG_SUM_DOUBLE = 9, AGG_VARIANCE = 10, AGG_MIN_DOUBLE = 11,
        AGG_MAX_DOUBLE = 12, AGG_BOOL_COUNT = 13, AGG_BIT_AND = 14, AGG_BIT_OR = 15,
-       AGG_HLL_SUM = 16 };
+       AGG_HLL_SUM = 16, AGG_CHECKSUM = 17, AGG_MOMENTS = 18, AGG_BY_Y_MIN = 19,
+       AGG_BY_Y_MAX = 20, AGG_BY_X = 21, AGG_LAST = AGG_BY_X };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3, KIND_F64 = 4 };
 
 // the states that add doubles in the fixed order (their slot counts)
 __host__ __device__ __forceinline__ bool is_double_agg(int kind) {
-  return kind == AGG_SUM_DOUBLE || kind == AGG_VARIANCE || kind == AGG_HLL_SUM;
+  return kind == AGG_SUM_DOUBLE || kind == AGG_VARIANCE || kind == AGG_HLL_SUM ||
+         kind == AGG_MOMENTS;
+}
+
+__host__ __device__ __forceinline__ bool is_by_y(int kind) {
+  return kind == AGG_BY_Y_MIN || kind == AGG_BY_Y_MAX;
 }
 
 __host__ __device__ __forceinline__ int agg_width(int kind) {
@@ -93,7 +114,8 @@ __host__ __device__ __forceinline__ int agg_width(int kind) {
     case AGG_SUM_LONG: case AGG_SUM_LONG_ARG: return 5;
     case AGG_MIN_LONG: case AGG_MAX_LONG: return 3;
     case AGG_SUM_SHORT: case AGG_MIN_SHORT: case AGG_MAX_SHORT: case AGG_MIN_DOUBLE:
-    case AGG_MAX_DOUBLE: case AGG_BOOL_COUNT: case AGG_BIT_AND: case AGG_BIT_OR: return 2;
+    case AGG_MAX_DOUBLE: case AGG_BOOL_COUNT: case AGG_BIT_AND: case AGG_BIT_OR:
+    case AGG_BY_Y_MIN: case AGG_BY_Y_MAX: case AGG_BY_X: return 2;
     default: return 1;
   }
 }
@@ -115,9 +137,10 @@ struct K2Desc {
   const void* arg_data[K2_MAX_AGGS];
   const uint8_t* arg_valid[K2_MAX_AGGS];
   int arg_kind[K2_MAX_AGGS];
-  i64* out0[K2_MAX_AGGS];  // count, or sum ((G,) or (G, 2) limbs, or doubles)
-  i64* out1[K2_MAX_AGGS];  // count of a sum or a min/max; m2 of a variance
-  i64* out2[K2_MAX_AGGS];  // count of a variance
+  // out[0]: count, or sum ((G,) or (G, 2) limbs, or doubles), or a
+  // value; out[1]: count of a sum or a min/max, m2; out[2]: count of a
+  // variance, m3; out[3]: m4; out[4]: count of the moments
+  i64* out[K2_OUTS][K2_MAX_AGGS];
   int raw_width;           // raw slots per group; slot 0 counts live rows
   uint8_t slot_kind[K2_MAX_SLOTS];  // SLOT_ADD, SLOT_MIN, SLOT_MAX, SLOT_AND or SLOT_OR
 };
@@ -126,6 +149,29 @@ __device__ __forceinline__ i64 load_int(const void* p, int kind, i64 i) {
   if (kind == KIND_I64) return ((const i64*)p)[i];
   if (kind == KIND_I32) return ((const int*)p)[i];
   return ((const uint8_t*)p)[i] != 0;
+}
+
+// min_by / max_by: the order key of a y (is_min: min_by's) or an x
+// (the max side), a double's minmax_key, an integer as it is
+__device__ __forceinline__ i64 by_key(const void* p, int kind, i64 i, bool is_min) {
+  if (kind == KIND_F64) return minmax_key(((const i64*)p)[i], is_min);
+  return load_int(p, kind, i);
+}
+
+// whether y at row i equals the reduced key (compared as values)
+__device__ __forceinline__ bool by_tie(const void* p, int kind, i64 i, i64 key, bool is_min) {
+  if (kind == KIND_F64)
+    return __longlong_as_double(((const i64*)p)[i]) ==
+           __longlong_as_double(minmax_value(key, is_min));
+  return load_int(p, kind, i) == key;
+}
+
+// a reduced key back in the state's storage (an empty state: the identity)
+__device__ __forceinline__ void by_store(i64* out, int kind, i64 g, i64 key, bool is_min) {
+  if (kind == KIND_F64) out[g] = minmax_value(key, is_min);
+  else if (kind == KIND_I32) ((int*)out)[g] = narrow_extreme(key);
+  else if (kind == KIND_BOOL) ((uint8_t*)out)[g] = key == I64_MIN ? 0 : key != 0;
+  else out[g] = key;
 }
 
 __device__ __forceinline__ void add_slot(u64* tab, i64 v) {
@@ -154,6 +200,16 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
   if (phase == 1) {
     for (int a = 0; a < d.n_aggs; ++a) {
       const int kind = d.agg_kind[a];
+      if (kind == AGG_BY_X) {  // x over the rows tied at the y extreme (entry a + 1)
+        const int y = a + 1;
+        const bool y_min = d.agg_kind[y] == AGG_BY_Y_MIN;
+        if (!d.arg_valid[a][i] || !d.arg_valid[y][i]) continue;
+        if (!by_tie(d.arg_data[y], d.arg_kind[y], i, (i64)base[d.agg_slot[y]], y_min)) continue;
+        u64* s = base + d.agg_slot[a];
+        slot_combine(s, by_key(d.arg_data[a], d.arg_kind[a], i, false), SLOT_MAX);
+        atomicAdd(s + 1, 1ull);
+        continue;
+      }
       if (!is_long_extreme(kind) || !d.arg_valid[a][i]) continue;
       const i64* x = (const i64*)d.arg_data[a] + 2 * i;
       u64* s = base + d.agg_slot[a];
@@ -166,7 +222,18 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
     u64* s = base + d.agg_slot[a];
     const int kind = d.agg_kind[a];
     if (kind == AGG_COUNT_STAR) { atomicAdd(s, 1ull); continue; }
-    if (!d.arg_valid[a][i]) continue;
+    if (kind == AGG_BY_X || !d.arg_valid[a][i]) continue;  // BY_X: phase 1
+    if (kind == AGG_CHECKSUM) {  // a wrapping sum of the hashes
+      add_slot(s, ((const i64*)d.arg_data[a])[i]);
+      continue;
+    }
+    if (is_by_y(kind)) {
+      const bool is_min = kind == AGG_BY_Y_MIN;
+      slot_combine(s, by_key(d.arg_data[a], d.arg_kind[a], i, is_min),
+                   is_min ? SLOT_MIN : SLOT_MAX);
+      atomicAdd(s + 1, 1ull);
+      continue;
+    }
     if (kind == AGG_COUNT || is_double_agg(kind)) { atomicAdd(s, 1ull); continue; }
     if (is_long_extreme(kind)) {  // the high limb; phase 1 takes the low one
       slot_combine(s, ((const i64*)d.arg_data[a])[2 * i],
@@ -257,29 +324,38 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
   for (int a = 0; a < d.n_aggs; ++a) {
     const i64* s = r + d.agg_slot[a];
     switch (d.agg_kind[a]) {
-      case AGG_COUNT_STAR: case AGG_COUNT: d.out0[a][g] = s[0]; break;
-      case AGG_SUM_DOUBLE: case AGG_HLL_SUM: d.out1[a][g] = s[0]; break;  // sums later
+      case AGG_COUNT_STAR: case AGG_COUNT: case AGG_CHECKSUM: d.out[0][a][g] = s[0]; break;
+      case AGG_SUM_DOUBLE: case AGG_HLL_SUM: d.out[1][a][g] = s[0]; break;  // sums later
+      case AGG_MOMENTS: d.out[4][a][g] = s[0]; break;
+      case AGG_BY_Y_MIN: case AGG_BY_Y_MAX:
+        by_store(d.out[0][a], d.arg_kind[a], g, s[0], d.agg_kind[a] == AGG_BY_Y_MIN);
+        d.out[1][a][g] = s[1];
+        break;
+      case AGG_BY_X:
+        by_store(d.out[0][a], d.arg_kind[a], g, s[0], false);
+        d.out[1][a][g] = s[1] > 0;
+        break;
       case AGG_MIN_DOUBLE: case AGG_MAX_DOUBLE:
-        d.out0[a][g] = minmax_value(s[0], d.agg_kind[a] == AGG_MIN_DOUBLE);
-        d.out1[a][g] = s[1];
+        d.out[0][a][g] = minmax_value(s[0], d.agg_kind[a] == AGG_MIN_DOUBLE);
+        d.out[1][a][g] = s[1];
         break;
       case AGG_BOOL_COUNT: case AGG_BIT_AND: case AGG_BIT_OR:
-        d.out0[a][g] = s[0];
-        d.out1[a][g] = s[1];
+        d.out[0][a][g] = s[0];
+        d.out[1][a][g] = s[1];
         break;
-      case AGG_VARIANCE: d.out2[a][g] = s[0]; break;
-      case AGG_SUM_SHORT: d.out0[a][g] = s[0]; d.out1[a][g] = s[1]; break;
+      case AGG_VARIANCE: d.out[2][a][g] = s[0]; break;
+      case AGG_SUM_SHORT: d.out[0][a][g] = s[0]; d.out[1][a][g] = s[1]; break;
       case AGG_MIN_SHORT: case AGG_MAX_SHORT:
-        if (d.arg_kind[a] == KIND_I32) ((int*)d.out0[a])[g] = narrow_extreme(s[0]);
+        if (d.arg_kind[a] == KIND_I32) ((int*)d.out[0][a])[g] = narrow_extreme(s[0]);
         else if (d.arg_kind[a] == KIND_BOOL)  // an empty state: the fold's neutral value
-          ((uint8_t*)d.out0[a])[g] = s[0] == I64_MIN ? 0 : s[0] != 0;
-        else d.out0[a][g] = s[0];
-        d.out1[a][g] = s[1];
+          ((uint8_t*)d.out[0][a])[g] = s[0] == I64_MIN ? 0 : s[0] != 0;
+        else d.out[0][a][g] = s[0];
+        d.out[1][a][g] = s[1];
         break;
       case AGG_MIN_LONG: case AGG_MAX_LONG:
-        d.out0[a][2 * g] = s[0];
-        d.out0[a][2 * g + 1] = s[1];
-        d.out1[a][g] = s[2];
+        d.out[0][a][2 * g] = s[0];
+        d.out[0][a][2 * g + 1] = s[1];
+        d.out[1][a][g] = s[2];
         break;
       default: {  // AGG_SUM_LONG(_ARG): from_sum_limbs, then normalize
         i64 h1 = s[0], h0 = s[1], l1 = s[2], l0 = s[3];
@@ -297,20 +373,22 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
         c = fdiv(lo, B18);
         lo -= c * B18;
         hi = wadd(hi, c);
-        d.out0[a][2 * g] = hi;
-        d.out0[a][2 * g + 1] = lo;
-        d.out1[a][g] = s[4];
+        d.out[0][a][2 * g] = hi;
+        d.out[0][a][2 * g + 1] = lo;
+        d.out[1][a][g] = s[4];
       }
     }
   }
 }
 
 // One block per chunk of K2_DSUM_CHUNK rows: the chunk's partial sum
-// per slot, each slot's rows in row order from 0.0.  With mu set, a
-// row adds (x - mu[slot])^2 in place of x (variance's second pass).
+// per slot, each slot's rows in row order from 0.0.  pass 0 adds x;
+// with dx = x - mu[slot], pass 1 adds dx*dx (variance's second pass),
+// pass 2 (dx*dx)*dx and pass 3 (dx*dx)*(dx*dx) (the central moments).
 __global__ void k2_dsum_chunks(const K2Desc d, int a, i64 n,
                                const uint8_t* __restrict__ row_mask, i64 n_groups,
-                               const double* __restrict__ mu, double* __restrict__ part) {
+                               const double* __restrict__ mu, int pass,
+                               double* __restrict__ part) {
   __shared__ int sg[K2_DSUM_CHUNK];
   __shared__ double sx[K2_DSUM_CHUNK];
   const i64 base = (i64)blockIdx.x * K2_DSUM_CHUNK;
@@ -324,9 +402,10 @@ __global__ void k2_dsum_chunks(const K2Desc d, int a, i64 n,
         g = (int)key;
         x = d.agg_kind[a] == AGG_HLL_SUM ? hll_weight(load_int(d.arg_data[a], d.arg_kind[a], i))
                                          : ((const double*)d.arg_data[a])[i];
-        if (mu != nullptr) {
+        if (pass > 0) {
           const double dx = __dsub_rn(x, mu[g]);
-          x = __dmul_rn(dx, dx);
+          const double dx2 = __dmul_rn(dx, dx);
+          x = pass == 1 ? dx2 : pass == 2 ? __dmul_rn(dx2, dx) : __dmul_rn(dx2, dx2);
         }
       }
     }
@@ -367,17 +446,18 @@ __global__ void k2_dsum_out(const double* __restrict__ total, i64 n_groups,
     mu_out[g] = __ddiv_rn(total[g], __ll2double_rn(cnt[g] > 1 ? cnt[g] : 1));
 }
 
-// The fixed-order per-slot sum of aggregate a (mu: see k2_dsum_chunks)
-// into out; scratch holds chunks * n_groups + (chunks + 1) / 2 *
-// n_groups doubles.
+// The fixed-order per-slot sum of aggregate a (mu, pass: see
+// k2_dsum_chunks) into out; scratch holds chunks * n_groups + (chunks
+// + 1) / 2 * n_groups doubles.
 static void k2_double_pass(const K2Desc& d, int a, i64 n, const uint8_t* row_mask,
-                           i64 n_groups, const double* mu, double* scratch, double* out,
-                           const i64* cnt, double* mu_out, cudaStream_t s) {
+                           i64 n_groups, const double* mu, int pass, double* scratch,
+                           double* out, const i64* cnt, double* mu_out, cudaStream_t s) {
   i64 rows = n > 0 ? (n + K2_DSUM_CHUNK - 1) / K2_DSUM_CHUNK : 1;
   double* a_buf = scratch;
   double* b_buf = scratch + rows * n_groups;
   if (n > 0)
-    k2_dsum_chunks<<<(unsigned)rows, 128, 0, s>>>(d, a, n, row_mask, n_groups, mu, a_buf);
+    k2_dsum_chunks<<<(unsigned)rows, 128, 0, s>>>(d, a, n, row_mask, n_groups, mu, pass,
+                                                   a_buf);
   else
     cudaMemsetAsync(a_buf, 0, n_groups * sizeof(double), s);
   while (rows > 1) {
@@ -392,10 +472,11 @@ static void k2_double_pass(const K2Desc& d, int a, i64 n, const uint8_t* row_mas
   k2_dsum_out<<<(int)((n_groups + 127) / 128), 128, 0, s>>>(a_buf, n_groups, out, cnt, mu_out);
 }
 
-// raw: int64 scratch of n_groups * raw_width.  out0/out1: the output
-// columns per aggregate (out1 only for sums and min/max; out0 of a
-// min/max has the argument's storage).  present: (G,) bool.  Returns
-// cudaGetLastError() after the launches.
+// raw: int64 scratch of n_groups * raw_width.  out0..out4: the output
+// columns per aggregate (out1 only for sums, min/max and the coupled
+// states; out0 of a min/max or a coupled state has the argument's
+// storage; out2..out4 for the variance and the moments).  present: (G,)
+// bool.  Returns cudaGetLastError() after the launches.
 extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
                                    int n_keys, const i64* key_data, const i64* key_valid,
                                    const int* key_kind, const i64* key_lo, const i64* key_card,
@@ -403,6 +484,7 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
                                    const i64* arg_valid, const int* arg_kind,
                                    i64 n_groups, int raw_width, void* raw,
                                    const i64* out0, const i64* out1, const i64* out2,
+                                   const i64* out3, const i64* out4,
                                    void* present, void* scratch, void* stream) {
   if (n_keys > K2_MAX_KEYS || n_aggs > K2_MAX_AGGS || n_groups < 1)
     return (int)cudaErrorInvalidValue;
@@ -421,7 +503,11 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   d.slot_kind[0] = SLOT_ADD;
   for (int a = 0; a < n_aggs; ++a) {
     const int kind = agg_kind[a];
-    if (kind < AGG_COUNT_STAR || kind > AGG_HLL_SUM) return (int)cudaErrorInvalidValue;
+    if (kind < AGG_COUNT_STAR || kind > AGG_LAST) return (int)cudaErrorInvalidValue;
+    // a BY_Y entry follows its BY_X
+    if (kind == AGG_BY_X && !(a + 1 < n_aggs && is_by_y(agg_kind[a + 1])))
+      return (int)cudaErrorInvalidValue;
+    if (is_by_y(kind) && (a == 0 || agg_kind[a - 1] != AGG_BY_X)) return (int)cudaErrorInvalidValue;
     if (is_double_agg(kind) && n_groups > K2_DOUBLE_SLOT_LIMIT)
       return (int)cudaErrorInvalidValue;
     d.agg_kind[a] = kind;
@@ -429,19 +515,23 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
     for (int j = 0; j < agg_width(kind); ++j) d.slot_kind[slot + j] = SLOT_ADD;
     if (kind == AGG_MIN_SHORT || kind == AGG_MIN_LONG || kind == AGG_MIN_DOUBLE)
       d.slot_kind[slot] = SLOT_MIN;
-    if (kind == AGG_MAX_SHORT || kind == AGG_MAX_LONG || kind == AGG_MAX_DOUBLE)
+    if (kind == AGG_MAX_SHORT || kind == AGG_MAX_LONG || kind == AGG_MAX_DOUBLE ||
+        kind == AGG_BY_Y_MAX || kind == AGG_BY_X)
       d.slot_kind[slot] = SLOT_MAX;
+    if (kind == AGG_BY_Y_MIN) d.slot_kind[slot] = SLOT_MIN;
     if (kind == AGG_BIT_AND) d.slot_kind[slot] = SLOT_AND;
     if (kind == AGG_BIT_OR) d.slot_kind[slot] = SLOT_OR;
     if (is_long_extreme(kind)) d.slot_kind[slot + 1] = d.slot_kind[slot];
-    phased = phased || is_long_extreme(kind);
+    phased = phased || is_long_extreme(kind) || kind == AGG_BY_X;
     slot += agg_width(kind);
     d.arg_data[a] = (const void*)arg_data[a];
     d.arg_valid[a] = (const uint8_t*)arg_valid[a];
     d.arg_kind[a] = arg_kind[a];
-    d.out0[a] = (i64*)out0[a];
-    d.out1[a] = (i64*)out1[a];
-    d.out2[a] = (i64*)out2[a];
+    d.out[0][a] = (i64*)out0[a];
+    d.out[1][a] = (i64*)out1[a];
+    d.out[2][a] = (i64*)out2[a];
+    d.out[3][a] = (i64*)out3[a];
+    d.out[4][a] = (i64*)out4[a];
   }
   if (slot != raw_width) return (int)cudaErrorInvalidValue;
   d.raw_width = raw_width;
@@ -464,14 +554,16 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
       d, n_groups, (const i64*)raw, (uint8_t*)present);
   for (int a = 0; a < n_aggs; ++a) {
     if (!is_double_agg(d.agg_kind[a])) continue;
-    const bool var = d.agg_kind[a] == AGG_VARIANCE;
-    double* sum = (double*)d.out0[a];
-    double* m2 = (double*)d.out1[a];  // holds mu until the second pass ends
-    k2_double_pass(d, a, n, (const uint8_t*)row_mask, n_groups, nullptr, (double*)scratch,
-                   sum, var ? d.out2[a] : nullptr, var ? m2 : nullptr, s);
-    if (var)
-      k2_double_pass(d, a, n, (const uint8_t*)row_mask, n_groups, m2, (double*)scratch, m2,
-                     nullptr, nullptr, s);
+    const bool var = d.agg_kind[a] == AGG_VARIANCE, mom = d.agg_kind[a] == AGG_MOMENTS;
+    double* sum = (double*)d.out[0][a];
+    // mu lives in the last pass's output until that pass ends
+    double* mu = (double*)d.out[var ? 1 : 3][a];
+    const i64* cnt = var ? d.out[2][a] : mom ? d.out[4][a] : nullptr;
+    k2_double_pass(d, a, n, (const uint8_t*)row_mask, n_groups, nullptr, 0, (double*)scratch,
+                   sum, cnt, cnt ? mu : nullptr, s);
+    for (int pass = 1; pass <= (var ? 1 : mom ? 3 : 0); ++pass)
+      k2_double_pass(d, a, n, (const uint8_t*)row_mask, n_groups, mu, pass, (double*)scratch,
+                     (double*)d.out[pass][a], nullptr, nullptr, s);
   }
   return (int)cudaGetLastError();
 }

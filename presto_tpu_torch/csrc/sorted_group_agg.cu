@@ -70,6 +70,20 @@
 // / or (slot_fold locally, atomicAnd / atomicOr on a flush; the
 // reference's _seg_assoc); hll_merge's sum of 2^-rho (S_HLL) takes the
 // double states' fixed order, each weight exact from its bits.
+//
+// The coupled and statistical states (_partial_states :480, :536 and
+// _merge_states :1118, :1151): S_MOM runs the double pass four times,
+// s, then sum dx*dx, (dx*dx)*dx and (dx*dx)*(dx*dx) with dx = x - mu;
+// S_MOM_MERGE adds s_i, then m2_i + c_i d^2, m3_i + 3 m2_i d + c_i d^3
+// and m4_i + 4 m3_i d + 6 m2_i d^2 + c_i d^4 with d = mu_i - mu, each
+// in the reference's association.  min_by / max_by are three states,
+// S_BY_X, S_BY_XV and S_BY_Y_MIN or S_BY_Y_MAX: the first accumulate
+// launch reduces y's order key (a double's minmax_key), the second one
+// (the phase of the long extremes) reads the group's reduced y and, over
+// the rows whose y equals it as a value (a NaN extreme ties nothing),
+// takes the greatest x by its order key (S_BY_X) and counts the rows
+// with a valid x (S_BY_XV, stored as the 0/1 flag).  checksum is an
+// S_SUM of K1's hashes (wadd wraps).
 
 #include "keys.cuh"
 #include "scan.cuh"
@@ -82,12 +96,23 @@
 // state kinds: keep in step with kernels/sorted_group_agg.py
 enum { S_ONE = 0, S_VALID = 1, S_SUM = 2, S_LIMBS_SHORT = 3, S_LIMBS_LONG = 4, S_MIN = 5,
        S_MAX = 6, S_MIN_LONG = 7, S_MAX_LONG = 8, S_DSUM = 9, S_VAR = 10, S_VAR_MERGE = 11,
-       S_MIN_F64 = 12, S_MAX_F64 = 13, S_BAND = 14, S_BOR = 15, S_HLL = 16 };
+       S_MIN_F64 = 12, S_MAX_F64 = 13, S_BAND = 14, S_BOR = 15, S_HLL = 16, S_MOM = 17,
+       S_MOM_MERGE = 18, S_BY_Y_MIN = 19, S_BY_Y_MAX = 20, S_BY_X = 21, S_BY_XV = 22 };
 // how k6_finish stores a state (kernels/sorted_group_agg.py _OUT_KINDS)
-enum { OUT_I64 = 0, OUT_I32 = 1, OUT_BOOL = 2 };
+enum { OUT_I64 = 0, OUT_I32 = 1, OUT_BOOL = 2, OUT_F64 = 3 };
+// a state's data: pk_load's kinds, or a double's bits (DATA_F64)
+#define DATA_F64 3
 
 __host__ __device__ __forceinline__ bool is_int_state(int kind) {
-  return (kind >= S_ONE && kind <= S_MAX_LONG) || (kind >= S_MIN_F64 && kind <= S_BOR);
+  return (kind >= S_ONE && kind <= S_MAX_LONG) || (kind >= S_MIN_F64 && kind <= S_BOR) ||
+         (kind >= S_BY_Y_MIN && kind <= S_BY_XV);
+}
+
+// min_by / max_by: the order key of a y (is_min: min_by's) or an x
+// (the max side)
+__device__ __forceinline__ i64 by_key(const void* p, int kind, i64 row, bool is_min) {
+  if (kind == DATA_F64) return minmax_key(((const i64*)p)[row], is_min);
+  return pk_load(p, kind, row);
 }
 
 __host__ __device__ __forceinline__ int state_width(int kind) {
@@ -140,6 +165,20 @@ __device__ __forceinline__ void add_row(const K6Desc& d, i64 row, i64* acc, int 
     const int kind = d.kind[s];
     const bool long_extreme = kind == S_MIN_LONG || kind == S_MAX_LONG;
     if (phase == 1) {
+      if (kind == S_BY_X || kind == S_BY_XV) {  // over the rows tied at y's extreme
+        const int y = s + (kind == S_BY_X ? 2 : 1);
+        if (!d.valid[s][row] || !d.valid[y][row]) continue;
+        const bool y_min = d.kind[y] == S_BY_Y_MIN;
+        const i64 best = group_raw[d.slot[y]];
+        const bool tie = d.data_kind[y] == DATA_F64
+            ? __longlong_as_double(((const i64*)d.data[y])[row]) ==
+                  __longlong_as_double(minmax_value(best, y_min))
+            : pk_load(d.data[y], d.data_kind[y], row) == best;
+        if (!tie) continue;
+        if (kind == S_BY_XV) a[0] += 1;
+        else a[0] = slot_fold(a[0], by_key(d.data[s], d.data_kind[s], row, false), SLOT_MAX);
+        continue;
+      }
       if (!long_extreme || !d.valid[s][row]) continue;
       const i64* x = (const i64*)d.data[s] + 2 * row;
       if (x[0] == group_raw[d.slot[s]])
@@ -147,7 +186,12 @@ __device__ __forceinline__ void add_row(const K6Desc& d, i64 row, i64* acc, int 
       continue;
     }
     if (kind == S_ONE) { a[0] += 1; continue; }
-    if (!d.valid[s][row]) continue;
+    if (kind == S_BY_X || kind == S_BY_XV || !d.valid[s][row]) continue;  // BY_X(V): phase 1
+    if (kind == S_BY_Y_MIN || kind == S_BY_Y_MAX) {
+      a[0] = slot_fold(a[0], by_key(d.data[s], d.data_kind[s], row, kind == S_BY_Y_MIN),
+                       d.slot_kind[d.slot[s]]);
+      continue;
+    }
     if (kind == S_VALID) { a[0] += 1; continue; }
     if (kind == S_SUM) {
       a[0] = wadd(a[0], pk_load(d.data[s], d.data_kind[s], row));
@@ -243,6 +287,14 @@ static __global__ void k6_finish(const K6Desc d, i64 groups, const i64* __restri
       }
       if (d.kind[s] == S_MIN_F64 || d.kind[s] == S_MAX_F64) {
         d.out[s][g] = minmax_value(v[0], d.kind[s] == S_MIN_F64);
+        continue;
+      }
+      if (d.kind[s] == S_BY_XV) {
+        d.out[s][g] = v[0] > 0;
+        continue;
+      }
+      if (d.out_kind[s] == OUT_F64) {  // a min_by / max_by double: its order key back
+        d.out[s][g] = minmax_value(v[0], d.kind[s] == S_BY_Y_MIN);
         continue;
       }
       if (d.out_kind[s] == OUT_I32) {
@@ -358,12 +410,19 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
     if (w + width > K6_MAX_SLOTS) return (int)cudaErrorInvalidValue;
     d.kind[s] = kind[s];
     d.slot[s] = w;
-    const int sk_kind = (kind[s] == S_MIN || kind[s] == S_MIN_LONG || kind[s] == S_MIN_F64)
+    // S_BY_X's partner y is two states on, S_BY_XV's one
+    if ((kind[s] == S_BY_X && !(s + 2 < n_states && kind[s + 1] == S_BY_XV &&
+                                (kind[s + 2] == S_BY_Y_MIN || kind[s + 2] == S_BY_Y_MAX))) ||
+        (kind[s] == S_BY_XV && (s == 0 || kind[s - 1] != S_BY_X)))
+      return (int)cudaErrorInvalidValue;
+    const int sk_kind = (kind[s] == S_MIN || kind[s] == S_MIN_LONG || kind[s] == S_MIN_F64 ||
+                         kind[s] == S_BY_Y_MIN)
         ? SLOT_MIN
-        : (kind[s] == S_MAX || kind[s] == S_MAX_LONG || kind[s] == S_MAX_F64) ? SLOT_MAX
+        : (kind[s] == S_MAX || kind[s] == S_MAX_LONG || kind[s] == S_MAX_F64 ||
+           kind[s] == S_BY_Y_MAX || kind[s] == S_BY_X) ? SLOT_MAX
         : kind[s] == S_BAND ? SLOT_AND : kind[s] == S_BOR ? SLOT_OR : SLOT_ADD;
     for (int j = 0; j < width; ++j) d.slot_kind[w + j] = sk_kind;
-    phased = phased || kind[s] == S_MIN_LONG || kind[s] == S_MAX_LONG;
+    phased = phased || kind[s] == S_MIN_LONG || kind[s] == S_MAX_LONG || kind[s] == S_BY_X;
     w += width;
     d.data[s] = (const void*)data[s];
     d.data_kind[s] = data_kind[s];
@@ -419,14 +478,18 @@ static __global__ void k6_chunk_groups(const int* __restrict__ base, i64 groups,
 }
 
 // One thread per chunk: the chunk's values in sorted order from 0.0.
-// pass 0 adds x (a merge: s_i); pass 1 adds (x - mu)^2 (a merge:
-// m2_i + c_i (mu_i - mu)^2, mu_i = s_i / max(c_i, 1)).
+// pass 0 adds x (a merge: s_i); pass 1 adds (x - mu)^2 (a variance
+// merge: m2_i + c_i (mu_i - mu)^2, mu_i = s_i / max(c_i, 1)); the
+// moments' passes 1..3 add dx^2, dx^2 dx, dx^2 dx^2 (a merge: the M2,
+// M3, M4 terms of Chan's form with d = mu_i - mu).
 static __global__ void k6_dchunks(const i64* __restrict__ order, const i64* __restrict__ starts,
                                   const int* __restrict__ base,
                                   const int* __restrict__ chunk_group, i64 groups, int kind,
                                   int pass, const double* __restrict__ x,
                                   const uint8_t* __restrict__ valid,
                                   const double* __restrict__ m2_in,
+                                  const double* __restrict__ m3_in,
+                                  const double* __restrict__ m4_in,
                                   const i64* __restrict__ c_in, const double* __restrict__ mu,
                                   double* __restrict__ part) {
   const i64 chunks = base[groups];
@@ -446,9 +509,14 @@ static __global__ void k6_dchunks(const i64* __restrict__ order, const i64* __re
         const double mu_i = __ddiv_rn(v, cf > 1.0 ? cf : 1.0);
         const double dev = c > 0 ? __dsub_rn(mu_i, mu[g]) : 0.0;
         v = __dadd_rn(m2_in[row], __dmul_rn(__dmul_rn(cf, dev), dev));
-      } else if (pass == 1) {
+      } else if (pass > 0 && kind == S_MOM_MERGE) {
+        double t[3];
+        moment_terms(v, m2_in[row], m3_in[row], m4_in[row], c_in[row], mu[g], t);
+        v = t[pass - 1];
+      } else if (pass > 0) {
         const double dx = __dsub_rn(v, mu[g]);
-        v = __dmul_rn(dx, dx);
+        const double dx2 = __dmul_rn(dx, dx);
+        v = pass == 1 ? dx2 : pass == 2 ? __dmul_rn(dx2, dx) : __dmul_rn(dx2, dx2);
       }
       acc = __dadd_rn(acc, v);
     }
@@ -472,19 +540,24 @@ static __global__ void k6_dtree(const int* __restrict__ base, i64 groups,
 }
 
 // A double state over the sorted run of each of `groups` groups: kind
-// S_DSUM writes out_s; S_VAR and S_VAR_MERGE write out_s and out_m2
-// (out_m2 holds mu between the passes), with cnt the group counts of
-// their integer state.  x: the double argument (a merge: s_i), m2_in
-// and c_in a merge's m2_i and c_i.  Scratch: starts groups + 1 int64,
+// S_DSUM and S_HLL write out_s; S_VAR and S_VAR_MERGE write out_s and
+// out_m2 (out_m2 holds mu between the passes), S_MOM and S_MOM_MERGE
+// out_s, out_m2, out_m3 and out_m4 (out_m4 holds mu until the last
+// pass), with cnt the group counts of their integer state.  x: the
+// double argument (a merge: s_i), m2_in, m3_in, m4_in and c_in a
+// merge's m2_i, m3_i, m4_i and c_i.  Scratch: starts groups + 1 int64,
 // base groups + 1 ints, partials scan_tiles(groups + 1) + 1 ints,
 // chunk_group and part `bound` (>= the chunk count) ints and doubles.
 extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n,
                                const void* scan, i64 groups, int kind, const void* x,
-                               const void* valid, const void* m2_in, const void* c_in,
-                               const void* cnt, void* out_s, void* out_m2, void* starts,
-                               void* base, void* partials, void* chunk_group, void* part,
-                               i64 bound, void* stream) {
-  if ((kind < S_DSUM || kind > S_VAR_MERGE) && kind != S_HLL) return (int)cudaErrorInvalidValue;
+                               const void* valid, const void* m2_in, const void* m3_in,
+                               const void* m4_in, const void* c_in, const void* cnt,
+                               void* out_s, void* out_m2, void* out_m3, void* out_m4,
+                               void* starts, void* base, void* partials, void* chunk_group,
+                               void* part, i64 bound, void* stream) {
+  if ((kind < S_DSUM || kind > S_VAR_MERGE) && kind != S_HLL && kind != S_MOM &&
+      kind != S_MOM_MERGE)
+    return (int)cudaErrorInvalidValue;
   if (groups == 0) return (int)cudaGetLastError();
   if ((n + K6_DSUM_CHUNK - 1) / K6_DSUM_CHUNK + groups > bound) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -496,14 +569,18 @@ extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n
   k6_chunk_groups<<<(int)((groups + 255) / 256), 256, 0, st>>>((const int*)base, groups,
                                                                (int*)chunk_group);
   const bool var = kind == S_VAR || kind == S_VAR_MERGE;
-  for (int pass = 0; pass < (var ? 2 : 1); ++pass) {
+  const bool mom = kind == S_MOM || kind == S_MOM_MERGE;
+  double* outs[4] = {(double*)out_s, (double*)out_m2, (double*)out_m3, (double*)out_m4};
+  double* mu = mom ? (double*)out_m4 : (double*)out_m2;
+  for (int pass = 0; pass < (var ? 2 : mom ? 4 : 1); ++pass) {
     k6_dchunks<<<grid_for(bound, 128, 8), 128, 0, st>>>(
         (const i64*)order, (const i64*)starts, (const int*)base, (const int*)chunk_group,
         groups, kind, pass, (const double*)x, (const uint8_t*)valid, (const double*)m2_in,
-        (const i64*)c_in, pass ? (const double*)out_m2 : nullptr, (double*)part);
+        (const double*)m3_in, (const double*)m4_in, (const i64*)c_in,
+        pass ? (const double*)mu : nullptr, (double*)part);
     k6_dtree<<<(int)((groups + 127) / 128), 128, 0, st>>>(
-        (const int*)base, groups, (double*)part, pass ? (double*)out_m2 : (double*)out_s,
-        var && pass == 0 ? (const i64*)cnt : nullptr, (double*)out_m2);
+        (const int*)base, groups, (double*)part, outs[pass],
+        (var || mom) && pass == 0 ? (const i64*)cnt : nullptr, mu);
   }
   return (int)cudaGetLastError();
 }

@@ -29,8 +29,21 @@ doubles as jnp.mod, truncating over integers and decimals) and integer
 ``div``, the bitwise functions, ``greatest``/``least``, ``nullif``,
 ``cast_bigint``, ``hll_bucket``/``hll_rho`` and the date parts
 day_of_week, day_of_year, week, year_of_week and last_day_of_month
-(K1's family opcodes).  Timestamps, string functions and containers
-raise by name.
+(K1's family opcodes); timestamps (an int64 lane of epoch
+microseconds; a date beside one goes to microseconds, as the
+reference's ``_align_pair``), their date parts and time of day,
+date_trunc / date_add / date_diff, the interval arithmetic the binder
+lowers to ``ts_add_micros`` / ``ts_add_months`` / ``date_add_months`` /
+``date_add_days``, to_unixtime / from_unixtime, CAST between dates and
+timestamps, ``date_format`` (a code into one dictionary per format), the
+string functions over dictionaries (an int64 or double table per
+dictionary, function and literal, with a not-null table where a value
+maps to NULL: length, strpos, codepoint, the JSON sizes, from_base,
+date_parse, from_iso8601_date, the edit distances against a literal,
+CAST of a varchar column to a number, crc32 / xxhash64 of ``to_utf8``;
+the predicates regexp_like, starts_with, ends_with and is_json_scalar
+as boolean tables) and ``try`` (the identity).  Containers and raw
+strings raise by name.
 ``ExprCompiler.compile_key`` also maps a key column's codes to their
 value's representative code where the dictionary repeats a value (the
 reference's ``canonicalize_codes``).
@@ -52,7 +65,9 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import NotPorted
-from presto_tpu_torch.expr.host_fns import STRING_TRANSFORM_FNS, _string_transform
+from presto_tpu_torch.expr.host_fns import STRING_TRANSFORM_FNS, _json_path_lookup, \
+    _levenshtein, _mysql_to_strftime, _string_transform, iso_date_days, \
+    mysql_datetime_micros, parse_number_strict, xxh64_signed
 from presto_tpu_torch.expr.ir import Call, ColumnRef, Expr, Literal
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.page import Dictionary, Page
@@ -120,6 +135,13 @@ def expr_dictionary(e: Expr, dictionaries: Sequence[Optional[Dictionary]]
         return None if entry is None else entry[1]
     if isinstance(e, Call) and e.fn in ("case", "if", "coalesce"):
         return merged_string_dictionary(e, dictionaries)
+    if isinstance(e, Call) and e.fn == "date_format":
+        fmt = e.args[1]
+        if isinstance(fmt, Literal) and fmt.value is not None:
+            return date_format_dictionary(fmt.value)
+        return None
+    if isinstance(e, Call) and e.fn == "try":
+        return expr_dictionary(e.args[0], dictionaries)
     if isinstance(e, Call):
         raise NotPorted(f"dictionary of string expression {e.fn}")
     return None
@@ -161,6 +183,34 @@ def _merged_entry(e: Call, dictionaries) -> Optional[tuple]:
         pins = tuple(v for kind, v in parts if kind == "dict")
         _DERIVED_DICTS[key] = (pins, Dictionary(values if values else [""]), seen)
     return _DERIVED_DICTS[key]
+
+
+# format -> its date_format dictionary, shared by the planner's channel
+# metadata and the compiler (the reference's _DATE_FMT_CACHE)
+_DATE_FMT_CACHE: dict = {}
+# time-of-day format codes, which a day's dictionary cannot hold
+_MYSQL_TIME_CODES = frozenset("HkhIisSfpTr")
+
+
+def date_format_dictionary(fmt: str) -> Dictionary:
+    """The dictionary of ``date_format(x, fmt)``: one formatted string
+    per epoch day from 1900-01-01 (``DATE_FMT_SPAN`` days); a value's
+    code is its day minus ``DATE_FMT_BASE`` (the reference's
+    ``ExprCompiler.date_format_dictionary``), built once per format."""
+    got = _DATE_FMT_CACHE.get(fmt)
+    if got is not None:
+        return got
+    import datetime as _dt
+
+    py_fmt = _mysql_to_strftime(fmt)
+    if any(c in _MYSQL_TIME_CODES for c in re.findall(r"%(.)", fmt)):
+        raise ValueError("date_format supports date-valued columns (time-of-day "
+                         "format codes need the timestamp's full domain)")
+    base = _dt.date(1900, 1, 1)
+    d = Dictionary([(base + _dt.timedelta(days=i)).strftime(py_fmt)
+                    for i in range(k1.DATE_FMT_SPAN)])
+    _DATE_FMT_CACHE[fmt] = d
+    return d
 
 
 def merged_string_dictionary(e: Call, dictionaries) -> Optional[Dictionary]:
@@ -251,6 +301,27 @@ def dictionary_lut(d: Dictionary, key: tuple, predicate,
     return hit[1]
 
 
+def value_tables(d: Dictionary, key: tuple, fn, dtype: torch.dtype
+                 ) -> Tuple[k1.Lut, Optional[k1.Lut]]:
+    """VLUT's (int64) or DVLUT's (double) table of ``fn`` over every
+    value of ``d`` (None maps to 0), and the not-null table where some
+    value maps to None; built once per dictionary, function and
+    literal, walking the values once."""
+    ck = (id(d), ("values", dtype) + key)
+    hit = _LUT_CACHE.get(ck)
+    if hit is None:
+        vals = [fn(v) for v in d.values]
+        nulls = any(v is None for v in vals)
+        hit = _LUT_CACHE[ck] = (d, (
+            k1.Lut((0 if v is None else v for v in vals), dtype, str(key[0])),
+            k1.Lut((v is not None for v in vals), torch.bool, "not_null") if nulls else None))
+        if len(_LUT_CACHE) > LUT_CACHE_SIZE:
+            _LUT_CACHE.popitem(last=False)
+    else:
+        _LUT_CACHE.move_to_end(ck)
+    return hit[1]
+
+
 def value_id_tables(a: Dictionary, b: Dictionary) -> Tuple[k1.Lut, k1.Lut]:
     """int32 tables taking ``a``'s and ``b``'s codes to one value-id
     space (equal values, equal ids): ids in order of first appearance
@@ -291,8 +362,7 @@ _NOT_NULL_LUTS: dict = {}
 
 # DATEPART's selector and LCMP's comparison: the argument is the
 # index here
-DATE_PARTS = ("year", "month", "day", "quarter", "day_of_week", "day_of_year", "week",
-              "year_of_week", "last_day_of_month")
+DATE_PARTS = k1.TS_PARTS
 LCMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
 
 _BITWISE_FNS = ("bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
@@ -300,6 +370,18 @@ _BITWISE_FNS = ("bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
 # register-index width of approx_distinct's sketch (the reference's
 # ExprCompiler.HLL_P: m = 4096 buckets)
 HLL_P = 12
+
+# string functions read through an int64 value table over the
+# dictionary (the reference's _compile_string_lut_fn), and predicates
+# through a boolean one (_compile_string_bool_lut)
+STRING_VALUE_FNS = ("length", "strpos", "codepoint", "json_array_length", "url_extract_port",
+                    "from_base", "date_parse", "from_iso8601_date", "levenshtein_distance",
+                    "hamming_distance", "json_size")
+STRING_BOOL_FNS = ("regexp_like", "starts_with", "ends_with", "is_json_scalar")
+DATETIME_FNS = ("date_trunc", "date_add", "date_diff", "cast_timestamp", "cast_date",
+                "to_unixtime", "from_unixtime", "ts_add_micros", "ts_add_months",
+                "date_add_months", "date_add_days")
+_DT = ("date", "timestamp")
 
 _STRING_CMP = {"eq": operator.eq, "ne": operator.ne, "lt": operator.lt,
                "le": operator.le, "gt": operator.gt, "ge": operator.ge}
@@ -335,7 +417,7 @@ class _Lowering:
         if len(self.ops) - start == 1 and self.ops[start] in (k1.LIT, k1.DLIT, k1.NULL):
             return
         prog = k1.Program(tuple(self.ops[start:]), tuple(self.args[start:]),
-                          tuple(self.consts), 0, k1.KIND_I64)
+                          tuple(self.consts), 0, k1.KIND_I64, tuple(self.luts))
         d, v = k1.expr_eval_plain(prog, [], 1)
         if d.dim() > 1:
             return  # a long decimal stays as its instructions
@@ -380,6 +462,8 @@ class _Lowering:
             raise NotPorted(f"expression node {type(e).__name__}")
         start = len(self.ops)
         fn = e.fn
+        if fn == "try":  # the identity at run time: errors already NULL their lanes
+            return self.emit(e.args[0])
         if fn in STRING_TRANSFORM_FNS:
             return self._emit_transform(e)
         if fn == "like":
@@ -390,7 +474,15 @@ class _Lowering:
             return self._emit_string_in(e)
         if fn in ("case", "if", "coalesce") and e.type.is_string:
             return self._emit_string_case(e)
-        if fn == "in":
+        if fn in STRING_VALUE_FNS:
+            const = self._emit_string_value(e)
+        elif fn in STRING_BOOL_FNS:
+            const = self._emit_string_bool(e)
+        elif fn in ("cast_bigint", "cast_double") and e.args[0].type.is_string:
+            const = self._emit_string_number_cast(e)
+        elif fn in ("crc32", "xxhash64"):
+            const = self._emit_binary_hash(e)
+        elif fn == "in":
             const = self._emit_in(e)
         elif fn in ("case", "if"):
             const = self._emit_case(e)
@@ -408,6 +500,10 @@ class _Lowering:
         elif fn == "not":
             const = self.emit(e.args[0])
             self._push(k1.NOT)
+        elif fn in LCMP_OPS and {e.args[0].type.name, e.args[1].type.name} == set(_DT):
+            # the reference's _align_pair: the date side to microseconds
+            const = self._emit_ts(e.args[0]) & self._emit_ts(e.args[1])
+            self._push(getattr(k1, fn.upper()))
         elif fn in LCMP_OPS and DOUBLE in (_lane(e.args[0].type), _lane(e.args[1].type)):
             # the reference's _align_pair: both sides as doubles
             const = self._emit_double(e.args[0]) & self._emit_double(e.args[1])
@@ -422,14 +518,15 @@ class _Lowering:
             self._push(getattr(k1, fn.upper()))
         elif fn == "between":
             x, lo, hi = e.args
-            double = DOUBLE in (_lane(x.type), _lane(lo.type), _lane(hi.type))
+            double = DOUBLE in (_lane(x.type), _lane(lo.type), _lane(hi.type)) \
+                or len({x.type.name, lo.type.name, hi.type.name} & set(_DT)) == 2
             s = None if double else self._align_scale(x.type, lo.type)
             if not double and s == self._align_scale(x.type, hi.type):
                 const = (self._emit_scaled(x, s, check=False)
                          & self._emit_scaled(lo, s, check=False)
                          & self._emit_scaled(hi, s, check=False))
                 self._push(k1.BETWEEN)
-            else:  # per-pair alignment differs: the reference's and(ge, le)
+            else:  # per-pair alignment differs (or a date beside a timestamp): and(ge, le)
                 from presto_tpu_torch.types import BOOLEAN
 
                 return self.emit(Call(type=BOOLEAN, fn="and", args=(
@@ -443,10 +540,15 @@ class _Lowering:
             const = self._emit_double(e.args[0])  # _to_double
         elif fn in DATE_PARTS:
             (x,) = e.args
-            if x.type.name != "date":
+            if x.type.name not in _DT:
                 raise NotPorted(f"{fn} of {x.type}")
             const = self.emit(x)
-            self._push(k1.DATEPART, DATE_PARTS.index(fn))
+            self._push(k1.TSPART if x.type.name == "timestamp" else k1.DATEPART,
+                       DATE_PARTS.index(fn))
+        elif fn in DATETIME_FNS:
+            const = self._emit_datetime(e)
+        elif fn == "date_format":
+            const = self._emit_date_format(e)
         elif fn in ("is_null", "not_null"):
             const = self.emit(e.args[0])
             self._push(k1.NOTNULL, int(fn == "is_null"))
@@ -611,13 +713,261 @@ class _Lowering:
         self._push(k1.WBUCKET)
         return const
 
+    # -- dates and timestamps ------------------------------------------------
+    def _emit_ts(self, e: Expr) -> bool:
+        """Push a date or timestamp as microseconds (CASTTS of a date)."""
+        start = len(self.ops)
+        const = self.emit(e)
+        if e.type.name == "date":
+            self._push(k1.CASTTS, 0)
+            if const:
+                self._fold(start)
+        return const
+
+    def _emit_datetime(self, e: Call) -> bool:
+        """The reference's ``_compile_datetime`` (and ``date_add_days``):
+        date_trunc / date_add / date_diff by a literal unit (DTRUNC,
+        DTADD, DTDIFF), the casts between dates and timestamps (CASTTS),
+        to_unixtime / from_unixtime (UNIXT), and the interval arithmetic
+        the binder lowers to a plain wrapping add of microseconds
+        (``ts_add_micros``) or of days (``date_add_days``), or to calendar
+        months (DTADD's month unit)."""
+        fn = e.fn
+
+        def ts_flag(t: Type) -> int:
+            return k1.DT_TS if t.name == "timestamp" else 0
+
+        if fn in ("date_trunc", "date_add", "date_diff"):
+            unit_lit = e.args[0]
+            if not isinstance(unit_lit, Literal) or unit_lit.value is None:
+                raise NotPorted(f"{fn} with a non-literal unit")
+            unit = str(unit_lit.value).lower().rstrip("s")
+            allowed = {"date_trunc": k1.DT_UNITS[2:], "date_add": k1.DT_UNITS[1:],
+                       "date_diff": k1.DT_UNITS[1:]}[fn]
+            args = e.args[1:]
+            if unit not in allowed or any(a.type.name not in _DT for a in args[-1:]) or (
+                    fn == "date_diff" and args[0].type.name not in _DT):
+                raise NotPorted(f"{fn} unit {unit} of {[a.type for a in args]}")
+            ui = k1.DT_UNITS.index(unit)
+            if fn == "date_trunc":
+                const = self.emit(args[0])
+                self._push(k1.DTRUNC, ui | ts_flag(args[0].type))
+                return const
+            if fn == "date_diff":
+                a, b = args
+                const = self.emit(a) & self.emit(b)
+                self._push(k1.DTDIFF, ui | (k1.DT_A_DATE if a.type.name == "date" else 0)
+                           | (k1.DT_B_DATE if b.type.name == "date" else 0))
+                return const
+            n, x = args
+            if x.type.name == "date" and unit not in ("day", "week", "month", "quarter",
+                                                      "year"):
+                raise NotPorted(f"date_add unit {unit} on a date")
+            return self._emit_dt_add(x, n, ui | ts_flag(x.type))
+        x = e.args[0]
+        if fn in ("ts_add_micros", "ts_add_months", "date_add_months", "date_add_days"):
+            want = "date" if fn.startswith("date") else "timestamp"
+            if x.type.name != want:
+                raise NotPorted(f"{fn} of {x.type}")
+            unit = {"ts_add_micros": "microsecond", "date_add_days": "day"}.get(fn, "month")
+            return self._emit_dt_add(x, e.args[1], k1.DT_UNITS.index(unit) | ts_flag(x.type))
+        if fn == "from_unixtime":
+            if _lane(x.type) == LONG:
+                raise NotPorted(f"from_unixtime of {x.type}")
+            const = self._emit_double(x)
+            self._push(k1.UNIXT, k1.UNIXT_FROM)
+            return const
+        if x.type.name not in _DT:
+            raise NotPorted(f"{fn} of {x.type}")
+        const = self.emit(x)
+        if fn == "to_unixtime":
+            self._push(k1.UNIXT, k1.UNIXT_DATE if x.type.name == "date" else k1.UNIXT_TS)
+        elif fn == "cast_timestamp" and x.type.name == "date":
+            self._push(k1.CASTTS, 0)
+        elif fn == "cast_date" and x.type.name == "timestamp":
+            self._push(k1.CASTTS, 1)
+        return const
+
+    def _emit_dt_add(self, x: Expr, n: Expr, arg: int) -> bool:
+        """DTADD of ``x`` (a date or timestamp) and ``n`` units (an
+        integer lane)."""
+        if _lane(n.type) != SHORT or n.type.is_decimal or n.type.name in _DT:
+            raise NotPorted(f"date arithmetic with {n.type}")
+        const = self.emit(x) & self.emit(n)
+        self._push(k1.DTADD, arg)
+        return const
+
+    def _emit_date_format(self, e: Call) -> bool:
+        """date_format(x, fmt): the day's code in the format's
+        dictionary (DFMT), NULL outside the dictionary's span."""
+        x, fmt = e.args
+        if x.type.name not in _DT:
+            raise NotPorted(f"date_format of {x.type}")
+        if not isinstance(fmt, Literal) or fmt.value is None:
+            raise NotPorted("date_format with a non-literal format")
+        date_format_dictionary(fmt.value)  # refuses a time-of-day format now
+        const = self.emit(x)
+        self._push(k1.DFMT, int(x.type.name == "timestamp"))
+        return const
+
+    # -- string functions: a value table over the dictionary ----------------
+    def _string_dictionary(self, col: Expr, fn: str) -> Dictionary:
+        if col.type.is_raw_string or not col.type.is_string:
+            raise NotPorted(f"{fn} over {col.type}")
+        d = expr_dictionary(col, self.dictionaries)
+        if d is None:
+            raise NotPorted(f"{fn} over a string without a dictionary")
+        return d
+
+    def _push_value_tables(self, col: Expr, tables, op: int) -> bool:
+        """Push VLUT / DVLUT of ``col``'s codes: the value table's slot,
+        and the not-null table's slot + 1 ``<< 8`` where there is one."""
+        values, not_null = tables
+        const = self.emit(col)  # a string literal: code 0 of its own dictionary
+        nn = 0 if not_null is None else self._lut_slot(not_null) + 1
+        self._push(op, self._lut_slot(values) | nn << 8)
+        return const
+
+    def _emit_string_value(self, e: Call) -> bool:
+        """The reference's ``_compile_string_lut_fn``: an int64 value per
+        dictionary value (VLUT), NULL where the function gives None; a
+        NULL literal argument nulls the column."""
+        fn = e.fn
+        col = e.args[0]
+        if fn in ("levenshtein_distance", "hamming_distance") and isinstance(col, Literal):
+            col = e.args[1]  # the literal may sit on either side
+        d = self._string_dictionary(col, fn)
+        if any(isinstance(a, Literal) and a.value is None for a in e.args):
+            self._push(k1.NULL)
+            return True
+        lits = tuple(a.value for a in e.args if isinstance(a, Literal))
+        if fn == "length":
+            f = len
+        elif fn == "strpos":  # 1-based, 0 where the needle is missing
+            if not isinstance(e.args[1], Literal):
+                raise NotPorted("strpos with a non-literal needle")
+            sub = e.args[1].value
+            f = lambda v: v.find(sub) + 1
+        elif fn == "codepoint":
+            f = lambda v: ord(v[0]) if v else None
+        elif fn == "json_array_length":
+            import json as _json
+
+            def f(v):
+                try:
+                    got = _json.loads(v)
+                except Exception:
+                    return None
+                return len(got) if isinstance(got, list) else None
+        elif fn == "json_size":
+            path = e.args[1].value
+
+            def f(v):
+                found, got = _json_path_lookup(v, path)
+                if not found:
+                    return None
+                return len(got) if isinstance(got, (dict, list)) else 0
+        elif fn == "from_base":
+            radix = int(e.args[1].value)
+
+            def f(v):
+                try:
+                    return int(v, radix)
+                except Exception:
+                    return None
+        elif fn == "date_parse":
+            fmt = e.args[1].value
+            f = lambda v: mysql_datetime_micros(v, fmt)
+        elif fn == "from_iso8601_date":
+            f = iso_date_days
+        elif fn in ("levenshtein_distance", "hamming_distance"):
+            other = e.args[1] if isinstance(e.args[1], Literal) else e.args[0]
+            if not isinstance(other, Literal):
+                raise NotPorted(f"{fn} of two columns")
+            lit = other.value
+            if fn == "hamming_distance":
+                f = lambda v: sum(a != b for a, b in zip(v, lit)) \
+                    if len(v) == len(lit) else None
+            else:
+                f = lambda v: _levenshtein(v, lit)
+        else:  # url_extract_port
+            from urllib.parse import urlparse
+
+            def f(v):
+                try:
+                    return urlparse(v).port
+                except Exception:
+                    return None
+        return self._push_value_tables(col, value_tables(d, (fn,) + lits, f, torch.int64),
+                                       k1.VLUT)
+
+    def _emit_string_bool(self, e: Call) -> bool:
+        """The reference's ``_compile_string_bool_lut``: regexp_like,
+        starts_with, ends_with and is_json_scalar as a boolean table
+        (LUT)."""
+        fn, col = e.fn, e.args[0]
+        d = self._string_dictionary(col, fn)
+        if fn != "is_json_scalar" and (not isinstance(e.args[1], Literal)
+                                       or e.args[1].value is None):
+            raise NotPorted(f"{fn} with a non-literal argument")
+        if fn == "regexp_like":
+            rx = re.compile(e.args[1].value)
+            pred = lambda v: rx.search(v) is not None
+        elif fn == "starts_with":
+            prefix = e.args[1].value
+            pred = lambda v: v.startswith(prefix)
+        elif fn == "ends_with":
+            suffix = e.args[1].value
+            pred = lambda v: v.endswith(suffix)
+        else:
+            import json as _json
+
+            def pred(v):
+                try:
+                    return not isinstance(_json.loads(v), (dict, list))
+                except Exception:
+                    return False
+        key = (fn,) + tuple(a.value for a in e.args[1:] if isinstance(a, Literal))
+        const = self.emit(col)
+        self._push_lut(dictionary_lut(d, key, pred))
+        return const
+
+    def _emit_string_number_cast(self, e: Call) -> bool:
+        """CAST of a varchar column to bigint (VLUT) or double (DVLUT):
+        each dictionary value parsed as the reference's
+        ``parse_number_strict`` reads it, NULL where it does not parse."""
+        col = e.args[0]
+        d = self._string_dictionary(col, e.fn)
+        to_double = e.fn == "cast_double"
+        return self._push_value_tables(
+            col, value_tables(d, ("cast_double" if to_double else "cast_bigint",),
+                              lambda v: parse_number_strict(v, to_double),
+                              torch.float64 if to_double else torch.int64),
+            k1.DVLUT if to_double else k1.VLUT)
+
+    def _emit_binary_hash(self, e: Call) -> bool:
+        """crc32 / xxhash64 of ``to_utf8(varchar)``: each dictionary
+        value's bytes hashed on the host (VLUT), as the reference's
+        ``_compile_binary_hash``."""
+        inner = e.args[0]
+        if not (isinstance(inner, Call) and inner.fn == "to_utf8"):
+            raise NotPorted(f"{e.fn} of {inner}")
+        col = inner.args[0]
+        d = self._string_dictionary(col, e.fn)
+        if e.fn == "crc32":
+            import zlib
+
+            f = lambda v: zlib.crc32(v.encode())
+        else:
+            f = lambda v: xxh64_signed(v.encode())
+        return self._push_value_tables(col, value_tables(d, (e.fn,), f, torch.int64), k1.VLUT)
+
     # -- strings: one table over the dictionary ----------------------------
     def _emit_lut(self, col: Expr, key: tuple, predicate) -> bool:
         """Push ``predicate(value)`` of a dictionary column: its int32
         code indexes a boolean table (clipped as the reference clips),
         and the column's valid bit stays."""
-        if not isinstance(col, ColumnRef) and not (isinstance(col, Call)
-                                                   and col.fn in STRING_TRANSFORM_FNS):
+        if col.type.is_raw_string:
             raise NotPorted(f"string predicate over {col}")
         d = expr_dictionary(col, self.dictionaries)
         if d is None:
@@ -626,10 +976,13 @@ class _Lowering:
         self._push_lut(dictionary_lut(d, key, predicate))
         return False
 
-    def _push_lut(self, table: k1.Lut, op: int = k1.LUT) -> None:
-        if table not in self.luts:
+    def _lut_slot(self, table: k1.Lut) -> int:
+        if not any(t is table for t in self.luts):
             self.luts.append(table)
-        self._push(op, next(i for i, t in enumerate(self.luts) if t is table))
+        return next(i for i, t in enumerate(self.luts) if t is table)
+
+    def _push_lut(self, table: k1.Lut, op: int = k1.LUT) -> None:
+        self._push(op, self._lut_slot(table))
 
     def _emit_transform(self, e: Call) -> bool:
         """A string transform of a dictionary column: the codes pass
@@ -864,6 +1217,8 @@ class _Lowering:
         if e.type == to_t or (_lane(e.type) == SHORT and not to_t.is_decimal
                               and not e.type.is_decimal and to_t.name == "bigint"):
             return self.emit(e)
+        if to_t.name == "timestamp" and e.type.name == "date":
+            return self._emit_ts(e)
         if _lane(to_t) == DOUBLE:
             return self._emit_double(e)
         if _lane(to_t) == LONG and _lane(e.type) in (SHORT, LONG) \

@@ -73,19 +73,22 @@ LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
     BETWEEN, AND, OR, NOT, LUT, SEL, LOAD_LONG, MUL_LS, L2D, DDIV, IN, CANON, \
     DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DADD, DSUB, DMUL, \
     DNEG, DABS, DCMP, NEG, ABS, COAL, SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, \
-    DUN, DBIN, BITW, GL, NULLIF, CASTBI, HLL, WBUCKET, IMOD = range(59)
+    DUN, DBIN, BITW, GL, NULLIF, CASTBI, HLL, WBUCKET, IMOD, VLUT, DVLUT, TSPART, DTRUNC, \
+    DTADD, DTDIFF, CASTTS, UNIXT, DFMT = range(68)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
             "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon",
             "datepart", "s2d", "s2l", "lscale", "lcmp", "notnull", "load_f64", "dlit",
             "dadd", "dsub", "dmul", "dneg", "dabs", "dcmp", "neg", "abs", "coalesce",
             "sfloor", "sround", "dfloor", "dround", "d2s", "d2l", "ladd",
-            "dun", "dbin", "bitw", "gl", "nullif", "castbi", "hll", "wbucket", "imod")
+            "dun", "dbin", "bitw", "gl", "nullif", "castbi", "hll", "wbucket", "imod",
+            "vlut", "dvlut", "tspart", "dtrunc", "dtadd", "dtdiff", "castts", "unixt", "dfmt")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
                 0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0, 1, 1, -1, -1, -1,
                 0, 0, -1, 0, 0, -1, 0, 0, 0, 0, 0, 0, -1,
-                0, -1, -1, -1, -1, 0, 0, -3, -1)
+                0, -1, -1, -1, -1, 0, 0, -3, -1,
+                0, 0, 0, 0, -1, -1, 0, 0, 0)
 # opcodes whose argument is printed: a column slot, a constant index,
 # a table slot, the long operand's side (MUL_LS), a decimal scale
 # (L2D, S2D), IN's literal run (first constant | count <<
@@ -105,17 +108,24 @@ STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0
 # 0 least or 1 greatest plus its lane ``<< 1`` (GL_INT, GL_DOUBLE,
 # GL_LONG), CASTBI's source (CAST_FROM_DOUBLE, CAST_FROM_SHORT,
 # CAST_FROM_LONG) plus its decimal scale ``<< 2``, HLL's 0 bucket or 1
-# rho plus its register-index width ``P << 1``, IMOD's 0 mod or 1 div
+# rho plus its register-index width ``P << 1`` (P = 0: the whole
+# splitmix64 hash, checksum's), IMOD's 0 mod or 1 div; the date,
+# time and dictionary-table opcodes: VLUT's and DVLUT's value table slot plus ``(not-null table
+# slot + 1) << 8`` (0: none), TSPART's part (TS_PARTS), DTRUNC's,
+# DTADD's and DTDIFF's unit (DT_UNITS) plus the lane flags ``<< 4``
+# (DT_TS: a timestamp; DTDIFF: DT_A_DATE, DT_B_DATE), CASTTS's
+# direction (0 date to timestamp, 1 timestamp to date), UNIXT's mode
+# (UNIXT_TS, UNIXT_DATE, UNIXT_FROM), DFMT's 1 for a timestamp
 _ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON,
             DATEPART, S2D, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DCMP, NEG, ABS,
             SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, DUN, DBIN, BITW, GL, CASTBI,
-            HLL, IMOD)
+            HLL, IMOD, VLUT, DVLUT, TSPART, DTRUNC, DTADD, DTDIFF, CASTTS, UNIXT, DFMT)
 # opcodes whose argument holds a constant index (SFLOOR: times two)
 CONST_ARG_OPS = (LIT, SCALE_CHK, SCALE, DLIT, SROUND, DROUND, D2S, D2L)
 IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
 DOUBLE_OPS = frozenset((LOAD_F64, DLIT, DADD, DSUB, DMUL, DNEG, DABS, DCMP, DFLOOR,
-                        DROUND, D2S, D2L, DUN, DBIN, WBUCKET))
+                        DROUND, D2S, D2L, DUN, DBIN, WBUCKET, DVLUT, UNIXT))
 WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP, D2L,
                       LADD)) | DOUBLE_OPS
 
@@ -145,6 +155,26 @@ BITW_OPS = ("and", "or", "xor", "shift_left", "shift_right", "bit_count")
 GL_INT, GL_DOUBLE, GL_LONG = 0, 1, 2
 CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG = 0, 1, 2
 
+# dates and timestamps: dates are int32 epoch days, timestamps int64 epoch
+# microseconds (the reference's types.py MICROS_PER_DAY)
+MICROS_PER_DAY = 86_400_000_000
+# TSPART's parts: DATEPART's, then the time of day (over a date those
+# four are 0, as the reference's _compile_datepart)
+TS_PARTS = ("year", "month", "day", "quarter", "day_of_week", "day_of_year", "week",
+            "year_of_week", "last_day_of_month", "hour", "minute", "second", "millisecond")
+# DTRUNC's, DTADD's and DTDIFF's units; the first seven are fixed spans
+# of microseconds (UNIT_MICROS), the last three calendar months
+DT_UNITS = ("microsecond", "millisecond", "second", "minute", "hour", "day", "week",
+            "month", "quarter", "year")
+UNIT_MICROS = (1, 1_000, 1_000_000, 60_000_000, 3_600_000_000, MICROS_PER_DAY,
+               7 * MICROS_PER_DAY)
+DT_TS, DT_A_DATE, DT_B_DATE = 1 << 4, 1 << 4, 1 << 5
+UNIXT_TS, UNIXT_DATE, UNIXT_FROM = 0, 1, 2
+# date_format's dictionary: one formatted string per day from 1900-01-01
+# (the reference's ExprCompiler.DATE_FMT_BASE / DATE_FMT_SPAN)
+DATE_FMT_BASE = -25567
+DATE_FMT_SPAN = 73049
+
 # storage kinds of loaded columns and of the output
 KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128 = range(5)
 _KIND_OF = {torch.bool: KIND_BOOL, torch.int32: KIND_I32, torch.int64: KIND_I64}
@@ -169,7 +199,9 @@ COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null",
                SROUND: "round", DROUND: "round", D2S: "cast_decimal", D2L: "cast_decimal",
                LADD: "ladd", DUN: "dun", DBIN: "dbin", BITW: "bitw", GL: "gl",
                NULLIF: "nullif", CASTBI: "castbi", HLL: "hll", WBUCKET: "wbucket",
-               IMOD: "imod"}
+               IMOD: "imod", VLUT: "vlut", DVLUT: "dvlut", TSPART: "tspart",
+               DTRUNC: "dtrunc", DTADD: "dtadd", DTDIFF: "dtdiff", CASTTS: "castts",
+               UNIXT: "unixt", DFMT: "dfmt"}
 #: table kinds counted by name: a string CASE/IF/coalesce's branch
 #: codes remapped into the merged dictionary, the two sides of a
 #: string-column comparison mapped to shared value ids, and a varchar
@@ -189,16 +221,18 @@ def bits_double(b: int) -> float:
 
 
 class Lut:
-    """The operand of LUT (a boolean table) or CANON (an int32 table),
-    indexed by a dictionary's codes, with its copy on each device it
-    has been read on."""
+    """The operand of LUT (a boolean table), CANON (an int32 table),
+    VLUT (an int64 table) or DVLUT (a double table), indexed by a
+    dictionary's codes, with its copy on each device it has been read
+    on."""
 
     __slots__ = ("values", "dtype", "kind", "_copies")
 
     def __init__(self, values: Sequence, dtype: torch.dtype = torch.bool, kind: str = ""):
         self.dtype = dtype
         self.kind = kind  # what the table tests ("like", "in", "canon", a comparison)
-        self.values = tuple(bool(v) if dtype == torch.bool else int(v) for v in values)
+        conv = bool if dtype == torch.bool else float if dtype == torch.float64 else int
+        self.values = tuple(conv(v) for v in values)
         self._copies: dict = {}
 
     def on(self, device) -> torch.Tensor:
@@ -295,6 +329,8 @@ def date_part(days: torch.Tensor, part: int) -> torch.Tensor:
     year, month, day, quarter, ISO day_of_week (Monday 1), day_of_year,
     ISO week and year_of_week (the week holding the date's Thursday
     belongs to that Thursday's year), last_day_of_month (epoch days)."""
+    if part >= len(TS_PARTS) - 4:  # hour, minute, second, millisecond of a date
+        return torch.zeros_like(days)
     y, m, d = civil_from_days(days)
     one = torch.ones_like(m)
     if part < 4:
@@ -344,8 +380,11 @@ def mix_u64(x: torch.Tensor) -> torch.Tensor:
 def hll_from_lane(lane: torch.Tensor, rho: bool, p: int) -> torch.Tensor:
     """HLL's bucket (the hash's top ``p`` bits) or rho (the leading
     zeros of the rest, a sentinel bit capping them, plus one) of int64
-    lanes (the reference's ``_hll_from_hash`` over ``_mix_u64``)."""
+    lanes (the reference's ``_hll_from_hash`` over ``_mix_u64``); with
+    ``p == 0`` the whole hash (checksum's ``_mix64``)."""
     h = mix_u64(lane)
+    if p == 0:
+        return h
     if not rho:
         return lsr(h, 64 - p)
     x = (h << p) | (1 << (p - 1))
@@ -508,6 +547,151 @@ def width_bucket_plain(x, lo, hi, n):
     return torch.minimum(torch.maximum(b, torch.zeros_like(b)), n + 1)
 
 
+def narrow32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 lane wrapped to int32's range (the reference's
+    ``astype(int32)`` of a date result)."""
+    return x.to(torch.int32).to(torch.int64)
+
+
+_MONTH_LEN = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
+
+
+def add_months(days: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Epoch days shifted by ``n`` calendar months, the day of the month
+    clamped to the new month's length (the reference's ``_add_months``:
+    2020-01-31 + 1 month is 2020-02-29)."""
+    y, m, d = civil_from_days(days)
+    months = y * 12 + (m - 1) + n
+    y2 = _fdiv(months, 12)
+    m2 = months - y2 * 12 + 1
+    leap = (torch.remainder(y2, 4) == 0) & ((torch.remainder(y2, 100) != 0)
+                                             | (torch.remainder(y2, 400) == 0))
+    mlen = torch.tensor(_MONTH_LEN, dtype=torch.int64, device=days.device)[m2 - 1] \
+        + ((m2 == 2) & leap).to(torch.int64)
+    return days_from_civil(y2, m2, torch.minimum(d, mlen))
+
+
+def ts_part(micros: torch.Tensor, part: int) -> torch.Tensor:
+    """TSPART's plain form: a date part (``TS_PARTS``) of epoch
+    microseconds, the days by floor division (1969-12-31 23:00 is in
+    1969), the time of day from what is left."""
+    days = _fdiv(micros, MICROS_PER_DAY)
+    tod = micros - days * MICROS_PER_DAY
+    name = TS_PARTS[part]
+    if name == "hour":
+        return _fdiv(tod, 3_600_000_000)
+    if name == "minute":
+        return torch.remainder(_fdiv(tod, 60_000_000), 60)
+    if name == "second":
+        return torch.remainder(_fdiv(tod, 1_000_000), 60)
+    if name == "millisecond":
+        return torch.remainder(_fdiv(tod, 1_000), 1000)
+    return date_part(days, part)
+
+
+def dt_trunc(x: torch.Tensor, arg: int) -> torch.Tensor:
+    """DTRUNC's plain form (the reference's ``_datetime_trunc``): a
+    timestamp floors to a second, minute, hour or day; a week (Monday),
+    month, quarter or year goes through the civil calendar; a date
+    keeps itself below a week."""
+    unit, is_ts = DT_UNITS[arg & 15], bool(arg & DT_TS)
+    if DT_UNITS.index(unit) <= DT_UNITS.index("day"):
+        if not is_ts:
+            return x
+        step = UNIT_MICROS[DT_UNITS.index(unit)]
+        return _fdiv(x, step) * step
+    days = _fdiv(x, MICROS_PER_DAY) if is_ts else x
+    y, m, _ = civil_from_days(days)
+    one = torch.ones_like(m)
+    if unit == "week":
+        out = days - torch.remainder(days + 3, 7)
+    elif unit == "month":
+        out = days_from_civil(y, m, one)
+    elif unit == "quarter":
+        out = days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one)
+    else:
+        out = days_from_civil(y, one, one)
+    return out * MICROS_PER_DAY if is_ts else narrow32(out)
+
+
+def _unit_months(unit: str, n: torch.Tensor) -> torch.Tensor:
+    return n * (12 if unit == "year" else 3 if unit == "quarter" else 1)
+
+
+def dt_add(x: torch.Tensor, n: torch.Tensor, arg: int) -> torch.Tensor:
+    """DTADD's plain form (the reference's ``_datetime_add``,
+    ``ts_add_micros``, ``ts_add_months``, ``date_add_months`` and
+    ``date_add_days``): a fixed span adds its microseconds (wrapping), a
+    month, quarter or year shifts the civil date and keeps the time of
+    day; a date's result is narrowed to int32 as the reference's is."""
+    ui, is_ts = arg & 15, bool(arg & DT_TS)
+    unit = DT_UNITS[ui]
+    if is_ts:
+        if ui < len(UNIT_MICROS):
+            return x + n * UNIT_MICROS[ui]
+        days = _fdiv(x, MICROS_PER_DAY)
+        tod = x - days * MICROS_PER_DAY
+        return add_months(days, _unit_months(unit, n)) * MICROS_PER_DAY + tod
+    if unit == "day":
+        return narrow32(x + n)
+    if unit == "week":
+        return narrow32(x + 7 * n)
+    return narrow32(add_months(x, _unit_months(unit, n)))
+
+
+def trunc_div(a: torch.Tensor, b: int) -> torch.Tensor:
+    """SQL's integer division toward zero by a positive constant (the
+    reference's ``_trunc_div``)."""
+    q = _fdiv(torch.abs(a), b)
+    return torch.where(a < 0, -q, q)
+
+
+def dt_diff(a: torch.Tensor, b: torch.Tensor, arg: int) -> torch.Tensor:
+    """DTDIFF's plain form (the reference's ``_datetime_diff``): both
+    sides as microseconds; a fixed span truncates the difference toward
+    zero; month, quarter and year count calendar-field differences
+    ((y2 * 12 + m2) - (y1 * 12 + m1)), the reference's documented
+    deviation from Presto's whole elapsed periods."""
+    ui = arg & 15
+    m1 = a * MICROS_PER_DAY if arg & DT_A_DATE else a
+    m2 = b * MICROS_PER_DAY if arg & DT_B_DATE else b
+    if ui < len(UNIT_MICROS):
+        return trunc_div(m2 - m1, UNIT_MICROS[ui])
+    y1, mo1, _ = civil_from_days(_fdiv(m1, MICROS_PER_DAY))
+    y2, mo2, _ = civil_from_days(_fdiv(m2, MICROS_PER_DAY))
+    months = (y2 * 12 + mo2) - (y1 * 12 + mo1)
+    unit = DT_UNITS[ui]
+    if unit == "month":
+        return months
+    if unit == "quarter":
+        return trunc_div(months, 3)
+    return y2 - y1
+
+
+def unixtime_plain(arg: int, d: torch.Tensor) -> torch.Tensor:
+    """UNIXT's plain form: to_unixtime of a timestamp (micros / 1e6) or
+    a date ((days * MICROS_PER_DAY) / 1e6, in double), or
+    from_unixtime of a double (x * 1e6, to int64 as XLA converts:
+    toward zero, saturating).  Each division is by a tensor, a true
+    division on every device."""
+    if arg == UNIXT_FROM:
+        return double_to_int64(d * torch.full_like(d, 1e6))
+    x = d.to(torch.float64)
+    if arg == UNIXT_DATE:
+        x = x * torch.full_like(x, float(MICROS_PER_DAY))
+    return x / torch.full_like(x, 1e6)
+
+
+def date_format_code(x: torch.Tensor, is_ts: bool):
+    """DFMT's plain form: ``(code, in range)`` of a date or timestamp in
+    the date_format dictionary (the day minus ``DATE_FMT_BASE``,
+    clipped; NULL outside the dictionary's span)."""
+    days = _fdiv(x, MICROS_PER_DAY) if is_ts else x
+    code = days - DATE_FMT_BASE
+    ok = (code >= 0) & (code < DATE_FMT_SPAN)
+    return torch.clamp(code, 0, DATE_FMT_SPAN - 1), ok
+
+
 def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                     n: int, row_mask: Optional[torch.Tensor] = None):
     """Plain torch evaluation of ``prog`` over ``n`` rows.  Returns
@@ -612,6 +796,30 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == DATEPART:
             d, v = stack.pop()
             stack.append((date_part(d, arg), v))
+        elif op in (VLUT, DVLUT):  # a value table, and the not-null table's vote
+            d, v = stack.pop()
+            table = prog.luts[arg & 255].on(d.device)
+            code = torch.clamp(d, 0, table.shape[0] - 1)
+            if arg >> 8:
+                v = v & prog.luts[(arg >> 8) - 1].on(d.device)[code]
+            stack.append((table[code], v))
+        elif op == TSPART:
+            d, v = stack.pop()
+            stack.append((ts_part(d, arg), v))
+        elif op == DTRUNC:
+            d, v = stack.pop()
+            stack.append((dt_trunc(d, arg), v))
+        elif op == CASTTS:
+            d, v = stack.pop()
+            stack.append((d * MICROS_PER_DAY if arg == 0 else
+                          narrow32(_fdiv(d, MICROS_PER_DAY)), v))
+        elif op == UNIXT:
+            d, v = stack.pop()
+            stack.append((unixtime_plain(arg, d), v))
+        elif op == DFMT:
+            d, v = stack.pop()
+            code, ok = date_format_code(d, bool(arg))
+            stack.append((code, v & ok))
         elif op == DUN:
             d, v = stack.pop()
             stack.append((dun_plain(arg, d), v))
@@ -682,6 +890,10 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
             elif op == IMOD:
                 d, ok = imod_plain(bool(arg), ad, bd)
                 v = v & ok
+            elif op == DTADD:
+                d = dt_add(ad, bd, arg)
+            elif op == DTDIFF:
+                d = dt_diff(ad, bd, arg)
             elif op == DCMP:
                 d = (ad == bd, ad != bd, ad < bd, ad <= bd, ad > bd, ad >= bd)[arg].to(
                     torch.int64)
@@ -733,6 +945,12 @@ def _launch(prog, cols, n, row_mask, tensors):
         if op in (LUT, CANON) and prog.luts[arg].dtype != (torch.bool if op == LUT
                                                            else torch.int32):
             raise ValueError(f"expr_eval: table {arg} has the wrong type for {OP_NAMES[op]}")
+        if op in (VLUT, DVLUT) and (
+                prog.luts[arg & 255].dtype != (torch.int64 if op == VLUT else torch.float64)
+                or (arg >> 8 and (prog.luts[(arg >> 8) - 1].dtype != torch.bool
+                                  or len(prog.luts[(arg >> 8) - 1].values)
+                                  != len(prog.luts[arg & 255].values)))):
+            raise ValueError(f"expr_eval: tables {arg} have the wrong types for {OP_NAMES[op]}")
         if op == IN and (arg & ((1 << IN_COUNT_SHIFT) - 1)) + (arg >> IN_COUNT_SHIFT) \
                 > len(prog.consts):
             raise ValueError("expr_eval: IN literals past the constant pool")
@@ -805,6 +1023,8 @@ def _launch(prog, cols, n, row_mask, tensors):
     double_launches += int(bool(DOUBLE_OPS & set(prog.ops)))
     for op in set(prog.ops) & COUNTED_OPS.keys():
         op_launches[COUNTED_OPS[op]] = op_launches.get(COUNTED_OPS[op], 0) + 1
+    if any(op == HLL and arg >> 1 == 0 for op, arg in zip(prog.ops, prog.args)):
+        op_launches["mix64"] = op_launches.get("mix64", 0) + 1
     if out_mask is not None:
         return out_mask
     return out_data, out_valid

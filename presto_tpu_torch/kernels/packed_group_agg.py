@@ -10,7 +10,13 @@ beside its count of non-null rows, a double sum beside its count
 argument (VARIANCE), a double's, a boolean's or a varchar rank's
 least or greatest value, bool_and / bool_or's count of true,
 bitwise_and_agg / bitwise_or_agg's fold and hll_merge's sum of 2^-rho
-(each beside its count), plus the ``present`` flag of each slot.  Double
+(each beside its count), checksum's wrapping sum of K1's per-row
+hashes (CHECKSUM), the central moments ``(s, m2, m3, m4, cnt)`` of a
+double argument (MOMENTS: skewness, kurtosis), and min_by / max_by's
+coupled extreme as two entries (BY_X then BY_Y_MIN or BY_Y_MAX: the
+extreme of ``y`` with its count of valid rows, then the greatest ``x``
+among the rows whose ``y`` equals it, with a 0/1 flag that one was
+valid), plus the ``present`` flag of each slot.  Double
 sums add in one fixed order, the same on the card and here
 (:func:`chunk_sums_plain`), so the card's states equal the twin's bit
 for bit.  On a CUDA tensor it launches
@@ -31,22 +37,30 @@ from presto_tpu_torch.ops import decimal128 as d128
 # aggregate kinds: keep in step with csrc/packed_group_agg.cu
 COUNT_STAR, COUNT, SUM_SHORT, SUM_LONG, MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, \
     SUM_LONG_ARG, SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE, BOOL_COUNT, BIT_AND, BIT_OR, \
-    HLL_SUM = range(17)
+    HLL_SUM, CHECKSUM, MOMENTS, BY_Y_MIN, BY_Y_MAX, BY_X = range(22)
 # MIN_DOUBLE / MAX_DOUBLE: a double's extreme (-0.0 below 0.0, NaN
 # winning both, as the reference's segment_min/segment_max); BOOL_COUNT:
 # bool_and / bool_or / every's (count of true, count); BIT_AND / BIT_OR:
 # bitwise_and_agg / bitwise_or_agg's (fold, count); HLL_SUM: hll_merge's
-# (sum of 2^-rho, count of present buckets), a double state
+# (sum of 2^-rho, count of present buckets), a double state;
+# CHECKSUM: the wrapping sum of int64 values (K1 hashed them); MOMENTS:
+# (s, m2, m3, m4, cnt) of a double, four fixed-order passes; BY_X and
+# the BY_Y entry right after it: min_by / max_by's (x, x flag) and
+# (y, count of valid y), y an integer, a double (its min/max order
+# key: NaN wins, and then no row ties it) or a varchar's collation rank
 RAW_WIDTH = {COUNT_STAR: 1, COUNT: 1, SUM_SHORT: 2, SUM_LONG: 5, MIN_SHORT: 2, MAX_SHORT: 2,
              MIN_LONG: 3, MAX_LONG: 3, SUM_LONG_ARG: 5, SUM_DOUBLE: 1, VARIANCE: 1,
-             MIN_DOUBLE: 2, MAX_DOUBLE: 2, BOOL_COUNT: 2, BIT_AND: 2, BIT_OR: 2, HLL_SUM: 1}
+             MIN_DOUBLE: 2, MAX_DOUBLE: 2, BOOL_COUNT: 2, BIT_AND: 2, BIT_OR: 2, HLL_SUM: 1,
+             CHECKSUM: 1, MOMENTS: 1, BY_Y_MIN: 2, BY_Y_MAX: 2, BY_X: 2}
+BY_Y = (BY_Y_MIN, BY_Y_MAX)
 EXTREMES = (MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, MIN_DOUBLE, MAX_DOUBLE)
 LONG_ARG = (MIN_LONG, MAX_LONG, SUM_LONG_ARG)  # kinds whose argument is (n, 2) limbs
-DOUBLE_ARG = (SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE)  # a double argument
+DOUBLE_ARG = (SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE, MOMENTS)  # a double argument
 # states that add doubles in the fixed order (one slot at most here)
-DOUBLE_STATES = (SUM_DOUBLE, VARIANCE, HLL_SUM)
+DOUBLE_STATES = (SUM_DOUBLE, VARIANCE, HLL_SUM, MOMENTS)
 KIND_NAMES = {MIN_DOUBLE: "min_double", MAX_DOUBLE: "max_double", BOOL_COUNT: "bool",
-              BIT_AND: "bitwise", BIT_OR: "bitwise", HLL_SUM: "hll"}
+              BIT_AND: "bitwise", BIT_OR: "bitwise", HLL_SUM: "hll", CHECKSUM: "checksum",
+              MOMENTS: "moments", BY_Y_MIN: "min_by", BY_Y_MAX: "min_by", BY_X: "min_by"}
 # the slots a double state may have here: one, the global aggregate's
 # (ops/aggregate.takes_sort_path sends keyed double states to K6, so
 # every keyed double sum has one order, K6's)
@@ -138,6 +152,73 @@ def minmax_value(key: torch.Tensor, is_min: bool) -> torch.Tensor:
     return torch.where(torch.isnan(x), float("nan"), x)
 
 
+def by_key(x: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """The int64 order key of min_by / max_by's ``y`` (``is_min``: the
+    min side) or ``x`` (the max side): a double's min/max key, an
+    integer as it is."""
+    if x.dtype == torch.float64:
+        return minmax_key(x, is_min)
+    return x.to(torch.int64)
+
+
+def by_value(key: torch.Tensor, is_min: bool, dtype: torch.dtype) -> torch.Tensor:
+    """A min_by / max_by key back in the state's storage (an empty
+    state: the extreme's identity)."""
+    if dtype == torch.float64:
+        return minmax_value(key, is_min)
+    return narrow(key, dtype)
+
+
+def by_tie(y: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """Rows whose ``y`` equals the group's extreme, compared as values
+    (the reference's ``y == y_best``): a NaN extreme ties no row, and a
+    double -0.0 ties 0.0."""
+    return y == best
+
+
+def seg_by(x, xv, y, yv, slot, n_slots: int, y_min: bool):
+    """min_by / max_by's two phases per slot (the reference's
+    ``_partial_states`` :536): ``(x, x flag, y, count of valid y)``;
+    rows with ``slot == n_slots`` are dropped."""
+    drop = torch.full_like(slot, n_slots)
+    ys = torch.where(yv, slot, drop)
+    ycnt = torch.zeros(n_slots + 1, dtype=torch.int64, device=slot.device)
+    ycnt.index_add_(0, ys, torch.ones_like(slot))
+    best = by_value(seg_extreme(by_key(y, y_min), ys, n_slots, y_min), y_min, y.dtype)
+    tie = yv & (ys < n_slots) & by_tie(y, best[torch.clamp(ys, max=max(n_slots - 1, 0))])
+    xs = torch.where(tie & xv, slot, drop)
+    xcnt = torch.zeros(n_slots + 1, dtype=torch.int64, device=slot.device)
+    xcnt.index_add_(0, xs, torch.ones_like(slot))
+    xb = by_value(seg_extreme(by_key(x, False), xs, n_slots, False), False, x.dtype)
+    return xb, (xcnt[:n_slots] > 0).to(torch.int64), best, ycnt[:n_slots]
+
+
+def moment_sums(x: torch.Tensor, ok: torch.Tensor, s: torch.Tensor, cnt: torch.Tensor,
+                at: torch.Tensor, sums):
+    """m2, m3 and m4 of the central moments' second pass: ``dx = x -
+    mu`` (``mu = s / max(cnt, 1)`` at each row's group ``at``), summed by
+    ``sums`` as ``dx*dx``, ``(dx*dx)*dx`` and ``(dx*dx)*(dx*dx)`` (the
+    reference's order)."""
+    mu = s / torch.clamp(cnt, min=1).to(torch.float64)
+    dx = torch.where(ok, x - mu[at], torch.zeros_like(x))
+    dx2 = dx * dx
+    return [sums(dx2), sums(dx2 * dx), sums(dx2 * dx2)]
+
+
+def moment_terms(s_i, m2_i, m3_i, m4_i, c_i, mu):
+    """One partial's terms of a merged central-moment state: its m2, m3
+    and m4 shifted by ``d = mu_i - mu`` (``mu_i = s_i / max(c_i, 1)``, d
+    = 0 for an empty partial), in the reference's association
+    (``_merge_states`` :1118); K6's merge sums them, K3's fold adds
+    two (``csrc/common.cuh`` moment_terms)."""
+    cf = c_i.to(torch.float64)
+    d = torch.where(c_i > 0, s_i / torch.clamp(cf, min=1.0) - mu, torch.zeros_like(s_i))
+    d2 = d * d
+    three, four, six = (torch.full_like(d, v) for v in (3.0, 4.0, 6.0))
+    return (m2_i + cf * d2, (m3_i + three * m2_i * d) + cf * d2 * d,
+            ((m4_i + four * m3_i * d) + six * m2_i * d2) + cf * d2 * d2)
+
+
 def hll_weight(rho: torch.Tensor) -> torch.Tensor:
     """2^-rho, exact (the double's bits; the reference's exp2 may miss
     the last bit)."""
@@ -197,7 +278,9 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
                            aggs: Sequence[Agg], n_groups: int):
     """Plain torch version: ``(states, present)`` where ``states`` holds
     per aggregate ``[count]``, ``[sum, count]`` (a min/max: ``[value,
-    count]``) or ``[s, m2, count]`` (VARIANCE)."""
+    count]``), ``[s, m2, count]`` (VARIANCE), ``[sum]`` (CHECKSUM),
+    ``[s, m2, m3, m4, count]`` (MOMENTS), ``[x, x flag]`` (BY_X) and
+    ``[y, count]`` (BY_Y)."""
     dev = row_mask.device
     gid = torch.zeros(n, dtype=torch.int64, device=dev)
     for data, valid, lo, card in keys:
@@ -214,7 +297,18 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
 
     present = seg(live.to(torch.int64)) > 0
     states: List[List[torch.Tensor]] = []
-    for kind, data, valid in aggs:
+    by_y = {}  # a BY_Y entry's states, computed with its BY_X
+    for a, (kind, data, valid) in enumerate(aggs):
+        if kind in BY_Y:
+            states.append(by_y.pop(a))
+            continue
+        if kind == BY_X:
+            ykind, ydata, yvalid = aggs[a + 1]
+            xb, xflag, yb, ycnt = seg_by(data, live & valid, ydata, live & yvalid, slot,
+                                         n_groups, ykind == BY_Y_MIN)
+            states.append([xb, xflag])
+            by_y[a + 1] = [yb, ycnt]
+            continue
         if kind == COUNT_STAR:
             states.append([seg(live.to(torch.int64))])
             continue
@@ -222,6 +316,8 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
         cnt = seg(nonnull.to(torch.int64))
         if kind == COUNT:
             states.append([cnt])
+        elif kind == CHECKSUM:
+            states.append([seg(torch.where(nonnull, data.to(torch.int64), torch.zeros_like(gid)))])
         elif kind in (MIN_DOUBLE, MAX_DOUBLE):
             is_min = kind == MIN_DOUBLE
             nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
@@ -256,6 +352,11 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
             if kind == SUM_DOUBLE:
                 states.append([s, cnt])
                 continue
+            if kind == MOMENTS:
+                states.append([s] + moment_sums(
+                    x, nonnull, s, cnt, torch.clamp(nn_slot, max=n_groups - 1),
+                    lambda v: chunk_sums_plain(v, nn_slot, n_groups)) + [cnt])
+                continue
             mu = s / torch.clamp(cnt, min=1).to(torch.float64)
             dx = torch.where(nonnull, x - mu[torch.clamp(nn_slot, max=n_groups - 1)],
                              torch.zeros_like(x))
@@ -278,6 +379,11 @@ def packed_group_agg(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
     launch the kernel."""
     if any(k in DOUBLE_STATES for k, _, _ in aggs) and n_groups > DOUBLE_SLOT_LIMIT:
         raise ValueError(f"packed_group_agg: double states over {n_groups} slots")
+    kinds = [k for k, _, _ in aggs]
+    for a, kind in enumerate(kinds):
+        if kind == BY_X and kinds[a + 1:a + 2] not in ([BY_Y_MIN], [BY_Y_MAX]) or \
+                kind in BY_Y and kinds[a - 1:a] != [BY_X]:
+            raise ValueError("packed_group_agg: a BY_Y entry must follow its BY_X")
     if not row_mask.is_cuda:
         return packed_group_agg_plain(n, row_mask, keys, aggs, n_groups)
     return _launch(n, row_mask, keys, aggs, n_groups)
@@ -300,6 +406,7 @@ def _launch(n, row_mask, keys, aggs, n_groups):
     global launches, minmax_launches, variance_launches, double_sum_launches
     if len(keys) > MAX_KEYS or len(aggs) > MAX_AGGS or n_groups < 1:
         raise ValueError("packed_group_agg: too many keys or aggregates")
+
     if row_mask.dtype != torch.bool or row_mask.shape != (n,):
         raise ValueError("packed_group_agg: row_mask must be (n,) bool")
     tensors = [row_mask]
@@ -309,7 +416,14 @@ def _launch(n, row_mask, keys, aggs, n_groups):
     for kind, data, valid in aggs:
         if kind not in RAW_WIDTH:
             raise ValueError(f"packed_group_agg: aggregate kind {kind}")
-        if kind != COUNT_STAR:
+        if kind in BY_Y or kind == BY_X:
+            if data.dim() != 1 or data.shape[0] != n or data.dtype not in \
+                    (torch.bool, torch.int32, torch.int64, torch.float64) \
+                    or valid.dtype != torch.bool or valid.shape != (n,):
+                raise ValueError("packed_group_agg: min_by / max_by columns must be (n,) "
+                                 "integers, booleans or doubles with (n,) bool validity")
+            tensors += [data, valid]
+        elif kind != COUNT_STAR:
             _check_col(data, valid, n, "argument", kind in LONG_ARG, kind in DOUBLE_ARG)
             tensors += [data, valid]
     doubles = any(k in DOUBLE_STATES for k, _, _ in aggs)
@@ -334,7 +448,12 @@ def _launch(n, row_mask, keys, aggs, n_groups):
         elif kind == VARIANCE:
             states.append([torch.empty(n_groups, dtype=torch.float64, device=dev),
                            torch.empty(n_groups, dtype=torch.float64, device=dev), cnt])
-        else:
+        elif kind == MOMENTS:
+            states.append([torch.empty(n_groups, dtype=torch.float64, device=dev)
+                           for _ in range(4)] + [cnt])
+        elif kind in BY_Y or kind == BY_X:  # (value, count or flag)
+            states.append([torch.empty(n_groups, dtype=data.dtype, device=dev), cnt])
+        else:  # a count, or CHECKSUM's sum
             states.append([cnt])
     # chunk partials of the double sums (one row of slots per chunk) and
     # the first pairwise level's
@@ -351,14 +470,16 @@ def _launch(n, row_mask, keys, aggs, n_groups):
     c_arg_data = build.ptrs(d.data_ptr() if d is not None else null for _, d, _ in aggs)
     c_arg_valid = build.ptrs(v.data_ptr() if v is not None else null for _, _, v in aggs)
     c_arg_kind = build.ints((KIND_D128 if k in LONG_ARG else KIND_F64 if k in DOUBLE_ARG
-                             else _KINDS[d.dtype]) if d is not None else 0
-                            for k, d, _ in aggs)
+                             or d.dtype == torch.float64 else _KINDS[d.dtype])
+                            if d is not None else 0 for k, d, _ in aggs)
     names = {KIND_NAMES[k] for k, _, _ in aggs if k in KIND_NAMES}
     names |= {"min_bool" for k, d, _ in aggs if k in (MIN_SHORT, MAX_SHORT)
               and d.dtype == torch.bool}
     c_out0 = build.ptrs(s[0].data_ptr() for s in states)
     c_out1 = build.ptrs(s[1].data_ptr() if len(s) > 1 else null for s in states)
     c_out2 = build.ptrs(s[2].data_ptr() if len(s) > 2 else null for s in states)
+    c_out3 = build.ptrs(s[3].data_ptr() if len(s) > 3 else null for s in states)
+    c_out4 = build.ptrs(s[4].data_ptr() if len(s) > 4 else null for s in states)
     fn = build.library().k2_packed_group_agg
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p,
@@ -368,11 +489,12 @@ def _launch(n, row_mask, keys, aggs, n_groups):
                    ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     err = fn(n, row_mask.data_ptr(),
              len(keys), c_key_data, c_key_valid, c_key_kind, c_key_lo, c_key_card,
              len(aggs), c_agg_kind, c_arg_data, c_arg_valid, c_arg_kind,
-             n_groups, raw_width, raw.data_ptr(), c_out0, c_out1, c_out2, present.data_ptr(),
+             n_groups, raw_width, raw.data_ptr(), c_out0, c_out1, c_out2, c_out3, c_out4,
+             present.data_ptr(),
              scratch.data_ptr(), build.stream_of(row_mask))
     build.check(err, "packed_group_agg")
     launches += 1

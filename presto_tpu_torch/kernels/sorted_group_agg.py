@@ -22,6 +22,16 @@ sorted positions splits into chunks of ``DSUM_CHUNK``, each chunk adds
 its values in sorted order from 0.0, and the chunk partials add
 pairwise, level by level.
 
+The coupled and statistical states: S_MOM (the central moments ``(s,
+m2, m3, m4, cnt)`` of a double, four passes in that fixed order) and
+S_MOM_MERGE (their partials merged by Chan's form extended to M3 and M4,
+the reference's ``_merge_states``); min_by / max_by as S_BY_X, S_BY_XV
+and S_BY_Y_MIN or S_BY_Y_MAX in that order: the extreme of ``y`` (an
+integer, a collation rank or a double's min/max order key), then over
+the rows whose ``y`` equals it the greatest ``x`` (S_BY_X) and a 0/1 flag
+that one had a valid ``x`` (S_BY_XV).  checksum is an S_SUM (wrapping)
+of K1's hashes.
+
 ``presorted=True`` is the streaming aggregation (the reference's
 ``_presorted_group_ids``): equal keys arrive together, so there is no
 sort; the live rows keep their page order, a run of equal keys among
@@ -48,7 +58,7 @@ from presto_tpu_torch.ops import decimal128 as d128
 # least or greatest (n, 2) limbs; an empty state holds the identity.
 S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG, \
     S_MAX_LONG, S_DSUM, S_VAR, S_VAR_MERGE, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR, \
-    S_HLL = range(17)
+    S_HLL, S_MOM, S_MOM_MERGE, S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV = range(23)
 # S_MIN / S_MAX also take booleans (an empty state: the fold's neutral
 # value); S_MIN_F64 / S_MAX_F64 keep a double's extreme (-0.0 below 0.0,
 # NaN winning, as the reference's segment reductions); S_BAND / S_BOR
@@ -58,23 +68,34 @@ S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG, \
 # gives (s, m2, cnt); S_VAR_MERGE takes the partial states ``(s, m2,
 # cnt)`` as its data (its validity: the live partial rows) and gives
 # the merged (s, m2, cnt)
-DOUBLE_STATES = (S_DSUM, S_VAR, S_VAR_MERGE, S_HLL)
+# S_MOM takes a double and gives (s, m2, m3, m4, cnt); S_MOM_MERGE
+# takes the partial states (s, m2, m3, m4, cnt) and gives them merged;
+# S_BY_X (data x), S_BY_XV (no data: x's validity) and the S_BY_Y_MIN /
+# S_BY_Y_MAX after them (data y) are one min_by / max_by
+DOUBLE_STATES = (S_DSUM, S_VAR, S_VAR_MERGE, S_HLL, S_MOM, S_MOM_MERGE)
+S_BY_Y = (S_BY_Y_MIN, S_BY_Y_MAX)
+_BY = (S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV)
 DSUM_CHUNK = 256  # csrc/sorted_group_agg.cu K6_DSUM_CHUNK
 _LIMBS = (S_LIMBS_SHORT, S_LIMBS_LONG)
 _PAIRS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG)  # (G, 2) outputs
 _EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG, S_MIN_F64, S_MAX_F64)
 _INT_STATES = (S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG,
-               S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR)
+               S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR) + _BY
 KIND_NAMES = {S_MIN_F64: "min_double", S_MAX_F64: "min_double", S_BAND: "bitwise",
-              S_BOR: "bitwise", S_HLL: "hll"}
+              S_BOR: "bitwise", S_HLL: "hll", S_MOM: "moments", S_MOM_MERGE: "moments_merge",
+              S_BY_Y_MIN: "min_by", S_BY_Y_MAX: "min_by"}
+# the columns of a double state's data and of its outputs
+_DOUBLE_COLS = {S_VAR_MERGE: 3, S_MOM_MERGE: 5}
+_DOUBLE_OUTS = {S_DSUM: 1, S_HLL: 1, S_VAR: 3, S_VAR_MERGE: 3, S_MOM: 5, S_MOM_MERGE: 5}
 MAX_STATES = 32  # csrc/sorted_group_agg.cu K6_MAX_STATES
 MAX_SLOTS = 64  # csrc/sorted_group_agg.cu K6_MAX_SLOTS
 _WIDTH = {S_LIMBS_SHORT: 4, S_LIMBS_LONG: 4, S_MIN_LONG: 2, S_MAX_LONG: 2}
 SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
 _DATA_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
+DATA_F64 = 3  # a double's bits (csrc/sorted_group_agg.cu)
 # how k6_finish stores a state (csrc/sorted_group_agg.cu): int64, int32
 # (narrowing the identities) or a boolean (an identity: the neutral value)
-_OUT_KINDS = {torch.int32: 1, torch.bool: 2}
+_OUT_KINDS = {torch.int32: 1, torch.bool: 2, torch.float64: 3}
 
 launches = 0
 #: launches in presorted mode, and launches with a min/max state
@@ -109,15 +130,25 @@ def run_sums_plain(v: torch.Tensor, gid: torch.Tensor, groups: int) -> torch.Ten
         return torch.zeros(0, dtype=torch.float64, device=dev)
     counts = torch.bincount(gid, minlength=groups)
     starts = torch.cumsum(counts, 0) - counts
-    r = torch.arange(v.shape[0], device=dev) - starts[gid]
     nch = (counts + DSUM_CHUNK - 1) // DSUM_CHUNK
     base = torch.cumsum(nch, 0) - nch
-    cidx = base[gid] + r // DSUM_CHUNK
-    j = r % DSUM_CHUNK
-    part = torch.zeros(int(nch.sum()), dtype=torch.float64, device=dev)
-    for jj in range(min(DSUM_CHUNK, int(counts.max()))):
-        sel = j == jj
-        part[cidx[sel]] = part[cidx[sel]] + v[sel]
+    # each chunk's first position and length, the chunks longest first:
+    # at place jj the chunks longer than jj are a prefix, and each takes
+    # its next value, so each chunk adds in order from 0.0 (O(n) memory)
+    cg = torch.repeat_interleave(torch.arange(groups, device=dev), nch)
+    ci = torch.arange(cg.shape[0], device=dev) - base[cg]
+    first = starts[cg] + ci * DSUM_CHUNK
+    length = torch.clamp(counts[cg] - ci * DSUM_CHUNK, max=DSUM_CHUNK)
+    longest = torch.argsort(length, descending=True)
+    first = first[longest]
+    shorter = torch.cumsum(torch.bincount(length, minlength=DSUM_CHUNK + 1), 0)
+    acc = torch.zeros(cg.shape[0], dtype=torch.float64, device=dev)
+    for jj, k in enumerate((cg.shape[0] - shorter[:DSUM_CHUNK]).tolist()):
+        if k == 0:
+            break
+        acc[:k] = acc[:k] + v[first[:k] + jj]
+    part = torch.empty_like(acc)
+    part[longest] = acc
     while int(nch.max()) > 1:
         half = (nch + 1) // 2
         hbase = torch.cumsum(half, 0) - half
@@ -155,21 +186,56 @@ def _double_states_plain(kind, data, valid, rows, gid, groups):
         from presto_tpu_torch.kernels.packed_group_agg import hll_weight
 
         return [run_sums_plain(torch.where(ok, hll_weight(data[rows]), zero), gid, groups)]
+    if kind == S_MOM_MERGE:
+        return moments_merge_plain([t[rows] for t in data], ok, gid, groups)
     x = torch.where(ok, data[rows], zero)
     s = run_sums_plain(x, gid, groups)
     if kind == S_DSUM:
         return [s]
     cnt = count(ok.to(torch.int64))
+    if kind == S_MOM:
+        from presto_tpu_torch.kernels.packed_group_agg import moment_sums
+
+        return [s] + moment_sums(x, ok, s, cnt, gid,
+                                 lambda v: run_sums_plain(v, gid, groups)) + [cnt]
     mu = s / torch.clamp(cnt, min=1).to(torch.float64)
     dx = torch.where(ok, x - mu[gid], zero)
     return [s, run_sums_plain(dx * dx, gid, groups), cnt]
+
+
+def moments_merge_plain(cols, ok, gid, groups):
+    """S_MOM_MERGE over the sorted live partial rows: each partial's
+    ``moment_terms`` (Chan's form generalised to k partials and to M3 /
+    M4, the reference's ``_merge_states`` :1118), summed in the fixed
+    double order."""
+    from presto_tpu_torch.kernels.packed_group_agg import moment_terms
+
+    s_i, m2_i, m3_i, m4_i, c_i = cols
+    zero = torch.zeros_like(s_i)
+    s = run_sums_plain(torch.where(ok, s_i, zero), gid, groups)
+    cnt = torch.zeros(groups, dtype=torch.int64, device=gid.device)
+    cnt.index_add_(0, gid, torch.where(ok, c_i, torch.zeros_like(c_i)))
+    mu = s / torch.clamp(cnt, min=1).to(torch.float64)
+    return [s] + [run_sums_plain(torch.where(ok, m, zero), gid, groups)
+                  for m in moment_terms(s_i, m2_i, m3_i, m4_i, c_i, mu[gid])] + [cnt]
+
+
+def _by_plain(states, i, rows, gid, groups):
+    """min_by / max_by's three states from S_BY_X at ``i``: ``[x, x
+    flag, y]`` (the reference's two phases, ``packed_group_agg.seg_by``)."""
+    from presto_tpu_torch.kernels.packed_group_agg import seg_by
+
+    (_, x, xv), _, (ykind, y, yv) = states[i:i + 3]
+    xb, xflag, yb, _ = seg_by(x[rows], xv[rows], y[rows], yv[rows], gid, groups,
+                              ykind == S_BY_Y_MIN)
+    return [xb, xflag, yb]
 
 
 def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                            states: Sequence[State], presorted: bool = False):
     """``(key columns [(data, valid)...], state columns, groups)``; the
     plain version.  A state gives one column, S_VAR and S_VAR_MERGE
-    three."""
+    three, S_MOM and S_MOM_MERGE five."""
     n = row_mask.shape[0]
     key, _ = pk.pack_plain(keys, n, row_mask.device)
     masked = torch.where(row_mask, key, torch.full_like(key, pk.I64_MAX))
@@ -187,7 +253,12 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     rep = order[first]
     key_out = [(d[rep], v[rep]) for d, v, _, _ in keys]
     outs = []
-    for kind, data, valid in states:
+    for i, (kind, data, valid) in enumerate(states):
+        if kind == S_BY_X:
+            outs.extend(_by_plain(states, i, rows, gid, groups))
+            continue
+        if kind in _BY:  # given with their S_BY_X
+            continue
         if kind in DOUBLE_STATES:
             outs.extend(_double_states_plain(kind, data, valid, rows, gid, groups))
             continue
@@ -248,6 +319,14 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     # its rows in an integer state of its own)
     if sum(k != S_DSUM for k, _, _ in states) > MAX_STATES:
         raise ValueError("sorted_group_agg: too many states")
+    kinds = [k for k, _, _ in states]
+    for i, k in enumerate(kinds):
+        if k == S_BY_X and (kinds[i + 1:i + 2] != [S_BY_XV]
+                            or kinds[i + 2:i + 3] not in ([S_BY_Y_MIN], [S_BY_Y_MAX])) or \
+                k == S_BY_XV and kinds[i - 1:i] != [S_BY_X] or \
+                k in S_BY_Y and kinds[i - 2:i - 1] != [S_BY_X]:
+            raise ValueError("sorted_group_agg: min_by / max_by states come as S_BY_X, "
+                             "S_BY_XV, S_BY_Y")
     if not row_mask.is_cuda:
         return sorted_group_agg_plain(keys, row_mask, states, presorted)
     global launches, presorted_launches, minmax_launches, variance_launches, \
@@ -263,20 +342,22 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         if kind in DOUBLE_STATES:
             if valid is None or valid.dtype != torch.bool or valid.shape != (n,):
                 raise ValueError("sorted_group_agg: state validity must be (n,) bool")
-            cols = data if kind == S_VAR_MERGE else (data,)
+            ncols = _DOUBLE_COLS.get(kind, 1)
+            cols = data if ncols > 1 else (data,)
             want = [torch.int64] if kind == S_HLL else \
-                [torch.float64] * min(len(cols), 2) + [torch.int64] * (len(cols) == 3)
-            if len(cols) != (3 if kind == S_VAR_MERGE else 1) or any(
-                    c.shape != (n,) for c in cols) or [c.dtype for c in cols] != want:
+                [torch.float64] * max(ncols - 1, 1) + [torch.int64] * (ncols > 1)
+            if len(cols) != ncols or any(c.shape != (n,) for c in cols) \
+                    or [c.dtype for c in cols] != want:
                 raise ValueError("sorted_group_agg: double state data must be (n,) float64 "
-                                 "(a merge: s, m2 float64 and cnt int64; S_HLL: int64 rho)")
+                                 "(a merge: its float64 sums and an int64 cnt; S_HLL: int64 "
+                                 "rho)")
             idx = None
-            if kind == S_VAR:
+            if kind in (S_VAR, S_MOM):
                 idx = len(int_states)
                 int_states.append((S_VALID, None, valid))
-            elif kind == S_VAR_MERGE:
+            elif kind in (S_VAR_MERGE, S_MOM_MERGE):
                 idx = len(int_states)
-                int_states.append((S_SUM, cols[2], valid))
+                int_states.append((S_SUM, cols[-1], valid))
             plan.append((kind, data, valid, idx))
         else:
             plan.append((None, None, None, len(int_states)))
@@ -286,7 +367,7 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     tensors = [row_mask] + pk.check(keys, n, "sorted_group_agg")
     for kind, data, _, _ in plan:
         if kind is not None:
-            tensors += list(data) if kind == S_VAR_MERGE else [data]
+            tensors += list(data) if kind in _DOUBLE_COLS else [data]
     for kind, data, valid in int_states:
         if kind not in _INT_STATES:
             raise ValueError(f"sorted_group_agg: state kind {kind}")
@@ -301,6 +382,12 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         if kind in (S_MIN_F64, S_MAX_F64):
             if data is None or data.shape != (n,) or data.dtype != torch.float64:
                 raise ValueError("sorted_group_agg: double min/max data must be (n,) float64")
+            tensors.append(data)
+        if kind in (S_BY_X,) + S_BY_Y:
+            if data is None or data.shape != (n,) or data.dtype not in (
+                    torch.bool, torch.int32, torch.int64, torch.float64):
+                raise ValueError("sorted_group_agg: min_by / max_by data must be (n,) "
+                                 "integers, booleans or doubles")
             tensors.append(data)
         if kind in (S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG):
             if data is None or data.shape != (n, 2) or data.dtype != torch.int64:
@@ -339,8 +426,8 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         (torch.empty(groups, dtype=d.dtype, device=dev),
          torch.empty(groups, dtype=torch.bool, device=dev)) for d, _, _, _ in keys]
     outs = [torch.empty((groups, 2) if kind in _PAIRS else (groups,),
-                        dtype=data.dtype if kind in (S_MIN, S_MAX, S_MIN_F64, S_MAX_F64)
-                        else torch.int64, device=dev)
+                        dtype=data.dtype if kind in (S_MIN, S_MAX, S_MIN_F64, S_MAX_F64, S_BY_X)
+                        + S_BY_Y else torch.int64, device=dev)
             for kind, data, _ in states]
     width = sum(_WIDTH.get(kind, 1) for kind, _, _ in states)
     raw = torch.empty(max(groups * width, 1), dtype=torch.int64, device=dev)
@@ -358,7 +445,7 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
              build.ints(d.element_size() for d, _, _, _ in keys),
              len(states), build.ints(k for k, _, _ in states),
              build.ptrs(d.data_ptr() if d is not None else null for _, d, _ in states),
-             build.ints(_DATA_KINDS.get(d.dtype, 2) if d is not None else 0
+             build.ints(_DATA_KINDS.get(d.dtype, DATA_F64) if d is not None else 0
                         for _, d, _ in states),
              build.ptrs(v.data_ptr() if v is not None else null for _, _, v in states),
              build.ptrs(o.data_ptr() for o in outs),
@@ -397,23 +484,26 @@ def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
         fn = lib.k6_double_state
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 12 + \
+                       ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 16 + \
             [ctypes.c_longlong, ctypes.c_void_p]
     for kind, data, valid, idx in plan:
         if kind is None:
             outs.append(int_outs[idx])
             continue
-        s = torch.empty(groups, dtype=torch.float64, device=dev)
-        m2 = torch.empty(groups, dtype=torch.float64, device=dev)
+        sums = [torch.empty(groups, dtype=torch.float64, device=dev) for _ in range(4)]
         cnt = int_outs[idx] if idx is not None else None
-        cols = data if kind == S_VAR_MERGE else (data, None, None)
+        # x (or s_i), m2_i, m3_i, m4_i and c_i
+        cols = tuple(data) if kind in _DOUBLE_COLS else (data,)
+        if kind == S_VAR_MERGE:
+            cols = (cols[0], cols[1], None, None, cols[2])
+        cols += (None,) * (5 - len(cols))
+        ptr = [c.data_ptr() if c is not None else None for c in cols]
         err = fn(sk.data_ptr(), order.data_ptr(), n, scan.data_ptr(), groups, kind,
-                 cols[0].data_ptr(), valid.data_ptr(),
-                 cols[1].data_ptr() if cols[1] is not None else None,
-                 cols[2].data_ptr() if cols[2] is not None else None,
+                 ptr[0], valid.data_ptr(), ptr[1], ptr[2], ptr[3], ptr[4],
                  cnt.data_ptr() if cnt is not None else None,
-                 s.data_ptr(), m2.data_ptr(), starts.data_ptr(), base.data_ptr(),
+                 *(t.data_ptr() for t in sums), starts.data_ptr(), base.data_ptr(),
                  partials.data_ptr(), chunk_group.data_ptr(), part.data_ptr(), bound, stream)
         build.check(err, "sorted_group_agg")
-        outs.extend([s] if kind in (S_DSUM, S_HLL) else [s, m2, cnt])
+        n_out = _DOUBLE_OUTS[kind]
+        outs.extend(sums[:n_out - 1] + [cnt] if n_out > 1 else sums[:1])
     return outs

@@ -34,6 +34,20 @@ level, a double state like a double sum); and an aggregate's FILTER
 lane, the argument NULL where the filter is not true, so the kernels'
 per-aggregate validity lane is the selection lane.  DISTINCT aggregates
 (which the binder rewrites) raise :class:`NotPorted`.
+
+The coupled and statistical aggregates: ``checksum`` (K1 hashes each
+row by splitmix64, a double by its bits, a NULL to the reference's
+constant; the kernels add the hashes, wrapping), ``skewness`` and
+``kurtosis`` (the central moments ``(s, m2, m3, m4, cnt)``, two-pass
+per partial, Chan's form across partials), the covariance family
+(``covar_pop``, ``covar_samp``, ``corr``, ``regr_slope``,
+``regr_intercept``: K1 computes the lanes ``x``, ``y``, ``x*y``, ``x*x``
+and ``y*y`` over the rows where both are valid, and the kernels take
+their fixed-order double sums beside one count) and ``min_by`` /
+``max_by`` (the extreme of ``y``, a varchar by its collation rank, then
+the greatest ``x`` among the rows tied at it; a varchar ``x`` stays a
+code of its dictionary).  Moments and covariance are double states, so
+a keyed grouping with one takes the sort path.
 """
 
 from __future__ import annotations
@@ -46,7 +60,7 @@ import torch
 from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler, _Lowering, _lane, _out_kind, \
     expr_dictionary
-from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr
+from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr, Literal
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
@@ -294,7 +308,8 @@ def _agg_dict(agg: AggCall, dictionaries) -> Optional[object]:
 
 
 def _has_double_state(aggs) -> bool:
-    return any(a.fn in VARIANCE_FNS or a.fn == "hll_merge"
+    return any(a.fn in VARIANCE_FNS or a.fn in MOMENT_FNS or a.fn in COVAR_FNS
+               or a.fn == "hll_merge"
                or (a.fn in ("sum", "sum0", "avg") and a.arg is not None
                    and _sum_type(a.arg.type).name == "double")
                for a in aggs)
@@ -401,7 +416,8 @@ def _state_kind(agg: AggCall) -> int:
     counts the rows its filter selects (COUNT over the filter lane)."""
     if agg.distinct:
         raise NotPorted("DISTINCT aggregates")
-    if agg.filter is not None and agg.arg is not None and _lane(agg.arg.type) == "long":
+    if agg.filter is not None and agg.arg is not None and not agg.arg.type.is_string \
+            and _lane(agg.arg.type) == "long":
         raise NotPorted(f"FILTER over {agg.arg.type}")
     if agg.fn == "count_star":
         return k2.COUNT_STAR if agg.filter is None else k2.COUNT
@@ -444,6 +460,22 @@ def _state_kind(agg: AggCall) -> int:
         return k2.BIT_AND if agg.fn == "bitwise_and_agg" else k2.BIT_OR
     if agg.fn == "hll_merge":
         return k2.HLL_SUM
+    if agg.fn == "checksum":
+        t = agg.arg.type
+        if t.value_shape != () or t.is_raw_string or t.is_long_decimal:
+            raise NotPorted(f"checksum over {t}")
+        return k2.CHECKSUM
+    if agg.fn in MOMENT_FNS or agg.fn in COVAR_FNS:
+        for t in (agg.arg.type, agg.arg2.type if agg.fn in COVAR_FNS else agg.arg.type):
+            if t.value_shape != () and not (t.is_long_decimal and t.value_shape == (2,)) \
+                    or t.is_string or t.name in ("real", "boolean", "date", "timestamp"):
+                raise NotPorted(f"{agg.fn} over {t}")
+        return k2.MOMENTS if agg.fn in MOMENT_FNS else k2.SUM_DOUBLE
+    if agg.fn in ("min_by", "max_by"):
+        for t in (agg.arg.type, agg.arg2.type):
+            if t.value_shape != () or t.is_raw_string or t.name == "real":
+                raise NotPorted(f"{agg.fn} over {t}")
+        return k2.BY_X
     raise NotPorted(f"aggregate {agg.fn}")
 
 
@@ -472,6 +504,17 @@ def _finalize_kind(agg: AggCall) -> int:
         return k3.FIN_HLL
     if agg.fn in VARIANCE_FNS:
         return _VARIANCE_FIN[agg.fn]
+    if agg.fn == "checksum":  # the sum, never NULL
+        return k3.FIN_COUNT
+    if agg.fn in MOMENT_FNS or agg.fn in COVAR_FNS:
+        return _TAIL_FIN[agg.fn]
+    if agg.fn in ("min_by", "max_by"):  # x, NULL where no valid x tied the extreme
+        t = agg.arg.type
+        if t.name == "double":
+            return k3.FIN_SUM_F64
+        if t.name == "boolean":
+            return k3.FIN_VALUE_BOOL
+        return k3.FIN_VALUE_I32 if np.dtype(t.np_dtype) == np.dtype(np.int32) else k3.FIN_SUM
     st = _sum_type(agg.arg.type)
     t = output_type(agg)
     if agg.fn in ("sum", "sum0"):
@@ -496,6 +539,14 @@ def _finalize_kind(agg: AggCall) -> int:
         return k3.FIN_AVG_DOUBLE
     raise NotPorted(f"avg producing {t}")
 
+
+_TAIL_FIN = {"skewness": k3.FIN_SKEWNESS, "kurtosis": k3.FIN_KURTOSIS,
+             "covar_pop": k3.FIN_COVAR_POP, "covar_samp": k3.FIN_COVAR_SAMP,
+             "corr": k3.FIN_CORR, "regr_slope": k3.FIN_REGR_SLOPE,
+             "regr_intercept": k3.FIN_REGR_INTERCEPT}
+# checksum's hash of a NULL row (the reference's 0x9E3779B97F4A7C15 as
+# a signed int64)
+CHECKSUM_NULL = 0x9E3779B97F4A7C15 - (1 << 64)
 
 _VARIANCE_FIN = {"stddev": k3.FIN_STDDEV_SAMP, "stddev_samp": k3.FIN_STDDEV_SAMP,
                  "stddev_pop": k3.FIN_STDDEV_POP, "variance": k3.FIN_VAR_SAMP,
@@ -540,8 +591,9 @@ def grouped_aggregate(
     if not group_exprs:
         states, _ = k2.packed_group_agg(n, page.row_mask, [], args, 1)
         out_mask = torch.ones(1, dtype=torch.bool, device=page.device)
-        return _emit([], states, aggs, out_mask, mode, agg_dicts)
+        return _emit([], _agg_states(aggs, states), aggs, out_mask, mode, agg_dicts)
     states, present = k2.packed_group_agg(n, page.row_mask, keys, args, max_groups)
+    states = _agg_states(aggs, states)
     cards = [card for _, _, _, card in keys]
     key_blocks = _unpack_key_blocks(cards, key_domains, group_exprs,
                                     expr_key_dicts(page, group_exprs), int(np.prod(cards)),
@@ -553,17 +605,29 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
                   key_domains) -> Tuple[List[k2.Key], List[k2.Agg]]:
     """The K2 inputs of a page: packed-key columns ``(data, valid, lo,
     card)`` and aggregate arguments ``(kind, data, valid)``, evaluated
-    by K1 where they are expressions."""
+    by K1 where they are expressions; an aggregate takes one entry, a
+    covariance five (``_covar_lanes``) and a min_by / max_by two (BY_X,
+    then BY_Y_MIN or BY_Y_MAX)."""
     c = ExprCompiler.for_page(page)
     dicts = [b.dictionary for b in page.blocks]
     args = []
     for agg in aggs:
         kind = _state_kind(agg)
+        if agg.fn in COVAR_FNS:
+            args += [(k2.SUM_DOUBLE, d, v) for d, v in _covar_lanes(c, agg, page)]
+            continue
+        if agg.fn in ("min_by", "max_by"):
+            args += _by_entries(c, dicts, agg, page)
+            continue
+        if kind == k2.CHECKSUM:
+            args.append((kind,) + _argument_lane(c, agg.arg, agg.filter, None,
+                                                 _checksum_hash)(page))
+            continue
         if kind == k2.COUNT_STAR:
             args.append((kind, None, None))
             continue
         arg = agg.arg
-        if kind == k2.VARIANCE and arg.type.name != "double":
+        if kind in (k2.VARIANCE, k2.MOMENTS) and arg.type.name != "double":
             arg = Call(type=DOUBLE, fn="cast_double", args=(arg,))  # _to_double
         rank = None
         if agg.fn in ("min", "max") and arg.type.is_string:
@@ -581,13 +645,84 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
     return key_columns(page, group_exprs, key_domains), args
 
 
+def _checksum_hash(lw: _Lowering) -> int:
+    """checksum's per-row hash after its argument (the reference's
+    ``_partial_states`` :518): splitmix64 of the lane's 64 bits (HLL
+    with P = 0; a double's bits), NULL rows the reference's constant."""
+    lw._push(k1.HLL, 0)
+    lw._push(k1.LIT, lw._const(CHECKSUM_NULL))
+    lw._push(k1.COAL)
+    return k1.KIND_I64
+
+
+def _covar_lanes(c: ExprCompiler, agg: AggCall, page: Page):
+    """The covariance family's five double lanes ``x``, ``y``, ``x*y``,
+    ``x*x``, ``y*y`` (``y`` the first argument, ``x`` the second, each
+    as a double), each valid where both are and the filter holds (the
+    reference's ``sel``)."""
+    from presto_tpu_torch.types import BOOLEAN
+
+    def dbl(e):
+        return e if e.type.name == "double" else Call(type=DOUBLE, fn="cast_double", args=(e,))
+
+    y, x = dbl(agg.arg), dbl(agg.arg2)
+    null = Literal(type=DOUBLE, value=None)
+
+    def when_valid(other, e):
+        return Call(type=DOUBLE, fn="if", args=(
+            Call(type=BOOLEAN, fn="not_null", args=(other,)), e, null))
+
+    def mul(a, b):
+        return Call(type=DOUBLE, fn="mul", args=(a, b))
+
+    lanes = (when_valid(y, x), when_valid(x, y), mul(x, y), when_valid(y, mul(x, x)),
+             when_valid(x, mul(y, y)))
+    return [_argument_lane(c, e, agg.filter, None)(page) for e in lanes]
+
+
+def _by_entries(c: ExprCompiler, dicts, agg: AggCall, page: Page) -> List[k2.Agg]:
+    """min_by / max_by's K2 entries: BY_X over ``x`` (a varchar stays a
+    code), then BY_Y_MIN or BY_Y_MAX over ``y`` (a varchar through its
+    collation rank), its validity the filter's selection."""
+    rank = None
+    if agg.arg2.type.is_string:
+        ydict = expr_dictionary(agg.arg2, dicts)
+        if ydict is None:
+            raise NotPorted(f"{agg.fn} over a string key without a dictionary")
+        rank = rank_luts(ydict)[0]
+    xd, xv = c.compile(agg.arg)(page)
+    yd, yv = _argument_lane(c, agg.arg2, agg.filter, rank)(page)
+    return [(k2.BY_X, xd, xv), (k2.BY_Y_MIN if agg.fn == "min_by" else k2.BY_Y_MAX, yd, yv)]
+
+
+def _k2_entries(agg: AggCall) -> int:
+    """How many K2 entries (``kernel_inputs``) an aggregate takes."""
+    return 5 if agg.fn in COVAR_FNS else 2 if agg.fn in ("min_by", "max_by") else 1
+
+
+def _agg_states(aggs, entry_states) -> List[List[torch.Tensor]]:
+    """K2's per-entry states regrouped into each aggregate's partial
+    state, in ``state_types`` order."""
+    out, pos = [], 0
+    for agg in aggs:
+        k = _k2_entries(agg)
+        got = entry_states[pos:pos + k]
+        pos += k
+        if agg.fn in COVAR_FNS:  # five (sum, count); the counts are equal
+            out.append([st[0] for st in got] + [got[0][1]])
+        else:
+            out.append([col for st in got for col in st])
+    return out
+
+
 def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
-                   rank: Optional[k1.Lut]):
+                   rank: Optional[k1.Lut], tail=None):
     """One K1 program for an aggregate's argument lane: the argument (or
     a constant true for a filtered count_star), through the collation's
-    rank table for a varchar min/max, and NULL where the filter is not
-    true (``if(filter, arg, NULL)``: the reference's ``rowsel & valid``),
-    so the kernels' validity lane carries the selection."""
+    rank table for a varchar min/max (or ``tail``, which pushes more
+    instructions and gives the output kind), and NULL where the filter
+    is not true (``if(filter, arg, NULL)``: the reference's ``rowsel &
+    valid``), so the kernels' validity lane carries the selection."""
     lw = _Lowering(c.dictionaries)
     if filt is not None:
         lw.emit(filt)
@@ -600,6 +735,8 @@ def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
     if rank is not None:
         lw._push_lut(rank, k1.CANON)
         out = k1.KIND_I32
+    if tail is not None:
+        out = tail(lw)
     if filt is not None:
         lw._push(k1.NULL)
         lw._push(k1.SEL)
@@ -625,7 +762,30 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
     states each aggregate has."""
     keys, args = kernel_inputs(page, group_exprs, aggs, key_domains)
     states, per_agg = [], []
-    for kind, data, valid in args:
+    pos = 0
+    for agg in aggs:
+        entries = args[pos:pos + _k2_entries(agg)]
+        pos += len(entries)
+        kind, data, valid = entries[0]
+        if agg.fn in COVAR_FNS:  # five fixed-order sums and the count
+            states += [(k6.S_DSUM, d, v) for _, d, v in entries] + [(k6.S_VALID, None, valid)]
+            per_agg.append(6)
+            continue
+        if agg.fn in ("min_by", "max_by"):  # x, x flag, y, count of y
+            ykind, yd, yv = entries[1]
+            states += [(k6.S_BY_X, data, valid), (k6.S_BY_XV, None, valid),
+                       (k6.S_BY_Y_MIN if ykind == k2.BY_Y_MIN else k6.S_BY_Y_MAX, yd, yv),
+                       (k6.S_VALID, None, yv)]
+            per_agg.append(4)
+            continue
+        if kind == k2.CHECKSUM:
+            states.append((k6.S_SUM, data, valid))
+            per_agg.append(1)
+            continue
+        if kind == k2.MOMENTS:  # (s, m2, m3, m4, cnt)
+            states.append((k6.S_MOM, data, valid))
+            per_agg.append(5)
+            continue
         if kind == k2.COUNT_STAR:
             states.append((k6.S_ONE, None, None))
         elif kind == k2.COUNT:
@@ -700,8 +860,18 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     live = partial.row_mask
     states, per_agg = [], []
     for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):
-        if agg.fn in ("count", "count_star"):
+        if agg.fn in ("count", "count_star", "checksum"):
             states.append((k6.S_SUM, cols[0].data, live))
+        elif agg.fn in MOMENT_FNS:  # Chan's form, extended to M3 and M4
+            states.append((k6.S_MOM_MERGE, tuple(c.data for c in cols), live))
+        elif agg.fn in COVAR_FNS:
+            states += [(k6.S_DSUM, c.data, live) for c in cols[:5]]
+            states.append((k6.S_SUM, cols[5].data, live))
+        elif agg.fn in ("min_by", "max_by"):
+            has_x, has_y = cols[1].data > 0, cols[3].data > 0
+            states += [(k6.S_BY_X, cols[0].data, has_x), (k6.S_BY_XV, None, has_x),
+                       (k6.S_BY_Y_MIN if agg.fn == "min_by" else k6.S_BY_Y_MAX, cols[2].data,
+                        has_y), (k6.S_SUM, cols[3].data, live)]
         elif agg.fn in ("min", "max") or agg.fn in BITWISE_FNS:
             states.append((_K6_STATE[_state_kind(agg)], cols[0].data, cols[1].data > 0))
             states.append((k6.S_SUM, cols[1].data, live))
@@ -782,8 +952,18 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
     items = []
     for agg, cols in zip(aggs, states):
         kind = _finalize_kind(agg)
-        # a variance finalizes from (m2, cnt); every other from (state, cnt)
-        items.append((kind, cols[1] if kind in k3.VARIANCE_KINDS else cols[0], cols[-1]))
+        # a variance finalizes from (m2, cnt), the moments from (m2, m3,
+        # m4) stacked, the covariance family from its five sums stacked,
+        # min_by / max_by from (x, x flag); every other from (state, cnt)
+        if kind in k3.VARIANCE_KINDS:
+            items.append((kind, cols[1], cols[-1]))
+        elif kind in k3.STACKED:
+            items.append((kind, torch.stack(cols[1:4] if kind in k3.MOMENT_KINDS
+                                            else cols[:5], dim=1), cols[-1]))
+        elif agg.fn in ("min_by", "max_by"):
+            items.append((kind, cols[0], cols[1]))
+        else:
+            items.append((kind, cols[0], cols[-1]))
     out = k3.packed_finalize(items, mask)
     for i, (agg, adict) in enumerate(zip(aggs, agg_dicts)):
         if agg.fn in ("min", "max") and agg.arg.type.is_string:
@@ -807,6 +987,13 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
     sb = [blk for cols in _slice_state_cols(b, num_keys, aggs) for blk in cols]
     kinds = []
     for agg in aggs:
+        if agg.fn in MOMENT_FNS:
+            kinds += [k3.COL_F64, k3.COL_MOM_M2, k3.COL_MOM_M3, k3.COL_MOM_M4, k3.COL_I64]
+            continue
+        if agg.fn in ("min_by", "max_by"):
+            kinds += [k3.COL_BY_X, k3.COL_BY_XV, k3.COL_BY_Y_MIN if agg.fn == "min_by"
+                      else k3.COL_BY_Y_MAX, k3.COL_I64]
+            continue
         for j, t in enumerate(state_types(agg)):
             if agg.fn in VARIANCE_FNS:
                 kinds.append((k3.COL_F64, k3.COL_VAR_M2, k3.COL_I64)[j])

@@ -59,10 +59,10 @@ def test_memory_connector_path_and_stats(runners):
 
 
 def test_query_outside_the_slice_raises(runners):
-    with pytest.raises(NotPorted):  # min_by, outside every ported slice (max over
-        # varchar, pinned here before, is ported since the eighth slice)
-        runners[1].execute("select l_returnflag, min_by(l_shipmode, l_quantity) from lineitem "
-                           "group by l_returnflag")
+    with pytest.raises(NotPorted):  # max_by(x, y, n), outside every ported slice (max
+        # over varchar and then min_by, pinned here before, are ported)
+        runners[1].execute("select l_returnflag, max_by(l_orderkey, l_quantity, 2) from "
+                           "lineitem group by l_returnflag")
 
 
 @pytest.mark.parametrize("flag", ["null_safe_keys", "null_aware", "use_index"])

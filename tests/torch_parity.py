@@ -4,9 +4,17 @@ numpy state to the JAX reference and to the port."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from presto_tpu.page import Page as RefPage
 from presto_tpu_torch.page import page_from_numpy
+
+# One torch thread per test process: the suite runs as several
+# pytest-xdist workers on one machine, and torch's default of a thread
+# per core made them contend (the whole tier-1 run with six workers took
+# 918 s with it and 393 s with one thread, on an 8-core machine).  Every worker
+# collects every test module, so this holds for all of them.
+torch.set_num_threads(1)
 
 
 def numpy_state(ref_page: RefPage):
