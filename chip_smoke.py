@@ -53,7 +53,16 @@ Phases (any failure exits non-zero before the result line):
    checksum's hash, K2's checksum, moments, covariance sums and
    min_by / max_by, K6's moments, covariance sums and min_by / max_by by
    l_suppkey and their merges, K3's fold and finalizes of them (exact,
-   skewness within 2 ulp: pow);
+   skewness within 2 ulp: pow); and the tenth slice's
+   (``check_container_kernels``): every K12 ``container_eval`` opcode,
+   K13 ``unnest_expand`` and K14 ``group_collect`` over seeded slot
+   matrices of 2^20 rows (``container_sweep``), then K12 over a
+   lineitem split (ct_row_ops' construction, subscript, contains, map
+   lookup and ROW field), split's table over part's names, and over
+   ct_array_agg's own arrays (cardinality, sum, sort, slot, the lambdas'
+   assembly, compaction and match), K13 over the same arrays, K14's
+   collect over a split by l_orderkey and its merge of two splits'
+   partials;
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
@@ -68,7 +77,11 @@ Phases (any failure exits non-zero before the result line):
    date_add, timestamp arithmetic and to_unixtime, a date_format group
    key, string value tables and casts, min_by / max_by, skewness,
    kurtosis, the covariance family and checksum by l_shipmode, by
-   l_suppkey, globally and by two flags); then (TPC-H's tables freed)
+   l_suppkey, globally and by two flags); the containers phase over the
+   same tables (``CT_QUERIES``: array_agg by l_orderkey, its arrays
+   unnested WITH ORDINALITY, a word count through split and UNNEST,
+   histogram and map_agg, per-row container functions over lineitem,
+   the lambdas over the aggregated arrays); then (TPC-H's tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -83,8 +96,8 @@ Phases (any failure exits non-zero before the result line):
    SF 1 (the card runs the 22 queries again over the SF 1 tables; Q22,
    which finds no row there, also without its anti join), the other
    TPC-DS queries at SF 1 (run again there on the card), q72 at sf
-   0.01; the functions and the dates and aggregate tail phases at SF 1,
-   exact but for skewness's doubles (``FN_APPROX``: its pow, a relative
+   0.01; the functions, the dates and aggregate tail and the
+   containers phases at SF 1, exact but for skewness's doubles (``FN_APPROX``: its pow, a relative
    1e-12);
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
@@ -98,6 +111,7 @@ from __future__ import annotations
 import gc
 import importlib.util
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -105,7 +119,12 @@ import sys
 import threading
 import time
 
-import torch
+# the caching allocator grows segments in place instead of reserving one
+# per size: after the containers' multi-GB states, TPC-DS's large joins
+# otherwise meet 20 GiB reserved in fragments they cannot use
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SF = 10.0  # TPC-H scale factor: ~60M lineitem rows
@@ -287,6 +306,39 @@ DT_QUERIES = {
 # on the CPU, which may round apart: that column of a query's rows
 # within a relative 1e-12, every other value exact
 FN_APPROX = {"agg_tail_mode": (3,), "agg_tail_supplier": (3,), "agg_tail_global": (2,)}
+# the tenth slice, ARRAY, MAP and ROW values, at SF10 over the same
+# resident tables, no cut (rows checked at TPCH_CHECK_SF with
+# check_fn_rows): array_agg of l_partkey by l_orderkey (15M groups over
+# 60M rows: K6's runs, K14's collect and merge), the same arrays
+# unnested back to 60M rows WITH ORDINALITY (K13), a word count of
+# part names through split and UNNEST, histogram and map_agg, per-row
+# K12 work over lineitem (contains, a subscript, a map lookup, a ROW
+# field) and the lambdas over the aggregated arrays
+CT_QUERIES = {
+    "ct_array_agg": "select count(*), sum(cardinality(a)), sum(array_sum(a)), "
+                    "sum(element_at(a, 1)) from (select l_orderkey, array_agg(l_partkey) a "
+                    "from lineitem group by l_orderkey)",
+    "ct_unnest": "select count(*), sum(e), sum(o), max(o) from (select l_orderkey, "
+                 "array_agg(l_partkey) a from lineitem group by l_orderkey) cross join "
+                 "unnest(a) with ordinality as u(e, o)",
+    "ct_words": "select w, count(*) c from part cross join unnest(split(p_name, ' ')) as u(w) "
+                "group by w order by c desc, w limit 10",
+    "ct_histogram": "select histogram(l_shipmode) from lineitem",
+    "ct_histogram_by": "select l_returnflag, histogram(l_linenumber) from lineitem "
+                       "group by 1 order by 1",
+    "ct_map_agg": "select map_agg(l_returnflag, c), cardinality(map_agg(l_returnflag, c)) "
+                  "from (select l_returnflag, count(*) c from lineitem group by 1)",
+    "ct_row_ops": "select sum(case when contains(array[1, 5, 7], l_linenumber) then 1 else 0 "
+                  "end), sum(array[l_partkey, l_suppkey][2]), "
+                  "sum(map(array['A','N','R'], array[1,2,3])[l_returnflag]), "
+                  "sum(cast(row(l_partkey, l_suppkey) as row(x bigint, y bigint)).x) "
+                  "from lineitem",
+    "ct_lambdas": "select count(*), sum(array_sum(transform(a, x -> x * 2))), "
+                  "sum(cardinality(filter(a, x -> x % 2 = 0))), "
+                  "sum(case when any_match(a, x -> x > 100000) then 1 else 0 end), "
+                  "sum(reduce(a, 0, (s, x) -> s + x, s -> s)) from (select l_orderkey, "
+                  "array_agg(l_partkey) a from lineitem group by l_orderkey)",
+}
 
 
 def _spill_sql() -> dict:
@@ -483,6 +535,22 @@ DT_REQUIRED = {
     "agg_tail_flags": ("expr_eval:mix64", "packed_group_agg:checksum", "packed_group_agg:min_by",
                        "packed_fold_finalize:min_by_fold"),
 }
+CT_REQUIRED = {
+    "ct_array_agg": ("sorted_group_agg", "group_collect", "group_collect:merge",
+                     "container_eval:card", "container_eval:reduce",
+                     "container_eval:subscript"),
+    "ct_unnest": ("group_collect", "unnest_expand", _GROUPED),
+    "ct_words": ("container_eval:table", "unnest_expand", _GROUPED),
+    "ct_histogram": ("group_collect", _GROUPED),
+    "ct_histogram_by": ("group_collect", "sorted_group_agg"),
+    "ct_map_agg": ("group_collect", "container_eval:card"),
+    "ct_row_ops": ("container_eval:construct", "container_eval:contains",
+                   "container_eval:subscript", "container_eval:construct_map",
+                   "container_eval:map_get", "container_eval:row_field", "expr_eval"),
+    "ct_lambdas": ("group_collect", "unnest_expand", "container_eval:assemble",
+                   "container_eval:compact", "container_eval:match", "container_eval:slot",
+                   "container_eval:reduce"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -537,7 +605,36 @@ REPLACES = {
     "sorted_group_agg@min_by_merge": "presto_tpu/ops/aggregate.py:1151",
     "packed_fold_finalize@tail_fold": "presto_tpu/ops/aggregate.py:870",
     "packed_fold_finalize@tail_finalize": "presto_tpu/ops/aggregate.py:1447",
+    "container_eval": "presto_tpu/expr/compile.py:1806",
+    "container_eval@construct": "presto_tpu/ops/container.py:235",
+    "container_eval@subscript": "presto_tpu/ops/container.py:252",
+    "container_eval@contains": "presto_tpu/ops/container.py:283",
+    "container_eval@map_get": "presto_tpu/ops/container.py:268",
+    "container_eval@row_field": "presto_tpu/ops/container.py:179",
+    "container_eval@card": "presto_tpu/ops/container.py:279",
+    "container_eval@reduce": "presto_tpu/ops/container.py:299",
+    "container_eval@sort": "presto_tpu/ops/container.py:320",
+    "container_eval@table": "presto_tpu/expr/compile.py:1476",
+    "container_eval@assemble": "presto_tpu/expr/compile.py:2284",
+    "container_eval@compact": "presto_tpu/expr/compile.py:2284",
+    "container_eval@match": "presto_tpu/expr/compile.py:2284",
+    "container_eval@slot": "presto_tpu/expr/compile.py:2238",
+    "unnest_expand": "presto_tpu/ops/container.py:472",
+    "group_collect": "presto_tpu/ops/aggregate.py:640",
+    "group_collect@merge": "presto_tpu/ops/aggregate.py:1185",
 }
+
+
+def release_host_memory() -> None:
+    """Collect garbage and hand freed heap pages back to the system, so
+    the later CPU row checks (TPC-DS q47's at SF10 most) find the room."""
+    import ctypes
+
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
 
 
 def log(msg: str) -> None:
@@ -2458,6 +2555,287 @@ def check_tail_kernels(report: KernelReport, mem) -> None:
     log(f"{name}: skewness {gap} ulp from its plain version")
 
 
+def container_sweep(device) -> int:
+    """Every K12 opcode (over int64, double and int32 storage), K13 and
+    K14 against their twins on the card, bit for bit, over seeded slot
+    matrices of 2^20 rows: NULL elements and containers, empty arrays,
+    +-inf, extremes, duplicate keys.  Returns the checks made."""
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import group_collect as k14
+    from presto_tpu_torch.kernels import unnest_expand as k13
+
+    g = torch.Generator().manual_seed(10)
+    n, m = 1 << 20, 8
+
+    def mat(dtype):
+        lens = torch.randint(0, m + 1, (n,), generator=g)
+        s = torch.randint(-4, 5, (n, m), generator=g).to(dtype)
+        if dtype.is_floating_point:
+            s[torch.rand((n, m), generator=g) < 0.05] = float("inf")
+        else:
+            s[torch.rand((n, m), generator=g) < 0.05] = torch.iinfo(dtype).max
+        s[torch.rand((n, m), generator=g) < 0.1] = k12.sentinel(dtype)
+        j = torch.arange(m)[None, :]
+        s = torch.where(j < lens[:, None], s, torch.full_like(s, k12.sentinel(dtype)))
+        return torch.cat([lens[:, None].to(dtype), s], 1).to(device)
+
+    def rnd(p):
+        return (torch.rand(n, generator=g) < p).to(device)
+
+    checks = 0
+    for dtype in (torch.int64, torch.float64, torch.int32):
+        a, b = mat(dtype), mat(dtype)
+        mp = torch.cat([a, b[:, 1:]], 1).contiguous()
+        av, xv = rnd(0.9), rnd(0.9)
+        x = torch.randint(-3, 10, (n,), generator=g).to(device)
+        rm = rnd(0.9)
+        outs = k13.unnest_expand(rm, [(a, av, m, [(1, dtype)])], [(x, xv)], True)
+        off, total = outs[4], outs[3]
+        yb = (torch.rand(max(total, 1), generator=g) < 0.5).to(device)
+        yv = (torch.rand(max(total, 1), generator=g) < 0.9).to(device)
+        yd = torch.randint(-5, 5, (max(total, 1),), generator=g).to(dtype).to(device)
+        y2 = torch.stack([x.to(dtype), (x * 3).to(dtype)], 1).contiguous()
+        y2v = torch.stack([xv, av], 1).contiguous()
+        cases = [
+            dict(op=k12.CARD, a=a, av=av), dict(op=k12.SUBSCRIPT, a=a, av=av, x=x, xv=xv),
+            dict(op=k12.MAP_GET, a=mp, av=av, x=x, xv=xv, p=[0, 0, 0, 0, 0, m]),
+            dict(op=k12.CONTAINS, a=a, av=av, x=x, xv=xv),
+            dict(op=k12.POSITION, a=a, av=av, x=x, xv=xv),
+            dict(op=k12.SORT, a=a), dict(op=k12.DISTINCT, a=a),
+            dict(op=k12.SLICE, a=a, p=[-3, 2]), dict(op=k12.SLICE, a=a, p=[2, 9]),
+            dict(op=k12.COERCE, a=a, out_dtype=torch.float64, p=[0, 0, 0, 0, 0, m]),
+            dict(op=k12.COERCE, a=a, out_dtype=torch.int64, p=[k12.C_UP, 100, 0, 0, 0, m]),
+            dict(op=k12.COERCE, a=mp, out_dtype=torch.float64,
+                 p=[k12.C_ASTYPE, 0, k12.C_DEC2DBL, k12.double_bits(100.0), 1, m]),
+            dict(op=k12.CONCAT, a=a, b=b, out_m=2 * m),
+            dict(op=k12.MAP_HALF, a=mp, out_dtype=torch.float64, p=[1, 0, 0, 0, 0, m]),
+            dict(op=k12.CONSTRUCT, y=y2, yv=y2v, out_m=m, p=[1]),
+            dict(op=k12.CONSTRUCT, y=y2, yv=y2v, out_m=2, p=[0]),
+            dict(op=k12.CONSTRUCT_MAP, a=a, b=b, out_m=m),
+            dict(op=k12.ROW_FIELD, a=a, av=av, p=[3]),
+            dict(op=k12.COMPACT, a=a, y=yb, yv=yv, off=off, out_m=m),
+            dict(op=k12.COMPACT_PAIRS, a=mp, y=yb, yv=yv, off=off, out_m=m,
+                 p=[0, 0, 0, 0, 0, m]),
+            dict(op=k12.SETOP, a=a, b=b, c=a, out_m=m, p=[k12.S_INTERSECT]),
+            dict(op=k12.SETOP, a=a, b=b, c=a, out_m=m, p=[k12.S_EXCEPT]),
+            dict(op=k12.OVERLAP, a=a, av=av, b=b, bv=xv, c=a),
+            dict(op=k12.REMOVE, a=a, av=av, x=x, xv=xv),
+            dict(op=k12.MAP_CONCAT, a=mp, b=mp.flip(0).contiguous(), out_m=m,
+                 p=[0, 0, 0, 0, m, m]),
+            dict(op=k12.TKEYS, a=mp, y=yd, yv=yv, off=off, out_m=m, p=[0, 0, 0, 0, 0, m]),
+            dict(op=k12.SEQUENCE, x=x, out_m=5, out_dtype=torch.int64, p=[3, -2]),
+            dict(op=k12.REPEAT, x=x, xv=xv, out_m=4, out_dtype=dtype, p=[3]),
+            dict(op=k12.ASSEMBLE, y=yd, yv=yv, off=off, out_m=m),
+            dict(op=k12.ASSEMBLE, a=mp, y=yd, yv=yv, off=off, out_m=m,
+                 p=[1, k12._KIND[dtype]]),
+            dict(op=k12.MATCH, av=av, y=yb, yv=yv, off=off, p=[k12.M_ALL, m]),
+            dict(op=k12.SLOT, a=a, p=[2]),
+            dict(op=k12.TABLE, a=b[:1000].contiguous(), x=x.abs(), xv=xv),
+        ] + [dict(op=k12.REDUCE, a=a, av=av, p=[r]) for r in range(4)]
+        for kw in cases:
+            got = k12.container_eval(**kw)
+            same_bits(got, _k12_plain(kw), f"container_eval {k12.OP_NAMES[kw['op']]} {dtype}")
+            checks += 1
+        want = k13.unnest_expand_plain(rm, [(a, av, m, [(1, dtype)])], [(x, xv)], True)
+        same_bits([t for c in outs[0] + outs[1] for t in c] + [outs[2], outs[4]],
+                  [t for c in want[0] + want[1] for t in c] + [want[2], want[4]],
+                  f"unnest_expand {dtype}")
+        gid = torch.sort(torch.randint(0, n // 5, (n,), generator=g)).values
+        starts = torch.searchsorted(gid, torch.arange(n // 5 + 1)).to(device)
+        order = torch.randperm(n, generator=g).to(device)
+        for halves in ([(x, xv)], [(x, rm), (a[:, 1].contiguous(), xv)]):
+            same_bits(k14.group_collect(order, starts, rm, halves, 16, dtype),
+                      k14.group_collect_plain(order, starts, rm, halves, 16, dtype),
+                      f"group_collect {dtype}")
+        parts = torch.cat([torch.clamp(a[:, :1], max=8), a[:, 1:]], 1).contiguous()
+        same_bits(k14.group_collect_merge(order, starts, rm, parts, 8),
+                  k14.group_collect_merge_plain(order, starts, rm, parts, 8),
+                  f"group_collect_merge {dtype}")
+        checks += 4
+    return checks
+
+
+def _k12_plain(kw):
+    from presto_tpu_torch.kernels import container_eval as k12
+
+    pp = list(kw.get("p", [])) + [0] * (6 - len(kw.get("p", [])))
+    return k12.plain(kw["op"], kw.get("a"), kw.get("av"), kw.get("b"), kw.get("bv"),
+                     kw.get("c"), kw.get("x"), kw.get("xv"), kw.get("y"), kw.get("yv"),
+                     kw.get("off"), kw.get("out_m", 0), kw.get("out_dtype"), pp)
+
+
+def check_container_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the tenth slice: :func:`container_sweep` (every opcode,
+    exact), then the kernels at the main path's shapes, each against its
+    twin (bit for bit) and timed: K12's per-row opcodes over a whole
+    2^23-row lineitem split (ct_row_ops' array construction, subscript,
+    contains, map lookup and ROW field), over part's p_name codes
+    (split's table) and over 2^22 of the 15M arrays ct_array_agg builds
+    (cardinality, array_sum, array_sort, reduce's slot, and the lambdas'
+    assembly, compaction and match over K13's flattening); K13 over the
+    same arrays WITH ORDINALITY; K14's collect over the split grouped by
+    l_orderkey (K6's runs) and its merge of two splits' partials."""
+    from presto_tpu_torch.expr.containers import split_parts
+    from presto_tpu_torch.expr.ir import AggCall, ColumnRef
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import group_collect as k14
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.kernels import unnest_expand as k13
+    from presto_tpu_torch.ops.aggregate import grouped_aggregate
+    from presto_tpu_torch.ops.join import key_columns
+    from presto_tpu_torch.page import concat_pages_device
+    from presto_tpu_torch.runner import QueryRunner
+    from presto_tpu_torch.types import parse_type
+
+    t0 = time.perf_counter()
+    log(f"container sweep: {container_sweep(mem.device)} checks equal their twins")
+    page = mem.page_for_split("lineitem", 0)
+    names = [c for c, _ in mem.schema("lineitem")]
+    n = page.capacity
+    dev = page.device
+
+    def col(c):
+        b = page.blocks[names.index(c)]
+        return b.data, b.valid
+
+    def row(name, kw, library=None, reads=None):
+        """One K12 row; ``reads``: the bytes of the containers the opcode
+        must read, where it reads only some of their slots (else every
+        input counts whole)."""
+        got = k12.container_eval(**kw)
+        err = same_bits(got, _k12_plain(kw), name)
+        keys = ("av", "b", "bv", "c", "x", "xv", "y", "yv", "off")
+        ins = [kw.get(k) for k in keys + (() if reads is not None else ("a",))]
+        outs = got if isinstance(got, tuple) else (got,)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/container_eval.cu", err,
+                   cuda_ms(lambda: k12.container_eval(**kw), 10),
+                   cuda_ms(lambda: _k12_plain(kw), 2),
+                   nbytes(*ins) + nbytes(*outs) + (reads or 0),
+                   cuda_ms(library, 10) if library is not None else None,
+                   f"container_eval:{k12.OP_NAMES[kw['op']]}")
+        return got
+
+    # ct_row_ops' per-row work over the split
+    pk_, pkv = col("l_partkey")
+    sk, skv = col("l_suppkey")
+    ln, lnv = col("l_linenumber")
+    rf, rfv = col("l_returnflag")
+    y = torch.stack([pk_.to(torch.int64), sk.to(torch.int64)], 1).contiguous()
+    yv = torch.stack([pkv, skv], 1).contiguous()
+    arr2 = row("container_eval@construct", dict(op=k12.CONSTRUCT, y=y, yv=yv, out_m=2, p=[1]))
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    two = torch.full((n,), 2, dtype=torch.int64, device=dev)
+    row("container_eval@subscript", dict(op=k12.SUBSCRIPT, a=arr2, av=ones, x=two, xv=ones),
+        library=lambda: torch.gather(arr2, 1, two[:, None]), reads=16 * n)  # length, slot
+    lits = torch.tensor([3, 1, 5, 7], dtype=torch.int64, device=dev)
+    const = lits[None, :].expand(n, 4).contiguous()
+    row("container_eval@contains", dict(op=k12.CONTAINS, a=const, av=ones, x=ln, xv=lnv),
+        library=lambda: torch.isin(ln, lits[1:]))
+    mp = torch.tensor([3, 0, 1, 2, 1, 2, 3], dtype=torch.int64,
+                      device=dev)[None, :].expand(n, 7).contiguous()
+    row("container_eval@map_get", dict(op=k12.MAP_GET, a=mp, av=ones, x=rf, xv=rfv,
+                                       p=[0, 0, 0, 0, 0, 3]), reads=40 * n)  # length, keys, value
+    row("container_eval@row_field", dict(op=k12.ROW_FIELD, a=y, av=ones, p=[0]), reads=8 * n)
+    # split's table over part's p_name codes
+    part = mem.page_for_split("part", 0)
+    pname = part.blocks[[c for c, _ in mem.schema("part")].index("p_name")]
+    t1 = time.perf_counter()
+    _, table_np = split_parts(pname.dictionary, " ", 8)
+    log(f"split's parts table over p_name's {len(pname.dictionary)} values built on the host "
+        f"in {time.perf_counter() - t1:.2f} s (ct_words' first run pays it; later runs, and "
+        f"ct_words here, find it cached)")
+    table = torch.from_numpy(table_np).to(torch.int64).to(dev)
+    codes = pname.data.to(torch.int64)
+    row("container_eval@table", dict(op=k12.TABLE, a=table, x=pname.data, xv=pname.valid),
+        library=lambda: torch.index_select(table, 0, codes))
+    # the arrays ct_array_agg builds (the first 2^22 of them)
+    sql = "select l_orderkey, array_agg(l_partkey) a from lineitem group by l_orderkey"
+    runner = QueryRunner(query_catalog(mem, sql), device="cuda")
+    agg = runner.executor.run_to_page(runner.plan(sql))
+    cut = min(1 << 22, agg.capacity)
+    arrs = agg.blocks[1].data[:cut].contiguous()
+    av = agg.blocks[1].valid[:cut] & agg.row_mask[:cut]
+    okeys = (agg.blocks[0].data[:cut].contiguous(), agg.blocks[0].valid[:cut].contiguous())
+    log(f"ct_array_agg's arrays: {agg.capacity} groups, state {tuple(agg.blocks[1].data.shape)}"
+        f" {agg.blocks[1].data.dtype}; the checks take the first {cut}")
+    # the slots an opcode must read: the lengths, and the live elements
+    live = 8 * (cut + int(torch.clamp(k12.lengths(arrs), max=64).sum()))
+    row("container_eval@card", dict(op=k12.CARD, a=arrs, av=av), reads=8 * cut)
+    row("container_eval@reduce", dict(op=k12.REDUCE, a=arrs, av=av, p=[k12.R_SUM]), reads=live)
+    row("container_eval@sort", dict(op=k12.SORT, a=arrs),
+        library=lambda: torch.sort(arrs[:, 1:], dim=1), reads=live)
+    row("container_eval@slot", dict(op=k12.SLOT, a=arrs, p=[1]), reads=16 * cut)
+    args = [(arrs, av, 64, [(1, torch.int64)])]
+    got = k13.unnest_expand(av, args, [okeys], True)
+    want = k13.unnest_expand_plain(av, args, [okeys], True)
+    err = same_bits([t for c in got[0] + got[1] for t in c] + [got[2], got[4]],
+                    [t for c in want[0] + want[1] for t in c] + [want[2], want[4]],
+                    "unnest_expand")
+    total, off = got[3], got[4]
+    counts = off[1:] - off[:-1]
+    # the bound: the length slots, validity and keys read once, each
+    # element read once, the rows' key, element and ordinality (and
+    # their validity) written once, the offsets
+    moved = nbytes(arrs[:, 0], av, *okeys) + total * (8 + 3 * 8 + 3) + off.numel() * 8
+    report.add("unnest_expand", "cuda", "presto_tpu_torch/csrc/unnest_expand.cu", err,
+               cuda_ms(lambda: k13.unnest_expand(av, args, [okeys], True), 5),
+               cuda_ms(lambda: k13.unnest_expand_plain(av, args, [okeys], True), 2), moved,
+               cuda_ms(lambda: torch.repeat_interleave(okeys[0], counts), 5), "unnest_expand")
+    log(f"unnest_expand: {cut} arrays to {total} rows")
+    (ed, ev), = got[1]
+    yd = ed * 2
+    yb = (ed % 2) == 0
+    row("container_eval@assemble", dict(op=k12.ASSEMBLE, y=yd, yv=ev, off=off, out_m=64))
+    row("container_eval@compact", dict(op=k12.COMPACT, a=arrs, y=yb, yv=ev, off=off,
+                                       out_m=64), reads=live)
+    row("container_eval@match", dict(op=k12.MATCH, av=av, y=yb, yv=ev, off=off,
+                                     p=[k12.M_ANY, 64]))
+    del agg, arrs, got, want, ed, ev, yd, yb, runner
+    # K14: the split grouped by l_orderkey, then two splits' partials merged
+    okey = ColumnRef(type=parse_type("bigint"), index=names.index("l_orderkey"))
+    keys = key_columns(page, [okey], [None])
+    _, _, groups, (order, starts) = k6.sorted_group_agg(keys, page.row_mask,
+                                                        [(k6.S_ONE, None, None)], runs=True)
+    halves = [col("l_partkey")]
+    got = k14.group_collect(order, starts, page.row_mask, halves, 64, torch.int64)
+    err = same_bits(got, k14.group_collect_plain(order, starts, page.row_mask, halves, 64,
+                                                 torch.int64), "group_collect")
+    live = int(starts[-1])
+    gidx = torch.repeat_interleave(torch.arange(groups, device=dev), starts[1:] - starts[:-1])
+    rank = torch.arange(live, device=dev) - starts[:-1][gidx]
+    vals = halves[0][0][order[:live]].to(torch.int64)
+    table64 = torch.empty_like(got)
+    report.add("group_collect", "cuda", "presto_tpu_torch/csrc/group_collect.cu", err,
+               cuda_ms(lambda: k14.group_collect(order, starts, page.row_mask, halves, 64,
+                                                 torch.int64), 10),
+               cuda_ms(lambda: k14.group_collect_plain(order, starts, page.row_mask, halves, 64,
+                                                       torch.int64), 2),
+               nbytes(order, starts, page.row_mask, *halves[0], got),
+               cuda_ms(lambda: table64.index_put_((gidx, 1 + rank), vals), 10), "group_collect")
+    acall = AggCall(fn="array_agg", arg=ColumnRef(type=parse_type("bigint"),
+                                                  index=names.index("l_partkey")),
+                    type=parse_type("array(bigint, 64)"))
+    parts = [grouped_aggregate(mem.page_for_split("lineitem", i), [okey], [acall], 1 << 14,
+                               key_domains=[None], mode="partial") for i in (0, 1)]
+    cat = concat_pages_device(parts)
+    mkeys = key_columns(cat, [ColumnRef(type=okey.type, index=0)], [None])
+    _, _, _, (morder, mstarts) = k6.sorted_group_agg(mkeys, cat.row_mask, [], runs=True)
+    pm = cat.blocks[1].data
+    got = k14.group_collect_merge(morder, mstarts, cat.row_mask, pm, 64)
+    err = same_bits(got, k14.group_collect_merge_plain(morder, mstarts, cat.row_mask, pm, 64),
+                    "group_collect_merge")
+    elements = int(torch.clamp(pm[:, 0], min=0).sum())
+    report.add("group_collect@merge", "cuda", "presto_tpu_torch/csrc/group_collect.cu", err,
+               cuda_ms(lambda: k14.group_collect_merge(morder, mstarts, cat.row_mask, pm, 64),
+                       10),
+               cuda_ms(lambda: k14.group_collect_merge_plain(morder, mstarts, cat.row_mask, pm,
+                                                             64), 2),
+               nbytes(morder, mstarts, cat.row_mask, pm[:, 0], got) + 8 * elements, None,
+               "group_collect:merge")
+    log(f"group_collect: {groups} groups in split 0; merge of {cat.capacity} partial rows; "
+        f"the container checks took {time.perf_counter() - t0:.1f} s")
+
+
 def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
     (a transcendental's doubles) within a relative 1e-12; ``where``
@@ -2522,15 +2900,17 @@ def profile_query(runner, sql: str) -> str:
 
 def counters():
     from presto_tpu_torch.kernels import (
-        expr_eval, join_build, join_expand, join_probe, keys, packed_fold_finalize,
-        packed_group_agg, sorted_group_agg, spill_partition, topn, window_eval,
+        container_eval, expr_eval, group_collect, join_build, join_expand, join_probe, keys,
+        packed_fold_finalize, packed_group_agg, sorted_group_agg, spill_partition, topn,
+        unnest_expand, window_eval,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
             "packed_fold_finalize": packed_fold_finalize, "join_build": join_build,
             "join_probe": join_probe, "sorted_group_agg": sorted_group_agg, "topn": topn,
             "join_expand": join_expand, "hash_keys": keys, "window_eval": window_eval,
-            "spill_partition": spill_partition}
+            "spill_partition": spill_partition, "container_eval": container_eval,
+            "unnest_expand": unnest_expand, "group_collect": group_collect}
 
 
 # counters of one kind of launch: (kernel, attribute, name in the counts)
@@ -2553,13 +2933,14 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("packed_fold_finalize", "variance_launches", "packed_fold_finalize:variance"),
               ("hash_keys", "double_launches", "hash_keys:double"),
               ("spill_partition", "gather_launches", "spill_partition:gather"),
-              ("join_build", "null_flags_launches", "join_build:null_flags"))
+              ("join_build", "null_flags_launches", "join_build:null_flags"),
+              ("group_collect", "merge_launches", "group_collect:merge"))
 
 
 # kernels that count their launches by kind in a dict, by its attribute
 KIND_DICTS = (("join_probe", "kind_launches"), ("expr_eval", "op_launches"),
               ("packed_group_agg", "kind_launches"), ("sorted_group_agg", "kind_launches"),
-              ("packed_fold_finalize", "kind_launches"))
+              ("packed_fold_finalize", "kind_launches"), ("container_eval", "op_launches"))
 
 
 def reset_counts() -> None:
@@ -2731,6 +3112,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"tables on the card in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # the SF10 TPC-H tables live on the card from here on: their host
+    # copy leaves, for the CPU row checks' room (the machine has 96 GiB)
+    del host
+    release_host_memory()
     torch.cuda.reset_peak_memory_stats()
     catalog = Catalog()
     catalog.register("tpch", mem)
@@ -2759,6 +3144,9 @@ def main() -> int:
     check_spill_kernels(report, mem, mem_ds)
     check_function_kernels(report, mem)
     check_tail_kernels(report, mem)
+    check_container_kernels(report, mem)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     log(f"phase 3 done at {time.perf_counter() - t_all:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2795,6 +3183,15 @@ def main() -> int:
     drive(dt_runners, DT_QUERIES, DT_REQUIRED, reps=2, trace=False)
     del dt_runners
     log(f"dates and aggregate tail phase done at {time.perf_counter() - t_all:.1f} s")
+    # the containers phase over the same tables (split's parts table over
+    # p_name's dictionary was built, and timed, in phase 3)
+    ct_runners = {label: QueryRunner(query_catalog(mem, sql), device="cuda")
+                  for label, sql in CT_QUERIES.items()}
+    drive(ct_runners, CT_QUERIES, CT_REQUIRED, reps=2, trace=False)
+    del ct_runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"containers phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -2860,7 +3257,7 @@ def main() -> int:
         check_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref, may_be_empty)
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
-    for label, sql in {**FN_QUERIES, **DT_QUERIES}.items():
+    for label, sql in {**FN_QUERIES, **DT_QUERIES, **CT_QUERIES}.items():
         t1 = time.perf_counter()
         got = QueryRunner(query_catalog(mem_check, sql), device="cuda").execute(sql)
         ref = QueryRunner(query_catalog(host_check, sql), device="cpu").execute(sql)
@@ -2869,8 +3266,8 @@ def main() -> int:
             f"({time.perf_counter() - t1:.1f} s)")
     # the host's tables leave as their checks end: the CPU runs of the
     # TPC-DS checks need the room (q47's at SF10 most)
-    del host, host_check, mem_check, cat_check
-    gc.collect()
+    del host_check, mem_check, cat_check
+    release_host_memory()
     # the sixth and seventh slices at DS_CHECK_SF: the card runs their
     # queries again over those tables, the CPU once
     for label, sql in {**DS2_QUERIES, **DS3_QUERIES}.items():
@@ -2907,11 +3304,11 @@ def main() -> int:
         log(f"{label}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
-    for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(DS_QUERIES) \
-            + list(DS2_QUERIES) + list(DS3_QUERIES):
+    for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(CT_QUERIES) \
+            + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
-            or label in DT_QUERIES else (
+            or label in DT_QUERIES or label in CT_QUERIES else (
             "store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows

@@ -1,6 +1,7 @@
-// Column gathers shared by the join probes (K5, K8): each column is a
-// data array of 1-, 4-, 8- or 16-byte elements (16: two int64 limbs)
-// and a byte validity array.
+// Column gathers shared by the join probes (K5, K8) and the spill's
+// gather (K11): each column is a data array of 1-, 4- or 8-byte
+// elements, or of wider rows (two int64 limbs, a container's slots)
+// copied in 8-, 4- or 1-byte words, and a byte validity array.
 #pragma once
 
 #include "common.cuh"
@@ -13,7 +14,7 @@ struct GatherCols {
   const uint8_t* src_valid[GATHER_MAX_COLS];
   uint8_t* dst[GATHER_MAX_COLS];
   uint8_t* dst_valid[GATHER_MAX_COLS];
-  int width[GATHER_MAX_COLS];  // bytes per element: 1, 4, 8 or 16
+  int width[GATHER_MAX_COLS];  // bytes per element (a row of a matrix)
 };
 
 __device__ __forceinline__ void copy_elem(const uint8_t* src, uint8_t* dst, int width,
@@ -23,8 +24,17 @@ __device__ __forceinline__ void copy_elem(const uint8_t* src, uint8_t* dst, int 
     case 4: ((int*)dst)[to] = keep ? ((const int*)src)[from] : 0; break;
     case 8: ((i64*)dst)[to] = keep ? ((const i64*)src)[from] : 0; break;
     default:
-      ((i64*)dst)[2 * to] = keep ? ((const i64*)src)[2 * from] : 0;
-      ((i64*)dst)[2 * to + 1] = keep ? ((const i64*)src)[2 * from + 1] : 0;
+      if ((width & 7) == 0) {
+        const int k = width >> 3;
+        for (int w = 0; w < k; ++w)
+          ((i64*)dst)[k * to + w] = keep ? ((const i64*)src)[k * from + w] : 0;
+      } else if ((width & 3) == 0) {
+        const int k = width >> 2;
+        for (int w = 0; w < k; ++w)
+          ((int*)dst)[k * to + w] = keep ? ((const int*)src)[k * from + w] : 0;
+      } else {
+        for (int w = 0; w < width; ++w) dst[width * to + w] = keep ? src[width * from + w] : 0;
+      }
   }
 }
 
@@ -44,6 +54,7 @@ static inline int fill_gather_cols(GatherCols* cols, int n, const i64* src,
   if (n < 0 || n > GATHER_MAX_COLS) return 1;
   cols->n = n;
   for (int c = 0; c < n; ++c) {
+    if (width[c] < 1) return 1;
     cols->src[c] = (const uint8_t*)src[c];
     cols->src_valid[c] = (const uint8_t*)src_valid[c];
     cols->dst[c] = (uint8_t*)dst[c];

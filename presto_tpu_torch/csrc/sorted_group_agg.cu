@@ -381,6 +381,28 @@ extern "C" int k6_group_heads(const void* sorted_keys, i64 n, void* scan, void* 
   return (int)cudaGetLastError();
 }
 
+// The run of each group: starts[g] = the first sorted position of group
+// g, starts[groups] = the live positions' count (dead rows sort last, on
+// the sentinel key).  starts: groups + 1 int64.
+static __global__ void k6_starts(const i64* __restrict__ sk, i64 n, const int* __restrict__ scan,
+                                 i64 groups, i64* __restrict__ starts) {
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+    if (scan[p + 1] != scan[p]) starts[scan[p]] = p;
+    if (sk[p] != I64_MAX && (p + 1 == n || sk[p + 1] == I64_MAX)) starts[groups] = p + 1;
+  }
+}
+
+extern "C" int k6_run_starts(const void* sorted_keys, i64 n, const void* scan, i64 groups,
+                             void* starts, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(starts, 0, (size_t)(groups + 1) * sizeof(i64), s);
+  if (n > 0)
+    k6_starts<<<grid_for(n, 256, 8), 256, 0, s>>>((const i64*)sorted_keys, n,
+                                                   (const int*)scan, groups, (i64*)starts);
+  return (int)cudaGetLastError();
+}
+
 // Per-group states of `groups` groups.  raw: groups * raw_width int64
 // of scratch.  Key columns gather into key_dst (groups elements of
 // key_width bytes); state s writes out[s].

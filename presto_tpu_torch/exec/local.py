@@ -25,8 +25,10 @@ SYSTEM (whole splits by a split hash) and BERNOULLI (a per-row hash
 mask on the device), VALUES, a
 precomputed page, UNION ALL (each leg's pages with their dictionary
 codes moved into the union's merged dictionaries), GroupId (each page
-once per grouping set, streamed), and global, packed-direct, sort-path
-or streaming (presorted) aggregation over exact or hashed keys.  Other
+once per grouping set, streamed; a keyless set's grand-total row where
+no group came, the reference's ``_groupid_empty_fixup``), UNNEST (K13
+per page), and global, packed-direct, sort-path or streaming
+(presorted) aggregation over exact or hashed keys.  Other
 plan nodes raise :class:`NotPorted`.  PyTorch runs eagerly, so there are no
 compiled-program caches and no capacity buckets: the sort path and the
 expanding probe size their outputs from the count they find, so
@@ -64,6 +66,7 @@ from presto_tpu_torch.memory import ExceededMemoryLimitError, QueryMemoryContext
 from presto_tpu_torch.ops.aggregate import (
     combine_packed_states, finalize_packed, grouped_aggregate, merge_aggregate, takes_sort_path,
 )
+from presto_tpu_torch.ops.container import unnest_page
 from presto_tpu_torch.ops.filter_project import filter_page, project_page
 from presto_tpu_torch.ops.join import (
     JoinBuild, build_join, build_null_flags, outer_build_tail, probe_expand, probe_join,
@@ -89,6 +92,7 @@ from presto_tpu_torch.planner.plan import (
     TableScanNode,
     TopNNode,
     UnionNode,
+    UnnestNode,
     ValuesNode,
     WindowNode,
 )
@@ -108,6 +112,43 @@ class MaterializedResult:
 
     def __iter__(self):
         return iter(self.rows)
+
+
+def _expr_columns(exprs) -> set:
+    """The input columns ``exprs`` read (lambda bodies included)."""
+    from presto_tpu_torch.expr.containers import _column_refs
+
+    out: set = set()
+    for e in exprs:
+        if e is not None:
+            out.update(_column_refs(e))
+    return out
+
+
+def _leaf_columns_read(node: PlanNode, leaf: PlanNode) -> Optional[set]:
+    """The output columns of a chain's ``leaf`` that the chain from
+    ``node`` down to it reads (None: every column, as when the leaf
+    itself is the chain's top): an UNNEST replicates only those, so an
+    aggregated array column that the query no longer reads is not
+    copied once per element."""
+    needed: Optional[set] = None
+    cur = node
+    while cur is not leaf:
+        if isinstance(cur, ProjectNode):
+            needed = _expr_columns(cur.projections)
+        elif isinstance(cur, FilterNode):
+            needed = None if needed is None else needed | _expr_columns([cur.predicate])
+        elif isinstance(cur, AggregationNode):
+            needed = _expr_columns(list(cur.group_exprs) + [x for a in cur.aggs for x in (
+                a.arg, a.arg2, a.arg3, a.filter)])
+        elif isinstance(cur, (JoinNode, CrossSingleNode)):
+            width = len(cur.left.channels)
+            keys = _expr_columns(cur.left_keys) if isinstance(cur, JoinNode) else set()
+            needed = None if needed is None else {i for i in needed if i < width} | keys
+        else:
+            return None
+        cur = cur.sources[0]
+    return needed
 
 
 def _values_columns(node: ValuesNode):
@@ -199,6 +240,8 @@ class LocalRunner:
         self.spill_partitions = spill_partitions
         self.stats: Optional[QueryStats] = None
         self._partial_nodes: Dict[PlanNode, AggregationNode] = {}
+        # an UNNEST leaf's output columns its chain reads (None: all)
+        self._unnest_needed: Dict[PlanNode, Optional[set]] = {}
         # join builds of the running query, by join node
         self._builds: Dict[PlanNode, JoinBuild] = {}
         # streaming joins demoted to the partitioned path (their build
@@ -314,6 +357,14 @@ class LocalRunner:
         if isinstance(node, GroupIdNode):
             yield from self._groupid_pages(node)
             return
+        if isinstance(node, UnnestNode):
+            # each source page expanded to one row per element (K13);
+            # a lateral WHERE is the FilterNode above
+            chans = node.channels
+            needed = self._unnest_needed.pop(node, None)
+            for p in self._pages(node.source):
+                yield unnest_page(p, list(node.unnest_exprs), node.ordinality, chans, needed)
+            return
         if isinstance(node, AggregationNode) and node.step in ("single", "final"):
             yield self._run_aggregation(node)
             return
@@ -355,7 +406,10 @@ class LocalRunner:
             yield from self._pages_impl(node)
             return
         mem = self._mem
-        for page in self._source_pages(self._chain_leaf(node)):
+        leaf = self._chain_leaf(node)
+        if isinstance(leaf, UnnestNode):
+            self._unnest_needed[leaf] = _leaf_columns_read(node, leaf)
+        for page in self._source_pages(leaf):
             # soft: an in-flight split cannot spill; the split size
             # bounds it, not the pool
             tag = mem.reserve("scan_page", page_bytes(page), enforce=False) \
@@ -693,11 +747,41 @@ class LocalRunner:
         if node.step == "final":
             raise NotPorted("final aggregation over exchanged partial states")
         try:
-            return self._aggregate(node, self._pages(self.partial_node(node)))
+            out = self._aggregate(node, self._pages(self.partial_node(node)))
         except ExceededMemoryLimitError as e:
             if f"agg_accumulator@{id(node)}#" not in e.tag:
                 raise
-        return self._run_aggregation_spilled(node)
+            out = self._run_aggregation_spilled(node)
+        return self._groupid_empty_fixup(node, out)
+
+    def _groupid_empty_fixup(self, node: AggregationNode, out: Page) -> Page:
+        """GROUPING SETS over no input row (the reference's
+        ``_groupid_empty_fixup``): each set with no key (ROLLUP's and
+        CUBE's grand total) still emits its one global row, count 0 and
+        NULL for every other aggregate, where the grouping found no
+        group."""
+        src = node.source
+        if not isinstance(src, GroupIdNode):
+            return out
+        empty_gids = [gid for gid, m in enumerate(src.set_masks) if not any(m)]
+        if not empty_gids or int(out.row_mask.sum()) > 0:
+            return out
+        import numpy as np
+
+        nkeys = len(node.group_exprs) - 1  # the last group expression is $group_id
+        k = len(empty_gids)
+        cols, valids = [], []
+        for i, t in enumerate(node.output_types):
+            if i == nkeys:
+                cols.append(np.asarray(empty_gids, t.np_dtype))
+                valids.append(np.ones(k, np.bool_))
+                continue
+            cols.append(np.zeros((k,) + t.value_shape, t.np_dtype))
+            counts = i > nkeys and node.aggs[i - nkeys - 1].fn in ("count", "count_star")
+            valids.append(np.full(k, counts, np.bool_))
+        return Page.from_arrays(cols, node.output_types, valids=valids,
+                                dictionaries=[c.dictionary for c in node.channels],
+                                device=self.device)
 
     def _run_aggregation_spilled(self, node: AggregationNode) -> Page:
         """Partitioned aggregation: the source rows split by group key

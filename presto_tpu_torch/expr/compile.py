@@ -42,8 +42,10 @@ maps to NULL: length, strpos, codepoint, the JSON sizes, from_base,
 date_parse, from_iso8601_date, the edit distances against a literal,
 CAST of a varchar column to a number, crc32 / xxhash64 of ``to_utf8``;
 the predicates regexp_like, starts_with, ends_with and is_json_scalar
-as boolean tables) and ``try`` (the identity).  Containers and raw
-strings raise by name.
+as boolean tables) and ``try`` (the identity).  An expression that
+involves ARRAY, MAP or ROW values, lambdas or ``split`` goes to the
+container half (``expr/containers.py``: K12, K13, and K1 for the
+scalar parts); raw strings raise by name.
 ``ExprCompiler.compile_key`` also maps a key column's codes to their
 value's representative code where the dictionary repeats a value (the
 reference's ``canonicalize_codes``).
@@ -68,6 +70,8 @@ from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.host_fns import STRING_TRANSFORM_FNS, _json_path_lookup, \
     _levenshtein, _mysql_to_strftime, _string_transform, iso_date_days, \
     mysql_datetime_micros, parse_number_strict, xxh64_signed
+from presto_tpu_torch.expr.containers import CONTAINER_FNS, ContainerCompiler, \
+    container_dictionary, involves_containers
 from presto_tpu_torch.expr.ir import Call, ColumnRef, Expr, Literal
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.page import Dictionary, Page
@@ -142,9 +146,23 @@ def expr_dictionary(e: Expr, dictionaries: Sequence[Optional[Dictionary]]
         return None
     if isinstance(e, Call) and e.fn == "try":
         return expr_dictionary(e.args[0], dictionaries)
+    if isinstance(e, Call) and (e.fn in CONTAINER_FNS or e.type.is_array or e.type.is_map):
+        return container_dictionary(e, dictionaries)
     if isinstance(e, Call):
         raise NotPorted(f"dictionary of string expression {e.fn}")
     return None
+
+
+def literal_array_dictionary(values) -> Dictionary:
+    """Shared dictionary of an all-literal string array
+    (ARRAY['a','b']): codes are positions in the sorted distinct values,
+    cached by content so the planner, the compiler and an unnest's
+    channel resolve to the same dictionary (the reference's
+    ``literal_array_dictionary``)."""
+    key = ("$litarr", tuple(values))
+    if key not in _DERIVED_DICTS:
+        _DERIVED_DICTS[key] = (None, Dictionary(sorted(set(values))), [False])
+    return _DERIVED_DICTS[key][1]
 
 
 def _string_case_branches(e: Call) -> List[Expr]:
@@ -1425,6 +1443,8 @@ class ExprCompiler:
     def lower_key(self, expr: Expr) -> Optional[Tuple[k1.Program, List[int]]]:
         """K1's CANON program of a key column whose dictionary repeats a
         value, and the column it reads; None for any other key."""
+        if involves_containers(expr):
+            return None
         d = expr_dictionary(expr, self.dictionaries) if expr.type.is_string else None
         if d is None or not has_duplicates(d):
             return None
@@ -1443,6 +1463,8 @@ class ExprCompiler:
         if isinstance(expr, ColumnRef):
             i = expr.index
             return lambda page: (page.blocks[i].data, page.blocks[i].valid)
+        if involves_containers(expr):
+            return ContainerCompiler(self).any(expr)
         prog, columns = self.lower(expr)
         return self.run_program(prog, columns)
 
@@ -1477,6 +1499,8 @@ def compile_filter(expr: Expr, page: Page):
     if isinstance(expr, ColumnRef):
         i = expr.index
         return lambda page: page.blocks[i].data & page.blocks[i].valid & page.row_mask
+    if involves_containers(expr):
+        return ContainerCompiler(c).filter(expr)
     prog, columns = c.lower(expr)
     if prog.n_cols == 0:
         keep = prog.ops[0] == k1.LIT and prog.consts[prog.args[0]] != 0

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "presto_tpu_torch"
 KERNELS = ("expr_eval", "packed_group_agg", "packed_fold_finalize", "keys", "join_build",
            "join_probe", "join_expand", "sorted_group_agg", "topn", "window_eval",
-           "spill_partition")
+           "spill_partition", "container_eval", "unnest_expand", "group_collect")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 COMPILE_FLAGS = ARCH + ["-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 LINK_FLAGS = ARCH + ["-shared", "-Xcompiler", "-fPIC"]

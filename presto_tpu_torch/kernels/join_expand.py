@@ -98,9 +98,9 @@ def _widths(cols: Sequence[Column], rows: int, what: str) -> List[int]:
     for data, valid in cols:
         width = data.element_size() * (data.shape[1] if data.dim() == 2 else 1)
         if data.shape[0] != rows or valid.shape != (rows,) or valid.dtype != torch.bool \
-                or width not in (1, 4, 8, 16) or data.dim() > 2:
+                or width < 1 or data.dim() > 2:
             raise ValueError(f"join_expand: {what} columns must be ({rows},) or "
-                             f"({rows}, 2) limbs")
+                             f"({rows}, width)")
         out.append(width)
     return out
 

@@ -122,8 +122,8 @@ def join_probe(keys: Sequence[pk.Key], row_mask: torch.Tensor, sorted_keys: torc
     for data, valid in build_cols:
         width = data.element_size() * (data.shape[1] if data.dim() == 2 else 1)
         if data.shape[0] != cap or valid.shape != (cap,) or valid.dtype != torch.bool \
-                or width not in (1, 4, 8, 16) or data.dim() > 2:
-            raise ValueError("join_probe: build columns must be (cap,) or (cap, 2) limbs")
+                or width < 1 or data.dim() > 2:
+            raise ValueError("join_probe: build columns must be (cap,) or (cap, width)")
         tensors += [data, valid]
         widths.append(width)
         outs.append((torch.empty((n,) + tuple(data.shape[1:]), dtype=data.dtype,

@@ -232,10 +232,14 @@ def _by_plain(states, i, rows, gid, groups):
 
 
 def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
-                           states: Sequence[State], presorted: bool = False):
+                           states: Sequence[State], presorted: bool = False,
+                           runs: bool = False):
     """``(key columns [(data, valid)...], state columns, groups)``; the
     plain version.  A state gives one column, S_VAR and S_VAR_MERGE
-    three, S_MOM and S_MOM_MERGE five."""
+    three, S_MOM and S_MOM_MERGE five.  ``runs``: a fourth item, ``(order,
+    starts)``: the row at each sorted position and the first position of
+    each group's run (``starts[groups]``: the live rows' count), which
+    K14 ``group_collect`` walks."""
     n = row_mask.shape[0]
     key, _ = pk.pack_plain(keys, n, row_mask.device)
     masked = torch.where(row_mask, key, torch.full_like(key, pk.I64_MAX))
@@ -288,6 +292,10 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         acc.index_add_(0, gid, vals)
         outs.append(d128.from_sum_limbs(acc) if kind in (S_LIMBS_SHORT, S_LIMBS_LONG)
                     else acc)
+    if runs:
+        starts = torch.cat([torch.nonzero(first).flatten(),
+                            live.sum().reshape(1)]).to(torch.int64)
+        return key_out, outs, groups, (order, starts)
     return key_out, outs, groups
 
 
@@ -308,7 +316,7 @@ def _extreme_plain(kind, data, valid, rows, gid, groups):
 
 
 def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
-                     states: Sequence[State], presorted: bool = False):
+                     states: Sequence[State], presorted: bool = False, runs: bool = False):
     """Group the live rows of ``row_mask`` by the packed ``keys`` and
     compute ``states`` per group: ``(key columns, state columns,
     groups)``, groups in packed-key order (``presorted``: in page
@@ -328,7 +336,7 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
             raise ValueError("sorted_group_agg: min_by / max_by states come as S_BY_X, "
                              "S_BY_XV, S_BY_Y")
     if not row_mask.is_cuda:
-        return sorted_group_agg_plain(keys, row_mask, states, presorted)
+        return sorted_group_agg_plain(keys, row_mask, states, presorted, runs)
     global launches, presorted_launches, minmax_launches, variance_launches, \
         variance_merge_launches, double_sum_launches
     n = row_mask.shape[0]
@@ -464,6 +472,15 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
               and d.dtype == torch.bool}
     for name in names:
         kind_launches[name] = kind_launches.get(name, 0) + 1
+    if runs:
+        starts = torch.empty(groups + 1, dtype=torch.int64, device=dev)
+        fn = lib.k6_run_starts
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        build.check(fn(sk.data_ptr(), n, scan.data_ptr(), groups, starts.data_ptr(), stream),
+                    "sorted_group_agg")
+        return key_out, outs, groups, (order, starts)
     return key_out, outs, groups
 
 

@@ -137,8 +137,8 @@ def _widths(cols: Sequence[Column], n: int) -> List[int]:
     for data, valid in cols:
         width = data.element_size() * (data.shape[1] if data.dim() == 2 else 1)
         if data.shape[0] != n or valid.shape != (n,) or valid.dtype != torch.bool \
-                or width not in (1, 4, 8, 16) or data.dim() > 2:
-            raise ValueError(f"gather_columns: columns must be ({n},) or ({n}, 2) limbs")
+                or width < 1 or data.dim() > 2:
+            raise ValueError(f"gather_columns: columns must be ({n},) or ({n}, width)")
         out.append(width)
     return out
 

@@ -48,6 +48,15 @@ their fixed-order double sums beside one count) and ``min_by`` /
 the greatest ``x`` among the rows tied at it; a varchar ``x`` stays a
 code of its dictionary).  Moments and covariance are double states, so
 a keyed grouping with one takes the sort path.
+
+array_agg and map_agg (the tenth slice) keep a ``(groups, 1 + 64)`` or
+``(groups, 1 + 2 * 64)`` state matrix beside a count: K14
+``group_collect`` writes each group's rows in their order along K6's
+stable runs (or the page's one run for the global aggregate), NULL
+values as the sentinel, map_agg's NULL keys left out; partials merge at
+running offsets in split order (K14's merge, over K6's runs of the
+partial keys, or the global fold's two rows), capped at 64.  A keyed
+grouping with one takes the sort path.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from presto_tpu_torch.expr.compile import ExprCompiler, _Lowering, _lane, _out_k
     expr_dictionary
 from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr, Literal
 from presto_tpu_torch.kernels import expr_eval as k1
+from presto_tpu_torch.kernels import group_collect as k14
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
@@ -111,6 +121,11 @@ VARIANCE_FNS = ("stddev", "stddev_samp", "stddev_pop", "variance", "var_samp", "
 MOMENT_FNS = ("skewness", "kurtosis")
 # bitwise folds (BitwiseAndAggregation / BitwiseOrAggregation)
 BITWISE_FNS = ("bitwise_and_agg", "bitwise_or_agg")
+
+# the element-collecting aggregates (K14 group_collect): array_agg keeps
+# every row, NULL values as the sentinel; map_agg the rows whose key is
+# not NULL
+COLLECT_FNS = ("array_agg", "map_agg")
 
 # two-argument moment statistics (AggregationUtils covariance/corr/
 # regression states): fn(y, x) with state (sx, sy, sxy, sxx, syy, n)
@@ -339,11 +354,17 @@ def takes_sort_path(group_exprs, key_domains, max_groups: int, aggs,
                     presorted: bool = False) -> bool:
     """Whether a grouping runs on the sort path (K6) rather than in K2's
     packed-direct slots: presorted input, keys past the packed-direct
-    layout, or a double state (sum, avg or variance of a double), which
+    layout, a double state (sum, avg or variance of a double), which
     K2 adds only for the global aggregate, so that every keyed double
-    sum has one order, K6's."""
-    return bool(group_exprs) and (presorted or _has_double_state(aggs) or not
-                                  packed_direct_layout(group_exprs, key_domains, max_groups))
+    sum has one order, K6's; or array_agg / map_agg, whose elements K14
+    collects along K6's runs."""
+    return bool(group_exprs) and (presorted or _has_double_state(aggs) or _collects(aggs)
+                                  or not packed_direct_layout(group_exprs, key_domains,
+                                                              max_groups))
+
+
+def _collects(aggs) -> bool:
+    return any(a.fn in COLLECT_FNS for a in aggs)
 
 
 # ---------------------------------------------------------------------------
@@ -476,11 +497,23 @@ def _state_kind(agg: AggCall) -> int:
             if t.value_shape != () or t.is_raw_string or t.name == "real":
                 raise NotPorted(f"{agg.fn} over {t}")
         return k2.BY_X
+    if agg.fn in COLLECT_FNS:
+        if agg.filter is not None:
+            raise NotPorted(f"FILTER over {agg.fn}")
+        for t in (agg.arg.type,) + ((agg.arg2.type,) if agg.fn == "map_agg" else ()):
+            if t.value_shape != () or t.is_raw_string:
+                raise NotPorted(f"{agg.fn} over {t}")
+        # the state's count: every row (array_agg) or the non-NULL keys
+        return k2.COUNT_STAR if agg.fn == "array_agg" else k2.COUNT
     raise NotPorted(f"aggregate {agg.fn}")
 
 
 def _finalize_kind(agg: AggCall) -> int:
-    """K3 finalize kind of an aggregate (after :func:`_state_kind`)."""
+    """K3 finalize kind of an aggregate (after :func:`_state_kind`); a
+    collecting aggregate's count finalizes as a sum, whose validity
+    (``count > 0``) is its state matrix's."""
+    if agg.fn in COLLECT_FNS:
+        return k3.FIN_SUM
     if agg.fn in ("count", "count_star"):
         return k3.FIN_COUNT
     if agg.fn in ("min", "max"):  # the state's value, NULL where its count is 0
@@ -591,7 +624,11 @@ def grouped_aggregate(
     if not group_exprs:
         states, _ = k2.packed_group_agg(n, page.row_mask, [], args, 1)
         out_mask = torch.ones(1, dtype=torch.bool, device=page.device)
-        return _emit([], _agg_states(aggs, states), aggs, out_mask, mode, agg_dicts)
+        states = _agg_states(aggs, states)
+        if _collects(aggs):  # the page's one run, in page order
+            starts = torch.tensor([0, n], dtype=torch.int64, device=page.device)
+            _add_collected(states, aggs, page, None, starts)
+        return _emit([], states, aggs, out_mask, mode, agg_dicts)
     states, present = k2.packed_group_agg(n, page.row_mask, keys, args, max_groups)
     states = _agg_states(aggs, states)
     cards = [card for _, _, _, card in keys]
@@ -626,6 +663,9 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
         if kind == k2.COUNT_STAR:
             args.append((kind, None, None))
             continue
+        if agg.fn == "map_agg":  # a count of the non-NULL keys
+            args.append((kind,) + c.compile(agg.arg)(page))
+            continue
         arg = agg.arg
         if kind in (k2.VARIANCE, k2.MOMENTS) and arg.type.name != "double":
             arg = Call(type=DOUBLE, fn="cast_double", args=(arg,))  # _to_double
@@ -643,6 +683,28 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
     from presto_tpu_torch.ops.join import key_columns
 
     return key_columns(page, group_exprs, key_domains), args
+
+
+def _collect_inputs(c: ExprCompiler, agg: AggCall, page: Page):
+    """(selected rows, lanes) of a collecting aggregate: array_agg's
+    value over every live row, map_agg's key and value over the live
+    rows whose key is not NULL."""
+    if agg.fn == "array_agg":
+        return page.row_mask, [c.compile(agg.arg)(page)]
+    kd, kv = c.compile(agg.arg)(page)
+    return page.row_mask & kv, [(kd, kv), c.compile(agg.arg2)(page)]
+
+
+def _add_collected(states, aggs, page: Page, order, starts) -> None:
+    """Put each collecting aggregate's state matrix (K14) before its
+    count in ``states``, over the groups' runs ``(order, starts)``."""
+    c = ExprCompiler.for_page(page)
+    for i, agg in enumerate(aggs):
+        if agg.fn in COLLECT_FNS:
+            sel, halves = _collect_inputs(c, agg, page)
+            t = state_types(agg)[0]
+            states[i] = [k14.group_collect(order, starts, sel, halves, t.max_elems,
+                                           _torch_dtype(t))] + list(states[i])
 
 
 def _checksum_hash(lw: _Lowering) -> int:
@@ -744,13 +806,15 @@ def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
 
 
 def _states_out(groups: int, key_blocks, state_cols, per_agg, aggs, mode, agg_dicts,
-                device) -> Page:
+                device, collected=None) -> Page:
     """The page of a sort-path grouping: ``per_agg`` slices the flat
     K6 state columns back into each aggregate's ``[sum, count]`` or
-    ``[count]``."""
+    ``[count]``; ``collected``: a collecting aggregate's state matrix by
+    its index, put before its count."""
     states, pos = [], 0
-    for k in per_agg:
-        states.append(state_cols[pos:pos + k])
+    for i, k in enumerate(per_agg):
+        states.append(([collected[i]] if collected and i in collected else [])
+                      + list(state_cols[pos:pos + k]))
         pos += k
     mask = torch.ones(groups, dtype=torch.bool, device=device)
     return _emit(key_blocks, states, aggs, mask, mode, agg_dicts)
@@ -820,15 +884,22 @@ def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode,
     in packed-key order; or its streaming branch (``presorted``), in
     page order."""
     keys, states, per_agg = sorted_inputs(page, group_exprs, aggs, key_domains)
-    key_out, cols, groups = k6.sorted_group_agg(keys, page.row_mask, states, presorted)
+    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted, runs=_collects(aggs))
+    key_out, cols, groups = got[:3]
     if groups == 0:
         return _empty_groups(group_exprs, aggs, mode, page.device,
                              expr_key_dicts(page, group_exprs))
+    collected = None
+    if _collects(aggs):
+        order, starts = got[3]
+        per = [[] for _ in aggs]
+        _add_collected(per, aggs, page, order, starts)
+        collected = {i: st[0] for i, st in enumerate(per) if st}
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
     key_blocks = [Block(d, v, e.type, dic) for (d, v), e, dic in
                   zip(key_out, group_exprs, expr_key_dicts(page, group_exprs))]
     return _states_out(groups, key_blocks, cols, per_agg, aggs, mode, agg_dicts,
-                       page.device)
+                       page.device, collected)
 
 
 def _empty_groups(group_exprs, aggs, mode, device, key_dicts) -> Page:
@@ -860,6 +931,10 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     live = partial.row_mask
     states, per_agg = [], []
     for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):
+        if agg.fn in COLLECT_FNS:  # the counts add; K14 merges the matrices
+            states.append((k6.S_SUM, cols[1].data, live))
+            per_agg.append(1)
+            continue
         if agg.fn in ("count", "count_star", "checksum"):
             states.append((k6.S_SUM, cols[0].data, live))
         elif agg.fn in MOMENT_FNS:  # Chan's form, extended to M3 and M4
@@ -899,7 +974,8 @@ def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_g
     packed-key order."""
     _check_ported(aggs, mode)
     keys, states, per_agg = merge_inputs(partial, num_keys, aggs, key_domains)
-    key_out, cols, groups = k6.sorted_group_agg(keys, partial.row_mask, states)
+    got = k6.sorted_group_agg(keys, partial.row_mask, states, runs=_collects(aggs))
+    key_out, cols, groups = got[:3]
     key_blocks_in = partial.blocks[:num_keys]
     if groups == 0:
         return _empty_groups([ColumnRef(type=b.type, index=i)
@@ -908,8 +984,15 @@ def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_g
     agg_dicts = [c[0].dictionary for c in _slice_state_cols(partial, num_keys, aggs)]
     key_blocks = [Block(d, v, b.type, b.dictionary)
                   for (d, v), b in zip(key_out, key_blocks_in)]
+    collected = None
+    if _collects(aggs):  # each group's partial lists at running offsets (K14)
+        order, starts = got[3]
+        collected = {i: k14.group_collect_merge(order, starts, partial.row_mask, cols[0].data,
+                                                state_types(agg)[0].max_elems)
+                     for i, (agg, cols) in enumerate(zip(aggs, _slice_state_cols(
+                         partial, num_keys, aggs))) if agg.fn in COLLECT_FNS}
     return _states_out(groups, key_blocks, cols, per_agg, aggs, mode, agg_dicts,
-                       partial.device)
+                       partial.device, collected)
 
 
 def _unpack_key_blocks(cards, domains, group_exprs, key_dicts, prod, capacity,
@@ -962,9 +1045,13 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
                                             else cols[:5], dim=1), cols[-1]))
         elif agg.fn in ("min_by", "max_by"):
             items.append((kind, cols[0], cols[1]))
+        elif agg.fn in COLLECT_FNS:  # the count's validity is the matrix's
+            items.append((kind, cols[1], cols[1]))
         else:
             items.append((kind, cols[0], cols[-1]))
     out = k3.packed_finalize(items, mask)
+    out = [(cols[0], v) if agg.fn in COLLECT_FNS else (d, v)
+           for (d, v), agg, cols in zip(out, aggs, states)]
     for i, (agg, adict) in enumerate(zip(aggs, agg_dicts)):
         if agg.fn in ("min", "max") and agg.arg.type.is_string:
             if adict is None:
@@ -983,10 +1070,18 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
                           aggs: Sequence[AggCall]) -> Page:
     """Fold two packed-direct partial pages slot by slot (K3)."""
     _check_ported(aggs, "partial")
-    sa = [blk for cols in _slice_state_cols(a, num_keys, aggs) for blk in cols]
-    sb = [blk for cols in _slice_state_cols(b, num_keys, aggs) for blk in cols]
+    # a collecting aggregate's matrix merges by K14 (a's list, then b's),
+    # its count folds with the others
+    ca, cb = _slice_state_cols(a, num_keys, aggs), _slice_state_cols(b, num_keys, aggs)
+    sa = [blk for agg, cols in zip(aggs, ca)
+          for blk in (cols[1:] if agg.fn in COLLECT_FNS else cols)]
+    sb = [blk for agg, cols in zip(aggs, cb)
+          for blk in (cols[1:] if agg.fn in COLLECT_FNS else cols)]
     kinds = []
     for agg in aggs:
+        if agg.fn in COLLECT_FNS:
+            kinds.append(k3.COL_I64)
+            continue
         if agg.fn in MOMENT_FNS:
             kinds += [k3.COL_F64, k3.COL_MOM_M2, k3.COL_MOM_M3, k3.COL_MOM_M4, k3.COL_I64]
             continue
@@ -1012,9 +1107,24 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
     outs, mask = k3.packed_fold([(k, x.data, x.valid) for k, x in zip(kinds, sa)],
                                 [(k, x.data, x.valid) for k, x in zip(kinds, sb)],
                                 a.row_mask, b.row_mask)
+    folded = iter(zip(sa, outs))
     blocks = list(a.blocks[:num_keys])
-    for blk, (data, valid) in zip(sa, outs):
-        blocks.append(Block(data, valid, blk.type, blk.dictionary))
+    for agg, cols_a, cols_b in zip(aggs, ca, cb):
+        if agg.fn in COLLECT_FNS:
+            blk = cols_a[0]
+            g = blk.data.shape[0]
+            both = torch.stack([blk.data, cols_b[0].data], 1).reshape(2 * g, -1)
+            live = torch.stack([a.row_mask, b.row_mask], 1).reshape(2 * g)
+            starts = torch.arange(0, 2 * g + 1, 2, dtype=torch.int64, device=live.device)
+            merged = k14.group_collect_merge(None, starts, live, both.contiguous(),
+                                             blk.type.max_elems)
+            blocks.append(Block(merged, mask, blk.type, blk.dictionary))
+            rest = cols_a[1:]
+        else:
+            rest = cols_a
+        for _ in rest:
+            x, (data, valid) = next(folded)
+            blocks.append(Block(data, valid, x.type, x.dictionary))
     return Page(tuple(blocks), mask)
 
 

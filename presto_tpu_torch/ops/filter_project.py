@@ -26,6 +26,8 @@ def project_page(page: Page, projections: Sequence[Expr]) -> Page:
     blocks: List[Block] = []
     for e in projections:
         data, valid = c.compile(e)(page)
-        dictionary = expr_dictionary(e, dicts) if e.type.is_string else None
+        wants_dict = e.type.is_string or (e.type.is_array and e.type.element is not None
+                                          and e.type.element.is_string)
+        dictionary = expr_dictionary(e, dicts) if wants_dict else None
         blocks.append(Block(data, valid, e.type, dictionary))
     return Page(tuple(blocks), page.row_mask)

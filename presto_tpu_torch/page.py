@@ -5,7 +5,9 @@ a validity mask; a Page is a tuple of Blocks plus a row mask.  The two
 masks keep their meaning: ``Block.valid`` is SQL NULL-ness per value,
 ``Page.row_mask`` is row liveness after filters, and operators ignore
 rows whose ``row_mask`` is False.  VARCHAR columns hold int32 codes
-into a host-side :class:`Dictionary`.
+into a host-side :class:`Dictionary`; ARRAY, MAP and ROW columns hold
+``(capacity, slots)`` matrices (``ops/container.py``), an array of
+strings its elements' dictionary.
 
 Every tensor of a page lies on one device, which the page reports.
 The executor glue of ``presto_tpu/exec/local.py`` (concat, pad, slice,
@@ -59,7 +61,7 @@ class Dictionary:
 
 
 def _unsupported_storage(t: Type) -> bool:
-    return t.is_raw_string or t.is_array or t.is_map or t.name == "row"
+    return t.is_raw_string
 
 
 @dataclasses.dataclass
@@ -93,6 +95,12 @@ class Block:
             from presto_tpu_torch.ops.decimal128 import encode_py
 
             data = encode_py(list(values), cap, limbs=type_.value_shape[0])
+        elif (type_.is_array or type_.is_map) and (
+            not isinstance(values, np.ndarray) or values.ndim == 1
+        ):
+            from presto_tpu_torch.ops.container import encode_arrays, encode_maps
+
+            data = (encode_arrays if type_.is_array else encode_maps)(list(values), type_, cap)
         else:
             data = np.zeros((cap,) + type_.value_shape, dtype=type_.np_dtype)
             data[:n] = values
@@ -211,6 +219,14 @@ class Page:
                 vals = b.dictionary.decode(data)
             elif _unsupported_storage(b.type):
                 raise NotPorted(f"{b.type} output")
+            elif b.type.is_array or b.type.is_map or b.type.name == "row":
+                from presto_tpu_torch.ops.container import decode_arrays, decode_maps, \
+                    decode_rows
+
+                vals = np.empty(len(data), dtype=object)
+                vals[:] = (decode_rows(data, b.type) if b.type.name == "row" else
+                           (decode_arrays if b.type.is_array else decode_maps)(
+                               data, b.type, b.dictionary))
             elif b.type.is_long_decimal:
                 import decimal
 

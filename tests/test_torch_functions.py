@@ -246,15 +246,27 @@ def test_math_sweep_values():
 
 
 @pytest.mark.parametrize("sql,what", [
-    ("select split(n_name, 'A') from nation", "dictionary of string expression split"),
-    ("select row(n_nationkey, n_regionkey) from nation", "expression row_construct"),
-], ids=["split", "row"])
+    ("select jaccard_index(make_set_digest(n_nationkey), make_set_digest(n_regionkey)) "
+     "from nation", "aggregate make_set_digest"),
+], ids=["setdigest"])
 def test_deferred_scalar_families_raise_by_name(sql, what):
     """The families a later slice ports raise NotPorted by name (a raw
-    varchar's functions: tests/test_torch_string_fns.py)."""
+    varchar's functions: tests/test_torch_string_fns.py; the containers'
+    deferred aggregates: tests/test_torch_container_sql.py)."""
     with pytest.raises(NotPorted) as e:
         _pair().port.execute(sql)
     assert e.value.what == what
+
+
+@pytest.mark.parametrize("sql", [
+    "select split(n_name, 'A') from nation",
+    "select row(n_nationkey, n_regionkey) from nation",
+], ids=["split", "row"])
+def test_former_scalar_pins_equal_reference(sql):
+    """Pinned as NotPorted ("dictionary of string expression split",
+    "expression row_construct") until the tenth slice ported ARRAY, MAP
+    and ROW values."""
+    _pair().check(sql)
 
 
 @pytest.mark.parametrize("sql", [
