@@ -62,7 +62,14 @@ Phases (any failure exits non-zero before the result line):
    ct_array_agg's own arrays (cardinality, sum, sort, slot, the lambdas'
    assembly, compaction and match), K13 over the same arrays, K14's
    collect over a split by l_orderkey and its merge of two splits'
-   partials;
+   partials; and the eleventh slice's (``check_type_kernels``): K1's
+   cast to REAL (F32R), REAL arithmetic, CASTN to SMALLINT and IN over a
+   double (DIN), K9 over TINYINT and SMALLINT keys, K2's REAL, SMALLINT
+   and interval states and its global double sum of a REAL, K3's fold
+   and finalize of them, K6's REAL and SMALLINT states by l_suppkey, K7
+   with a REAL key and K10's running REAL sum over orders, REALs bit
+   for bit, and the sorted top 1000 past K7's 100 rows (``torch.sort``,
+   a log line: no kernel of its own);
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
@@ -81,7 +88,11 @@ Phases (any failure exits non-zero before the result line):
    same tables (``CT_QUERIES``: array_agg by l_orderkey, its arrays
    unnested WITH ORDINALITY, a word count through split and UNNEST,
    histogram and map_agg, per-row container functions over lineitem,
-   the lambdas over the aggregated arrays); then (TPC-H's tables freed)
+   the lambdas over the aggregated arrays); the types phase over the
+   same tables (``TY_QUERIES``: Q1's aggregates over REALs, REAL
+   extremes and sums by l_suppkey, SMALLINT and TINYINT keys, a shipping
+   delay as intervals, IN over a double, a top 1000, a REAL top 100, a
+   running REAL sum per customer); then (TPC-H's tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -96,9 +107,9 @@ Phases (any failure exits non-zero before the result line):
    SF 1 (the card runs the 22 queries again over the SF 1 tables; Q22,
    which finds no row there, also without its anti join), the other
    TPC-DS queries at SF 1 (run again there on the card), q72 at sf
-   0.01; the functions, the dates and aggregate tail and the
-   containers phases at SF 1, exact but for skewness's doubles (``FN_APPROX``: its pow, a relative
-   1e-12);
+   0.01; the functions, the dates and aggregate tail, the containers
+   and the types phases at SF 1, exact but for skewness's doubles
+   (``FN_APPROX``: its pow, a relative 1e-12);
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -341,6 +352,51 @@ CT_QUERIES = {
 }
 
 
+# the eleventh slice, REAL, SMALLINT, TINYINT and INTERVAL values, IN
+# over a double and ORDER BY ... LIMIT past K7's 100 rows, at SF10 over
+# the same resident tables, no cut (rows checked at TPCH_CHECK_SF with
+# check_fn_rows): Q1's aggregates over REALs (K6: a keyed REAL sum is a
+# double state), REAL min/max/sum by l_suppkey folded globally (K6,
+# then K2's global double sum of REALs), SMALLINT and TINYINT keys (K9)
+# and sums, a shipping delay in days (intervals) with REAL and SMALLINT
+# extremes by l_shipmode and l_linenumber (K2's packed slots, K3's fold
+# and finalize; an interval sum is one int64 of microseconds, as the
+# reference's: by l_shipmode alone, ~8.6M rows of ~15 days pass 2^63 at
+# SF10 and wrap), IN over a double, a report's top 1000 rows (the sort
+# past MAX_N), a REAL top 100 (K7) and a running REAL sum per customer
+# (K10)
+_DELAY = "l_receiptdate - l_shipdate"
+_SUPP_PRICE = "cast(l_extendedprice * (1 - l_discount) as real)"
+TY_QUERIES = {
+    "ty_real_q1": "select l_returnflag, l_linestatus, sum(cast(l_quantity as real)), "
+                  "sum(cast(l_extendedprice as real)), sum(cast(l_extendedprice as real) * "
+                  "(1 - cast(l_discount as real))), avg(cast(l_quantity as real)), "
+                  "avg(cast(l_extendedprice as real)), avg(cast(l_discount as real)), "
+                  "min(cast(l_tax as real)), max(cast(l_tax as real)), count(*) from lineitem "
+                  "where l_shipdate <= date '1998-09-02' group by l_returnflag, l_linestatus "
+                  "order by l_returnflag, l_linestatus",
+    "ty_real_supplier": f"select count(*), sum(mn), sum(mx), sum(s) from (select l_suppkey, "
+                        f"min({_SUPP_PRICE}) mn, max({_SUPP_PRICE}) mx, sum({_SUPP_PRICE}) s "
+                        "from lineitem group by l_suppkey)",
+    "ty_narrow": "select cast(l_linenumber as tinyint) ln, cast(l_quantity as smallint) q, "
+                 "count(*), sum(cast(l_quantity as smallint)), min(cast(l_discount as real)), "
+                 "max(cast(l_tax as real)) from lineitem group by 1, 2 order by 1, 2",
+    "ty_delay": f"select l_shipmode, l_linenumber, sum({_DELAY}), avg({_DELAY}), "
+                f"min({_DELAY}), max({_DELAY}), max(l_receiptdate - l_commitdate), "
+                "min(cast(l_discount as real)), max(cast(l_quantity as smallint)) from lineitem "
+                "group by l_shipmode, l_linenumber order by l_shipmode, l_linenumber",
+    "ty_in_double": "select count(*), sum(l_extendedprice) from lineitem "
+                    "where cast(l_discount as double) in (0.02e0, 0.05e0, 0.07e0)",
+    "ty_top1000": "select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+                  "order by l_extendedprice desc, l_orderkey, l_linenumber limit 1000",
+    "ty_real_top": "select o_orderkey, cast(o_totalprice as real) r from orders "
+                   "order by r desc, o_orderkey limit 100",
+    "ty_real_window": "select count(*), max(rs) from (select sum(cast(o_totalprice as real)) "
+                      "over (partition by o_custkey order by o_orderdate, o_orderkey) rs "
+                      "from orders)",
+}
+
+
 def _spill_sql() -> dict:
     """AGG_SQL, JOIN_SQL and FULL_SQL of ``tests/test_spill.py``, read
     without importing it (it imports the JAX package)."""
@@ -551,6 +607,20 @@ CT_REQUIRED = {
                    "container_eval:compact", "container_eval:match", "container_eval:slot",
                    "container_eval:reduce"),
 }
+TY_REQUIRED = {
+    "ty_real_q1": ("expr_eval:f32r", "expr_eval:narrow", "sorted_group_agg:narrow",
+                   "sorted_group_agg:double_sum", "packed_fold_finalize:narrow"),
+    "ty_real_supplier": ("expr_eval:f32r", "sorted_group_agg:narrow",
+                         "packed_group_agg:narrow", "packed_group_agg:double_sum",
+                         "packed_fold_finalize"),
+    "ty_narrow": ("expr_eval:castn", "hash_keys:narrow", "sorted_group_agg:narrow",
+                  "packed_fold_finalize:narrow"),
+    "ty_delay": ("expr_eval:narrow", "packed_group_agg:narrow", "packed_fold_finalize:narrow"),
+    "ty_in_double": ("expr_eval:din", "packed_group_agg"),
+    "ty_top1000": ("topn:sorted",),
+    "ty_real_top": ("topn:real", "expr_eval:f32r"),
+    "ty_real_window": ("window_eval:narrow", "expr_eval:f32r"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -622,6 +692,18 @@ REPLACES = {
     "unnest_expand": "presto_tpu/ops/container.py:472",
     "group_collect": "presto_tpu/ops/aggregate.py:640",
     "group_collect@merge": "presto_tpu/ops/aggregate.py:1185",
+    "expr_eval@cast_real": "presto_tpu/expr/compile.py:1111",
+    "expr_eval@real_arith": "presto_tpu/expr/compile.py:3005",
+    "expr_eval@castn": "presto_tpu/expr/compile.py:1111",
+    "expr_eval@din": "presto_tpu/expr/compile.py:2952",
+    "hash_keys@narrow": "presto_tpu/ops/aggregate.py:1686",
+    "packed_group_agg@narrow": "presto_tpu/ops/aggregate.py:454",
+    "packed_group_agg@real_sum": "presto_tpu/ops/aggregate.py:446",
+    "sorted_group_agg@narrow": "presto_tpu/ops/aggregate.py:454",
+    "packed_fold_finalize@narrow_fold": "presto_tpu/ops/aggregate.py:870",
+    "packed_fold_finalize@narrow_finalize": "presto_tpu/ops/aggregate.py:1393",
+    "topn@real": "presto_tpu/ops/sort.py:43",
+    "window_eval@real": "presto_tpu/ops/window.py:343",
 }
 
 
@@ -1536,11 +1618,12 @@ def check_aggregation_kernels(report: KernelReport, runners) -> None:
 
 
 def same_bits(a, b, what: str) -> int:
-    """:func:`same` with doubles compared by their bits (NaN and -0.0
-    included)."""
+    """:func:`same` with doubles and REALs compared by their bits (NaN
+    and -0.0 included)."""
     def bits(x):
         if isinstance(x, torch.Tensor):
-            return x.view(torch.int64) if x.dtype == torch.float64 else x
+            return x.view(torch.int64) if x.dtype == torch.float64 else \
+                x.view(torch.int32) if x.dtype == torch.float32 else x
         return [bits(y) for y in x]
 
     return same(bits(a), bits(b), what)
@@ -2836,6 +2919,210 @@ def check_container_kernels(report: KernelReport, mem) -> None:
         f"the container checks took {time.perf_counter() - t0:.1f} s")
 
 
+def check_type_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the eleventh slice, over whole 2^23-row lineitem splits
+    (orders' first split for K7 and K10), each against its twin, REALs
+    and doubles by their bits: K1's narrowing casts (cast to REAL of a
+    decimal, F32R; to SMALLINT, CASTN), REAL arithmetic and IN over a
+    double (DIN); K9 over TINYINT and SMALLINT keys; K2's REAL, SMALLINT
+    and interval states by l_shipmode and its global double sum of a
+    REAL; K6's REAL and SMALLINT states by l_suppkey; K3's fold of two
+    splits' K2 tables and its finalize (FIN_VALUE, an interval's avg);
+    K7 with a REAL key; K10's running REAL sum per customer; and the
+    sorted top 1000 past K7's MAX_N beside ``torch.sort`` and a slice (a
+    log line: ``torch.sort``, no kernel of its own)."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.expr.ir import Call, ColumnRef, Literal
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import keys as kk
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+    from presto_tpu_torch.kernels import packed_group_agg as k2
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.kernels import topn as k7
+    from presto_tpu_torch.ops import sort as port_sort
+    from presto_tpu_torch.ops.window import WindowFunc, window_inputs
+    from presto_tpu_torch.types import BIGINT, BOOLEAN, DOUBLE, INTERVAL_DAY_SECOND, \
+        parse_type
+
+    real, smallint, tinyint = (parse_type(t) for t in ("real", "smallint", "tinyint"))
+    names = [c for c, _ in mem.schema("lineitem")]
+    types = dict(mem.schema("lineitem"))
+
+    def col(c, tps=types, nms=names):
+        return ColumnRef(type=tps[c], index=nms.index(c))
+
+    def call(fn, t, *args):
+        return Call(type=t, fn=fn, args=tuple(args))
+
+    def lit(v, t):
+        return Literal(type=parse_type(t), value=v)
+
+    def lane(page, expr):
+        return ExprCompiler.for_page(page).compile(expr)(page)
+
+    pages = [mem.page_for_split("lineitem", i) for i in (0, 1)]
+    page = pages[0]
+    n = page.capacity
+    raw = {c: page.blocks[names.index(c)] for c in ("l_extendedprice", "l_discount")}
+    real_disc = call("cast_real", real, col("l_discount"))
+    real_tax = call("cast_real", real, col("l_tax"))
+    qty16 = call("cast_smallint", smallint, col("l_quantity"))
+    delay = call("mul", INTERVAL_DAY_SECOND, call(
+        "sub", BIGINT, call("cast_bigint", BIGINT, col("l_receiptdate")),
+        call("cast_bigint", BIGINT, col("l_shipdate"))), lit(86_400_000_000, "bigint"))
+    wanted = torch.tensor([2, 5, 7], dtype=torch.int64, device=page.device)
+    # name: (expression, a filter, library call, counter)
+    rows = {
+        "cast_real": (call("cast_real", real, col("l_extendedprice")), False,
+                      lambda: raw["l_extendedprice"].data.to(torch.float32), "f32r"),
+        "real_arith": (call("mul", real, call("cast_real", real, col("l_extendedprice")),
+                            call("sub", real, lit(1, "bigint"), real_disc)), False, None,
+                       "f32r"),
+        "castn": (qty16, False, None, "castn"),
+        "din": (call("in", BOOLEAN, call("cast_double", DOUBLE, col("l_discount")),
+                     lit(0.02, "double"), lit(0.05, "double"), lit(0.07, "double")), True,
+                lambda: torch.isin(raw["l_discount"].data, wanted), "din"),
+    }
+    for label, (expr, filt, library, counter) in rows.items():
+        name = f"expr_eval@{label}"
+        prog, cols = ExprCompiler.for_page(page).lower(expr)
+        ins = [(page.blocks[i].data, page.blocks[i].valid) for i in cols]
+        mask = page.row_mask if filt else None
+        got = k1.expr_eval(prog, ins, n, row_mask=mask)
+        err = same_bits(got, k1.expr_eval_plain(prog, ins, n, row_mask=mask), name)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/expr_eval.cu", err,
+                   cuda_ms(lambda: k1.expr_eval(prog, ins, n, row_mask=mask), 20),
+                   cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n, row_mask=mask), 3),
+                   nbytes(*[t for c in ins for t in c], mask) + nbytes(
+                       *(got if isinstance(got, tuple) else (got,))),
+                   cuda_ms(library, 20) if library is not None else None,
+                   f"expr_eval:{counter}")
+        log(f"{name}: {prog}")
+
+    # K9: the TINYINT and SMALLINT keys of ty_narrow
+    ln8 = lane(page, call("cast_tinyint", tinyint, col("l_linenumber")))
+    q16 = lane(page, qty16)
+    keys = [(ln8[0], ln8[1], 0, 0), (q16[0], q16[1], 0, 0)]
+    got = kk.hash_keys(keys, page.row_mask)
+    err = same(got, kk.masked_plain(keys, page.row_mask, False)[0], "hash_keys@narrow")
+    report.add("hash_keys@narrow", "cuda", "presto_tpu_torch/csrc/keys.cu", err,
+               cuda_ms(lambda: kk.hash_keys(keys, page.row_mask), 20),
+               cuda_ms(lambda: kk.masked_plain(keys, page.row_mask, False), 3),
+               nbytes(page.row_mask, ln8[0], ln8[1], q16[0], q16[1], got), None,
+               "hash_keys:narrow")
+
+    # K2: REAL, SMALLINT and interval states by l_shipmode (8 slots), a
+    # REAL's double sum in the global slot; K3 folds two splits' tables
+    mode_col = page.blocks[names.index("l_shipmode")]
+    card = len(mode_col.dictionary.values) + 1
+
+    def k2_args(pg):
+        disc, tax, q, dl = (lane(pg, e) for e in (real_disc, real_tax, qty16, delay))
+        return [(k2.MIN_DOUBLE, disc[0], disc[1]), (k2.MAX_DOUBLE, tax[0], tax[1]),
+                (k2.MIN_SHORT, q[0], q[1]), (k2.SUM_SHORT, q[0], q[1]),
+                (k2.MIN_SHORT, dl[0], dl[1]), (k2.SUM_SHORT, dl[0], dl[1])]
+
+    def mode_keys(pg):
+        mc = pg.blocks[names.index("l_shipmode")]
+        return [(mc.data, mc.valid, 0, card)]
+
+    args = k2_args(page)
+    keys = mode_keys(page)
+    disc = args[0]
+    gid = torch.where(page.row_mask & disc[2], mode_col.data.to(torch.int64), card)
+    table = torch.full((card + 1,), float("inf"), dtype=torch.float32, device=page.device)
+    real_price = lane(page, call("cast_real", real, col("l_extendedprice")))
+    for name, kys, ags, g, library in (
+            ("packed_group_agg@narrow", keys, args, card,
+             lambda: table.scatter_reduce_(0, gid, disc[1], "amin")),
+            ("packed_group_agg@real_sum", [], [(k2.SUM_DOUBLE, real_price[0], real_price[1])],
+             1, lambda: torch.sum(real_price[0], dtype=torch.float64))):
+        got = k2.packed_group_agg(n, page.row_mask, kys, ags, g)
+        err = same_bits(got, k2.packed_group_agg_plain(n, page.row_mask, kys, ags, g), name)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/packed_group_agg.cu", err,
+                   cuda_ms(lambda: k2.packed_group_agg(n, page.row_mask, kys, ags, g), 10),
+                   cuda_ms(lambda: k2.packed_group_agg_plain(n, page.row_mask, kys, ags, g), 2),
+                   nbytes(page.row_mask, *[t for k in kys for t in k[:2]],
+                          *[t for a in ags for t in a[1:]])
+                   + nbytes(*[t for st in got[0] for t in st], got[1]), cuda_ms(library, 10),
+                   "packed_group_agg:narrow")
+    tables = [k2.packed_group_agg(pg.capacity, pg.row_mask, mode_keys(pg), k2_args(pg), card)
+              for pg in pages]
+    kinds = [k3.COL_MIN_F64, k3.COL_I64, k3.COL_MAX_F64, k3.COL_I64, k3.COL_MIN_I64, k3.COL_I64,
+             k3.COL_I64, k3.COL_I64, k3.COL_MIN_I64, k3.COL_I64, k3.COL_I64, k3.COL_I64]
+
+    def cols_of(states, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for st in states for t in st])]
+
+    fold = fold_row(report, "packed_fold_finalize@narrow_fold", cols_of(*tables[0]),
+                    cols_of(*tables[1]), tables[0][1], tables[1][1],
+                    "packed_fold_finalize:narrow")
+    f = [d for d, _ in fold[0]]
+    finalize_row(report, "packed_fold_finalize@narrow_finalize",
+                 [(k3.FIN_VALUE, f[0], f[1]), (k3.FIN_VALUE, f[2], f[3]),
+                  (k3.FIN_VALUE, f[4], f[5]), (k3.FIN_AVG_SHORT, f[10], f[11])], fold[1],
+                 "packed_fold_finalize:narrow")
+
+    # K6: REAL and SMALLINT states by l_suppkey (its exact domain)
+    supp = page.blocks[names.index("l_suppkey")]
+    dom = mem.column_domain("lineitem", "l_suppkey")
+    supp_keys = [(supp.data, supp.valid, dom[0], dom[1] - dom[0] + 2)]
+    q = lane(page, qty16)
+    states = [(k6.S_MIN_F64, real_price[0], real_price[1]),
+              (k6.S_MAX_F64, real_price[0], real_price[1]),
+              (k6.S_DSUM, real_price[0], real_price[1]), (k6.S_MIN, q[0], q[1]),
+              (k6.S_SUM, q[0], q[1]), (k6.S_VALID, None, real_price[1])]
+    ok = page.row_mask & real_price[1]
+    _, g6 = torch.unique(supp.data[ok], return_inverse=True)
+    vals6 = real_price[0][ok]
+    table6 = torch.full((int(g6.max()) + 1,), float("inf"), dtype=torch.float32,
+                        device=page.device)
+    groups = k6_bits_row(report, "sorted_group_agg@narrow", supp_keys, page.row_mask, states,
+                         "sorted_group_agg:narrow",
+                         cuda_ms(lambda: table6.scatter_reduce_(0, g6, vals6, "amin"), 10))
+    log(f"K6 REAL and SMALLINT states: {groups} groups of {n} rows")
+
+    # K7 with a REAL key, and K10's running REAL sum, over orders' first split
+    onames = [c for c, _ in mem.schema("orders")]
+    otypes = dict(mem.schema("orders"))
+    opage = mem.page_for_split("orders", 0)
+    price = call("cast_real", real, col("o_totalprice", otypes, onames))
+    rkey = lane(opage, price)
+    okey = opage.blocks[onames.index("o_orderkey")]
+    keys7 = [(rkey[0], rkey[1], False, False), (okey.data, okey.valid, True, False)]
+    got = k7.topn(keys7, opage.row_mask, 100)
+    err = same(got, k7.topn_plain(keys7, opage.row_mask, 100), "topn@real")
+    report.add("topn@real", "cuda", "presto_tpu_torch/csrc/topn.cu", err,
+               cuda_ms(lambda: k7.topn(keys7, opage.row_mask, 100), 20),
+               cuda_ms(lambda: k7.topn_plain(keys7, opage.row_mask, 100), 2),
+               nbytes(opage.row_mask, rkey[0], rkey[1], okey.data, okey.valid, *got),
+               cuda_ms(lambda: torch.topk(rkey[0], 100), 20), "topn:real")
+    inputs = window_inputs(opage, [col("o_custkey", otypes, onames)],
+                           [col("o_orderdate", otypes, onames),
+                            col("o_orderkey", otypes, onames)], [True, True],
+                           [WindowFunc(kind="sum", arg=price)])
+    k10_row(report, "window_eval@real", inputs)
+    report.counters["window_eval@real"] = "window_eval:narrow"
+
+    # ORDER BY ... LIMIT 1000 past K7's MAX_N: the page sorted, its first
+    # 1000 live rows (torch.sort: no kernel of its own, so no kernels row)
+    sort_exprs = [col("l_extendedprice"), col("l_orderkey"), col("l_linenumber")]
+    top = port_sort.topn_page(page, sort_exprs, [False, True, True], 1000)
+    cpu = port_sort.topn_page(page.to("cpu"), sort_exprs, [False, True, True], 1000)
+    if top.to_pylist() != cpu.to_pylist():
+        raise AssertionError("the sorted top 1000 differs from the CPU's")
+    ms = cuda_ms(lambda: port_sort.topn_page(page, sort_exprs, [False, True, True], 1000), 5)
+    lib = cuda_ms(lambda: torch.sort(raw["l_extendedprice"].data, descending=True,
+                                     stable=True)[1][:1000], 5)
+    moved = nbytes(page.row_mask, *[page.blocks[names.index(c)].data for c in
+                                    ("l_extendedprice", "l_orderkey", "l_linenumber")],
+                   *[page.blocks[names.index(c)].valid for c in
+                     ("l_extendedprice", "l_orderkey", "l_linenumber")])
+    log(f"sorted top-n (past MAX_N): top 1000 of a {n}-row lineitem split by three keys in "
+        f"{ms:.4f} ms (torch.sort + slice of one key {lib:.4f} ms; bound "
+        f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms), rows equal the CPU's")
+
+
 def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
     (a transcendental's doubles) within a relative 1e-12; ``where``
@@ -2934,7 +3221,10 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("hash_keys", "double_launches", "hash_keys:double"),
               ("spill_partition", "gather_launches", "spill_partition:gather"),
               ("join_build", "null_flags_launches", "join_build:null_flags"),
-              ("group_collect", "merge_launches", "group_collect:merge"))
+              ("group_collect", "merge_launches", "group_collect:merge"),
+              ("hash_keys", "narrow_launches", "hash_keys:narrow"),
+              ("topn", "real_launches", "topn:real"),
+              ("window_eval", "narrow_launches", "window_eval:narrow"))
 
 
 # kernels that count their launches by kind in a dict, by its attribute
@@ -2951,9 +3241,14 @@ def reset_counts() -> None:
         getattr(mods[kernel], attr).clear()
     for kernel, attr, _ in SUB_COUNTS:
         setattr(mods[kernel], attr, 0)
+    from presto_tpu_torch.ops import sort
+
+    sort.sorted_topn_runs = 0
 
 
 def read_counts() -> dict:
+    from presto_tpu_torch.ops import sort
+
     mods = counters()
     out = {k: mod.launches for k, mod in mods.items()}
     for kernel, attr in KIND_DICTS:
@@ -2961,6 +3256,9 @@ def read_counts() -> dict:
             out[f"{kernel}:{kind}"] = n
     for kernel, attr, name in SUB_COUNTS:
         out[name] = getattr(mods[kernel], attr)
+    # ORDER BY ... LIMIT past K7's MAX_N: the page sorted (torch.sort),
+    # no kernel of its own
+    out["topn:sorted"] = sort.sorted_topn_runs
     return out
 
 
@@ -3145,6 +3443,7 @@ def main() -> int:
     check_function_kernels(report, mem)
     check_tail_kernels(report, mem)
     check_container_kernels(report, mem)
+    check_type_kernels(report, mem)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3192,6 +3491,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"containers phase done at {time.perf_counter() - t_all:.1f} s")
+    # the types phase over the same tables
+    ty_runners = {label: QueryRunner(query_catalog(mem, sql), device="cuda")
+                  for label, sql in TY_QUERIES.items()}
+    drive(ty_runners, TY_QUERIES, TY_REQUIRED, reps=2, trace=False)
+    del ty_runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"types phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -3257,7 +3564,7 @@ def main() -> int:
         check_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref, may_be_empty)
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
-    for label, sql in {**FN_QUERIES, **DT_QUERIES, **CT_QUERIES}.items():
+    for label, sql in {**FN_QUERIES, **DT_QUERIES, **CT_QUERIES, **TY_QUERIES}.items():
         t1 = time.perf_counter()
         got = QueryRunner(query_catalog(mem_check, sql), device="cuda").execute(sql)
         ref = QueryRunner(query_catalog(host_check, sql), device="cpu").execute(sql)
@@ -3305,10 +3612,10 @@ def main() -> int:
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
     for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(CT_QUERIES) \
-            + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
+            + list(TY_QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
-            or label in DT_QUERIES or label in CT_QUERIES else (
+            or label in DT_QUERIES or label in CT_QUERIES or label in TY_QUERIES else (
             "store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows

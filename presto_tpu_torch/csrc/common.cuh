@@ -106,6 +106,23 @@ __device__ __forceinline__ int narrow_extreme(i64 v) {
   return v == I64_MAX ? 0x7fffffff : v == I64_MIN ? (int)0x80000000 : (int)v;
 }
 
+// An int64 extreme stored into an int16 (bits 16) or int8 (bits 8)
+// state: that type's identity for an empty one.
+__device__ __forceinline__ i64 narrow_extreme_bits(i64 v, int bits) {
+  const i64 hi = (1LL << (bits - 1)) - 1;
+  return v == I64_MAX ? hi : v == I64_MIN ? -hi - 1 : v;
+}
+
+// A REAL (float32) read as the bits of its exact double, and a double's
+// bits stored back as a float32 (exact for a value that came from one;
+// an empty min/max state's infinities stay infinities)
+__device__ __forceinline__ i64 f32_bits(const void* p, i64 i) {
+  return __double_as_longlong((double)((const float*)p)[i]);
+}
+__device__ __forceinline__ float bits_f32(i64 bits) {
+  return __double2float_rn(__longlong_as_double(bits));
+}
+
 // Grid size for a grid-stride loop over n items: enough blocks to
 // fill every SM several times, never more than the items need.
 static inline int grid_for(i64 n, int threads, int per_sm) {

@@ -107,6 +107,22 @@
 // reference's jnp // does, so 1969 comes out right; date_diff's spans
 // truncate as its _trunc_div does.  HLL with P = 0 pushes the whole
 // splitmix64 hash (checksum's per-row hash).
+//
+// The narrow types (cast_real, cast_smallint and cast_tinyint :1111,
+// _compile_arith's REAL branch :3005, _align_pair's REAL branch,
+// _compile_in :2952 over a double): a SMALLINT or TINYINT column loads
+// sign-extended into the int64 lane and a REAL widens exactly into the
+// double lane; each stores back narrowed.  A REAL is never computed in
+// float32: each REAL operation runs in double and F32R rounds its result
+// once to float32 (__double2float_rn) and widens it back.  For + - * /
+// and the floored mod of two float32 values the double result rounded
+// once is the correctly rounded float32 result (53 >= 2 * 24 + 2), so
+// the lane holds the reference's float32 bits.  F32R of the int64 lane
+// converts straight to float32 (__ll2float_rn, cast_real of an
+// integer).  CASTN NULLs an int64 lane outside a narrower signed range
+// (the narrowing casts' NULL, and the int16/int32 arithmetic's
+// overflow).  DIN compares a double lane with each double literal of a
+// run in the constant pool (==: NaN matches nothing, -0.0 equals 0.0).
 
 #include "common.cuh"
 
@@ -127,7 +143,7 @@ enum {
   OP_SFLOOR, OP_SROUND, OP_DFLOOR, OP_DROUND, OP_D2S, OP_D2L, OP_LADD,
   OP_DUN, OP_DBIN, OP_BITW, OP_GL, OP_NULLIF, OP_CASTBI, OP_HLL, OP_WBUCKET, OP_IMOD,
   OP_VLUT, OP_DVLUT, OP_TSPART, OP_DTRUNC, OP_DTADD, OP_DTDIFF, OP_CASTTS, OP_UNIXT, OP_DFMT,
-  OP_COUNT
+  OP_F32R, OP_CASTN, OP_DIN, OP_COUNT
 };
 // DUN's functions (kernels/expr_eval.py DUN_FNS), DBIN's (DBIN_FNS),
 // BITW's operations (BITW_OPS), GL's lanes and CASTBI's sources
@@ -138,7 +154,9 @@ enum { DBIN_POWER, DBIN_ATAN2, DBIN_MOD };
 enum { BW_AND, BW_OR, BW_XOR, BW_SHL, BW_SHR, BW_COUNT };
 enum { GL_INT, GL_DOUBLE, GL_LONG };
 enum { CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG };
-enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4 };
+enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4, KIND_I16 = 5,
+       KIND_I8 = 6, KIND_F32 = 7 };
+enum { F32R_DOUBLE, F32R_INT };
 // DT_UNITS (kernels/expr_eval.py): the first seven are fixed spans
 enum { U_MICRO, U_MILLI, U_SECOND, U_MINUTE, U_HOUR, U_DAY, U_WEEK, U_MONTH, U_QUARTER,
        U_YEAR };
@@ -257,6 +275,21 @@ __device__ __forceinline__ i64 unit_micros(int u) {
 }
 
 __device__ __forceinline__ i64 narrow32(i64 x) { return (i64)(int)x; }
+
+// IMOD's widths: code 0 64 bits, 1 32, 2 16, 3 8
+__device__ __forceinline__ int imod_bits(int code) { return 64 >> code; }
+__device__ __forceinline__ i64 least_at(int bits) {
+  return bits == 64 ? I64_MIN : -(1LL << (bits - 1));
+}
+// abs at a signed width: its least value stays itself
+__device__ __forceinline__ i64 abs_at(i64 x, int bits) {
+  return x == least_at(bits) || x >= 0 ? x : wneg(x);
+}
+// an int64 lane wrapped to a narrower signed width
+__device__ __forceinline__ i64 wrap_at(i64 x, int bits) {
+  return bits == 64 ? x : bits == 32 ? (i64)(int)x : bits == 16 ? (i64)(short)x
+                                                              : (i64)(signed char)x;
+}
 
 // TSPART: a date part (DATEPART's 0..8) or the time of day (9 hour,
 // 10 minute, 11 second, 12 millisecond) of epoch microseconds
@@ -400,6 +433,8 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         const int k = p.col_kind[arg];
         if (k == KIND_I64) d = ((const i64*)p.col_data[arg])[row];
         else if (k == KIND_I32) d = ((const int*)p.col_data[arg])[row];
+        else if (k == KIND_I16) d = ((const short*)p.col_data[arg])[row];
+        else if (k == KIND_I8) d = ((const signed char*)p.col_data[arg])[row];
         else d = ((const uint8_t*)p.col_data[arg])[row] != 0;
         sd[sp] = d;
         sv[sp] = p.col_valid[arg][row] != 0;
@@ -576,6 +611,26 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
           sp -= 3;
         }
         break;
+      case OP_F32R:  // arg: F32R_DOUBLE rounds the double lane, F32R_INT the int64 lane
+        if constexpr (WIDE)
+          sd[sp - 1] = d2bits((double)(arg == F32R_INT ? __ll2float_rn(sd[sp - 1])
+                                                       : __double2float_rn(bits2d(sd[sp - 1]))));
+        break;
+      case OP_CASTN: {  // arg: 8, 16 or 32 bits; NULL outside that signed range
+        const i64 half = 1LL << (arg - 1), x = sd[sp - 1];
+        sv[sp - 1] = sv[sp - 1] && x >= -half && x < half;
+        break;
+      }
+      case OP_DIN:  // == against each double literal of the run (bits)
+        if constexpr (WIDE) {
+          const int first = arg & ((1 << K1_IN_COUNT_SHIFT) - 1);
+          const int count = arg >> K1_IN_COUNT_SHIFT;
+          const double x = bits2d(sd[sp - 1]);
+          bool hit = false;
+          for (int j = 0; j < count; ++j) hit = hit || x == bits2d(p.consts[first + j]);
+          sd[sp - 1] = hit;
+        }
+        break;
       case OP_NOTNULL:  // arg: 0 not_null, 1 is_null; never NULL itself
         sd[sp - 1] = arg ? !sv[sp - 1] : sv[sp - 1];
         sv[sp - 1] = true;
@@ -635,7 +690,10 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
       case OP_LOAD_F64:  // a double column's bits
       case OP_DLIT:      // a double constant's bits
         if constexpr (WIDE) {
-          sd[sp] = op == OP_DLIT ? p.consts[arg] : ((const i64*)p.col_data[arg])[row];
+          sd[sp] = op == OP_DLIT ? p.consts[arg]
+                   : p.col_kind[arg] == KIND_F32  // a REAL widens exactly
+                   ? d2bits((double)((const float*)p.col_data[arg])[row])
+                   : ((const i64*)p.col_data[arg])[row];
           sv[sp] = op == OP_DLIT || p.col_valid[arg][row] != 0;
           ++sp;
         }
@@ -792,16 +850,21 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
             }
             break;
           }
-          case OP_IMOD: {  // arg: 0 mod, 1 div; truncating, NULL on a zero divisor
+          case OP_IMOD: {  // arg: 0 mod, 1 div | a's, b's width codes << 1, << 3
+            // truncating, NULL on a zero divisor; each abs at its operand's
+            // width (its least value wraps to itself) and the result
+            // wrapped at the wider one, as the reference's jnp computes
+            const int wa = imod_bits(arg >> 1 & 3), wb = imod_bits(arg >> 3 & 3);
+            const int wr = wa > wb ? wa : wb;
             const i64 bs = b == 0 ? 1 : b;
-            const i64 aa = a < 0 ? wneg(a) : a, ab = bs < 0 ? wneg(bs) : bs;
-            if (arg) {
+            const i64 aa = abs_at(a, wa), ab = abs_at(bs, wb);
+            if (arg & 1) {
               const i64 q = fdiv(aa, ab);
-              d = (a < 0) != (bs < 0) ? wneg(q) : q;
-              v = v && b != 0 && !(a == I64_MIN && b == -1);
+              d = wrap_at((a < 0) != (bs < 0) ? wneg(q) : q, wr);
+              v = v && b != 0 && !(a == least_at(wr) && b == -1);
             } else {
               const i64 r = fmod_(aa, ab);
-              d = a < 0 ? wneg(r) : r;
+              d = wrap_at(a < 0 ? wneg(r) : r, wr);
               v = v && b != 0;
             }
             break;
@@ -847,6 +910,9 @@ __global__ void k1_kernel(const K1Prog p, i64 n, const uint8_t* __restrict__ row
       ((i64*)out_data)[2 * i + 1] = l;
     } else if (out_kind == KIND_I64 || out_kind == KIND_F64) ((i64*)out_data)[i] = d;
     else if (out_kind == KIND_I32) ((int*)out_data)[i] = (int)d;
+    else if (out_kind == KIND_I16) ((short*)out_data)[i] = (short)d;
+    else if (out_kind == KIND_I8) ((signed char*)out_data)[i] = (signed char)d;
+    else if (out_kind == KIND_F32) ((float*)out_data)[i] = __double2float_rn(bits2d(d));
     else ((uint8_t*)out_data)[i] = d != 0;
     out_valid[i] = v;
   }

@@ -10,13 +10,15 @@
 // per column lane = valid ? value : 0 and
 // h = mix(h ^ mix(lane + 0x9E37 * valid)), splitmix64's finalizer in
 // unsigned 64-bit arithmetic; the key is h's low 63 bits, bit for bit
-// the reference's.  A dictionary column hashes its int32 codes.
+// the reference's.  A dictionary column hashes its int32 codes; a
+// SMALLINT or TINYINT column reads sign-extended, a double or REAL one
+// truncated toward zero (the reference's astype(int64)).
 #pragma once
 
 #include "common.cuh"
 
 #define PK_MAX_KEYS 16
-enum { PK_BOOL = 0, PK_I32 = 1, PK_I64 = 2, PK_F64 = 3 };
+enum { PK_BOOL = 0, PK_I32 = 1, PK_I64 = 2, PK_F64 = 3, PK_I16 = 4, PK_I8 = 5, PK_F32 = 6 };
 
 struct PackDesc {
   int n;
@@ -32,6 +34,9 @@ __device__ __forceinline__ i64 pk_load(const void* p, int kind, i64 i) {
   if (kind == PK_I64) return ((const i64*)p)[i];
   if (kind == PK_I32) return ((const int*)p)[i];
   if (kind == PK_F64) return __double2ll_rz(((const double*)p)[i]);  // a hashed double key
+  if (kind == PK_I16) return ((const short*)p)[i];
+  if (kind == PK_I8) return ((const signed char*)p)[i];
+  if (kind == PK_F32) return __float2ll_rz(((const float*)p)[i]);  // a hashed REAL key
   return ((const uint8_t*)p)[i] != 0;
 }
 

@@ -56,6 +56,13 @@
 // covariance family from its five sums, each an _rn intrinsic in the
 // reference's order, maxima that keep NaN as jnp.maximum does; their
 // inputs come stacked, (G, 3) and (G, 5).
+//
+// The narrow types: a SMALLINT or TINYINT min/max folds as an int64
+// min/max read and stored back in its storage, a REAL one by the double
+// order key of its exact double, stored back as float32 (elem: the
+// column's storage); FIN_VALUE finalizes such a state's value in its
+// storage.  An interval sum or avg is an int64 sum (FIN_SUM,
+// FIN_AVG_SHORT); a REAL sum or avg is a double one.
 
 #include "common.cuh"
 
@@ -70,7 +77,8 @@ enum { COL_I64 = 0, COL_D128 = 1, COL_MIN_I64 = 2, COL_MAX_I64 = 3, COL_MIN_I32 
        COL_BY_X = 19, COL_BY_XV = 20, COL_BY_Y_MIN = 21, COL_BY_Y_MAX = 22,
        COL_LAST = COL_BY_Y_MAX };
 // a column's storage (kernels/packed_fold_finalize.py _ELEM)
-enum { ELEM_I64 = 0, ELEM_I32 = 1, ELEM_F64 = 2, ELEM_BOOL = 3 };
+enum { ELEM_I64 = 0, ELEM_I32 = 1, ELEM_F64 = 2, ELEM_BOOL = 3, ELEM_I16 = 4, ELEM_I8 = 5,
+       ELEM_F32 = 6 };
 // finalize kinds
 enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
        FIN_AVG_D128 = 4, FIN_AVG_D128_NARROW = 5, FIN_VALUE_I32 = 6, FIN_AVG_DOUBLE = 7,
@@ -79,7 +87,22 @@ enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
        FIN_STDDEV_POP = 16, FIN_STDDEV_SAMP = 17, FIN_VALUE_BOOL = 18, FIN_BOOL_AND = 19,
        FIN_BOOL_OR = 20, FIN_HLL = 21, FIN_SKEWNESS = 22, FIN_KURTOSIS = 23,
        FIN_COVAR_POP = 24, FIN_COVAR_SAMP = 25, FIN_CORR = 26, FIN_REGR_SLOPE = 27,
-       FIN_REGR_INTERCEPT = 28, FIN_LAST = FIN_REGR_INTERCEPT };
+       FIN_REGR_INTERCEPT = 28, FIN_VALUE = 29, FIN_LAST = FIN_VALUE };
+
+// a min/max state's value in its storage: an int64 lane (int64, int16,
+// int8) or a double's bits (a REAL's widened exactly), and back
+__device__ __forceinline__ i64 elem_load(const i64* p, int elem, i64 g) {
+  if (elem == ELEM_I16) return ((const short*)p)[g];
+  if (elem == ELEM_I8) return ((const signed char*)p)[g];
+  if (elem == ELEM_F32) return f32_bits(p, g);
+  return p[g];
+}
+__device__ __forceinline__ void elem_store(i64* p, int elem, i64 g, i64 v) {
+  if (elem == ELEM_I16) ((short*)p)[g] = (short)v;
+  else if (elem == ELEM_I8) ((signed char*)p)[g] = (signed char)v;
+  else if (elem == ELEM_F32) ((float*)p)[g] = bits_f32(v);
+  else p[g] = v;
+}
 
 // The HLL estimator of hll_merge (the reference's _finalize, m = 4096
 // buckets): linear counting below 2.5 m while a bucket is empty, else
@@ -249,13 +272,17 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
         ((double*)d.out0[c])[g] = chan_m2(f64_at(d.in0[c - 1], g), f64_at(d.in0[c], g),
                                           d.in0[c + 1][g], f64_at(d.in1[c - 1], g),
                                           f64_at(d.in1[c], g), d.in1[c + 1][g]);
-      } else if (kind == COL_MIN_I64 || kind == COL_MAX_I64) {
-        const i64 a = d.in0[c][g], b = d.in1[c][g];
-        d.out0[c][g] = kind == COL_MIN_I64 ? (a < b ? a : b) : (a > b ? a : b);
+      } else if (kind == COL_MIN_I64 || kind == COL_MAX_I64) {  // int64, int16 or int8
+        const int e = d.elem[c];
+        const i64 a = elem_load(d.in0[c], e, g), b = elem_load(d.in1[c], e, g);
+        elem_store(d.out0[c], e, g, kind == COL_MIN_I64 ? (a < b ? a : b) : (a > b ? a : b));
       } else if (kind == COL_MIN_F64 || kind == COL_MAX_F64) {  // by the order key
         const bool is_min = kind == COL_MIN_F64;
-        const i64 ka = minmax_key(d.in0[c][g], is_min), kb = minmax_key(d.in1[c][g], is_min);
-        d.out0[c][g] = minmax_value(is_min ? (ka < kb ? ka : kb) : (ka > kb ? ka : kb), is_min);
+        const int e = d.elem[c];  // a double or a REAL
+        const i64 ka = minmax_key(elem_load(d.in0[c], e, g), is_min);
+        const i64 kb = minmax_key(elem_load(d.in1[c], e, g), is_min);
+        elem_store(d.out0[c], e, g,
+                   minmax_value(is_min ? (ka < kb ? ka : kb) : (ka > kb ? ka : kb), is_min));
       } else if (kind == COL_MIN_BOOL || kind == COL_MAX_BOOL) {
         const uint8_t a = ((const uint8_t*)d.in0[c])[g], b = ((const uint8_t*)d.in1[c])[g];
         ((uint8_t*)d.out0[c])[g] = kind == COL_MIN_BOOL ? (a && b) : (a || b);
@@ -312,6 +339,9 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
         break;
       }
       case FIN_VALUE_I32: ((int*)d.out0[c])[g] = ((const int*)d.in0[c])[g]; break;
+      case FIN_VALUE:  // a SMALLINT, TINYINT or REAL min/max in its storage
+        elem_store(d.out0[c], d.elem[c], g, elem_load(d.in0[c], d.elem[c], g));
+        break;
       case FIN_VALUE_BOOL:
         ((uint8_t*)d.out0[c])[g] = ((const uint8_t*)d.in0[c])[g];
         break;

@@ -66,6 +66,12 @@
 // order.  An aggregate's FILTER reaches the kernel as its argument's
 // validity lane, which K1 computes.
 //
+// The narrow types: a SMALLINT or TINYINT argument or key reads
+// sign-extended, and its min/max stores back narrowed (an empty state:
+// its own type's identity); a REAL argument widens exactly to a double,
+// for a double sum in the fixed order or for its min/max order key, and
+// a REAL min/max stores back as float32.
+//
 // The coupled and statistical aggregates (_partial_states :480
 // moments, :518 checksum, :536 min_by/max_by): checksum adds K1's
 // per-row splitmix64 hashes by a wrapping 64-bit atomicAdd (a NULL row
@@ -97,7 +103,8 @@ enum { AGG_COUNT_STAR = 0, AGG_COUNT = 1, AGG_SUM_SHORT = 2, AGG_SUM_LONG = 3,
        AGG_MAX_DOUBLE = 12, AGG_BOOL_COUNT = 13, AGG_BIT_AND = 14, AGG_BIT_OR = 15,
        AGG_HLL_SUM = 16, AGG_CHECKSUM = 17, AGG_MOMENTS = 18, AGG_BY_Y_MIN = 19,
        AGG_BY_Y_MAX = 20, AGG_BY_X = 21, AGG_LAST = AGG_BY_X };
-enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3, KIND_F64 = 4 };
+enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3, KIND_F64 = 4, KIND_I16 = 5,
+       KIND_I8 = 6, KIND_F32 = 7 };
 
 // the states that add doubles in the fixed order (their slot counts)
 __host__ __device__ __forceinline__ bool is_double_agg(int kind) {
@@ -148,7 +155,14 @@ struct K2Desc {
 __device__ __forceinline__ i64 load_int(const void* p, int kind, i64 i) {
   if (kind == KIND_I64) return ((const i64*)p)[i];
   if (kind == KIND_I32) return ((const int*)p)[i];
+  if (kind == KIND_I16) return ((const short*)p)[i];
+  if (kind == KIND_I8) return ((const signed char*)p)[i];
   return ((const uint8_t*)p)[i] != 0;
+}
+
+// a double argument's bits, a REAL's widened exactly
+__device__ __forceinline__ i64 load_bits(const void* p, int kind, i64 i) {
+  return kind == KIND_F32 ? f32_bits(p, i) : ((const i64*)p)[i];
 }
 
 // min_by / max_by: the order key of a y (is_min: min_by's) or an x
@@ -252,7 +266,7 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
     }
     if (kind == AGG_MIN_DOUBLE || kind == AGG_MAX_DOUBLE) {  // by the order key
       const bool is_min = kind == AGG_MIN_DOUBLE;
-      slot_combine(s, minmax_key(((const i64*)d.arg_data[a])[i], is_min),
+      slot_combine(s, minmax_key(load_bits(d.arg_data[a], d.arg_kind[a], i), is_min),
                    is_min ? SLOT_MIN : SLOT_MAX);
       atomicAdd(s + 1, 1ull);
       continue;
@@ -335,10 +349,13 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
         by_store(d.out[0][a], d.arg_kind[a], g, s[0], false);
         d.out[1][a][g] = s[1] > 0;
         break;
-      case AGG_MIN_DOUBLE: case AGG_MAX_DOUBLE:
-        d.out[0][a][g] = minmax_value(s[0], d.agg_kind[a] == AGG_MIN_DOUBLE);
+      case AGG_MIN_DOUBLE: case AGG_MAX_DOUBLE: {
+        const i64 x = minmax_value(s[0], d.agg_kind[a] == AGG_MIN_DOUBLE);
+        if (d.arg_kind[a] == KIND_F32) ((float*)d.out[0][a])[g] = bits_f32(x);
+        else d.out[0][a][g] = x;
         d.out[1][a][g] = s[1];
         break;
+      }
       case AGG_BOOL_COUNT: case AGG_BIT_AND: case AGG_BIT_OR:
         d.out[0][a][g] = s[0];
         d.out[1][a][g] = s[1];
@@ -347,6 +364,10 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
       case AGG_SUM_SHORT: d.out[0][a][g] = s[0]; d.out[1][a][g] = s[1]; break;
       case AGG_MIN_SHORT: case AGG_MAX_SHORT:
         if (d.arg_kind[a] == KIND_I32) ((int*)d.out[0][a])[g] = narrow_extreme(s[0]);
+        else if (d.arg_kind[a] == KIND_I16)
+          ((short*)d.out[0][a])[g] = (short)narrow_extreme_bits(s[0], 16);
+        else if (d.arg_kind[a] == KIND_I8)
+          ((signed char*)d.out[0][a])[g] = (signed char)narrow_extreme_bits(s[0], 8);
         else if (d.arg_kind[a] == KIND_BOOL)  // an empty state: the fold's neutral value
           ((uint8_t*)d.out[0][a])[g] = s[0] == I64_MIN ? 0 : s[0] != 0;
         else d.out[0][a][g] = s[0];
@@ -400,8 +421,9 @@ __global__ void k2_dsum_chunks(const K2Desc d, int a, i64 n,
       const i64 key = row_key(d, i);
       if (key >= 0 && key < n_groups) {
         g = (int)key;
-        x = d.agg_kind[a] == AGG_HLL_SUM ? hll_weight(load_int(d.arg_data[a], d.arg_kind[a], i))
-                                         : ((const double*)d.arg_data[a])[i];
+        x = d.agg_kind[a] == AGG_HLL_SUM
+            ? hll_weight(load_int(d.arg_data[a], d.arg_kind[a], i))
+            : __longlong_as_double(load_bits(d.arg_data[a], d.arg_kind[a], i));
         if (pass > 0) {
           const double dx = __dsub_rn(x, mu[g]);
           const double dx2 = __dmul_rn(dx, dx);

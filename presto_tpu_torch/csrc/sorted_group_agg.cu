@@ -84,6 +84,13 @@
 // takes the greatest x by its order key (S_BY_X) and counts the rows
 // with a valid x (S_BY_XV, stored as the 0/1 flag).  checksum is an
 // S_SUM of K1's hashes (wadd wraps).
+//
+// The narrow types: a SMALLINT or TINYINT state datum reads
+// sign-extended (pk_load) and its min/max stores back narrowed, an
+// empty state with its own type's identity; a REAL datum widens exactly
+// to a double (DATA_F32) for its min/max order key or a double sum
+// (S_DSUM's fixed order), and a REAL min/max stores back as float32.
+// A SMALLINT or TINYINT group key's representative copies 2 or 1 bytes.
 
 #include "keys.cuh"
 #include "scan.cuh"
@@ -99,9 +106,17 @@ enum { S_ONE = 0, S_VALID = 1, S_SUM = 2, S_LIMBS_SHORT = 3, S_LIMBS_LONG = 4, S
        S_MIN_F64 = 12, S_MAX_F64 = 13, S_BAND = 14, S_BOR = 15, S_HLL = 16, S_MOM = 17,
        S_MOM_MERGE = 18, S_BY_Y_MIN = 19, S_BY_Y_MAX = 20, S_BY_X = 21, S_BY_XV = 22 };
 // how k6_finish stores a state (kernels/sorted_group_agg.py _OUT_KINDS)
-enum { OUT_I64 = 0, OUT_I32 = 1, OUT_BOOL = 2, OUT_F64 = 3 };
-// a state's data: pk_load's kinds, or a double's bits (DATA_F64)
+enum { OUT_I64 = 0, OUT_I32 = 1, OUT_BOOL = 2, OUT_F64 = 3, OUT_I16 = 4, OUT_I8 = 5,
+       OUT_F32 = 6 };
+// a state's data: pk_load's integer kinds, or a double's bits (DATA_F64)
+// or a REAL's, widened exactly (DATA_F32)
 #define DATA_F64 3
+#define DATA_F32 6
+
+// a double or REAL state datum as the bits of its double
+__device__ __forceinline__ i64 data_bits(const void* p, int kind, i64 row) {
+  return kind == DATA_F32 ? f32_bits(p, row) : ((const i64*)p)[row];
+}
 
 __host__ __device__ __forceinline__ bool is_int_state(int kind) {
   return (kind >= S_ONE && kind <= S_MAX_LONG) || (kind >= S_MIN_F64 && kind <= S_BOR) ||
@@ -111,7 +126,7 @@ __host__ __device__ __forceinline__ bool is_int_state(int kind) {
 // min_by / max_by: the order key of a y (is_min: min_by's) or an x
 // (the max side)
 __device__ __forceinline__ i64 by_key(const void* p, int kind, i64 row, bool is_min) {
-  if (kind == DATA_F64) return minmax_key(((const i64*)p)[row], is_min);
+  if (kind == DATA_F64 || kind == DATA_F32) return minmax_key(data_bits(p, kind, row), is_min);
   return pk_load(p, kind, row);
 }
 
@@ -142,6 +157,7 @@ struct K6Desc {
 __device__ __forceinline__ void copy_key(const uint8_t* src, uint8_t* dst, int width,
                                          i64 from, i64 to) {
   if (width == 1) dst[to] = src[from];
+  else if (width == 2) ((short*)dst)[to] = ((const short*)src)[from];
   else if (width == 4) ((int*)dst)[to] = ((const int*)src)[from];
   else ((i64*)dst)[to] = ((const i64*)src)[from];
 }
@@ -202,7 +218,8 @@ __device__ __forceinline__ void add_row(const K6Desc& d, i64 row, i64* acc, int 
       continue;
     }
     if (kind == S_MIN_F64 || kind == S_MAX_F64) {  // by the order key (common.cuh)
-      a[0] = slot_fold(a[0], minmax_key(((const i64*)d.data[s])[row], kind == S_MIN_F64),
+      a[0] = slot_fold(a[0], minmax_key(data_bits(d.data[s], d.data_kind[s], row),
+                                        kind == S_MIN_F64),
                        d.slot_kind[d.slot[s]]);
       continue;
     }
@@ -286,7 +303,17 @@ static __global__ void k6_finish(const K6Desc d, i64 groups, const i64* __restri
         continue;
       }
       if (d.kind[s] == S_MIN_F64 || d.kind[s] == S_MAX_F64) {
-        d.out[s][g] = minmax_value(v[0], d.kind[s] == S_MIN_F64);
+        const i64 x = minmax_value(v[0], d.kind[s] == S_MIN_F64);
+        if (d.out_kind[s] == OUT_F32) ((float*)d.out[s])[g] = bits_f32(x);
+        else d.out[s][g] = x;
+        continue;
+      }
+      if (d.out_kind[s] == OUT_I16) {
+        ((short*)d.out[s])[g] = (short)narrow_extreme_bits(v[0], 16);
+        continue;
+      }
+      if (d.out_kind[s] == OUT_I8) {
+        ((signed char*)d.out[s])[g] = (signed char)narrow_extreme_bits(v[0], 8);
         continue;
       }
       if (d.kind[s] == S_BY_XV) {
@@ -507,7 +534,7 @@ static __global__ void k6_chunk_groups(const int* __restrict__ base, i64 groups,
 static __global__ void k6_dchunks(const i64* __restrict__ order, const i64* __restrict__ starts,
                                   const int* __restrict__ base,
                                   const int* __restrict__ chunk_group, i64 groups, int kind,
-                                  int pass, const double* __restrict__ x,
+                                  int pass, const double* __restrict__ x, int x_f32,
                                   const uint8_t* __restrict__ valid,
                                   const double* __restrict__ m2_in,
                                   const double* __restrict__ m3_in,
@@ -524,7 +551,8 @@ static __global__ void k6_dchunks(const i64* __restrict__ order, const i64* __re
     for (i64 p = p0; p < p1; ++p) {
       const i64 row = order[p];
       if (!valid[row]) continue;
-      double v = kind == S_HLL ? hll_weight(((const i64*)x)[row]) : x[row];
+      double v = kind == S_HLL ? hll_weight(((const i64*)x)[row])
+                 : x_f32 ? (double)((const float*)x)[row] : x[row];
       if (pass == 1 && kind == S_VAR_MERGE) {
         const i64 c = c_in[row];
         const double cf = __ll2double_rn(c);
@@ -566,14 +594,15 @@ static __global__ void k6_dtree(const int* __restrict__ base, i64 groups,
 // out_m2 (out_m2 holds mu between the passes), S_MOM and S_MOM_MERGE
 // out_s, out_m2, out_m3 and out_m4 (out_m4 holds mu until the last
 // pass), with cnt the group counts of their integer state.  x: the
-// double argument (a merge: s_i), m2_in, m3_in, m4_in and c_in a
-// merge's m2_i, m3_i, m4_i and c_i.  Scratch: starts groups + 1 int64,
+// double argument (x_f32: a REAL's float32, for S_DSUM; a merge: s_i),
+// m2_in, m3_in, m4_in and c_in a merge's m2_i, m3_i, m4_i and c_i.  Scratch: starts groups + 1 int64,
 // base groups + 1 ints, partials scan_tiles(groups + 1) + 1 ints,
 // chunk_group and part `bound` (>= the chunk count) ints and doubles.
 extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n,
                                const void* scan, i64 groups, int kind, const void* x,
-                               const void* valid, const void* m2_in, const void* m3_in,
-                               const void* m4_in, const void* c_in, const void* cnt,
+                               int x_f32, const void* valid, const void* m2_in,
+                               const void* m3_in, const void* m4_in, const void* c_in,
+                               const void* cnt,
                                void* out_s, void* out_m2, void* out_m3, void* out_m4,
                                void* starts, void* base, void* partials, void* chunk_group,
                                void* part, i64 bound, void* stream) {
@@ -597,7 +626,8 @@ extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n
   for (int pass = 0; pass < (var ? 2 : mom ? 4 : 1); ++pass) {
     k6_dchunks<<<grid_for(bound, 128, 8), 128, 0, st>>>(
         (const i64*)order, (const i64*)starts, (const int*)base, (const int*)chunk_group,
-        groups, kind, pass, (const double*)x, (const uint8_t*)valid, (const double*)m2_in,
+        groups, kind, pass, (const double*)x, x_f32, (const uint8_t*)valid,
+        (const double*)m2_in,
         (const double*)m3_in, (const double*)m4_in, (const i64*)c_in,
         pass ? (const double*)mu : nullptr, (double*)part);
     k6_dtree<<<(int)((groups + 127) / 128), 128, 0, st>>>(

@@ -21,10 +21,14 @@
 // (insertion); a block merges its threads' lists pairwise in shared
 // memory (log2 steps) and writes its n best; a second launch of one
 // block merges the blocks' lists the same way.  n is at most K7_MAX_N
-// = 100 (TPC-H's LIMIT 100; kernels/topn.py raises NotPorted above
-// it): 64 threads a block keep 64 lists of 100 int32 row ids, 25 KB,
+// = 100 (TPC-H's LIMIT 100; kernels/topn.py raises above it): 64
+// threads a block keep 64 lists of 100 int32 row ids, 25 KB,
 // inside the 48 KB of static shared memory (128 threads would need
-// 51 KB).  A merge step's output list lives in local memory.
+// 51 KB).  A merge step's output list lives in local memory.  A REAL
+// key orders as its exact double; a SMALLINT or TINYINT key reads
+// sign-extended.  Past K7_MAX_N rows the port sorts the page instead
+// (ops/sort.py topn_page: torch.sort, then the first n live rows), as
+// the reference's topn_page always does.
 
 #include "common.cuh"
 
@@ -32,7 +36,8 @@
 #define K7_MAX_KEYS 16
 #define K7_THREADS 64
 
-enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3, TK_F64 = 4 };
+enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3, TK_F64 = 4, TK_I16 = 5, TK_I8 = 6,
+       TK_F32 = 7 };
 
 struct K7Keys {
   int n_keys;
@@ -60,6 +65,10 @@ __device__ __forceinline__ i64 lane(const K7Keys& k, int c, int j, i64 row) {
     case TK_I32: return ((const int*)k.data[c])[row];
     case TK_I64: return ((const i64*)k.data[c])[row];
     case TK_F64: return double_key(((const double*)k.data[c])[row], k.asc[c] != 0);
+    case TK_F32:  // a REAL orders as its exact double
+      return double_key((double)((const float*)k.data[c])[row], k.asc[c] != 0);
+    case TK_I16: return ((const short*)k.data[c])[row];
+    case TK_I8: return ((const signed char*)k.data[c])[row];
     default: return ((const i64*)k.data[c])[2 * row + j];
   }
 }
@@ -75,7 +84,8 @@ __device__ __forceinline__ bool before(const K7Keys& k, i64 a, i64 b) {
     for (int j = 0; j < lanes; ++j) {
       const i64 xa = lane(k, c, j, a), xb = lane(k, c, j, b);
       // a double's key is already in ascending order
-      if (xa != xb) return k.asc[c] || k.kind[c] == TK_F64 ? xa < xb : xa > xb;
+      if (xa != xb)
+        return k.asc[c] || k.kind[c] == TK_F64 || k.kind[c] == TK_F32 ? xa < xb : xa > xb;
     }
   }
   return a < b;

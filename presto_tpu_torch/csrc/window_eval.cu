@@ -39,6 +39,13 @@
 // tensors.  IGNORE NULLS ranks the non-null rows by a prefix count and
 // scatters rank -> position.  Simple first: no pass is fused with
 // another, and the lookups are uncoalesced gathers.
+//
+// The narrow types: a SMALLINT or TINYINT argument or order key reads
+// sign-extended and stores back narrowed; a REAL one widens exactly to
+// its double, so sum and avg add it in the double prefix order (the
+// reference sums a REAL as float64) and min/max scan it as a double,
+// storing float32; an empty running min/max over a REAL starts at 2^63
+// (the reference's int64 extreme cast to float32).
 
 #include "common.cuh"
 #include "scan.cuh"
@@ -54,7 +61,14 @@ enum {
   W_FIRST_VALUE, W_LAST_VALUE, W_NTH_VALUE, W_COUNT, W_COUNT_STAR, W_SUM, W_AVG, W_MIN, W_MAX
 };
 enum { FR_PEERS = 0, FR_WHOLE = 1, FR_ROWS = 2 };
-enum { WK_BOOL = 0, WK_I32 = 1, WK_I64 = 2, WK_F64 = 3, WK_D128 = 4 };
+enum { WK_BOOL = 0, WK_I32 = 1, WK_I64 = 2, WK_F64 = 3, WK_D128 = 4, WK_I16 = 5, WK_I8 = 6,
+       WK_F32 = 7 };
+
+// a double's or a REAL's (widened exactly) lane: summed and scanned as a
+// double
+__host__ __device__ __forceinline__ bool is_float_kind(int kind) {
+  return kind == WK_F64 || kind == WK_F32;
+}
 
 struct K10Order {
   int n;
@@ -93,17 +107,24 @@ __device__ __forceinline__ bool lanes_differ(int kind, const void* d, i64 a, i64
     case WK_I32: return ((const int*)d)[a] != ((const int*)d)[b];
     case WK_I64: return ((const i64*)d)[a] != ((const i64*)d)[b];
     case WK_F64: return ((const double*)d)[a] != ((const double*)d)[b];  // NaN differs
+    case WK_F32: return ((const float*)d)[a] != ((const float*)d)[b];
+    case WK_I16: return ((const short*)d)[a] != ((const short*)d)[b];
+    case WK_I8: return ((const signed char*)d)[a] != ((const signed char*)d)[b];
     default:
       return ((const i64*)d)[2 * a] != ((const i64*)d)[2 * b] ||
              ((const i64*)d)[2 * a + 1] != ((const i64*)d)[2 * b + 1];
   }
 }
 
-// the argument's value at row r as an int64 lane (doubles as bits)
+// the argument's value at row r as an int64 lane (doubles as bits, a
+// REAL as its exact double's)
 __device__ __forceinline__ i64 load_lane(int kind, const void* d, i64 r) {
   switch (kind) {
     case WK_BOOL: return ((const uint8_t*)d)[r] != 0;
     case WK_I32: return ((const int*)d)[r];
+    case WK_I16: return ((const short*)d)[r];
+    case WK_I8: return ((const signed char*)d)[r];
+    case WK_F32: return f32_bits(d, r);
     default: return ((const i64*)d)[r];
   }
 }
@@ -112,6 +133,9 @@ __device__ __forceinline__ void store_lane(int kind, void* d, i64 r, i64 v) {
   switch (kind) {
     case WK_BOOL: ((uint8_t*)d)[r] = v != 0; break;
     case WK_I32: ((int*)d)[r] = (int)v; break;
+    case WK_I16: ((short*)d)[r] = (short)v; break;
+    case WK_I8: ((signed char*)d)[r] = (signed char)v; break;
+    case WK_F32: ((float*)d)[r] = bits_f32(v); break;
     default: ((i64*)d)[r] = v;
   }
 }
@@ -332,7 +356,11 @@ static __global__ void k10_prep_values(const K10Bounds b, const K10Func f,
       const bool mn = f.kind == W_MIN;
       if (f.arg_kind == WK_F64)  // the largest finite double, as the twin's
         x = mn ? 0x7fefffffffffffffLL : (i64)0xffefffffffffffffULL;
+      else if (f.arg_kind == WK_F32)  // 2^63 as a REAL (the reference's int64 extreme)
+        x = mn ? 0x43e0000000000000LL : (i64)0xc3e0000000000000ULL;
       else if (f.arg_kind == WK_I32) x = mn ? 0x7fffffffLL : -0x80000000LL;
+      else if (f.arg_kind == WK_I16) x = mn ? 0x7fffLL : -0x8000LL;
+      else if (f.arg_kind == WK_I8) x = mn ? 0x7fLL : -0x80LL;
       else if (f.arg_kind == WK_BOOL) x = mn ? 1 : 0;
       else x = mn ? I64_MAX : I64_MIN;
     } else {
@@ -513,18 +541,19 @@ static __global__ void k10_aggregate(const K10Bounds b, const K10Func f,
     }
     i64 s_int = 0;
     double s_dbl = 0.0;
-    if (f.arg_kind == WK_F64) {  // p[e] - p[s] + v[s], rounded in that order
+    const bool dbl = is_float_kind(f.arg_kind);
+    if (dbl) {  // p[e] - p[s] + v[s], rounded in that order
       if (!empty)
         s_dbl = __dadd_rn(__dsub_rn(bits2d(scan[e_c]), bits2d(scan[s_c])), bits2d(vals[s_c]));
     } else if (!empty) {  // the exclusive prefix sums' difference, modulo 2^64
       s_int = (i64)((u64)scan[e_c + 1] - (u64)scan[s_c]);
     }
-    if (f.kind == W_SUM) {
-      if (f.arg_kind == WK_F64) ((double*)f.out)[r] = s_dbl;
+    if (f.kind == W_SUM) {  // a REAL sums in double
+      if (dbl) ((double*)f.out)[r] = s_dbl;
       else ((i64*)f.out)[r] = s_int;
       continue;
     }
-    double num = f.arg_kind == WK_F64 ? s_dbl : __ll2double_rn(s_int);
+    double num = dbl ? s_dbl : __ll2double_rn(s_int);
     if (f.scale >= 0) {
       double p10 = 1.0;
       for (int k = 0; k < f.scale; ++k) p10 = __dmul_rn(p10, 10.0);  // exact to 10^22
@@ -617,7 +646,7 @@ extern "C" int k10_window_eval(i64 n, const void* perm, const void* live, const 
         if (f.kind == W_MIN || f.kind == W_MAX) {
           SegMinMax op;
           op.minimum = f.kind == W_MIN;
-          op.dbl = f.arg_kind == WK_F64;
+          op.dbl = is_float_kind(f.arg_kind);
           i64* agg_v = (i64*)partials;
           int* agg_f = (int*)(agg_v + tiles + 1);
           k10_segscan_tiles<<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(
@@ -625,7 +654,7 @@ extern "C" int k10_window_eval(i64 n, const void* perm, const void* live, const 
           k10_segscan_carries<<<1, 1, 0, s>>>(tiles, op, agg_v, agg_f);
           k10_segscan_apply<<<grid, K10_THREADS, 0, s>>>(n, op, v, (const uint8_t*)pos_of,
                                                          agg_v);
-        } else if (f.arg_kind == WK_F64) {
+        } else if (is_float_kind(f.arg_kind)) {
           fscan(n, v, sc, (i64*)levels, grid, s);
         } else {
           cudaMemcpyAsync(sc, v, n * sizeof(i64), cudaMemcpyDeviceToDevice, s);

@@ -159,8 +159,10 @@ def _values_columns(node: ValuesNode):
     for i, t in enumerate(node.types):
         raw = [r[i] for r in node.rows]
         valids.append(np.asarray([v is not None for v in raw], np.bool_))
-        if t.is_long_decimal:
-            cols.append(raw)  # limbs: unscaled values may pass int64
+        if t.is_array or t.is_map or t.is_long_decimal:
+            # Page encodes container lists and limb decimals (unscaled
+            # values may pass int64), as the reference's branch does
+            cols.append(raw)
         else:
             cols.append(np.asarray([0 if v is None else v for v in raw], dtype=t.np_dtype))
     return cols, node.types, valids

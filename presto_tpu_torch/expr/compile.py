@@ -42,7 +42,13 @@ maps to NULL: length, strpos, codepoint, the JSON sizes, from_base,
 date_parse, from_iso8601_date, the edit distances against a literal,
 CAST of a varchar column to a number, crc32 / xxhash64 of ``to_utf8``;
 the predicates regexp_like, starts_with, ends_with and is_json_scalar
-as boolean tables) and ``try`` (the identity).  An expression that
+as boolean tables) and ``try`` (the identity); the narrow scalar types:
+SMALLINT and TINYINT lanes, REAL on the double lane rounded to float32
+after each operation (the reference's float32 arithmetic, its
+``_align_pair`` REAL branch), ``cast_real`` / ``cast_smallint`` /
+``cast_tinyint`` (out of range NULL), integer arithmetic at its
+operands' widths, interval arithmetic (int64 lanes of microseconds or
+months) and IN over a double column.  An expression that
 involves ARRAY, MAP or ROW values, lambdas or ``split`` goes to the
 container half (``expr/containers.py``: K12, K13, and K1 for the
 scalar parts); raw strings raise by name.
@@ -241,11 +247,15 @@ def merged_string_dictionary(e: Call, dictionaries) -> Optional[Dictionary]:
 
 
 _KIND_OF_NP = {np.dtype(np.bool_): k1.KIND_BOOL, np.dtype(np.int32): k1.KIND_I32,
-               np.dtype(np.int64): k1.KIND_I64}
+               np.dtype(np.int64): k1.KIND_I64, np.dtype(np.int16): k1.KIND_I16,
+               np.dtype(np.int8): k1.KIND_I8}
+# the signed width of an integer storage kind narrower than int64
+_NARROW_BITS = {k1.KIND_I32: 32, k1.KIND_I16: 16, k1.KIND_I8: 8}
 
 
 def _storage_kind(t: Type) -> int:
-    """K1 storage kind of a scalar type (its int32/int64/bool lane)."""
+    """K1 storage kind of a scalar type (its int8/int16/int32/int64/bool
+    lane)."""
     if t.value_shape != () or t.is_long_decimal or t.is_string \
             or t.name in ("double", "real"):
         raise NotPorted(f"expressions over {t}")
@@ -262,7 +272,7 @@ SHORT, DOUBLE, LONG = "short", "double", "long"
 def _lane(t: Type) -> str:
     if t.is_long_decimal and t.value_shape == (2,):
         return LONG
-    if t.name == "double":
+    if t.name in ("double", "real"):  # a REAL rides the double lane as its exact value
         return DOUBLE
     _storage_kind(t)
     return SHORT
@@ -273,7 +283,7 @@ def _out_kind(t: Type) -> int:
         return k1.KIND_I32  # dictionary codes
     lane = _lane(t)
     if lane == DOUBLE:
-        return k1.KIND_F64
+        return k1.KIND_F32 if t.name == "real" else k1.KIND_F64
     if lane == LONG:
         return k1.KIND_D128
     return _storage_kind(t)
@@ -470,7 +480,8 @@ class _Lowering:
                 self._push(k1.LIT, self._const(0))
                 return True
             if _lane(e.type) == DOUBLE:
-                self._push(k1.DLIT, self._const(k1.double_bits(e.value)))
+                v = float(np.float32(e.value)) if e.type.name == "real" else e.value
+                self._push(k1.DLIT, self._const(k1.double_bits(v)))
                 return True
             if _lane(e.type) != SHORT:
                 raise NotPorted(f"{e.type} literals")
@@ -523,8 +534,11 @@ class _Lowering:
             const = self._emit_ts(e.args[0]) & self._emit_ts(e.args[1])
             self._push(getattr(k1, fn.upper()))
         elif fn in LCMP_OPS and DOUBLE in (_lane(e.args[0].type), _lane(e.args[1].type)):
-            # the reference's _align_pair: both sides as doubles
-            const = self._emit_double(e.args[0]) & self._emit_double(e.args[1])
+            # the reference's _align_pair: both sides as doubles, or, with
+            # a REAL and no double, both as float32
+            emit = self._emit_double if "double" in (e.args[0].type.name, e.args[1].type.name) \
+                else self._emit_real
+            const = emit(e.args[0]) & emit(e.args[1])
             self._push(k1.DCMP, LCMP_OPS.index(fn))
         elif fn in ("eq", "ne", "lt", "le", "gt", "ge") and LONG in (_lane(e.args[0].type),
                                                                   _lane(e.args[1].type)):
@@ -556,6 +570,10 @@ class _Lowering:
             const = self._emit_sign(e)
         elif fn == "cast_double" and not e.args[0].type.is_string:
             const = self._emit_double(e.args[0])  # _to_double
+        elif fn == "cast_real" and not e.args[0].type.is_string:
+            const = self._emit_cast_real(e.args[0])
+        elif fn in ("cast_smallint", "cast_tinyint") and not e.args[0].type.is_string:
+            const = self._emit_cast_narrow(e)
         elif fn in DATE_PARTS:
             (x,) = e.args
             if x.type.name not in _DT:
@@ -703,7 +721,7 @@ class _Lowering:
                 raise NotPorted(f"{e.fn} with a non-literal width")
             p = int(e.args[1].value)
         t = col.type
-        if t.is_raw_string or (not t.is_string and _lane(t) == LONG):
+        if t.is_raw_string or t.name == "real" or (not t.is_string and _lane(t) == LONG):
             raise NotPorted(f"{e.fn} over {t}")
         if t.is_string:
             d = expr_dictionary(col, self.dictionaries)
@@ -1121,19 +1139,29 @@ class _Lowering:
                               lambda s: s in wanted)
 
     def _emit_in(self, e: Call) -> bool:
-        """``x IN (literals)`` over an integer lane: the raw value against
-        each literal's value, no scale alignment (as the reference); the
-        result keeps x's valid bit.  The literals take a run of the
-        constant pool."""
+        """``x IN (literals)``: over an integer lane the raw value against
+        each literal's value, no scale alignment (IN, as the reference);
+        over a double lane ``==`` against each literal as a double (DIN; a
+        REAL column compares in float32, so each literal rounds to float32
+        first), where NaN matches nothing and -0.0 equals 0.0.  The result
+        keeps x's valid bit; the literals take a run of the constant
+        pool."""
         col, values = e.args[0], e.args[1:]
-        if _lane(col.type) != SHORT:
+        lane = _lane(col.type)
+        if lane not in (SHORT, DOUBLE):
             raise NotPorted(f"IN over {col.type}")
+        number = (int, float, np.integer, np.floating) if lane == DOUBLE else (int, np.integer)
         lits = []
         for v in values:
             if not isinstance(v, Literal) or isinstance(v.value, bool) \
-                    or not isinstance(v.value, (int, np.integer)):
-                raise NotPorted("IN with a value that is not an integer literal")
-            lits.append(int(v.value))
+                    or not isinstance(v.value, number):
+                raise NotPorted("IN with a value that is not an integer literal" if lane == SHORT
+                                else "IN with a value that is not a numeric literal")
+            if lane == SHORT:
+                lits.append(int(v.value))
+            else:
+                x = float(np.float32(v.value)) if col.type.name == "real" else float(v.value)
+                lits.append(k1.double_bits(x))
         if not lits or len(lits) >= 1 << (31 - k1.IN_COUNT_SHIFT):
             raise NotPorted(f"IN over {len(lits)} literals")
         const = self.emit(col)
@@ -1141,7 +1169,7 @@ class _Lowering:
         if first >= 1 << k1.IN_COUNT_SHIFT:
             raise NotPorted("IN past the constant pool's reach")
         self.consts.extend(lits)
-        self._push(k1.IN, first | len(lits) << k1.IN_COUNT_SHIFT)
+        self._push(k1.IN if lane == SHORT else k1.DIN, first | len(lits) << k1.IN_COUNT_SHIFT)
         return const
 
     # -- CASE / IF ----------------------------------------------------------
@@ -1200,7 +1228,7 @@ class _Lowering:
                 raise NotPorted("round with non-literal digits")
             digits = int(e.args[1].value)
         lane = _lane(x.type)
-        if lane == LONG:
+        if lane == LONG or x.type.name == "real":  # the reference rounds a REAL in float32
             raise NotPorted(f"round of {x.type}")
         const = self.emit(x)
         if lane == DOUBLE:
@@ -1237,6 +1265,8 @@ class _Lowering:
             return self.emit(e)
         if to_t.name == "timestamp" and e.type.name == "date":
             return self._emit_ts(e)
+        if to_t.name == "real":
+            return self._emit_real(e)
         if _lane(to_t) == DOUBLE:
             return self._emit_double(e)
         if _lane(to_t) == LONG and _lane(e.type) in (SHORT, LONG) \
@@ -1275,6 +1305,54 @@ class _Lowering:
             self._fold(start)
         return const
 
+    def _emit_real(self, e: Expr) -> bool:
+        """Push ``e`` as a REAL (the reference's ``_to_double(...)
+        .astype(float32)``): a REAL as it is, anything else as a double
+        (``_emit_double``) rounded once to float32 (F32R)."""
+        if e.type.name == "real":
+            return self.emit(e)
+        start = len(self.ops)
+        const = self._emit_double(e)
+        self._push(k1.F32R, k1.F32R_DOUBLE)
+        if const:
+            self._fold(start)
+        return const
+
+    def _emit_cast_real(self, x: Expr) -> bool:
+        """cast_real (the reference's ``run_cast_narrow``): a decimal
+        through a double (``_to_double``: divided by 10^scale) rounded to
+        float32, a double rounded, an integer lane converted straight to
+        float32 (``astype(float32)``: F32R of the int64 lane)."""
+        if x.type.name in _DT or x.type.name.startswith("interval"):
+            raise NotPorted(f"cast_real of {x.type}")
+        if x.type.is_decimal or _lane(x.type) != SHORT:
+            return self._emit_real(x)
+        const = self.emit(x)
+        self._push(k1.F32R, k1.F32R_INT)
+        return const
+
+    def _emit_cast_narrow(self, e: Call) -> bool:
+        """cast_smallint / cast_tinyint (the reference's
+        ``run_cast_narrow``): a short decimal floor-divided by 10^scale, a
+        long one through cast_bigint's floor, a double or REAL toward zero
+        (XLA's saturating conversion), then NULL where the int64 value does
+        not fit the narrower type (CASTN), never a wrapped value."""
+        (x,) = e.args
+        if x.type.name in _DT or x.type.name.startswith("interval"):
+            raise NotPorted(f"{e.fn} of {x.type}")
+        lane = _lane(x.type)
+        if lane == LONG and _scale(x.type) > 18:
+            raise NotPorted(f"{e.fn} of {x.type}")
+        const = self.emit(x)
+        if lane == DOUBLE:
+            self._push(k1.CASTBI, k1.CAST_FROM_DOUBLE)
+        elif lane == LONG:
+            self._push(k1.CASTBI, k1.CAST_FROM_LONG | _scale(x.type) << 2)
+        elif _scale(x.type):
+            self._push(k1.SFLOOR, self._const(10 ** _scale(x.type)) * 2)
+        self._push(k1.CASTN, _NARROW_BITS[_storage_kind(e.type)])
+        return const
+
     def _emit_sign(self, e: Call) -> bool:
         """``neg`` / ``abs``: a double's sign (DNEG, DABS), or an integer
         lane's, NULL where the lane's least value has no negation (the
@@ -1286,9 +1364,11 @@ class _Lowering:
         const = self.emit(x)
         if lane == DOUBLE:
             self._push(k1.DNEG if e.fn == "neg" else k1.DABS)
-        else:
-            narrow = _storage_kind(x.type) == k1.KIND_I32
-            self._push(k1.NEG if e.fn == "neg" else k1.ABS, int(narrow))
+        else:  # an integer lane; an int16 or int8 one NULL past its range (CASTN)
+            kind = _storage_kind(x.type)
+            self._push(k1.NEG if e.fn == "neg" else k1.ABS, int(kind == k1.KIND_I32))
+            if kind in (k1.KIND_I16, k1.KIND_I8):
+                self._push(k1.CASTN, _NARROW_BITS[kind])
         return const
 
     def _emit_long_cmp(self, e: Call) -> bool:
@@ -1339,6 +1419,15 @@ class _Lowering:
     def _emit_arith(self, e: Call) -> bool:
         a, b = e.args
         tr = e.type
+        if tr.name == "real":  # both sides as float32, the op in double, rounded once
+            const = self._emit_real(a) & self._emit_real(b)
+            if e.fn == "mod":
+                self._push(k1.DBIN, k1.DBIN_FNS.index("mod"))
+            else:
+                self._push({"add": k1.DADD, "sub": k1.DSUB, "mul": k1.DMUL,
+                            "div": k1.DDIV}[e.fn])
+            self._push(k1.F32R, k1.F32R_DOUBLE)
+            return const
         if tr.name == "double":
             const = self._emit_double(a) & self._emit_double(b)
             if e.fn == "mod":  # jnp.mod: floored (the reference's fault, ROADMAP C)
@@ -1363,24 +1452,46 @@ class _Lowering:
             return False
         if lanes != (SHORT, SHORT) or (e.fn == "div" and tr.is_decimal):
             raise NotPorted(f"{e.fn} producing {tr}")
+        width = 64
         if tr.is_decimal:
             if e.fn == "mul":  # scale sa + sb == tr.scale, no rescale
                 const = self.emit(a) & self.emit(b)
             else:
                 const = (self._emit_scaled(a, tr.scale or 0, check=True)
                          & self._emit_scaled(b, tr.scale or 0, check=True))
-        elif tr.name == "bigint" and not a.type.is_decimal and not b.type.is_decimal \
-                and np.dtype(np.int64) in (np.dtype(a.type.np_dtype),
-                                           np.dtype(b.type.np_dtype)):
-            # int64 arithmetic: at least one int64 operand, as jnp promotes
+        else:
+            # integer or interval arithmetic at the width jnp promotes the
+            # operands to: an int64 one wraps-to-NULL in ADD/SUB/MUL, a
+            # narrower one runs exactly in the int64 lane and is NULL where
+            # it leaves its width (CASTN), as the reference's _ovf_* rules
+            width = self._int_width(a.type, b.type, tr)
             const = self.emit(a) & self.emit(b)
-        else:
-            raise NotPorted(f"{e.fn} producing {tr}")
         if e.fn in ("mod", "div"):  # _trunc_mod / _trunc_div, NULL on a zero divisor
-            self._push(k1.IMOD, int(e.fn == "div"))
-        else:
-            self._push({"add": k1.ADD, "sub": k1.SUB, "mul": k1.MUL}[e.fn])
+            # each operand's abs at its own width and the result wrapped
+            # at the wider one, as jnp computes them
+            codes = [0, 0] if tr.is_decimal else [
+                k1.IMOD_WIDTHS.index(8 * np.dtype(t.np_dtype).itemsize) for t in (a.type, b.type)]
+            self._push(k1.IMOD, int(e.fn == "div") | codes[0] << 1 | codes[1] << 3)
+            return const
+        self._push({"add": k1.ADD, "sub": k1.SUB, "mul": k1.MUL}[e.fn])
+        if not tr.is_decimal and width < 64:
+            self._push(k1.CASTN, width)
         return const
+
+    @staticmethod
+    def _int_width(ta: Type, tb: Type, tr: Type) -> int:
+        """The bits of an integer result: the wider operand's storage, as
+        jnp promotes (an interval, a date or a timestamp is its integer
+        lane)."""
+        interval = tr.name.startswith("interval")
+        for t in (ta, tb):
+            if t.is_decimal or _lane(t) != SHORT or t.name == "boolean":
+                raise NotPorted(f"arithmetic producing {tr} over {t}")
+        width = 8 * max(np.dtype(ta.np_dtype).itemsize, np.dtype(tb.np_dtype).itemsize)
+        if not (interval or tr.name in ("bigint", "integer", "smallint", "tinyint")) \
+                or 8 * np.dtype(tr.np_dtype).itemsize != width:
+            raise NotPorted(f"arithmetic producing {tr}")
+        return width
 
     def program(self, out_kind: int) -> k1.Program:
         # keep only the constants that folding left in use; each IN
@@ -1395,7 +1506,7 @@ class _Lowering:
                     consts.append(v)
                 args[i] = consts.index(v) * 2 + (args[i] & 1) if op == k1.SFLOOR \
                     else consts.index(v)
-            elif op == k1.IN:
+            elif op in (k1.IN, k1.DIN):
                 first, count = args[i] & ((1 << k1.IN_COUNT_SHIFT) - 1), \
                     args[i] >> k1.IN_COUNT_SHIFT
                 args[i] = len(consts) | count << k1.IN_COUNT_SHIFT

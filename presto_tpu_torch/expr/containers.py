@@ -286,7 +286,7 @@ class ContainerCompiler:
 
             def run_sub(page):
                 d, v = arr(page)
-                x, xv = idx(page)
+                x, xv = _real_lane(*idx(page))
                 if is_map:
                     out, ov = k12.container_eval(k12.MAP_GET, d, v, x=x, xv=xv,
                                                  p=[0, 0, 0, 0, 0, m])
@@ -324,7 +324,7 @@ class ContainerCompiler:
     @staticmethod
     def _with_lane(op, arr, xf, page):
         d, v = arr(page)
-        x, xv = xf(page)
+        x, xv = _real_lane(*xf(page))
         return k12.container_eval(op, d, v, x=x, xv=xv)
 
     # -- container-valued expressions -----------------------------------------
@@ -375,7 +375,7 @@ class ContainerCompiler:
             m, dt = t.max_elems, _torch_dtype(t)
 
             def run_repeat(page):
-                x, xv = val(page)
+                x, xv = _real_lane(*val(page))
                 return (k12.container_eval(k12.REPEAT, x=x, xv=xv, out_m=m, out_dtype=dt,
                                            p=[count]),
                         torch.ones(page.capacity, dtype=torch.bool, device=page.device))
@@ -452,7 +452,7 @@ class ContainerCompiler:
 
             def run_remove(page):
                 d, v = arr(page)
-                x, xv = xf(page)
+                x, xv = _real_lane(*xf(page))
                 out, ov = k12.container_eval(k12.REMOVE, d, v, x=x, xv=xv)
                 return out, v & xv
 
@@ -744,6 +744,13 @@ class ContainerCompiler:
             return od.to(out_dt), v & ov
 
         return run
+
+
+def _real_lane(x: torch.Tensor, xv: torch.Tensor):
+    """A scalar lane as K12 reads it: a REAL (float32) widened exactly to
+    the double lane a container holds it in (types.py), as CONSTRUCT's
+    ``lane_to`` does."""
+    return (k12.lane_to(x, torch.float64) if x.dtype == torch.float32 else x), xv
 
 
 def conv_of(from_t: Type, to_t: Type) -> Tuple[int, int]:

@@ -47,6 +47,19 @@ and the HLL bucket or rho; WBUCKET, width_bucket; IMOD, SQL's
 truncating int64 mod or div.  DATEPART also gives day_of_week,
 day_of_year, ISO week, year_of_week and last_day_of_month.
 
+The narrow scalar types (eleventh slice): a SMALLINT (int16) or
+TINYINT (int8) column loads sign-extended into the int64 lane and a
+REAL (float32) widens exactly into the double lane; an output of
+those kinds stores narrowed.  F32R rounds the double lane once to
+float32 and widens it back (or converts the int64 lane straight to
+float32): a REAL operation runs in double and rounds once, which for
+``+ - * /`` and the floored mod of two float32 values is the float32
+result (53 >= 2 * 24 + 2).  CASTN NULLs an int64 lane outside a
+narrower signed range (the narrowing casts, int16/int32 arithmetic);
+DIN is IN over a double lane (``==``: NaN matches nothing, -0.0 equals
+0.0).  IMOD takes each operand's ``abs`` at its own width and wraps its
+result at the wider one, as the reference's jnp does.
+
 A stack value is an int64 lane (integers, dates, booleans, short
 decimals, dictionary codes), a double, or a long decimal (two
 base-10^18 limbs).  A program that holds a long or double lane is
@@ -74,7 +87,7 @@ LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
     DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DADD, DSUB, DMUL, \
     DNEG, DABS, DCMP, NEG, ABS, COAL, SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, \
     DUN, DBIN, BITW, GL, NULLIF, CASTBI, HLL, WBUCKET, IMOD, VLUT, DVLUT, TSPART, DTRUNC, \
-    DTADD, DTDIFF, CASTTS, UNIXT, DFMT = range(68)
+    DTADD, DTDIFF, CASTTS, UNIXT, DFMT, F32R, CASTN, DIN = range(71)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
             "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon",
@@ -82,13 +95,15 @@ OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "dadd", "dsub", "dmul", "dneg", "dabs", "dcmp", "neg", "abs", "coalesce",
             "sfloor", "sround", "dfloor", "dround", "d2s", "d2l", "ladd",
             "dun", "dbin", "bitw", "gl", "nullif", "castbi", "hll", "wbucket", "imod",
-            "vlut", "dvlut", "tspart", "dtrunc", "dtadd", "dtdiff", "castts", "unixt", "dfmt")
+            "vlut", "dvlut", "tspart", "dtrunc", "dtadd", "dtdiff", "castts", "unixt", "dfmt",
+            "f32r", "castn", "din")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
                 0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0, 1, 1, -1, -1, -1,
                 0, 0, -1, 0, 0, -1, 0, 0, 0, 0, 0, 0, -1,
                 0, -1, -1, -1, -1, 0, 0, -3, -1,
-                0, 0, 0, 0, -1, -1, 0, 0, 0)
+                0, 0, 0, 0, -1, -1, 0, 0, 0,
+                0, 0, 0)
 # opcodes whose argument is printed: a column slot, a constant index,
 # a table slot, the long operand's side (MUL_LS), a decimal scale
 # (L2D, S2D), IN's literal run (first constant | count <<
@@ -109,23 +124,30 @@ STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0
 # GL_LONG), CASTBI's source (CAST_FROM_DOUBLE, CAST_FROM_SHORT,
 # CAST_FROM_LONG) plus its decimal scale ``<< 2``, HLL's 0 bucket or 1
 # rho plus its register-index width ``P << 1`` (P = 0: the whole
-# splitmix64 hash, checksum's), IMOD's 0 mod or 1 div; the date,
+# splitmix64 hash, checksum's), IMOD's 0 mod or 1 div plus its
+# operands' widths (IMOD_WIDTHS codes ``<< 1`` and ``<< 3``); the date,
 # time and dictionary-table opcodes: VLUT's and DVLUT's value table slot plus ``(not-null table
 # slot + 1) << 8`` (0: none), TSPART's part (TS_PARTS), DTRUNC's,
 # DTADD's and DTDIFF's unit (DT_UNITS) plus the lane flags ``<< 4``
 # (DT_TS: a timestamp; DTDIFF: DT_A_DATE, DT_B_DATE), CASTTS's
 # direction (0 date to timestamp, 1 timestamp to date), UNIXT's mode
-# (UNIXT_TS, UNIXT_DATE, UNIXT_FROM), DFMT's 1 for a timestamp
+# (UNIXT_TS, UNIXT_DATE, UNIXT_FROM), DFMT's 1 for a timestamp; the
+# narrow types: F32R's source (F32R_DOUBLE: the double lane rounded to
+# float32, F32R_INT: the int64 lane converted to float32, each widened
+# back into the double lane), CASTN's width in bits (8, 16 or 32: NULL
+# where the int64 lane lies outside that signed range), DIN's literal
+# run as IN's (doubles' bits)
 _ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON,
             DATEPART, S2D, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DCMP, NEG, ABS,
             SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, DUN, DBIN, BITW, GL, CASTBI,
-            HLL, IMOD, VLUT, DVLUT, TSPART, DTRUNC, DTADD, DTDIFF, CASTTS, UNIXT, DFMT)
+            HLL, IMOD, VLUT, DVLUT, TSPART, DTRUNC, DTADD, DTDIFF, CASTTS, UNIXT, DFMT, F32R,
+            CASTN, DIN)
 # opcodes whose argument holds a constant index (SFLOOR: times two)
 CONST_ARG_OPS = (LIT, SCALE_CHK, SCALE, DLIT, SROUND, DROUND, D2S, D2L)
 IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
 DOUBLE_OPS = frozenset((LOAD_F64, DLIT, DADD, DSUB, DMUL, DNEG, DABS, DCMP, DFLOOR,
-                        DROUND, D2S, D2L, DUN, DBIN, WBUCKET, DVLUT, UNIXT))
+                        DROUND, D2S, D2L, DUN, DBIN, WBUCKET, DVLUT, UNIXT, F32R, DIN))
 WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP, D2L,
                       LADD)) | DOUBLE_OPS
 
@@ -153,6 +175,8 @@ TRANSCENDENTAL = frozenset(DUN_FNS.index(f) for f in (
 DBIN_FNS = ("power", "atan2", "mod")
 BITW_OPS = ("and", "or", "xor", "shift_left", "shift_right", "bit_count")
 GL_INT, GL_DOUBLE, GL_LONG = 0, 1, 2
+# IMOD's operand widths by their two-bit codes (arg bits 1-2 and 3-4)
+IMOD_WIDTHS = (64, 32, 16, 8)
 CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG = 0, 1, 2
 
 # dates and timestamps: dates are int32 epoch days, timestamps int64 epoch
@@ -175,11 +199,18 @@ UNIXT_TS, UNIXT_DATE, UNIXT_FROM = 0, 1, 2
 DATE_FMT_BASE = -25567
 DATE_FMT_SPAN = 73049
 
-# storage kinds of loaded columns and of the output
-KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128 = range(5)
-_KIND_OF = {torch.bool: KIND_BOOL, torch.int32: KIND_I32, torch.int64: KIND_I64}
+# storage kinds of loaded columns and of the output: a SMALLINT
+# (int16) or TINYINT (int8) loads sign-extended into the int64 lane, a
+# REAL (float32) widens exactly into the double lane; each stores back
+# narrowed
+KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128, KIND_I16, KIND_I8, KIND_F32 = range(8)
+_KIND_OF = {torch.bool: KIND_BOOL, torch.int32: KIND_I32, torch.int64: KIND_I64,
+            torch.int16: KIND_I16, torch.int8: KIND_I8}
 _DTYPE_OF = {KIND_BOOL: torch.bool, KIND_I32: torch.int32, KIND_I64: torch.int64,
-             KIND_F64: torch.float64}
+             KIND_F64: torch.float64, KIND_I16: torch.int16, KIND_I8: torch.int8,
+             KIND_F32: torch.float32}
+_FLOAT_KINDS = (KIND_F64, KIND_F32)
+F32R_DOUBLE, F32R_INT = 0, 1
 
 _I64_MAX = (1 << 63) - 1
 _I64_MIN = -(1 << 63)
@@ -201,7 +232,7 @@ COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null",
                NULLIF: "nullif", CASTBI: "castbi", HLL: "hll", WBUCKET: "wbucket",
                IMOD: "imod", VLUT: "vlut", DVLUT: "dvlut", TSPART: "tspart",
                DTRUNC: "dtrunc", DTADD: "dtadd", DTDIFF: "dtdiff", CASTTS: "castts",
-               UNIXT: "unixt", DFMT: "dfmt"}
+               UNIXT: "unixt", DFMT: "dfmt", F32R: "f32r", CASTN: "castn", DIN: "din"}
 #: table kinds counted by name: a string CASE/IF/coalesce's branch
 #: codes remapped into the merged dictionary, the two sides of a
 #: string-column comparison mapped to shared value ids, and a varchar
@@ -526,17 +557,35 @@ def cast_bigint_plain(arg: int, d: torch.Tensor) -> torch.Tensor:
     return q + torch.where(d >= 0, 2 * r >= p, 2 * r > p).to(torch.int64)
 
 
-def imod_plain(is_div: bool, a: torch.Tensor, b: torch.Tensor):
-    """IMOD's plain form: SQL's truncating int64 mod (the dividend's
-    sign) or div (toward zero): ``(value, valid)`` with NULL on a zero
-    divisor and, for div, on INT64_MIN / -1."""
+def _abs_at(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """``abs`` at a signed width: its least value stays itself (wraps)."""
+    return torch.where(x == -(1 << (bits - 1)), x, torch.abs(x))
+
+
+def wrap_at(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """An int64 lane wrapped to a narrower signed width."""
+    return x if bits == 64 else x.to({32: torch.int32, 16: torch.int16,
+                                      8: torch.int8}[bits]).to(torch.int64)
+
+
+def imod_plain(arg: int, a: torch.Tensor, b: torch.Tensor):
+    """IMOD's plain form: SQL's truncating mod (the dividend's sign) or
+    div (toward zero): ``(value, valid)`` with NULL on a zero divisor and,
+    for div, on the result width's least value over -1.  As the
+    reference's ``_trunc_div`` / ``_trunc_mod`` compute it in jnp, each
+    operand's ``abs`` runs at its own width (``IMOD_WIDTHS`` by arg bits
+    1-2 and 3-4: abs of a width's least value wraps to itself) and the
+    result wraps at the wider width."""
+    wa, wb = IMOD_WIDTHS[arg >> 1 & 3], IMOD_WIDTHS[arg >> 3 & 3]
+    wr = max(wa, wb)
     bs = torch.where(b == 0, torch.ones_like(b), b)
-    aa, ab = torch.abs(a), torch.abs(bs)
-    if is_div:
+    aa, ab = _abs_at(a, wa), _abs_at(bs, wb)
+    if arg & 1:
         q = torch.div(aa, ab, rounding_mode="floor")
-        return torch.where((a < 0) ^ (bs < 0), -q, q), (b != 0) & ~((a == _I64_MIN) & (b == -1))
+        ok = (b != 0) & ~((a == -(1 << (wr - 1))) & (b == -1))
+        return wrap_at(torch.where((a < 0) ^ (bs < 0), -q, q), wr), ok
     r = torch.remainder(aa, ab)
-    return torch.where(a < 0, -r, r), b != 0
+    return wrap_at(torch.where(a < 0, -r, r), wr), b != 0
 
 
 def width_bucket_plain(x, lo, hi, n):
@@ -705,7 +754,10 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         if op == LOAD:
             d, v = cols[arg]
             stack.append((d.to(torch.int64), v))
-        elif op in (LOAD_LONG, LOAD_F64):
+        elif op == LOAD_F64:  # a REAL widens exactly into the double lane
+            d, v = cols[arg]
+            stack.append((d.to(torch.float64), v))
+        elif op == LOAD_LONG:
             stack.append(cols[arg])
         elif op == DLIT:
             stack.append((torch.full((n,), bits_double(prog.consts[arg]), dtype=torch.float64,
@@ -823,6 +875,20 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == DUN:
             d, v = stack.pop()
             stack.append((dun_plain(arg, d), v))
+        elif op == F32R:  # rounded once to float32, widened back
+            d, v = stack.pop()
+            stack.append((d.to(torch.float32).to(torch.float64), v))
+        elif op == CASTN:  # NULL outside the narrower signed range
+            d, v = stack.pop()
+            lo, hi = -(1 << (arg - 1)), (1 << (arg - 1)) - 1
+            stack.append((d, v & (d >= lo) & (d <= hi)))
+        elif op == DIN:  # == against each double literal: NaN matches none
+            d, v = stack.pop()
+            first, count = arg & ((1 << IN_COUNT_SHIFT) - 1), arg >> IN_COUNT_SHIFT
+            hit = torch.zeros_like(v)
+            for c in prog.consts[first:first + count]:
+                hit = hit | (d == bits_double(c))
+            stack.append((hit.to(torch.int64), v))
         elif op == CASTBI:
             d, v = stack.pop()
             stack.append((cast_bigint_plain(arg, d), v))
@@ -888,7 +954,7 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
             elif op == GL:
                 d = greatest_least(bool(arg & 1), arg >> 1, ad, bd)
             elif op == IMOD:
-                d, ok = imod_plain(bool(arg), ad, bd)
+                d, ok = imod_plain(arg, ad, bd)
                 v = v & ok
             elif op == DTADD:
                 d = dt_add(ad, bd, arg)
@@ -906,7 +972,7 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         return row_mask & (d != 0) & v
     if prog.out_kind == KIND_BOOL:
         return d != 0, v
-    if prog.out_kind == KIND_D128 or d.is_floating_point():
+    if prog.out_kind == KIND_D128 or (d.is_floating_point() and prog.out_kind != KIND_F32):
         return d, v
     return d.to(_DTYPE_OF[prog.out_kind]), v
 
@@ -939,7 +1005,7 @@ def _launch(prog, cols, n, row_mask, tensors):
             or len(cols) > MAX_COLS or prog.depth > MAX_STACK or len(prog.luts) > MAX_LUTS):
         raise ValueError(f"expr_eval: program exceeds the kernel's limits: {prog}")
     if prog.out_kind not in _DTYPE_OF and prog.out_kind != KIND_D128 or (
-            prog.out_kind in (KIND_F64, KIND_D128) and not prog.wide):
+            prog.out_kind in (KIND_F64, KIND_F32, KIND_D128) and not prog.wide):
         raise ValueError(f"expr_eval: output kind {prog.out_kind}")
     for op, arg in zip(prog.ops, prog.args):
         if op in (LUT, CANON) and prog.luts[arg].dtype != (torch.bool if op == LUT
@@ -951,9 +1017,12 @@ def _launch(prog, cols, n, row_mask, tensors):
                                   or len(prog.luts[(arg >> 8) - 1].values)
                                   != len(prog.luts[arg & 255].values)))):
             raise ValueError(f"expr_eval: tables {arg} have the wrong types for {OP_NAMES[op]}")
-        if op == IN and (arg & ((1 << IN_COUNT_SHIFT) - 1)) + (arg >> IN_COUNT_SHIFT) \
+        if op in (IN, DIN) and (arg & ((1 << IN_COUNT_SHIFT) - 1)) + (arg >> IN_COUNT_SHIFT) \
                 > len(prog.consts):
             raise ValueError("expr_eval: IN literals past the constant pool")
+        if op == CASTN and arg not in (8, 16, 32) or op == F32R and arg not in (F32R_DOUBLE,
+                                                                                F32R_INT):
+            raise ValueError(f"expr_eval: {OP_NAMES[op]}({arg})")
     long_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_LONG}
     f64_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_F64}
     kinds = []
@@ -968,9 +1037,9 @@ def _launch(prog, cols, n, row_mask, tensors):
                 raise ValueError(f"expr_eval: long-decimal column dtype {d.dtype}")
             kinds.append(KIND_D128)
         elif slot in f64_slots:
-            if d.dtype != torch.float64:
+            if d.dtype not in (torch.float64, torch.float32):
                 raise ValueError(f"expr_eval: double column dtype {d.dtype}")
-            kinds.append(KIND_F64)
+            kinds.append(KIND_F64 if d.dtype == torch.float64 else KIND_F32)
         elif d.dtype not in _KIND_OF:
             raise ValueError(f"expr_eval: column dtype {d.dtype}")
         else:
@@ -1016,8 +1085,10 @@ def _launch(prog, cols, n, row_mask, tensors):
              build.stream_of(tensors[0]))
     build.check(err, "expr_eval")
     launches += 1
-    if IN in prog.ops or any(t.kind == "in" for t in prog.luts):
+    if IN in prog.ops or DIN in prog.ops or any(t.kind == "in" for t in prog.luts):
         in_launches += 1
+    if {KIND_I16, KIND_I8, KIND_F32} & (set(kinds) | {prog.out_kind}):
+        op_launches["narrow"] = op_launches.get("narrow", 0) + 1
     for kind in {t.kind for t in prog.luts} & set(COUNTED_TABLES):
         op_launches[kind] = op_launches.get(kind, 0) + 1
     double_launches += int(bool(DOUBLE_OPS & set(prog.ops)))

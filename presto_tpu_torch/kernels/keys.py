@@ -6,9 +6,10 @@ versions and as the C descriptor of ``csrc/keys.cuh``.
 
 A key column is ``(data, valid, lo, card)``: ``card = hi - lo + 2`` in
 the exact branch (code 0 is NULL), or ``card = 0`` for every column of
-a key without an exact domain, which hashes.  A double key hashes its
-value truncated to int64, as the reference's ``d.astype(jnp.int64)``
-does (so two doubles with one integer part share a hash lane)."""
+a key without an exact domain, which hashes.  A double (or REAL) key
+hashes its value truncated to int64, as the reference's
+``d.astype(jnp.int64)`` does (so two doubles with one integer part share
+a hash lane); a SMALLINT or TINYINT key reads sign-extended."""
 
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ from presto_tpu_torch.kernels import build
 
 MAX_KEYS = 16
 I64_MAX = (1 << 63) - 1
-_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 3}
+_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 3, torch.int16: 4,
+          torch.int8: 5, torch.float32: 6}
+_FLOATS = (torch.float64, torch.float32)
 
 # splitmix64's finalizer constants and the NULL-flag weight, as signed
 # int64 (the plain version multiplies in wrapping int64)
@@ -33,10 +36,12 @@ _NULL_WEIGHT = 0x9E37
 # NULL), or 0 when the key hashes
 Key = Tuple[torch.Tensor, torch.Tensor, int, int]
 
-#: K9 launches (the hash branch's pack kernel), and those hashing a
-#: double key column
+#: K9 launches (the hash branch's pack kernel), those hashing a double
+#: (or REAL) key column, and those hashing a SMALLINT, TINYINT or REAL
+#: one
 launches = 0
 double_launches = 0
+narrow_launches = 0
 
 
 def hashed(keys: Sequence[Key]) -> bool:
@@ -94,9 +99,9 @@ def check(keys: Sequence[Key], n: int, what: str) -> list:
     tensors = []
     for data, valid, _, card in keys:
         if data.dim() != 1 or data.shape[0] != n or data.dtype not in _KINDS \
-                or (data.dtype == torch.float64 and card != 0):
-            raise ValueError(f"{what}: key columns must be (n,) int32/int64/bool "
-                             "(float64 only when hashed)")
+                or (data.dtype in _FLOATS and card != 0):
+            raise ValueError(f"{what}: key columns must be (n,) int8/int16/int32/int64/bool "
+                             "(float64/float32 only when hashed)")
         if valid.dtype != torch.bool or valid.shape != (n,):
             raise ValueError(f"{what}: key validity must be (n,) bool")
         tensors += [data, valid]
@@ -126,7 +131,7 @@ def pack(keys: Sequence[Key], row_mask: torch.Tensor, null_as_sentinel: bool, wh
     keeps NULL).  Exact keys take the pack kernel, hashed keys K9.
     ``flags`` (two int32) receives the build's has-NULL-key and nonempty
     bits."""
-    global launches, double_launches
+    global launches, double_launches, narrow_launches
     n = row_mask.shape[0]
     build.require_cuda([row_mask] + check(keys, n, what), what)
     out = torch.empty(n, dtype=torch.int64, device=row_mask.device)
@@ -140,7 +145,9 @@ def pack(keys: Sequence[Key], row_mask: torch.Tensor, null_as_sentinel: bool, wh
     build.check(err, what)
     if is_hashed:
         launches += 1
-        double_launches += int(any(d.dtype == torch.float64 for d, _, _, _ in keys))
+        double_launches += int(any(d.dtype in _FLOATS for d, _, _, _ in keys))
+        narrow_launches += int(any(d.dtype in (torch.int16, torch.int8, torch.float32)
+                                   for d, _, _, _ in keys))
     return out
 
 

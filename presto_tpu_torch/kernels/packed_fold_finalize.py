@@ -59,7 +59,9 @@ FIN_COUNT, FIN_SUM, FIN_SUM_D128, FIN_AVG_SHORT, FIN_AVG_D128, FIN_AVG_D128_NARR
     FIN_SUM0_COLLAPSE, FIN_SUM_F64, FIN_AVG_F64, FIN_VAR_POP, FIN_VAR_SAMP, \
     FIN_STDDEV_POP, FIN_STDDEV_SAMP, FIN_VALUE_BOOL, FIN_BOOL_AND, FIN_BOOL_OR, \
     FIN_HLL, FIN_SKEWNESS, FIN_KURTOSIS, FIN_COVAR_POP, FIN_COVAR_SAMP, FIN_CORR, \
-    FIN_REGR_SLOPE, FIN_REGR_INTERCEPT = range(29)
+    FIN_REGR_SLOPE, FIN_REGR_INTERCEPT, FIN_VALUE = range(30)
+# FIN_VALUE: a SMALLINT, TINYINT or REAL min/max, its value in its own
+# storage (int16, int8, float32)
 # the moments' finalizes take (m2, m3, m4) stacked as a (G, 3) double
 # column, the covariance family's (sx, sy, sxy, sxx, syy) as (G, 5);
 # each with its count
@@ -91,7 +93,8 @@ double_avg_launches = 0
 #: sum0, a collapsed long sum, a variance
 chan_fold_launches = 0
 #: launches holding the eighth slice's kinds, by name ("min_double",
-#: "bool", "bitwise", "hll")
+#: "bool", "bitwise", "hll"), and those holding a SMALLINT, TINYINT or
+#: REAL column ("narrow")
 kind_launches: dict = {}
 _KIND_NAMES = {COL_MIN_F64: "min_double", COL_MAX_F64: "min_double",
                COL_MIN_BOOL: "bool", COL_MAX_BOOL: "bool", COL_BAND: "bitwise",
@@ -103,7 +106,11 @@ _FIN_NAMES = {FIN_VALUE_BOOL: "bool", FIN_BOOL_AND: "bool", FIN_BOOL_OR: "bool",
               FIN_REGR_INTERCEPT: "covariance"}
 # a column's storage, for the kinds that take more than one
 # (csrc/packed_fold_finalize.cu ELEM_*)
-_ELEM = {torch.int64: 0, torch.int32: 1, torch.float64: 2, torch.bool: 3}
+_ELEM = {torch.int64: 0, torch.int32: 1, torch.float64: 2, torch.bool: 3, torch.int16: 4,
+         torch.int8: 5, torch.float32: 6}
+# the storages a SMALLINT, TINYINT or REAL min/max state keeps: COL_MIN_I64
+# / COL_MAX_I64 take the integer ones, COL_MIN_F64 / COL_MAX_F64 float32
+_NARROW_INT = (torch.int16, torch.int8)
 sum0_launches = 0
 collapse_launches = 0
 variance_launches = 0
@@ -191,13 +198,14 @@ def packed_fold_plain(a: Sequence[Column], b: Sequence[Column], mask_a, mask_b):
             data = torch.where((a_less == (kind == COL_MIN_D128))[:, None], da, db)
         elif kind in (COL_I64, COL_F64):
             data = da + db
-        elif kind in (COL_MIN_F64, COL_MAX_F64):
+        elif kind in (COL_MIN_F64, COL_MAX_F64):  # a REAL through its exact double
             from presto_tpu_torch.kernels.packed_group_agg import minmax_key, minmax_value
 
             is_min = kind == COL_MIN_F64
-            ka, kb = minmax_key(da, is_min), minmax_key(db, is_min)
+            ka = minmax_key(da.to(torch.float64), is_min)
+            kb = minmax_key(db.to(torch.float64), is_min)
             data = minmax_value(torch.minimum(ka, kb) if is_min else torch.maximum(ka, kb),
-                                is_min)
+                                is_min).to(da.dtype)
         elif kind in (COL_MIN_BOOL, COL_BAND):
             data = da & db
         elif kind in (COL_MAX_BOOL, COL_BOR):
@@ -274,7 +282,7 @@ def packed_finalize_plain(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]
         elif kind == FIN_AVG_F64:
             data = s / n.to(torch.float64)
         elif kind in (FIN_SUM, FIN_SUM_D128, FIN_VALUE_I32, FIN_SUM0, FIN_SUM0_D128,
-                      FIN_SUM_F64, FIN_VALUE_BOOL):
+                      FIN_SUM_F64, FIN_VALUE_BOOL, FIN_VALUE):
             data = s.clone()
         elif kind == FIN_AVG_DOUBLE:  # tensor by tensor: a true division on every device
             data = s.to(torch.float64) / n.to(torch.float64)
@@ -385,6 +393,9 @@ def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
             if kind in (COL_F64, COL_VAR_M2, COL_MIN_F64, COL_MAX_F64) + _MOM_COLS \
             else torch.bool if kind in (COL_MIN_BOOL, COL_MAX_BOOL) else da.dtype \
             if kind in (COL_BY_X, COL_BY_Y_MIN, COL_BY_Y_MAX) else torch.int64
+        if kind in (COL_MIN_F64, COL_MAX_F64) and da.dtype == torch.float32 or \
+                kind in (COL_MIN_I64, COL_MAX_I64) and da.dtype in _NARROW_INT:
+            dtype = da.dtype  # a REAL, SMALLINT or TINYINT extreme
         if kind == COL_VAR_M2 and not (0 < c < len(a) - 1 and a[c - 1][0] == COL_F64
                                        and a[c + 1][0] == COL_I64):
             raise ValueError("packed_fold: a variance m2 column needs its s and count "
@@ -402,12 +413,19 @@ def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
     global chan_fold_launches
     chan_fold_launches += int(any(c[0] == COL_VAR_M2 for c in a))
     _count_kinds(_KIND_NAMES, [c[0] for c in a])
+    _count_narrow([c[1] for c in a])
     return outs, mask_out
 
 
 def _count_kinds(names, kinds) -> None:
     for name in {names[k] for k in kinds if k in names}:
         kind_launches[name] = kind_launches.get(name, 0) + 1
+
+
+def _count_narrow(columns) -> None:
+    """Count a launch holding a SMALLINT, TINYINT or REAL column."""
+    if any(c.dtype in _NARROW_INT + (torch.float32,) for c in columns):
+        kind_launches["narrow"] = kind_launches.get("narrow", 0) + 1
 
 
 def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
@@ -420,12 +438,14 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
     tensors = [mask]
     outs = []
     for kind, s, cnt in items:
-        if not FIN_COUNT <= kind <= FIN_REGR_INTERCEPT:
+        if not FIN_COUNT <= kind <= FIN_VALUE:
             raise ValueError(f"packed_finalize: kind {kind}")
         in_shape = (g, 2) if kind in _WIDE_IN else (g, STACKED[kind]) if kind in STACKED \
             else (g,)
         dtype = torch.int32 if kind == FIN_VALUE_I32 else torch.float64 \
             if kind in _F64_IN else torch.bool if kind == FIN_VALUE_BOOL else torch.int64
+        if kind == FIN_VALUE:
+            dtype = s.dtype if s.dtype in _NARROW_INT + (torch.float32,) else None
         if s.shape != in_shape or cnt.shape != (g,) or not s.is_contiguous() \
                 or s.dtype != dtype or cnt.dtype != torch.int64:
             raise ValueError("packed_finalize: mismatched state columns")
@@ -433,12 +453,13 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
         wide_out = kind in _WIDE_OUT
         out_dtype = torch.float64 if kind in _F64_OUT else \
             torch.int32 if kind == FIN_VALUE_I32 else torch.bool if kind in _BOOL_OUT \
-            else torch.int64
+            else s.dtype if kind == FIN_VALUE else torch.int64
         outs.append((torch.empty((g, 2) if wide_out else (g,), dtype=out_dtype,
                                  device=mask.device),
                      torch.empty(g, dtype=torch.bool, device=mask.device)))
     _launch(MODE_FINALIZE, g, [k for k, _, _ in items], [s for _, s, _ in items],
-            [c for _, _, c in items], None, None, outs, mask, None, None, tensors)
+            [c for _, _, c in items], None, None, outs, mask, None, None, tensors,
+            [_ELEM.get(s.dtype, 0) for _, s, _ in items])
     global double_avg_launches, sum0_launches, collapse_launches, variance_launches
     kinds = {k for k, _, _ in items}
     double_avg_launches += int(FIN_AVG_DOUBLE in kinds)
@@ -446,6 +467,7 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
     collapse_launches += int(bool(kinds & {FIN_SUM_COLLAPSE, FIN_SUM0_COLLAPSE}))
     variance_launches += int(bool(kinds & set(VARIANCE_KINDS)))
     _count_kinds(_FIN_NAMES, kinds)
+    _count_narrow([s for _, s, _ in items])
     return outs
 
 

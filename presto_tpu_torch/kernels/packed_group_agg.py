@@ -47,7 +47,11 @@ COUNT_STAR, COUNT, SUM_SHORT, SUM_LONG, MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG
 # (s, m2, m3, m4, cnt) of a double, four fixed-order passes; BY_X and
 # the BY_Y entry right after it: min_by / max_by's (x, x flag) and
 # (y, count of valid y), y an integer, a double (its min/max order
-# key: NaN wins, and then no row ties it) or a varchar's collation rank
+# key: NaN wins, and then no row ties it) or a varchar's collation rank.
+# A SMALLINT or TINYINT argument (MIN_SHORT, MAX_SHORT, SUM_SHORT) reads
+# sign-extended, its min/max stored back narrowed; a REAL one
+# (SUM_DOUBLE, MIN_DOUBLE, MAX_DOUBLE) widens exactly to a double, its
+# min/max stored back as float32.
 RAW_WIDTH = {COUNT_STAR: 1, COUNT: 1, SUM_SHORT: 2, SUM_LONG: 5, MIN_SHORT: 2, MAX_SHORT: 2,
              MIN_LONG: 3, MAX_LONG: 3, SUM_LONG_ARG: 5, SUM_DOUBLE: 1, VARIANCE: 1,
              MIN_DOUBLE: 2, MAX_DOUBLE: 2, BOOL_COUNT: 2, BIT_AND: 2, BIT_OR: 2, HLL_SUM: 1,
@@ -69,8 +73,9 @@ DOUBLE_SLOT_LIMIT = 1
 DSUM_CHUNK = 256
 MAX_KEYS = 16
 MAX_AGGS = 32
-_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
-KIND_D128, KIND_F64 = 3, 4
+_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.int16: 5, torch.int8: 6}
+KIND_D128, KIND_F64, KIND_F32 = 3, 4, 7
+_FLOATS = (torch.float64, torch.float32)
 
 launches = 0
 #: launches whose aggregates include a min or max
@@ -78,8 +83,9 @@ minmax_launches = 0
 #: launches with a variance state, and with a double sum
 variance_launches = 0
 double_sum_launches = 0
-#: launches by the eighth slice's kinds (KIND_NAMES) and min/max over
-#: booleans ("min_bool")
+#: launches by the eighth slice's kinds (KIND_NAMES), min/max over
+#: booleans ("min_bool"), and states over a SMALLINT, TINYINT or REAL
+#: argument ("narrow")
 kind_launches: dict = {}
 
 # key: (data, valid, lo, card); agg: (kind, data or None, valid or None)
@@ -318,11 +324,12 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
             states.append([cnt])
         elif kind == CHECKSUM:
             states.append([seg(torch.where(nonnull, data.to(torch.int64), torch.zeros_like(gid)))])
-        elif kind in (MIN_DOUBLE, MAX_DOUBLE):
+        elif kind in (MIN_DOUBLE, MAX_DOUBLE):  # a REAL through its exact double
             is_min = kind == MIN_DOUBLE
             nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
-            ext = seg_extreme(minmax_key(data, is_min), nn_slot, n_groups, is_min)
-            states.append([minmax_value(ext, is_min), cnt])
+            ext = seg_extreme(minmax_key(data.to(torch.float64), is_min), nn_slot, n_groups,
+                              is_min)
+            states.append([minmax_value(ext, is_min).to(data.dtype), cnt])
         elif kind == BOOL_COUNT:
             states.append([seg((nonnull & (data != 0)).to(torch.int64)), cnt])
         elif kind in (BIT_AND, BIT_OR):
@@ -347,6 +354,7 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
             states.append([seg(x), cnt])
         elif kind in DOUBLE_ARG:
             nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
+            data = data.to(torch.float64)  # a REAL widens exactly
             x = torch.where(nonnull, data, torch.zeros_like(data))
             s = chunk_sums_plain(x, nn_slot, n_groups)
             if kind == SUM_DOUBLE:
@@ -391,13 +399,13 @@ def packed_group_agg(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
 
 def _check_col(data, valid, n, what, limbs=False, double=False):
     if double:
-        if data.shape != (n,) or data.dtype != torch.float64:
-            raise ValueError(f"packed_group_agg: {what} must be (n,) float64")
+        if data.shape != (n,) or data.dtype not in _FLOATS:
+            raise ValueError(f"packed_group_agg: {what} must be (n,) float64 or float32")
     elif limbs:
         if data.shape != (n, 2) or data.dtype != torch.int64:
             raise ValueError(f"packed_group_agg: {what} must be (n, 2) int64 limbs")
     elif data.dim() != 1 or data.shape[0] != n or data.dtype not in _KINDS:
-        raise ValueError(f"packed_group_agg: {what} must be (n,) int32/int64/bool")
+        raise ValueError(f"packed_group_agg: {what} must be (n,) int8/int16/int32/int64/bool")
     if valid.dtype != torch.bool or valid.shape != (n,):
         raise ValueError(f"packed_group_agg: {what} validity must be (n,) bool")
 
@@ -441,7 +449,9 @@ def _launch(n, row_mask, keys, aggs, n_groups):
             states.append([torch.empty(n_groups, dtype=data.dtype, device=dev), cnt])
         elif kind in (SUM_LONG, MIN_LONG, MAX_LONG, SUM_LONG_ARG):
             states.append([torch.empty((n_groups, 2), dtype=torch.int64, device=dev), cnt])
-        elif kind in (SUM_DOUBLE, MIN_DOUBLE, MAX_DOUBLE, HLL_SUM):
+        elif kind in (MIN_DOUBLE, MAX_DOUBLE):  # a REAL's extreme stays float32
+            states.append([torch.empty(n_groups, dtype=data.dtype, device=dev), cnt])
+        elif kind in (SUM_DOUBLE, HLL_SUM):
             states.append([torch.empty(n_groups, dtype=torch.float64, device=dev), cnt])
         elif kind in (BOOL_COUNT, BIT_AND, BIT_OR):
             states.append([torch.empty(n_groups, dtype=torch.int64, device=dev), cnt])
@@ -469,12 +479,15 @@ def _launch(n, row_mask, keys, aggs, n_groups):
     c_agg_kind = build.ints(k for k, _, _ in aggs)
     c_arg_data = build.ptrs(d.data_ptr() if d is not None else null for _, d, _ in aggs)
     c_arg_valid = build.ptrs(v.data_ptr() if v is not None else null for _, _, v in aggs)
-    c_arg_kind = build.ints((KIND_D128 if k in LONG_ARG else KIND_F64 if k in DOUBLE_ARG
+    c_arg_kind = build.ints((KIND_D128 if k in LONG_ARG else KIND_F32 if d.dtype ==
+                             torch.float32 else KIND_F64 if k in DOUBLE_ARG
                              or d.dtype == torch.float64 else _KINDS[d.dtype])
                             if d is not None else 0 for k, d, _ in aggs)
     names = {KIND_NAMES[k] for k, _, _ in aggs if k in KIND_NAMES}
     names |= {"min_bool" for k, d, _ in aggs if k in (MIN_SHORT, MAX_SHORT)
               and d.dtype == torch.bool}
+    names |= {"narrow" for _, d, _ in aggs if d is not None and d.dtype in (
+        torch.int16, torch.int8, torch.float32)}
     c_out0 = build.ptrs(s[0].data_ptr() for s in states)
     c_out1 = build.ptrs(s[1].data_ptr() if len(s) > 1 else null for s in states)
     c_out2 = build.ptrs(s[2].data_ptr() if len(s) > 2 else null for s in states)

@@ -60,8 +60,10 @@ S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG, \
     S_MAX_LONG, S_DSUM, S_VAR, S_VAR_MERGE, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR, \
     S_HLL, S_MOM, S_MOM_MERGE, S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV = range(23)
 # S_MIN / S_MAX also take booleans (an empty state: the fold's neutral
-# value); S_MIN_F64 / S_MAX_F64 keep a double's extreme (-0.0 below 0.0,
-# NaN winning, as the reference's segment reductions); S_BAND / S_BOR
+# value) and SMALLINT / TINYINT values (stored back narrowed);
+# S_MIN_F64 / S_MAX_F64 keep a double's or a REAL's extreme (-0.0 below
+# 0.0, NaN winning, as the reference's segment reductions; a REAL's in
+# float32); S_DSUM also sums a REAL in double; S_BAND / S_BOR
 # fold int64 values by and / or (an empty state: all ones / zero);
 # S_HLL adds 2^-rho of a valid int64 rho, a double state
 # S_DSUM sums a valid double (one output); S_VAR takes a double and
@@ -91,11 +93,16 @@ MAX_STATES = 32  # csrc/sorted_group_agg.cu K6_MAX_STATES
 MAX_SLOTS = 64  # csrc/sorted_group_agg.cu K6_MAX_SLOTS
 _WIDTH = {S_LIMBS_SHORT: 4, S_LIMBS_LONG: 4, S_MIN_LONG: 2, S_MAX_LONG: 2}
 SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
-_DATA_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2}
-DATA_F64 = 3  # a double's bits (csrc/sorted_group_agg.cu)
-# how k6_finish stores a state (csrc/sorted_group_agg.cu): int64, int32
-# (narrowing the identities) or a boolean (an identity: the neutral value)
-_OUT_KINDS = {torch.int32: 1, torch.bool: 2, torch.float64: 3}
+_DATA_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.int16: 4, torch.int8: 5}
+# a double's bits, a REAL's (widened exactly) (csrc/sorted_group_agg.cu)
+DATA_F64, DATA_F32 = 3, 6
+_FLOATS = (torch.float64, torch.float32)
+_NARROW = (torch.int16, torch.int8, torch.float32)
+# how k6_finish stores a state (csrc/sorted_group_agg.cu): int64, int32,
+# int16 or int8 (narrowing the identities), a boolean (an identity: the
+# neutral value), a double or a REAL
+_OUT_KINDS = {torch.int32: 1, torch.bool: 2, torch.float64: 3, torch.int16: 4, torch.int8: 5,
+              torch.float32: 6}
 
 launches = 0
 #: launches in presorted mode, and launches with a min/max state
@@ -105,8 +112,9 @@ minmax_launches = 0
 variance_launches = 0
 variance_merge_launches = 0
 double_sum_launches = 0
-#: launches by the eighth slice's kinds (KIND_NAMES), and min/max over
-#: booleans ("min_bool")
+#: launches by the eighth slice's kinds (KIND_NAMES), min/max over
+#: booleans ("min_bool"), and states over a SMALLINT, TINYINT or REAL
+#: datum ("narrow")
 kind_launches: dict = {}
 
 # (kind, data or None, valid or None)
@@ -188,7 +196,7 @@ def _double_states_plain(kind, data, valid, rows, gid, groups):
         return [run_sums_plain(torch.where(ok, hll_weight(data[rows]), zero), gid, groups)]
     if kind == S_MOM_MERGE:
         return moments_merge_plain([t[rows] for t in data], ok, gid, groups)
-    x = torch.where(ok, data[rows], zero)
+    x = torch.where(ok, data[rows].to(torch.float64), zero)  # a REAL widens exactly
     s = run_sums_plain(x, gid, groups)
     if kind == S_DSUM:
         return [s]
@@ -307,9 +315,10 @@ def _extreme_plain(kind, data, valid, rows, gid, groups):
     ok = valid[rows]
     slot = torch.where(ok, gid, torch.full_like(gid, groups))
     is_min = kind in (S_MIN, S_MIN_LONG, S_MIN_F64)
-    if kind in (S_MIN_F64, S_MAX_F64):
-        return minmax_value(seg_extreme(minmax_key(data[rows], is_min), slot, groups, is_min),
-                            is_min)
+    if kind in (S_MIN_F64, S_MAX_F64):  # a REAL's extreme through its exact double
+        x = data[rows].to(torch.float64)
+        return minmax_value(seg_extreme(minmax_key(x, is_min), slot, groups, is_min),
+                            is_min).to(data.dtype)
     if kind in (S_MIN_LONG, S_MAX_LONG):
         return seg_extreme_long(data[rows], slot, groups, is_min)
     return narrow(seg_extreme(data[rows].to(torch.int64), slot, groups, is_min), data.dtype)
@@ -354,11 +363,13 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
             cols = data if ncols > 1 else (data,)
             want = [torch.int64] if kind == S_HLL else \
                 [torch.float64] * max(ncols - 1, 1) + [torch.int64] * (ncols > 1)
+            if kind == S_DSUM and cols[0].dtype == torch.float32:
+                want = [torch.float32]  # a REAL's sum, in double
             if len(cols) != ncols or any(c.shape != (n,) for c in cols) \
                     or [c.dtype for c in cols] != want:
                 raise ValueError("sorted_group_agg: double state data must be (n,) float64 "
-                                 "(a merge: its float64 sums and an int64 cnt; S_HLL: int64 "
-                                 "rho)")
+                                 "(S_DSUM: or float32; a merge: its float64 sums and an int64 "
+                                 "cnt; S_HLL: int64 rho)")
             idx = None
             if kind in (S_VAR, S_MOM):
                 idx = len(int_states)
@@ -388,8 +399,9 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                 raise ValueError("sorted_group_agg: state data must be (n,) integers")
             tensors.append(data)
         if kind in (S_MIN_F64, S_MAX_F64):
-            if data is None or data.shape != (n,) or data.dtype != torch.float64:
-                raise ValueError("sorted_group_agg: double min/max data must be (n,) float64")
+            if data is None or data.shape != (n,) or data.dtype not in _FLOATS:
+                raise ValueError("sorted_group_agg: double min/max data must be (n,) float64 "
+                                 "or float32")
             tensors.append(data)
         if kind in (S_BY_X,) + S_BY_Y:
             if data is None or data.shape != (n,) or data.dtype not in (
@@ -453,7 +465,8 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
              build.ints(d.element_size() for d, _, _, _ in keys),
              len(states), build.ints(k for k, _, _ in states),
              build.ptrs(d.data_ptr() if d is not None else null for _, d, _ in states),
-             build.ints(_DATA_KINDS.get(d.dtype, DATA_F64) if d is not None else 0
+             build.ints(_DATA_KINDS.get(d.dtype, DATA_F32 if d.dtype == torch.float32
+                                        else DATA_F64) if d is not None else 0
                         for _, d, _ in states),
              build.ptrs(v.data_ptr() if v is not None else null for _, _, v in states),
              build.ptrs(o.data_ptr() for o in outs),
@@ -470,6 +483,9 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     names = {KIND_NAMES[k] for k in kinds | {k for k, _, _ in states} if k in KIND_NAMES}
     names |= {"min_bool" for k, d, _ in states if k in (S_MIN, S_MAX)
               and d.dtype == torch.bool}
+    data = [d for _, d, _, _ in plan] + [d for _, d, _ in states]
+    if any(isinstance(d, torch.Tensor) and d.dtype in _NARROW for d in data):
+        names.add("narrow")
     for name in names:
         kind_launches[name] = kind_launches.get(name, 0) + 1
     if runs:
@@ -501,8 +517,8 @@ def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
         fn = lib.k6_double_state
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 16 + \
-            [ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_void_p] * 15 + [ctypes.c_longlong, ctypes.c_void_p]
     for kind, data, valid, idx in plan:
         if kind is None:
             outs.append(int_outs[idx])
@@ -516,7 +532,8 @@ def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
         cols += (None,) * (5 - len(cols))
         ptr = [c.data_ptr() if c is not None else None for c in cols]
         err = fn(sk.data_ptr(), order.data_ptr(), n, scan.data_ptr(), groups, kind,
-                 ptr[0], valid.data_ptr(), ptr[1], ptr[2], ptr[3], ptr[4],
+                 ptr[0], int(cols[0].dtype == torch.float32), valid.data_ptr(), ptr[1], ptr[2],
+                 ptr[3], ptr[4],
                  cnt.data_ptr() if cnt is not None else None,
                  *(t.data_ptr() for t in sums), starts.data_ptr(), base.data_ptr(),
                  partials.data_ptr(), chunk_group.data_ptr(), part.data_ptr(), bound, stream)

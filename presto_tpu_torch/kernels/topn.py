@@ -4,8 +4,8 @@
 reference's order (``presto_tpu/ops/sort.py`` ``sort_perm``): key by
 key, the NULL rank then the value (a long decimal limb by limb, high
 limb first; a descending key reversed), then the row position, which
-is how the reference's stable sorts break ties; a double orders by
-:func:`double_sort_key`.  Dead rows never qualify.  CUDA tensors
+is how the reference's stable sorts break ties; a double (or a REAL,
+as its exact double) orders by :func:`double_sort_key`.  Dead rows never qualify.  CUDA tensors
 launch ``csrc/topn.cu``; CPU tensors run :func:`topn_plain`, which
 composes the reference's stable argsorts.
 """
@@ -17,21 +17,23 @@ from typing import Sequence, Tuple
 
 import torch
 
-from presto_tpu_torch import NotPorted
 from presto_tpu_torch.kernels import build
 
 MAX_N = 100  # csrc/topn.cu K7_MAX_N
 MAX_KEYS = 16
 THREADS = 64  # csrc/topn.cu K7_THREADS
-_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 4}
+_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 4, torch.int16: 5,
+          torch.int8: 6, torch.float32: 7}
 KIND_D128 = 3
+_FLOAT_KINDS = (_KINDS[torch.float64], _KINDS[torch.float32])
 _I64_MAX = (1 << 63) - 1
 
 launches = 0
 #: launches with n above 32
 wide_launches = 0
-#: launches with a double key
+#: launches with a double (or REAL) key, and with a REAL key
 double_launches = 0
+real_launches = 0
 
 # (data (n,) integers or doubles or (n, 2) int64 limbs, valid, ascending,
 # nulls_first)
@@ -50,7 +52,9 @@ def double_sort_key(data: torch.Tensor, ascending: bool) -> torch.Tensor:
     floats with -0.0 equal to 0.0 and every NaN after +inf (so NaN stays
     last either way), ties kept in place by the stable passes.  The
     bits of a negative double flip below zero; the kernel computes the
-    same key from each double it reads."""
+    same key from each double it reads.  A REAL (float32) key orders
+    as its exact double."""
+    data = data.to(torch.float64)
     x = data if ascending else -data
     bits = x.contiguous().view(torch.int64)
     bits = torch.where(x == 0, torch.zeros_like(bits), bits)
@@ -86,14 +90,15 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     """Row ids of the first ``n`` live rows of ``row_mask`` under
     ``keys`` and their count (a device int32 of shape (1,)).  CPU
     tensors take the plain version; CUDA tensors launch the kernel.
-    ``n`` above :data:`MAX_N` raises :class:`NotPorted`."""
+    ``n`` above :data:`MAX_N` raises (``ops/sort.py`` ``topn_page`` sorts
+    the page past it)."""
     if n > MAX_N:
-        raise NotPorted(f"top-n with n = {n} > {MAX_N}")
+        raise ValueError(f"topn: n = {n} > {MAX_N}")
     if len(keys) > MAX_KEYS:  # the kernel's limit, held on every device
         raise ValueError(f"topn: more than {MAX_KEYS} keys")
     if not row_mask.is_cuda:
         return topn_plain(keys, row_mask, n)
-    global launches, wide_launches, double_launches
+    global launches, wide_launches, double_launches, real_launches
     rows = row_mask.shape[0]
     if row_mask.dtype != torch.bool or row_mask.dim() != 1 or rows >= (1 << 31):
         raise ValueError("topn: row_mask must be (rows,) bool")
@@ -107,8 +112,8 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
         elif data.dim() == 1 and data.shape == (rows,) and data.dtype in _KINDS:
             kinds.append(_KINDS[data.dtype])
         else:
-            raise ValueError("topn: keys must be (rows,) integers or doubles, or (rows, 2) "
-                             "int64 limbs")
+            raise ValueError("topn: keys must be (rows,) integers, doubles or REALs, or "
+                             "(rows, 2) int64 limbs")
         if valid.dtype != torch.bool or valid.shape != (rows,):
             raise ValueError("topn: key validity must be (rows,) bool")
         tensors += [data, valid]
@@ -133,5 +138,6 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     build.check(err, "topn")
     launches += 1
     wide_launches += int(n > 32)
-    double_launches += int(_KINDS[torch.float64] in kinds)
+    double_launches += int(any(k in _FLOAT_KINDS for k in kinds))
+    real_launches += int(_KINDS[torch.float32] in kinds)
     return ids, count

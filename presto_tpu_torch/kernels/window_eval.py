@@ -9,7 +9,9 @@ row, its peer group's first and last row, every function kind of
 ``_compute_sorted`` over its frame, and the scatter back to the
 original row order.  On CUDA tensors it launches
 ``csrc/window_eval.cu``; on CPU tensors it runs
-:func:`window_eval_plain`, which is the reference's jnp code in torch.
+:func:`window_eval_plain`, which is the reference's jnp code in torch.  A SMALLINT, TINYINT or REAL
+argument keeps its storage (min/max, lead/lag, the value functions); a
+REAL's sum and avg are doubles, as the reference's ``_window_sum_type``.
 
 Inputs, all in the page's original row order: ``perm`` (sorted
 position -> row, int64), the row mask, the packed or hashed partition
@@ -46,9 +48,10 @@ KIND_NAMES = ("row_number", "rank", "dense_rank", "ntile", "percent_rank", "cume
               "count_star", "sum", "avg", "min", "max")
 FRAME_PEERS, FRAME_WHOLE, FRAME_ROWS = range(3)
 # storage kinds of order keys and arguments
-KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128 = range(5)
+KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128, KIND_I16, KIND_I8, KIND_F32 = range(8)
 _KIND_OF = {torch.bool: KIND_BOOL, torch.int32: KIND_I32, torch.int64: KIND_I64,
-            torch.float64: KIND_F64}
+            torch.float64: KIND_F64, torch.int16: KIND_I16, torch.int8: KIND_I8,
+            torch.float32: KIND_F32}
 _RANKS = (ROW_NUMBER, RANK, DENSE_RANK, NTILE, PERCENT_RANK, CUME_DIST)
 _VALUES = (FIRST_VALUE, LAST_VALUE, NTH_VALUE)
 MAX_ORDER = 8
@@ -58,6 +61,9 @@ FSCAN_BLOCK = 16  # csrc/window_eval.cu K10_FSCAN_BLOCK
 _UNBOUNDED = -(1 << 62)
 
 launches = 0
+#: launches with a SMALLINT, TINYINT or REAL argument or order key
+narrow_launches = 0
+_NARROW = (torch.int16, torch.int8, torch.float32)
 
 Lanes = Tuple[torch.Tensor, torch.Tensor]
 
@@ -87,8 +93,8 @@ def out_dtype(f: Func, arg: Optional[Lanes]) -> Tuple[torch.dtype, tuple]:
         return torch.int64, ()
     if f.kind in (PERCENT_RANK, CUME_DIST, AVG):
         return torch.float64, ()
-    if f.kind == SUM:
-        return (torch.float64 if arg[0].dtype == torch.float64 else torch.int64), ()
+    if f.kind == SUM:  # a REAL sums in double
+        return (torch.float64 if arg[0].is_floating_point() else torch.int64), ()
     return arg[0].dtype, tuple(arg[0].shape[1:])
 
 
@@ -145,6 +151,8 @@ def _fill(dtype: torch.dtype, minimum: bool):
     takes int32's own, so NULLs never win."""
     if dtype == torch.float64:
         return torch.finfo(dtype).max if minimum else torch.finfo(dtype).min
+    if dtype == torch.float32:  # the reference's int64 extreme as a REAL: 2^63
+        return float(1 << 63) if minimum else -float(1 << 63)
     if dtype == torch.bool:
         return minimum
     info = torch.iinfo(dtype)
@@ -316,7 +324,7 @@ def _compute_sorted(f: Func, arg, perm, idx, cap, live_s, seg_first, peer_first,
     if f.kind in (COUNT, COUNT_STAR):
         return cnt, ones
     if f.kind in (SUM, AVG):
-        st = torch.float64 if ds.dtype == torch.float64 else torch.int64
+        st = torch.float64 if ds.is_floating_point() else torch.int64  # a REAL as float64
         vals = torch.where(vs, ds.to(st), torch.zeros((), dtype=st, device=ds.device))
         s_out = frame_sum(vals)
         if f.kind == SUM:
@@ -349,7 +357,7 @@ def window_eval(perm: torch.Tensor, row_mask: torch.Tensor, pkey: torch.Tensor,
 
 
 def _launch(perm, row_mask, pkey, order_cols, funcs, args):
-    global launches
+    global launches, narrow_launches
     n = perm.shape[0]
     if perm.dtype != torch.int64 or perm.dim() != 1 or row_mask.dtype != torch.bool \
             or row_mask.shape != (n,) or pkey.dtype != torch.int64 or pkey.shape != (n,):
@@ -418,4 +426,6 @@ def _launch(perm, row_mask, pkey, order_cols, funcs, args):
              levels.data_ptr(), partials.data_ptr(), build.stream_of(perm))
     build.check(err, "window_eval")
     launches += 1
+    narrow_launches += int(any(d.dtype in _NARROW for d, _ in order_cols)
+                           or any(a is not None and a[0].dtype in _NARROW for a in args))
     return outs

@@ -447,7 +447,7 @@ def _state_kind(agg: AggCall) -> int:
     if agg.fn in ("sum", "sum0", "avg"):
         t = agg.arg.type
         st = _sum_type(t)
-        if t.name == "double":
+        if t.name in ("double", "real"):  # a REAL sums in double
             return k2.SUM_DOUBLE
         if t.is_long_decimal and t.value_shape == (2,):
             return k2.SUM_LONG_ARG
@@ -465,25 +465,26 @@ def _state_kind(agg: AggCall) -> int:
         is_min = agg.fn == "min"
         if t.is_long_decimal and t.value_shape == (2,):
             return k2.MIN_LONG if is_min else k2.MAX_LONG
-        if t.name == "double":
+        if t.name in ("double", "real"):  # a REAL's extreme in float32
             return k2.MIN_DOUBLE if is_min else k2.MAX_DOUBLE
-        if t.is_raw_string or t.value_shape != () or t.name == "real" or not (
+        if t.is_raw_string or t.value_shape != () or not (
                 t.is_string or t.name == "boolean"
-                or np.dtype(t.np_dtype) in (np.dtype(np.int32), np.dtype(np.int64))):
+                or np.dtype(t.np_dtype) in _EXTREME_INTS):
             raise NotPorted(f"{agg.fn} over {t}")
         return k2.MIN_SHORT if is_min else k2.MAX_SHORT  # varchar: over collation ranks
     if agg.fn in ("bool_and", "bool_or", "every"):
         return k2.BOOL_COUNT
     if agg.fn in BITWISE_FNS:
         t = agg.arg.type
-        if t.is_decimal or t.value_shape != () or t.is_string or t.name in ("double", "real"):
+        if t.is_decimal or t.value_shape != () or t.is_string \
+                or t.name in ("double",) + NARROW_TYPES:
             raise NotPorted(f"{agg.fn} over {t}")
         return k2.BIT_AND if agg.fn == "bitwise_and_agg" else k2.BIT_OR
     if agg.fn == "hll_merge":
         return k2.HLL_SUM
     if agg.fn == "checksum":
         t = agg.arg.type
-        if t.value_shape != () or t.is_raw_string or t.is_long_decimal:
+        if t.value_shape != () or t.is_raw_string or t.is_long_decimal or t.name in NARROW_TYPES:
             raise NotPorted(f"checksum over {t}")
         return k2.CHECKSUM
     if agg.fn in MOMENT_FNS or agg.fn in COVAR_FNS:
@@ -494,7 +495,7 @@ def _state_kind(agg: AggCall) -> int:
         return k2.MOMENTS if agg.fn in MOMENT_FNS else k2.SUM_DOUBLE
     if agg.fn in ("min_by", "max_by"):
         for t in (agg.arg.type, agg.arg2.type):
-            if t.value_shape != () or t.is_raw_string or t.name == "real":
+            if t.value_shape != () or t.is_raw_string or t.name in NARROW_TYPES:
                 raise NotPorted(f"{agg.fn} over {t}")
         return k2.BY_X
     if agg.fn in COLLECT_FNS:
@@ -508,6 +509,14 @@ def _state_kind(agg: AggCall) -> int:
     raise NotPorted(f"aggregate {agg.fn}")
 
 
+# the eleventh slice's narrow scalar types: sum/avg (a REAL in double,
+# the integers in bigint) and min/max over them are ported; min_by /
+# max_by, checksum and the bitwise folds over them stay refused by name
+NARROW_TYPES = ("real", "smallint", "tinyint")
+# integer storages a min/max keeps in its own type (interval: int64)
+_EXTREME_INTS = tuple(np.dtype(d) for d in (np.int64, np.int32, np.int16, np.int8))
+
+
 def _finalize_kind(agg: AggCall) -> int:
     """K3 finalize kind of an aggregate (after :func:`_state_kind`); a
     collecting aggregate's count finalizes as a sum, whose validity
@@ -518,6 +527,8 @@ def _finalize_kind(agg: AggCall) -> int:
         return k3.FIN_COUNT
     if agg.fn in ("min", "max"):  # the state's value, NULL where its count is 0
         t = agg.arg.type
+        if t.name in NARROW_TYPES:  # in its own storage: int16, int8, float32
+            return k3.FIN_VALUE
         if t.is_long_decimal:
             return k3.FIN_SUM_D128
         if t.name == "double":
@@ -1093,7 +1104,10 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
             if agg.fn in VARIANCE_FNS:
                 kinds.append((k3.COL_F64, k3.COL_VAR_M2, k3.COL_I64)[j])
             elif agg.fn in ("min", "max") and j == 0:
-                wide = "d128" if t.is_long_decimal else "f64" if t.name == "double" else \
+                # a REAL folds as a double (float32 storage), a SMALLINT
+                # or TINYINT as an int64 (its own storage)
+                wide = "d128" if t.is_long_decimal else \
+                    "f64" if t.name in ("double", "real") else \
                     "bool" if t.name == "boolean" else \
                     "i32" if np.dtype(t.np_dtype) == np.dtype(np.int32) else "i64"
                 kinds.append(_K3_EXTREME[agg.fn, wide])

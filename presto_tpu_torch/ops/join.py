@@ -36,8 +36,8 @@ from presto_tpu_torch.types import BOOLEAN, Type
 DIRECT_DOMAIN_MAX = 1 << 26
 DIRECT_DOMAIN_PER_ROW = 64
 
-_KEY_DTYPES = (torch.bool, torch.int32, torch.int64)
-_HASHED_KEY_DTYPES = _KEY_DTYPES + (torch.float64,)
+_KEY_DTYPES = (torch.bool, torch.int32, torch.int64, torch.int16, torch.int8)
+_HASHED_KEY_DTYPES = _KEY_DTYPES + (torch.float64, torch.float32)
 
 
 def _direct_budget(page: Page) -> int:

@@ -5,9 +5,11 @@ series of stable argsorts from the least-significant key up, each key
 in two passes (values, then a null-rank pass), dead rows last.  Like
 the reference, which leaves its argsorts to XLA's sort, this uses
 ``torch.sort``; TPC-H Q1 sorts at most a few dozen rows.  Top-N
-(``topn_page``) does not sort: K7 ``topn`` picks the first ``n`` rows
-under the same order.  Dictionary VARCHAR keys order by collation
-rank, not by code; double keys by :func:`double_sort_key`.
+(``topn_page``) does not sort up to K7's ``MAX_N`` rows: K7 ``topn``
+picks the first ``n`` rows under the same order; past it the page is
+sorted, as the reference's ``topn_page`` always does.  Dictionary
+VARCHAR keys order by collation rank, not by code; double and REAL
+keys by :func:`double_sort_key`.
 """
 
 from __future__ import annotations
@@ -102,19 +104,35 @@ def topn_keys(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
         nulls_first = [False] * len(sort_exprs)
     keys = []
     for e, asc, nf in zip(sort_exprs, ascending, nulls_first):
-        if e.type.is_raw_string or e.type.name == "real":
+        if e.type.is_raw_string:
             raise NotPorted(f"top-n over {e.type} keys")
         d, v = c.compile(e)(page)
         keys.append((_dict_rank(page, e, d), v, bool(asc), bool(nf)))
     return keys
 
 
+#: ``topn_page`` calls past K7's ``MAX_N`` on a card: the page sorted
+#: (``torch.sort``), then its first n live rows
+sorted_topn_runs = 0
+
+
 def topn_page(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool], n: int,
               nulls_first: Optional[Sequence[bool]] = None) -> Page:
     """The first ``n`` live rows of ``page`` in ORDER BY order, as a page
-    of capacity ``n`` (rows past the live count dead)."""
-    ids, count = k7.topn(topn_keys(page, sort_exprs, ascending, nulls_first),
-                         page.row_mask, n)
+    of capacity ``n`` (rows past the live count dead): K7 up to its
+    ``MAX_N``; past it the reference's ``topn_page``, ``sort_page`` and
+    then the first ``n`` rows (dead rows sort last)."""
+    global sorted_topn_runs
+    if n > k7.MAX_N:
+        ids = sort_perm(page, sort_exprs, ascending, nulls_first)[:n]
+        if ids.shape[0] < n:
+            ids = torch.cat([ids, torch.zeros(n - ids.shape[0], dtype=ids.dtype,
+                                              device=ids.device)])
+        count = page.row_mask.sum()
+        sorted_topn_runs += int(page.row_mask.is_cuda)
+    else:
+        ids, count = k7.topn(topn_keys(page, sort_exprs, ascending, nulls_first),
+                             page.row_mask, n)
     live = torch.arange(n, device=page.device) < count
     return gather_page(page, ids.to(torch.int64), live)
 

@@ -106,7 +106,7 @@ def _check_ported(f: WindowFunc) -> None:
     t = f.arg.type
     if f.kind in ("sum", "avg", "min", "max") and t.is_long_decimal:
         raise NotPorted(f"window {f.kind} over {t}")
-    if t.name == "real" or t.is_raw_string or t.value_shape not in ((), (2,)):
+    if t.is_raw_string or t.value_shape not in ((), (2,)):
         raise NotPorted(f"window {f.kind} over {t}")
 
 

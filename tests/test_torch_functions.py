@@ -248,7 +248,10 @@ def test_math_sweep_values():
 @pytest.mark.parametrize("sql,what", [
     ("select jaccard_index(make_set_digest(n_nationkey), make_set_digest(n_regionkey)) "
      "from nation", "aggregate make_set_digest"),
-], ids=["setdigest"])
+    ("select cast(l_extendedprice as decimal(38,2)) * 2 from lineitem",
+     "expressions over decimal(38,2)"),
+    ("select round(cast(l_tax as real), 1) from lineitem", "round of real"),
+], ids=["setdigest", "decimal38", "round_real"])
 def test_deferred_scalar_families_raise_by_name(sql, what):
     """The families a later slice ports raise NotPorted by name (a raw
     varchar's functions: tests/test_torch_string_fns.py; the containers'

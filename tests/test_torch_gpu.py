@@ -24,7 +24,7 @@ from presto_tpu_torch.kernels import sorted_group_agg as k6
 from presto_tpu_torch.kernels import topn as k7
 from presto_tpu_torch.kernels import window_eval as k10
 from presto_tpu_torch.page import Block, Dictionary, Page
-from presto_tpu_torch.types import parse_type
+from presto_tpu_torch.types import INTERVAL_DAY_SECOND, parse_type
 from tpch_queries import QUERIES
 
 pytestmark = pytest.mark.gpu
@@ -1860,3 +1860,225 @@ def test_tenth_slice_on_the_card_equals_the_cpu_run():
         got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
         assert got == want and got, sql
     assert all(x > y for x, y in zip((k12.launches, k13.launches, k14.launches), before))
+
+
+# -- the eleventh slice: REAL, SMALLINT, TINYINT and INTERVAL values ---------------
+
+def _types_page(n, seed, device):
+    """REALs over many magnitudes with signed zeros and infinities,
+    SMALLINT and TINYINT over their whole range, bigints around the
+    narrow ranges, a decimal, a small key, a timestamp and an interval."""
+    rng = np.random.default_rng(seed)
+    r = (rng.normal(size=(2, n)) * 10.0 ** rng.uniform(-6, 6, (2, n))).astype(np.float32)
+    r[rng.random((2, n)) < 0.05] = np.float32(-0.0)
+    r[rng.random((2, n)) < 0.02] = np.float32(np.inf)
+    a = rng.integers(-10 ** 6, 10 ** 6, n)
+    a[rng.random(n) < 0.3] = rng.choice([32767, 32768, -32769, 128, -129, (1 << 53) + 1,
+                                         I64_MAX, -I64_MAX - 1], 1)[0]
+    cols = [(r[0], "real"), (r[1], "real"), (rng.integers(-32768, 32768, n).astype(np.int16),
+                                             "smallint"),
+            (rng.integers(-128, 128, n).astype(np.int8), "tinyint"), (a, "bigint"),
+            (rng.integers(-10 ** 9, 10 ** 9, n), "decimal(12,2)"),
+            (rng.integers(0, 40, n), "bigint"),
+            (rng.integers(-10 ** 15, 10 ** 15, n), "timestamp"),
+            (rng.integers(-10 ** 12, 10 ** 12, n), "bigint")]
+    blocks = [Block(torch.from_numpy(d).to(device),
+                    torch.from_numpy(rng.random(n) >= 0.1).to(device), parse_type(t))
+              for d, t in cols]
+    return Page(tuple(blocks), torch.from_numpy(rng.random(n) >= 0.1).to(device))
+
+
+_R, _S, _H, _T, _A = (_col(0, "real"), _col(1, "real"), _col(2, "smallint"),
+                      _col(3, "tinyint"), _col(4, "bigint"))
+_D11, _TS11, _IV = _col(5, "decimal(12,2)"), _col(7, "timestamp"), _col(8, "bigint")
+SLICE11_EXPRS = [
+    _call("cast_real", "real", _D11), _call("cast_real", "real", _A),
+    _call("cast_real", "real", _H), _call("cast_smallint", "smallint", _A),
+    _call("cast_smallint", "smallint", _D11), _call("cast_smallint", "smallint", _R),
+    _call("cast_tinyint", "tinyint", _H), _call("cast_tinyint", "tinyint", _A),
+    _call("add", "real", _R, _S), _call("sub", "real", _R, _S), _call("mul", "real", _R, _S),
+    _call("div", "real", _R, _S), _call("mod", "real", _R, _S),
+    _call("mul", "real", _D11, _R), _call("add", "real", _R, _lit(1, "bigint")),
+    _call("neg", "real", _R), _call("lt", "boolean", _R, _S),
+    _call("gt", "boolean", _R, _lit(15, "decimal(2,1)")),
+    _call("in", "boolean", _R, _lit(0.5, "double"), _lit(0.0, "double")),
+    _call("in", "boolean", _call("cast_double", "double", _D11), _lit(2.5, "double"),
+          _lit(-3.5, "double")),
+    _call("add", "smallint", _H, _H), _call("mul", "smallint", _H, _T),
+    _call("div", "smallint", _H, _T), _call("mod", "smallint", _H, _T),
+    _call("sub", "tinyint", _T, _T), _call("neg", "smallint", _H),
+    ir.Call(type=INTERVAL_DAY_SECOND, fn="sub", args=(_TS11, _TS11)),
+    _call("mul", "bigint", _IV, _call("cast_bigint", "bigint", _T)),
+]
+
+
+@pytest.mark.parametrize("i", range(len(SLICE11_EXPRS)))
+def test_expr_eval_eleventh_slice_opcodes_match_plain(i):
+    """K1's narrow kinds, F32R, CASTN, DIN and the width-wise IMOD against
+    the twin on the card, REALs bit for bit."""
+    dev = _cuda()
+    page = _types_page(1 << 20, 500 + i, dev)
+    prog, cols = ExprCompiler.for_page(page).lower(SLICE11_EXPRS[i])
+    ins = [(page.blocks[c].data, page.blocks[c].valid) for c in cols]
+    got = k1.expr_eval(prog, ins, page.capacity)
+    want = k1.expr_eval_plain(prog, ins, page.capacity)
+    torch.cuda.synchronize()
+    assert _equal(_f32_bits(got), _f32_bits(want))
+
+
+def _f32_bits(x):
+    if isinstance(x, (tuple, list)):
+        return [_f32_bits(t) for t in x]
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("slots", [1, 41])
+def test_packed_group_agg_narrow_states_match_plain(slots):
+    """K2 over REAL, SMALLINT, TINYINT and int64 arguments (a REAL's
+    extremes in float32, its double sum in the global slot), with
+    SMALLINT and TINYINT key columns, bit for bit."""
+    dev = _cuda()
+    page = _types_page(1 << 20, 600 + slots, dev)
+    b = page.blocks
+    n = page.capacity
+    keys = [] if slots == 1 else [(b[6].data, b[6].valid, 0, 41)]
+    args = [(k2.MIN_DOUBLE, b[0].data, b[0].valid), (k2.MAX_DOUBLE, b[1].data, b[1].valid),
+            (k2.MIN_SHORT, b[2].data, b[2].valid), (k2.MAX_SHORT, b[3].data, b[3].valid),
+            (k2.SUM_SHORT, b[2].data, b[2].valid), (k2.SUM_SHORT, b[3].data, b[3].valid)]
+    if slots == 1:
+        args.append((k2.SUM_DOUBLE, b[0].data, b[0].valid))
+    got = k2.packed_group_agg(n, page.row_mask, keys, args, slots)
+    want = k2.packed_group_agg_plain(n, page.row_mask, keys, args, slots)
+    torch.cuda.synchronize()
+    assert _equal(_f32_bits(got), _f32_bits(want))
+    if slots > 1:  # SMALLINT and TINYINT keys in the packed table
+        nk = [(b[3].data, b[3].valid, -128, 258), (b[2].data, b[2].valid, -32768, 65537)]
+        got = k2.packed_group_agg(n, page.row_mask, nk[:1], args[:4], 258)
+        want = k2.packed_group_agg_plain(n, page.row_mask, nk[:1], args[:4], 258)
+        assert _equal(_f32_bits(got), _f32_bits(want))
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_sorted_group_agg_narrow_states_match_plain(presorted):
+    """K6 over REAL extremes and sums and SMALLINT extremes and sums, by
+    hashed SMALLINT, TINYINT and REAL keys (K9), bit for bit."""
+    dev = _cuda()
+    page = _types_page(1 << 20, 700 + presorted, dev)
+    b = page.blocks
+    keys = [(b[3].data, b[3].valid, 0, 0)] if presorted else \
+        [(b[2].data, b[2].valid, 0, 0), (b[3].data, b[3].valid, 0, 0),
+         (b[1].data, b[1].valid, 0, 0)]
+    states = [(k6.S_MIN_F64, b[0].data, b[0].valid), (k6.S_MAX_F64, b[0].data, b[0].valid),
+              (k6.S_DSUM, b[0].data, b[0].valid), (k6.S_MIN, b[2].data, b[2].valid),
+              (k6.S_MAX, b[3].data, b[3].valid), (k6.S_SUM, b[2].data, b[2].valid),
+              (k6.S_VALID, None, b[0].valid)]
+    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted)
+    want = k6.sorted_group_agg_plain(keys, page.row_mask, states, presorted)
+    torch.cuda.synchronize()
+    assert got[2] == want[2] > 100
+    assert _equal(_f32_bits(got[:2]), _f32_bits(want[:2]))
+
+
+def test_packed_fold_finalize_narrow_states_match_plain():
+    """K3's fold of REAL (float32), SMALLINT and int64 extremes and its
+    finalize (FIN_VALUE, an interval's HALF_UP avg), bit for bit."""
+    dev = _cuda()
+    tables = []
+    for seed in (801, 802):
+        page = _types_page(1 << 18, seed, dev)
+        b = page.blocks
+        args = [(k2.MIN_DOUBLE, b[0].data, b[0].valid), (k2.MIN_SHORT, b[2].data, b[2].valid),
+                (k2.SUM_SHORT, b[8].data, b[8].valid)]
+        tables.append(k2.packed_group_agg(page.capacity, page.row_mask,
+                                          [(b[6].data, b[6].valid, 0, 41)], args, 41))
+    kinds = [k3.COL_MIN_F64, k3.COL_I64, k3.COL_MAX_I64, k3.COL_I64, k3.COL_I64, k3.COL_I64]
+
+    def cols(states, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for st in states for t in st])]
+
+    got = k3.packed_fold(cols(*tables[0]), cols(*tables[1]), tables[0][1], tables[1][1])
+    want = k3.packed_fold_plain(cols(*tables[0]), cols(*tables[1]), tables[0][1],
+                                tables[1][1])
+    assert _equal(_f32_bits(got), _f32_bits(want))
+    f = [d for d, _ in got[0]]
+    items = [(k3.FIN_VALUE, f[0], f[1]), (k3.FIN_VALUE, f[2], f[3]),
+             (k3.FIN_AVG_SHORT, f[4], f[5])]
+    got = k3.packed_finalize(items, got[1])
+    want = k3.packed_finalize_plain(items, want[1])
+    torch.cuda.synchronize()
+    assert _equal(_f32_bits(got), _f32_bits(want))
+
+
+@pytest.mark.parametrize("n", [10, 100])
+def test_topn_real_and_narrow_keys_match_plain(n):
+    """K7 with a REAL key (its exact double's order: -0.0 ties 0.0, NaN
+    last), a SMALLINT and a TINYINT key."""
+    dev = _cuda()
+    page = _types_page(1 << 20, 900 + n, dev)
+    b = page.blocks
+    for keys in ([(b[0].data, b[0].valid, False, False), (b[4].data, b[4].valid, True, True)],
+                 [(b[3].data, b[3].valid, True, False), (b[2].data, b[2].valid, False, True),
+                  (b[1].data, b[1].valid, True, False)]):
+        got, want = k7.topn(keys, page.row_mask, n), k7.topn_plain(keys, page.row_mask, n)
+        torch.cuda.synchronize()
+        assert _equal(list(got), list(want))
+
+
+def test_window_eval_over_real_matches_plain():
+    """K10's sum, avg, min, max and lag over a REAL argument, ordered by a
+    REAL key, bit for bit."""
+    dev = _cuda()
+    page = _types_page(1 << 18, 950, dev)
+    b = page.blocks
+    n = page.capacity
+    pkey = b[6].data.clone()
+    perm = torch.argsort(pkey * (1 << 32) + torch.arange(n, device=dev), stable=True)
+    funcs = [k10.Func(k10.SUM, k10.FRAME_PEERS), k10.Func(k10.AVG, k10.FRAME_ROWS, -2, 1),
+             k10.Func(k10.MIN, k10.FRAME_PEERS), k10.Func(k10.MAX, k10.FRAME_WHOLE),
+             k10.Func(k10.LAG, k10.FRAME_WHOLE), k10.Func(k10.MIN, k10.FRAME_PEERS)]
+    args = [(b[0].data, b[0].valid)] * 5 + [(b[2].data, b[2].valid)]
+    order = [(b[1].data, b[1].valid)]
+    got = k10.window_eval(perm, page.row_mask, pkey, order, funcs, args)
+    want = k10.window_eval_plain(perm, page.row_mask, pkey, order, funcs, args)
+    torch.cuda.synchronize()
+    assert _equal(_f32_bits(got), _f32_bits(want))
+
+
+ELEVENTH_SLICE_SQL = [
+    "select l_returnflag, sum(cast(l_quantity as real)), avg(cast(l_discount as real)), "
+    "min(cast(l_tax as real)), max(cast(l_extendedprice as real)) from lineitem group by 1 "
+    "order by 1",
+    "select cast(l_linenumber as tinyint), cast(l_quantity as smallint), count(*), "
+    "sum(cast(l_quantity as smallint)) from lineitem group by 1, 2 order by 1, 2",
+    "select l_shipmode, sum(l_receiptdate - l_shipdate), avg(l_receiptdate - l_shipdate), "
+    "min(cast(l_discount as real)), max(cast(l_quantity as smallint)) from lineitem group by 1 "
+    "order by 1",
+    "select count(*) from lineitem where cast(l_discount as double) in (0.02e0, 0.05e0)",
+    "select l_orderkey, l_extendedprice from lineitem order by l_extendedprice desc, "
+    "l_orderkey limit 500",
+    "select o_orderkey, cast(o_totalprice as real) r from orders order by r desc, o_orderkey "
+    "limit 50",
+    "select count(*), max(rs) from (select sum(cast(o_totalprice as real)) over (partition by "
+    "o_custkey order by o_orderdate, o_orderkey) rs from orders)",
+]
+
+
+def test_eleventh_slice_on_the_card_equals_the_cpu_run():
+    """REAL, SMALLINT, TINYINT and INTERVAL values, IN over a double and
+    ORDER BY ... LIMIT past 100 through SQL at sf 0.01 on the card, equal
+    to the CPU run (doubles bit for bit: the port's fixed sum orders)."""
+    _cuda()
+    from presto_tpu_torch.ops import sort as port_sort
+    from presto_tpu_torch.runner import QueryRunner
+    from presto_tpu_torch.testing import tpch_catalog
+
+    gpu = QueryRunner(tpch_catalog(sf=0.01), device="cuda")
+    cpu = QueryRunner(tpch_catalog(sf=0.01), device="cpu")
+    k1.op_launches.clear()
+    before = (k7.real_launches, k10.narrow_launches, port_sort.sorted_topn_runs)
+    for sql in ELEVENTH_SLICE_SQL:
+        got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
+        assert got == want and got, sql
+    assert {"f32r", "castn", "din", "narrow"} <= set(k1.op_launches)
+    assert all(x > y for x, y in zip((k7.real_launches, k10.narrow_launches,
+                                      port_sort.sorted_topn_runs), before))

@@ -11,7 +11,6 @@ from presto_tpu.expr import ir as ref_ir
 from presto_tpu.ops import sort as ref_sort
 from presto_tpu.page import Block as RefBlock, Dictionary as RefDictionary, Page as RefPage
 from presto_tpu.types import parse_type as ref_type
-from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr import ir as port_ir
 from presto_tpu_torch.kernels import topn as k7
 from presto_tpu_torch.ops import sort as port_sort
@@ -79,7 +78,15 @@ def test_topn_with_fewer_live_rows_than_n():
     assert int(got.row_mask.sum()) == 3
 
 
-def test_topn_past_the_kernel_bound_raises():
-    page = to_port(_page(4, 100))
-    with pytest.raises(NotPorted):
-        port_sort.topn_page(page, _exprs(port_ir, port_type, ["k"]), [True], k7.MAX_N + 1)
+@pytest.mark.parametrize("n", [k7.MAX_N + 1, 150, 500])
+def test_topn_past_the_kernel_bound_equals_reference(n):
+    """Past K7's MAX_N the port sorts the page (``torch.sort``) and keeps
+    its first n live rows, as the reference's topn_page always does:
+    the same rows in the same order, ties broken by row position."""
+    names, asc, nf = ORDERS["all_keys"]
+    ref_page = _page(4 + n)
+    want = ref_sort.topn_page(ref_page, _exprs(ref_ir, ref_type, names), asc, n, nf)
+    got = port_sort.topn_page(to_port(ref_page), _exprs(port_ir, port_type, names), asc, n, nf)
+    assert got.capacity == n
+    assert got.to_pylist() == want.to_pylist()
+    assert len(got.to_pylist()) == n

@@ -38,6 +38,12 @@ NOT_PORTED = {
     "ordered_string_column_comparison": (
         "select count(*) from customer where c_first_name < c_last_name",
         "ordered comparison (lt) of two string columns"),
+    "long_decimal_38": (
+        "select sum(cast(ss_sales_price as decimal(38,2))) from store_sales",
+        "sum over decimal(38,2)"),
+    "min_by_over_real": (
+        "select min_by(ss_item_sk, cast(ss_sales_price as real)) from store_sales",
+        "min_by over real"),
 }
 # pinned as NotPorted until the eighth slice ported them (min/max over
 # doubles and varchar, the pushed-down LIMIT scan, cast_bigint); now
