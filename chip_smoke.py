@@ -69,7 +69,12 @@ Phases (any failure exits non-zero before the result line):
    and finalize of them, K6's REAL and SMALLINT states by l_suppkey, K7
    with a REAL key and K10's running REAL sum over orders, REALs bit
    for bit, and the sorted top 1000 past K7's 100 rows (``torch.sort``,
-   a log line: no kernel of its own);
+   a log line: no kernel of its own); and the twelfth slice's
+   (``check_sketch_kernels``): K15 group_topn over a lineitem split by
+   l_suppkey and by the two flags and its merge of two splits' lanes,
+   K1's digest hash, K16 kmv_lanes by l_shipmode and its merge, K14's
+   wide value half and map_union over the sk queries' inner pages, and
+   K12's hll_card, kmv_card and sd_pair over their sketches;
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
@@ -92,7 +97,12 @@ Phases (any failure exits non-zero before the result line):
    same tables (``TY_QUERIES``: Q1's aggregates over REALs, REAL
    extremes and sums by l_suppkey, SMALLINT and TINYINT keys, a shipping
    delay as intervals, IN over a double, a top 1000, a REAL top 100, a
-   running REAL sum per customer); then (TPC-H's tables freed)
+   running REAL sum per customer); the sketch phase over the same
+   tables, traced (``SK_QUERIES``: max/min(x, 5) per supplier,
+   max_by/min_by(x, y, n) by the two flags, approx_set with
+   cardinality and merge, set digests per ship mode, jaccard_index and
+   intersection_cardinality, multimap_agg, map_union); then (TPC-H's
+   tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -107,8 +117,8 @@ Phases (any failure exits non-zero before the result line):
    SF 1 (the card runs the 22 queries again over the SF 1 tables; Q22,
    which finds no row there, also without its anti join), the other
    TPC-DS queries at SF 1 (run again there on the card), q72 at sf
-   0.01; the functions, the dates and aggregate tail, the containers
-   and the types phases at SF 1, exact but for skewness's doubles
+   0.01; the functions, the dates and aggregate tail, the containers,
+   the types and the sketch phases at SF 1, exact but for skewness's doubles
    (``FN_APPROX``: its pow, a relative 1e-12);
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
@@ -397,6 +407,42 @@ TY_QUERIES = {
 }
 
 
+# the twelfth slice, the sketch and heap aggregates, at SF10 over the
+# same resident tables, no cut (rows checked at TPCH_CHECK_SF with
+# check_fn_rows, exact): the top 5 and bottom 5 prices of each of the
+# 100k suppliers (K15 over K6's runs, merged across the 8 splits),
+# max_by / min_by over the four flag groups of up to 30M rows (the
+# skewed case), approx_set with cardinality and its merge (K14's
+# hll_sketch, K13's UNNEST of the sketches, K12's hll_card), a set
+# digest per ship mode (K1's digest hash, K16, K12's kmv_card), the
+# jaccard and intersection of the AIR and RAIL suppliers' digests and
+# the union of the modes' digests (K12's sd_pair, K16's merge),
+# multimap_agg (K14's wide value half) and map_union (K14 over the
+# input maps)
+SK_QUERIES = {
+    "sk_max_n": "select l_suppkey, max(l_extendedprice, 5), min(l_extendedprice, 5) "
+                "from lineitem group by l_suppkey",
+    "sk_by_n": "select l_returnflag, l_linestatus, max_by(l_orderkey, l_extendedprice, 10), "
+               "min_by(l_orderkey, l_quantity, 3) from lineitem group by 1, 2",
+    "sk_approx_set": "select o_orderpriority, cardinality(approx_set(o_custkey)) from orders "
+                     "group by 1",
+    "sk_hll_merge": "select cardinality(merge(s)) from (select o_orderpriority, "
+                    "approx_set(o_custkey) s from orders group by 1)",
+    "sk_digest": "select l_shipmode, cardinality(make_set_digest(l_partkey)) from lineitem "
+                 "group by 1",
+    "sk_jaccard": "select jaccard_index(a, b), intersection_cardinality(a, b), "
+                  "cardinality(m) from (select make_set_digest(l_suppkey) a from lineitem "
+                  "where l_shipmode = 'AIR'), (select make_set_digest(l_suppkey) b from "
+                  "lineitem where l_shipmode = 'RAIL'), (select merge_set_digest(d) m from "
+                  "(select l_shipmode, make_set_digest(l_suppkey) d from lineitem group by 1))",
+    "sk_multimap": "select l_returnflag, multimap_agg(l_shipmode, l_linenumber) from lineitem "
+                   "group by 1",
+    "sk_map_union": "select l_returnflag, map_union(m) from (select l_returnflag, "
+                    "l_suppkey % 50 g, map_agg(l_linenumber, l_quantity) m from lineitem "
+                    "group by 1, 2) group by 1",
+}
+
+
 def _spill_sql() -> dict:
     """AGG_SQL, JOIN_SQL and FULL_SQL of ``tests/test_spill.py``, read
     without importing it (it imports the JAX package)."""
@@ -621,6 +667,18 @@ TY_REQUIRED = {
     "ty_real_top": ("topn:real", "expr_eval:f32r"),
     "ty_real_window": ("window_eval:narrow", "expr_eval:f32r"),
 }
+SK_REQUIRED = {
+    "sk_max_n": ("sorted_group_agg", "group_topn", "group_topn:merge"),
+    "sk_by_n": ("sorted_group_agg", "group_topn", "group_topn:merge"),
+    "sk_approx_set": ("expr_eval:hll", "group_collect", "container_eval:hll_card"),
+    "sk_hll_merge": ("group_collect", "unnest_expand", "container_eval:hll_card"),
+    "sk_digest": ("expr_eval:digest_hash", "kmv_lanes", "kmv_lanes:merge",
+                  "container_eval:kmv_card"),
+    "sk_jaccard": ("kmv_lanes", "kmv_lanes:merge", "container_eval:sd_pair",
+                   "container_eval:kmv_card"),
+    "sk_multimap": ("group_collect", "group_collect:wide"),
+    "sk_map_union": ("group_collect", "group_collect:union"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -704,6 +762,16 @@ REPLACES = {
     "packed_fold_finalize@narrow_finalize": "presto_tpu/ops/aggregate.py:1393",
     "topn@real": "presto_tpu/ops/sort.py:43",
     "window_eval@real": "presto_tpu/ops/window.py:343",
+    "group_topn": "presto_tpu/ops/aggregate.py:1020",
+    "group_topn@merge": "presto_tpu/ops/aggregate.py:1254",
+    "kmv_lanes": "presto_tpu/ops/aggregate.py:944",
+    "kmv_lanes@merge": "presto_tpu/ops/aggregate.py:1235",
+    "expr_eval@digest_hash": "presto_tpu/ops/aggregate.py:935",
+    "group_collect@wide": "presto_tpu/ops/aggregate.py:684",
+    "group_collect@union": "presto_tpu/ops/aggregate.py:709",
+    "container_eval@hll_card": "presto_tpu/expr/compile.py:1916",
+    "container_eval@kmv_card": "presto_tpu/expr/compile.py:1940",
+    "container_eval@sd_pair": "presto_tpu/expr/compile.py:1960",
 }
 
 
@@ -3123,6 +3191,217 @@ def check_type_kernels(report: KernelReport, mem) -> None:
         f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms), rows equal the CPU's")
 
 
+def check_sketch_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the twelfth slice, at the sk_* queries' shapes, each
+    kernel against its twin bit for bit: K15's partial over a whole
+    lineitem split by l_suppkey (sk_max_n's max(l_extendedprice, 5)) and
+    by the two flags (sk_by_n's max_by(l_orderkey, l_extendedprice, 10):
+    four groups of ~2M rows), and its merge of two splits' max_by
+    lanes; K1's digest hash and K16's make_set_digest(l_partkey) by
+    l_shipmode over a split, and K16's merge of two splits' digests;
+    K14's wide value half over sk_multimap's inner arrays and map_union
+    over sk_map_union's inner maps; K12's hll_card, kmv_card and sd_pair
+    over the sketches the sk queries build.  The host's two stable
+    sorts beside K15 and K16 (``sorted_entries``: torch.sort, no kernel
+    of their own) are timed on a log line."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.expr.ir import AggCall, ColumnRef, Literal
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import group_collect as k14
+    from presto_tpu_torch.kernels import group_topn as k15
+    from presto_tpu_torch.kernels import kmv_lanes as k16
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.ops import aggregate as agg_ops
+    from presto_tpu_torch.ops.join import key_columns
+    from presto_tpu_torch.page import concat_pages_device
+    from presto_tpu_torch.runner import QueryRunner
+    from presto_tpu_torch.types import parse_type
+
+    t0 = time.perf_counter()
+    names = [c for c, _ in mem.schema("lineitem")]
+    types = dict(mem.schema("lineitem"))
+    bigint = parse_type("bigint")
+
+    def col(c):
+        return ColumnRef(type=types[c], index=names.index(c))
+
+    def runs(pg, exprs):
+        keys = key_columns(pg, exprs, [None] * len(exprs))
+        got = k6.sorted_group_agg(keys, pg.row_mask, [(k6.S_ONE, None, None)], runs=True)
+        return got[2], got[3]
+
+    def agg(fn, arg, arg2=None, arg3=None):
+        call = AggCall(fn=fn, arg=arg, arg2=arg2, arg3=arg3, type=bigint)
+        return AggCall(fn=fn, arg=arg, arg2=arg2, arg3=arg3, type=agg_ops.output_type(call))
+
+    def lit(v):
+        return Literal(type=bigint, value=v)
+
+    pages = [mem.page_for_split("lineitem", i) for i in (0, 1)]
+    page = pages[0]
+    dev = page.device
+    c = ExprCompiler.for_page(page)
+    price = page.blocks[names.index("l_extendedprice")]
+    okey = page.blocks[names.index("l_orderkey")]
+
+    # K15's partial: sk_max_n's by l_suppkey, sk_by_n's by the two flags
+    def topn_row(name, exprs, vals, keys, cap):
+        groups, (order, starts) = runs(page, exprs)
+        g, rows = agg_ops._run_positions(order, starts)
+        k = keys if keys is not None else vals
+        ok = (page.row_mask & price.valid)[rows]
+        perm, bounds = k15.sorted_entries(g, k[rows], ok, groups)
+        prm = rows[perm]
+        got = k15.group_topn(prm, bounds, vals, keys, cap, True)
+        err = same_bits(got, k15.group_topn_plain(prm, bounds, vals, keys, cap, True), name)
+        lanes = int(torch.clamp(bounds[1:] - bounds[:-1], max=cap).sum())
+        halves = 1 if keys is None else 2
+        report.add(name, "cuda", "presto_tpu_torch/csrc/group_topn.cu", err,
+                   cuda_ms(lambda: k15.group_topn(prm, bounds, vals, keys, cap, True), 20),
+                   cuda_ms(lambda: k15.group_topn_plain(prm, bounds, vals, keys, cap, True), 3),
+                   nbytes(bounds, got) + lanes * 8 * (1 + halves), None, "group_topn")
+        sort_ms = cuda_ms(lambda: k15.sorted_entries(g, k[rows], ok, groups), 3)
+        log(f"{name}: {groups} groups of {int(starts[-1])} rows, {lanes} lanes; the host's "
+            f"two stable sorts (sorted_entries) {sort_ms:.4f} ms")
+
+    topn_row("group_topn", [col("l_suppkey")], price.data, None, 5)
+    topn_row("group_topn@by_n", [col("l_returnflag"), col("l_linestatus")],
+             okey.data.to(torch.int64), price.data, 10)
+
+    # K15's merge: two splits' max_by(l_orderkey, l_extendedprice, 10)
+    # partials by the two flags, flattened into entries
+    flags = [col("l_returnflag"), col("l_linestatus")]
+    by_n = agg("max_by_n", col("l_orderkey"), col("l_extendedprice"), lit(10))
+    parts = concat_pages_device([agg_ops.grouped_aggregate(pg, flags, [by_n], 1 << 14,
+                                                           key_domains=[None, None],
+                                                           mode="partial") for pg in pages])
+    pkeys = [ColumnRef(type=b.type, index=i) for i, b in enumerate(parts.blocks[:2])]
+    groups, (order, starts) = runs(parts, pkeys)
+    g, rows = agg_ops._run_positions(order, starts)
+    part = parts.blocks[2].data[rows]
+    lens = torch.clamp(k14.lengths(part), max=10)
+    lane_ok = (torch.arange(10, device=dev)[None, :] < lens[:, None]).reshape(-1)
+    vals, keys = part[:, 1:11].reshape(-1), part[:, 11:21].reshape(-1)
+    ge = g[:, None].expand(-1, 10).reshape(-1)
+    perm, bounds = k15.sorted_entries(ge, keys, lane_ok, groups)
+    got = k15.group_topn(perm, bounds, vals, keys, 10, True)
+    err = same_bits(got, k15.group_topn_plain(perm, bounds, vals, keys, 10, True),
+                    "group_topn@merge")
+    report.add("group_topn@merge", "cuda", "presto_tpu_torch/csrc/group_topn.cu", err,
+               cuda_ms(lambda: k15.group_topn(perm, bounds, vals, keys, 10, True, True), 20),
+               cuda_ms(lambda: k15.group_topn_plain(perm, bounds, vals, keys, 10, True), 3),
+               nbytes(bounds, got) + int(got[:, 0].sum()) * 8 * 3, None, "group_topn:merge")
+
+    # K1's digest hash and K16 over sk_digest's make_set_digest(l_partkey)
+    # by l_shipmode, then the merge of two splits' digests
+    lw_prog, lw_cols = agg_ops.digest_hash_program(c, col("l_partkey"))
+    ins = [(page.blocks[i].data, page.blocks[i].valid) for i in lw_cols]
+    n = page.capacity
+    hv = k1.expr_eval(lw_prog, ins, n)
+    err = same_bits(hv, k1.expr_eval_plain(lw_prog, ins, n), "expr_eval@digest_hash")
+    report.add("expr_eval@digest_hash", "cuda", "presto_tpu_torch/csrc/expr_eval.cu", err,
+               cuda_ms(lambda: k1.expr_eval(lw_prog, ins, n), 20),
+               cuda_ms(lambda: k1.expr_eval_plain(lw_prog, ins, n), 3),
+               nbytes(*[t for p in ins for t in p]) + nbytes(*hv), None,
+               "expr_eval:digest_hash")
+    groups, (order, starts) = runs(page, [col("l_shipmode")])
+    g, rows = agg_ops._run_positions(order, starts)
+    h = hv[0][rows]
+    ok = (page.row_mask & hv[1])[rows]
+    perm, bounds = k15.sorted_entries(g, h, ok, groups)
+    # no count lane: make_set_digest counts each row once
+    got = k16.kmv_lanes(perm, g, h, None, bounds, 64)
+    err = same_bits(list(got), list(k16.kmv_lanes_plain(perm, g, h, None, bounds, 64)),
+                    "kmv_lanes")
+    report.add("kmv_lanes", "cuda", "presto_tpu_torch/csrc/kmv_lanes.cu", err,
+               cuda_ms(lambda: k16.kmv_lanes(perm, g, h, None, bounds, 64), 10),
+               cuda_ms(lambda: k16.kmv_lanes_plain(perm, g, h, None, bounds, 64), 2),
+               nbytes(perm, g, h, bounds, *got), None, "kmv_lanes")
+    sort_ms = cuda_ms(lambda: k15.sorted_entries(g, h, ok, groups), 3)
+    log(f"kmv_lanes: {groups} groups of {int(starts[-1])} rows; the host's two stable sorts "
+        f"{sort_ms:.4f} ms")
+    digest = agg("make_set_digest", col("l_partkey"))
+    parts = concat_pages_device([agg_ops.grouped_aggregate(pg, [col("l_shipmode")], [digest],
+                                                           1 << 14, key_domains=[None],
+                                                           mode="partial") for pg in pages])
+    groups, (order, starts) = runs(parts, [ColumnRef(type=parts.blocks[0].type, index=0)])
+    g, rows = agg_ops._run_positions(order, starts)
+    ge, he, ce, oke = k16.digest_entries(parts.blocks[1].data[rows], g, parts.row_mask[rows], 64)
+    perm, bounds = k15.sorted_entries(ge, he, oke, groups)
+    got = k16.kmv_lanes(perm, ge, he, ce, bounds, 64)
+    err = same_bits(list(got), list(k16.kmv_lanes_plain(perm, ge, he, ce, bounds, 64)),
+                    "kmv_lanes@merge")
+    report.add("kmv_lanes@merge", "cuda", "presto_tpu_torch/csrc/kmv_lanes.cu", err,
+               cuda_ms(lambda: k16.kmv_lanes(perm, ge, he, ce, bounds, 64, True), 10),
+               cuda_ms(lambda: k16.kmv_lanes_plain(perm, ge, he, ce, bounds, 64), 2),
+               nbytes(perm, ge, he, ce, bounds, *got), None, "kmv_lanes:merge")
+
+    # K14 and K12 over the sk queries' own inner pages and sketches
+    def device_page(sql):
+        r = QueryRunner(query_catalog(mem, sql), device="cuda")
+        return r.executor.run_to_page(r.plan(sql))
+
+    inner = device_page("select l_returnflag, l_shipmode, array_agg(l_linenumber) v "
+                        "from lineitem group by 1, 2")
+    ib = inner.blocks
+    mm = agg("multimap_agg", ColumnRef(type=ib[1].type, index=1),
+             ColumnRef(type=ib[2].type, index=2))
+    groups, (order, starts) = runs(inner, [ColumnRef(type=ib[0].type, index=0)])
+    sel, halves = agg_ops._collect_halves(ExprCompiler.for_page(inner), mm, inner)
+    storage = agg_ops._torch_dtype(agg_ops.state_types(mm)[0])
+    got = k14.group_collect(order, starts, sel, halves, 64, storage)
+    err = same_bits(got, k14.group_collect_plain(order, starts, sel, halves, 64, storage),
+                    "group_collect@wide")
+    report.add("group_collect@wide", "cuda", "presto_tpu_torch/csrc/group_collect.cu", err,
+               cuda_ms(lambda: k14.group_collect(order, starts, sel, halves, 64, storage), 20),
+               cuda_ms(lambda: k14.group_collect_plain(order, starts, sel, halves, 64,
+                                                       storage), 3),
+               nbytes(order, starts, sel, *[t for hf in halves for t in hf], got), None,
+               "group_collect:wide")
+    inner = device_page("select l_returnflag, l_suppkey % 50 g, map_agg(l_linenumber, "
+                        "l_quantity) m from lineitem group by 1, 2")
+    ib = inner.blocks
+    groups, (order, starts) = runs(inner, [ColumnRef(type=ib[0].type, index=0)])
+    live = inner.row_mask & ib[2].valid
+    maps = ib[2].data
+    cap_in = ib[2].type.max_elems
+    got = k14.group_collect_merge(order, starts, live, maps, 64, halves=2, in_cap=cap_in)
+    err = same_bits(got, k14.group_collect_merge_plain(order, starts, live, maps, 64, 2, 1,
+                                                       cap_in), "group_collect@union")
+    entries = int(torch.where(live, torch.clamp(k14.lengths(maps), max=cap_in), 0).sum())
+    report.add("group_collect@union", "cuda", "presto_tpu_torch/csrc/group_collect.cu", err,
+               cuda_ms(lambda: k14.group_collect_merge(order, starts, live, maps, 64, halves=2,
+                                                       in_cap=cap_in), 20),
+               cuda_ms(lambda: k14.group_collect_merge_plain(order, starts, live, maps, 64, 2,
+                                                             1, cap_in), 3),
+               nbytes(order, starts, live, maps[:, 0], got) + entries * 16, None,
+               "group_collect:union")
+    sketches = device_page("select o_orderpriority, approx_set(o_custkey) s from orders "
+                           "group by 1").blocks[1]
+    air = device_page("select make_set_digest(l_suppkey) a from lineitem "
+                      "where l_shipmode = 'AIR'").blocks[0]
+    rail = device_page("select make_set_digest(l_suppkey) b from lineitem "
+                       "where l_shipmode = 'RAIL'").blocks[0]
+    modes = device_page("select l_shipmode, make_set_digest(l_partkey) d from lineitem "
+                        "group by 1").blocks[1]
+    for name, kw in (("container_eval@hll_card", dict(op=k12.HLL_CARD, a=sketches.data,
+                                                      av=sketches.valid)),
+                     ("container_eval@kmv_card", dict(op=k12.KMV_CARD, a=modes.data,
+                                                      av=modes.valid)),
+                     ("container_eval@sd_pair", dict(op=k12.SD_PAIR, a=air.data, av=air.valid,
+                                                     b=rail.data, bv=rail.valid,
+                                                     p=[k12.SD_INTERSECTION]))):
+        got = k12.container_eval(**kw)
+        err = same_bits(list(got), list(_k12_plain(kw)), name)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/container_eval.cu", err,
+                   cuda_ms(lambda: k12.container_eval(**kw), 20),
+                   cuda_ms(lambda: _k12_plain(kw), 3),
+                   nbytes(*[v for k, v in kw.items() if isinstance(v, torch.Tensor)], *got),
+                   None, f"container_eval:{name.split('@')[1]}")
+    log(f"the sketch kernels' checks took {time.perf_counter() - t0:.1f} s")
+
+
 def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
     (a transcendental's doubles) within a relative 1e-12; ``where``
@@ -3187,9 +3466,9 @@ def profile_query(runner, sql: str) -> str:
 
 def counters():
     from presto_tpu_torch.kernels import (
-        container_eval, expr_eval, group_collect, join_build, join_expand, join_probe, keys,
-        packed_fold_finalize, packed_group_agg, sorted_group_agg, spill_partition, topn,
-        unnest_expand, window_eval,
+        container_eval, expr_eval, group_collect, group_topn, join_build, join_expand,
+        join_probe, keys, kmv_lanes, packed_fold_finalize, packed_group_agg, sorted_group_agg,
+        spill_partition, topn, unnest_expand, window_eval,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
@@ -3197,7 +3476,8 @@ def counters():
             "join_probe": join_probe, "sorted_group_agg": sorted_group_agg, "topn": topn,
             "join_expand": join_expand, "hash_keys": keys, "window_eval": window_eval,
             "spill_partition": spill_partition, "container_eval": container_eval,
-            "unnest_expand": unnest_expand, "group_collect": group_collect}
+            "unnest_expand": unnest_expand, "group_collect": group_collect,
+            "group_topn": group_topn, "kmv_lanes": kmv_lanes}
 
 
 # counters of one kind of launch: (kernel, attribute, name in the counts)
@@ -3224,7 +3504,11 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("group_collect", "merge_launches", "group_collect:merge"),
               ("hash_keys", "narrow_launches", "hash_keys:narrow"),
               ("topn", "real_launches", "topn:real"),
-              ("window_eval", "narrow_launches", "window_eval:narrow"))
+              ("window_eval", "narrow_launches", "window_eval:narrow"),
+              ("group_topn", "merge_launches", "group_topn:merge"),
+              ("kmv_lanes", "merge_launches", "kmv_lanes:merge"),
+              ("group_collect", "wide_launches", "group_collect:wide"),
+              ("group_collect", "union_launches", "group_collect:union"))
 
 
 # kernels that count their launches by kind in a dict, by its attribute
@@ -3444,6 +3728,7 @@ def main() -> int:
     check_tail_kernels(report, mem)
     check_container_kernels(report, mem)
     check_type_kernels(report, mem)
+    check_sketch_kernels(report, mem)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3499,6 +3784,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"types phase done at {time.perf_counter() - t_all:.1f} s")
+    # the sketch and heap aggregates over the same tables, traced
+    sk_runners = {label: QueryRunner(query_catalog(mem, sql), device="cuda")
+                  for label, sql in SK_QUERIES.items()}
+    drive(sk_runners, SK_QUERIES, SK_REQUIRED)
+    del sk_runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sketch phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -3564,7 +3857,8 @@ def main() -> int:
         check_rows(f"{label} at sf={TPCH_CHECK_SF}", got, ref, may_be_empty)
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
-    for label, sql in {**FN_QUERIES, **DT_QUERIES, **CT_QUERIES, **TY_QUERIES}.items():
+    for label, sql in {**FN_QUERIES, **DT_QUERIES, **CT_QUERIES, **TY_QUERIES,
+                       **SK_QUERIES}.items():
         t1 = time.perf_counter()
         got = QueryRunner(query_catalog(mem_check, sql), device="cuda").execute(sql)
         ref = QueryRunner(query_catalog(host_check, sql), device="cpu").execute(sql)
@@ -3612,11 +3906,12 @@ def main() -> int:
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
     for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(CT_QUERIES) \
-            + list(TY_QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
+            + list(TY_QUERIES) + list(SK_QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) \
+            + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
-            or label in DT_QUERIES or label in CT_QUERIES or label in TY_QUERIES else (
-            "store_sales", host_ds.row_count("store_sales"))
+            or label in DT_QUERIES or label in CT_QUERIES or label in TY_QUERIES \
+            or label in SK_QUERIES else ("store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows
         log(f"{label}: {len(shown)} rows: {shown[:5]}{' ...' if len(shown) > 5 else ''}")

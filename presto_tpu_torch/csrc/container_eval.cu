@@ -4,7 +4,9 @@
 // array_distinct, slice, the slot coercions, ||, map_keys /
 // map_values, the ARRAY / MAP / ROW constructors and field access, the
 // set functions, map_concat, sequence, repeat, split's table gather,
-// and the lambda functions' assembly from their body's lanes).
+// the lambda functions' assembly from their body's lanes, and the
+// sketches' estimators: the cardinality of a HYPERLOGLOG and of a
+// SETDIGEST, jaccard_index and intersection_cardinality).
 //
 // Replaces: presto_tpu/ops/container.py (construct_row :169, row_field
 // :179, construct_array :235, subscript :252, map_get :268, cardinality
@@ -15,8 +17,10 @@
 // functions after it, map_concat :645, compact_entry_pairs :670) and
 // the container branches of presto_tpu/expr/compile.py
 // (_compile_container :1806, _compile_split :1476, the lambdas
-// :2116-:2355), which XLA fused as masked reductions, gathers and
-// argsorts over the trailing slot axis.
+// :2116-:2355, the cardinality of an hll :1916 and of a setdigest
+// :1940, jaccard_index / intersection_cardinality :1960), which XLA
+// fused as masked reductions, gathers and argsorts over the trailing
+// slot axis.
 //
 // Bound on the H100: memory.  Every opcode reads each input slot once
 // and writes each output slot once (sort, distinct and the set
@@ -36,6 +40,21 @@
 // the comparison copies of the set functions) load through one
 // converting accessor.  Simple first: rows are read with strided
 // per-thread accesses, not staged through shared memory.
+//
+// The sketch estimators: HLL_CARD is one warp per row (a sketch row is
+// 1 + 2 * 512 slots and a query has few of them): lane l adds the
+// weights 2^-rho of registers l, l + 32, ... in order, each built from
+// the double's bits as K2's hll_merge does, and an xor-shuffle tree
+// adds the 32 partials; the weights are powers of two, so the sum is
+// exact whatever its order unless the register values span more than
+// 52 binary orders.  The linear-counting correction and the rounding
+// follow in the reference's association, with no fused multiply-add.
+// KMV_CARD is exact below 64 hashes, else (K - 1) / fraction of the
+// hash space below the 64th.  SD_PAIR walks two digests' ascending,
+// distinct hash lists with two pointers (the reference sorts their
+// concatenation), counting the union's first 64 distinct hashes and
+// those in both: jaccard_index, and with the union's KMV estimate
+// intersection_cardinality.
 
 #include <math.h>
 
@@ -48,7 +67,8 @@ enum {
   OP_CARD, OP_SUBSCRIPT, OP_MAP_GET, OP_CONTAINS, OP_POSITION, OP_REDUCE, OP_SORT,
   OP_DISTINCT, OP_SLICE, OP_COERCE, OP_CONCAT, OP_MAP_HALF, OP_CONSTRUCT, OP_CONSTRUCT_MAP,
   OP_ROW_FIELD, OP_COMPACT, OP_COMPACT_PAIRS, OP_SETOP, OP_OVERLAP, OP_REMOVE, OP_MAP_CONCAT,
-  OP_TKEYS, OP_SEQUENCE, OP_REPEAT, OP_ASSEMBLE, OP_MATCH, OP_SLOT, OP_TABLE, OP_COUNT
+  OP_TKEYS, OP_SEQUENCE, OP_REPEAT, OP_ASSEMBLE, OP_MATCH, OP_SLOT, OP_TABLE, OP_HLL_CARD,
+  OP_KMV_CARD, OP_SD_PAIR, OP_COUNT
 };
 enum { R_MIN, R_MAX, R_SUM, R_AVG };
 enum { M_ANY, M_NONE, M_ALL };
@@ -195,6 +215,52 @@ __device__ __forceinline__ Val body_at(const K12& g, i64 r, i64 j, bool* ok) {
   return load_val(g.y, g.y_k, o + j);
 }
 
+// -- the sketches ----------------------------------------------------------------
+
+__device__ __forceinline__ i64 clamp_len(i64 l, i64 k) { return l < 0 ? 0 : l > k ? k : l; }
+
+// (K - 1) / the fraction of the hash space below the K-th smallest hash
+__device__ __forceinline__ double kmv_estimate(i64 K, i64 kth) {
+  const double span = __dsub_rn((double)kth, -9223372036854775808.0);
+  const double frac = __ddiv_rn(span > 1.0 ? span : 1.0, 18446744073709551616.0);
+  return __ddiv_rn((double)(K - 1), frac);
+}
+
+// HLL's register weight 2^-rho, exact from the double's bits
+__device__ __forceinline__ double rho_weight(i64 rho) {
+  return (rho >= 0 && rho <= 1022) ? __longlong_as_double((1023 - rho) << 52)
+                                   : exp2(-(double)rho);
+}
+
+// One warp per sketch row [count, m buckets, m rho]: the HLL estimate
+// with the linear-counting correction, rounded half to even.
+static __global__ void k12_hll_card(K12 g) {
+  const int lane = threadIdx.x & 31;
+  const i64 warps = (i64)gridDim.x * (blockDim.x >> 5);
+  const i64 m = ((i64)g.a_w - 1) / 2;
+  const double md = (double)m;
+  const double alpha = __ddiv_rn(0.7213, __dadd_rn(1.0, __ddiv_rn(1.079, md)));
+  const double amm = __dmul_rn(__dmul_rn(alpha, md), md);
+  for (i64 r = ((i64)blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < g.n; r += warps) {
+    const i64* A = (const i64*)g.a + r * g.a_w;
+    const i64 cnt = clamp_len(A[0], m);
+    double acc = 0.0;
+    for (i64 j = lane; j < m; j += 32)
+      if (j < cnt) acc = __dadd_rn(acc, rho_weight(A[1 + m + j]));
+    for (int off = 16; off > 0; off >>= 1)
+      acc = __dadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if (lane == 0) {
+      const double zeros = (double)(m - cnt);
+      const double sum = __dadd_rn(acc, zeros);
+      const double raw = __ddiv_rn(amm, sum > 1e-12 ? sum : 1e-12);
+      const double lc = __dmul_rn(md, log(__ddiv_rn(md, zeros > 1.0 ? zeros : 1.0)));
+      const double est = (raw <= __dmul_rn(2.5, md) && zeros > 0.0) ? lc : raw;
+      ((i64*)g.out)[r] = (i64)rint(est);
+      g.ov[r] = g.av != nullptr ? g.av[r] : 1;
+    }
+  }
+}
+
 // -- the opcodes -----------------------------------------------------------------
 
 template <typename T>
@@ -293,6 +359,55 @@ __device__ void k12_row(const K12& g, i64 r) {
   if (op == OP_CARD) {
     ((i64*)g.out)[r] = L;
     g.ov[r] = av;
+    return;
+  }
+  if (op == OP_KMV_CARD) {  // a digest row: [len, 64 hashes, 64 counts]
+    const i64 K = ((i64)g.a_w - 1) / 2;
+    const i64 ln = (i64)A[0] < 0 ? 0 : (i64)A[0];
+    i64 est = ln;
+    if (ln >= K) {
+      const i64 e = (i64)rint(kmv_estimate(K, (i64)A[K]));
+      est = e > ln ? e : ln;
+    }
+    ((i64*)g.out)[r] = est;
+    g.ov[r] = av;
+    return;
+  }
+  if (op == OP_SD_PAIR) {  // p0: 0 jaccard_index, 1 intersection_cardinality
+    const T* B = (const T*)g.b + r * g.b_w;
+    const i64 K = ((i64)g.a_w - 1) / 2;
+    const i64 la = clamp_len((i64)A[0], K), lb = clamp_len((i64)B[0], K);
+    i64 i = 0, j = 0, u = 0, s = 0, both = 0, kth = I64_MIN;
+    while (true) {
+      const bool ha = i < la && (i64)A[1 + i] < I64_MAX;
+      const bool hb = j < lb && (i64)B[1 + j] < I64_MAX;
+      if (!ha && !hb) break;
+      i64 x;
+      bool dup = false;
+      if (ha && hb && (i64)A[1 + i] == (i64)B[1 + j]) {
+        x = (i64)A[1 + i++];
+        ++j;
+        dup = true;
+      } else if (hb && (!ha || (i64)B[1 + j] < (i64)A[1 + i])) {
+        x = (i64)B[1 + j++];
+      } else {
+        x = (i64)A[1 + i++];
+      }
+      if (u < K) {
+        ++s;
+        both += dup;
+        kth = x;
+      }
+      ++u;
+    }
+    const double jac = __ddiv_rn((double)both, (double)(s > 1 ? s : 1));
+    if (p0 == 0) {
+      ((double*)g.out)[r] = jac;
+    } else {
+      const i64 uest = u < K ? u : (i64)rint(kmv_estimate(K, kth));
+      ((i64*)g.out)[r] = (i64)rint(__dmul_rn(jac, (double)uest));
+    }
+    g.ov[r] = av && g.bv[r];
     return;
   }
   if (op == OP_ROW_FIELD) {
@@ -687,8 +802,16 @@ extern "C" int k12_container_eval(int op, i64 n, const i64* ptrs, const i64* int
   if (g.out_m < 0 || g.out_m > (1 << 20) || g.a_w > (1 << 20) + 1)
     return (int)cudaErrorInvalidValue;
   if (op == OP_SEQUENCE && g.t_kind != K12_I64) return (int)cudaErrorInvalidValue;
+  const bool sketch = op == OP_HLL_CARD || op == OP_KMV_CARD || op == OP_SD_PAIR;
+  if (sketch && (g.t_kind != K12_I64 || g.a_w < 3 || (g.a_w - 1) % 2 ||
+                 (op == OP_SD_PAIR && (g.b_k != K12_I64 || g.b_w != g.a_w))))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (op == OP_HLL_CARD) {
+    k12_hll_card<<<grid_for(n * 32, 256, 8), 256, 0, s>>>(g);
+    return (int)cudaGetLastError();
+  }
   const int grid = grid_for(n, 256, 8);
   switch (g.t_kind) {
     case K12_I32: k12_kernel<int><<<grid, 256, 0, s>>>(g); break;

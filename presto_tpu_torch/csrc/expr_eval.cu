@@ -590,9 +590,10 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         }
         break;
       }
-      case OP_HLL: {  // arg: 0 bucket, 1 rho | P << 1, over the lane's 64 bits; P 0: the hash
+      case OP_HLL: {  // arg: 0 bucket, 1 rho | P << 1, over the lane's 64 bits; P 0: the
+                      // hash, arg 1: splitmix64 (the golden-ratio increment first: mix64)
         const int P = arg >> 1;
-        const u64 h = mix_u64((u64)sd[sp - 1]);
+        const u64 h = mix_u64((u64)sd[sp - 1] + (arg == 1 ? 0x9E3779B97F4A7C15ull : 0ull));
         sd[sp - 1] = P == 0 ? (i64)h
             : (arg & 1) ? (i64)__clzll((long long)((h << P) | (1ull << (P - 1)))) + 1
                         : (i64)(h >> (64 - P));

@@ -1,11 +1,15 @@
-// K14 group_collect: array_agg's and map_agg's per-group element
-// lists, and the merge of their partial states.
+// K14 group_collect: the per-group element lists of array_agg, map_agg,
+// hll_sketch (approx_set's outer level), multimap_agg and map_union, and
+// the merge of their partial states.
 //
 // Replaces: presto_tpu/ops/aggregate.py grouped_aggregate's array_agg
 // and map_agg branches (:640, :660: the value, or key and value, of each
 // selected row scattered to the slot (group, rank), the rank from the
-// stable argsort of _within_group_rank :1014) and merge_aggregate's
-// concatenation of partial containers at running offsets (:1185),
+// stable argsort of _within_group_rank :1014), hll_sketch (:660, the
+// map_agg geometry), multimap_agg (:684, a value half of 1 + 64 slots
+// per entry: the entry's array), map_union (:709, each map row's
+// entries at the group's running offset) and merge_aggregate's
+// concatenation of partial containers at running offsets (:1185-:1240),
 // which XLA ran as argsorts, cumsums and scatters.
 //
 // Bound on the H100: memory.  The collect reads each row's selection
@@ -23,7 +27,12 @@
 // reference's stable rank by construction, and no atomic counter (whose
 // order would vary from run to run) is needed.  The merge walks the
 // group's run of partial rows the same way, copying each partial's
-// elements at the running offset until the cap.  Simple first: a
+// elements at the running offset until the cap; map_union's partial is
+// that merge over the input maps (their own slot count, `in_cap`, may
+// differ from the state's).  The last half may be `vw` slots wide per
+// element (multimap_agg: the entry's array row), stored element-major
+// as the reference's (cap, vw) matrix; a NULL array fills its row with
+// the sentinel.  Simple first: a
 // thread writes its row of slots with strided stores; groups of very
 // different sizes leave a warp waiting on its longest run.
 
@@ -35,6 +44,7 @@ enum { G_BOOL = 0, G_I32 = 1, G_I64 = 2, G_F64 = 3 };
 
 struct K14Lanes {
   int n;
+  int vw;  // slots per element of the last half
   const uint8_t* data[2];
   const uint8_t* valid[2];
   int kind[2];
@@ -54,7 +64,7 @@ __device__ __forceinline__ bool g_null(double v) { return isnan(v); }
 // a lane's value in the storage type T (a NULL integer or NaN as T's
 // sentinel, a double into an integer truncated)
 template <typename T>
-__device__ __forceinline__ T g_value(const K14Lanes& l, int h, i64 row) {
+__device__ __forceinline__ T g_value(const K14Lanes& l, int h, i64 row) {  // row: element index
   switch (l.kind[h]) {
     case G_BOOL: return (T)(l.data[h][row] != 0);
     case G_I32: {
@@ -74,6 +84,24 @@ __device__ __forceinline__ T g_value(const K14Lanes& l, int h, i64 row) {
   }
 }
 
+// an element of a wide half (multimap_agg's arrays) in T by a plain
+// conversion, as the reference's astype: a slot's sentinel converts as
+// a value (the storages only widen: an int32 or int64 array into int64
+// or float64 state, a float64 array into float64)
+template <typename T>
+__device__ __forceinline__ T g_raw(const K14Lanes& l, int h, i64 idx) {
+  switch (l.kind[h]) {
+    case G_BOOL: return (T)(l.data[h][idx] != 0);
+    case G_I32: return (T)((const int*)l.data[h])[idx];
+    case G_I64: return (T)((const i64*)l.data[h])[idx];
+    default: {
+      const double x = ((const double*)l.data[h])[idx];
+      if constexpr (std::is_floating_point<T>::value) return (T)x;
+      else return isnan(x) ? g_sent<T>() : (T)(i64)x;
+    }
+  }
+}
+
 template <typename T> __device__ __forceinline__ i64 g_len(T l0) {
   if (g_null(l0)) return 0;
   const i64 l = (i64)l0;
@@ -86,61 +114,85 @@ static __global__ void k14_collect(i64 groups, const i64* __restrict__ order,
                                    const uint8_t* __restrict__ sel, K14Lanes l, int cap,
                                    T* __restrict__ out) {
   const i64 stride = (i64)gridDim.x * blockDim.x;
-  const i64 w = 1 + (i64)l.n * cap;
+  const int last = l.n - 1;
+  const i64 w = 1 + (i64)last * cap + (i64)cap * l.vw;
   for (i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x; g < groups; g += stride) {
     T* o = out + g * w;
+    T* vals = o + 1 + (i64)last * cap;  // the last half: cap x vw
     i64 k = 0;
     for (i64 p = starts[g]; p < starts[g + 1] && k < cap; ++p) {
       const i64 row = order != nullptr ? order[p] : p;
       if (!sel[row]) continue;
-      for (int h = 0; h < l.n; ++h) {
-        const bool last = h + 1 == l.n;
-        o[1 + h * cap + k] = (last && !l.valid[h][row]) ? g_sent<T>() : g_value<T>(l, h, row);
-      }
+      for (int h = 0; h < last; ++h) o[1 + h * cap + k] = g_value<T>(l, h, row);
+      const bool ok = l.valid[last][row] != 0;
+      if (l.vw == 1)
+        vals[k] = ok ? g_value<T>(l, last, row) : g_sent<T>();
+      else
+        for (int c = 0; c < l.vw; ++c)
+          vals[k * l.vw + c] = ok ? g_raw<T>(l, last, row * l.vw + c) : g_sent<T>();
       ++k;
     }
     o[0] = (T)k;
-    for (int h = 0; h < l.n; ++h)
+    for (int h = 0; h < last; ++h)
       for (i64 j = k; j < cap; ++j) o[1 + h * cap + j] = g_sent<T>();
+    for (i64 j = k * l.vw; j < (i64)cap * l.vw; ++j) vals[j] = g_sent<T>();
   }
 }
+
+// One partial row's or map's element list: `halves` halves, the last
+// `vw` slots per element, `cap` elements per half.
+struct K14Shape {
+  int halves, vw, cap;
+  __device__ __forceinline__ i64 width() const { return 1 + (i64)(halves - 1) * cap + (i64)cap * vw; }
+  // first slot of element j's run in half h, and its slot count
+  __device__ __forceinline__ i64 at(int h, i64 j) const {
+    return 1 + (i64)h * cap + (h == halves - 1 ? j * vw : j);
+  }
+  __device__ __forceinline__ int w(int h) const { return h == halves - 1 ? vw : 1; }
+};
 
 template <typename T>
 static __global__ void k14_merge(i64 groups, const i64* __restrict__ order,
                                  const i64* __restrict__ starts,
                                  const uint8_t* __restrict__ live, const T* __restrict__ parts,
-                                 int width, int cap, T* __restrict__ out) {
+                                 K14Shape in, K14Shape os, T* __restrict__ out) {
   const i64 stride = (i64)gridDim.x * blockDim.x;
-  const int halves = (width - 1) / cap;
+  const i64 iw = in.width(), ow = os.width();
+  const int cap = os.cap;
   for (i64 g = (i64)blockIdx.x * blockDim.x + threadIdx.x; g < groups; g += stride) {
-    T* o = out + g * width;
+    T* o = out + g * ow;
     i64 off = 0;
     for (i64 p = starts[g]; p < starts[g + 1]; ++p) {
       const i64 row = order != nullptr ? order[p] : p;
       if (!live[row]) continue;
-      const T* src = parts + row * width;
-      const i64 len = g_len<T>(src[0]);
+      const T* src = parts + row * iw;
+      i64 len = g_len<T>(src[0]);
+      if (len > in.cap) len = in.cap;
       for (i64 j = 0; j < len && off + j < cap; ++j)
-        for (int h = 0; h < halves; ++h) o[1 + h * cap + off + j] = src[1 + h * cap + j];
+        for (int h = 0; h < os.halves; ++h)
+          for (int c = 0; c < os.w(h); ++c) o[os.at(h, off + j) + c] = src[in.at(h, j) + c];
       off += len;
     }
     const i64 k = off < cap ? off : cap;
     o[0] = (T)k;
-    for (int h = 0; h < halves; ++h)
-      for (i64 j = k; j < cap; ++j) o[1 + h * cap + j] = g_sent<T>();
+    for (int h = 0; h < os.halves; ++h)
+      for (i64 j = os.at(h, k); j < os.at(h, cap); ++j) o[j] = g_sent<T>();
   }
 }
 
-// The state of `groups` groups: out is (groups, 1 + n_halves * cap) of
-// the storage kind; order may be null (run positions are rows).
+// The state of `groups` groups: out is (groups, 1 + (n_halves - 1) *
+// cap + cap * vw) of the storage kind, the last half's lane (rows, vw);
+// order may be null (run positions are rows).
 extern "C" int k14_group_collect(i64 groups, const void* order, const void* starts,
                                  const void* sel, int n_halves, const i64* data,
-                                 const i64* valid, const int* kind, int cap, int storage,
-                                 void* out, void* stream) {
-  if (n_halves < 1 || n_halves > 2 || cap < 1 || storage < G_I32 || storage > G_F64)
+                                 const i64* valid, const int* kind, int cap, int vw,
+                                 int storage, void* out, void* stream) {
+  if (n_halves < 1 || n_halves > 2 || cap < 1 || vw < 1 || storage < G_I32 ||
+      storage > G_F64)
     return (int)cudaErrorInvalidValue;
   K14Lanes l;
   l.n = n_halves;
+  l.vw = vw;
   for (int h = 0; h < n_halves; ++h) {
     if (kind[h] < G_BOOL || kind[h] > G_F64) return (int)cudaErrorInvalidValue;
     l.data[h] = (const uint8_t*)data[h];
@@ -161,12 +213,17 @@ extern "C" int k14_group_collect(i64 groups, const void* order, const void* star
   return (int)cudaGetLastError();
 }
 
-// Partial states (n, width) merged into (groups, width).
+// Partial states, or map_union's input maps, (n, in width) of `in_cap`
+// elements merged into (groups, out width) of `cap`; `n_halves` halves,
+// the last `vw` slots per element.
 extern "C" int k14_group_collect_merge(i64 groups, const void* order, const void* starts,
-                                       const void* live, const void* parts, int width,
-                                       int cap, int storage, void* out, void* stream) {
-  if (cap < 1 || width < 1 + cap || (width - 1) % cap || storage < G_I32 || storage > G_F64)
+                                       const void* live, const void* parts, int n_halves,
+                                       int vw, int in_cap, int cap, int storage, void* out,
+                                       void* stream) {
+  if (cap < 1 || in_cap < 1 || n_halves < 1 || n_halves > 2 || vw < 1 || storage < G_I32 ||
+      storage > G_F64)
     return (int)cudaErrorInvalidValue;
+  const K14Shape in{n_halves, vw, in_cap}, os{n_halves, vw, cap};
   if (groups <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = grid_for(groups, 256, 8);
@@ -175,16 +232,16 @@ extern "C" int k14_group_collect_merge(i64 groups, const void* order, const void
   const uint8_t* lv = (const uint8_t*)live;
   switch (storage) {
     case G_I32:
-      k14_merge<int><<<grid, 256, 0, s>>>(groups, ord, st, lv, (const int*)parts, width, cap,
+      k14_merge<int><<<grid, 256, 0, s>>>(groups, ord, st, lv, (const int*)parts, in, os,
                                           (int*)out);
       break;
     case G_I64:
-      k14_merge<i64><<<grid, 256, 0, s>>>(groups, ord, st, lv, (const i64*)parts, width, cap,
+      k14_merge<i64><<<grid, 256, 0, s>>>(groups, ord, st, lv, (const i64*)parts, in, os,
                                           (i64*)out);
       break;
     default:
-      k14_merge<double><<<grid, 256, 0, s>>>(groups, ord, st, lv, (const double*)parts, width,
-                                             cap, (double*)out);
+      k14_merge<double><<<grid, 256, 0, s>>>(groups, ord, st, lv, (const double*)parts, in,
+                                             os, (double*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -64,7 +64,8 @@ from presto_tpu_torch.exec.spill import HostPage, SpillCounter, make_bucket_fn, 
 from presto_tpu_torch.expr.ir import ColumnRef
 from presto_tpu_torch.memory import ExceededMemoryLimitError, QueryMemoryContext, page_bytes
 from presto_tpu_torch.ops.aggregate import (
-    combine_packed_states, finalize_packed, grouped_aggregate, merge_aggregate, takes_sort_path,
+    TOPN_FNS, combine_packed_states, finalize_packed, fold_topn_partials, grouped_aggregate,
+    merge_aggregate, packed_direct_layout, takes_sort_path,
 )
 from presto_tpu_torch.ops.container import unnest_page
 from presto_tpu_torch.ops.filter_project import filter_page, project_page
@@ -802,27 +803,28 @@ class LocalRunner:
                                            list(node.aggs), mg, key_domains=node.key_domains,
                                            mode="partial", presorted=node.presorted)
                          for hp in bucket)
-                outs.append(self._aggregate(node, parts, account=False))
+                outs.append(self._aggregate(node, parts, spilled=True))
         if not outs:
-            return self._aggregate(node, iter(()), account=False)
+            return self._aggregate(node, iter(()), spilled=True)
         return concat_pages_device(outs)
 
     def _aggregate(self, node: AggregationNode, partials: Iterator[Page],
-                   account: bool = True) -> Page:
+                   spilled: bool = False) -> Page:
         """The fold (or merge) and finalize of ``node`` over its partial
-        pages, the accumulator charged as ``agg_accumulator@id`` when
-        ``account``, from its first page until the output exists (then
-        the accumulator is dropped, and its reservation with it)."""
+        pages, the accumulator charged as ``agg_accumulator@id`` (unless
+        ``spilled``: a spilled bucket's), from its first page until the
+        output exists (then the accumulator is dropped, and its
+        reservation with it)."""
         tags: List[str] = []
         try:
-            return self._fold_and_finalize(node, partials, tags if account else None)
+            return self._fold_and_finalize(node, partials, None if spilled else tags, spilled)
         finally:
             for tag in tags:
                 if tag is not None:
                     self._mem.free(tag)
 
     def _fold_and_finalize(self, node: AggregationNode, partials: Iterator[Page],
-                           tags: Optional[List[str]]) -> Page:
+                           tags: Optional[List[str]], spilled: bool) -> Page:
         mg = self._max_groups(node)
         num_keys = len(node.group_exprs)
         aggs = list(node.aggs)
@@ -831,15 +833,28 @@ class LocalRunner:
         # meets itself in the merge, as the sort path's partials do
         sort_path = takes_sort_path(node.group_exprs, node.key_domains, mg, aggs,
                                     node.presorted)
-        if sort_path:
+        topn = any(a.fn in TOPN_FNS for a in aggs)
+        if sort_path or topn:
             parts = list(partials)
-            if not parts:
+            if not parts and node.group_exprs:
                 return Page.empty(node.output_types, 1, self.device)
-            merged_in = concat_pages_device(parts)
-            if tags is not None:
-                tags.append(self._account("agg_accumulator", merged_in, node))
-            return merge_aggregate(merged_in, num_keys, aggs, mg,
-                                   key_domains=node.key_domains, mode="single")
+            if parts:
+                if topn:
+                    # the lanes kept among equal keys follow the merges'
+                    # order: the reference runner's tower for a keyed fold
+                    # off the packed-direct layout or a spilled bucket, its
+                    # running fold otherwise
+                    tower = spilled or bool(node.group_exprs) and (
+                        node.presorted
+                        or not packed_direct_layout(node.group_exprs, node.key_domains, mg))
+                    merged_in = fold_topn_partials(parts, num_keys, aggs, mg,
+                                                   node.key_domains, tower)
+                else:
+                    merged_in = concat_pages_device(parts)
+                if tags is not None:
+                    tags.append(self._account("agg_accumulator", merged_in, node))
+                return merge_aggregate(merged_in, num_keys, aggs, mg,
+                                       key_domains=node.key_domains, mode="single")
         acc: Optional[Page] = None
         for p in partials:
             if acc is None:

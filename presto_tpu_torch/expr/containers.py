@@ -23,9 +23,11 @@ that involves containers at its scalar boundary:
 ``split`` gathers rows of a host table over the column's dictionary
 (every value's parts as codes into one parts dictionary, built once per
 dictionary, delimiter and slot count, as the reference caches it).  The
-setdigest functions (``jaccard_index``, ``intersection_cardinality``,
-``hash_counts``) and the sketch types' cardinality raise
-:class:`NotPorted`.
+sketches (the twelfth slice): ``cardinality`` of a HYPERLOGLOG (K12's
+``hll_card``) or of a SETDIGEST (``kmv_card``), ``jaccard_index`` and
+``intersection_cardinality`` of two digests (``sd_pair``), and
+``hash_counts``, which gives the digest's own matrix as a
+``map(bigint, bigint)`` (the layouts agree: a retype).
 """
 
 from __future__ import annotations
@@ -56,8 +58,8 @@ CONTAINER_FNS = frozenset({
     "map_filter", "transform_keys", "transform_values", "zip_with",
     "reduce", "split", "row_construct", "row_field", "retype_row",
 })
-# still with the reference: the setdigest family
-DEFERRED_FNS = ("jaccard_index", "intersection_cardinality", "hash_counts")
+# the two-digest comparisons (K12's sd_pair)
+_SD_PAIR = {"jaccard_index": k12.SD_JACCARD, "intersection_cardinality": k12.SD_INTERSECTION}
 _REDUCE = {"array_min": k12.R_MIN, "array_max": k12.R_MAX, "array_sum": k12.R_SUM,
            "array_average": k12.R_AVG}
 _MATCH = {"any_match": k12.M_ANY, "none_match": k12.M_NONE, "all_match": k12.M_ALL}
@@ -249,8 +251,6 @@ class ContainerCompiler:
     def bridge(self, e: Call):
         fn = e.fn
         out_dt = _torch_dtype(e.type)
-        if fn in DEFERRED_FNS:
-            raise NotPorted(f"expression {fn}")
         if fn in ("is_null", "not_null") and is_container(e.args[0].type):
             arr = self.container(e.args[0])
             isnull = fn == "is_null"
@@ -262,7 +262,7 @@ class ContainerCompiler:
             return run_null
         t0 = e.args[0].type
         if t0.name in ("hll", "setdigest"):
-            raise NotPorted(f"expression {fn} of {t0}")
+            return self._sketch(e)
         if fn in _MATCH:
             return self._array_lambda(e)
         if fn == "reduce":
@@ -321,6 +321,24 @@ class ContainerCompiler:
             return run_overlap
         raise NotPorted(f"expression {fn}")
 
+    def _sketch(self, e: Call):
+        """A scalar function of a HYPERLOGLOG or SETDIGEST value."""
+        fn, t0 = e.fn, e.args[0].type
+        arr = self.container(e.args[0])
+        if fn == "cardinality":
+            op = k12.HLL_CARD if t0.name == "hll" else k12.KMV_CARD
+            return lambda page: k12.container_eval(op, *arr(page))
+        if fn in _SD_PAIR and t0.name == "setdigest":
+            other = self.container(e.args[1])
+            mode = _SD_PAIR[fn]
+
+            def run_pair(page):
+                (d, v), (bd, bv) = arr(page), other(page)
+                return k12.container_eval(k12.SD_PAIR, d, v, b=bd, bv=bv, p=[mode])
+
+            return run_pair
+        raise NotPorted(f"expression {fn} of {t0}")
+
     @staticmethod
     def _with_lane(op, arr, xf, page):
         d, v = arr(page)
@@ -350,8 +368,10 @@ class ContainerCompiler:
         fn = e.fn
         if fn in ("try", "retype_row"):
             return self.container(e.args[0])
-        if fn in DEFERRED_FNS:
-            raise NotPorted(f"expression {fn}")
+        if fn == "hash_counts":  # the digest's matrix is the map's layout
+            if e.args[0].type.name != "setdigest":
+                raise NotPorted(f"expression {fn} of {e.args[0].type}")
+            return self.container(e.args[0])
         if fn == "row_construct":
             return self._construct(e, e.args, [f for f in t.fields], has_len=False)
         if fn == "array_construct":

@@ -32,6 +32,16 @@ whole-tensor torch ops.  The semantics are the reference's
   drops its entry, a repeated one keeps the first) and ``match``
   (any_match, none_match, all_match; all_match counts a NULL body as
   false, the reference's rule);
+- the sketches (int64 rows ``[count, 512 buckets, 512 rho]`` of a
+  HYPERLOGLOG, ``[len, 64 hashes, 64 counts]`` of a SETDIGEST; the
+  reference's ``cardinality`` branches and ``jaccard_index`` /
+  ``intersection_cardinality`` in ``_compile_container``):
+  ``hll_card`` sums the weights ``2^-rho`` of the present registers
+  (exact powers of two, where the reference's XLA ``exp2`` is a few ulp
+  off: the rounded estimate moves only at a .5 boundary) lane by lane
+  as the kernel's warp does, then the linear-counting correction;
+  ``kmv_card`` the KMV estimate; ``sd_pair`` the minhash comparison of
+  two digests over their union's 64 smallest distinct hashes;
 - ``setop`` (array_intersect / array_except before ``distinct``),
   ``overlap`` (three-valued) and ``remove`` compare in the common type,
   ``map_concat`` lets the last map's key win.
@@ -54,12 +64,14 @@ from presto_tpu_torch.kernels import build
 CARD, SUBSCRIPT, MAP_GET, CONTAINS, POSITION, REDUCE, SORT, DISTINCT, SLICE, COERCE, \
     CONCAT, MAP_HALF, CONSTRUCT, CONSTRUCT_MAP, ROW_FIELD, COMPACT, COMPACT_PAIRS, SETOP, \
     OVERLAP, REMOVE, MAP_CONCAT, TKEYS, SEQUENCE, REPEAT, ASSEMBLE, MATCH, SLOT, \
-    TABLE = range(28)
+    TABLE, HLL_CARD, KMV_CARD, SD_PAIR = range(31)
 OP_NAMES = ("card", "subscript", "map_get", "contains", "position", "reduce", "sort",
             "distinct", "slice", "coerce", "concat", "map_half", "construct",
             "construct_map", "row_field", "compact", "compact_pairs", "setop", "overlap",
             "remove", "map_concat", "transform_keys", "sequence", "repeat", "assemble",
-            "match", "slot", "table")
+            "match", "slot", "table", "hll_card", "kmv_card", "sd_pair")
+# SD_PAIR's result: jaccard_index (a double) or intersection_cardinality
+SD_JACCARD, SD_INTERSECTION = range(2)
 # REDUCE's function, MATCH's test, SETOP's operation
 R_MIN, R_MAX, R_SUM, R_AVG = range(4)
 M_ANY, M_NONE, M_ALL = range(3)
@@ -260,6 +272,8 @@ def plain(op: int, a=None, av=None, b=None, bv=None, c=None, x=None, xv=None, y=
     if op == TABLE:
         codes = torch.clamp(x.to(torch.int64), 0, a.shape[0] - 1)
         return a[codes], xv.clone()
+    if op in (HLL_CARD, KMV_CARD, SD_PAIR):
+        return _sketch_plain(op, a, av, b, bv, p)
     n = a.shape[0]
     dev = a.device
     T = a.dtype
@@ -426,6 +440,72 @@ def plain(op: int, a=None, av=None, b=None, bv=None, c=None, x=None, xv=None, y=
     raise ValueError(f"container_eval: opcode {op}")
 
 
+def rho_weights(rho: torch.Tensor) -> torch.Tensor:
+    """``2^-rho`` as a double, exact from its bits for rho in 0..1022."""
+    bits = torch.clamp(1023 - rho, 1, 1023) << 52
+    return torch.where((rho >= 0) & (rho <= 1022), bits.view(torch.float64),
+                       torch.exp2(-rho.to(torch.float64)))
+
+
+def kmv_estimate(k: int, kth: torch.Tensor) -> torch.Tensor:
+    """``(K - 1) / fraction`` of the hash space below ``kth`` (a double)."""
+    frac = torch.clamp(kth.to(torch.float64) + 9223372036854775808.0, min=1.0) / 2.0 ** 64
+    return (k - 1) / frac
+
+
+def _sketch_plain(op, a, av, b, bv, p):
+    n = a.shape[0]
+    dev = a.device
+    m = (a.shape[1] - 1) // 2
+    valid = av.clone() if av is not None else torch.ones(n, dtype=torch.bool, device=dev)
+    if op == HLL_CARD:  # the warp's order: lane l adds registers l, l + 32, ... then a tree
+        cnt = torch.clamp(a[:, 0], 0, m)
+        present = _jj(m, dev) < cnt[:, None]
+        w = torch.where(present, rho_weights(a[:, 1 + m:1 + 2 * m]), torch.zeros((), dtype=
+                                                                              torch.float64))
+        w = torch.cat([w, torch.zeros(n, -m % 32, dtype=torch.float64, device=dev)], 1)
+        acc = torch.zeros(n, 32, dtype=torch.float64, device=dev)
+        for i in range(w.shape[1] // 32):
+            acc = acc + w[:, 32 * i:32 * i + 32]
+        for off in (16, 8, 4, 2, 1):
+            acc = acc[:, :off] + acc[:, off:2 * off]
+        alpha = 0.7213 / (1.0 + 1.079 / m)
+        zeros = (m - cnt).to(torch.float64)
+        raw = alpha * m * m / torch.clamp(acc[:, 0] + zeros, min=1e-12)
+        lc = m * torch.log(m / torch.clamp(zeros, min=1.0))
+        est = torch.where((raw <= 2.5 * m) & (zeros > 0), lc, raw)
+        return torch.round(est).to(torch.int64), valid
+    if op == KMV_CARD:
+        ln = torch.clamp(a[:, 0], min=0)
+        est = torch.round(kmv_estimate(m, a[:, m])).to(torch.int64)
+        return torch.where(ln < m, ln, torch.maximum(est, ln)), valid
+    # SD_PAIR: the reference's sorted concatenation of the two hash lists
+    big = torch.iinfo(torch.int64).max
+    j = _jj(m, dev)
+    la, lb = (torch.clamp(t[:, 0], 0, m)[:, None] for t in (a, b))
+    ha = torch.where(j < la, a[:, 1:1 + m], torch.full_like(a[:, 1:1 + m], big))
+    hb = torch.where(j < lb, b[:, 1:1 + m], torch.full_like(b[:, 1:1 + m], big))
+    s = torch.sort(torch.cat([ha, hb], 1), 1)[0]
+    live = s < big
+    firsts = torch.ones_like(live)
+    firsts[:, 1:] = s[:, 1:] != s[:, :-1]
+    firsts &= live
+    nxt_dup = torch.zeros_like(live)
+    nxt_dup[:, :-1] = s[:, 1:] == s[:, :-1]
+    rank = torch.cumsum(firsts.to(torch.int64), 1) - 1
+    in_s = firsts & (rank < m)
+    inter = (in_s & nxt_dup).sum(1)
+    s_size = in_s.sum(1)
+    jac = inter.to(torch.float64) / torch.clamp(s_size, min=1)
+    ok = valid & bv
+    if p[0] == SD_JACCARD:
+        return jac, ok
+    total = firsts.sum(1)
+    kth = torch.where(in_s, s, torch.full_like(s, -big - 1)).max(1)[0]
+    union = torch.where(total < m, total, torch.round(kmv_estimate(m, kth)).to(torch.int64))
+    return torch.round(jac * union).to(torch.int64), ok
+
+
 def _factor(mode: int, bits: int):
     """COERCE's factor from its parameter: an integer power of ten, or a
     double's bits for the double conversions."""
@@ -445,8 +525,11 @@ def double_bits(v: float) -> int:
 def _out_shapes(op, n, a, out_m, out_dtype, p, y):
     """(data dtype, shape) of the outputs a launch writes."""
     T = a.dtype if a is not None else out_dtype
-    if op in (CARD, POSITION):
+    if op in (CARD, POSITION, HLL_CARD, KMV_CARD):
         return [(torch.int64, (n,)), (torch.bool, (n,))]
+    if op == SD_PAIR:
+        return [(torch.float64 if p[0] == SD_JACCARD else torch.int64, (n,)),
+                (torch.bool, (n,))]
     if op in (CONTAINS, OVERLAP, MATCH):
         return [(torch.bool, (n,)), (torch.bool, (n,))]
     if op == REDUCE:

@@ -43,7 +43,7 @@ integer, double (NaN wins, -0.0 below 0.0) or long lane; NULLIF (its
 operand and the pair's equality); CASTBI, cast to bigint from a double
 (toward zero, saturating, NaN to 0: XLA's conversion), a short decimal
 (HALF_UP) or a long one (floor); HLL, splitmix64 of the lane's 64 bits
-and the HLL bucket or rho; WBUCKET, width_bucket; IMOD, SQL's
+(with the golden-ratio increment in mode 1) and the HLL bucket or rho; WBUCKET, width_bucket; IMOD, SQL's
 truncating int64 mod or div.  DATEPART also gives day_of_week,
 day_of_year, ISO week, year_of_week and last_day_of_month.
 
@@ -412,10 +412,12 @@ def hll_from_lane(lane: torch.Tensor, rho: bool, p: int) -> torch.Tensor:
     """HLL's bucket (the hash's top ``p`` bits) or rho (the leading
     zeros of the rest, a sentinel bit capping them, plus one) of int64
     lanes (the reference's ``_hll_from_hash`` over ``_mix_u64``); with
-    ``p == 0`` the whole hash (checksum's ``_mix64``)."""
-    h = mix_u64(lane)
+    ``p == 0`` the whole hash (checksum's ``_mix64``), or with ``rho`` set
+    too splitmix64 with its golden-ratio increment first
+    (make_set_digest's ``mix64``)."""
     if p == 0:
-        return h
+        return mix_u64(lane + _s64(0x9E3779B97F4A7C15) if rho else lane)
+    h = mix_u64(lane)
     if not rho:
         return lsr(h, 64 - p)
     x = (h << p) | (1 << (p - 1))
@@ -1096,6 +1098,8 @@ def _launch(prog, cols, n, row_mask, tensors):
         op_launches[COUNTED_OPS[op]] = op_launches.get(COUNTED_OPS[op], 0) + 1
     if any(op == HLL and arg >> 1 == 0 for op, arg in zip(prog.ops, prog.args)):
         op_launches["mix64"] = op_launches.get("mix64", 0) + 1
+    if any(op == HLL and arg == 1 for op, arg in zip(prog.ops, prog.args)):
+        op_launches["digest_hash"] = op_launches.get("digest_hash", 0) + 1
     if out_mask is not None:
         return out_mask
     return out_data, out_valid

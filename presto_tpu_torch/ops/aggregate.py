@@ -57,6 +57,26 @@ values as the sentinel, map_agg's NULL keys left out; partials merge at
 running offsets in split order (K14's merge, over K6's runs of the
 partial keys, or the global fold's two rows), capped at 64.  A keyed
 grouping with one takes the sort path.
+
+The sketch and heap aggregates (the twelfth slice) keep such a matrix
+too.  hll_sketch (approx_set's and merge's outer level), multimap_agg
+(a value half of ``1 + 64`` slots per entry: the entry's array) and
+map_union (each map row's entries at the group's running offset: K14's
+merge over the input maps; its count counts the rows whose map is not
+NULL) are K14's.  max(x, n), min(x, n), max_by(x, y, n) and min_by(x,
+y, n) are K15 ``group_topn``: two stable ``torch.sort`` passes order
+each group's entries by key, K15 writes the n extreme ones (the max
+forms from the end: among equal keys the later entry takes the lower
+lane, as the reference's); a merge flattens the partial lanes into
+entries and runs K15 again; the partials of a top-n state merge
+pairwise in the reference runner's order (``fold_topn_partials``), as
+the lanes a group keeps among equal keys depend on it.  make_set_digest and merge_set_digest are
+K16 ``kmv_lanes``: entries sorted by (group, hash), runs of a hash
+deduplicated summing their counts, the 64 smallest kept; the count
+column is the group's distinct total (a merge recomputes it from the
+merged lanes, as the reference's).  make_set_digest hashes by K1's
+splitmix64 (``HLL`` with mode 1), a double by its bits, a varchar by its
+dictionary code.
 """
 
 from __future__ import annotations
@@ -71,11 +91,14 @@ from presto_tpu_torch.expr.compile import ExprCompiler, _Lowering, _lane, _out_k
     expr_dictionary
 from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr, Literal
 from presto_tpu_torch.kernels import expr_eval as k1
+from presto_tpu_torch.kernels.container_eval import astype_values, lengths, sentinel
 from presto_tpu_torch.kernels import group_collect as k14
+from presto_tpu_torch.kernels import group_topn as k15
+from presto_tpu_torch.kernels import kmv_lanes as k16
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
-from presto_tpu_torch.page import Block, Page, _torch_dtype
+from presto_tpu_torch.page import Block, Page, _torch_dtype, concat_pages_device
 from presto_tpu_torch.types import BIGINT, DOUBLE, VARCHAR, DecimalType, Type
 
 AggSpec = AggCall  # public alias
@@ -123,9 +146,15 @@ MOMENT_FNS = ("skewness", "kurtosis")
 BITWISE_FNS = ("bitwise_and_agg", "bitwise_or_agg")
 
 # the element-collecting aggregates (K14 group_collect): array_agg keeps
-# every row, NULL values as the sentinel; map_agg the rows whose key is
-# not NULL
-COLLECT_FNS = ("array_agg", "map_agg")
+# every row, NULL values as the sentinel; map_agg, hll_sketch and
+# multimap_agg the rows whose key is not NULL; map_union the entries of
+# the maps that are not NULL
+COLLECT_FNS = ("array_agg", "map_agg", "hll_sketch", "multimap_agg", "map_union")
+# the top-n aggregates (K15 group_topn) and the set digests (K16 kmv_lanes)
+TOPN_FNS = ("max_n", "min_n", "max_by_n", "min_by_n")
+DIGEST_FNS = ("make_set_digest", "merge_set_digest")
+# every aggregate whose state is a (groups, slots) matrix before its count
+MATRIX_FNS = COLLECT_FNS + TOPN_FNS + DIGEST_FNS
 
 # two-argument moment statistics (AggregationUtils covariance/corr/
 # regression states): fn(y, x) with state (sx, sy, sxy, sxx, syy, n)
@@ -356,15 +385,15 @@ def takes_sort_path(group_exprs, key_domains, max_groups: int, aggs,
     packed-direct slots: presorted input, keys past the packed-direct
     layout, a double state (sum, avg or variance of a double), which
     K2 adds only for the global aggregate, so that every keyed double
-    sum has one order, K6's; or array_agg / map_agg, whose elements K14
-    collects along K6's runs."""
+    sum has one order, K6's; or an aggregate with a state matrix
+    (``MATRIX_FNS``), which K14, K15 or K16 writes along K6's runs."""
     return bool(group_exprs) and (presorted or _has_double_state(aggs) or _collects(aggs)
                                   or not packed_direct_layout(group_exprs, key_domains,
                                                               max_groups))
 
 
 def _collects(aggs) -> bool:
-    return any(a.fn in COLLECT_FNS for a in aggs)
+    return any(a.fn in MATRIX_FNS for a in aggs)
 
 
 # ---------------------------------------------------------------------------
@@ -498,15 +527,36 @@ def _state_kind(agg: AggCall) -> int:
             if t.value_shape != () or t.is_raw_string or t.name in NARROW_TYPES:
                 raise NotPorted(f"{agg.fn} over {t}")
         return k2.BY_X
-    if agg.fn in COLLECT_FNS:
+    if agg.fn in MATRIX_FNS:
         if agg.filter is not None:
             raise NotPorted(f"FILTER over {agg.fn}")
-        for t in (agg.arg.type,) + ((agg.arg2.type,) if agg.fn == "map_agg" else ()):
-            if t.value_shape != () or t.is_raw_string:
-                raise NotPorted(f"{agg.fn} over {t}")
-        # the state's count: every row (array_agg) or the non-NULL keys
+        _check_matrix_args(agg)
+        # the state's count: every row (array_agg); the rows whose key,
+        # value or map is not NULL (a digest's distinct total replaces it)
         return k2.COUNT_STAR if agg.fn == "array_agg" else k2.COUNT
     raise NotPorted(f"aggregate {agg.fn}")
+
+
+def _check_matrix_args(agg: AggCall) -> None:
+    """Refuse by name the argument types a state matrix does not hold:
+    a nested container, a raw string, a long decimal; a varchar top-n
+    (the reference would order its dictionary codes)."""
+    if agg.fn == "map_union":
+        t = agg.arg.type
+        scalars = (t.key_element, t.element) if t.is_map else (t,)
+    elif agg.fn == "multimap_agg":  # the rewrite's array_agg of the values
+        t = agg.arg2.type
+        scalars = (agg.arg.type, t.element if t.is_array else t)
+    elif agg.fn == "merge_set_digest":
+        scalars = ()
+    elif agg.fn in ("map_agg", "hll_sketch", "max_by_n", "min_by_n"):
+        scalars = (agg.arg.type, agg.arg2.type)
+    else:
+        scalars = (agg.arg.type,)
+    for t in scalars:
+        if t is None or t.value_shape != () or t.is_raw_string \
+                or (agg.fn in TOPN_FNS and t.is_string):
+            raise NotPorted(f"{agg.fn} over {t}")
 
 
 # the eleventh slice's narrow scalar types: sum/avg (a REAL in double,
@@ -521,7 +571,7 @@ def _finalize_kind(agg: AggCall) -> int:
     """K3 finalize kind of an aggregate (after :func:`_state_kind`); a
     collecting aggregate's count finalizes as a sum, whose validity
     (``count > 0``) is its state matrix's."""
-    if agg.fn in COLLECT_FNS:
+    if agg.fn in MATRIX_FNS:
         return k3.FIN_SUM
     if agg.fn in ("count", "count_star"):
         return k3.FIN_COUNT
@@ -674,8 +724,10 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
         if kind == k2.COUNT_STAR:
             args.append((kind, None, None))
             continue
-        if agg.fn == "map_agg":  # a count of the non-NULL keys
-            args.append((kind,) + c.compile(agg.arg)(page))
+        if agg.fn in MATRIX_FNS:  # a count of the rows whose key (value, map) is not NULL
+            count_of = agg.arg2 if agg.fn in ("max_by_n", "min_by_n") else agg.arg
+            _, v = c.compile(count_of)(page)
+            args.append((kind, v, v))
             continue
         arg = agg.arg
         if kind in (k2.VARIANCE, k2.MOMENTS) and arg.type.name != "double":
@@ -696,26 +748,137 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
     return key_columns(page, group_exprs, key_domains), args
 
 
-def _collect_inputs(c: ExprCompiler, agg: AggCall, page: Page):
+def _run_positions(order: Optional[torch.Tensor], starts: torch.Tensor):
+    """(group of each run position, row at each position): K6's runs,
+    or the global aggregate's one run of the page (``order`` None)."""
+    dev = starts.device
+    groups = starts.shape[0] - 1
+    live = int(starts[-1])
+    g = torch.repeat_interleave(torch.arange(groups, device=dev), starts[1:] - starts[:-1])
+    rows = order[:live] if order is not None else torch.arange(live, device=dev)
+    return g, rows
+
+
+def _collect_halves(c: ExprCompiler, agg: AggCall, page: Page):
     """(selected rows, lanes) of a collecting aggregate: array_agg's
-    value over every live row, map_agg's key and value over the live
-    rows whose key is not NULL."""
+    value over every live row, map_agg's, hll_sketch's and
+    multimap_agg's key and value (an array row) over the live rows
+    whose key is not NULL."""
     if agg.fn == "array_agg":
         return page.row_mask, [c.compile(agg.arg)(page)]
     kd, kv = c.compile(agg.arg)(page)
     return page.row_mask & kv, [(kd, kv), c.compile(agg.arg2)(page)]
 
 
+def _storage_of(x: torch.Tensor, storage: torch.dtype) -> torch.Tensor:
+    """A lane or slot matrix in the state's storage dtype, as the
+    reference's ``astype``."""
+    return x if x.dtype == storage else astype_values(x, storage)
+
+
+def _matrix_state(c: ExprCompiler, agg: AggCall, page: Page, order, starts):
+    """(state matrix, count or None) of an aggregate of ``MATRIX_FNS``
+    over the groups' runs ``(order, starts)``: K14 for the collecting
+    aggregates, K15 for the top-n, K16 for the digests (whose count, the
+    distinct total, replaces the kernels' count)."""
+    t = state_types(agg)[0]
+    cap, storage = t.max_elems, _torch_dtype(t)
+    if agg.fn == "map_union":  # each live map's entries at the running offset
+        d, v = c.compile(agg.arg)(page)
+        return k14.group_collect_merge(order, starts, page.row_mask & v, _storage_of(d, storage),
+                                       cap, halves=2, in_cap=agg.arg.type.max_elems), None
+    if agg.fn in COLLECT_FNS:
+        sel, halves = _collect_halves(c, agg, page)
+        return k14.group_collect(order, starts, sel, halves, cap, storage), None
+    groups = starts.shape[0] - 1
+    g, rows = _run_positions(order, starts)
+    if agg.fn in TOPN_FNS:
+        by = agg.fn in ("max_by_n", "min_by_n")
+        xd, xv = c.compile(agg.arg)(page)
+        kd, kv = c.compile(agg.arg2)(page) if by else (xd, xv)
+        perm, runs = k15.sorted_entries(g, kd[rows], (page.row_mask & kv)[rows], groups)
+        vals = _storage_of(xd, storage)
+        if by:  # a NULL x keeps its lane, as the sentinel
+            vals = torch.where(xv, vals, torch.full_like(vals, sentinel(storage)))
+        keys = _storage_of(kd, storage) if by else None
+        return k15.group_topn(rows[perm], runs, vals, keys, cap,
+                              agg.fn in ("max_n", "max_by_n")), None
+    d, v = c.compile(agg.arg)(page)
+    ok = (page.row_mask & v)[rows]
+    if agg.fn == "make_set_digest":
+        h = _digest_hash(c, agg.arg)(page)[0][rows]
+        entries = (g, h, None, ok)  # each row counts 1
+    else:  # merge_set_digest: the digests' lanes as entries
+        entries = k16.digest_entries(d[rows], g, ok, cap)
+    perm, runs = k15.sorted_entries(entries[0], entries[1], entries[3], groups)
+    return k16.kmv_lanes(perm, *entries[:3], runs, cap)
+
+
+def digest_hash_program(c: ExprCompiler, arg: Expr) -> Tuple[k1.Program, List[int]]:
+    """K1's program of make_set_digest's hash and the columns it loads:
+    splitmix64 (the reference's ``mix64``) of the argument's 64 bits, a
+    REAL widened to a double first, a varchar's dictionary code as it
+    is."""
+    if arg.type.name == "real":
+        arg = Call(type=DOUBLE, fn="cast_double", args=(arg,))
+    lw = _Lowering(c.dictionaries)
+    lw.emit(arg)
+    lw._push(k1.HLL, 1)
+    return lw.program(k1.KIND_I64), list(lw.columns)
+
+
+def _digest_hash(c: ExprCompiler, arg: Expr):
+    return ExprCompiler.run_program(*digest_hash_program(c, arg))
+
+
+def _merge_matrix(agg: AggCall, order, starts, live: torch.Tensor, parts: torch.Tensor,
+                  total: torch.Tensor):
+    """(merged state matrix, count or None) of an aggregate of
+    ``MATRIX_FNS`` over partial rows in the groups' runs ``(order,
+    starts)``: K14 concatenates, K15 and K16 re-run over the flattened
+    lanes; ``total`` is the merged count column (the sum of the
+    partials'), from which a digest recomputes its distinct total."""
+    t = state_types(agg)[0]
+    cap = t.max_elems
+    if agg.fn in COLLECT_FNS:
+        halves = 1 if agg.fn == "array_agg" else 2
+        vw = 1 + t.element.max_elems if agg.fn == "multimap_agg" else 1
+        return k14.group_collect_merge(order, starts, live, parts, cap, halves=halves,
+                                       vw=vw), None
+    groups = starts.shape[0] - 1
+    g, rows = _run_positions(order, starts)
+    part = parts[rows]
+    if agg.fn in TOPN_FNS:
+        lens = torch.where(live[rows], torch.clamp(lengths(part), max=cap),
+                           torch.zeros_like(rows))
+        lane_ok = (torch.arange(cap, device=parts.device)[None, :] < lens[:, None]).reshape(-1)
+        by = agg.fn in ("max_by_n", "min_by_n")
+        vals = part[:, 1:1 + cap].reshape(-1)
+        keys = part[:, 1 + cap:1 + 2 * cap].reshape(-1) if by else vals
+        perm, runs = k15.sorted_entries(g[:, None].expand(-1, cap).reshape(-1), keys, lane_ok,
+                                        groups)
+        return k15.group_topn(perm, runs, vals, keys if by else None, cap,
+                              agg.fn in ("max_n", "max_by_n"), merge=True), None
+    entries = k16.digest_entries(part, g, live[rows], cap)
+    perm, runs = k15.sorted_entries(entries[0], entries[1], entries[3], groups)
+    state, _ = k16.kmv_lanes(perm, *entries[:3], runs, cap, merge=True)
+    # the partials' distinct totals overcount shared hashes: the merged
+    # lanes are exact below cap, past it the larger of the two
+    merged = state[:, 0]
+    distinct = torch.where(merged < cap, merged, torch.maximum(total, merged))
+    state[:, 0] = torch.clamp(distinct, max=cap)
+    return state, distinct
+
+
 def _add_collected(states, aggs, page: Page, order, starts) -> None:
-    """Put each collecting aggregate's state matrix (K14) before its
-    count in ``states``, over the groups' runs ``(order, starts)``."""
+    """Put each state matrix (K14, K15, K16) before its count in
+    ``states``, over the groups' runs ``(order, starts)`` (a digest's
+    distinct total in place of the count)."""
     c = ExprCompiler.for_page(page)
     for i, agg in enumerate(aggs):
-        if agg.fn in COLLECT_FNS:
-            sel, halves = _collect_inputs(c, agg, page)
-            t = state_types(agg)[0]
-            states[i] = [k14.group_collect(order, starts, sel, halves, t.max_elems,
-                                           _torch_dtype(t))] + list(states[i])
+        if agg.fn in MATRIX_FNS:
+            matrix, count = _matrix_state(c, agg, page, order, starts)
+            states[i] = [matrix] + (list(states[i]) if count is None else [count])
 
 
 def _checksum_hash(lw: _Lowering) -> int:
@@ -820,12 +983,16 @@ def _states_out(groups: int, key_blocks, state_cols, per_agg, aggs, mode, agg_di
                 device, collected=None) -> Page:
     """The page of a sort-path grouping: ``per_agg`` slices the flat
     K6 state columns back into each aggregate's ``[sum, count]`` or
-    ``[count]``; ``collected``: a collecting aggregate's state matrix by
-    its index, put before its count."""
+    ``[count]``; ``collected``: an aggregate's ``(state matrix, count or
+    None)`` by its index, the matrix put before its count (a count given
+    replaces K6's)."""
     states, pos = [], 0
     for i, k in enumerate(per_agg):
-        states.append(([collected[i]] if collected and i in collected else [])
-                      + list(state_cols[pos:pos + k]))
+        cols = list(state_cols[pos:pos + k])
+        if collected and i in collected:
+            matrix, count = collected[i]
+            cols = [matrix] + (cols if count is None else [count])
+        states.append(cols)
         pos += k
     mask = torch.ones(groups, dtype=torch.bool, device=device)
     return _emit(key_blocks, states, aggs, mask, mode, agg_dicts)
@@ -903,9 +1070,9 @@ def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode,
     collected = None
     if _collects(aggs):
         order, starts = got[3]
-        per = [[] for _ in aggs]
-        _add_collected(per, aggs, page, order, starts)
-        collected = {i: st[0] for i, st in enumerate(per) if st}
+        c = ExprCompiler.for_page(page)
+        collected = {i: _matrix_state(c, agg, page, order, starts)
+                     for i, agg in enumerate(aggs) if agg.fn in MATRIX_FNS}
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
     key_blocks = [Block(d, v, e.type, dic) for (d, v), e, dic in
                   zip(key_out, group_exprs, expr_key_dicts(page, group_exprs))]
@@ -934,15 +1101,18 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     by Chan's form), and states per aggregate."""
     from presto_tpu_torch.ops.join import key_tuples
 
-    if num_keys == 0:
-        raise NotPorted("merging global partial states")
-    key_blocks = partial.blocks[:num_keys]  # codes already canonical
-    keys = key_tuples([(b.data, b.valid) for b in key_blocks],
-                      [b.type for b in key_blocks], key_domains)
+    if num_keys == 0:  # a global aggregate's partials: one group, a constant key
+        n, dev = partial.capacity, partial.device
+        keys = [(torch.zeros(n, dtype=torch.int64, device=dev),
+                 torch.ones(n, dtype=torch.bool, device=dev), 0, 2)]
+    else:
+        key_blocks = partial.blocks[:num_keys]  # codes already canonical
+        keys = key_tuples([(b.data, b.valid) for b in key_blocks],
+                          [b.type for b in key_blocks], key_domains)
     live = partial.row_mask
     states, per_agg = [], []
     for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):
-        if agg.fn in COLLECT_FNS:  # the counts add; K14 merges the matrices
+        if agg.fn in MATRIX_FNS:  # the counts add; K14, K15 or K16 merges the matrices
             states.append((k6.S_SUM, cols[1].data, live))
             per_agg.append(1)
             continue
@@ -996,12 +1166,15 @@ def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_g
     key_blocks = [Block(d, v, b.type, b.dictionary)
                   for (d, v), b in zip(key_out, key_blocks_in)]
     collected = None
-    if _collects(aggs):  # each group's partial lists at running offsets (K14)
+    if _collects(aggs):  # each group's partial matrices merged (K14, K15, K16)
         order, starts = got[3]
-        collected = {i: k14.group_collect_merge(order, starts, partial.row_mask, cols[0].data,
-                                                state_types(agg)[0].max_elems)
-                     for i, (agg, cols) in enumerate(zip(aggs, _slice_state_cols(
-                         partial, num_keys, aggs))) if agg.fn in COLLECT_FNS}
+        collected, pos = {}, 0
+        for i, (agg, k, pcols) in enumerate(zip(aggs, per_agg, _slice_state_cols(
+                partial, num_keys, aggs))):
+            if agg.fn in MATRIX_FNS:
+                collected[i] = _merge_matrix(agg, order, starts, partial.row_mask,
+                                             pcols[0].data, cols[pos])
+            pos += k
     return _states_out(groups, key_blocks, cols, per_agg, aggs, mode, agg_dicts,
                        partial.device, collected)
 
@@ -1056,12 +1229,12 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
                                             else cols[:5], dim=1), cols[-1]))
         elif agg.fn in ("min_by", "max_by"):
             items.append((kind, cols[0], cols[1]))
-        elif agg.fn in COLLECT_FNS:  # the count's validity is the matrix's
+        elif agg.fn in MATRIX_FNS:  # the count's validity is the matrix's
             items.append((kind, cols[1], cols[1]))
         else:
             items.append((kind, cols[0], cols[-1]))
     out = k3.packed_finalize(items, mask)
-    out = [(cols[0], v) if agg.fn in COLLECT_FNS else (d, v)
+    out = [(_output_matrix(agg, cols[0]), v) if agg.fn in MATRIX_FNS else (d, v)
            for (d, v), agg, cols in zip(out, aggs, states)]
     for i, (agg, adict) in enumerate(zip(aggs, agg_dicts)):
         if agg.fn in ("min", "max") and agg.arg.type.is_string:
@@ -1077,20 +1250,38 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
             for (d, v), agg, adict, (kind, _, _) in zip(out, aggs, agg_dicts, items)]
 
 
+def _output_matrix(agg: AggCall, state: torch.Tensor) -> torch.Tensor:
+    """A state matrix as its output value: max_by_n / min_by_n drop the
+    key half and take the output array's storage (a NaN sentinel of a
+    double state becomes an integer's sentinel, a NaN length 0)."""
+    if agg.fn not in ("max_by_n", "min_by_n"):
+        return state
+    cap = state_types(agg)[0].max_elems
+    sub = state[:, :1 + cap]
+    out_dt = _torch_dtype(output_type(agg))
+    if sub.is_floating_point() and not out_dt.is_floating_point:
+        body = sub[:, 1:]
+        body = torch.where(torch.isnan(body), torch.full_like(body, float(sentinel(out_dt))),
+                           body)
+        l0 = torch.where(torch.isnan(sub[:, :1]), torch.zeros_like(sub[:, :1]), sub[:, :1])
+        sub = torch.cat([l0, body], 1)
+    return sub.to(out_dt)
+
+
 def combine_packed_states(a: Page, b: Page, num_keys: int,
                           aggs: Sequence[AggCall]) -> Page:
     """Fold two packed-direct partial pages slot by slot (K3)."""
     _check_ported(aggs, "partial")
-    # a collecting aggregate's matrix merges by K14 (a's list, then b's),
-    # its count folds with the others
+    # a state matrix merges by K14, K15 or K16 (a's row, then b's), its
+    # count folds with the others
     ca, cb = _slice_state_cols(a, num_keys, aggs), _slice_state_cols(b, num_keys, aggs)
     sa = [blk for agg, cols in zip(aggs, ca)
-          for blk in (cols[1:] if agg.fn in COLLECT_FNS else cols)]
+          for blk in (cols[1:] if agg.fn in MATRIX_FNS else cols)]
     sb = [blk for agg, cols in zip(aggs, cb)
-          for blk in (cols[1:] if agg.fn in COLLECT_FNS else cols)]
+          for blk in (cols[1:] if agg.fn in MATRIX_FNS else cols)]
     kinds = []
     for agg in aggs:
-        if agg.fn in COLLECT_FNS:
+        if agg.fn in MATRIX_FNS:
             kinds.append(k3.COL_I64)
             continue
         if agg.fn in MOMENT_FNS:
@@ -1124,19 +1315,19 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
     folded = iter(zip(sa, outs))
     blocks = list(a.blocks[:num_keys])
     for agg, cols_a, cols_b in zip(aggs, ca, cb):
-        if agg.fn in COLLECT_FNS:
+        if agg.fn in MATRIX_FNS:
             blk = cols_a[0]
             g = blk.data.shape[0]
             both = torch.stack([blk.data, cols_b[0].data], 1).reshape(2 * g, -1)
             live = torch.stack([a.row_mask, b.row_mask], 1).reshape(2 * g)
             starts = torch.arange(0, 2 * g + 1, 2, dtype=torch.int64, device=live.device)
-            merged = k14.group_collect_merge(None, starts, live, both.contiguous(),
-                                             blk.type.max_elems)
+            x, (total, valid) = next(folded)
+            merged, count = _merge_matrix(agg, None, starts, live, both.contiguous(), total)
             blocks.append(Block(merged, mask, blk.type, blk.dictionary))
-            rest = cols_a[1:]
-        else:
-            rest = cols_a
-        for _ in rest:
+            blocks.append(Block(total if count is None else count, valid, x.type,
+                                x.dictionary))
+            continue
+        for _ in cols_a:
             x, (data, valid) = next(folded)
             blocks.append(Block(data, valid, x.type, x.dictionary))
     return Page(tuple(blocks), mask)
@@ -1147,6 +1338,44 @@ _K3_EXTREME = {("min", "i64"): k3.COL_MIN_I64, ("max", "i64"): k3.COL_MAX_I64,
                ("min", "d128"): k3.COL_MIN_D128, ("max", "d128"): k3.COL_MAX_D128,
                ("min", "f64"): k3.COL_MIN_F64, ("max", "f64"): k3.COL_MAX_F64,
                ("min", "bool"): k3.COL_MIN_BOOL, ("max", "bool"): k3.COL_MAX_BOOL}
+
+
+#: the smallest capacity of a level of the reference's binary-counter fold
+TOWER_MIN_CAP = 1 << 12
+
+
+def fold_topn_partials(parts: Sequence[Page], num_keys: int, aggs: Sequence[AggCall],
+                       max_groups: int, key_domains=None, tower: bool = False) -> Page:
+    """The partial pages of an aggregation with a top-n state
+    (``TOPN_FNS``) merged pairwise (``merge_aggregate``, mode 'partial')
+    in the reference runner's order, ready for the final merge.  Each
+    merge of a max form reverses the lanes of equal keys and keeps n of
+    them, so which rows a group keeps among ties, and in which order,
+    depends on which pages merged when.  ``tower``: the binary counter of
+    a keyed fold off the packed-direct layout (a page at the power of two
+    above its groups, at least ``TOWER_MIN_CAP`` and at most
+    ``max_groups``; two pages of one capacity merge, the older first,
+    into twice it; the survivors go to the final merge largest first);
+    else the running fold (the first page merged alone, then the
+    accumulator with each page)."""
+    def merge(pages):
+        return merge_aggregate(concat_pages_device(pages), num_keys, aggs, max_groups,
+                               key_domains=key_domains, mode="partial")
+
+    if not tower:
+        acc = merge([parts[0]])
+        for p in parts[1:]:
+            acc = merge([acc, p])
+        return acc
+    levels = {}
+    for p in parts:
+        live = int(p.row_mask.sum())
+        cap = min(max_groups, max(TOWER_MIN_CAP, 1 << max(0, live - 1).bit_length()))
+        while cap in levels:
+            p = merge([levels.pop(cap), p])
+            cap *= 2
+        levels[cap] = p
+    return concat_pages_device([levels[c] for c in sorted(levels, reverse=True)])
 
 
 def finalize_packed(acc: Page, num_keys: int, aggs: Sequence[AggCall]) -> Page:

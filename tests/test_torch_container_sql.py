@@ -14,7 +14,8 @@ run here; none is left out.
 Also: the slice's motivating statements and the smoke's containers
 phase at TPC-H sf 0.01, ROLLUP and CUBE over no input row (the
 grand-total row), the reference's deviations the port follows (pinned),
-and the families still deferred, which raise ``NotPorted`` by name.
+and the families a former slice deferred (multimap_agg, map_union,
+approx_set, the set digests), now against the reference.
 
 Rows must be equal; doubles within a relative 1e-9
 (``oracle.assert_rows_match``), container values exactly.
@@ -214,15 +215,15 @@ GROUPING_EMPTY_SQL = [
     "where n_nationkey < 0 group by cube(n_regionkey, n_name)",
 ]
 # still with the reference, by the name the port raises
+# pinned as NotPorted until the twelfth slice ported them; now equal to
+# the reference (more in tests/test_torch_sketch_sql.py)
 DEFERRED = {
-    "multimap_agg": ("select multimap_agg(n_regionkey, n_nationkey) from nation",
-                     "aggregate multimap_agg"),
-    "map_union": ("select map_union(m) from (select map_agg(n_nationkey, n_regionkey) m "
-                  "from nation group by n_regionkey)", "aggregate map_union"),
-    "approx_set": ("select cardinality(approx_set(n_nationkey)) from nation",
-                   "aggregate hll_sketch"),
-    "setdigest": ("select jaccard_index(make_set_digest(n_nationkey), "
-                  "make_set_digest(n_regionkey)) from nation", "aggregate make_set_digest"),
+    "multimap_agg": "select multimap_agg(n_regionkey, n_nationkey) from nation",
+    "map_union": "select map_union(m) from (select map_agg(n_nationkey, n_regionkey) m "
+                 "from nation group by n_regionkey)",
+    "approx_set": "select cardinality(approx_set(n_nationkey)) from nation",
+    "setdigest": "select jaccard_index(make_set_digest(n_nationkey), "
+                 "make_set_digest(n_regionkey)) from nation",
 }
 
 
@@ -377,7 +378,6 @@ def test_reference_deviations_are_followed():
 
 @pytest.mark.parametrize("name", sorted(DEFERRED))
 def test_deferred_container_families_raise_by_name(name):
-    sql, what = DEFERRED[name]
-    with pytest.raises(NotPorted) as e:
-        _PAIRS(0.001).port.execute(sql)
-    assert e.value.what == what
+    """The container families a former slice deferred (multimap_agg,
+    map_union, approx_set, the set digests) against the reference."""
+    _PAIRS(0.001).check(DEFERRED[name])

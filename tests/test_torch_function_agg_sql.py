@@ -4,8 +4,10 @@ port's ``QueryRunner`` on the CPU against the reference's, at TPC-H sf
 ``test_function_breadth.py``'s approx_distinct, varchar min/max,
 arbitrary, count_if, bitwise aggregates, geometric_mean and
 approx_percentile), the filter lane beside unfiltered aggregates on
-both grouping paths, min/max over doubles, booleans and varchar, and
-the deferred aggregate families pinned by name.  Rows are exact,
+both grouping paths, min/max over doubles, booleans and varchar, the
+formerly deferred max_n, max_by_n and approx_set against the reference,
+and the families still outside the port (ML, geo, DECIMAL(38)) pinned
+by name.  Rows are exact,
 doubles within a relative 1e-9 (the parity tolerance)."""
 
 import math
@@ -85,13 +87,31 @@ def test_empty_approx_distinct_is_zero_and_signed_zeros_order():
     assert [math.copysign(1.0, r[2]) for r in rows[:2]] == [1.0, 1.0]
 
 
-@pytest.mark.parametrize("sql,what", [
-    ("select max(l_extendedprice, 5) from lineitem", "aggregate max_n"),
-    ("select max_by(l_orderkey, l_quantity, 2) from lineitem", "aggregate max_by_n"),
-    ("select cardinality(approx_set(o_custkey)) from orders", "aggregate hll_sketch"),
+@pytest.mark.parametrize("sql", [
+    "select max(l_extendedprice, 5) from lineitem",
+    "select max_by(l_orderkey, l_quantity, 2) from lineitem",
+    "select cardinality(approx_set(o_custkey)) from orders",
 ], ids=["max_n", "max_by_n", "approx_set"])
-def test_deferred_aggregate_families_raise_by_name(sql, what):
-    """The aggregate families a later slice ports raise NotPorted by name."""
+def test_deferred_aggregate_families_raise_by_name(sql):
+    """Pinned as NotPorted until the twelfth slice ported them (max_n,
+    max_by_n, approx_set; more in tests/test_torch_sketch_sql.py); now
+    equal to the reference."""
+    assert _pair().check(sql)
+
+
+@pytest.mark.parametrize("sql,what", [
+    ("select learn_classifier(o_shippriority, array[o_totalprice]) from orders",
+     "aggregate learn_classifier"),
+    ("select evaluate_classifier_predictions(o_orderstatus, o_orderstatus) from orders",
+     "aggregate evaluate_classifier_predictions"),
+    ("select st_distance(st_point(o_totalprice, 1.0), st_point(0.0, 0.0)) from orders",
+     "expression st_distance"),
+    ("select cast(o_totalprice as decimal(38,2)) * 2 from orders",
+     "expressions over decimal(38,2)"),
+], ids=["learn_classifier", "evaluate_classifier", "st_distance", "decimal38"])
+def test_remaining_families_raise_by_name(sql, what):
+    """The families a later slice ports raise NotPorted by name: the ML
+    aggregates, the geo functions and DECIMAL(38)."""
     from presto_tpu_torch import NotPorted
 
     with pytest.raises(NotPorted) as e:

@@ -2082,3 +2082,188 @@ def test_eleventh_slice_on_the_card_equals_the_cpu_run():
     assert {"f32r", "castn", "din", "narrow"} <= set(k1.op_launches)
     assert all(x > y for x, y in zip((k7.real_launches, k10.narrow_launches,
                                       port_sort.sorted_topn_runs), before))
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.is_floating_point():
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+@pytest.mark.parametrize("storage", [torch.int64, torch.float64])
+def test_group_topn_matches_plain(storage):
+    """K15 over skewed groups (one of most entries, many of a few, empty
+    ones): both lane orders, with and without the key half, bit for bit."""
+    from presto_tpu_torch.kernels import group_topn as k15
+
+    dev = _cuda()
+    rng = np.random.default_rng(1200)
+    m, groups = 1 << 20, 5000
+    g = np.where(rng.random(m) < 0.5, 7, rng.integers(0, groups - 10, m))
+    key = rng.integers(-50, 50, m)
+    g_t = torch.from_numpy(g).to(dev)
+    key_t = torch.from_numpy(key.astype(np.float64) / 4 if storage == torch.float64
+                             else key).to(dev)
+    sel = torch.from_numpy(rng.random(m) >= 0.1).to(dev)
+    perm, starts = k15.sorted_entries(g_t, key_t, sel, groups)
+    vals = torch.from_numpy(rng.integers(-9, 9, m)).to(dev).to(storage)
+    for desc in (True, False):
+        for keys in (None, key_t.to(storage)):
+            got = k15.group_topn(perm, starts, vals, keys, 10, desc)
+            want = k15.group_topn_plain(perm, starts, vals, keys, 10, desc)
+            torch.cuda.synchronize()
+            assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("counted", [True, False])
+def test_kmv_lanes_matches_plain(counted):
+    """K16 over entries with heavy duplication and one huge group, with
+    counts (a merge's) and without (make_set_digest's: each entry 1)."""
+    from presto_tpu_torch.kernels import group_topn as k15
+    from presto_tpu_torch.kernels import kmv_lanes as k16
+
+    dev = _cuda()
+    rng = np.random.default_rng(1201)
+    m, groups = 1 << 20, 300
+    g = torch.from_numpy(np.where(rng.random(m) < 0.6, 3, rng.integers(0, groups - 5, m))).to(dev)
+    pool = rng.integers(-(1 << 62), 1 << 62, 5000)
+    h = torch.from_numpy(pool[rng.integers(0, 5000, m)]).to(dev)
+    counts = torch.from_numpy(rng.integers(1, 5, m)).to(dev) if counted else None
+    sel = torch.from_numpy(rng.random(m) >= 0.1).to(dev)
+    perm, starts = k15.sorted_entries(g, h, sel, groups)
+    got = k16.kmv_lanes(perm, g, h, counts, starts, 64)
+    want = k16.kmv_lanes_plain(perm, g, h, counts, starts, 64)
+    torch.cuda.synchronize()
+    assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+
+
+def test_group_collect_wide_half_and_union_match_plain():
+    """K14's value half of 1 + 8 slots per entry (multimap_agg) and its
+    merge, and map_union's merge of 4-entry maps into 64 slots."""
+    from presto_tpu_torch.kernels import group_collect as k14
+
+    dev = _cuda()
+    rng = np.random.default_rng(1202)
+    n, groups = 200_000, 900
+    order = torch.from_numpy(rng.permutation(n)).to(dev)
+    sizes = np.bincount(rng.integers(0, groups, n), minlength=groups)
+    starts = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])).to(dev)
+    sel = torch.from_numpy(rng.random(n) >= 0.2).to(dev)
+    key = (torch.from_numpy(rng.integers(0, 9, n)).to(dev), sel)
+    arr = np.full((n, 9), -(1 << 63), np.int64)
+    arr[:, 0] = rng.integers(0, 9, n)
+    arr[:, 1:] = rng.integers(-5, 5, (n, 8))
+    arrs = (torch.from_numpy(arr).to(dev), torch.from_numpy(rng.random(n) >= 0.1).to(dev))
+    for storage in (torch.int64, torch.float64):
+        got = k14.group_collect(order, starts, sel, [key, arrs], 64, storage)
+        want = k14.group_collect_plain(order, starts, sel, [key, arrs], 64, storage)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want)
+        parts = torch.cat([got, got])
+        live = torch.ones(2 * groups, dtype=torch.bool, device=dev)
+        mst = torch.arange(0, 2 * groups + 1, 2, device=dev)
+        morder = torch.arange(2 * groups, device=dev).view(2, groups).t().reshape(-1)
+        m_got = k14.group_collect_merge(morder, mst, live, parts, 64, halves=2, vw=9)
+        m_want = k14.group_collect_merge_plain(morder, mst, live, parts, 64, 2, 9)
+        torch.cuda.synchronize()
+        assert _bits_equal(m_got, m_want)
+    maps = np.full((n, 9), -(1 << 63), np.int64)
+    maps[:, 0] = rng.integers(0, 5, n)
+    maps[:, 1:] = rng.integers(0, 40, (n, 8))
+    maps_t = torch.from_numpy(maps).to(dev)
+    got = k14.group_collect_merge(order, starts, sel, maps_t, 64, halves=2, in_cap=4)
+    want = k14.group_collect_merge_plain(order, starts, sel, maps_t, 64, 2, 1, 4)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+
+
+def test_sketch_opcodes_match_plain():
+    """K12's hll_card (a warp per row), kmv_card and sd_pair over seeded
+    sketches: empty, sparse, full and past 64 hashes."""
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import group_topn as k15
+    from presto_tpu_torch.kernels import kmv_lanes as k16
+
+    dev = _cuda()
+    rng = np.random.default_rng(1203)
+    n, m = 3000, 512
+    hll = np.full((n, 1 + 2 * m), -(1 << 63), np.int64)
+    cnt = rng.integers(0, m + 1, n)
+    cnt[:3] = [0, 1, m]
+    hll[:, 0] = cnt
+    j = np.arange(m)[None, :]
+    hll[:, 1:1 + m] = np.where(j < cnt[:, None], j, -(1 << 63))
+    hll[:, 1 + m:] = np.where(j < cnt[:, None], rng.integers(1, 30, (n, m)), -(1 << 63))
+    hv = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    a = torch.from_numpy(hll).to(dev)
+    got = k12.container_eval(k12.HLL_CARD, a, hv)
+    want = k12.plain(k12.HLL_CARD, a, hv)
+    torch.cuda.synchronize()
+    assert all(_bits_equal(x, y) for x, y in zip(got, want))
+    digests = []
+    for seed in (1, 2):
+        r = np.random.default_rng(seed)
+        e = 200_000
+        g = torch.from_numpy(r.integers(0, n, e)).to(dev)
+        h = torch.from_numpy(r.integers(0, 90_000, e) * 1_000_003_001).to(dev)
+        perm, starts = k15.sorted_entries(g, h, torch.ones(e, dtype=torch.bool, device=dev), n)
+        digests.append(k16.kmv_lanes(perm, g, h, None, starts, 64)[0])
+    da, db = digests
+    got = k12.container_eval(k12.KMV_CARD, da, hv)
+    want = k12.plain(k12.KMV_CARD, da, hv)
+    torch.cuda.synchronize()
+    assert all(_bits_equal(x, y) for x, y in zip(got, want))
+    for mode in (k12.SD_JACCARD, k12.SD_INTERSECTION):
+        got = k12.container_eval(k12.SD_PAIR, da, hv, b=db, bv=hv, p=[mode])
+        want = k12.plain(k12.SD_PAIR, da, hv, b=db, bv=hv, p=[mode])
+        torch.cuda.synchronize()
+        assert all(_bits_equal(x, y) for x, y in zip(got, want))
+
+
+TWELFTH_SLICE_SQL = [
+    "select l_suppkey, max(l_extendedprice, 5), min(l_extendedprice, 5) from lineitem "
+    "group by l_suppkey order by l_suppkey",
+    "select l_returnflag, l_linestatus, max_by(l_orderkey, l_extendedprice, 10), "
+    "min_by(l_orderkey, l_quantity, 3) from lineitem group by 1, 2 order by 1, 2",
+    "select o_orderpriority, cardinality(approx_set(o_custkey)) from orders group by 1 "
+    "order by 1",
+    "select cardinality(merge(s)) from (select o_orderpriority, approx_set(o_custkey) s "
+    "from orders group by 1)",
+    "select l_shipmode, cardinality(make_set_digest(l_partkey)) from lineitem group by 1 "
+    "order by 1",
+    "select jaccard_index(a, b), intersection_cardinality(a, b) from (select "
+    "make_set_digest(l_suppkey) a from lineitem where l_shipmode = 'AIR'), (select "
+    "make_set_digest(l_suppkey) b from lineitem where l_shipmode = 'RAIL')",
+    "select l_returnflag, multimap_agg(l_shipmode, l_linenumber) from lineitem group by 1 "
+    "order by 1",
+    "select l_returnflag, map_union(m) from (select l_returnflag, l_suppkey % 50 g, "
+    "map_agg(l_linenumber, l_quantity) m from lineitem group by 1, 2) group by 1 order by 1",
+    "select max(o_totalprice, 3), max_by(o_orderkey, o_totalprice, 2), "
+    "cardinality(make_set_digest(o_custkey)) from orders",
+]
+
+
+def test_twelfth_slice_on_the_card_equals_the_cpu_run():
+    """The sketch and heap aggregates through SQL at sf 0.01 on the card
+    (K15, K16, K14's new modes, K12's sketch opcodes), equal to the CPU
+    run."""
+    _cuda()
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import group_collect as k14
+    from presto_tpu_torch.kernels import group_topn as k15
+    from presto_tpu_torch.kernels import kmv_lanes as k16
+    from presto_tpu_torch.runner import QueryRunner
+    from presto_tpu_torch.testing import tpch_catalog
+
+    gpu = QueryRunner(tpch_catalog(sf=0.01), device="cuda")
+    cpu = QueryRunner(tpch_catalog(sf=0.01), device="cpu")
+    k12.op_launches.clear()
+    before = (k15.launches, k15.merge_launches, k16.launches, k16.merge_launches,
+              k14.wide_launches, k14.union_launches)
+    for sql in TWELFTH_SLICE_SQL:
+        got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
+        assert got == want and got, sql
+    assert {"hll_card", "kmv_card", "sd_pair"} <= set(k12.op_launches)
+    assert all(x > y for x, y in zip((k15.launches, k15.merge_launches, k16.launches,
+                                      k16.merge_launches, k14.wide_launches,
+                                      k14.union_launches), before))

@@ -182,7 +182,7 @@ def test_out_of_range_cast_equals_the_reference_at_run_time():
 @pytest.mark.parametrize("sql,what", [
     ("select cast(l_extendedprice as decimal(38,2)) * 2 from lineitem",
      "expressions over decimal(38,2)"),
-    ("select max(l_quantity, 3) from lineitem", "aggregate max_n"),
+    ("select max(l_quantity, 3) from lineitem", None),
     ("select round(cast(l_tax as real), 1) from lineitem", "round of real"),
     ("select min_by(l_orderkey, cast(l_tax as real)) from lineitem", "min_by over real"),
     ("select checksum(cast(l_linenumber as smallint)) from lineitem", "checksum over smallint"),
@@ -191,7 +191,12 @@ def test_out_of_range_cast_equals_the_reference_at_run_time():
 ], ids=["decimal38", "max_n", "round_real", "min_by_real", "checksum_smallint",
         "real_to_decimal"])
 def test_families_left_out_raise_by_name(sql, what):
-    """What this slice leaves out raises NotPorted with its family's name."""
+    """What this slice leaves out raises NotPorted with its family's name;
+    what a later slice ported (``what`` None: max(x, n), the twelfth
+    slice) equals the reference."""
+    if what is None:
+        _pair().check(sql)
+        return
     with pytest.raises(NotPorted) as e:
         _pair().port.execute(sql)
     assert e.value.what == what
