@@ -74,7 +74,14 @@ Phases (any failure exits non-zero before the result line):
    l_suppkey and by the two flags and its merge of two splits' lanes,
    K1's digest hash, K16 kmv_lanes by l_shipmode and its merge, K14's
    wide value half and map_union over the sk queries' inner pages, and
-   K12's hll_card, kmv_card and sd_pair over their sketches;
+   K12's hll_card, kmv_card and sd_pair over their sketches; and the
+   thirteenth slice's (``check_decimal38_kernels``) over lineitem splits
+   with l_quantity and l_extendedprice as decimal(38,2): K1's five-limb
+   instance (the cast S2D38, Q1's wide x short product, Q6's wide
+   compare as a filter, the up-scale to decimal(38,18), the double, the
+   narrowing to bigint), K2's wide sum, min and max by Q1's flags, K3's
+   fold and wide finalizes, K6's wide states by l_suppkey and their
+   merge, K7's top 100 by the merged wide revenue;
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
@@ -101,8 +108,13 @@ Phases (any failure exits non-zero before the result line):
    tables, traced (``SK_QUERIES``: max/min(x, 5) per supplier,
    max_by/min_by(x, y, n) by the two flags, approx_set with
    cardinality and merge, set digests per ship mode, jaccard_index and
-   intersection_cardinality, multimap_agg, map_union); then (TPC-H's
-   tables freed)
+   intersection_cardinality, multimap_agg, map_union); the wide
+   decimals phase, traced (``D38_QUERIES`` over ``lineitem_d38``, built
+   on the card from lineitem's splits by the port's casts and freed
+   after the phase: Q1 and Q6 over the wide columns, revenue per
+   supplier with its top 100, Spark's decimal(38,18), the casts out,
+   CASE/abs/coalesce/greatest, a 38-digit literal with a top 1000, the
+   join with orders); then (TPC-H's tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -118,7 +130,9 @@ Phases (any failure exits non-zero before the result line):
    which finds no row there, also without its anti join), the other
    TPC-DS queries at SF 1 (run again there on the card), q72 at sf
    0.01; the functions, the dates and aggregate tail, the containers,
-   the types and the sketch phases at SF 1, exact but for skewness's doubles
+   the types, the sketch and the wide decimals phases at SF 1 (the
+   latter over lineitem_d38 built on both sides), exact but for
+   skewness's doubles
    (``FN_APPROX``: its pow, a relative 1e-12);
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
@@ -443,6 +457,95 @@ SK_QUERIES = {
 }
 
 
+# the thirteenth slice, DECIMAL(37..38) at SF10 over ``lineitem_d38``
+# (lineitem with l_quantity and l_extendedprice as decimal(38,2), five
+# limbs each, resident on the card beside lineitem's other columns; no
+# cut; rows checked at TPCH_CHECK_SF with check_fn_rows, exact): Q1 and
+# Q6 over the wide columns (wide x short products, wide sums and avgs,
+# a wide compare against a short literal), revenue, min and max per
+# supplier with the top 100 by a wide key, Spark's default
+# decimal(38,18) (an up-scale by 16 digits, a wide difference, a compare
+# across widths), the casts out of the wide layout, CASE with negation,
+# abs, coalesce and greatest, a 38-digit literal in a filter with a
+# decimal(36,4) literal added and a top 1000 (the sort over five
+# limbs), and the wide price through the join with orders
+D38_TABLE = "lineitem_d38"
+D38_COLUMNS = ("l_quantity", "l_extendedprice")
+D38_QUERIES = {
+    "d38_q1": "select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, "
+              "sum(l_extendedprice) as sum_base_price, "
+              "sum(l_extendedprice * (1 - l_discount)) as sum_disc_price, "
+              "sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge, "
+              "avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price, "
+              "avg(l_discount) as avg_disc, count(*) as count_order from lineitem_d38 "
+              "where l_shipdate <= date '1998-09-02' group by l_returnflag, l_linestatus "
+              "order by l_returnflag, l_linestatus",
+    "d38_q6": "select sum(l_extendedprice * l_discount) as revenue from lineitem_d38 "
+              "where l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01' "
+              "and l_discount between 0.05 and 0.07 and l_quantity < 24",
+    "d38_supplier_top": "select l_suppkey, sum(l_extendedprice * (1 - l_discount)) as rev, "
+                        "min(l_extendedprice) as lo, max(l_extendedprice) as hi "
+                        "from lineitem_d38 group by l_suppkey order by rev desc, l_suppkey "
+                        "limit 100",
+    "d38_spark_scale": "select l_returnflag, sum(cast(l_extendedprice as decimal(38,18)) "
+                       "- cast(l_quantity as decimal(38,18))) as spread, "
+                       "max(cast(l_extendedprice as decimal(38,18))) as top, count(*) as n "
+                       "from lineitem_d38 where cast(l_extendedprice as decimal(38,18)) > "
+                       "l_tax * 250000 group by l_returnflag order by l_returnflag",
+    "d38_casts": "select l_linestatus, sum(cast(l_extendedprice as double)) as dbl, "
+                 "sum(cast(l_extendedprice as decimal(12,2))) as short_sum, "
+                 "sum(cast(l_quantity as bigint)) as qty, "
+                 "max(cast(l_extendedprice as decimal(38,0))) as whole "
+                 "from lineitem_d38 group by l_linestatus order by l_linestatus",
+    "d38_case": "select l_shipmode, sum(case when l_returnflag = 'R' then -l_extendedprice "
+                "else l_extendedprice end) as net, max(abs(l_quantity - l_extendedprice)) "
+                "as gap, min(coalesce(l_extendedprice, l_quantity)) as first_price, "
+                "max(greatest(l_extendedprice, cast(l_tax as decimal(38,2)) + 50000)) as top "
+                "from lineitem_d38 group by l_shipmode order by l_shipmode",
+    "d38_literal": "select l_orderkey, l_linenumber, l_extendedprice + "
+                   "123456789012345678.0000 as shifted from lineitem_d38 "
+                   "where l_extendedprice < 1234567890123456789012345678901234.5678 "
+                   "and l_shipdate >= date '1998-06-01' "
+                   "order by shifted desc, l_orderkey, l_linenumber limit 1000",
+    "d38_join": "select o_orderpriority, sum(l_extendedprice) as price, "
+                "max(l_extendedprice) as top, count(*) as n from lineitem_d38 "
+                "join orders on l_orderkey = o_orderkey where o_orderdate >= date '1995-01-01' "
+                "and o_orderdate < date '1995-04-01' group by o_orderpriority "
+                "order by o_orderpriority",
+}
+
+
+def make_lineitem_d38(conn, name: str = D38_TABLE) -> None:
+    """Register ``name`` in ``conn`` (a MemoryConnector holding
+    lineitem): lineitem with ``D38_COLUMNS`` cast to decimal(38,2) by the
+    port's own casts (K1's S2D38 on a card), five limbs a row each; the
+    other columns are lineitem's own tensors, not copies."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.expr.ir import Call, ColumnRef
+    from presto_tpu_torch.page import Block, Page
+    from presto_tpu_torch.types import DecimalType
+
+    wide = DecimalType(38, 2)
+    schema = conn.schema("lineitem")
+    cols = [c for c, _ in schema]
+    pages = []
+    for split in range(conn.num_splits("lineitem")):
+        page = conn.page_for_split("lineitem", split)
+        compiler = ExprCompiler.for_page(page)
+        blocks = list(page.blocks)
+        for c in D38_COLUMNS:
+            i = cols.index(c)
+            cast = Call(type=wide, fn="cast_decimal", args=(ColumnRef(type=schema[i][1],
+                                                                      index=i),))
+            data, valid = compiler.compile(cast)(page)
+            blocks[i] = Block(data, valid, wide)
+        pages.append(Page(tuple(blocks), page.row_mask))
+    domains = {c: conn.column_domain("lineitem", c) for c in cols if c not in D38_COLUMNS}
+    conn.create_table(name, [(c, wide if c in D38_COLUMNS else t) for c, t in schema], pages,
+                      domains, conn.primary_key("lineitem"),
+                      sort_order=conn.sort_order("lineitem"))
+
+
 def _spill_sql() -> dict:
     """AGG_SQL, JOIN_SQL and FULL_SQL of ``tests/test_spill.py``, read
     without importing it (it imports the JAX package)."""
@@ -679,6 +782,20 @@ SK_REQUIRED = {
     "sk_multimap": ("group_collect", "group_collect:wide"),
     "sk_map_union": ("group_collect", "group_collect:union"),
 }
+D38_REQUIRED = {
+    "d38_q1": ("expr_eval:d38mul", "packed_group_agg:d38", "packed_fold_finalize:d38"),
+    "d38_q6": ("expr_eval:d38cmp", "expr_eval:d38mul", "packed_group_agg:d38",
+               "packed_fold_finalize:d38"),
+    "d38_supplier_top": ("expr_eval:d38mul", "sorted_group_agg:d38", "topn:d38"),
+    "d38_spark_scale": ("expr_eval:d38up", "expr_eval:d38add", "expr_eval:d38cmp",
+                        "packed_group_agg:d38|sorted_group_agg:d38"),
+    "d38_casts": ("expr_eval:d382d", "expr_eval:d38narrow", "expr_eval:d38down",
+                  "packed_group_agg:d38|sorted_group_agg:d38"),
+    "d38_case": ("expr_eval:d38neg", "expr_eval:d38sign", "expr_eval:gl",
+                 "packed_group_agg:d38|sorted_group_agg:d38"),
+    "d38_literal": ("expr_eval:lit_d38", "expr_eval:d38cmp", "topn:sorted"),
+    "d38_join": ("join_probe", "packed_group_agg:d38|sorted_group_agg:d38"),
+}
 # where each kernel's TPU counterpart lives in the reference package
 REPLACES = {
     "expr_eval": "presto_tpu/expr/compile.py:919",
@@ -772,6 +889,18 @@ REPLACES = {
     "container_eval@hll_card": "presto_tpu/expr/compile.py:1916",
     "container_eval@kmv_card": "presto_tpu/expr/compile.py:1940",
     "container_eval@sd_pair": "presto_tpu/expr/compile.py:1960",
+    "expr_eval@d38_widen": "presto_tpu/expr/compile.py:802",
+    "expr_eval@d38_mul": "presto_tpu/ops/decimal128.py:190",
+    "expr_eval@d38_cmp": "presto_tpu/expr/compile.py:2654",
+    "expr_eval@d38_upscale": "presto_tpu/ops/decimal128.py:216",
+    "expr_eval@d38_double": "presto_tpu/ops/decimal128.py:298",
+    "expr_eval@d38_narrow": "presto_tpu/expr/compile.py:3493",
+    "packed_group_agg@d38": "presto_tpu/ops/aggregate.py:434",
+    "packed_fold_finalize@d38_fold": "presto_tpu/ops/aggregate.py:887",
+    "packed_fold_finalize@d38_finalize": "presto_tpu/ops/aggregate.py:1580",
+    "sorted_group_agg@d38": "presto_tpu/ops/aggregate.py:1644",
+    "sorted_group_agg@d38_merge": "presto_tpu/ops/aggregate.py:1062",
+    "topn@d38": "presto_tpu/ops/sort.py:121",
 }
 
 
@@ -3402,6 +3531,168 @@ def check_sketch_kernels(report: KernelReport, mem) -> None:
     log(f"the sketch kernels' checks took {time.perf_counter() - t0:.1f} s")
 
 
+def check_decimal38_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the thirteenth slice, over whole 2^23-row lineitem splits
+    with l_quantity and l_extendedprice cast to decimal(38,2), each mode
+    against its twin, bit for bit: K1's five-limb instance (the cast
+    itself, S2D38; Q1's wide x short product; Q6's wide compare against a
+    short literal, as a filter; the up-scale to decimal(38,18); the
+    double; the narrowing to bigint), K2's wide sum, min and max by Q1's
+    flags, K3's fold of two splits' tables and its wide sum and avg
+    finalizes, K6's wide states by l_suppkey and their merge over two
+    splits, and K7's top 100 by the merged wide revenue.  No single
+    PyTorch call computes limb arithmetic with carries, so these rows
+    have no library time."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.expr.ir import Call, ColumnRef, Literal
+    from presto_tpu_torch.kernels import expr_eval as k1
+    from presto_tpu_torch.kernels import packed_fold_finalize as k3
+    from presto_tpu_torch.kernels import packed_group_agg as k2
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.kernels import topn as k7
+    from presto_tpu_torch.page import Block, Page
+    from presto_tpu_torch.types import BIGINT, BOOLEAN, DOUBLE, DecimalType
+
+    names = [c for c, _ in mem.schema("lineitem")]
+    types = dict(mem.schema("lineitem"))
+    wide, wide4, wide18 = DecimalType(38, 2), DecimalType(38, 4), DecimalType(38, 18)
+
+    def col(c, t=None):
+        return ColumnRef(type=t or types[c], index=names.index(c))
+
+    def widen(pg):
+        """The page with D38_COLUMNS as decimal(38,2) (K1's S2D38)."""
+        blocks = list(pg.blocks)
+        for c in D38_COLUMNS:
+            d, v = ExprCompiler.for_page(pg).compile(
+                Call(type=wide, fn="cast_decimal", args=(col(c),)))(pg)
+            blocks[names.index(c)] = Block(d, v, wide)
+        return Page(tuple(blocks), pg.row_mask)
+
+    src = [mem.page_for_split("lineitem", i) for i in (0, 1)]
+    pages = [widen(p) for p in src]
+    page, n = pages[0], pages[0].capacity
+    price, qty = col("l_extendedprice", wide), col("l_quantity", wide)
+    one_minus = Call(type=DecimalType(18, 2), fn="sub", args=(
+        Literal(type=BIGINT, value=1), col("l_discount")))
+    # name: (expression over ``pg``, the page it reads, a filter, counter)
+    rows = {
+        "d38_widen": (Call(type=wide, fn="cast_decimal", args=(col("l_extendedprice"),)),
+                      src[0], False, "s2d38"),
+        "d38_mul": (Call(type=wide4, fn="mul", args=(price, one_minus)), page, False, "d38mul"),
+        "d38_cmp": (Call(type=BOOLEAN, fn="lt", args=(qty, Literal(type=BIGINT, value=24))),
+                    page, True, "d38cmp"),
+        "d38_upscale": (Call(type=wide18, fn="cast_decimal", args=(price,)), page, False,
+                        "d38up"),
+        "d38_double": (Call(type=DOUBLE, fn="cast_double", args=(price,)), page, False,
+                       "d382d"),
+        "d38_narrow": (Call(type=BIGINT, fn="cast_bigint", args=(qty,)), page, False,
+                       "d38narrow"),
+    }
+    for label, (expr, pg, filt, counter) in rows.items():
+        name = f"expr_eval@{label}"
+        prog, cols = ExprCompiler.for_page(pg).lower(expr)
+        if prog.limbs != 5:
+            raise AssertionError(f"{name}: {prog} is not a D38 program")
+        ins = [(pg.blocks[i].data, pg.blocks[i].valid) for i in cols]
+        mask = pg.row_mask if filt else None
+        got = k1.expr_eval(prog, ins, n, row_mask=mask)
+        err = same_bits(got, k1.expr_eval_plain(prog, ins, n, row_mask=mask), name)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/expr_eval.cu", err,
+                   cuda_ms(lambda: k1.expr_eval(prog, ins, n, row_mask=mask), 20),
+                   cuda_ms(lambda: k1.expr_eval_plain(prog, ins, n, row_mask=mask), 3),
+                   nbytes(*[t for c in ins for t in c], mask) + nbytes(
+                       *(got if isinstance(got, tuple) else (got,))), None,
+                   f"expr_eval:{counter}")
+        log(f"{name}: {prog}")
+
+    # K2: Q1's wide sums and extremes by its two flags (3 x 2 codes), and
+    # K3's fold of two splits' tables, then its finalizes
+    def flag_keys(pg):
+        out = []
+        for c in ("l_returnflag", "l_linestatus"):
+            b = pg.blocks[names.index(c)]
+            out.append((b.data, b.valid, 0, len(b.dictionary.values) + 1))
+        return out
+
+    def k2_args(pg):
+        p, q = pg.blocks[names.index("l_extendedprice")], pg.blocks[names.index("l_quantity")]
+        return [(k2.SUM_D38, p.data, p.valid), (k2.MIN_D38, p.data, p.valid),
+                (k2.MAX_D38, q.data, q.valid), (k2.SUM_D38, q.data, q.valid)]
+
+    keys, args = flag_keys(page), k2_args(page)
+    slots = keys[0][3] * keys[1][3]
+    got = k2.packed_group_agg(n, page.row_mask, keys, args, slots)
+    err = same(got, k2.packed_group_agg_plain(n, page.row_mask, keys, args, slots),
+               "packed_group_agg@d38")
+    report.add("packed_group_agg@d38", "cuda", "presto_tpu_torch/csrc/packed_group_agg.cu", err,
+               cuda_ms(lambda: k2.packed_group_agg(n, page.row_mask, keys, args, slots), 10),
+               cuda_ms(lambda: k2.packed_group_agg_plain(n, page.row_mask, keys, args, slots),
+                       2),
+               nbytes(page.row_mask, *[t for k in keys for t in k[:2]],
+                      *[t for a in args for t in a[1:]])
+               + nbytes(*[t for st in got[0] for t in st], got[1]), None,
+               "packed_group_agg:d38")
+    tables = [k2.packed_group_agg(pg.capacity, pg.row_mask, flag_keys(pg), k2_args(pg), slots)
+              for pg in pages]
+    kinds = [k3.COL_D38, k3.COL_I64, k3.COL_MIN_D38, k3.COL_I64, k3.COL_MAX_D38, k3.COL_I64,
+             k3.COL_D38, k3.COL_I64]
+
+    def cols_of(states, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for st in states for t in st])]
+
+    fold = fold_row(report, "packed_fold_finalize@d38_fold", cols_of(*tables[0]),
+                    cols_of(*tables[1]), tables[0][1], tables[1][1], "packed_fold_finalize:d38")
+    f = [d for d, _ in fold[0]]
+    finalize_row(report, "packed_fold_finalize@d38_finalize",
+                 [(k3.FIN_SUM_D38, f[0], f[1]), (k3.FIN_AVG_D38, f[0], f[1]),
+                  (k3.FIN_SUM_D38, f[2], f[3]), (k3.FIN_AVG_D38, f[6], f[7])], fold[1],
+                 "packed_fold_finalize:d38")
+
+    # K6: revenue (a wide x short product), min and max by l_suppkey over
+    # two splits, then their merge; K7's top 100 by the merged revenue
+    dom = mem.column_domain("lineitem", "l_suppkey")
+
+    def supp_states(pg):
+        rev = ExprCompiler.for_page(pg).compile(
+            Call(type=wide4, fn="mul", args=(price, one_minus)))(pg)
+        p = pg.blocks[names.index("l_extendedprice")]
+        s = pg.blocks[names.index("l_suppkey")]
+        return ([(s.data, s.valid, dom[0], dom[1] - dom[0] + 2)],
+                [(k6.S_LIMBS_D38, rev[0], rev[1]), (k6.S_MIN_D38, p.data, p.valid),
+                 (k6.S_MAX_D38, p.data, p.valid), (k6.S_VALID, None, p.valid)])
+
+    skeys, states = supp_states(page)
+    groups = k6_bits_row(report, "sorted_group_agg@d38", skeys, page.row_mask, states,
+                         "sorted_group_agg:d38")
+    parts = []
+    for pg in pages:
+        kk, st = supp_states(pg)
+        parts.append(k6.sorted_group_agg(kk, pg.row_mask, st))
+    key = torch.cat([p[0][0][0] for p in parts])
+    kvalid = torch.cat([p[0][0][1] for p in parts])
+    cols = [torch.cat([p[1][i] for p in parts]) for i in range(4)]
+    live = cols[3] > 0
+    mkeys = [(key, kvalid, dom[0], dom[1] - dom[0] + 2)]
+    mstates = [(k6.S_LIMBS_D38, cols[0], live), (k6.S_MIN_D38, cols[1], live),
+               (k6.S_MAX_D38, cols[2], live), (k6.S_SUM, cols[3], torch.ones_like(live))]
+    mmask = torch.ones_like(live)
+    merged = k6_bits_row(report, "sorted_group_agg@d38_merge", mkeys, mmask, mstates,
+                         "sorted_group_agg:d38")
+    log(f"K6 wide states: {groups} suppliers of {n} rows; merged {merged} of "
+        f"{key.shape[0]} partial rows")
+    out = k6.sorted_group_agg(mkeys, mmask, mstates)
+    rev = out[1][0].contiguous()
+    keys7 = [(rev, out[1][3] > 0, False, False), (out[0][0][0], out[0][0][1], True, False)]
+    gmask = torch.ones(out[2], dtype=torch.bool, device=rev.device)
+    got = k7.topn(keys7, gmask, 100)
+    err = same(got, k7.topn_plain(keys7, gmask, 100), "topn@d38")
+    report.add("topn@d38", "cuda", "presto_tpu_torch/csrc/topn.cu", err,
+               cuda_ms(lambda: k7.topn(keys7, gmask, 100), 20),
+               cuda_ms(lambda: k7.topn_plain(keys7, gmask, 100), 2),
+               nbytes(gmask, *[t for k in keys7 for t in k[:2]], *got), None, "topn:d38")
+
+
 def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
     (a transcendental's doubles) within a relative 1e-12; ``where``
@@ -3508,7 +3799,8 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("group_topn", "merge_launches", "group_topn:merge"),
               ("kmv_lanes", "merge_launches", "kmv_lanes:merge"),
               ("group_collect", "wide_launches", "group_collect:wide"),
-              ("group_collect", "union_launches", "group_collect:union"))
+              ("group_collect", "union_launches", "group_collect:union"),
+              ("topn", "d38_launches", "topn:d38"))
 
 
 # kernels that count their launches by kind in a dict, by its attribute
@@ -3729,6 +4021,7 @@ def main() -> int:
     check_container_kernels(report, mem)
     check_type_kernels(report, mem)
     check_sketch_kernels(report, mem)
+    check_decimal38_kernels(report, mem)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3792,6 +4085,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"sketch phase done at {time.perf_counter() - t_all:.1f} s")
+    # the wide decimals over lineitem_d38 at SF10, traced; the table
+    # leaves the card after the phase
+    t0 = time.perf_counter()
+    make_lineitem_d38(mem)
+    torch.cuda.synchronize()
+    log(f"{D38_TABLE} on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{mem.row_count(D38_TABLE)} rows, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    d38_tables = {**TABLES, D38_TABLE: [c for c, _ in mem.schema(D38_TABLE)]}
+    d38_runners = {label: QueryRunner(query_catalog(mem, sql, tables=d38_tables),
+                                      device="cuda") for label, sql in D38_QUERIES.items()}
+    drive(d38_runners, D38_QUERIES, D38_REQUIRED, reps=2)
+    del d38_runners
+    mem.drop_table(D38_TABLE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"wide decimals phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -3865,6 +4175,18 @@ def main() -> int:
         check_fn_rows(label, got, ref, f" at sf={TPCH_CHECK_SF}")
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
+    # the wide decimals at TPCH_CHECK_SF: lineitem_d38 built on both sides
+    make_lineitem_d38(mem_check)
+    make_lineitem_d38(host_check)
+    for label, sql in D38_QUERIES.items():
+        t1 = time.perf_counter()
+        got = QueryRunner(query_catalog(mem_check, sql, tables=d38_tables),
+                          device="cuda").execute(sql)
+        ref = QueryRunner(query_catalog(host_check, sql, tables=d38_tables),
+                          device="cpu").execute(sql)
+        check_fn_rows(label, got, ref, f" at sf={TPCH_CHECK_SF}")
+        log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s)")
     # the host's tables leave as their checks end: the CPU runs of the
     # TPC-DS checks need the room (q47's at SF10 most)
     del host_check, mem_check, cat_check
@@ -3906,12 +4228,13 @@ def main() -> int:
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
     for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(CT_QUERIES) \
-            + list(TY_QUERIES) + list(SK_QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) \
-            + list(DS3_QUERIES):
+            + list(TY_QUERIES) + list(SK_QUERIES) + list(D38_QUERIES) + list(DS_QUERIES) \
+            + list(DS2_QUERIES) + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
             or label in DT_QUERIES or label in CT_QUERIES or label in TY_QUERIES \
-            or label in SK_QUERIES else ("store_sales", host_ds.row_count("store_sales"))
+            or label in SK_QUERIES else (D38_TABLE, lineitem_rows) if label in D38_QUERIES \
+            else ("store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows
         log(f"{label}: {len(shown)} rows: {shown[:5]}{' ...' if len(shown) > 5 else ''}")

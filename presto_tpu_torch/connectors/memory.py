@@ -86,6 +86,13 @@ class MemoryConnector:
         self.create_table(name, pruned_schema, pages, domains, pk,
                           sort_order=so, bucketing=bk)
 
+    def drop_table(self, name: str) -> None:
+        """Forget table ``name`` (its pages' device memory goes with the
+        last reference to them)."""
+        for d in (self._tables, self._schemas, self._domains, self._pks, self._sort,
+                  self._bucketing, self._dicts):
+            d.pop(name, None)
+
     # -- connector protocol -------------------------------------------------
     def table_names(self) -> List[str]:
         return list(self._tables.keys())

@@ -123,6 +123,35 @@ __device__ __forceinline__ float bits_f32(i64 bits) {
   return __double2float_rn(__longlong_as_double(bits));
 }
 
+// The wide decimal (ops/decimal128.py, decimal(37..38)): five base-10^9
+// limbs w[0..4], most significant first; limbs 1-4 in [0, 10^9), limb 0
+// signed.  Every step wraps as the twin's int64 tensors do.
+#define D38_LIMBS 5
+
+// decimal128._norm_wide: floor-division carries from limb 4 up
+__device__ __forceinline__ void w_norm(i64* w) {
+  i64 carry = 0;
+  for (int i = D38_LIMBS - 1; i > 0; --i) {
+    const i64 cur = wadd(w[i], carry);
+    carry = fdiv(cur, B9);
+    w[i] = wsub(cur, wmul(carry, B9));
+  }
+  w[0] = wadd(w[0], carry);
+}
+
+// decimal128.neg
+__device__ __forceinline__ void w_neg(i64* w) {
+  for (int i = 0; i < D38_LIMBS; ++i) w[i] = wneg(w[i]);
+  w_norm(w);
+}
+
+// -1, 0 or 1: canonical limbs order as their values do
+__device__ __forceinline__ int w_cmp(const i64* a, const i64* b) {
+  for (int i = 0; i < D38_LIMBS; ++i)
+    if (a[i] != b[i]) return a[i] < b[i] ? -1 : 1;
+  return 0;
+}
+
 // Grid size for a grid-stride loop over n items: enough blocks to
 // fill every SM several times, never more than the items need.
 static inline int grid_for(i64 n, int threads, int per_sm) {

@@ -123,6 +123,29 @@
 // (the narrowing casts' NULL, and the int16/int32 arithmetic's
 // overflow).  DIN compares a double lane with each double literal of a
 // run in the constant pool (==: NaN matches nothing, -0.0 equals 0.0).
+//
+// The wide decimals (presto_tpu/ops/decimal128.py's five-limb layout for
+// decimal(37..38), and the compiler's branches over it: _to_long_limbs
+// :802 with limbs=5, _compile_arith :3030-:3051, run_lcmp :2654, neg
+// :1007, abs/sign :2361, greatest/least :2541, cast_bigint :1096,
+// cast_decimal :1219, _coerce :3464 with _narrow_to_int64 :3493): a
+// third instantiation of the interpreter whose stack slots hold five
+// int64 limbs, picked only for a program that holds a D38 opcode, so
+// narrow and two-limb programs keep their smaller stacks.  Its slots
+// are 5 x 16 x 8 = 640 B of local memory a thread.  LOAD_D38 and
+// LIT_D38 push five limbs, LIT_LONG a two-limb literal (also in the
+// two-limb instance); S2D38 and L2D38 widen an int64 lane or two limbs;
+// D38UP shifts the magnitude up by at most 8 digits a step, dropping
+// limb 0's carry-out (past the limbs' 45 digits the value wraps), D38DOWN
+// floor-divides by at most 10^9 a step; D38ADD and D38NEG carry by
+// floor division (_norm_wide); D38MUL multiplies the magnitude by an
+// int64 split at 10^9 (mul_wide_small); D38CMP compares limb 0 first;
+// D382D is Horner's rule in _rn operations, then one division by the
+// correctly rounded 10^scale; D38NARROW collapses to an int64 lane or
+// two limbs, wrapping.  No __int128: every step is the twin's int64
+// arithmetic, so the card's limbs equal the twin's bit for bit, the
+// wrap cases included.  Bound: memory, as the other instances (a wide
+// column is 40 B a row).
 
 #include "common.cuh"
 
@@ -143,7 +166,9 @@ enum {
   OP_SFLOOR, OP_SROUND, OP_DFLOOR, OP_DROUND, OP_D2S, OP_D2L, OP_LADD,
   OP_DUN, OP_DBIN, OP_BITW, OP_GL, OP_NULLIF, OP_CASTBI, OP_HLL, OP_WBUCKET, OP_IMOD,
   OP_VLUT, OP_DVLUT, OP_TSPART, OP_DTRUNC, OP_DTADD, OP_DTDIFF, OP_CASTTS, OP_UNIXT, OP_DFMT,
-  OP_F32R, OP_CASTN, OP_DIN, OP_COUNT
+  OP_F32R, OP_CASTN, OP_DIN, OP_LOAD_D38, OP_LIT_LONG, OP_LIT_D38, OP_S2D38, OP_L2D38,
+  OP_D38UP, OP_D38DOWN, OP_D38ADD, OP_D38NEG, OP_D38MUL, OP_D38CMP, OP_D382D, OP_D38NARROW,
+  OP_D38SIGN, OP_COUNT
 };
 // DUN's functions (kernels/expr_eval.py DUN_FNS), DBIN's (DBIN_FNS),
 // BITW's operations (BITW_OPS), GL's lanes and CASTBI's sources
@@ -152,10 +177,10 @@ enum { DUN_SQRT, DUN_CBRT, DUN_EXP, DUN_LN, DUN_LOG2, DUN_LOG10, DUN_SIN, DUN_CO
        DUN_TRUNCATE, DUN_SIGN, DUN_IS_NAN, DUN_IS_FINITE, DUN_IS_INFINITE };
 enum { DBIN_POWER, DBIN_ATAN2, DBIN_MOD };
 enum { BW_AND, BW_OR, BW_XOR, BW_SHL, BW_SHR, BW_COUNT };
-enum { GL_INT, GL_DOUBLE, GL_LONG };
+enum { GL_INT, GL_DOUBLE, GL_LONG, GL_D38 };
 enum { CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_F64 = 3, KIND_D128 = 4, KIND_I16 = 5,
-       KIND_I8 = 6, KIND_F32 = 7 };
+       KIND_I8 = 6, KIND_F32 = 7, KIND_D38 = 8 };
 enum { F32R_DOUBLE, F32R_INT };
 // DT_UNITS (kernels/expr_eval.py): the first seven are fixed spans
 enum { U_MICRO, U_MILLI, U_SECOND, U_MINUTE, U_HOUR, U_DAY, U_WEEK, U_MONTH, U_QUARTER,
@@ -401,6 +426,102 @@ __device__ __forceinline__ double pow10d(int k) {
 __device__ __forceinline__ i64 d2bits(double x) { return __double_as_longlong(x); }
 __device__ __forceinline__ double bits2d(i64 x) { return __longlong_as_double(x); }
 
+// decimal128.from_int64(x, limbs=5)
+__device__ __forceinline__ void w_from_i64(i64 x, i64* w) {
+  w[0] = w[1] = w[2] = w[3] = 0;
+  w[4] = x;
+  w_norm(w);
+}
+
+// decimal128.widen: two base-10^18 limbs to five base-10^9 ones
+__device__ __forceinline__ void w_widen(i64 hi, i64 lo, i64* w) {
+  w[0] = 0;
+  w[1] = fdiv(hi, B9);
+  w[2] = fmod_(hi, B9);
+  w[3] = fdiv(lo, B9);
+  w[4] = fmod_(lo, B9);
+  w_norm(w);
+}
+
+// decimal128._shift_digits_wide: times 10^k (1 <= k <= 8) on the
+// magnitude, each limb's part above 10^(9-k) carried one limb up; limb
+// 0's carry-out drops (the magnitude wraps modulo 10^45)
+__device__ __forceinline__ void w_shift(i64* w, int k) {
+  const bool neg = w[0] < 0;
+  if (neg) w_neg(w);
+  i64 m = 1, mul = 1;
+  for (int j = 0; j < 9 - k; ++j) m *= 10;
+  for (int j = 0; j < k; ++j) mul *= 10;
+  i64 high[D38_LIMBS];
+  for (int i = 0; i < D38_LIMBS; ++i) {
+    high[i] = fdiv(w[i], m);
+    w[i] = wmul(wsub(w[i], wmul(high[i], m)), mul);
+  }
+  for (int i = 0; i < D38_LIMBS - 1; ++i) w[i] = wadd(w[i], high[i + 1]);
+  w_norm(w);
+  if (neg) w_neg(w);
+}
+
+// decimal128._downscale_wide: floor division by 10^k (1 <= k <= 9), a
+// remainder chain from limb 0 (r < 10^k, so r * 10^9 + limb < 10^18)
+__device__ __forceinline__ void w_down(i64* w, int k) {
+  i64 d = 1;
+  for (int j = 0; j < k; ++j) d *= 10;
+  i64 r = 0;
+  for (int i = 0; i < D38_LIMBS; ++i) {
+    const i64 cur = wadd(wmul(r, B9), w[i]);
+    const i64 q = fdiv(cur, d);
+    r = wsub(cur, wmul(q, d));
+    w[i] = q;
+  }
+  w_norm(w);
+}
+
+// decimal128.mul_wide_small: w times an int64 (|k| < 10^18) on
+// magnitudes, k split at 10^9 so every limb product stays below 10^18;
+// the high half's product moves up one limb, its limb 0 dropping
+__device__ __forceinline__ void w_mul_small(i64* w, i64 k) {
+  const bool neg_a = w[0] < 0, neg_k = k < 0;
+  if (neg_a) w_neg(w);
+  const i64 k_abs = neg_k ? wneg(k) : k;
+  const i64 k1 = fdiv(k_abs, B9);
+  const i64 k0 = wsub(k_abs, wmul(k1, B9));
+  i64 lo[D38_LIMBS], hi[D38_LIMBS];
+  for (int i = 0; i < D38_LIMBS; ++i) {
+    lo[i] = wmul(w[i], k0);
+    hi[i] = wmul(w[i], k1);
+  }
+  w_norm(lo);
+  w_norm(hi);
+  for (int i = 0; i < D38_LIMBS; ++i) w[i] = wadd(i + 1 < D38_LIMBS ? hi[i + 1] : 0, lo[i]);
+  w_norm(w);
+  if (neg_a != neg_k) w_neg(w);
+}
+
+// 10^k as the correctly rounded double (k <= 38), as the twin's 10.0 ** k
+__device__ __forceinline__ double pow10_rn(int k) {
+  const double p[39] = {1e0, 1e1, 1e2, 1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9, 1e10, 1e11, 1e12,
+                        1e13, 1e14, 1e15, 1e16, 1e17, 1e18, 1e19, 1e20, 1e21, 1e22, 1e23,
+                        1e24, 1e25, 1e26, 1e27, 1e28, 1e29, 1e30, 1e31, 1e32, 1e33, 1e34,
+                        1e35, 1e36, 1e37, 1e38};
+  return p[k < 0 ? 0 : k > 38 ? 38 : k];
+}
+
+// decimal128.to_double: Horner's rule from limb 0, then one division
+__device__ __forceinline__ double w_to_double(const i64* w, int scale) {
+  double acc = __ll2double_rn(w[0]);
+  for (int i = 1; i < D38_LIMBS; ++i)
+    acc = __dadd_rn(__dmul_rn(acc, 1e9), __ll2double_rn(w[i]));
+  return __ddiv_rn(acc, pow10_rn(scale));
+}
+
+// decimal128.to_int64 (the reference's _narrow_to_int64, wrapping)
+__device__ __forceinline__ i64 w_to_i64(const i64* w) {
+  i64 acc = w[0];
+  for (int i = 1; i < D38_LIMBS; ++i) acc = wadd(wmul(acc, B9), w[i]);
+  return acc;
+}
+
 __device__ __forceinline__ void logic3(bool is_and, i64 ad, bool av, i64 bd, bool bv,
                                        i64* d, bool* v) {
   bool a = ad != 0, b = bd != 0;
@@ -415,15 +536,27 @@ __device__ __forceinline__ void logic3(bool is_and, i64 ad, bool av, i64 bd, boo
   }
 }
 
-// WIDE adds the second limb (sl) of a long-decimal lane; a double
-// lane keeps its bits in sd.
-template <bool WIDE>
-__device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d, i64* out_l,
-                                            bool* out_v) {
-  i64 sd[K1_MAX_STACK];
-  i64 sl[WIDE ? K1_MAX_STACK : 1];
+// A stack slot holds LIMBS int64 lanes: the narrow instance (1) an
+// int64 lane; the wide one (2) adds the second limb (sl) of a
+// long-decimal lane, a double keeping its bits in sd; the D38 one (5)
+// holds a wide decimal's five limbs (st[0..4]), and runs every opcode of
+// the other two as well.
+template <int LIMBS>
+__device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out, bool* out_v) {
+  constexpr bool WIDE = LIMBS > 1;
+  constexpr bool D38 = LIMBS == D38_LIMBS;
+  i64 st[LIMBS][K1_MAX_STACK];
+  i64 (&sd)[K1_MAX_STACK] = st[0];
+  i64 (&sl)[K1_MAX_STACK] = st[WIDE ? 1 : 0];  // read only in the wide instances
   bool sv[K1_MAX_STACK];
   int sp = 0;
+  // a wide decimal's limbs at slot s, and back
+  auto get = [&](int s, i64* w) {
+    for (int j = 0; j < LIMBS && j < D38_LIMBS; ++j) w[j] = st[j][s];
+  };
+  auto put = [&](int s, const i64* w) {
+    for (int j = 0; j < LIMBS && j < D38_LIMBS; ++j) st[j][s] = w[j];
+  };
   for (int pc = 0; pc < p.n_ins; ++pc) {
     const int op = p.op[pc];
     const int arg = p.arg[pc];
@@ -442,7 +575,11 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
         break;
       }
       case OP_LIT: sd[sp] = p.consts[arg]; sv[sp] = true; ++sp; break;
-      case OP_NULL: sd[sp] = 0; sv[sp] = false; ++sp; break;
+      case OP_NULL:  // every limb zeroed, as the twin's
+        for (int j = 0; j < LIMBS; ++j) st[j][sp] = 0;
+        sv[sp] = false;
+        ++sp;
+        break;
       case OP_SCALE_CHK: {
         const i64 f = p.consts[arg];
         const i64 lim = I64_MAX / f;
@@ -648,9 +785,8 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
       case OP_SEL: {  // cond then else -> cond ? then : else
         const bool take = sd[sp - 3] != 0 && sv[sp - 3];
         const int src = take ? sp - 2 : sp - 1;
-        sd[sp - 3] = sd[src];
+        for (int j = 0; j < LIMBS; ++j) st[j][sp - 3] = st[j][src];
         sv[sp - 3] = sv[src];
-        if constexpr (WIDE) sl[sp - 3] = sl[src];
         sp -= 2;
         break;
       }
@@ -705,6 +841,87 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
       case OP_DABS:
         if constexpr (WIDE) sd[sp - 1] = d2bits(fabs(bits2d(sd[sp - 1])));
         break;
+      case OP_LIT_LONG:  // a long literal: two constants from arg
+        if constexpr (WIDE) {
+          sd[sp] = p.consts[arg];
+          sl[sp] = p.consts[arg + 1];
+          sv[sp] = true;
+          ++sp;
+        }
+        break;
+      case OP_LOAD_D38:  // a wide column's five limbs
+      case OP_LIT_D38:   // a wide literal: five constants from arg
+        if constexpr (D38) {
+          const i64* src = op == OP_LIT_D38 ? p.consts + arg
+                                            : (const i64*)p.col_data[arg] + D38_LIMBS * row;
+          put(sp, src);
+          sv[sp] = op == OP_LIT_D38 || p.col_valid[arg][row] != 0;
+          ++sp;
+        }
+        break;
+      case OP_S2D38:      // an int64 lane to five limbs (from_int64)
+      case OP_L2D38:      // two limbs to five (widen)
+      case OP_D38UP:      // arg digits up, steps of <= 8, the top carry dropped
+      case OP_D38DOWN:    // arg digits down by floor division, steps of <= 9
+      case OP_D38NEG:
+      case OP_D382D:      // to double at scale arg
+      case OP_D38NARROW:  // arg 0: to an int64 lane (wrapping), 1: to two limbs
+      case OP_D38SIGN:    // arg 0: abs, 1: sign as an int64 lane
+        if constexpr (D38) {
+          i64 w[D38_LIMBS];
+          if (op == OP_S2D38) w_from_i64(sd[sp - 1], w);
+          else if (op == OP_L2D38) w_widen(sd[sp - 1], sl[sp - 1], w);
+          else get(sp - 1, w);
+          if (op == OP_D38UP) {
+            for (int k = arg; k > 0; k -= 8) w_shift(w, k < 8 ? k : 8);
+          } else if (op == OP_D38DOWN) {
+            for (int k = arg; k > 0; k -= 9) w_down(w, k < 9 ? k : 9);
+          } else if (op == OP_D38NEG || (op == OP_D38SIGN && arg == 0 && w[0] < 0)) {
+            w_neg(w);
+          }
+          if (op == OP_D382D) {
+            sd[sp - 1] = d2bits(w_to_double(w, arg));
+          } else if (op == OP_D38NARROW && arg == 0) {
+            sd[sp - 1] = w_to_i64(w);
+          } else if (op == OP_D38NARROW) {  // hi = l0 * 10^18 + l1 * 10^9 + l2
+            sd[sp - 1] = wadd(wmul(wadd(wmul(w[0], B9), w[1]), B9), w[2]);
+            sl[sp - 1] = wadd(wmul(w[3], B9), w[4]);
+          } else if (op == OP_D38SIGN && arg == 1) {
+            sd[sp - 1] = w[0] < 0 ? -1
+                : (w[0] | w[1] | w[2] | w[3] | w[4]) != 0 ? 1 : 0;
+          } else {
+            put(sp - 1, w);
+          }
+        }
+        break;
+      case OP_D38ADD:  // arg 0: a + b, 1: a - b (_norm_wide's carries)
+      case OP_D38MUL:  // arg 0: a wide, b an int64 lane; 1: the reverse
+      case OP_D38CMP:  // arg: 0 eq, 1 ne, 2 lt, 3 le, 4 gt, 5 ge
+        if constexpr (D38) {
+          i64 wa[D38_LIMBS], wb[D38_LIMBS];
+          const bool v = sv[sp - 2] && sv[sp - 1];
+          if (op == OP_D38MUL) {
+            get(arg == 0 ? sp - 2 : sp - 1, wa);
+            w_mul_small(wa, sd[arg == 0 ? sp - 1 : sp - 2]);
+            put(sp - 2, wa);
+          } else {
+            get(sp - 2, wa);
+            get(sp - 1, wb);
+            if (op == OP_D38CMP) {
+              const int c = w_cmp(wa, wb);
+              const bool r[6] = {c == 0, c != 0, c < 0, c <= 0, c > 0, c >= 0};
+              sd[sp - 2] = r[arg];
+            } else {
+              for (int j = 0; j < D38_LIMBS; ++j)
+                wa[j] = arg ? wsub(wa[j], wb[j]) : wadd(wa[j], wb[j]);
+              w_norm(wa);
+              put(sp - 2, wa);
+            }
+          }
+          sv[sp - 2] = v;
+          --sp;
+        }
+        break;
       case OP_LOAD_LONG:
       case OP_L2D:
         if constexpr (WIDE) {
@@ -739,7 +956,7 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
             const bool take = !av && bv;
             d = take ? b : a;
             v = av || bv;
-            if constexpr (WIDE) sl[sp - 1] = take ? sl[sp] : sl[sp - 1];
+            for (int j = 1; j < LIMBS; ++j) st[j][sp - 1] = take ? st[j][sp] : st[j][sp - 1];
             break;
           }
           case OP_LADD:  // arg 0: a + b, 1: a - b, two long decimals
@@ -839,12 +1056,23 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
                 const i64 ka = double_order_key(a), kb = double_order_key(b);
                 d = isnan(x) || isnan(y) ? CANONICAL_NAN
                     : (gt ? ka >= kb : ka <= kb) ? a : b;
-              } else {  // GL_LONG: limb by limb, high limb first
+              } else if (lane == GL_LONG) {  // limb by limb, high limb first
                 const i64 al = sl[sp - 1], bl = sl[sp];
                 const bool a_less = a < b || (a == b && al < bl);
                 const bool take_a = a_less != gt;
                 d = take_a ? a : b;
                 sl[sp - 1] = take_a ? al : bl;
+              } else {  // GL_D38: five limbs, limb 0 first
+                d = a;
+                if constexpr (D38) {
+                  i64 wa[D38_LIMBS], wb[D38_LIMBS];
+                  get(sp - 1, wa);
+                  get(sp, wb);
+                  if ((w_cmp(wa, wb) < 0) == gt) {  // take b
+                    put(sp - 1, wb);
+                    d = wb[0];
+                  }
+                }
               }
             } else {
               d = 0;
@@ -884,12 +1112,11 @@ __device__ __forceinline__ void run_program(const K1Prog& p, i64 row, i64* out_d
       }
     }
   }
-  *out_d = sd[0];
-  if constexpr (WIDE) *out_l = sl[0];
+  for (int j = 0; j < LIMBS; ++j) out[j] = st[j][0];
   *out_v = sv[0];
 }
 
-template <bool WIDE>
+template <int LIMBS>
 __global__ void k1_kernel(const K1Prog p, i64 n, const uint8_t* __restrict__ row_mask,
                           void* __restrict__ out_data, int out_kind,
                           uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_mask) {
@@ -899,16 +1126,17 @@ __global__ void k1_kernel(const K1Prog p, i64 n, const uint8_t* __restrict__ row
       out_mask[i] = 0;  // a dead row stays dead: no need to evaluate
       continue;
     }
-    i64 d, l = 0;
+    i64 w[LIMBS];
     bool v;
-    run_program<WIDE>(p, i, &d, &l, &v);
+    run_program<LIMBS>(p, i, w, &v);
+    const i64 d = w[0];
     if (out_mask != nullptr) {
       out_mask[i] = (d != 0) && v;
       continue;
     }
-    if (out_kind == KIND_D128) {  // a long decimal's two limbs
-      ((i64*)out_data)[2 * i] = d;
-      ((i64*)out_data)[2 * i + 1] = l;
+    if (out_kind == KIND_D128 || out_kind == KIND_D38) {  // a long or wide decimal's limbs
+      const int k = out_kind == KIND_D128 ? 2 : D38_LIMBS;
+      for (int j = 0; j < k && j < LIMBS; ++j) ((i64*)out_data)[k * i + j] = w[j];
     } else if (out_kind == KIND_I64 || out_kind == KIND_F64) ((i64*)out_data)[i] = d;
     else if (out_kind == KIND_I32) ((int*)out_data)[i] = (int)d;
     else if (out_kind == KIND_I16) ((short*)out_data)[i] = (short)d;
@@ -926,11 +1154,12 @@ extern "C" int k1_expr_eval(const int* ops, const int* args, int n_ins,
                             const i64* consts, int n_consts,
                             const i64* col_data, const i64* col_valid, const int* col_kind,
                             int n_cols, const i64* luts, const i64* lut_len, int n_luts,
-                            int wide, i64 n, const void* row_mask,
+                            int limbs, i64 n, const void* row_mask,
                             void* out_data, int out_kind, void* out_valid, void* out_mask,
                             void* stream) {
   if (n_ins > K1_MAX_INS || n_consts > K1_MAX_CONSTS || n_cols > K1_MAX_COLS ||
-      n_luts > K1_MAX_LUTS)
+      n_luts > K1_MAX_LUTS || (limbs != 1 && limbs != 2 && limbs != D38_LIMBS) ||
+      (out_kind == KIND_D38 && limbs != D38_LIMBS) || (out_kind == KIND_D128 && limbs < 2))
     return (int)cudaErrorInvalidValue;
   K1Prog p;
   p.n_ins = n_ins;
@@ -952,12 +1181,16 @@ extern "C" int k1_expr_eval(const int* ops, const int* args, int n_ins,
   if (n > 0) {
     const int threads = 256;
     const int grid = grid_for(n, threads, 8);
-    if (wide)
-      k1_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+    if (limbs == D38_LIMBS)
+      k1_kernel<D38_LIMBS><<<grid, threads, 0, (cudaStream_t)stream>>>(
+          p, n, (const uint8_t*)row_mask, out_data, out_kind, (uint8_t*)out_valid,
+          (uint8_t*)out_mask);
+    else if (limbs == 2)
+      k1_kernel<2><<<grid, threads, 0, (cudaStream_t)stream>>>(
           p, n, (const uint8_t*)row_mask, out_data, out_kind, (uint8_t*)out_valid,
           (uint8_t*)out_mask);
     else
-      k1_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+      k1_kernel<1><<<grid, threads, 0, (cudaStream_t)stream>>>(
           p, n, (const uint8_t*)row_mask, out_data, out_kind, (uint8_t*)out_valid,
           (uint8_t*)out_mask);
   }

@@ -57,6 +57,14 @@
 // reference's order, maxima that keep NaN as jnp.maximum does; their
 // inputs come stacked, (G, 3) and (G, 5).
 //
+// The wide decimals (combine_packed_states' d128.add over five limbs;
+// _finalize :1397 with _avg_decimal128 :1580's wide branch): a wide sum
+// folds by limb sums and _norm_wide, a wide min/max by comparing limb 0
+// first; a wide sum or min/max finalizes as it is, NULL where its count
+// is 0, and a wide avg by long division of the magnitude over the
+// base-10^9 limbs, HALF_UP, in int64 steps (the reference's algorithm,
+// no __int128: a 38-digit sum does not fit the two-limb avg's path).
+//
 // The narrow types: a SMALLINT or TINYINT min/max folds as an int64
 // min/max read and stored back in its storage, a REAL one by the double
 // order key of its exact double, stored back as float32 (elem: the
@@ -74,8 +82,8 @@ enum { COL_I64 = 0, COL_D128 = 1, COL_MIN_I64 = 2, COL_MAX_I64 = 3, COL_MIN_I32 
        COL_MAX_I32 = 5, COL_MIN_D128 = 6, COL_MAX_D128 = 7, COL_F64 = 8, COL_VAR_M2 = 9,
        COL_MIN_F64 = 10, COL_MAX_F64 = 11, COL_MIN_BOOL = 12, COL_MAX_BOOL = 13,
        COL_BAND = 14, COL_BOR = 15, COL_MOM_M2 = 16, COL_MOM_M3 = 17, COL_MOM_M4 = 18,
-       COL_BY_X = 19, COL_BY_XV = 20, COL_BY_Y_MIN = 21, COL_BY_Y_MAX = 22,
-       COL_LAST = COL_BY_Y_MAX };
+       COL_BY_X = 19, COL_BY_XV = 20, COL_BY_Y_MIN = 21, COL_BY_Y_MAX = 22, COL_D38 = 23,
+       COL_MIN_D38 = 24, COL_MAX_D38 = 25, COL_LAST = COL_MAX_D38 };
 // a column's storage (kernels/packed_fold_finalize.py _ELEM)
 enum { ELEM_I64 = 0, ELEM_I32 = 1, ELEM_F64 = 2, ELEM_BOOL = 3, ELEM_I16 = 4, ELEM_I8 = 5,
        ELEM_F32 = 6 };
@@ -87,7 +95,8 @@ enum { FIN_COUNT = 0, FIN_SUM = 1, FIN_SUM_D128 = 2, FIN_AVG_SHORT = 3,
        FIN_STDDEV_POP = 16, FIN_STDDEV_SAMP = 17, FIN_VALUE_BOOL = 18, FIN_BOOL_AND = 19,
        FIN_BOOL_OR = 20, FIN_HLL = 21, FIN_SKEWNESS = 22, FIN_KURTOSIS = 23,
        FIN_COVAR_POP = 24, FIN_COVAR_SAMP = 25, FIN_CORR = 26, FIN_REGR_SLOPE = 27,
-       FIN_REGR_INTERCEPT = 28, FIN_VALUE = 29, FIN_LAST = FIN_VALUE };
+       FIN_REGR_INTERCEPT = 28, FIN_VALUE = 29, FIN_SUM_D38 = 30, FIN_AVG_D38 = 31,
+       FIN_LAST = FIN_AVG_D38 };
 
 // a min/max state's value in its storage: an int64 lane (int64, int16,
 // int8) or a double's bits (a REAL's widened exactly), and back
@@ -254,6 +263,19 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
         const i64* w = (kind == COL_MIN_D128) == a_less ? a : b;
         d.out0[c][2 * g] = w[0];
         d.out0[c][2 * g + 1] = w[1];
+      } else if (kind == COL_D38 || kind == COL_MIN_D38 || kind == COL_MAX_D38) {
+        i64 a[D38_LIMBS], b[D38_LIMBS];
+        for (int j = 0; j < D38_LIMBS; ++j) {
+          a[j] = d.in0[c][D38_LIMBS * g + j];
+          b[j] = d.in1[c][D38_LIMBS * g + j];
+        }
+        if (kind == COL_D38) {  // decimal128.add: limb sums, then _norm_wide
+          for (int j = 0; j < D38_LIMBS; ++j) a[j] = wadd(a[j], b[j]);
+          w_norm(a);
+        } else if ((w_cmp(a, b) < 0) != (kind == COL_MIN_D38)) {  // b wins
+          for (int j = 0; j < D38_LIMBS; ++j) a[j] = b[j];
+        }
+        for (int j = 0; j < D38_LIMBS; ++j) d.out0[c][D38_LIMBS * g + j] = a[j];
       } else if (kind == COL_MIN_I32 || kind == COL_MAX_I32) {
         const int a = ((const int*)d.in0[c])[g], b = ((const int*)d.in1[c])[g];
         ((int*)d.out0[c])[g] = kind == COL_MIN_I32 ? min(a, b) : max(a, b);
@@ -420,6 +442,27 @@ __global__ void k3_kernel(const K3Desc d, int mode, i64 n_groups,
         break;
       }
       case FIN_AVG_D128: split128(avg128(d.in0[c] + 2 * g, n), d.out0[c] + 2 * g); break;
+      case FIN_SUM_D38:  // also a wide min/max
+        for (int j = 0; j < D38_LIMBS; ++j)
+          d.out0[c][D38_LIMBS * g + j] = d.in0[c][D38_LIMBS * g + j];
+        break;
+      case FIN_AVG_D38: {  // _avg_decimal128's wide branch: long division over the limbs
+        i64 a[D38_LIMBS], q[D38_LIMBS];
+        for (int j = 0; j < D38_LIMBS; ++j) a[j] = d.in0[c][D38_LIMBS * g + j];
+        const bool neg = a[0] < 0;
+        if (neg) w_neg(a);
+        i64 r = 0;
+        for (int j = 0; j < D38_LIMBS; ++j) {
+          const i64 cur = wadd(wmul(r, B9), a[j]);
+          q[j] = fdiv(cur, n);
+          r = wsub(cur, wmul(q[j], n));
+        }
+        q[D38_LIMBS - 1] = wadd(q[D38_LIMBS - 1], wmul(2, r) >= n ? 1 : 0);  // HALF_UP
+        w_norm(q);
+        if (neg) w_neg(q);
+        for (int j = 0; j < D38_LIMBS; ++j) d.out0[c][D38_LIMBS * g + j] = q[j];
+        break;
+      }
       case FIN_AVG_DOUBLE:  // float64(sum) / float64(max(count, 1)), a true division
         ((double*)d.out0[c])[g] = __ddiv_rn(__ll2double_rn(d.in0[c][g]), __ll2double_rn(n));
         break;

@@ -66,6 +66,15 @@
 // order.  An aggregate's FILTER reaches the kernel as its argument's
 // validity lane, which K1 computes.
 //
+// The wide decimals (_partial_states :434 over decimal(37..38), with
+// decimal128.to_sum_limbs' identity and from_sum_limbs' _norm_wide;
+// _minmax_long :1644 over five limbs): a wide sum adds the argument's
+// five base-10^9 limbs as they are (each below 10^9 in size, so 2^23
+// rows stay far inside int64) and normalises them at the end; a wide
+// min/max reduces limb 0 in the first launch and limb p in launch p over
+// the rows whose limbs before it tie the group's, five launches in all
+// (the reference's phased walk fixes the answer, not the launches).
+//
 // The narrow types: a SMALLINT or TINYINT argument or key reads
 // sign-extended, and its min/max stores back narrowed (an empty state:
 // its own type's identity); a REAL argument widens exactly to a double,
@@ -90,7 +99,7 @@
 
 #define K2_MAX_KEYS 16
 #define K2_MAX_AGGS 32
-#define K2_MAX_SLOTS (1 + 5 * K2_MAX_AGGS)
+#define K2_MAX_SLOTS (1 + 6 * K2_MAX_AGGS)
 #define K2_SHARED_LIMIT (48 * 1024)
 #define K2_DSUM_CHUNK 256
 #define K2_DOUBLE_SLOT_LIMIT 1
@@ -102,9 +111,10 @@ enum { AGG_COUNT_STAR = 0, AGG_COUNT = 1, AGG_SUM_SHORT = 2, AGG_SUM_LONG = 3,
        AGG_SUM_LONG_ARG = 8, AGG_SUM_DOUBLE = 9, AGG_VARIANCE = 10, AGG_MIN_DOUBLE = 11,
        AGG_MAX_DOUBLE = 12, AGG_BOOL_COUNT = 13, AGG_BIT_AND = 14, AGG_BIT_OR = 15,
        AGG_HLL_SUM = 16, AGG_CHECKSUM = 17, AGG_MOMENTS = 18, AGG_BY_Y_MIN = 19,
-       AGG_BY_Y_MAX = 20, AGG_BY_X = 21, AGG_LAST = AGG_BY_X };
+       AGG_BY_Y_MAX = 20, AGG_BY_X = 21, AGG_SUM_D38 = 22, AGG_MIN_D38 = 23, AGG_MAX_D38 = 24,
+       AGG_LAST = AGG_MAX_D38 };
 enum { KIND_BOOL = 0, KIND_I32 = 1, KIND_I64 = 2, KIND_D128 = 3, KIND_F64 = 4, KIND_I16 = 5,
-       KIND_I8 = 6, KIND_F32 = 7 };
+       KIND_I8 = 6, KIND_F32 = 7, KIND_D38 = 8 };
 
 // the states that add doubles in the fixed order (their slot counts)
 __host__ __device__ __forceinline__ bool is_double_agg(int kind) {
@@ -118,6 +128,7 @@ __host__ __device__ __forceinline__ bool is_by_y(int kind) {
 
 __host__ __device__ __forceinline__ int agg_width(int kind) {
   switch (kind) {
+    case AGG_SUM_D38: case AGG_MIN_D38: case AGG_MAX_D38: return 6;
     case AGG_SUM_LONG: case AGG_SUM_LONG_ARG: return 5;
     case AGG_MIN_LONG: case AGG_MAX_LONG: return 3;
     case AGG_SUM_SHORT: case AGG_MIN_SHORT: case AGG_MAX_SHORT: case AGG_MIN_DOUBLE:
@@ -129,6 +140,10 @@ __host__ __device__ __forceinline__ int agg_width(int kind) {
 
 __host__ __device__ __forceinline__ bool is_long_extreme(int kind) {
   return kind == AGG_MIN_LONG || kind == AGG_MAX_LONG;
+}
+
+__host__ __device__ __forceinline__ bool is_d38_extreme(int kind) {
+  return kind == AGG_MIN_D38 || kind == AGG_MAX_D38;
 }
 
 struct K2Desc {
@@ -203,17 +218,28 @@ __device__ __forceinline__ i64 row_key(const K2Desc& d, i64 i) {
   return key;
 }
 
-// phase 0: every state but the low limb of a long min/max; phase 1
-// (tab is the device table): that low limb, over the rows whose high
-// limb equals the group's reduced one
+// phase 0: every state but the lower limbs of a long or wide min/max;
+// phase p >= 1 (tab is the device table): limb p, over the rows whose
+// limbs before it equal the group's reduced ones (a long min/max and
+// min_by / max_by's x take phase 1 only)
 __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_groups,
                                                u64* tab, int phase) {
   const i64 key = row_key(d, i);
   if (key < 0 || key >= n_groups) return;  // out-of-domain ids are dropped
   u64* base = tab + key * d.raw_width;
-  if (phase == 1) {
+  if (phase > 0) {
     for (int a = 0; a < d.n_aggs; ++a) {
       const int kind = d.agg_kind[a];
+      if (is_d38_extreme(kind)) {
+        if (!d.arg_valid[a][i]) continue;
+        const i64* x = (const i64*)d.arg_data[a] + D38_LIMBS * i;
+        u64* s = base + d.agg_slot[a];
+        bool tie = true;
+        for (int j = 0; j < phase; ++j) tie = tie && x[j] == (i64)s[j];
+        if (tie) slot_combine(s + phase, x[phase], kind == AGG_MIN_D38 ? SLOT_MIN : SLOT_MAX);
+        continue;
+      }
+      if (phase != 1) continue;
       if (kind == AGG_BY_X) {  // x over the rows tied at the y extreme (entry a + 1)
         const int y = a + 1;
         const bool y_min = d.agg_kind[y] == AGG_BY_Y_MIN;
@@ -249,6 +275,18 @@ __device__ __forceinline__ void accumulate_row(const K2Desc& d, i64 i, i64 n_gro
       continue;
     }
     if (kind == AGG_COUNT || is_double_agg(kind)) { atomicAdd(s, 1ull); continue; }
+    if (is_d38_extreme(kind)) {  // limb 0; the later phases take the others
+      slot_combine(s, ((const i64*)d.arg_data[a])[D38_LIMBS * i],
+                   kind == AGG_MIN_D38 ? SLOT_MIN : SLOT_MAX);
+      atomicAdd(s + D38_LIMBS, 1ull);
+      continue;
+    }
+    if (kind == AGG_SUM_D38) {  // a wide argument's limbs add as they are
+      const i64* x = (const i64*)d.arg_data[a] + D38_LIMBS * i;
+      for (int j = 0; j < D38_LIMBS; ++j) add_slot(s + j, x[j]);
+      atomicAdd(s + D38_LIMBS, 1ull);
+      continue;
+    }
     if (is_long_extreme(kind)) {  // the high limb; phase 1 takes the low one
       slot_combine(s, ((const i64*)d.arg_data[a])[2 * i],
                    kind == AGG_MIN_LONG ? SLOT_MIN : SLOT_MAX);
@@ -378,6 +416,14 @@ __global__ void k2_finish(const K2Desc d, i64 n_groups, const i64* __restrict__ 
         d.out[0][a][2 * g + 1] = s[1];
         d.out[1][a][g] = s[2];
         break;
+      case AGG_SUM_D38: case AGG_MIN_D38: case AGG_MAX_D38: {
+        i64 w[D38_LIMBS];
+        for (int j = 0; j < D38_LIMBS; ++j) w[j] = s[j];
+        if (d.agg_kind[a] == AGG_SUM_D38) w_norm(w);  // from_sum_limbs: _norm_wide
+        for (int j = 0; j < D38_LIMBS; ++j) d.out[0][a][D38_LIMBS * g + j] = w[j];
+        d.out[1][a][g] = s[D38_LIMBS];
+        break;
+      }
       default: {  // AGG_SUM_LONG(_ARG): from_sum_limbs, then normalize
         i64 h1 = s[0], h0 = s[1], l1 = s[2], l0 = s[3];
         i64 c = fdiv(l0, B9);
@@ -521,7 +567,7 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   }
   d.n_aggs = n_aggs;
   int slot = 1;
-  bool phased = false;
+  int phases = 1;  // accumulate launches: 2 for a long min/max or min_by, 5 for a wide min/max
   d.slot_kind[0] = SLOT_ADD;
   for (int a = 0; a < n_aggs; ++a) {
     const int kind = agg_kind[a];
@@ -540,11 +586,15 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
     if (kind == AGG_MAX_SHORT || kind == AGG_MAX_LONG || kind == AGG_MAX_DOUBLE ||
         kind == AGG_BY_Y_MAX || kind == AGG_BY_X)
       d.slot_kind[slot] = SLOT_MAX;
+    if (is_d38_extreme(kind))
+      for (int j = 0; j < D38_LIMBS; ++j)
+        d.slot_kind[slot + j] = kind == AGG_MIN_D38 ? SLOT_MIN : SLOT_MAX;
     if (kind == AGG_BY_Y_MIN) d.slot_kind[slot] = SLOT_MIN;
     if (kind == AGG_BIT_AND) d.slot_kind[slot] = SLOT_AND;
     if (kind == AGG_BIT_OR) d.slot_kind[slot] = SLOT_OR;
     if (is_long_extreme(kind)) d.slot_kind[slot + 1] = d.slot_kind[slot];
-    phased = phased || is_long_extreme(kind) || kind == AGG_BY_X;
+    if ((is_long_extreme(kind) || kind == AGG_BY_X) && phases < 2) phases = 2;
+    if (is_d38_extreme(kind)) phases = D38_LIMBS;
     slot += agg_width(kind);
     d.arg_data[a] = (const void*)arg_data[a];
     d.arg_valid[a] = (const uint8_t*)arg_valid[a];
@@ -566,9 +616,9 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   if (n > 0) {
     k2_accumulate<<<grid_for(n, threads, 4), threads, use_shared ? (size_t)smem : 0, s>>>(
         d, n, (const uint8_t*)row_mask, n_groups, (u64*)raw, use_shared, 0);
-    if (phased)
+    for (int phase = 1; phase < phases; ++phase)
       k2_accumulate<<<grid_for(n, threads, 4), threads, 0, s>>>(
-          d, n, (const uint8_t*)row_mask, n_groups, (u64*)raw, 0, 1);
+          d, n, (const uint8_t*)row_mask, n_groups, (u64*)raw, 0, phase);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }

@@ -85,6 +85,13 @@
 // with a valid x (S_BY_XV, stored as the 0/1 flag).  checksum is an
 // S_SUM of K1's hashes (wadd wraps).
 //
+// The wide decimals (the sort path of _partial_states and
+// _merge_states over decimal(37..38)): S_LIMBS_D38 adds a wide value's
+// five limbs as they are (normalised at the end, _norm_wide), S_MIN_D38
+// and S_MAX_D38 reduce limb 0 in the first accumulate launch and limb p
+// in launch p over the rows tying the group's limbs before it (five
+// launches; _minmax_long's answer).
+//
 // The narrow types: a SMALLINT or TINYINT state datum reads
 // sign-extended (pk_load) and its min/max stores back narrowed, an
 // empty state with its own type's identity; a REAL datum widens exactly
@@ -104,7 +111,8 @@
 enum { S_ONE = 0, S_VALID = 1, S_SUM = 2, S_LIMBS_SHORT = 3, S_LIMBS_LONG = 4, S_MIN = 5,
        S_MAX = 6, S_MIN_LONG = 7, S_MAX_LONG = 8, S_DSUM = 9, S_VAR = 10, S_VAR_MERGE = 11,
        S_MIN_F64 = 12, S_MAX_F64 = 13, S_BAND = 14, S_BOR = 15, S_HLL = 16, S_MOM = 17,
-       S_MOM_MERGE = 18, S_BY_Y_MIN = 19, S_BY_Y_MAX = 20, S_BY_X = 21, S_BY_XV = 22 };
+       S_MOM_MERGE = 18, S_BY_Y_MIN = 19, S_BY_Y_MAX = 20, S_BY_X = 21, S_BY_XV = 22,
+       S_LIMBS_D38 = 23, S_MIN_D38 = 24, S_MAX_D38 = 25 };
 // how k6_finish stores a state (kernels/sorted_group_agg.py _OUT_KINDS)
 enum { OUT_I64 = 0, OUT_I32 = 1, OUT_BOOL = 2, OUT_F64 = 3, OUT_I16 = 4, OUT_I8 = 5,
        OUT_F32 = 6 };
@@ -120,7 +128,7 @@ __device__ __forceinline__ i64 data_bits(const void* p, int kind, i64 row) {
 
 __host__ __device__ __forceinline__ bool is_int_state(int kind) {
   return (kind >= S_ONE && kind <= S_MAX_LONG) || (kind >= S_MIN_F64 && kind <= S_BOR) ||
-         (kind >= S_BY_Y_MIN && kind <= S_BY_XV);
+         (kind >= S_BY_Y_MIN && kind <= S_MAX_D38);
 }
 
 // min_by / max_by: the order key of a y (is_min: min_by's) or an x
@@ -132,7 +140,8 @@ __device__ __forceinline__ i64 by_key(const void* p, int kind, i64 row, bool is_
 
 __host__ __device__ __forceinline__ int state_width(int kind) {
   return (kind == S_LIMBS_SHORT || kind == S_LIMBS_LONG) ? 4
-      : (kind == S_MIN_LONG || kind == S_MAX_LONG) ? 2 : 1;
+      : (kind == S_MIN_LONG || kind == S_MAX_LONG) ? 2
+      : (kind >= S_LIMBS_D38 && kind <= S_MAX_D38) ? D38_LIMBS : 1;
 }
 
 struct K6Desc {
@@ -172,15 +181,27 @@ static __global__ void k6_flags(const i64* __restrict__ sk, i64 n, int* __restri
     flags[i] = is_head(sk, i);
 }
 
-// phase 0: every state but the low limb of a long min/max; phase 1:
-// that low limb, for rows whose high limb equals the group's (raw)
+// phase 0: every state but the lower limbs of a long or wide min/max;
+// phase p >= 1: limb p, for rows whose limbs before it equal the
+// group's (raw); a long min/max and min_by / max_by's x take phase 1
+// only
 __device__ __forceinline__ void add_row(const K6Desc& d, i64 row, i64* acc, int phase,
                                         const i64* group_raw) {
   for (int s = 0; s < d.n_states; ++s) {
     i64* a = acc + d.slot[s];
     const int kind = d.kind[s];
     const bool long_extreme = kind == S_MIN_LONG || kind == S_MAX_LONG;
-    if (phase == 1) {
+    const bool d38_extreme = kind == S_MIN_D38 || kind == S_MAX_D38;
+    if (phase > 0) {
+      if (d38_extreme) {
+        if (!d.valid[s][row]) continue;
+        const i64* x = (const i64*)d.data[s] + D38_LIMBS * row;
+        bool tie = true;
+        for (int j = 0; j < phase; ++j) tie = tie && x[j] == group_raw[d.slot[s] + j];
+        if (tie) a[phase] = slot_fold(a[phase], x[phase], d.slot_kind[d.slot[s]]);
+        continue;
+      }
+      if (phase != 1) continue;
       if (kind == S_BY_X || kind == S_BY_XV) {  // over the rows tied at y's extreme
         const int y = s + (kind == S_BY_X ? 2 : 1);
         if (!d.valid[s][row] || !d.valid[y][row]) continue;
@@ -221,6 +242,15 @@ __device__ __forceinline__ void add_row(const K6Desc& d, i64 row, i64* acc, int 
       a[0] = slot_fold(a[0], minmax_key(data_bits(d.data[s], d.data_kind[s], row),
                                         kind == S_MIN_F64),
                        d.slot_kind[d.slot[s]]);
+      continue;
+    }
+    if (d38_extreme) {  // limb 0; the later phases take the others
+      a[0] = slot_fold(a[0], ((const i64*)d.data[s])[D38_LIMBS * row], d.slot_kind[d.slot[s]]);
+      continue;
+    }
+    if (kind == S_LIMBS_D38) {  // a wide value's limbs add as they are
+      const i64* x = (const i64*)d.data[s] + D38_LIMBS * row;
+      for (int j = 0; j < D38_LIMBS; ++j) a[j] = wadd(a[j], x[j]);
       continue;
     }
     if (long_extreme) {  // the high limb; phase 1 takes the low one
@@ -300,6 +330,13 @@ static __global__ void k6_finish(const K6Desc d, i64 groups, const i64* __restri
       if (d.kind[s] == S_MIN_LONG || d.kind[s] == S_MAX_LONG) {
         d.out[s][2 * g] = v[0];
         d.out[s][2 * g + 1] = v[1];
+        continue;
+      }
+      if (d.kind[s] >= S_LIMBS_D38 && d.kind[s] <= S_MAX_D38) {  // five limbs
+        i64 w[D38_LIMBS];
+        for (int j = 0; j < D38_LIMBS; ++j) w[j] = v[j];
+        if (d.kind[s] == S_LIMBS_D38) w_norm(w);  // from_sum_limbs
+        for (int j = 0; j < D38_LIMBS; ++j) d.out[s][D38_LIMBS * g + j] = w[j];
         continue;
       }
       if (d.kind[s] == S_MIN_F64 || d.kind[s] == S_MAX_F64) {
@@ -452,7 +489,7 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
   }
   d.n_states = n_states;
   int w = 0;
-  bool phased = false;
+  int phases = 1;  // accumulate launches: 2 for a long min/max or min_by, 5 for a wide min/max
   for (int s = 0; s < n_states; ++s) {
     if (!is_int_state(kind[s])) return (int)cudaErrorInvalidValue;
     const int width = state_width(kind[s]);
@@ -465,13 +502,15 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
         (kind[s] == S_BY_XV && (s == 0 || kind[s - 1] != S_BY_X)))
       return (int)cudaErrorInvalidValue;
     const int sk_kind = (kind[s] == S_MIN || kind[s] == S_MIN_LONG || kind[s] == S_MIN_F64 ||
-                         kind[s] == S_BY_Y_MIN)
+                         kind[s] == S_BY_Y_MIN || kind[s] == S_MIN_D38)
         ? SLOT_MIN
         : (kind[s] == S_MAX || kind[s] == S_MAX_LONG || kind[s] == S_MAX_F64 ||
-           kind[s] == S_BY_Y_MAX || kind[s] == S_BY_X) ? SLOT_MAX
+           kind[s] == S_BY_Y_MAX || kind[s] == S_BY_X || kind[s] == S_MAX_D38) ? SLOT_MAX
         : kind[s] == S_BAND ? SLOT_AND : kind[s] == S_BOR ? SLOT_OR : SLOT_ADD;
     for (int j = 0; j < width; ++j) d.slot_kind[w + j] = sk_kind;
-    phased = phased || kind[s] == S_MIN_LONG || kind[s] == S_MAX_LONG || kind[s] == S_BY_X;
+    if ((kind[s] == S_MIN_LONG || kind[s] == S_MAX_LONG || kind[s] == S_BY_X) && phases < 2)
+      phases = 2;
+    if (kind[s] == S_MIN_D38 || kind[s] == S_MAX_D38) phases = D38_LIMBS;
     w += width;
     d.data[s] = (const void*)data[s];
     d.data_kind[s] = data_kind[s];
@@ -486,9 +525,9 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
   const i64 chunks = (n + K6_CHUNK - 1) / K6_CHUNK;
   k6_accumulate<<<grid_for(chunks, 256, 8), 256, 0, st>>>(
       d, (const i64*)sorted_keys, (const i64*)order, n, (const int*)scan, (u64*)raw, 0);
-  if (phased)
+  for (int phase = 1; phase < phases; ++phase)
     k6_accumulate<<<grid_for(chunks, 256, 8), 256, 0, st>>>(
-        d, (const i64*)sorted_keys, (const i64*)order, n, (const int*)scan, (u64*)raw, 1);
+        d, (const i64*)sorted_keys, (const i64*)order, n, (const int*)scan, (u64*)raw, phase);
   k6_finish<<<grid_for(groups, 256, 8), 256, 0, st>>>(d, groups, (const i64*)raw);
   return (int)cudaGetLastError();
 }

@@ -26,9 +26,11 @@
 // inside the 48 KB of static shared memory (128 threads would need
 // 51 KB).  A merge step's output list lives in local memory.  A REAL
 // key orders as its exact double; a SMALLINT or TINYINT key reads
-// sign-extended.  Past K7_MAX_N rows the port sorts the page instead
-// (ops/sort.py topn_page: torch.sort, then the first n live rows), as
-// the reference's topn_page always does.
+// sign-extended.  A wide decimal key (decimal(37..38)) compares its
+// five limbs, limb 0 first, as a long one its two.  Past K7_MAX_N rows
+// the port sorts the page instead (ops/sort.py topn_page: torch.sort,
+// then the first n live rows), as the reference's topn_page always
+// does.
 
 #include "common.cuh"
 
@@ -37,7 +39,12 @@
 #define K7_THREADS 64
 
 enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3, TK_F64 = 4, TK_I16 = 5, TK_I8 = 6,
-       TK_F32 = 7 };
+       TK_F32 = 7, TK_D38 = 8 };
+
+// the int64 lanes of a key: a long decimal's two limbs, a wide one's five
+__device__ __forceinline__ int key_lanes(int kind) {
+  return kind == TK_D128 ? 2 : kind == TK_D38 ? D38_LIMBS : 1;
+}
 
 struct K7Keys {
   int n_keys;
@@ -69,7 +76,7 @@ __device__ __forceinline__ i64 lane(const K7Keys& k, int c, int j, i64 row) {
       return double_key((double)((const float*)k.data[c])[row], k.asc[c] != 0);
     case TK_I16: return ((const short*)k.data[c])[row];
     case TK_I8: return ((const signed char*)k.data[c])[row];
-    default: return ((const i64*)k.data[c])[2 * row + j];
+    default: return ((const i64*)k.data[c])[key_lanes(k.kind[c]) * row + j];  // limbs
   }
 }
 
@@ -80,7 +87,7 @@ __device__ __forceinline__ bool before(const K7Keys& k, i64 a, i64 b) {
     const int ra = k.nulls_first[c] ? (va ? 1 : 0) : (va ? 0 : 1);
     const int rb = k.nulls_first[c] ? (vb ? 1 : 0) : (vb ? 0 : 1);
     if (ra != rb) return ra < rb;
-    const int lanes = k.kind[c] == TK_D128 ? 2 : 1;
+    const int lanes = key_lanes(k.kind[c]);
     for (int j = 0; j < lanes; ++j) {
       const i64 xa = lane(k, c, j, a), xb = lane(k, c, j, b);
       // a double's key is already in ascending order

@@ -48,7 +48,14 @@ after each operation (the reference's float32 arithmetic, its
 ``_align_pair`` REAL branch), ``cast_real`` / ``cast_smallint`` /
 ``cast_tinyint`` (out of range NULL), integer arithmetic at its
 operands' widths, interval arithmetic (int64 lanes of microseconds or
-months) and IN over a double column.  An expression that
+months) and IN over a double column; the wide decimals (the D38 lane:
+decimal(37..38) as five base-10^9 limbs on K1's five-limb instance,
+the reference's ``_to_long_limbs(..., limbs=5)`` widening of short and
+long operands, add/sub, wide x int64 products, comparisons, abs, sign,
+neg, greatest/least, CASE, coalesce and the casts out, and long or
+wide literals as runs of constants; a wide x wide or wide x long
+product, a long-decimal mod, div or round stay refused, as there).  An
+expression that
 involves ARRAY, MAP or ROW values, lambdas or ``split`` goes to the
 container half (``expr/containers.py``: K12, K13, and K1 for the
 scalar parts); raw strings raise by name.
@@ -265,13 +272,16 @@ def _storage_kind(t: Type) -> int:
     return kind
 
 
-# stack lanes of a value: an int64 lane, a double, or long-decimal limbs
-SHORT, DOUBLE, LONG = "short", "double", "long"
+# stack lanes of a value: an int64 lane, a double, long-decimal limbs
+# (two base-10^18), or wide-decimal limbs (decimal(37..38): five
+# base-10^9)
+SHORT, DOUBLE, LONG, D38 = "short", "double", "long", "d38"
+LIMBS = (LONG, D38)
 
 
 def _lane(t: Type) -> str:
-    if t.is_long_decimal and t.value_shape == (2,):
-        return LONG
+    if t.is_long_decimal:
+        return LONG if t.value_shape == (2,) else D38
     if t.name in ("double", "real"):  # a REAL rides the double lane as its exact value
         return DOUBLE
     _storage_kind(t)
@@ -286,6 +296,8 @@ def _out_kind(t: Type) -> int:
         return k1.KIND_F32 if t.name == "real" else k1.KIND_F64
     if lane == LONG:
         return k1.KIND_D128
+    if lane == D38:
+        return k1.KIND_D38
     return _storage_kind(t)
 
 
@@ -439,19 +451,34 @@ class _Lowering:
         self.consts.append(v)
         return len(self.consts) - 1
 
+    def _push_null(self, limbs: int) -> None:
+        """A NULL of an int64 lane, or of a long (S2L) or wide (S2D38)
+        decimal, so its lane has its limbs."""
+        self._push(k1.NULL)
+        if limbs > 1:
+            self._push(k1.S2L if limbs == 2 else k1.S2D38)
+
+    def _push_limbs(self, limbs) -> None:
+        """A long (two limbs) or wide (five) literal: LIT_LONG or LIT_D38
+        over a run of constants."""
+        first = len(self.consts)
+        self.consts.extend(int(x) for x in limbs)
+        self._push(k1.LIT_LONG if len(limbs) == 2 else k1.LIT_D38, first)
+
     def _fold(self, start: int) -> None:
         """Replace the constant instructions from ``start`` by their
         value, computed by the plain evaluator on one row."""
-        if len(self.ops) - start == 1 and self.ops[start] in (k1.LIT, k1.DLIT, k1.NULL):
+        if len(self.ops) - start == 1 and self.ops[start] in (k1.LIT, k1.DLIT, k1.NULL,
+                                                              k1.LIT_LONG, k1.LIT_D38):
             return
         prog = k1.Program(tuple(self.ops[start:]), tuple(self.args[start:]),
                           tuple(self.consts), 0, k1.KIND_I64, tuple(self.luts))
         d, v = k1.expr_eval_plain(prog, [], 1)
-        if d.dim() > 1:
-            return  # a long decimal stays as its instructions
         del self.ops[start:], self.args[start:]
         if not bool(v[0]):
-            self._push(k1.NULL)
+            self._push_null(d.shape[1] if d.dim() > 1 else 1)
+        elif d.dim() > 1:  # a long or wide decimal: its limbs
+            self._push_limbs(d[0].tolist())
         elif d.is_floating_point():
             self._push(k1.DLIT, self._const(k1.double_bits(float(d[0]))))
         else:
@@ -469,11 +496,12 @@ class _Lowering:
                 self._load(e.index, k1.LOAD)  # dictionary codes
                 return False
             lane = _lane(e.type)
-            self._load(e.index, {LONG: k1.LOAD_LONG, DOUBLE: k1.LOAD_F64}.get(lane, k1.LOAD))
+            self._load(e.index, {LONG: k1.LOAD_LONG, DOUBLE: k1.LOAD_F64,
+                                 D38: k1.LOAD_D38}.get(lane, k1.LOAD))
             return False
         if isinstance(e, Literal):
             if e.value is None:
-                self._push(k1.NULL)
+                self._push_null(e.type.value_shape[0] if e.type.is_long_decimal else 1)
                 return True
             if e.type.is_string and not e.type.is_raw_string:
                 # code 0 of the literal's singleton dictionary
@@ -483,8 +511,11 @@ class _Lowering:
                 v = float(np.float32(e.value)) if e.type.name == "real" else e.value
                 self._push(k1.DLIT, self._const(k1.double_bits(v)))
                 return True
-            if _lane(e.type) != SHORT:
-                raise NotPorted(f"{e.type} literals")
+            if _lane(e.type) in LIMBS:  # the unscaled value's limbs
+                from presto_tpu_torch.ops.decimal128 import encode_py
+
+                self._push_limbs(encode_py([int(e.value)], 1, e.type.value_shape[0])[0])
+                return True
             self._push(k1.LIT, self._const(int(e.value)))
             return True
         if not isinstance(e, Call):
@@ -540,8 +571,8 @@ class _Lowering:
                 else self._emit_real
             const = emit(e.args[0]) & emit(e.args[1])
             self._push(k1.DCMP, LCMP_OPS.index(fn))
-        elif fn in ("eq", "ne", "lt", "le", "gt", "ge") and LONG in (_lane(e.args[0].type),
-                                                                  _lane(e.args[1].type)):
+        elif fn in ("eq", "ne", "lt", "le", "gt", "ge") and {
+                _lane(e.args[0].type), _lane(e.args[1].type)} & set(LIMBS):
             const = self._emit_long_cmp(e)
         elif fn in ("eq", "ne", "lt", "le", "gt", "ge"):
             a, b = e.args
@@ -550,7 +581,8 @@ class _Lowering:
             self._push(getattr(k1, fn.upper()))
         elif fn == "between":
             x, lo, hi = e.args
-            double = DOUBLE in (_lane(x.type), _lane(lo.type), _lane(hi.type)) \
+            lanes = {_lane(x.type), _lane(lo.type), _lane(hi.type)}
+            double = DOUBLE in lanes or bool(lanes & set(LIMBS)) \
                 or len({x.type.name, lo.type.name, hi.type.name} & set(_DT)) == 2
             s = None if double else self._align_scale(x.type, lo.type)
             if not double and s == self._align_scale(x.type, hi.type):
@@ -558,7 +590,7 @@ class _Lowering:
                          & self._emit_scaled(lo, s, check=False)
                          & self._emit_scaled(hi, s, check=False))
                 self._push(k1.BETWEEN)
-            else:  # per-pair alignment differs (or a date beside a timestamp): and(ge, le)
+            else:  # per-pair alignment differs (a date beside a timestamp, limbs): and(ge, le)
                 from presto_tpu_torch.types import BOOLEAN
 
                 return self.emit(Call(type=BOOLEAN, fn="and", args=(
@@ -619,8 +651,13 @@ class _Lowering:
         (``_to_double``), then the function by index; ``sign`` and the
         NaN / infinity tests give an integer lane."""
         (x,) = e.args
-        if _lane(x.type) == LONG:
-            raise NotPorted(f"{e.fn} of {x.type}")
+        if _lane(x.type) in LIMBS:
+            if e.fn != "sign":
+                raise NotPorted(f"{e.fn} of {x.type}")
+            # the reference's run_lsign: -1, 0 or 1 by the limbs (D38SIGN)
+            const = self._emit_wide(x, _scale(x.type))
+            self._push(k1.D38SIGN, 1)
+            return const
         const = self._emit_double(x)
         self._push(k1.DUN, k1.DUN_FNS.index(e.fn))
         return const
@@ -666,9 +703,7 @@ class _Lowering:
         if out_t.is_string:
             raise NotPorted(f"{e.fn} over {out_t}")
         lane = _lane(out_t)
-        if lane == LONG and (out_t.precision or 0) > 36:
-            raise NotPorted(f"{e.fn} over {out_t}")
-        gl = {SHORT: k1.GL_INT, DOUBLE: k1.GL_DOUBLE, LONG: k1.GL_LONG}[lane]
+        gl = {SHORT: k1.GL_INT, DOUBLE: k1.GL_DOUBLE, LONG: k1.GL_LONG, D38: k1.GL_D38}[lane]
         const = self._emit_coerced(e.args[0], out_t)
         for x in e.args[1:]:
             const &= self._emit_coerced(x, out_t)
@@ -692,8 +727,9 @@ class _Lowering:
     def _emit_cast_bigint(self, e: Call) -> bool:
         """cast to bigint: a double toward zero (XLA's saturating
         conversion, NaN to 0), a short decimal HALF_UP at its scale (the
-        reference's DecimalCasts rule), a long decimal's floor at its
-        scale, an integer lane as it is."""
+        reference's DecimalCasts rule), a long or wide decimal's floor at
+        its scale (a wide one collapsed by Horner's rule, wrapping: the
+        reference's ``_narrow_to_int64``), an integer lane as it is."""
         (x,) = e.args
         if x.type.is_string:
             raise NotPorted(f"cast_bigint of {x.type}")
@@ -705,9 +741,18 @@ class _Lowering:
             if _scale(x.type) > 18:
                 raise NotPorted(f"cast_bigint of {x.type}")
             self._push(k1.CASTBI, k1.CAST_FROM_LONG | _scale(x.type) << 2)
+        elif lane == D38:
+            self._push_d38_int64(_scale(x.type))
         elif _scale(x.type):
             self._push(k1.CASTBI, k1.CAST_FROM_SHORT | _scale(x.type) << 2)
         return const
+
+    def _push_d38_int64(self, scale: int) -> None:
+        """The wide value on the stack floored at ``scale`` and collapsed
+        to an int64 lane (D38DOWN, D38NARROW)."""
+        if scale:
+            self._push(k1.D38DOWN, scale)
+        self._push(k1.D38NARROW, 0)
 
     def _emit_hll(self, e: Call) -> bool:
         """hll_bucket / hll_rho (HLL): splitmix64 of the value's lane, an
@@ -721,7 +766,7 @@ class _Lowering:
                 raise NotPorted(f"{e.fn} with a non-literal width")
             p = int(e.args[1].value)
         t = col.type
-        if t.is_raw_string or t.name == "real" or (not t.is_string and _lane(t) == LONG):
+        if t.is_raw_string or t.name == "real" or (not t.is_string and _lane(t) in LIMBS):
             raise NotPorted(f"{e.fn} over {t}")
         if t.is_string:
             d = expr_dictionary(col, self.dictionaries)
@@ -808,7 +853,7 @@ class _Lowering:
             unit = {"ts_add_micros": "microsecond", "date_add_days": "day"}.get(fn, "month")
             return self._emit_dt_add(x, e.args[1], k1.DT_UNITS.index(unit) | ts_flag(x.type))
         if fn == "from_unixtime":
-            if _lane(x.type) == LONG:
+            if _lane(x.type) in LIMBS:
                 raise NotPorted(f"from_unixtime of {x.type}")
             const = self._emit_double(x)
             self._push(k1.UNIXT, k1.UNIXT_FROM)
@@ -1179,8 +1224,6 @@ class _Lowering:
         reference's ``taken`` rule); NULL conditions are not taken."""
         args = e.args
         out_t = e.type
-        if _lane(out_t) == LONG:
-            raise NotPorted(f"CASE producing {out_t}")
         const = True
         pairs = (len(args) - 1) // 2
         for i in range(pairs):
@@ -1208,7 +1251,7 @@ class _Lowering:
         (x,) = e.args
         up = e.fn != "floor"
         lane = _lane(x.type)
-        if lane == LONG:
+        if lane in LIMBS:
             raise NotPorted(f"{e.fn} of {x.type}")
         const = self.emit(x)
         if lane == DOUBLE:
@@ -1228,7 +1271,7 @@ class _Lowering:
                 raise NotPorted("round with non-literal digits")
             digits = int(e.args[1].value)
         lane = _lane(x.type)
-        if lane == LONG or x.type.name == "real":  # the reference rounds a REAL in float32
+        if lane in LIMBS or x.type.name == "real":  # the reference rounds a REAL in float32
             raise NotPorted(f"round of {x.type}")
         const = self.emit(x)
         if lane == DOUBLE:
@@ -1241,18 +1284,18 @@ class _Lowering:
 
     def _emit_cast_decimal(self, e: Call) -> bool:
         """cast to decimal: from a double, round(d * 10^scale) half to
-        even (D2S; D2L splits it into limbs for a long decimal), else
-        the reference's ``_coerce``."""
+        even (D2S; D2L splits it into limbs for a long decimal, which
+        L2D38 widens for a wide one), else the reference's ``_coerce``."""
         x = e.args[0]
         to_t = e.type
         if x.type.name != "double":
             return self._emit_coerced(x, to_t)
         const = self.emit(x)
         m = self._const(k1.double_bits(10.0 ** _scale(to_t)))
-        if _lane(to_t) == LONG:
-            if (to_t.precision or 0) > 36:
-                raise NotPorted(f"cast to {to_t}")
+        if _lane(to_t) in LIMBS:
             self._push(k1.D2L, m)
+            if _lane(to_t) == D38:
+                self._push(k1.L2D38)
         else:
             self._push(k1.D2S, m)
         return const
@@ -1269,8 +1312,18 @@ class _Lowering:
             return self._emit_real(e)
         if _lane(to_t) == DOUBLE:
             return self._emit_double(e)
-        if _lane(to_t) == LONG and _lane(e.type) in (SHORT, LONG) \
-                and (to_t.precision or 0) <= 36:
+        if to_t.name == "bigint" and _lane(e.type) in LIMBS:
+            return self._emit_cast_bigint(Call(type=to_t, fn="cast_bigint", args=(e,)))
+        if _lane(to_t) == D38:  # _to_long_limbs(..., limbs=5)
+            return self._emit_wide(e, _scale(to_t))
+        if _lane(e.type) == D38 and to_t.is_decimal:
+            # rescaled in five limbs, then narrowed: to two limbs (the
+            # reference keeps five here, under a two-limb type), or to an
+            # int64 lane by _narrow_to_int64 (wrapping)
+            const = self._emit_wide(e, _scale(to_t))
+            self._push(k1.D38NARROW, int(_lane(to_t) == LONG))
+            return const
+        if _lane(to_t) == LONG and _lane(e.type) in (SHORT, LONG):
             # _to_long_limbs: two limbs, up-scaled (wrapping) to to_t's scale
             k = _scale(to_t) - _scale(e.type)
             if k < 0:
@@ -1290,6 +1343,28 @@ class _Lowering:
             return const
         return self._emit_scaled(e, to_t.scale or 0, check=False)
 
+    def _emit_wide(self, e: Expr, to_scale: int) -> bool:
+        """Push a number as five limbs at ``to_scale`` (the reference's
+        ``_to_long_limbs(..., limbs=5)``): an integer lane through S2D38,
+        two limbs through L2D38, then D38UP (past the limbs' 45 digits
+        the carry drops) or D38DOWN (floor division)."""
+        lane = _lane(e.type)
+        if lane == DOUBLE or not (e.type.is_decimal or e.type.name in (
+                "bigint", "integer", "smallint", "tinyint")):
+            raise NotPorted(f"coercion of {e.type} to decimal(38,{to_scale})")
+        start = len(self.ops)
+        const = self.emit(e)
+        if lane == SHORT:
+            self._push(k1.S2D38)
+        elif lane == LONG:
+            self._push(k1.L2D38)
+        k = to_scale - _scale(e.type)
+        if k:
+            self._push(k1.D38UP if k > 0 else k1.D38DOWN, abs(k))
+        if const:
+            self._fold(start)
+        return const
+
     # -- double lanes ---------------------------------------------------------
     def _emit_double(self, e: Expr) -> bool:
         """Push ``e`` as a double (the reference's ``_to_double``: a
@@ -1300,7 +1375,7 @@ class _Lowering:
             return self.emit(e)
         start = len(self.ops)
         const = self.emit(e)
-        self._push(k1.L2D if lane == LONG else k1.S2D, _scale(e.type))
+        self._push({LONG: k1.L2D, D38: k1.D382D}.get(lane, k1.S2D), _scale(e.type))
         if const:
             self._fold(start)
         return const
@@ -1348,6 +1423,8 @@ class _Lowering:
             self._push(k1.CASTBI, k1.CAST_FROM_DOUBLE)
         elif lane == LONG:
             self._push(k1.CASTBI, k1.CAST_FROM_LONG | _scale(x.type) << 2)
+        elif lane == D38:
+            self._push_d38_int64(_scale(x.type))
         elif _scale(x.type):
             self._push(k1.SFLOOR, self._const(10 ** _scale(x.type)) * 2)
         self._push(k1.CASTN, _NARROW_BITS[_storage_kind(e.type)])
@@ -1362,7 +1439,12 @@ class _Lowering:
         if lane == LONG:
             raise NotPorted(f"{e.fn} of {x.type}")
         const = self.emit(x)
-        if lane == DOUBLE:
+        if lane == D38:  # decimal128.neg, or the reference's run_labs
+            if e.fn == "neg":
+                self._push(k1.D38NEG)
+            else:
+                self._push(k1.D38SIGN, 0)
+        elif lane == DOUBLE:
             self._push(k1.DNEG if e.fn == "neg" else k1.DABS)
         else:  # an integer lane; an int16 or int8 one NULL past its range (CASTN)
             kind = _storage_kind(x.type)
@@ -1383,6 +1465,10 @@ class _Lowering:
         if {a.type.name, b.type.name} & {"date", "timestamp"}:
             raise NotPorted(f"comparison of {a.type} and {b.type}")
         s = max(_scale(a.type), _scale(b.type))
+        if D38 in (_lane(a.type), _lane(b.type)):  # both sides as five limbs (D38CMP)
+            const = self._emit_wide(a, s) & self._emit_wide(b, s)
+            self._push(k1.D38CMP, LCMP_OPS.index(e.fn))
+            return const
         const = True
         for x in (a, b):
             const &= self.emit(x)
@@ -1437,14 +1523,21 @@ class _Lowering:
                             "div": k1.DDIV}[e.fn])
             return const
         lanes = (_lane(a.type), _lane(b.type))
-        if tr.is_long_decimal and e.fn in ("add", "sub") and DOUBLE not in lanes \
-                and (tr.precision or 0) <= 36:
+        if tr.is_long_decimal and e.fn in ("add", "sub") and DOUBLE not in lanes:
             # both sides as limbs at the result's scale, then decimal128.add/sub
             const = self._emit_coerced(a, tr) & self._emit_coerced(b, tr)
-            self._push(k1.LADD, int(e.fn == "sub"))
+            self._push(k1.D38ADD if _lane(tr) == D38 else k1.LADD, int(e.fn == "sub"))
             return const
         if tr.is_long_decimal:
-            if e.fn != "mul" or sorted(lanes) != [LONG, SHORT]:
+            if e.fn == "mul" and all(x in LIMBS for x in lanes):
+                # the reference's refusal (a product past 38 digits)
+                raise NotPorted("long-decimal x long-decimal mul unsupported")
+            if e.fn == "mul" and _lane(tr) == D38 and sorted(lanes) == [D38, SHORT]:
+                # wide x int64 on magnitudes (decimal128.mul_wide_small)
+                const = self.emit(a) & self.emit(b)
+                self._push(k1.D38MUL, 0 if lanes[0] == D38 else 1)
+                return const
+            if e.fn != "mul" or sorted(lanes) != [LONG, SHORT] or _lane(tr) != LONG:
                 raise NotPorted(f"{e.fn} of {a.type} and {b.type} producing {tr}")
             self.emit(a)
             self.emit(b)
@@ -1511,6 +1604,10 @@ class _Lowering:
                     args[i] >> k1.IN_COUNT_SHIFT
                 args[i] = len(consts) | count << k1.IN_COUNT_SHIFT
                 consts.extend(self.consts[first:first + count])
+            elif op in k1.LIMB_RUNS:  # a literal's limbs stay one run
+                first = args[i]
+                args[i] = len(consts)
+                consts.extend(self.consts[first:first + k1.LIMB_RUNS[op]])
         prog = k1.Program(tuple(self.ops), tuple(args), tuple(consts),
                           len(self.columns), out_kind, tuple(self.luts))
         if (len(prog.ops) > k1.MAX_INS or len(prog.consts) > k1.MAX_CONSTS

@@ -726,7 +726,7 @@ class ContainerCompiler:
             if _lane(st) == "short" and _lane(body_t) == "short" and not st.is_decimal \
                     and not body_t.is_decimal:
                 loop_t = body_t
-            elif not (_lane(st) == "double" and _lane(body_t) != "long"):
+            elif not (_lane(st) == "double" and _lane(body_t) not in ("long", "d38")):
                 raise NotPorted(f"reduce with a {body_t} combiner over a {st} state")
         m, elem_t = t0.max_elems, t0.element
         out_t = e.type

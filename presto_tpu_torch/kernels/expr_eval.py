@@ -60,13 +60,27 @@ DIN is IN over a double lane (``==``: NaN matches nothing, -0.0 equals
 0.0).  IMOD takes each operand's ``abs`` at its own width and wraps its
 result at the wider one, as the reference's jnp does.
 
+The wide decimals (thirteenth slice): a decimal(37..38) value is five
+base-10^9 limbs (the D38 lane, ``ops/decimal128.py``).  LOAD_D38 and
+LIT_D38 push a column or a literal's five constants (LIT_LONG a two-limb
+literal's two), S2D38 and L2D38 bring an int64 lane or two limbs to
+five (``from_int64``, ``widen``), D38UP and D38DOWN rescale (up in steps
+of 10^8 on the magnitude, dropping the top carry; down by floor
+division in steps of 10^9), D38ADD, D38NEG and D38MUL add, subtract,
+negate (``_norm_wide``'s floor carries) and multiply by an int64 lane
+(``mul_wide_small``), D38CMP compares limb by limb, D382D gives the
+double (Horner's rule from limb 0, then one division), D38NARROW an
+int64 lane (wrapping) or two limbs, D38SIGN abs or sign.
+
 A stack value is an int64 lane (integers, dates, booleans, short
-decimals, dictionary codes), a double, or a long decimal (two
-base-10^18 limbs).  A program that holds a long or double lane is
-"wide" and runs on a second instantiation of the interpreter whose
-stack slots carry the second limb; every other program keeps the
-narrow int64 stack.  A CUDA tensor meeting an opcode the kernel lacks
-raises (the C entry refuses it); nothing falls back.
+decimals, dictionary codes), a double, a long decimal (two base-10^18
+limbs) or a wide one (five base-10^9 limbs).  A program that holds a
+long or double lane is "wide" and runs on a second instantiation of
+the interpreter whose stack slots carry the second limb; a program
+that holds a D38 lane runs on a third, whose slots carry five limbs;
+every other program keeps the narrow int64 stack.  A CUDA tensor
+meeting an opcode the kernel lacks raises (the C entry refuses it);
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -87,7 +101,9 @@ LOAD, LIT, NULL, ADD, SUB, MUL, SCALE_CHK, SCALE, EQ, NE, LT, LE, GT, GE, \
     DATEPART, S2D, S2L, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DADD, DSUB, DMUL, \
     DNEG, DABS, DCMP, NEG, ABS, COAL, SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, \
     DUN, DBIN, BITW, GL, NULLIF, CASTBI, HLL, WBUCKET, IMOD, VLUT, DVLUT, TSPART, DTRUNC, \
-    DTADD, DTDIFF, CASTTS, UNIXT, DFMT, F32R, CASTN, DIN = range(71)
+    DTADD, DTDIFF, CASTTS, UNIXT, DFMT, F32R, CASTN, DIN, LOAD_D38, LIT_LONG, LIT_D38, \
+    S2D38, L2D38, D38UP, D38DOWN, D38ADD, D38NEG, D38MUL, D38CMP, D382D, D38NARROW, \
+    D38SIGN = range(85)
 OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "eq", "ne", "lt", "le", "gt", "ge", "between", "and", "or", "not",
             "lut", "sel", "load_long", "mul_ls", "l2d", "ddiv", "in", "canon",
@@ -96,14 +112,17 @@ OP_NAMES = ("load", "lit", "null", "add", "sub", "mul", "scale_chk", "scale",
             "sfloor", "sround", "dfloor", "dround", "d2s", "d2l", "ladd",
             "dun", "dbin", "bitw", "gl", "nullif", "castbi", "hll", "wbucket", "imod",
             "vlut", "dvlut", "tspart", "dtrunc", "dtadd", "dtdiff", "castts", "unixt", "dfmt",
-            "f32r", "castn", "din")
+            "f32r", "castn", "din", "load_d38", "lit_long", "lit_d38", "s2d38", "l2d38",
+            "d38up", "d38down", "d38add", "d38neg", "d38mul", "d38cmp", "d382d", "d38narrow",
+            "d38sign")
 # stack effect of each opcode (pushes minus pops)
 STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0,
                 0, -2, 1, -1, 0, -1, 0, 0, 0, 0, 0, 0, -1, 0, 1, 1, -1, -1, -1,
                 0, 0, -1, 0, 0, -1, 0, 0, 0, 0, 0, 0, -1,
                 0, -1, -1, -1, -1, 0, 0, -3, -1,
                 0, 0, 0, 0, -1, -1, 0, 0, 0,
-                0, 0, 0)
+                0, 0, 0,
+                1, 1, 1, 0, 0, 0, 0, -1, 0, -1, -1, 0, 0, 0)
 # opcodes whose argument is printed: a column slot, a constant index,
 # a table slot, the long operand's side (MUL_LS), a decimal scale
 # (L2D, S2D), IN's literal run (first constant | count <<
@@ -136,20 +155,35 @@ STACK_EFFECT = (1, 1, 1, -1, -1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -2, -1, -1, 0
 # float32, F32R_INT: the int64 lane converted to float32, each widened
 # back into the double lane), CASTN's width in bits (8, 16 or 32: NULL
 # where the int64 lane lies outside that signed range), DIN's literal
-# run as IN's (doubles' bits)
+# run as IN's (doubles' bits); the wide decimals: LOAD_D38's column
+# slot, LIT_LONG's and LIT_D38's first constant (a run of two or five
+# limbs), the digits of D38UP (an up-scale in steps of at most 8 that
+# drops the top carry) and D38DOWN (a floor down-scale in steps of at
+# most 9), D38ADD's 0 add or 1 subtract, D38MUL's side (MUL_LS's), the
+# comparison of D38CMP (LCMP's), D382D's decimal scale, D38NARROW's
+# target (0 an int64 lane, 1 two limbs) and D38SIGN's function (0 abs,
+# 1 sign)
 _ARG_OPS = (LOAD, LIT, SCALE_CHK, SCALE, LUT, LOAD_LONG, MUL_LS, L2D, IN, CANON,
             DATEPART, S2D, LSCALE, LCMP, NOTNULL, LOAD_F64, DLIT, DCMP, NEG, ABS,
             SFLOOR, SROUND, DFLOOR, DROUND, D2S, D2L, LADD, DUN, DBIN, BITW, GL, CASTBI,
             HLL, IMOD, VLUT, DVLUT, TSPART, DTRUNC, DTADD, DTDIFF, CASTTS, UNIXT, DFMT, F32R,
-            CASTN, DIN)
+            CASTN, DIN, LOAD_D38, LIT_LONG, LIT_D38, D38UP, D38DOWN, D38ADD, D38MUL, D38CMP,
+            D382D, D38NARROW, D38SIGN)
 # opcodes whose argument holds a constant index (SFLOOR: times two)
 CONST_ARG_OPS = (LIT, SCALE_CHK, SCALE, DLIT, SROUND, DROUND, D2S, D2L)
+# opcodes whose argument is the first of a run of constants: a long
+# literal's two limbs, a wide one's five
+LIMB_RUNS = {LIT_LONG: 2, LIT_D38: 5}
 IN_COUNT_SHIFT = 8
 # opcodes only the wide interpreter runs
 DOUBLE_OPS = frozenset((LOAD_F64, DLIT, DADD, DSUB, DMUL, DNEG, DABS, DCMP, DFLOOR,
                         DROUND, D2S, D2L, DUN, DBIN, WBUCKET, DVLUT, UNIXT, F32R, DIN))
 WIDE_OPS = frozenset((LOAD_LONG, MUL_LS, L2D, DDIV, S2D, S2L, LSCALE, LCMP, D2L,
-                      LADD)) | DOUBLE_OPS
+                      LADD, LIT_LONG)) | DOUBLE_OPS
+# opcodes only the five-limb (D38) interpreter runs: a program holding
+# one runs there, every other program keeps its narrower stack
+D38_OPS = frozenset((LOAD_D38, LIT_D38, S2D38, L2D38, D38UP, D38DOWN, D38ADD, D38NEG, D38MUL,
+                     D38CMP, D382D, D38NARROW, D38SIGN))
 
 # fixed limits of the kernel's by-value program (csrc/expr_eval.cu)
 MAX_INS = 128
@@ -174,7 +208,7 @@ TRANSCENDENTAL = frozenset(DUN_FNS.index(f) for f in (
 # the floor ``mod`` of jnp.mod (NULL on a zero divisor)
 DBIN_FNS = ("power", "atan2", "mod")
 BITW_OPS = ("and", "or", "xor", "shift_left", "shift_right", "bit_count")
-GL_INT, GL_DOUBLE, GL_LONG = 0, 1, 2
+GL_INT, GL_DOUBLE, GL_LONG, GL_D38 = 0, 1, 2, 3
 # IMOD's operand widths by their two-bit codes (arg bits 1-2 and 3-4)
 IMOD_WIDTHS = (64, 32, 16, 8)
 CAST_FROM_DOUBLE, CAST_FROM_SHORT, CAST_FROM_LONG = 0, 1, 2
@@ -203,7 +237,9 @@ DATE_FMT_SPAN = 73049
 # (int16) or TINYINT (int8) loads sign-extended into the int64 lane, a
 # REAL (float32) widens exactly into the double lane; each stores back
 # narrowed
-KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128, KIND_I16, KIND_I8, KIND_F32 = range(8)
+KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128, KIND_I16, KIND_I8, KIND_F32, \
+    KIND_D38 = range(9)
+_LIMBS_OF = {KIND_D128: 2, KIND_D38: 5}
 _KIND_OF = {torch.bool: KIND_BOOL, torch.int32: KIND_I32, torch.int64: KIND_I64,
             torch.int16: KIND_I16, torch.int8: KIND_I8}
 _DTYPE_OF = {KIND_BOOL: torch.bool, KIND_I32: torch.int32, KIND_I64: torch.int64,
@@ -232,7 +268,10 @@ COUNTED_OPS = {DATEPART: "year", S2D: "s2d", LCMP: "lcmp", NOTNULL: "not_null",
                NULLIF: "nullif", CASTBI: "castbi", HLL: "hll", WBUCKET: "wbucket",
                IMOD: "imod", VLUT: "vlut", DVLUT: "dvlut", TSPART: "tspart",
                DTRUNC: "dtrunc", DTADD: "dtadd", DTDIFF: "dtdiff", CASTTS: "castts",
-               UNIXT: "unixt", DFMT: "dfmt", F32R: "f32r", CASTN: "castn", DIN: "din"}
+               UNIXT: "unixt", DFMT: "dfmt", F32R: "f32r", CASTN: "castn", DIN: "din",
+               LIT_D38: "lit_d38", S2D38: "s2d38", D38UP: "d38up",
+               D38DOWN: "d38down", D38ADD: "d38add", D38NEG: "d38neg", D38MUL: "d38mul",
+               D38CMP: "d38cmp", D382D: "d382d", D38NARROW: "d38narrow", D38SIGN: "d38sign"}
 #: table kinds counted by name: a string CASE/IF/coalesce's branch
 #: codes remapped into the merged dictionary, the two sides of a
 #: string-column comparison mapped to shared value ids, and a varchar
@@ -296,7 +335,15 @@ class Program:
 
     @property
     def wide(self) -> bool:
-        return any(op in WIDE_OPS for op in self.ops)
+        return self.limbs > 1
+
+    @property
+    def limbs(self) -> int:
+        """The interpreter instance the program runs on: 5 with a D38
+        opcode, 2 with a long or double one, else 1."""
+        if any(op in D38_OPS for op in self.ops):
+            return 5
+        return 2 if any(op in WIDE_OPS for op in self.ops) else 1
 
     @property
     def depth(self) -> int:
@@ -532,7 +579,7 @@ def bitw_plain(arg: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def greatest_least(take_max: bool, lane: int, a, b):
     """GL's plain form over two operands of one lane; NULL handling is
     the caller's (NULL if either is)."""
-    if lane == GL_LONG:
+    if lane in (GL_LONG, GL_D38):
         a_less, _ = d128.compare(a, b)
         return torch.where((a_less != take_max)[:, None], a, b)
     if lane == GL_DOUBLE:
@@ -759,8 +806,16 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == LOAD_F64:  # a REAL widens exactly into the double lane
             d, v = cols[arg]
             stack.append((d.to(torch.float64), v))
-        elif op == LOAD_LONG:
+        elif op in (LOAD_LONG, LOAD_D38):
             stack.append(cols[arg])
+        elif op in LIMB_RUNS:  # a long or wide literal's limbs
+            limbs = torch.tensor(prog.consts[arg:arg + LIMB_RUNS[op]], dtype=torch.int64,
+                                 device=dev)
+            stack.append((limbs.expand(n, -1).contiguous(),
+                          torch.ones(n, dtype=torch.bool, device=dev)))
+        elif op in (S2D38, L2D38, D38UP, D38DOWN, D38NEG, D382D, D38NARROW, D38SIGN):
+            d, v = stack.pop()
+            stack.append((d38_unary(op, arg, d), v))
         elif op == DLIT:
             stack.append((torch.full((n,), bits_double(prog.consts[arg]), dtype=torch.float64,
                                      device=dev),
@@ -905,7 +960,7 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         elif op == NOTNULL:
             _, v = stack.pop()
             stack.append(((~v if arg else v).to(torch.int64), torch.ones_like(v)))
-        elif op == LCMP:
+        elif op in (LCMP, D38CMP):
             (bd, bv), (ad, av) = stack.pop(), stack.pop()
             lt, eq = d128.compare(ad, bd)
             d = (eq, ~eq, lt, lt | eq, ~(lt | eq), ~lt)[arg]
@@ -939,8 +994,10 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
                 v = v & ~_ovf_mul(ad, bd, d)
             elif op == MUL_LS:
                 d = d128.mul_long_short(ad, bd) if arg == 0 else d128.mul_long_short(bd, ad)
-            elif op == LADD:
+            elif op in (LADD, D38ADD):
                 d = d128.sub(ad, bd) if arg else d128.add(ad, bd)
+            elif op == D38MUL:  # arg 0: the wide operand below the int64 one
+                d = d128.mul_wide_small(ad, bd) if arg == 0 else d128.mul_wide_small(bd, ad)
             elif op == DDIV:
                 zero = bd == 0
                 d = ad / torch.where(zero, torch.ones_like(bd), bd)
@@ -974,9 +1031,35 @@ def expr_eval_plain(prog: Program, cols: Sequence[Tuple[torch.Tensor, torch.Tens
         return row_mask & (d != 0) & v
     if prog.out_kind == KIND_BOOL:
         return d != 0, v
-    if prog.out_kind == KIND_D128 or (d.is_floating_point() and prog.out_kind != KIND_F32):
+    if prog.out_kind in _LIMBS_OF or (d.is_floating_point() and prog.out_kind != KIND_F32):
         return d, v
     return d.to(_DTYPE_OF[prog.out_kind]), v
+
+
+def d38_unary(op: int, arg: int, d: torch.Tensor) -> torch.Tensor:
+    """The plain form of K1's one-operand wide-decimal opcodes:
+    S2D38 (``from_int64``), L2D38 (``widen``), D38UP / D38DOWN (the
+    up-scale that drops its top carry, the flooring down-scale),
+    D38NEG, D382D (``to_double``), D38NARROW (to an int64 lane, wrapping,
+    or to two limbs) and D38SIGN (abs, or sign as an int64 lane)."""
+    if op == S2D38:
+        return d128.from_int64(d, d128.WIDE_LIMBS)
+    if op == L2D38:
+        return d128.widen(d)
+    if op == D38UP:
+        return d128.upscale(d, arg)
+    if op == D38DOWN:
+        return d128.downscale_wide(d, arg)
+    if op == D38NEG:
+        return d128.neg(d)
+    if op == D382D:
+        return d128.to_double(d, arg)
+    if op == D38NARROW:
+        return d128.narrow_long(d) if arg else d128.to_int64(d)
+    negative = d[:, 0] < 0
+    if arg == 0:  # abs
+        return torch.where(negative[:, None], d128.neg(d), d)
+    return torch.where(negative, -1, (d != 0).any(dim=1).to(torch.int64))
 
 
 def _logic(op, ad, av, bd, bv):
@@ -1006,8 +1089,9 @@ def _launch(prog, cols, n, row_mask, tensors):
     if (len(prog.ops) > MAX_INS or len(prog.consts) > MAX_CONSTS
             or len(cols) > MAX_COLS or prog.depth > MAX_STACK or len(prog.luts) > MAX_LUTS):
         raise ValueError(f"expr_eval: program exceeds the kernel's limits: {prog}")
-    if prog.out_kind not in _DTYPE_OF and prog.out_kind != KIND_D128 or (
-            prog.out_kind in (KIND_F64, KIND_F32, KIND_D128) and not prog.wide):
+    if prog.out_kind not in _DTYPE_OF and prog.out_kind not in _LIMBS_OF or (
+            prog.out_kind in (KIND_F64, KIND_F32, KIND_D128) and not prog.wide) or (
+            prog.out_kind == KIND_D38 and prog.limbs != 5):
         raise ValueError(f"expr_eval: output kind {prog.out_kind}")
     for op, arg in zip(prog.ops, prog.args):
         if op in (LUT, CANON) and prog.luts[arg].dtype != (torch.bool if op == LUT
@@ -1022,22 +1106,26 @@ def _launch(prog, cols, n, row_mask, tensors):
         if op in (IN, DIN) and (arg & ((1 << IN_COUNT_SHIFT) - 1)) + (arg >> IN_COUNT_SHIFT) \
                 > len(prog.consts):
             raise ValueError("expr_eval: IN literals past the constant pool")
+        if op in LIMB_RUNS and not 0 <= arg <= len(prog.consts) - LIMB_RUNS[op]:
+            raise ValueError(f"expr_eval: {OP_NAMES[op]} limbs past the constant pool")
         if op == CASTN and arg not in (8, 16, 32) or op == F32R and arg not in (F32R_DOUBLE,
                                                                                 F32R_INT):
             raise ValueError(f"expr_eval: {OP_NAMES[op]}({arg})")
     long_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_LONG}
+    d38_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_D38}
     f64_slots = {a for o, a in zip(prog.ops, prog.args) if o == LOAD_F64}
     kinds = []
     for slot, (d, v) in enumerate(cols):
-        tail = (2,) if slot in long_slots else ()
+        tail = (2,) if slot in long_slots else (5,) if slot in d38_slots else ()
         if d.dim() != 1 + len(tail) or d.shape[0] < n or tuple(d.shape[1:]) != tail \
-                or v.dim() != 1 or v.shape[0] < n or v.dtype != torch.bool:
-            raise ValueError("expr_eval: columns must be 1-D, or (n, 2) limbs, with "
-                             "bool validity")
-        if slot in long_slots:
+                or v.dim() != 1 or v.shape[0] < n or v.dtype != torch.bool \
+                or (tail and not d.is_contiguous()):
+            raise ValueError("expr_eval: columns must be 1-D, or contiguous (n, 2) or (n, 5) "
+                             "limbs, with bool validity")
+        if tail:
             if d.dtype != torch.int64:
                 raise ValueError(f"expr_eval: long-decimal column dtype {d.dtype}")
-            kinds.append(KIND_D128)
+            kinds.append(KIND_D128 if tail == (2,) else KIND_D38)
         elif slot in f64_slots:
             if d.dtype not in (torch.float64, torch.float32):
                 raise ValueError(f"expr_eval: double column dtype {d.dtype}")
@@ -1054,8 +1142,8 @@ def _launch(prog, cols, n, row_mask, tensors):
         out_data, out_valid = None, None
         out_mask = torch.empty(n, dtype=torch.bool, device=dev)
     else:
-        out_data = torch.empty((n, 2), dtype=torch.int64, device=dev) \
-            if prog.out_kind == KIND_D128 else torch.empty(n, dtype=_DTYPE_OF[prog.out_kind],
+        out_data = torch.empty((n, _LIMBS_OF[prog.out_kind]), dtype=torch.int64, device=dev) \
+            if prog.out_kind in _LIMBS_OF else torch.empty(n, dtype=_DTYPE_OF[prog.out_kind],
                                                            device=dev)
         out_valid = torch.empty(n, dtype=torch.bool, device=dev)
         out_mask = None
@@ -1079,7 +1167,7 @@ def _launch(prog, cols, n, row_mask, tensors):
     c_lut_len = build.ptrs(t.shape[0] for t in luts)
     err = fn(c_ops, c_args, len(prog.ops), c_consts, len(prog.consts),
              c_data, c_valid, c_kinds, len(cols),
-             c_luts, c_lut_len, len(luts), int(prog.wide),
+             c_luts, c_lut_len, len(luts), prog.limbs,
              n, row_mask.data_ptr() if row_mask is not None else None,
              out_data.data_ptr() if out_data is not None else None, prog.out_kind,
              out_valid.data_ptr() if out_valid is not None else None,
@@ -1094,6 +1182,8 @@ def _launch(prog, cols, n, row_mask, tensors):
     for kind in {t.kind for t in prog.luts} & set(COUNTED_TABLES):
         op_launches[kind] = op_launches.get(kind, 0) + 1
     double_launches += int(bool(DOUBLE_OPS & set(prog.ops)))
+    if prog.limbs == 5:
+        op_launches["d38"] = op_launches.get("d38", 0) + 1
     for op in set(prog.ops) & COUNTED_OPS.keys():
         op_launches[COUNTED_OPS[op]] = op_launches.get(COUNTED_OPS[op], 0) + 1
     if any(op == HLL and arg >> 1 == 0 for op, arg in zip(prog.ops, prog.args)):

@@ -7,7 +7,8 @@ count/sum/avg/min/max parts of ``_finalize`` and ``_avg_decimal128``;
 an integer's avg as a double, ``float64(sum) / float64(count)``; sum0,
 never NULL; a long sum collapsed to one int64; a double sum or avg;
 the variance finalizes; checksum's sum, never NULL; skewness and
-kurtosis; covar_pop, covar_samp, corr, regr_slope and regr_intercept).
+kurtosis; covar_pop, covar_samp, corr, regr_slope and regr_intercept;
+a wide decimal's sum, min/max and HALF_UP avg).
 The fold adds double sums and merges variance states by Chan's pairwise
 update, the central moments by the merge's shift form (as K6's), and
 min_by / max_by states by their ``y`` extreme and the greatest ``x``
@@ -34,7 +35,10 @@ MODE_FOLD, MODE_FINALIZE = 0, 1
 COL_I64, COL_D128, COL_MIN_I64, COL_MAX_I64, COL_MIN_I32, COL_MAX_I32, COL_MIN_D128, \
     COL_MAX_D128, COL_F64, COL_VAR_M2, COL_MIN_F64, COL_MAX_F64, COL_MIN_BOOL, COL_MAX_BOOL, \
     COL_BAND, COL_BOR, COL_MOM_M2, COL_MOM_M3, COL_MOM_M4, COL_BY_X, COL_BY_XV, COL_BY_Y_MIN, \
-    COL_BY_Y_MAX = range(23)
+    COL_BY_Y_MAX, COL_D38, COL_MIN_D38, COL_MAX_D38 = range(26)
+# COL_D38 adds two wide (five base-10^9 limbs) sums and normalises them
+# (``_norm_wide``); COL_MIN_D38 / COL_MAX_D38 keep the lesser or greater
+# wide value, limb by limb
 # the central moments' state (s, m2, m3, m4, cnt): s COL_F64, then
 # COL_MOM_M2, COL_MOM_M3, COL_MOM_M4 (each folded from the whole state,
 # the columns either side of it), cnt COL_I64; min_by / max_by's (x, x
@@ -49,8 +53,9 @@ _BY_COLS = (COL_BY_X, COL_BY_XV, COL_BY_Y_MIN, COL_BY_Y_MAX)
 # merged by Chan's pairwise update from its own column, the s column
 # just before it and the count column just after it (the state's
 # order: s, m2, cnt)
-_COL_MIN = (COL_MIN_I64, COL_MIN_I32, COL_MIN_D128)
+_COL_MIN = (COL_MIN_I64, COL_MIN_I32, COL_MIN_D128, COL_MIN_D38)
 _COL_WIDE = (COL_D128, COL_MIN_D128, COL_MAX_D128)
+_COL_D38 = (COL_D38, COL_MIN_D38, COL_MAX_D38)
 _COL_I32 = (COL_MIN_I32, COL_MAX_I32)
 # finalize kinds; a min/max finalizes as FIN_SUM (int64), FIN_SUM_D128
 # (limbs) or FIN_VALUE_I32 (int32): its value, NULL where its count is 0
@@ -59,7 +64,11 @@ FIN_COUNT, FIN_SUM, FIN_SUM_D128, FIN_AVG_SHORT, FIN_AVG_D128, FIN_AVG_D128_NARR
     FIN_SUM0_COLLAPSE, FIN_SUM_F64, FIN_AVG_F64, FIN_VAR_POP, FIN_VAR_SAMP, \
     FIN_STDDEV_POP, FIN_STDDEV_SAMP, FIN_VALUE_BOOL, FIN_BOOL_AND, FIN_BOOL_OR, \
     FIN_HLL, FIN_SKEWNESS, FIN_KURTOSIS, FIN_COVAR_POP, FIN_COVAR_SAMP, FIN_CORR, \
-    FIN_REGR_SLOPE, FIN_REGR_INTERCEPT, FIN_VALUE = range(30)
+    FIN_REGR_SLOPE, FIN_REGR_INTERCEPT, FIN_VALUE, FIN_SUM_D38, FIN_AVG_D38 = range(32)
+# FIN_SUM_D38: a wide sum (or min/max), NULL where its count is 0;
+# FIN_AVG_D38: a wide sum over its count, HALF_UP (the reference's
+# ``_avg_decimal128`` wide branch: long division over the limbs)
+_D38_FIN = (FIN_SUM_D38, FIN_AVG_D38)
 # FIN_VALUE: a SMALLINT, TINYINT or REAL min/max, its value in its own
 # storage (int16, int8, float32)
 # the moments' finalizes take (m2, m3, m4) stacked as a (G, 3) double
@@ -98,12 +107,13 @@ chan_fold_launches = 0
 kind_launches: dict = {}
 _KIND_NAMES = {COL_MIN_F64: "min_double", COL_MAX_F64: "min_double",
                COL_MIN_BOOL: "bool", COL_MAX_BOOL: "bool", COL_BAND: "bitwise",
-               COL_BOR: "bitwise", COL_MOM_M2: "moments_fold", COL_BY_X: "min_by_fold"}
+               COL_BOR: "bitwise", COL_MOM_M2: "moments_fold", COL_BY_X: "min_by_fold",
+               COL_D38: "d38", COL_MIN_D38: "d38", COL_MAX_D38: "d38"}
 _FIN_NAMES = {FIN_VALUE_BOOL: "bool", FIN_BOOL_AND: "bool", FIN_BOOL_OR: "bool",
               FIN_HLL: "hll", FIN_SKEWNESS: "moments", FIN_KURTOSIS: "moments",
               FIN_COVAR_POP: "covariance", FIN_COVAR_SAMP: "covariance",
               FIN_CORR: "covariance", FIN_REGR_SLOPE: "covariance",
-              FIN_REGR_INTERCEPT: "covariance"}
+              FIN_REGR_INTERCEPT: "covariance", FIN_SUM_D38: "d38", FIN_AVG_D38: "d38"}
 # a column's storage, for the kinds that take more than one
 # (csrc/packed_fold_finalize.cu ELEM_*)
 _ELEM = {torch.int64: 0, torch.int32: 1, torch.float64: 2, torch.bool: 3, torch.int16: 4,
@@ -191,11 +201,11 @@ def packed_fold_plain(a: Sequence[Column], b: Sequence[Column], mask_a, mask_b):
             data = folded[c - first]
         elif kind == COL_VAR_M2:
             data = chan_m2(a[c - 1][1], da, a[c + 1][1], b[c - 1][1], db, b[c + 1][1])
-        elif kind == COL_D128:
+        elif kind in (COL_D128, COL_D38):
             data = d128.add(da, db)
-        elif kind in (COL_MIN_D128, COL_MAX_D128):
+        elif kind in (COL_MIN_D128, COL_MAX_D128, COL_MIN_D38, COL_MAX_D38):
             a_less, _ = d128.compare(da, db)
-            data = torch.where((a_less == (kind == COL_MIN_D128))[:, None], da, db)
+            data = torch.where((a_less == (kind in _COL_MIN))[:, None], da, db)
         elif kind in (COL_I64, COL_F64):
             data = da + db
         elif kind in (COL_MIN_F64, COL_MAX_F64):  # a REAL through its exact double
@@ -282,8 +292,10 @@ def packed_finalize_plain(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]
         elif kind == FIN_AVG_F64:
             data = s / n.to(torch.float64)
         elif kind in (FIN_SUM, FIN_SUM_D128, FIN_VALUE_I32, FIN_SUM0, FIN_SUM0_D128,
-                      FIN_SUM_F64, FIN_VALUE_BOOL, FIN_VALUE):
+                      FIN_SUM_F64, FIN_VALUE_BOOL, FIN_VALUE, FIN_SUM_D38):
             data = s.clone()
+        elif kind == FIN_AVG_D38:
+            data = d128.avg_wide(s, n)
         elif kind == FIN_AVG_DOUBLE:  # tensor by tensor: a true division on every device
             data = s.to(torch.float64) / n.to(torch.float64)
         elif kind == FIN_AVG_SHORT:
@@ -386,9 +398,9 @@ def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
                 kind in (COL_BY_Y_MIN, COL_BY_Y_MAX) and kinds[c - 2:c - 1] != [COL_BY_X]:
             raise ValueError("packed_fold: a moments or min_by state's columns are out of order")
     for c, ((kind, da, va), (kb, db, vb)) in enumerate(zip(a, b)):
-        if not COL_I64 <= kind <= COL_BY_Y_MAX:
+        if not COL_I64 <= kind <= COL_MAX_D38:
             raise ValueError(f"packed_fold: column kind {kind}")
-        shape = (g, 2) if kind in _COL_WIDE else (g,)
+        shape = (g, 2) if kind in _COL_WIDE else (g, 5) if kind in _COL_D38 else (g,)
         dtype = torch.int32 if kind in _COL_I32 else torch.float64 \
             if kind in (COL_F64, COL_VAR_M2, COL_MIN_F64, COL_MAX_F64) + _MOM_COLS \
             else torch.bool if kind in (COL_MIN_BOOL, COL_MAX_BOOL) else da.dtype \
@@ -401,7 +413,8 @@ def packed_fold(a: Sequence[Column], b: Sequence[Column], mask_a: torch.Tensor,
             raise ValueError("packed_fold: a variance m2 column needs its s and count "
                              "columns beside it")
         if kb != kind or da.shape != shape or db.shape != shape \
-                or da.dtype != dtype or db.dtype != dtype:
+                or da.dtype != dtype or db.dtype != dtype \
+                or kind in _COL_D38 and not (da.is_contiguous() and db.is_contiguous()):
             raise ValueError("packed_fold: mismatched state columns")
         tensors += [da, db, va, vb]
         outs.append((torch.empty(shape, dtype=dtype, device=da.device),
@@ -438,10 +451,10 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
     tensors = [mask]
     outs = []
     for kind, s, cnt in items:
-        if not FIN_COUNT <= kind <= FIN_VALUE:
+        if not FIN_COUNT <= kind <= FIN_AVG_D38:
             raise ValueError(f"packed_finalize: kind {kind}")
-        in_shape = (g, 2) if kind in _WIDE_IN else (g, STACKED[kind]) if kind in STACKED \
-            else (g,)
+        in_shape = (g, 2) if kind in _WIDE_IN else (g, 5) if kind in _D38_FIN else \
+            (g, STACKED[kind]) if kind in STACKED else (g,)
         dtype = torch.int32 if kind == FIN_VALUE_I32 else torch.float64 \
             if kind in _F64_IN else torch.bool if kind == FIN_VALUE_BOOL else torch.int64
         if kind == FIN_VALUE:
@@ -450,12 +463,11 @@ def packed_finalize(items: Sequence[Tuple[int, torch.Tensor, torch.Tensor]],
                 or s.dtype != dtype or cnt.dtype != torch.int64:
             raise ValueError("packed_finalize: mismatched state columns")
         tensors += [s, cnt]
-        wide_out = kind in _WIDE_OUT
+        out_shape = (g, 2) if kind in _WIDE_OUT else (g, 5) if kind in _D38_FIN else (g,)
         out_dtype = torch.float64 if kind in _F64_OUT else \
             torch.int32 if kind == FIN_VALUE_I32 else torch.bool if kind in _BOOL_OUT \
             else s.dtype if kind == FIN_VALUE else torch.int64
-        outs.append((torch.empty((g, 2) if wide_out else (g,), dtype=out_dtype,
-                                 device=mask.device),
+        outs.append((torch.empty(out_shape, dtype=out_dtype, device=mask.device),
                      torch.empty(g, dtype=torch.bool, device=mask.device)))
     _launch(MODE_FINALIZE, g, [k for k, _, _ in items], [s for _, s, _ in items],
             [c for _, _, c in items], None, None, outs, mask, None, None, tensors,

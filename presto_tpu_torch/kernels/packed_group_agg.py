@@ -11,12 +11,14 @@ argument (VARIANCE), a double's, a boolean's or a varchar rank's
 least or greatest value, bool_and / bool_or's count of true,
 bitwise_and_agg / bitwise_or_agg's fold and hll_merge's sum of 2^-rho
 (each beside its count), checksum's wrapping sum of K1's per-row
-hashes (CHECKSUM), the central moments ``(s, m2, m3, m4, cnt)`` of a
-double argument (MOMENTS: skewness, kurtosis), and min_by / max_by's
-coupled extreme as two entries (BY_X then BY_Y_MIN or BY_Y_MAX: the
-extreme of ``y`` with its count of valid rows, then the greatest ``x``
-among the rows whose ``y`` equals it, with a 0/1 flag that one was
-valid), plus the ``present`` flag of each slot.  Double
+hashes (CHECKSUM), a wide decimal's sum and least or greatest value
+(SUM_D38, MIN_D38, MAX_D38: five limbs beside the count), the central
+moments ``(s, m2, m3, m4, cnt)`` of a double argument (MOMENTS:
+skewness, kurtosis), and min_by / max_by's coupled extreme as two
+entries (BY_X then BY_Y_MIN or BY_Y_MAX: the extreme of ``y`` with its
+count of valid rows, then the greatest ``x`` among the rows whose
+``y`` equals it, with a 0/1 flag that one was valid), plus the
+``present`` flag of each slot.  Double
 sums add in one fixed order, the same on the card and here
 (:func:`chunk_sums_plain`), so the card's states equal the twin's bit
 for bit.  On a CUDA tensor it launches
@@ -37,7 +39,11 @@ from presto_tpu_torch.ops import decimal128 as d128
 # aggregate kinds: keep in step with csrc/packed_group_agg.cu
 COUNT_STAR, COUNT, SUM_SHORT, SUM_LONG, MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, \
     SUM_LONG_ARG, SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE, BOOL_COUNT, BIT_AND, BIT_OR, \
-    HLL_SUM, CHECKSUM, MOMENTS, BY_Y_MIN, BY_Y_MAX, BY_X = range(22)
+    HLL_SUM, CHECKSUM, MOMENTS, BY_Y_MIN, BY_Y_MAX, BY_X, SUM_D38, MIN_D38, MAX_D38 = range(25)
+# SUM_D38: a wide (decimal(37..38), five base-10^9 limbs) argument's sum,
+# its limbs added as they are (each below 10^9 in size, so 2^23 rows
+# cannot wrap a lane) and normalised (``_norm_wide``); MIN_D38 / MAX_D38:
+# its least or greatest value, limb by limb, most significant first
 # MIN_DOUBLE / MAX_DOUBLE: a double's extreme (-0.0 below 0.0, NaN
 # winning both, as the reference's segment_min/segment_max); BOOL_COUNT:
 # bool_and / bool_or / every's (count of true, count); BIT_AND / BIT_OR:
@@ -55,16 +61,20 @@ COUNT_STAR, COUNT, SUM_SHORT, SUM_LONG, MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG
 RAW_WIDTH = {COUNT_STAR: 1, COUNT: 1, SUM_SHORT: 2, SUM_LONG: 5, MIN_SHORT: 2, MAX_SHORT: 2,
              MIN_LONG: 3, MAX_LONG: 3, SUM_LONG_ARG: 5, SUM_DOUBLE: 1, VARIANCE: 1,
              MIN_DOUBLE: 2, MAX_DOUBLE: 2, BOOL_COUNT: 2, BIT_AND: 2, BIT_OR: 2, HLL_SUM: 1,
-             CHECKSUM: 1, MOMENTS: 1, BY_Y_MIN: 2, BY_Y_MAX: 2, BY_X: 2}
+             CHECKSUM: 1, MOMENTS: 1, BY_Y_MIN: 2, BY_Y_MAX: 2, BY_X: 2, SUM_D38: 6,
+             MIN_D38: 6, MAX_D38: 6}
 BY_Y = (BY_Y_MIN, BY_Y_MAX)
-EXTREMES = (MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, MIN_DOUBLE, MAX_DOUBLE)
+EXTREMES = (MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, MIN_DOUBLE, MAX_DOUBLE, MIN_D38,
+            MAX_D38)
 LONG_ARG = (MIN_LONG, MAX_LONG, SUM_LONG_ARG)  # kinds whose argument is (n, 2) limbs
+D38_ARG = (SUM_D38, MIN_D38, MAX_D38)  # kinds whose argument is (n, 5) limbs
 DOUBLE_ARG = (SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE, MOMENTS)  # a double argument
 # states that add doubles in the fixed order (one slot at most here)
 DOUBLE_STATES = (SUM_DOUBLE, VARIANCE, HLL_SUM, MOMENTS)
 KIND_NAMES = {MIN_DOUBLE: "min_double", MAX_DOUBLE: "max_double", BOOL_COUNT: "bool",
               BIT_AND: "bitwise", BIT_OR: "bitwise", HLL_SUM: "hll", CHECKSUM: "checksum",
-              MOMENTS: "moments", BY_Y_MIN: "min_by", BY_Y_MAX: "min_by", BY_X: "min_by"}
+              MOMENTS: "moments", BY_Y_MIN: "min_by", BY_Y_MAX: "min_by", BY_X: "min_by",
+              SUM_D38: "d38", MIN_D38: "d38", MAX_D38: "d38"}
 # the slots a double state may have here: one, the global aggregate's
 # (ops/aggregate.takes_sort_path sends keyed double states to K6, so
 # every keyed double sum has one order, K6's)
@@ -74,7 +84,7 @@ DSUM_CHUNK = 256
 MAX_KEYS = 16
 MAX_AGGS = 32
 _KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.int16: 5, torch.int8: 6}
-KIND_D128, KIND_F64, KIND_F32 = 3, 4, 7
+KIND_D128, KIND_F64, KIND_F32, KIND_D38 = 3, 4, 7, 8
 _FLOATS = (torch.float64, torch.float32)
 
 launches = 0
@@ -111,14 +121,19 @@ def seg_extreme(vals: torch.Tensor, slot: torch.Tensor, n_slots: int, is_min: bo
 
 
 def seg_extreme_long(limbs: torch.Tensor, slot: torch.Tensor, n_slots: int, is_min: bool):
-    """The reference's ``_minmax_long``: the high limb's extreme per
-    slot, then the low limb's among the rows that tie on it."""
-    hi = seg_extreme(limbs[:, 0], slot, n_slots, is_min)
+    """The reference's ``_minmax_long``, over two or five limbs: the
+    most significant limb's extreme per slot, then each next limb's
+    among the rows that tie on every limb before it (an empty slot:
+    the identity in every limb)."""
+    at = torch.clamp(slot, max=max(n_slots - 1, 0))
     tie = slot < n_slots
-    tie = tie & (limbs[:, 0] == hi[torch.clamp(slot, max=max(n_slots - 1, 0))])
-    lo = seg_extreme(limbs[:, 1], torch.where(tie, slot, torch.full_like(slot, n_slots)),
-                     n_slots, is_min)
-    return torch.stack([hi, lo], dim=1)
+    best = []
+    for j in range(limbs.shape[1]):
+        b = seg_extreme(limbs[:, j], torch.where(tie, slot, torch.full_like(slot, n_slots)),
+                        n_slots, is_min)
+        best.append(b)
+        tie = tie & (limbs[:, j] == b[at])
+    return torch.stack(best, dim=1)
 
 
 def narrow(ext: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -342,9 +357,9 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
                                                                    device=dev))
             states.append([chunk_sums_plain(x, nn_slot, n_groups), cnt])
         elif kind in EXTREMES:
-            is_min = kind in (MIN_SHORT, MIN_LONG)
+            is_min = kind in (MIN_SHORT, MIN_LONG, MIN_D38)
             nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
-            if kind in LONG_ARG:
+            if kind in LONG_ARG + D38_ARG:
                 states.append([seg_extreme_long(data, nn_slot, n_groups, is_min), cnt])
             else:
                 ext = seg_extreme(data.to(torch.int64), nn_slot, n_groups, is_min)
@@ -370,7 +385,7 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
                              torch.zeros_like(x))
             states.append([s, chunk_sums_plain(dx * dx, nn_slot, n_groups), cnt])
         else:
-            if kind == SUM_LONG_ARG:
+            if kind in (SUM_LONG_ARG, SUM_D38):  # a wide argument sums its limbs as they are
                 limbs = d128.to_sum_limbs(data)
             else:
                 limbs = d128.to_sum_limbs(d128.from_int64(data.to(torch.int64)))
@@ -402,8 +417,9 @@ def _check_col(data, valid, n, what, limbs=False, double=False):
         if data.shape != (n,) or data.dtype not in _FLOATS:
             raise ValueError(f"packed_group_agg: {what} must be (n,) float64 or float32")
     elif limbs:
-        if data.shape != (n, 2) or data.dtype != torch.int64:
-            raise ValueError(f"packed_group_agg: {what} must be (n, 2) int64 limbs")
+        if data.shape != (n, limbs) or data.dtype != torch.int64 or not data.is_contiguous():
+            raise ValueError(f"packed_group_agg: {what} must be contiguous (n, {limbs}) int64 "
+                             "limbs")
     elif data.dim() != 1 or data.shape[0] != n or data.dtype not in _KINDS:
         raise ValueError(f"packed_group_agg: {what} must be (n,) int8/int16/int32/int64/bool")
     if valid.dtype != torch.bool or valid.shape != (n,):
@@ -432,7 +448,8 @@ def _launch(n, row_mask, keys, aggs, n_groups):
                                  "integers, booleans or doubles with (n,) bool validity")
             tensors += [data, valid]
         elif kind != COUNT_STAR:
-            _check_col(data, valid, n, "argument", kind in LONG_ARG, kind in DOUBLE_ARG)
+            _check_col(data, valid, n, "argument",
+                       2 if kind in LONG_ARG else 5 if kind in D38_ARG else 0, kind in DOUBLE_ARG)
             tensors += [data, valid]
     doubles = any(k in DOUBLE_STATES for k, _, _ in aggs)
     build.require_cuda(tensors, "packed_group_agg")
@@ -449,6 +466,8 @@ def _launch(n, row_mask, keys, aggs, n_groups):
             states.append([torch.empty(n_groups, dtype=data.dtype, device=dev), cnt])
         elif kind in (SUM_LONG, MIN_LONG, MAX_LONG, SUM_LONG_ARG):
             states.append([torch.empty((n_groups, 2), dtype=torch.int64, device=dev), cnt])
+        elif kind in D38_ARG:
+            states.append([torch.empty((n_groups, 5), dtype=torch.int64, device=dev), cnt])
         elif kind in (MIN_DOUBLE, MAX_DOUBLE):  # a REAL's extreme stays float32
             states.append([torch.empty(n_groups, dtype=data.dtype, device=dev), cnt])
         elif kind in (SUM_DOUBLE, HLL_SUM):
@@ -479,7 +498,8 @@ def _launch(n, row_mask, keys, aggs, n_groups):
     c_agg_kind = build.ints(k for k, _, _ in aggs)
     c_arg_data = build.ptrs(d.data_ptr() if d is not None else null for _, d, _ in aggs)
     c_arg_valid = build.ptrs(v.data_ptr() if v is not None else null for _, _, v in aggs)
-    c_arg_kind = build.ints((KIND_D128 if k in LONG_ARG else KIND_F32 if d.dtype ==
+    c_arg_kind = build.ints((KIND_D128 if k in LONG_ARG else KIND_D38 if k in D38_ARG
+                             else KIND_F32 if d.dtype ==
                              torch.float32 else KIND_F64 if k in DOUBLE_ARG
                              or d.dtype == torch.float64 else _KINDS[d.dtype])
                             if d is not None else 0 for k, d, _ in aggs)

@@ -58,7 +58,11 @@ from presto_tpu_torch.ops import decimal128 as d128
 # least or greatest (n, 2) limbs; an empty state holds the identity.
 S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG, \
     S_MAX_LONG, S_DSUM, S_VAR, S_VAR_MERGE, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR, \
-    S_HLL, S_MOM, S_MOM_MERGE, S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV = range(23)
+    S_HLL, S_MOM, S_MOM_MERGE, S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV, S_LIMBS_D38, \
+    S_MIN_D38, S_MAX_D38 = range(26)
+# S_LIMBS_D38 adds a wide decimal's ((n, 5) base-10^9 limbs) limbs as
+# they are and gives five normalised limbs; S_MIN_D38 / S_MAX_D38 its
+# least or greatest value, limb by limb (one phase per limb)
 # S_MIN / S_MAX also take booleans (an empty state: the fold's neutral
 # value) and SMALLINT / TINYINT values (stored back narrowed);
 # S_MIN_F64 / S_MAX_F64 keep a double's or a REAL's extreme (-0.0 below
@@ -78,20 +82,23 @@ DOUBLE_STATES = (S_DSUM, S_VAR, S_VAR_MERGE, S_HLL, S_MOM, S_MOM_MERGE)
 S_BY_Y = (S_BY_Y_MIN, S_BY_Y_MAX)
 _BY = (S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV)
 DSUM_CHUNK = 256  # csrc/sorted_group_agg.cu K6_DSUM_CHUNK
-_LIMBS = (S_LIMBS_SHORT, S_LIMBS_LONG)
+_LIMBS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_LIMBS_D38)
 _PAIRS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG)  # (G, 2) outputs
-_EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG, S_MIN_F64, S_MAX_F64)
+_FIVES = (S_LIMBS_D38, S_MIN_D38, S_MAX_D38)  # (G, 5) outputs
+_EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_MIN_D38, S_MAX_D38)
 _INT_STATES = (S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG,
-               S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR) + _BY
+               S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR) + _BY + _FIVES
 KIND_NAMES = {S_MIN_F64: "min_double", S_MAX_F64: "min_double", S_BAND: "bitwise",
               S_BOR: "bitwise", S_HLL: "hll", S_MOM: "moments", S_MOM_MERGE: "moments_merge",
-              S_BY_Y_MIN: "min_by", S_BY_Y_MAX: "min_by"}
+              S_BY_Y_MIN: "min_by", S_BY_Y_MAX: "min_by", S_LIMBS_D38: "d38",
+              S_MIN_D38: "d38", S_MAX_D38: "d38"}
 # the columns of a double state's data and of its outputs
 _DOUBLE_COLS = {S_VAR_MERGE: 3, S_MOM_MERGE: 5}
 _DOUBLE_OUTS = {S_DSUM: 1, S_HLL: 1, S_VAR: 3, S_VAR_MERGE: 3, S_MOM: 5, S_MOM_MERGE: 5}
 MAX_STATES = 32  # csrc/sorted_group_agg.cu K6_MAX_STATES
 MAX_SLOTS = 64  # csrc/sorted_group_agg.cu K6_MAX_SLOTS
-_WIDTH = {S_LIMBS_SHORT: 4, S_LIMBS_LONG: 4, S_MIN_LONG: 2, S_MAX_LONG: 2}
+_WIDTH = {S_LIMBS_SHORT: 4, S_LIMBS_LONG: 4, S_MIN_LONG: 2, S_MAX_LONG: 2, S_LIMBS_D38: 5,
+          S_MIN_D38: 5, S_MAX_D38: 5}
 SCAN_TILE = 2048  # csrc/scan.cuh SCAN_TILE
 _DATA_KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.int16: 4, torch.int8: 5}
 # a double's bits, a REAL's (widened exactly) (csrc/sorted_group_agg.cu)
@@ -298,8 +305,7 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         acc = torch.zeros((groups,) + tuple(vals.shape[1:]), dtype=torch.int64,
                           device=row_mask.device)
         acc.index_add_(0, gid, vals)
-        outs.append(d128.from_sum_limbs(acc) if kind in (S_LIMBS_SHORT, S_LIMBS_LONG)
-                    else acc)
+        outs.append(d128.from_sum_limbs(acc) if kind in _LIMBS else acc)
     if runs:
         starts = torch.cat([torch.nonzero(first).flatten(),
                             live.sum().reshape(1)]).to(torch.int64)
@@ -314,12 +320,12 @@ def _extreme_plain(kind, data, valid, rows, gid, groups):
 
     ok = valid[rows]
     slot = torch.where(ok, gid, torch.full_like(gid, groups))
-    is_min = kind in (S_MIN, S_MIN_LONG, S_MIN_F64)
+    is_min = kind in (S_MIN, S_MIN_LONG, S_MIN_F64, S_MIN_D38)
     if kind in (S_MIN_F64, S_MAX_F64):  # a REAL's extreme through its exact double
         x = data[rows].to(torch.float64)
         return minmax_value(seg_extreme(minmax_key(x, is_min), slot, groups, is_min),
                             is_min).to(data.dtype)
-    if kind in (S_MIN_LONG, S_MAX_LONG):
+    if kind in (S_MIN_LONG, S_MAX_LONG, S_MIN_D38, S_MAX_D38):
         return seg_extreme_long(data[rows], slot, groups, is_min)
     return narrow(seg_extreme(data[rows].to(torch.int64), slot, groups, is_min), data.dtype)
 
@@ -409,9 +415,12 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                 raise ValueError("sorted_group_agg: min_by / max_by data must be (n,) "
                                  "integers, booleans or doubles")
             tensors.append(data)
-        if kind in (S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG):
-            if data is None or data.shape != (n, 2) or data.dtype != torch.int64:
-                raise ValueError("sorted_group_agg: long state data must be (n, 2) int64")
+        if kind in (S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG) + _FIVES:
+            w = 5 if kind in _FIVES else 2
+            if data is None or data.shape != (n, w) or data.dtype != torch.int64 \
+                    or not data.is_contiguous():
+                raise ValueError("sorted_group_agg: long state data must be contiguous (n, 2) "
+                                 "or, wide, (n, 5) int64")
             tensors.append(data)
     states = int_states
     if sum(_WIDTH.get(k, 1) for k, _, _ in states) > MAX_SLOTS:
@@ -445,7 +454,8 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     key_out: List[Tuple[torch.Tensor, torch.Tensor]] = [
         (torch.empty(groups, dtype=d.dtype, device=dev),
          torch.empty(groups, dtype=torch.bool, device=dev)) for d, _, _, _ in keys]
-    outs = [torch.empty((groups, 2) if kind in _PAIRS else (groups,),
+    outs = [torch.empty((groups, 2) if kind in _PAIRS else (groups, 5) if kind in _FIVES
+                        else (groups,),
                         dtype=data.dtype if kind in (S_MIN, S_MAX, S_MIN_F64, S_MAX_F64, S_BY_X)
                         + S_BY_Y else torch.int64, device=dev)
             for kind, data, _ in states]

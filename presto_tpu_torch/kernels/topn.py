@@ -2,8 +2,8 @@
 
 :func:`topn` returns the row ids of the first ``n`` live rows in the
 reference's order (``presto_tpu/ops/sort.py`` ``sort_perm``): key by
-key, the NULL rank then the value (a long decimal limb by limb, high
-limb first; a descending key reversed), then the row position, which
+key, the NULL rank then the value (a long or wide decimal limb by
+limb, most significant first; a descending key reversed), then the row position, which
 is how the reference's stable sorts break ties; a double (or a REAL,
 as its exact double) orders by :func:`double_sort_key`.  Dead rows never qualify.  CUDA tensors
 launch ``csrc/topn.cu``; CPU tensors run :func:`topn_plain`, which
@@ -24,7 +24,7 @@ MAX_KEYS = 16
 THREADS = 64  # csrc/topn.cu K7_THREADS
 _KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 4, torch.int16: 5,
           torch.int8: 6, torch.float32: 7}
-KIND_D128 = 3
+KIND_D128, KIND_D38 = 3, 8
 _FLOAT_KINDS = (_KINDS[torch.float64], _KINDS[torch.float32])
 _I64_MAX = (1 << 63) - 1
 
@@ -34,8 +34,10 @@ wide_launches = 0
 #: launches with a double (or REAL) key, and with a REAL key
 double_launches = 0
 real_launches = 0
+#: launches with a wide decimal (five-limb) key
+d38_launches = 0
 
-# (data (n,) integers or doubles or (n, 2) int64 limbs, valid, ascending,
+# (data (n,) integers or doubles or (n, 2) or (n, 5) int64 limbs, valid, ascending,
 # nulls_first)
 SortKey = Tuple[torch.Tensor, torch.Tensor, bool, bool]
 
@@ -98,7 +100,7 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
         raise ValueError(f"topn: more than {MAX_KEYS} keys")
     if not row_mask.is_cuda:
         return topn_plain(keys, row_mask, n)
-    global launches, wide_launches, double_launches, real_launches
+    global launches, wide_launches, double_launches, real_launches, d38_launches
     rows = row_mask.shape[0]
     if row_mask.dtype != torch.bool or row_mask.dim() != 1 or rows >= (1 << 31):
         raise ValueError("topn: row_mask must be (rows,) bool")
@@ -107,13 +109,14 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     tensors = [row_mask]
     kinds = []
     for data, valid, _, _ in keys:
-        if data.dim() == 2 and data.shape == (rows, 2) and data.dtype == torch.int64:
-            kinds.append(KIND_D128)
+        if data.dim() == 2 and data.shape in ((rows, 2), (rows, 5)) \
+                and data.dtype == torch.int64 and data.is_contiguous():
+            kinds.append(KIND_D128 if data.shape[1] == 2 else KIND_D38)
         elif data.dim() == 1 and data.shape == (rows,) and data.dtype in _KINDS:
             kinds.append(_KINDS[data.dtype])
         else:
             raise ValueError("topn: keys must be (rows,) integers, doubles or REALs, or "
-                             "(rows, 2) int64 limbs")
+                             "contiguous (rows, 2) or (rows, 5) int64 limbs")
         if valid.dtype != torch.bool or valid.shape != (rows,):
             raise ValueError("topn: key validity must be (rows,) bool")
         tensors += [data, valid]
@@ -140,4 +143,5 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     wide_launches += int(n > 32)
     double_launches += int(any(k in _FLOAT_KINDS for k in kinds))
     real_launches += int(_KINDS[torch.float32] in kinds)
+    d38_launches += int(KIND_D38 in kinds)
     return ids, count

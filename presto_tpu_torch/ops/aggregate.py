@@ -17,6 +17,7 @@ presorted (streaming) grouping runs K6 in page order with no sort and
 emits groups in first-appearance order.  count, sum, sum0, avg, min and
 max (over int32/int64 lanes and long decimals) are ported, avg of an
 integer producing a double (K3's finalize), sum and avg over doubles,
+a wide decimal's (decimal(37..38), five limbs) sum, avg, min and max,
 a long sum collapsed to a short decimal (the outer half of the
 mixed-DISTINCT rewrite), and the variance family (stddev, stddev_samp,
 stddev_pop, variance, var_samp, var_pop) over the state ``(s, m2,
@@ -467,7 +468,7 @@ def _state_kind(agg: AggCall) -> int:
     if agg.distinct:
         raise NotPorted("DISTINCT aggregates")
     if agg.filter is not None and agg.arg is not None and not agg.arg.type.is_string \
-            and _lane(agg.arg.type) == "long":
+            and _lane(agg.arg.type) in ("long", "d38"):
         raise NotPorted(f"FILTER over {agg.arg.type}")
     if agg.fn == "count_star":
         return k2.COUNT_STAR if agg.filter is None else k2.COUNT
@@ -478,14 +479,14 @@ def _state_kind(agg: AggCall) -> int:
         st = _sum_type(t)
         if t.name in ("double", "real"):  # a REAL sums in double
             return k2.SUM_DOUBLE
-        if t.is_long_decimal and t.value_shape == (2,):
-            return k2.SUM_LONG_ARG
-        if t.is_long_decimal or t.value_shape != () or st.name in ("double", "real"):
+        if t.is_long_decimal:  # two limbs, or a wide argument's five
+            return k2.SUM_LONG_ARG if t.value_shape == (2,) else k2.SUM_D38
+        if t.value_shape != () or st.name in ("double", "real"):
             raise NotPorted(f"{agg.fn} over {t}")
         return k2.SUM_LONG if st.is_long_decimal else k2.SUM_SHORT
-    if agg.fn in VARIANCE_FNS:
+    if agg.fn in VARIANCE_FNS:  # the argument as a double (a decimal's to_double)
         t = agg.arg.type
-        if t.value_shape != () and not (t.is_long_decimal and t.value_shape == (2,)) \
+        if t.value_shape != () and not t.is_long_decimal \
                 or t.is_string or t.name in ("real", "boolean"):
             raise NotPorted(f"{agg.fn} over {t}")
         return k2.VARIANCE
@@ -494,6 +495,8 @@ def _state_kind(agg: AggCall) -> int:
         is_min = agg.fn == "min"
         if t.is_long_decimal and t.value_shape == (2,):
             return k2.MIN_LONG if is_min else k2.MAX_LONG
+        if t.is_long_decimal:
+            return k2.MIN_D38 if is_min else k2.MAX_D38
         if t.name in ("double", "real"):  # a REAL's extreme in float32
             return k2.MIN_DOUBLE if is_min else k2.MAX_DOUBLE
         if t.is_raw_string or t.value_shape != () or not (
@@ -518,7 +521,7 @@ def _state_kind(agg: AggCall) -> int:
         return k2.CHECKSUM
     if agg.fn in MOMENT_FNS or agg.fn in COVAR_FNS:
         for t in (agg.arg.type, agg.arg2.type if agg.fn in COVAR_FNS else agg.arg.type):
-            if t.value_shape != () and not (t.is_long_decimal and t.value_shape == (2,)) \
+            if t.value_shape != () and not t.is_long_decimal \
                     or t.is_string or t.name in ("real", "boolean", "date", "timestamp"):
                 raise NotPorted(f"{agg.fn} over {t}")
         return k2.MOMENTS if agg.fn in MOMENT_FNS else k2.SUM_DOUBLE
@@ -580,7 +583,7 @@ def _finalize_kind(agg: AggCall) -> int:
         if t.name in NARROW_TYPES:  # in its own storage: int16, int8, float32
             return k3.FIN_VALUE
         if t.is_long_decimal:
-            return k3.FIN_SUM_D128
+            return k3.FIN_SUM_D128 if t.value_shape == (2,) else k3.FIN_SUM_D38
         if t.name == "double":
             return k3.FIN_SUM_F64
         if t.name == "boolean":
@@ -617,6 +620,10 @@ def _finalize_kind(agg: AggCall) -> int:
             if zero:
                 raise NotPorted("sum0 over double")
             return k3.FIN_SUM_F64
+        if st.value_shape == (5,):  # a wide sum
+            if zero or not agg.type.is_long_decimal:
+                raise NotPorted(f"{agg.fn} over {agg.arg.type} producing {agg.type}")
+            return k3.FIN_SUM_D38
         if st.is_long_decimal and agg.type.is_decimal and not agg.type.is_long_decimal:
             # the outer half of a decomposed sum: limbs back to one int64
             return k3.FIN_SUM0_COLLAPSE if zero else k3.FIN_SUM_COLLAPSE
@@ -625,6 +632,8 @@ def _finalize_kind(agg: AggCall) -> int:
         return k3.FIN_SUM0 if zero else k3.FIN_SUM
     if st.name == "double":
         return k3.FIN_AVG_F64
+    if st.value_shape == (5,):  # a wide argument's mean, in its type
+        return k3.FIN_AVG_D38
     if t.is_decimal and st.is_long_decimal:
         return k3.FIN_AVG_D128 if t.is_long_decimal else k3.FIN_AVG_D128_NARROW
     if t.is_decimal or t.name.startswith("interval"):
@@ -1046,10 +1055,12 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
 
 
 _K6_SUM = {k2.SUM_SHORT: k6.S_SUM, k2.SUM_LONG: k6.S_LIMBS_SHORT,
-           k2.SUM_LONG_ARG: k6.S_LIMBS_LONG, k2.SUM_DOUBLE: k6.S_DSUM}
+           k2.SUM_LONG_ARG: k6.S_LIMBS_LONG, k2.SUM_DOUBLE: k6.S_DSUM,
+           k2.SUM_D38: k6.S_LIMBS_D38}
 _K6_EXTREME = {k2.MIN_SHORT: k6.S_MIN, k2.MAX_SHORT: k6.S_MAX, k2.MIN_LONG: k6.S_MIN_LONG,
                k2.MAX_LONG: k6.S_MAX_LONG, k2.MIN_DOUBLE: k6.S_MIN_F64,
-               k2.MAX_DOUBLE: k6.S_MAX_F64}
+               k2.MAX_DOUBLE: k6.S_MAX_F64, k2.MIN_D38: k6.S_MIN_D38,
+               k2.MAX_D38: k6.S_MAX_D38}
 # the other (value, count) states: bool_and/bool_or's count of true rows
 # (a sum of the boolean), the bitwise folds, hll_merge's sum of 2^-rho
 _K6_STATE = {**_K6_EXTREME, k2.BOOL_COUNT: k6.S_SUM, k2.BIT_AND: k6.S_BAND,
@@ -1136,8 +1147,9 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
         elif cols[0].type.name == "double":
             states.append((k6.S_DSUM, cols[0].data, live))
             states.append((k6.S_SUM, cols[1].data, live))
-        elif cols[0].type.is_long_decimal:
-            states.append((k6.S_LIMBS_LONG, cols[0].data, cols[1].data > 0))
+        elif cols[0].type.is_long_decimal:  # a wide sum's five limbs add as they are
+            states.append((k6.S_LIMBS_D38 if cols[0].type.value_shape == (5,)
+                           else k6.S_LIMBS_LONG, cols[0].data, cols[1].data > 0))
             states.append((k6.S_SUM, cols[1].data, live))
         else:
             states.append((k6.S_SUM, cols[0].data, live))
@@ -1297,7 +1309,8 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
             elif agg.fn in ("min", "max") and j == 0:
                 # a REAL folds as a double (float32 storage), a SMALLINT
                 # or TINYINT as an int64 (its own storage)
-                wide = "d128" if t.is_long_decimal else \
+                wide = "d38" if t.value_shape == (5,) else \
+                    "d128" if t.is_long_decimal else \
                     "f64" if t.name in ("double", "real") else \
                     "bool" if t.name == "boolean" else \
                     "i32" if np.dtype(t.np_dtype) == np.dtype(np.int32) else "i64"
@@ -1307,7 +1320,8 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
             elif t.name == "double":
                 kinds.append(k3.COL_F64)
             else:
-                kinds.append(k3.COL_D128 if t.is_long_decimal else k3.COL_I64)
+                kinds.append(k3.COL_D38 if t.value_shape == (5,) else
+                             k3.COL_D128 if t.is_long_decimal else k3.COL_I64)
 
     outs, mask = k3.packed_fold([(k, x.data, x.valid) for k, x in zip(kinds, sa)],
                                 [(k, x.data, x.valid) for k, x in zip(kinds, sb)],
@@ -1336,6 +1350,7 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
 _K3_EXTREME = {("min", "i64"): k3.COL_MIN_I64, ("max", "i64"): k3.COL_MAX_I64,
                ("min", "i32"): k3.COL_MIN_I32, ("max", "i32"): k3.COL_MAX_I32,
                ("min", "d128"): k3.COL_MIN_D128, ("max", "d128"): k3.COL_MAX_D128,
+               ("min", "d38"): k3.COL_MIN_D38, ("max", "d38"): k3.COL_MAX_D38,
                ("min", "f64"): k3.COL_MIN_F64, ("max", "f64"): k3.COL_MAX_F64,
                ("min", "bool"): k3.COL_MIN_BOOL, ("max", "bool"): k3.COL_MAX_BOOL}
 

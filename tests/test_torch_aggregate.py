@@ -330,21 +330,29 @@ def _merge(mode, huge, hashed):
     _live_rows_equal(got, ref)
 
 
-@pytest.mark.parametrize("t, error", [("decimal(36,4)", ValueError)])
+@pytest.mark.parametrize("t, error", [("decimal(36,4)", ValueError),
+                                      ("decimal(38,2)", ValueError)])
 def test_hashed_key_types_outside_the_port(t, error):
-    """A long-decimal key raises in both packages."""
+    """A long-decimal key, two limbs or five, raises in both packages."""
     import torch
 
     from presto_tpu_torch.page import Block, Page
 
     n = 64
-    data = torch.zeros((n, 2), dtype=torch.int64)
+    shape = (n,) + port_type(t).value_shape
+    data = torch.zeros(shape, dtype=torch.int64)
     page = Page((Block(data, torch.ones(n, dtype=torch.bool), port_type(t)),),
                 torch.ones(n, dtype=torch.bool))
     aggs = _aggs(port_ir, port_type, port_agg, [("count_star", None)])
     with pytest.raises(error):
         port_agg.grouped_aggregate(page, [port_ir.ColumnRef(type=port_type(t), index=0)],
                                    aggs, 1 << 16, key_domains=[None], mode="partial")
+    ref_page = RefPage((RefBlock(jnp.zeros(shape, jnp.int64), jnp.ones(n, jnp.bool_),
+                                 ref_type(t)),), jnp.ones(n, jnp.bool_))
+    with pytest.raises(error):
+        ref_agg.grouped_aggregate(ref_page, [ref_ir.ColumnRef(type=ref_type(t), index=0)],
+                                  _aggs(ref_ir, ref_type, ref_agg, [("count_star", None)]),
+                                  1 << 16, key_domains=[None], mode="partial")
 
 
 def test_double_keys_truncate_as_the_reference_known_fault():

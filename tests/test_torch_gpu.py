@@ -2267,3 +2267,213 @@ def test_twelfth_slice_on_the_card_equals_the_cpu_run():
     assert all(x > y for x, y in zip((k15.launches, k15.merge_launches, k16.launches,
                                       k16.merge_launches, k14.wide_launches,
                                       k14.union_launches), before))
+
+
+# -- the thirteenth slice: DECIMAL(37..38) ----------------------------------------
+
+def _d38_limbs(rng, n: int, digits: int = 38, signed: bool = True) -> np.ndarray:
+    """(n, 5) canonical wide limbs of values of 1 to ``digits`` digits, a
+    tenth of them +-(10^38 - 1) or a limb boundary 10^(9k) +- 1, signed
+    or not (vectorised: a card test's pages hold 2^20 rows)."""
+    from presto_tpu_torch.ops import decimal128 as d128
+
+    limbs = rng.integers(0, 10 ** 9, (n, 5))
+    d = rng.integers(1, digits + 1, n)
+    for j in range(5):  # limb j holds the digits 9 (4 - j) and up
+        limbs[:, j] %= 10 ** np.clip(d - 9 * (4 - j), 0, 9)
+    edges = [e for e in [10 ** 38 - 1, 0, 1] + [10 ** (9 * k) + x for k in (1, 2, 3, 4)
+                                                 for x in (-1, 1)] if e < 10 ** digits]
+    table = d128.encode_py(edges, len(edges), 5)
+    pick = rng.random(n) < 0.1
+    limbs[pick] = table[rng.integers(0, len(edges), int(pick.sum()))]
+    t = torch.from_numpy(limbs)
+    if signed:
+        t = torch.where(torch.from_numpy(rng.random(n) < 0.5)[:, None], d128.neg(t), t)
+    return t.numpy()
+
+
+def _d38_page(n: int, seed: int, device) -> Page:
+    """Wide columns (signed, non-negative, small), a short and a long
+    decimal, a bigint, a double and a small group key, with NULLs and
+    dead rows."""
+    from presto_tpu_torch.ops import decimal128 as d128
+
+    rng = np.random.default_rng(seed)
+    long = d128.narrow_long(torch.from_numpy(_d38_limbs(rng, n, digits=30))).numpy()
+    data = [_d38_limbs(rng, n), _d38_limbs(rng, n, signed=False),
+            _d38_limbs(rng, n, digits=20, signed=False),
+            rng.integers(-10 ** 9, 10 ** 9, n), long,
+            rng.integers(-10 ** 6, 10 ** 6, n), rng.normal(size=n) * 1e6,
+            rng.integers(0, 12, n)]
+    types = ["decimal(38,2)", "decimal(38,2)", "decimal(38,4)", "decimal(12,2)",
+             "decimal(36,4)", "bigint", "double", "bigint"]
+    blocks = [Block(torch.from_numpy(np.ascontiguousarray(d)).to(device),
+                    torch.from_numpy(rng.random(n) >= 0.1).to(device), parse_type(t))
+              for d, t in zip(data, types)]
+    return Page(tuple(blocks), torch.from_numpy(rng.random(n) >= 0.1).to(device))
+
+
+_WN, _WP, _WQ = _col(0, "decimal(38,2)"), _col(1, "decimal(38,2)"), _col(2, "decimal(38,4)")
+_S13, _L13, _B13, _X13 = (_col(3, "decimal(12,2)"), _col(4, "decimal(36,4)"),
+                          _col(5, "bigint"), _col(6, "double"))
+SLICE13_EXPRS = [
+    _call("add", "decimal(38,2)", _WN, _WP), _call("sub", "decimal(38,2)", _WN, _S13),
+    _call("add", "decimal(38,4)", _WN, _L13), _call("neg", "decimal(38,2)", _WN),
+    _call("abs", "decimal(38,2)", _WN), _call("sign", "bigint", _WN),
+    _call("mul", "decimal(38,6)", _WQ, _S13), _call("mul", "decimal(38,2)", _B13, _WN),
+    _call("lt", "boolean", _WN, _WP), _call("ge", "boolean", _WQ, _S13),
+    _call("eq", "boolean", _WN, _L13), _call("cast_double", "double", _WN),
+    _call("cast_bigint", "bigint", _WQ), _call("cast_decimal", "decimal(12,2)", _WQ),
+    _call("cast_decimal", "decimal(38,0)", _WN),
+    _call("cast_decimal", "decimal(38,30)", _WN),  # past 45 digits: wraps
+    _call("cast_decimal", "decimal(36,4)", _WQ), _call("cast_decimal", "decimal(38,2)", _X13),
+    _call("cast_decimal", "decimal(38,6)", _S13),
+    _call("greatest", "decimal(38,2)", _WN, _WP), _call("least", "decimal(38,2)", _WN, _WP),
+    _call("coalesce", "decimal(38,2)", _WN, _WP),
+    _call("case", "decimal(38,2)", _call("gt", "boolean", _B13, _lit(0, "bigint")), _WN,
+          _call("neg", "decimal(38,2)", _WP)),
+    _call("add", "decimal(38,4)", _WP, _lit(1234567890123456780000, "decimal(22,4)")),
+    _call("gt", "boolean", _WN, _lit(12345678901234567890123456789012345678,
+                                     "decimal(38,2)")),
+]
+
+
+@pytest.mark.parametrize("i", range(len(SLICE13_EXPRS)))
+def test_expr_eval_d38_opcodes_match_plain(i):
+    """K1's five-limb instance (D38 opcodes, LIT_LONG) against the twin on
+    the card, bit for bit, the wraps included."""
+    dev = _cuda()
+    page = _d38_page(1 << 18, 1300 + i, dev)
+    prog, cols = ExprCompiler.for_page(page).lower(SLICE13_EXPRS[i])
+    assert prog.limbs == 5
+    ins = [(page.blocks[c].data, page.blocks[c].valid) for c in cols]
+    got = k1.expr_eval(prog, ins, page.capacity)
+    want = k1.expr_eval_plain(prog, ins, page.capacity)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+    if SLICE13_EXPRS[i].type.name == "boolean":
+        assert torch.equal(k1.expr_eval(prog, ins, page.capacity, row_mask=page.row_mask),
+                           k1.expr_eval_plain(prog, ins, page.capacity, row_mask=page.row_mask))
+
+
+def _d38_args(page):
+    b = page.blocks
+    return [(k2.SUM_D38, b[0].data, b[0].valid), (k2.MIN_D38, b[0].data, b[0].valid),
+            (k2.MAX_D38, b[1].data, b[1].valid), (k2.SUM_D38, b[2].data, b[2].valid),
+            (k2.COUNT, b[0].valid, b[0].valid)]
+
+
+@pytest.mark.parametrize("slots", [1, 13, 16384])
+def test_packed_group_agg_d38_states_match_plain(slots):
+    """K2's wide sum, min and max (five phased launches for the
+    extremes), global, in shared memory and in the device table."""
+    dev = _cuda()
+    page = _d38_page(1 << 20, 1400 + slots, dev)
+    b = page.blocks
+    keys = [] if slots == 1 else [(b[7].data, b[7].valid, 0, 13)] if slots == 13 else \
+        [(torch.remainder(b[5].data, 16383), b[5].valid, 0, 16384)]
+    args = _d38_args(page)
+    got = k2.packed_group_agg(page.capacity, page.row_mask, keys, args, slots)
+    want = k2.packed_group_agg_plain(page.capacity, page.row_mask, keys, args, slots)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_sorted_group_agg_d38_states_match_plain(presorted):
+    """K6's wide sum, min and max over sorted runs, and its merge of
+    wide partial states."""
+    dev = _cuda()
+    page = _d38_page(1 << 20, 1500 + presorted, dev)
+    b = page.blocks
+    keys = [(b[7].data, b[7].valid, 0, 0)] if presorted else [(b[5].data, b[5].valid, 0, 0)]
+    states = [(k6.S_LIMBS_D38, b[0].data, b[0].valid), (k6.S_MIN_D38, b[0].data, b[0].valid),
+              (k6.S_MAX_D38, b[1].data, b[1].valid), (k6.S_VALID, None, b[0].valid)]
+    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted)
+    want = k6.sorted_group_agg_plain(keys, page.row_mask, states, presorted)
+    torch.cuda.synchronize()
+    assert got[2] == want[2] > 10
+    assert _equal(got[:2], want[:2])
+    # the merge: the partials' wide sums and extremes, live where counted
+    g = got[2]
+    live = got[1][3] > 0
+    mkeys = [(torch.remainder(got[0][0][0], 7), got[0][0][1], 0, 0)]
+    mstates = [(k6.S_LIMBS_D38, got[1][0], live), (k6.S_MIN_D38, got[1][1], live),
+               (k6.S_SUM, got[1][3], torch.ones(g, dtype=torch.bool, device=dev))]
+    mask = torch.ones(g, dtype=torch.bool, device=dev)
+    assert _equal(k6.sorted_group_agg(mkeys, mask, mstates)[:2],
+                  k6.sorted_group_agg_plain(mkeys, mask, mstates)[:2])
+
+
+def test_packed_fold_finalize_d38_match_plain():
+    """K3's wide fold (limb sums, lexicographic min/max) and its wide sum
+    and HALF_UP avg finalizes."""
+    dev = _cuda()
+    tables = []
+    for seed in (1601, 1602):
+        page = _d38_page(1 << 18, seed, dev)
+        b = page.blocks
+        args = [(k2.SUM_D38, b[0].data, b[0].valid), (k2.MIN_D38, b[0].data, b[0].valid),
+                (k2.MAX_D38, b[1].data, b[1].valid)]
+        tables.append(k2.packed_group_agg(page.capacity, page.row_mask,
+                                          [(b[7].data, b[7].valid, 0, 13)], args, 13))
+    kinds = [k3.COL_D38, k3.COL_I64, k3.COL_MIN_D38, k3.COL_I64, k3.COL_MAX_D38, k3.COL_I64]
+
+    def cols(states, present):
+        return [(k, t, present) for k, t in zip(kinds, [t for st in states for t in st])]
+
+    got = k3.packed_fold(cols(*tables[0]), cols(*tables[1]), tables[0][1], tables[1][1])
+    want = k3.packed_fold_plain(cols(*tables[0]), cols(*tables[1]), tables[0][1],
+                                tables[1][1])
+    assert _equal(got, want)
+    f = [d for d, _ in got[0]]
+    items = [(k3.FIN_SUM_D38, f[0], f[1]), (k3.FIN_AVG_D38, f[0], f[1]),
+             (k3.FIN_SUM_D38, f[2], f[3])]
+    got = k3.packed_finalize(items, got[1])
+    want = k3.packed_finalize_plain(items, want[1])
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("n", [10, 100])
+def test_topn_d38_key_matches_plain(n):
+    """K7 over a wide key, ascending and descending, NULLs first or last."""
+    dev = _cuda()
+    page = _d38_page(1 << 20, 1700 + n, dev)
+    b = page.blocks
+    for keys in ([(b[0].data, b[0].valid, False, False), (b[5].data, b[5].valid, True, True)],
+                 [(b[1].data, b[1].valid, True, True)]):
+        got, want = k7.topn(keys, page.row_mask, n), k7.topn_plain(keys, page.row_mask, n)
+        torch.cuda.synchronize()
+        assert _equal(list(got), list(want))
+
+
+def test_thirteenth_slice_on_the_card_equals_the_cpu_run():
+    """The smoke's D38 queries at sf 0.01 over lineitem_d38 on the card
+    (K1's D38 instance, K2/K3/K6's wide states, K7's wide key), equal to
+    the CPU run."""
+    _cuda()
+    import chip_smoke
+    from presto_tpu_torch.catalog import Catalog
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.connectors.tpch import Tpch
+    from presto_tpu_torch.runner import QueryRunner
+
+    runners = {}
+    for device in ("cuda", "cpu"):
+        mem = MemoryConnector(device=device)
+        for t in ("lineitem", "orders"):
+            mem.load_from(Tpch(sf=0.01, split_rows=1 << 14), t)
+        chip_smoke.make_lineitem_d38(mem)
+        catalog = Catalog()
+        catalog.register("tpch", mem)
+        runners[device] = QueryRunner(catalog, device=device)
+    k1.op_launches.clear()
+    k2.kind_launches.clear()
+    k6.kind_launches.clear()
+    before = k7.d38_launches
+    for sql in chip_smoke.D38_QUERIES.values():
+        got, want = runners["cuda"].execute(sql).rows, runners["cpu"].execute(sql).rows
+        assert got == want and got, sql
+    assert k1.op_launches.get("d38") and k2.kind_launches.get("d38")
+    assert k6.kind_launches.get("d38") and k7.d38_launches > before

@@ -39,8 +39,9 @@ NOT_PORTED = {
         "select count(*) from customer where c_first_name < c_last_name",
         "ordered comparison (lt) of two string columns"),
     "long_decimal_38": (
-        "select sum(cast(ss_sales_price as decimal(38,2))) from store_sales",
-        "sum over decimal(38,2)"),
+        "select sum(cast(ss_sales_price as decimal(38,2)) * cast(ss_list_price as "
+        "decimal(38,2))) from store_sales",
+        "long-decimal x long-decimal mul unsupported"),
     "min_by_over_real": (
         "select min_by(ss_item_sk, cast(ss_sales_price as real)) from store_sales",
         "min_by over real"),
@@ -54,6 +55,10 @@ FORMER_PINS = {
     "pushed_down_limit_scan": "select ss_item_sk from store_sales limit 3",
     "cast_bigint": "select cast(ss_sales_price as bigint) c from store_sales "
                    "where ss_quantity > 3",
+    # and until the thirteenth (DECIMAL(37..38)); the wide x wide product
+    # above stays refused, as in the reference
+    "long_decimal_38_sum": "select sum(cast(ss_sales_price as decimal(38,2))) "
+                           "from store_sales",
 }
 
 

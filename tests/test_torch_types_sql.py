@@ -180,8 +180,7 @@ def test_out_of_range_cast_equals_the_reference_at_run_time():
 
 
 @pytest.mark.parametrize("sql,what", [
-    ("select cast(l_extendedprice as decimal(38,2)) * 2 from lineitem",
-     "expressions over decimal(38,2)"),
+    ("select cast(l_extendedprice as decimal(38,2)) - l_tax from lineitem", None),
     ("select max(l_quantity, 3) from lineitem", None),
     ("select round(cast(l_tax as real), 1) from lineitem", "round of real"),
     ("select min_by(l_orderkey, cast(l_tax as real)) from lineitem", "min_by over real"),
@@ -193,7 +192,7 @@ def test_out_of_range_cast_equals_the_reference_at_run_time():
 def test_families_left_out_raise_by_name(sql, what):
     """What this slice leaves out raises NotPorted with its family's name;
     what a later slice ported (``what`` None: max(x, n), the twelfth
-    slice) equals the reference."""
+    slice; DECIMAL(38), the thirteenth) equals the reference."""
     if what is None:
         _pair().check(sql)
         return
