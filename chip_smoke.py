@@ -546,6 +546,118 @@ def make_lineitem_d38(conn, name: str = D38_TABLE) -> None:
                       sort_order=conn.sort_order("lineitem"))
 
 
+# the fourteenth slice: raw (non-dictionary) VARCHAR copies of TPC-H's
+# per-row text at its declared widths (varchar(79), (25), (40), (15),
+# (55)); the table's other columns are the source's own tensors
+RAW_TABLES = {"orders_raw": ("orders", {"o_comment": 79}),
+              "customer_raw": ("customer", {"c_name": 25, "c_address": 40, "c_phone": 15}),
+              "part_raw": ("part", {"p_name": 55}),
+              "supplier_raw": ("supplier", {"s_name": 25})}
+_CNTRY = "('13', '31', '23', '29', '30', '18', '17')"
+RAW_QUERIES = {
+    "raw_q13": "select c_count, count(*) as custdist from (select c_custkey, "
+               "count(o_orderkey) as c_count from customer left outer join orders_raw on "
+               "c_custkey = o_custkey and o_comment not like '%special%requests%' "
+               "group by c_custkey) as c_orders group by c_count "
+               "order by custdist desc, c_count desc",
+    "raw_q9": "select nation, o_year, sum(amount) as sum_profit from (select n_name as nation, "
+              "extract(year from o_orderdate) as o_year, l_extendedprice * (1 - l_discount) "
+              "- ps_supplycost * l_quantity as amount from part_raw, supplier, lineitem, "
+              "partsupp, orders, nation where s_suppkey = l_suppkey and ps_suppkey = l_suppkey "
+              "and ps_partkey = l_partkey and p_partkey = l_partkey and o_orderkey = l_orderkey "
+              "and s_nationkey = n_nationkey and p_name like '%green%') as profit "
+              "group by nation, o_year order by nation, o_year desc",
+    "raw_q10": "select c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) as revenue, "
+               "c_acctbal, n_name, c_address, c_phone from customer_raw, orders, lineitem, "
+               "nation where c_custkey = o_custkey and l_orderkey = o_orderkey "
+               "and o_orderdate >= date '1993-10-01' "
+               "and o_orderdate < date '1993-10-01' + interval '3' month "
+               "and l_returnflag = 'R' and c_nationkey = n_nationkey "
+               "group by c_custkey, c_name, c_acctbal, c_phone, n_name, c_address "
+               "order by revenue desc, c_custkey limit 20",
+    "raw_q22": "select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal from ("
+               "select substring(c_phone from 1 for 2) as cntrycode, c_acctbal "
+               "from customer_raw where substring(c_phone from 1 for 2) in " + _CNTRY +
+               " and c_acctbal > (select avg(c_acctbal) from customer_raw "
+               "where c_acctbal > 0.00 and substring(c_phone from 1 for 2) in " + _CNTRY +
+               ")) as custsale group by cntrycode order by cntrycode",
+    "raw_q20": "select s_name, s_address from supplier_raw, nation where s_suppkey in ("
+               "select ps_suppkey from partsupp where ps_partkey in (select p_partkey "
+               "from part_raw where p_name like 'forest%') and ps_availqty > (select 0.5 * "
+               "sum(l_quantity) from lineitem where l_partkey = ps_partkey "
+               "and l_suppkey = ps_suppkey and l_shipdate >= date '1994-01-01' "
+               "and l_shipdate < date '1994-01-01' + interval '1' year)) "
+               "and s_nationkey = n_nationkey and n_name = 'CANADA' order by s_name",
+    "raw_extremes": "select c_nationkey, min(c_phone) as lo_phone, max(c_name) as hi_name, "
+                    "min(c_address) as lo_address, count(distinct c_address) as addresses "
+                    "from customer_raw group by c_nationkey order by c_nationkey",
+    "raw_order": "select c_custkey, c_address from customer_raw order by c_address limit 100",
+    "raw_order_sorted": "select c_custkey, c_name from customer_raw order by c_name desc "
+                        "limit 1000",
+    "raw_functions": "select c_custkey, upper(c_name) || ' / ' || c_phone as tag, "
+                     "length(c_address) as len, strpos(c_address, 'a') as pos, "
+                     "codepoint(c_name) as cp, ends_with(c_address, 'e') as tail, "
+                     "starts_with(c_phone, '1') as one, case when c_acctbal > 0 then c_name "
+                     "else 'in debt' end as who, coalesce(nullif(c_phone, '10-100-100-1000'), "
+                     "'none') as phone from customer_raw order by c_custkey limit 100",
+    "raw_join": "select count(*) as pairs, count_if(a.c_custkey <> b.c_custkey) as shared "
+                "from customer_raw a join customer_raw b on a.c_phone = b.c_phone",
+    "raw_window": "select c_custkey, c_phone, rank() over (partition by c_nationkey "
+                  "order by c_phone) as r from customer_raw order by c_custkey limit 100",
+}
+# what each raw query must launch (K17's modes by name)
+_K17 = "raw_string_eval:"
+RAW_REQUIRED = {
+    "raw_q13": (_K17 + "like", "join_build", "sorted_group_agg|packed_group_agg"),
+    "raw_q9": (_K17 + "like", "join_build", "sorted_group_agg|packed_group_agg"),
+    "raw_q10": (_K17 + "hash", "sorted_group_agg", "topn"),
+    "raw_q22": (_K17 + "substr", _K17 + "in", _K17 + "hash", "sorted_group_agg"),
+    "raw_q20": (_K17 + "like", _K17 + "pack", "join_build"),
+    "raw_extremes": ("packed_group_agg:lanes", "sorted_group_agg:lanes", _K17 + "hash",
+                     _K17 + "pack", _K17 + "unpack"),
+    "raw_order": ("topn:lanes", _K17 + "pack"),
+    "raw_order_sorted": ("topn:sorted", _K17 + "pack"),
+    "raw_functions": (_K17 + "case_map", _K17 + "concat", _K17 + "len", _K17 + "strpos",
+                      _K17 + "codepoint", _K17 + "suffix", _K17 + "prefix", _K17 + "select",
+                      _K17 + "cmp", "topn"),
+    "raw_join": (_K17 + "hash", "join_build"),
+    "raw_window": ("window_eval:lanes", _K17 + "pack", "window_eval"),
+}
+
+
+def make_raw_tables(conn) -> None:
+    """Register ``RAW_TABLES`` in ``conn`` (a MemoryConnector holding their
+    sources): each text column's dictionary values encoded once on the
+    host (``encode_strings``), then each row's bytes gathered by its code
+    on the connector's device."""
+    from presto_tpu_torch.ops.rawstring import encode_strings
+    from presto_tpu_torch.page import Block, Page
+    from presto_tpu_torch.types import VarcharType
+
+    for name, (src, widths) in RAW_TABLES.items():
+        schema = conn.schema(src)
+        cols = [c for c, _ in schema]
+        encoded = {}  # (column, id(dictionary)) -> its values' byte rows
+        pages = []
+        for split in range(conn.num_splits(src)):
+            page = conn.page_for_split(src, split)
+            blocks = list(page.blocks)
+            for c, w in widths.items():
+                b = blocks[cols.index(c)]
+                key = (c, id(b.dictionary))
+                if key not in encoded:
+                    encoded[key] = torch.from_numpy(
+                        encode_strings(list(b.dictionary.values), w)).to(conn.device)
+                table = encoded[key]
+                codes = torch.clamp(b.data.to(torch.int64), 0, table.shape[0] - 1)
+                blocks[cols.index(c)] = Block(table[codes], b.valid, VarcharType(w, raw=True))
+            pages.append(Page(tuple(blocks), page.row_mask))
+        domains = {c: conn.column_domain(src, c) for c in cols if c not in widths}
+        conn.create_table(name, [(c, VarcharType(widths[c], raw=True) if c in widths else t)
+                                 for c, t in schema], pages, domains, conn.primary_key(src),
+                          sort_order=conn.sort_order(src))
+
+
 def _spill_sql() -> dict:
     """AGG_SQL, JOIN_SQL and FULL_SQL of ``tests/test_spill.py``, read
     without importing it (it imports the JAX package)."""
@@ -901,6 +1013,27 @@ REPLACES = {
     "sorted_group_agg@d38": "presto_tpu/ops/aggregate.py:1644",
     "sorted_group_agg@d38_merge": "presto_tpu/ops/aggregate.py:1062",
     "topn@d38": "presto_tpu/ops/sort.py:121",
+    "raw_string_eval": "presto_tpu/ops/rawstring.py:65",
+    "raw_string_eval@like": "presto_tpu/expr/compile.py:2842",
+    "raw_string_eval@cmp": "presto_tpu/ops/rawstring.py:65",
+    "raw_string_eval@in": "presto_tpu/expr/compile.py:2956",
+    "raw_string_eval@substr": "presto_tpu/ops/rawstring.py:91",
+    "raw_string_eval@case_map": "presto_tpu/ops/rawstring.py:111",
+    "raw_string_eval@concat": "presto_tpu/ops/rawstring.py:131",
+    "raw_string_eval@len": "presto_tpu/expr/compile.py:2870",
+    "raw_string_eval@strpos": "presto_tpu/expr/compile.py:2870",
+    "raw_string_eval@codepoint": "presto_tpu/expr/compile.py:2870",
+    "raw_string_eval@prefix": "presto_tpu/expr/compile.py:2842",
+    "raw_string_eval@suffix": "presto_tpu/expr/compile.py:2842",
+    "raw_string_eval@pack": "presto_tpu/ops/rawstring.py:157",
+    "raw_string_eval@unpack": "presto_tpu/ops/rawstring.py:177",
+    "raw_string_eval@hash": "presto_tpu/ops/rawstring.py:147",
+    "raw_string_eval@select": "presto_tpu/expr/compile.py:3416",
+    "packed_group_agg@raw_lanes": "presto_tpu/ops/aggregate.py:1627",
+    "sorted_group_agg@raw_lanes": "presto_tpu/ops/aggregate.py:1627",
+    "sorted_group_agg@raw_lanes_merge": "presto_tpu/ops/aggregate.py:1085",
+    "topn@raw": "presto_tpu/ops/sort.py:77",
+    "window_eval@raw": "presto_tpu/ops/window.py:127",
 }
 
 
@@ -1826,7 +1959,7 @@ def same_bits(a, b, what: str) -> int:
     return same(bits(a), bits(b), what)
 
 
-def k10_row(report: KernelReport, name: str, inputs) -> None:
+def k10_row(report: KernelReport, name: str, inputs, counter=None) -> None:
     """K10 against its plain version on ``inputs`` (``window_inputs``:
     the permutation, row mask, partition key, order keys, functions and
     arguments); bound: each input read once, each output written once."""
@@ -1840,7 +1973,7 @@ def k10_row(report: KernelReport, name: str, inputs) -> None:
     in_bytes = nbytes(perm, mask, pkey, *[t for c in order for t in c],
                       *[t for a in args if a is not None for t in a])
     report.add(name, "cuda", "presto_tpu_torch/csrc/window_eval.cu", err, ms, plain,
-               in_bytes + nbytes(*[t for o in got for t in o]))
+               in_bytes + nbytes(*[t for o in got for t in o]), counter=counter)
     log(f"{name}: {perm.shape[0]} rows, {int(mask.sum())} live, "
         f"{len(funcs)} functions ({', '.join(k10.KIND_NAMES[f.kind] for f in funcs)})")
 
@@ -3693,6 +3826,208 @@ def check_decimal38_kernels(report: KernelReport, mem) -> None:
                nbytes(gmask, *[t for k in keys7 for t in k[:2]], *got), None, "topn:d38")
 
 
+def raw_query_tables(conn) -> dict:
+    """The tables and columns the raw queries may read: TPC-H's and the
+    raw copies ``conn`` holds."""
+    return {**TABLES, **{t: [c for c, _ in conn.schema(t)] for t in RAW_TABLES}}
+
+
+def raw_read_bytes(mode: int, a, kw) -> int:
+    """The bytes of ``a``'s rows a K17 mode must read on this run's data
+    (the rest of its bound counts the other inputs and the output
+    once): a comparison up to each row's first differing byte (IN: the
+    last literal to differ), a prefix its needle's bytes, codepoint the
+    first character, substr the characters it keeps and the next one's
+    lead, length, ends_with, LIKE and an absent needle up to each row's
+    end (its first padding byte), a present one through its first
+    occurrence; every other mode the whole width."""
+    from presto_tpu_torch.kernels import raw_string_eval as k17
+
+    n, w = a.shape
+    ends = torch.clamp((a != 0).sum(1) + 1, max=w)  # through the first padding byte
+
+    def first_diff(lit):
+        diff = a != k17._pad(lit, w)[:, :w]
+        return torch.where(diff.any(1), torch.argmax(diff.to(torch.int8), 1) + 1, w)
+
+    if mode == k17.CMP:
+        need = first_diff(kw["b"])
+    elif mode == k17.IN:
+        need = torch.stack([first_diff(kw["b"][j:j + 1]) for j in range(kw["b"].shape[0])],
+                           1).max(1).values
+    elif mode == k17.PREFIX:
+        need = torch.full_like(ends, min(len(kw["tokens"]), w))
+    elif mode == k17.CODEPOINT:
+        lead = a[:, 0].to(torch.int64)
+        need = torch.where(lead < 0xC0, 1, torch.where(lead < 0xE0, 2,
+                                                       torch.where(lead < 0xF0, 3, 4)))
+    elif mode == k17.SUBSTR and kw.get("flag"):
+        starts = torch.cumsum(((a != 0) & ((a & 0xC0) != 0x80)).to(torch.int32), 1)
+        last = kw.get("start", 1) - 1 + (kw["length"] if kw.get("length") is not None else w)
+        need = torch.clamp((starts <= last).sum(1) + 1, max=w)
+    elif mode == k17.STRPOS:
+        # a one-byte (ASCII) needle: through its first occurrence, else the row's end
+        hit = a == kw["tokens"][0]
+        need = torch.where(hit.any(1), torch.argmax(hit.to(torch.int8), 1) + 1, ends)
+    elif mode in (k17.LEN, k17.SUFFIX, k17.LIKE) and (mode != k17.LEN or kw.get("flag")):
+        need = ends
+    else:
+        return a.numel() * a.element_size()
+    return int(need.sum())
+
+
+def check_rawstring_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the fourteenth slice, over ``orders_raw``'s first 2^23-row
+    split (o_comment as raw_varchar(79)) and ``customer_raw`` (c_name
+    (25), c_address (40), c_phone (15)): each K17 mode against its twin
+    (run on the card), bit for bit, the raw queries' own calls; K2's raw
+    extremes by c_nationkey, K6's by a hashed raw key and their merge
+    over two halves of the rows; K7 and K10 over the pages and keys the
+    raw_order query's top-n (c_address's five lanes) and the raw_window
+    query's window (rank by c_phone's lanes) give them.  The library time:
+    ``torch.isin`` over the first lane where an IN's values fit one lane
+    (the second lane is padding in every row), ``torch.where`` for the
+    row select; no single PyTorch call computes the other modes (byte
+    rows compared lexicographically, UTF-8 decoded, FNV-1a hashed)."""
+    from presto_tpu_torch.kernels import packed_group_agg as k2
+    from presto_tpu_torch.kernels import raw_string_eval as k17
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.kernels import topn as k7
+    from presto_tpu_torch.ops import rawstring as rs
+
+    def column(table, col):
+        page = mem.page_for_split(table, 0)
+        return page, page.blocks[[c for c, _ in mem.schema(table)].index(col)]
+
+    opage, comment = column("orders_raw", "o_comment")
+    cpage, name = column("customer_raw", "c_name")
+    _, addr = column("customer_raw", "c_address")
+    _, phone = column("customer_raw", "c_phone")
+    _, nation = column("customer_raw", "c_nationkey")
+    _, acct = column("customer_raw", "c_acctbal")
+    dev = name.data.device
+    codes = ["13", "31", "23", "29", "30", "18", "17"]
+    head = rs.substr_chars(phone.data, 1, 2)
+    lits = rs.literal_rows(codes, 15, dev)
+    head0, lits0 = rs.pack_lanes(head)[:, 0].contiguous(), rs.pack_lanes(lits)[:, 0].contiguous()
+    in_debt = rs.encode_literal("in debt", 25, dev)
+    positive = acct.data > 0
+    comment_lanes = rs.pack_lanes(comment.data)
+    # label: (mode, rows, keyword arguments, the library call or None)
+    rows = {
+        "like": (k17.LIKE, comment.data, dict(tokens=rs.like_tokens("%special%requests%")),
+                 None),
+        "cmp": (k17.CMP, comment.data, dict(b=rs.encode_literal("m", 79, dev), op="lt"), None),
+        "in": (k17.IN, head, dict(b=lits), lambda: torch.isin(head0, lits0)),
+        "substr": (k17.SUBSTR, phone.data, dict(start=1, length=2, flag=True), None),
+        "case_map": (k17.CASE_MAP, name.data, dict(flag=True), None),
+        "concat": (k17.CONCAT, name.data, dict(b=phone.data), None),
+        "len": (k17.LEN, addr.data, dict(flag=True), None),
+        "strpos": (k17.STRPOS, addr.data, dict(tokens=rs.code_points("a")), None),
+        "codepoint": (k17.CODEPOINT, name.data, {}, None),
+        "prefix": (k17.PREFIX, phone.data, dict(tokens=rs.code_points("1")), None),
+        "suffix": (k17.SUFFIX, addr.data, dict(tokens=rs.code_points("e")), None),
+        "pack": (k17.PACK, comment.data, {}, None),
+        "unpack": (k17.UNPACK, comment_lanes, dict(width=79), None),
+        "hash": (k17.HASH, addr.data, {}, None),
+        "select": (k17.SELECT, name.data, dict(b=in_debt, mask=positive, width=25),
+                   lambda: torch.where(positive[:, None], name.data, in_debt)),
+    }
+    for label, (mode, a, kw, library) in rows.items():
+        rname = f"raw_string_eval@{label}"
+        got = k17.raw_string_eval(mode, a, **kw)
+        err = same(got, k17.raw_string_eval_plain(mode, a, **kw), rname)
+        others = [v for v in kw.values() if isinstance(v, torch.Tensor)]
+        report.add(rname, "cuda", "presto_tpu_torch/csrc/raw_string_eval.cu", err,
+                   cuda_ms(lambda: k17.raw_string_eval(mode, a, **kw), 20),
+                   cuda_ms(lambda: k17.raw_string_eval_plain(mode, a, **kw), 1, warmup=1),
+                   raw_read_bytes(mode, a, kw) + nbytes(*others) + nbytes(got),
+                   None if library is None else cuda_ms(library, 20),
+                   f"raw_string_eval:{k17.MODE_NAMES[mode]}")
+    log(f"K17 over {comment.data.shape[0]} o_comment rows and {name.data.shape[0]} customer "
+        "rows")
+
+    # K2: the extremes by c_nationkey (25 nations, 27 slots), beside counts
+    n = cpage.capacity
+    dom = mem.column_domain("customer_raw", "c_nationkey")
+    keys = [(nation.data, nation.valid, dom[0], dom[1] - dom[0] + 2)]
+    slots = keys[0][3]
+    args = [(k2.MIN_LANES, rs.pack_lanes(phone.data), phone.valid),
+            (k2.MAX_LANES, rs.pack_lanes(name.data), name.valid),
+            (k2.MIN_LANES, rs.pack_lanes(addr.data), addr.valid)]
+    got = k2.packed_group_agg(n, cpage.row_mask, keys, args, slots)
+    err = same(got, k2.packed_group_agg_plain(n, cpage.row_mask, keys, args, slots),
+               "packed_group_agg@raw_lanes")
+    report.add("packed_group_agg@raw_lanes", "cuda",
+               "presto_tpu_torch/csrc/packed_group_agg.cu", err,
+               cuda_ms(lambda: k2.packed_group_agg(n, cpage.row_mask, keys, args, slots), 5),
+               cuda_ms(lambda: k2.packed_group_agg_plain(n, cpage.row_mask, keys, args, slots),
+                       1),
+               nbytes(cpage.row_mask, nation.data, nation.valid,
+                      *[t for a in args for t in a[1:]])
+               + nbytes(*[t for st in got[0] for t in st], got[1]), None,
+               "packed_group_agg:lanes")
+
+    # K6: the extremes by a hashed raw key (c_address's first three
+    # characters), then the merge of two halves' partial states
+    key = (rs.hash_bytes(rs.substr_chars(addr.data, 1, 3)), addr.valid, 0, 0)
+
+    def states_of():
+        return [(k6.S_MIN_LANES, rs.pack_lanes(phone.data), phone.valid),
+                (k6.S_VALID, None, phone.valid),
+                (k6.S_MAX_LANES, rs.pack_lanes(name.data), name.valid),
+                (k6.S_VALID, None, name.valid)]
+
+    states = states_of()
+    groups = k6_bits_row(report, "sorted_group_agg@raw_lanes", [key], cpage.row_mask, states,
+                         "sorted_group_agg:lanes")
+    half = torch.arange(n, device=dev) < n // 2
+    parts = [k6.sorted_group_agg([key], cpage.row_mask & m, states) for m in (half, ~half)]
+    mkey = torch.cat([p[0][0][0] for p in parts])
+    mvalid = torch.cat([p[0][0][1] for p in parts])
+    cols = [torch.cat([p[1][i] for p in parts]) for i in range(4)]
+    ones = torch.ones_like(mvalid)
+    mstates = [(k6.S_MIN_LANES, cols[0].contiguous(), cols[1] > 0), (k6.S_SUM, cols[1], ones),
+               (k6.S_MAX_LANES, cols[2].contiguous(), cols[3] > 0), (k6.S_SUM, cols[3], ones)]
+    merged = k6_bits_row(report, "sorted_group_agg@raw_lanes_merge", [(mkey, mvalid, 0, 0)],
+                         ones, mstates, "sorted_group_agg:lanes")
+    log(f"K6 raw extremes: {groups} address prefixes of {n} rows; merged {merged} of "
+        f"{mkey.shape[0]} partial rows")
+
+    # K7 and K10 over the inputs the raw_order and raw_window queries give
+    # them: the page each node's source yields, its keys as the operator
+    # makes them
+    from presto_tpu_torch.ops.sort import topn_keys
+    from presto_tpu_torch.ops.window import window_inputs
+    from presto_tpu_torch.planner.plan import TopNNode, WindowNode
+    from presto_tpu_torch.runner import QueryRunner
+
+    def node_input(label, cls):
+        sql = RAW_QUERIES[label]
+        runner = QueryRunner(query_catalog(mem, sql, tables=raw_query_tables(mem)),
+                             device="cuda")
+        node = find(runner.plan(sql), cls)
+        return node, source_page(runner.executor, node.source)
+
+    node, page = node_input("raw_order", TopNNode)
+    keys7 = topn_keys(page, list(node.sort_exprs), list(node.ascending), node.nulls_first)
+    got = k7.topn(keys7, page.row_mask, node.count)
+    err = same(got, k7.topn_plain(keys7, page.row_mask, node.count), "topn@raw")
+    report.add("topn@raw", "cuda", "presto_tpu_torch/csrc/topn.cu", err,
+               cuda_ms(lambda: k7.topn(keys7, page.row_mask, node.count), 20),
+               cuda_ms(lambda: k7.topn_plain(keys7, page.row_mask, node.count), 1),
+               nbytes(page.row_mask, *[t for k in keys7 for t in k[:2]], *got), None,
+               "topn:lanes")
+    log(f"topn@raw (raw_order's input): {page.capacity} rows, "
+        f"{int(page.row_mask.sum())} live, n = {node.count}, keys of "
+        f"{[tuple(k[0].shape[1:]) or (1,) for k in keys7]} lanes")
+
+    node, src = node_input("raw_window", WindowNode)
+    k10_row(report, "window_eval@raw", window_inputs(
+        src, list(node.partition_exprs), list(node.order_exprs), list(node.ascending),
+        list(node.funcs), node.partition_domains), "window_eval:lanes")
+
+
 def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
     (a transcendental's doubles) within a relative 1e-12; ``where``
@@ -3728,16 +4063,23 @@ def plan_required(plan) -> tuple:
 
 
 def profile_query(runner, sql: str) -> str:
-    """One traced run of ``sql``: device-busy share of its wall time
-    and the device time of its heaviest kernels (torch.profiler)."""
+    """One traced run of ``sql``: device-busy share of its wall time,
+    the device time of its heaviest kernels (torch.profiler) and the
+    port's kernels the run launched (the launch counters, set to 0 just
+    before it and read just after), and those of them the trace does
+    not show (the profiler misses some of this port's launches in a
+    few queries, `PERF.md` §7)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.execute(sql)
         wall_us = (time.perf_counter() - t0) * 1e6
+    counts = read_counts()
+    counted = ", ".join(f"{k} {n}" for k, n in counts.items() if n)
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -3748,18 +4090,34 @@ def profile_query(runner, sql: str) -> str:
         if us > 0:
             rows.append((us, e.key, e.count))
     if not rows:
-        return "device time not measured (the profiler saw no device activity)"
+        return ("device time not measured (the profiler saw no device activity); "
+                f"launched: {counted}")
     busy = sum(us for us, _, _ in rows)
     top = ", ".join(f"{k} {us / 1e3:.3f} ms x{c}" for us, k, c in sorted(rows, reverse=True)[:6])
+    untraced = [k for k, prefixes in KERNEL_SYMBOLS.items() if counts.get(k) and not any(
+        name.removeprefix("void ").startswith(prefixes) for _, name, _ in rows)]
     return (f"traced wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.3f} ms "
-            f"({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%); {top}")
+            f"({100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%); {top}; "
+            f"launched: {counted}; launched but not traced: {', '.join(untraced) or 'none'}")
+
+
+# each counted kernel's symbol prefixes in csrc/ (a trace row's name
+# starts with the symbol, after "void " for a template)
+KERNEL_SYMBOLS = {
+    "expr_eval": ("k1_",), "packed_group_agg": ("k2_",),
+    "packed_fold_finalize": ("k3_",), "join_build": ("k4_",), "join_probe": ("k5_",),
+    "sorted_group_agg": ("k6_",), "topn": ("k7_",), "join_expand": ("k8_",),
+    "hash_keys": ("k9_", "pk_"), "window_eval": ("k10_",), "spill_partition": ("k11_",),
+    "container_eval": ("k12_",), "unnest_expand": ("k13_",),
+    "group_collect": ("k14_",), "group_topn": ("k15_",), "kmv_lanes": ("k16_",),
+    "raw_string_eval": ("k17_",)}
 
 
 def counters():
     from presto_tpu_torch.kernels import (
         container_eval, expr_eval, group_collect, group_topn, join_build, join_expand,
-        join_probe, keys, kmv_lanes, packed_fold_finalize, packed_group_agg, sorted_group_agg,
-        spill_partition, topn, unnest_expand, window_eval,
+        join_probe, keys, kmv_lanes, packed_fold_finalize, packed_group_agg, raw_string_eval,
+        sorted_group_agg, spill_partition, topn, unnest_expand, window_eval,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
@@ -3768,7 +4126,7 @@ def counters():
             "join_expand": join_expand, "hash_keys": keys, "window_eval": window_eval,
             "spill_partition": spill_partition, "container_eval": container_eval,
             "unnest_expand": unnest_expand, "group_collect": group_collect,
-            "group_topn": group_topn, "kmv_lanes": kmv_lanes}
+            "group_topn": group_topn, "kmv_lanes": kmv_lanes, "raw_string_eval": raw_string_eval}
 
 
 # counters of one kind of launch: (kernel, attribute, name in the counts)
@@ -3800,13 +4158,16 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("kmv_lanes", "merge_launches", "kmv_lanes:merge"),
               ("group_collect", "wide_launches", "group_collect:wide"),
               ("group_collect", "union_launches", "group_collect:union"),
-              ("topn", "d38_launches", "topn:d38"))
+              ("topn", "d38_launches", "topn:d38"),
+              ("topn", "lanes_launches", "topn:lanes"),
+              ("window_eval", "lanes_launches", "window_eval:lanes"))
 
 
 # kernels that count their launches by kind in a dict, by its attribute
 KIND_DICTS = (("join_probe", "kind_launches"), ("expr_eval", "op_launches"),
               ("packed_group_agg", "kind_launches"), ("sorted_group_agg", "kind_launches"),
-              ("packed_fold_finalize", "kind_launches"), ("container_eval", "op_launches"))
+              ("packed_fold_finalize", "kind_launches"), ("container_eval", "op_launches"),
+              ("raw_string_eval", "mode_launches"))
 
 
 def reset_counts() -> None:
@@ -4022,6 +4383,13 @@ def main() -> int:
     check_type_kernels(report, mem)
     check_sketch_kernels(report, mem)
     check_decimal38_kernels(report, mem)
+    t0 = time.perf_counter()
+    make_raw_tables(mem)
+    torch.cuda.synchronize()
+    log(f"raw tables on the card in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+        f"{t} {mem.row_count(t)} rows" for t in RAW_TABLES)
+        + f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check_rawstring_kernels(report, mem)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4102,6 +4470,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"wide decimals phase done at {time.perf_counter() - t_all:.1f} s")
+    # the raw varchar phase over the SF10 tables' raw copies (made in
+    # phase 3), traced; the copies leave the card after it
+    raw_tables = raw_query_tables(mem)
+    raw_runners = {label: QueryRunner(query_catalog(mem, sql, tables=raw_tables),
+                                      device="cuda") for label, sql in RAW_QUERIES.items()}
+    drive(raw_runners, RAW_QUERIES, RAW_REQUIRED, reps=1)
+    del raw_runners
+    for t in RAW_TABLES:
+        mem.drop_table(t)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"raw varchar phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -4187,6 +4567,18 @@ def main() -> int:
         check_fn_rows(label, got, ref, f" at sf={TPCH_CHECK_SF}")
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
+    # the raw varchar queries at TPCH_CHECK_SF: the raw copies built on both sides
+    make_raw_tables(mem_check)
+    make_raw_tables(host_check)
+    for label, sql in RAW_QUERIES.items():
+        t1 = time.perf_counter()
+        got = QueryRunner(query_catalog(mem_check, sql, tables=raw_tables),
+                          device="cuda").execute(sql)
+        ref = QueryRunner(query_catalog(host_check, sql, tables=raw_tables),
+                          device="cpu").execute(sql)
+        check_fn_rows(label, got, ref, f" at sf={TPCH_CHECK_SF}")
+        log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s)")
     # the host's tables leave as their checks end: the CPU runs of the
     # TPC-DS checks need the room (q47's at SF10 most)
     del host_check, mem_check, cat_check
@@ -4228,12 +4620,13 @@ def main() -> int:
             f"({time.perf_counter() - t1:.1f} s on the CPU)")
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
     for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(CT_QUERIES) \
-            + list(TY_QUERIES) + list(SK_QUERIES) + list(D38_QUERIES) + list(DS_QUERIES) \
-            + list(DS2_QUERIES) + list(DS3_QUERIES):
+            + list(TY_QUERIES) + list(SK_QUERIES) + list(D38_QUERIES) + list(RAW_QUERIES) \
+            + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
             or label in DT_QUERIES or label in CT_QUERIES or label in TY_QUERIES \
-            or label in SK_QUERIES else (D38_TABLE, lineitem_rows) if label in D38_QUERIES \
+            or label in SK_QUERIES or label in RAW_QUERIES \
+            else (D38_TABLE, lineitem_rows) if label in D38_QUERIES \
             else ("store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows

@@ -46,9 +46,9 @@ class MemoryConnector:
         self._sort[name] = list(sort_order) if sort_order else None
         self._bucketing[name] = bucketing
         self._dicts[name] = {}
-        for page in pages[:1]:
+        for page in pages[:1]:  # a raw varchar column has no dictionary
             for (col, t), b in zip(schema, page.blocks):
-                if t.is_string:
+                if t.is_string and not t.is_raw_string:
                     self._dicts[name][col] = b.dictionary
 
     def _to_device(self, page: Page) -> Page:

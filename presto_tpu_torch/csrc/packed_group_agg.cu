@@ -639,3 +639,65 @@ extern "C" int k2_packed_group_agg(i64 n, const void* row_mask,
   }
   return (int)cudaGetLastError();
 }
+
+// The raw varchar extremes (the reference's _minmax_lanes :1627 over
+// ops/rawstring.py pack_lanes' k int64 lanes, for _partial_states :410):
+// the same phased walk as a wide decimal's limbs, k launches: launch p
+// reduces lane p by a 64-bit atomicMin / atomicMax over the valid live
+// rows whose lanes before p equal the group's reduced ones.  Strings
+// that share a prefix tie on their first lanes (every TPC-H c_name
+// begins "Customer"), so every row reaches the later launches and the
+// atomics of a few groups serialise; that is this design's cost.
+static __global__ void k2_lanes_init(i64* best, i64 total, i64 identity) {
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride)
+    best[i] = identity;
+}
+
+static __global__ void k2_lanes_phase(K2Desc d, i64 n, const uint8_t* __restrict__ row_mask,
+                                      const i64* __restrict__ lanes, int k,
+                                      const uint8_t* __restrict__ valid, int is_min,
+                                      i64 n_groups, i64* best, int phase) {
+  const i64 stride = (i64)gridDim.x * blockDim.x;
+  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    if (!row_mask[i] || !valid[i]) continue;
+    const i64 key = row_key(d, i);
+    if (key < 0 || key >= n_groups) continue;
+    const i64* x = lanes + (i64)k * i;
+    i64* b = best + (i64)k * key;
+    bool tie = true;
+    for (int j = 0; j < phase && tie; ++j) tie = x[j] == b[j];
+    if (tie) slot_combine((u64*)(b + phase), x[phase], is_min ? SLOT_MIN : SLOT_MAX);
+  }
+}
+
+// out: (n_groups, k) int64, the least (is_min) or greatest lanes of
+// each group's valid live rows; an empty group keeps the identity in
+// every lane (I64_MAX for min, I64_MIN for max), as the reference's.
+extern "C" int k2_lane_extremes(i64 n, const void* row_mask, int n_keys, const i64* key_data,
+                                const i64* key_valid, const int* key_kind, const i64* key_lo,
+                                const i64* key_card, const void* lanes, int k,
+                                const void* valid, int is_min, i64 n_groups, void* out,
+                                void* stream) {
+  if (n_keys > K2_MAX_KEYS || n_groups < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  K2Desc d;
+  d.n_keys = n_keys;
+  for (int c = 0; c < n_keys; ++c) {
+    d.key_data[c] = (const void*)key_data[c];
+    d.key_valid[c] = (const uint8_t*)key_valid[c];
+    d.key_kind[c] = key_kind[c];
+    d.key_lo[c] = key_lo[c];
+    d.key_card[c] = key_card[c];
+  }
+  d.n_aggs = 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = 256;
+  k2_lanes_init<<<grid_for(n_groups * k, threads, 4), threads, 0, s>>>(
+      (i64*)out, n_groups * k, is_min ? I64_MAX : I64_MIN);
+  if (n > 0)
+    for (int phase = 0; phase < k; ++phase)
+      k2_lanes_phase<<<grid_for(n, threads, 4), threads, 0, s>>>(
+          d, n, (const uint8_t*)row_mask, (const i64*)lanes, k, (const uint8_t*)valid, is_min,
+          n_groups, (i64*)out, phase);
+  return (int)cudaGetLastError();
+}

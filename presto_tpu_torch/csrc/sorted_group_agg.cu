@@ -675,3 +675,60 @@ extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n
   }
   return (int)cudaGetLastError();
 }
+
+// The raw varchar extremes (the reference's _minmax_lanes :1627 over
+// ops/rawstring.py pack_lanes' k int64 lanes, on the sort path of
+// _partial_states :410 and in _merge_states :1085): one warp a group's
+// run of sorted positions.  Each lane of the warp walks every 32nd
+// position and keeps its best valid row, comparing whole lane rows
+// (lexicographic, signed int64); the warp then reduces its 32 rows by
+// shuffles, and lane 0 writes the winner's lanes (the identity in every
+// lane where the group has no valid row).  No atomics: every output has
+// one writer, and ties are equal lanes, so the result does not depend
+// on the schedule.
+__device__ __forceinline__ bool lanes_before(const i64* lanes, int k, i64 a, i64 b,
+                                             bool is_min) {
+  const i64* x = lanes + (i64)k * a;
+  const i64* y = lanes + (i64)k * b;
+  for (int j = 0; j < k; ++j)
+    if (x[j] != y[j]) return is_min ? x[j] < y[j] : x[j] > y[j];
+  return false;
+}
+
+static __global__ void k6_lanes(const i64* __restrict__ order, const i64* __restrict__ starts,
+                                i64 groups, const i64* __restrict__ lanes, int k,
+                                const uint8_t* __restrict__ valid, int is_min,
+                                i64* __restrict__ out) {
+  const i64 warps = ((i64)gridDim.x * blockDim.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  for (i64 g = ((i64)blockIdx.x * blockDim.x + threadIdx.x) >> 5; g < groups; g += warps) {
+    i64 best = -1;
+    for (i64 p = starts[g] + lane; p < starts[g + 1]; p += 32) {
+      const i64 r = order[p];
+      if (valid[r] && (best < 0 || lanes_before(lanes, k, r, best, is_min != 0))) best = r;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const i64 o = __shfl_down_sync(0xffffffffu, best, off);
+      if (o >= 0 && (best < 0 || lanes_before(lanes, k, o, best, is_min != 0))) best = o;
+    }
+    if (lane == 0)
+      for (int j = 0; j < k; ++j)
+        out[(i64)k * g + j] = best >= 0 ? lanes[(i64)k * best + j] : (is_min ? I64_MAX : I64_MIN);
+  }
+}
+
+// out: (groups, k) int64.  order: the row at each sorted position;
+// starts: (groups + 1) int64, each group's first position.
+extern "C" int k6_lane_extremes(const void* order, const void* starts, i64 groups,
+                                const void* lanes, int k, const void* valid, int is_min,
+                                void* out, void* stream) {
+  if (groups < 0 || k < 1) return (int)cudaErrorInvalidValue;
+  if (groups == 0) return 0;
+  const int threads = 256;
+  i64 blocks = (groups * 32 + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  k6_lanes<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const i64*)order, (const i64*)starts, groups, (const i64*)lanes, k,
+      (const uint8_t*)valid, is_min, (i64*)out);
+  return (int)cudaGetLastError();
+}

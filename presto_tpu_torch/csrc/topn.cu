@@ -27,7 +27,13 @@
 // 51 KB).  A merge step's output list lives in local memory.  A REAL
 // key orders as its exact double; a SMALLINT or TINYINT key reads
 // sign-extended.  A wide decimal key (decimal(37..38)) compares its
-// five limbs, limb 0 first, as a long one its two.  Past K7_MAX_N rows
+// five limbs, limb 0 first, as a long one its two, and a raw varchar
+// key its k pack_lanes lanes (k = ceil(W / 8), up to K7_MAX_LANES),
+// which compare as signed int64 in the bytes' order; ties on every
+// lane are equal strings, left to the next key and the row position.
+// Each comparison of two raw keys reads up to k lanes of both rows
+// from device memory (the candidates' keys are not staged), so strings
+// sharing long prefixes cost more reads a comparison.  Past K7_MAX_N rows
 // the port sorts the page instead (ops/sort.py topn_page: torch.sort,
 // then the first n live rows), as the reference's topn_page always
 // does.
@@ -37,20 +43,19 @@
 #define K7_MAX_N 100
 #define K7_MAX_KEYS 16
 #define K7_THREADS 64
+#define K7_MAX_LANES 128
 
-enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_D128 = 3, TK_F64 = 4, TK_I16 = 5, TK_I8 = 6,
-       TK_F32 = 7, TK_D38 = 8 };
-
-// the int64 lanes of a key: a long decimal's two limbs, a wide one's five
-__device__ __forceinline__ int key_lanes(int kind) {
-  return kind == TK_D128 ? 2 : kind == TK_D38 ? D38_LIMBS : 1;
-}
+// TK_LANES: a key of width[c] int64 lanes compared as signed int64, lane 0
+// first (a long decimal's two limbs, a wide one's five, a raw varchar's k)
+enum { TK_BOOL = 0, TK_I32 = 1, TK_I64 = 2, TK_LANES = 3, TK_F64 = 4, TK_I16 = 5, TK_I8 = 6,
+       TK_F32 = 7 };
 
 struct K7Keys {
   int n_keys;
   const void* data[K7_MAX_KEYS];
   const uint8_t* valid[K7_MAX_KEYS];
   int kind[K7_MAX_KEYS];
+  int width[K7_MAX_KEYS];  // TK_LANES: its lanes a row; else 1
   int asc[K7_MAX_KEYS];
   int nulls_first[K7_MAX_KEYS];
 };
@@ -76,7 +81,7 @@ __device__ __forceinline__ i64 lane(const K7Keys& k, int c, int j, i64 row) {
       return double_key((double)((const float*)k.data[c])[row], k.asc[c] != 0);
     case TK_I16: return ((const short*)k.data[c])[row];
     case TK_I8: return ((const signed char*)k.data[c])[row];
-    default: return ((const i64*)k.data[c])[key_lanes(k.kind[c]) * row + j];  // limbs
+    default: return ((const i64*)k.data[c])[k.width[c] * row + j];  // TK_LANES
   }
 }
 
@@ -87,8 +92,7 @@ __device__ __forceinline__ bool before(const K7Keys& k, i64 a, i64 b) {
     const int ra = k.nulls_first[c] ? (va ? 1 : 0) : (va ? 0 : 1);
     const int rb = k.nulls_first[c] ? (vb ? 1 : 0) : (vb ? 0 : 1);
     if (ra != rb) return ra < rb;
-    const int lanes = key_lanes(k.kind[c]);
-    for (int j = 0; j < lanes; ++j) {
+    for (int j = 0; j < k.width[c]; ++j) {
       const i64 xa = lane(k, c, j, a), xb = lane(k, c, j, b);
       // a double's key is already in ascending order
       if (xa != xb)
@@ -179,7 +183,7 @@ static __global__ void k7_final(K7Keys k, int blocks, int n, const int* __restri
 // out[0..*out_cnt) row ids.  cand: blocks * n ints, cand_cnt: blocks
 // ints of scratch.
 extern "C" int k7_topn(i64 rows, const void* row_mask, int n_keys, const i64* data,
-                       const i64* valid, const int* kind, const int* asc,
+                       const i64* valid, const int* kind, const int* width, const int* asc,
                        const int* nulls_first, int n, int blocks, void* cand, void* cand_cnt,
                        void* out, void* out_cnt, void* stream) {
   if (n_keys > K7_MAX_KEYS || n < 1 || n > K7_MAX_N || blocks < 1)
@@ -190,6 +194,8 @@ extern "C" int k7_topn(i64 rows, const void* row_mask, int n_keys, const i64* da
     k.data[c] = (const void*)data[c];
     k.valid[c] = (const uint8_t*)valid[c];
     k.kind[c] = kind[c];
+    k.width[c] = width[c];
+    if (width[c] < 1 || width[c] > K7_MAX_LANES) return (int)cudaErrorInvalidValue;
     k.asc[c] = asc[c];
     k.nulls_first[c] = nulls_first[c];
   }

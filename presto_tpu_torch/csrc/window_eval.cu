@@ -61,8 +61,11 @@ enum {
   W_FIRST_VALUE, W_LAST_VALUE, W_NTH_VALUE, W_COUNT, W_COUNT_STAR, W_SUM, W_AVG, W_MIN, W_MAX
 };
 enum { FR_PEERS = 0, FR_WHOLE = 1, FR_ROWS = 2 };
-enum { WK_BOOL = 0, WK_I32 = 1, WK_I64 = 2, WK_F64 = 3, WK_D128 = 4, WK_I16 = 5, WK_I8 = 6,
-       WK_F32 = 7 };
+enum { WK_BOOL = 0, WK_I32 = 1, WK_I64 = 2, WK_F64 = 3, WK_I16 = 5, WK_I8 = 6, WK_F32 = 7 };
+// a value of k int64 lanes (a long decimal's two limbs, a raw varchar's
+// pack_lanes): kind WK_LANES + k; an order key compares them for
+// equality only, an argument is copied lane by lane
+#define WK_LANES 64
 
 // a double's or a REAL's (widened exactly) lane: summed and scanned as a
 // double
@@ -110,9 +113,12 @@ __device__ __forceinline__ bool lanes_differ(int kind, const void* d, i64 a, i64
     case WK_F32: return ((const float*)d)[a] != ((const float*)d)[b];
     case WK_I16: return ((const short*)d)[a] != ((const short*)d)[b];
     case WK_I8: return ((const signed char*)d)[a] != ((const signed char*)d)[b];
-    default:
-      return ((const i64*)d)[2 * a] != ((const i64*)d)[2 * b] ||
-             ((const i64*)d)[2 * a + 1] != ((const i64*)d)[2 * b + 1];
+    default: {  // WK_LANES + k
+      const int k = kind - WK_LANES;
+      for (int j = 0; j < k; ++j)
+        if (((const i64*)d)[(i64)k * a + j] != ((const i64*)d)[(i64)k * b + j]) return true;
+      return false;
+    }
   }
 }
 
@@ -142,9 +148,10 @@ __device__ __forceinline__ void store_lane(int kind, void* d, i64 r, i64 v) {
 
 // out[o] = arg[r] (ok) or zero (!ok), in the argument's storage
 __device__ __forceinline__ void copy_value(const K10Func& f, i64 r, i64 o, bool ok) {
-  if (f.arg_kind == WK_D128) {
-    ((i64*)f.out)[2 * o] = ok ? ((const i64*)f.arg)[2 * r] : 0;
-    ((i64*)f.out)[2 * o + 1] = ok ? ((const i64*)f.arg)[2 * r + 1] : 0;
+  if (f.arg_kind >= WK_LANES) {
+    const int k = f.arg_kind - WK_LANES;
+    for (int j = 0; j < k; ++j)
+      ((i64*)f.out)[(i64)k * o + j] = ok ? ((const i64*)f.arg)[(i64)k * r + j] : 0;
   } else {
     store_lane(f.arg_kind, f.out, o, ok ? load_lane(f.arg_kind, f.arg, r) : 0);
   }

@@ -65,7 +65,7 @@ from presto_tpu_torch.expr.ir import ColumnRef
 from presto_tpu_torch.memory import ExceededMemoryLimitError, QueryMemoryContext, page_bytes
 from presto_tpu_torch.ops.aggregate import (
     TOPN_FNS, combine_packed_states, finalize_packed, fold_topn_partials, grouped_aggregate,
-    merge_aggregate, packed_direct_layout, takes_sort_path,
+    merge_aggregate, packed_direct_layout, raw_extremes, takes_sort_path,
 )
 from presto_tpu_torch.ops.container import unnest_page
 from presto_tpu_torch.ops.filter_project import filter_page, project_page
@@ -834,7 +834,7 @@ class LocalRunner:
         sort_path = takes_sort_path(node.group_exprs, node.key_domains, mg, aggs,
                                     node.presorted)
         topn = any(a.fn in TOPN_FNS for a in aggs)
-        if sort_path or topn:
+        if sort_path or topn or raw_extremes(aggs):
             parts = list(partials)
             if not parts and node.group_exprs:
                 return Page.empty(node.output_types, 1, self.device)

@@ -86,6 +86,7 @@ from presto_tpu_torch.expr.host_fns import STRING_TRANSFORM_FNS, _json_path_look
 from presto_tpu_torch.expr.containers import CONTAINER_FNS, ContainerCompiler, \
     container_dictionary, involves_containers
 from presto_tpu_torch.expr.ir import Call, ColumnRef, Expr, Literal
+from presto_tpu_torch.expr.rawstrings import RawCompiler, involves_raw
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.page import Dictionary, Page
 from presto_tpu_torch.types import Type
@@ -141,6 +142,8 @@ def expr_dictionary(e: Expr, dictionaries: Sequence[Optional[Dictionary]]
     says NULL)."""
     if isinstance(e, ColumnRef):
         return dictionaries[e.index]
+    if e.type is not None and e.type.is_raw_string:  # bytes, no dictionary
+        return None
     if isinstance(e, Literal) and e.value is not None:
         if e.value not in _LITERAL_DICTS:
             _LITERAL_DICTS[e.value] = Dictionary([e.value])
@@ -1651,7 +1654,7 @@ class ExprCompiler:
     def lower_key(self, expr: Expr) -> Optional[Tuple[k1.Program, List[int]]]:
         """K1's CANON program of a key column whose dictionary repeats a
         value, and the column it reads; None for any other key."""
-        if involves_containers(expr):
+        if involves_containers(expr) or involves_raw(expr):
             return None
         d = expr_dictionary(expr, self.dictionaries) if expr.type.is_string else None
         if d is None or not has_duplicates(d):
@@ -1671,6 +1674,10 @@ class ExprCompiler:
         if isinstance(expr, ColumnRef):
             i = expr.index
             return lambda page: (page.blocks[i].data, page.blocks[i].valid)
+        if involves_raw(expr):
+            if involves_containers(expr):
+                raise NotPorted(f"raw varchar values inside containers: {expr}")
+            return RawCompiler(self).any(expr)
         if involves_containers(expr):
             return ContainerCompiler(self).any(expr)
         prog, columns = self.lower(expr)
@@ -1707,6 +1714,10 @@ def compile_filter(expr: Expr, page: Page):
     if isinstance(expr, ColumnRef):
         i = expr.index
         return lambda page: page.blocks[i].data & page.blocks[i].valid & page.row_mask
+    if involves_raw(expr):
+        if involves_containers(expr):
+            raise NotPorted(f"raw varchar values inside containers: {expr}")
+        return RawCompiler(c).filter(expr)
     if involves_containers(expr):
         return ContainerCompiler(c).filter(expr)
     prog, columns = c.lower(expr)

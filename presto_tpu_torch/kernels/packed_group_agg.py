@@ -39,7 +39,14 @@ from presto_tpu_torch.ops import decimal128 as d128
 # aggregate kinds: keep in step with csrc/packed_group_agg.cu
 COUNT_STAR, COUNT, SUM_SHORT, SUM_LONG, MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, \
     SUM_LONG_ARG, SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE, BOOL_COUNT, BIT_AND, BIT_OR, \
-    HLL_SUM, CHECKSUM, MOMENTS, BY_Y_MIN, BY_Y_MAX, BY_X, SUM_D38, MIN_D38, MAX_D38 = range(25)
+    HLL_SUM, CHECKSUM, MOMENTS, BY_Y_MIN, BY_Y_MAX, BY_X, SUM_D38, MIN_D38, MAX_D38, \
+    MIN_LANES, MAX_LANES = range(27)
+# MIN_LANES / MAX_LANES: a raw varchar's least or greatest value as its
+# ``(n, k)`` int64 lanes (``ops/rawstring.pack_lanes``: lanes compare as
+# signed int64 in the bytes' order), lane by lane, most significant
+# first, beside its count; the entry point ``k2_lane_extremes`` computes
+# the lanes, the main kernel the count (a COUNT over the argument's
+# validity)
 # SUM_D38: a wide (decimal(37..38), five base-10^9 limbs) argument's sum,
 # its limbs added as they are (each below 10^9 in size, so 2^23 rows
 # cannot wrap a lane) and normalised (``_norm_wide``); MIN_D38 / MAX_D38:
@@ -66,6 +73,7 @@ RAW_WIDTH = {COUNT_STAR: 1, COUNT: 1, SUM_SHORT: 2, SUM_LONG: 5, MIN_SHORT: 2, M
 BY_Y = (BY_Y_MIN, BY_Y_MAX)
 EXTREMES = (MIN_SHORT, MAX_SHORT, MIN_LONG, MAX_LONG, MIN_DOUBLE, MAX_DOUBLE, MIN_D38,
             MAX_D38)
+LANES = (MIN_LANES, MAX_LANES)
 LONG_ARG = (MIN_LONG, MAX_LONG, SUM_LONG_ARG)  # kinds whose argument is (n, 2) limbs
 D38_ARG = (SUM_D38, MIN_D38, MAX_D38)  # kinds whose argument is (n, 5) limbs
 DOUBLE_ARG = (SUM_DOUBLE, VARIANCE, MIN_DOUBLE, MAX_DOUBLE, MOMENTS)  # a double argument
@@ -334,6 +342,11 @@ def packed_group_agg_plain(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
             states.append([seg(live.to(torch.int64))])
             continue
         nonnull = live & valid
+        if kind in LANES:
+            nn_slot = torch.where(nonnull, slot, torch.full_like(slot, n_groups))
+            states.append([seg_extreme_long(data, nn_slot, n_groups, kind == MIN_LANES),
+                           seg(nonnull.to(torch.int64))])
+            continue
         cnt = seg(nonnull.to(torch.int64))
         if kind == COUNT:
             states.append([cnt])
@@ -409,7 +422,53 @@ def packed_group_agg(n: int, row_mask: torch.Tensor, keys: Sequence[Key],
             raise ValueError("packed_group_agg: a BY_Y entry must follow its BY_X")
     if not row_mask.is_cuda:
         return packed_group_agg_plain(n, row_mask, keys, aggs, n_groups)
-    return _launch(n, row_mask, keys, aggs, n_groups)
+    if not any(k in LANES for k in kinds):
+        return _launch(n, row_mask, keys, aggs, n_groups)
+    # a raw extreme's count from the main kernel, its lanes from k2_lane_extremes
+    states, present = _launch(n, row_mask, keys, [(COUNT, v, v) if k in LANES else (k, d, v)
+                                                  for k, d, v in aggs], n_groups)
+    for a, (kind, data, valid) in enumerate(aggs):
+        if kind in LANES:
+            states[a] = [lane_extremes(n, row_mask, keys, data, valid, kind == MIN_LANES,
+                                       n_groups), states[a][0]]
+    return states, present
+
+
+def lane_extremes(n: int, row_mask: torch.Tensor, keys: Sequence[Key], lanes: torch.Tensor,
+                  valid: torch.Tensor, is_min: bool, n_groups: int) -> torch.Tensor:
+    """The ``(n_groups, k)`` least (greatest) lanes of each packed group's
+    valid live rows, the identity in every lane of an empty group, on
+    the card (``k2_lane_extremes``: one launch a lane)."""
+    global launches
+    if lanes.dim() != 2 or lanes.shape[0] != n or lanes.dtype != torch.int64 \
+            or not lanes.is_contiguous() or valid.dtype != torch.bool or valid.shape != (n,):
+        raise ValueError("packed_group_agg: raw extremes take contiguous (n, k) int64 lanes "
+                         "and (n,) bool validity")
+    if len(keys) > MAX_KEYS:
+        raise ValueError("packed_group_agg: too many keys")
+    tensors = [row_mask, lanes, valid]
+    for data, kvalid, _, _ in keys:
+        _check_col(data, kvalid, n, "key")
+        tensors += [data, kvalid]
+    build.require_cuda(tensors, "packed_group_agg")
+    k = lanes.shape[1]
+    out = torch.empty((n_groups, k), dtype=torch.int64, device=lanes.device)
+    fn = build.library().k2_lane_extremes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+           ctypes.c_void_p, ctypes.c_void_p]
+    err = fn(n, row_mask.data_ptr(), len(keys),
+             build.ptrs(d.data_ptr() for d, _, _, _ in keys),
+             build.ptrs(v.data_ptr() for _, v, _, _ in keys),
+             build.ints(_KINDS[d.dtype] for d, _, _, _ in keys),
+             build.ptrs(lo for _, _, lo, _ in keys), build.ptrs(card for _, _, _, card in keys),
+             lanes.data_ptr(), k, valid.data_ptr(), int(is_min), n_groups, out.data_ptr(),
+             build.stream_of(row_mask))
+    build.check(err, "packed_group_agg")
+    launches += 1
+    kind_launches["lanes"] = kind_launches.get("lanes", 0) + 1
+    return out
 
 
 def _check_col(data, valid, n, what, limbs=False, double=False):

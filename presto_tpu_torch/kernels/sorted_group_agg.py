@@ -59,7 +59,11 @@ from presto_tpu_torch.ops import decimal128 as d128
 S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG, \
     S_MAX_LONG, S_DSUM, S_VAR, S_VAR_MERGE, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR, \
     S_HLL, S_MOM, S_MOM_MERGE, S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV, S_LIMBS_D38, \
-    S_MIN_D38, S_MAX_D38 = range(26)
+    S_MIN_D38, S_MAX_D38, S_MIN_LANES, S_MAX_LANES = range(28)
+# S_MIN_LANES / S_MAX_LANES: a raw varchar's least or greatest value as
+# its ``(n, k)`` int64 lanes (``ops/rawstring.pack_lanes``), compared
+# lane by lane as signed int64; the entry point ``k6_lane_extremes``
+# reduces each group's run, one warp a run, after the other states
 # S_LIMBS_D38 adds a wide decimal's ((n, 5) base-10^9 limbs) limbs as
 # they are and gives five normalised limbs; S_MIN_D38 / S_MAX_D38 its
 # least or greatest value, limb by limb (one phase per limb)
@@ -85,7 +89,8 @@ DSUM_CHUNK = 256  # csrc/sorted_group_agg.cu K6_DSUM_CHUNK
 _LIMBS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_LIMBS_D38)
 _PAIRS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG)  # (G, 2) outputs
 _FIVES = (S_LIMBS_D38, S_MIN_D38, S_MAX_D38)  # (G, 5) outputs
-_EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_MIN_D38, S_MAX_D38)
+_EXTREMES = (S_MIN, S_MAX, S_MIN_LONG, S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_MIN_D38, S_MAX_D38,
+             S_MIN_LANES, S_MAX_LANES)
 _INT_STATES = (S_ONE, S_VALID, S_SUM, S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN, S_MAX, S_MIN_LONG,
                S_MAX_LONG, S_MIN_F64, S_MAX_F64, S_BAND, S_BOR) + _BY + _FIVES
 KIND_NAMES = {S_MIN_F64: "min_double", S_MAX_F64: "min_double", S_BAND: "bitwise",
@@ -110,6 +115,8 @@ _NARROW = (torch.int16, torch.int8, torch.float32)
 # neutral value), a double or a REAL
 _OUT_KINDS = {torch.int32: 1, torch.bool: 2, torch.float64: 3, torch.int16: 4, torch.int8: 5,
               torch.float32: 6}
+
+LANE_STATES = (S_MIN_LANES, S_MAX_LANES)
 
 launches = 0
 #: launches in presorted mode, and launches with a min/max state
@@ -313,6 +320,65 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     return key_out, outs, groups
 
 
+def _with_lane_states(keys, row_mask, states, presorted, runs):
+    """The other states first (their runs kept), then each raw extreme
+    over the groups' runs (:func:`lane_extremes`), put back in place."""
+    rest = [s for s in states if s[0] not in LANE_STATES] or [(S_ONE, None, None)]
+    key_out, outs, groups, (order, starts) = sorted_group_agg(keys, row_mask, rest, presorted,
+                                                              runs=True)
+    merged, it = [], iter(outs)
+    for kind, data, valid in states:
+        merged.append(lane_extremes(order, starts, data, valid, kind == S_MIN_LANES)
+                      if kind in LANE_STATES else next(it))
+    return (key_out, merged, groups) + (((order, starts),) if runs else ())
+
+
+def lane_extremes_plain(order, starts, lanes, valid, is_min: bool) -> torch.Tensor:
+    from presto_tpu_torch.kernels.packed_group_agg import seg_extreme_long
+
+    groups = starts.shape[0] - 1
+    live = int(starts[-1]) if groups else 0
+    rows = order[:live]
+    gid = torch.repeat_interleave(torch.arange(groups, device=order.device),
+                                  starts[1:] - starts[:-1])
+    slot = torch.where(valid[rows], gid, torch.full_like(gid, groups))
+    return seg_extreme_long(lanes[rows], slot, groups, is_min)
+
+
+def lane_extremes(order: torch.Tensor, starts: torch.Tensor, lanes: torch.Tensor,
+                  valid: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """The ``(groups, k)`` least (greatest) lanes of each group's valid
+    rows, over the sorted runs ``(order, starts)`` (the identity in every
+    lane of a group with none): the reference's ``_minmax_lanes``.  CPU
+    tensors take the plain version; CUDA tensors launch
+    ``k6_lane_extremes``."""
+    n = lanes.shape[0]
+    if lanes.dim() != 2 or lanes.dtype != torch.int64 or not lanes.is_contiguous() \
+            or valid.dtype != torch.bool or valid.shape != (n,) \
+            or order.dtype != torch.int64 or starts.dtype != torch.int64:
+        raise ValueError("sorted_group_agg: raw extremes take contiguous (n, k) int64 lanes, "
+                         "(n,) bool validity and int64 runs")
+    if not lanes.is_cuda:
+        return lane_extremes_plain(order, starts, lanes, valid, is_min)
+    global launches
+    build.require_cuda([order, starts, lanes, valid], "sorted_group_agg")
+    groups = starts.shape[0] - 1
+    k = lanes.shape[1]
+    out = torch.empty((groups, k), dtype=torch.int64, device=lanes.device)
+    if groups:
+        fn = build.library().k6_lane_extremes
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        build.check(fn(order.data_ptr(), starts.data_ptr(), groups, lanes.data_ptr(), k,
+                       valid.data_ptr(), int(is_min), out.data_ptr(),
+                       build.stream_of(lanes)), "sorted_group_agg")
+    launches += 1
+    kind_launches["lanes"] = kind_launches.get("lanes", 0) + 1
+    return out
+
+
 def _extreme_plain(kind, data, valid, rows, gid, groups):
     from presto_tpu_torch.kernels.packed_group_agg import (
         minmax_key, minmax_value, narrow, seg_extreme, seg_extreme_long,
@@ -320,12 +386,12 @@ def _extreme_plain(kind, data, valid, rows, gid, groups):
 
     ok = valid[rows]
     slot = torch.where(ok, gid, torch.full_like(gid, groups))
-    is_min = kind in (S_MIN, S_MIN_LONG, S_MIN_F64, S_MIN_D38)
+    is_min = kind in (S_MIN, S_MIN_LONG, S_MIN_F64, S_MIN_D38, S_MIN_LANES)
     if kind in (S_MIN_F64, S_MAX_F64):  # a REAL's extreme through its exact double
         x = data[rows].to(torch.float64)
         return minmax_value(seg_extreme(minmax_key(x, is_min), slot, groups, is_min),
                             is_min).to(data.dtype)
-    if kind in (S_MIN_LONG, S_MAX_LONG, S_MIN_D38, S_MAX_D38):
+    if kind in (S_MIN_LONG, S_MAX_LONG, S_MIN_D38, S_MAX_D38) + LANE_STATES:
         return seg_extreme_long(data[rows], slot, groups, is_min)
     return narrow(seg_extreme(data[rows].to(torch.int64), slot, groups, is_min), data.dtype)
 
@@ -352,6 +418,8 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                              "S_BY_XV, S_BY_Y")
     if not row_mask.is_cuda:
         return sorted_group_agg_plain(keys, row_mask, states, presorted, runs)
+    if any(k in LANE_STATES for k in kinds):
+        return _with_lane_states(keys, row_mask, states, presorted, runs)
     global launches, presorted_launches, minmax_launches, variance_launches, \
         variance_merge_launches, double_sum_launches
     n = row_mask.shape[0]

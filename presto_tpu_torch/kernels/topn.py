@@ -3,7 +3,8 @@
 :func:`topn` returns the row ids of the first ``n`` live rows in the
 reference's order (``presto_tpu/ops/sort.py`` ``sort_perm``): key by
 key, the NULL rank then the value (a long or wide decimal limb by
-limb, most significant first; a descending key reversed), then the row position, which
+limb, most significant first, a raw varchar's ``pack_lanes`` lanes lane
+by lane; a descending key reversed), then the row position, which
 is how the reference's stable sorts break ties; a double (or a REAL,
 as its exact double) orders by :func:`double_sort_key`.  Dead rows never qualify.  CUDA tensors
 launch ``csrc/topn.cu``; CPU tensors run :func:`topn_plain`, which
@@ -24,7 +25,8 @@ MAX_KEYS = 16
 THREADS = 64  # csrc/topn.cu K7_THREADS
 _KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 4, torch.int16: 5,
           torch.int8: 6, torch.float32: 7}
-KIND_D128, KIND_D38 = 3, 8
+KIND_LANES = 3  # (rows, k) int64 lanes: decimal limbs or a raw varchar's lanes
+MAX_LANES = 128  # csrc/topn.cu K7_MAX_LANES
 _FLOAT_KINDS = (_KINDS[torch.float64], _KINDS[torch.float32])
 _I64_MAX = (1 << 63) - 1
 
@@ -34,11 +36,13 @@ wide_launches = 0
 #: launches with a double (or REAL) key, and with a REAL key
 double_launches = 0
 real_launches = 0
-#: launches with a wide decimal (five-limb) key
+#: launches with a key of five int64 lanes (a wide decimal's limbs, or a
+#: raw varchar of 33 to 40 bytes), and with any key of several lanes
 d38_launches = 0
+lanes_launches = 0
 
-# (data (n,) integers or doubles or (n, 2) or (n, 5) int64 limbs, valid, ascending,
-# nulls_first)
+# (data (n,) integers or doubles, (n, 2) or (n, 5) int64 limbs, or (n, k) int64
+# lanes of a raw varchar, valid, ascending, nulls_first)
 SortKey = Tuple[torch.Tensor, torch.Tensor, bool, bool]
 
 
@@ -90,8 +94,10 @@ def topn_plain(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
 
 def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     """Row ids of the first ``n`` live rows of ``row_mask`` under
-    ``keys`` and their count (a device int32 of shape (1,)).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    ``keys`` and their count (a device int32 of shape (1,)).  A (rows,
+    k) int64 key compares its lanes as signed int64, lane 0 first: a
+    decimal's canonical limbs and a raw varchar's ``pack_lanes`` alike.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
     ``n`` above :data:`MAX_N` raises (``ops/sort.py`` ``topn_page`` sorts
     the page past it)."""
     if n > MAX_N:
@@ -100,23 +106,26 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
         raise ValueError(f"topn: more than {MAX_KEYS} keys")
     if not row_mask.is_cuda:
         return topn_plain(keys, row_mask, n)
-    global launches, wide_launches, double_launches, real_launches, d38_launches
+    global launches, wide_launches, double_launches, real_launches, d38_launches, \
+        lanes_launches
     rows = row_mask.shape[0]
     if row_mask.dtype != torch.bool or row_mask.dim() != 1 or rows >= (1 << 31):
         raise ValueError("topn: row_mask must be (rows,) bool")
     if not keys or len(keys) > MAX_KEYS or n < 1:
         raise ValueError("topn: 1 to 8 keys and n >= 1")
     tensors = [row_mask]
-    kinds = []
+    kinds, widths = [], []
     for data, valid, _, _ in keys:
-        if data.dim() == 2 and data.shape in ((rows, 2), (rows, 5)) \
+        if data.dim() == 2 and data.shape[0] == rows and 1 <= data.shape[1] <= MAX_LANES \
                 and data.dtype == torch.int64 and data.is_contiguous():
-            kinds.append(KIND_D128 if data.shape[1] == 2 else KIND_D38)
+            kinds.append(KIND_LANES)
+            widths.append(data.shape[1])
         elif data.dim() == 1 and data.shape == (rows,) and data.dtype in _KINDS:
             kinds.append(_KINDS[data.dtype])
+            widths.append(1)
         else:
             raise ValueError("topn: keys must be (rows,) integers, doubles or REALs, or "
-                             "contiguous (rows, 2) or (rows, 5) int64 limbs")
+                             f"contiguous (rows, k <= {MAX_LANES}) int64 limbs or lanes")
         if valid.dtype != torch.bool or valid.shape != (rows,):
             raise ValueError("topn: key validity must be (rows,) bool")
         tensors += [data, valid]
@@ -130,11 +139,11 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     fn = build.library().k7_topn
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int] + \
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
     err = fn(rows, row_mask.data_ptr(), len(keys),
              build.ptrs(d.data_ptr() for d, _, _, _ in keys),
              build.ptrs(v.data_ptr() for _, v, _, _ in keys),
-             build.ints(kinds), build.ints(int(a) for _, _, a, _ in keys),
+             build.ints(kinds), build.ints(widths), build.ints(int(a) for _, _, a, _ in keys),
              build.ints(int(nf) for _, _, _, nf in keys), n, blocks,
              cand.data_ptr(), cand_cnt.data_ptr(), ids.data_ptr(), count.data_ptr(),
              build.stream_of(row_mask))
@@ -143,5 +152,6 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
     wide_launches += int(n > 32)
     double_launches += int(any(k in _FLOAT_KINDS for k in kinds))
     real_launches += int(_KINDS[torch.float32] in kinds)
-    d38_launches += int(KIND_D38 in kinds)
+    d38_launches += int(5 in widths)
+    lanes_launches += int(max(widths) > 1)
     return ids, count

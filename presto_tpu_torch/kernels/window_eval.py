@@ -48,7 +48,7 @@ KIND_NAMES = ("row_number", "rank", "dense_rank", "ntile", "percent_rank", "cume
               "count_star", "sum", "avg", "min", "max")
 FRAME_PEERS, FRAME_WHOLE, FRAME_ROWS = range(3)
 # storage kinds of order keys and arguments
-KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_D128, KIND_I16, KIND_I8, KIND_F32 = range(8)
+KIND_BOOL, KIND_I32, KIND_I64, KIND_F64, KIND_I16, KIND_I8, KIND_F32 = 0, 1, 2, 3, 5, 6, 7
 _KIND_OF = {torch.bool: KIND_BOOL, torch.int32: KIND_I32, torch.int64: KIND_I64,
             torch.float64: KIND_F64, torch.int16: KIND_I16, torch.int8: KIND_I8,
             torch.float32: KIND_F32}
@@ -63,6 +63,9 @@ _UNBOUNDED = -(1 << 62)
 launches = 0
 #: launches with a SMALLINT, TINYINT or REAL argument or order key
 narrow_launches = 0
+#: launches with an order key of several int64 lanes (a long decimal's
+#: limbs, a raw varchar's lanes)
+lanes_launches = 0
 _NARROW = (torch.int16, torch.int8, torch.float32)
 
 Lanes = Tuple[torch.Tensor, torch.Tensor]
@@ -79,9 +82,18 @@ class Func:
     scale: Optional[int] = None  # avg over a decimal: divide by 10.0 ** scale
 
 
+# a value of k int64 lanes (a long decimal's two limbs, a raw varchar's
+# pack_lanes): its kind is KIND_LANES + k
+KIND_LANES = 64
+MAX_LANES = 128
+
+
 def _kind_of(data: torch.Tensor) -> int:
-    if data.dim() == 2 and data.shape[1] == 2 and data.dtype == torch.int64:
-        return KIND_D128
+    if data.dim() == 2:
+        if data.dtype != torch.int64 or not data.is_contiguous() \
+                or not 1 <= data.shape[1] <= MAX_LANES:
+            raise ValueError(f"window_eval: lanes are (n, k <= {MAX_LANES}) int64")
+        return KIND_LANES + data.shape[1]
     if data.dim() != 1 or data.dtype not in _KIND_OF:
         raise ValueError(f"window_eval: lanes of {data.dtype} {tuple(data.shape)}")
     return _KIND_OF[data.dtype]
@@ -346,10 +358,11 @@ def window_eval(perm: torch.Tensor, row_mask: torch.Tensor, pkey: torch.Tensor,
                 order_cols: Sequence[Lanes], funcs: Sequence[Func],
                 args: Sequence[Optional[Lanes]]) -> List[Lanes]:
     """Each function's ``(data, valid)`` in the original row order (valid
-    only on live rows).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    only on live rows).  An order key or argument of (n, k) int64 lanes
+    (a long decimal, a raw varchar's ``pack_lanes``) is one value a row.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     for f, a in zip(funcs, args):
-        if f.kind in (SUM, AVG, MIN, MAX) and _kind_of(a[0]) == KIND_D128:
+        if f.kind in (SUM, AVG, MIN, MAX) and a[0].dim() > 1:
             raise ValueError(f"window_eval: {KIND_NAMES[f.kind]} over long decimals")
     if not perm.is_cuda:
         return window_eval_plain(perm, row_mask, pkey, order_cols, funcs, args)
@@ -357,7 +370,7 @@ def window_eval(perm: torch.Tensor, row_mask: torch.Tensor, pkey: torch.Tensor,
 
 
 def _launch(perm, row_mask, pkey, order_cols, funcs, args):
-    global launches, narrow_launches
+    global launches, narrow_launches, lanes_launches
     n = perm.shape[0]
     if perm.dtype != torch.int64 or perm.dim() != 1 or row_mask.dtype != torch.bool \
             or row_mask.shape != (n,) or pkey.dtype != torch.int64 or pkey.shape != (n,):
@@ -426,6 +439,7 @@ def _launch(perm, row_mask, pkey, order_cols, funcs, args):
              levels.data_ptr(), partials.data_ptr(), build.stream_of(perm))
     build.check(err, "window_eval")
     launches += 1
+    lanes_launches += int(any(d.dim() > 1 for d, _ in order_cols))
     narrow_launches += int(any(d.dtype in _NARROW for d, _ in order_cols)
                            or any(a is not None and a[0].dtype in _NARROW for a in args))
     return outs

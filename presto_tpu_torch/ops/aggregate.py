@@ -91,6 +91,7 @@ from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler, _Lowering, _lane, _out_kind, \
     expr_dictionary
 from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr, Literal
+from presto_tpu_torch.expr.rawstrings import RawCompiler, hash_call, involves_raw
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.kernels.container_eval import astype_values, lengths, sentinel
 from presto_tpu_torch.kernels import group_collect as k14
@@ -99,6 +100,7 @@ from presto_tpu_torch.kernels import kmv_lanes as k16
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
+from presto_tpu_torch.ops import rawstring as rs
 from presto_tpu_torch.page import Block, Page, _torch_dtype, concat_pages_device
 from presto_tpu_torch.types import BIGINT, DOUBLE, VARCHAR, DecimalType, Type
 
@@ -497,9 +499,11 @@ def _state_kind(agg: AggCall) -> int:
             return k2.MIN_LONG if is_min else k2.MAX_LONG
         if t.is_long_decimal:
             return k2.MIN_D38 if is_min else k2.MAX_D38
+        if t.is_raw_string:  # over its pack_lanes lanes
+            return k2.MIN_LANES if is_min else k2.MAX_LANES
         if t.name in ("double", "real"):  # a REAL's extreme in float32
             return k2.MIN_DOUBLE if is_min else k2.MAX_DOUBLE
-        if t.is_raw_string or t.value_shape != () or not (
+        if t.value_shape != () or not (
                 t.is_string or t.name == "boolean"
                 or np.dtype(t.np_dtype) in _EXTREME_INTS):
             raise NotPorted(f"{agg.fn} over {t}")
@@ -516,7 +520,8 @@ def _state_kind(agg: AggCall) -> int:
         return k2.HLL_SUM
     if agg.fn == "checksum":
         t = agg.arg.type
-        if t.value_shape != () or t.is_raw_string or t.is_long_decimal or t.name in NARROW_TYPES:
+        if (t.value_shape != () and not t.is_raw_string) or t.is_long_decimal \
+                or t.name in NARROW_TYPES:
             raise NotPorted(f"checksum over {t}")
         return k2.CHECKSUM
     if agg.fn in MOMENT_FNS or agg.fn in COVAR_FNS:
@@ -526,8 +531,10 @@ def _state_kind(agg: AggCall) -> int:
                 raise NotPorted(f"{agg.fn} over {t}")
         return k2.MOMENTS if agg.fn in MOMENT_FNS else k2.SUM_DOUBLE
     if agg.fn in ("min_by", "max_by"):
+        if agg.arg.type.is_raw_string or agg.arg2.type.is_raw_string:
+            raise ValueError(f"{agg.fn} over raw varchar / long decimal unsupported")
         for t in (agg.arg.type, agg.arg2.type):
-            if t.value_shape != () or t.is_raw_string or t.name in NARROW_TYPES:
+            if t.value_shape != () or t.name in NARROW_TYPES:
                 raise NotPorted(f"{agg.fn} over {t}")
         return k2.BY_X
     if agg.fn in MATRIX_FNS:
@@ -580,6 +587,8 @@ def _finalize_kind(agg: AggCall) -> int:
         return k3.FIN_COUNT
     if agg.fn in ("min", "max"):  # the state's value, NULL where its count is 0
         t = agg.arg.type
+        if t.is_raw_string:  # the bytes as they are (_finalize)
+            return FIN_RAW
         if t.name in NARROW_TYPES:  # in its own storage: int16, int8, float32
             return k3.FIN_VALUE
         if t.is_long_decimal:
@@ -642,6 +651,10 @@ def _finalize_kind(agg: AggCall) -> int:
         return k3.FIN_AVG_DOUBLE
     raise NotPorted(f"avg producing {t}")
 
+
+# a raw varchar extreme's finalize: its bytes, valid where its count is
+# positive (no K3 kind: nothing to compute)
+FIN_RAW = -1
 
 _TAIL_FIN = {"skewness": k3.FIN_SKEWNESS, "kurtosis": k3.FIN_KURTOSIS,
              "covar_pop": k3.FIN_COVAR_POP, "covar_samp": k3.FIN_COVAR_SAMP,
@@ -711,10 +724,17 @@ def grouped_aggregate(
 def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCall],
                   key_domains) -> Tuple[List[k2.Key], List[k2.Agg]]:
     """The K2 inputs of a page: packed-key columns ``(data, valid, lo,
-    card)`` and aggregate arguments ``(kind, data, valid)``, evaluated
-    by K1 where they are expressions; an aggregate takes one entry, a
-    covariance five (``_covar_lanes``) and a min_by / max_by two (BY_X,
-    then BY_Y_MIN or BY_Y_MAX)."""
+    card)`` and aggregate arguments (:func:`aggregate_args`)."""
+    from presto_tpu_torch.ops.join import key_columns
+
+    return key_columns(page, group_exprs, key_domains), aggregate_args(page, aggs)
+
+
+def aggregate_args(page: Page, aggs: Sequence[AggCall]) -> List[k2.Agg]:
+    """The aggregate arguments ``(kind, data, valid)`` of a page,
+    evaluated by K1 where they are expressions; an aggregate takes one
+    entry, a covariance five (``_covar_lanes``) and a min_by / max_by
+    two (BY_X, then BY_Y_MIN or BY_Y_MAX)."""
     c = ExprCompiler.for_page(page)
     dicts = [b.dictionary for b in page.blocks]
     args = []
@@ -726,8 +746,9 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
         if agg.fn in ("min_by", "max_by"):
             args += _by_entries(c, dicts, agg, page)
             continue
-        if kind == k2.CHECKSUM:
-            args.append((kind,) + _argument_lane(c, agg.arg, agg.filter, None,
+        if kind == k2.CHECKSUM:  # a raw varchar by its hash lane, as the reference
+            arg = hash_call(agg.arg) if agg.arg.type.is_raw_string else agg.arg
+            args.append((kind,) + _argument_lane(c, arg, agg.filter, None,
                                                  _checksum_hash)(page))
             continue
         if kind == k2.COUNT_STAR:
@@ -739,6 +760,13 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
             args.append((kind, v, v))
             continue
         arg = agg.arg
+        if arg is not None and arg.type.is_raw_string:  # its lanes (an extreme) or validity
+            d, v = c.compile(arg)(page)
+            if agg.filter is not None:
+                fd, fv = c.compile(agg.filter)(page)
+                v = v & fd & fv
+            args.append((kind, rs.pack_lanes(d) if kind in k2.LANES else v, v))
+            continue
         if kind in (k2.VARIANCE, k2.MOMENTS) and arg.type.name != "double":
             arg = Call(type=DOUBLE, fn="cast_double", args=(arg,))  # _to_double
         rank = None
@@ -752,9 +780,7 @@ def kernel_inputs(page: Page, group_exprs: Sequence[Expr], aggs: Sequence[AggCal
         else:
             d, v = _argument_lane(c, arg, agg.filter, rank)(page)
         args.append((kind, d, v))
-    from presto_tpu_torch.ops.join import key_columns
-
-    return key_columns(page, group_exprs, key_domains), args
+    return args
 
 
 def _run_positions(order: Optional[torch.Tensor], starts: torch.Tensor):
@@ -968,7 +994,17 @@ def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
     instructions and gives the output kind), and NULL where the filter
     is not true (``if(filter, arg, NULL)``: the reference's ``rowsel &
     valid``), so the kernels' validity lane carries the selection."""
-    lw = _Lowering(c.dictionaries)
+    extend = None
+    given = [x for x in (arg, filt) if x is not None]
+    if any(involves_raw(x) for x in given):
+        # the raw half's bridge columns, then the program over them
+        rewritten, extend, dicts = RawCompiler(c).with_bridges(given)
+        it = iter(rewritten)
+        arg = None if arg is None else next(it)
+        filt = None if filt is None else next(it)
+        lw = _Lowering(dicts)
+    else:
+        lw = _Lowering(c.dictionaries)
     if filt is not None:
         lw.emit(filt)
     if arg is None:
@@ -985,7 +1021,8 @@ def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
     if filt is not None:
         lw._push(k1.NULL)
         lw._push(k1.SEL)
-    return ExprCompiler.run_program(lw.program(out), list(lw.columns))
+    run = ExprCompiler.run_program(lw.program(out), list(lw.columns))
+    return run if extend is None else (lambda page: run(extend(page)))
 
 
 def _states_out(groups: int, key_blocks, state_cols, per_agg, aggs, mode, agg_dicts,
@@ -1012,6 +1049,12 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
     hashed without exact domains), the flat state list, and how many
     states each aggregate has."""
     keys, args = kernel_inputs(page, group_exprs, aggs, key_domains)
+    return (keys,) + sorted_states(aggs, args)
+
+
+def sorted_states(aggs, args) -> tuple:
+    """K6's flat state list of the aggregate arguments ``args``
+    (:func:`aggregate_args`), and how many states each aggregate has."""
     states, per_agg = [], []
     pos = 0
     for agg in aggs:
@@ -1051,7 +1094,7 @@ def sorted_inputs(page: Page, group_exprs, aggs, key_domains):
             states.append((k6.S_VALID, None, valid))
         per_agg.append(1 if kind in (k2.COUNT_STAR, k2.COUNT) else
                        3 if kind == k2.VARIANCE else 2)
-    return keys, states, per_agg
+    return states, per_agg
 
 
 _K6_SUM = {k2.SUM_SHORT: k6.S_SUM, k2.SUM_LONG: k6.S_LIMBS_SHORT,
@@ -1060,7 +1103,8 @@ _K6_SUM = {k2.SUM_SHORT: k6.S_SUM, k2.SUM_LONG: k6.S_LIMBS_SHORT,
 _K6_EXTREME = {k2.MIN_SHORT: k6.S_MIN, k2.MAX_SHORT: k6.S_MAX, k2.MIN_LONG: k6.S_MIN_LONG,
                k2.MAX_LONG: k6.S_MAX_LONG, k2.MIN_DOUBLE: k6.S_MIN_F64,
                k2.MAX_DOUBLE: k6.S_MAX_F64, k2.MIN_D38: k6.S_MIN_D38,
-               k2.MAX_D38: k6.S_MAX_D38}
+               k2.MAX_D38: k6.S_MAX_D38, k2.MIN_LANES: k6.S_MIN_LANES,
+               k2.MAX_LANES: k6.S_MAX_LANES}
 # the other (value, count) states: bool_and/bool_or's count of true rows
 # (a sum of the boolean), the bitwise folds, hll_merge's sum of 2^-rho
 _K6_STATE = {**_K6_EXTREME, k2.BOOL_COUNT: k6.S_SUM, k2.BIT_AND: k6.S_BAND,
@@ -1072,16 +1116,25 @@ def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode,
     """The reference's sort path over K6: every group the page holds,
     in packed-key order; or its streaming branch (``presorted``), in
     page order."""
-    keys, states, per_agg = sorted_inputs(page, group_exprs, aggs, key_domains)
-    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted, runs=_collects(aggs))
+    from presto_tpu_torch.ops.join import key_tuples
+
+    c = ExprCompiler.for_page(page)
+    key_cols = [c.compile_key(e)(page) for e in group_exprs]
+    keys = key_tuples(key_cols, [e.type for e in group_exprs], key_domains)
+    states, per_agg = sorted_states(aggs, aggregate_args(page, aggs))
+    # a raw key's bytes, for its groups' output (the key hashes to one lane)
+    raw_keys = {i: kv for i, (kv, e) in enumerate(zip(key_cols, group_exprs))
+                if e.type.is_raw_string}
+    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted,
+                              runs=_collects(aggs) or bool(raw_keys))
     key_out, cols, groups = got[:3]
     if groups == 0:
         return _empty_groups(group_exprs, aggs, mode, page.device,
                              expr_key_dicts(page, group_exprs))
+    key_out = _raw_key_out(key_out, raw_keys, got)
     collected = None
     if _collects(aggs):
         order, starts = got[3]
-        c = ExprCompiler.for_page(page)
         collected = {i: _matrix_state(c, agg, page, order, starts)
                      for i, agg in enumerate(aggs) if agg.fn in MATRIX_FNS}
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
@@ -1089,6 +1142,18 @@ def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode,
                   zip(key_out, group_exprs, expr_key_dicts(page, group_exprs))]
     return _states_out(groups, key_blocks, cols, per_agg, aggs, mode, agg_dicts,
                        page.device, collected)
+
+
+def _raw_key_out(key_out, raw_keys: dict, got) -> list:
+    """K6's key outputs with each raw key's hash lane replaced by the
+    bytes of its group's first row (the reference keeps the key's
+    values)."""
+    if not raw_keys:
+        return key_out
+    order, starts = got[3]
+    rep = order[starts[:-1]]
+    return [(raw_keys[i][0][rep], raw_keys[i][1][rep]) if i in raw_keys else kv
+            for i, kv in enumerate(key_out)]
 
 
 def _empty_groups(group_exprs, aggs, mode, device, key_dicts) -> Page:
@@ -1140,7 +1205,8 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
                        (k6.S_BY_Y_MIN if agg.fn == "min_by" else k6.S_BY_Y_MAX, cols[2].data,
                         has_y), (k6.S_SUM, cols[3].data, live)]
         elif agg.fn in ("min", "max") or agg.fn in BITWISE_FNS:
-            states.append((_K6_STATE[_state_kind(agg)], cols[0].data, cols[1].data > 0))
+            data = rs.pack_lanes(cols[0].data) if _raw_extreme(agg) else cols[0].data
+            states.append((_K6_STATE[_state_kind(agg)], data, cols[1].data > 0))
             states.append((k6.S_SUM, cols[1].data, live))
         elif agg.fn in VARIANCE_FNS:  # Chan's form over k partials
             states.append((k6.S_VAR_MERGE, tuple(c.data for c in cols), live))
@@ -1167,16 +1233,19 @@ def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_g
     packed-key order."""
     _check_ported(aggs, mode)
     keys, states, per_agg = merge_inputs(partial, num_keys, aggs, key_domains)
-    got = k6.sorted_group_agg(keys, partial.row_mask, states, runs=_collects(aggs))
-    key_out, cols, groups = got[:3]
     key_blocks_in = partial.blocks[:num_keys]
+    raw_keys = {i: (b.data, b.valid) for i, b in enumerate(key_blocks_in)
+                if b.type.is_raw_string}
+    got = k6.sorted_group_agg(keys, partial.row_mask, states,
+                              runs=_collects(aggs) or bool(raw_keys))
+    key_out, cols, groups = got[:3]
     if groups == 0:
         return _empty_groups([ColumnRef(type=b.type, index=i)
                               for i, b in enumerate(key_blocks_in)], aggs, mode,
                              partial.device, [b.dictionary for b in key_blocks_in])
     agg_dicts = [c[0].dictionary for c in _slice_state_cols(partial, num_keys, aggs)]
     key_blocks = [Block(d, v, b.type, b.dictionary)
-                  for (d, v), b in zip(key_out, key_blocks_in)]
+                  for (d, v), b in zip(_raw_key_out(key_out, raw_keys, got), key_blocks_in)]
     collected = None
     if _collects(aggs):  # each group's partial matrices merged (K14, K15, K16)
         order, starts = got[3]
@@ -1205,7 +1274,21 @@ def _unpack_key_blocks(cards, domains, group_exprs, key_dicts, prod, capacity,
     return blocks
 
 
+def _raw_extreme(agg: AggCall) -> bool:
+    return agg.fn in ("min", "max") and agg.arg.type.is_raw_string
+
+
+def raw_extremes(aggs) -> bool:
+    """Whether a raw varchar min/max is among ``aggs``: its lane state
+    merges lexicographically, never slot by slot, so its partials go
+    through the merge (the reference's ``packed_fold_supported``)."""
+    return any(_raw_extreme(a) for a in aggs)
+
+
 def _emit(key_blocks, states, aggs, out_mask, mode, agg_dicts) -> Page:
+    for agg, cols in zip(aggs, states):  # a raw extreme's lanes back to its bytes
+        if _raw_extreme(agg) and cols[0].dtype == torch.int64:
+            cols[0] = rs.unpack_lanes(cols[0], agg.arg.type.value_shape[0])
     if mode == "partial":
         blocks = list(key_blocks)
         for agg, cols, adict in zip(aggs, states, agg_dicts):
@@ -1228,9 +1311,12 @@ def _slice_state_cols(page: Page, num_keys: int, aggs):
 
 
 def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
-    items = []
-    for agg, cols in zip(aggs, states):
+    items, raw = [], {}
+    for i, (agg, cols) in enumerate(zip(aggs, states)):
         kind = _finalize_kind(agg)
+        if kind == FIN_RAW:
+            raw[i] = (cols[0], mask & (cols[-1] > 0))
+            continue
         # a variance finalizes from (m2, cnt), the moments from (m2, m3,
         # m4) stacked, the covariance family from its five sums stacked,
         # min_by / max_by from (x, x flag); every other from (state, cnt)
@@ -1245,11 +1331,14 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
             items.append((kind, cols[1], cols[1]))
         else:
             items.append((kind, cols[0], cols[-1]))
-    out = k3.packed_finalize(items, mask)
+    out = list(k3.packed_finalize(items, mask)) if items else []
+    for i in sorted(raw):
+        out.insert(i, raw[i])
+        items.insert(i, (FIN_RAW, None, None))
     out = [(_output_matrix(agg, cols[0]), v) if agg.fn in MATRIX_FNS else (d, v)
            for (d, v), agg, cols in zip(out, aggs, states)]
     for i, (agg, adict) in enumerate(zip(aggs, agg_dicts)):
-        if agg.fn in ("min", "max") and agg.arg.type.is_string:
+        if agg.fn in ("min", "max") and agg.arg.type.is_string and i not in raw:
             if adict is None:
                 raise NotPorted(f"{agg.fn} over a string without a dictionary")
             d, v = out[i]  # collation ranks back to a code of the value (K1's CANON)

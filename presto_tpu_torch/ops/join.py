@@ -28,7 +28,7 @@ from presto_tpu_torch.expr.ir import Expr
 from presto_tpu_torch.kernels import join_build as k4
 from presto_tpu_torch.kernels import join_expand as k8
 from presto_tpu_torch.kernels import join_probe as k5
-from presto_tpu_torch.kernels.keys import Key
+from presto_tpu_torch.kernels.keys import Key, hashed
 from presto_tpu_torch.page import Block, Page, _torch_dtype
 from presto_tpu_torch.types import BOOLEAN, Type
 
@@ -90,12 +90,18 @@ def key_tuples(cols: Sequence[Tuple[torch.Tensor, torch.Tensor]], types: Sequenc
     """``(data, valid, lo, card)`` per key column: exact from the
     domains when every one is known and their product fits 62 bits,
     else hashed (card 0), as the reference's ``pack_or_hash_keys``
-    decides."""
+    decides; a raw varchar column hashes, as its FNV-1a lane (K17's
+    ``hash_bytes``), and makes every column of the key hash."""
+    from presto_tpu_torch.ops.rawstring import hash_bytes
+
     exact = len(key_domains or ()) == len(cols) and \
-        packed_domain_size(key_domains) is not None
+        packed_domain_size(key_domains) is not None and \
+        not any(t.is_raw_string for t in types)
     out = []
     for i, ((d, v), t) in enumerate(zip(cols, types)):
         check_key_type(t)
+        if t.is_raw_string:
+            d = hash_bytes(d)
         if d.dtype not in (_KEY_DTYPES if exact else _HASHED_KEY_DTYPES):
             raise NotPorted(f"keys of type {t}")
         if exact:
@@ -108,10 +114,12 @@ def key_tuples(cols: Sequence[Tuple[torch.Tensor, torch.Tensor]], types: Sequenc
 
 def check_key_type(t: Type) -> None:
     """The reference's refusals for key columns (``pack_or_hash_keys``):
-    long decimals have no hash; raw strings hash through ``hash_bytes``,
-    which is not ported."""
-    if t.is_raw_string or t.is_binary:
-        raise NotPorted(f"keys over raw strings ({t})")
+    long decimals have no hash; raw strings hash through ``hash_bytes``;
+    varbinary values are not ported."""
+    if t.is_raw_string:
+        return
+    if t.is_binary:
+        raise NotPorted(f"keys over {t}")
     if t.value_shape != ():
         raise ValueError("long-decimal grouping/join keys unsupported (cast to a "
                          "shorter decimal or double)")
@@ -133,7 +141,7 @@ def build_join(
     fits the budget (the reference's choice on an accelerator); past
     it, or for hashed keys, probes binary-search the sorted keys."""
     keys = key_columns(page, key_exprs, key_domains)
-    prod = packed_domain_size(key_domains)
+    prod = None if hashed(keys) else packed_domain_size(key_domains)
     in_budget = prod is not None and prod <= _direct_budget(page)
     if unique and in_budget:
         sk, perm, starts, ok, flags = k4.join_build_unique(keys, page.row_mask, prod,

@@ -9,7 +9,10 @@ the reference, which leaves its argsorts to XLA's sort, this uses
 picks the first ``n`` rows under the same order; past it the page is
 sorted, as the reference's ``topn_page`` always does.  Dictionary
 VARCHAR keys order by collation rank, not by code; double and REAL
-keys by :func:`double_sort_key`.
+keys by :func:`double_sort_key`; a raw VARCHAR key by its
+``pack_lanes`` lanes (K17), whose order as signed int64 is the bytes'
+order: K7 takes them as one key of k lanes, and a sort makes k stable
+passes over them where the reference makes one a byte.
 """
 
 from __future__ import annotations
@@ -18,19 +21,22 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler
 from presto_tpu_torch.expr.ir import ColumnRef, Expr
 from presto_tpu_torch.kernels import topn as k7
 from presto_tpu_torch.kernels.topn import double_sort_key
+from presto_tpu_torch.ops.rawstring import pack_lanes
 from presto_tpu_torch.page import Block, Page
 
 
 def _dict_rank(page: Page, e: Expr, d: torch.Tensor) -> torch.Tensor:
     """Dictionary-encoded varchar keys order by VALUE: codes map through
-    the dictionary's collation-rank table."""
+    the dictionary's collation-rank table; a raw varchar's bytes become
+    their order-preserving lanes."""
     from presto_tpu_torch.ops.aggregate import _collation_luts
 
+    if e.type.is_raw_string:
+        return pack_lanes(d)
     if not isinstance(e, ColumnRef) or not e.type.is_string:
         return d
     dic = page.blocks[e.index].dictionary
@@ -63,12 +69,10 @@ def sort_perm(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
     perm = torch.arange(page.capacity, device=page.device)
     for e, asc, nf in list(zip(sort_exprs, ascending, nulls_first))[::-1]:
         d, v = c.compile(e)(page)
-        if e.type.is_raw_string:
-            raise NotPorted("ORDER BY raw strings")
         d = _dict_rank(page, e, d)
         if d.dim() > 1:
-            # limb decimals: canonical limb form is value order, so
-            # stable passes from the last limb to the first
+            # limb decimals (canonical limb form is value order) and a raw
+            # varchar's lanes: stable passes from the last lane to the first
             for j in range(d.shape[-1] - 1, -1, -1):
                 perm = _stable_pass(perm, _value_key(d[:, j], asc))
         elif d.is_floating_point():
@@ -104,8 +108,6 @@ def topn_keys(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool],
         nulls_first = [False] * len(sort_exprs)
     keys = []
     for e, asc, nf in zip(sort_exprs, ascending, nulls_first):
-        if e.type.is_raw_string:
-            raise NotPorted(f"top-n over {e.type} keys")
         d, v = c.compile(e)(page)
         keys.append((_dict_rank(page, e, d), v, bool(asc), bool(nf)))
     return keys

@@ -26,6 +26,7 @@ from presto_tpu_torch.expr.compile import ExprCompiler
 from presto_tpu_torch.expr.ir import Expr
 from presto_tpu_torch.kernels import keys as kk
 from presto_tpu_torch.kernels import window_eval as k10
+from presto_tpu_torch.ops.rawstring import pack_lanes
 from presto_tpu_torch.page import Block, Page
 from presto_tpu_torch.types import BIGINT, DOUBLE, Type
 
@@ -134,11 +135,9 @@ def window_perm(page: Page, partition_exprs: Sequence[Expr], order_exprs: Sequen
     c = ExprCompiler.for_page(page)
     perm = torch.arange(page.capacity, device=page.device)
     for e, asc in list(zip(order_exprs, ascending))[::-1]:
-        if e.type.is_raw_string:
-            raise NotPorted("window ORDER BY raw strings")
         d, v = c.compile(e)(page)
         d = _dict_rank(page, e, d)
-        if d.dim() > 1:  # limb matrices: canonical form is value order
+        if d.dim() > 1:  # limb matrices and raw lanes: canonical form is value order
             for j in range(d.shape[-1] - 1, -1, -1):
                 perm = _stable_pass(perm, _value_key(d[:, j], asc))
         elif d.is_floating_point():
@@ -165,7 +164,10 @@ def window_inputs(page: Page, partition_exprs: Sequence[Expr], order_exprs: Sequ
     perm, pkey = window_perm(page, partition_exprs, order_exprs, ascending,
                              partition_domains)
     c = ExprCompiler.for_page(page)
-    order_cols = [c.compile(e)(page) for e in order_exprs]  # raw codes, as the reference
+    order_cols = []  # codes as they are, as the reference (only their equality matters)
+    for e in order_exprs:
+        d, v = c.compile(e)(page)
+        order_cols.append((pack_lanes(d) if e.type.is_raw_string else d, v))
     descs = [_func(f, bool(order_exprs)) for f in funcs]
     args = [None if f.arg is None else c.compile(f.arg)(page) for f in funcs]
     return perm, page.row_mask, pkey, order_cols, descs, args

@@ -5,7 +5,9 @@ a validity mask; a Page is a tuple of Blocks plus a row mask.  The two
 masks keep their meaning: ``Block.valid`` is SQL NULL-ness per value,
 ``Page.row_mask`` is row liveness after filters, and operators ignore
 rows whose ``row_mask`` is False.  VARCHAR columns hold int32 codes
-into a host-side :class:`Dictionary`; ARRAY, MAP and ROW columns hold
+into a host-side :class:`Dictionary`, a raw (non-dictionary) VARCHAR a
+zero-padded ``(capacity, W)`` uint8 matrix of UTF-8 bytes
+(``ops/rawstring.py``); ARRAY, MAP and ROW columns hold
 ``(capacity, slots)`` matrices (``ops/container.py``), an array of
 strings its elements' dictionary.
 
@@ -22,7 +24,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from presto_tpu_torch import NotPorted
 from presto_tpu_torch.types import Type
 
 
@@ -60,10 +61,6 @@ class Dictionary:
         return f"Dictionary({len(self.values)} values)"
 
 
-def _unsupported_storage(t: Type) -> bool:
-    return t.is_raw_string
-
-
 @dataclasses.dataclass
 class Block:
     """One column: dense tensor + validity mask, both ``(capacity,...)``.
@@ -87,9 +84,12 @@ class Block:
     ) -> "Block":
         n = len(values)
         cap = capacity if capacity is not None else n
-        if _unsupported_storage(type_):
-            raise NotPorted(f"{type_} columns")
-        if type_.is_long_decimal and (
+        if type_.is_raw_string and not isinstance(values, np.ndarray):
+            from presto_tpu_torch.ops.rawstring import encode_strings
+
+            data = np.zeros((cap,) + type_.value_shape, dtype=np.uint8)
+            data[:n] = encode_strings(list(values), type_.value_shape[0])
+        elif type_.is_long_decimal and (
             not isinstance(values, np.ndarray) or values.ndim == 1
         ):
             from presto_tpu_torch.ops.decimal128 import encode_py
@@ -150,8 +150,6 @@ class Page:
     def empty(cls, types: Sequence[Type], capacity: int, device) -> "Page":
         blocks = []
         for t in types:
-            if _unsupported_storage(t):
-                raise NotPorted(f"{t} columns")
             blocks.append(Block(
                 torch.zeros((capacity,) + t.value_shape,
                             dtype=_torch_dtype(t), device=device),
@@ -217,8 +215,11 @@ class Page:
             valid = np.asarray(b.valid)[rows_idx]
             if b.type.is_string and b.dictionary is not None and decode_strings:
                 vals = b.dictionary.decode(data)
-            elif _unsupported_storage(b.type):
-                raise NotPorted(f"{b.type} output")
+            elif b.type.is_raw_string and decode_strings:
+                from presto_tpu_torch.ops.rawstring import decode_strings as decode_raw
+
+                vals = np.empty(len(data), dtype=object)
+                vals[:] = decode_raw(data)
             elif b.type.is_array or b.type.is_map or b.type.name == "row":
                 from presto_tpu_torch.ops.container import decode_arrays, decode_maps, \
                     decode_rows
@@ -314,8 +315,6 @@ def page_from_numpy(columns: Sequence[np.ndarray],
     blocks = []
     for data, valid, ts, dv in zip(columns, valids, types, dictionary_values):
         t = parse_type(ts)
-        if _unsupported_storage(t):
-            raise NotPorted(f"{t} columns")
         blocks.append(Block(
             torch.from_numpy(np.array(data, dtype=t.np_dtype)).to(device),
             torch.from_numpy(np.array(valid, dtype=np.bool_)).to(device),

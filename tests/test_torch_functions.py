@@ -252,10 +252,11 @@ def test_math_sweep_values():
     ("select round(cast(l_tax as real), 1) from lineitem", "round of real"),
 ], ids=["setdigest", "decimal38", "round_real"])
 def test_deferred_scalar_families_raise_by_name(sql, what):
-    """The families a later slice ports raise NotPorted by name (a raw
-    varchar's functions: tests/test_torch_string_fns.py); a family a
-    later slice ported (``what`` None: the set digests, the twelfth
-    slice; DECIMAL(38), the thirteenth) equals the reference."""
+    """The families a later slice ports raise NotPorted by name; a
+    family a later slice ported (``what`` None: the set digests, the
+    twelfth slice; DECIMAL(38), the thirteenth) equals the reference (a
+    raw varchar's functions, the fourteenth: tests/test_torch_rawstring.py
+    and tests/test_torch_string_fns.py)."""
     if what is None:
         _pair().check(sql)
         return

@@ -2477,3 +2477,218 @@ def test_thirteenth_slice_on_the_card_equals_the_cpu_run():
         assert got == want and got, sql
     assert k1.op_launches.get("d38") and k2.kind_launches.get("d38")
     assert k6.kind_launches.get("d38") and k7.d38_launches > before
+
+
+# -- the fourteenth slice: raw (non-dictionary) VARCHAR values ----------------
+
+RAW_EDGES = ["", "a", "ab", "héllo wörld", "ÀÉÎÕÜ mixed", "日本語テスト", "naïve café",
+             "ß÷×Þþ", "😀 emoji", "Customer#000000001", "Customer#000000002", "abc%_x",
+             "zzzzzzzzzzzzzzzzzzzzzzzz"]
+
+
+def _raw_rows(n: int, width: int, seed: int, device):
+    """(n, width) byte rows: the edge strings (some cut at the width) and
+    random ASCII words, and a validity mask."""
+    from presto_tpu_torch.ops.rawstring import encode_strings
+
+    rng = np.random.default_rng(seed)
+    words = np.array(["alpha", "Bravo", "charlie", "é", "日本", "x", ""], dtype=object)
+    vals = [RAW_EDGES[i % len(RAW_EDGES)] if i % 3 == 0 else
+            " ".join(rng.choice(words, rng.integers(0, 5))) for i in range(n)]
+    data = torch.from_numpy(encode_strings(vals, width)).to(device)
+    return data, torch.from_numpy(rng.random(n) >= 0.1).to(device)
+
+
+def _k17_cases(a, b, lits, mask):
+    from presto_tpu_torch.kernels import raw_string_eval as k17
+    from presto_tpu_torch.ops.rawstring import code_points, like_tokens
+
+    out = [(k17.CMP, dict(b=b, op=op)) for op in k17.CMP_OPS]
+    out += [(k17.CMP, dict(b=lits[:1], op="lt")), (k17.IN, dict(b=lits)),
+            (k17.SUBSTR, dict(start=2, length=3, flag=True)),
+            (k17.SUBSTR, dict(start=3, flag=True)),
+            (k17.SUBSTR, dict(start=2, length=3)), (k17.CASE_MAP, dict(flag=True)),
+            (k17.CASE_MAP, dict(flag=False)), (k17.CONCAT, dict(b=b)),
+            (k17.CONCAT, dict(b=lits[:1])), (k17.LEN, dict(flag=True)), (k17.LEN, {}),
+            (k17.CODEPOINT, {}), (k17.PACK, {}), (k17.HASH, {}),
+            (k17.SELECT, dict(b=b, mask=mask, width=a.shape[1] + 3))]
+    for needle in ("a", "日本", "é", "", "Customer#"):
+        out += [(k17.STRPOS, dict(tokens=code_points(needle))),
+                (k17.PREFIX, dict(tokens=code_points(needle))),
+                (k17.SUFFIX, dict(tokens=code_points(needle)))]
+    for pat in ("%", "a%", "%a%", "_", "%日_%", "C%#%1", "%special%requests%", "__%é"):
+        out.append((k17.LIKE, dict(tokens=like_tokens(pat))))
+    return out
+
+
+@pytest.mark.parametrize("width", [8, 25, 79])
+def test_raw_string_eval_modes_match_plain(width):
+    """Every K17 mode against its twin on the card, bit for bit: two
+    widths in one comparison, literal rows, multibyte characters cut at
+    the width."""
+    from presto_tpu_torch.kernels import raw_string_eval as k17
+    from presto_tpu_torch.ops.rawstring import literal_rows
+
+    dev = _cuda()
+    a, _ = _raw_rows(1 << 16, width, 1800 + width, dev)
+    b, mask = _raw_rows(1 << 16, 15, 1900 + width, dev)
+    lits = literal_rows(RAW_EDGES[:6], width, dev)
+    for mode, kw in _k17_cases(a, b, lits, mask):
+        got = k17.raw_string_eval(mode, a, **kw)
+        want = k17.raw_string_eval(mode, a.cpu(), **{
+            k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+        torch.cuda.synchronize()
+        assert _equal(got.cpu(), want), (k17.MODE_NAMES[mode], kw.get("op"), kw.get("tokens"))
+    lanes = k17.raw_string_eval(k17.PACK, a)
+    assert torch.equal(k17.raw_string_eval(k17.UNPACK, lanes, width=width), a)
+
+
+@pytest.mark.parametrize("slots", [1, 13, 16384])
+def test_packed_group_agg_raw_extremes_match_plain(slots):
+    """K2's raw extremes (k phased launches over the lanes) beside a
+    count, global and grouped."""
+    from presto_tpu_torch.ops.rawstring import pack_lanes
+
+    dev = _cuda()
+    page = _page(1 << 18, 2000 + slots, dev)
+    a, v = _raw_rows(1 << 18, 25, 2010 + slots, dev)
+    lanes = pack_lanes(a)
+    b = page.blocks
+    keys = [] if slots == 1 else [(torch.remainder(b[2].data, 13), b[2].valid, 0, 13)] \
+        if slots == 13 else [(torch.remainder(b[2].data, 16383), b[2].valid, 0, 16384)]
+    args = [(k2.MIN_LANES, lanes, v), (k2.COUNT, v, v), (k2.MAX_LANES, lanes, v)]
+    got = k2.packed_group_agg(page.capacity, page.row_mask, keys, args, slots)
+    want = k2.packed_group_agg_plain(page.capacity, page.row_mask, keys, args, slots)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_sorted_group_agg_raw_extremes_match_plain(presorted):
+    """K6's raw extremes, one warp a run, beside the other states, and a
+    raw key through the hash lane (K17 HASH, then K9)."""
+    from presto_tpu_torch.ops.rawstring import hash_bytes, pack_lanes
+
+    dev = _cuda()
+    page = _page(1 << 18, 2100 + presorted, dev)
+    a, v = _raw_rows(1 << 18, 40, 2110 + presorted, dev)
+    b = page.blocks
+    keys = [(torch.remainder(b[2].data, 1000), b[2].valid, 0, 0)] if presorted else \
+        [(hash_bytes(a), v, 0, 0)]
+    lanes = pack_lanes(a)
+    states = [(k6.S_MIN_LANES, lanes, v), (k6.S_VALID, None, v), (k6.S_MAX_LANES, lanes, v)]
+    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted, runs=True)
+    want = k6.sorted_group_agg_plain(keys, page.row_mask,
+                                     [states[1]], presorted, runs=True)
+    torch.cuda.synchronize()
+    assert got[2] == want[2] > 10
+    order, starts = want[3]
+    for i, s in ((0, states[0]), (2, states[2])):
+        assert torch.equal(got[1][i], k6.lane_extremes_plain(order, starts, lanes, v,
+                                                             s[0] == k6.S_MIN_LANES))
+    assert torch.equal(got[1][1], want[1][0])
+
+
+@pytest.mark.parametrize("n", [10, 100])
+def test_topn_raw_key_matches_plain(n):
+    """K7 over a raw key's lanes (k = 2, 4, 10), ascending and descending."""
+    from presto_tpu_torch.ops.rawstring import pack_lanes
+
+    dev = _cuda()
+    page = _page(1 << 18, 2200 + n, dev)
+    for width in (15, 25, 79):
+        a, v = _raw_rows(1 << 18, width, 2210 + width, dev)
+        lanes = pack_lanes(a)
+        for keys in ([(lanes, v, True, False)],
+                     [(lanes, v, False, True), (page.blocks[2].data, page.blocks[2].valid,
+                                                True, False)]):
+            got = k7.topn(keys, page.row_mask, n)
+            want = k7.topn_plain(keys, page.row_mask, n)
+            torch.cuda.synchronize()
+            assert _equal(list(got), list(want))
+
+
+def test_window_eval_raw_order_key_matches_plain():
+    """K10's peer groups over a raw order key's lanes (rank, dense_rank)."""
+    from presto_tpu_torch.ops.rawstring import pack_lanes
+
+    dev = _cuda()
+    n = 1 << 16
+    a, v = _raw_rows(n, 25, 2300, dev)
+    lanes = pack_lanes(a)
+    row_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    perm = torch.arange(n, device=dev)
+    for j in range(lanes.shape[1] - 1, -1, -1):
+        perm = perm[torch.argsort(lanes[perm, j], stable=True)]
+    pkey = torch.zeros(n, dtype=torch.int64, device=dev)
+    funcs = [k10.Func(k10.RANK, k10.FRAME_PEERS, None, None, 0, False, None),
+             k10.Func(k10.DENSE_RANK, k10.FRAME_PEERS, None, None, 0, False, None)]
+    ins = (perm, row_mask, pkey, [(lanes, v)], funcs, [None, None])
+    got = k10.window_eval(*ins)
+    want = k10.window_eval_plain(*ins)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+
+
+def test_window_eval_lanes_order_keys_and_arguments_match_plain():
+    """K10 over (n, k) int64 lanes: a long decimal's two limbs and a raw
+    key's four lanes as order keys, the limbs as the value functions'
+    argument (copied lane by lane)."""
+    from presto_tpu_torch.ops.rawstring import pack_lanes
+
+    dev = _cuda()
+    n = 1 << 16
+    rng = np.random.default_rng(2310)
+    limbs = torch.from_numpy(rng.integers(-3, 3, (n, 2))).to(dev).contiguous()
+    lv = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    a, v = _raw_rows(n, 25, 2311, dev)
+    lanes = pack_lanes(a)
+    row_mask = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
+    pkey = torch.from_numpy(rng.integers(0, 7, n)).to(dev)
+    perm = torch.arange(n, device=dev)
+    for key in [lanes[:, j] for j in range(3, -1, -1)] + [limbs[:, 1], limbs[:, 0], pkey]:
+        perm = perm[torch.argsort(key[perm], stable=True)]
+    funcs = [k10.Func(k10.RANK, k10.FRAME_PEERS), k10.Func(k10.LEAD, offset=1),
+             k10.Func(k10.LAG, offset=2, ignore_nulls=True),
+             k10.Func(k10.FIRST_VALUE, k10.FRAME_ROWS, -3, 1),
+             k10.Func(k10.NTH_VALUE, k10.FRAME_PEERS, offset=2)]
+    args = [None] + [(limbs, lv)] * 4
+    ins = (perm, row_mask, pkey, [(limbs, lv), (lanes, v)], funcs, args)
+    got = k10.window_eval(*ins)
+    want = k10.window_eval_plain(*ins)
+    torch.cuda.synchronize()
+    for (gd, gv), (wd, wv) in zip(got, want):
+        assert torch.equal(gv, wv) and torch.equal(gd[wv], wd[wv])
+
+
+def test_fourteenth_slice_on_the_card_equals_the_cpu_run():
+    """The smoke's raw queries at sf 0.01 over the raw copies of TPC-H's
+    text columns on the card (K17's modes, the raw K2/K6/K7/K10 modes,
+    raw keys through the hash lane), equal to the CPU run."""
+    _cuda()
+    import chip_smoke
+    from presto_tpu_torch.catalog import Catalog
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.connectors.tpch import Tpch
+    from presto_tpu_torch.kernels import raw_string_eval as k17
+    from presto_tpu_torch.runner import QueryRunner
+
+    runners = {}
+    for device in ("cuda", "cpu"):
+        mem = MemoryConnector(device=device)
+        for t in ("lineitem", "orders", "customer", "part", "partsupp", "supplier", "nation"):
+            mem.load_from(Tpch(sf=0.01, split_rows=1 << 14), t)
+        chip_smoke.make_raw_tables(mem)
+        catalog = Catalog()
+        catalog.register("tpch", mem)
+        runners[device] = QueryRunner(catalog, device=device)
+    k17.mode_launches.clear()
+    k2.kind_launches.clear()
+    k6.kind_launches.clear()
+    before = k7.lanes_launches
+    for sql in chip_smoke.RAW_QUERIES.values():
+        got, want = runners["cuda"].execute(sql).rows, runners["cpu"].execute(sql).rows
+        assert got == want and got, sql
+    assert {"like", "hash", "pack", "in", "substr"} <= set(k17.mode_launches)
+    assert k2.kind_launches.get("lanes") and k6.kind_launches.get("lanes")
+    assert k7.lanes_launches > before

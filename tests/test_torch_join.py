@@ -253,7 +253,8 @@ def test_hashed_keys_and_expanding_probe_raise():
     """Once NotPorted: keys without a domain now hash (K9) into a
     sorted build without a starts table, probed by binary search, and
     the expanding probe (K8) runs; both equal the reference.  Raw-string
-    keys still raise."""
+    keys, once refused too, hash through their FNV-1a lane (K17) and
+    equal the reference's build and probes."""
     ref_page = _build_page(10, 3000, dup=True)
     ref_b = ref_join.build_join(ref_page, _key(ref_ir, ref_type), [None])
     port_b = port_join.build_join(to_port(ref_page), _key(port_ir, port_type), [None])
@@ -269,20 +270,36 @@ def test_hashed_keys_and_expanding_probe_raise():
                                                   _key(port_ir, port_type), [None])
     assert port_total == int(ref_total) > 100
     assert port_out.to_pylist() == ref_out.to_pylist()
-    import torch
-    from presto_tpu_torch.page import Block, Page
-    from presto_tpu_torch.types import VarcharType
+    from presto_tpu_torch.page import page_from_numpy
 
-    raw = VarcharType(8, raw=True)
-    n = 64
-    raw_page = Page((Block(torch.randint(97, 123, (n, 8), dtype=torch.uint8),
-                           torch.ones(n, dtype=torch.bool), raw),),
-                    torch.ones(n, dtype=torch.bool))
-    raw_key = [port_ir.ColumnRef(type=raw, index=0)]
-    with pytest.raises(NotPorted):
-        port_join.build_join(raw_page, raw_key, [None])
-    with pytest.raises(NotPorted):
-        port_join.probe_join(port_b, raw_page, raw_key, [None])
+    def raw_pages(seed, n):
+        rng = np.random.default_rng(seed)
+        data = np.zeros((n, 8), dtype=np.uint8)  # a few distinct keys, some shorter
+        data[:, :2] = rng.integers(97, 100, (n, 2))
+        data[rng.random(n) < 0.3, 1] = 0
+        valid = rng.random(n) >= 0.1
+        ref = RefPage((RefBlock(jnp.asarray(data), jnp.asarray(valid),
+                                ref_type("raw_varchar(8)")),
+                       RefBlock(jnp.arange(n), jnp.ones(n, jnp.bool_), ref_type("bigint"))),
+                      jnp.ones(n, jnp.bool_))
+        return ref, page_from_numpy([data, np.arange(n)], [valid, np.ones(n, np.bool_)],
+                                    np.ones(n, np.bool_), ["raw_varchar(8)", "bigint"],
+                                    [None, None])
+
+    ref_raw_b, raw_b = raw_pages(12, 64)
+    ref_raw_p, raw_p = raw_pages(13, 200)
+    raw_key_ref = [ref_ir.ColumnRef(type=ref_type("raw_varchar(8)"), index=0)]
+    raw_key = [port_ir.ColumnRef(type=port_type("raw_varchar(8)"), index=0)]
+    ref_b = ref_join.build_join(ref_raw_b, raw_key_ref, [None])
+    port_b = port_join.build_join(raw_b, raw_key, [None])
+    _live_prefix(ref_b, port_b)
+    for kind in ("semi", "left"):
+        _same_output(port_join.probe_join(port_b, raw_p, raw_key, [None], kind=kind),
+                     ref_join.probe_join(ref_b, ref_raw_p, raw_key_ref, [None], kind=kind))
+    ref_out, ref_total = ref_join.probe_expand(ref_b, ref_raw_p, raw_key_ref, 16384, [None])
+    port_out, port_total = port_join.probe_expand(port_b, raw_p, raw_key, [None])
+    assert port_total == int(ref_total) > 100
+    assert port_out.to_pylist() == ref_out.to_pylist()
 
 
 def test_direct_budget_and_domain_size_match_reference():

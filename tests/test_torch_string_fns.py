@@ -189,15 +189,35 @@ def test_date_format_dictionary_is_shared():
 
 
 def test_raw_string_functions_stay_out():
-    """A raw varchar (the byte-matrix form, B18) has no dictionary for
-    a table: its functions raise NotPorted by name."""
-    raw = port_type("raw_varchar(8)")
-    c = port_compile.ExprCompiler([raw], [None])
-    e = port_ir.Call(type=port_type("bigint"), fn="length",
-                     args=(port_ir.ColumnRef(type=raw, index=0),))
-    with pytest.raises(NotPorted) as err:
-        c.lower(e)
-    assert err.value.what == f"length over {raw}"
+    """A raw varchar (the byte-matrix form, B18) has no dictionary, so
+    its functions stay out of the value tables: ``length`` runs in K17
+    (code points, a sequence cut at the width one U+FFFD) and equals the
+    reference's host callback over the same bytes."""
+    import jax.numpy as jnp
+
+    from presto_tpu.ops.rawstring import encode_strings
+    from presto_tpu.page import Block, Page
+    from presto_tpu_torch.page import page_from_numpy
+
+    values = VALUES + ["héllo", "日本語", "😀x", None]
+    data = encode_strings(values, 8)  # "日本語" and "😀x" cut at the width
+    valid = np.array([v is not None for v in values])
+    n = len(values)
+    ref_page = Page((Block(jnp.asarray(data), jnp.asarray(valid), ref_type("raw_varchar(8)")),),
+                    jnp.ones(n, jnp.bool_))
+    port_page = page_from_numpy([data], [valid], np.ones(n, np.bool_), ["raw_varchar(8)"],
+                                [None])
+    spec = F("length", "bigint", C("s"))
+    cols = [("s", "raw_varchar(8)")]
+    rd, rv = ref_compile.ExprCompiler.for_page(ref_page).compile(
+        build(spec, ref_ir, ref_type, cols))(ref_page)
+    pd, pv = port_compile.ExprCompiler.for_page(port_page).compile(
+        build(spec, port_ir, port_type, cols))(port_page)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(pd.numpy()[pv.numpy()], np.asarray(rd)[np.asarray(rv)])
+    with pytest.raises(NotPorted):  # still no dictionary for a value table
+        port_compile.ExprCompiler([port_type("raw_varchar(8)")], [None]).lower(
+            build(spec, port_ir, port_type, cols))
 
 
 def test_from_base_past_int64_raises_in_both():
