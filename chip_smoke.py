@@ -81,7 +81,13 @@ Phases (any failure exits non-zero before the result line):
    compare as a filter, the up-scale to decimal(38,18), the double, the
    narrowing to bigint), K2's wide sum, min and max by Q1's flags, K3's
    fold and wide finalizes, K6's wide states by l_suppkey and their
-   merge, K7's top 100 by the merged wide revenue;
+   merge, K7's top 100 by the merged wide revenue; and the fifteenth
+   slice's (``check_ml_geo_kernels``): K18 geo_contains over a 2^23-row
+   trips split with a 1024-vertex literal and over geo_join's 68.9M
+   (zone, trip) rows by code, K19 ml_state's partials (packed-direct,
+   sort path, evaluate) and merge, K20 ml_finalize, K12's REGRESS and
+   CLASSIFY (the class off the near ties, the log-likelihood within 2
+   ulp);
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
@@ -114,7 +120,15 @@ Phases (any failure exits non-zero before the result line):
    after the phase: Q1 and Q6 over the wide columns, revenue per
    supplier with its top 100, Spark's decimal(38,18), the casts out,
    CASE/abs/coalesce/greatest, a 38-digit literal with a top 1000, the
-   join with orders); then (TPC-H's tables freed)
+   join with orders); the raw varchar phase, traced (``RAW_QUERIES``);
+   the ML and geospatial phase, traced (``ML_GEO_QUERIES``: regressors
+   by the two flags and by supplier, a classifier by ship mode, its
+   evaluation and a regression over lineitem cross-joined with their
+   models; a point-in-polygon count over 2^24 trips, a spatial join of
+   263 zones with 2^18 trips, areas, a nearest-100; the zones and trips
+   generated from ``GEO_SEED`` and freed after the phase; ml_regressor
+   timed again with its ML states forced onto the sort path,
+   ``ml_path_walls``); then (TPC-H's tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -124,16 +138,18 @@ Phases (any failure exits non-zero before the result line):
    after it, and the run fails unless each query launched the kernels
    of its path; each query's pool peak is printed beside the card's;
 5. check rows against the same queries run by the port on the CPU over
-   the same generated data, exactly (doubles included): the fifth slice's 13
-   TPC-DS queries and q29 at SF10 (the rows of phase 4), TPC-H at
-   SF 1 (the card runs the 22 queries again over the SF 1 tables; Q22,
-   which finds no row there, also without its anti join), the other
-   TPC-DS queries at SF 1 (run again there on the card), q72 at sf
-   0.01; the functions, the dates and aggregate tail, the containers,
+   the same generated data, exactly (doubles included): the fifth slice's
+   TPC-DS queries but q47 and q57, and q29, at SF10 (the rows of phase
+   4), TPC-H at SF 1 (the card runs the 22 queries again over the SF 1
+   tables; Q22, which finds no row there, also without its anti join),
+   the other TPC-DS queries, q47 and q57 among them, at SF 1 (run again
+   there on the card), q72 at sf 0.01; the functions, the dates and aggregate tail, the containers,
    the types, the sketch and the wide decimals phases at SF 1 (the
-   latter over lineitem_d38 built on both sides), exact but for
-   skewness's doubles
-   (``FN_APPROX``: its pow, a relative 1e-12);
+   latter over lineitem_d38 built on both sides), the raw and the ML and
+   geo phases at SF 1 (the point tables at 1/16), exact but for
+   skewness's doubles (``FN_APPROX``: its pow, a relative 1e-12) and
+   evaluate_classifier_predictions' counts (within the rows at a near
+   tie of the classifier's log-likelihoods);
 6. print per-query wall time, fact rows/s and a trace summary, a
    ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
@@ -143,6 +159,7 @@ Imports nothing of JAX and nothing of the ``presto_tpu`` package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
 import json
@@ -159,9 +176,14 @@ import time
 # otherwise meet 20 GiB reserved in fragments they cannot use
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# H100 SXM float64 instructions a second outside the tensor cores: the
+# data sheet's 34 TFLOP/s counts a fused multiply-add as two operations;
+# an add, a multiply, a compare or a divide (counted as one) is one
+FP64_OPS_PER_S = 34e12 / 2
 SF = 10.0  # TPC-H scale factor: ~60M lineitem rows
 SPLIT_ROWS = 1 << 23  # rows per lineitem split, as bench.py uses on an accelerator
 REPS = 3  # timed repetitions per query after the counted run
@@ -242,6 +264,11 @@ DS3_QUERIES = {f"ds_q{q}": DS_SQL[q] for q in (1, 9, 10, 15, 24, 25, 29, 30, 32,
 # DS_SF, the counted run's against the CPU's; q85 finds no row at any
 # scale this generator was run at (sf 0.01 to 10), in both packages
 DS3_CHECK_AT_DS_SF = ("ds_q29",)
+# the fifth slice's queries whose CPU runs at DS_SF took most of the
+# smoke's time (on the H100 machine's host, q47's 166.9 s and q57's
+# 60.5 s of a 1270 s run): their rows are checked at DS_CHECK_SF, the
+# card running them again there
+DS_CHECK_AT_CHECK_SF = ("ds_q47", "ds_q57")
 DS3_EMPTY_AT_CHECK = ("ds_q85",)
 # queries that do not fit one card at DS_SF: (scale on the card, scale
 # of the row check).  q72 joins catalog_sales to inventory on the item
@@ -894,6 +921,143 @@ SK_REQUIRED = {
     "sk_multimap": ("group_collect", "group_collect:wide"),
     "sk_map_union": ("group_collect", "group_collect:union"),
 }
+# the fifteenth slice: the ML aggregates over the resident lineitem, and
+# the geospatial functions over generated zones and trips
+_FEATS = "features(l_quantity, l_discount, l_tax)"
+ML_QUERIES = {
+    "ml_regressor": f"select l_returnflag, l_linestatus, learn_regressor(l_extendedprice, "
+                    f"{_FEATS}) as m, count(*) as n from lineitem group by l_returnflag, "
+                    "l_linestatus order by l_returnflag, l_linestatus",
+    # 100k models, reduced on the card: their count and first weights' sum
+    "ml_regressor_supp": "select count(*) as suppliers, sum(m[1]) as w_quantity from ("
+                         f"select l_suppkey, learn_regressor(l_extendedprice, {_FEATS}) as m "
+                         "from lineitem group by l_suppkey) t",
+    "ml_classifier": f"select l_shipmode, learn_classifier(l_linenumber - 1, {_FEATS}) as m "
+                     "from lineitem group by l_shipmode order by l_shipmode",
+    "ml_evaluate": f"select evaluate_classifier_predictions(l_linenumber - 1, classify(m, "
+                   f"{_FEATS})) as summary from lineitem cross join (select "
+                   f"learn_classifier(l_linenumber - 1, {_FEATS}) as m from lineitem) t",
+    "ml_regress": f"select l_returnflag, avg(regress(m, {_FEATS})) as fit from lineitem "
+                  f"cross join (select learn_regressor(l_extendedprice, {_FEATS}) as m "
+                  "from lineitem) t group by l_returnflag order by l_returnflag",
+}
+# the zones and trips: the shape of the NYC TLC trip records against the
+# city's 263 taxi zones (generated from GEO_SEED, nothing downloaded)
+GEO_SEED = 263
+GEO_ZONES = 263
+GEO_TRIPS = 1 << 24
+GEO_SAMPLE = 1 << 18
+GEO_CHECK_DIV = 16  # the row check's point tables: 1/16 of each
+GEO_TABLES = {"zones": ["zid", "geom"], "trips": ["tid", "x", "y"],
+              "trips_sample": ["tid", "x", "y"]}
+
+
+def _star_ring(rng, cx, cy, r, nv):
+    ang = np.sort(rng.uniform(0.0, 2 * np.pi, nv))
+    rad = r * rng.uniform(0.6, 1.0, nv)
+    pts = [(float(cx + a * np.cos(t)), float(cy + a * np.sin(t))) for a, t in zip(rad, ang)]
+    return "(" + ", ".join(f"{x!r} {y!r}" for x, y in pts + pts[:1]) + ")"
+
+
+def geo_polygon(seed: int = GEO_SEED, nv: int = 1024) -> str:
+    """geo_contains' literal: a star polygon of ``nv`` vertices around
+    the extent's centre."""
+    rng = np.random.default_rng(seed + 1)
+    return "POLYGON (" + _star_ring(rng, 50.0, 50.0, 30.0, nv) + ")"
+
+
+def geo_zones(seed: int = GEO_SEED, zones: int = GEO_ZONES) -> list:
+    """The zones' WKT: star polygons of 64 to 512 vertices on a jittered
+    17 x 16 grid over the 100 x 100 extent, one in eight with a hole,
+    two of them MULTIPOLYGONs of two parts (the first ``zones``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for z in range(zones):
+        cx = 3.0 + 94.0 * (z % 17 + rng.uniform(0.2, 0.8)) / 17
+        cy = 3.0 + 94.0 * (z // 17 + rng.uniform(0.2, 0.8)) / 16
+        r = rng.uniform(2.0, 3.2)
+        shell = _star_ring(rng, cx, cy, r, int(rng.integers(64, 513)))
+        if z % 8 == 3:  # a hole, inside every star's inner radius
+            ang = np.linspace(0.0, 2 * np.pi, 9)[:-1]
+            pts = [(float(cx + 0.3 * r * np.cos(t)), float(cy + 0.3 * r * np.sin(t)))
+                   for t in ang]
+            hole = "(" + ", ".join(f"{x!r} {y!r}" for x, y in pts + pts[:1]) + ")"
+            out.append(f"POLYGON ({shell}, {hole})")
+        elif z in (40, 200):  # a second part beside the first
+            part = _star_ring(rng, cx + 0.8 * r, cy + 0.8 * r, 0.5 * r, 64)
+            out.append(f"MULTIPOLYGON (({shell}), ({part}))")
+        else:
+            out.append(f"POLYGON ({shell})")
+    return out
+
+
+GEO_QUERIES = {
+    "geo_contains": "select count(*) as inside from trips where ST_Contains("
+                    f"ST_GeometryFromText('{geo_polygon()}'), ST_Point(x, y))",
+    "geo_join": "select zid, count(*) as trips from zones, trips_sample "
+                "where ST_Contains(geom, ST_Point(x, y)) group by zid order by zid",
+    "geo_area": "select zid % 10 as bucket, sum(ST_Area(geom)) as area, count(*) as zones "
+                "from zones group by zid % 10 order by bucket",
+    "geo_nearest": "select tid, ST_Distance(ST_Point(x, y), ST_Point(50, 50)) as d "
+                   "from trips order by d, tid limit 100",
+}
+ML_GEO_QUERIES = {**ML_QUERIES, **GEO_QUERIES}
+_K19 = "ml_state:"
+ML_GEO_REQUIRED = {
+    "ml_regressor": (_K19 + "regressor", _K19 + "merge", "ml_finalize:regressor",
+                     "container_eval:construct", "packed_group_agg"),
+    "ml_regressor_supp": (_K19 + "regressor", _K19 + "merge", "ml_finalize:regressor",
+                          "sorted_group_agg", "container_eval:subscript"),
+    "ml_classifier": (_K19 + "classifier", _K19 + "merge", "ml_finalize:classifier"),
+    "ml_evaluate": (_K19 + "classifier", "ml_finalize:classifier", "container_eval:classify",
+                    _K19 + "evaluate", _K19 + "merge_i64"),
+    "ml_regress": (_K19 + "regressor", "ml_finalize:regressor", "container_eval:regress",
+                   "packed_group_agg|sorted_group_agg"),
+    "geo_contains": ("geo_contains", "packed_group_agg"),
+    "geo_join": ("geo_contains:column", "expr_eval", "packed_group_agg|sorted_group_agg"),
+    "geo_area": ("expr_eval:dvlut", "packed_group_agg|sorted_group_agg"),
+    "geo_nearest": ("expr_eval:dun", "expr_eval:dmul", "topn"),
+}
+
+
+def geo_points(div: int = 1) -> np.ndarray:
+    """The trips' (2, n) coordinates, uniform over the extent, for
+    ``GEO_TRIPS // div`` trips (``trips_sample`` is their first rows)."""
+    return np.random.default_rng(GEO_SEED + 2).uniform(0.0, 100.0, (2, GEO_TRIPS // div))
+
+
+def make_geo_tables(conn, div: int = 1, zones: int = GEO_ZONES) -> None:
+    """Register ``zones`` (zid, geom: a dictionary varchar of WKT),
+    ``trips`` (tid, x, y: points uniform over the extent) and
+    ``trips_sample`` (its first rows) in ``conn``, the point tables cut
+    to 1/``div`` of their rows; the points are made in bulk from the seed
+    on the host and moved to the connector's device."""
+    from presto_tpu_torch.page import Block, Dictionary, Page
+    from presto_tpu_torch.types import BIGINT, DOUBLE, VARCHAR
+
+    dev = conn.device
+    live = torch.ones(zones, dtype=torch.bool, device=dev)
+    page = Page((Block(torch.arange(1, zones + 1, dtype=torch.int64, device=dev), live, BIGINT),
+                 Block(torch.arange(zones, dtype=torch.int32, device=dev), live, VARCHAR,
+                       Dictionary(geo_zones(zones=zones)))), live)
+    conn.create_table("zones", [("zid", BIGINT), ("geom", VARCHAR)], [page],
+                      {"zid": (1, zones)})
+    n = GEO_TRIPS // div
+    xy = torch.from_numpy(geo_points(div))
+    x, y = xy[0].to(dev), xy[1].to(dev)
+    tid = torch.arange(n, dtype=torch.int64, device=dev)
+    for name, rows in (("trips", n), ("trips_sample", GEO_SAMPLE // div)):
+        pages = []
+        for lo in range(0, rows, SPLIT_ROWS):
+            hi = min(rows, lo + SPLIT_ROWS)
+            live = torch.ones(hi - lo, dtype=torch.bool, device=dev)
+            pages.append(Page((Block(tid[lo:hi], live, BIGINT),
+                               Block(x[lo:hi], live, DOUBLE), Block(y[lo:hi], live, DOUBLE)),
+                              live))
+        conn.create_table(name, [("tid", BIGINT), ("x", DOUBLE), ("y", DOUBLE)], pages,
+                          {"tid": (0, rows - 1)})
+
+
 D38_REQUIRED = {
     "d38_q1": ("expr_eval:d38mul", "packed_group_agg:d38", "packed_fold_finalize:d38"),
     "d38_q6": ("expr_eval:d38cmp", "expr_eval:d38mul", "packed_group_agg:d38",
@@ -1034,12 +1198,21 @@ REPLACES = {
     "sorted_group_agg@raw_lanes_merge": "presto_tpu/ops/aggregate.py:1085",
     "topn@raw": "presto_tpu/ops/sort.py:77",
     "window_eval@raw": "presto_tpu/ops/window.py:127",
+    "geo_contains": "presto_tpu/geo.py:137",
+    "geo_contains@column": "presto_tpu/expr/compile.py:1734",
+    "ml_state": "presto_tpu/ops/aggregate.py:600",
+    "ml_state@evaluate": "presto_tpu/ops/aggregate.py:574",
+    "ml_state@merge": "presto_tpu/ops/aggregate.py:1176",
+    "ml_finalize": "presto_tpu/ops/aggregate.py:1506",
+    "ml_finalize@classifier": "presto_tpu/ops/aggregate.py:1517",
+    "container_eval@regress": "presto_tpu/expr/compile.py:1628",
+    "container_eval@classify": "presto_tpu/expr/compile.py:1663",
 }
 
 
 def release_host_memory() -> None:
     """Collect garbage and hand freed heap pages back to the system, so
-    the later CPU row checks (TPC-DS q47's at SF10 most) find the room."""
+    the later CPU row checks (TPC-DS's at SF10 most) find the room."""
     import ctypes
 
     gc.collect()
@@ -1153,16 +1326,22 @@ class KernelReport:
         self.counters = {}
 
     def add(self, name, route, source, max_abs_err, ms, plain_ms, bound_bytes,
-            library_ms=None, counter=None):
+            library_ms=None, counter=None, bound_ops=0):
+        """``bound_ops``: the float64 operations the inputs need, where
+        they may bound the kernel before its bytes do."""
         if counter is not None:
             self.counters[name] = counter
         bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = bound_ops / FP64_OPS_PER_S * 1e3
         self.rows[name] = {
             "name": name, "route": route, "source": source,
             "replaces": REPLACES.get(name, REPLACES[name.split("@")[0]]),
             "launches": 0, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "bound_ms": max(bound_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bound_ms else "bytes",
+            "library_ms": library_ms,
         }
+        bound_ms = max(bound_ms, ops_ms)
         log(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
             f"{'' if library_ms is None else f', library {library_ms:.4f} ms'}), "
             f"max_abs_err {max_abs_err}")
@@ -1298,11 +1477,13 @@ def find(node, cls):
     return node
 
 
-def first_split(ex, node):
+def first_split(ex, node, split: int = 0):
     """The page the streaming chain of ``node`` produces from its first
-    split, as the executor runs it."""
-    page = next(ex._source_pages(ex._chain_leaf(node)))
-    return ex._build_stage(node)(page)
+    split (or split ``split``), as the executor runs it."""
+    pages = ex._source_pages(ex._chain_leaf(node))
+    for _ in range(split):
+        next(pages)
+    return ex._build_stage(node)(next(pages))
 
 
 def k1_row(report: KernelReport, name: str, expr, page, filt: bool = False,
@@ -4028,6 +4209,248 @@ def check_rawstring_kernels(report: KernelReport, mem) -> None:
         list(node.funcs), node.partition_domains), "window_eval:lanes")
 
 
+def k18_ops(table, x, y, code) -> int:
+    """The float64 operations K18's test needs on these inputs: four
+    compares a row against its geometry's bbox; for a row inside it, one
+    compare for each edge of its geometry (whether the edge's y-span
+    holds the row's y), and seven more for each edge whose span does
+    (two subtracts, a divide, a subtract, a multiply, an add and the
+    compare with x)."""
+    from presto_tpu_torch.kernels import geo_contains as k18
+
+    n, dev = x.shape[0], x.device
+    if code is None:
+        groups = [(0, torch.arange(n, device=dev))]
+    else:
+        c = code.to(torch.int64)
+        order = torch.argsort(c, stable=True)
+        ids, counts = torch.unique_consecutive(c[order], return_counts=True)
+        starts = torch.cumsum(counts, 0) - counts
+        groups = [(g, order[s:s + k]) for g, s, k in
+                  zip(ids.tolist(), starts.tolist(), counts.tolist()) if 0 <= g < len(table)]
+    ops = 0
+    for gi, rows in groups:
+        geom = table.geoms[gi]
+        if geom is None:
+            continue
+        ops += 4 * rows.shape[0]
+        cand = rows[k18.bbox_mask(geom.bbox, x[rows], y[rows])]
+        if geom.kind == "POINT":
+            continue
+        cy = y[cand]
+        for ring in geom.rings:
+            vy = torch.as_tensor(ring[:, 1], dtype=torch.float64, device=dev)
+            vy2 = torch.roll(vy, -1)
+            ops += cand.shape[0] * vy.shape[0]
+            for i in range(0, cand.shape[0], 1 << 16):
+                yy = cy[i:i + (1 << 16), None]
+                ops += 7 * int(((vy[None, :] > yy) != (vy2[None, :] > yy)).sum())
+    return ops
+
+
+def check_ml_geo_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the fifteenth slice, over the inputs the ml_* and geo_*
+    queries give their kernels (each from its plan, over the first
+    split): K18 over the first 2^23 trips with geo_contains' 1024-vertex
+    literal and over geo_join's 68.9M (zone, sampled trip) rows by each
+    zone's code; K19's partial states of ml_regressor (packed-direct,
+    12 slots) and ml_classifier (8 slots), of ml_regressor_supp on the
+    sort path (K6's runs of l_suppkey), of ml_evaluate (classify's
+    classes), and the merge of two splits' supplier partials; K20 over
+    the merged supplier models and ml_classifier's slots; K12's
+    REGRESS and CLASSIFY over ml_regress' and ml_evaluate's rows.  Each
+    against its twin on the card, bit for bit (CLASSIFY: the class where
+    the two best log-likelihoods lie more than 4 ulp apart, the winning
+    log-likelihood within 2 ulp).  Bounds: bytes; K18 also its float64
+    operations on these inputs (``k18_ops``).  Library calls:
+    ``index_add_`` of the materialized lane matrix (K19), a batched
+    ``torch.linalg.solve`` (K20's regressor)."""
+    from presto_tpu_torch import geo
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import geo_contains as k18
+    from presto_tpu_torch.kernels import ml_finalize as k20
+    from presto_tpu_torch.kernels import ml_state as k19
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+    from presto_tpu_torch.ops import aggregate as agg_ops
+    from presto_tpu_torch.ops.join import key_tuples
+    from presto_tpu_torch.page import concat_pages_device
+    from presto_tpu_torch.planner.plan import AggregationNode
+    from presto_tpu_torch.runner import QueryRunner
+
+    tables = {**TABLES, **GEO_TABLES}
+
+    # K18: geo_contains' literal over the first trips split
+    page = mem.page_for_split("trips", 0)
+    x, y = page.blocks[1].data, page.blocks[2].data
+    lit = geo.GeometryTable([geo.parse_wkt(geo_polygon())])
+    got = k18.geo_contains(lit, x, y)
+    err = same(got, k18.geo_contains_plain(lit, x, y), "geo_contains")
+    report.add("geo_contains", "cuda", "presto_tpu_torch/csrc/geo_contains.cu", err,
+               cuda_ms(lambda: k18.geo_contains(lit, x, y), 10),
+               cuda_ms(lambda: k18.geo_contains_plain(lit, x, y), 1, warmup=0),
+               nbytes(x, y, *got), None, "geo_contains", bound_ops=k18_ops(lit, x, y, None))
+    log(f"K18 literal: {int(got[0].sum())} of {x.shape[0]} trips inside a polygon of "
+        f"{lit.vertices} vertices")
+    # K18 by code: every (zone, sampled trip) row of geo_join
+    zones = mem.page_for_split("zones", 0)
+    table = geo.dictionary_table(zones.blocks[1].dictionary)
+    sample = mem.page_for_split("trips_sample", 0)
+    sx, sy = sample.blocks[1].data, sample.blocks[2].data
+    nz = zones.capacity
+    cx, cy = sx.repeat(nz), sy.repeat(nz)
+    code = zones.blocks[1].data.repeat_interleave(sx.shape[0])
+    got = k18.geo_contains(table, cx, cy, code)
+    err = same(got, k18.geo_contains_plain(table, cx, cy, code), "geo_contains@column")
+    report.add("geo_contains@column", "cuda", "presto_tpu_torch/csrc/geo_contains.cu", err,
+               cuda_ms(lambda: k18.geo_contains(table, cx, cy, code), 5),
+               cuda_ms(lambda: k18.geo_contains_plain(table, cx, cy, code), 1, warmup=0),
+               nbytes(cx, cy, code, *got), None, "geo_contains:column",
+               bound_ops=k18_ops(table, cx, cy, code))
+    log(f"K18 by code: {int(got[0].sum())} of {cx.shape[0]} (zone, trip) rows inside, "
+        f"{table.vertices} vertices in {nz} zones")
+    del cx, cy, code, got
+
+    def ml_node(label, fn):
+        sql = ML_QUERIES[label]
+        runner = QueryRunner(query_catalog(mem, sql, tables=tables), device="cuda")
+        node = next(n for n in find_all(runner.plan(sql), AggregationNode)
+                    if any(a.fn == fn for a in n.aggs))
+        page = first_split(runner.executor, node.source)
+        agg = next(a for a in node.aggs if a.fn == fn)
+        return node, page, agg, ExprCompiler.for_page(page)
+
+    def runs_of(node, page, c):
+        key_cols = [c.compile_key(e)(page) for e in node.group_exprs]
+        keys = key_tuples(key_cols, [e.type for e in node.group_exprs], node.key_domains)
+        got = k6.sorted_group_agg(keys, page.row_mask, [(k6.S_ONE, None, None)], runs=True)
+        return got[2], got[3]
+
+    def k19_row(name, groups, kw, addr, counter, library=True):
+        got = k19.ml_state(groups=groups, **kw, **addr)
+        err = same_bits(got, k19.ml_state_plain(groups=groups, **kw, **addr), name)
+        ins = [t for t in list(kw.values()) + list(addr.values()) if torch.is_tensor(t)]
+        lib = None
+        if library:
+            mode = kw["mode"]
+            lanes, ok = k19.row_lanes(mode, kw.get("k", 0), kw.get("label"), kw.get("y"),
+                                      kw.get("feats"), kw.get("parts"))
+            if "slot" in addr:
+                at = addr["slot"] if addr["slot"] is not None else torch.zeros_like(
+                    kw["sel"], dtype=torch.int64)
+            else:  # each sorted position's group
+                st = addr["starts"]
+                g = torch.repeat_interleave(torch.arange(groups, device=st.device),
+                                            st[1:] - st[:-1])
+                at = torch.full_like(kw["sel"], groups, dtype=torch.int64)
+                at[addr["order"][:int(st[-1])]] = g
+            at = torch.where(kw["sel"] & ok & (at >= 0) & (at < groups), at,
+                             torch.full_like(at, groups))
+            acc = torch.zeros((groups + 1, lanes.shape[1]), dtype=lanes.dtype,
+                              device=lanes.device)
+            lib = cuda_ms(lambda: acc.index_add_(0, at, lanes), 5)
+            del lanes
+        report.add(name, "cuda", "presto_tpu_torch/csrc/ml_state.cu", err,
+                   cuda_ms(lambda: k19.ml_state(groups=groups, **kw, **addr), 5),
+                   cuda_ms(lambda: k19.ml_state_plain(groups=groups, **kw, **addr), 1,
+                           warmup=0),
+                   nbytes(*ins, *got), lib, counter)
+        return got
+
+    # K19 packed-direct: ml_regressor's and ml_classifier's partials
+    for label, fn, name in (("ml_regressor", "learn_regressor", "ml_state"),
+                            ("ml_classifier", "learn_classifier", "ml_state@classifier")):
+        node, page, agg, c = ml_node(label, fn)
+        keys, _ = agg_ops.kernel_inputs(page, node.group_exprs, [], node.key_domains)
+        slots = int(np.prod([k[3] for k in keys]))
+        kw = agg_ops._ml_inputs(c, agg, page)
+        cstate = k19_row(name, slots, kw, dict(slot=agg_ops._packed_slots(keys, page.row_mask)),
+                         f"ml_state:{k19.MODE_NAMES[kw['mode']]}")[0]
+        log(f"{name}: {label}'s first split, {page.capacity} rows in {slots} slots")
+    # K19 on the sort path: ml_regressor_supp's partials by l_suppkey, then
+    # the merge of two splits' partials
+    node, page, agg, c = ml_node("ml_regressor_supp", "learn_regressor")
+    groups, (order, starts) = runs_of(node, page, c)
+    kw = agg_ops._ml_inputs(c, agg, page)
+    k19_row("ml_state@sort", groups, kw, dict(order=order, starts=starts),
+            "ml_state:regressor")
+    runner = QueryRunner(query_catalog(mem, ML_QUERIES["ml_regressor_supp"], tables=tables),
+                         device="cuda")
+    parts = []
+    for split in range(min(2, mem.num_splits("lineitem"))):
+        p = first_split(runner.executor, node.source, split)
+        parts.append(agg_ops.grouped_aggregate(p, list(node.group_exprs), [agg],
+                                               node.max_groups, node.key_domains,
+                                               mode="partial"))
+    both = concat_pages_device(parts)
+    keys, _, _ = agg_ops.merge_inputs(both, 1, [agg], node.key_domains)
+    got = k6.sorted_group_agg(keys, both.row_mask, [(k6.S_ONE, None, None)], runs=True)
+    mgroups, (morder, mstarts) = got[2], got[3]
+    mkw = dict(mode=k19.MERGE, sel=both.row_mask, parts=both.blocks[1].data,
+               counts=both.blocks[2].data)
+    merged = k19_row("ml_state@merge", mgroups, mkw, dict(order=morder, starts=mstarts),
+                     "ml_state:merge")
+    log(f"K19 sort path: {groups} suppliers in the first split; the merge of "
+        f"{int(both.row_mask.sum())} partial rows into {mgroups}")
+    # K20 over the merged supplier states and ml_classifier's states
+    state = merged[0]
+    dim = 4
+    a = state[:, 1:1 + dim * dim].reshape(-1, dim, dim) + 1e-8 * torch.eye(
+        dim, dtype=torch.float64, device=state.device)
+    b = state[:, 1 + dim * dim:1 + dim * dim + dim, None]
+    rows = {"ml_finalize": (k20.REGRESSOR, state, lambda: torch.linalg.solve(a, b)),
+            "ml_finalize@classifier": (k20.CLASSIFIER, cstate, None)}
+    for name, (mode, st, library) in rows.items():
+        got = k20.ml_finalize(mode, st, 3)
+        err = same_bits(got, k20.ml_finalize_plain(mode, st, 3), name)
+        report.add(name, "cuda", "presto_tpu_torch/csrc/ml_finalize.cu", err,
+                   cuda_ms(lambda: k20.ml_finalize(mode, st, 3), 10),
+                   cuda_ms(lambda: k20.ml_finalize_plain(mode, st, 3), 1),
+                   nbytes(st, got), None if library is None else cuda_ms(library, 10),
+                   f"ml_finalize:{('regressor', 'classifier')[mode]}")
+        log(f"{name}: {st.shape[0]} groups")
+    # K19's evaluate and K12's CLASSIFY over ml_evaluate's rows, REGRESS
+    # over ml_regress'
+    node, page, agg, c = ml_node("ml_evaluate", "evaluate_classifier_predictions")
+    kw = agg_ops._ml_inputs(c, agg, page)
+    k19_row("ml_state@evaluate", 1, kw, dict(slot=None), "ml_state:evaluate")
+    call = next(x for x in calls_in(agg.arg2) if x.fn == "classify")
+    (md, mv), (fd, fv) = (c.compile(e)(page) for e in call.args)
+    p = [3, 8, 1]
+    got = k12.container_eval(k12.CLASSIFY, md, mv, b=fd, bv=fv, p=p)
+    want = k12.plain(k12.CLASSIFY, md, mv, b=fd, bv=fv, p=p)
+    ll = k12.classify_ll_plain(md, fd, 3, 8)
+    top2 = torch.topk(ll, 2, 1).values
+    near = (top2[:, 0] - top2[:, 1]).abs() <= 4 * torch.abs(torch.nextafter(
+        top2[:, 0], torch.full_like(top2[:, 0], float("inf"))) - top2[:, 0])
+    same(got[1], want[1], "container_eval@classify valid")
+    if not torch.equal(got[0][~near], want[0][~near]):
+        raise AssertionError("container_eval@classify: classes differ off the near ties")
+    gap = ulp_gap(got[2], want[2])
+    if gap > 2:
+        raise AssertionError(f"container_eval@classify: log-likelihoods {gap} ulp apart")
+    report.add("container_eval@classify", "cuda", "presto_tpu_torch/csrc/container_eval.cu",
+               float((got[2] - want[2]).abs().max()),
+               cuda_ms(lambda: k12.container_eval(k12.CLASSIFY, md, mv, b=fd, bv=fv, p=p), 5),
+               cuda_ms(lambda: k12.plain(k12.CLASSIFY, md, mv, b=fd, bv=fv, p=p), 1),
+               nbytes(md, mv, fd, fv, *got), None, "container_eval:classify")
+    log(f"CLASSIFY over {md.shape[0]} rows: max_ulp {gap}, {int(near.sum())} rows with their "
+        f"two best log-likelihoods within 4 ulp, {int((got[0] != want[0]).sum())} classes "
+        "differ from the twin's")
+    node, page, agg, c = ml_node("ml_regress", "avg")
+    call = next(x for x in calls_in(agg.arg) if x.fn == "regress")
+    (md, mv), (fd, fv) = (c.compile(e)(page) for e in call.args)
+    p = [3, 8]
+    got = k12.container_eval(k12.REGRESS, md, mv, b=fd, bv=fv, p=p)
+    err = same_bits(got, k12.plain(k12.REGRESS, md, mv, b=fd, bv=fv, p=p),
+                    "container_eval@regress")
+    report.add("container_eval@regress", "cuda", "presto_tpu_torch/csrc/container_eval.cu",
+               err, cuda_ms(lambda: k12.container_eval(k12.REGRESS, md, mv, b=fd, bv=fv, p=p),
+                            10),
+               cuda_ms(lambda: k12.plain(k12.REGRESS, md, mv, b=fd, bv=fv, p=p), 1),
+               nbytes(md, mv, fd, fv, *got), None, "container_eval:regress")
+
+
 def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
     (a transcendental's doubles) within a relative 1e-12; ``where``
@@ -4043,6 +4466,85 @@ def check_fn_rows(label, got, ref, where: str = "") -> None:
             ok = math.isclose(a, b, rel_tol=1e-12, abs_tol=0) if j in approx else a == b
             if not ok:
                 raise AssertionError(f"{label}: card row {g} != CPU row {r}")
+
+
+def classify_near_ties(conn, tables) -> int:
+    """The rows of ml_evaluate over ``conn`` whose two best
+    log-likelihoods under its model lie within 4 ulp (where the card's
+    log and the CPU's may pick different classes)."""
+    from presto_tpu_torch.expr.compile import ExprCompiler
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.planner.plan import AggregationNode
+    from presto_tpu_torch.runner import QueryRunner
+
+    sql = ML_QUERIES["ml_evaluate"]
+    runner = QueryRunner(query_catalog(conn, sql, tables=tables), device=conn.device)
+    node = next(n for n in find_all(runner.plan(sql), AggregationNode)
+                if any(a.fn == "evaluate_classifier_predictions" for a in n.aggs))
+    call = next(x for a in node.aggs for x in calls_in(a.arg2) if x.fn == "classify")
+    near = 0
+    for split in range(conn.num_splits("lineitem")):
+        page = first_split(runner.executor, node.source, split)
+        c = ExprCompiler.for_page(page)
+        (md, _), (fd, _) = (c.compile(e)(page) for e in call.args)
+        top2 = torch.topk(k12.classify_ll_plain(md, fd, 3, 8), 2, 1).values
+        gap = torch.abs(torch.nextafter(top2[:, 0], torch.full_like(top2[:, 0],
+                                                                    float("inf"))) - top2[:, 0])
+        near += int(((top2[:, 0] - top2[:, 1]).abs() <= 4 * gap)[page.row_mask].sum())
+    return near
+
+
+def check_evaluate_rows(label, got, ref, near: int, where: str = "") -> None:
+    """evaluate_classifier_predictions' text: exact, or, where ``near``
+    rows lie at a near tie, each count within ``near`` of the CPU's."""
+    import re
+
+    label += where
+    if len(got.rows) != len(ref.rows) or not ref.rows:
+        raise AssertionError(f"{label}: {len(got.rows)} card rows, {len(ref.rows)} CPU rows")
+    for g, r in zip(got.rows, ref.rows):
+        if g == r:
+            continue
+        pairs = [re.findall(r"(\d+)/(\d+)", x[0]) for x in (g, r)]
+        if near == 0 or len(pairs[0]) != len(pairs[1]) or any(
+                abs(int(a) - int(b)) > near for pa, pb in zip(*pairs)
+                for a, b in zip(pa, pb)):
+            raise AssertionError(f"{label}: card row {g} != CPU row {r} ({near} near ties)")
+        log(f"{label}: the card's counts differ from the CPU's within the {near} near ties")
+
+
+def ml_path_walls(runner, sql: str, rounds: int = 3) -> dict:
+    """ml_regressor's wall on its packed-direct path (K19 over K2's
+    slots) and with its ML states forced onto the sort path (K6's runs,
+    K19 over them), interleaved packed, sort, sort, packed ``rounds``
+    times.  The sort runs must launch K6 and no K2, and both paths give
+    the same groups and counts."""
+    from unittest import mock
+
+    from presto_tpu_torch.ops import aggregate as agg_ops
+
+    walls, rows = {"packed": [], "sort": []}, {}
+    for path in ("packed", "sort", "sort", "packed") * rounds:
+        force = mock.patch.object(agg_ops, "_ml_direct", lambda *a: False) \
+            if path == "sort" else contextlib.nullcontext()
+        with force:
+            reset_counts()
+            t0 = time.perf_counter()
+            got = runner.execute(sql)
+            walls[path].append(time.perf_counter() - t0)
+            c = read_counts()
+        if path == "sort" and (c["sorted_group_agg"] == 0 or c["packed_group_agg"] != 0
+                               or c["ml_state"] == 0):
+            raise AssertionError(f"ml_regressor forced onto the sort path launched {c}")
+        rows[path] = [(r[0], r[1], r[3]) for r in got.rows]
+    if rows["packed"] != rows["sort"]:
+        raise AssertionError(f"ml_regressor's groups differ across the paths: {rows}")
+    out = {p: statistics.median(w) * 1e3 for p, w in walls.items()}
+    log(f"ml_regressor by path: packed-direct {out['packed']:.2f} ms, sort path "
+        f"{out['sort']:.2f} ms (medians of {2 * rounds}; packed "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in walls['packed'])}; sort "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in walls['sort'])})")
+    return out
 
 
 def plan_required(plan) -> tuple:
@@ -4110,14 +4612,16 @@ KERNEL_SYMBOLS = {
     "hash_keys": ("k9_", "pk_"), "window_eval": ("k10_",), "spill_partition": ("k11_",),
     "container_eval": ("k12_",), "unnest_expand": ("k13_",),
     "group_collect": ("k14_",), "group_topn": ("k15_",), "kmv_lanes": ("k16_",),
-    "raw_string_eval": ("k17_",)}
+    "raw_string_eval": ("k17_",), "geo_contains": ("k18_",), "ml_state": ("k19_",),
+    "ml_finalize": ("k20_",)}
 
 
 def counters():
     from presto_tpu_torch.kernels import (
-        container_eval, expr_eval, group_collect, group_topn, join_build, join_expand,
-        join_probe, keys, kmv_lanes, packed_fold_finalize, packed_group_agg, raw_string_eval,
-        sorted_group_agg, spill_partition, topn, unnest_expand, window_eval,
+        container_eval, expr_eval, geo_contains, group_collect, group_topn, join_build,
+        join_expand, join_probe, keys, kmv_lanes, ml_finalize, ml_state, packed_fold_finalize,
+        packed_group_agg, raw_string_eval, sorted_group_agg, spill_partition, topn,
+        unnest_expand, window_eval,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
@@ -4126,7 +4630,8 @@ def counters():
             "join_expand": join_expand, "hash_keys": keys, "window_eval": window_eval,
             "spill_partition": spill_partition, "container_eval": container_eval,
             "unnest_expand": unnest_expand, "group_collect": group_collect,
-            "group_topn": group_topn, "kmv_lanes": kmv_lanes, "raw_string_eval": raw_string_eval}
+            "group_topn": group_topn, "kmv_lanes": kmv_lanes, "raw_string_eval": raw_string_eval,
+            "geo_contains": geo_contains, "ml_state": ml_state, "ml_finalize": ml_finalize}
 
 
 # counters of one kind of launch: (kernel, attribute, name in the counts)
@@ -4160,14 +4665,16 @@ SUB_COUNTS = (("expr_eval", "in_launches", "expr_eval:in"),
               ("group_collect", "union_launches", "group_collect:union"),
               ("topn", "d38_launches", "topn:d38"),
               ("topn", "lanes_launches", "topn:lanes"),
-              ("window_eval", "lanes_launches", "window_eval:lanes"))
+              ("window_eval", "lanes_launches", "window_eval:lanes"),
+              ("geo_contains", "column_launches", "geo_contains:column"))
 
 
 # kernels that count their launches by kind in a dict, by its attribute
 KIND_DICTS = (("join_probe", "kind_launches"), ("expr_eval", "op_launches"),
               ("packed_group_agg", "kind_launches"), ("sorted_group_agg", "kind_launches"),
               ("packed_fold_finalize", "kind_launches"), ("container_eval", "op_launches"),
-              ("raw_string_eval", "mode_launches"))
+              ("raw_string_eval", "mode_launches"), ("ml_state", "mode_launches"),
+              ("ml_finalize", "mode_launches"))
 
 
 def reset_counts() -> None:
@@ -4315,7 +4822,8 @@ def main() -> int:
     # the sixth and seventh slices' tables again at DS_CHECK_SF, for
     # their row check
     host_ds_check = MemoryConnector(device="cpu")
-    ds2_cols = ds_tables({**DS2_QUERIES, **DS3_QUERIES})
+    ds2_cols = ds_tables({**DS2_QUERIES, **DS3_QUERIES,
+                          **{q: DS_QUERIES[q] for q in DS_CHECK_AT_CHECK_SF}})
     tpcds_check = Tpcds(sf=DS_CHECK_SF, split_rows=DS_SPLIT_ROWS)
     for table, columns in ds2_cols.items():
         host_ds_check.load_from(tpcds_check, table, columns=columns)
@@ -4390,6 +4898,12 @@ def main() -> int:
         f"{t} {mem.row_count(t)} rows" for t in RAW_TABLES)
         + f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     check_rawstring_kernels(report, mem)
+    t0 = time.perf_counter()
+    make_geo_tables(mem)
+    torch.cuda.synchronize()
+    log(f"geo tables on the card in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+        f"{t} {mem.row_count(t)} rows" for t in GEO_TABLES))
+    check_ml_geo_kernels(report, mem)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4482,6 +4996,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"raw varchar phase done at {time.perf_counter() - t_all:.1f} s")
+    # the ML aggregates over the SF10 lineitem and the geospatial functions
+    # over the zones and trips (made in phase 3), traced; the geo tables
+    # leave the card after it
+    mg_tables = {**TABLES, **GEO_TABLES}
+    mg_runners = {label: QueryRunner(query_catalog(mem, sql, tables=mg_tables), device="cuda")
+                  for label, sql in ML_GEO_QUERIES.items()}
+    drive(mg_runners, ML_GEO_QUERIES, ML_GEO_REQUIRED, reps=1)
+    ml_path_walls(mg_runners["ml_regressor"], ML_GEO_QUERIES["ml_regressor"])
+    del mg_runners
+    for t in GEO_TABLES:
+        mem.drop_table(t)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ml_geo phase done at {time.perf_counter() - t_all:.1f} s")
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
@@ -4579,13 +5107,34 @@ def main() -> int:
         check_fn_rows(label, got, ref, f" at sf={TPCH_CHECK_SF}")
         log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
             f"({time.perf_counter() - t1:.1f} s)")
+    # the ML and geo queries at TPCH_CHECK_SF, the point tables at
+    # 1/GEO_CHECK_DIV: the geo tables built on both sides
+    make_geo_tables(mem_check, GEO_CHECK_DIV)
+    make_geo_tables(host_check, GEO_CHECK_DIV)
+    near = classify_near_ties(mem_check, mg_tables)
+    log(f"ml_evaluate at sf={TPCH_CHECK_SF}: {near} rows with their two best "
+        "log-likelihoods within 4 ulp")
+    for label, sql in ML_GEO_QUERIES.items():
+        t1 = time.perf_counter()
+        got = QueryRunner(query_catalog(mem_check, sql, tables=mg_tables),
+                          device="cuda").execute(sql)
+        ref = QueryRunner(query_catalog(host_check, sql, tables=mg_tables),
+                          device="cpu").execute(sql)
+        if label == "ml_evaluate":
+            check_evaluate_rows(label, got, ref, near, f" at sf={TPCH_CHECK_SF}")
+        else:
+            check_fn_rows(label, got, ref, f" at sf={TPCH_CHECK_SF}")
+        log(f"{label} at sf={TPCH_CHECK_SF}: {len(ref.rows)} rows equal the CPU run's "
+            f"({time.perf_counter() - t1:.1f} s)")
     # the host's tables leave as their checks end: the CPU runs of the
-    # TPC-DS checks need the room (q47's at SF10 most)
+    # TPC-DS checks need the room (those at SF10 most)
     del host_check, mem_check, cat_check
     release_host_memory()
-    # the sixth and seventh slices at DS_CHECK_SF: the card runs their
-    # queries again over those tables, the CPU once
-    for label, sql in {**DS2_QUERIES, **DS3_QUERIES}.items():
+    # the sixth and seventh slices (and DS_CHECK_AT_CHECK_SF) at
+    # DS_CHECK_SF: the card runs their queries again over those tables,
+    # the CPU once
+    for label, sql in {**DS2_QUERIES, **DS3_QUERIES,
+                       **{q: DS_QUERIES[q] for q in DS_CHECK_AT_CHECK_SF}}.items():
         if label in DS3_SCALE or label in DS3_CHECK_AT_DS_SF:
             continue
         t1 = time.perf_counter()
@@ -4612,6 +5161,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for label, sql in {**DS_QUERIES, **{q: DS3_QUERIES[q] for q in DS3_CHECK_AT_DS_SF}}.items():
+        if label in DS_CHECK_AT_CHECK_SF:
+            continue
         t1 = time.perf_counter()
         ref = QueryRunner(query_catalog(host_ds, sql, tables=ds_cols, name="tpcds"),
                           device="cpu").execute(sql)
@@ -4621,12 +5172,13 @@ def main() -> int:
     log(f"rows equal the CPU run ({time.perf_counter() - t0:.1f} s)")
     for label in list(QUERIES) + list(FN_QUERIES) + list(DT_QUERIES) + list(CT_QUERIES) \
             + list(TY_QUERIES) + list(SK_QUERIES) + list(D38_QUERIES) + list(RAW_QUERIES) \
-            + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
+            + list(ML_GEO_QUERIES) + list(DS_QUERIES) + list(DS2_QUERIES) + list(DS3_QUERIES):
         med = statistics.median(wall[label])
         fact, rows = ("lineitem", lineitem_rows) if label in QUERIES or label in FN_QUERIES \
             or label in DT_QUERIES or label in CT_QUERIES or label in TY_QUERIES \
-            or label in SK_QUERIES or label in RAW_QUERIES \
+            or label in SK_QUERIES or label in RAW_QUERIES or label in ML_QUERIES \
             else (D38_TABLE, lineitem_rows) if label in D38_QUERIES \
+            else ("trips", GEO_TRIPS) if label in GEO_QUERIES \
             else ("store_sales", host_ds.row_count("store_sales"))
         rate = f", {rows / med / 1e6:.1f} M {fact} rows/s" if fact in scans[label] else ""
         shown = results[label].rows

@@ -68,7 +68,7 @@ enum {
   OP_DISTINCT, OP_SLICE, OP_COERCE, OP_CONCAT, OP_MAP_HALF, OP_CONSTRUCT, OP_CONSTRUCT_MAP,
   OP_ROW_FIELD, OP_COMPACT, OP_COMPACT_PAIRS, OP_SETOP, OP_OVERLAP, OP_REMOVE, OP_MAP_CONCAT,
   OP_TKEYS, OP_SEQUENCE, OP_REPEAT, OP_ASSEMBLE, OP_MATCH, OP_SLOT, OP_TABLE, OP_HLL_CARD,
-  OP_KMV_CARD, OP_SD_PAIR, OP_COUNT
+  OP_KMV_CARD, OP_SD_PAIR, OP_REGRESS, OP_CLASSIFY, OP_COUNT
 };
 enum { R_MIN, R_MAX, R_SUM, R_AVG };
 enum { M_ANY, M_NONE, M_ALL };
@@ -232,6 +232,62 @@ __device__ __forceinline__ double rho_weight(i64 rho) {
                                    : exp2(-(double)rho);
 }
 
+// -- the ML models (presto-ml's regress / classify) -------------------------------
+
+// Feature j of row r of the features matrix b: the slot as a double,
+// a NULL element as 0.0 (the reference's feats_matrix).
+__device__ __forceinline__ double ml_feature(const K12& g, i64 r, i64 j) {
+  const Val v = load_val(g.b, g.b_k, r * g.b_w + 1 + j);
+  return v.null ? 0.0 : (v.f ? v.d : (double)v.i);
+}
+
+// REGRESS: a row's model w (k weights, then the bias) in a (double
+// storage), the features in b (k = p0 slots): sum_j w[j] * x[j] in slot
+// order from 0.0, then + w[k] (jnp.sum, then +).  CLASSIFY: the
+// Gaussian naive Bayes model [C, prior(C), mean(C x k), var(C x k)]:
+// per class log(max(prior, 1e-12)) + sum_j (-0.5 * log(2 pi var) -
+// (x - mean)^2 / (2 var)), var clamped at 1e-12, the first index of the
+// greatest (a NaN counting as the greatest, as jnp.argmax); o2, where
+// given, receives the winning log-likelihood's bits.
+__device__ void ml_row(const K12& g, i64 r) {
+  const double* m = (const double*)g.a + r * g.a_w + 1;
+  const i64 k = g.p[0];
+  const bool ok = (g.av == nullptr || g.av[r]) && (g.bv == nullptr || g.bv[r]);
+  if (g.op == OP_REGRESS) {
+    double s = 0.0;
+    for (i64 j = 0; j < k; ++j) s = __dadd_rn(s, __dmul_rn(m[j], ml_feature(g, r, j)));
+    ((double*)g.out)[r] = __dadd_rn(s, m[k]);
+    g.ov[r] = ok;
+    return;
+  }
+  const i64 C = g.p[1];
+  const double two_pi = 6.283185307179586;
+  i64 best = 0;
+  double best_ll = 0.0;
+  for (i64 c = 0; c < C; ++c) {
+    const double prior = m[1 + c];
+    double s = 0.0;
+    for (i64 j = 0; j < k; ++j) {
+      const double mean = m[1 + C + c * k + j];
+      double var = m[1 + C + C * k + c * k + j];
+      var = var > 1e-12 ? var : (isnan(var) ? var : 1e-12);
+      const double d = __dsub_rn(ml_feature(g, r, j), mean);
+      const double term = __dsub_rn(__dmul_rn(-0.5, log(__dmul_rn(two_pi, var))),
+                                    __ddiv_rn(__dmul_rn(d, d), __dmul_rn(2.0, var)));
+      s = __dadd_rn(s, term);
+    }
+    const double pr = prior > 1e-12 ? prior : (isnan(prior) ? prior : 1e-12);
+    const double ll = __dadd_rn(log(pr), s);
+    if (c == 0 || (!isnan(best_ll) && (ll > best_ll || isnan(ll)))) {
+      best = c;
+      best_ll = ll;
+    }
+  }
+  ((i64*)g.out)[r] = best;
+  g.ov[r] = ok;
+  if (g.o2 != nullptr) ((double*)g.o2)[r] = best_ll;
+}
+
 // One warp per sketch row [count, m buckets, m rho]: the HLL estimate
 // with the linear-counting correction, rounded half to even.
 static __global__ void k12_hll_card(K12 g) {
@@ -287,6 +343,10 @@ template <typename T>
 __device__ void k12_row(const K12& g, i64 r) {
   const i64 p0 = g.p[0], p1 = g.p[1];
   const int op = g.op;
+  if (op == OP_REGRESS || op == OP_CLASSIFY) {
+    ml_row(g, r);
+    return;
+  }
   if (op == OP_SEQUENCE) {
     i64* o = (i64*)g.out + r * g.o_w;
     o[0] = g.out_m;
@@ -802,6 +862,10 @@ extern "C" int k12_container_eval(int op, i64 n, const i64* ptrs, const i64* int
   if (g.out_m < 0 || g.out_m > (1 << 20) || g.a_w > (1 << 20) + 1)
     return (int)cudaErrorInvalidValue;
   if (op == OP_SEQUENCE && g.t_kind != K12_I64) return (int)cudaErrorInvalidValue;
+  if ((op == OP_REGRESS || op == OP_CLASSIFY) &&
+      (g.t_kind != K12_F64 || g.b_k < K12_I32 || g.b_w < g.p[0] + 1 ||
+       g.a_w < (op == OP_REGRESS ? g.p[0] + 2 : 2 + g.p[1] * (1 + 2 * g.p[0]))))
+    return (int)cudaErrorInvalidValue;
   const bool sketch = op == OP_HLL_CARD || op == OP_KMV_CARD || op == OP_SD_PAIR;
   if (sketch && (g.t_kind != K12_I64 || g.a_w < 3 || (g.a_w - 1) % 2 ||
                  (op == OP_SD_PAIR && (g.b_k != K12_I64 || g.b_w != g.a_w))))

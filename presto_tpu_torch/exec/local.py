@@ -755,7 +755,52 @@ class LocalRunner:
             if f"agg_accumulator@{id(node)}#" not in e.tag:
                 raise
             out = self._run_aggregation_spilled(node)
-        return self._groupid_empty_fixup(node, out)
+        return self._groupid_empty_fixup(node, self._host_finalize_aggs(node, out))
+
+    def _host_finalize_aggs(self, node: AggregationNode, out: Page) -> Page:
+        """Aggregates whose output is a string finalize on the host: the
+        kernels' finalize emits the numeric state and this pass formats
+        it (evaluate_classifier_predictions' count matrix as its text,
+        the reference's ``_host_finalize_aggs``)."""
+        if not any(a.fn == "evaluate_classifier_predictions" for a in node.aggs):
+            return out
+        import numpy as np
+
+        from presto_tpu_torch.ops.aggregate import ML_MAX_CLASSES as C
+        from presto_tpu_torch.page import Dictionary
+
+        nkeys = len(node.group_exprs)
+        blocks = list(out.blocks)
+        for i, agg in enumerate(node.aggs):
+            if agg.fn != "evaluate_classifier_predictions":
+                continue
+            b = blocks[nkeys + i]
+            valid = b.valid & out.row_mask
+            live = torch.nonzero(valid).flatten()
+            data = b.data[live].cpu().numpy()
+            texts = []
+            for row in data:  # dead padded slots skip formatting
+                tp, fp, fn = row[1:1 + C], row[1 + C:1 + 2 * C], row[1 + 2 * C:1 + 3 * C]
+                correct = int(tp.sum())
+                total = correct + int(fp.sum())
+                pct = 100.0 * correct / total if total else 0.0
+                parts = [f"Accuracy: {correct}/{total} ({pct:.2f}%)\n"]
+                for cls in range(C):
+                    t_, f_, n_ = int(tp[cls]), int(fp[cls]), int(fn[cls])
+                    if t_ == 0 and f_ == 0 and n_ == 0:
+                        continue
+                    pp = 100.0 * t_ / (t_ + f_) if t_ + f_ else 0.0
+                    rr = 100.0 * t_ / (t_ + n_) if t_ + n_ else 0.0
+                    parts.append(f"Class '{cls}'\n")
+                    parts.append(f"Precision: {t_}/{t_ + f_} ({pp:.2f}%)\n")
+                    parts.append(f"Recall: {t_}/{t_ + n_} ({rr:.2f}%)\n")
+                texts.append("".join(parts))
+            dic = Dictionary(sorted(set(texts)))
+            codes = torch.zeros(b.data.shape[0], dtype=torch.int32, device=b.data.device)
+            codes[live] = torch.tensor(np.asarray([dic.code_of(t) for t in texts], np.int32),
+                                       dtype=torch.int32).to(b.data.device)
+            blocks[nkeys + i] = Block(codes, valid, b.type, dic)
+        return Page(tuple(blocks), out.row_mask)
 
     def _groupid_empty_fixup(self, node: AggregationNode, out: Page) -> Page:
         """GROUPING SETS over no input row (the reference's

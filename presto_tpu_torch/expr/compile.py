@@ -58,7 +58,10 @@ product, a long-decimal mod, div or round stay refused, as there).  An
 expression that
 involves ARRAY, MAP or ROW values, lambdas or ``split`` goes to the
 container half (``expr/containers.py``: K12, K13, and K1 for the
-scalar parts); raw strings raise by name.
+scalar parts); raw strings to the raw half (``expr/rawstrings.py``:
+K17, bridge columns); the ST_* functions to the geospatial half
+(``expr/geospatial.py``: ST_Contains a K18 bridge column, ST_Area /
+ST_X / ST_Y value tables, ST_Distance K1's double opcodes).
 ``ExprCompiler.compile_key`` also maps a key column's codes to their
 value's representative code where the dictionary repeats a value (the
 reference's ``canonicalize_codes``).
@@ -86,6 +89,7 @@ from presto_tpu_torch.expr.host_fns import STRING_TRANSFORM_FNS, _json_path_look
 from presto_tpu_torch.expr.containers import CONTAINER_FNS, ContainerCompiler, \
     container_dictionary, involves_containers
 from presto_tpu_torch.expr.ir import Call, ColumnRef, Expr, Literal
+from presto_tpu_torch.expr.geospatial import GEO_FNS, GeoCompiler, emit_geo, involves_contains
 from presto_tpu_torch.expr.rawstrings import RawCompiler, involves_raw
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.page import Dictionary, Page
@@ -527,6 +531,11 @@ class _Lowering:
         fn = e.fn
         if fn == "try":  # the identity at run time: errors already NULL their lanes
             return self.emit(e.args[0])
+        if fn in GEO_FNS:  # st_contains never gets here: it is a K18 bridge column
+            const = emit_geo(self, e)
+            if const:
+                self._fold(start)
+            return const
         if fn in STRING_TRANSFORM_FNS:
             return self._emit_transform(e)
         if fn == "like":
@@ -1674,6 +1683,8 @@ class ExprCompiler:
         if isinstance(expr, ColumnRef):
             i = expr.index
             return lambda page: (page.blocks[i].data, page.blocks[i].valid)
+        if involves_contains(expr):
+            return GeoCompiler(self).scalar(expr)
         if involves_raw(expr):
             if involves_containers(expr):
                 raise NotPorted(f"raw varchar values inside containers: {expr}")
@@ -1714,6 +1725,8 @@ def compile_filter(expr: Expr, page: Page):
     if isinstance(expr, ColumnRef):
         i = expr.index
         return lambda page: page.blocks[i].data & page.blocks[i].valid & page.row_mask
+    if involves_contains(expr):
+        return GeoCompiler(c).filter(expr)
     if involves_raw(expr):
         if involves_containers(expr):
             raise NotPorted(f"raw varchar values inside containers: {expr}")

@@ -27,7 +27,10 @@ sketches (the twelfth slice): ``cardinality`` of a HYPERLOGLOG (K12's
 ``hll_card``) or of a SETDIGEST (``kmv_card``), ``jaccard_index`` and
 ``intersection_cardinality`` of two digests (``sd_pair``), and
 ``hash_counts``, which gives the digest's own matrix as a
-``map(bigint, bigint)`` (the layouts agree: a retype).
+``map(bigint, bigint)`` (the layouts agree: a retype).  The ML models
+(the fifteenth slice): ``regress`` and ``classify`` of a model array
+(``learn_regressor`` / ``learn_classifier``'s output) and a features
+array are K12's REGRESS and CLASSIFY.
 """
 
 from __future__ import annotations
@@ -267,6 +270,8 @@ class ContainerCompiler:
             return self._array_lambda(e)
         if fn == "reduce":
             return self._reduce(e)
+        if fn in ("regress", "classify"):
+            return self._ml(e)
         arr = self.container(e.args[0])
         if fn == "row_field":
             i = int(e.args[1].value)
@@ -338,6 +343,30 @@ class ContainerCompiler:
 
             return run_pair
         raise NotPorted(f"expression {fn} of {t0}")
+
+    def _ml(self, e: Call):
+        """regress(model, features) / classify(model, features): K12's
+        REGRESS or CLASSIFY over the model and feature matrices (the
+        reference's ``_compile_ml``)."""
+        from presto_tpu_torch.ops.aggregate import ML_MAX_CLASSES
+
+        mt, ft = e.args[0].type, e.args[1].type
+        if not (mt.is_array and ft.is_array):
+            raise ValueError(f"{e.fn} expects (model array, features array)")
+        k = ft.max_elems
+        need = k + 1 if e.fn == "regress" else 1 + ML_MAX_CLASSES * (1 + 2 * k)
+        if mt.element.name != "double" or ft.element.is_string or ft.element.value_shape \
+                or mt.max_elems < need:
+            raise NotPorted(f"{e.fn} over {mt} and {ft}")
+        model, feats = self.container(e.args[0]), self.container(e.args[1])
+        op = k12.REGRESS if e.fn == "regress" else k12.CLASSIFY
+        p = [k, ML_MAX_CLASSES]
+
+        def run_ml(page):
+            (md, mv), (fd, fv) = model(page), feats(page)
+            return k12.container_eval(op, md, mv, b=fd, bv=fv, p=p)
+
+        return run_ml
 
     @staticmethod
     def _with_lane(op, arr, xf, page):

@@ -232,6 +232,9 @@ class RawCompiler:
         if fn in _LUT_FNS:
             raise ValueError(f"{fn} is unsupported over raw varchar columns "
                              "(dictionary varchar runs it as a value LUT)")
+        if fn.startswith("st_"):  # a geometry is a WKT literal or a dictionary's value
+            raise ValueError("geometry argument needs a WKT literal or dictionary varchar "
+                             "column")
         raise NotPorted(f"{fn} over raw varchar")
 
     def _cmp(self, e: Call):

@@ -42,6 +42,14 @@ whole-tensor torch ops.  The semantics are the reference's
   as the kernel's warp does, then the linear-counting correction;
   ``kmv_card`` the KMV estimate; ``sd_pair`` the minhash comparison of
   two digests over their union's 64 smallest distinct hashes;
+- the ML models (the reference's ``_compile_ml``): ``regress`` gives a
+  row's ``sum_j w[j] * x[j]`` in slot order from 0.0, then ``+ w[k]``;
+  ``classify`` the first class of greatest Gaussian naive Bayes
+  log-likelihood (prior and variances clamped at 1e-12), a NaN counting
+  as the greatest as ``jnp.argmax``; a NULL feature is 0.0.  The logs
+  are the card's ``log`` and torch's, within 2 ulp of each other, so a
+  class may differ where two log-likelihoods lie that close
+  (:func:`classify_ll_plain` gives every class's);
 - ``setop`` (array_intersect / array_except before ``distinct``),
   ``overlap`` (three-valued) and ``remove`` compare in the common type,
   ``map_concat`` lets the last map's key win.
@@ -64,12 +72,13 @@ from presto_tpu_torch.kernels import build
 CARD, SUBSCRIPT, MAP_GET, CONTAINS, POSITION, REDUCE, SORT, DISTINCT, SLICE, COERCE, \
     CONCAT, MAP_HALF, CONSTRUCT, CONSTRUCT_MAP, ROW_FIELD, COMPACT, COMPACT_PAIRS, SETOP, \
     OVERLAP, REMOVE, MAP_CONCAT, TKEYS, SEQUENCE, REPEAT, ASSEMBLE, MATCH, SLOT, \
-    TABLE, HLL_CARD, KMV_CARD, SD_PAIR = range(31)
+    TABLE, HLL_CARD, KMV_CARD, SD_PAIR, REGRESS, CLASSIFY = range(33)
 OP_NAMES = ("card", "subscript", "map_get", "contains", "position", "reduce", "sort",
             "distinct", "slice", "coerce", "concat", "map_half", "construct",
             "construct_map", "row_field", "compact", "compact_pairs", "setop", "overlap",
             "remove", "map_concat", "transform_keys", "sequence", "repeat", "assemble",
-            "match", "slot", "table", "hll_card", "kmv_card", "sd_pair")
+            "match", "slot", "table", "hll_card", "kmv_card", "sd_pair", "regress",
+            "classify")
 # SD_PAIR's result: jaccard_index (a double) or intersection_cardinality
 SD_JACCARD, SD_INTERSECTION = range(2)
 # REDUCE's function, MATCH's test, SETOP's operation
@@ -274,6 +283,8 @@ def plain(op: int, a=None, av=None, b=None, bv=None, c=None, x=None, xv=None, y=
         return a[codes], xv.clone()
     if op in (HLL_CARD, KMV_CARD, SD_PAIR):
         return _sketch_plain(op, a, av, b, bv, p)
+    if op in (REGRESS, CLASSIFY):
+        return _ml_plain(op, a, av, b, bv, p)
     n = a.shape[0]
     dev = a.device
     T = a.dtype
@@ -506,6 +517,62 @@ def _sketch_plain(op, a, av, b, bv, p):
     return torch.round(jac * union).to(torch.int64), ok
 
 
+def ml_features(b: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``(n, k)`` features of a matrix as doubles, a NULL element 0.0
+    (the reference's ``feats_matrix``)."""
+    slots = b[:, 1:1 + k]
+    return torch.where(is_null(slots), torch.zeros((), dtype=torch.float64, device=b.device),
+                       slots.to(torch.float64))
+
+
+def classify_ll_plain(a: torch.Tensor, b: torch.Tensor, k: int, C: int) -> torch.Tensor:
+    """Each class's log-likelihood ``(n, C)`` under the naive Bayes model
+    rows ``a`` for the features ``b`` (CLASSIFY's arithmetic)."""
+    m = a[:, 1:]
+    x = ml_features(b, k)
+    n = x.shape[0]
+    prior = m[:, 1:1 + C]
+    mean = m[:, 1 + C:1 + C + C * k].reshape(n, C, k)
+    var = torch.clamp(m[:, 1 + C + C * k:1 + C + 2 * C * k].reshape(n, C, k), min=1e-12)
+    d = x[:, None, :] - mean
+    terms = -0.5 * torch.log(6.283185307179586 * var) - d * d / (2.0 * var)
+    s = torch.zeros((n, C), dtype=torch.float64, device=a.device)
+    for j in range(k):
+        s = s + terms[:, :, j]
+    return torch.log(torch.clamp(prior, min=1e-12)) + s
+
+
+def first_argmax(ll: torch.Tensor) -> torch.Tensor:
+    """The first index of each row's greatest value, a NaN counting as
+    the greatest (``jnp.argmax``)."""
+    best = torch.zeros(ll.shape[0], dtype=torch.int64, device=ll.device)
+    best_ll = ll[:, 0]
+    for c in range(1, ll.shape[1]):
+        take = ~torch.isnan(best_ll) & ((ll[:, c] > best_ll) | torch.isnan(ll[:, c]))
+        best = torch.where(take, torch.full_like(best, c), best)
+        best_ll = torch.where(take, ll[:, c], best_ll)
+    return best
+
+
+def _ml_plain(op, a, av, b, bv, p):
+    n, dev = a.shape[0], a.device
+    k = p[0]
+    ok = (av if av is not None else torch.ones(n, dtype=torch.bool, device=dev)) & \
+        (bv if bv is not None else torch.ones(n, dtype=torch.bool, device=dev))
+    if op == REGRESS:
+        w = a[:, 1:]
+        x = ml_features(b, k)
+        s = torch.zeros(n, dtype=torch.float64, device=dev)
+        for j in range(k):
+            s = s + w[:, j] * x[:, j]
+        return s + w[:, k], ok
+    ll = classify_ll_plain(a, b, k, p[1])
+    best = first_argmax(ll)
+    if p[2]:
+        return best, ok, ll.gather(1, best[:, None])[:, 0]
+    return best, ok
+
+
 def _factor(mode: int, bits: int):
     """COERCE's factor from its parameter: an integer power of ten, or a
     double's bits for the double conversions."""
@@ -530,6 +597,11 @@ def _out_shapes(op, n, a, out_m, out_dtype, p, y):
     if op == SD_PAIR:
         return [(torch.float64 if p[0] == SD_JACCARD else torch.int64, (n,)),
                 (torch.bool, (n,))]
+    if op == REGRESS:
+        return [(torch.float64, (n,)), (torch.bool, (n,))]
+    if op == CLASSIFY:  # p[2]: the winning log-likelihood too
+        return [(torch.int64, (n,)), (torch.bool, (n,))] + \
+            ([(torch.float64, (n,))] if p[2] else [])
     if op in (CONTAINS, OVERLAP, MATCH):
         return [(torch.bool, (n,)), (torch.bool, (n,))]
     if op == REDUCE:

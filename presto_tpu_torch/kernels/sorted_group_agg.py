@@ -146,10 +146,11 @@ def run_sums_plain(v: torch.Tensor, gid: torch.Tensor, groups: int) -> torch.Ten
     non-decreasing, every group present) in the kernel's fixed order:
     chunks of ``DSUM_CHUNK`` consecutive positions of a group's run
     add in order from 0.0, then each group's chunk partials add
-    pairwise, level by level (an odd last partial passes up)."""
+    pairwise, level by level (an odd last partial passes up).  A
+    ``(positions, m)`` ``v`` gives each of its ``m`` columns' sums."""
     dev = v.device
     if groups == 0:
-        return torch.zeros(0, dtype=torch.float64, device=dev)
+        return torch.zeros((0,) + tuple(v.shape[1:]), dtype=torch.float64, device=dev)
     counts = torch.bincount(gid, minlength=groups)
     starts = torch.cumsum(counts, 0) - counts
     nch = (counts + DSUM_CHUNK - 1) // DSUM_CHUNK
@@ -164,7 +165,7 @@ def run_sums_plain(v: torch.Tensor, gid: torch.Tensor, groups: int) -> torch.Ten
     longest = torch.argsort(length, descending=True)
     first = first[longest]
     shorter = torch.cumsum(torch.bincount(length, minlength=DSUM_CHUNK + 1), 0)
-    acc = torch.zeros(cg.shape[0], dtype=torch.float64, device=dev)
+    acc = torch.zeros((cg.shape[0],) + tuple(v.shape[1:]), dtype=torch.float64, device=dev)
     for jj, k in enumerate((cg.shape[0] - shorter[:DSUM_CHUNK]).tolist()):
         if k == 0:
             break
@@ -178,8 +179,10 @@ def run_sums_plain(v: torch.Tensor, gid: torch.Tensor, groups: int) -> torch.Ten
         i = torch.arange(g.shape[0], device=dev) - hbase[g]
         left = base[g] + 2 * i
         pair = 2 * i + 1 < nch[g]
-        part = torch.where(pair, part[left] + part[torch.where(pair, left + 1, left)],
-                           part[left])
+        right = torch.where(pair, left + 1, left)
+        if part.dim() > 1:
+            pair = pair[:, None]
+        part = torch.where(pair, part[left] + part[right], part[left])
         nch, base = half, hbase
     return part
 

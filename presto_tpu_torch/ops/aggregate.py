@@ -78,6 +78,18 @@ column is the group's distinct total (a merge recomputes it from the
 merged lanes, as the reference's).  make_set_digest hashes by K1's
 splitmix64 (``HLL`` with mode 1), a double by its bits, a varchar by its
 dictionary code.
+
+The ML aggregates (the fifteenth slice): learn_regressor,
+learn_classifier and evaluate_classifier_predictions keep a ``(groups,
+1 + m)`` state of sufficient statistics beside a count of selected rows
+(``ML_FNS``).  K19 ``ml_state`` builds each row's lanes (the normal
+equations' outer products, the naive Bayes class sums, the tp / fp / fn
+counts) and adds them per group, on the packed-direct slots (while
+slots x lanes fit ``ml_state.DIRECT_LANES``) or along K6's runs; its
+merge mode merges partials, folds two packed tables and serves a spilled
+bucket.  K20 ``ml_finalize`` turns the regressor's and the classifier's
+states into their models; evaluate's counts pass through to the
+executor's host finalize, which formats its text.
 """
 
 from __future__ import annotations
@@ -91,12 +103,15 @@ from presto_tpu_torch import NotPorted
 from presto_tpu_torch.expr.compile import ExprCompiler, _Lowering, _lane, _out_kind, \
     expr_dictionary
 from presto_tpu_torch.expr.ir import AggCall, Call, ColumnRef, Expr, Literal
+from presto_tpu_torch.expr.geospatial import GeoCompiler, involves_contains
 from presto_tpu_torch.expr.rawstrings import RawCompiler, hash_call, involves_raw
 from presto_tpu_torch.kernels import expr_eval as k1
 from presto_tpu_torch.kernels.container_eval import astype_values, lengths, sentinel
 from presto_tpu_torch.kernels import group_collect as k14
 from presto_tpu_torch.kernels import group_topn as k15
 from presto_tpu_torch.kernels import kmv_lanes as k16
+from presto_tpu_torch.kernels import ml_finalize as k20
+from presto_tpu_torch.kernels import ml_state as k19
 from presto_tpu_torch.kernels import packed_fold_finalize as k3
 from presto_tpu_torch.kernels import packed_group_agg as k2
 from presto_tpu_torch.kernels import sorted_group_agg as k6
@@ -158,6 +173,12 @@ TOPN_FNS = ("max_n", "min_n", "max_by_n", "min_by_n")
 DIGEST_FNS = ("make_set_digest", "merge_set_digest")
 # every aggregate whose state is a (groups, slots) matrix before its count
 MATRIX_FNS = COLLECT_FNS + TOPN_FNS + DIGEST_FNS
+# the ML aggregates (K19 ml_state, K20 ml_finalize): a (groups, 1 + m)
+# state matrix of sufficient statistics before a count of selected rows
+ML_FNS = ("learn_regressor", "learn_classifier", "evaluate_classifier_predictions")
+# _state_kind's mark of an ML aggregate (no K2 entry) and
+# _finalize_kind's (K20, or evaluate's pass-through)
+ML_STATE, FIN_ML = -2, -3
 
 # two-argument moment statistics (AggregationUtils covariance/corr/
 # regression states): fn(y, x) with state (sx, sy, sxy, sxx, syy, n)
@@ -392,7 +413,19 @@ def takes_sort_path(group_exprs, key_domains, max_groups: int, aggs,
     (``MATRIX_FNS``), which K14, K15 or K16 writes along K6's runs."""
     return bool(group_exprs) and (presorted or _has_double_state(aggs) or _collects(aggs)
                                   or not packed_direct_layout(group_exprs, key_domains,
-                                                              max_groups))
+                                                              max_groups)
+                                  or not _ml_direct(aggs, max_groups))
+
+
+def _ml_direct(aggs, max_groups: int) -> bool:
+    """Whether every ML state of a packed-direct grouping fits K19's
+    direct table: the ``max_groups`` slots it launches with, times the
+    state's lanes, at most ``k19.DIRECT_LANES``."""
+    return all(max_groups * _ml_lanes(a) <= k19.DIRECT_LANES for a in aggs if a.fn in ML_FNS)
+
+
+def _has_ml(aggs) -> bool:
+    return any(a.fn in ML_FNS for a in aggs)
 
 
 def _collects(aggs) -> bool:
@@ -544,7 +577,36 @@ def _state_kind(agg: AggCall) -> int:
         # the state's count: every row (array_agg); the rows whose key,
         # value or map is not NULL (a digest's distinct total replaces it)
         return k2.COUNT_STAR if agg.fn == "array_agg" else k2.COUNT
+    if agg.fn in ML_FNS:
+        _check_ml_args(agg)
+        return ML_STATE
     raise NotPorted(f"aggregate {agg.fn}")
+
+
+def _check_ml_args(agg: AggCall) -> None:
+    """Refuse by name what K19 does not take: a FILTER, features that are
+    not an array of one to ``k19.MAX_K`` numbers, a label with limbs."""
+    if agg.filter is not None:
+        raise NotPorted(f"FILTER over {agg.fn}")
+    labels = (agg.arg, agg.arg2) if agg.fn == "evaluate_classifier_predictions" else (agg.arg,)
+    if any(t.type.value_shape != () and not (agg.fn == "learn_regressor"
+                                              and t.type.is_long_decimal) for t in labels):
+        raise NotPorted(f"{agg.fn} over {[t.type for t in labels]}")
+    if agg.fn != "evaluate_classifier_predictions":
+        ft = agg.arg2.type
+        if not ft.is_array or not 1 <= ft.max_elems <= k19.MAX_K \
+                or ft.element.is_string or ft.element.value_shape != ():
+            raise NotPorted(f"{agg.fn} over features {ft}")
+
+
+def _ml_mode(agg: AggCall) -> int:
+    return {"learn_regressor": k19.REGRESSOR, "learn_classifier": k19.CLASSIFIER,
+            "evaluate_classifier_predictions": k19.EVALUATE}[agg.fn]
+
+
+def _ml_lanes(agg: AggCall) -> int:
+    k = 0 if agg.fn == "evaluate_classifier_predictions" else agg.arg2.type.max_elems
+    return k19.lanes(_ml_mode(agg), k)
 
 
 def _check_matrix_args(agg: AggCall) -> None:
@@ -583,6 +645,8 @@ def _finalize_kind(agg: AggCall) -> int:
     (``count > 0``) is its state matrix's."""
     if agg.fn in MATRIX_FNS:
         return k3.FIN_SUM
+    if agg.fn in ML_FNS:
+        return FIN_ML
     if agg.fn in ("count", "count_star"):
         return k3.FIN_COUNT
     if agg.fn in ("min", "max"):  # the state's value, NULL where its count is 0
@@ -705,15 +769,18 @@ def grouped_aggregate(
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
     n = page.capacity
     if not group_exprs:
-        states, _ = k2.packed_group_agg(n, page.row_mask, [], args, 1)
+        states, _ = k2.packed_group_agg(n, page.row_mask, [], args, 1) if args else ([], None)
         out_mask = torch.ones(1, dtype=torch.bool, device=page.device)
         states = _agg_states(aggs, states)
         if _collects(aggs):  # the page's one run, in page order
             starts = torch.tensor([0, n], dtype=torch.int64, device=page.device)
             _add_collected(states, aggs, page, None, starts)
+        _add_ml(states, aggs, page, groups=1)
         return _emit([], states, aggs, out_mask, mode, agg_dicts)
     states, present = k2.packed_group_agg(n, page.row_mask, keys, args, max_groups)
     states = _agg_states(aggs, states)
+    if _has_ml(aggs):  # each row's slot: its exact packed key (dead rows past every slot)
+        _add_ml(states, aggs, page, groups=max_groups, slot=_packed_slots(keys, page.row_mask))
     cards = [card for _, _, _, card in keys]
     key_blocks = _unpack_key_blocks(cards, key_domains, group_exprs,
                                     expr_key_dicts(page, group_exprs), int(np.prod(cards)),
@@ -740,6 +807,8 @@ def aggregate_args(page: Page, aggs: Sequence[AggCall]) -> List[k2.Agg]:
     args = []
     for agg in aggs:
         kind = _state_kind(agg)
+        if kind == ML_STATE:  # no K2 entry: K19 computes its state
+            continue
         if agg.fn in COVAR_FNS:
             args += [(k2.SUM_DOUBLE, d, v) for d, v in _covar_lanes(c, agg, page)]
             continue
@@ -916,6 +985,65 @@ def _add_collected(states, aggs, page: Page, order, starts) -> None:
             states[i] = [matrix] + (list(states[i]) if count is None else [count])
 
 
+def _packed_slots(keys, row_mask: torch.Tensor) -> torch.Tensor:
+    """Each row's packed-direct slot (K2's): its exact packed key, a dead
+    row's past every slot."""
+    from presto_tpu_torch.kernels import keys as pk
+
+    if not row_mask.is_cuda:
+        return pk.masked_plain(keys, row_mask, False)[0]
+    return pk.pack(keys, row_mask, False, "ml_state")
+
+
+def _ml_label(c: ExprCompiler, e: Expr, page: Page):
+    """A class-id lane as the reference's ``astype(int64)``: a double's
+    by XLA's conversion (K1's cast_bigint), else the stored value (a
+    varchar's dictionary code, a decimal's unscaled value)."""
+    if e.type.name in ("double", "real"):
+        e = Call(type=BIGINT, fn="cast_bigint", args=(e,))
+    d, v = c.compile(e)(page)
+    return d if d.dtype in (torch.int32, torch.int64) else d.to(torch.int64), v
+
+
+def _ml_inputs(c: ExprCompiler, agg: AggCall, page: Page) -> dict:
+    """K19's inputs of an ML aggregate over ``page``: the mode, the label,
+    ``y`` or the truth and prediction, the features matrix, and the
+    selection (live rows whose arguments are valid)."""
+    if agg.fn == "evaluate_classifier_predictions":
+        (t, tv), (p, pv) = _ml_label(c, agg.arg, page), _ml_label(c, agg.arg2, page)
+        return dict(mode=k19.EVALUATE, label=torch.stack([t.to(torch.int64),
+                                                          p.to(torch.int64)], 1),
+                    sel=page.row_mask & tv & pv)
+    fd, fv = c.compile(agg.arg2)(page)
+    k = agg.arg2.type.max_elems
+    if agg.fn == "learn_regressor":
+        arg = agg.arg if agg.arg.type.name == "double" else \
+            Call(type=DOUBLE, fn="cast_double", args=(agg.arg,))
+        y, yv = c.compile(arg)(page)
+        return dict(mode=k19.REGRESSOR, k=k, y=y, feats=fd, sel=page.row_mask & yv & fv)
+    lab, lv = _ml_label(c, agg.arg, page)
+    return dict(mode=k19.CLASSIFIER, k=k, label=lab, feats=fd, sel=page.row_mask & lv & fv)
+
+
+def _add_ml(states, aggs, page: Page, groups: int, slot=None) -> None:
+    """Put each ML aggregate's K19 state and count in ``states``, over
+    the packed-direct slots (``slot`` None: the global group)."""
+    c = ExprCompiler.for_page(page)
+    for i, agg in enumerate(aggs):
+        if agg.fn in ML_FNS:
+            states[i] = list(k19.ml_state(groups=groups, slot=slot, **_ml_inputs(c, agg, page)))
+
+
+def _merge_ml(agg: AggCall, groups: int, live: torch.Tensor, parts: torch.Tensor,
+              counts: torch.Tensor, order=None, starts=None):
+    """(state, count) of an ML aggregate's partial rows merged over the
+    runs ``(order, starts)`` (K19's merge: every column summed, the
+    counts added)."""
+    mode = k19.MERGE_I64 if agg.fn == "evaluate_classifier_predictions" else k19.MERGE
+    return k19.ml_state(mode, groups, live, parts=parts, counts=counts, order=order,
+                        starts=starts)
+
+
 def _checksum_hash(lw: _Lowering) -> int:
     """checksum's per-row hash after its argument (the reference's
     ``_partial_states`` :518): splitmix64 of the lane's 64 bits (HLL
@@ -968,7 +1096,8 @@ def _by_entries(c: ExprCompiler, dicts, agg: AggCall, page: Page) -> List[k2.Agg
 
 def _k2_entries(agg: AggCall) -> int:
     """How many K2 entries (``kernel_inputs``) an aggregate takes."""
-    return 5 if agg.fn in COVAR_FNS else 2 if agg.fn in ("min_by", "max_by") else 1
+    return 5 if agg.fn in COVAR_FNS else 2 if agg.fn in ("min_by", "max_by") else \
+        0 if agg.fn in ML_FNS else 1
 
 
 def _agg_states(aggs, entry_states) -> List[List[torch.Tensor]]:
@@ -996,9 +1125,11 @@ def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
     valid``), so the kernels' validity lane carries the selection."""
     extend = None
     given = [x for x in (arg, filt) if x is not None]
-    if any(involves_raw(x) for x in given):
-        # the raw half's bridge columns, then the program over them
-        rewritten, extend, dicts = RawCompiler(c).with_bridges(given)
+    bridged = RawCompiler if any(involves_raw(x) for x in given) else \
+        GeoCompiler if any(involves_contains(x) for x in given) else None
+    if bridged is not None:
+        # the raw or geospatial half's bridge columns, then the program over them
+        rewritten, extend, dicts = bridged(c).with_bridges(given)
         it = iter(rewritten)
         arg = None if arg is None else next(it)
         filt = None if filt is None else next(it)
@@ -1060,6 +1191,9 @@ def sorted_states(aggs, args) -> tuple:
     for agg in aggs:
         entries = args[pos:pos + _k2_entries(agg)]
         pos += len(entries)
+        if agg.fn in ML_FNS:  # K19 over the groups' runs
+            per_agg.append(0)
+            continue
         kind, data, valid = entries[0]
         if agg.fn in COVAR_FNS:  # five fixed-order sums and the count
             states += [(k6.S_DSUM, d, v) for _, d, v in entries] + [(k6.S_VALID, None, valid)]
@@ -1125,18 +1259,21 @@ def _sorted_aggregate(page: Page, group_exprs, aggs, key_domains, mode,
     # a raw key's bytes, for its groups' output (the key hashes to one lane)
     raw_keys = {i: kv for i, (kv, e) in enumerate(zip(key_cols, group_exprs))
                 if e.type.is_raw_string}
-    got = k6.sorted_group_agg(keys, page.row_mask, states, presorted,
-                              runs=_collects(aggs) or bool(raw_keys))
+    got = k6.sorted_group_agg(keys, page.row_mask, states or [(k6.S_ONE, None, None)],
+                              presorted, runs=_collects(aggs) or bool(raw_keys) or _has_ml(aggs))
     key_out, cols, groups = got[:3]
     if groups == 0:
         return _empty_groups(group_exprs, aggs, mode, page.device,
                              expr_key_dicts(page, group_exprs))
     key_out = _raw_key_out(key_out, raw_keys, got)
     collected = None
-    if _collects(aggs):
+    if _collects(aggs) or _has_ml(aggs):
         order, starts = got[3]
         collected = {i: _matrix_state(c, agg, page, order, starts)
                      for i, agg in enumerate(aggs) if agg.fn in MATRIX_FNS}
+        collected.update({i: k19.ml_state(groups=groups, order=order, starts=starts,
+                                          **_ml_inputs(c, agg, page))
+                          for i, agg in enumerate(aggs) if agg.fn in ML_FNS})
     agg_dicts = [_agg_dict(a, [b.dictionary for b in page.blocks]) for a in aggs]
     key_blocks = [Block(d, v, e.type, dic) for (d, v), e, dic in
                   zip(key_out, group_exprs, expr_key_dicts(page, group_exprs))]
@@ -1188,6 +1325,9 @@ def merge_inputs(partial: Page, num_keys: int, aggs, key_domains):
     live = partial.row_mask
     states, per_agg = [], []
     for agg, cols in zip(aggs, _slice_state_cols(partial, num_keys, aggs)):
+        if agg.fn in ML_FNS:  # K19's merge, state and count, over the groups' runs
+            per_agg.append(0)
+            continue
         if agg.fn in MATRIX_FNS:  # the counts add; K14, K15 or K16 merges the matrices
             states.append((k6.S_SUM, cols[1].data, live))
             per_agg.append(1)
@@ -1236,8 +1376,8 @@ def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_g
     key_blocks_in = partial.blocks[:num_keys]
     raw_keys = {i: (b.data, b.valid) for i, b in enumerate(key_blocks_in)
                 if b.type.is_raw_string}
-    got = k6.sorted_group_agg(keys, partial.row_mask, states,
-                              runs=_collects(aggs) or bool(raw_keys))
+    got = k6.sorted_group_agg(keys, partial.row_mask, states or [(k6.S_ONE, None, None)],
+                              runs=_collects(aggs) or bool(raw_keys) or _has_ml(aggs))
     key_out, cols, groups = got[:3]
     if groups == 0:
         return _empty_groups([ColumnRef(type=b.type, index=i)
@@ -1247,14 +1387,17 @@ def merge_aggregate(partial: Page, num_keys: int, aggs: Sequence[AggCall], max_g
     key_blocks = [Block(d, v, b.type, b.dictionary)
                   for (d, v), b in zip(_raw_key_out(key_out, raw_keys, got), key_blocks_in)]
     collected = None
-    if _collects(aggs):  # each group's partial matrices merged (K14, K15, K16)
-        order, starts = got[3]
+    if _collects(aggs) or _has_ml(aggs):  # each group's partial matrices merged
+        order, starts = got[3]          # (K14, K15, K16; K19 for the ML states)
         collected, pos = {}, 0
         for i, (agg, k, pcols) in enumerate(zip(aggs, per_agg, _slice_state_cols(
                 partial, num_keys, aggs))):
             if agg.fn in MATRIX_FNS:
                 collected[i] = _merge_matrix(agg, order, starts, partial.row_mask,
                                              pcols[0].data, cols[pos])
+            elif agg.fn in ML_FNS:
+                collected[i] = _merge_ml(agg, groups, partial.row_mask, pcols[0].data,
+                                         pcols[1].data, order=order, starts=starts)
             pos += k
     return _states_out(groups, key_blocks, cols, per_agg, aggs, mode, agg_dicts,
                        partial.device, collected)
@@ -1317,6 +1460,14 @@ def _finalize(states, aggs, agg_dicts, mask) -> List[Block]:
         if kind == FIN_RAW:
             raw[i] = (cols[0], mask & (cols[-1] > 0))
             continue
+        if kind == FIN_ML:  # K20's model; evaluate's count matrix for the host finalize
+            ok = mask & (cols[-1] > 0)
+            if agg.fn == "evaluate_classifier_predictions":
+                raw[i] = (cols[0], ok)
+            else:
+                mode = k20.REGRESSOR if agg.fn == "learn_regressor" else k20.CLASSIFIER
+                raw[i] = (k20.ml_finalize(mode, cols[0], agg.arg2.type.max_elems), ok)
+            continue
         # a variance finalizes from (m2, cnt), the moments from (m2, m3,
         # m4) stacked, the covariance family from its five sums stacked,
         # min_by / max_by from (x, x flag); every other from (state, cnt)
@@ -1376,12 +1527,15 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
     # a state matrix merges by K14, K15 or K16 (a's row, then b's), its
     # count folds with the others
     ca, cb = _slice_state_cols(a, num_keys, aggs), _slice_state_cols(b, num_keys, aggs)
-    sa = [blk for agg, cols in zip(aggs, ca)
+    # an ML state and its count fold by K19's merge (a's row, then b's)
+    sa = [blk for agg, cols in zip(aggs, ca) if agg.fn not in ML_FNS
           for blk in (cols[1:] if agg.fn in MATRIX_FNS else cols)]
-    sb = [blk for agg, cols in zip(aggs, cb)
+    sb = [blk for agg, cols in zip(aggs, cb) if agg.fn not in ML_FNS
           for blk in (cols[1:] if agg.fn in MATRIX_FNS else cols)]
     kinds = []
     for agg in aggs:
+        if agg.fn in ML_FNS:
+            continue
         if agg.fn in MATRIX_FNS:
             kinds.append(k3.COL_I64)
             continue
@@ -1412,12 +1566,25 @@ def combine_packed_states(a: Page, b: Page, num_keys: int,
                 kinds.append(k3.COL_D38 if t.value_shape == (5,) else
                              k3.COL_D128 if t.is_long_decimal else k3.COL_I64)
 
-    outs, mask = k3.packed_fold([(k, x.data, x.valid) for k, x in zip(kinds, sa)],
-                                [(k, x.data, x.valid) for k, x in zip(kinds, sb)],
-                                a.row_mask, b.row_mask)
+    if sa:
+        outs, mask = k3.packed_fold([(k, x.data, x.valid) for k, x in zip(kinds, sa)],
+                                    [(k, x.data, x.valid) for k, x in zip(kinds, sb)],
+                                    a.row_mask, b.row_mask)
+    else:
+        outs, mask = [], a.row_mask | b.row_mask
     folded = iter(zip(sa, outs))
     blocks = list(a.blocks[:num_keys])
     for agg, cols_a, cols_b in zip(aggs, ca, cb):
+        if agg.fn in ML_FNS:
+            g = cols_a[0].data.shape[0]
+            both = torch.stack([cols_a[0].data, cols_b[0].data], 1).reshape(2 * g, -1)
+            counts = torch.stack([cols_a[1].data, cols_b[1].data], 1).reshape(2 * g)
+            live = torch.stack([a.row_mask, b.row_mask], 1).reshape(2 * g)
+            starts = torch.arange(0, 2 * g + 1, 2, dtype=torch.int64, device=live.device)
+            state, count = _merge_ml(agg, g, live, both.contiguous(), counts, starts=starts)
+            blocks.append(Block(state, mask, cols_a[0].type, None))
+            blocks.append(Block(count, mask, cols_a[1].type, None))
+            continue
         if agg.fn in MATRIX_FNS:
             blk = cols_a[0]
             g = blk.data.shape[0]

@@ -30,9 +30,11 @@ from presto_tpu_torch.types import Type
 class Dictionary:
     """Host-side immutable string dictionary for a VARCHAR column.
 
-    Codes are indexes into ``values``; identity-hashed."""
+    Codes are indexes into ``values``; identity-hashed, and weakly
+    referable, so that tables built from its values can be freed with
+    it."""
 
-    __slots__ = ("values", "_index")
+    __slots__ = ("values", "_index", "__weakref__")
 
     def __init__(self, values: Sequence[str]):
         self.values = list(values)

@@ -2692,3 +2692,214 @@ def test_fourteenth_slice_on_the_card_equals_the_cpu_run():
     assert {"like", "hash", "pack", "in", "substr"} <= set(k17.mode_launches)
     assert k2.kind_launches.get("lanes") and k6.kind_launches.get("lanes")
     assert k7.lanes_launches > before
+
+
+# -- the fifteenth slice: K18 geo_contains, K19 ml_state, K20 ml_finalize,
+# -- K12's REGRESS and CLASSIFY ------------------------------------------------
+
+def _star_wkt(rng, cx, cy, r, nv, hole=False):
+    ang = np.sort(rng.uniform(0, 2 * np.pi, nv))
+    rad = r * rng.uniform(0.5, 1.0, nv)
+    pts = [(cx + a * np.cos(t), cy + a * np.sin(t)) for a, t in zip(rad, ang)]
+    ring = ", ".join(f"{float(x)!r} {float(y)!r}" for x, y in pts + pts[:1])
+    if not hole:
+        return f"POLYGON (({ring}))"
+    h = [(cx + 0.2 * r * np.cos(t), cy + 0.2 * r * np.sin(t)) for t in np.linspace(0, 6, 7)]
+    inner = ", ".join(f"{float(x)!r} {float(y)!r}" for x, y in h + h[:1])
+    return f"POLYGON (({ring}), ({inner}))"
+
+
+@pytest.mark.parametrize("literal", [True, False])
+def test_geo_contains_matches_plain(literal):
+    dev = _cuda()
+    from presto_tpu_torch import geo
+    from presto_tpu_torch.kernels import geo_contains as k18
+
+    rng = np.random.default_rng(15)
+    wkts = [_star_wkt(rng, rng.uniform(10, 90), rng.uniform(10, 90), 12, nv, nv % 3 == 0)
+            for nv in (5, 64, 300, 3000)]
+    wkts += ["POINT (50 50)", "MULTIPOLYGON (((0 0, 10 0, 10 10, 0 10, 0 0)), "
+             "((20 20, 30 20, 30 30, 20 30, 20 20)))", "not wkt"]
+    n = 200_000
+    x = torch.from_numpy(rng.uniform(0, 100, n))
+    y = torch.from_numpy(rng.uniform(0, 100, n))
+    x[:7], y[:7] = 50.0, 50.0  # the POINT's own coordinates
+    if literal:
+        table, code = geo.GeometryTable([geo.parse_wkt(wkts[3])]), None
+    else:
+        table = geo.GeometryTable([geo.parse_or_none(w) for w in wkts])
+        code = torch.from_numpy(rng.integers(-1, len(wkts) + 1, n).astype(np.int32))
+    want = k18.geo_contains(table, x, y, code)
+    got = k18.geo_contains(table, x.to(dev), y.to(dev), None if code is None else code.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+    assert bool(want[0].any())
+
+
+def _ml_inputs(rng, n, k, dtype=torch.float64):
+    feats = torch.from_numpy(rng.normal(0, 3, (n, 1 + k)))
+    feats[:, 0] = k
+    feats[rng.random((n, 1 + k)) < 0.05] = float("nan")
+    feats[:, 0] = k
+    if dtype != torch.float64:
+        feats = torch.from_numpy(rng.integers(-50, 50, (n, 1 + k))).to(dtype)
+        feats[:, 0] = k
+    label = torch.from_numpy(rng.integers(-1, 10, n))
+    y = torch.from_numpy(rng.normal(0, 10, n))
+    sel = torch.from_numpy(rng.random(n) >= 0.1)
+    return feats, label, y, sel
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("runs", [False, True])
+def test_ml_state_matches_plain(mode, runs):
+    dev = _cuda()
+    from presto_tpu_torch.kernels import ml_state as k19
+
+    rng = np.random.default_rng(19 + mode)
+    n, k, groups = 300_000, 3, 12
+    feats, label, y, sel = _ml_inputs(rng, n, k)
+    kw = dict(k=k, feats=feats, y=y) if mode == k19.REGRESSOR else \
+        dict(k=k, feats=feats, label=label) if mode == k19.CLASSIFIER else \
+        dict(label=torch.stack([label, torch.from_numpy(rng.integers(-1, 9, n))], 1))
+    if runs:
+        g = torch.from_numpy(rng.integers(0, 5000, n))
+        order = torch.argsort(g, stable=True)
+        counts = torch.bincount(g, minlength=5000)
+        starts = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(counts, 0)])
+        addr, groups = dict(order=order, starts=starts), 5000
+    else:
+        slot = torch.from_numpy(rng.integers(0, groups + 2, n))
+        addr = dict(slot=slot)
+    want = k19.ml_state(mode, groups, sel, **kw, **addr)
+    got = k19.ml_state(mode, groups, sel.to(dev), **{a: t.to(dev) if torch.is_tensor(t) else t
+                                                    for a, t in {**kw, **addr}.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0]), (got[0].cpu() - want[0]).abs().max()
+    # the merge of the partials, over runs of two
+    both = torch.cat([want[0], want[0].flip(0)]).reshape(2, groups, -1).transpose(0, 1)
+    parts = both.reshape(2 * groups, -1).contiguous()
+    cnts = torch.stack([want[1], want[1].flip(0)], 1).reshape(-1)
+    live = cnts > 0
+    st = torch.arange(0, 2 * groups + 1, 2)
+    mmode = k19.MERGE_I64 if mode == k19.EVALUATE else k19.MERGE
+    mw = k19.ml_state(mmode, groups, live, parts=parts, counts=cnts, starts=st)
+    mg = k19.ml_state(mmode, groups, live.to(dev), parts=parts.to(dev), counts=cnts.to(dev),
+                      starts=st.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(mg[0].cpu(), mw[0]) and torch.equal(mg[1].cpu(), mw[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_ml_state_integer_features_match_plain(dtype):
+    dev = _cuda()
+    from presto_tpu_torch.kernels import ml_state as k19
+
+    rng = np.random.default_rng(29)
+    feats, label, y, sel = _ml_inputs(rng, 50_000, 2, dtype)
+    want = k19.ml_state(k19.REGRESSOR, 1, sel, k=2, feats=feats, y=y)
+    got = k19.ml_state(k19.REGRESSOR, 1, sel.to(dev), k=2, feats=feats.to(dev), y=y.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_ml_finalize_matches_plain(mode):
+    dev = _cuda()
+    from presto_tpu_torch.kernels import ml_finalize as k20
+    from presto_tpu_torch.kernels import ml_state as k19
+
+    rng = np.random.default_rng(20 + mode)
+    k = 3
+    feats, label, y, sel = _ml_inputs(rng, 100_000, k)
+    g = torch.from_numpy(rng.integers(0, 2000, 100_000))
+    order = torch.argsort(g, stable=True)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64),
+                        torch.cumsum(torch.bincount(g, minlength=2000), 0)])
+    smode = k19.REGRESSOR if mode == k20.REGRESSOR else k19.CLASSIFIER
+    state, _ = k19.ml_state(smode, 2000, sel, k=k, feats=feats, y=y, label=label, order=order,
+                            starts=starts)
+    want = k20.ml_finalize(mode, state, k)
+    got = k20.ml_finalize(mode, state.to(dev), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("fdtype", [torch.float64, torch.int64])
+def test_regress_and_classify_opcodes_match_plain(fdtype):
+    dev = _cuda()
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import ml_finalize as k20
+    from presto_tpu_torch.kernels import ml_state as k19
+
+    rng = np.random.default_rng(12)
+    k, n = 3, 200_000
+    feats, label, y, sel = _ml_inputs(rng, n, k, fdtype)
+    g = torch.from_numpy(rng.integers(0, 50, n))
+    order = torch.argsort(g, stable=True)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64),
+                        torch.cumsum(torch.bincount(g, minlength=50), 0)])
+    models = {}
+    for mode, smode in ((k20.REGRESSOR, k19.REGRESSOR), (k20.CLASSIFIER, k19.CLASSIFIER)):
+        st, _ = k19.ml_state(smode, 50, sel, k=k, feats=feats, y=y, label=label, order=order,
+                             starts=starts)
+        models[mode] = k20.ml_finalize(mode, st, k)[g]
+    mv = sel.clone()
+    fv = torch.from_numpy(rng.random(n) >= 0.05)
+    want = k12.container_eval(k12.REGRESS, models[0], mv, b=feats, bv=fv, p=[k, 8])
+    got = k12.container_eval(k12.REGRESS, models[0].to(dev), mv.to(dev), b=feats.to(dev),
+                             bv=fv.to(dev), p=[k, 8])
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+    want = k12.container_eval(k12.CLASSIFY, models[1], mv, b=feats, bv=fv, p=[k, 8, 1])
+    got = k12.container_eval(k12.CLASSIFY, models[1].to(dev), mv.to(dev), b=feats.to(dev),
+                             bv=fv.to(dev), p=[k, 8, 1])
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1])
+    ulp = (got[2].cpu() - want[2]).abs() / torch.abs(torch.nextafter(
+        want[2], torch.full_like(want[2], float("inf"))) - want[2])
+    assert float(ulp.max()) <= 2.0
+    ll = k12.classify_ll_plain(models[1], feats, k, 8)
+    top2 = torch.topk(ll, 2, 1).values
+    ties = (top2[:, 0] - top2[:, 1]).abs() <= 4 * torch.abs(torch.nextafter(
+        top2[:, 0], torch.full_like(top2[:, 0], float("inf"))) - top2[:, 0])
+    assert torch.equal(got[0].cpu()[~ties], want[0][~ties])
+
+
+def test_fifteenth_slice_on_the_card_equals_the_cpu_run():
+    """The smoke's ML queries over TPC-H sf 0.01 and its geo queries over
+    the zones and 1/256 of the trips on the card (K18, K19, K20, K12's
+    REGRESS and CLASSIFY), equal to the CPU run (ml_evaluate's text
+    exactly: sf 0.01 holds no near tie)."""
+    _cuda()
+    import chip_smoke
+    from presto_tpu_torch.catalog import Catalog
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.connectors.tpch import Tpch
+    from presto_tpu_torch.kernels import container_eval as k12
+    from presto_tpu_torch.kernels import geo_contains as k18
+    from presto_tpu_torch.kernels import ml_finalize as k20
+    from presto_tpu_torch.kernels import ml_state as k19
+    from presto_tpu_torch.runner import QueryRunner
+
+    runners = {}
+    for device in ("cuda", "cpu"):
+        mem = MemoryConnector(device=device)
+        mem.load_from(Tpch(sf=0.01, split_rows=1 << 14), "lineitem")
+        chip_smoke.make_geo_tables(mem, 256)
+        catalog = Catalog()
+        catalog.register("tpch", mem)
+        runners[device] = QueryRunner(catalog, device=device)
+    k19.mode_launches.clear()
+    k20.mode_launches.clear()
+    k12.op_launches.clear()
+    before = k18.column_launches
+    for sql in chip_smoke.ML_GEO_QUERIES.values():
+        got, want = runners["cuda"].execute(sql).rows, runners["cpu"].execute(sql).rows
+        assert got == want and got, sql
+    assert {"regressor", "classifier", "evaluate", "merge", "merge_i64"} <= set(
+        k19.mode_launches)
+    assert {"regressor", "classifier"} <= set(k20.mode_launches)
+    assert {"regress", "classify"} <= set(k12.op_launches)
+    assert k18.column_launches > before

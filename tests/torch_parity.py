@@ -57,6 +57,33 @@ def assert_same_lanes(ref, port, what=""):
     np.testing.assert_array_equal(pd[rv], rd[rv], err_msg=f"{what} data")
 
 
+def assert_models_close(got, want, weights_rtol: float = 1e-9, what=""):
+    """One model column of a result (a list per row, None for a NULL
+    model) against the reference's.  A learn_classifier model (``[C,
+    prior * C, mean * C * k, var * C * k]``, at least 25 lanes, C = 8)
+    is held lane by lane: its class count exactly, each other lane
+    within a relative 1e-9 of that lane's largest magnitude over the
+    rows.  A learn_regressor model (its weights, at most 17) is held
+    within ``weights_rtol`` of each row's largest weight: the port
+    eliminates the normal equations itself where the reference calls
+    LAPACK, so the caller passes the bound of their conditioning."""
+    assert len(got) == len(want), what
+    assert [g is None for g in got] == [w is None for w in want], what
+    pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+    if not pairs:
+        return
+    p = np.asarray([g for g, _ in pairs], np.float64)
+    r = np.asarray([w for _, w in pairs], np.float64)
+    assert p.shape == r.shape, (what, p.shape, r.shape)
+    if r.shape[1] >= 25 and (r[:, 0] == 8).all():  # a classifier
+        np.testing.assert_array_equal(p[:, 0], r[:, 0], err_msg=f"{what} class count")
+        tol = 1e-9 * np.abs(r).max(axis=0)[None, :]
+    else:
+        tol = max(weights_rtol, 1e-9) * np.abs(r).max(axis=1)[:, None]
+    bad = np.abs(p - r) > tol
+    assert not bad.any(), (what, np.argwhere(bad)[:5], p[bad][:5], r[bad][:5])
+
+
 # -- TPC-DS through the port and through the reference ----------------------
 
 # the reference's TPC-DS test data (tests/test_tpcds_queries.py):
