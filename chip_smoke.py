@@ -87,7 +87,11 @@ Phases (any failure exits non-zero before the result line):
    (zone, trip) rows by code, K19 ml_state's partials (packed-direct,
    sort path, evaluate) and merge, K20 ml_finalize, K12's REGRESS and
    CLASSIFY (the class off the near ties, the log-likelihood within 2
-   ulp);
+   ulp); and the sixteenth slice's (``check_mesh_kernels``): K21
+   exchange_partition over a whole lineitem split keyed by l_orderkey
+   into 8 parts, every column, at a bucket_cap of the fill and of half
+   of it, and K22 merge_sorted over two of ``DIST_ORDER_SQL``'s
+   per-shard sorted runs;
 4. run the 22 TPC-H queries (``tests/tpch_queries.py``) at SF10; the
    spill phase over the same tables (``tests/test_spill.py``'s
    aggregation, join and FULL OUTER join, and TPC-H Q18, each
@@ -128,7 +132,15 @@ Phases (any failure exits non-zero before the result line):
    263 zones with 2^18 trips, areas, a nearest-100; the zones and trips
    generated from ``GEO_SEED`` and freed after the phase; ml_regressor
    timed again with its ML states forced onto the sort path,
-   ``ml_path_walls``); then (TPC-H's tables freed)
+   ``ml_path_walls``); the distributed phase, after the spill phase,
+   over the same tables (``DIST_QUERIES`` through ``QueryRunner`` under ``SET
+   SESSION distributed = true`` on 8 shards of the card: q6, q1, q14
+   and q3 with broadcast joins, q3 and q9 with every join FIXED_HASH,
+   an ORDER BY of ~1.1e5 lineitem rows merged from 8 sorted runs, a
+   window stage and a union stage, and the ORDER BY again on the local
+   runner under ``distributed_sort``; each distributed, its rows equal
+   to the local port's on the card, K21 and K22 launched, each wall a
+   median of 4); then (TPC-H's tables freed)
    all 99 TPC-DS queries (``tests/tpcds_queries.py``) at SF10 but q72,
    which runs at sf 0.1 (at SF10 its expansion does not fit one card),
    through ``QueryRunner.execute`` under the default memory pool, each
@@ -137,6 +149,9 @@ Phases (any failure exits non-zero before the result line):
    launch counter is set to 0 just before each query and read just
    after it, and the run fails unless each query launched the kernels
    of its path; each query's pool peak is printed beside the card's;
+   ds_q51, whose ORDER BY reads two pages, with ``distributed_sort``
+   (the runs merged on K22) and without it, interleaved
+   (``merge_path_walls``);
 5. check rows against the same queries run by the port on the CPU over
    the same generated data, exactly (doubles included): the fifth slice's
    TPC-DS queries but q47 and q57, and q29, at SF10 (the rows of phase
@@ -1020,6 +1035,57 @@ ML_GEO_REQUIRED = {
 }
 
 
+# the sixteenth slice: the mesh tier over DIST_SHARDS shards of the card
+# (hash_partition_count; the reference tests' 8-device mesh), each
+# query through QueryRunner under SET SESSION distributed = true,
+# checked against the local port's rows on the card at SF10
+DIST_SHARDS = 8
+# ~1.1e5 lineitem rows at SF10 in a total order: eight sorted runs (one
+# a shard of the wave over lineitem's eight splits) merged on K22
+DIST_ORDER_SQL = ("select l_orderkey, l_linenumber, l_extendedprice, l_shipdate from lineitem "
+                  "where l_quantity = 1 and l_discount = 0.05 "
+                  "order by l_extendedprice desc, l_orderkey, l_linenumber")
+DIST_QUERIES = {
+    "dist_q6": (SQL[6], "AUTOMATIC"),
+    "dist_q1": (SQL[1], "AUTOMATIC"),
+    # the builds replicated to every shard (BROADCAST)
+    "dist_q14": (SQL[14], "BROADCAST"),
+    "dist_q3": (SQL[3], "BROADCAST"),
+    # every join FIXED_HASH: sharded builds, the probe rows exchanged on
+    # the join key inside the wave (K21)
+    "dist_q3_fixed_hash": (SQL[3], "PARTITIONED"),
+    "dist_q9_fixed_hash": (SQL[9], "PARTITIONED"),
+    "dist_order": (DIST_ORDER_SQL, "AUTOMATIC"),
+    # a window stage (rows routed to shards by o_custkey, K11, then
+    # K10 a shard) under an aggregation stage
+    "dist_window": ("select count(*), sum(r), max(s), min(c) from (select o_custkey c, "
+                    "rank() over (partition by o_custkey order by o_totalprice desc, "
+                    "o_orderkey) r, sum(o_totalprice) over (partition by o_custkey) s "
+                    "from orders)", "AUTOMATIC"),
+    # a union stage (two legs into one exchange) under an aggregation stage
+    "dist_union": ("select count(*), sum(k), min(k), max(k) from (select o_orderkey k "
+                   "from orders where o_orderstatus = 'F' union all select l_orderkey k "
+                   "from lineitem where l_linenumber = 7)", "AUTOMATIC"),
+}
+# the local port's run each mesh query's rows must equal: the main
+# path's counted SF10 run, or a local run in the phase
+DIST_LOCAL = {"dist_q6": "q6", "dist_q1": "q1", "dist_q14": "q14", "dist_q3": "q3",
+              "dist_q3_fixed_hash": "q3", "dist_q9_fixed_hash": "q9"}
+DIST_REQUIRED = {
+    "dist_q6": ("expr_eval", "packed_group_agg", "packed_fold_finalize"),
+    "dist_q1": ("packed_group_agg", "exchange_partition", "sorted_group_agg"),
+    "dist_q14": ("join_build", "join_probe"),
+    "dist_q3": ("join_probe", "exchange_partition", "sorted_group_agg", "topn"),
+    "dist_q3_fixed_hash": ("exchange_partition", "join_build", "join_probe"),
+    "dist_q9_fixed_hash": ("exchange_partition", "join_build", "join_probe|join_expand"),
+    "dist_order": ("merge_sorted",),
+    "dist_window": ("spill_partition", "window_eval"),
+    "dist_union": ("expr_eval", "packed_group_agg"),
+    # the local runner's ORDER BY under distributed_sort
+    "local_sort": ("merge_sorted",),
+}
+
+
 def geo_points(div: int = 1) -> np.ndarray:
     """The trips' (2, n) coordinates, uniform over the extent, for
     ``GEO_TRIPS // div`` trips (``trips_sample`` is their first rows)."""
@@ -1207,6 +1273,8 @@ REPLACES = {
     "ml_finalize@classifier": "presto_tpu/ops/aggregate.py:1517",
     "container_eval@regress": "presto_tpu/expr/compile.py:1628",
     "container_eval@classify": "presto_tpu/expr/compile.py:1663",
+    "exchange_partition": "presto_tpu/parallel/exchange.py:59",
+    "merge_sorted": "presto_tpu/ops/merge.py:123",
 }
 
 
@@ -4451,6 +4519,190 @@ def check_ml_geo_kernels(report: KernelReport, mem) -> None:
                nbytes(md, mv, fd, fv, *got), None, "container_eval:regress")
 
 
+def dist_runner(conn, sql: str, joins: str = "AUTOMATIC"):
+    """A QueryRunner over ``sql``'s columns of ``conn`` that runs on the
+    mesh tier: DIST_SHARDS shards of the card, joins distributed as
+    ``joins`` says (join_distribution_type)."""
+    from presto_tpu_torch.runner import QueryRunner
+
+    r = QueryRunner(query_catalog(conn, sql), device=conn.device)
+    for stmt in ("SET SESSION distributed = true",
+                 f"SET SESSION hash_partition_count = {DIST_SHARDS}",
+                 f"SET SESSION join_distribution_type = '{joins}'"):
+        r.execute(stmt)
+    return r
+
+
+def check_mesh_kernels(report: KernelReport, mem) -> None:
+    """Phase 3, the sixteenth slice, each exactly against its plain
+    version: K21 exchange_partition over a whole lineitem split keyed by
+    l_orderkey (packed over its domain), 8 parts, every column of the
+    split, at a bucket_cap of the fill and of half of it (rows dropped);
+    K22 merge_sorted over two of DIST_ORDER_SQL's per-shard sorted runs
+    (the mesh tier's own sort stage producing them)."""
+    from presto_tpu_torch.expr.ir import ColumnRef
+    from presto_tpu_torch.kernels import exchange_partition as k21
+    from presto_tpu_torch.kernels import merge_sorted as k22
+    from presto_tpu_torch.ops.merge import merge_keys_for_pages
+    from presto_tpu_torch.parallel.exchange import partition_key
+    from presto_tpu_torch.planner.plan import SortNode
+
+    page = mem.page_for_split("lineitem", 0)
+    names = [c for c, _ in mem.schema("lineitem")]
+    i = names.index("l_orderkey")
+    key = partition_key(page, [ColumnRef(type=page.blocks[i].type, index=i)],
+                        [mem.column_domain("lineitem", "l_orderkey")])
+    mask = page.row_mask
+    cols = [(b.data, b.valid) for b in page.blocks]
+    parts = DIST_SHARDS
+    t = k21.targets_plain(key, mask, parts).to(torch.int64)
+    counts = torch.bincount(t, minlength=parts + 1)
+    fill = int(counts[:parts].max())
+    for name, cap in (("exchange_partition", fill), ("exchange_partition@half", fill // 2)):
+        got = k21.exchange_partition(key, mask, parts, cap, cols)
+        want = k21.partition_plain(key, None, mask, parts, cap, cols)
+        err = max(same(got[0], want[0], f"{name} columns"), same(got[1], want[1], f"{name} mask"),
+                  same(got[2], want[2], f"{name} fill"))
+        if int(got[2]) != fill:
+            raise AssertionError(f"{name}: fill {int(got[2])} != {fill}")
+        ms = cuda_ms(lambda: k21.exchange_partition(key, mask, parts, cap, cols), 20)
+        plain = cuda_ms(lambda: k21.partition_plain(key, None, mask, parts, cap, cols), 3)
+        # the library chain for the same layout: a stable sort of the
+        # targets, their counts, one index_put_ of each column (the
+        # destination slots computed beforehand)
+        order = torch.sort(t, stable=True).indices
+        st = t[order]
+        starts = torch.cumsum(counts, 0) - counts
+        slot = torch.arange(t.shape[0], device=t.device) - starts[st]
+        keep = (st < parts) & (slot < cap)
+        dest = (st * cap + slot)[keep]
+        outs = [(torch.zeros_like(od), torch.zeros_like(ov)) for od, ov in got[0]]
+
+        def library():
+            o = torch.sort(t, stable=True).indices
+            torch.bincount(t, minlength=parts + 1)
+            src = o[keep]
+            for (d, v), (od, ov) in zip(cols, outs):
+                od.index_put_((dest,), d[src])
+                ov.index_put_((dest,), v[src])
+
+        library_ms = cuda_ms(library, 5)
+        moved = nbytes(key, mask, *[x for c in cols for x in c]) + nbytes(
+            *[x for c in got[0] for x in c], got[1]) + 4
+        report.add(name, "cuda", "presto_tpu_torch/csrc/exchange_partition.cu", err, ms, plain,
+                   moved, library_ms, "exchange_partition")
+        log(f"{name}: {int(mask.sum())} live rows of {mask.shape[0]} into {parts} x {cap}, "
+            f"fill {fill}, {int(want[1].sum())} kept")
+
+    # K22 over two of the ORDER BY's per-shard runs, made by the mesh
+    # tier's sort stage (each shard's sorted wave output)
+    runner = dist_runner(mem, DIST_ORDER_SQL)
+    dist = runner._distributed()
+    sort = find(runner.plan(DIST_ORDER_SQL), SortNode)
+    runs = dist._run_chain_stage_once(sort.source, dist._stage_source(sort.source), sort=sort)
+    runs = sorted(runs, key=lambda r: -int(r.row_mask.sum()))[:2]
+    ka, kb = merge_keys_for_pages(runs, list(sort.sort_exprs), list(sort.ascending),
+                                  sort.nulls_first)
+    a = ([(b.data, b.valid) for b in runs[0].blocks], runs[0].row_mask, ka)
+    b = ([(x.data, x.valid) for x in runs[1].blocks], runs[1].row_mask, kb)
+    err = same(k22.merge_sorted(a, b), k22.merge_sorted_plain(a, b), "merge_sorted")
+    ms = cuda_ms(lambda: k22.merge_sorted(a, b), 20)
+    plain = cuda_ms(lambda: k22.merge_sorted_plain(a, b), 5)
+    na, nb = ka.shape[0], kb.shape[0]
+    outs = [torch.empty((na + nb,) + tuple(d.shape[1:]), dtype=d.dtype, device=d.device)
+            for d, _ in a[0]]
+
+    def library():
+        pa = torch.searchsorted(kb, ka) + torch.arange(na, device=ka.device)
+        pb = torch.searchsorted(ka, kb, right=True) + torch.arange(nb, device=kb.device)
+        for (da, _), (db, _), o in zip(a[0], b[0], outs):
+            o.index_put_((pa,), da)
+            o.index_put_((pb,), db)
+
+    library_ms = cuda_ms(library, 10)
+    # each row read and written once; the binary searches' probes (log2
+    # of the other run, 8 bytes each) are logged beside it: their upper
+    # levels are shared by neighbouring rows and stay in cache
+    probes = 8 * (na * max(nb, 1).bit_length() + nb * max(na, 1).bit_length())
+    moved = 2 * nbytes(*[x for run in (a, b) for c in run[0] for x in c], a[1], a[2], b[1],
+                       b[2])
+    report.add("merge_sorted", "cuda", "presto_tpu_torch/csrc/merge_sorted.cu", err, ms, plain,
+               moved, library_ms, "merge_sorted")
+    log(f"merge_sorted: runs of {na} and {nb} rows ({int(a[1].sum())} and {int(b[1].sum())} "
+        f"live), {len(a[0])} columns; {moved} bytes once, {probes} bytes of search probes "
+        f"({probes / HBM_BYTES_PER_S * 1e3:.4f} ms if none were cached)")
+
+
+def check_dist_rows(label, got, want, ordered: bool = False) -> None:
+    """A mesh query's rows against the local port's: integers, decimals
+    and strings exactly, doubles within a relative 1e-12; in order where
+    the query orders them."""
+    import math
+
+    def key(row):
+        return tuple((0, 0) if v is None else (1, round(v, 6) if isinstance(v, float) else v)
+                     for v in row)
+
+    g, w = got.rows, want.rows
+    if len(g) != len(w) or not w:
+        raise AssertionError(f"{label}: {len(g)} mesh rows, {len(w)} local rows")
+    if not ordered:
+        g, w = sorted(g, key=key), sorted(w, key=key)
+    for a, b in zip(g, w):
+        for x, y in zip(a, b):
+            ok = math.isclose(x, y, rel_tol=1e-12, abs_tol=0) if isinstance(x, float) \
+                and isinstance(y, float) else x == y
+            if not ok:
+                raise AssertionError(f"{label}: mesh row {a} != local row {b}")
+
+
+def run_distributed_phase(mem, results, launches, wall, required=None) -> None:
+    """The mesh tier over the resident SF10 tables: DIST_QUERIES on
+    DIST_SHARDS shards of the card, and DIST_ORDER_SQL on the local
+    runner under distributed_sort, each counted (every launch counter
+    at 0 just before its run); each mesh query distributed (no
+    fallback, at least one stage), its rows equal to the local port's
+    on the card, and K21 and K22 launched in the phase."""
+    from presto_tpu_torch.runner import QueryRunner
+
+    required = DIST_REQUIRED if required is None else required
+    runners = {label: dist_runner(mem, sql, joins)
+               for label, (sql, joins) in DIST_QUERIES.items()}
+    runners["local_sort"] = QueryRunner(query_catalog(mem, DIST_ORDER_SQL), device=mem.device)
+    runners["local_sort"].execute("SET SESSION distributed_sort = true")
+    queries = {**{label: sql for label, (sql, _) in DIST_QUERIES.items()},
+               "local_sort": DIST_ORDER_SQL}
+    run_counted(runners, queries, required, launches, results, wall)
+    for label in DIST_QUERIES:
+        out = results[label]
+        if out.dist_fallback is not None or out.dist_stages < 1:
+            raise AssertionError(f"{label}: not distributed ({out.dist_fallback}, "
+                                 f"{out.dist_stages} stages)")
+    local = {label: results[base] for label, base in DIST_LOCAL.items()}
+    for label, (sql, _) in DIST_QUERIES.items():
+        if label not in local:
+            t0 = time.perf_counter()
+            r = QueryRunner(query_catalog(mem, sql), device=mem.device)
+            r.execute("SET SESSION distributed_sort = false")  # one sort of the concatenation
+            local[label] = r.execute(sql)
+            log(f"{label} on the local runner: {len(local[label].rows)} rows in "
+                f"{time.perf_counter() - t0:.2f} s")
+    local["local_sort"] = local["dist_order"]
+    for label in queries:
+        check_dist_rows(label, results[label], local[label],
+                        ordered=label in ("dist_order", "local_sort"))
+        stages = getattr(results[label], "dist_stages", None)
+        log(f"{label}: {len(results[label].rows)} rows equal the local port's on the card; "
+            f"{'' if stages is None else f'{stages} mesh stages, '}wall "
+            f"{wall[label][0] * 1e3:.2f} ms; {results[label].rows[:3]}")
+    moved = {k: sum(launches[q].get(k, 0) for q in queries)
+             for k in ("exchange_partition", "merge_sorted")}
+    log(f"distributed phase launches: {moved}")
+    if not all(moved.values()):
+        raise AssertionError(f"distributed phase: K21 or K22 never launched: {moved}")
+    dist_walls(runners, queries, wall)
+
+
 def check_fn_rows(label, got, ref, where: str = "") -> None:
     """The function queries' rows: exact, but the FN_APPROX columns
     (a transcendental's doubles) within a relative 1e-12; ``where``
@@ -4547,6 +4799,63 @@ def ml_path_walls(runner, sql: str, rounds: int = 3) -> dict:
     return out
 
 
+def ab_walls(label, runner, sql: str, modes: dict, check, rounds: int = 2) -> dict:
+    """``sql``'s wall under each of two ``modes`` (name -> a function
+    that puts ``runner`` in that mode), interleaved a, b, b, a
+    ``rounds`` times after one warm run of each; ``check(mode, result,
+    launches)`` holds every run, and both modes give the same rows."""
+    (a, set_a), (b, set_b) = modes.items()
+    walls, rows = {a: [], b: []}, {}
+    for mode, put in ((a, set_a), (b, set_b)):
+        put()
+        runner.execute(sql)
+    torch.cuda.synchronize()
+    for mode in (a, b, b, a) * rounds:
+        modes[mode]()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = runner.execute(sql)
+        walls[mode].append(time.perf_counter() - t0)
+        check(mode, got, read_counts())
+        rows[mode] = got.rows
+    if rows[a] != rows[b]:
+        raise AssertionError(f"{label}: the rows differ between {a} and {b}")
+    out = {m: statistics.median(w) * 1e3 for m, w in walls.items()}
+    log(f"{label} by mode: {a} {out[a]:.2f} ms, {b} {out[b]:.2f} ms (medians of "
+        f"{2 * rounds}; " + "; ".join(f"{m} " + ", ".join(f"{w * 1e3:.2f}" for w in walls[m])
+                                      for m in (a, b)) + ")")
+    return out
+
+
+def merge_path_walls(runner, label: str, sql: str) -> dict:
+    """A main-path ORDER BY over more than one page under the session's
+    distributed_sort (each page sorted, the runs merged on K22) and
+    without it (one sort of the concatenation), interleaved; the merge
+    runs launch K22, the others do not."""
+    def put(on):
+        return lambda: runner.execute(f"SET SESSION distributed_sort = {str(on).lower()}")
+
+    def check(mode, got, c):
+        if (c["merge_sorted"] > 0) != (mode == "merge"):
+            raise AssertionError(f"{label} ({mode}): K22 launched {c['merge_sorted']} times")
+
+    out = ab_walls(label, runner, sql, {"merge": put(True), "one_sort": put(False)}, check)
+    runner.execute("SET SESSION distributed_sort = true")
+    return out
+
+
+def dist_walls(runners, queries, wall, reps: int = 3) -> None:
+    """Each phase query ``reps`` more times after its counted run: the
+    median of the counted run and these."""
+    for label, sql in queries.items():
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            runners[label].execute(sql)
+            wall[label].append(time.perf_counter() - t0)
+        log(f"{label}: wall {statistics.median(wall[label]) * 1e3:.2f} ms median of "
+            f"{len(wall[label])} ({', '.join(f'{w * 1e3:.2f}' for w in wall[label])})")
+
+
 def plan_required(plan) -> tuple:
     """The kernels a TPC-DS plan's shape must launch: K4 for a join,
     K2 or K6 for a grouping, K10 for a window, K7 for a top-N."""
@@ -4613,15 +4922,15 @@ KERNEL_SYMBOLS = {
     "container_eval": ("k12_",), "unnest_expand": ("k13_",),
     "group_collect": ("k14_",), "group_topn": ("k15_",), "kmv_lanes": ("k16_",),
     "raw_string_eval": ("k17_",), "geo_contains": ("k18_",), "ml_state": ("k19_",),
-    "ml_finalize": ("k20_",)}
+    "ml_finalize": ("k20_",), "exchange_partition": ("k21_",), "merge_sorted": ("k22_",)}
 
 
 def counters():
     from presto_tpu_torch.kernels import (
-        container_eval, expr_eval, geo_contains, group_collect, group_topn, join_build,
-        join_expand, join_probe, keys, kmv_lanes, ml_finalize, ml_state, packed_fold_finalize,
-        packed_group_agg, raw_string_eval, sorted_group_agg, spill_partition, topn,
-        unnest_expand, window_eval,
+        container_eval, exchange_partition, expr_eval, geo_contains, group_collect, group_topn,
+        join_build, join_expand, join_probe, keys, kmv_lanes, merge_sorted, ml_finalize,
+        ml_state, packed_fold_finalize, packed_group_agg, raw_string_eval, sorted_group_agg,
+        spill_partition, topn, unnest_expand, window_eval,
     )
 
     return {"expr_eval": expr_eval, "packed_group_agg": packed_group_agg,
@@ -4631,7 +4940,8 @@ def counters():
             "spill_partition": spill_partition, "container_eval": container_eval,
             "unnest_expand": unnest_expand, "group_collect": group_collect,
             "group_topn": group_topn, "kmv_lanes": kmv_lanes, "raw_string_eval": raw_string_eval,
-            "geo_contains": geo_contains, "ml_state": ml_state, "ml_finalize": ml_finalize}
+            "geo_contains": geo_contains, "ml_state": ml_state, "ml_finalize": ml_finalize,
+            "exchange_partition": exchange_partition, "merge_sorted": merge_sorted}
 
 
 # counters of one kind of launch: (kernel, attribute, name in the counts)
@@ -4904,6 +5214,7 @@ def main() -> int:
     log(f"geo tables on the card in {time.perf_counter() - t0:.1f} s: " + ", ".join(
         f"{t} {mem.row_count(t)} rows" for t in GEO_TABLES))
     check_ml_geo_kernels(report, mem)
+    check_mesh_kernels(report, mem)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -5013,10 +5324,17 @@ def main() -> int:
     # the spill phase over the same SF10 tables, before they leave
     run_spill_phase(mem, launches, spill_wall)
     log(f"spill phase done at {time.perf_counter() - t_all:.1f} s")
+    # the mesh tier over the same SF10 tables: DIST_SHARDS shards of the card
+    run_distributed_phase(mem, results, launches, wall)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"distributed phase done at {time.perf_counter() - t_all:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del runner, runners, catalog, mem
     gc.collect()
     torch.cuda.empty_cache()
     drive(ds_runners, DS_QUERIES, DS_REQUIRED)
+    merge_path_walls(ds_runners["ds_q51"], "ds_q51", DS_QUERIES["ds_q51"])
     drive(ds2_runners, DS2_QUERIES, DS2_REQUIRED)
     # the seventh slice's 49: counted and timed once more, untraced
     drive(ds3_runners, {k: v for k, v in DS3_QUERIES.items() if k not in DS3_SCALE},

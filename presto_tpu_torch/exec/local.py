@@ -256,6 +256,9 @@ class LocalRunner:
         self.last_peak_bytes = 0
         self.last_site_peaks: Dict[str, int] = {}
         self.last_spill = SpillCounter()
+        #: ORDER BY sorts each source page and merges the sorted runs
+        #: (the session's ``distributed_sort``)
+        self.merge_sort = False
 
     # ------------------------------------------------------------------
     def run(self, plan: PlanNode) -> MaterializedResult:
@@ -325,11 +328,22 @@ class LocalRunner:
             return
         if isinstance(node, SortNode):
             pages = list(self._pages(node.source))
+            sort_args = (list(node.sort_exprs), list(node.ascending), node.nulls_first)
+            if len(pages) > 1 and self.merge_sort:
+                # distributed-sort shape: sort each producer page, then
+                # an order-preserving k-way merge (MergeOperator.java:45;
+                # K22) instead of one sort of the concatenation
+                from presto_tpu_torch.ops.merge import merge_sorted_pages
+
+                runs = [sort_page(p, *sort_args) for p in pages]
+                for p in runs:
+                    self._account("sort_input", p)
+                yield merge_sorted_pages(runs, *sort_args)
+                return
             src = concat_pages_device(pages) if pages else Page.empty(
                 node.output_types, 1, self.device)
             self._account("sort_input", src)
-            yield sort_page(src, list(node.sort_exprs), list(node.ascending),
-                            node.nulls_first)
+            yield sort_page(src, *sort_args)
             return
         if isinstance(node, TopNNode):
             yield self._run_topn(node)
@@ -748,7 +762,8 @@ class LocalRunner:
         per-split partials once; then finalize.  An accumulator past the
         pool re-runs partitioned."""
         if node.step == "final":
-            raise NotPorted("final aggregation over exchanged partial states")
+            out = self.final_aggregate(node, list(self._pages(node.source)))
+            return self._groupid_empty_fixup(node, self._host_finalize_aggs(node, out))
         try:
             out = self._aggregate(node, self._pages(self.partial_node(node)))
         except ExceededMemoryLimitError as e:
@@ -756,6 +771,28 @@ class LocalRunner:
                 raise
             out = self._run_aggregation_spilled(node)
         return self._groupid_empty_fixup(node, self._host_finalize_aggs(node, out))
+
+    def final_aggregate(self, node: AggregationNode, partials: List[Page]) -> Page:
+        """The final step over pages of partial states (the group keys in
+        the first blocks, then the state columns), as exchanged between
+        stages: merged on K6 (``merge_aggregate``, mode single) when the
+        aggregation has keys, or folded slot by slot (K3) and finalized
+        when it is global, as the single step folds its own partials."""
+        num_keys = len(node.group_exprs)
+        aggs = list(node.aggs)
+        if not partials:
+            if num_keys:
+                return Page.empty(node.output_types, 1, self.device)
+            partials = [Page.empty(node.source.output_types, 1, self.device)]
+        if num_keys or any(a.fn in TOPN_FNS for a in aggs) or raw_extremes(aggs):
+            merged_in = concat_pages_device(partials)
+            self._account("agg_accumulator", merged_in, node)
+            return merge_aggregate(merged_in, num_keys, aggs, self._max_groups(node),
+                                   key_domains=node.key_domains, mode="single")
+        acc = partials[0]
+        for p in partials[1:]:
+            acc = combine_packed_states(acc, p, 0, aggs)
+        return finalize_packed(acc, 0, aggs)
 
     def _host_finalize_aggs(self, node: AggregationNode, out: Page) -> Page:
         """Aggregates whose output is a string finalize on the host: the

@@ -286,6 +286,14 @@ SHORT, DOUBLE, LONG, D38 = "short", "double", "long", "d38"
 LIMBS = (LONG, D38)
 
 
+def _refuse_limbs(e: Call) -> None:
+    """The reference's refusal of a math function whose first operand is
+    a long or wide decimal (``_compile_math``: elementwise limb math
+    would be silently wrong)."""
+    if e.args[0].type.is_long_decimal:
+        raise ValueError(f"{e.fn} on long decimals unsupported (cast first)")
+
+
 def _lane(t: Type) -> str:
     if t.is_long_decimal:
         return LONG if t.value_shape == (2,) else D38
@@ -635,6 +643,7 @@ class _Lowering:
         elif fn in k1.DUN_FNS:
             const = self._emit_dun(e)
         elif fn in ("power", "pow", "atan2"):
+            _refuse_limbs(e)
             const = self._emit_double(e.args[0]) & self._emit_double(e.args[1])
             self._push(k1.DBIN, k1.DBIN_FNS.index("atan2" if fn == "atan2" else "power"))
         elif fn == "mod":
@@ -650,6 +659,7 @@ class _Lowering:
         elif fn in ("hll_bucket", "hll_rho"):
             const = self._emit_hll(e)
         elif fn == "width_bucket":
+            _refuse_limbs(e)
             const = self._emit_width_bucket(e)
         else:
             raise NotPorted(f"expression {fn}")
@@ -1259,14 +1269,15 @@ class _Lowering:
     def _emit_floor(self, e: Call) -> bool:
         """floor / ceil: a scaled-int floor division by 10^scale on a
         decimal (a ceiling adds 10^scale - 1 first), floor/ceil on a
-        double, the value itself on an integer."""
+        double, the value itself on an integer and, as the reference's
+        only float branch is the double's, on a REAL."""
         (x,) = e.args
         up = e.fn != "floor"
         lane = _lane(x.type)
         if lane in LIMBS:
             raise NotPorted(f"{e.fn} of {x.type}")
         const = self.emit(x)
-        if lane == DOUBLE:
+        if lane == DOUBLE and x.type.name == "double":
             self._push(k1.DFLOOR, int(up))
         elif x.type.is_decimal:
             self._push(k1.SFLOOR, self._const(10 ** _scale(x.type)) * 2 + int(up))
@@ -1447,6 +1458,8 @@ class _Lowering:
         lane's, NULL where the lane's least value has no negation (the
         reference's ``_ovf_neg``, at int32 width for an int32 lane)."""
         (x,) = e.args
+        if e.fn == "neg" and x.type.name == "boolean":
+            raise TypeError("neg does not accept a boolean (the reference's jnp negation)")
         lane = _lane(x.type)
         if lane == LONG:
             raise NotPorted(f"{e.fn} of {x.type}")

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "presto_tpu_torch"
 KERNELS = ("expr_eval", "packed_group_agg", "packed_fold_finalize", "keys", "join_build",
            "join_probe", "join_expand", "sorted_group_agg", "topn", "window_eval",
            "spill_partition", "container_eval", "unnest_expand", "group_collect", "group_topn",
-           "kmv_lanes", "raw_string_eval", "geo_contains", "ml_state", "ml_finalize")
+           "kmv_lanes", "raw_string_eval", "geo_contains", "ml_state", "ml_finalize",
+           "exchange_partition", "merge_sorted")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 COMPILE_FLAGS = ARCH + ["-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 LINK_FLAGS = ARCH + ["-shared", "-Xcompiler", "-fPIC"]

@@ -734,6 +734,11 @@ _VARIANCE_FIN = {"stddev": k3.FIN_STDDEV_SAMP, "stddev_samp": k3.FIN_STDDEV_SAMP
 
 
 def _check_ported(aggs: Sequence[AggCall], mode: str) -> List[int]:
+    for a in aggs:
+        if a.fn in ("bool_and", "bool_or", "every") and a.arg is not None \
+                and a.arg.type.is_long_decimal:
+            # the reference fails on its (n,) mask against the limbs
+            raise NotPorted(f"{a.fn} over {a.arg.type}")
     kinds = [_state_kind(a) for a in aggs]
     if mode == "single":
         for a in aggs:
@@ -1115,6 +1120,21 @@ def _agg_states(aggs, entry_states) -> List[List[torch.Tensor]]:
     return out
 
 
+def _filter_type_check(t: Type) -> None:
+    """A FILTER (or count_if) over a non-boolean value, as the reference
+    takes it (``live & fd & fv``, ``ops/aggregate.py``): an integer,
+    date, timestamp, interval, short decimal or dictionary code selects
+    by its low bit; a double or REAL is refused with ``TypeError``, as
+    ``jnp.bitwise_and`` refuses it; limbs, raw strings and containers
+    (the reference's broadcast error) are not ported."""
+    if t.name in ("double", "real"):
+        raise TypeError(f"a FILTER or count_if over {t}: the reference's bitwise and "
+                        "of the row mask does not accept a floating-point value")
+    if t.name != "boolean" and (t.is_long_decimal or t.is_raw_string or t.is_array
+                                or t.is_map or t.value_shape != ()):
+        raise NotPorted(f"a FILTER or count_if over {t}")
+
+
 def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
                    rank: Optional[k1.Lut], tail=None):
     """One K1 program for an aggregate's argument lane: the argument (or
@@ -1137,7 +1157,13 @@ def _argument_lane(c: ExprCompiler, arg: Optional[Expr], filt: Optional[Expr],
     else:
         lw = _Lowering(c.dictionaries)
     if filt is not None:
+        _filter_type_check(filt.type)
         lw.emit(filt)
+        if filt.type.name != "boolean":
+            # the reference's ``live & fd & fv``: a non-boolean value
+            # selects its row by its low bit
+            lw._push(k1.LIT, lw._const(1))
+            lw._push(k1.BITW, k1.BITW_OPS.index("and") | 64 << 4)
     if arg is None:
         lw._push(k1.LIT, lw._const(1))
         out = k1.KIND_BOOL

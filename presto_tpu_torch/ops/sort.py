@@ -144,3 +144,26 @@ def limit_page(page: Page, n: int) -> Page:
     ``limit_page``): a running count of live rows and a mask."""
     seen = torch.cumsum(page.row_mask.to(torch.int32), 0)
     return Page(page.blocks, page.row_mask & (seen <= n))
+
+
+def topn_compact_page(page: Page, sort_exprs: Sequence[Expr], ascending: Sequence[bool], n: int,
+                      nulls_first: Optional[Sequence[bool]] = None) -> Page:
+    """The top n rows compacted to an n-row page: the per-shard bound of
+    a distributed TopN (CreatePartialTopN.java's role), so each shard
+    ships n rows to the gather instead of its whole output.  Past the
+    page's capacity, the sorted page itself (the reference's
+    ``topn_compact_page``); else :func:`topn_page` (K7)."""
+    if n >= page.capacity:
+        return sort_page(page, sort_exprs, ascending, nulls_first)
+    return topn_page(page, sort_exprs, ascending, n, nulls_first)
+
+
+def limit_compact_page(page: Page, n: int) -> Page:
+    """The first n live rows compacted to an n-row page (the per-shard
+    bound of a distributed Limit): the live rows' positions by a stable
+    sort of the dead flags, then a gather."""
+    if n >= page.capacity:
+        return limit_page(page, n)
+    live = limit_page(page, n)
+    order = torch.argsort((~live.row_mask).to(torch.int8), stable=True)[:n]
+    return gather_page(live, order)

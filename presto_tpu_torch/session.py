@@ -125,16 +125,16 @@ SYSTEM_PROPERTIES = [
     ),
     PropertyMetadata(
         "exchange_streaming",
-        "stream stage-boundary pages through the token-acked exchange "
-        "(parallel/streams.py) so consuming stages overlap producers; "
-        "false = materialize each stage before the next starts (A/B leg)",
-        True, _bool,
+        "run each stage-boundary producer on a thread so consuming "
+        "stages overlap it (not ported: true raises NotPorted); false = "
+        "materialize each stage before the next starts",
+        False, _bool,
     ),
     PropertyMetadata(
         "exchange_buffer_bytes",
-        "unacknowledged-byte cap per exchange stream (producer "
-        "backpressure bound); 0 = process default "
-        "(PRESTO_TPU_EXCHANGE_BUFFER_BYTES)",
+        "unacknowledged-byte cap per exchange stream (the threaded "
+        "producer's backpressure bound; unused while producers run "
+        "inline)",
         0, int,
     ),
     PropertyMetadata(

@@ -2903,3 +2903,74 @@ def test_fifteenth_slice_on_the_card_equals_the_cpu_run():
     assert {"regressor", "classifier"} <= set(k20.mode_launches)
     assert {"regress", "classify"} <= set(k12.op_launches)
     assert k18.column_launches > before
+
+
+# -- the sixteenth slice: K21 exchange_partition, K22 merge_sorted ------------
+
+def _mesh_cols(page):
+    """The page's columns plus a two-limb decimal and a raw-lane matrix
+    (the trailing widths K21 and K22 copy as rows)."""
+    n = page.capacity
+    g = torch.Generator(device="cpu").manual_seed(7)
+    limbs = torch.randint(-10 ** 9, 10 ** 9, (n, 2), generator=g).to(page.device)
+    raw = torch.randint(0, 256, (n, 24), dtype=torch.uint8, generator=g).to(page.device)
+    cols = [(b.data, b.valid) for b in page.blocks]
+    return cols + [(limbs, page.blocks[0].valid), (raw, page.blocks[1].valid)]
+
+
+@pytest.mark.parametrize("n_parts", [1, 8, 13, 256])
+@pytest.mark.parametrize("cap_share", [1.0, 0.5])
+def test_exchange_partition_kernel_matches_plain(n_parts, cap_share):
+    """K21's bucket layout, valid bits, mask and fill equal the twin's bit
+    for bit, at a bucket_cap at the fill and at half of it (rows
+    dropped), with dead rows and keys whose top bit is set."""
+    from presto_tpu_torch.kernels import exchange_partition as k21
+
+    dev = _cuda()
+    page = _page((1 << 20) + 77, 181, dev)
+    key = page.blocks[2].data.clone()
+    key[::3] = key[::3] | (-(1 << 63))  # top bit set
+    cols = _mesh_cols(page)
+    fill = int(k21.targets_plain(key, page.row_mask, n_parts).to(torch.int64)
+               .bincount(minlength=n_parts + 1)[:n_parts].max())
+    cap = max(1, int(fill * cap_share))
+    got = k21.exchange_partition(key, page.row_mask, n_parts, cap, cols)
+    want = k21.partition_plain(key, None, page.row_mask, n_parts, cap, cols)
+    torch.cuda.synchronize()
+    assert int(got[2]) == int(want[2]) == fill
+    assert torch.equal(got[1], want[1])
+    for (gd, gv), (wd, wv) in zip(got[0], want[0]):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+    # given targets: partition_for_exchange's form
+    t = k21.exchange_targets(key, page.row_mask, n_parts)
+    assert torch.equal(t, k21.targets_plain(key, page.row_mask, n_parts))
+    again = k21.exchange_partition(None, page.row_mask, n_parts, cap, cols, targets=t)
+    torch.cuda.synchronize()
+    assert torch.equal(again[1], want[1]) and int(again[2]) == fill
+    for (gd, gv), (wd, wv) in zip(again[0], want[0]):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("dups", [False, True])
+def test_merge_sorted_kernel_matches_plain(dups):
+    """K22's merged columns, mask and key equal the twin's bit for bit,
+    with ties across the runs and dead rows at each run's tail."""
+    from presto_tpu_torch.kernels import merge_sorted as k22
+
+    dev = _cuda()
+    runs = []
+    for seed, n in ((191, (1 << 19) + 3), (192, (1 << 18) + 11)):
+        page = _page(n, seed, dev)
+        key = page.blocks[2].data.clone()
+        if dups:
+            key = key % 1000
+        key = torch.where(page.row_mask, key, torch.full_like(key, I64_MAX))
+        key, order = torch.sort(key, stable=True)
+        cols = [(d[order], v[order]) for d, v in _mesh_cols(page)]
+        runs.append((cols, page.row_mask[order], key))
+    got = k22.merge_sorted(runs[0], runs[1])
+    want = k22.merge_sorted_plain(runs[0], runs[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for (gd, gv), (wd, wv) in zip(got[0], want[0]):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
