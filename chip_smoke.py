@@ -23,7 +23,9 @@ Phases (any failure exits non-zero before the result line):
    builds of Q4 and Q5), K5 join_probe (Q14's and Q3's inner probes of
    the first lineitem split, Q4's semi and mark probes, Q16's
    null-aware anti probe, a left probe against Q14's build), K6
-   sorted_group_agg (Q3's partial over that probe output, and its merge
+   sorted_group_agg (Q3's partial over that probe output, timed also in
+   three parts, pack and compaction, the sort of the live keys and K6's
+   own kernels; the same with its runs ``(order, starts)``; and its merge
    of every split's partials), K7 topn (Q3's top 10), K8 join_expand
    (Q13's left probe, the same as a FULL join with its matched mask,
    Q5's inner probe) and K9 hash_keys (Q10's seven keys over its first
@@ -67,9 +69,11 @@ Phases (any failure exits non-zero before the result line):
    double (DIN), K9 over TINYINT and SMALLINT keys, K2's REAL, SMALLINT
    and interval states and its global double sum of a REAL, K3's fold
    and finalize of them, K6's REAL and SMALLINT states by l_suppkey, K7
-   with a REAL key and K10's running REAL sum over orders, REALs bit
-   for bit, and the sorted top 1000 past K7's 100 rows (``torch.sort``,
-   a log line: no kernel of its own); and the twelfth slice's
+   with a REAL key and K10's running REAL sum over orders, K7's top 100
+   of a lineitem split by l_returnflag descending then l_orderkey
+   (millions of rows tie on the flag), REALs bit for bit, and the sorted
+   top 1000 past K7's 100 rows (``torch.sort``, a log line: no kernel of
+   its own); and the twelfth slice's
    (``check_sketch_kernels``): K15 group_topn over a lineitem split by
    l_suppkey and by the two flags and its merge of two splits' lanes,
    K1's digest hash, K16 kmv_lanes by l_shipmode and its merge, K14's
@@ -1579,12 +1583,30 @@ def k1_row(report: KernelReport, name: str, expr, page, filt: bool = False,
     log(f"{name}: {len(prog.ops)} instructions, {len(prog.luts)} tables")
 
 
+def k6_parts(label, keys, mask, states) -> None:
+    """Logs K6's time over ``mask`` in three parts: the key pack and the
+    compaction of the live rows (with the live count's read), the
+    ``torch.sort`` of the live keys, and K6's own kernels past them (the
+    whole call less the two)."""
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
+
+    total = cuda_ms(lambda: k6.sorted_group_agg(keys, mask, states), 10)
+    compact = cuda_ms(lambda: k6.compact_live(keys, mask), 10)
+    live_keys, _, _, m = k6.compact_live(keys, mask)
+    sort = cuda_ms(lambda: torch.sort(live_keys, stable=True), 10)
+    log(f"{label}: K6 {total:.4f} ms = pack and compaction {compact:.4f} ms + torch.sort of "
+        f"{m} live keys {sort:.4f} ms + K6's own kernels {total - compact - sort:.4f} ms "
+        f"(of {mask.shape[0]} rows)")
+
+
 def check_join_kernels(report: KernelReport, runners) -> None:
-    """Phase 3, the joins' slice: K1's new opcodes, K4, K5, K6 and K7
-    against their plain versions at Q14's and Q3's shapes."""
+    """Phase 3, the joins' slice: K1's new opcodes, K4, K5, K6 (also with
+    its runs, and Q3's partial timed in parts) and K7 against their plain
+    versions at Q14's and Q3's shapes."""
     from presto_tpu_torch.kernels import join_build as k4
     from presto_tpu_torch.kernels import join_probe as k5
     from presto_tpu_torch.kernels import keys as pk
+    from presto_tpu_torch.kernels import sorted_group_agg as k6
     from presto_tpu_torch.kernels import topn as k7
     from presto_tpu_torch.ops.aggregate import merge_aggregate, merge_inputs, sorted_inputs
     from presto_tpu_torch.ops.join import _direct_budget, key_columns, packed_domain_size
@@ -1711,6 +1733,18 @@ def check_join_kernels(report: KernelReport, runners) -> None:
     groups = k6_row(report, "sorted_group_agg", keys, page.row_mask, states,
                     library=group_sum_library_ms(keys, page.row_mask, states))
     log(f"q3 partial of split 0: {groups} groups")
+    k6_parts("q3 partial of split 0", keys, page.row_mask, states)
+    # the runs (order, starts) the collecting aggregates walk: the live
+    # rows' ids in key order, then the dead rows' ids in input order
+    got = k6.sorted_group_agg(keys, page.row_mask, states, runs=True)
+    want = k6.sorted_group_agg_plain(keys, page.row_mask, states, runs=True)
+    err = same((got[0], got[1], got[3]), (want[0], want[1], want[3]), "sorted_group_agg@runs")
+    report.add("sorted_group_agg@runs", "cuda", src + "sorted_group_agg.cu", err,
+               cuda_ms(lambda: k6.sorted_group_agg(keys, page.row_mask, states, runs=True), 5),
+               cuda_ms(lambda: k6.sorted_group_agg_plain(keys, page.row_mask, states,
+                                                         runs=True), 2),
+               nbytes(page.row_mask, *[t for k in keys for t in k[:2]], *state_tensors(states))
+               + nbytes(*[t for o in got[0] for t in o], *got[1], *got[3]))
     parts = list(ex._pages(ex.partial_node(agg3)))
     cat = concat_pages_device(parts)
     nk = len(agg3.group_exprs)
@@ -3676,6 +3710,21 @@ def check_type_kernels(report: KernelReport, mem) -> None:
                cuda_ms(lambda: k7.topn_plain(keys7, opage.row_mask, 100), 2),
                nbytes(opage.row_mask, rkey[0], rkey[1], okey.data, okey.valid, *got),
                cuda_ms(lambda: torch.topk(rkey[0], 100), 20), "topn:real")
+    # K7's ties at scale: the top 100 of the lineitem split by l_returnflag
+    # descending (three values, so millions of rows tie on it), then
+    # l_orderkey
+    from presto_tpu_torch.ops.sort import topn_keys
+
+    keys7 = topn_keys(page, [col("l_returnflag"), col("l_orderkey")], [False, True],
+                      [False, False])
+    got = k7.topn(keys7, page.row_mask, 100)
+    err = same(got, k7.topn_plain(keys7, page.row_mask, 100), "topn@flag_ties")
+    report.add("topn@flag_ties", "cuda", "presto_tpu_torch/csrc/topn.cu", err,
+               cuda_ms(lambda: k7.topn(keys7, page.row_mask, 100), 20),
+               cuda_ms(lambda: k7.topn_plain(keys7, page.row_mask, 100), 2),
+               nbytes(page.row_mask, *[t for k in keys7 for t in k[:2]], *got))
+    log(f"topn@flag_ties: top 100 of {n} rows ({int(page.row_mask.sum())} live) by "
+        f"l_returnflag desc ({int(torch.unique(keys7[0][0]).numel())} values), l_orderkey")
     inputs = window_inputs(opage, [col("o_custkey", otypes, onames)],
                            [col("o_orderdate", otypes, onames),
                             col("o_orderkey", otypes, onames)], [True, True],

@@ -14,8 +14,9 @@
 // TPC-H Q10 at SF10 hashes each 2^23-row probe-output split, ~0.2 ms
 // of bytes at 3.35 TB/s.
 //
-// Design: one thread per row, grid-stride.  A dead row takes I64_MAX,
-// which sorts past every live key, and so does a row with a NULL key
+// Design: one thread per row, grid-stride.  A dead row takes I64_MAX
+// without reading its key columns (a probe's output page is mostly
+// dead), which sorts past every live key, and so does a row with a NULL key
 // when null_as_sentinel is set (a join key matches nothing; a grouping
 // key keeps NULL as code 0, or as a hashed NULL lane).  The hash runs
 // in unsigned 64-bit arithmetic, so it wraps as the reference's uint64
@@ -43,9 +44,9 @@ static __global__ void pk_pack_masked(PackDesc k, i64 n, const uint8_t* __restri
   const i64 stride = (i64)gridDim.x * blockDim.x;
   bool saw_null = false, saw_live = false;
   for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    bool ok;
-    const i64 key = exact_key(k, i, &ok);
     const bool live = row_mask[i] != 0;
+    bool ok = true;
+    const i64 key = live ? exact_key(k, i, &ok) : I64_MAX;  // a dead row reads no key column
     pk_store(i, key, ok, live, null_as_sentinel, keys);
     saw_null |= live && !ok;
     saw_live |= live;
@@ -60,9 +61,9 @@ static __global__ void k9_hash_masked(PackDesc k, i64 n, const uint8_t* __restri
   const i64 stride = (i64)gridDim.x * blockDim.x;
   bool saw_null = false, saw_live = false;
   for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    bool ok;
-    const i64 key = hash_key(k, i, &ok);
     const bool live = row_mask[i] != 0;
+    bool ok = true;
+    const i64 key = live ? hash_key(k, i, &ok) : I64_MAX;  // a dead row reads no key column
     pk_store(i, key, ok, live, null_as_sentinel, keys);
     saw_null |= live && !ok;
     saw_live |= live;

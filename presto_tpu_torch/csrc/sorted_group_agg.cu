@@ -15,28 +15,57 @@
 // permutation are read once, each argument column once through the
 // permutation (a gather), and the group states and representative
 // keys written once.  TPC-H Q3 at SF10 groups each ~2^23-row lineitem
-// split's probe output (~10^5 live rows) and then merges the partials.
+// split's probe output (~4.4 * 10^4 live rows) and then merges the
+// partials.
 //
 // Design: keys.cu writes the masked key, exact or hashed (K9) (NULL
-// keys group together, dead rows take a sentinel that sorts last).  After the sort, k6_heads flags each run's first position and
-// the exclusive scan of scan.cuh numbers the groups in packed-key
-// order, the reference's group order; the host reads the group count
-// once and sizes the outputs from it (count, allocate, write), so a
-// partial emits every group it sees.  k6_accumulate gives each thread
-// K6_CHUNK consecutive sorted positions: it adds its rows' states
-// locally while the group stays the same and flushes each run with one
-// 64-bit atomicAdd per non-zero slot, so a long run costs one atomic
-// per chunk and short runs (Q3's few rows per order) one per run.  The
-// thread at a run's head writes the group's representative key (its
+// keys group together, dead rows take a sentinel).  k6_count_live
+// counts the live rows per tile and scans the counts (it reads the row
+// mask, and a key only where the mask is set), and the host reads the
+// live count.  k6_compact_rows then writes the live rows' keys and row
+// ids densely, in input order (a block scan per tile), and, when the
+// caller walks the runs, the dead rows' ids after the live count in
+// `order`, in input order: the positions a stable sort of the whole
+// page gives the sentinels.  Only those keys sort
+// (torch.sort(stable=True)), so the live rows keep the positions the
+// sort of the whole page gave them, and every pass after it covers the
+// live positions alone.  A page whose rows are all live is its own
+// compaction: its masked keys sort as they are and the sort's
+// permutation is the order.  A page of at most
+// SORT_WHOLE_ROWS rows (kernels/sorted_group_agg.py) sorts whole
+// instead, its dead rows' sentinels last, and the live count comes back
+// with the group count: there CUB's passes cost their launches whatever
+// the live share, and a read of the live count before the sort would
+// cost more.  k6_group_heads numbers the groups in packed-key order,
+// the reference's group order, by the same count-scan-apply over the
+// run heads (flags recomputed from the keys, never stored) and gathers
+// the row ids through the sort's permutation; the host reads the group
+// count once and sizes the outputs from it (count, allocate, write), so
+// a partial emits every group it sees.
+//
+// k6_accumulate gives each warp one slot (a state's limb) over a tile
+// of K6_TILE consecutive sorted positions, K6_ITEMS rows of 32: lane i
+// reads position base + i, so the scan and the row ids are read
+// coalesced, and the rows' values are gathered first, all in flight
+// together.  The run boundaries of a row of the tile are a
+// __ballot_sync of the head flags.  Each value is folded over its run by
+// a segmented warp scan (__shfl_up_sync, bounded by the run's first
+// lane), the run's total so far carried from one row of the tile to the
+// next in one register, so every accumulator is a register and the
+// kernel keeps no stack frame.  The lane at a run's last position writes
+// it: a run that starts and ends inside the tile has one writer, a
+// plain store; the tile's first and last runs may go on in the tiles
+// beside them and combine by one 64-bit atomic.  The warp of a tile's
+// first slot writes each group's representative key at its head (its
 // first row in input order, since the sort is stable).  Long sums add
 // four base-10^9 limbs, so every add is an exact integer add and the
 // result does not depend on the order of the atomics.  k6_finish
 // normalises the limbs to the reference's two base-10^18 limbs.
 //
 // min/max: a slot that starts at the int64 extreme no value passes;
-// a run folds its rows locally and flushes with one atomicMin or
-// atomicMax.  A long decimal orders limb by limb, high limb first, so
-// it takes the reference's phased walk: a first accumulate launch
+// a run folds its rows in the warp scan and a shared run combines by one
+// atomicMin or atomicMax.  A long decimal orders limb by limb, high limb
+// first, so it takes the reference's phased walk: a first accumulate launch
 // reduces the high limb, a second one the low limb over the rows whose
 // high limb ties the group's.  An empty state keeps the identity (an
 // int32 state the int32 one).
@@ -54,22 +83,20 @@
 // the card rounds as the plain twin (run_sums_plain) does, bit for bit.
 //
 // Presorted mode (streaming aggregation, equal keys arrive together):
-// no sort.  k6_presorted_order numbers the live rows by an exclusive
-// scan of their live flags and writes each live row's key and position
-// to its rank, the dead rows' sentinel after them; the heads, scan and
-// states passes then run unchanged over that page-order sequence, so a
-// run's head is a live row whose key differs from the previous live
-// row's (the reference's forward fill across dead rows) and groups
-// come out in first-appearance order.
+// no sort.  The compacted live rows in page order stand in for the
+// sorted ones; the heads, scan and states passes run unchanged over
+// them, so a run's head is a live row whose key differs from the
+// previous live row's (the reference's forward fill across dead rows)
+// and groups come out in first-appearance order.
 //
 // The function surface: a double's min/max reduces an int64 order key
 // (common.cuh minmax_key: -0.0 below 0.0, NaN moved to win, as the
 // reference's segment reductions propagate it) and turns it back at the
 // end; a boolean's min/max reads 0/1 and stores the fold's neutral
 // value in an empty state; bitwise_and_agg / bitwise_or_agg fold by and
-// / or (slot_fold locally, atomicAnd / atomicOr on a flush; the
-// reference's _seg_assoc); hll_merge's sum of 2^-rho (S_HLL) takes the
-// double states' fixed order, each weight exact from its bits.
+// / or (slot_fold in the warp scan, atomicAnd / atomicOr for a shared
+// run; the reference's _seg_assoc); hll_merge's sum of 2^-rho (S_HLL)
+// takes the double states' fixed order, each weight exact from its bits.
 //
 // The coupled and statistical states (_partial_states :480, :536 and
 // _merge_states :1118, :1151): S_MOM runs the double pass four times,
@@ -104,7 +131,9 @@
 
 #define K6_MAX_STATES 32
 #define K6_MAX_SLOTS 64
-#define K6_CHUNK 16
+#define K6_ITEMS 4  // rows of 32 sorted positions in a warp's tile
+#define K6_TILE (32 * K6_ITEMS)
+#define FULL_MASK 0xffffffffu
 #define K6_DSUM_CHUNK 256
 
 // state kinds: keep in step with kernels/sorted_group_agg.py
@@ -171,153 +200,168 @@ __device__ __forceinline__ void copy_key(const uint8_t* src, uint8_t* dst, int w
   else ((i64*)dst)[to] = ((const i64*)src)[from];
 }
 
-__device__ __forceinline__ bool is_head(const i64* sk, i64 i) {
-  return sk[i] != I64_MAX && (i == 0 || sk[i] != sk[i - 1]);
-}
-
-static __global__ void k6_flags(const i64* __restrict__ sk, i64 n, int* __restrict__ flags) {
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    flags[i] = is_head(sk, i);
-}
-
-// phase 0: every state but the lower limbs of a long or wide min/max;
-// phase p >= 1: limb p, for rows whose limbs before it equal the
-// group's (raw); a long min/max and min_by / max_by's x take phase 1
-// only
-__device__ __forceinline__ void add_row(const K6Desc& d, i64 row, i64* acc, int phase,
-                                        const i64* group_raw) {
-  for (int s = 0; s < d.n_states; ++s) {
-    i64* a = acc + d.slot[s];
-    const int kind = d.kind[s];
-    const bool long_extreme = kind == S_MIN_LONG || kind == S_MAX_LONG;
-    const bool d38_extreme = kind == S_MIN_D38 || kind == S_MAX_D38;
-    if (phase > 0) {
-      if (d38_extreme) {
-        if (!d.valid[s][row]) continue;
-        const i64* x = (const i64*)d.data[s] + D38_LIMBS * row;
-        bool tie = true;
-        for (int j = 0; j < phase; ++j) tie = tie && x[j] == group_raw[d.slot[s] + j];
-        if (tie) a[phase] = slot_fold(a[phase], x[phase], d.slot_kind[d.slot[s]]);
-        continue;
-      }
-      if (phase != 1) continue;
-      if (kind == S_BY_X || kind == S_BY_XV) {  // over the rows tied at y's extreme
-        const int y = s + (kind == S_BY_X ? 2 : 1);
-        if (!d.valid[s][row] || !d.valid[y][row]) continue;
-        const bool y_min = d.kind[y] == S_BY_Y_MIN;
-        const i64 best = group_raw[d.slot[y]];
-        const bool tie = d.data_kind[y] == DATA_F64
-            ? __longlong_as_double(((const i64*)d.data[y])[row]) ==
-                  __longlong_as_double(minmax_value(best, y_min))
-            : pk_load(d.data[y], d.data_kind[y], row) == best;
-        if (!tie) continue;
-        if (kind == S_BY_XV) a[0] += 1;
-        else a[0] = slot_fold(a[0], by_key(d.data[s], d.data_kind[s], row, false), SLOT_MAX);
-        continue;
-      }
-      if (!long_extreme || !d.valid[s][row]) continue;
-      const i64* x = (const i64*)d.data[s] + 2 * row;
-      if (x[0] == group_raw[d.slot[s]])
-        a[1] = kind == S_MIN_LONG ? (x[1] < a[1] ? x[1] : a[1]) : (x[1] > a[1] ? x[1] : a[1]);
-      continue;
-    }
-    if (kind == S_ONE) { a[0] += 1; continue; }
-    if (kind == S_BY_X || kind == S_BY_XV || !d.valid[s][row]) continue;  // BY_X(V): phase 1
-    if (kind == S_BY_Y_MIN || kind == S_BY_Y_MAX) {
-      a[0] = slot_fold(a[0], by_key(d.data[s], d.data_kind[s], row, kind == S_BY_Y_MIN),
-                       d.slot_kind[d.slot[s]]);
-      continue;
-    }
-    if (kind == S_VALID) { a[0] += 1; continue; }
-    if (kind == S_SUM) {
-      a[0] = wadd(a[0], pk_load(d.data[s], d.data_kind[s], row));
-      continue;
-    }
-    if (kind == S_MIN || kind == S_MAX || kind == S_BAND || kind == S_BOR) {
-      a[0] = slot_fold(a[0], pk_load(d.data[s], d.data_kind[s], row), d.slot_kind[d.slot[s]]);
-      continue;
-    }
-    if (kind == S_MIN_F64 || kind == S_MAX_F64) {  // by the order key (common.cuh)
-      a[0] = slot_fold(a[0], minmax_key(data_bits(d.data[s], d.data_kind[s], row),
-                                        kind == S_MIN_F64),
-                       d.slot_kind[d.slot[s]]);
-      continue;
-    }
-    if (d38_extreme) {  // limb 0; the later phases take the others
-      a[0] = slot_fold(a[0], ((const i64*)d.data[s])[D38_LIMBS * row], d.slot_kind[d.slot[s]]);
-      continue;
-    }
-    if (kind == S_LIMBS_D38) {  // a wide value's limbs add as they are
-      const i64* x = (const i64*)d.data[s] + D38_LIMBS * row;
-      for (int j = 0; j < D38_LIMBS; ++j) a[j] = wadd(a[j], x[j]);
-      continue;
-    }
-    if (long_extreme) {  // the high limb; phase 1 takes the low one
-      const i64 x = ((const i64*)d.data[s])[2 * row];
-      a[0] = kind == S_MIN_LONG ? (x < a[0] ? x : a[0]) : (x > a[0] ? x : a[0]);
-      continue;
-    }
-    i64 hi, lo;
-    if (kind == S_LIMBS_SHORT) {  // from_int64
-      const i64 x = pk_load(d.data[s], d.data_kind[s], row);
-      hi = fdiv(x, B18);
-      lo = x - hi * B18;
-    } else {
-      hi = ((const i64*)d.data[s])[2 * row];
-      lo = ((const i64*)d.data[s])[2 * row + 1];
-    }
-    a[0] += fdiv(hi, B9);  // to_sum_limbs: each limb below 10^9 in size
-    a[1] += fmod_(hi, B9);
-    a[2] += fdiv(lo, B9);
-    a[3] += fmod_(lo, B9);
-  }
-}
-
-__device__ __forceinline__ void flush(const K6Desc& d, i64 g, i64* acc, u64* raw) {
-  u64* r = raw + g * d.raw_width;
-  for (int j = 0; j < d.raw_width; ++j) {
-    const int kind = d.slot_kind[j];
-    if (acc[j] != slot_identity(kind)) slot_combine(r + j, acc[j], kind);
-    acc[j] = slot_identity(kind);
-  }
-}
-
 static __global__ void k6_init(const K6Desc d, i64 slots, i64* __restrict__ raw) {
   const i64 stride = (i64)gridDim.x * blockDim.x;
   for (i64 j = (i64)blockIdx.x * blockDim.x + threadIdx.x; j < slots; j += stride)
     raw[j] = slot_identity(d.slot_kind[j % d.raw_width]);
 }
 
-static __global__ void k6_accumulate(const K6Desc d, const i64* __restrict__ sk,
-                                     const i64* __restrict__ order, i64 n,
-                                     const int* __restrict__ scan, u64* __restrict__ raw,
-                                     int phase) {
-  i64 acc[K6_MAX_SLOTS];
-  for (int j = 0; j < d.raw_width; ++j) acc[j] = slot_identity(d.slot_kind[j]);
-  const i64 stride = (i64)gridDim.x * blockDim.x * K6_CHUNK;
-  for (i64 base = ((i64)blockIdx.x * blockDim.x + threadIdx.x) * K6_CHUNK; base < n;
-       base += stride) {
-    i64 cur = -1;
-    const i64 end = base + K6_CHUNK < n ? base + K6_CHUNK : n;
-    for (i64 i = base; i < end; ++i) {
-      if (sk[i] == I64_MAX) break;  // dead rows sort last
-      const bool head = is_head(sk, i);
-      const i64 g = scan[i] + (head ? 1 : 0) - 1;
-      if (g != cur) {
-        if (cur >= 0) flush(d, cur, acc, raw);
-        cur = g;
-      }
-      const i64 row = order[i];
-      if (head && phase == 0) {
-        for (int k = 0; k < d.n_keys; ++k) {
-          copy_key(d.key_src[k], d.key_dst[k], d.key_width[k], row, g);
-          d.key_dst_valid[k][g] = d.key_valid[k][row];
-        }
-      }
-      add_row(d, row, acc, phase, (const i64*)raw + g * d.raw_width);
+// Whether slot j of a state of `kind` takes accumulate phase `phase`.
+// Phase 0: every state but the lower limbs of a long or wide min/max and
+// min_by / max_by's x; phase p >= 1: a wide min/max's limb p, and in
+// phase 1 a long min/max's low limb and min_by / max_by's x and x flag.
+__host__ __device__ __forceinline__ bool in_phase(int kind, int j, int phase) {
+  const bool long_x = kind == S_MIN_LONG || kind == S_MAX_LONG;
+  const bool d38_x = kind == S_MIN_D38 || kind == S_MAX_D38;
+  const bool by = kind == S_BY_X || kind == S_BY_XV;
+  if (phase == 0) return !by && !(long_x && j == 1) && !(d38_x && j > 0);
+  return (d38_x && j == phase) || (phase == 1 && ((long_x && j == 1) || by));
+}
+
+// What row `row` adds to slot j of state s in its phase (the slot's
+// identity where it adds nothing).  group_raw: the raw slots of the
+// row's group, which hold the earlier phases' results: a long or wide
+// min/max reduces a lower limb over the rows whose limbs before it tie
+// the group's, min_by / max_by's x over the rows whose y equals the
+// group's extreme as a value (a NaN extreme ties nothing).
+__device__ __forceinline__ i64 slot_value(const K6Desc& d, int s, int j, i64 row,
+                                          const i64* group_raw) {
+  const int kind = d.kind[s];
+  const i64 none = slot_identity(d.slot_kind[d.slot[s] + j]);
+  if (kind == S_ONE) return 1;
+  if (kind == S_BY_X || kind == S_BY_XV) {
+    const int y = s + (kind == S_BY_X ? 2 : 1);
+    if (!d.valid[s][row] || !d.valid[y][row]) return none;
+    const bool y_min = d.kind[y] == S_BY_Y_MIN;
+    const i64 best = group_raw[d.slot[y]];
+    const bool tie = d.data_kind[y] == DATA_F64
+        ? __longlong_as_double(((const i64*)d.data[y])[row]) ==
+              __longlong_as_double(minmax_value(best, y_min))
+        : pk_load(d.data[y], d.data_kind[y], row) == best;
+    if (!tie) return none;
+    return kind == S_BY_XV ? 1 : by_key(d.data[s], d.data_kind[s], row, false);
+  }
+  if (!d.valid[s][row]) return none;
+  switch (kind) {
+    case S_VALID: return 1;
+    case S_MIN_F64:
+    case S_MAX_F64:  // by the order key (common.cuh)
+      return minmax_key(data_bits(d.data[s], d.data_kind[s], row), kind == S_MIN_F64);
+    case S_BY_Y_MIN:
+    case S_BY_Y_MAX: return by_key(d.data[s], d.data_kind[s], row, kind == S_BY_Y_MIN);
+    case S_MIN_LONG:
+    case S_MAX_LONG: {  // the high limb, then the low one where the high one ties
+      const i64* x = (const i64*)d.data[s] + 2 * row;
+      if (j == 0) return x[0];
+      return x[0] == group_raw[d.slot[s]] ? x[1] : none;
     }
-    if (cur >= 0) flush(d, cur, acc, raw);
+    case S_MIN_D38:
+    case S_MAX_D38: {  // limb j where the limbs before it tie
+      const i64* x = (const i64*)d.data[s] + D38_LIMBS * row;
+      for (int i = 0; i < j; ++i)
+        if (x[i] != group_raw[d.slot[s] + i]) return none;
+      return x[j];
+    }
+    case S_LIMBS_D38: return ((const i64*)d.data[s])[D38_LIMBS * row + j];  // as they are
+    case S_LIMBS_SHORT:
+    case S_LIMBS_LONG: {  // to_sum_limbs: each limb below 10^9 in size
+      i64 x;
+      if (kind == S_LIMBS_SHORT) {  // from_int64
+        const i64 v = pk_load(d.data[s], d.data_kind[s], row);
+        const i64 hi = fdiv(v, B18);
+        x = j < 2 ? hi : v - hi * B18;
+      } else {
+        x = ((const i64*)d.data[s])[2 * row + (j >> 1)];
+      }
+      return (j & 1) ? fmod_(x, B9) : fdiv(x, B9);
+    }
+    default: return pk_load(d.data[s], d.data_kind[s], row);  // S_SUM, S_MIN/MAX, S_BAND/BOR
+  }
+}
+
+// The slots an accumulate phase reduces: slot j[i] of state s[i].
+struct K6Slots {
+  int n;
+  uint8_t s[K6_MAX_SLOTS];
+  uint8_t j[K6_MAX_SLOTS];
+};
+
+// One accumulate phase over the m sorted live positions.  A warp takes
+// one slot over a tile of K6_TILE positions, K6_ITEMS rows of 32 (lane
+// i: position base + 32 k + i); the warps of a tile's slots are
+// neighbours.  Group ids come from the heads' scan (the group of
+// position p is scan[p + 1] - 1).  Phase 0 writes the representative
+// keys, with a warp a tile when it has no slot (states all double).
+static __global__ void __launch_bounds__(256, 1)
+    k6_accumulate(const K6Desc d, const K6Slots sl, const i64* __restrict__ order, i64 m,
+                  const int* __restrict__ scan, u64* __restrict__ raw, int phase) {
+  const int lane = threadIdx.x & 31;
+  const i64 warps = ((i64)gridDim.x * blockDim.x) >> 5;
+  const int per_tile = sl.n > 0 ? sl.n : 1;
+  const i64 work = (m + K6_TILE - 1) / K6_TILE * per_tile;
+  for (i64 w = ((i64)blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < work; w += warps) {
+    const i64 t0 = w / per_tile * K6_TILE;
+    const int a = (int)(w % per_tile);
+    const i64 end = t0 + K6_TILE < m ? t0 + K6_TILE : m;
+    int g[K6_ITEMS];
+    i64 row[K6_ITEMS];
+    unsigned heads[K6_ITEMS];  // a row's run heads (and positions past m)
+#pragma unroll
+    for (int k = 0; k < K6_ITEMS; ++k) {
+      const i64 p = t0 + 32 * k + lane;
+      const bool in = p < m;
+      const int next = in ? scan[p + 1] : 0;
+      g[k] = in ? next - 1 : -1;
+      row[k] = in ? order[p] : 0;
+      heads[k] = __ballot_sync(FULL_MASK, !in || next != scan[p]);
+    }
+    // the tile's first and last runs may go on in the tiles beside it
+    const int g_first = scan[t0 + 1] - 1, g_last = scan[end] - 1;
+    const bool open_first = !(heads[0] & 1u), open_last = end < m && scan[end + 1] == scan[end];
+    if (phase == 0 && a == 0) {  // the representative keys, at the heads
+#pragma unroll
+      for (int k = 0; k < K6_ITEMS; ++k)
+        if (g[k] >= 0 && ((heads[k] >> lane) & 1u))
+          for (int c = 0; c < d.n_keys; ++c) {
+            copy_key(d.key_src[c], d.key_dst[c], d.key_width[c], row[k], g[k]);
+            d.key_dst_valid[c][g[k]] = d.key_valid[c][row[k]];
+          }
+    }
+    if (sl.n == 0) continue;  // the keys alone
+    const int s = sl.s[a], j = sl.j[a];
+    const int slot = d.slot[s] + j;
+    const int op = d.slot_kind[slot];
+    const i64 none = slot_identity(op);
+    i64 v[K6_ITEMS];  // every row's value first: their gathers in flight together
+#pragma unroll
+    for (int k = 0; k < K6_ITEMS; ++k)
+      v[k] = g[k] >= 0 ? slot_value(d, s, j, row[k], (const i64*)raw + (i64)g[k] * d.raw_width)
+                       : none;
+    i64 carry = none;  // the open run's total over the rows before
+#pragma unroll
+    for (int k = 0; k < K6_ITEMS; ++k) {
+      // the heads at or below this lane; none: the run began in a row before
+      const unsigned low = heads[k] & (FULL_MASK >> (31 - lane));
+      const int first = low ? 31 - __clz(low) : 0;
+      i64 x = v[k];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const i64 y = __shfl_up_sync(FULL_MASK, x, off);
+        if (lane - off >= first) x = slot_fold(y, x, op);
+      }
+      if (!low) x = slot_fold(carry, x, op);
+      const bool last = lane < 31 ? ((heads[k] >> (lane + 1)) & 1u) != 0
+                                  : (k + 1 == K6_ITEMS ||
+                                     (heads[k + 1 < K6_ITEMS ? k + 1 : k] & 1u));
+      if (g[k] >= 0 && last) {
+        u64* r = raw + (i64)g[k] * d.raw_width + slot;
+        if (!(open_first && g[k] == g_first) && !(open_last && g[k] == g_last))
+          *(i64*)r = x;  // the run's one writer
+        else if (x != none)
+          slot_combine(r, x, op);
+      }
+      carry = __shfl_sync(FULL_MASK, x, 31);
+    }
   }
 }
 
@@ -394,86 +438,186 @@ static __global__ void k6_finish(const K6Desc d, i64 groups, const i64* __restri
   }
 }
 
-static __global__ void k6_live_flags(const i64* __restrict__ masked, i64 n,
-                                     int* __restrict__ flags) {
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    flags[i] = masked[i] != I64_MAX;
+// The positions of each tile of SCAN_TILE where `pred` holds, read
+// coalesced.
+template <class Pred>
+static __global__ void k6_tile_counts(const Pred pred, i64 n, int* __restrict__ counts) {
+  typedef cub::BlockReduce<int, SCAN_THREADS> Reduce;
+  __shared__ typename Reduce::TempStorage tmp;
+  const i64 base = (i64)blockIdx.x * SCAN_TILE;
+  int c = 0;
+  for (int j = threadIdx.x; j < SCAN_TILE; j += SCAN_THREADS) c += base + j < n && pred(base + j);
+  const int total = Reduce(tmp).Sum(c);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
 }
 
-static __global__ void k6_compact(const i64* __restrict__ masked, i64 n,
-                                  const int* __restrict__ rank, i64* __restrict__ sk,
-                                  i64* __restrict__ order) {
-  const i64 live = rank[n];
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (masked[i] != I64_MAX) {
-      sk[rank[i]] = masked[i];
-      order[rank[i]] = i;
-    }
-    if (i >= live) {  // dead rows' sentinel after the live ones
-      sk[i] = I64_MAX;
-      order[i] = i;
+// A live row: its mask set and its masked key not the sentinel (a dead
+// row's key is not read).
+struct LiveRow {
+  const uint8_t* mask;
+  const i64* masked;
+  __device__ __forceinline__ bool operator()(i64 i) const {
+    return mask[i] && masked[i] != I64_MAX;
+  }
+};
+
+// A sorted position that starts a run (dead rows' sentinels sort last
+// and start none).
+struct RunHead {
+  const i64* sk;
+  __device__ __forceinline__ bool operator()(i64 p) const {
+    return sk[p] != I64_MAX && (p == 0 || sk[p] != sk[p - 1]);
+  }
+};
+
+// Each tile's live rows to their ranks (prefix: the scanned tile
+// counts, the live count at [tiles]); with `tail`, the dead rows' ids
+// after the live count.
+static __global__ void k6_compact_live(const LiveRow live_of, i64 n,
+                                       const int* __restrict__ prefix, i64* __restrict__ keys,
+                                       i64* __restrict__ rows, i64* __restrict__ tail) {
+  typedef cub::BlockScan<int, SCAN_THREADS> Scan;
+  __shared__ typename Scan::TempStorage tmp;
+  const i64 base = (i64)blockIdx.x * SCAN_TILE + (i64)threadIdx.x * SCAN_ITEMS;
+  bool f[SCAN_ITEMS];
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    f[j] = base + j < n && live_of(base + j);
+    c += f[j];
+  }
+  int excl;
+  Scan(tmp).ExclusiveSum(c, excl);
+  const i64 live = prefix[gridDim.x];
+  i64 rank = prefix[blockIdx.x] + excl;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    const i64 i = base + j;
+    if (i >= n) break;
+    if (f[j]) {
+      keys[rank] = live_of.masked[i];
+      rows[rank++] = i;
+    } else if (tail != nullptr) {
+      tail[live + i - rank] = i;
     }
   }
 }
 
-// Presorted mode: the page-order sequence of live rows that stands in
-// for the sort.  masked: the masked keys (I64_MAX where dead); sk,
-// order: n int64 each; rank: n + 1 ints and partials scan_tiles(n) + 1
-// ints of scratch.
-extern "C" int k6_presorted_order(const void* masked, i64 n, void* sk, void* order,
-                                  void* rank, void* partials, void* stream) {
+// The live rows of a page of n rows (row_mask, and their masked keys),
+// counted per tile and scanned: partials, scan_tiles(n) + 1 ints, ends
+// with the live count at partials[scan_tiles(n)].
+extern "C" int k6_count_live(const void* row_mask, const void* masked, i64 n, void* partials,
+                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0)
-    k6_live_flags<<<grid_for(n, 256, 8), 256, 0, s>>>((const i64*)masked, n, (int*)rank);
-  scan_exclusive_inplace((int*)rank, n, (int*)partials, s);
-  if (n > 0)
-    k6_compact<<<grid_for(n, 256, 8), 256, 0, s>>>((const i64*)masked, n, (const int*)rank,
-                                                   (i64*)sk, (i64*)order);
+  const i64 tiles = scan_tiles(n);
+  if (tiles == 0) {
+    cudaMemsetAsync(partials, 0, sizeof(int), s);
+    return (int)cudaGetLastError();
+  }
+  const LiveRow live_of{(const uint8_t*)row_mask, (const i64*)masked};
+  k6_tile_counts<<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(live_of, n, (int*)partials);
+  scan_partials<int><<<1, SCAN_THREADS, 0, s>>>((int*)partials, tiles);
   return (int)cudaGetLastError();
 }
 
-// scan (n + 1 ints): the exclusive count of run heads before each
-// sorted position, the group count at [n].  partials: scan_tiles(n) + 1.
-extern "C" int k6_group_heads(const void* sorted_keys, i64 n, void* scan, void* partials,
+// Compacts the live rows counted by k6_count_live (partials), in input
+// order: keys[0..live) and rows[0..live) their keys and row ids; with
+// `tail`, tail[live..n) the dead rows' ids (tail may be rows itself).
+extern "C" int k6_compact_rows(const void* row_mask, const void* masked, i64 n, void* keys,
+                               void* rows, void* tail, const void* partials, void* stream) {
+  const i64 tiles = scan_tiles(n);
+  if (tiles == 0) return (int)cudaGetLastError();
+  const LiveRow live_of{(const uint8_t*)row_mask, (const i64*)masked};
+  k6_compact_live<<<(unsigned)tiles, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+      live_of, n, (const int*)partials, (i64*)keys, (i64*)rows, (i64*)tail);
+  return (int)cudaGetLastError();
+}
+
+// Each tile's exclusive head counts from its prefix (the head flags
+// recomputed from the keys), and the row ids through the sort's
+// permutation (perm null: the rows are in place already); with
+// live_out, the live positions' count (the first sentinel's position).
+static __global__ void k6_head_scan(const i64* __restrict__ sk, i64 m,
+                                    const i64* __restrict__ perm, const i64* __restrict__ rows,
+                                    i64* __restrict__ order, const int* __restrict__ prefix,
+                                    int* __restrict__ scan, int* __restrict__ live_out) {
+  typedef cub::BlockScan<int, SCAN_THREADS> Scan;
+  __shared__ typename Scan::TempStorage tmp;
+  const RunHead head{sk};
+  const i64 base = (i64)blockIdx.x * SCAN_TILE + (i64)threadIdx.x * SCAN_ITEMS;
+  bool f[SCAN_ITEMS];
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    f[j] = base + j < m && head(base + j);
+    c += f[j];
+  }
+  int run;
+  Scan(tmp).ExclusiveSum(c, run);
+  run += prefix[blockIdx.x];
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    const i64 p = base + j;
+    if (p >= m) break;
+    scan[p] = run;
+    run += f[j];
+    if (perm != nullptr) order[p] = rows[perm[p]];
+    if (live_out != nullptr && sk[p] != I64_MAX && (p + 1 == m || sk[p + 1] == I64_MAX))
+      *live_out = (int)(p + 1);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) scan[m] = prefix[gridDim.x];
+}
+
+// Over m sorted keys (dead rows' sentinels last, if any): order[0..m) =
+// rows[perm] (perm null: left as it is), and scan (m + 1 ints) the
+// exclusive count of run heads before each position, the group count
+// at [m]; with live_out, the live positions' count there.  partials:
+// scan_tiles(m) + 1 ints.
+extern "C" int k6_group_heads(const void* sorted_keys, i64 m, const void* perm, const void* rows,
+                              void* order, void* scan, void* partials, void* live_out,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0)
-    k6_flags<<<grid_for(n, 256, 8), 256, 0, s>>>((const i64*)sorted_keys, n, (int*)scan);
-  scan_exclusive_inplace((int*)scan, n, (int*)partials, s);
+  if (live_out != nullptr) cudaMemsetAsync(live_out, 0, sizeof(int), s);
+  const i64 tiles = scan_tiles(m);
+  if (tiles == 0) {
+    cudaMemsetAsync(scan, 0, sizeof(int), s);
+    return (int)cudaGetLastError();
+  }
+  k6_tile_counts<<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(RunHead{(const i64*)sorted_keys}, m,
+                                                          (int*)partials);
+  scan_partials<int><<<1, SCAN_THREADS, 0, s>>>((int*)partials, tiles);
+  k6_head_scan<<<(unsigned)tiles, SCAN_THREADS, 0, s>>>(
+      (const i64*)sorted_keys, m, (const i64*)perm, (const i64*)rows, (i64*)order,
+      (const int*)partials, (int*)scan, (int*)live_out);
   return (int)cudaGetLastError();
 }
 
 // The run of each group: starts[g] = the first sorted position of group
-// g, starts[groups] = the live positions' count (dead rows sort last, on
-// the sentinel key).  starts: groups + 1 int64.
-static __global__ void k6_starts(const i64* __restrict__ sk, i64 n, const int* __restrict__ scan,
-                                 i64 groups, i64* __restrict__ starts) {
+// g, starts[groups] = m, the live positions' count.
+static __global__ void k6_starts(const int* __restrict__ scan, i64 m, i64 groups,
+                                 i64* __restrict__ starts) {
   const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
+  const i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t == 0) starts[groups] = m;
+  for (i64 p = t; p < m; p += stride)
     if (scan[p + 1] != scan[p]) starts[scan[p]] = p;
-    if (sk[p] != I64_MAX && (p + 1 == n || sk[p + 1] == I64_MAX)) starts[groups] = p + 1;
-  }
 }
 
-extern "C" int k6_run_starts(const void* sorted_keys, i64 n, const void* scan, i64 groups,
-                             void* starts, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaMemsetAsync(starts, 0, (size_t)(groups + 1) * sizeof(i64), s);
-  if (n > 0)
-    k6_starts<<<grid_for(n, 256, 8), 256, 0, s>>>((const i64*)sorted_keys, n,
-                                                   (const int*)scan, groups, (i64*)starts);
+// starts: groups + 1 int64.
+extern "C" int k6_run_starts(const void* scan, i64 m, i64 groups, void* starts, void* stream) {
+  k6_starts<<<grid_for(m, 256, 8), 256, 0, (cudaStream_t)stream>>>((const int*)scan, m, groups,
+                                                                    (i64*)starts);
   return (int)cudaGetLastError();
 }
 
-// Per-group states of `groups` groups.  raw: groups * raw_width int64
-// of scratch.  Key columns gather into key_dst (groups elements of
-// key_width bytes); state s writes out[s].
-extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n,
-                               const void* scan, i64 groups, int n_keys, const i64* key_src,
-                               const i64* key_valid, const i64* key_dst,
-                               const i64* key_dst_valid, const int* key_width, int n_states,
+// Per-group states of `groups` groups over the m sorted live positions
+// (order: their row ids; scan: k6_group_heads').  raw: groups *
+// raw_width int64 of scratch.  Key columns gather into key_dst (groups
+// elements of key_width bytes); state s writes out[s].
+extern "C" int k6_group_states(const void* order, i64 m, const void* scan, i64 groups,
+                               int n_keys, const i64* key_src, const i64* key_valid,
+                               const i64* key_dst, const i64* key_dst_valid,
+                               const int* key_width, int n_states,
                                const int* kind, const i64* data, const int* data_kind,
                                const i64* valid, const i64* out, const int* out_kind,
                                void* raw, void* stream) {
@@ -522,12 +666,20 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
   cudaStream_t st = (cudaStream_t)stream;
   if (groups == 0) return (int)cudaGetLastError();
   k6_init<<<grid_for(groups * w, 256, 8), 256, 0, st>>>(d, groups * w, (i64*)raw);
-  const i64 chunks = (n + K6_CHUNK - 1) / K6_CHUNK;
-  k6_accumulate<<<grid_for(chunks, 256, 8), 256, 0, st>>>(
-      d, (const i64*)sorted_keys, (const i64*)order, n, (const int*)scan, (u64*)raw, 0);
-  for (int phase = 1; phase < phases; ++phase)
-    k6_accumulate<<<grid_for(chunks, 256, 8), 256, 0, st>>>(
-        d, (const i64*)sorted_keys, (const i64*)order, n, (const int*)scan, (u64*)raw, phase);
+  const i64 tiles = (m + K6_TILE - 1) / K6_TILE;
+  for (int phase = 0; phase < phases; ++phase) {  // one warp a (tile, slot)
+    K6Slots sl;
+    sl.n = 0;
+    for (int s = 0; s < n_states; ++s)
+      for (int j = 0; j < state_width(kind[s]); ++j)
+        if (in_phase(kind[s], j, phase)) {
+          sl.s[sl.n] = (uint8_t)s;
+          sl.j[sl.n++] = (uint8_t)j;
+        }
+    if (sl.n > 0 || phase == 0)  // phase 0 writes the keys
+      k6_accumulate<<<grid_for(tiles * (sl.n > 0 ? sl.n : 1) * 32, 256, 8), 256, 0, st>>>(
+          d, sl, (const i64*)order, m, (const int*)scan, (u64*)raw, phase);
+  }
   k6_finish<<<grid_for(groups, 256, 8), 256, 0, st>>>(d, groups, (const i64*)raw);
   return (int)cudaGetLastError();
 }
@@ -535,19 +687,6 @@ extern "C" int k6_group_states(const void* sorted_keys, const void* order, i64 n
 // ---------------------------------------------------------------------------
 // double states
 // ---------------------------------------------------------------------------
-
-// starts[g]: the sorted position of group g's first row; starts[groups]:
-// the number of live rows
-static __global__ void k6_run_starts(const i64* __restrict__ sk, i64 n,
-                                     const int* __restrict__ scan, i64 groups,
-                                     i64* __restrict__ starts) {
-  const i64 stride = (i64)gridDim.x * blockDim.x;
-  for (i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (sk[i] == I64_MAX) continue;
-    if (is_head(sk, i)) starts[scan[i]] = i;
-    if (i == n - 1 || sk[i + 1] == I64_MAX) starts[groups] = i + 1;
-  }
-}
 
 // base[g]: the number of chunks of group g (base[groups]: 0), to be
 // scanned into each group's first chunk
@@ -601,7 +740,7 @@ static __global__ void k6_dchunks(const i64* __restrict__ order, const i64* __re
       } else if (pass > 0 && kind == S_MOM_MERGE) {
         double t[3];
         moment_terms(v, m2_in[row], m3_in[row], m4_in[row], c_in[row], mu[g], t);
-        v = t[pass - 1];
+        v = pass == 1 ? t[0] : pass == 2 ? t[1] : t[2];
       } else if (pass > 0) {
         const double dx = __dsub_rn(v, mu[g]);
         const double dx2 = __dmul_rn(dx, dx);
@@ -628,20 +767,21 @@ static __global__ void k6_dtree(const int* __restrict__ base, i64 groups,
   if (cnt != nullptr) mu_out[g] = __ddiv_rn(p[0], __ll2double_rn(cnt[g] > 1 ? cnt[g] : 1));
 }
 
-// A double state over the sorted run of each of `groups` groups: kind
+// A double state over the sorted run of each of `groups` groups (m
+// sorted live positions, order their row ids, scan k6_group_heads'): kind
 // S_DSUM and S_HLL write out_s; S_VAR and S_VAR_MERGE write out_s and
 // out_m2 (out_m2 holds mu between the passes), S_MOM and S_MOM_MERGE
 // out_s, out_m2, out_m3 and out_m4 (out_m4 holds mu until the last
 // pass), with cnt the group counts of their integer state.  x: the
 // double argument (x_f32: a REAL's float32, for S_DSUM; a merge: s_i),
-// m2_in, m3_in, m4_in and c_in a merge's m2_i, m3_i, m4_i and c_i.  Scratch: starts groups + 1 int64,
-// base groups + 1 ints, partials scan_tiles(groups + 1) + 1 ints,
-// chunk_group and part `bound` (>= the chunk count) ints and doubles.
-extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n,
-                               const void* scan, i64 groups, int kind, const void* x,
-                               int x_f32, const void* valid, const void* m2_in,
-                               const void* m3_in, const void* m4_in, const void* c_in,
-                               const void* cnt,
+// m2_in, m3_in, m4_in and c_in a merge's m2_i, m3_i, m4_i and c_i.
+// Scratch: starts groups + 1 int64, base groups + 1 ints, partials
+// scan_tiles(groups + 1) + 1 ints, chunk_group and part `bound` (>= the
+// chunk count) ints and doubles.
+extern "C" int k6_double_state(const void* order, i64 m, const void* scan, i64 groups,
+                               int kind, const void* x, int x_f32, const void* valid,
+                               const void* m2_in, const void* m3_in, const void* m4_in,
+                               const void* c_in, const void* cnt,
                                void* out_s, void* out_m2, void* out_m3, void* out_m4,
                                void* starts, void* base, void* partials, void* chunk_group,
                                void* part, i64 bound, void* stream) {
@@ -649,10 +789,9 @@ extern "C" int k6_double_state(const void* sorted_keys, const void* order, i64 n
       kind != S_MOM_MERGE)
     return (int)cudaErrorInvalidValue;
   if (groups == 0) return (int)cudaGetLastError();
-  if ((n + K6_DSUM_CHUNK - 1) / K6_DSUM_CHUNK + groups > bound) return (int)cudaErrorInvalidValue;
+  if ((m + K6_DSUM_CHUNK - 1) / K6_DSUM_CHUNK + groups > bound) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  k6_run_starts<<<grid_for(n, 256, 8), 256, 0, st>>>((const i64*)sorted_keys, n,
-                                                     (const int*)scan, groups, (i64*)starts);
+  k6_starts<<<grid_for(m, 256, 8), 256, 0, st>>>((const int*)scan, m, groups, (i64*)starts);
   k6_run_chunks<<<(int)((groups + 256) / 256), 256, 0, st>>>((const i64*)starts, groups,
                                                              (int*)base);
   scan_exclusive_inplace((int*)base, groups + 1, (int*)partials, st);

@@ -38,7 +38,8 @@ def digest_entries(rows: torch.Tensor, g: torch.Tensor, ok: torch.Tensor, cap: i
     its row is (``ok``) and it lies below the row's length."""
     lens = torch.where(ok, torch.clamp(lengths(rows), max=cap), torch.zeros_like(g))
     lane_ok = torch.arange(cap, device=rows.device)[None, :] < lens[:, None]
-    return (g[:, None].expand(-1, cap).reshape(-1), rows[:, 1:1 + cap].reshape(-1),
+    # repeat_interleave, not a stride-0 view: one row's group ids stay contiguous
+    return (g.repeat_interleave(cap), rows[:, 1:1 + cap].reshape(-1),
             rows[:, 1 + cap:1 + 2 * cap].reshape(-1), lane_ok.reshape(-1))
 
 

@@ -2,16 +2,20 @@
 
 :func:`sorted_group_agg` packs the group keys exactly, or hashes them
 (K9) when they have no exact domain (NULL keys group together, dead
-rows take a sentinel that sorts last), sorts them with
-``torch.sort(stable=True)`` (the reference leaves its argsort to XLA),
-numbers the runs of equal keys in key order, and sums each
-group's states exactly; the reference's ``_sorted_group_ids``,
-``_SortCtx.sum`` and the sort path of ``grouped_aggregate`` /
-``merge_aggregate`` (``presto_tpu/ops/aggregate.py``).  It returns
-every group it sees (the host reads the group count once and sizes
-the outputs from it) with each group's first row's key values.  CUDA
-tensors launch ``csrc/sorted_group_agg.cu``; CPU tensors run
-:func:`sorted_group_agg_plain`.
+rows take a sentinel that sorts last), compacts the live rows of a
+page past :data:`SORT_WHOLE_ROWS` on the card and sorts only their keys
+with ``torch.sort(stable=True)`` (the reference leaves its argsort to
+XLA; the dead rows would sort last, so the live rows keep their
+positions; a page whose rows are all live needs no compaction, and a
+smaller page sorts whole), numbers the runs of equal keys
+in key order, and sums each group's states exactly; the reference's
+``_sorted_group_ids``, ``_SortCtx.sum`` and the sort path of
+``grouped_aggregate`` / ``merge_aggregate``
+(``presto_tpu/ops/aggregate.py``).  It returns every group it sees
+(the host reads the live count and the group count, once each, and
+sizes the sort and the outputs from them) with each group's first
+row's key values.  CUDA tensors launch ``csrc/sorted_group_agg.cu``;
+CPU tensors run :func:`sorted_group_agg_plain`.
 
 Double states never add by atomics: S_DSUM (a double sum), S_VAR (the
 variance state ``(s, m2, cnt)`` of a double argument, two passes) and
@@ -86,6 +90,15 @@ DOUBLE_STATES = (S_DSUM, S_VAR, S_VAR_MERGE, S_HLL, S_MOM, S_MOM_MERGE)
 S_BY_Y = (S_BY_Y_MIN, S_BY_Y_MAX)
 _BY = (S_BY_Y_MIN, S_BY_Y_MAX, S_BY_X, S_BY_XV)
 DSUM_CHUNK = 256  # csrc/sorted_group_agg.cu K6_DSUM_CHUNK
+#: a page of at most this many rows sorts whole, its dead rows last,
+#: and reads its live count with the group count; larger pages compact
+#: their live rows and sort only those.  On an H100 the whole sort is
+#: the faster below 2^20 rows (0.5% live at 2^18; all-live merges of
+#: 119,102 and 200,000 rows) and the two meet at 2^20
+#: (``tools/k6_k7_ab.py``): below that, CUB's passes cost their
+#: launches whatever the live share, and the compaction adds a kernel
+#: and a host read of the live count
+SORT_WHOLE_ROWS = 1 << 20
 _LIMBS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_LIMBS_D38)
 _PAIRS = (S_LIMBS_SHORT, S_LIMBS_LONG, S_MIN_LONG, S_MAX_LONG)  # (G, 2) outputs
 _FIVES = (S_LIMBS_D38, S_MIN_D38, S_MAX_D38)  # (G, 5) outputs
@@ -265,21 +278,42 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     starts)``: the row at each sorted position and the first position of
     each group's run (``starts[groups]``: the live rows' count), which
     K14 ``group_collect`` walks."""
-    n = row_mask.shape[0]
-    key, _ = pk.pack_plain(keys, n, row_mask.device)
-    masked = torch.where(row_mask, key, torch.full_like(key, pk.I64_MAX))
+    masked = _masked_plain(keys, row_mask)
     if presorted:  # the live rows in page order, the dead ones after them
         order = torch.cat([torch.nonzero(row_mask).flatten(), torch.nonzero(~row_mask).flatten()])
         sk = masked[order]
     else:
         sk, order = torch.sort(masked, stable=True)
+    return _group_plain(keys, states, sk, order, runs)
+
+
+def sorted_group_agg_compact_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
+                                   states: Sequence[State], presorted: bool = False,
+                                   runs: bool = False):
+    """The kernels' path in plain torch (:func:`compact_plain`: only the
+    live rows' keys sort), for the tests to hold against the twin,
+    :func:`sorted_group_agg_plain`."""
+    sk, order = compact_plain(_masked_plain(keys, row_mask), presorted)
+    return _group_plain(keys, states, sk, order, runs)
+
+
+def _masked_plain(keys, row_mask):
+    key, _ = pk.pack_plain(keys, row_mask.shape[0], row_mask.device)
+    return torch.where(row_mask, key, torch.full_like(key, pk.I64_MAX))
+
+
+def _group_plain(keys, states, sk, order, runs):
+    """The groups and states over the sorted keys ``sk`` (the sentinel
+    where dead) and the rows ``order`` at the sorted positions (``order``
+    may run past ``sk``: dead rows)."""
+    dev = order.device
     live = sk != pk.I64_MAX
     first = live.clone()
     first[1:] &= sk[1:] != sk[:-1]
     groups = int(first.sum())
     gid = (torch.cumsum(first.to(torch.int64), 0) - 1)[live]
-    rows = order[live]
-    rep = order[first]
+    rows = order[:sk.shape[0]][live]
+    rep = order[:sk.shape[0]][first]
     key_out = [(d[rep], v[rep]) for d, v, _, _ in keys]
     outs = []
     for i, (kind, data, valid) in enumerate(states):
@@ -301,7 +335,7 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
             outs.append(seg_bitwise(data[rows].to(torch.int64), slot, groups, kind == S_BAND))
             continue
         if kind == S_ONE:
-            vals = torch.ones(rows.shape[0], dtype=torch.int64, device=row_mask.device)
+            vals = torch.ones(rows.shape[0], dtype=torch.int64, device=dev)
         else:
             ok = valid[rows]
             if kind == S_VALID:
@@ -313,7 +347,7 @@ def sorted_group_agg_plain(keys: Sequence[pk.Key], row_mask: torch.Tensor,
                 vals = _limbs(kind, data[rows])
                 vals = torch.where(ok[:, None], vals, torch.zeros_like(vals))
         acc = torch.zeros((groups,) + tuple(vals.shape[1:]), dtype=torch.int64,
-                          device=row_mask.device)
+                          device=dev)
         acc.index_add_(0, gid, vals)
         outs.append(d128.from_sum_limbs(acc) if kind in _LIMBS else acc)
     if runs:
@@ -500,60 +534,73 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
     dev = row_mask.device
     stream = build.stream_of(row_mask)
     lib = build.library()
+    # the states' descriptor before the first read of a count, so the
+    # host builds it while the card packs and compacts
+    null = 0
+    out_dtypes = [data.dtype if kind in (S_MIN, S_MAX, S_MIN_F64, S_MAX_F64, S_BY_X) + S_BY_Y
+                  else torch.int64 for kind, data, _ in states]
+    key_src = build.ptrs(d.data_ptr() for d, _, _, _ in keys)
+    key_valid = build.ptrs(v.data_ptr() for _, v, _, _ in keys)
+    key_width = build.ints(d.element_size() for d, _, _, _ in keys)
+    state_kinds = build.ints(k for k, _, _ in states)
+    data_ptrs = build.ptrs(d.data_ptr() if d is not None else null for _, d, _ in states)
+    data_kinds = build.ints(_DATA_KINDS.get(d.dtype, DATA_F32 if d.dtype == torch.float32
+                                            else DATA_F64) if d is not None else 0
+                            for _, d, _ in states)
+    valid_ptrs = build.ptrs(v.data_ptr() if v is not None else null for _, _, v in states)
+    out_kinds = build.ints(_OUT_KINDS.get(t, 0) for t in out_dtypes)
 
-    masked = pk.pack(keys, row_mask, False, "sorted_group_agg")
-    scan = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    partials = torch.empty(-(-n // SCAN_TILE) + 1, dtype=torch.int32, device=dev)
-    if presorted:  # K6's page-order pass in place of the sort
-        sk = torch.empty_like(masked)
-        order = torch.empty(n, dtype=torch.int64, device=dev)
-        fn = lib.k6_presorted_order
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
-        build.check(fn(masked.data_ptr(), n, sk.data_ptr(), order.data_ptr(), scan.data_ptr(),
-                       partials.data_ptr(), stream), "sorted_group_agg")
+    whole = not presorted and n <= SORT_WHOLE_ROWS
+    if whole:  # the page sorts whole, its dead rows' sentinels last
+        sk, order = torch.sort(pk.pack(keys, row_mask, False, "sorted_group_agg"), stable=True)
+        perm, rows, m = None, order, n
     else:
-        sk, order = torch.sort(masked, stable=True)
+        live_keys, rows, order, m = compact_live(keys, row_mask, presorted, runs)
+        if presorted:  # the live rows in page order stand in for the sorted ones
+            sk, perm = live_keys, None
+        else:
+            sk, perm = torch.sort(live_keys, stable=True)
+            if rows is None:  # every row live: the sort's permutation is the order
+                order, perm = perm, None
+            elif order is None:
+                order = torch.empty(m, dtype=torch.int64, device=dev)
+    scan = torch.empty(m + 2, dtype=torch.int32, device=dev)  # [m + 1]: a live count
+    partials = torch.empty(-(-m // SCAN_TILE) + 1, dtype=torch.int32, device=dev)
     fn = lib.k6_group_heads
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    build.check(fn(sk.data_ptr(), n, scan.data_ptr(), partials.data_ptr(), stream),
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7
+    build.check(fn(sk.data_ptr(), m, perm.data_ptr() if perm is not None else None,
+                   rows.data_ptr() if rows is not None else None, order.data_ptr(),
+                   scan.data_ptr(), partials.data_ptr(),
+                   scan.data_ptr() + 4 * (m + 1) if whole else None, stream),
                 "sorted_group_agg")
-    groups = int(scan[n])  # the one synchronisation: sizes the outputs
+    # the synchronisation that sizes the outputs (a whole page's live
+    # count with it)
+    if whole:
+        groups, m = scan[m:].tolist()
+    else:
+        groups = int(scan[m])
 
     key_out: List[Tuple[torch.Tensor, torch.Tensor]] = [
         (torch.empty(groups, dtype=d.dtype, device=dev),
          torch.empty(groups, dtype=torch.bool, device=dev)) for d, _, _, _ in keys]
     outs = [torch.empty((groups, 2) if kind in _PAIRS else (groups, 5) if kind in _FIVES
-                        else (groups,),
-                        dtype=data.dtype if kind in (S_MIN, S_MAX, S_MIN_F64, S_MAX_F64, S_BY_X)
-                        + S_BY_Y else torch.int64, device=dev)
-            for kind, data, _ in states]
+                        else (groups,), dtype=t, device=dev)
+            for (kind, _, _), t in zip(states, out_dtypes)]
     width = sum(_WIDTH.get(kind, 1) for kind, _, _ in states)
     raw = torch.empty(max(groups * width, 1), dtype=torch.int64, device=dev)
     fn = lib.k6_group_states
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] + [ctypes.c_void_p] * 8
-    null = 0
-    err = fn(sk.data_ptr(), order.data_ptr(), n, scan.data_ptr(), groups, len(keys),
-             build.ptrs(d.data_ptr() for d, _, _, _ in keys),
-             build.ptrs(v.data_ptr() for _, v, _, _ in keys),
+    err = fn(order.data_ptr(), m, scan.data_ptr(), groups, len(keys), key_src, key_valid,
              build.ptrs(d.data_ptr() for d, _ in key_out),
-             build.ptrs(v.data_ptr() for _, v in key_out),
-             build.ints(d.element_size() for d, _, _, _ in keys),
-             len(states), build.ints(k for k, _, _ in states),
-             build.ptrs(d.data_ptr() if d is not None else null for _, d, _ in states),
-             build.ints(_DATA_KINDS.get(d.dtype, DATA_F32 if d.dtype == torch.float32
-                                        else DATA_F64) if d is not None else 0
-                        for _, d, _ in states),
-             build.ptrs(v.data_ptr() if v is not None else null for _, _, v in states),
-             build.ptrs(o.data_ptr() for o in outs),
-             build.ints(_OUT_KINDS.get(o.dtype, 0) for o in outs), raw.data_ptr(), stream)
+             build.ptrs(v.data_ptr() for _, v in key_out), key_width, len(states), state_kinds,
+             data_ptrs, data_kinds, valid_ptrs, build.ptrs(o.data_ptr() for o in outs),
+             out_kinds, raw.data_ptr(), stream)
     build.check(err, "sorted_group_agg")
-    outs = _double_states(plan, outs, sk, order, n, scan, groups, lib, stream)
+    outs = _double_states(plan, outs, order, m, scan, groups, lib, stream)
     launches += 1
     presorted_launches += int(presorted)
     minmax_launches += int(any(k in _EXTREMES for k, _, _ in states))
@@ -573,22 +620,85 @@ def sorted_group_agg(keys: Sequence[pk.Key], row_mask: torch.Tensor,
         starts = torch.empty(groups + 1, dtype=torch.int64, device=dev)
         fn = lib.k6_run_starts
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        build.check(fn(sk.data_ptr(), n, scan.data_ptr(), groups, starts.data_ptr(), stream),
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        build.check(fn(scan.data_ptr(), m, groups, starts.data_ptr(), stream),
                     "sorted_group_agg")
         return key_out, outs, groups, (order, starts)
     return key_out, outs, groups
 
 
-def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
+def compact_live(keys: Sequence[pk.Key], row_mask: torch.Tensor, presorted: bool = False,
+                 runs: bool = False):
+    """K6's first pass on the card: ``(live keys, live row ids, order,
+    live count)``.  The masked keys (``keys.cu``) of the live rows and
+    their ids, densely in input order.  ``order`` (n int64, or None when
+    neither ``presorted`` nor ``runs``) holds, with ``runs``, the dead
+    rows' ids after the live count, in input order (where a stable sort
+    of the whole page puts the sentinels); ``presorted``: the live row
+    ids themselves.  The host reads the live count (the call's first
+    synchronisation) between the count and the compaction: where every
+    row is live and not ``presorted``, the page is its own compaction,
+    ``(masked keys, None, None, n)``.  CPU tensors take the plain version
+    (``rows`` and ``order`` alike: the live ids, then the dead)."""
+    n = row_mask.shape[0]
+    dev = row_mask.device
+    if not row_mask.is_cuda:
+        masked = _masked_plain(keys, row_mask)
+        live = masked != pk.I64_MAX
+        order = torch.cat([torch.nonzero(live).flatten(), torch.nonzero(~live).flatten()])
+        m = int(live.sum())
+        return masked[order[:m]], order, order, m
+    lib, stream = build.library(), build.stream_of(row_mask)
+    masked = pk.pack(keys, row_mask, False, "sorted_group_agg")
+    tiles = -(-n // SCAN_TILE)
+    partials = torch.empty(tiles + 1, dtype=torch.int32, device=dev)
+    fn = lib.k6_count_live
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    build.check(fn(row_mask.data_ptr(), masked.data_ptr(), n, partials.data_ptr(), stream),
+                "sorted_group_agg")
+    m = int(partials[tiles])
+    if m == n and not presorted:
+        return masked, None, None, m
+    live_keys = torch.empty(m, dtype=torch.int64, device=dev)
+    order = torch.empty(n, dtype=torch.int64, device=dev) if presorted or runs else None
+    rows = order if presorted else torch.empty(m, dtype=torch.int64, device=dev)
+    fn = lib.k6_compact_rows
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
+    build.check(fn(row_mask.data_ptr(), masked.data_ptr(), n, live_keys.data_ptr(),
+                   rows.data_ptr(), order.data_ptr() if runs else None, partials.data_ptr(),
+                   stream), "sorted_group_agg")
+    return live_keys, rows, order, m
+
+
+def compact_plain(masked: torch.Tensor, presorted: bool = False):
+    """The plain version of K6's positions: ``(sorted live keys, order)``.
+    The live rows (masked key not the sentinel) compact in input order
+    and only their keys sort (stably; ``presorted``: they keep page
+    order); ``order`` is their row ids in that order, then the dead rows'
+    ids in input order.  Equal to the twin's sort of the whole page over
+    the live positions, since the sentinel sorts last."""
+    live = masked != pk.I64_MAX
+    rows = torch.nonzero(live).flatten()
+    dead = torch.nonzero(~live).flatten()
+    sk = masked[rows]
+    if not presorted:
+        sk, perm = torch.sort(sk, stable=True)
+        rows = rows[perm]
+    return sk, torch.cat([rows, dead])
+
+
+def _double_states(plan, int_outs, order, m, scan, groups, lib, stream):
     """The state columns in ``plan``'s order: each integer state's
     output, and each double state's fixed-order sums (K6's double
-    pass), its counts from its integer state."""
-    dev = sk.device
+    pass) over the m sorted live positions, its counts from its integer
+    state."""
+    dev = order.device
     outs = []
     if any(k is not None for k, _, _, _ in plan):
-        bound = -(-n // DSUM_CHUNK) + groups + 1
+        bound = -(-m // DSUM_CHUNK) + groups + 1
         starts = torch.empty(groups + 1, dtype=torch.int64, device=dev)
         base = torch.empty(groups + 1, dtype=torch.int32, device=dev)
         partials = torch.empty(-(-(groups + 1) // SCAN_TILE) + 1, dtype=torch.int32,
@@ -597,7 +707,7 @@ def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
         part = torch.empty(bound, dtype=torch.float64, device=dev)
         fn = lib.k6_double_state
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + \
             [ctypes.c_void_p] * 15 + [ctypes.c_longlong, ctypes.c_void_p]
     for kind, data, valid, idx in plan:
@@ -612,7 +722,7 @@ def _double_states(plan, int_outs, sk, order, n, scan, groups, lib, stream):
             cols = (cols[0], cols[1], None, None, cols[2])
         cols += (None,) * (5 - len(cols))
         ptr = [c.data_ptr() if c is not None else None for c in cols]
-        err = fn(sk.data_ptr(), order.data_ptr(), n, scan.data_ptr(), groups, kind,
+        err = fn(order.data_ptr(), m, scan.data_ptr(), groups, kind,
                  ptr[0], int(cols[0].dtype == torch.float32), valid.data_ptr(), ptr[1], ptr[2],
                  ptr[3], ptr[4],
                  cnt.data_ptr() if cnt is not None else None,

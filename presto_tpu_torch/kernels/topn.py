@@ -6,9 +6,14 @@ key, the NULL rank then the value (a long or wide decimal limb by
 limb, most significant first, a raw varchar's ``pack_lanes`` lanes lane
 by lane; a descending key reversed), then the row position, which
 is how the reference's stable sorts break ties; a double (or a REAL,
-as its exact double) orders by :func:`double_sort_key`.  Dead rows never qualify.  CUDA tensors
-launch ``csrc/topn.cu``; CPU tensors run :func:`topn_plain`, which
-composes the reference's stable argsorts.
+as its exact double) orders by :func:`double_sort_key`.  Dead rows
+never qualify.  CUDA tensors launch ``csrc/topn.cu``; CPU tensors run
+:func:`topn_plain`, which composes the reference's stable argsorts.
+
+The kernel compares rows by an adaptive 64-bit prefix of that order:
+:func:`order_words_plain` and :func:`prefix_plain` are its encoding in
+plain torch (the tests sort by them and hold the order against
+:func:`topn_plain`).
 """
 
 from __future__ import annotations
@@ -22,13 +27,14 @@ from presto_tpu_torch.kernels import build
 
 MAX_N = 100  # csrc/topn.cu K7_MAX_N
 MAX_KEYS = 16
-THREADS = 64  # csrc/topn.cu K7_THREADS
+FIELDS = 16  # csrc/topn.cu K7_FIELDS: the fields a prefix may take bits from
 _KINDS = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float64: 4, torch.int16: 5,
           torch.int8: 6, torch.float32: 7}
 KIND_LANES = 3  # (rows, k) int64 lanes: decimal limbs or a raw varchar's lanes
 MAX_LANES = 128  # csrc/topn.cu K7_MAX_LANES
 _FLOAT_KINDS = (_KINDS[torch.float64], _KINDS[torch.float32])
 _I64_MAX = (1 << 63) - 1
+_I64_MIN = -(1 << 63)
 
 launches = 0
 #: launches with n above 32
@@ -66,6 +72,61 @@ def double_sort_key(data: torch.Tensor, ascending: bool) -> torch.Tensor:
     bits = torch.where(x == 0, torch.zeros_like(bits), bits)
     bits = torch.where(torch.isnan(x), torch.full_like(bits, _I64_MAX), bits)
     return torch.where(bits < 0, bits ^ _I64_MAX, bits)
+
+
+def order_words_plain(keys: Sequence[SortKey], rows: int) -> torch.Tensor:
+    """``(rows, fields)`` int64: each row's comparison tuple, one field a
+    column, as ``csrc/topn.cu`` ``field`` computes it with the sign bit
+    flipped (so signed order is the fields' unsigned order): per key its
+    null rank (0 first), then its lanes (a value, its complement when
+    descending, a double's :func:`double_sort_key`); last the row
+    position.  Rows sorted by the columns in turn are in
+    :func:`topn_plain`'s order."""
+    cols = []
+    for data, valid, asc, nf in keys:
+        cols.append((valid if nf else ~valid).to(torch.int64) + _I64_MIN)
+        lanes = [data[:, j] for j in range(data.shape[1])] if data.dim() > 1 else [data]
+        cols += [double_sort_key(x, asc) if x.is_floating_point()
+                 else _value_key(x, asc).to(torch.int64) for x in lanes]
+    cols.append(torch.arange(rows, dtype=torch.int64, device=cols[0].device) + _I64_MIN)
+    return torch.stack(cols, 1)
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def prefix_plain(words: torch.Tensor, live: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``(prefix, q)``: each row's 64-bit prefix (its bits as int64) as
+    ``k7_range`` lays it out over the live rows, and the first field not
+    wholly in it.  Field after field (the first :data:`FIELDS`), each
+    takes the bits its span over the live rows needs, as ``value -
+    least``, until 64 are full (the last cut to its high bits); a
+    constant field takes none.  Live rows ordered by the prefix (as
+    unsigned), then by the fields from ``q`` on, are in
+    :func:`topn_plain`'s order."""
+    prefix = torch.zeros(words.shape[0], dtype=torch.int64, device=words.device)
+    ranged = min(words.shape[1], FIELDS)
+    q, left = ranged, 64
+    if not bool(live.any()):
+        return prefix, q
+    for f in range(ranged):
+        col = words[live, f]
+        lo, hi = int(col.min()), int(col.max())
+        if hi == lo:
+            continue
+        width = (hi - lo).bit_length()
+        d = words[:, f] - lo  # the unsigned difference's bits (it wraps)
+        if width > left:
+            prefix |= _srl(d, width - left)
+            q = f
+            break
+        left -= width
+        prefix |= d << left
+        if left == 0:
+            q = f + 1
+            break
+    return prefix, q
 
 
 def _stable_pass(perm: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
@@ -131,22 +192,23 @@ def topn(keys: Sequence[SortKey], row_mask: torch.Tensor, n: int):
         tensors += [data, valid]
     build.require_cuda(tensors, "topn")
     dev = row_mask.device
-    blocks = max(1, min(-(-rows // THREADS), 132 * 4))
-    cand = torch.empty(blocks * n, dtype=torch.int32, device=dev)
-    cand_cnt = torch.empty(blocks, dtype=torch.int32, device=dev)
+    lib = build.library()
+    size = lib.k7_scratch_bytes
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_longlong]
+    scratch = torch.empty(size(rows), dtype=torch.uint8, device=dev)
     ids = torch.empty(n, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    fn = build.library().k7_topn
+    fn = lib.k7_topn
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int] + \
-        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4
     err = fn(rows, row_mask.data_ptr(), len(keys),
              build.ptrs(d.data_ptr() for d, _, _, _ in keys),
              build.ptrs(v.data_ptr() for _, v, _, _ in keys),
              build.ints(kinds), build.ints(widths), build.ints(int(a) for _, _, a, _ in keys),
-             build.ints(int(nf) for _, _, _, nf in keys), n, blocks,
-             cand.data_ptr(), cand_cnt.data_ptr(), ids.data_ptr(), count.data_ptr(),
-             build.stream_of(row_mask))
+             build.ints(int(nf) for _, _, _, nf in keys), n, scratch.data_ptr(),
+             ids.data_ptr(), count.data_ptr(), build.stream_of(row_mask))
     build.check(err, "topn")
     launches += 1
     wide_launches += int(n > 32)

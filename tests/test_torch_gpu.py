@@ -2974,3 +2974,147 @@ def test_merge_sorted_kernel_matches_plain(dups):
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     for (gd, gv), (wd, wv) in zip(got[0], want[0]):
         assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+# The seventeenth slice: K6 over its live rows only (compaction before the
+# sort, the warp-tiled run reduction) and K7's radix select over an
+# adaptive prefix, at scale against their twins (cases from
+# test_torch_k6_k7_design.py, which imports no JAX).
+
+
+def _equal_by_bits(got, want, what):
+    if isinstance(got, torch.Tensor):
+        assert got.dtype == want.dtype and got.shape == want.shape, what
+        g = got.view(torch.int64) if got.dtype == torch.float64 else got
+        w = want.view(torch.int64) if want.dtype == torch.float64 else want
+        assert torch.equal(g, w), what
+        return
+    assert len(got) == len(want), what
+    for i, (x, y) in enumerate(zip(got, want)):
+        _equal_by_bits(x, y, f"{what}[{i}]")
+
+
+@pytest.mark.parametrize("rows", [1 << 20, 1 << 21])
+@pytest.mark.parametrize("presorted", [False, True])
+@pytest.mark.parametrize("case", ["all_dead", "one_live", "long_run", "near_sentinel", "hashed",
+                                  "mostly_dead", "all_live"])
+def test_k6_live_rows_only_match_plain(case, presorted, rows):
+    """Keys, states (doubles by their bits), ``order`` with its dead tail
+    and ``starts`` equal the twin's over 2^20 rows (a page sorted whole)
+    and 2^21 (compacted first, unless every row is live); the
+    probe-shaped page, 1% live, at 2^22 and 2^23 rows."""
+    from test_torch_k6_k7_design import _key_edge_cases, _states
+
+    dev = _cuda()
+    assert k6.SORT_WHOLE_ROWS == 1 << 20
+    n = rows * (4 if case == "mostly_dead" else 1)
+    rng = np.random.default_rng(170 + len(case) + presorted)
+    keys, mask = _key_edge_cases()[case](rng, n)
+    if presorted:
+        perm = torch.argsort(keys[0][0], stable=True)
+        keys = [(d[perm], v[perm], lo, card) for d, v, lo, card in keys]
+        mask = mask[perm]
+    keys = [(d.to(dev), v.to(dev), lo, card) for d, v, lo, card in keys]
+    mask = mask.to(dev)
+    states = [(kind, d.to(dev) if d is not None else None, v.to(dev) if v is not None else None)
+              for kind, d, v in _states(rng, n)]
+    got = k6.sorted_group_agg(keys, mask, states, presorted, runs=True)
+    want = k6.sorted_group_agg_plain(keys, mask, states, presorted, runs=True)
+    torch.cuda.synchronize()
+    assert got[2] == want[2]
+    _equal_by_bits(got[0], want[0], "keys")
+    _equal_by_bits(got[1], want[1], "states")
+    _equal_by_bits(got[3], want[3], "(order, starts)")
+
+
+@pytest.mark.parametrize("n", [1, 10, 100])
+@pytest.mark.parametrize("case", ["int_nulls_first_desc", "double_signed_zeros_nan", "real",
+                                  "smallint_tinyint", "long_decimal", "wide_decimal",
+                                  "raw_shared_prefix", "raw_many_lanes",
+                                  "bool_first_heavy_ties", "full_range_ties", "cut_field",
+                                  "flag_then_key"])
+def test_k7_radix_select_matches_plain(case, n):
+    from test_torch_k6_k7_design import _key_cases
+
+    dev = _cuda()
+    rows = 1 << 20
+    rng = np.random.default_rng(171 + len(case))
+    keys = [(d.to(dev), v.to(dev), a, nf) for d, v, a, nf in _key_cases()[case](rng, rows)]
+    mask = torch.from_numpy(rng.random(rows) >= 0.1).to(dev)
+    got = k7.topn(keys, mask, n)
+    want = k7.topn_plain(keys, mask, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("live", [0, 1, 99, 2047, 2049])
+def test_k7_few_live_rows_match_plain(live):
+    """An all-dead page, n above the live count, and live counts on both
+    sides of the final sort's budget."""
+    from test_torch_k6_k7_design import _key_cases
+
+    dev = _cuda()
+    rows = 1 << 20
+    rng = np.random.default_rng(172 + live)
+    keys = [(d.to(dev), v.to(dev), a, nf)
+            for d, v, a, nf in _key_cases()["double_signed_zeros_nan"](rng, rows)]
+    mask = torch.zeros(rows, dtype=torch.bool)
+    mask[rng.choice(rows, live, replace=False)] = True
+    mask = mask.to(dev)
+    got = k7.topn(keys, mask, 100)
+    want = k7.topn_plain(keys, mask, 100)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("second", ["orderkey", "few_full_range"])
+def test_k7_flag_first_key_at_lineitem_scale(second):
+    """A lineitem-sized page (2^23 rows) whose first key is a three-valued
+    flag, descending: millions of rows tie on it.  With an order key the
+    prefix holds the row; with a full-range second key of few values it
+    cannot, and the rows tied with the 100th on the whole prefix are
+    refined on the fields past it."""
+    dev = _cuda()
+    rows = 1 << 23
+    rng = np.random.default_rng(173)
+    flag = torch.from_numpy(rng.integers(0, 3, rows).astype(np.int32))
+    if second == "orderkey":
+        key = torch.from_numpy(rng.integers(1, 6 * 10 ** 7, rows))
+    else:
+        key = torch.from_numpy(rng.choice(rng.integers(-(1 << 63), (1 << 63) - 1, 20,
+                                                       dtype=np.int64), rows))
+    ones = torch.ones(rows, dtype=torch.bool, device=dev)
+    keys = [(flag.to(dev), ones, False, False), (key.to(dev), ones, True, False)]
+    mask = torch.from_numpy(rng.random(rows) >= 0.05).to(dev)
+    got = k7.topn(keys, mask, 100)
+    want = k7.topn_plain(keys, mask, 100)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("only", ["double_sum", "hll", "min_by"])
+def test_k6_keys_without_integer_slot_match_plain(only):
+    """States whose first accumulate phase has no integer slot (a double
+    sum, an HLL sum, a min_by alone): the group keys are still written,
+    equal to the twin's."""
+    dev = _cuda()
+    n = 1 << 20
+    rng = np.random.default_rng(174)
+    code = torch.from_numpy(rng.integers(0, 5000, n)).to(dev)
+    mask = torch.from_numpy(rng.random(n) >= 0.3).to(dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    keys = [(code, ones, 0, 5001)]
+    if only == "double_sum":
+        states = [(k6.S_DSUM, torch.from_numpy(rng.normal(0, 1e3, n)).to(dev), ones)]
+    elif only == "hll":
+        states = [(k6.S_HLL, torch.from_numpy(rng.integers(0, 30, n)).to(dev), ones)]
+    else:
+        states = [(k6.S_BY_X, torch.from_numpy(rng.integers(0, 10 ** 6, n)).to(dev), ones),
+                  (k6.S_BY_XV, None, ones),
+                  (k6.S_BY_Y_MIN, torch.from_numpy(rng.normal(0, 1, n)).to(dev), ones)]
+    got = k6.sorted_group_agg(keys, mask, states)
+    want = k6.sorted_group_agg_plain(keys, mask, states)
+    torch.cuda.synchronize()
+    assert got[2] == want[2]
+    _equal_by_bits(got[0], want[0], "keys")
+    _equal_by_bits(got[1], want[1], "states")
